@@ -1,0 +1,371 @@
+"""The mega path: sweeps, measurement and parallel tempering of a chunk.
+
+Counterpart of ``peapods_tpu/ops/pallas_mega.py`` (``supports_mega`` :64-69,
+``mega_chunk`` :302-428).  The TPU runs a chunk as one Pallas call that
+keeps every slot's spins in VMEM; on the H100 one sweep is three launches of
+the hand-written kernels in ``csrc/mega.cu`` on the current stream::
+
+    colour_pass(colour 0) -> colour_pass(colour 1, partial e and m sums)
+        -> pt_step (reduce the partials into the sweep's (e, m) rows, then
+           the PT event when the sweep is on the PT interval)
+
+with no host synchronisation inside a chunk.  State is updated in place:
+spins by system ``[d, n_systems, H, W]`` and the slot -> system map ``sid``
+(a PT swap exchanges ``sid`` entries, never spin tiles), and the PT
+counters.
+
+Each kernel has a plain torch version here (:func:`colour_pass_plain`,
+:func:`pt_step_plain`, :func:`mega_chunk_plain`).  The dispatch wrappers
+(:func:`colour_pass`, :func:`pt_step`, :func:`mega_chunk`) take the plain
+version for tensors on the CPU, launch the kernel for CUDA tensors, and
+raise for anything else; they never fall back.  :data:`LAUNCHES` counts the
+kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .energy import per_spin
+from .lattice import Lattice
+from .rng import colour_uniforms
+from .sweep import colour_mask, colour_update
+from .tempering import pt_apply, pt_draws
+
+__all__ = [
+    "LAUNCHES",
+    "reset_launches",
+    "supports_mega",
+    "colour_pass",
+    "colour_pass_plain",
+    "pt_step",
+    "pt_step_plain",
+    "mega_chunk",
+    "mega_chunk_plain",
+]
+
+# kernel launches since the last reset_launches(), by kernel name
+LAUNCHES = {"colour_pass": 0, "pt_step": 0}
+
+# the plain path draws its site uniforms in blocks of sweeps of at most this
+# many elements per colour
+_UNIFORM_BLOCK = 1 << 22
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def supports_mega(lattice, n_replicas) -> bool:
+    """2D square lattice with even extents and one replica."""
+    return isinstance(lattice, Lattice) and n_replicas == 1
+
+
+def _device_kind(t) -> str:
+    kind = t.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"tensors on {t.device} are not supported")
+    return kind
+
+
+# ------------------------------------------------------------ plain torch
+
+
+def colour_pass_plain(spins, jgrids, sid, temps, words, colour, *, gibbs,
+                      u=None):
+    """One colour pass over every (realization, slot), in place.
+
+    Args:
+        spins: int8 ``[d, n_systems, H, W]`` by system.
+        jgrids: f32 ``[d, 4, H, W]``.
+        sid: int32 ``[d, n_slots]`` system at each slot.
+        temps: f32 ``[n_slots]``.
+        words: int32 ``[d, 2]`` the sweep's key words (unused when ``u`` is
+            given).
+        u: optional f32 ``[d, n_slots, H, W]`` injected uniforms.
+
+    Returns:
+        For colour 1, the partial sums ``(e_part f32 [d, n_slots, 1],
+        m_part int32 [d, n_slots, 1])`` of ``s*h`` over the odd sites and of
+        ``s``; ``None`` for colour 0.
+    """
+    d, n_slots, h, w = spins.shape[0], sid.shape[1], *spins.shape[2:]
+    if u is None:
+        u = colour_uniforms(words, n_slots, colour, (h, w))
+    di = torch.arange(d, device=spins.device)[:, None]
+    sys = sid.to(torch.int64)
+    inv_half_t = (1.0 / (0.5 * temps)).reshape(1, n_slots, 1, 1)
+    s, field = colour_update(spins[di, sys].to(torch.float32), jgrids[:, None],
+                             inv_half_t, u, colour, gibbs=gibbs)
+    spins[di, sys] = s.to(torch.int8)
+    if colour == 0:
+        return None
+    odd = colour_mask((h, w), 1, spins.device)
+    e_part = torch.where(odd, s * field, 0.0).sum((-2, -1))
+    m_part = s.to(torch.int32).sum((-2, -1), dtype=torch.int32)
+    return e_part[..., None], m_part[..., None]
+
+
+def pt_step_plain(e_part, m_part, e_row, m_row, sid, ea, ec, rtrips, tstate,
+                  temps, pt_words, *, do_pt, pt_full, parity, hot_slot,
+                  cold_slot, n_spins, draws=None) -> int:
+    """Reduce a sweep's partials into its ``(e, m)`` rows (``e_row`` f32 /
+    ``m_row`` int32 ``[d, n_slots]``, written in place) and, when
+    ``do_pt``, run the PT event (:func:`~.tempering.pt_apply`) in place.
+    ``draws`` may carry this event's precomputed :func:`pt_draws`.
+    Returns the parity of the next PT event."""
+    es = per_spin(e_part.sum(-1), n_spins)
+    e_row.copy_(es)
+    m_row.copy_(m_part.sum(-1, dtype=torch.int32))
+    if not do_pt:
+        return parity
+    if draws is None:
+        draws = pt_draws(pt_words, temps.shape[0] - 1, pt_full=pt_full)
+    return pt_apply(es, sid, ea, ec, rtrips, tstate, temps, draws,
+                    pt_full=pt_full, parity=parity, n_spins=n_spins,
+                    hot_slot=hot_slot, cold_slot=cold_slot)
+
+
+def _philox_source(sweep_words, n_slots, shape):
+    """``uniforms(t, colour)`` drawing Philox uniforms a block of sweeps at
+    a time."""
+    n, d = sweep_words.shape[:2]
+    block = max(1, _UNIFORM_BLOCK // (d * n_slots * shape[0] * shape[1]))
+    cache = {}
+
+    def uniforms(t, colour):
+        b = t // block
+        if b not in cache:
+            cache.clear()
+            words = sweep_words[b * block:(b + 1) * block]
+            cache[b] = [colour_uniforms(words, n_slots, c, shape)
+                        for c in (0, 1)]
+        return cache[b][colour][t - b * block]
+
+    return uniforms
+
+
+def _pt_due(sweep_base, t, pt_interval) -> bool:
+    return pt_interval is not None and (sweep_base + t) % pt_interval == 0
+
+
+def mega_chunk_plain(spins, jgrids, temps, sid, ea, ec, rtrips, tstate,
+                     sweep_words, pt_words, *, sweep_base, parity, gibbs,
+                     pt_interval, pt_full, hot_slot, cold_slot, uniforms=None):
+    """Plain torch :func:`mega_chunk`.  ``uniforms(t, colour)`` may inject
+    f32 ``[d, n_slots, H, W]`` site uniforms for sweep ``t`` (the tests pass
+    zeros, which is what the reference's interpret mode draws)."""
+    n, d = sweep_words.shape[:2]
+    n_slots = sid.shape[1]
+    h, w = spins.shape[2:]
+    if uniforms is None:
+        uniforms = _philox_source(sweep_words, n_slots, (h, w))
+    e = torch.empty((d, n, n_slots), dtype=torch.float32, device=spins.device)
+    m = torch.empty((d, n, n_slots), dtype=torch.int32, device=spins.device)
+    draws = (pt_draws(pt_words, n_slots - 1, pt_full=pt_full)
+             if pt_interval is not None else None)
+    for t in range(n):
+        colour_pass_plain(spins, jgrids, sid, temps, None, 0, gibbs=gibbs,
+                          u=uniforms(t, 0))
+        e_part, m_part = colour_pass_plain(spins, jgrids, sid, temps, None, 1,
+                                           gibbs=gibbs, u=uniforms(t, 1))
+        parity = pt_step_plain(
+            e_part, m_part, e[:, t], m[:, t], sid, ea, ec, rtrips, tstate,
+            temps, None, do_pt=_pt_due(sweep_base, t, pt_interval),
+            pt_full=pt_full, parity=parity, hot_slot=hot_slot,
+            cold_slot=cold_slot, n_spins=h * w,
+            draws=None if draws is None else _index(draws, t),
+        )
+    return e, m, parity
+
+
+def _index(draws, t):
+    return tuple(x[t] for x in draws) if isinstance(draws, tuple) else draws[t]
+
+
+# ------------------------------------------------------------ CUDA kernels
+
+
+def _expect(t, name, dtype, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_sweep(spins, jgrids, sid, temps):
+    """Validate the colour pass's tensors; returns ``(d, n_slots, H, W)``."""
+    dev = spins.device
+    d, n_sys, h, w = spins.shape
+    n_slots = sid.shape[1]
+    _expect(spins, "spins", torch.int8, (d, n_sys, h, w), dev)
+    _expect(jgrids, "jgrids", torch.float32, (d, 4, h, w), dev)
+    _expect(sid, "sid", torch.int32, (d, n_slots), dev)
+    _expect(temps, "temps", torch.float32, (n_slots,), dev)
+    if n_sys != n_slots:
+        raise ValueError("the mega kernels run one replica: n_systems == n_slots")
+    if d > 65535 or n_slots > 65535:
+        raise ValueError("at most 65535 realizations and slots")
+    return d, n_slots, h, w
+
+
+def _check_pt(d, n_slots, dev, ea, ec, rtrips, tstate):
+    n_edges = max(n_slots - 1, 0)
+    for name, t, shape in (("ea", ea, (d, n_edges)), ("ec", ec, (d, n_edges)),
+                           ("rtrips", rtrips, (d, n_slots)),
+                           ("tstate", tstate, (d, n_slots))):
+        _expect(t, name, torch.int32, shape, dev)
+
+
+def _partials(lib, d, n_slots, h, w, dev):
+    nb = lib.peapods_colour_pass_blocks(h, w)
+    return (torch.empty((d, n_slots, nb), dtype=torch.float32, device=dev),
+            torch.empty((d, n_slots, nb), dtype=torch.int32, device=dev))
+
+
+def _launch_colour(lib, stream, shape, spins, jgrids, sid, temps, words,
+                   e_part, m_part, colour, gibbs):
+    """Launch ``colour_pass``; pointers are ints (``None`` for no partials)."""
+    d, n_slots, h, w = shape
+    _build.check(lib.peapods_colour_pass(
+        spins, jgrids, sid, temps, words, e_part, m_part, d, n_slots, h, w,
+        colour, int(gibbs), stream,
+    ), "colour_pass")
+    LAUNCHES["colour_pass"] += 1
+
+
+def _launch_pt(lib, stream, d, n_slots, n_spins, e_part, m_part, n_blocks,
+               e_row, m_row, out_stride, sid, ea, ec, rtrips, tstate, temps,
+               pt_words, *, do_pt, pt_full, parity, hot_slot, cold_slot) -> int:
+    """Launch ``pt_step``; pointers are ints.  Returns the next parity."""
+    _build.check(lib.peapods_pt_step(
+        e_part, m_part, n_blocks, e_row, m_row, out_stride, sid, ea, ec,
+        rtrips, tstate, temps, pt_words, d, n_slots, n_spins, int(do_pt),
+        int(pt_full), int(parity), hot_slot, cold_slot, stream,
+    ), "pt_step")
+    LAUNCHES["pt_step"] += 1
+    return 1 - parity if (do_pt and pt_full) else parity
+
+
+# ------------------------------------------------------------ dispatch
+
+
+def colour_pass(spins, jgrids, sid, temps, words, colour, *, gibbs):
+    """One colour pass (see :func:`colour_pass_plain`): the plain version
+    for CPU tensors, the ``colour_pass`` kernel for CUDA tensors.  The
+    kernel's partials have one entry per block of the pass."""
+    if _device_kind(spins) == "cpu":
+        return colour_pass_plain(spins, jgrids, sid, temps, words, colour,
+                                 gibbs=gibbs)
+    shape = _check_sweep(spins, jgrids, sid, temps)
+    dev = spins.device
+    _expect(words, "words", torch.int32, (shape[0], 2), dev)
+    lib = _build.library()
+    parts = _partials(lib, *shape, dev) if colour == 1 else (None, None)
+    ptrs = [None if t is None else t.data_ptr() for t in parts]
+    _launch_colour(lib, torch.cuda.current_stream(dev).cuda_stream, shape,
+                   spins.data_ptr(), jgrids.data_ptr(), sid.data_ptr(),
+                   temps.data_ptr(), words.data_ptr(), *ptrs, colour, gibbs)
+    return parts if colour == 1 else None
+
+
+def pt_step(e_part, m_part, e_row, m_row, sid, ea, ec, rtrips, tstate, temps,
+            pt_words, *, do_pt, pt_full, parity, hot_slot, cold_slot,
+            n_spins) -> int:
+    """Reduce a sweep's partials and run its PT event (see
+    :func:`pt_step_plain`): plain for CPU tensors, the ``pt_step`` kernel
+    for CUDA tensors.  ``e_row`` / ``m_row`` are ``[d, n_slots]`` views with
+    unit stride along the slots and equal row strides."""
+    kw = dict(do_pt=do_pt, pt_full=pt_full, parity=parity, hot_slot=hot_slot,
+              cold_slot=cold_slot)
+    if _device_kind(e_part) == "cpu":
+        return pt_step_plain(e_part, m_part, e_row, m_row, sid, ea, ec, rtrips,
+                             tstate, temps, pt_words, n_spins=n_spins, **kw)
+    dev = e_part.device
+    d, n_slots, n_blocks = e_part.shape
+    _expect(e_part, "e_part", torch.float32, (d, n_slots, n_blocks), dev)
+    _expect(m_part, "m_part", torch.int32, (d, n_slots, n_blocks), dev)
+    _expect(sid, "sid", torch.int32, (d, n_slots), dev)
+    _expect(temps, "temps", torch.float32, (n_slots,), dev)
+    _expect(pt_words, "pt_words", torch.int32, (d, 2), dev)
+    _check_pt(d, n_slots, dev, ea, ec, rtrips, tstate)
+    for name, t, dtype in (("e_row", e_row, torch.float32),
+                           ("m_row", m_row, torch.int32)):
+        if (t.device != dev or t.dtype != dtype or tuple(t.shape) != (d, n_slots)
+                or t.stride(1) != 1 or t.stride(0) != e_row.stride(0)):
+            raise ValueError(f"{name} must be a {dtype} [d, n_slots] row view")
+    return _launch_pt(
+        _build.library(), torch.cuda.current_stream(dev).cuda_stream,
+        d, n_slots, n_spins, e_part.data_ptr(), m_part.data_ptr(),
+        n_blocks, e_row.data_ptr(), m_row.data_ptr(), e_row.stride(0),
+        sid.data_ptr(), ea.data_ptr(), ec.data_ptr(), rtrips.data_ptr(),
+        tstate.data_ptr(), temps.data_ptr(), pt_words.data_ptr(), **kw,
+    )
+
+
+def mega_chunk(spins, jgrids, temps, sid, ea, ec, rtrips, tstate, sweep_words,
+               pt_words, *, sweep_base, parity, gibbs, pt_interval, pt_full,
+               hot_slot, cold_slot):
+    """Run ``n`` sweeps (+ fused measurement + PT) on every realization.
+
+    Args:
+        spins: int8 ``[d, n_systems, H, W]`` by system, updated in place.
+        jgrids: f32 ``[d, 4, H, W]`` pre-shifted coupling grids.
+        temps: f32 ``[n_slots]``.
+        sid: int32 ``[d, n_slots]`` system at each slot, updated in place.
+        ea, ec: int32 ``[d, n_edges]`` PT edge attempts / acceptances.
+        rtrips, tstate: int32 ``[d, n_systems]`` round trips / trip state.
+        sweep_words, pt_words: int32 ``[n, d, 2]`` per-sweep key words.
+        sweep_base: index of the chunk's first sweep within the sample()
+            call; a sweep runs PT iff its index is a multiple of
+            ``pt_interval`` (``None``: no PT).
+        parity: full-ladder parity of the next PT event.
+
+    Returns:
+        ``(e f32 [d, n, n_slots], m int32 [d, n, n_slots], parity)``: per
+        sweep, each slot's energy per spin and magnetization sum, and the
+        parity of the next PT event.
+    """
+    args = (spins, jgrids, temps, sid, ea, ec, rtrips, tstate, sweep_words,
+            pt_words)
+    kw = dict(sweep_base=sweep_base, parity=parity, gibbs=gibbs,
+              pt_interval=pt_interval, pt_full=pt_full, hot_slot=hot_slot,
+              cold_slot=cold_slot)
+    if _device_kind(spins) == "cpu":
+        return mega_chunk_plain(*args, **kw)
+    shape = _check_sweep(spins, jgrids, sid, temps)
+    d, n_slots, h, w = shape
+    dev = spins.device
+    n = sweep_words.shape[0]
+    _check_pt(d, n_slots, dev, ea, ec, rtrips, tstate)
+    _expect(sweep_words, "sweep_words", torch.int32, (n, d, 2), dev)
+    _expect(pt_words, "pt_words", torch.int32, (n, d, 2), dev)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    e_part, m_part = _partials(lib, d, n_slots, h, w, dev)
+    e = torch.empty((d, n, n_slots), dtype=torch.float32, device=dev)
+    m = torch.empty((d, n, n_slots), dtype=torch.int32, device=dev)
+    p_spins, p_jg, p_sid, p_temps = (t.data_ptr() for t in (spins, jgrids, sid, temps))
+    p_ep, p_mp, p_e, p_m = (t.data_ptr() for t in (e_part, m_part, e, m))
+    p_pt = [t.data_ptr() for t in (ea, ec, rtrips, tstate)]
+    p_sw, p_pw = sweep_words.data_ptr(), pt_words.data_ptr()
+    word_bytes = d * 2 * 4  # one sweep's [d, 2] int32 words
+    row_bytes = n_slots * 4  # one sweep's [n_slots] row of e or m
+    for t in range(n):
+        for colour, parts in ((0, (None, None)), (1, (p_ep, p_mp))):
+            _launch_colour(lib, stream, shape, p_spins, p_jg, p_sid, p_temps,
+                           p_sw + t * word_bytes, *parts, colour, gibbs)
+        parity = _launch_pt(
+            lib, stream, d, n_slots, h * w, p_ep, p_mp, e_part.shape[2],
+            p_e + t * row_bytes, p_m + t * row_bytes, n * n_slots, p_sid,
+            *p_pt, p_temps, p_pw + t * word_bytes,
+            do_pt=_pt_due(sweep_base, t, pt_interval), pt_full=pt_full,
+            parity=parity, hot_slot=hot_slot, cold_slot=cold_slot,
+        )
+    return e, m, parity
