@@ -1,8 +1,9 @@
-"""peapods_tpu_torch: the PyTorch / CUDA port of peapods_tpu.
+"""peapods_tpu_torch: the PyTorch / CUDA port of ``peapods_tpu``.
 
 The port runs beside the JAX package and imports none of it.  Today it runs
-the mega path: a 2D square lattice with even extents, one replica,
-Metropolis or Gibbs sweeps, parallel tempering, every sweep measured -- on
+a 2D square lattice with even extents and one replica: Metropolis or Gibbs
+sweeps, parallel tempering, every sweep measured (the mega path), and
+optional Swendsen-Wang or Wolff cluster updates (the per-sweep path) -- on
 an NVIDIA H100 through hand-written CUDA kernels (``device="cuda"``), or on
 the CPU through their plain torch versions (``device="cpu"``).
 

@@ -19,9 +19,13 @@
 // * The measuring pass also sums s*h over the odd sites (their field is read
 //   on the final even spins, so every bond is counted once: the energy for
 //   free, pallas_sweep.py:176-180) and s over both sites of each column
-//   pair.  Each block writes one partial per (realization, slot); pt_step
-//   adds them in a fixed order.  No float atomics: e is the same from run
-//   to run.
+//   pair.  Each block writes one partial per (realization, system), the
+//   layout of the per-sweep path's kernels too; pt_step adds each slot's
+//   system's partials in a fixed order.  No float atomics: e is the same
+//   from run to run.
+// * pt_step reads its draws from tensors in one form for both paths: the
+//   mega path's murmur draws of its PT words and the per-sweep path's
+//   jnp-form draws are both computed per chunk outside the kernel.
 // * Compiled with -fmad=false and without --use_fast_math, with expf, logf
 //   and the sigmoid as 1 / (1 + expf(-x)), in the operation order of the
 //   plain torch version (ops/sweep.py, ops/tempering.py).
@@ -58,76 +62,25 @@ colour_pass_kernel(int8_t* __restrict__ spins, const float* __restrict__ jgrids,
                    int colour, int gibbs) {
   const int slot = blockIdx.y;
   const int d = blockIdx.z;
-  const int wh = W >> 1;
-  const int n_half = H * wh;
   const size_t hw = static_cast<size_t>(H) * W;
   const int sys = sid[d * n_slots + slot];
-  int8_t* s = spins + (static_cast<size_t>(d) * n_slots + sys) * hw;
-  const float* ju = jgrids + static_cast<size_t>(d) * 4 * hw;
-  const float* jd = ju + hw;
-  const float* jl = jd + hw;
-  const float* jr = jl + hw;
-  const float inv_half_t = 1.0f / (0.5f * temps[slot]);
   const bool measure = e_part != nullptr;
-
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   float e_acc = 0.0f;
   int m_acc = 0;
-  if (kSitesPerThread * g < n_half) {
+  if (kSitesPerThread * g < H * (W >> 1)) {
     const uint4 r4 = philox4x32_10(static_cast<uint32_t>(words[2 * d]),
                                    static_cast<uint32_t>(words[2 * d + 1]),
                                    static_cast<uint32_t>(slot),
                                    static_cast<uint32_t>(colour),
                                    static_cast<uint32_t>(g), 0u);
-    const uint32_t w4[4] = {r4.x, r4.y, r4.z, r4.w};
-#pragma unroll
-    for (int k = 0; k < kSitesPerThread; ++k) {
-      const int i = kSitesPerThread * g + k;
-      if (i >= n_half) break;
-      const int r = i / wh;
-      const int col = 2 * (i - r * wh) + ((r + colour) & 1);
-      const int up = r == 0 ? H - 1 : r - 1;
-      const int dn = r == H - 1 ? 0 : r + 1;
-      const int lf = col == 0 ? W - 1 : col - 1;
-      const int rg = col == W - 1 ? 0 : col + 1;
-      const size_t idx = static_cast<size_t>(r) * W + col;
-      float field = static_cast<float>(s[static_cast<size_t>(up) * W + col]) * ju[idx] +
-                    static_cast<float>(s[static_cast<size_t>(dn) * W + col]) * jd[idx];
-      field = field + static_cast<float>(s[static_cast<size_t>(r) * W + lf]) * jl[idx];
-      field = field + static_cast<float>(s[static_cast<size_t>(r) * W + rg]) * jr[idx];
-      float sv = static_cast<float>(s[idx]);
-      const float x = (-sv * field) * inv_half_t;
-      const float p = gibbs ? 1.0f / (1.0f + expf(-x))
-                            : kKeep * expf(fminf(x, 0.0f));
-      if (uniform24(w4[k]) < p) {
-        sv = -sv;
-        s[idx] = static_cast<int8_t>(sv);
-      }
-      if (measure) {
-        e_acc += sv * field;
-        m_acc += static_cast<int>(sv) + static_cast<int>(s[idx ^ 1]);
-      }
-    }
+    update_sites(spins + (static_cast<size_t>(d) * n_slots + sys) * hw,
+                 jgrids + static_cast<size_t>(d) * 4 * hw, H, W, colour,
+                 1.0f / (0.5f * temps[slot]), gibbs, r4, g, measure, e_acc, m_acc);
   }
   if (!measure) return;  // uniform across the block
-
-  __shared__ float se[kThreads];
-  __shared__ int sm[kThreads];
-  se[threadIdx.x] = e_acc;
-  sm[threadIdx.x] = m_acc;
-  __syncthreads();
-  for (int off = kThreads / 2; off > 0; off >>= 1) {
-    if (threadIdx.x < off) {
-      se[threadIdx.x] += se[threadIdx.x + off];
-      sm[threadIdx.x] += sm[threadIdx.x + off];
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    const size_t o = (static_cast<size_t>(d) * n_slots + slot) * gridDim.x + blockIdx.x;
-    e_part[o] = se[0];
-    m_part[o] = sm[0];
-  }
+  block_partials(e_acc, m_acc, e_part, m_part,
+                 (static_cast<size_t>(d) * n_slots + sys) * gridDim.x + blockIdx.x);
 }
 
 struct PtState {
@@ -175,13 +128,16 @@ __global__ void pt_step_kernel(const float* __restrict__ e_part,
                                int out_stride, int32_t* sid, int32_t* ea, int32_t* ec,
                                int32_t* rtrips, int32_t* tstate,
                                const float* __restrict__ temps,
-                               const int32_t* __restrict__ pt_words, int n_slots,
+                               const int32_t* __restrict__ edge_draw,
+                               const float* __restrict__ u_draw,
+                               float* __restrict__ sys_temps, int n_slots,
                                int n_spins, int do_pt, int pt_full, int parity,
                                int hot, int cold) {
   extern __shared__ float es[];
   const int d = blockIdx.x;
   for (int slot = threadIdx.x; slot < n_slots; slot += blockDim.x) {
-    const size_t base = (static_cast<size_t>(d) * n_slots + slot) * n_blocks;
+    const size_t base =
+        (static_cast<size_t>(d) * n_slots + sid[d * n_slots + slot]) * n_blocks;
     float acc = 0.0f;
     int macc = 0;
     for (int b = 0; b < n_blocks; ++b) {
@@ -194,23 +150,26 @@ __global__ void pt_step_kernel(const float* __restrict__ e_part,
     m_out[static_cast<size_t>(d) * out_stride + slot] = macc;
   }
   __syncthreads();
-  if (!do_pt || threadIdx.x != 0) return;
+  if (!do_pt) return;
 
-  const int n_edges = n_slots - 1;
-  PtState st{es, sid + d * n_slots, ea + d * n_edges, ec + d * n_edges,
-             rtrips + d * n_slots, tstate + d * n_slots, temps, n_spins, hot, cold};
-  const uint32_t w0 = static_cast<uint32_t>(pt_words[2 * d]);
-  const uint32_t w1 = static_cast<uint32_t>(pt_words[2 * d + 1]);
-  if (pt_full) {
-    for (int i = 0; i < 2; ++i) {
-      const int p = i == 0 ? parity : 1 - parity;
-      for (int e = p; e < n_edges; e += 2)
-        try_edge(st, e, scalar_uniform(w0, w1, static_cast<uint32_t>(2 * n_edges * i + e)));
+  if (threadIdx.x == 0) {
+    const int n_edges = n_slots - 1;
+    PtState st{es, sid + d * n_slots, ea + d * n_edges, ec + d * n_edges,
+               rtrips + d * n_slots, tstate + d * n_slots, temps, n_spins, hot, cold};
+    if (pt_full) {
+      for (int i = 0; i < 2; ++i) {
+        const int p = i == 0 ? parity : 1 - parity;
+        for (int e = p; e < n_edges; e += 2)
+          try_edge(st, e, u_draw[(static_cast<size_t>(d) * 2 + i) * n_edges + e]);
+      }
+    } else {
+      try_edge(st, edge_draw[d], u_draw[d]);
     }
-  } else {
-    const int e = scalar_randint(w0, w1, 0u, n_edges);
-    try_edge(st, e, scalar_uniform(w0, w1, 1u));
   }
+  // the systems' temperatures after the swaps, for the next sweep
+  __syncthreads();
+  for (int slot = threadIdx.x; slot < n_slots; slot += blockDim.x)
+    sys_temps[d * n_slots + sid[d * n_slots + slot]] = temps[slot];
 }
 
 }  // namespace
@@ -219,11 +178,7 @@ extern "C" {
 
 // Blocks per (realization, slot) of a colour pass: the length of the
 // partial-sum rows the caller allocates.
-int peapods_colour_pass_blocks(int H, int W) {
-  const int n_half = H * (W / 2);
-  const int groups = (n_half + kSitesPerThread - 1) / kSitesPerThread;
-  return (groups + kThreads - 1) / kThreads;
-}
+int peapods_colour_pass_blocks(int H, int W) { return colour_pass_blocks(H, W); }
 
 // One colour pass over every (realization, slot).  e_part / m_part are
 // [d, n_slots, blocks] (both null for a pass that does not measure).
@@ -231,7 +186,7 @@ int peapods_colour_pass(void* spins, const void* jgrids, const void* sid,
                         const void* temps, const void* words, void* e_part,
                         void* m_part, int n_disorder, int n_slots, int H, int W,
                         int colour, int gibbs, void* stream) {
-  const dim3 grid(peapods_colour_pass_blocks(H, W), n_slots, n_disorder);
+  const dim3 grid(colour_pass_blocks(H, W), n_slots, n_disorder);
   colour_pass_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int8_t*>(spins), static_cast<const float*>(jgrids),
       static_cast<const int32_t*>(sid), static_cast<const float*>(temps),
@@ -240,22 +195,26 @@ int peapods_colour_pass(void* spins, const void* jgrids, const void* sid,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Reduce one sweep's partials into its (e, m) rows and run the PT event
-// (when do_pt) on every realization's ladder.
+// Reduce one sweep's partials ([d, n_systems, n_blocks], by system: read
+// through sid) into its (e, m) rows by slot and run the PT event (when
+// do_pt) on every realization's ladder, with the draws u_draw (f32 [d]
+// single edge, [d, 2, n_edges] full ladder) and edge_draw (int32 [d]); a PT
+// event then rewrites each system's temperature sys_temps ([d, n_systems]).
 int peapods_pt_step(const void* e_part, const void* m_part, int n_blocks,
                     void* e_out, void* m_out, int out_stride, void* sid, void* ea,
                     void* ec, void* rtrips, void* tstate, const void* temps,
-                    const void* pt_words, int n_disorder, int n_slots, int n_spins,
-                    int do_pt, int pt_full, int parity, int hot, int cold,
-                    void* stream) {
+                    const void* edge_draw, const void* u_draw, void* sys_temps,
+                    int n_disorder, int n_slots, int n_spins, int do_pt, int pt_full,
+                    int parity, int hot, int cold, void* stream) {
   pt_step_kernel<<<n_disorder, 32, n_slots * sizeof(float),
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(e_part), static_cast<const int32_t*>(m_part), n_blocks,
       static_cast<float*>(e_out), static_cast<int32_t*>(m_out), out_stride,
       static_cast<int32_t*>(sid), static_cast<int32_t*>(ea), static_cast<int32_t*>(ec),
       static_cast<int32_t*>(rtrips), static_cast<int32_t*>(tstate),
-      static_cast<const float*>(temps), static_cast<const int32_t*>(pt_words), n_slots,
-      n_spins, do_pt, pt_full, parity, hot, cold);
+      static_cast<const float*>(temps), static_cast<const int32_t*>(edge_draw), static_cast<const float*>(u_draw),
+      static_cast<float*>(sys_temps), n_slots, n_spins, do_pt, pt_full,
+      parity, hot, cold);
   return static_cast<int>(cudaGetLastError());
 }
 

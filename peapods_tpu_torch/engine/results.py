@@ -1,10 +1,11 @@
 """Assembly of the public results dict for the slice.
 
 Counterpart of the subset of ``HostAccum.finalize``
-(``peapods_tpu/engine/results.py:244-342``) that the mega path produces:
-the magnetization and energy moments, and ``per_disorder.
-parallel_tempering`` when PT is configured, with the reference's keys,
-dtypes and presence rules.
+(``peapods_tpu/engine/results.py:244-346``) that the slice produces: the
+magnetization and energy moments, ``per_disorder.parallel_tempering`` when
+PT is configured, and the FK cluster-size histograms ``fk_csd`` when
+cluster statistics are collected, with the reference's keys, dtypes and
+presence rules.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ __all__ = ["finalize"]
 
 
 def finalize(rec_sums: np.ndarray, n_recorded: int, n_replicas: int,
-             pt_state: dict | None) -> dict:
+             pt_state: dict | None, fk_csd: np.ndarray | None = None) -> dict:
     """Build the results dict.
 
     Args:
@@ -25,6 +26,8 @@ def finalize(rec_sums: np.ndarray, n_recorded: int, n_replicas: int,
         n_recorded: number of recorded sweeps.
         pt_state: numpy ``pt_edge_attempts``, ``pt_edge_acceptances`` and
             ``pt_round_trips`` when PT is configured, else ``None``.
+        fk_csd: integer ``[d, T, n_spins + 1]`` cluster-size histograms of
+            the recorded FK updates per temperature, when collected.
     """
     d, _, t = rec_sums.shape
     result = {}
@@ -47,4 +50,9 @@ def finalize(rec_sums: np.ndarray, n_recorded: int, n_replicas: int,
                 .reshape(d, n_replicas, t),
             }
         }
+    if fk_csd is not None and fk_csd.sum() > 0:
+        # summed over realizations, one uint64 histogram per temperature
+        # (peapods_tpu/engine/results.py:344-346)
+        agg = fk_csd.astype(np.uint64).sum(0)
+        result["fk_csd"] = [agg[i] for i in range(t)]
     return result

@@ -2,7 +2,8 @@
 
 Counterpart of ``peapods_tpu/engine/simulation.py`` (:75-436) for the slice
 the port runs today: a 2D square lattice with even extents, one replica,
-Metropolis or Gibbs sweeps, optional parallel tempering (both schedules),
+Metropolis or Gibbs sweeps, optional SW or Wolff cluster updates (with or
+without cluster statistics), optional parallel tempering (both schedules),
 every sweep measured.  The device is explicit (``device="cuda"`` by
 default); a CUDA device runs the hand-written kernels, ``device="cpu"`` their
 plain torch versions, and nothing ever falls back from one to the other.
@@ -25,7 +26,15 @@ import torch
 from ..ops.lattice import Lattice
 from ..ops.tempering import init_trip_state
 from . import seeds as seedlib
-from .config import SimConfig, not_ported, parse_pt_schedule, parse_sweep_mode
+from .config import (
+    ClusterUpdate,
+    SimConfig,
+    not_ported,
+    parse_cluster_action,
+    parse_cluster_mode,
+    parse_pt_schedule,
+    parse_sweep_mode,
+)
 from .loop import Runtime, init_accumulators, run_chunk
 from .results import finalize
 
@@ -201,8 +210,6 @@ class IsingSimulation:
         Kwarg semantics and defaults mirror src/lib.rs:176-284; options
         outside the slice raise ``NotImplementedError``.
         """
-        if cluster_update_interval is not None or collect_cluster_stats:
-            not_ported("cluster updates", "6")
         if overlap_cluster_update_interval is not None:
             not_ported("overlap cluster moves", "7")
         if snapshot_interval is not None:
@@ -214,18 +221,30 @@ class IsingSimulation:
         n_sweeps = int(n_sweeps)
         warmup = warmup_ratio if warmup_ratio is not None else 0.25
         warmup_sweeps = int(np.floor(n_sweeps * float(warmup) + 0.5))
+        cluster_update = None
+        if cluster_update_interval is not None:
+            action = parse_cluster_action(cluster_action or "update")
+            cluster_update = ClusterUpdate(
+                interval=int(cluster_update_interval),
+                mode=parse_cluster_mode(cluster_mode or "sw"),
+                action=action,
+                collect_stats=bool(collect_cluster_stats) or action == "observe",
+            )
         cfg = SimConfig(
             n_sweeps=n_sweeps,
             warmup_sweeps=warmup_sweeps,
             sweep_mode=parse_sweep_mode(sweep_mode),
+            cluster_update=cluster_update,
             pt_interval=int(pt_interval) if pt_interval is not None else None,
             pt_schedule=parse_pt_schedule(pt_schedule or "single_random_edge"),
         )
         cfg.validate()
+        if cluster_update is not None and cluster_update.action == "observe":
+            not_ported("cluster_action='observe'", "6o")
 
         state = self.state
         state["warmup"] = np.int32(warmup_sweeps)
-        acc = init_accumulators(self.rt)
+        acc = init_accumulators(self.rt, cfg)
         s = 0
         while s < n_sweeps:
             n = min(self.default_chunk, n_sweeps - s)
@@ -238,5 +257,6 @@ class IsingSimulation:
         if cfg.pt_interval is not None:
             pt_state = {k: state[k].cpu().numpy() for k in (
                 "pt_edge_attempts", "pt_edge_acceptances", "pt_round_trips")}
+        fk_csd = acc["fk_csd"].cpu().numpy() if "fk_csd" in acc else None
         return finalize(acc["rec_sums"].cpu().numpy(), acc["n_recorded"],
-                        self.rt.n_replicas, pt_state)
+                        self.rt.n_replicas, pt_state, fk_csd)

@@ -205,7 +205,20 @@ class Ising:
             * (self.energies2_avg - self.energies_avg**2)
             / self.temperatures**2
         )
+        if "fk_csd" in result:
+            self.fk_csd = result["fk_csd"]
+            self.mean_cluster_size = np.array(
+                [self._mean_cluster_size(h) for h in self.fk_csd]
+            )
         self.per_disorder = result.get("per_disorder", {})
+
+    @staticmethod
+    def _mean_cluster_size(hist):
+        """Site-weighted mean cluster size from a CSD histogram."""
+        sizes = np.arange(len(hist))
+        site_weights = sizes * hist
+        n_sites = site_weights.sum()
+        return (sizes * site_weights).sum() / n_sites if n_sites > 0 else 0.0
 
     def save_checkpoint(self, path):
         self._sim.save_checkpoint(path)

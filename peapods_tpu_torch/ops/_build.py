@@ -1,13 +1,15 @@
-"""Build and load the CUDA kernels: nvcc into a shared library, bound with
+"""Build and load the CUDA kernels: nvcc into shared libraries, bound with
 ctypes.
 
-At first use the sources under ``peapods_tpu_torch/csrc/`` are compiled for
-Hopper (``sm_90a``) into ``build/kernels/`` at the repository root, under a
-name keyed by a hash of the sources and flags, so a changed source builds
-anew and an unchanged one loads at once.  The library has a plain C
-interface (no PyTorch headers), so a build takes seconds.  Every entry point
-returns ``cudaGetLastError()`` after its launch; :func:`check` raises on a
-non-zero code.
+At first use every ``*.cu`` under ``peapods_tpu_torch/csrc/`` is compiled
+for Hopper (``sm_90a``) into its own shared library in ``build/kernels/``
+at the repository root, all nvcc processes started together.  Each library
+is named by a hash of its source, the headers and the flags, so a changed
+source builds anew and an unchanged one loads at once.  The libraries have
+a plain C interface (no PyTorch headers), so a build takes seconds.  Every
+entry point returns ``cudaGetLastError()`` after its launch; :func:`check`
+raises on a non-zero code.  :func:`expect` and :func:`device_kind` are the
+wrappers' argument checks.
 """
 
 from __future__ import annotations
@@ -19,8 +21,10 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
-__all__ = ["library", "check", "NVCC_FLAGS", "BUILD_DIR", "SOURCE_DIR"]
+__all__ = ["library", "check", "expect", "device_kind", "NVCC_FLAGS",
+           "BUILD_DIR", "SOURCE_DIR"]
 
 SOURCE_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -37,11 +41,17 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "peapods_colour_pass_blocks": [_I, _I],
     "peapods_colour_pass": [_P] * 7 + [_I] * 6 + [_P],
-    "peapods_pt_step": [_P, _P, _I, _P, _P, _I] + [_P] * 7 + [_I] * 8 + [_P],
+    "peapods_pt_step": [_P, _P, _I, _P, _P, _I] + [_P] * 9 + [_I] * 8 + [_P],
+    "peapods_sweep_2d": [_P] * 6 + [_I] * 6 + [_P],
+    "peapods_fk_blocks": [_I, _I],
+    "peapods_fk_bonds": [_P] * 6 + [_I] * 4 + [_P],
+    "peapods_fk_link": [_P, _P] + [_I] * 3 + [_P],
+    "peapods_fk_finish": [_P] * 8 + [_I] * 5 + [_P],
 }
 
 _lib = None
-build_info = {}  # {"seconds": float, "log": str, "path": str} of the last load
+# of the last load: {"seconds": float, "log": str, "paths": [str]}
+build_info = {}
 
 
 def _nvcc() -> str:
@@ -54,43 +64,77 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _sources():
-    return sorted(SOURCE_DIR.glob("*.cu")), sorted(SOURCE_DIR.glob("*.cuh"))
-
-
 def library():
-    """The loaded kernel library, built first if needed."""
+    """The kernel entry points of every source, built first if needed."""
     global _lib
     if _lib is not None:
         return _lib
-    cu, cuh = _sources()
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in cu + cuh:
-        h.update(p.name.encode())
-        h.update(p.read_bytes())
-    out = BUILD_DIR / f"peapods_kernels_{h.hexdigest()[:16]}.so"
+    cu = sorted(SOURCE_DIR.glob("*.cu"))
+    common = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(SOURCE_DIR.glob("*.cuh")):
+        common.update(p.name.encode())
+        common.update(p.read_bytes())
     t0 = time.perf_counter()
-    log = ""
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, cu)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
+    outs, procs = [], []
+    for src in cu:
+        h = common.copy()
+        h.update(src.read_bytes())
+        out = BUILD_DIR / f"{src.stem}_{h.hexdigest()[:16]}.so"
+        outs.append(out)
+        if not out.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            procs.append((out, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+    log = []
+    for out, tmp, proc in procs:
+        text = proc.communicate()[0]
+        log.append(f"{out.name}:\n{text}")
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc failed ({proc.returncode}) for {out.name}:"
+                               f"\n{text}")
         os.replace(tmp, out)
-    lib = ctypes.CDLL(str(out))
+    libs = [ctypes.CDLL(str(p)) for p in outs]
+    fns = {}
     for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
+        owners = [lib for lib in libs if hasattr(lib, name)]
+        if len(owners) != 1:
+            raise RuntimeError(f"{name} is defined in {len(owners)} kernel "
+                               "libraries, expected 1")
+        fn = getattr(owners[0], name)
         fn.argtypes = argtypes
         fn.restype = _I
-    build_info.update(seconds=time.perf_counter() - t0, log=log, path=str(out))
-    _lib = lib
-    return lib
+        fns[name] = fn
+    build_info.update(seconds=time.perf_counter() - t0, log="\n".join(log),
+                      paths=[str(p) for p in outs])
+    _lib = SimpleNamespace(**fns)
+    return _lib
 
 
 def check(code: int, what: str) -> None:
     """Raise if a launch reported a CUDA error."""
     if code != 0:
         raise RuntimeError(f"{what}: CUDA error {code}")
+
+
+def device_kind(t) -> str:
+    """``"cpu"`` or ``"cuda"``; raise for any other device."""
+    kind = t.device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"tensors on {t.device} are not supported")
+    return kind
+
+
+def expect(t, name, dtype, shape, device):
+    """Raise unless ``t`` is a contiguous ``dtype`` tensor of ``shape`` on
+    ``device``: what a kernel takes."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")

@@ -1,6 +1,6 @@
 """The 2D square periodic lattice of the port's slice.
 
-Counterpart of :class:`peapods_tpu.ops.lattice.Lattice` restricted to what
+Counterpart of ``Lattice`` in ``peapods_tpu/ops/lattice.py``, restricted to what
 the mega path reads: sites in row-major order, two forward bonds per site
 (``[1, 0]`` down, ``[0, 1]`` right), couplings stored as ``[n_spins, 2]``
 forward bonds (reference layout), and the two-colour checkerboard.  Even

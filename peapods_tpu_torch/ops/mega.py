@@ -26,9 +26,12 @@ from __future__ import annotations
 
 import torch
 
-from . import _build
+from . import _build, rng
+from ._build import device_kind as _device_kind
+from ._build import expect as _expect
 from .energy import per_spin
 from .lattice import Lattice
+from .measure import per_slot_values, slot_temps_for_systems
 from .rng import colour_uniforms
 from .sweep import colour_mask, colour_update
 from .tempering import pt_apply, pt_draws
@@ -48,10 +51,6 @@ __all__ = [
 # kernel launches since the last reset_launches(), by kernel name
 LAUNCHES = {"colour_pass": 0, "pt_step": 0}
 
-# the plain path draws its site uniforms in blocks of sweeps of at most this
-# many elements per colour
-_UNIFORM_BLOCK = 1 << 22
-
 
 def reset_launches() -> None:
     for k in LAUNCHES:
@@ -61,13 +60,6 @@ def reset_launches() -> None:
 def supports_mega(lattice, n_replicas) -> bool:
     """2D square lattice with even extents and one replica."""
     return isinstance(lattice, Lattice) and n_replicas == 1
-
-
-def _device_kind(t) -> str:
-    kind = t.device.type
-    if kind not in ("cpu", "cuda"):
-        raise ValueError(f"tensors on {t.device} are not supported")
-    return kind
 
 
 # ------------------------------------------------------------ plain torch
@@ -87,9 +79,9 @@ def colour_pass_plain(spins, jgrids, sid, temps, words, colour, *, gibbs,
         u: optional f32 ``[d, n_slots, H, W]`` injected uniforms.
 
     Returns:
-        For colour 1, the partial sums ``(e_part f32 [d, n_slots, 1],
-        m_part int32 [d, n_slots, 1])`` of ``s*h`` over the odd sites and of
-        ``s``; ``None`` for colour 0.
+        For colour 1, the partial sums ``(e_part f32 [d, n_systems, 1],
+        m_part int32 [d, n_systems, 1])`` by system of ``s*h`` over the odd
+        sites and of ``s``; ``None`` for colour 0.
     """
     d, n_slots, h, w = spins.shape[0], sid.shape[1], *spins.shape[2:]
     if u is None:
@@ -103,48 +95,54 @@ def colour_pass_plain(spins, jgrids, sid, temps, words, colour, *, gibbs,
     if colour == 0:
         return None
     odd = colour_mask((h, w), 1, spins.device)
-    e_part = torch.where(odd, s * field, 0.0).sum((-2, -1))
-    m_part = s.to(torch.int32).sum((-2, -1), dtype=torch.int32)
-    return e_part[..., None], m_part[..., None]
+    e_part = torch.empty((d, n_slots, 1), dtype=torch.float32, device=spins.device)
+    m_part = torch.empty((d, n_slots, 1), dtype=torch.int32, device=spins.device)
+    e_part[di, sys, 0] = torch.where(odd, s * field, 0.0).sum((-2, -1))
+    m_part[di, sys, 0] = s.to(torch.int32).sum((-2, -1), dtype=torch.int32)
+    return e_part, m_part
 
 
 def pt_step_plain(e_part, m_part, e_row, m_row, sid, ea, ec, rtrips, tstate,
-                  temps, pt_words, *, do_pt, pt_full, parity, hot_slot,
-                  cold_slot, n_spins, draws=None) -> int:
-    """Reduce a sweep's partials into its ``(e, m)`` rows (``e_row`` f32 /
-    ``m_row`` int32 ``[d, n_slots]``, written in place) and, when
+                  temps, draws, sys_temps, *, do_pt, pt_full, parity, hot_slot,
+                  cold_slot, n_spins) -> int:
+    """Reduce a sweep's partials into its ``(e, m)`` rows and, when
     ``do_pt``, run the PT event (:func:`~.tempering.pt_apply`) in place.
-    ``draws`` may carry this event's precomputed :func:`pt_draws`.
+
+    Args:
+        e_part, m_part: f32 / int32 ``[d, n_systems, blocks]`` partial sums
+            by system (both paths' kernels write them so).
+        e_row, m_row: f32 / int32 ``[d, n_slots]``, written by slot.
+        draws: the event's PT draws, ``[d]`` leading: single edge ``(edge
+            int [d], u f32 [d])``, full ladder u f32 ``[d, 2, n_edges]``
+            (the mega path's :func:`pt_draws` or the per-sweep path's
+            jnp-form draws); unused, and may be ``None``, without PT.
+        sys_temps: f32 ``[d, n_systems]`` each system's temperature,
+            rewritten after a PT event.
+
     Returns the parity of the next PT event."""
+    e_part, m_part = (per_slot_values(x, sid) for x in (e_part, m_part))
     es = per_spin(e_part.sum(-1), n_spins)
     e_row.copy_(es)
     m_row.copy_(m_part.sum(-1, dtype=torch.int32))
     if not do_pt:
         return parity
-    if draws is None:
-        draws = pt_draws(pt_words, temps.shape[0] - 1, pt_full=pt_full)
-    return pt_apply(es, sid, ea, ec, rtrips, tstate, temps, draws,
-                    pt_full=pt_full, parity=parity, n_spins=n_spins,
-                    hot_slot=hot_slot, cold_slot=cold_slot)
+    if not pt_full:
+        draws = (draws[0].to(torch.int64), draws[1])
+    parity = pt_apply(es, sid, ea, ec, rtrips, tstate, temps, draws,
+                      pt_full=pt_full, parity=parity, n_spins=n_spins,
+                      hot_slot=hot_slot, cold_slot=cold_slot)
+    sys_temps.copy_(slot_temps_for_systems(sid, temps))
+    return parity
 
 
 def _philox_source(sweep_words, n_slots, shape):
     """``uniforms(t, colour)`` drawing Philox uniforms a block of sweeps at
     a time."""
-    n, d = sweep_words.shape[:2]
-    block = max(1, _UNIFORM_BLOCK // (d * n_slots * shape[0] * shape[1]))
-    cache = {}
-
-    def uniforms(t, colour):
-        b = t // block
-        if b not in cache:
-            cache.clear()
-            words = sweep_words[b * block:(b + 1) * block]
-            cache[b] = [colour_uniforms(words, n_slots, c, shape)
-                        for c in (0, 1)]
-        return cache[b][colour][t - b * block]
-
-    return uniforms
+    d = sweep_words.shape[1]
+    get = rng.blocked(lambda a, b: torch.stack(
+        [colour_uniforms(sweep_words[a:b], n_slots, c, shape) for c in (0, 1)],
+        dim=1), 2 * d * n_slots * shape[0] * shape[1])
+    return lambda t, colour: get(t)[colour]
 
 
 def _pt_due(sweep_base, t, pt_interval) -> bool:
@@ -166,6 +164,7 @@ def mega_chunk_plain(spins, jgrids, temps, sid, ea, ec, rtrips, tstate,
     m = torch.empty((d, n, n_slots), dtype=torch.int32, device=spins.device)
     draws = (pt_draws(pt_words, n_slots - 1, pt_full=pt_full)
              if pt_interval is not None else None)
+    sys_temps = slot_temps_for_systems(sid, temps)
     for t in range(n):
         colour_pass_plain(spins, jgrids, sid, temps, None, 0, gibbs=gibbs,
                           u=uniforms(t, 0))
@@ -173,10 +172,10 @@ def mega_chunk_plain(spins, jgrids, temps, sid, ea, ec, rtrips, tstate,
                                            gibbs=gibbs, u=uniforms(t, 1))
         parity = pt_step_plain(
             e_part, m_part, e[:, t], m[:, t], sid, ea, ec, rtrips, tstate,
-            temps, None, do_pt=_pt_due(sweep_base, t, pt_interval),
-            pt_full=pt_full, parity=parity, hot_slot=hot_slot,
-            cold_slot=cold_slot, n_spins=h * w,
-            draws=None if draws is None else _index(draws, t),
+            temps, None if draws is None else _index(draws, t), sys_temps,
+            do_pt=_pt_due(sweep_base, t, pt_interval), pt_full=pt_full,
+            parity=parity, hot_slot=hot_slot, cold_slot=cold_slot,
+            n_spins=h * w,
         )
     return e, m, parity
 
@@ -186,17 +185,6 @@ def _index(draws, t):
 
 
 # ------------------------------------------------------------ CUDA kernels
-
-
-def _expect(t, name, dtype, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
 
 
 def _check_sweep(spins, jgrids, sid, temps):
@@ -242,12 +230,15 @@ def _launch_colour(lib, stream, shape, spins, jgrids, sid, temps, words,
 
 def _launch_pt(lib, stream, d, n_slots, n_spins, e_part, m_part, n_blocks,
                e_row, m_row, out_stride, sid, ea, ec, rtrips, tstate, temps,
-               pt_words, *, do_pt, pt_full, parity, hot_slot, cold_slot) -> int:
-    """Launch ``pt_step``; pointers are ints.  Returns the next parity."""
+               edge_draw, u_draw, sys_temps, *, do_pt, pt_full, parity,
+               hot_slot, cold_slot) -> int:
+    """Launch ``pt_step``; pointers are ints (``None`` for draws that the
+    event does not read).  Returns the next parity."""
     _build.check(lib.peapods_pt_step(
         e_part, m_part, n_blocks, e_row, m_row, out_stride, sid, ea, ec,
-        rtrips, tstate, temps, pt_words, d, n_slots, n_spins, int(do_pt),
-        int(pt_full), int(parity), hot_slot, cold_slot, stream,
+        rtrips, tstate, temps, edge_draw, u_draw, sys_temps, d, n_slots,
+        n_spins, int(do_pt), int(pt_full), int(parity), hot_slot, cold_slot,
+        stream,
     ), "pt_step")
     LAUNCHES["pt_step"] += 1
     return 1 - parity if (do_pt and pt_full) else parity
@@ -275,25 +266,43 @@ def colour_pass(spins, jgrids, sid, temps, words, colour, *, gibbs):
     return parts if colour == 1 else None
 
 
+def _draw_ptrs(draws, d, n_slots, pt_full, dev):
+    """``(edge_draw, u_draw)`` pointers of one event's PT draws."""
+    if draws is None:
+        return None, None
+    if pt_full:
+        _expect(draws, "draws", torch.float32, (d, 2, max(n_slots - 1, 0)), dev)
+        return None, draws.data_ptr()
+    edge, u = draws
+    _expect(edge, "edge draws", torch.int32, (d,), dev)
+    _expect(u, "u draws", torch.float32, (d,), dev)
+    return edge.data_ptr(), u.data_ptr()
+
+
 def pt_step(e_part, m_part, e_row, m_row, sid, ea, ec, rtrips, tstate, temps,
-            pt_words, *, do_pt, pt_full, parity, hot_slot, cold_slot,
+            draws, sys_temps, *, do_pt, pt_full, parity, hot_slot, cold_slot,
             n_spins) -> int:
     """Reduce a sweep's partials and run its PT event (see
     :func:`pt_step_plain`): plain for CPU tensors, the ``pt_step`` kernel
     for CUDA tensors.  ``e_row`` / ``m_row`` are ``[d, n_slots]`` views with
-    unit stride along the slots and equal row strides."""
+    unit stride along the slots and equal row strides; single-edge draws
+    are int32 edges and f32 uniforms."""
     kw = dict(do_pt=do_pt, pt_full=pt_full, parity=parity, hot_slot=hot_slot,
               cold_slot=cold_slot)
     if _device_kind(e_part) == "cpu":
         return pt_step_plain(e_part, m_part, e_row, m_row, sid, ea, ec, rtrips,
-                             tstate, temps, pt_words, n_spins=n_spins, **kw)
+                             tstate, temps, draws, sys_temps, n_spins=n_spins,
+                             **kw)
     dev = e_part.device
     d, n_slots, n_blocks = e_part.shape
     _expect(e_part, "e_part", torch.float32, (d, n_slots, n_blocks), dev)
     _expect(m_part, "m_part", torch.int32, (d, n_slots, n_blocks), dev)
     _expect(sid, "sid", torch.int32, (d, n_slots), dev)
     _expect(temps, "temps", torch.float32, (n_slots,), dev)
-    _expect(pt_words, "pt_words", torch.int32, (d, 2), dev)
+    _expect(sys_temps, "sys_temps", torch.float32, (d, n_slots), dev)
+    if do_pt and draws is None:
+        raise ValueError("a PT event needs its draws")
+    edge_draw, u_draw = _draw_ptrs(draws, d, n_slots, pt_full, dev)
     _check_pt(d, n_slots, dev, ea, ec, rtrips, tstate)
     for name, t, dtype in (("e_row", e_row, torch.float32),
                            ("m_row", m_row, torch.int32)):
@@ -305,7 +314,8 @@ def pt_step(e_part, m_part, e_row, m_row, sid, ea, ec, rtrips, tstate, temps,
         d, n_slots, n_spins, e_part.data_ptr(), m_part.data_ptr(),
         n_blocks, e_row.data_ptr(), m_row.data_ptr(), e_row.stride(0),
         sid.data_ptr(), ea.data_ptr(), ec.data_ptr(), rtrips.data_ptr(),
-        tstate.data_ptr(), temps.data_ptr(), pt_words.data_ptr(), **kw,
+        tstate.data_ptr(), temps.data_ptr(), edge_draw, u_draw,
+        sys_temps.data_ptr(), **kw,
     )
 
 
@@ -351,21 +361,38 @@ def mega_chunk(spins, jgrids, temps, sid, ea, ec, rtrips, tstate, sweep_words,
     e_part, m_part = _partials(lib, d, n_slots, h, w, dev)
     e = torch.empty((d, n, n_slots), dtype=torch.float32, device=dev)
     m = torch.empty((d, n, n_slots), dtype=torch.int32, device=dev)
+    # the chunk's PT draws, made from its words on the device in one go;
+    # the kernel reads them as the per-sweep path's jnp-form draws
+    p_edge = p_u = None
+    edge_bytes = u_bytes = 0  # one sweep's draws
+    if pt_interval is not None:
+        draws = pt_draws(pt_words, n_slots - 1, pt_full=pt_full)
+        if pt_full:
+            u = draws.contiguous()
+        else:
+            edges = draws[0].to(torch.int32).contiguous()
+            u = draws[1].contiguous()
+            p_edge, edge_bytes = edges.data_ptr(), d * 4
+        p_u, u_bytes = u.data_ptr(), u[0].numel() * 4
+    sys_temps = slot_temps_for_systems(sid, temps)  # written, not read here
     p_spins, p_jg, p_sid, p_temps = (t.data_ptr() for t in (spins, jgrids, sid, temps))
     p_ep, p_mp, p_e, p_m = (t.data_ptr() for t in (e_part, m_part, e, m))
     p_pt = [t.data_ptr() for t in (ea, ec, rtrips, tstate)]
-    p_sw, p_pw = sweep_words.data_ptr(), pt_words.data_ptr()
+    p_sw = sweep_words.data_ptr()
     word_bytes = d * 2 * 4  # one sweep's [d, 2] int32 words
     row_bytes = n_slots * 4  # one sweep's [n_slots] row of e or m
     for t in range(n):
         for colour, parts in ((0, (None, None)), (1, (p_ep, p_mp))):
             _launch_colour(lib, stream, shape, p_spins, p_jg, p_sid, p_temps,
                            p_sw + t * word_bytes, *parts, colour, gibbs)
+        do_pt = _pt_due(sweep_base, t, pt_interval)
         parity = _launch_pt(
             lib, stream, d, n_slots, h * w, p_ep, p_mp, e_part.shape[2],
             p_e + t * row_bytes, p_m + t * row_bytes, n * n_slots, p_sid,
-            *p_pt, p_temps, p_pw + t * word_bytes,
-            do_pt=_pt_due(sweep_base, t, pt_interval), pt_full=pt_full,
-            parity=parity, hot_slot=hot_slot, cold_slot=cold_slot,
+            *p_pt, p_temps,
+            p_edge + t * edge_bytes if do_pt and p_edge is not None else None,
+            p_u + t * u_bytes if do_pt else None, sys_temps.data_ptr(),
+            do_pt=do_pt, pt_full=pt_full, parity=parity, hot_slot=hot_slot,
+            cold_slot=cold_slot,
         )
     return e, m, parity

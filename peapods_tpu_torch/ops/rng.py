@@ -11,7 +11,12 @@ site ``site`` takes output word ``site % 4``.  A uniform is the word's top
 24 bits times ``2**-24``, as ``_hw_uniform`` makes it
 (``peapods_tpu/ops/pallas_sweep.py:294-298``).
 
-The CUDA kernel (``csrc/mega.cuh``) computes the same function in uint32;
+The per-sweep path's sweep uses the same draw with the system index in
+place of the slot (``csrc/sweep.cu``), and the FK update draws its bond
+uniforms from Philox keyed by each graph's two ``kb`` words, counter
+``(dir, site // 4, 0, 0)`` (:func:`bond_uniforms`, ``csrc/fk.cu``).
+
+The CUDA kernels (``csrc/mega.cuh``) compute the same function in uint32;
 this version works in int64 with 32-bit masks, and splits every 32x32-bit
 product into 16-bit halves so that no intermediate leaves int64.
 """
@@ -21,7 +26,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["MASK32", "mul_lo32", "mulhilo32", "philox4x32", "uniform24",
-           "colour_uniforms"]
+           "colour_uniforms", "bond_uniforms", "blocked"]
 
 MASK32 = 0xFFFFFFFF
 _M0 = 0xD2511F53
@@ -87,3 +92,39 @@ def colour_uniforms(words, n_slots: int, colour: int, shape):
     u = uniform24(torch.stack(out, dim=-1)).flatten(-2)[..., :n_half]
     # full-lattice site (r, col) reads active-colour site r * W/2 + col // 2
     return u.reshape(*lead, n_slots, h, wh).repeat_interleave(2, dim=-1)
+
+
+def bond_uniforms(words, n_spins: int):
+    """Uniforms of the FK bond draws: f32 ``[..., n_spins, 2]`` from int32
+    graph key words ``[..., 2]``.  Bond ``(site, dir)`` takes word
+    ``site % 4`` of Philox keyed by the graph's words, counter ``(dir,
+    site // 4, 0, 0)`` -- the CUDA FK kernel's draw (``csrc/fk.cu``)."""
+    dev = words.device
+    k = words.to(torch.int64) & MASK32
+    lead = k.shape[:-1]
+    k0 = k[..., 0].reshape(*lead, 1, 1)
+    k1 = k[..., 1].reshape(*lead, 1, 1)
+    d = torch.arange(2, device=dev, dtype=torch.int64)[:, None]
+    grp = torch.arange((n_spins + 3) // 4, device=dev, dtype=torch.int64)
+    zero = torch.zeros((), device=dev, dtype=torch.int64)
+    out = philox4x32(k0, k1, d, grp, zero, zero)  # 4 x [..., 2, groups]
+    u = uniform24(torch.stack(out, dim=-1)).flatten(-2)[..., :n_spins]
+    return u.transpose(-1, -2)
+
+
+def blocked(draw, per_item: int):
+    """``get(t)``: item ``t`` of ``draw(a, b)`` (items ``a .. b-1``,
+    stacked), drawn a block of items at a time, a block holding at most
+    2**22 elements.  The plain paths draw their Philox uniforms this way, in
+    a few vectorised calls per chunk instead of one per sweep."""
+    block = max(1, (1 << 22) // per_item)
+    cache = {}
+
+    def get(t):
+        b = t // block
+        if b not in cache:
+            cache.clear()
+            cache[b] = draw(b * block, (b + 1) * block)
+        return cache[b][t - b * block]
+
+    return get

@@ -1,10 +1,11 @@
-"""The checkerboard colour update of a 2D square lattice, in plain torch.
+"""The checkerboard colour update of a 2D square lattice, and the
+stand-alone sweep of the per-sweep path.
 
 Counterpart of ``_kernel_body`` / ``_kernel_body_2sub``
 (``peapods_tpu/ops/pallas_sweep.py:164-291``) and of ``mc_sweep``
 (``peapods_tpu/ops/sweep.py``): the CPU version of the update, and the
-version the CUDA colour-pass kernel is held against on the card.  Same math,
-in the same order of f32 operations as the kernel:
+version the CUDA kernels are held against on the card.  Same math, in the
+same order of f32 operations as the kernels:
 
     field = s_up*ju + s_down*jd + s_left*jl + s_right*jr
     x     = (-s * field) * (1 / (0.5 * T))
@@ -13,23 +14,36 @@ in the same order of f32 operations as the kernel:
 
 The lazy factor ``1 - 1/16`` keeps the synchronous Metropolis chain
 ergodic (see the docstring of ``peapods_tpu/ops/sweep.py``).
+
+:func:`sweep_2d` is the port of ``pallas_sweep.sweep_2d`` (:728): one sweep
+of every (realization, system) at each system's temperature, for runs with
+a cluster phase.  On CUDA tensors it launches ``csrc/sweep.cu`` twice (one
+launch per colour) and counts them in :data:`LAUNCHES`; on CPU tensors it
+runs :func:`sweep_2d_plain`, which draws the same Philox uniforms.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import _build, rng
 from .energy import per_spin
 
 __all__ = [
     "METROPOLIS_LAZINESS",
+    "LAUNCHES",
     "pack_coupling_grids",
     "local_field",
     "acceptance",
     "colour_mask",
     "colour_update",
     "sweep",
+    "sweep_2d",
+    "sweep_2d_plain",
 ]
+
+# kernel launches since the last reset, by kernel name
+LAUNCHES = {"sweep_2d": 0}
 
 # Acceptance-probability scale 1-eps of the lazy synchronous Metropolis
 # kernel (peapods_tpu/ops/sweep.py:50).
@@ -127,3 +141,80 @@ def sweep(spins, jgrids, temps, uniforms, *, gibbs: bool):
     h, w = s.shape[-2:]
     m = s.to(torch.int32).sum((-2, -1), dtype=torch.int32)
     return s.to(torch.int8), per_spin(e_tot, h * w), m
+
+
+def sweep_2d_plain(spins, jgrids, sys_temps, words, *, gibbs, measure=False,
+                   uniforms=None):
+    """One sweep (colour 0, then colour 1) of every (realization, system),
+    in place.
+
+    Args:
+        spins: int8 ``[d, S, H, W]`` by system.
+        jgrids: f32 ``[d, 4, H, W]``.
+        sys_temps: f32 ``[d, S]`` temperature of each system.
+        words: int32 ``[d, 2]`` the sweep's key words (unused when
+            ``uniforms`` is given): Philox key, counter ``(system, colour,
+            site // 4, 0)``.
+        uniforms: optional f32 ``[d, S, 2, H, W]`` injected uniforms (the
+            layout of ``pallas_sweep.sweep_2d_injected``).
+        measure: also return the post-sweep partial sums ``(e_part f32
+            [d, S, 1], m_part int32 [d, S, 1])`` of ``s * field`` over the
+            odd sites and of ``s``.
+
+    Returns:
+        The partials when ``measure``, else ``None``.
+    """
+    d, n_sys, h, w = spins.shape
+    s = spins.to(torch.float32)
+    inv_half_t = (1.0 / (0.5 * sys_temps))[..., None, None]
+    for colour in (0, 1):
+        u = (uniforms[:, :, colour] if uniforms is not None
+             else rng.colour_uniforms(words, n_sys, colour, (h, w)))
+        s, field = colour_update(s, jgrids[:, None], inv_half_t, u, colour,
+                                 gibbs=gibbs)
+    spins.copy_(s.to(torch.int8))
+    if not measure:
+        return None
+    odd = colour_mask((h, w), 1, s.device)
+    e_part = torch.where(odd, s * field, 0.0).sum((-2, -1))
+    m_part = s.to(torch.int32).sum((-2, -1), dtype=torch.int32)
+    return e_part[..., None], m_part[..., None]
+
+
+def sweep_2d(spins, jgrids, sys_temps, words, *, gibbs, measure=False,
+             uniforms=None):
+    """One sweep of every (realization, system) (see
+    :func:`sweep_2d_plain`): the plain version for CPU tensors, two launches
+    of the ``sweep_2d`` kernel for CUDA tensors, whose partials have one
+    entry per block of the pass.  ``uniforms`` (CPU only) are
+    the sweep's Philox uniforms drawn ahead by the caller."""
+    if _build.device_kind(spins) == "cpu":
+        return sweep_2d_plain(spins, jgrids, sys_temps, words, gibbs=gibbs,
+                              measure=measure, uniforms=uniforms)
+    if uniforms is not None:
+        raise ValueError("the sweep_2d kernel draws its own uniforms")
+    dev = spins.device
+    d, n_sys, h, w = spins.shape
+    _build.expect(spins, "spins", torch.int8, (d, n_sys, h, w), dev)
+    _build.expect(jgrids, "jgrids", torch.float32, (d, 4, h, w), dev)
+    _build.expect(sys_temps, "sys_temps", torch.float32, (d, n_sys), dev)
+    _build.expect(words, "words", torch.int32, (d, 2), dev)
+    if d > 65535 or n_sys > 65535:
+        raise ValueError("at most 65535 realizations and systems")
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    parts = None
+    if measure:
+        nb = lib.peapods_colour_pass_blocks(h, w)
+        parts = (torch.empty((d, n_sys, nb), dtype=torch.float32, device=dev),
+                 torch.empty((d, n_sys, nb), dtype=torch.int32, device=dev))
+    for colour in (0, 1):
+        ptrs = ((None, None) if colour == 0 or parts is None
+                else tuple(t.data_ptr() for t in parts))
+        _build.check(lib.peapods_sweep_2d(
+            spins.data_ptr(), jgrids.data_ptr(), sys_temps.data_ptr(),
+            words.data_ptr(), *ptrs, d, n_sys, h, w, colour, int(gibbs),
+            stream,
+        ), "sweep_2d")
+        LAUNCHES["sweep_2d"] += 1
+    return parts

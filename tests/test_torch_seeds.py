@@ -151,6 +151,8 @@ def test_port_imports_no_jax():
         "m = P.Ising((4, 4), temperatures=np.array([2.0, 3.0]), seed=1, "
         "device='cpu')\n"
         "m.sample(8, pt_interval=1)\n"
+        "m.sample(8, pt_interval=1, cluster_update_interval=1, "
+        "cluster_mode='wolff', collect_cluster_stats=True)\n"
         "bad = [k for k in sys.modules if k == 'jax' or k.startswith(('jax.', "
         "'peapods_tpu.')) or k == 'peapods_tpu']\n"
         "assert not bad, bad\n"
@@ -158,3 +160,102 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+# ------------------------------------------------- the per-sweep path's keys
+
+
+def _jkey(words):
+    return jax.random.wrap_key_data(jnp.asarray(words, jnp.uint32))
+
+
+@pytest.mark.parametrize("seed", [0, 2**31 + 5, 2**64 - 1])
+def test_split_bits_uniform_randint_match_jax(seed):
+    key = seeds.key_from_u64(seed)
+    jk = _jkey(key)
+    for num in (2, 3, 7):
+        np.testing.assert_array_equal(
+            seeds.split(key, num),
+            np.asarray(jax.random.key_data(jax.random.split(jk, num))))
+    for shape in ((), (1,), (5,), (2, 3)):
+        np.testing.assert_array_equal(seeds.random_bits(key, shape),
+                                      np.asarray(jax.random.bits(jk, shape)))
+        np.testing.assert_array_equal(seeds.uniform(key, shape),
+                                      np.asarray(jax.random.uniform(jk, shape)))
+        # spans below, at and above 2**16 (the multiplier wraps in uint32),
+        # and coin_salt's full int32 range
+        for lo, hi in ((0, 1), (0, 7), (0, 65536), (0, 65537), (0, 2**20 + 3),
+                       (-5, 3), (-(2**31), 2**31 - 1), (0, 2**31 - 1)):
+            np.testing.assert_array_equal(
+                seeds.randint(key, shape, lo, hi),
+                np.asarray(jax.random.randint(jk, shape, lo, hi, jnp.int32)),
+                err_msg=f"{shape} [{lo}, {hi})")
+
+
+@pytest.mark.parametrize("wolff", [False, True], ids=["sw", "wolff"])
+def test_fk_keys_and_scalars_match_reference(wolff):
+    """kb, kf = split(split(fold_in(fold_in(key, ctr), PH_FK), S)[s])
+    (engine/loop.py:2009-2014) and pallas_event.fk_scalars from kf."""
+    from peapods_tpu.ops import pallas_event
+
+    d, n_sys, n_spins = 3, 4, 4096
+    base = np.stack([seeds.key_from_u64(seeds.realization_seed(11, r))
+                     for r in range(d)])
+    ctrs = np.array([0, 7, 1000], np.int64)
+    kb, kf = seeds.fk_keys(base, ctrs, n_sys)
+    assert kb.shape == kf.shape == (len(ctrs), d * n_sys, 2)
+    for i, ctr in enumerate(ctrs):
+        for r in range(d):
+            k = jax.random.fold_in(jax.random.fold_in(_jkey(base[r]), int(ctr)),
+                                   seeds.PH_FK)
+            pair = jax.vmap(jax.random.split)(jax.random.split(k, n_sys))
+            want = np.asarray(jax.random.key_data(pair))  # [S, 2, 2]
+            sl = slice(r * n_sys, (r + 1) * n_sys)
+            np.testing.assert_array_equal(kb[i, sl], want[:, 0])
+            np.testing.assert_array_equal(kf[i, sl], want[:, 1])
+    got = seeds.fk_scalars(kf, n_spins, wolff=wolff)
+    want = np.asarray(pallas_event.fk_scalars(
+        wolff, _jkey(kf.reshape(-1, 2)), n_spins))
+    np.testing.assert_array_equal(got.reshape(-1, 3), want)
+
+
+@pytest.mark.parametrize("pt_full", [False, True], ids=["single", "full"])
+def test_jnp_pt_draws_match_reference(pt_full):
+    """The draws of ops/tempering.py pt_single_random_edge (:135-137) and
+    pt_full_ladder (:103-104) with one replica, from
+    k = fold_in(fold_in(key, ctr), PH_PT)."""
+    d, n, n_edges, ctr = 2, 5, 6, 40
+    base = np.stack([seeds.key_from_u64(seeds.realization_seed(3, r))
+                     for r in range(d)])
+    got = seeds.pt_draws_jnp(base, ctr, n, n_edges, pt_full=pt_full)
+    for t in range(n):
+        for r in range(d):
+            k = jax.random.fold_in(jax.random.fold_in(_jkey(base[r]), ctr + t),
+                                   seeds.PH_PT)
+            if pt_full:
+                for i in range(2):
+                    u = jax.random.uniform(jax.random.fold_in(k, i), (1, n_edges))
+                    np.testing.assert_array_equal(got[t, r, i], np.asarray(u)[0])
+            else:
+                k_edge, k_u = jax.random.split(k)
+                edge = jax.random.randint(k_edge, (1,), 0, n_edges)
+                u = jax.random.uniform(k_u, (1,), dtype=jnp.float32)
+                assert got[0][t, r] == int(edge[0])
+                assert got[1][t, r] == np.float32(u[0])
+
+
+def test_bond_uniforms_layout():
+    """Bond (site, dir) of a graph reads Philox word site % 4 of key = the
+    graph's kb words, counter (dir, site // 4, 0, 0), top 24 bits."""
+    words = torch.tensor([[5, -7], [123456789, 42]], dtype=torch.int32)
+    n = 10
+    u = rng.bond_uniforms(words, n)
+    assert u.shape == (2, n, 2)
+    for b in range(2):
+        for site in range(n):
+            for dd in range(2):
+                out = rng.philox4x32(*(torch.tensor(v & 0xFFFFFFFF, dtype=torch.int64)
+                                       for v in (int(words[b, 0]), int(words[b, 1]),
+                                                 dd, site // 4, 0, 0)))
+                want = (int(out[site % 4]) >> 8) / float(1 << 24)
+                assert float(u[b, site, dd]) == want

@@ -175,7 +175,7 @@ def test_state_converts_both_ways():
 @pytest.mark.parametrize(
     "kwargs",
     [
-        dict(cluster_update_interval=1),
+        dict(cluster_update_interval=1, cluster_action="observe"),
         dict(overlap_cluster_update_interval=1),
         dict(autocorrelation_max_lag=4),
         dict(equilibration_diagnostic=True),

@@ -113,3 +113,41 @@ def test_sweep_matches_reference_kernels(shape, gibbs, couplings):
             np.testing.assert_allclose(e.numpy(), np.asarray(e_ref), rtol=1e-5)
             np.testing.assert_allclose(e_rc.numpy(), np.asarray(e_ref), rtol=1e-5)
         spins = ref.copy()
+
+
+@pytest.mark.parametrize("gibbs", [False, True], ids=["metropolis", "gibbs"])
+def test_sweep_2d_plain_matches_injected_reference(gibbs):
+    """The per-sweep path's sweep (port of pallas_sweep.sweep_2d) with
+    injected uniforms against sweep_2d_injected in interpret mode: four
+    systems, each at its own temperature, two realizations' couplings."""
+    h, w, n_sys, d = 8, 128, 4, 2
+    rng = np.random.default_rng(77 + gibbs)
+    coup = rng.choice([-1.0, 1.0], size=(d, h * w, 2)).astype(np.float32)
+    temps = rng.permutation(np.array([1.5, 2.0, 2.269, 3.5], np.float32))
+    sys_temps = np.stack([temps, temps[::-1]])  # [d, S]
+    spins = rng.choice([-1, 1], size=(d, n_sys, h, w)).astype(np.int8)
+    jg = tsweep.pack_coupling_grids(torch.from_numpy(coup), (h, w))
+    port = torch.from_numpy(spins.copy())
+    for step in range(3):
+        u = rng.random((d, n_sys, 2, h, w), dtype=np.float32)
+        want = []
+        for r in range(d):
+            with pltpu.force_tpu_interpret_mode():
+                want.append(np.asarray(ps.sweep_2d_injected(
+                    jnp.asarray(port[r].numpy()),
+                    ps.pack_coupling_grids(jnp.asarray(coup[r]), (h, w)),
+                    jnp.asarray(sys_temps[r]), jnp.asarray(u[r]),
+                    shape=(h, w), gibbs=gibbs,
+                )).reshape(n_sys, h, w))
+        e_part, m_part = tsweep.sweep_2d_plain(
+            port, jg, torch.from_numpy(sys_temps), None, gibbs=gibbs,
+            measure=True, uniforms=torch.from_numpy(u))
+        np.testing.assert_array_equal(port.numpy(), np.stack(want),
+                                      err_msg=f"step {step}")
+        # the measuring pass's partials against the recompute oracle
+        for r in range(d):
+            e_rc, m_rc = energies_and_mags(port[r].reshape(n_sys, -1),
+                                           torch.from_numpy(coup[r]), (h, w))
+            np.testing.assert_array_equal(m_part[r, :, 0].numpy(), m_rc.numpy())
+            np.testing.assert_array_equal((e_part[r, :, 0] / (h * w)).numpy(),
+                                          e_rc.numpy())
