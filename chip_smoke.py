@@ -3,7 +3,7 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``peapods_tpu_torch`` from the sources in this
-checkout (one nvcc per source, all at once) and drives both of the port's
+checkout (one nvcc per source, all at once) and drives the port's three
 paths through the user's entry points:
 
 * the mega path: the flagship configuration (256x256, 24 temperatures, PT
@@ -15,7 +15,16 @@ paths through the user's entry points:
   PT on the 64x64 x 16 temperatures x 128 realizations harness shape, 4x4
   exact enumeration, and each kernel (``sweep_2d``, ``fk_bonds``,
   ``fk_link``, ``fk_finish``, ``pt_step``) held against its plain version
-  at both shapes.
+  at both shapes;
+* the replica path: configs 4 (8^3 +-J glass, Houdayer every 10 sweeps,
+  PT on a random edge) and 5 (16^3 gaussian glass, Joerg + CMR every 10
+  sweeps, full-ladder PT), each 24 temperatures x 4 replicas x 8
+  realizations, through ``Ising.sample`` twice from one seed; q and P(q) at
+  config 4's hottest temperature; a 4x4 +-J glass against exact
+  enumeration with each overlap move; and each kernel (``colour_pass`` in
+  3D, ``pair_overlap``, ``pt_step`` on R ladders, ``ov_bonds``,
+  ``fk_link``, ``ov_mid``, ``ov_finish``, ``energy_partials``) held against
+  its plain version at both configs' shapes.
 
 Each path's launch counts are zeroed just before its main run and read just
 after.  Every phase prints lines; any failure raises and the script exits
@@ -873,6 +882,560 @@ def profile_window(model, kw, sweeps_s, n):
     return per_launch, line
 
 
+# ------------------------------------------------ the replica path
+
+
+# configs 4 and 5 at full width (benchmarks/driver_configs.py:71-100)
+SG_CONFIGS = {
+    "config4": dict(shape=(8, 8, 8), couplings="bimodal", t=(0.9, 2.2), seed=4,
+                    sweeps=2048, kw=dict(pt_interval=1,
+                                         overlap_cluster_update_interval=10,
+                                         overlap_cluster_build_mode="houdayer")),
+    "config5": dict(shape=(16, 16, 16), couplings="gaussian", t=(0.8, 2.0), seed=5,
+                    sweeps=512, kw=dict(pt_interval=1, pt_schedule="full_ladder",
+                                        overlap_cluster_update_interval=10,
+                                        overlap_cluster_build_mode="jorg+cmr")),
+}
+SG_R, SG_T, SG_D = 4, 24, 8
+# |<q>| and the P(q) asymmetry at config 4's hottest temperature (2.2, far
+# above T_g ~ 1.1 of the 3D +-J glass): q is centred on 0 with a width of
+# ~1/sqrt(512), so after 2048 sweeps x 8 realizations x 2 pairs its mean
+# is ~1e-3 and the mass on either side of 0 within a few per cent
+Q_HOT_TOL = 0.02
+PQ_ASYM_TOL = 0.05
+# the 4x4 +-J glass against exact enumeration: standard errors of about
+# 0.003 (e) and 0.008 (q^2) after 40000 sweeps
+GLASS_SWEEPS = 40000
+GLASS_E_TOL = 0.03
+GLASS_Q2_TOL = 0.05
+# the summed e of colour_pass and energy_partials on gaussian couplings: f32
+# sums of the same terms (|terms| adding up to at most sum |J|) in another
+# order, each order's error below ~(log2 n + 8) f32 epsilons of sum |J|
+E_SUM_TOL = 1e-6  # of sum |J| of the system's realization
+PAIR_KERNELS = ("colour_pass", "pair_overlap", "pt_step", "ov_bonds", "fk_link",
+                "ov_mid", "ov_finish", "energy_partials")
+
+
+def reset_pair_counts():
+    from peapods_tpu_torch.ops import fk, mega, megapair, overlap, sweep
+
+    for table in (sweep.LAUNCHES, fk.LAUNCHES, mega.LAUNCHES, megapair.LAUNCHES,
+                  overlap.LAUNCHES):
+        for k in table:
+            table[k] = 0
+
+
+def pair_counts():
+    from peapods_tpu_torch.ops import fk, mega, megapair, overlap
+
+    return {**mega.LAUNCHES, **megapair.LAUNCHES, **overlap.LAUNCHES,
+            "fk_link": fk.LAUNCHES["fk_link"]}
+
+
+def sg_model(name, dev, seed=None):
+    from peapods_tpu_torch import Ising
+
+    c = SG_CONFIGS[name]
+    return Ising(c["shape"], couplings=c["couplings"],
+                 temperatures=np.geomspace(*c["t"], SG_T), n_replicas=SG_R,
+                 n_disorder=SG_D, seed=c["seed"] if seed is None else seed,
+                 device=dev)
+
+
+def pair_checksum(sim, result) -> str:
+    """Hash of spins, system_ids, counter, energies and overlaps."""
+    h = hashlib.sha256()
+    h.update(sim.state["spins"].cpu().numpy().tobytes())
+    h.update(sim.state["system_ids"].cpu().numpy().tobytes())
+    h.update(np.asarray(sim.state["counter"], np.int32).tobytes())
+    for key in ("mags", "mags2", "energies", "energies2", "overlap", "overlap2",
+                "link_overlap", "link_overlap2"):
+        h.update(np.asarray(result[key]).tobytes())
+    h.update(np.asarray(result["overlap_histogram"]).tobytes())
+    return h.hexdigest()[:16]
+
+
+def expected_pair_counts(name, n):
+    """Launches of ``n`` sweeps from sweep 0: two colour passes, a pair
+    measurement and a PT step per sweep; per move (every 10th sweep) its
+    kernels (``fk_link`` twice for CMR: blue, then grey), the energy
+    re-derivation and a second PT step."""
+    c = SG_CONFIGS[name]
+    interval = c["kw"]["overlap_cluster_update_interval"]
+    modes = c["kw"]["overlap_cluster_build_mode"].split("+")
+    moves = [modes[(s // interval) % len(modes)] for s in range(0, n, interval)]
+    n_cmr = sum(k == "cmr" for k in moves)
+    e = len(moves)
+    return {"colour_pass": 2 * n, "pt_step": n + e, "pair_overlap": n,
+            "ov_bonds": e, "fk_link": e + n_cmr, "ov_mid": n_cmr, "ov_finish": e,
+            "energy_partials": e}
+
+
+def sim_config(sim, kw):
+    """The engine's SimConfig of a sample() call with these kwargs."""
+    from peapods_tpu_torch.engine.config import (OverlapClusterConfig, SimConfig,
+                                                 parse_overlap_modes)
+
+    return SimConfig(
+        n_sweeps=256, pt_interval=kw["pt_interval"],
+        pt_schedule=kw.get("pt_schedule", "single_random_edge"),
+        overlap_cluster=OverlapClusterConfig(
+            interval=kw["overlap_cluster_update_interval"],
+            modes=parse_overlap_modes(kw["overlap_cluster_build_mode"])))
+
+
+def sg_config(name, dev, card):
+    """A spin-glass config through Ising.sample, twice from one seed: launch
+    counts, two equal checksums, sanity, the rate (median of three warm
+    calls)."""
+    c = SG_CONFIGS[name]
+    n = c["sweeps"]
+    checks, models, results = [], [], []
+    for run in range(2):
+        model = sg_model(name, dev)
+        torch.cuda.synchronize()
+        reset_pair_counts()
+        result = model.sample(n, "metropolis", **c["kw"])
+        torch.cuda.synchronize()
+        if run == 0:
+            launches = {k: v for k, v in pair_counts().items() if v}
+        checks.append(pair_checksum(model._sim, result))
+        models.append(model)
+        results.append(result)
+    want = expected_pair_counts(name, n)
+    if launches != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"{name} launch counts {launches}, expected {want}")
+    if checks[0] != checks[1]:
+        raise AssertionError(f"{name} checksums differ: {checks}")
+    r = results[0]
+    e, q2, pt = r["energies"], r["overlap2"], r["per_disorder"]["parallel_tempering"]
+    n_edges = SG_T - 1
+    att_want = (n * SG_R * SG_D if "pt_schedule" not in c["kw"]
+                else n * SG_R * SG_D * n_edges)
+    sane = {
+        "finite": bool(np.isfinite(e).all() and np.isfinite(q2).all()),
+        "<e> falls with T": bool(e[0] > e[-1]),
+        "<q^2> falls with T": bool(q2[0] > q2[-1]),
+        "q^2 in [0, 1]": bool(((q2 >= 0) & (q2 <= 1)).all()),
+        "edge attempts": int(pt["edge_attempts"].sum()) == att_want,
+        "histogram counts": int(np.asarray(r["overlap_histogram"]).sum())
+        == (n - int(np.floor(n * 0.25 + 0.5))) * SG_D * (SG_R // 2) * SG_T,
+    }
+    if not all(sane.values()):
+        raise AssertionError(f"{name} sanity: {sane}")
+    rates = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        models[1].sample(n, "metropolis", **dict(c["kw"], warmup_ratio=0.0))
+        torch.cuda.synchronize()
+        rates.append(n / (time.perf_counter() - t0))
+    sweeps_s = float(np.median(rates))
+    n_sites = int(np.prod(c["shape"]))
+    # the host's share: one 256-sweep chunk's overlap-move tables (numpy
+    # threefry: permutations, task keys, scalars, Wolff probes)
+    from peapods_tpu_torch.engine import loop
+
+    sim = models[1]._sim
+    cfg = sim_config(sim, c["kw"])
+    t0 = time.perf_counter()
+    loop._event_tables(sim.rt, cfg, sim.state["base_keys"], 0, 0, 256)
+    torch.cuda.synchronize()
+    host_us = (time.perf_counter() - t0) * 1e6 / 256
+    log(f"11 {name}", f"host: the overlap-move tables of a 256-sweep chunk take "
+        f"{host_us:.1f} us per sweep against {1e6 / sweeps_s:.1f} us of wall time "
+        "per sweep")
+    log(f"11 {name}", f"{'x'.join(map(str, c['shape']))} {c['couplings']}, "
+        f"{SG_T} temps x {SG_R} replicas x {SG_D} realizations, "
+        f"{c['kw']['overlap_cluster_build_mode']} every 10 sweeps, {n} sweeps on "
+        f"{dev}: launches {launches}; checksum {checks[0]} == {checks[1]}; sanity "
+        f"ok: {', '.join(sane)}")
+    log(f"11 {name}", f"<e>[0,-1] {e[0]:.5f}, {e[-1]:.5f}; <q^2>[0,-1] {q2[0]:.5f}, "
+        f"{q2[-1]:.5f}; sg_binder[0] {float(models[0].sg_binder[0]):.4f}; accepted "
+        f"swaps {int(pt['edge_acceptances'].sum())} of {int(pt['edge_attempts'].sum())}")
+    log(f"11 {name}", f"kernel path: {sweeps_s:.1f} sweeps/s = "
+        f"{sweeps_s * n_sites * SG_R * SG_T * SG_D:.4e} flips/s on {card} (median "
+        f"of {', '.join(f'{x:.1f}' for x in rates)} sweeps/s)")
+    return dict(model=models[1], result=r, sweeps_s=sweeps_s, launches=launches,
+                kw=c["kw"], n_sites=n_sites, shape=c["shape"])
+
+
+def hot_pq(run):
+    """|<q>| and the P(q) asymmetry at config 4's hottest temperature."""
+    r = run["result"]
+    q = float(r["overlap"][-1])
+    hist = np.asarray(r["overlap_histogram"][-1], np.float64)
+    mid = (len(hist) - 1) // 2  # the bin of q = 0
+    neg, pos = hist[:mid].sum(), hist[mid + 1:].sum()
+    asym = abs(pos - neg) / hist.sum()
+    tv = 0.5 * np.abs(hist - hist[::-1]).sum() / hist.sum()
+    if not (abs(q) < Q_HOT_TOL and asym < PQ_ASYM_TOL):
+        raise AssertionError(f"config 4 hottest T: <q> {q}, P(q) asymmetry {asym}")
+    log("12 physics", f"config4 at T = 2.2: <q> {q:.5f} (tolerance {Q_HOT_TOL}); "
+        f"P(q > 0) - P(q < 0) = {(pos - neg) / hist.sum():.5f} (tolerance "
+        f"{PQ_ASYM_TOL}); total variation of P(q) against P(-q) {tv:.4f} ok")
+
+
+def glass_4x4_exact(J, T):
+    """Exact <e> per spin and <q^2> = sum_ij <s_i s_j>^2 / N^2 of a 4x4
+    +-J glass (forward couplings J [16, 2])."""
+    n = 16
+    states = (((np.arange(2**n)[:, None] >> np.arange(n)[None, :]) & 1) * 2 - 1)
+    idx = np.arange(16).reshape(4, 4)
+    fwd = np.stack([np.roll(idx, -1, 0), np.roll(idx, -1, 1)], -1).reshape(n, 2)
+    E = sum((states * states[:, fwd[:, k]] * J[:, k]).sum(1) for k in range(2))
+    E = E.astype(np.float64)
+    w = np.exp((E - E.max()) / T)
+    w /= w.sum()
+    corr = (states.T * w) @ states
+    return (E * w).sum() / n, (corr**2).sum() / n**2
+
+
+def glass_physics(dev):
+    """A fixed 4x4 +-J glass with R = 2 and 3 temperatures, PT every sweep
+    and each overlap move (Wolff; Joerg and CMR also SW), against exact
+    enumeration."""
+    from peapods_tpu_torch import Ising
+
+    rng = np.random.default_rng(44)
+    J = rng.choice([-1.0, 1.0], size=(4, 4, 2)).astype(np.float32)
+    temps = np.array([0.8, 1.3, 2.0], np.float32)
+    exact = [glass_4x4_exact(J.reshape(16, 2), float(t)) for t in temps]
+    worst = (0.0, 0.0)
+    for build, mode in (("houdayer", "wolff"), ("jorg", "wolff"), ("cmr", "wolff"),
+                        ("jorg", "sw"), ("cmr", "sw")):
+        m = Ising((4, 4), couplings=J, temperatures=temps, n_replicas=2, seed=7,
+                  device=dev)
+        m.sample(GLASS_SWEEPS, pt_interval=1, overlap_cluster_update_interval=1,
+                 overlap_cluster_build_mode=build, overlap_cluster_mode=mode,
+                 warmup_ratio=0.1)
+        de = np.abs(m.energies_avg - [x[0] for x in exact])
+        dq = np.abs(m.overlap2 - [x[1] for x in exact])
+        if not ((de < GLASS_E_TOL).all() and (dq < GLASS_Q2_TOL).all()):
+            raise AssertionError(f"4x4 glass ({build}, {mode}): |dE| {de}, |dq2| {dq}")
+        worst = (max(worst[0], float(de.max())), max(worst[1], float(dq.max())))
+        log("12 physics", f"4x4 +-J glass, R=2, T {temps.tolist()}, {build} ({mode}) "
+            f"every sweep + PT, {GLASS_SWEEPS} sweeps on {dev}: <E> "
+            f"{np.round(m.energies_avg, 4).tolist()} (exact "
+            f"{[round(x[0], 4) for x in exact]}), <q^2> "
+            f"{np.round(m.overlap2, 4).tolist()} (exact "
+            f"{[round(x[1], 4) for x in exact]}) ok")
+    log("12 physics", f"4x4 glass: largest |dE| {worst[0]:.4f} (tolerance "
+        f"{GLASS_E_TOL}), largest |dq2| {worst[1]:.4f} (tolerance {GLASS_Q2_TOL})")
+
+
+def pair_inputs(run, dev):
+    """The replica path's kernel inputs on a config's current state."""
+    sim = run["model"]._sim
+    rt, st = sim.rt, sim.state
+    d, s = rt.n_disorder, rt.n_systems
+    return dict(rt=rt, spins=st["spins"], sid=st["system_ids"].view(d, s),
+                grid=st["spins"].view(d, s, *rt.lattice.shape))
+
+
+def colour_ties(x, words, colour, gibbs=False):
+    """Active sites of a colour pass whose uniform lies within TIE_ULPS ulp
+    of its acceptance on the pass's input, by slot: bool [d, S, *shape]."""
+    from peapods_tpu_torch.ops.rng import colour_uniforms
+    from peapods_tpu_torch.ops.sweep import acceptance, colour_mask, local_field
+
+    rt = x["rt"]
+    shape = rt.lattice.shape
+    nd = len(shape)
+    d, s = x["sid"].shape
+    di = torch.arange(d, device=x["sid"].device)[:, None]
+    sp = x["grid"][di, x["sid"].long()].float()
+    field = local_field(sp, rt.jgrids[:, None], nd)
+    inv = (1.0 / (0.5 * rt.slot_temps)).reshape((1, s) + (1,) * nd)
+    p = acceptance((-sp * field) * inv, gibbs=gibbs)
+    u = colour_uniforms(words, s, colour, shape)
+    ulp = torch.nextafter(p, torch.full_like(p, np.inf)) - p
+    return ((u - p).abs() <= TIE_ULPS * ulp) & colour_mask(shape, colour, sp.device)
+
+
+def check_pair_kernels(runs, dev, rng):
+    """Every replica-path kernel against its plain version on each config's
+    equilibrated state (at its full width): colour_pass 3D (spins equal
+    apart from counted ulp ties), pair_overlap (exact), pt_step on R ladders
+    with both schedules (bitwise), each overlap mode x {Wolff, SW} (spins and
+    labels bitwise; Houdayer keeps E_a + E_b of every task) and
+    energy_partials.  Then the plain versions' times and the bounds."""
+    from peapods_tpu_torch.engine import seeds
+    from peapods_tpu_torch.ops import mega, megapair, overlap
+    from peapods_tpu_torch.ops.energy import bond_sums
+    from peapods_tpu_torch.ops.measure import slot_temps_for_systems
+    from peapods_tpu_torch.ops.tempering import init_trip_state, pt_draws_pairs
+
+    out = {}
+    for name, run in runs.items():
+        x = pair_inputs(run, dev)
+        rt = x["rt"]
+        shape = rt.lattice.shape
+        d, s = x["sid"].shape
+        n = rt.n_spins
+        rec = {}
+        # the limit of |e_kernel - e_plain| per system (E_SUM_TOL)
+        e_lim = E_SUM_TOL * rt.coup.double().abs().sum((1, 2))[:, None]
+        # colour_pass
+        words = torch.from_numpy(rng.integers(-2**31, 2**31, (d, 2)).astype(
+            np.int32)).to(dev)
+        ties, err, worst = 0, 0.0, 0.0
+        for colour in (0, 1):
+            tie = colour_ties(x, words, colour)
+            a, b = x["grid"].clone(), x["grid"].clone()
+            pk = mega.colour_pass(a, rt.jgrids, x["sid"], rt.slot_temps, words, colour,
+                                  gibbs=False)
+            pp = mega.colour_pass_plain(b, rt.jgrids, x["sid"], rt.slot_temps, words,
+                                        colour, gibbs=False)
+            torch.cuda.synchronize()
+            di = torch.arange(d, device=dev)[:, None]
+            diff = a[di, x["sid"].long()] != b[di, x["sid"].long()]
+            if (diff & ~tie).any():
+                raise AssertionError(f"{name} colour_pass: {int((diff & ~tie).sum())} "
+                                     "spins differ away from ulp ties")
+            ties += int((diff & tie).sum())
+            if pk is not None:
+                if not torch.equal(pk[1].sum(-1), pp[1].sum(-1)):
+                    raise AssertionError(f"{name} colour_pass: m differs")
+                de = (pk[0].double().sum(-1) - pp[0].double().sum(-1)).abs()
+                err = float(de.max() / n)
+                worst = float((de / e_lim).max())
+                if (rt.lattice.shape == (8, 8, 8) and err) or worst > 1.0:
+                    raise AssertionError(f"{name} colour_pass: e differs by {err} per "
+                                         f"spin, {worst} of the limit")
+        if ties > MAX_TIE_SHARE * d * s * n:
+            raise AssertionError(f"{name}: {ties} ulp ties in {d * s * n} sites")
+        rec["colour_pass"] = dict(max_abs_err=err, ties=ties)
+        log("13 kernel-vs-plain", f"{name} colour_pass ok: {d * s * n} sites, 0 "
+            f"differ but {ties} ulp ties; max |e_kernel - e_plain| per spin {err}, "
+            f"{worst:.4f} of the limit {E_SUM_TOL} sum|J| per system (+-J: exact)")
+        # pair_overlap
+        cols = rt.n_pairs * rt.n_temps
+        qs = torch.empty((d, cols), dtype=torch.int32, device=dev)
+        ql = torch.empty_like(qs)
+        megapair.pair_overlap(x["spins"], x["sid"], qs, ql, shape=shape,
+                              n_replicas=rt.n_replicas)
+        ps, pl = megapair.pair_overlap_plain(x["spins"], x["sid"], shape, rt.n_replicas)
+        torch.cuda.synchronize()
+        if not (torch.equal(qs, ps) and torch.equal(ql, pl)):
+            raise AssertionError(f"{name} pair_overlap differs")
+        rec["pair_overlap"] = dict(max_abs_err=0.0)
+        log("13 kernel-vs-plain", f"{name} pair_overlap ok: {d * cols} (pair, "
+            "temperature) sums exact")
+        # pt_step on R ladders: the main path's partials, both schedules
+        e_part, m_part = mega.colour_pass(x["grid"].clone(), rt.jgrids, x["sid"],
+                                          rt.slot_temps, words, 1, gibbs=False)
+        hot, cold = rt.hot_slot, rt.cold_slot
+        for pt_full in (False, True):
+            pw = torch.from_numpy(rng.integers(-2**31, 2**31, (64, d, 2)).astype(
+                np.int32)).to(dev)
+            dr = pt_draws_pairs(pw, rt.n_replicas, rt.n_temps - 1, pt_full=pt_full)
+            if not pt_full:
+                dr = (dr[0].to(torch.int32), dr[1])
+            states = []
+            for fn in (mega.pt_step, mega.pt_step_plain):
+                sid = x["sid"].clone()
+                i32 = dict(dtype=torch.int32, device=dev)
+                st = dict(sid=sid, ea=torch.zeros((d, rt.n_temps - 1), **i32),
+                          ec=torch.zeros((d, rt.n_temps - 1), **i32),
+                          rt=torch.zeros((d, s), **i32),
+                          ts=init_trip_state(sid.view(d, rt.n_replicas, -1), hot),
+                          sys_temps=slot_temps_for_systems(sid, rt.slot_temps),
+                          e=torch.empty((d, 64, s), device=dev),
+                          m=torch.empty((d, 64, s), **i32), parity=0)
+                for t in range(64):
+                    st["parity"] = fn(
+                        e_part.roll(t, 1), m_part, st["e"][:, t], st["m"][:, t],
+                        st["sid"], st["ea"], st["ec"], st["rt"], st["ts"],
+                        rt.slot_temps, dr[t] if pt_full else (dr[0][t], dr[1][t]),
+                        st["sys_temps"], do_pt=True, pt_full=pt_full,
+                        parity=st["parity"], hot_slot=hot, cold_slot=cold, n_spins=n,
+                        n_replicas=rt.n_replicas)
+                states.append(st)
+            torch.cuda.synchronize()
+            k, p = states
+            for key in ("sid", "ea", "ec", "rt", "ts", "sys_temps", "e", "m"):
+                if not torch.equal(k[key], p[key]):
+                    raise AssertionError(f"{name} pt_step: {key} differs")
+            if k["parity"] != p["parity"] or not int(k["ec"].sum()):
+                raise AssertionError(f"{name} pt_step: parity or no swap")
+            log("13 kernel-vs-plain", f"{name} pt_step ok ({'full_ladder' if pt_full else 'single_random_edge'}, "
+                f"{d} x {rt.n_replicas} ladders of {rt.n_temps}): 64 events bitwise, "
+                f"{int(k['ec'].sum())} of {int(k['ea'].sum())} swaps accepted")
+        rec["pt_step"] = dict(max_abs_err=0.0)
+        # the overlap moves
+        moved = {}
+        for kind in ("houdayer", "jorg", "cmr"):
+            for wolff in (True, False):
+                keys = rng.integers(0, 2**32, (d, 2), dtype=np.uint64).astype(np.uint32)
+                tasks, tkeys = seeds.overlap_tasks(keys, [5], rt.n_replicas, rt.n_temps)
+                scal, probes = seeds.event_scalars(kind, wolff, tkeys[0], n)
+                up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+                tab = (up(tasks[0]), up(scal.reshape(-1, 6)), up(probes.reshape(-1, 64)),
+                       up(tkeys[0].view(np.int32).reshape(-1, 2)))
+                a, b = x["spins"].clone(), x["spins"].clone()
+                kw = dict(kind=kind, wolff=wolff, shape=shape, with_labels=True)
+                lk = overlap.overlap_event(a, x["sid"], tab[0], rt.coup, rt.temps,
+                                           *tab[1:], **kw)
+                lp = overlap.overlap_event_plain(b, x["sid"], tab[0], rt.coup, rt.temps,
+                                                 *tab[1:], **kw)
+                torch.cuda.synchronize()
+                bad = {"spins": int((a != b).sum()), "labels": int((lk[0] != lp[0]).sum()),
+                       "blue labels": 0 if lk[1] is None else int((lk[1] != lp[1]).sum())}
+                flipped = int((a != x["spins"]).sum())
+                n_clusters = int((lk[0] == torch.arange(n, device=dev)).sum())
+                msg = (f"{name} {kind} ({'wolff' if wolff else 'sw'}): mismatches {bad}; "
+                       f"{flipped} spins flipped, {n_clusters} clusters")
+                if any(bad.values()):
+                    raise AssertionError(msg)
+                if kind == "houdayer":
+                    sys, _, _ = overlap.gather_tasks(x["spins"], x["sid"], tab[0],
+                                                     rt.n_temps)
+                    di = torch.arange(d, device=dev)[:, None, None]
+                    pair = lambda e: (e[di, sys[..., 0]].double()  # noqa: E731
+                                      + e[di, sys[..., 1]].double())
+                    # summed in float64: +-J exactly, gaussian to ~1e-12
+                    cd = rt.coup.double()[:, None]
+                    before = pair(bond_sums(x["spins"], cd, shape))
+                    after = pair(bond_sums(a, cd, shape))
+                    drift = float((after - before).abs().max())
+                    tol = 0.0 if name == "config4" else 1e-9
+                    if drift > tol:
+                        raise AssertionError(f"{msg}; E_a + E_b moved by {drift}")
+                    msg += f"; E_a + E_b of every task kept (max drift {drift}, tolerance {tol})"
+                log("13 kernel-vs-plain", msg + " ok")
+                moved[(kind, wolff)] = tab
+        # energy_partials
+        ek, mk = overlap.energy_partials(x["spins"], rt.coup, shape)
+        ep, mp = overlap.energy_partials_plain(x["spins"], rt.coup, shape)
+        torch.cuda.synchronize()
+        de = (ek.double().sum(-1) - ep.double().sum(-1)).abs()
+        e_err = float(de.max())
+        worst = float((de / e_lim).max())
+        if (not torch.equal(mk.sum(-1), mp.sum(-1)) or (name == "config4" and e_err)
+                or worst > 1.0):
+            raise AssertionError(f"{name} energy_partials differ ({e_err}, {worst} of "
+                                 "the limit)")
+        rec["energy_partials"] = dict(max_abs_err=e_err)
+        log("13 kernel-vs-plain", f"{name} energy_partials ok: m exact, max |e_kernel - "
+            f"e_plain| {e_err}, {worst:.4f} of the limit {E_SUM_TOL} sum|J| per system "
+            "(+-J: exact; gaussian: f32 sums in another order)")
+        for k in ("ov_bonds", "fk_link", "ov_mid", "ov_finish"):
+            rec[k] = dict(max_abs_err=0.0)
+        rec["_tables"] = moved
+        out[name] = rec
+    return out
+
+
+def pair_times(runs, checks, dev):
+    """Plain versions' times and the bounds of each replica-path kernel at
+    each config's main-path shapes."""
+    from peapods_tpu_torch.ops import mega, megapair, overlap
+
+    for name, run in runs.items():
+        x = pair_inputs(run, dev)
+        rt = x["rt"]
+        shape = rt.lattice.shape
+        nd = len(shape)
+        d, s = x["sid"].shape
+        n = rt.n_spins
+        rec = checks[name]
+        words = torch.zeros((d, 2), dtype=torch.int32, device=dev)
+        g = x["grid"].clone()
+        args = (rt.jgrids, x["sid"], rt.slot_temps, words)
+        rec["colour_pass"]["plain_ms"] = wall_ms(
+            lambda: mega.colour_pass_plain(g, *args, 1, gibbs=False), 3)
+        sp = x["spins"]
+        rec["pair_overlap"]["plain_ms"] = wall_ms(
+            lambda: megapair.pair_overlap_plain(sp, x["sid"], shape, rt.n_replicas), 5)
+        e_part, m_part = mega.colour_pass(g, *args, 1, gibbs=False)
+        i32 = dict(dtype=torch.int32, device=dev)
+        pt_args = (e_part, m_part, torch.empty((d, s), device=dev),
+                   torch.empty((d, s), **i32), x["sid"].clone(),
+                   torch.zeros((d, rt.n_temps - 1), **i32),
+                   torch.zeros((d, rt.n_temps - 1), **i32), torch.zeros((d, s), **i32),
+                   torch.zeros((d, s), **i32), rt.slot_temps)
+        full = "pt_schedule" in run["kw"]
+        draws = (torch.full((d, rt.n_replicas, 2, rt.n_temps - 1), 0.5, device=dev)
+                 if full else (torch.zeros((d, rt.n_replicas), **i32),
+                               torch.full((d, rt.n_replicas), 0.5, device=dev)))
+        kw = dict(do_pt=True, pt_full=full, parity=0, hot_slot=rt.hot_slot,
+                  cold_slot=rt.cold_slot, n_spins=n, n_replicas=rt.n_replicas)
+        rec["pt_step"]["plain_ms"] = wall_ms(lambda: mega.pt_step_plain(
+            *pt_args, draws, torch.empty((d, s), device=dev), **kw), 10)
+        rec["energy_partials"]["plain_ms"] = wall_ms(
+            lambda: overlap.energy_partials_plain(sp, rt.coup, shape), 5)
+        # the move's plain version is one function for all of its kernels:
+        # its time, on the main path's kinds, stands beside each of them
+        plain_move = {}
+        for kind in (("houdayer",) if name == "config4" else ("jorg", "cmr")):
+            tab = rec["_tables"][(kind, True)]
+            plain_move[kind] = wall_ms(lambda: overlap.overlap_event_plain(
+                sp.clone(), x["sid"], tab[0], rt.coup, rt.temps, *tab[1:], kind=kind,
+                wolff=True, shape=shape), 3)
+        for k in ("ov_bonds", "fk_link", "ov_mid", "ov_finish"):
+            rec[k]["plain_ms"] = max(plain_move.values())
+            rec[k]["plain_is"] = "the whole move: " + ", ".join(
+                f"{kind} {ms:.4f} ms" for kind, ms in plain_move.items())
+        # bounds: bytes each input read once and each output written once
+        b_tasks = d * rt.n_temps * rt.n_pairs
+        sys_bytes = d * s * n
+        cb = 4 * nd * d * n
+        bounds = {
+            # spins, grids, sid, temps in; the active half written
+            "colour_pass": (sys_bytes + 2 * nd * 4 * d * n + sys_bytes // 2,
+                            (6 * nd + 8) * sys_bytes // 2),
+            # the paired systems' spins in, two ints per (pair, T) out
+            "pair_overlap": (2 * d * rt.n_pairs * rt.n_temps * n + 8 * b_tasks,
+                             (2 + 2 * nd) * 2 * d * rt.n_pairs * rt.n_temps * n // 2),
+            "pt_step": (8 * d * s * e_part.shape[2] + 16 * d * s, 10 * d * s),
+            # both replicas' spins and couplings in; state bytes, parents out
+            "ov_bonds": (2 * b_tasks * n + cb + 5 * b_tasks * n, 12 * nd * b_tasks * n),
+            "fk_link": (5 * b_tasks * n, 0),
+            "ov_mid": (5 * b_tasks * n + cb + 5 * b_tasks * n, 12 * nd * b_tasks * n),
+            "ov_finish": (2 * b_tasks * n + 5 * b_tasks * n + 2 * b_tasks * n,
+                          4 * b_tasks * n),
+            "energy_partials": (sys_bytes + cb + 8 * d * s * ((n + 255) // 256),
+                                3 * nd * sys_bytes),
+        }
+        for k, (nbytes, flops) in bounds.items():
+            rec[k]["bound_ms"], rec[k]["bound_by"] = bound(nbytes, flops)
+        rec.pop("_tables")
+
+
+def pair_profile(run, n, card, name):
+    """Device time per launch and per sweep of each replica-path kernel over
+    a profiled window of ``n`` sweeps of the main path, and the busy share
+    of the unprofiled wall time per sweep."""
+    from torch.profiler import ProfilerActivity, profile
+
+    model = run["model"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        model.sample(n, "metropolis", **dict(run["kw"], warmup_ratio=0.0))
+        torch.cuda.synchronize()
+    per_launch, per_sweep, other = {}, {}, 0.0
+    for ev in prof.key_averages():
+        if ev.self_device_time_total <= 0:
+            continue
+        hit = [k for k in PAIR_KERNELS if f"{k}_kernel" in ev.key]
+        if hit:
+            per_launch[hit[0]] = ev.self_device_time_total / ev.count
+            per_sweep[hit[0]] = ev.self_device_time_total / n
+        else:
+            other += ev.self_device_time_total / n
+    missing = [k for k in run["launches"] if k not in per_launch]
+    if missing:
+        raise AssertionError(f"the profiler saw no device time for {missing}")
+    busy = sum(per_sweep.values()) + other
+    log("14 times", f"{name} device us per sweep: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in per_sweep.items())
+        + f", other device work {other:.3f}, sum {busy:.3f} against "
+        f"{1e6 / run['sweeps_s']:.3f} us of wall time per sweep: the device is busy "
+        f"{busy * run['sweeps_s'] / 1e6:.3f} of it (on {card})")
+    return per_launch
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -946,10 +1509,28 @@ def main():
         shapes = rec.pop("shapes")
         rec.update(shapes["config3"], at_harness=shapes["harness"])
 
+    # the replica path: configs 4 and 5
+    runs = {name: sg_config(name, dev, card) for name in SG_CONFIGS}
+    hot_pq(runs["config4"])
+    glass_physics(dev)
+    pk = check_pair_kernels(runs, dev, np.random.default_rng(2026))
+    pair_times(runs, pk, dev)
+    for name, run in runs.items():
+        us = pair_profile(run, 200 if name == "config4" else 100, card, name)
+        for k, rec in pk[name].items():
+            rec["ms"] = us[k] / 1e3 if k in us else None
+            rec["launches"] = run["launches"].get(k, 0)
+        log("14 times", f"{name} per launch: " + "; ".join(
+            f"{k} {rec['ms']:.5f} ms (bound {rec['bound_ms']:.5f} ms by "
+            f"{rec['bound_by']}, plain {rec['plain_ms']:.4f} ms)"
+            for k, rec in pk[name].items() if rec["ms"] is not None) + f" on {card}")
+
     mega_src = "peapods_tpu_torch/csrc/mega.cu"
     mega_replaces = "peapods_tpu/ops/pallas_mega.py:96"
     fk_src = "peapods_tpu_torch/csrc/fk.cu"
     fk_replaces = "peapods_tpu/ops/pallas_event.py:621"
+    mp_replaces = "peapods_tpu/ops/pallas_megapair.py:325"
+    ev_replaces = "peapods_tpu/ops/pallas_event.py:274"
     kernels = [
         dict(name="colour_pass", route="cuda", source=mega_src,
              replaces=mega_replaces, launches=launches["colour_pass"], **cp),
@@ -961,6 +1542,26 @@ def main():
              launches=c3["launches"]["sweep_2d"], **ks.pop("sweep_2d")),
     ] + [dict(name=k, route="cuda", source=fk_src, replaces=fk_replaces,
               launches=c3["launches"][k], **v) for k, v in ks.items()]
+    # colour_pass and pt_step also carry the replica path (row 21), fk_link
+    # the overlap moves (row 19)
+    for kr in kernels:
+        rep = {"colour_pass": mp_replaces, "pt_step": mp_replaces,
+               "fk_link": ev_replaces}.get(kr["name"])
+        for name in SG_CONFIGS if rep else ():
+            kr[f"at_{name}"] = dict(pk[name][kr["name"]], replaces=rep)
+    for k, src, rep in (("pair_overlap", "pairs.cu", mp_replaces),
+                        ("ov_bonds", "overlap.cu", ev_replaces),
+                        ("ov_mid", "overlap.cu", ev_replaces),
+                        ("ov_finish", "overlap.cu", ev_replaces),
+                        ("energy_partials", "overlap.cu", ev_replaces)):
+        # the numbers of config 4's main path (config 5's for ov_mid, which
+        # only CMR launches), and config 5's beside them
+        main = "config5" if k == "ov_mid" else "config4"
+        kr = dict(name=k, route="cuda", source=f"peapods_tpu_torch/csrc/{src}",
+                  replaces=rep, library_ms=None, **pk[main][k])
+        if main == "config4":
+            kr["at_config5"] = pk["config5"][k]
+        kernels.append(kr)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     record = {"kernels": [{**{k: kr[k] for k in keys},

@@ -1,11 +1,14 @@
 """peapods_tpu_torch: the PyTorch / CUDA port of ``peapods_tpu``.
 
 The port runs beside the JAX package and imports none of it.  Today it runs
-a 2D square lattice with even extents and one replica: Metropolis or Gibbs
-sweeps, parallel tempering, every sweep measured (the mega path), and
-optional Swendsen-Wang or Wolff cluster updates (the per-sweep path) -- on
-an NVIDIA H100 through hand-written CUDA kernels (``device="cuda"``), or on
-the CPU through their plain torch versions (``device="cpu"``).
+Metropolis or Gibbs sweeps with parallel tempering, every sweep measured:
+one replica on a 2D square lattice with even extents (the mega path), with
+optional Swendsen-Wang or Wolff cluster updates (the per-sweep path); and
+two replicas or more on a 2D square or 3D cubic lattice with even extents
+(the replica path: the pair overlaps, PT on each replica's ladder, and the
+Houdayer, Joerg and CMR overlap moves) -- on an NVIDIA H100 through
+hand-written CUDA kernels (``device="cuda"``), or on the CPU through their
+plain torch versions (``device="cpu"``).
 
 Importing the package is cheap; torch is imported with the first use of
 ``Ising`` or ``IsingSimulation``.

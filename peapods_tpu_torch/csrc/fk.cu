@@ -16,15 +16,14 @@
 //              graph's kb words, counter (dir, site // 4, 0, 0).  Writes a
 //              state byte (bit d: bond d active; bit 2 + d: s != s_fwd) and
 //              parent[i] = i.
-//   fk_link    one thread per site unites the two ends of each active bond:
-//              find with path halving, then hang the larger root under the
-//              smaller with atomicCAS, retrying from the new parent when
-//              another thread got there first (Komura 2015; Playne & Hawick
-//              2018; the ECL-CC hooking of Jaiganesh & Burtscher 2018).
-//              Parents only ever point to a smaller index, so when the
-//              launch ends each component is one tree whose root is its
-//              minimum site index, whatever order the threads ran in: the
-//              reference's min-label fixed point, bitwise.
+//   fk_link    one thread per site unites the two ends of each active bond
+//              of a 2D or 3D lattice (uf.cuh: find with path halving, then
+//              the larger root hung under the smaller with atomicCAS), so
+//              that when the launch ends each component is one tree whose
+//              root is its minimum site index, whatever order the threads
+//              ran in: the reference's min-label fixed point, bitwise.
+//              The overlap moves (csrc/overlap.cu) label their bond graphs
+//              with it too.
 //   fk_finish  one thread per site: label = find(i), optionally written
 //              to a labels array (the parent array keeps being halved by
 //              other threads' finds, so it is not the output); SW flips iff
@@ -53,68 +52,18 @@
 #include <cstdint>
 
 #include "mega.cuh"
+#include "uf.cuh"
 
 using namespace peapods;
 
 namespace {
-
-// forward neighbour of site i along dir (0 down, 1 right), periodic
-__device__ __forceinline__ int fwd_site(int i, int H, int W, int dir) {
-  const int r = i / W;
-  const int c = i - r * W;
-  if (dir == 0) return r == H - 1 ? c : i + W;
-  return c == W - 1 ? i - c : i + 1;
-}
-
-// murmur-style hash of (label, salt) to a 24-bit uniform (ops/cluster.py)
-__device__ __forceinline__ float salted_uniform(uint32_t x, uint32_t s0,
-                                                uint32_t s1) {
-  x ^= s0;
-  x = (x ^ (x >> 16)) * 0x85EBCA6Bu;
-  x = (x ^ (x >> 13)) * 0xC2B2AE35u;
-  x = x ^ (x >> 16) ^ s1;
-  x = (x ^ (x >> 16)) * 0x7FEB352Du;
-  x = (x ^ (x >> 15)) * 0x846CA68Bu;
-  x = x ^ (x >> 16);
-  return uniform24(x);
-}
-
-// Root of x, halving the path on the way.  Loads bypass L1 (__ldcg), which
-// is not coherent across SMs; a stale parent is still an ancestor or a
-// former root, and the caller's atomicCAS catches the latter.
-__device__ __forceinline__ int find_root(int32_t* P, int x) {
-  int cur = __ldcg(P + x);
-  if (cur == x) return x;
-  int prev = x;
-  int next;
-  while (cur > (next = __ldcg(P + cur))) {
-    P[prev] = next;
-    prev = cur;
-    cur = next;
-  }
-  return cur;
-}
-
-__device__ __forceinline__ void unite(int32_t* P, int a, int b) {
-  a = find_root(P, a);
-  b = find_root(P, b);
-  while (a != b) {
-    if (a < b) {
-      const int t = a;
-      a = b;
-      b = t;
-    }
-    const int old = atomicCAS(P + a, a, b);
-    if (old == a) return;
-    a = find_root(P, old);
-  }
-}
 
 __global__ void __launch_bounds__(kThreads)
 fk_bonds_kernel(const int8_t* __restrict__ spins, const float* __restrict__ j_fwd,
                 const float* __restrict__ temps, const int32_t* __restrict__ kb,
                 uint8_t* __restrict__ state, int32_t* __restrict__ parent, int H,
                 int W, int n_systems) {
+  const Dims dims = make_dims(H, W, 1);
   const int b = blockIdx.y;
   const int n = H * W;
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
@@ -138,7 +87,7 @@ fk_bonds_kernel(const int8_t* __restrict__ spins, const float* __restrict__ j_fw
     uint8_t st = 0;
 #pragma unroll
     for (int dir = 0; dir < 2; ++dir) {
-      const float sf = static_cast<float>(s[fwd_site(i, H, W, dir)]);
+      const float sf = static_cast<float>(s[fwd_site(i, dims, dir)]);
       const float inter = si * sf * (dir == 0 ? j.x : j.y);
       const float p = 1.0f - expf(-2.0f * inter / T);
       if (inter > 0.0f && uniform24(w[dir][k]) < p) st |= 1u << dir;
@@ -150,16 +99,16 @@ fk_bonds_kernel(const int8_t* __restrict__ spins, const float* __restrict__ j_fw
 }
 
 __global__ void __launch_bounds__(kThreads)
-fk_link_kernel(const uint8_t* __restrict__ state, int32_t* parent, int H, int W) {
+fk_link_kernel(const uint8_t* __restrict__ state, int32_t* parent, int L0, int L1,
+               int L2) {
+  const Dims dims = make_dims(L0, L1, L2);
   const int b = blockIdx.y;
-  const int n = H * W;
+  const int n = L0 * L1 * L2;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const uint8_t st = state[static_cast<size_t>(b) * n + i];
-  if (!(st & 3u)) return;
-  int32_t* P = parent + static_cast<size_t>(b) * n;
-  if (st & 1u) unite(P, i, fwd_site(i, H, W, 0));
-  if (st & 2u) unite(P, i, fwd_site(i, H, W, 1));
+  if (!(st & ((1u << dims.nd) - 1u))) return;
+  link_site(parent + static_cast<size_t>(b) * n, st, i, dims);
 }
 
 __device__ __forceinline__ bool flips(int root, int wolff, int seed_root,
@@ -175,6 +124,7 @@ fk_finish_kernel(int8_t* __restrict__ spins, const uint8_t* __restrict__ state,
                  const int32_t* __restrict__ scalars, float* __restrict__ e_part,
                  int32_t* __restrict__ m_part, int H, int W, int n_systems,
                  int wolff) {
+  const Dims dims = make_dims(H, W, 1);
   const int b = blockIdx.y;
   const int n = H * W;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -199,7 +149,7 @@ fk_finish_kernel(int8_t* __restrict__ spins, const uint8_t* __restrict__ state,
       float prod[2];
 #pragma unroll
       for (int dir = 0; dir < 2; ++dir) {
-        const bool ff = flips(find_root(P, fwd_site(i, H, W, dir)), wolff,
+        const bool ff = flips(find_root(P, fwd_site(i, dims, dir)), wolff,
                               seed_root, s0, s1);
         prod[dir] = (((st >> (2 + dir)) & 1u) != 0) != (fl != ff) ? -1.0f : 1.0f;
       }
@@ -237,11 +187,13 @@ int peapods_fk_bonds(const void* spins, const void* j_fwd, const void* temps,
   return static_cast<int>(cudaGetLastError());
 }
 
-int peapods_fk_link(const void* state, void* parent, int n_graphs, int H, int W,
-                    void* stream) {
-  fk_link_kernel<<<site_grid(H * W, 1, n_graphs), kThreads, 0,
+// state: uint8 [n_graphs, n] whose bits 0 .. nd-1 are the forward bonds of
+// a 2D (L2 = 1) or 3D lattice; parent: int32 [n_graphs, n], parent[i] = i.
+int peapods_fk_link(const void* state, void* parent, int n_graphs, int L0, int L1,
+                    int L2, void* stream) {
+  fk_link_kernel<<<site_grid(L0 * L1 * L2, 1, n_graphs), kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(state), static_cast<int32_t*>(parent), H, W);
+      static_cast<const uint8_t*>(state), static_cast<int32_t*>(parent), L0, L1, L2);
   return static_cast<int>(cudaGetLastError());
 }
 

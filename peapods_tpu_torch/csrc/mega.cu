@@ -1,16 +1,25 @@
-// Hopper kernels of the mega path: the checkerboard colour pass and the
-// per-sweep parallel-tempering step.
+// Hopper kernels of the mega path and of the replica path: the
+// checkerboard colour pass and the per-sweep parallel-tempering step.
 //
 // Replaces the TPU megakernel peapods_tpu/ops/pallas_mega.py:_mega_kernel
 // (with its colour update pallas_sweep.py:_kernel_body / _kernel_body_2sub
-// and the hardware-PRNG uniform _hw_uniform).  What is ported is what that
-// kernel computes, not its VMEM layout: one sweep of a realization is
+// and the hardware-PRNG uniform _hw_uniform) and, with pairs.cu's
+// pair_overlap, the pairs megakernel pallas_megapair.py:_mp_kernel (its 3D
+// body _mp_body and its PT on each replica's ladder).  What is ported is
+// what those kernels compute, not their VMEM layout: one sweep of a
+// realization is
 //   colour_pass(colour 0), colour_pass(colour 1, measuring), pt_step
-// -- three launches on the caller's stream, no host synchronisation.
+// -- three launches on the caller's stream (four with pair_overlap), no
+// host synchronisation.
 //
-// * Spins stay stored by system ([d, n_systems, H, W] int8); the slot a
-//   block works on reads its system from sid[d, slot], so a PT swap
-//   exchanges two sid entries and never moves a spin tile.
+// * Spins stay stored by system ([d, n_systems, n] int8); the slot a block
+//   works on reads its system from sid[d, slot], so a PT swap exchanges two
+//   sid entries and never moves a spin tile.  Slot r T + t is replica r at
+//   temperature t; temps are given by slot.
+// * A 3D [L0, L1, L2] lattice (even extents) has the colours (x + y + z) & 1
+//   and six coupling grids; its site update is update_sites_3d (mega.cuh),
+//   the same Philox counter (slot, colour, site / 4) over the active sites
+//   in row-major order.
 // * Thread g of a colour pass owns the active-colour sites 4g .. 4g+3
 //   (site i sits at row i / (W/2), column 2 (i % (W/2)) + ((row + colour) & 1))
 //   and draws their four uniforms from one Philox4x32-10 call with key =
@@ -58,25 +67,31 @@ colour_pass_kernel(int8_t* __restrict__ spins, const float* __restrict__ jgrids,
                    const int32_t* __restrict__ sid,
                    const float* __restrict__ temps,
                    const int32_t* __restrict__ words, float* __restrict__ e_part,
-                   int32_t* __restrict__ m_part, int H, int W, int n_slots,
+                   int32_t* __restrict__ m_part, int L0, int L1, int L2, int n_slots,
                    int colour, int gibbs) {
   const int slot = blockIdx.y;
   const int d = blockIdx.z;
-  const size_t hw = static_cast<size_t>(H) * W;
+  const bool three_d = L2 > 1;
+  const size_t n = static_cast<size_t>(L0) * L1 * L2;
   const int sys = sid[d * n_slots + slot];
   const bool measure = e_part != nullptr;
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   float e_acc = 0.0f;
   int m_acc = 0;
-  if (kSitesPerThread * g < H * (W >> 1)) {
+  if (kSitesPerThread * g < static_cast<int>(n >> 1)) {
     const uint4 r4 = philox4x32_10(static_cast<uint32_t>(words[2 * d]),
                                    static_cast<uint32_t>(words[2 * d + 1]),
                                    static_cast<uint32_t>(slot),
                                    static_cast<uint32_t>(colour),
                                    static_cast<uint32_t>(g), 0u);
-    update_sites(spins + (static_cast<size_t>(d) * n_slots + sys) * hw,
-                 jgrids + static_cast<size_t>(d) * 4 * hw, H, W, colour,
-                 1.0f / (0.5f * temps[slot]), gibbs, r4, g, measure, e_acc, m_acc);
+    int8_t* s = spins + (static_cast<size_t>(d) * n_slots + sys) * n;
+    const float inv_half_t = 1.0f / (0.5f * temps[slot]);
+    if (three_d)
+      update_sites_3d(s, jgrids + static_cast<size_t>(d) * 6 * n, L0, L1, L2,
+                      colour, inv_half_t, gibbs, r4, g, measure, e_acc, m_acc);
+    else
+      update_sites(s, jgrids + static_cast<size_t>(d) * 4 * n, L0, L1, colour,
+                   inv_half_t, gibbs, r4, g, measure, e_acc, m_acc);
   }
   if (!measure) return;  // uniform across the block
   block_partials(e_acc, m_acc, e_part, m_part,
@@ -84,7 +99,7 @@ colour_pass_kernel(int8_t* __restrict__ spins, const float* __restrict__ jgrids,
 }
 
 struct PtState {
-  float* es;  // [n_slots] energies per spin of the slots (shared memory)
+  float* es;  // [n_temps] energies per spin of the ladder's slots (shared memory)
   int32_t* sid;
   int32_t* ea;
   int32_t* ec;
@@ -100,9 +115,9 @@ struct PtState {
 __device__ void try_edge(PtState& st, int e, float u) {
   const float delta = (static_cast<float>(st.n_spins) * (st.es[e + 1] - st.es[e])) *
                       (1.0f / st.temps[e] - 1.0f / st.temps[e + 1]);
-  st.ea[e] += 1;
+  atomicAdd(st.ea + e, 1);  // the ladders of a realization share the counters
   if (!(delta >= logf(u))) return;
-  st.ec[e] += 1;
+  atomicAdd(st.ec + e, 1);
   const float el = st.es[e];
   st.es[e] = st.es[e + 1];
   st.es[e + 1] = el;
@@ -131,8 +146,8 @@ __global__ void pt_step_kernel(const float* __restrict__ e_part,
                                const int32_t* __restrict__ edge_draw,
                                const float* __restrict__ u_draw,
                                float* __restrict__ sys_temps, int n_slots,
-                               int n_spins, int do_pt, int pt_full, int parity,
-                               int hot, int cold) {
+                               int n_replicas, int n_spins, int do_pt, int pt_full,
+                               int parity, int hot, int cold) {
   extern __shared__ float es[];
   const int d = blockIdx.x;
   for (int slot = threadIdx.x; slot < n_slots; slot += blockDim.x) {
@@ -146,24 +161,31 @@ __global__ void pt_step_kernel(const float* __restrict__ e_part,
     }
     const float e = acc / static_cast<float>(n_spins);
     es[slot] = e;
-    e_out[static_cast<size_t>(d) * out_stride + slot] = e;
-    m_out[static_cast<size_t>(d) * out_stride + slot] = macc;
+    if (e_out != nullptr) {
+      e_out[static_cast<size_t>(d) * out_stride + slot] = e;
+      m_out[static_cast<size_t>(d) * out_stride + slot] = macc;
+    }
   }
   __syncthreads();
   if (!do_pt) return;
 
-  if (threadIdx.x == 0) {
-    const int n_edges = n_slots - 1;
-    PtState st{es, sid + d * n_slots, ea + d * n_edges, ec + d * n_edges,
-               rtrips + d * n_slots, tstate + d * n_slots, temps, n_spins, hot, cold};
+  // one thread per replica ladder (slots r T .. r T + T - 1)
+  const int n_temps = n_slots / n_replicas;
+  const int n_edges = n_temps - 1;
+  for (int r = threadIdx.x; r < n_replicas; r += blockDim.x) {
+    const int o = r * n_temps;
+    PtState st{es + o, sid + d * n_slots + o, ea + d * n_edges, ec + d * n_edges,
+               rtrips + d * n_slots, tstate + d * n_slots, temps + o, n_spins, hot,
+               cold};
+    const size_t dr = static_cast<size_t>(d) * n_replicas + r;
     if (pt_full) {
       for (int i = 0; i < 2; ++i) {
         const int p = i == 0 ? parity : 1 - parity;
         for (int e = p; e < n_edges; e += 2)
-          try_edge(st, e, u_draw[(static_cast<size_t>(d) * 2 + i) * n_edges + e]);
+          try_edge(st, e, u_draw[(dr * 2 + i) * n_edges + e]);
       }
     } else {
-      try_edge(st, edge_draw[d], u_draw[d]);
+      try_edge(st, edge_draw[dr], u_draw[dr]);
     }
   }
   // the systems' temperatures after the swaps, for the next sweep
@@ -180,41 +202,47 @@ extern "C" {
 // partial-sum rows the caller allocates.
 int peapods_colour_pass_blocks(int H, int W) { return colour_pass_blocks(H, W); }
 
-// One colour pass over every (realization, slot).  e_part / m_part are
+// One colour pass over every (realization, slot) of a 2D [L0, L1] (L2 = 1)
+// or 3D [L0, L1, L2] lattice, jgrids [d, 4 or 6, n].  e_part / m_part are
 // [d, n_slots, blocks] (both null for a pass that does not measure).
 int peapods_colour_pass(void* spins, const void* jgrids, const void* sid,
                         const void* temps, const void* words, void* e_part,
-                        void* m_part, int n_disorder, int n_slots, int H, int W,
-                        int colour, int gibbs, void* stream) {
-  const dim3 grid(colour_pass_blocks(H, W), n_slots, n_disorder);
+                        void* m_part, int n_disorder, int n_slots, int L0, int L1,
+                        int L2, int colour, int gibbs, void* stream) {
+  // a 3D lattice's active sites are those of an [L0 L1, L2] grid
+  const int blocks = L2 > 1 ? colour_pass_blocks(L0 * L1, L2) : colour_pass_blocks(L0, L1);
+  const dim3 grid(blocks, n_slots, n_disorder);
   colour_pass_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int8_t*>(spins), static_cast<const float*>(jgrids),
       static_cast<const int32_t*>(sid), static_cast<const float*>(temps),
       static_cast<const int32_t*>(words), static_cast<float*>(e_part),
-      static_cast<int32_t*>(m_part), H, W, n_slots, colour, gibbs);
+      static_cast<int32_t*>(m_part), L0, L1, L2, n_slots, colour, gibbs);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Reduce one sweep's partials ([d, n_systems, n_blocks], by system: read
-// through sid) into its (e, m) rows by slot and run the PT event (when
-// do_pt) on every realization's ladder, with the draws u_draw (f32 [d]
-// single edge, [d, 2, n_edges] full ladder) and edge_draw (int32 [d]); a PT
-// event then rewrites each system's temperature sys_temps ([d, n_systems]).
+// through sid) into its (e, m) rows by slot (skipped when e_out is null)
+// and run the PT event (when do_pt) on each of the n_replicas ladders of
+// every realization (slots r T .. r T + T - 1, temps [n_slots] by slot),
+// with the draws u_draw (f32 [d, R] single edge, [d, R, 2, n_edges] full
+// ladder) and edge_draw (int32 [d, R]); a PT event then rewrites each
+// system's temperature sys_temps ([d, n_systems]).
 int peapods_pt_step(const void* e_part, const void* m_part, int n_blocks,
                     void* e_out, void* m_out, int out_stride, void* sid, void* ea,
                     void* ec, void* rtrips, void* tstate, const void* temps,
                     const void* edge_draw, const void* u_draw, void* sys_temps,
-                    int n_disorder, int n_slots, int n_spins, int do_pt, int pt_full,
-                    int parity, int hot, int cold, void* stream) {
+                    int n_disorder, int n_slots, int n_replicas, int n_spins,
+                    int do_pt, int pt_full, int parity, int hot, int cold,
+                    void* stream) {
   pt_step_kernel<<<n_disorder, 32, n_slots * sizeof(float),
                    static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(e_part), static_cast<const int32_t*>(m_part), n_blocks,
       static_cast<float*>(e_out), static_cast<int32_t*>(m_out), out_stride,
       static_cast<int32_t*>(sid), static_cast<int32_t*>(ea), static_cast<int32_t*>(ec),
       static_cast<int32_t*>(rtrips), static_cast<int32_t*>(tstate),
-      static_cast<const float*>(temps), static_cast<const int32_t*>(edge_draw), static_cast<const float*>(u_draw),
-      static_cast<float*>(sys_temps), n_slots, n_spins, do_pt, pt_full,
-      parity, hot, cold);
+      static_cast<const float*>(temps), static_cast<const int32_t*>(edge_draw),
+      static_cast<const float*>(u_draw), static_cast<float*>(sys_temps), n_slots,
+      n_replicas, n_spins, do_pt, pt_full, parity, hot, cold);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -88,6 +88,63 @@ __device__ __forceinline__ void update_sites(int8_t* s, const float* jg, int H,
   }
 }
 
+// The 3D cubic counterpart of update_sites: system s is [L0, L1, L2] (all
+// even) with coupling grids jg ([6, n]: the bond arriving from x-1, the own
+// x bond, then the same for y and z).  Site i of the colour sits at x = i /
+// (L1 L2/2), y = (i / (L2/2)) % L1, z = 2 (i % (L2/2)) + ((x + y + colour) &
+// 1), and takes word i % 4 of r4.  The field adds the six terms in the order
+// x-, x+, y-, y+, z-, z+ (pallas_megapair._mp_body).  z pairs (2k, 2k+1) are
+// index pairs (idx, idx ^ 1), so m adds both sites of each as in 2D.
+__device__ __forceinline__ void update_sites_3d(int8_t* s, const float* jg, int L0,
+                                                int L1, int L2, int colour,
+                                                float inv_half_t, int gibbs, uint4 r4,
+                                                int g, bool measure, float& e_acc,
+                                                int& m_acc) {
+  const int zh = L2 >> 1;
+  const int plane = L1 * zh;
+  const int n_half = L0 * plane;
+  const size_t n = static_cast<size_t>(L0) * L1 * L2;
+  const size_t sx = static_cast<size_t>(L1) * L2;
+  const uint32_t w4[4] = {r4.x, r4.y, r4.z, r4.w};
+#pragma unroll
+  for (int k = 0; k < kSitesPerThread; ++k) {
+    const int i = kSitesPerThread * g + k;
+    if (i >= n_half) break;
+    const int x = i / plane;
+    const int rem = i - x * plane;
+    const int y = rem / zh;
+    const int z = 2 * (rem - y * zh) + ((x + y + colour) & 1);
+    const size_t row = static_cast<size_t>(x) * sx + static_cast<size_t>(y) * L2;
+    const size_t idx = row + z;
+    const size_t xm = (x == 0 ? L0 - 1 : x - 1) * sx + static_cast<size_t>(y) * L2 + z;
+    const size_t xp = (x == L0 - 1 ? 0 : x + 1) * sx + static_cast<size_t>(y) * L2 + z;
+    const size_t ym = static_cast<size_t>(x) * sx +
+                      static_cast<size_t>(y == 0 ? L1 - 1 : y - 1) * L2 + z;
+    const size_t yp = static_cast<size_t>(x) * sx +
+                      static_cast<size_t>(y == L1 - 1 ? 0 : y + 1) * L2 + z;
+    const size_t zm = row + (z == 0 ? L2 - 1 : z - 1);
+    const size_t zp = row + (z == L2 - 1 ? 0 : z + 1);
+    float field = static_cast<float>(s[xm]) * jg[idx] +
+                  static_cast<float>(s[xp]) * jg[n + idx];
+    field = field + static_cast<float>(s[ym]) * jg[2 * n + idx];
+    field = field + static_cast<float>(s[yp]) * jg[3 * n + idx];
+    field = field + static_cast<float>(s[zm]) * jg[4 * n + idx];
+    field = field + static_cast<float>(s[zp]) * jg[5 * n + idx];
+    float sv = static_cast<float>(s[idx]);
+    const float xv = (-sv * field) * inv_half_t;
+    const float p = gibbs ? 1.0f / (1.0f + expf(-xv))
+                          : kKeep * expf(fminf(xv, 0.0f));
+    if (uniform24(w4[k]) < p) {
+      sv = -sv;
+      s[idx] = static_cast<int8_t>(sv);
+    }
+    if (measure) {
+      e_acc += sv * field;
+      m_acc += static_cast<int>(sv) + static_cast<int>(s[idx ^ 1]);
+    }
+  }
+}
+
 // Tree sum of the block's kThreads (e, m) values into e_part[o] / m_part[o]
 // by thread 0, in a fixed order: no float atomics, so a sum repeats exactly.
 __device__ __forceinline__ void block_partials(float e_acc, int m_acc,

@@ -1,0 +1,401 @@
+// Hopper kernels of the pair overlap moves (Houdayer, Joerg, CMR, each in
+// Wolff or SW form) and of the energy re-derivation after a move.
+//
+// Replaces the TPU's fused overlap event peapods_tpu/ops/pallas_event.py:542
+// overlap_event_batch (kernel _event_kernel :274, with the CC fixed point
+// pallas_cc_batch.cc_fixed_point and the coin _salted_uniform_i32).  A task
+// b = (d T + t) P + g pairs the replicas tasks[b] = (r_a, r_b) at
+// temperature t of realization d; its two systems are found through sid
+// (slot r T + t), so the spins stay by system ([d, n_slots, n] int8) and
+// are flipped in place.  n is a 2D [L0, L1] (L2 = 1) or 3D [L0, L1, L2]
+// lattice; J/T is computed per bond as J / T in f32, as the reference's
+// pack_event_jt does.  The launches of one move, on the caller's stream:
+//
+//   ov_bonds   thread g owns sites 4g .. 4g+3 of a task and writes, per
+//              site, a state byte (bit d: forward bond d) and parent[i] = i:
+//                Houdayer  active_i && active_fwd       (active: a b < 0)
+//                Joerg     a a_fwd J/T > 0 && u < 1 - exp(-4 a a_fwd J/T)
+//                          && active_i && active_fwd
+//                CMR blue  a a_fwd J/T > 0 && b b_fwd J/T > 0 && u < 1 - r^2,
+//                          r = exp(-2 |J/T|)
+//              in the reference's operation order, u from Philox4x32-10
+//              keyed by the task's two key words, counter (dir, site / 4, 0,
+//              0).  Thread 0 of the task's first block picks the Wolff seed:
+//              the first of the task's 64 probes with a != b (Houdayer,
+//              Joerg; n when there is none, and the move is then a no-op),
+//              or CMR's drawn seed.
+//   fk_link    (csrc/fk.cu, shared with the FK update) one thread per site:
+//              union-find over the bonds (uf.cuh), the roots being each
+//              component's minimum site index.
+//   ov_mid     CMR only: the blue flip of each site (Wolff: the seed's blue
+//              component; SW: salted_uniform(root, s0, s1) < 1/2 on
+//              non-singletons), then the grey bonds on the flipped spins,
+//              blue || (sat_a != sat_b && u < 1 - r) with u from counter
+//              (n_dims + dir, site / 4, 0, 0), into a second state byte
+//              (bit 7: the blue flip) and parent array; a second fk_link
+//              labels the grey graph.  The flipped spins are never written
+//              here: a neighbour's flip comes from its blue root.
+//   ov_finish  one thread per site flips its spin in both systems: Wolff,
+//              the seed's component; SW, salted_uniform(root, s0, s1) < 1/2
+//              on non-singletons; CMR, the blue flip and then the grey flip
+//              of a (k & 1) and of b (k & 2), k drawn per task (Wolff) or
+//              k = floor(4 salted_uniform(grey root, s2, s3)) (SW).
+//              Optionally writes the labels (the grey ones for CMR).
+//   energy_partials  per (realization, system) block partials of the
+//              forward-bond energy sum_d s s_fwd J and of m, which pt_step
+//              adds up: the energies of PT after a move (loop.py:3602-3612).
+//
+// What bounds it on the H100: a move touches per site the two int8 spins,
+// a few coupling floats, a state byte and an int32 parent, a few times:
+// under 10 MB per launch at 16^3 x 384 tasks.  The chains of dependent
+// parent loads in find and the launch count (4 or 6 launches a move, plus
+// energy_partials) bound it, as for the FK kernels.
+
+#include <cuda_runtime.h>
+
+#include <cstddef>
+#include <cstdint>
+
+#include "mega.cuh"
+#include "uf.cuh"
+
+using namespace peapods;
+
+namespace {
+
+constexpr int kHoudayer = 0;
+constexpr int kJorg = 1;
+constexpr int kCmr = 2;
+constexpr int kProbes = 64;
+
+struct Task {
+  int d;
+  int t;
+  int8_t* a;
+  int8_t* b;
+};
+
+__device__ __forceinline__ Task task_of(int8_t* spins, const int32_t* sid,
+                                        const int32_t* tasks, int b, int n,
+                                        int n_temps, int n_pairs, int n_slots) {
+  Task k;
+  k.d = b / (n_temps * n_pairs);
+  k.t = (b / n_pairs) % n_temps;
+  const int32_t* sd = sid + static_cast<size_t>(k.d) * n_slots;
+  const size_t row = static_cast<size_t>(k.d) * n_slots;
+  k.a = spins + (row + sd[tasks[2 * b] * n_temps + k.t]) * n;
+  k.b = spins + (row + sd[tasks[2 * b + 1] * n_temps + k.t]) * n;
+  return k;
+}
+
+__device__ __forceinline__ void philox_words(const int32_t* words, int b, int first,
+                                             int nd, int g, uint32_t (&w)[3][4]) {
+  const uint32_t k0 = static_cast<uint32_t>(words[2 * b]);
+  const uint32_t k1 = static_cast<uint32_t>(words[2 * b + 1]);
+  for (int dir = 0; dir < nd; ++dir) {
+    const uint4 r = philox4x32_10(k0, k1, static_cast<uint32_t>(first + dir),
+                                  static_cast<uint32_t>(g), 0u, 0u);
+    w[dir][0] = r.x;
+    w[dir][1] = r.y;
+    w[dir][2] = r.z;
+    w[dir][3] = r.w;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+ov_bonds_kernel(int8_t* spins, const int32_t* __restrict__ sid,
+                const int32_t* __restrict__ tasks, const float* __restrict__ coup,
+                const float* __restrict__ temps, const int32_t* __restrict__ scal,
+                const int32_t* __restrict__ probes, const int32_t* __restrict__ words,
+                uint8_t* __restrict__ state, int32_t* __restrict__ parent,
+                int32_t* __restrict__ seeds, int L0, int L1, int L2, int n_temps,
+                int n_pairs, int n_slots, int kind, int wolff) {
+  const Dims g = make_dims(L0, L1, L2);
+  const int n = L0 * L1 * L2;
+  const int b = blockIdx.y;
+  const Task k = task_of(spins, sid, tasks, b, n, n_temps, n_pairs, n_slots);
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    int seed = n;  // none
+    if (kind == kCmr) {
+      seed = scal[6 * b + 4];
+    } else if (wolff) {
+      for (int p = 0; p < kProbes; ++p) {
+        const int s = probes[kProbes * b + p];
+        if (k.a[s] != k.b[s]) {
+          seed = s;
+          break;
+        }
+      }
+    }
+    seeds[b] = seed;
+  }
+  const int gi = blockIdx.x * blockDim.x + threadIdx.x;
+  if (kSitesPerThread * gi >= n) return;
+  const float T = temps[k.t];
+  const float* J = coup + static_cast<size_t>(k.d) * n * g.nd;
+  uint32_t w[3][4] = {};
+  if (kind != kHoudayer) philox_words(words, b, 0, g.nd, gi, w);
+  const size_t base = static_cast<size_t>(b) * n;
+#pragma unroll
+  for (int q = 0; q < kSitesPerThread; ++q) {
+    const int i = kSitesPerThread * gi + q;
+    if (i >= n) break;
+    const int ai = k.a[i];
+    const int bi = k.b[i];
+    uint8_t st = 0;
+    for (int dir = 0; dir < g.nd; ++dir) {
+      const int f = fwd_site(i, g, dir);
+      const int af = k.a[f];
+      const int bf = k.b[f];
+      const bool active = ai * bi < 0 && af * bf < 0;
+      bool bond;
+      if (kind == kHoudayer) {
+        bond = active;
+      } else {
+        const float jt = J[static_cast<size_t>(i) * g.nd + dir] / T;
+        const float u = uniform24(w[dir][q]);
+        if (kind == kJorg) {
+          const float inter = static_cast<float>(ai * af) * jt;
+          const float p = 1.0f - expf(-4.0f * inter);
+          bond = inter > 0.0f && u < p && active;
+        } else {
+          const float r = expf(-2.0f * fabsf(jt));
+          bond = static_cast<float>(ai * af) * jt > 0.0f &&
+                 static_cast<float>(bi * bf) * jt > 0.0f && u < 1.0f - r * r;
+        }
+      }
+      if (bond) st |= 1u << dir;
+    }
+    state[base + i] = st;
+    parent[base + i] = i;
+  }
+}
+
+// CMR's blue flip of site j (Wolff: the seed's blue component; SW: the
+// cluster coin on non-singletons)
+__device__ __forceinline__ bool blue_flip(int32_t* P, const uint8_t* S, int j,
+                                          const Dims& g, int wolff, int seed_root,
+                                          uint32_t s0, uint32_t s1) {
+  const int r = find_root(P, j);
+  return wolff ? r == seed_root
+               : salted_uniform(static_cast<uint32_t>(r), s0, s1) < 0.5f &&
+                     nonsingleton(S, j, g);
+}
+
+__global__ void __launch_bounds__(kThreads)
+ov_mid_kernel(int8_t* spins, const int32_t* __restrict__ sid,
+              const int32_t* __restrict__ tasks, const float* __restrict__ coup,
+              const float* __restrict__ temps, const int32_t* __restrict__ scal,
+              const int32_t* __restrict__ words, const uint8_t* __restrict__ state,
+              int32_t* parent, const int32_t* __restrict__ seeds,
+              uint8_t* __restrict__ state2, int32_t* __restrict__ parent2,
+              int32_t* __restrict__ blue_labels, int L0, int L1, int L2, int n_temps,
+              int n_pairs, int n_slots, int wolff) {
+  const Dims g = make_dims(L0, L1, L2);
+  const int n = L0 * L1 * L2;
+  const int b = blockIdx.y;
+  const int gi = blockIdx.x * blockDim.x + threadIdx.x;
+  if (kSitesPerThread * gi >= n) return;
+  const Task k = task_of(spins, sid, tasks, b, n, n_temps, n_pairs, n_slots);
+  const size_t base = static_cast<size_t>(b) * n;
+  int32_t* P = parent + base;
+  const uint8_t* S = state + base;
+  const int seed_root = wolff ? find_root(P, seeds[b]) : -1;
+  const uint32_t s0 = static_cast<uint32_t>(scal[6 * b]);
+  const uint32_t s1 = static_cast<uint32_t>(scal[6 * b + 1]);
+  const float T = temps[k.t];
+  const float* J = coup + static_cast<size_t>(k.d) * n * g.nd;
+  uint32_t w[3][4];
+  philox_words(words, b, g.nd, g.nd, gi, w);
+#pragma unroll
+  for (int q = 0; q < kSitesPerThread; ++q) {
+    const int i = kSitesPerThread * gi + q;
+    if (i >= n) break;
+    const bool fi = blue_flip(P, S, i, g, wolff, seed_root, s0, s1);
+    const uint8_t st = S[i];
+    uint8_t out = fi ? 0x80u : 0u;
+    for (int dir = 0; dir < g.nd; ++dir) {
+      const int f = fwd_site(i, g, dir);
+      const int sgn = fi != blue_flip(P, S, f, g, wolff, seed_root, s0, s1) ? -1 : 1;
+      const float jt = J[static_cast<size_t>(i) * g.nd + dir] / T;
+      const float r = expf(-2.0f * fabsf(jt));
+      const bool sat_a = static_cast<float>(k.a[i] * k.a[f] * sgn) * jt > 0.0f;
+      const bool sat_b = static_cast<float>(k.b[i] * k.b[f] * sgn) * jt > 0.0f;
+      const bool red = sat_a != sat_b && uniform24(w[dir][q]) < 1.0f - r;
+      if (((st >> dir) & 1u) || red) out |= 1u << dir;
+    }
+    state2[base + i] = out;
+    parent2[base + i] = i;
+    if (blue_labels != nullptr) blue_labels[base + i] = find_root(P, i);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+ov_finish_kernel(int8_t* spins, const int32_t* __restrict__ sid,
+                 const int32_t* __restrict__ tasks, const int32_t* __restrict__ scal,
+                 const uint8_t* __restrict__ state, int32_t* parent,
+                 const int32_t* __restrict__ seeds, const uint8_t* __restrict__ state2,
+                 int32_t* parent2, int32_t* __restrict__ labels, int L0, int L1,
+                 int L2, int n_temps, int n_pairs, int n_slots, int kind, int wolff) {
+  const Dims g = make_dims(L0, L1, L2);
+  const int n = L0 * L1 * L2;
+  const int b = blockIdx.y;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const Task k = task_of(spins, sid, tasks, b, n, n_temps, n_pairs, n_slots);
+  const size_t base = static_cast<size_t>(b) * n;
+  const int seed = seeds[b];
+  const int* sc = scal + 6 * b;
+  int ai = k.a[i];
+  int bi = k.b[i];
+  bool fa;
+  bool fb;
+  int root;
+  if (kind != kCmr) {
+    int32_t* P = parent + base;
+    root = find_root(P, i);
+    bool fl;
+    if (wolff)
+      fl = seed < n && root == find_root(P, seed);
+    else
+      fl = salted_uniform(static_cast<uint32_t>(root), static_cast<uint32_t>(sc[0]),
+                          static_cast<uint32_t>(sc[1])) < 0.5f &&
+           nonsingleton(state + base, i, g);
+    fa = fl;
+    fb = fl;
+  } else {
+    if (state2[base + i] & 0x80u) {
+      ai = -ai;
+      bi = -bi;
+    }
+    int32_t* P = parent2 + base;
+    root = find_root(P, i);
+    int kq;
+    bool in;
+    if (wolff) {
+      in = root == find_root(P, seed);
+      kq = sc[5];
+    } else {
+      in = nonsingleton(state2 + base, i, g);
+      kq = static_cast<int>(salted_uniform(static_cast<uint32_t>(root),
+                                           static_cast<uint32_t>(sc[2]),
+                                           static_cast<uint32_t>(sc[3])) *
+                            4.0f);
+    }
+    fa = in && (kq & 1);
+    fb = in && (kq & 2);
+  }
+  if (labels != nullptr) labels[base + i] = root;
+  k.a[i] = static_cast<int8_t>(fa ? -ai : ai);
+  k.b[i] = static_cast<int8_t>(fb ? -bi : bi);
+}
+
+__global__ void __launch_bounds__(kThreads)
+energy_partials_kernel(const int8_t* __restrict__ spins, const float* __restrict__ coup,
+                       float* __restrict__ e_part, int32_t* __restrict__ m_part, int L0,
+                       int L1, int L2, int n_slots) {
+  const Dims g = make_dims(L0, L1, L2);
+  const int n = L0 * L1 * L2;
+  const int sys = blockIdx.y;
+  const int d = blockIdx.z;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  float e_acc = 0.0f;
+  int m_acc = 0;
+  if (i < n) {
+    const int8_t* s = spins + (static_cast<size_t>(d) * n_slots + sys) * n;
+    const float* J = coup + (static_cast<size_t>(d) * n + i) * g.nd;
+    const float si = static_cast<float>(s[i]);
+    for (int dir = 0; dir < g.nd; ++dir)
+      e_acc = e_acc + (si * static_cast<float>(s[fwd_site(i, g, dir)])) * J[dir];
+    m_acc = s[i];
+  }
+  block_partials(e_acc, m_acc, e_part, m_part,
+                 (static_cast<size_t>(d) * n_slots + sys) * gridDim.x + blockIdx.x);
+}
+
+inline dim3 site_grid(int n, int per_thread, int rows) {
+  const int groups = (n + per_thread - 1) / per_thread;
+  return dim3((groups + kThreads - 1) / kThreads, rows);
+}
+
+}  // namespace
+
+extern "C" {
+
+// Blocks per system of energy_partials: the length of its partial rows.
+int peapods_site_blocks(int n) { return (n + kThreads - 1) / kThreads; }
+
+// Shared arguments: spins int8 [d, n_slots, n], sid int32 [d, n_slots],
+// tasks int32 [d, n_temps, n_pairs, 2] (replica indices), coup f32 [d, n,
+// nd], temps f32 [n_temps], scal int32 [n_tasks, 6] (s0, s1, s2, s3, seed,
+// k), probes int32 [n_tasks, 64], words int32 [n_tasks, 2]; scratch state /
+// state2 uint8 [n_tasks, n], parent / parent2 int32 [n_tasks, n], seeds
+// int32 [n_tasks].  kind: 0 Houdayer, 1 Joerg, 2 CMR.
+int peapods_ov_bonds(void* spins, const void* sid, const void* tasks,
+                     const void* coup, const void* temps, const void* scal,
+                     const void* probes, const void* words, void* state, void* parent,
+                     void* seeds, int n_tasks, int L0, int L1, int L2, int n_temps,
+                     int n_pairs, int n_slots, int kind, int wolff, void* stream) {
+  ov_bonds_kernel<<<site_grid(L0 * L1 * L2, kSitesPerThread, n_tasks), kThreads, 0,
+                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int8_t*>(spins), static_cast<const int32_t*>(sid),
+      static_cast<const int32_t*>(tasks), static_cast<const float*>(coup),
+      static_cast<const float*>(temps), static_cast<const int32_t*>(scal),
+      static_cast<const int32_t*>(probes), static_cast<const int32_t*>(words),
+      static_cast<uint8_t*>(state), static_cast<int32_t*>(parent),
+      static_cast<int32_t*>(seeds), L0, L1, L2, n_temps, n_pairs, n_slots, kind,
+      wolff);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// blue_labels: int32 [n_tasks, n] or null.
+int peapods_ov_mid(void* spins, const void* sid, const void* tasks, const void* coup,
+                   const void* temps, const void* scal, const void* words,
+                   const void* state, void* parent, const void* seeds, void* state2,
+                   void* parent2, void* blue_labels, int n_tasks, int L0, int L1,
+                   int L2, int n_temps, int n_pairs, int n_slots, int wolff,
+                   void* stream) {
+  ov_mid_kernel<<<site_grid(L0 * L1 * L2, kSitesPerThread, n_tasks), kThreads, 0,
+                  static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int8_t*>(spins), static_cast<const int32_t*>(sid),
+      static_cast<const int32_t*>(tasks), static_cast<const float*>(coup),
+      static_cast<const float*>(temps), static_cast<const int32_t*>(scal),
+      static_cast<const int32_t*>(words), static_cast<const uint8_t*>(state),
+      static_cast<int32_t*>(parent), static_cast<const int32_t*>(seeds),
+      static_cast<uint8_t*>(state2), static_cast<int32_t*>(parent2),
+      static_cast<int32_t*>(blue_labels), L0, L1, L2, n_temps, n_pairs, n_slots,
+      wolff);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// labels: int32 [n_tasks, n] or null (the grey labels for CMR).
+int peapods_ov_finish(void* spins, const void* sid, const void* tasks,
+                      const void* scal, const void* state, void* parent,
+                      const void* seeds, const void* state2, void* parent2,
+                      void* labels, int n_tasks, int L0, int L1, int L2, int n_temps,
+                      int n_pairs, int n_slots, int kind, int wolff, void* stream) {
+  ov_finish_kernel<<<site_grid(L0 * L1 * L2, 1, n_tasks), kThreads, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int8_t*>(spins), static_cast<const int32_t*>(sid),
+      static_cast<const int32_t*>(tasks), static_cast<const int32_t*>(scal),
+      static_cast<const uint8_t*>(state), static_cast<int32_t*>(parent),
+      static_cast<const int32_t*>(seeds), static_cast<const uint8_t*>(state2),
+      static_cast<int32_t*>(parent2), static_cast<int32_t*>(labels), L0, L1, L2,
+      n_temps, n_pairs, n_slots, kind, wolff);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// e_part f32 / m_part int32 [d, n_slots, peapods_site_blocks(n)] by system.
+int peapods_energy_partials(const void* spins, const void* coup, void* e_part,
+                            void* m_part, int n_disorder, int n_slots, int L0, int L1,
+                            int L2, void* stream) {
+  const int n = L0 * L1 * L2;
+  energy_partials_kernel<<<dim3(peapods_site_blocks(n), n_slots, n_disorder), kThreads,
+                           0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(spins), static_cast<const float*>(coup),
+      static_cast<float*>(e_part), static_cast<int32_t*>(m_part), L0, L1, L2,
+      n_slots);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // extern "C"

@@ -1,0 +1,114 @@
+// Device helpers shared by the cluster kernels (fk.cu, overlap.cu): the
+// periodic neighbours of a 2D or 3D lattice, the salted per-cluster coin,
+// and the union-find whose roots are each component's minimum site index.
+#pragma once
+
+#include <cstddef>
+#include <cstdint>
+
+#include "mega.cuh"
+
+namespace peapods {
+
+// Extents and strides of a row-major periodic lattice: 2D is [L0, L1]
+// (pass L2 = 1), 3D is [L0, L1, L2].  Forward direction d is +1 along
+// axis d.
+struct Dims {
+  int nd;
+  int n[3];
+  int stride[3];
+};
+
+__host__ __device__ inline Dims make_dims(int L0, int L1, int L2) {
+  Dims g;
+  g.nd = L2 > 1 ? 3 : 2;
+  g.n[0] = L0;
+  g.n[1] = L1;
+  g.n[2] = L2;
+  g.stride[0] = L1 * L2;
+  g.stride[1] = L2;
+  g.stride[2] = 1;
+  return g;
+}
+
+__device__ __forceinline__ int fwd_site(int i, const Dims& g, int dir) {
+  const int s = g.stride[dir];
+  const int L = g.n[dir];
+  return (i / s) % L == L - 1 ? i - (L - 1) * s : i + s;
+}
+
+__device__ __forceinline__ int bwd_site(int i, const Dims& g, int dir) {
+  const int s = g.stride[dir];
+  const int L = g.n[dir];
+  return (i / s) % L == 0 ? i + (L - 1) * s : i - s;
+}
+
+// murmur-style hash of (label, salt) to a 24-bit uniform (ops/cluster.py)
+__device__ __forceinline__ float salted_uniform(uint32_t x, uint32_t s0,
+                                                uint32_t s1) {
+  x ^= s0;
+  x = (x ^ (x >> 16)) * 0x85EBCA6Bu;
+  x = (x ^ (x >> 13)) * 0xC2B2AE35u;
+  x = x ^ (x >> 16) ^ s1;
+  x = (x ^ (x >> 16)) * 0x7FEB352Du;
+  x = (x ^ (x >> 15)) * 0x846CA68Bu;
+  x = x ^ (x >> 16);
+  return uniform24(x);
+}
+
+// Root of x, halving the path on the way.  Loads bypass L1 (__ldcg), which
+// is not coherent across SMs; a stale parent is still an ancestor or a
+// former root, and the caller's atomicCAS catches the latter.
+__device__ __forceinline__ int find_root(int32_t* P, int x) {
+  int cur = __ldcg(P + x);
+  if (cur == x) return x;
+  int prev = x;
+  int next;
+  while (cur > (next = __ldcg(P + cur))) {
+    P[prev] = next;
+    prev = cur;
+    cur = next;
+  }
+  return cur;
+}
+
+// Hang the larger root under the smaller with atomicCAS, retrying from the
+// new parent when another thread got there first (Komura 2015; Playne &
+// Hawick 2018; the ECL-CC hooking of Jaiganesh & Burtscher 2018).  Parents
+// only ever point to a smaller index, so once every union is done each
+// component is one tree whose root is its minimum site index, whatever
+// order the threads ran in: the reference's min-label fixed point.
+__device__ __forceinline__ void unite(int32_t* P, int a, int b) {
+  a = find_root(P, a);
+  b = find_root(P, b);
+  while (a != b) {
+    if (a < b) {
+      const int t = a;
+      a = b;
+      b = t;
+    }
+    const int old = atomicCAS(P + a, a, b);
+    if (old == a) return;
+    a = find_root(P, old);
+  }
+}
+
+// Unite site i with its forward neighbours along the bonds set in bits
+// 0 .. nd-1 of its state byte.
+__device__ __forceinline__ void link_site(int32_t* P, uint8_t st, int i,
+                                          const Dims& g) {
+  for (int dir = 0; dir < g.nd; ++dir)
+    if ((st >> dir) & 1u) unite(P, i, fwd_site(i, g, dir));
+}
+
+// Whether site i has a bond (bits 0 .. nd-1 of the state bytes): its own
+// forward bonds or its backward neighbours' forward bonds towards it.
+__device__ __forceinline__ bool nonsingleton(const uint8_t* state, int i,
+                                             const Dims& g) {
+  if (state[i] & ((1u << g.nd) - 1u)) return true;
+  for (int dir = 0; dir < g.nd; ++dir)
+    if ((state[bwd_site(i, g, dir)] >> dir) & 1u) return true;
+  return false;
+}
+
+}  // namespace peapods

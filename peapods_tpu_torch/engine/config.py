@@ -1,5 +1,5 @@
-"""Simulation configuration of the slice: the fields the mega path and the
-per-sweep (cluster) path read.
+"""Simulation configuration of the slice: the fields the mega path, the
+per-sweep (cluster) path and the replica path read.
 
 Counterpart of ``peapods_tpu/engine/config.py``, with the same parse
 helpers, validation and error strings for the options the port runs today.
@@ -9,6 +9,7 @@ Options the port does not run yet raise ``NotImplementedError`` through
 
 from __future__ import annotations
 
+import sys
 from dataclasses import dataclass
 
 __all__ = [
@@ -17,11 +18,14 @@ __all__ = [
     "CLUSTER_MODES",
     "CLUSTER_ACTIONS",
     "ClusterUpdate",
+    "OverlapBuildMode",
+    "OverlapClusterConfig",
     "SimConfig",
     "parse_sweep_mode",
     "parse_pt_schedule",
     "parse_cluster_mode",
     "parse_cluster_action",
+    "parse_overlap_modes",
     "not_ported",
 ]
 
@@ -37,7 +41,9 @@ _ROADMAP_ITEMS = {
     "4c": "item 4c, checkpoints",
     "6": "item 6, the cluster layer",
     "6o": "item 6, the cluster layer's observe mode",
-    "7": "item 7, replicas and overlap moves",
+    "7a": "item 7a, replicas with an FK cluster phase",
+    "7b": "item 7b, overlap observe, cluster statistics and snapshots",
+    "7c": "item 7c, Houdayer(N > 2)",
     "9": "item 9, multi-GPU",
 }
 
@@ -88,6 +94,69 @@ class ClusterUpdate:
 
 
 @dataclass(frozen=True)
+class OverlapBuildMode:
+    """One overlap-cluster build mode (reference config.rs:101-148):
+    ``kind`` is ``"houdayer" | "jorg" | "cmr"``, ``group_size`` the number
+    of replicas per task (N for Houdayer-N, otherwise 2)."""
+
+    kind: str
+    group_size: int = 2
+
+    @staticmethod
+    def parse(s: str) -> "OverlapBuildMode":
+        s = s.strip()
+        if s in ("houdayer", "houd2"):
+            return OverlapBuildMode("houdayer", 2)
+        if s == "jorg":
+            return OverlapBuildMode("jorg", 2)
+        if s in ("cmr", "cmr2"):
+            return OverlapBuildMode("cmr", 2)
+        if s.startswith("houd"):
+            try:
+                n = int(s[4:])
+            except ValueError:
+                raise ValueError(
+                    f"invalid Houdayer group size in '{s}', expected 'houdN' with "
+                    "even integer N >= 2"
+                ) from None
+            if n < 2 or n % 2 != 0:
+                raise ValueError(f"Houdayer group size must be even and >= 2, got {n}")
+            if n > 2:
+                print(
+                    f"WARNING: houd{n} (group_size > 2) is experimental and very "
+                    "likely does not satisfy detailed balance",
+                    file=sys.stderr,
+                )
+            return OverlapBuildMode("houdayer", n)
+        raise ValueError(
+            f"unknown overlap_cluster_build_mode '{s}', expected 'houdayer', "
+            "'houdN', 'jorg', or 'cmr'"
+        )
+
+
+def parse_overlap_modes(s: str) -> tuple[OverlapBuildMode, ...]:
+    """Parse a '+'-separated round-robin mode list (config.rs:174-178)."""
+    return tuple(OverlapBuildMode.parse(part) for part in s.split("+"))
+
+
+@dataclass(frozen=True)
+class OverlapClusterConfig:
+    """The overlap moves (the reference's ``OverlapClusterConfig``): every
+    ``interval`` sweeps, the mode ``modes[(s // interval) % len(modes)]``
+    on pair tasks of the replicas at each temperature."""
+
+    interval: int
+    modes: tuple[OverlapBuildMode, ...] = (OverlapBuildMode("houdayer", 2),)
+    cluster_mode: str = "wolff"
+    action: str = "update"
+    collect_stats: bool = False
+    snapshot_interval: int | None = None
+
+    def max_group_size(self) -> int:
+        return max((m.group_size for m in self.modes), default=2)
+
+
+@dataclass(frozen=True)
 class SimConfig:
     """The slice's subset of the reference config (config.rs:249-263)."""
 
@@ -97,6 +166,7 @@ class SimConfig:
     cluster_update: ClusterUpdate | None = None
     pt_interval: int | None = None
     pt_schedule: str = "single_random_edge"
+    overlap_cluster: OverlapClusterConfig | None = None
 
     def validate(self) -> None:
         """Cross-field validation, mirroring config.rs:180-247."""
@@ -112,3 +182,32 @@ class SimConfig:
                 raise ValueError("cluster_action='observe' requires cluster_mode='sw'")
         if self.pt_interval is not None and self.pt_interval == 0:
             raise ValueError("pt_interval must be >= 1")
+        h = self.overlap_cluster
+        if h is not None:
+            if h.interval < 1:
+                raise ValueError("overlap_cluster interval must be >= 1")
+            if h.snapshot_interval is not None:
+                si = h.snapshot_interval
+                if si < 1 or si % h.interval != 0:
+                    raise ValueError(
+                        "snapshot_interval must be a positive multiple of "
+                        "overlap_cluster interval"
+                    )
+            if not h.modes:
+                raise ValueError("overlap_cluster modes must not be empty")
+            if h.action == "observe":
+                if h.cluster_mode == "wolff":
+                    raise ValueError(
+                        "overlap_cluster_action='observe' requires "
+                        "overlap_cluster_mode='sw'"
+                    )
+                if h.snapshot_interval is not None:
+                    raise ValueError(
+                        "snapshot_interval is not supported with "
+                        "overlap_cluster_action='observe'"
+                    )
+                if any(m.kind == "houdayer" and m.group_size > 2 for m in h.modes):
+                    raise ValueError(
+                        "overlap_cluster_action='observe' does not support "
+                        "experimental houdN with N > 2"
+                    )

@@ -1,15 +1,17 @@
-"""Device constants and the chunk runners: the mega path and the per-sweep
-(cluster) path.
+"""Device constants and the chunk runners: the mega path, the per-sweep
+(cluster) path and the replica path.
 
-Counterpart of ``Runtime``, ``LoopProgram._mega_chunk_runner`` and the
-per-sweep ``_make_step_body`` in ``peapods_tpu/engine/loop.py`` (:125-471,
-:2960-3135, :2708-2954).  For each chunk the host computes every sweep's
-key words (and the FK phase's scalars and the PT draws) with the numpy
-threefry (:mod:`~peapods_tpu_torch.engine.seeds`) and uploads them in one
-copy; the kernels then run sweep after sweep with no host synchronisation,
-and the per-sweep ``(e, m)`` rows are folded into the record sums on the
-device.  :func:`run_chunk` takes the mega path unless the run has a cluster
-phase.
+Counterpart of ``Runtime``, ``LoopProgram._mega_chunk_runner``, the
+per-sweep ``_make_step_body`` and ``_megapair_chunk_runner`` in
+``peapods_tpu/engine/loop.py`` (:125-471, :2960-3135, :2708-2954,
+:3205-3741).  For each chunk the host computes every sweep's key words (and
+the FK phase's scalars, the overlap moves' tasks and scalars and the PT
+draws) with the numpy threefry (:mod:`~peapods_tpu_torch.engine.seeds`)
+and uploads them in one copy; the kernels then run sweep after sweep with
+no host synchronisation, and the per-sweep rows are folded into the record
+sums on the device.  :func:`run_chunk` takes the replica path when there
+are two replicas or more, the per-sweep path when the run has a cluster
+phase, and the mega path otherwise.
 
 The reference's sentinel padding of short chunks and its ``n_inner <= 256``
 SMEM cap exist only to keep one compiled TPU program per chunk length; a
@@ -23,17 +25,17 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops import fk, mega, rng
+from ..ops import fk, mega, megapair, rng
 from ..ops.cluster import component_counts, csd_histogram
 from ..ops.lattice import Lattice
 from ..ops.measure import per_slot_values, slot_temps_for_systems
 from ..ops.sweep import pack_coupling_grids, sweep_2d
-from ..ops.tempering import hot_cold_slots
+from ..ops.tempering import hot_cold_slots, pt_draws_pairs
 from . import seeds
 from .config import SimConfig
 from .records import N_REC, REC
 
-__all__ = ["Runtime", "init_accumulators", "run_chunk"]
+__all__ = ["Runtime", "init_accumulators", "run_chunk", "run_chunk_pairs"]
 
 
 @dataclass
@@ -47,14 +49,16 @@ class Runtime:
     device: torch.device
     temps_np: np.ndarray  # f32 [n_temps]
     temps: torch.Tensor  # f32 [n_temps]
-    jgrids: torch.Tensor  # f32 [n_disorder, 4, H, W]
-    coup: torch.Tensor  # f32 [n_disorder, n_spins, 2] forward couplings
+    slot_temps: torch.Tensor  # f32 [n_replicas * n_temps]: temps by slot
+    jgrids: torch.Tensor  # f32 [n_disorder, 2 n_dims, *shape]
+    coup: torch.Tensor  # f32 [n_disorder, n_spins, n_dims] forward couplings
 
     @classmethod
     def build(cls, lattice, couplings_nd, temps, n_replicas, device):
-        """couplings_nd: f32 ``[n_disorder, n_spins, 2]`` (numpy)."""
+        """couplings_nd: f32 ``[n_disorder, n_spins, n_dims]`` (numpy)."""
         coup = torch.as_tensor(np.asarray(couplings_nd, np.float32), device=device)
         temps_np = np.asarray(temps, dtype=np.float32)
+        t = torch.as_tensor(temps_np, device=device)
         return cls(
             lattice=lattice,
             n_replicas=int(n_replicas),
@@ -62,7 +66,8 @@ class Runtime:
             n_disorder=int(coup.shape[0]),
             device=device,
             temps_np=temps_np,
-            temps=torch.as_tensor(temps_np, device=device),
+            temps=t,
+            slot_temps=t.repeat(int(n_replicas)).contiguous(),
             jgrids=pack_coupling_grids(coup, lattice.shape).contiguous(),
             coup=coup.contiguous(),
         )
@@ -76,6 +81,10 @@ class Runtime:
         return self.n_replicas * self.n_temps
 
     @property
+    def n_pairs(self):
+        return self.n_replicas // 2
+
+    @property
     def hot_slot(self):
         return hot_cold_slots(self.temps_np)[0]
 
@@ -85,19 +94,28 @@ class Runtime:
 
 
 def init_accumulators(rt: Runtime, cfg: SimConfig) -> dict:
-    """Record sums per (realization, record row, temperature), and the FK
+    """Record sums per (realization, record row, temperature); the FK
     cluster-size histograms ``fk_csd`` int64 ``[d, T, n_spins + 1]`` when
-    the run collects cluster statistics.
+    the run collects cluster statistics; and with replica pairs the P(q)
+    histogram ``q_hist`` and the sums ``ql_at_q`` / ``ql2_at_q`` of the
+    link-overlap integers ``ql`` and ``ql**2`` at each q bin, int64 ``[d, T,
+    n_spins + 1]``.
 
     They accumulate on the device in float64 / int64, where the reference
     keeps Kahan-compensated f32 pairs (peapods_tpu/engine/loop.py:99-104)
-    and int32 only because the TPU has no 64-bit types.
+    and int32 only because the TPU has no 64-bit types; the ql sums stay
+    integers, exact and independent of the order of the device's adds, and
+    are scaled when the results are built.
     """
     acc = {
         "rec_sums": torch.zeros((rt.n_disorder, N_REC, rt.n_temps),
                                 dtype=torch.float64, device=rt.device),
         "n_recorded": 0,
     }
+    if rt.n_pairs:
+        for key in ("q_hist", "ql_at_q", "ql2_at_q"):
+            acc[key] = torch.zeros((rt.n_disorder, rt.n_temps, rt.n_spins + 1),
+                                   dtype=torch.int64, device=rt.device)
     c = cfg.cluster_update
     if c is not None and c.collect_stats:
         acc["fk_csd"] = torch.zeros(
@@ -118,27 +136,65 @@ def _upload(words: np.ndarray, device) -> torch.Tensor:
 def _fold_records(rt: Runtime, state: dict, acc: dict, e, m, s_begin: int,
                   n: int) -> None:
     """Add the records of the sweeps past warmup: ``e`` f32 / ``m`` int32
-    ``[d, n, T]`` by slot (slot == temperature, R == 1)."""
+    ``[d, n, R T]`` by slot, summed over the replicas."""
     lo = max(0, int(state["warmup"]) - s_begin)
     if lo >= n:
         return
-    m_rt = m[:, lo:].to(torch.float64) / rt.n_spins  # [d, k, T]
-    e_rt = e[:, lo:].to(torch.float64)
+    d, R, T = rt.n_disorder, rt.n_replicas, rt.n_temps
+    k = n - lo
+    m_rt = m[:, lo:].reshape(d, k, R, T).to(torch.float64) / rt.n_spins
+    e_rt = e[:, lo:].reshape(d, k, R, T).to(torch.float64)
     m2 = m_rt * m_rt
     sums = acc["rec_sums"]
-    sums[:, REC["m_sum"]] += m_rt.sum(1)
-    sums[:, REC["m2_sum"]] += m2.sum(1)
-    sums[:, REC["m4_sum"]] += (m2 * m2).sum(1)
-    sums[:, REC["e_sum"]] += e_rt.sum(1)
-    sums[:, REC["e2_sum"]] += (e_rt * e_rt).sum(1)
-    acc["n_recorded"] += n - lo
+    over = (1, 2)  # sweeps and replicas
+    sums[:, REC["m_sum"]] += m_rt.sum(over)
+    sums[:, REC["m2_sum"]] += m2.sum(over)
+    sums[:, REC["m4_sum"]] += (m2 * m2).sum(over)
+    sums[:, REC["e_sum"]] += e_rt.sum(over)
+    sums[:, REC["e2_sum"]] += (e_rt * e_rt).sum(over)
+    acc["n_recorded"] += k
+
+
+def _fold_pairs(rt: Runtime, state: dict, acc: dict, qs, ql, s_begin: int,
+                n: int) -> None:
+    """Add the pair records of the sweeps past warmup (loop.py:3358-3394):
+    ``qs`` / ``ql`` int32 ``[d, n, P T]`` (pair-major); q = qs / n_spins,
+    q_l = ql / (n_spins n_dims), and ``(qs + n_spins) // 2`` is the P(q)
+    bin."""
+    lo = max(0, int(state["warmup"]) - s_begin)
+    if lo >= n:
+        return
+    d, P, T, n_sp = rt.n_disorder, rt.n_pairs, rt.n_temps, rt.n_spins
+    k = n - lo
+    qs_i = qs[:, lo:].reshape(d, k, P, T).to(torch.int64)
+    ql_i = ql[:, lo:].reshape(d, k, P, T).to(torch.int64)
+    q = qs_i.to(torch.float64) / n_sp
+    q_l = ql_i.to(torch.float64) / (n_sp * rt.lattice.n_dims)
+    sums = acc["rec_sums"]
+    over = (1, 2)  # sweeps and pairs
+    for name, x in (("q", q), ("ql", q_l)):
+        x2 = x * x
+        sums[:, REC[f"{name}_sum"]] += x.sum(over)
+        sums[:, REC[f"{name}2_sum"]] += x2.sum(over)
+        sums[:, REC[f"{name}4_sum"]] += (x2 * x2).sum(over)
+    nb = n_sp + 1
+    row = (torch.arange(d, device=qs.device)[:, None, None, None] * T
+           + torch.arange(T, device=qs.device))  # [d, 1, 1, T]
+    idx = (row * nb + (qs_i + n_sp) // 2).reshape(-1)
+    acc["q_hist"].view(-1).index_add_(0, idx, torch.ones_like(idx))
+    acc["ql_at_q"].view(-1).index_add_(0, idx, ql_i.reshape(-1))
+    acc["ql2_at_q"].view(-1).index_add_(0, idx, (ql_i * ql_i).reshape(-1))
 
 
 def run_chunk(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
               s_begin: int, n: int) -> None:
     """Run sweeps ``s_begin .. s_begin + n - 1`` of a sample() call,
-    updating ``state`` and ``acc`` in place: the per-sweep path when the
-    run has a cluster phase, else the mega path."""
+    updating ``state`` and ``acc`` in place: the replica path with two
+    replicas or more, the per-sweep path when the run has a cluster phase,
+    else the mega path."""
+    if megapair.supports_megapair(rt.lattice, rt.n_replicas):
+        run_chunk_pairs(rt, cfg, state, acc, s_begin, n)
+        return
     if cfg.cluster_update is not None:
         run_chunk_cluster(rt, cfg, state, acc, s_begin, n)
         return
@@ -264,3 +320,77 @@ def run_chunk_cluster(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
     state["counter"] = np.int32(counter + n)
     state["pt_parity"] = np.int32(parity)
     _fold_records(rt, state, acc, e, m, s_begin, n)
+
+
+def _event_tables(rt: Runtime, cfg: SimConfig, base, counter: int,
+                  s_begin: int, n: int):
+    """The overlap moves of sweeps ``s_begin .. s_begin + n - 1``: on sweep
+    ``s`` with ``s % interval == 0``, mode ``(s // interval) % n_modes``
+    (loop.py:3550-3595), its tasks and scalars from the sweep's counter;
+    uploaded as one :class:`~peapods_tpu_torch.ops.megapair.Events`, or
+    ``None`` when the chunk has no move."""
+    h = cfg.overlap_cluster
+    if h is None:
+        return None
+    at = [t for t in range(n) if (s_begin + t) % h.interval == 0]
+    if not at:
+        return None
+    kinds = [h.modes[((s_begin + t) // h.interval) % len(h.modes)].kind for t in at]
+    tasks, tkeys = seeds.overlap_tasks(base, counter + np.asarray(at),
+                                       rt.n_replicas, rt.n_temps)
+    e_n = len(at)
+    scal = np.empty((e_n, tkeys.shape[1] * tkeys.shape[2], 6), np.int32)
+    probes = np.empty((e_n, scal.shape[1], 64), np.int32)
+    wolff = h.cluster_mode == "wolff"
+    for kind in set(kinds):
+        sel = [i for i, k in enumerate(kinds) if k == kind]
+        sc, pr = seeds.event_scalars(kind, wolff, tkeys[sel], rt.n_spins)
+        scal[sel] = sc.reshape(len(sel), -1, 6)
+        probes[sel] = pr.reshape(len(sel), -1, 64)
+    words = tkeys.view(np.int32).reshape(e_n, -1, 2)
+    dev = rt.device
+    return megapair.Events(at=list(zip(at, kinds)), tasks=_upload(tasks, dev),
+                           scal=_upload(scal, dev), probes=_upload(probes, dev),
+                           words=_upload(words, dev))
+
+
+def run_chunk_pairs(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
+                    s_begin: int, n: int) -> None:
+    """The replica path (the reference's ``_megapair_chunk_runner``,
+    peapods_tpu/engine/loop.py:3205-3741): the host makes the chunk's sweep
+    words, PT draws (the pairs megakernel's murmur draws of the PT words,
+    made on the device) and overlap-move tables, and
+    :func:`~peapods_tpu_torch.ops.megapair.pairs_chunk` runs the sweeps; the
+    records, taken before each move, are folded into the sums."""
+    R, T = rt.n_replicas, rt.n_temps
+    pt_on = cfg.pt_interval is not None and T >= 2
+    pt_full = cfg.pt_schedule == "full_ladder"
+    dev = rt.device
+    counter = int(state["counter"])
+    base = state["base_keys"]
+    sweep_w = _upload(seeds.sweep_words(base, counter, n, seeds.PH_SWEEP), dev)
+    draws = None
+    if pt_on:
+        pt_w = _upload(seeds.sweep_words(base, counter, n, seeds.PH_PT), dev)
+        dr = pt_draws_pairs(pt_w, R, T - 1, pt_full=pt_full)
+        draws = (dr.contiguous() if pt_full
+                 else (dr[0].to(torch.int32).contiguous(), dr[1].contiguous()))
+    events = _event_tables(rt, cfg, base, counter, s_begin, n)
+    d = rt.n_disorder
+    h = cfg.overlap_cluster
+    e, m, qs, ql, parity = megapair.pairs_chunk(
+        state["spins"], rt.jgrids, rt.coup, rt.temps, rt.slot_temps,
+        state["system_ids"].view(d, -1), state["pt_edge_attempts"],
+        state["pt_edge_acceptances"], state["pt_round_trips"],
+        state["pt_trip_state"], sweep_w, draws, events,
+        shape=rt.lattice.shape, n_replicas=R, sweep_base=s_begin,
+        parity=int(state["pt_parity"]), gibbs=cfg.sweep_mode == "gibbs",
+        pt_interval=cfg.pt_interval if pt_on else None, pt_full=pt_full,
+        hot_slot=rt.hot_slot, cold_slot=rt.cold_slot,
+        wolff=h is not None and h.cluster_mode == "wolff",
+    )
+    state["counter"] = np.int32(counter + n)
+    state["pt_parity"] = np.int32(parity)
+    _fold_records(rt, state, acc, e, m, s_begin, n)
+    if rt.n_pairs:
+        _fold_pairs(rt, state, acc, qs, ql, s_begin, n)

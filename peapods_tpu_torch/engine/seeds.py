@@ -31,9 +31,13 @@ __all__ = [
     "fk_keys",
     "fk_scalars",
     "pt_draws_jnp",
+    "permutation",
+    "overlap_tasks",
+    "event_scalars",
     "initial_spins",
     "PH_SWEEP",
     "PH_FK",
+    "PH_OVERLAP",
     "PH_PT",
     "INIT_DOMAIN",
 ]
@@ -44,6 +48,7 @@ _M32 = 0xFFFFFFFF
 # Phase salts folded into the per-sweep key (peapods_tpu/engine/loop.py:91)
 PH_SWEEP = 1
 PH_FK = 2
+PH_OVERLAP = 3
 PH_PT = 4
 # Domain of the initial-spin draw (peapods_tpu/engine/simulation.py:43)
 INIT_DOMAIN = 0x5EED
@@ -252,6 +257,94 @@ def pt_draws_jnp(base_keys, counter: int, n: int, n_edges: int, *,
     kk = split(k)
     return (randint(kk[..., 0, :], (), 0, n_edges),
             uniform(kk[..., 1, :], ()))
+
+
+def permutation(key, n: int) -> np.ndarray:
+    """int64 ``jax.random.permutation(key, n)`` of keys ``[..., 2]``:
+    ``[..., n]``.
+
+    jax shuffles ``arange(n)`` by sorting it on 32-bit random keys, in
+    ``ceil(3 ln n / ln(2**32 - 1))`` rounds (one round for n < 2**10); each
+    round splits the key, draws ``random_bits(subkey, 32, (n,))`` and sorts
+    stably (``lax.sort_key_val``), so equal sort keys keep their order
+    (jax/_src/random.py ``_shuffle``).
+    """
+    key = np.asarray(key, np.uint32)
+    x = np.broadcast_to(np.arange(n, dtype=np.int64), key.shape[:-1] + (n,))
+    rounds = int(np.ceil(3 * np.log(max(1, n)) / np.log(np.iinfo(np.uint32).max)))
+    for _ in range(rounds):
+        k = split(key)
+        key, sub = k[..., 0, :], k[..., 1, :]
+        order = np.argsort(random_bits(sub, (n,)), axis=-1, kind="stable")
+        x = np.take_along_axis(x, order, axis=-1)
+    return x
+
+
+def overlap_tasks(base_keys, counters, n_replicas: int, n_temps: int):
+    """The pair tasks of the overlap moves at the sweeps ``counters``.
+
+    Per realization key ``k`` and sweep counter ``ctr`` (the megapair
+    runner's ``_overlap_branch_slots``, peapods_tpu/engine/loop.py:3156-3203):
+    ``k_shuffle, k_tasks = split(fold_in(fold_in(k, ctr), PH_OVERLAP))``,
+    the replicas at temperature ``t`` are ``permutation(split(k_shuffle,
+    T)[t], R)``, task ``g`` pairs the first ``2 n_pairs`` of them two by two,
+    and the task keys are ``split(k_tasks, T n_pairs)`` (task ``t n_pairs +
+    g``).
+
+    Returns ``(tasks int32 [m, d, T, n_pairs, 2], tkeys uint32 [m, d, T
+    n_pairs, 2])``.
+    """
+    keys = np.asarray(base_keys, np.uint32)
+    ctr = np.asarray(counters, np.int64)[:, None]
+    k = fold_in(fold_in(keys[None], ctr), PH_OVERLAP)  # [m, d, 2]
+    kk = split(k)
+    k_shuffle, k_tasks = kk[..., 0, :], kk[..., 1, :]
+    n_pairs = n_replicas // 2
+    perm = permutation(split(k_shuffle, n_temps), n_replicas)  # [m, d, T, R]
+    tasks = perm[..., :2 * n_pairs].reshape(perm.shape[:-1] + (n_pairs, 2))
+    return tasks.astype(np.int32), split(k_tasks, n_temps * n_pairs)
+
+
+def event_scalars(kind: str, wolff: bool, tkeys, n_spins: int):
+    """Per-task scalar draws of an overlap move, bitwise the reference's
+    key splits (``pallas_event.event_scalars`` :84-129 and
+    ``mp_event_scalars`` :132-177).
+
+    Returns ``(scal int32 [..., 6], probes int32 [..., 64])``, the columns
+    of ``scal`` being ``(salt0, salt1, salt2, salt3, seed, k)``:
+
+    * Houdayer (``k_seed, k_coin = split(key)``) and Joerg (``_, k_seed,
+      k_coin = split(key, 3)``): SW coin salts ``randint(k_coin, (2,),
+      -2**31, 2**31 - 1)``; under Wolff, the 64 ``find_seed`` probes
+      ``randint(k_seed, (64,), 0, n)``, of which the kernel takes the first
+      where the replicas differ (the seed column holds ``n``: none yet).
+    * CMR (``_, _, k_seed, k_bcoin, k_gcoin = split(key, 5)``): the seed
+      ``randint(k_seed, (), 0, n)``; Wolff ``k = randint(k_gcoin, (), 1,
+      4)``; SW the blue and grey coin salts.
+    """
+    tkeys = np.asarray(tkeys, np.uint32)
+    lead = tkeys.shape[:-1]
+    scal = np.zeros(lead + (6,), np.int32)
+    probes = np.zeros(lead + (64,), np.int32)
+    scal[..., 4] = n_spins
+    salts = lambda k: randint(k, (2,), -(2**31), 2**31 - 1)  # noqa: E731
+    if kind in ("houdayer", "jorg"):
+        ks = split(tkeys) if kind == "houdayer" else split(tkeys, 3)[..., 1:, :]
+        if wolff:
+            probes[:] = randint(ks[..., 0, :], (64,), 0, n_spins)
+        else:
+            scal[..., :2] = salts(ks[..., 1, :])
+        return scal, probes
+    if kind != "cmr":
+        raise ValueError(f"unknown overlap move kind {kind!r}")
+    ks = split(tkeys, 5)
+    scal[..., 4] = randint(ks[..., 2, :], (), 0, n_spins)
+    if wolff:
+        scal[..., 5] = randint(ks[..., 4, :], (), 1, 4)
+    else:
+        scal[..., :2] = salts(ks[..., 3, :])
+        scal[..., 2:4] = salts(ks[..., 4, :])
+    return scal, probes
 
 
 def initial_spins(base_keys, n_systems: int, n_spins: int) -> np.ndarray:

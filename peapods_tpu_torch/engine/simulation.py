@@ -1,10 +1,16 @@
 """IsingSimulation: the stateful engine behind the port's ``Ising``.
 
 Counterpart of ``peapods_tpu/engine/simulation.py`` (:75-436) for the slice
-the port runs today: a 2D square lattice with even extents, one replica,
-Metropolis or Gibbs sweeps, optional SW or Wolff cluster updates (with or
-without cluster statistics), optional parallel tempering (both schedules),
-every sweep measured.  The device is explicit (``device="cuda"`` by
+the port runs today, Metropolis or Gibbs sweeps with optional parallel
+tempering (both schedules), every sweep measured, on three paths:
+
+* one replica on a 2D square lattice with even extents: the mega path, or
+  the per-sweep path with SW or Wolff cluster updates (with or without
+  cluster statistics);
+* two replicas or more on a 2D square or 3D cubic lattice with even
+  extents: the replica path, with the pair overlaps q and q_l, PT on each
+  replica's ladder and the pair overlap moves (Houdayer, Joerg, CMR; Wolff
+  or SW; in round robin).  The device is explicit (``device="cuda"`` by
 default); a CUDA device runs the hand-written kernels, ``device="cpu"`` their
 plain torch versions, and nothing ever falls back from one to the other.
 
@@ -28,10 +34,12 @@ from ..ops.tempering import init_trip_state
 from . import seeds as seedlib
 from .config import (
     ClusterUpdate,
+    OverlapClusterConfig,
     SimConfig,
     not_ported,
     parse_cluster_action,
     parse_cluster_mode,
+    parse_overlap_modes,
     parse_pt_schedule,
     parse_sweep_mode,
 )
@@ -103,9 +111,11 @@ class IsingSimulation:
         if mesh not in ("auto", None):
             not_ported("a device mesh", "9")
         n_replicas = int(n_replicas) if n_replicas is not None else 1
-        if n_replicas != 1:
-            not_ported(f"n_replicas={n_replicas}", "7")
         lattice = Lattice(lattice_shape)
+        if n_replicas < 1:
+            raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
+        if lattice.n_dims == 3 and n_replicas == 1:
+            not_ported("a 3D lattice with one replica", "4a")
         self.lattice = lattice
         self.device = resolve_device(device)
 
@@ -210,10 +220,6 @@ class IsingSimulation:
         Kwarg semantics and defaults mirror src/lib.rs:176-284; options
         outside the slice raise ``NotImplementedError``.
         """
-        if overlap_cluster_update_interval is not None:
-            not_ported("overlap cluster moves", "7")
-        if snapshot_interval is not None:
-            not_ported("snapshot_interval", "7")
         if autocorrelation_max_lag is not None:
             not_ported("autocorrelation_max_lag", "4b")
         if equilibration_diagnostic:
@@ -230,6 +236,17 @@ class IsingSimulation:
                 action=action,
                 collect_stats=bool(collect_cluster_stats) or action == "observe",
             )
+        overlap_cluster = None
+        if overlap_cluster_update_interval is not None:
+            action = parse_cluster_action(overlap_cluster_action or "update")
+            overlap_cluster = OverlapClusterConfig(
+                interval=int(overlap_cluster_update_interval),
+                modes=parse_overlap_modes(overlap_cluster_build_mode or "houdayer"),
+                cluster_mode=parse_cluster_mode(overlap_cluster_mode or "wolff"),
+                action=action,
+                collect_stats=bool(collect_cluster_stats) or action == "observe",
+                snapshot_interval=snapshot_interval,
+            )
         cfg = SimConfig(
             n_sweeps=n_sweeps,
             warmup_sweeps=warmup_sweeps,
@@ -237,10 +254,28 @@ class IsingSimulation:
             cluster_update=cluster_update,
             pt_interval=int(pt_interval) if pt_interval is not None else None,
             pt_schedule=parse_pt_schedule(pt_schedule or "single_random_edge"),
+            overlap_cluster=overlap_cluster,
         )
         cfg.validate()
+        h = overlap_cluster
+        if h is not None and self.n_replicas < h.max_group_size():
+            raise ValueError(
+                "overlap cluster requires n_replicas >= max group_size "
+                f"({self.n_replicas} < {h.max_group_size()})"
+            )
         if cluster_update is not None and cluster_update.action == "observe":
             not_ported("cluster_action='observe'", "6o")
+        if cluster_update is not None and self.n_replicas > 1:
+            not_ported("replicas with an FK cluster phase", "7a")
+        if h is not None:
+            if h.action == "observe":
+                not_ported("overlap_cluster_action='observe'", "7b")
+            if h.collect_stats:
+                not_ported("collect_cluster_stats with overlap moves", "7b")
+            if h.snapshot_interval is not None:
+                not_ported("snapshot_interval", "7b")
+            if h.max_group_size() > 2:
+                not_ported("Houdayer(N) with N > 2", "7c")
 
         state = self.state
         state["warmup"] = np.int32(warmup_sweeps)
@@ -258,5 +293,10 @@ class IsingSimulation:
             pt_state = {k: state[k].cpu().numpy() for k in (
                 "pt_edge_attempts", "pt_edge_acceptances", "pt_round_trips")}
         fk_csd = acc["fk_csd"].cpu().numpy() if "fk_csd" in acc else None
+        pairs = None
+        if "q_hist" in acc:
+            pairs = {k: acc[k].cpu().numpy() for k in ("q_hist", "ql_at_q", "ql2_at_q")}
+            pairs.update(n_pairs=self.rt.n_pairs,
+                         n_bonds=self.rt.n_spins * self.lattice.n_dims)
         return finalize(acc["rec_sums"].cpu().numpy(), acc["n_recorded"],
-                        self.rt.n_replicas, pt_state, fk_csd)
+                        self.rt.n_replicas, pt_state, fk_csd, pairs)

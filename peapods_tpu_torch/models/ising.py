@@ -31,6 +31,15 @@ _SAMPLE_REQUIRES = (
     ("cluster_action", "observe", "cluster_update_interval"),
     ("overlap_cluster_action", "observe", "overlap_cluster_update_interval"),
 )
+# result keys copied to attributes as they are (spin_models.py:281-283)
+_PASSTHROUGH_ATTRS = (
+    "overlap_histogram",
+    "ql_at_q_sum",
+    "ql2_at_q_sum",
+    "per_sample_overlap_histogram",
+    "per_sample_ql_at_q_sum",
+    "per_sample_ql2_at_q_sum",
+)
 _SAMPLE_GATES = (
     ("cluster_mode", "cluster_update_interval"),
     ("cluster_action", "cluster_update_interval"),
@@ -60,11 +69,12 @@ def _synthesize_couplings(mode, coupling_seed, n_disorder, single_shape):
 
 
 class Ising:
-    """Ising model on a periodic 2D square lattice with Monte Carlo
-    sampling on a torch device.
+    """Ising model on a periodic 2D square or 3D cubic lattice with Monte
+    Carlo sampling on a torch device.
 
     After `sample`, the derived observables ``binder_cumulant`` and
-    ``heat_capacity`` live on the instance beside the raw moments.
+    ``heat_capacity`` (and, with two replicas or more, ``sg_binder`` and
+    ``link_overlap_binder``) live on the instance beside the raw moments.
     """
 
     def __init__(
@@ -82,13 +92,16 @@ class Ising:
         """Create an Ising model.
 
         Args:
-            lattice_shape: periodic lattice extents ``(H, W)``, both even.
+            lattice_shape: periodic lattice extents, all even: ``(H, W)``,
+                or ``(L0, L1, L2)`` with two replicas or more.
             couplings: ``"ferro"`` (all +1), ``"bimodal"`` (random +-1),
                 ``"gaussian"`` (standard normal), or an explicit array of
-                shape ``(H, W, 2)`` (optionally with a leading
-                ``n_disorder`` axis).
+                shape ``lattice_shape + (n_dims,)`` (optionally with a
+                leading ``n_disorder`` axis).
             temperatures: temperature grid for the ladder.
-            n_replicas: replicas per temperature (1 in this port).
+            n_replicas: replicas per temperature; with two or more, the
+                pairs ``(2p, 2p+1)`` are measured (q, q_l) and may take
+                overlap moves.
             n_disorder: number of coupling realizations.
             seed: non-negative integer controlling both coupling synthesis
                 and the dynamics; ``None`` draws fresh entropy.
@@ -205,6 +218,18 @@ class Ising:
             * (self.energies2_avg - self.energies_avg**2)
             / self.temperatures**2
         )
+        if "overlap2" in result:
+            for key in ("overlap", "overlap2", "overlap4", "link_overlap",
+                        "link_overlap2", "link_overlap4"):
+                setattr(self, key, result[key])
+            with np.errstate(divide="ignore", invalid="ignore"):
+                self.sg_binder = 1 - self.overlap4 / (3 * self.overlap2**2)
+                self.link_overlap_binder = 1 - self.link_overlap4 / (
+                    3 * self.link_overlap2**2
+                )
+        for key in _PASSTHROUGH_ATTRS:
+            if key in result:
+                setattr(self, key, result[key])
         if "fk_csd" in result:
             self.fk_csd = result["fk_csd"]
             self.mean_cluster_size = np.array(

@@ -9,7 +9,7 @@ source builds anew and an unchanged one loads at once.  The libraries have
 a plain C interface (no PyTorch headers), so a build takes seconds.  Every
 entry point returns ``cudaGetLastError()`` after its launch; :func:`check`
 raises on a non-zero code.  :func:`expect` and :func:`device_kind` are the
-wrappers' argument checks.
+wrappers' argument checks, :func:`dims3` the lattice extents they pass.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ import time
 from pathlib import Path
 from types import SimpleNamespace
 
-__all__ = ["library", "check", "expect", "device_kind", "NVCC_FLAGS",
+__all__ = ["library", "check", "expect", "device_kind", "dims3", "NVCC_FLAGS",
            "BUILD_DIR", "SOURCE_DIR"]
 
 SOURCE_DIR = Path(__file__).resolve().parent.parent / "csrc"
@@ -40,13 +40,19 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "peapods_colour_pass_blocks": [_I, _I],
-    "peapods_colour_pass": [_P] * 7 + [_I] * 6 + [_P],
-    "peapods_pt_step": [_P, _P, _I, _P, _P, _I] + [_P] * 9 + [_I] * 8 + [_P],
+    "peapods_colour_pass": [_P] * 7 + [_I] * 7 + [_P],
+    "peapods_pt_step": [_P, _P, _I, _P, _P, _I] + [_P] * 9 + [_I] * 9 + [_P],
     "peapods_sweep_2d": [_P] * 6 + [_I] * 6 + [_P],
     "peapods_fk_blocks": [_I, _I],
     "peapods_fk_bonds": [_P] * 6 + [_I] * 4 + [_P],
-    "peapods_fk_link": [_P, _P] + [_I] * 3 + [_P],
+    "peapods_fk_link": [_P, _P] + [_I] * 4 + [_P],
     "peapods_fk_finish": [_P] * 8 + [_I] * 5 + [_P],
+    "peapods_pair_overlap": [_P] * 4 + [_I] * 8 + [_P],
+    "peapods_site_blocks": [_I],
+    "peapods_ov_bonds": [_P] * 11 + [_I] * 9 + [_P],
+    "peapods_ov_mid": [_P] * 13 + [_I] * 8 + [_P],
+    "peapods_ov_finish": [_P] * 10 + [_I] * 9 + [_P],
+    "peapods_energy_partials": [_P] * 4 + [_I] * 5 + [_P],
 }
 
 _lib = None
@@ -125,6 +131,12 @@ def device_kind(t) -> str:
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"tensors on {t.device} are not supported")
     return kind
+
+
+def dims3(shape):
+    """A lattice's extents as the kernels take them: ``(L0, L1, L2)``, with
+    ``L2 = 1`` for a 2D lattice."""
+    return tuple(shape) + (1,) * (3 - len(shape))
 
 
 def expect(t, name, dtype, shape, device):

@@ -1,14 +1,17 @@
-"""The cluster layer of the FK update, in plain torch.
+"""The cluster layer of the FK update and the overlap moves, in plain
+torch.
 
-Counterpart of ``peapods_tpu/ops/cluster.py`` for what SW and Wolff
-updates need: FK bond activation (:555), connected components with the
-minimum-site-index labels (:113; only the fixed point, none of the TPU's
-scan devices), the per-cluster coin ``salted_uniform`` (:516), the SW and
-Wolff flip masks (:537, :550), component counts and the cluster-size
+Counterpart of ``peapods_tpu/ops/cluster.py`` for what SW, Wolff and the
+pair overlap moves need: FK bond activation (:555), connected components
+with the minimum-site-index labels (:113; only the fixed point, none of the
+TPU's scan devices), the per-cluster coin ``salted_uniform`` (:516), the SW
+and Wolff flip masks (:537, :550), ``find_seed`` (:481) and
+``nonsingleton_mask`` (:529), component counts and the cluster-size
 histogram (:460, :466; a scatter-add count in place of the TPU's one-hot
-matmul, which only worked around slow scatters there).  Every function takes a leading batch of graphs; a graph is the
-``[H, W]`` square lattice with forward bonds (down, right) stored as
-``[..., n_spins, 2]``.
+matmul, which only worked around slow scatters there).  Every function
+takes a leading batch of graphs; a graph is a 2D ``[H, W]`` or 3D ``[L0,
+L1, L2]`` periodic lattice with one forward bond per axis, stored as
+``[..., n_spins, n_dims]``.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ __all__ = [
     "connected_components",
     "cluster_coin_flip_mask",
     "wolff_flip_mask",
+    "find_seed",
+    "nonsingleton_mask",
     "component_counts",
     "csd_histogram",
 ]
@@ -32,16 +37,14 @@ _INV24 = 1.0 / (1 << 24)
 
 def _fwd(x, shape, d):
     """``x [..., n_spins]`` read at every site's forward neighbour along
-    ``d`` (0 down, 1 right), periodic."""
-    h, w = shape
-    g = x.reshape(*x.shape[:-1], h, w)
-    return torch.roll(g, -1, dims=-2 + d).reshape(x.shape)
+    axis ``d`` (2D: 0 down, 1 right), periodic."""
+    g = x.reshape(*x.shape[:-1], *shape)
+    return torch.roll(g, -1, dims=d - len(shape)).reshape(x.shape)
 
 
 def _bwd(x, shape, d):
-    h, w = shape
-    g = x.reshape(*x.shape[:-1], h, w)
-    return torch.roll(g, 1, dims=-2 + d).reshape(x.shape)
+    g = x.reshape(*x.shape[:-1], *shape)
+    return torch.roll(g, 1, dims=d - len(shape)).reshape(x.shape)
 
 
 def salted_uniform(labels, salt0, salt1):
@@ -84,15 +87,15 @@ def connected_components(active_fwd, shape):
     (``label[label]``: a label is a site of the same component with a
     smaller or equal index), until nothing changes.
     """
-    n = active_fwd.shape[-2]
+    n, nd = active_fwd.shape[-2:]
     lead = active_fwd.shape[:-2]
     big = torch.full((), n, dtype=torch.int64, device=active_fwd.device)
-    fwd_on = [active_fwd[..., d] for d in range(2)]
-    bwd_on = [_bwd(active_fwd[..., d], shape, d) for d in range(2)]
+    fwd_on = [active_fwd[..., d] for d in range(nd)]
+    bwd_on = [_bwd(active_fwd[..., d], shape, d) for d in range(nd)]
     lab = torch.arange(n, device=active_fwd.device).expand(*lead, n)
     while True:
         new = lab
-        for d in range(2):
+        for d in range(nd):
             new = torch.minimum(new, torch.where(fwd_on[d], _fwd(lab, shape, d), big))
             new = torch.minimum(new, torch.where(bwd_on[d], _bwd(lab, shape, d), big))
         new = new.gather(-1, new)
@@ -110,6 +113,27 @@ def cluster_coin_flip_mask(labels, salts):
 def wolff_flip_mask(labels, seed):
     """Wolff: the component of site ``seed`` (int ``[...]``)."""
     return labels == labels.gather(-1, seed.to(torch.int64)[..., None])
+
+
+def find_seed(probes, eligible):
+    """The Wolff seed of the overlap moves (clusters/utils.rs:107-119): the
+    first of the 64 probe sites (int ``[..., 64]``) that is eligible (bool
+    ``[..., n_spins]``); ``n_spins`` when none is (the move is then a
+    no-op).  int64 ``[...]``."""
+    probes = probes.to(torch.int64)
+    hits = eligible.gather(-1, probes)
+    first = hits.to(torch.int8).argmax(-1, keepdim=True)  # first True
+    seed = probes.gather(-1, first)[..., 0]
+    return torch.where(hits.any(-1), seed, eligible.shape[-1])
+
+
+def nonsingleton_mask(active_fwd, shape):
+    """bool ``[..., n_spins]``: sites with any bond (own forward bonds or a
+    backward neighbour's forward bond), i.e. in a cluster of size > 1."""
+    inc = active_fwd.any(-1)
+    for d in range(active_fwd.shape[-1]):
+        inc = inc | _bwd(active_fwd[..., d], shape, d)
+    return inc
 
 
 def _count(index, weights, n_bins):

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["energies_and_mags", "per_spin"]
+__all__ = ["bond_sums", "energies_and_mags", "per_spin"]
 
 
 def per_spin(total, n_spins: int):
@@ -20,14 +20,25 @@ def per_spin(total, n_spins: int):
     return total / torch.full_like(total, float(n_spins))
 
 
+def bond_sums(spins, coup_fwd, shape):
+    """f32 ``[...]`` forward-bond energy sums ``sum_{i,d} J s_i s_fwd`` of
+    int8 spins ``[..., n_spins]`` on a 2D or 3D lattice ``shape``, with
+    forward couplings ``[..., n_spins, n_dims]`` (broadcast against the
+    spins' leading axes); the axes' sums are added in axis order."""
+    shape = tuple(shape)
+    nd = len(shape)
+    s = spins.to(torch.float32).reshape(*spins.shape[:-1], *shape)
+    tot = torch.zeros(spins.shape[:-1], dtype=torch.float32, device=s.device)
+    spatial = tuple(range(-nd, 0))
+    lead = coup_fwd.shape[:-2]
+    for d in range(nd):
+        fwd = torch.roll(s, -1, d - nd)  # s at the forward neighbour
+        tot = tot + (s * fwd * coup_fwd[..., d].reshape(*lead, *shape)).sum(spatial)
+    return tot
+
+
 def energies_and_mags(spins, coup_fwd, shape):
     """``(e f32 [...], m int32 [...])`` of int8 spins ``[..., n_spins]``
-    with forward couplings ``[n_spins, 2]``."""
-    h, w = shape
-    s = spins.to(torch.float32).reshape(*spins.shape[:-1], h, w)
-    tot = torch.zeros(spins.shape[:-1], dtype=torch.float32, device=s.device)
-    for dim, j in ((-2, coup_fwd[:, 0]), (-1, coup_fwd[:, 1])):
-        fwd = torch.roll(s, -1, dim)  # s at the forward neighbour
-        tot = tot + (s * fwd * j.reshape(h, w)).sum((-2, -1))
+    with forward couplings ``[n_spins, n_dims]`` on a 2D or 3D lattice."""
     m = spins.to(torch.int32).sum(-1, dtype=torch.int32)
-    return per_spin(tot, h * w), m
+    return per_spin(bond_sums(spins, coup_fwd, shape), spins.shape[-1]), m

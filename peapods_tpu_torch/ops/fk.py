@@ -40,6 +40,7 @@ __all__ = [
     "fk_link_plain",
     "fk_finish_plain",
     "fk_energy_mag",
+    "launch_link",
 ]
 
 # kernel launches since the last reset, by kernel name
@@ -128,6 +129,16 @@ def fk_update_plain(spins, j_fwd, temps, scalars, kb_words, *, wolff,
     return e_part, m_part, labels.reshape(b, h, w) if with_labels else None
 
 
+def launch_link(lib, stream, p_state, p_parent, n_graphs, l0, l1, l2):
+    """Launch ``fk_link`` on raw pointers: label ``n_graphs`` bond graphs of
+    an ``(l0, l1, l2)`` lattice (``l2 = 1`` in 2D) whose state bytes hold
+    the forward bonds in bits ``0 .. n_dims - 1``.  The FK update and the
+    overlap moves (:mod:`.overlap`) both label their graphs so."""
+    _build.check(lib.peapods_fk_link(p_state, p_parent, n_graphs, l0, l1, l2,
+                                     stream), "fk_link")
+    LAUNCHES["fk_link"] += 1
+
+
 def fk_update(spins, j_fwd, temps, scalars, kb_words, *, wolff, with_measure,
               with_labels, uniforms=None):
     """One FK update of every graph (see :func:`fk_update_plain`): the plain
@@ -170,9 +181,7 @@ def fk_update(spins, j_fwd, temps, scalars, kb_words, *, wolff, with_measure,
         kb_words.data_ptr(), state.data_ptr(), parent.data_ptr(), b, b // d,
         h, w, stream), "fk_bonds")
     LAUNCHES["fk_bonds"] += 1
-    _build.check(lib.peapods_fk_link(
-        state.data_ptr(), parent.data_ptr(), b, h, w, stream), "fk_link")
-    LAUNCHES["fk_link"] += 1
+    launch_link(lib, stream, state.data_ptr(), parent.data_ptr(), b, h, w, 1)
     _build.check(lib.peapods_fk_finish(
         spins.data_ptr(), state.data_ptr(), parent.data_ptr(), _ptr(labels),
         j_fwd.data_ptr(), scalars.data_ptr(), _ptr(e_part), _ptr(m_part), b, b // d,

@@ -1,16 +1,16 @@
-"""Slot <-> system maps of the per-sweep path.
+"""Slot <-> system maps and the pair overlaps.
 
-Counterpart of ``slot_temps_for_systems`` and ``per_slot_values`` in
-``peapods_tpu/ops/measure.py`` (:18-33), batched over realizations:
-``system_ids`` is int32 ``[d, n_slots]`` (one replica, so a slot is a
-temperature).
+Counterpart of ``slot_temps_for_systems``, ``per_slot_values`` and
+``overlap_dots`` in ``peapods_tpu/ops/measure.py`` (:18-53), batched over
+realizations: ``system_ids`` is int32 ``[d, n_slots]``, slot ``r T + t``
+being replica ``r`` at temperature ``t``.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["slot_temps_for_systems", "per_slot_values"]
+__all__ = ["slot_temps_for_systems", "per_slot_values", "overlap_dots"]
 
 
 def slot_temps_for_systems(system_ids, temps):
@@ -27,3 +27,32 @@ def per_slot_values(values_by_system, system_ids):
     idx = idx.reshape(idx.shape + (1,) * (values_by_system.dim() - 2))
     return values_by_system.gather(1, idx.expand(
         idx.shape[:2] + values_by_system.shape[2:]))
+
+
+def overlap_dots(spins, system_ids, shape, n_replicas: int):
+    """Spin and link overlap dot products of every replica pair ``(2p,
+    2p+1)`` at every temperature (overlap.rs:251-333): ``q_i = a_i b_i``,
+    ``qs = sum_i q_i`` and ``ql = sum_i q_i sum_d q_{i + e_d}`` over the
+    forward neighbours.
+
+    Args:
+        spins: int8 ``[d, n_systems, n_spins]`` by system.
+        system_ids: int32 ``[d, n_slots]`` (``n_slots = R T``).
+        shape: the lattice extents (2D or 3D).
+
+    Returns:
+        ``(qs, ql)``, each int32 ``[d, n_pairs, T]``.
+    """
+    shape = tuple(shape)
+    nd = len(shape)
+    d = spins.shape[0]
+    n_pairs = n_replicas // 2
+    sid = system_ids.to(torch.int64).reshape(d, n_replicas, -1)
+    di = torch.arange(d, device=spins.device)[:, None, None]
+    a = spins[di, sid[:, 0:2 * n_pairs:2]].to(torch.int32)
+    b = spins[di, sid[:, 1:2 * n_pairs:2]].to(torch.int32)
+    q = (a * b).reshape(*a.shape[:-1], *shape)
+    nbr = sum(torch.roll(q, -1, k - nd) for k in range(nd))
+    spatial = tuple(range(-nd, 0))
+    return (q.sum(spatial, dtype=torch.int32),
+            (q * nbr).sum(spatial, dtype=torch.int32))

@@ -1,0 +1,356 @@
+"""The pair overlap moves (Houdayer, Joerg, CMR; Wolff or SW) and the
+energy re-derivation after a move.
+
+Counterpart of ``peapods_tpu/ops/overlap.py`` (the staged per-task moves)
+and of ``peapods_tpu/ops/pallas_event.py`` ``overlap_event_batch`` (:463,
+kernel ``_event_kernel`` :274), which runs a whole move per task.  A task
+pairs two replicas ``tasks[d, t, g] = (r_a, r_b)`` at temperature ``t`` of
+realization ``d`` (:func:`~peapods_tpu_torch.engine.seeds.overlap_tasks`);
+its systems are read through ``sid`` (slot ``r T + t``), so the spins stay
+by system ``[d, n_systems, n_spins]`` and are flipped in place.  Per task
+come six scalars and 64 Wolff probes
+(:func:`~peapods_tpu_torch.engine.seeds.event_scalars`) and two key words
+for the bond uniforms (Philox, counter ``(dir, site // 4, 0, 0)``; CMR's red
+bonds ``(n_dims + dir, ...)``: :func:`~peapods_tpu_torch.ops.rng.bond_uniforms`).
+
+:func:`overlap_event` launches the kernels of ``csrc/overlap.cu`` on CUDA
+tensors (counted in :data:`LAUNCHES`), with the FK update's ``fk_link``
+labelling the bond graphs (counted in ``fk.LAUNCHES``), and runs
+:func:`overlap_event_plain` on CPU tensors; :func:`energy_partials` re-derives the systems' energies
+(by system, as block partials) for the PT step that follows a move.  The
+move's rules, in the reference kernel's operation order (J/T = J / T in
+f32):
+
+* Houdayer: bonds between neighbours that are both active (``a b < 0``).
+* Joerg: ``inter = a a_fwd J/T``; bond iff ``inter > 0``, ``u < 1 -
+  exp(-4 inter)`` and both ends active.
+* Flips (Houdayer, Joerg): Wolff, the component of the first probe with
+  ``a != b`` (none: no flip); SW, each non-singleton component with
+  ``salted_uniform(label, s0, s1) < 1/2``; in both replicas.
+* CMR: ``r = exp(-2 |J/T|)``; blue bonds on edges satisfied in both
+  replicas with ``u < 1 - r^2``; the blue flip (Wolff: the drawn seed's
+  component; SW: the coin on non-singletons) in both replicas; on the
+  flipped spins, grey = blue or (satisfied in one replica only and ``u' <
+  1 - r``); grey flips of ``a`` iff ``k & 1`` and of ``b`` iff ``k & 2``,
+  with ``k`` drawn per task (Wolff, on the seed's grey component) or ``k =
+  floor(4 salted_uniform(grey label, s2, s3))`` (SW, on non-singletons).
+
+Labels are each component's minimum site index.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import _build, fk, rng
+from .cluster import _fwd, connected_components, find_seed, nonsingleton_mask
+from .cluster import salted_uniform
+from .energy import bond_sums
+
+__all__ = [
+    "KINDS",
+    "LAUNCHES",
+    "gather_tasks",
+    "overlap_event",
+    "overlap_event_plain",
+    "houdayer_plain",
+    "jorg_plain",
+    "cmr_plain",
+    "energy_partials",
+    "energy_partials_plain",
+]
+
+KINDS = ("houdayer", "jorg", "cmr")
+
+# kernel launches since the last reset, by kernel name
+LAUNCHES = {"ov_bonds": 0, "ov_mid": 0, "ov_finish": 0, "energy_partials": 0}
+
+
+# ------------------------------------------------------------ plain torch
+
+
+def gather_tasks(spins, sid, tasks, n_temps: int):
+    """``(sys int64 [d, T, P, 2], a int8 [B, n], b int8 [B, n])``: the two
+    systems of every task and their spins, tasks flat ``B = d T P`` in the
+    order ``(d, t, g)``."""
+    d = spins.shape[0]
+    t = torch.arange(n_temps, device=spins.device)[None, :, None, None]
+    slot = tasks.to(torch.int64) * n_temps + t  # [d, T, P, 2]
+    sys = sid.to(torch.int64).gather(1, slot.reshape(d, -1)).reshape(slot.shape)
+    di = torch.arange(d, device=spins.device)[:, None, None]
+    n = spins.shape[-1]
+    a = spins[di, sys[..., 0]].reshape(-1, n)
+    b = spins[di, sys[..., 1]].reshape(-1, n)
+    return sys, a, b
+
+
+def _flip(x, mask):
+    return torch.where(mask, -x, x)
+
+
+def houdayer_plain(a, b, scal, probes, shape, *, wolff):
+    """Houdayer on tasks ``a``, ``b`` int8 ``[B, n]``: returns ``(a, b,
+    labels)``."""
+    active = a.to(torch.int32) * b.to(torch.int32) < 0
+    bonds = torch.stack([active & _fwd(active, shape, d)
+                         for d in range(len(shape))], dim=-1)
+    return _finish_pair(a, b, bonds, scal, probes, active, shape, wolff=wolff)
+
+
+def jorg_plain(a, b, jt, scal, probes, shape, *, wolff, u):
+    """Joerg on tasks ``a``, ``b`` int8 ``[B, n]`` with ``jt`` = J/T f32
+    ``[B, n, n_dims]`` and bond uniforms ``u`` ``[B, n, n_dims]``."""
+    active = a.to(torch.int32) * b.to(torch.int32) < 0
+    af = a.to(torch.float32)
+    bonds = []
+    for d in range(len(shape)):
+        inter = af * _fwd(af, shape, d) * jt[..., d]
+        p = 1.0 - torch.exp(-4.0 * inter)
+        bonds.append((inter > 0.0) & (u[..., d] < p) & active
+                     & _fwd(active, shape, d))
+    return _finish_pair(a, b, torch.stack(bonds, dim=-1), scal, probes, active,
+                        shape, wolff=wolff)
+
+
+def _finish_pair(a, b, bonds, scal, probes, active, shape, *, wolff):
+    labels = connected_components(bonds, shape)
+    if wolff:
+        seed = find_seed(probes, active)
+        n = a.shape[-1]
+        root = labels.gather(-1, seed.clamp(max=n - 1)[:, None])
+        flip = (labels == root) & (seed < n)[:, None]
+    else:
+        flip = (salted_uniform(labels, scal[:, 0:1], scal[:, 1:2]) < 0.5) \
+            & nonsingleton_mask(bonds, shape)
+    return _flip(a, flip), _flip(b, flip), labels
+
+
+def _sats(af, bf, jt, shape, d):
+    return (af * _fwd(af, shape, d) * jt[..., d] > 0.0,
+            bf * _fwd(bf, shape, d) * jt[..., d] > 0.0)
+
+
+def cmr_plain(a, b, jt, scal, shape, *, wolff, u_blue, u_red):
+    """CMR on tasks ``a``, ``b`` int8 ``[B, n]``: returns ``(a, b, grey
+    labels, blue labels)``.  ``u_blue`` / ``u_red``: f32 ``[B, n,
+    n_dims]``."""
+    nd = len(shape)
+    af = a.to(torch.float32)
+    bf = b.to(torch.float32)
+    r = torch.exp(-2.0 * jt.abs())
+    blue = []
+    for d in range(nd):
+        sa, sb = _sats(af, bf, jt, shape, d)
+        blue.append(sa & sb & (u_blue[..., d] < 1.0 - r[..., d] * r[..., d]))
+    blue = torch.stack(blue, dim=-1)
+    blue_labels = connected_components(blue, shape)
+    seed = scal[:, 4:5].to(torch.int64)
+    if wolff:
+        blue_flip = blue_labels == blue_labels.gather(-1, seed)
+    else:
+        blue_flip = (salted_uniform(blue_labels, scal[:, 0:1], scal[:, 1:2]) < 0.5) \
+            & nonsingleton_mask(blue, shape)
+    af, bf = _flip(af, blue_flip), _flip(bf, blue_flip)
+    grey = []
+    for d in range(nd):
+        sa, sb = _sats(af, bf, jt, shape, d)
+        grey.append(blue[..., d] | ((sa != sb) & (u_red[..., d] < 1.0 - r[..., d])))
+    grey = torch.stack(grey, dim=-1)
+    labels = connected_components(grey, shape)
+    if wolff:
+        inside = labels == labels.gather(-1, seed)
+        k = scal[:, 5:6]
+    else:
+        inside = nonsingleton_mask(grey, shape)
+        k = (salted_uniform(labels, scal[:, 2:3], scal[:, 3:4]) * 4.0).to(torch.int32)
+    a_new = _flip(af, inside & ((k & 1) != 0)).to(torch.int8)
+    b_new = _flip(bf, inside & ((k & 2) != 0)).to(torch.int8)
+    return a_new, b_new, labels, blue_labels
+
+
+def task_jt(coup, temps, n_pairs: int):
+    """f32 ``[d T P, n, n_dims]``: J / T of every task's bonds."""
+    d, n, nd = coup.shape
+    jt = coup[:, None] / temps[None, :, None, None]  # [d, T, n, nd]
+    t = temps.shape[0]
+    return jt[:, :, None].expand(d, t, n_pairs, n, nd).reshape(-1, n, nd)
+
+
+def overlap_event_plain(spins, sid, tasks, coup, temps, scal, probes, words,
+                        *, kind, wolff, shape, with_labels=False):
+    """One overlap move of every task, in place (see the module doc).
+
+    Args:
+        spins: int8 ``[d, n_systems, n]`` by system, updated in place.
+        sid: int32 ``[d, n_slots]``.
+        tasks: int32 ``[d, T, P, 2]`` replica pairs.
+        coup: f32 ``[d, n, n_dims]`` forward couplings.
+        temps: f32 ``[T]``.
+        scal, probes, words: int32 ``[d T P, 6]``, ``[d T P, 64]``,
+            ``[d T P, 2]``.
+
+    Returns:
+        ``(labels, blue_labels)`` int32 ``[d T P, n]`` when
+        ``with_labels`` (the move's labels, CMR's grey ones; CMR's blue
+        labels, else ``None``), else ``None``.
+    """
+    n_temps, n_pairs = tasks.shape[1:3]
+    nd = len(shape)
+    n = spins.shape[-1]
+    sys, a, b = gather_tasks(spins, sid, tasks, n_temps)
+    blue = None
+    if kind == "houdayer":
+        a, b, labels = houdayer_plain(a, b, scal, probes, shape, wolff=wolff)
+    else:
+        jt = task_jt(coup, temps, n_pairs)
+        u = rng.bond_uniforms(words, n, nd)
+        if kind == "jorg":
+            a, b, labels = jorg_plain(a, b, jt, scal, probes, shape, wolff=wolff,
+                                      u=u)
+        elif kind == "cmr":
+            a, b, labels, blue = cmr_plain(a, b, jt, scal, shape, wolff=wolff,
+                                           u_blue=u,
+                                           u_red=rng.bond_uniforms(words, n, nd, nd))
+        else:
+            raise ValueError(f"unknown overlap move kind {kind!r}")
+    d = spins.shape[0]
+    di = torch.arange(d, device=spins.device)[:, None, None]
+    spins[di, sys[..., 0]] = a.reshape(sys.shape[:3] + (n,))
+    spins[di, sys[..., 1]] = b.reshape(sys.shape[:3] + (n,))
+    return (labels, blue) if with_labels else None
+
+
+def energy_partials_plain(spins, coup, shape):
+    """``(e_part f32 [d, S, 1], m_part int32 [d, S, 1])``: each system's
+    forward-bond energy sum and magnetization, by system."""
+    e = bond_sums(spins, coup[:, None], shape)
+    m = spins.to(torch.int32).sum(-1, dtype=torch.int32)
+    return e[..., None], m[..., None]
+
+
+# ------------------------------------------------------------ CUDA kernels
+
+
+class Scratch:
+    """Device buffers of a move's kernels for ``n_tasks`` tasks of ``n``
+    sites (allocated once per chunk)."""
+
+    def __init__(self, n_tasks, n, device, cmr):
+        u8 = dict(dtype=torch.uint8, device=device)
+        i32 = dict(dtype=torch.int32, device=device)
+        self.state = torch.empty((n_tasks, n), **u8)
+        self.parent = torch.empty((n_tasks, n), **i32)
+        self.seeds = torch.empty((n_tasks,), **i32)
+        self.state2 = torch.empty((n_tasks, n), **u8) if cmr else None
+        self.parent2 = torch.empty((n_tasks, n), **i32) if cmr else None
+
+    def ptrs(self):
+        return [None if t is None else t.data_ptr() for t in
+                (self.state, self.parent, self.seeds, self.state2, self.parent2)]
+
+
+def launch_event(lib, stream, dims, p_spins, p_sid, p_tasks, p_coup, p_temps,
+                 p_scal, p_probes, p_words, scratch, *, kind, wolff,
+                 p_labels=None, p_blue=None):
+    """Launch one move's kernels on raw pointers: ``dims`` is ``(n_tasks,
+    L0, L1, L2, T, P, S)``; ``scratch`` the :meth:`Scratch.ptrs`."""
+    n_tasks, l0, l1, l2 = dims[:4]
+    st, par, seeds, st2, par2 = scratch
+    k = KINDS.index(kind)
+    _build.check(lib.peapods_ov_bonds(
+        p_spins, p_sid, p_tasks, p_coup, p_temps, p_scal, p_probes, p_words,
+        st, par, seeds, *dims, k, int(wolff), stream), "ov_bonds")
+    LAUNCHES["ov_bonds"] += 1
+    fk.launch_link(lib, stream, st, par, n_tasks, l0, l1, l2)
+    if kind == "cmr":
+        _build.check(lib.peapods_ov_mid(
+            p_spins, p_sid, p_tasks, p_coup, p_temps, p_scal, p_words, st, par,
+            seeds, st2, par2, p_blue, *dims, int(wolff), stream), "ov_mid")
+        LAUNCHES["ov_mid"] += 1
+        fk.launch_link(lib, stream, st2, par2, n_tasks, l0, l1, l2)
+    _build.check(lib.peapods_ov_finish(
+        p_spins, p_sid, p_tasks, p_scal, st, par, seeds, st2, par2, p_labels,
+        *dims, k, int(wolff), stream), "ov_finish")
+    LAUNCHES["ov_finish"] += 1
+
+
+def launch_energy(lib, stream, d, n_sys, l0, l1, l2, p_spins, p_coup, p_e, p_m):
+    """Launch ``energy_partials`` on raw pointers."""
+    _build.check(lib.peapods_energy_partials(
+        p_spins, p_coup, p_e, p_m, d, n_sys, l0, l1, l2, stream),
+        "energy_partials")
+    LAUNCHES["energy_partials"] += 1
+
+
+def check_event(spins, sid, tasks, coup, temps, scal, probes, words, shape):
+    """Validate a move's tensors (the kernels' layout); returns the kernel
+    dims ``(n_tasks, L0, L1, L2, T, P, S)``."""
+    dev = spins.device
+    d, n_sys, n = spins.shape
+    n_temps, n_pairs = tasks.shape[1:3]
+    b = d * n_temps * n_pairs
+    nd = len(shape)
+    ex = _build.expect
+    ex(spins, "spins", torch.int8, (d, n_sys, n), dev)
+    ex(sid, "sid", torch.int32, (d, n_sys), dev)
+    ex(tasks, "tasks", torch.int32, (d, n_temps, n_pairs, 2), dev)
+    ex(coup, "coup", torch.float32, (d, n, nd), dev)
+    ex(temps, "temps", torch.float32, (n_temps,), dev)
+    ex(scal, "scal", torch.int32, (b, 6), dev)
+    ex(probes, "probes", torch.int32, (b, 64), dev)
+    ex(words, "words", torch.int32, (b, 2), dev)
+    if nd not in (2, 3) or n != math.prod(shape):
+        raise ValueError(f"spins do not hold lattices of shape {shape}")
+    if b > 65535 or n_sys > 65535 or d > 65535:
+        raise ValueError("at most 65535 tasks, systems and realizations")
+    return (b, *_build.dims3(shape), n_temps, n_pairs, n_sys)
+
+
+def overlap_event(spins, sid, tasks, coup, temps, scal, probes, words, *, kind,
+                  wolff, shape, with_labels=False):
+    """One overlap move of every task (see :func:`overlap_event_plain`):
+    the plain version for CPU tensors, the ``ov_*`` kernels for CUDA
+    tensors."""
+    kw = dict(kind=kind, wolff=wolff, shape=shape, with_labels=with_labels)
+    args = (spins, sid, tasks, coup, temps, scal, probes, words)
+    if _build.device_kind(spins) == "cpu":
+        return overlap_event_plain(*args, **kw)
+    if kind not in KINDS:
+        raise ValueError(f"unknown overlap move kind {kind!r}")
+    dims = check_event(*args, shape)
+    dev = spins.device
+    n = spins.shape[-1]
+    labels = blue = None
+    if with_labels:
+        labels = torch.empty((dims[0], n), dtype=torch.int32, device=dev)
+        if kind == "cmr":
+            blue = torch.empty_like(labels)
+    scratch = Scratch(dims[0], n, dev, kind == "cmr")
+    launch_event(_build.library(), torch.cuda.current_stream(dev).cuda_stream,
+                 dims, *(t.data_ptr() for t in args), scratch.ptrs(), kind=kind,
+                 wolff=wolff, p_labels=None if labels is None else labels.data_ptr(),
+                 p_blue=None if blue is None else blue.data_ptr())
+    return (labels, blue) if with_labels else None
+
+
+def energy_partials(spins, coup, shape):
+    """Each system's energy and magnetization as partial sums ``(e_part
+    f32, m_part int32)`` ``[d, S, blocks]`` by system (see
+    :func:`energy_partials_plain`; one partial per block of 256 sites on
+    the card)."""
+    if _build.device_kind(spins) == "cpu":
+        return energy_partials_plain(spins, coup, shape)
+    dev = spins.device
+    d, n_sys, n = spins.shape
+    _build.expect(spins, "spins", torch.int8, (d, n_sys, n), dev)
+    _build.expect(coup, "coup", torch.float32, (d, n, len(shape)), dev)
+    lib = _build.library()
+    nb = lib.peapods_site_blocks(n)
+    e_part = torch.empty((d, n_sys, nb), dtype=torch.float32, device=dev)
+    m_part = torch.empty((d, n_sys, nb), dtype=torch.int32, device=dev)
+    launch_energy(lib, torch.cuda.current_stream(dev).cuda_stream, d, n_sys,
+                  *_build.dims3(shape), spins.data_ptr(), coup.data_ptr(),
+                  e_part.data_ptr(), m_part.data_ptr())
+    return e_part, m_part

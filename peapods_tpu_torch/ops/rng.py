@@ -12,9 +12,10 @@ site ``site`` takes output word ``site % 4``.  A uniform is the word's top
 (``peapods_tpu/ops/pallas_sweep.py:294-298``).
 
 The per-sweep path's sweep uses the same draw with the system index in
-place of the slot (``csrc/sweep.cu``), and the FK update draws its bond
-uniforms from Philox keyed by each graph's two ``kb`` words, counter
-``(dir, site // 4, 0, 0)`` (:func:`bond_uniforms`, ``csrc/fk.cu``).
+place of the slot (``csrc/sweep.cu``), and the FK update and the overlap
+moves draw their bond uniforms from Philox keyed by each graph's (task's)
+two key words, counter ``(dir, site // 4, 0, 0)`` (:func:`bond_uniforms`,
+``csrc/fk.cu``, ``csrc/overlap.cu``).
 
 The CUDA kernels (``csrc/mega.cuh``) compute the same function in uint32;
 this version works in int64 with 32-bit masks, and splits every 32x32-bit
@@ -22,6 +23,8 @@ product into 16-bit halves so that no intermediate leaves int64.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -73,11 +76,14 @@ def colour_uniforms(words, n_slots: int, colour: int, shape):
     """Uniforms of one colour pass for every (sweep, realization, slot).
 
     ``words``: int32 ``[..., 2]`` sweep key words.  Returns f32
-    ``[..., n_slots, H, W]`` full-lattice grids whose sites of colour
+    ``[..., n_slots, *shape]`` full-lattice grids whose sites of colour
     ``colour`` hold that site's uniform (the other sites hold their
-    column partner's and are never read).
+    partner's along the last axis and are never read).  The active sites
+    are counted in row-major order, so a 3D ``[L0, L1, L2]`` lattice draws
+    as the 2D ``[L0 L1, L2]`` one (``csrc/mega.cuh`` ``update_sites_3d``).
     """
-    h, w = shape
+    shape = tuple(shape)
+    h, w = math.prod(shape[:-1]), shape[-1]
     wh = w // 2
     n_half = h * wh
     dev = words.device
@@ -90,24 +96,27 @@ def colour_uniforms(words, n_slots: int, colour: int, shape):
     zero = torch.zeros((), device=dev, dtype=torch.int64)
     out = philox4x32(k0, k1, slot, zero + colour, grp, zero)
     u = uniform24(torch.stack(out, dim=-1)).flatten(-2)[..., :n_half]
-    # full-lattice site (r, col) reads active-colour site r * W/2 + col // 2
-    return u.reshape(*lead, n_slots, h, wh).repeat_interleave(2, dim=-1)
+    # full-lattice site (..., col) reads active-colour site row * W/2 + col // 2
+    u = u.reshape(*lead, n_slots, h, wh).repeat_interleave(2, dim=-1)
+    return u.reshape(*lead, n_slots, *shape)
 
 
-def bond_uniforms(words, n_spins: int):
-    """Uniforms of the FK bond draws: f32 ``[..., n_spins, 2]`` from int32
-    graph key words ``[..., 2]``.  Bond ``(site, dir)`` takes word
-    ``site % 4`` of Philox keyed by the graph's words, counter ``(dir,
-    site // 4, 0, 0)`` -- the CUDA FK kernel's draw (``csrc/fk.cu``)."""
+def bond_uniforms(words, n_spins: int, n_dirs: int = 2, first: int = 0):
+    """Uniforms of the cluster kernels' bond draws: f32 ``[..., n_spins,
+    n_dirs]`` from int32 key words ``[..., 2]``.  Bond ``(site, dir)`` takes
+    word ``site % 4`` of Philox keyed by the words, counter ``(first + dir,
+    site // 4, 0, 0)``: the FK kernel's draw (``csrc/fk.cu``, ``first`` 0)
+    and the overlap kernels' (``csrc/overlap.cu``: Joerg and CMR's blue
+    bonds ``first`` 0, CMR's red bonds ``first = n_dirs``)."""
     dev = words.device
     k = words.to(torch.int64) & MASK32
     lead = k.shape[:-1]
     k0 = k[..., 0].reshape(*lead, 1, 1)
     k1 = k[..., 1].reshape(*lead, 1, 1)
-    d = torch.arange(2, device=dev, dtype=torch.int64)[:, None]
+    d = torch.arange(first, first + n_dirs, device=dev, dtype=torch.int64)[:, None]
     grp = torch.arange((n_spins + 3) // 4, device=dev, dtype=torch.int64)
     zero = torch.zeros((), device=dev, dtype=torch.int64)
-    out = philox4x32(k0, k1, d, grp, zero, zero)  # 4 x [..., 2, groups]
+    out = philox4x32(k0, k1, d, grp, zero, zero)  # 4 x [..., n_dirs, groups]
     u = uniform24(torch.stack(out, dim=-1)).flatten(-2)[..., :n_spins]
     return u.transpose(-1, -2)
 

@@ -1,5 +1,5 @@
-"""The checkerboard colour update of a 2D square lattice, and the
-stand-alone sweep of the per-sweep path.
+"""The checkerboard colour update of a 2D square or 3D cubic lattice, and
+the stand-alone sweep of the per-sweep path.
 
 Counterpart of ``_kernel_body`` / ``_kernel_body_2sub``
 (``peapods_tpu/ops/pallas_sweep.py:164-291``) and of ``mc_sweep``
@@ -8,6 +8,7 @@ version the CUDA kernels are held against on the card.  Same math, in the
 same order of f32 operations as the kernels:
 
     field = s_up*ju + s_down*jd + s_left*jl + s_right*jr
+            [+ s_zm*jzm + s_zp*jzp in 3D, pallas_megapair._mp_body]
     x     = (-s * field) * (1 / (0.5 * T))
     Metropolis: flip iff u < (15/16) * exp(min(x, 0))
     Gibbs:      flip iff u < 1 / (1 + exp(-x))
@@ -52,30 +53,36 @@ _KEEP = 1.0 - METROPOLIS_LAZINESS
 
 
 def pack_coupling_grids(coup_fwd, shape):
-    """``[..., 4, H, W]`` pre-shifted coupling grids (ju, jd, jl, jr) from
-    forward couplings ``[..., n_spins, 2]`` (pallas_sweep.py:239-247)::
+    """``[..., 2 n_dims, *shape]`` pre-shifted coupling grids from forward
+    couplings ``[..., n_spins, n_dims]``: per axis ``d``, the bond arriving
+    from ``-d`` and the site's own forward bond (pallas_sweep.py:239-247,
+    pallas_megapair.pack_coupling_grids_mp :146-164).  In 2D (ju, jd, jl,
+    jr)::
 
         ju[i,j] = J0[i-1,j]   jd[i,j] = J0[i,j]
         jl[i,j] = J1[i,j-1]   jr[i,j] = J1[i,j]
     """
-    h, w = shape
+    shape = tuple(shape)
+    nd = len(shape)
     lead = coup_fwd.shape[:-2]
-    j0 = coup_fwd[..., 0].reshape(*lead, h, w)
-    j1 = coup_fwd[..., 1].reshape(*lead, h, w)
-    return torch.stack(
-        [torch.roll(j0, 1, -2), j0, torch.roll(j1, 1, -1), j1], dim=-3
-    )
+    grids = []
+    for d in range(nd):
+        j = coup_fwd[..., d].reshape(*lead, *shape)
+        grids += [torch.roll(j, 1, d - nd), j]
+    return torch.stack(grids, dim=-nd - 1)
 
 
-def local_field(s, jgrids):
-    """f32 local field of every site: ``s`` f32 ``[..., H, W]``, ``jgrids``
-    ``[..., 4, H, W]``."""
-    return (
-        torch.roll(s, 1, -2) * jgrids[..., 0, :, :]
-        + torch.roll(s, -1, -2) * jgrids[..., 1, :, :]
-        + torch.roll(s, 1, -1) * jgrids[..., 2, :, :]
-        + torch.roll(s, -1, -1) * jgrids[..., 3, :, :]
-    )
+def local_field(s, jgrids, n_dims: int = 2):
+    """f32 local field of every site: ``s`` f32 ``[..., *shape]``,
+    ``jgrids`` ``[..., 2 n_dims, *shape]``; the terms are added in the
+    order -x, +x, -y, +y[, -z, +z]."""
+    field = None
+    for d in range(n_dims):
+        ax = d - n_dims
+        for k, shift in ((2 * d, 1), (2 * d + 1, -1)):
+            term = torch.roll(s, shift, ax) * jgrids.select(-n_dims - 1, k)
+            field = term if field is None else field + term
+    return field
 
 
 def acceptance(x, *, gibbs: bool):
@@ -86,30 +93,33 @@ def acceptance(x, *, gibbs: bool):
 
 
 def colour_mask(shape, colour, device):
-    """bool ``[H, W]``: the sites of one checkerboard colour."""
-    h, w = shape
-    r = torch.arange(h, device=device)[:, None]
-    c = torch.arange(w, device=device)[None, :]
-    return ((r + c) & 1) == colour
+    """bool ``shape``: the sites of one checkerboard colour
+    (``sum(coords) & 1 == colour``)."""
+    par = torch.zeros((), dtype=torch.int64, device=device)
+    for d, n in enumerate(shape):
+        idx = torch.arange(n, device=device)
+        par = par + idx.reshape((n,) + (1,) * (len(shape) - 1 - d))
+    return (par & 1) == colour
 
 
-def colour_update(s, jgrids, inv_half_t, u, colour: int, *, gibbs: bool):
-    """Update the sites of one colour of a full ``[H, W]`` lattice.
+def colour_update(s, jgrids, inv_half_t, u, colour: int, *, gibbs: bool,
+                  n_dims: int = 2):
+    """Update the sites of one colour of a full lattice.
 
     Args:
-        s: f32 ``[..., H, W]`` spins (+-1).
-        jgrids: ``[..., 4, H, W]`` from :func:`pack_coupling_grids`.
+        s: f32 ``[..., *shape]`` spins (+-1).
+        jgrids: ``[..., 2 n_dims, *shape]`` from :func:`pack_coupling_grids`.
         inv_half_t: f32 ``1 / (0.5 * T)``, broadcast against ``[...]``.
-        u: f32 ``[..., H, W]`` uniforms; only the active colour's are read.
-        colour: 0 updates the sites with even ``row + col``, 1 the odd ones.
+        u: f32 ``[..., *shape]`` uniforms; only the active colour's are read.
+        colour: 0 updates the sites with even coordinate sum, 1 the odd ones.
 
     Returns:
         ``(s_new, field)``: the updated spins and the field they saw.
     """
-    field = local_field(s, jgrids)
+    field = local_field(s, jgrids, n_dims)
     x = (-s * field) * inv_half_t
     flip = (u < acceptance(x, gibbs=gibbs)) & colour_mask(
-        s.shape[-2:], colour, s.device
+        s.shape[-n_dims:], colour, s.device
     )
     return torch.where(flip, -s, s), field
 

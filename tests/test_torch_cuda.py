@@ -1,8 +1,10 @@
 """The port's CUDA kernels against their plain torch versions, on the card.
 
 Every test here needs an NVIDIA GPU and skips without one.  They cover the
-mega path's kernels (colour_pass, pt_step) and the per-sweep path's
-(sweep_2d and the three FK kernels).  On a machine
+mega path's kernels (colour_pass, pt_step), the per-sweep path's
+(sweep_2d and the three FK kernels) and the replica path's (colour_pass in
+3D, pt_step on R ladders, pair_overlap, the ov_* overlap-move kernels and
+energy_partials).  On a machine
 with a GPU (jax is not needed; ``--noconftest`` skips the JAX package's
 test configuration):
 
@@ -317,3 +319,234 @@ def test_cluster_sample_on_card_matches_the_cpu(cuda, mode):
     for key in ("mags", "mags2", "energies", "energies2"):
         np.testing.assert_array_equal(ra[key], rc[key], err_msg=key)
     np.testing.assert_array_equal(np.asarray(ra["fk_csd"]), np.asarray(rc["fk_csd"]))
+
+
+# --------------------------------------------- the replica path
+
+
+def _pair_inputs(dev, seed, shape, d, n_rep, n_temps, couplings="pm"):
+    """Spins by system, grids, couplings, temperatures and sid of a replica
+    path batch (n_slots = n_rep * n_temps per realization)."""
+    from peapods_tpu_torch.ops.tempering import init_trip_state as its
+
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    nd = len(shape)
+    s = n_rep * n_temps
+    coup = (rng.choice([-1.0, 1.0], size=(d, n, nd)) if couplings == "pm"
+            else rng.standard_normal((d, n, nd))).astype(np.float32)
+    coup_t = torch.from_numpy(coup)
+    temps = np.geomspace(0.9, 2.2, n_temps).astype(np.float32)
+    sid = np.stack([rng.permutation(n_temps)[None] + n_temps * rng.permutation(
+        n_rep)[:, None] for _ in range(d)]).reshape(d, s).astype(np.int32)
+    sid_t = torch.from_numpy(sid).to(dev)
+    hot, _ = hot_cold_slots(temps)
+    i32 = dict(dtype=torch.int32, device=dev)
+    return dict(
+        spins=torch.from_numpy(rng.choice([-1, 1], size=(d, s, n)).astype(np.int8)).to(dev),
+        coup=coup_t.to(dev),
+        jgrids=pack_coupling_grids(coup_t, shape).contiguous().to(dev),
+        temps=torch.from_numpy(temps).to(dev),
+        slot_temps=torch.from_numpy(np.tile(temps, n_rep)).to(dev),
+        sid=sid_t,
+        ea=torch.zeros((d, n_temps - 1), **i32),
+        ec=torch.zeros((d, n_temps - 1), **i32),
+        rtrips=torch.zeros((d, s), **i32),
+        tstate=its(sid_t.view(d, n_rep, n_temps), hot),
+        rng=rng,
+    )
+
+
+@pytest.mark.parametrize("shape,d,n_rep,n_temps,gibbs,couplings", [
+    ((8, 8, 8), 8, 4, 24, False, "pm"), ((16, 16, 16), 2, 4, 6, True, "pm"),
+    ((8, 64), 2, 2, 3, False, "pm"), ((6, 4, 10), 1, 2, 3, False, "gauss"),
+], ids=["8cube-config4", "16cube-gibbs", "2d-8x64", "6x4x10-gauss"])
+def test_colour_pass_3d_kernel_matches_plain(cuda, shape, d, n_rep, n_temps, gibbs,
+                                             couplings):
+    x = _pair_inputs(cuda, 5, shape, d, n_rep, n_temps, couplings)
+    s = n_rep * n_temps
+    a = x["spins"].view(d, s, *shape).clone()
+    b = a.clone()
+    words = torch.from_numpy(x["rng"].integers(-2**31, 2**31, (d, 2)).astype(
+        np.int32)).to(cuda)
+    args = (x["jgrids"], x["sid"], x["slot_temps"])
+    for colour in (0, 1, 0, 1):
+        pk = mega.colour_pass(a, *args, words, colour, gibbs=gibbs)
+        pp = mega.colour_pass_plain(b, *args, words, colour, gibbs=gibbs)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), colour
+        if pk is not None:
+            assert torch.equal(pk[1].sum(-1), pp[1].sum(-1))
+            if couplings == "pm":
+                assert torch.equal(pk[0].sum(-1), pp[0].sum(-1))
+            else:  # partials added in another order
+                torch.testing.assert_close(pk[0].sum(-1), pp[0].sum(-1),
+                                           rtol=1e-5, atol=1e-4)
+        words = words * 3 + 1
+    assert not torch.equal(a, x["spins"].view(d, s, *shape))
+
+
+@pytest.mark.parametrize("shape,d,n_rep,n_temps", [
+    ((8, 8, 8), 8, 4, 24), ((16, 16, 16), 8, 4, 24), ((8, 64), 3, 3, 4),
+], ids=["config4", "config5", "2d-odd-R"])
+def test_pair_overlap_kernel_matches_plain(cuda, shape, d, n_rep, n_temps):
+    from peapods_tpu_torch.ops import megapair
+
+    x = _pair_inputs(cuda, 7, shape, d, n_rep, n_temps)
+    cols = (n_rep // 2) * n_temps
+    qs = torch.empty((d, 3, cols), dtype=torch.int32, device=cuda)
+    ql = torch.empty_like(qs)
+    megapair.LAUNCHES["pair_overlap"] = 0
+    megapair.pair_overlap(x["spins"], x["sid"], qs[:, 1], ql[:, 1], shape=shape,
+                          n_replicas=n_rep)
+    torch.cuda.synchronize()
+    assert megapair.LAUNCHES["pair_overlap"] == 1
+    ps, pl = megapair.pair_overlap_plain(x["spins"], x["sid"], shape, n_rep)
+    assert torch.equal(qs[:, 1], ps)
+    assert torch.equal(ql[:, 1], pl)
+
+
+@pytest.mark.parametrize("n_rep,pt_full", [(4, False), (4, True), (1, True)],
+                         ids=["R4-single", "R4-full", "R1-full"])
+def test_pt_step_ladders_kernel_matches_plain(cuda, n_rep, pt_full):
+    """pt_step on R ladders with the replica path's draws: every output
+    bitwise, over 48 events from one start state."""
+    from peapods_tpu_torch.ops.measure import slot_temps_for_systems
+    from peapods_tpu_torch.ops.tempering import pt_draws_pairs
+
+    d, n_temps, n_blocks = 8, 24, 4
+    x = _pair_inputs(cuda, 11 + n_rep, (8, 8, 8), d, n_rep, n_temps)
+    rng = x["rng"]
+    s = n_rep * n_temps
+    hot, cold = hot_cold_slots(x["temps"].cpu().numpy())
+    e_part = torch.from_numpy(rng.integers(-300, 100, (d, s, n_blocks)).astype(
+        np.float32)).to(cuda)
+    m_part = torch.from_numpy(rng.integers(-64, 64, (d, s, n_blocks)).astype(
+        np.int32)).to(cuda)
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, (48, d, 2)).astype(
+        np.int32)).to(cuda)
+    dr = pt_draws_pairs(words, n_rep, n_temps - 1, pt_full=pt_full)
+    if not pt_full:
+        dr = (dr[0].to(torch.int32), dr[1])
+    # the spins' energies move with them: other partials at every event
+    parts = [e_part.roll(t, 1) for t in range(48)]
+    out = []
+    for fn in (mega.pt_step, mega.pt_step_plain):
+        st = {k: x[k].clone() for k in ("sid", "ea", "ec", "rtrips", "tstate")}
+        st.update(sys_temps=slot_temps_for_systems(x["sid"], x["slot_temps"]),
+                  e=torch.empty((d, 48, s), device=cuda),
+                  m=torch.empty((d, 48, s), dtype=torch.int32, device=cuda),
+                  parity=1)
+        for t in range(48):
+            draws = tuple(a[t] for a in dr) if not pt_full else dr[t]
+            st["parity"] = fn(
+                parts[t], m_part, st["e"][:, t], st["m"][:, t], st["sid"],
+                st["ea"], st["ec"], st["rtrips"], st["tstate"], x["slot_temps"],
+                draws, st["sys_temps"], do_pt=True, pt_full=pt_full,
+                parity=st["parity"], hot_slot=hot, cold_slot=cold, n_spins=512,
+                n_replicas=n_rep)
+        out.append(st)
+    torch.cuda.synchronize()
+    k, p = out
+    for key in ("sid", "ea", "ec", "rtrips", "tstate", "sys_temps", "e", "m"):
+        assert torch.equal(k[key], p[key]), key
+    assert k["parity"] == p["parity"]
+    assert 0 < int(k["ec"].sum()) < int(k["ea"].sum())
+
+
+def _event_inputs(x, d, n_rep, n_temps, n, kind, wolff, seed):
+    from peapods_tpu_torch.engine import seeds
+
+    keys = np.random.default_rng(seed).integers(0, 2**32, (d, 2), dtype=np.uint64)
+    tasks, tkeys = seeds.overlap_tasks(keys.astype(np.uint32), [seed], n_rep, n_temps)
+    scal, probes = seeds.event_scalars(kind, wolff, tkeys[0], n)
+    dev = x["spins"].device
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return (up(tasks[0]), up(scal.reshape(-1, 6)), up(probes.reshape(-1, 64)),
+            up(tkeys[0].view(np.int32).reshape(-1, 2)))
+
+
+@pytest.mark.parametrize("kind", ["houdayer", "jorg", "cmr"])
+@pytest.mark.parametrize("wolff", [True, False], ids=["wolff", "sw"])
+@pytest.mark.parametrize("shape,d,n_rep,n_temps", [
+    ((8, 8, 8), 8, 4, 24), ((8, 64), 2, 2, 3),
+], ids=["config4", "2d"])
+def test_overlap_event_kernel_matches_plain(cuda, shape, d, n_rep, n_temps, kind,
+                                            wolff):
+    """One move of every task: spins and labels (CMR: grey and blue)
+    bitwise; Houdayer keeps E_a + E_b of every task."""
+    from peapods_tpu_torch.ops import fk, overlap
+    from peapods_tpu_torch.ops.energy import bond_sums
+
+    x = _pair_inputs(cuda, 13, shape, d, n_rep, n_temps)
+    n = int(np.prod(shape))
+    tab = _event_inputs(x, d, n_rep, n_temps, n, kind, wolff, 5)
+    a, b = x["spins"].clone(), x["spins"].clone()
+    for k in overlap.LAUNCHES:
+        overlap.LAUNCHES[k] = 0
+    fk.LAUNCHES["fk_link"] = 0
+    kw = dict(kind=kind, wolff=wolff, shape=shape, with_labels=True)
+    lk = overlap.overlap_event(a, x["sid"], tab[0], x["coup"], x["temps"], *tab[1:], **kw)
+    lp = overlap.overlap_event_plain(b, x["sid"], tab[0], x["coup"], x["temps"],
+                                     *tab[1:], **kw)
+    torch.cuda.synchronize()
+    assert overlap.LAUNCHES["ov_finish"] == 1
+    assert fk.LAUNCHES["fk_link"] == (2 if kind == "cmr" else 1)  # CMR: blue, grey
+    assert torch.equal(a, b)
+    assert torch.equal(lk[0], lp[0])
+    if kind == "cmr":
+        assert torch.equal(lk[1], lp[1])
+    assert not torch.equal(a, x["spins"])
+    if kind == "houdayer":
+        sys, _, _ = overlap.gather_tasks(x["spins"], x["sid"], tab[0], n_temps)
+        di = torch.arange(d, device=cuda)[:, None, None]
+        e0 = bond_sums(x["spins"], x["coup"][:, None], shape)
+        e1 = bond_sums(a, x["coup"][:, None], shape)
+        pair = lambda e: e[di, sys[..., 0]] + e[di, sys[..., 1]]  # noqa: E731
+        assert torch.equal(pair(e0), pair(e1))
+
+
+def test_energy_partials_kernel_matches_plain(cuda):
+    from peapods_tpu_torch.ops import overlap
+
+    for shape in ((8, 8, 8), (16, 16, 16), (8, 64)):
+        x = _pair_inputs(cuda, 17, shape, 4, 4, 6)
+        ek, mk = overlap.energy_partials(x["spins"], x["coup"], shape)
+        ep, mp = overlap.energy_partials_plain(x["spins"], x["coup"], shape)
+        assert torch.equal(ek.sum(-1), ep.sum(-1))  # +-1 sums: exact
+        assert torch.equal(mk.sum(-1), mp.sum(-1))
+
+
+@pytest.mark.parametrize("shape,build,wolff,pt_full", [
+    ((8, 8, 8), "houdayer", True, False), ((8, 8, 8), "jorg+cmr", False, True),
+    ((16, 16, 16), "jorg+cmr", True, True), ((8, 64), "cmr", False, False),
+], ids=["8cube-houdayer", "8cube-jorg+cmr-sw-full", "16cube-jorg+cmr-full",
+        "2d-cmr-sw"])
+def test_replica_sample_on_card_matches_the_cpu(cuda, shape, build, wolff, pt_full):
+    """The replica path's kernels on the card and its plain version on the
+    CPU follow one trajectory (+-J: every energy sum is an exact integer; a
+    decision could differ only at an exp ulp tie, none expected here)."""
+    from peapods_tpu_torch.ops import megapair, overlap
+
+    kw = dict(pt_interval=1, pt_schedule="full_ladder" if pt_full else
+              "single_random_edge", overlap_cluster_update_interval=3,
+              overlap_cluster_build_mode=build,
+              overlap_cluster_mode="wolff" if wolff else "sw")
+    temps = np.geomspace(0.9, 2.2, 4).astype(np.float32)
+    a = Ising(shape, couplings="bimodal", temperatures=temps, n_replicas=4,
+              n_disorder=2, seed=4, device="cuda")
+    c = Ising(shape, couplings="bimodal", temperatures=temps, n_replicas=4,
+              n_disorder=2, seed=4, device="cpu")
+    megapair.LAUNCHES["pair_overlap"] = 0
+    overlap.LAUNCHES["ov_finish"] = 0
+    ra, rc = a.sample(24, **kw), c.sample(24, **kw)
+    assert megapair.LAUNCHES["pair_overlap"] == 24
+    assert overlap.LAUNCHES["ov_finish"] == 8
+    for key in ("spins", "system_ids", "pt_edge_acceptances", "pt_round_trips"):
+        assert torch.equal(a._sim.state[key].cpu(), c._sim.state[key]), key
+    # float64 record sums, reduced in another order on each device
+    for key in ("mags", "mags2", "energies", "energies2", "overlap", "overlap2",
+                "link_overlap", "ql_at_q_sum"):
+        np.testing.assert_allclose(ra[key], rc[key], rtol=1e-12, err_msg=key)
+    np.testing.assert_array_equal(np.asarray(ra["overlap_histogram"]),
+                                  np.asarray(rc["overlap_histogram"]))

@@ -119,7 +119,8 @@ def test_dispatch_and_gate():
 
     assert mega.supports_mega(Lattice((4, 6)), 1)
     assert not mega.supports_mega(Lattice((4, 6)), 2)
-    for bad in ((5, 4), (4, 4, 4), (4,)):
+    assert not mega.supports_mega(Lattice((4, 4, 4)), 1)  # 3D: replica path only
+    for bad in ((5, 4), (4, 4, 5), (4,)):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             Lattice(bad)
     # CPU tensors take the plain version and count no kernel launch

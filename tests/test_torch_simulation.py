@@ -176,14 +176,15 @@ def test_state_converts_both_ways():
     "kwargs",
     [
         dict(cluster_update_interval=1, cluster_action="observe"),
-        dict(overlap_cluster_update_interval=1),
+        dict(overlap_cluster_update_interval=1, overlap_cluster_mode="sw",
+             overlap_cluster_action="observe"),
         dict(autocorrelation_max_lag=4),
         dict(equilibration_diagnostic=True),
     ],
     ids=["cluster", "overlap", "autocorrelation", "equilibration"],
 )
 def test_out_of_slice_sample_options_raise(kwargs):
-    m = Ising((4, 4), temperatures=[2.0], seed=1, device="cpu")
+    m = Ising((4, 4), temperatures=[2.0], n_replicas=2, seed=1, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         m.sample(4, **kwargs)
 
@@ -193,7 +194,7 @@ def test_out_of_slice_sample_options_raise(kwargs):
     [
         dict(lattice_shape=(4, 4, 4)),
         dict(lattice_shape=(5, 4)),
-        dict(lattice_shape=(4, 4), n_replicas=2),
+        dict(lattice_shape=(4, 4, 5), n_replicas=2),
         dict(lattice_shape=(4, 4), geometry="tri"),
     ],
     ids=["3d", "odd", "replicas", "geometry"],
