@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels of ``peapods_tpu_torch`` from the sources in this
-checkout (one nvcc per source, all at once) and drives the port's three
-paths through the user's entry points:
+checkout (one nvcc per source, all at once) and drives the port's paths
+through the user's entry points:
 
 * the mega path: the flagship configuration (256x256, 24 temperatures, PT
   every sweep) through ``IsingSimulation.sample``, each of its kernels
@@ -24,7 +24,16 @@ paths through the user's entry points:
   enumeration with each overlap move; and each kernel (``colour_pass`` in
   3D, ``pair_overlap``, ``pt_step`` on R ladders, ``ov_bonds``,
   ``fk_link``, ``ov_mid``, ``ov_finish``, ``energy_partials``) held against
-  its plain version at both configs' shapes.
+  its plain version at both configs' shapes;
+* the per-sweep path on the coloured lattices: config 2 (32x32 triangular,
+  8 temperatures, Wolff every 2 sweeps) at full width through
+  ``Ising.sample`` twice from one seed, its Wolff <e> against Metropolis
+  with PT; short runs of the 3D cubic (32^3, SW + PT), BCC and FCC (16^3,
+  PT) and next-nearest-neighbour (64^2) paths; a 4x4 triangular magnet
+  against exact enumeration; ``sweep_nb`` and ``measure_nb`` against their
+  plain versions at each path's shape, the FK kernels with three bond
+  directions at config 2 and 32^3, and ``sweep_2d`` at 32^2 x 16 (the TPU's
+  narrow-lattice sweep).
 
 Each path's launch counts are zeroed just before its main run and read just
 after.  Every phase prints lines; any failure raises and the script exits
@@ -476,17 +485,21 @@ def plain_path_rate(sim, n):
 
 
 def reset_cluster_counts():
-    from peapods_tpu_torch.ops import fk, mega, sweep
+    from peapods_tpu_torch.ops import energy, fk, mega, sweep
 
-    for table in (sweep.LAUNCHES, fk.LAUNCHES, mega.LAUNCHES):
+    for table in (sweep.LAUNCHES, fk.LAUNCHES, mega.LAUNCHES, energy.LAUNCHES):
         for k in table:
             table[k] = 0
 
 
 def cluster_counts():
-    from peapods_tpu_torch.ops import fk, mega, sweep
+    """The per-sweep path's launches since the last reset, the kernels that
+    ran."""
+    from peapods_tpu_torch.ops import energy, fk, mega, sweep
 
-    return {**sweep.LAUNCHES, **fk.LAUNCHES, "pt_step": mega.LAUNCHES["pt_step"]}
+    counts = {**sweep.LAUNCHES, **fk.LAUNCHES, **energy.LAUNCHES,
+              "pt_step": mega.LAUNCHES["pt_step"]}
+    return {k: v for k, v in counts.items() if v}
 
 
 def batch_mean_energy(model, kw, n_batches=16, n_sweeps=256):
@@ -688,49 +701,50 @@ def fk_inputs(model, dev, rng, wolff):
 
     sim = model._sim
     rt, st = sim.rt, sim.state
-    h, w = rt.lattice.shape
     b = rt.n_disorder * rt.n_systems
     kf = rng.integers(0, 2**32, (b, 2), dtype=np.uint64).astype(np.uint32)
     return dict(
-        spins=st["spins"].view(b, h, w).clone(),
+        spins=st["spins"].view(b, *rt.lattice.shape).clone(),
         j_fwd=rt.coup,
         temps=slot_temps_for_systems(st["system_ids"].view(rt.n_disorder, -1),
                                      rt.temps).view(-1).contiguous(),
-        scalars=torch.from_numpy(seeds.fk_scalars(kf, h * w, wolff=wolff)).to(dev),
+        scalars=torch.from_numpy(seeds.fk_scalars(kf, rt.n_spins, wolff=wolff)).to(dev),
         kb_words=torch.from_numpy(
             rng.integers(-2**31, 2**31, (b, 2)).astype(np.int32)).to(dev))
 
 
-def check_fk(models, dev, rng, card):
+def check_fk(models, dev, rng, card, phase="8 kernel-vs-plain"):
     """The FK kernels against their plain version on equilibrated states of
-    config 3 (one 256^2 graph at T_c) and of the harness (2048 64^2 graphs),
-    SW and Wolff with labels: spins, labels, m and e must be equal.  Then
-    the plain versions' times and the bounds at both shapes."""
+    the models (config 3: one 256^2 graph at T_c; the harness: 2048 64^2
+    graphs; config 2: 8 triangular 32^2 graphs; 32^3 cubic x 16), SW and
+    Wolff with labels: spins, labels, m and e must be equal.  Then the plain
+    versions' times and the bounds at each shape."""
     from peapods_tpu_torch.ops import fk
 
     max_err = 0.0
     for name, model in models.items():
         for wolff in (False, True):
             x = fk_inputs(model, dev, rng, wolff)
-            b, h, w = x["spins"].shape
+            b, shape = x["spins"].shape[0], tuple(x["spins"].shape[1:])
+            n = int(np.prod(shape))
             a, p = x["spins"], x["spins"].clone()
             args = (x["j_fwd"], x["temps"], x["scalars"], x["kb_words"])
             kw = dict(wolff=wolff, with_measure=True, with_labels=True)
             ek, mk, lk = fk.fk_update(a, *args, **kw)
             ep, mp, lp = fk.fk_update_plain(p, *args, **kw)
             torch.cuda.synchronize()
-            e_k, m_k = fk.fk_energy_mag(ek, mk, h * w)
-            e_p, m_p = fk.fk_energy_mag(ep, mp, h * w)
+            e_k, m_k = fk.fk_energy_mag(ek, mk, n)
+            e_p, m_p = fk.fk_energy_mag(ep, mp, n)
             bad = {"spins": int((a != p).sum()), "labels": int((lk != lp).sum()),
                    "m": int((m_k != m_p).sum()), "e": int((e_k != e_p).sum())}
             err = float((e_k - e_p).abs().max())
-            n_clusters = int((lk.view(b, -1) == torch.arange(
-                h * w, device=dev)).sum())
-            largest = int(torch.bincount(lk.view(-1).long() + (h * w) * torch.arange(
-                b, device=dev).repeat_interleave(h * w)).max())
-            log("8 kernel-vs-plain",
+            n_clusters = int((lk.view(b, -1) == torch.arange(n, device=dev)).sum())
+            largest = int(torch.bincount(lk.view(-1).long() + n * torch.arange(
+                b, device=dev).repeat_interleave(n)).max())
+            log(phase,
                 f"fk {'wolff' if wolff else 'sw'} on {name} ({b} graph(s) of "
-                f"{h}x{w}): mismatches {bad}; {n_clusters} clusters, largest "
+                f"{'x'.join(map(str, shape))}, {x['j_fwd'].shape[-1]} bond "
+                f"directions): mismatches {bad}; {n_clusters} clusters, largest "
                 f"{largest} sites; max |e_kernel - e_plain| = {err}")
             if any(bad.values()):
                 raise AssertionError(f"fk kernels differ from plain: {bad}")
@@ -739,32 +753,32 @@ def check_fk(models, dev, rng, card):
     times = {}
     for name, model in models.items():
         x = fk_inputs(model, dev, rng, False)
-        b, h, w = x["spins"].shape
-        n = h * w
-        d = x["j_fwd"].shape[0]
+        b, shape = x["spins"].shape[0], tuple(x["spins"].shape[1:])
+        n = int(np.prod(shape))
+        d, n_dirs = x["j_fwd"].shape[0], x["j_fwd"].shape[-1]
         sp = x["spins"]
         # the plain version of each kernel, on the same state
         bd = fk.fk_bonds_plain(sp, x["j_fwd"], x["temps"], x["kb_words"])
-        lab = fk.fk_link_plain(bd, (h, w))
+        lab = fk.fk_link_plain(bd, shape)
         plain = {
             "fk_bonds": wall_ms(lambda: fk.fk_bonds_plain(
                 sp, x["j_fwd"], x["temps"], x["kb_words"]), 3),
-            "fk_link": wall_ms(lambda: fk.fk_link_plain(bd, (h, w)), 3),
+            "fk_link": wall_ms(lambda: fk.fk_link_plain(bd, shape), 3),
             "fk_finish": wall_ms(lambda: fk.fk_finish_plain(
                 sp.clone(), lab, x["j_fwd"], x["scalars"], wolff=False,
                 with_measure=True), 3),
         }
         # the components a union-find must join on this state
         n_comp = int((lab == torch.arange(n, device=dev)).sum())
-        cb = 8 * d * n  # the realizations' couplings
+        cb = 4 * n_dirs * d * n  # the realizations' couplings
         t = {
             # spins, couplings, temps, kb in; state, parents out
-            "fk_bonds": bound(b * n + cb + 12 * b + 5 * b * n, 16 * b * n),
+            "fk_bonds": bound(b * n + cb + 12 * b + 5 * b * n, 8 * n_dirs * b * n),
             # state and parents in; a parent written per union
             "fk_link": bound(5 * b * n + 4 * (b * n - n_comp), 0),
             # spins, state, parents, couplings, scalars in; spins, partials out
             "fk_finish": bound(6 * b * n + cb + 12 * b + b * n
-                               + 8 * b * ((n + 255) // 256), 4 * b * n),
+                               + 8 * b * ((n + 255) // 256), 2 * n_dirs * b * n),
         }
         for k, v in t.items():
             times.setdefault(k, {})[name] = dict(bound_ms=v[0], bound_by=v[1],
@@ -773,7 +787,7 @@ def check_fk(models, dev, rng, card):
             for k, v in times.items()}
 
 
-def check_pt_step_per_sweep(models, dev):
+def check_pt_step_per_sweep(models, dev, phase="8 kernel-vs-plain"):
     """``pt_step`` against its plain version at the per-sweep path's shapes:
     on each model's state, the FK kernels' partials by system and the
     reference's jnp-form draws of the model's keys (single edge and full
@@ -814,7 +828,7 @@ def check_pt_step_per_sweep(models, dev):
                 e_part, m_part, sid, rt.temps, draws, do_pt=do_pt,
                 pt_full=pt_full, n_spins=rt.n_spins, label=label)
             max_err = max(max_err, err)
-            log("8 kernel-vs-plain", f"pt_step ok ({label}; {d} x {n_sys} slots, "
+            log(phase, f"pt_step ok ({label}; {d} x {n_sys} slots, "
                 f"{e_part.shape[2]} partials each): {n_events} events bitwise "
                 f"(rows, sid, counters, trip state, system temperatures), {acc} "
                 f"of {att} swaps accepted")
@@ -848,14 +862,14 @@ def exact_4x4_cluster(dev):
             f"{m4.mags2[0]:.5f} (exact {m2_ex:.5f}) ok")
 
 
-def profile_window(model, kw, sweeps_s, n):
+def profile_window(model, kw, sweeps_s, n,
+                   names=("sweep_2d", "fk_bonds", "fk_link", "fk_finish", "pt_step")):
     """Device time of each kernel of the per-sweep path over ``n`` sweeps of
     a model's main-path run, from the profiler's kernel records: per launch
     and per sweep, and the share of the unprofiled wall time per sweep that
     the device is busy."""
     from torch.profiler import ProfilerActivity, profile
 
-    names = ("sweep_2d", "fk_bonds", "fk_link", "fk_finish", "pt_step")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         model.sample(n, "metropolis", **dict(kw, warmup_ratio=0.0))
@@ -1436,6 +1450,449 @@ def pair_profile(run, n, card, name):
     return per_launch
 
 
+# ------------------------------------------------ the coloured lattices
+
+
+NNN = [[1, 0], [0, 1], [1, 1], [1, -1]]
+# config 2 at full width (benchmarks/driver_configs.py:50-59): 8 systems of
+# 32 x 32 triangular, Metropolis, Wolff every 2 sweeps, no PT
+CONFIG2 = dict(shape=(32, 32), geometry="triangular", t=(3.0, 4.4), n_temps=8,
+               seed=2, sweeps=8192,
+               kw=dict(cluster_update_interval=2, cluster_mode="wolff"))
+# the per-sweep path's other lattices, cut in depth (each TPU kernel the
+# reference runs there): 3D cubic with one replica near T_c = 4.5115 (SW
+# and PT every sweep), BCC (T_c ~ 6.35) and FCC (T_c ~ 9.79) with PT, and
+# the next-nearest-neighbour square table (T_c ~ 5.26), Metropolis only
+NB_PATHS = {
+    "cubic32": dict(shape=(32, 32, 32), geometry=None, t=(4.0, 5.0), n_temps=16,
+                    seed=6, sweeps=256, kw=dict(cluster_update_interval=1,
+                                                cluster_mode="sw", pt_interval=1),
+                    replaces="peapods_tpu/ops/pallas_sweep3d.py:306",
+                    measure_replaces="peapods_tpu/ops/pallas_sweep3d.py:393"),
+    "bcc16": dict(shape=(16, 16, 16), geometry="bcc", t=(5.5, 7.5), n_temps=8,
+                  seed=7, sweeps=256, kw=dict(pt_interval=1),
+                  replaces="peapods_tpu/ops/pallas_sweep_diag.py:445",
+                  measure_replaces="peapods_tpu/ops/pallas_sweep_diag.py:470"),
+    "fcc16": dict(shape=(16, 16, 16), geometry="fcc", t=(8.5, 11.0), n_temps=8,
+                  seed=8, sweeps=256, kw=dict(pt_interval=1),
+                  replaces="peapods_tpu/ops/pallas_sweep_diag.py:445",
+                  measure_replaces="peapods_tpu/ops/pallas_sweep_diag.py:470"),
+    "nnn64": dict(shape=(64, 64), geometry=NNN, t=(4.5, 6.0), n_temps=8, seed=9,
+                  sweeps=256, kw={},
+                  replaces="peapods_tpu/ops/pallas_sweep_diag.py:540",
+                  measure_replaces="peapods_tpu/ops/pallas_sweep_diag.py:562"),
+}
+NB_SRC = "peapods_tpu_torch/csrc/sweep_nb.cu"
+TRI_REPLACES = "peapods_tpu/ops/pallas_sweep_tri.py:338"  # sweep_tri_packed (W < 128)
+TRI_MEASURE_REPLACES = "peapods_tpu/ops/pallas_sweep_tri.py:238"  # sweep_tri_fused
+
+
+def nb_model(c, dev, seed=None):
+    from peapods_tpu_torch import Ising
+
+    geo = c["geometry"]
+    kw = (dict(geometry=geo) if isinstance(geo, str)
+          else dict(neighbor_offsets=geo) if geo is not None else {})
+    return Ising(c["shape"], temperatures=np.geomspace(*c["t"], c["n_temps"]),
+                 seed=c["seed"] if seed is None else seed, device=dev, **kw)
+
+
+def nb_want(model, kw, n):
+    """Launches of ``n`` sweeps from sweep 0 on a coloured lattice: a
+    ``sweep_nb`` launch per colour, then the FK kernels on cluster sweeps or
+    ``measure_nb`` on the others, and one ``pt_step``."""
+    n_col = model._sim.rt.lattice.n_colors
+    k = kw.get("cluster_update_interval")
+    n_fk = len(range(0, n, k)) if k else 0
+    want = {"sweep_nb": n_col * n, "measure_nb": n - n_fk, "pt_step": n}
+    want.update({f: n_fk for f in ("fk_bonds", "fk_link", "fk_finish")})
+    return {key: v for key, v in want.items() if v}
+
+
+def batch_means(model, kw, n_batches, n_sweeps):
+    """Mean energy per spin at each temperature and its standard error over
+    batches of consecutive sample() calls."""
+    e = []
+    for _ in range(n_batches):
+        model.sample(n_sweeps, "metropolis", **dict(kw, warmup_ratio=0.0))
+        e.append(np.asarray(model.energies_avg, np.float64))
+    e = np.array(e)
+    return e.mean(0), e.std(0, ddof=1) / np.sqrt(n_batches)
+
+
+def config2(dev, card):
+    """Config 2 through Ising.sample at full width: launch counts, two equal
+    checksums, sanity, the rate (median of three warm calls), and Wolff's
+    <e> per temperature against a Metropolis-only run (with PT) of the same
+    model."""
+    c = CONFIG2
+    n, kw = c["sweeps"], dict(c["kw"], warmup_ratio=0.0)
+    checks, models = [], []
+    for run in range(2):
+        model = nb_model(c, dev)
+        torch.cuda.synchronize()
+        reset_cluster_counts()
+        result = model.sample(n, "metropolis", **kw)
+        torch.cuda.synchronize()
+        if run == 0:
+            launches = cluster_counts()
+            r0 = result
+        checks.append(state_checksum(model._sim, result))
+        models.append(model)
+    want = nb_want(models[0], kw, n)
+    if launches != want:
+        raise AssertionError(f"config 2 launch counts {launches}, expected {want}")
+    if checks[0] != checks[1]:
+        raise AssertionError(f"config 2 checksums differ: {checks}")
+    e, m2 = r0["energies"], r0["mags2"]
+    sane = {"finite": bool(np.isfinite(e).all() and np.isfinite(m2).all()),
+            "<e> falls with T": bool(e[0] > e[-1]),
+            "<m2> falls with T": bool(m2[0] > m2[-1]),
+            "<e> in (0, 3]": bool(((e > 0) & (e <= 3)).all())}
+    if not all(sane.values()):
+        raise AssertionError(f"config 2 sanity: {sane}")
+    per_sweep = {k: v / n for k, v in launches.items()}
+    shape = "x".join(map(str, c["shape"]))
+    log("15 config-2", f"{shape} triangular, {c['n_temps']} temps geomspace{c['t']}, "
+        f"Wolff every 2 sweeps, {n} sweeps on {dev}: launches {launches} "
+        f"({per_sweep} per sweep); checksum {checks[0]} == {checks[1]}; sanity ok: "
+        f"{', '.join(sane)}")
+    log("15 config-2", f"<e> {np.round(e, 5).tolist()}; <m2> {np.round(m2, 5).tolist()}")
+    sweeps_s, rates = warm_rate(models[1], n, c["kw"])
+    log("15 config-2", f"kernel path: {sweeps_s:.1f} sweeps/s = "
+        f"{sweeps_s * c['n_temps'] * np.prod(c['shape']):.4e} flips/s (single-spin "
+        "attempts) on "
+        f"{card} (median of {', '.join(f'{r:.1f}' for r in rates)} sweeps/s)")
+
+    # Wolff against Metropolis with PT every sweep, batch means per T
+    e_w, se_w = batch_means(models[0], c["kw"], 16, 512)
+    metro = nb_model(c, dev)
+    kw_m = dict(pt_interval=1)
+    metro.sample(2048, "metropolis", **dict(kw_m, warmup_ratio=0.0))
+    e_m, se_m = batch_means(metro, kw_m, 16, 1024)
+    z = (e_w - e_m) / np.hypot(se_w, se_m)
+    if not (np.abs(z) < 4).all():
+        raise AssertionError(f"config 2 Wolff <e> {e_w} against Metropolis {e_m}: "
+                             f"z = {z}")
+    log("15 config-2", f"Wolff <e> against Metropolis + PT (16 batches of 512 / 1024 "
+        f"sweeps) per T: |z| <= {np.abs(z).max():.3f} (limit 4) ok; Wolff "
+        f"{np.round(e_w, 5).tolist()} +- {np.round(se_w, 5).tolist()}, Metropolis "
+        f"{np.round(e_m, 5).tolist()} +- {np.round(se_m, 5).tolist()}")
+    return dict(model=models[1], sweeps_s=sweeps_s, launches=launches, kw=c["kw"])
+
+
+def nb_inputs(dev, rng, c, couplings):
+    """A coloured lattice's sweep inputs at a path's shape (``c``: an entry of
+    ``NB_CHECKS``): couplings and their backward twins [1, n, n_nb], the
+    colour table, spins [1, S, n], temperatures in the path's range, and key
+    words."""
+    from peapods_tpu_torch.ops.lattice import GEOMETRY_OFFSETS, Lattice
+
+    geometry, n_sys = c["geometry"], c["n_temps"]
+    offsets = GEOMETRY_OFFSETS[geometry] if isinstance(geometry, str) else geometry
+    lat = Lattice(c["shape"], offsets)
+    n, nb = lat.n_spins, lat.n_neighbors
+    coup = (rng.choice([-1.0, 1.0], size=(1, n, nb)) if couplings == "pm"
+            else rng.standard_normal((1, n, nb))).astype(np.float32)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return lat, dict(
+        spins=up(rng.choice([-1, 1], size=(1, n_sys, n)).astype(np.int8)),
+        coup=up(coup), coup_bwd=up(coup[:, lat.bwd, np.arange(nb)[None, :]]),
+        colours=up(lat.colors.astype(np.uint8)),
+        sys_temps=up(rng.uniform(*c["t"], (1, n_sys)).astype(np.float32)),
+        words=up(rng.integers(-2**31, 2**31, (1, 2)).astype(np.int32)))
+
+
+def nb_pass_ties(lat, x, s, colour, gibbs):
+    """Sites of one colour pass whose decision lies within TIE_ULPS ulp of
+    its threshold on the pass's input: bool [1, S, n]."""
+    from peapods_tpu_torch.ops.rng import site_uniforms
+    from peapods_tpu_torch.ops.sweep import acceptance, nb_local_fields
+
+    sf = s.float()
+    eng = -sf * nb_local_fields(sf, x["coup"][:, None], x["coup_bwd"][:, None], lat)
+    u = site_uniforms(x["words"], s.shape[1], colour, lat.n_spins)
+    t = x["sys_temps"][..., None]
+    if gibbs:
+        a, b = eng, (t * 0.5) * torch.log(u / (1.0 - u))
+    else:
+        a, b = u, acceptance(eng * (1.0 / (t * 0.5)), gibbs=False)
+    ulp = (torch.nextafter(b, torch.full_like(b, np.inf)) - b).abs()
+    return ((a - b).abs() <= TIE_ULPS * ulp) & (x["colours"] == colour)
+
+
+# the shapes at which sweep_nb and measure_nb are checked: each path's
+NB_CHECKS = {"config2": CONFIG2, **NB_PATHS}
+
+
+def check_nb_kernels(dev, rng):
+    """sweep_nb and measure_nb against their plain versions at the main
+    paths' shapes, +-1 and gaussian couplings, Metropolis and Gibbs: each
+    colour pass alone (a colour table that hides the other colours), spins
+    equal apart from counted ulp ties; (e, m) partial sums bitwise for +-1,
+    within E_SUM_TOL sum |J| for gaussian couplings.  Then the per-launch
+    times (CUDA events), the plain versions' times and the bounds."""
+    from peapods_tpu_torch.ops import energy, sweep
+
+    out = {}
+    for name, c in NB_CHECKS.items():
+        shape, n_sys = c["shape"], c["n_temps"]
+        rec_s = dict(max_abs_err=0.0, ulp_ties=0, decisions=0)
+        rec_m = dict(max_abs_err=0.0)
+        for couplings in ("pm", "gauss"):
+            lat, x = nb_inputs(dev, rng, c, couplings)
+            n = lat.n_spins
+            s = x["spins"]
+            for gibbs in (False, True):
+                for colour in range(lat.n_colors):
+                    only = torch.where(x["colours"] == colour, x["colours"],
+                                       torch.full_like(x["colours"], 255))
+                    tie = nb_pass_ties(lat, x, s, colour, gibbs)
+                    a, b = s.clone(), s.clone()
+                    args = (x["coup"], x["coup_bwd"], only, x["sys_temps"], x["words"],
+                            lat)
+                    sweep.sweep_nb(a, *args, gibbs=gibbs)
+                    sweep.sweep_nb_plain(b, *args, gibbs=gibbs)
+                    torch.cuda.synchronize()
+                    diff = a != b
+                    if (diff & ~tie).any():
+                        raise AssertionError(
+                            f"sweep_nb on {name} ({couplings}, gibbs={gibbs}, colour "
+                            f"{colour}): {int((diff & ~tie).sum())} spins differ away "
+                            "from ulp ties")
+                    rec_s["ulp_ties"] += int((diff & tie).sum())
+                    rec_s["decisions"] += int((x["colours"] == colour).sum()) * n_sys
+                    rec_s["max_abs_err"] = max(rec_s["max_abs_err"],
+                                               float((a.float() - b.float()).abs().max()))
+                    s = b  # the next pass starts from the plain output
+                ek, mk = energy.measure_nb(s, x["coup"], lat)
+                ep, mp = energy.measure_nb_plain(s, x["coup"], lat)
+                torch.cuda.synchronize()
+                if not torch.equal(mk.sum(-1), mp.sum(-1)):
+                    raise AssertionError(f"measure_nb on {name}: m differs")
+                de = (ek.double().sum(-1) - ep.double().sum(-1)).abs()
+                lim = E_SUM_TOL * x["coup"].double().abs().sum()
+                if (couplings == "pm" and float(de.max())) or float(de.max()) > lim:
+                    raise AssertionError(f"measure_nb on {name} ({couplings}): e "
+                                         f"differs by {float(de.max())} (limit {lim})")
+                rec_m["max_abs_err"] = max(rec_m["max_abs_err"], float(de.max()) / n)
+            if couplings == "pm":
+                pm_inputs = (lat, x)
+        if rec_s["ulp_ties"] > MAX_TIE_SHARE * rec_s["decisions"]:
+            raise AssertionError(f"sweep_nb on {name}: {rec_s['ulp_ties']} ulp ties in "
+                                 f"{rec_s['decisions']} decisions")
+        log("17 kernel-vs-plain", f"sweep_nb ok on {name} ({'x'.join(map(str, shape))}"
+            f" x {n_sys} systems, {lat.n_colors} colours, +-1 and gaussian, "
+            f"Metropolis and Gibbs): {rec_s['decisions']} decisions, 0 differ but "
+            f"{rec_s['ulp_ties']} ulp ties; measure_nb ok: m exact, e bitwise (+-1), max "
+            f"|e_kernel - e_plain| per spin {rec_m['max_abs_err']} (gaussian, limit "
+            f"{E_SUM_TOL} sum |J|)")
+        # times at this shape: one colour per launch
+        lat, x = pm_inputs
+        nc, nb, n = lat.n_colors, lat.n_neighbors, lat.n_spins
+        sp = x["spins"].clone()
+        args = (x["coup"], x["coup_bwd"], x["colours"], x["sys_temps"], x["words"], lat)
+        rec_s["ms"] = gpu_ms(lambda: sweep.sweep_nb(sp, *args, gibbs=False), 50) / nc
+        rec_s["plain_ms"] = wall_ms(
+            lambda: sweep.sweep_nb_plain(sp, *args, gibbs=False), 3) / nc
+        rec_m["ms"] = gpu_ms(lambda: energy.measure_nb(sp, x["coup"], lat), 50)
+        rec_m["plain_ms"] = wall_ms(lambda: energy.measure_nb_plain(sp, x["coup"], lat), 5)
+        sys_sites = n_sys * n
+        active = sys_sites // nc
+        # a pass: every spin (the neighbours), the active sites' forward and
+        # backward couplings, the colour table in; the active spins out;
+        # 4 n_nb + ~20 f32 operations per active site
+        rec_s["bound_ms"], rec_s["bound_by"] = bound(
+            sys_sites + 8 * nb * n // nc + n + 4 * n_sys + 8 + active,
+            (4 * nb + 20) * active)
+        # spins and forward couplings in, the partials out; 3 n_nb per site
+        n_blocks = ((n + 3) // 4 + 255) // 256
+        rec_m["bound_ms"], rec_m["bound_by"] = bound(
+            sys_sites + 4 * nb * n + 8 * n_sys * n_blocks, 3 * nb * sys_sites)
+        out[name] = dict(sweep_nb=rec_s, measure_nb=rec_m)
+    return out
+
+
+def check_sweep_2d_row4(dev, rng, card):
+    """Row 4 (sweep_2d_packed, the TPU's square sweep for W < 128) is the
+    function of sweep_2d at any width: sweep_2d against its plain version at
+    32 x 32 x 16 systems, its time there, and its launches per sweep on a
+    32^2 Ising run with a cluster phase."""
+    from peapods_tpu_torch import Ising
+    from peapods_tpu_torch.ops import sweep
+    from peapods_tpu_torch.ops.sweep import pack_coupling_grids
+
+    h = w = 32
+    n_sys = 16
+    coup = rng.choice([-1.0, 1.0], size=(1, h * w, 2)).astype(np.float32)
+    jg = pack_coupling_grids(torch.from_numpy(coup), (h, w)).contiguous().to(dev)
+    temps = torch.from_numpy(np.geomspace(1.8, 3.2, n_sys).astype(np.float32)[None]).to(dev)
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, (1, 2)).astype(np.int32)).to(dev)
+    s0 = torch.from_numpy(rng.choice([-1, 1], size=(1, n_sys, h, w)).astype(np.int8)).to(dev)
+    a, b = s0.clone(), s0.clone()
+    for gibbs in (False, True):
+        for _ in range(2):
+            pk = sweep.sweep_2d(a, jg, temps, words, gibbs=gibbs, measure=True)
+            pp = sweep.sweep_2d_plain(b, jg, temps, words, gibbs=gibbs, measure=True)
+            torch.cuda.synchronize()
+            if not (torch.equal(a, b) and torch.equal(pk[0].sum(-1), pp[0].sum(-1))
+                    and torch.equal(pk[1].sum(-1), pp[1].sum(-1))):
+                raise AssertionError(f"sweep_2d at 32x32 x 16 (gibbs={gibbs}) differs")
+            words = words * 3 + 1
+    ms = gpu_ms(lambda: sweep.sweep_2d(a, jg, temps, words, gibbs=False), 100) / 2
+    plain = wall_ms(lambda: sweep.sweep_2d_plain(b, jg, temps, words, gibbs=False), 10) / 2
+    n = n_sys * h * w
+    bms, by = bound(n + 16 * h * w + n // 2, 20 * n // 2)
+    model = Ising((h, w), temperatures=np.geomspace(1.8, 3.2, n_sys), seed=4, device=dev)
+    reset_cluster_counts()
+    model.sample(256, "metropolis", cluster_update_interval=1, cluster_mode="wolff",
+                 warmup_ratio=0.0)
+    torch.cuda.synchronize()
+    launches = cluster_counts()["sweep_2d"]
+    if launches != 512:
+        raise AssertionError(f"32^2 Wolff run: {launches} sweep_2d launches, expected 512")
+    log("17 kernel-vs-plain", f"row 4: sweep_2d ok at 32x32 x {n_sys} systems "
+        f"(Metropolis and Gibbs, 4 sweeps, spins and (e, m) bitwise); "
+        f"{ms:.5f} ms a launch (bound {bms:.5f} ms by {by}, plain {plain:.4f} ms), "
+        f"{launches / 256:.0f} launches a sweep on a 32^2 x 16 Wolff run, on {card}")
+    return dict(shape="32x32 x 16 systems", replaces="peapods_tpu/ops/pallas_sweep.py:847",
+                max_abs_err=0.0, ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by,
+                launches=launches)
+
+
+def exact_tri_4x4(dev):
+    """The 4x4 triangular ferromagnet against exact enumeration, Metropolis
+    and Wolff every sweep (8 chains of 4000 sweeps each)."""
+    from peapods_tpu_torch import Ising
+    from peapods_tpu_torch.ops.lattice import GEOMETRY_OFFSETS, Lattice
+
+    T = 4.0
+    lat = Lattice((4, 4), GEOMETRY_OFFSETS["triangular"])
+    n = lat.n_spins
+    states = (((np.arange(2**n)[:, None] >> np.arange(n)[None, :]) & 1) * 2 - 1)
+    E = (states[:, np.repeat(np.arange(n), 3)] * states[:, lat.fwd.reshape(-1)]).sum(1)
+    E = E.astype(np.float64)
+    M = states.sum(1).astype(np.float64)
+    w = np.exp((E - E.max()) / T)
+    e_ex = (E * w).sum() / w.sum() / n
+    m2_ex = ((M / n) ** 2 * w).sum() / w.sum()
+    for name, kw in (("metropolis", {}),
+                     ("wolff", dict(cluster_update_interval=1, cluster_mode="wolff"))):
+        m = Ising((4, 4), geometry="triangular", temperatures=np.array([T], np.float32),
+                  n_disorder=8, seed=11, device=dev)
+        m.sample(4000, warmup_ratio=0.25, **kw)
+        de, dm2 = abs(m.energies_avg[0] - e_ex), abs(m.mags2[0] - m2_ex)
+        if not (de < 0.05 and dm2 < 0.06):
+            raise AssertionError(f"4x4 triangular exact ({name}): |dE| {de}, |dm2| {dm2}")
+        log("18 physics", f"4x4 triangular T={T} {name}, 8 chains x 4000 sweeps on {dev}: "
+            f"<E> {m.energies_avg[0]:.5f} (exact {e_ex:.5f}), <m2> {m.mags2[0]:.5f} "
+            f"(exact {m2_ex:.5f}) ok (tolerances 0.05, 0.06)")
+
+
+def nb_path(name, dev, card):
+    """A second path on a coloured lattice through Ising.sample: launch
+    counts (zeroed just before, read just after), sanity, a checksum, and
+    the rate of a second, warm call."""
+    c = NB_PATHS[name]
+    n = c["sweeps"]
+    kw = dict(c["kw"], warmup_ratio=0.0)
+    model = nb_model(c, dev)
+    torch.cuda.synchronize()
+    reset_cluster_counts()
+    result = model.sample(n, "metropolis", **kw)
+    torch.cuda.synchronize()
+    launches = cluster_counts()
+    want = nb_want(model, kw, n)
+    if launches != want:
+        raise AssertionError(f"{name} launch counts {launches}, expected {want}")
+    e = result["energies"]
+    if not (np.isfinite(e).all() and e[0] > e[-1]):
+        raise AssertionError(f"{name} sanity: energies {e}")
+    check = state_checksum(model._sim, result)
+    sweeps_s, _ = warm_rate(model, n, c["kw"], calls=1)
+    n_sites = int(np.prod(c["shape"]))
+    log("16 paths", f"{name}: {'x'.join(map(str, c['shape']))} x {c['n_temps']} temps "
+        f"geomspace{c['t']}, {c['kw'] or 'Metropolis'}, {n} sweeps on {dev}: launches "
+        f"{launches}; checksum {check}; <e>[0,-1] {e[0]:.5f}, {e[-1]:.5f}; "
+        f"{sweeps_s:.1f} sweeps/s = {sweeps_s * n_sites * c['n_temps']:.4e} flips/s "
+        f"on {card}")
+    return dict(model=model, launches=launches, sweeps_s=sweeps_s, checksum=check)
+
+
+def coloured_paths(dev, card):
+    """Phases 15-19: config 2 at full width, then the 3D cubic, BCC, FCC and
+    next-nearest-neighbour paths, every kernel of them against its plain
+    version, row 4's sweep_2d at 32^2, the 4x4 triangular exact check, and
+    per-launch device times over main-path windows."""
+    c2 = config2(dev, card)
+    nb_runs = {name: nb_path(name, dev, card) for name in NB_PATHS}
+    rng = np.random.default_rng(2027)
+    nbk = check_nb_kernels(dev, rng)
+    row4 = check_sweep_2d_row4(dev, rng, card)
+    fk_models = {"config2": c2["model"], "cubic32": nb_runs["cubic32"]["model"]}
+    fk_nb = check_fk(fk_models, dev, rng, card, phase="17 kernel-vs-plain")
+    pt_nb = check_pt_step_per_sweep(fk_models, dev, phase="17 kernel-vs-plain")
+    exact_tri_4x4(dev)
+    # per-launch device times over main-path windows
+    windows = {"config2": (c2, CONFIG2["kw"], 512),
+               **{k: (v, NB_PATHS[k]["kw"], 32 if k == "cubic32" else 64)
+                  for k, v in nb_runs.items()}}
+    nb_us = {}
+    for name, (run, kw, n_win) in windows.items():
+        nb_us[name], line = profile_window(run["model"], kw, run["sweeps_s"], n_win,
+                                           names=tuple(run["launches"]))
+        log("19 times", f"{name} {line} (on {card})")
+    for name, (run, _, _) in windows.items():
+        parts = []
+        for k, v in nb_us[name].items():
+            # the bound and plain time of the kernel at this path's shape
+            rec = (nbk[name].get(k) or fk_nb.get(k, {}).get("shapes", {}).get(name)
+                   or (pt_nb.get(name) if k == "pt_step" else None))
+            per_sweep = run["launches"][k] / run["launches"]["pt_step"]
+            parts.append(f"{k} {v / 1e3:.5f} ms x {per_sweep:g} a sweep" + (
+                f" (bound {rec['bound_ms']:.5f} ms by {rec['bound_by']}, plain "
+                f"{rec['plain_ms']:.4f} ms)" if rec else ""))
+        log("19 times", f"{name} per launch: " + "; ".join(parts) + f" on {card}")
+
+    return dict(c2=c2, nb_runs=nb_runs, nbk=nbk, row4=row4, fk_models=fk_models,
+                fk_nb=fk_nb, pt_nb=pt_nb, windows=windows, nb_us=nb_us)
+
+
+def add_nb_records(kernels, nb):
+    """Add the coloured lattices' numbers to the kernel records: sweep_nb and
+    measure_nb (config 2, the other paths beside it), the FK kernels and
+    pt_step at config 2 and 32^3, and sweep_2d at 32^2 (row 4)."""
+    c2, nb_runs, nbk, fk_nb, pt_nb = (nb[k] for k in ("c2", "nb_runs", "nbk", "fk_nb",
+                                                       "pt_nb"))
+    windows, nb_us = nb["windows"], nb["nb_us"]
+    fk_replaces = "peapods_tpu/ops/pallas_event.py:621"
+    by_name = {kr["name"]: kr for kr in kernels}
+    for k in ("fk_bonds", "fk_link", "fk_finish"):
+        for name in nb["fk_models"]:
+            by_name[k][f"at_{name}"] = dict(
+                fk_nb[k]["shapes"][name], max_abs_err=fk_nb[k]["max_abs_err"],
+                ms=nb_us[name][k] / 1e3, launches=windows[name][0]["launches"][k],
+                replaces=f"{fk_replaces} (tri=True)" if name == "config2" else fk_replaces)
+    for name in nb["fk_models"]:
+        by_name["pt_step"][f"at_{name}"] = dict(
+            pt_nb[name], ms=nb_us[name]["pt_step"] / 1e3,
+            launches=windows[name][0]["launches"]["pt_step"])
+    by_name["sweep_2d"]["at_32x32"] = nb["row4"]
+    for k, rep in (("sweep_nb", TRI_REPLACES), ("measure_nb", TRI_MEASURE_REPLACES)):
+        rec = dict(nbk["config2"][k], ms_events=nbk["config2"][k]["ms"],
+                   ms=nb_us["config2"][k] / 1e3)
+        kr = dict(name=k, route="cuda", source=NB_SRC, replaces=rep,
+                  launches=c2["launches"][k], library_ms=None, **rec)
+        for name, run in nb_runs.items():
+            at = dict(nbk[name][k], launches=run["launches"].get(k, 0),
+                      replaces=NB_PATHS[name]["replaces" if k == "sweep_nb"
+                                             else "measure_replaces"])
+            if k in nb_us[name]:  # the profiled window's time; events otherwise
+                at.update(ms_events=at["ms"], ms=nb_us[name][k] / 1e3)
+            kr[f"at_{name}"] = at
+        kernels.append(kr)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1525,6 +1982,9 @@ def main():
             f"{rec['bound_by']}, plain {rec['plain_ms']:.4f} ms)"
             for k, rec in pk[name].items() if rec["ms"] is not None) + f" on {card}")
 
+    # the per-sweep path on the coloured lattices
+    nb = coloured_paths(dev, card)
+
     mega_src = "peapods_tpu_torch/csrc/mega.cu"
     mega_replaces = "peapods_tpu/ops/pallas_mega.py:96"
     fk_src = "peapods_tpu_torch/csrc/fk.cu"
@@ -1562,6 +2022,7 @@ def main():
         if main == "config4":
             kr["at_config5"] = pk["config5"][k]
         kernels.append(kr)
+    add_nb_records(kernels, nb)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     record = {"kernels": [{**{k: kr[k] for k in keys},

@@ -6,18 +6,20 @@
 // fk_update_batch (kernel _fk_kernel :621, with the CC fixed point
 // pallas_cc_batch.cc_fixed_point :188-320 and the coin _salted_uniform_i32
 // :260).  The graphs are the (realization, system) pairs, flat and
-// disorder-major: spins int8 [B, H*W] by system, couplings f32 [d, H*W, 2]
-// (forward bonds down, right) shared by the B / d systems of a realization.
+// disorder-major: spins int8 [B, n] by system, couplings f32 [d, n, ndir]
+// shared by the B / d systems of a realization.  A graph is a 2D square
+// lattice (forward bonds down, right), the triangular lattice (also
+// [1, -1], the reference's tri=True) or a 3D cubic one (+x, +y, +z).
 //
 //   fk_bonds   thread g owns sites 4g .. 4g+3: inter = s * s_fwd * J and
 //              bond = inter > 0 && u < 1 - exp(-2 * inter / T) per forward
 //              bond (the reference's operation order, so an injected-uniform
 //              comparison is bitwise), u from Philox4x32-10 keyed by the
 //              graph's kb words, counter (dir, site // 4, 0, 0).  Writes a
-//              state byte (bit d: bond d active; bit 2 + d: s != s_fwd) and
+//              state byte (bit d: bond d active; bit 3 + d: s != s_fwd) and
 //              parent[i] = i.
 //   fk_link    one thread per site unites the two ends of each active bond
-//              of a 2D or 3D lattice (uf.cuh: find with path halving, then
+//              of the graph (uf.cuh: find with path halving, then
 //              the larger root hung under the smaller with atomicCAS), so
 //              that when the launch ends each component is one tree whose
 //              root is its minimum site index, whatever order the threads
@@ -29,14 +31,15 @@
 //              other threads' finds, so it is not the output); SW flips iff
 //              salted_uniform(label, salt0, salt1) < 1/2, Wolff iff label ==
 //              find(seed) (found on the device).  When measuring, the
-//              post-update energy s * s_fwd * J of the site's two forward
+//              post-update energy s * s_fwd * J of the site's forward
 //              bonds comes from the state byte and the neighbours' flip
 //              decisions (no neighbour spin is read while spins are
 //              rewritten), and the block writes one (e, m) partial per graph
 //              ([B, blocks]); pt_step adds them in a fixed order.
 //
 // What bounds it on the H100: each launch touches a few bytes per site --
-// the int8 spins, 8 B of couplings, the state byte and the int32 parent.
+// the int8 spins, 8 or 12 B of couplings, the state byte and the int32
+// parent.
 // At config 3 (one 256^2 graph) that is well under 1 MB per launch (under
 // 1 us at 3.35 TB/s): the launches are bound by latency and by the chains of
 // dependent parent loads and atomics near T_c, where one cluster spans the
@@ -58,40 +61,45 @@ using namespace peapods;
 
 namespace {
 
+constexpr int kMaxDirs = 3;
+
 __global__ void __launch_bounds__(kThreads)
 fk_bonds_kernel(const int8_t* __restrict__ spins, const float* __restrict__ j_fwd,
                 const float* __restrict__ temps, const int32_t* __restrict__ kb,
-                uint8_t* __restrict__ state, int32_t* __restrict__ parent, int H,
-                int W, int n_systems) {
-  const Dims dims = make_dims(H, W, 1);
+                uint8_t* __restrict__ state, int32_t* __restrict__ parent,
+                const Dims dims, int n_systems) {
   const int b = blockIdx.y;
-  const int n = H * W;
+  const int n = dims.n[0] * dims.n[1] * dims.n[2];
+  const int nd = dims.ndir;
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   if (kSitesPerThread * g >= n) return;
   const size_t base = static_cast<size_t>(b) * n;
   const int8_t* s = spins + base;
-  const float2* J = reinterpret_cast<const float2*>(j_fwd) +
-                    static_cast<size_t>(b / n_systems) * n;
+  const float* J = j_fwd + static_cast<size_t>(b / n_systems) * n * nd;
   const float T = temps[b];
   const uint32_t k0 = static_cast<uint32_t>(kb[2 * b]);
   const uint32_t k1 = static_cast<uint32_t>(kb[2 * b + 1]);
-  const uint4 ra = philox4x32_10(k0, k1, 0u, static_cast<uint32_t>(g), 0u, 0u);
-  const uint4 rb = philox4x32_10(k0, k1, 1u, static_cast<uint32_t>(g), 0u, 0u);
-  const uint32_t w[2][4] = {{ra.x, ra.y, ra.z, ra.w}, {rb.x, rb.y, rb.z, rb.w}};
+  uint32_t w[kMaxDirs][4];
+  for (int dir = 0; dir < nd; ++dir) {
+    const uint4 r = philox4x32_10(k0, k1, static_cast<uint32_t>(dir),
+                                  static_cast<uint32_t>(g), 0u, 0u);
+    w[dir][0] = r.x;
+    w[dir][1] = r.y;
+    w[dir][2] = r.z;
+    w[dir][3] = r.w;
+  }
 #pragma unroll
   for (int k = 0; k < kSitesPerThread; ++k) {
     const int i = kSitesPerThread * g + k;
     if (i >= n) break;
     const float si = static_cast<float>(s[i]);
-    const float2 j = J[i];
     uint8_t st = 0;
-#pragma unroll
-    for (int dir = 0; dir < 2; ++dir) {
+    for (int dir = 0; dir < nd; ++dir) {
       const float sf = static_cast<float>(s[fwd_site(i, dims, dir)]);
-      const float inter = si * sf * (dir == 0 ? j.x : j.y);
+      const float inter = si * sf * J[static_cast<size_t>(i) * nd + dir];
       const float p = 1.0f - expf(-2.0f * inter / T);
       if (inter > 0.0f && uniform24(w[dir][k]) < p) st |= 1u << dir;
-      if (si != sf) st |= 4u << dir;
+      if (si != sf) st |= 8u << dir;
     }
     state[base + i] = st;
     parent[base + i] = i;
@@ -99,15 +107,13 @@ fk_bonds_kernel(const int8_t* __restrict__ spins, const float* __restrict__ j_fw
 }
 
 __global__ void __launch_bounds__(kThreads)
-fk_link_kernel(const uint8_t* __restrict__ state, int32_t* parent, int L0, int L1,
-               int L2) {
-  const Dims dims = make_dims(L0, L1, L2);
+fk_link_kernel(const uint8_t* __restrict__ state, int32_t* parent, const Dims dims) {
   const int b = blockIdx.y;
-  const int n = L0 * L1 * L2;
+  const int n = dims.n[0] * dims.n[1] * dims.n[2];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const uint8_t st = state[static_cast<size_t>(b) * n + i];
-  if (!(st & ((1u << dims.nd) - 1u))) return;
+  if (!(st & ((1u << dims.ndir) - 1u))) return;
   link_site(parent + static_cast<size_t>(b) * n, st, i, dims);
 }
 
@@ -122,11 +128,11 @@ fk_finish_kernel(int8_t* __restrict__ spins, const uint8_t* __restrict__ state,
                  int32_t* parent, int32_t* __restrict__ labels,
                  const float* __restrict__ j_fwd,
                  const int32_t* __restrict__ scalars, float* __restrict__ e_part,
-                 int32_t* __restrict__ m_part, int H, int W, int n_systems,
+                 int32_t* __restrict__ m_part, const Dims dims, int n_systems,
                  int wolff) {
-  const Dims dims = make_dims(H, W, 1);
   const int b = blockIdx.y;
-  const int n = H * W;
+  const int n = dims.n[0] * dims.n[1] * dims.n[2];
+  const int nd = dims.ndir;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const bool measure = e_part != nullptr;
   float e_acc = 0.0f;
@@ -144,17 +150,15 @@ fk_finish_kernel(int8_t* __restrict__ spins, const uint8_t* __restrict__ state,
     spins[base + i] = sn;
     if (measure) {
       const uint8_t st = state[base + i];
-      const float2 j = reinterpret_cast<const float2*>(j_fwd)[
-          static_cast<size_t>(b / n_systems) * n + i];
-      float prod[2];
-#pragma unroll
-      for (int dir = 0; dir < 2; ++dir) {
+      const float* J = j_fwd + (static_cast<size_t>(b / n_systems) * n + i) * nd;
+      // s * s_fwd after the update, from "s differed" and the two flips
+      float e = 0.0f;
+      for (int dir = 0; dir < nd; ++dir) {
         const bool ff = flips(find_root(P, fwd_site(i, dims, dir)), wolff,
                               seed_root, s0, s1);
-        prod[dir] = (((st >> (2 + dir)) & 1u) != 0) != (fl != ff) ? -1.0f : 1.0f;
+        const float prod = (((st >> (3 + dir)) & 1u) != 0) != (fl != ff) ? -1.0f : 1.0f;
+        e = e + prod * J[dir];
       }
-      float e = prod[0] * j.x;
-      e = e + prod[1] * j.y;
       e_acc = e;
       m_acc = sn;
     }
@@ -174,42 +178,46 @@ inline dim3 site_grid(int n, int per_thread, int n_graphs) {
 extern "C" {
 
 // Blocks per graph of fk_finish: the length of the partial-sum rows.
-int peapods_fk_blocks(int H, int W) { return (H * W + kThreads - 1) / kThreads; }
+int peapods_fk_blocks(int n) { return (n + kThreads - 1) / kThreads; }
 
+// Graphs of [L0, L1, L2] sites (L2 = 1 in 2D); tri: the triangular lattice.
+// spins int8 [n_graphs, n]; j_fwd f32 [n_graphs / n_systems, n, ndir].
 int peapods_fk_bonds(const void* spins, const void* j_fwd, const void* temps,
                      const void* kb, void* state, void* parent, int n_graphs,
-                     int n_systems, int H, int W, void* stream) {
-  fk_bonds_kernel<<<site_grid(H * W, kSitesPerThread, n_graphs), kThreads, 0,
+                     int n_systems, int L0, int L1, int L2, int tri, void* stream) {
+  const Dims dims = make_dims(L0, L1, L2, tri != 0);
+  fk_bonds_kernel<<<site_grid(L0 * L1 * L2, kSitesPerThread, n_graphs), kThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(spins), static_cast<const float*>(j_fwd),
       static_cast<const float*>(temps), static_cast<const int32_t*>(kb),
-      static_cast<uint8_t*>(state), static_cast<int32_t*>(parent), H, W, n_systems);
+      static_cast<uint8_t*>(state), static_cast<int32_t*>(parent), dims, n_systems);
   return static_cast<int>(cudaGetLastError());
 }
 
-// state: uint8 [n_graphs, n] whose bits 0 .. nd-1 are the forward bonds of
-// a 2D (L2 = 1) or 3D lattice; parent: int32 [n_graphs, n], parent[i] = i.
+// state: uint8 [n_graphs, n] whose bits 0 .. ndir-1 are the forward bonds;
+// parent: int32 [n_graphs, n], parent[i] = i.
 int peapods_fk_link(const void* state, void* parent, int n_graphs, int L0, int L1,
-                    int L2, void* stream) {
+                    int L2, int tri, void* stream) {
   fk_link_kernel<<<site_grid(L0 * L1 * L2, 1, n_graphs), kThreads, 0,
                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(state), static_cast<int32_t*>(parent), L0, L1, L2);
+      static_cast<const uint8_t*>(state), static_cast<int32_t*>(parent),
+      make_dims(L0, L1, L2, tri != 0));
   return static_cast<int>(cudaGetLastError());
 }
 
-// labels: int32 [n_graphs, H*W] or null; e_part / m_part: [n_graphs,
-// peapods_fk_blocks(H, W)], or both null.
+// labels: int32 [n_graphs, n] or null; e_part / m_part: [n_graphs,
+// peapods_fk_blocks(n)], or both null.
 int peapods_fk_finish(void* spins, const void* state, void* parent, void* labels,
                       const void* j_fwd, const void* scalars, void* e_part,
-                      void* m_part, int n_graphs, int n_systems, int H, int W,
-                      int wolff, void* stream) {
-  fk_finish_kernel<<<site_grid(H * W, 1, n_graphs), kThreads, 0,
+                      void* m_part, int n_graphs, int n_systems, int L0, int L1,
+                      int L2, int tri, int wolff, void* stream) {
+  fk_finish_kernel<<<site_grid(L0 * L1 * L2, 1, n_graphs), kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<int8_t*>(spins), static_cast<const uint8_t*>(state),
       static_cast<int32_t*>(parent), static_cast<int32_t*>(labels),
       static_cast<const float*>(j_fwd), static_cast<const int32_t*>(scalars),
-      static_cast<float*>(e_part),
-      static_cast<int32_t*>(m_part), H, W, n_systems, wolff);
+      static_cast<float*>(e_part), static_cast<int32_t*>(m_part),
+      make_dims(L0, L1, L2, tri != 0), n_systems, wolff);
   return static_cast<int>(cudaGetLastError());
 }
 

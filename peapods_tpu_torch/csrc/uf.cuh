@@ -1,6 +1,7 @@
 // Device helpers shared by the cluster kernels (fk.cu, overlap.cu): the
-// periodic neighbours of a 2D or 3D lattice, the salted per-cluster coin,
-// and the union-find whose roots are each component's minimum site index.
+// periodic neighbours of a 2D or 3D lattice (and of the triangular lattice's
+// third bond direction), the salted per-cluster coin, and the union-find
+// whose roots are each component's minimum site index.
 #pragma once
 
 #include <cstddef>
@@ -11,17 +12,22 @@
 namespace peapods {
 
 // Extents and strides of a row-major periodic lattice: 2D is [L0, L1]
-// (pass L2 = 1), 3D is [L0, L1, L2].  Forward direction d is +1 along
-// axis d.
+// (pass L2 = 1), 3D is [L0, L1, L2].  Bond direction d < nd is +1 along
+// axis d; the triangular lattice (tri, 2D) adds direction 2, offset
+// [1, -1], each axis wrapped on its own (pallas_cc_batch.dir_shifts).
 struct Dims {
-  int nd;
+  int nd;    // axes
+  int ndir;  // bond directions: nd, or 3 on the triangular lattice
+  bool tri;
   int n[3];
   int stride[3];
 };
 
-__host__ __device__ inline Dims make_dims(int L0, int L1, int L2) {
+__host__ __device__ inline Dims make_dims(int L0, int L1, int L2, bool tri = false) {
   Dims g;
   g.nd = L2 > 1 ? 3 : 2;
+  g.tri = tri;
+  g.ndir = tri ? 3 : g.nd;
   g.n[0] = L0;
   g.n[1] = L1;
   g.n[2] = L2;
@@ -31,16 +37,27 @@ __host__ __device__ inline Dims make_dims(int L0, int L1, int L2) {
   return g;
 }
 
-__device__ __forceinline__ int fwd_site(int i, const Dims& g, int dir) {
-  const int s = g.stride[dir];
-  const int L = g.n[dir];
+// One step forward / backward along axis a, periodic.
+__device__ __forceinline__ int step_fwd(int i, const Dims& g, int a) {
+  const int s = g.stride[a];
+  const int L = g.n[a];
   return (i / s) % L == L - 1 ? i - (L - 1) * s : i + s;
 }
 
-__device__ __forceinline__ int bwd_site(int i, const Dims& g, int dir) {
-  const int s = g.stride[dir];
-  const int L = g.n[dir];
+__device__ __forceinline__ int step_bwd(int i, const Dims& g, int a) {
+  const int s = g.stride[a];
+  const int L = g.n[a];
   return (i / s) % L == 0 ? i + (L - 1) * s : i - s;
+}
+
+__device__ __forceinline__ int fwd_site(int i, const Dims& g, int dir) {
+  if (g.tri && dir == 2) return step_bwd(step_fwd(i, g, 0), g, 1);  // (i+1, j-1)
+  return step_fwd(i, g, dir);
+}
+
+__device__ __forceinline__ int bwd_site(int i, const Dims& g, int dir) {
+  if (g.tri && dir == 2) return step_fwd(step_bwd(i, g, 0), g, 1);  // (i-1, j+1)
+  return step_bwd(i, g, dir);
 }
 
 // murmur-style hash of (label, salt) to a 24-bit uniform (ops/cluster.py)
@@ -94,19 +111,19 @@ __device__ __forceinline__ void unite(int32_t* P, int a, int b) {
 }
 
 // Unite site i with its forward neighbours along the bonds set in bits
-// 0 .. nd-1 of its state byte.
+// 0 .. ndir-1 of its state byte.
 __device__ __forceinline__ void link_site(int32_t* P, uint8_t st, int i,
                                           const Dims& g) {
-  for (int dir = 0; dir < g.nd; ++dir)
+  for (int dir = 0; dir < g.ndir; ++dir)
     if ((st >> dir) & 1u) unite(P, i, fwd_site(i, g, dir));
 }
 
-// Whether site i has a bond (bits 0 .. nd-1 of the state bytes): its own
+// Whether site i has a bond (bits 0 .. ndir-1 of the state bytes): its own
 // forward bonds or its backward neighbours' forward bonds towards it.
 __device__ __forceinline__ bool nonsingleton(const uint8_t* state, int i,
                                              const Dims& g) {
-  if (state[i] & ((1u << g.nd) - 1u)) return true;
-  for (int dir = 0; dir < g.nd; ++dir)
+  if (state[i] & ((1u << g.ndir) - 1u)) return true;
+  for (int dir = 0; dir < g.ndir; ++dir)
     if ((state[bwd_site(i, g, dir)] >> dir) & 1u) return true;
   return false;
 }

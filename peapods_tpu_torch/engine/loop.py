@@ -10,8 +10,10 @@ draws) with the numpy threefry (:mod:`~peapods_tpu_torch.engine.seeds`)
 and uploads them in one copy; the kernels then run sweep after sweep with
 no host synchronisation, and the per-sweep rows are folded into the record
 sums on the device.  :func:`run_chunk` takes the replica path when there
-are two replicas or more, the per-sweep path when the run has a cluster
-phase, and the mega path otherwise.
+are two replicas or more, the mega path for one replica on a square
+lattice without a cluster phase, and the per-sweep path otherwise (a
+cluster phase, or any other lattice: triangular, BCC, FCC, 3D cubic, an
+offset table).
 
 The reference's sentinel padding of short chunks and its ``n_inner <= 256``
 SMEM cap exist only to keep one compiled TPU program per chunk length; a
@@ -27,15 +29,17 @@ import torch
 
 from ..ops import fk, mega, megapair, rng
 from ..ops.cluster import component_counts, csd_histogram
-from ..ops.lattice import Lattice
+from ..ops.energy import measure_nb
+from ..ops.lattice import Lattice, neighbour_values
 from ..ops.measure import per_slot_values, slot_temps_for_systems
-from ..ops.sweep import pack_coupling_grids, sweep_2d
+from ..ops.sweep import pack_coupling_grids, sweep_2d, sweep_nb
 from ..ops.tempering import hot_cold_slots, pt_draws_pairs
 from . import seeds
 from .config import SimConfig
 from .records import N_REC, REC
 
-__all__ = ["Runtime", "init_accumulators", "run_chunk", "run_chunk_pairs"]
+__all__ = ["Runtime", "init_accumulators", "run_chunk", "run_chunk_sweeps",
+           "run_chunk_pairs"]
 
 
 @dataclass
@@ -50,15 +54,21 @@ class Runtime:
     temps_np: np.ndarray  # f32 [n_temps]
     temps: torch.Tensor  # f32 [n_temps]
     slot_temps: torch.Tensor  # f32 [n_replicas * n_temps]: temps by slot
-    jgrids: torch.Tensor  # f32 [n_disorder, 2 n_dims, *shape]
-    coup: torch.Tensor  # f32 [n_disorder, n_spins, n_dims] forward couplings
+    # f32 [n_disorder, 2 n_dims, *shape] on hypercubic lattices, else None
+    jgrids: torch.Tensor | None
+    coup: torch.Tensor  # f32 [n_disorder, n_spins, n_neighbors] forward couplings
+    coup_bwd: torch.Tensor  # f32 [n_disorder, n_spins, n_neighbors]: J[i - off_d, d]
+    colours: torch.Tensor  # uint8 [n_spins] the lattice's colouring
 
     @classmethod
     def build(cls, lattice, couplings_nd, temps, n_replicas, device):
-        """couplings_nd: f32 ``[n_disorder, n_spins, n_dims]`` (numpy)."""
+        """couplings_nd: f32 ``[n_disorder, n_spins, n_neighbors]`` (numpy)."""
         coup = torch.as_tensor(np.asarray(couplings_nd, np.float32), device=device)
         temps_np = np.asarray(temps, dtype=np.float32)
         t = torch.as_tensor(temps_np, device=device)
+        coup_bwd = torch.stack(
+            [neighbour_values(coup[..., k], lattice.shape, -off)
+             for k, off in enumerate(lattice.offsets)], dim=-1)
         return cls(
             lattice=lattice,
             n_replicas=int(n_replicas),
@@ -68,8 +78,11 @@ class Runtime:
             temps_np=temps_np,
             temps=t,
             slot_temps=t.repeat(int(n_replicas)).contiguous(),
-            jgrids=pack_coupling_grids(coup, lattice.shape).contiguous(),
+            jgrids=(pack_coupling_grids(coup, lattice.shape).contiguous()
+                    if lattice.hypercubic else None),
             coup=coup.contiguous(),
+            coup_bwd=coup_bwd.contiguous(),
+            colours=torch.as_tensor(lattice.colors.astype(np.uint8), device=device),
         )
 
     @property
@@ -190,13 +203,14 @@ def run_chunk(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
               s_begin: int, n: int) -> None:
     """Run sweeps ``s_begin .. s_begin + n - 1`` of a sample() call,
     updating ``state`` and ``acc`` in place: the replica path with two
-    replicas or more, the per-sweep path when the run has a cluster phase,
-    else the mega path."""
+    replicas or more, the mega path for one replica on a square lattice
+    without a cluster phase, else the per-sweep path."""
     if megapair.supports_megapair(rt.lattice, rt.n_replicas):
         run_chunk_pairs(rt, cfg, state, acc, s_begin, n)
         return
-    if cfg.cluster_update is not None:
-        run_chunk_cluster(rt, cfg, state, acc, s_begin, n)
+    if cfg.cluster_update is not None or not mega.supports_mega(rt.lattice,
+                                                                rt.n_replicas):
+        run_chunk_sweeps(rt, cfg, state, acc, s_begin, n)
         return
     pt_on = cfg.pt_interval is not None and rt.n_temps >= 2
     d, n_slots = rt.n_disorder, rt.n_systems
@@ -235,40 +249,46 @@ def run_chunk(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
     _fold_records(rt, state, acc, e, m, s_begin, n)
 
 
-def run_chunk_cluster(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
-                      s_begin: int, n: int) -> None:
-    """The per-sweep path with an FK cluster phase (the reference's
-    ``_make_step_body``, peapods_tpu/engine/loop.py:2723-2952).  Per sweep:
+def run_chunk_sweeps(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
+                     s_begin: int, n: int) -> None:
+    """The per-sweep path (the reference's ``_make_step_body``,
+    peapods_tpu/engine/loop.py:2723-2952), with or without an FK cluster
+    phase.  Per sweep:
 
-    1. the checkerboard sweep of every system at its temperature
-       (:func:`~peapods_tpu_torch.ops.sweep.sweep_2d`);
+    1. the sweep of every system at its temperature: the checkerboard
+       :func:`~peapods_tpu_torch.ops.sweep.sweep_2d` on a square lattice,
+       one :func:`~peapods_tpu_torch.ops.sweep.sweep_nb` pass per colour on
+       any other;
     2. on sweeps ``s`` with ``s % interval == 0``, the FK update of every
        system with the measurement of the updated spins
        (:func:`~peapods_tpu_torch.ops.fk.fk_update`); on the others the
-       sweep's second colour pass measures;
+       measurement: ``sweep_2d``'s second colour pass, or
+       :func:`~peapods_tpu_torch.ops.energy.measure_nb`;
     3. ``pt_step`` reduces the measurement into the sweep's (e, m) rows and,
        on PT sweeps, runs the PT event with the reference's jnp-form draws;
     4. the records (and the cluster-size histograms) of the sweeps past
        warmup are folded into the sums.
     """
     c = cfg.cluster_update
-    wolff = c.mode == "wolff"
+    wolff = c is not None and c.mode == "wolff"
     pt_on = cfg.pt_interval is not None and rt.n_temps >= 2
     pt_full = cfg.pt_schedule == "full_ladder"
-    d, n_sys = rt.n_disorder, rt.n_systems
-    h, w = rt.lattice.shape
+    lat = rt.lattice
+    d, n_sys, n_sp = rt.n_disorder, rt.n_systems, rt.n_spins
+    n_dirs = lat.n_neighbors
     dev = rt.device
     counter = int(state["counter"])
     base = state["base_keys"]
     warmup = int(state["warmup"])
 
     sweep_w = _upload(seeds.sweep_words(base, counter, n, seeds.PH_SWEEP), dev)
-    fk_t = [t for t in range(n) if (s_begin + t) % c.interval == 0]
+    fk_t = ([t for t in range(n) if (s_begin + t) % c.interval == 0]
+            if c is not None else [])
     fk_at = {t: k for k, t in enumerate(fk_t)}
     if fk_t:
         kb, kf = seeds.fk_keys(base, counter + np.asarray(fk_t), n_sys)
         kb_w = _upload(kb.view(np.int32), dev)
-        scal = _upload(seeds.fk_scalars(kf, rt.n_spins, wolff=wolff), dev)
+        scal = _upload(seeds.fk_scalars(kf, n_sp, wolff=wolff), dev)
     draws = None
     if pt_on:
         dr = seeds.pt_draws_jnp(base, counter, n, n_sys - 1, pt_full=pt_full)
@@ -277,16 +297,23 @@ def run_chunk_cluster(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
 
     sweep_u = bond_u = None
     if dev.type == "cpu":
-        sweep_u = rng.blocked(lambda a, b: torch.stack(
-            [rng.colour_uniforms(sweep_w[a:b], n_sys, col, (h, w))
-             for col in (0, 1)], dim=3), d * n_sys * h * w * 2)
+        if lat.square:
+            sweep_u = rng.blocked(lambda a, b: torch.stack(
+                [rng.colour_uniforms(sweep_w[a:b], n_sys, col, lat.shape)
+                 for col in (0, 1)], dim=3), d * n_sys * n_sp * 2)
+        else:
+            sweep_u = rng.blocked(lambda a, b: torch.stack(
+                [rng.site_uniforms(sweep_w[a:b], n_sys, col, n_sp)
+                 for col in range(lat.n_colors)], dim=2),
+                d * n_sys * n_sp * lat.n_colors)
         if fk_t:
             bond_u = rng.blocked(
-                lambda a, b: rng.bond_uniforms(kb_w[a:b], h * w),
-                d * n_sys * h * w * 2)
+                lambda a, b: rng.bond_uniforms(kb_w[a:b], n_sp, n_dirs=n_dirs),
+                d * n_sys * n_sp * n_dirs)
 
-    spins = state["spins"].view(d, n_sys, h, w)
-    graphs = state["spins"].view(d * n_sys, h, w)
+    flat = state["spins"].view(d, n_sys, n_sp)
+    spins = state["spins"].view(d, n_sys, *lat.shape)
+    graphs = state["spins"].view(d * n_sys, *lat.shape)
     sid = state["system_ids"].view(d, n_sys)
     sys_temps = slot_temps_for_systems(sid, rt.temps)
     pt_state = [state[k] for k in ("pt_edge_attempts", "pt_edge_acceptances",
@@ -298,9 +325,14 @@ def run_chunk_cluster(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
     collect = "fk_csd" in acc
     for t in range(n):
         k = fk_at.get(t)
-        parts = sweep_2d(spins, rt.jgrids, sys_temps, sweep_w[t], gibbs=gibbs,
-                         measure=k is None,
-                         uniforms=None if sweep_u is None else sweep_u(t))
+        u = None if sweep_u is None else sweep_u(t)
+        if lat.square:
+            parts = sweep_2d(spins, rt.jgrids, sys_temps, sweep_w[t], gibbs=gibbs,
+                             measure=k is None, uniforms=u)
+        else:
+            sweep_nb(flat, rt.coup, rt.coup_bwd, rt.colours, sys_temps, sweep_w[t],
+                     lat, gibbs=gibbs, uniforms=u)
+            parts = measure_nb(flat, rt.coup, lat) if k is None else None
         if k is not None:
             e_part, m_part, labels = fk.fk_update(
                 graphs, rt.coup, sys_temps.view(-1), scal[k], kb_w[k],
@@ -316,7 +348,7 @@ def run_chunk_cluster(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
             None if not do_pt else (
                 draws[t] if pt_full else (draws[0][t], draws[1][t])),
             sys_temps, do_pt=do_pt, pt_full=pt_full, parity=parity,
-            hot_slot=rt.hot_slot, cold_slot=rt.cold_slot, n_spins=rt.n_spins)
+            hot_slot=rt.hot_slot, cold_slot=rt.cold_slot, n_spins=n_sp)
     state["counter"] = np.int32(counter + n)
     state["pt_parity"] = np.int32(parity)
     _fold_records(rt, state, acc, e, m, s_begin, n)

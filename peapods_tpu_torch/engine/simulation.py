@@ -2,17 +2,22 @@
 
 Counterpart of ``peapods_tpu/engine/simulation.py`` (:75-436) for the slice
 the port runs today, Metropolis or Gibbs sweeps with optional parallel
-tempering (both schedules), every sweep measured, on three paths:
+tempering (both schedules), every sweep measured, on lattices with even
+extents, on three paths:
 
-* one replica on a 2D square lattice with even extents: the mega path, or
-  the per-sweep path with SW or Wolff cluster updates (with or without
-  cluster statistics);
-* two replicas or more on a 2D square or 3D cubic lattice with even
-  extents: the replica path, with the pair overlaps q and q_l, PT on each
-  replica's ladder and the pair overlap moves (Houdayer, Joerg, CMR; Wolff
-  or SW; in round robin).  The device is explicit (``device="cuda"`` by
-default); a CUDA device runs the hand-written kernels, ``device="cpu"`` their
-plain torch versions, and nothing ever falls back from one to the other.
+* one replica on a 2D square lattice: the mega path, or the per-sweep path
+  with SW or Wolff cluster updates (with or without cluster statistics);
+* one replica on any other lattice (triangular, BCC, FCC, 3D cubic, an
+  offset table of up to six ``neighbor_offsets``): the per-sweep path, with
+  SW or Wolff cluster updates on the triangular and 3D cubic lattices;
+* two replicas or more on a 2D square or 3D cubic lattice: the replica
+  path, with the pair overlaps q and q_l, PT on each replica's ladder and
+  the pair overlap moves (Houdayer, Joerg, CMR; Wolff or SW; in round
+  robin).
+
+The device is explicit (``device="cuda"`` by default); a CUDA device runs
+the hand-written kernels, ``device="cpu"`` their plain torch versions, and
+nothing ever falls back from one to the other.
 
 ``state`` has the reference's keys: ``spins`` int8 ``[d, n_systems,
 n_spins]`` stored by system on the device, ``system_ids`` int32 ``[d, R,
@@ -106,16 +111,14 @@ class IsingSimulation:
         mesh="auto",
         device="cuda",
     ):
-        if neighbor_offsets is not None:
-            not_ported("neighbor_offsets (non-square lattices)", "4a")
         if mesh not in ("auto", None):
             not_ported("a device mesh", "9")
         n_replicas = int(n_replicas) if n_replicas is not None else 1
-        lattice = Lattice(lattice_shape)
+        lattice = Lattice(lattice_shape, neighbor_offsets)
         if n_replicas < 1:
             raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
-        if lattice.n_dims == 3 and n_replicas == 1:
-            not_ported("a 3D lattice with one replica", "4a")
+        if n_replicas > 1 and not lattice.hypercubic:
+            not_ported("replicas on a lattice other than square or cubic", "7a")
         self.lattice = lattice
         self.device = resolve_device(device)
 
@@ -267,6 +270,10 @@ class IsingSimulation:
             not_ported("cluster_action='observe'", "6o")
         if cluster_update is not None and self.n_replicas > 1:
             not_ported("replicas with an FK cluster phase", "7a")
+        lat = self.lattice
+        if cluster_update is not None and not (lat.hypercubic or lat.triangular):
+            not_ported("an FK cluster phase on BCC, FCC or an offset table "
+                       "(the reference's staged CC path)", "6s")
         if h is not None:
             if h.action == "observe":
                 not_ported("overlap_cluster_action='observe'", "7b")

@@ -11,10 +11,10 @@ from __future__ import annotations
 
 import numpy as np
 
-from ..engine.config import not_ported
 from ..engine.seeds import dynamics_seed, seed_material
+from ..ops.lattice import GEOMETRY_OFFSETS as GEOMETRIES
 
-__all__ = ["Ising"]
+__all__ = ["Ising", "GEOMETRIES"]
 
 _COUPLING_MODES = ("ferro", "bimodal", "gaussian")
 
@@ -69,8 +69,9 @@ def _synthesize_couplings(mode, coupling_seed, n_disorder, single_shape):
 
 
 class Ising:
-    """Ising model on a periodic 2D square or 3D cubic lattice with Monte
-    Carlo sampling on a torch device.
+    """Ising model on a periodic 2D or 3D lattice (square, cubic,
+    triangular, BCC, FCC or an offset table) with Monte Carlo sampling on a
+    torch device.
 
     After `sample`, the derived observables ``binder_cumulant`` and
     ``heat_capacity`` (and, with two replicas or more, ``sg_binder`` and
@@ -92,17 +93,22 @@ class Ising:
         """Create an Ising model.
 
         Args:
-            lattice_shape: periodic lattice extents, all even: ``(H, W)``,
-                or ``(L0, L1, L2)`` with two replicas or more.
+            lattice_shape: periodic lattice extents, all even: ``(H, W)``
+                or ``(L0, L1, L2)``.
             couplings: ``"ferro"`` (all +1), ``"bimodal"`` (random +-1),
                 ``"gaussian"`` (standard normal), or an explicit array of
-                shape ``lattice_shape + (n_dims,)`` (optionally with a
+                shape ``lattice_shape + (n_neighbors,)`` (optionally with a
                 leading ``n_disorder`` axis).
             temperatures: temperature grid for the ladder.
             n_replicas: replicas per temperature; with two or more, the
                 pairs ``(2p, 2p+1)`` are measured (q, q_l) and may take
                 overlap moves.
             n_disorder: number of coupling realizations.
+            neighbor_offsets: integer offset vectors defining the forward
+                bonds (at most six; mutually exclusive with ``geometry``).
+            geometry: named lattice (``"triangular"`` / ``"tri"``,
+                ``"fcc"``, ``"bcc"``); hypercubic when neither is given.
+                Replicas run on square and cubic lattices only.
             seed: non-negative integer controlling both coupling synthesis
                 and the dynamics; ``None`` draws fresh entropy.
             device: ``"cuda"`` (the CUDA kernels) or ``"cpu"`` (their plain
@@ -110,12 +116,20 @@ class Ising:
         """
         from ..engine.simulation import IsingSimulation
 
-        if geometry is not None or neighbor_offsets is not None:
-            not_ported("geometry / neighbor_offsets (non-square lattices)", "4a")
+        if geometry is not None:
+            if neighbor_offsets is not None:
+                raise ValueError("Cannot specify both geometry and neighbor_offsets")
+            if geometry not in GEOMETRIES:
+                raise ValueError(
+                    f"Unknown geometry '{geometry}', choose from: "
+                    f"{list(GEOMETRIES.keys())}"
+                )
+            neighbor_offsets = GEOMETRIES[geometry]
         self.lattice_shape = tuple(lattice_shape)
         self.n_spins = int(np.prod(lattice_shape))
         self.n_dims = len(lattice_shape)
-        self.n_neighbors = self.n_dims
+        self.n_neighbors = (len(neighbor_offsets) if neighbor_offsets
+                            else self.n_dims)
         self.temperatures = np.asarray(temperatures).copy().astype(np.float32)
         self.n_temps = len(temperatures)
         self.n_replicas = n_replicas
@@ -138,7 +152,7 @@ class Ising:
             self.couplings,
             self.temperatures,
             n_replicas,
-            None,
+            neighbor_offsets,
             self._constructor_dynamics_seed,
             device=device,
         )

@@ -43,16 +43,19 @@ _SIGNATURES = {
     "peapods_colour_pass": [_P] * 7 + [_I] * 7 + [_P],
     "peapods_pt_step": [_P, _P, _I, _P, _P, _I] + [_P] * 9 + [_I] * 9 + [_P],
     "peapods_sweep_2d": [_P] * 6 + [_I] * 6 + [_P],
-    "peapods_fk_blocks": [_I, _I],
-    "peapods_fk_bonds": [_P] * 6 + [_I] * 4 + [_P],
-    "peapods_fk_link": [_P, _P] + [_I] * 4 + [_P],
-    "peapods_fk_finish": [_P] * 8 + [_I] * 5 + [_P],
+    "peapods_fk_blocks": [_I],
+    "peapods_fk_bonds": [_P] * 6 + [_I] * 6 + [_P],
+    "peapods_fk_link": [_P, _P] + [_I] * 5 + [_P],
+    "peapods_fk_finish": [_P] * 8 + [_I] * 7 + [_P],
     "peapods_pair_overlap": [_P] * 4 + [_I] * 8 + [_P],
     "peapods_site_blocks": [_I],
     "peapods_ov_bonds": [_P] * 11 + [_I] * 9 + [_P],
     "peapods_ov_mid": [_P] * 13 + [_I] * 8 + [_P],
     "peapods_ov_finish": [_P] * 10 + [_I] * 9 + [_P],
     "peapods_energy_partials": [_P] * 4 + [_I] * 5 + [_P],
+    "peapods_nb_blocks": [_I],
+    "peapods_sweep_nb": [_P] * 7 + [_I] * 4 + [_P],
+    "peapods_measure_nb": [_P] * 5 + [_I] * 2 + [_P],
 }
 
 _lib = None

@@ -10,17 +10,21 @@ and Wolff flip masks (:537, :550), ``find_seed`` (:481) and
 histogram (:460, :466; a scatter-add count in place of the TPU's one-hot
 matmul, which only worked around slow scatters there).  Every function
 takes a leading batch of graphs; a graph is a 2D ``[H, W]`` or 3D ``[L0,
-L1, L2]`` periodic lattice with one forward bond per axis, stored as
-``[..., n_spins, n_dims]``.
+L1, L2]`` periodic lattice with one forward bond per axis, or per offset of
+``offsets`` (the triangular lattice's three, :func:`fk_offsets`), stored as
+``[..., n_spins, n_bonds]``.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from .lattice import GEOMETRY_OFFSETS, neighbour_values
 from .rng import MASK32, mul_lo32
 
 __all__ = [
+    "fk_offsets",
     "salted_uniform",
     "fk_bond_activation",
     "connected_components",
@@ -47,6 +51,18 @@ def _bwd(x, shape, d):
     return torch.roll(g, 1, dims=d - len(shape)).reshape(x.shape)
 
 
+def fk_offsets(shape, n_dirs: int):
+    """int64 ``[n_dirs, n_dims]`` forward bond offsets of an FK graph: one
+    per axis, or the triangular lattice's three in 2D with three directions
+    (``pallas_cc_batch.dir_shifts``, :105-120)."""
+    nd = len(shape)
+    if n_dirs == nd:
+        return np.eye(nd, dtype=np.int64)
+    if nd == 2 and n_dirs == 3:
+        return np.asarray(GEOMETRY_OFFSETS["triangular"], dtype=np.int64)
+    raise ValueError(f"no FK graph with {n_dirs} bond directions on a {nd}D lattice")
+
+
 def salted_uniform(labels, salt0, salt1):
     """f32 murmur-style hash of ``(label, salt)`` to a 24-bit uniform,
     bitwise the reference's uint32 arithmetic (cluster.py:516-526).
@@ -61,43 +77,53 @@ def salted_uniform(labels, salt0, salt1):
     return (x >> 8).to(torch.float32) * _INV24
 
 
-def fk_bond_activation(spins, coup_fwd, shape, temps, u):
-    """bool ``[..., n_spins, 2]`` FK forward bonds (fk.rs:74,106-114).
+def fk_bond_activation(spins, coup_fwd, shape, temps, u, offsets=None):
+    """bool ``[..., n_spins, n_bonds]`` FK forward bonds (fk.rs:74,106-114).
 
     ``spins`` int8 ``[..., n_spins]``; ``coup_fwd`` f32 ``[..., n_spins,
-    2]``; ``temps`` f32 ``[...]``; ``u`` f32 ``[..., n_spins, 2]``.  A bond
-    is active iff ``inter = s * s_fwd * J > 0`` and ``u < 1 - exp(-2 *
-    inter / T)``, in this operation order (the reference's).
+    n_bonds]``; ``temps`` f32 ``[...]``; ``u`` f32 ``[..., n_spins,
+    n_bonds]``; ``offsets`` the bonds' forward offsets (one per axis when
+    ``None``).  A bond is active iff ``inter = s * s_fwd * J > 0`` and ``u <
+    1 - exp(-2 * inter / T)``, in this operation order (the reference's).
     """
+    if offsets is None:
+        offsets = np.eye(len(shape), dtype=np.int64)
     s = spins.to(torch.float32)
     t = temps[..., None]
     bonds = []
-    for d in range(2):
-        inter = s * _fwd(s, shape, d) * coup_fwd[..., d]
+    for d, off in enumerate(offsets):
+        inter = s * neighbour_values(s, shape, off) * coup_fwd[..., d]
         p = 1.0 - torch.exp(-2.0 * inter / t)
         bonds.append((inter > 0.0) & (u[..., d] < p))
     return torch.stack(bonds, dim=-1)
 
 
-def connected_components(active_fwd, shape):
+def connected_components(active_fwd, shape, offsets=None):
     """int32 ``[..., n_spins]`` labels of the bond graphs' components:
-    every site gets the minimum site index of its component.
+    every site gets the minimum site index of its component.  The bonds
+    ``[..., n_spins, n_bonds]`` join each site to its neighbour at each of
+    ``offsets`` (one per axis when ``None``).
 
     Min-label propagation over the active bonds, with pointer jumping
     (``label[label]``: a label is a site of the same component with a
     smaller or equal index), until nothing changes.
     """
-    n, nd = active_fwd.shape[-2:]
+    n = active_fwd.shape[-2]
+    if offsets is None:
+        offsets = np.eye(len(shape), dtype=np.int64)
     lead = active_fwd.shape[:-2]
     big = torch.full((), n, dtype=torch.int64, device=active_fwd.device)
-    fwd_on = [active_fwd[..., d] for d in range(nd)]
-    bwd_on = [_bwd(active_fwd[..., d], shape, d) for d in range(nd)]
+    fwd_on = [active_fwd[..., d] for d in range(len(offsets))]
+    bwd_on = [neighbour_values(active_fwd[..., d], shape, -off)
+              for d, off in enumerate(offsets)]
     lab = torch.arange(n, device=active_fwd.device).expand(*lead, n)
     while True:
         new = lab
-        for d in range(nd):
-            new = torch.minimum(new, torch.where(fwd_on[d], _fwd(lab, shape, d), big))
-            new = torch.minimum(new, torch.where(bwd_on[d], _bwd(lab, shape, d), big))
+        for d, off in enumerate(offsets):
+            new = torch.minimum(new, torch.where(
+                fwd_on[d], neighbour_values(lab, shape, off), big))
+            new = torch.minimum(new, torch.where(
+                bwd_on[d], neighbour_values(lab, shape, -off), big))
         new = new.gather(-1, new)
         if torch.equal(new, lab):
             return lab.to(torch.int32)

@@ -3,13 +3,24 @@
 Counterpart of ``peapods_tpu/ops/energy.py``: the recompute oracle for the
 fused measurement.  The reported "energy" keeps the reference's sign: the
 positive forward-bond sum per spin, ``e = +sum_{i,d} J[i,d] s_i s_fwd / N``.
+
+:func:`measure_nb` measures the per-sweep path on the coloured lattices
+(``csrc/sweep_nb.cu``): per-block partial sums of e and m on CUDA tensors
+(counted in :data:`LAUNCHES`), :func:`measure_nb_plain` on CPU tensors.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["bond_sums", "energies_and_mags", "per_spin"]
+from . import _build
+
+__all__ = ["LAUNCHES", "bond_sums", "energies_and_mags", "per_spin", "measure_nb",
+           "measure_nb_plain"]
+
+# kernel launches since the last reset, by kernel name
+LAUNCHES = {"measure_nb": 0}
 
 
 def per_spin(total, n_spins: int):
@@ -20,25 +31,67 @@ def per_spin(total, n_spins: int):
     return total / torch.full_like(total, float(n_spins))
 
 
-def bond_sums(spins, coup_fwd, shape):
+def bond_sums(spins, coup_fwd, shape, offsets=None):
     """f32 ``[...]`` forward-bond energy sums ``sum_{i,d} J s_i s_fwd`` of
-    int8 spins ``[..., n_spins]`` on a 2D or 3D lattice ``shape``, with
-    forward couplings ``[..., n_spins, n_dims]`` (broadcast against the
-    spins' leading axes); the axes' sums are added in axis order."""
+    int8 spins ``[..., n_spins]`` on a 2D or 3D lattice ``shape`` with
+    forward ``offsets`` (one per axis when ``None``) and forward couplings
+    ``[..., n_spins, n_offsets]`` (broadcast against the spins' leading
+    axes); the offsets' sums are added in order (``energies``,
+    peapods_tpu/ops/energy.py:28-34)."""
     shape = tuple(shape)
     nd = len(shape)
+    if offsets is None:
+        offsets = np.eye(nd, dtype=np.int64)
     s = spins.to(torch.float32).reshape(*spins.shape[:-1], *shape)
     tot = torch.zeros(spins.shape[:-1], dtype=torch.float32, device=s.device)
     spatial = tuple(range(-nd, 0))
     lead = coup_fwd.shape[:-2]
-    for d in range(nd):
-        fwd = torch.roll(s, -1, d - nd)  # s at the forward neighbour
+    for d, off in enumerate(offsets):
+        # s at the forward neighbour
+        fwd = torch.roll(s, tuple(-int(o) for o in off), spatial)
         tot = tot + (s * fwd * coup_fwd[..., d].reshape(*lead, *shape)).sum(spatial)
     return tot
 
 
-def energies_and_mags(spins, coup_fwd, shape):
+def energies_and_mags(spins, coup_fwd, shape, offsets=None):
     """``(e f32 [...], m int32 [...])`` of int8 spins ``[..., n_spins]``
-    with forward couplings ``[n_spins, n_dims]`` on a 2D or 3D lattice."""
+    with forward couplings ``[n_spins, n_offsets]`` on a 2D or 3D lattice
+    (``energies_and_mags``, peapods_tpu/ops/energy.py:37-41)."""
     m = spins.to(torch.int32).sum(-1, dtype=torch.int32)
-    return per_spin(bond_sums(spins, coup_fwd, shape), spins.shape[-1]), m
+    return per_spin(bond_sums(spins, coup_fwd, shape, offsets), spins.shape[-1]), m
+
+
+def measure_nb_plain(spins, coup_fwd, lattice):
+    """Plain version of ``measure_nb``: ``(e_part f32 [d, S, 1], m_part
+    int32 [d, S, 1])``, the forward-bond energy sum and the magnetization
+    of spins int8 ``[d, S, n_spins]`` with couplings ``[d, n_spins,
+    n_neighbors]``."""
+    e = bond_sums(spins, coup_fwd[:, None], lattice.shape, lattice.offsets)
+    m = spins.to(torch.int32).sum(-1, dtype=torch.int32)
+    return e[..., None], m[..., None]
+
+
+def measure_nb(spins, coup_fwd, lattice):
+    """The (e, m) partials of every (realization, system) on a coloured
+    lattice (see :func:`measure_nb_plain`): the plain version for CPU
+    tensors, the ``measure_nb`` kernel for CUDA tensors, whose partials have
+    one entry per block of 1024 sites."""
+    if _build.device_kind(spins) == "cpu":
+        return measure_nb_plain(spins, coup_fwd, lattice)
+    dev = spins.device
+    d, n_sys, n = spins.shape
+    _build.expect(spins, "spins", torch.int8, (d, n_sys, lattice.n_spins), dev)
+    _build.expect(coup_fwd, "coup_fwd", torch.float32, (d, n, lattice.n_neighbors),
+                  dev)
+    if d > 65535 or n_sys > 65535:
+        raise ValueError("at most 65535 realizations and systems")
+    lib = _build.library()
+    nb = lib.peapods_nb_blocks(n)
+    e_part = torch.empty((d, n_sys, nb), dtype=torch.float32, device=dev)
+    m_part = torch.empty((d, n_sys, nb), dtype=torch.int32, device=dev)
+    _build.check(lib.peapods_measure_nb(
+        spins.data_ptr(), coup_fwd.data_ptr(), lattice.kernel_geometry.ctypes.data,
+        e_part.data_ptr(), m_part.data_ptr(), d, n_sys,
+        torch.cuda.current_stream(dev).cuda_stream), "measure_nb")
+    LAUNCHES["measure_nb"] += 1
+    return e_part, m_part

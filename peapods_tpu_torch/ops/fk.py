@@ -4,11 +4,14 @@ Counterpart of ``peapods_tpu/ops/pallas_event.py`` ``fk_update_batch``
 (:759, kernel ``_fk_kernel`` :621) and of the engine's staged chain
 ``fk_bond_activation -> connected_components -> coin / Wolff flips``
 (``peapods_tpu/engine/loop.py:1883-1976``).  The graphs are the
-(realization, system) pairs, flat and disorder-major: spins int8 ``[B, H,
-W]`` by system (``B = d * S``), the forward couplings f32 ``[d, H*W, 2]``
-of the realizations, one temperature and one row of scalars ``(salt0,
-salt1, seed)`` (:func:`~peapods_tpu_torch.engine.seeds.fk_scalars`) and
-two key words ``kb`` per graph.  The graphs are not packed into tiles.
+(realization, system) pairs, flat and disorder-major: spins int8 ``[B,
+*shape]`` by system (``B = d * S``), the forward couplings f32 ``[d, n,
+n_dirs]`` of the realizations, one temperature and one row of scalars
+``(salt0, salt1, seed)`` (:func:`~peapods_tpu_torch.engine.seeds.fk_scalars`)
+and two key words ``kb`` per graph.  A graph is a 2D square (two bond
+directions), a 2D triangular (three: down, right and ``[1, -1]``, the
+reference's ``tri=True``) or a 3D cubic lattice (three); its bond offsets
+are :func:`~.cluster.fk_offsets`.  The graphs are not packed into tiles.
 
 :func:`fk_update` launches the three kernels of ``csrc/fk.cu`` on CUDA
 tensors (counted in :data:`LAUNCHES`) and runs :func:`fk_update_plain` on
@@ -28,9 +31,11 @@ from .cluster import (
     cluster_coin_flip_mask,
     connected_components,
     fk_bond_activation,
+    fk_offsets,
     wolff_flip_mask,
 )
 from .energy import per_spin
+from .lattice import neighbour_values
 
 __all__ = [
     "LAUNCHES",
@@ -58,45 +63,44 @@ def fk_energy_mag(e_part, m_part, n_spins: int):
 
 
 def fk_bonds_plain(spins, j_fwd, temps, kb_words, uniforms=None):
-    """Plain version of ``fk_bonds``: bool ``[B, H*W, 2]`` FK bonds of
+    """Plain version of ``fk_bonds``: bool ``[B, n, n_dirs]`` FK bonds of
     every graph (arguments as in :func:`fk_update_plain`)."""
-    b, h, w = spins.shape
-    n = h * w
-    d = j_fwd.shape[0]
-    u = uniforms if uniforms is not None else rng.bond_uniforms(kb_words, n)
+    b, shape = spins.shape[0], tuple(spins.shape[1:])
+    d, n, n_dirs = j_fwd.shape
+    u = (uniforms if uniforms is not None
+         else rng.bond_uniforms(kb_words, n, n_dirs=n_dirs))
     bonds = fk_bond_activation(spins.reshape(d, b // d, n), j_fwd[:, None],
-                               (h, w), temps.reshape(d, -1),
-                               u.reshape(d, -1, n, 2))
-    return bonds.reshape(b, n, 2)
+                               shape, temps.reshape(d, -1),
+                               u.reshape(d, -1, n, n_dirs),
+                               fk_offsets(shape, n_dirs))
+    return bonds.reshape(b, n, n_dirs)
 
 
 def fk_link_plain(bonds, shape):
-    """Plain version of ``fk_link``: int32 ``[B, H*W]`` labels, each
+    """Plain version of ``fk_link``: int32 ``[B, n]`` labels, each
     component's minimum site index."""
-    return connected_components(bonds, shape)
+    return connected_components(bonds, shape, fk_offsets(shape, bonds.shape[-1]))
 
 
 def fk_finish_plain(spins, labels, j_fwd, scalars, *, wolff, with_measure):
     """Plain version of ``fk_finish``: flip the clusters in place (SW coin
     or Wolff seed) and, when ``with_measure``, return the post-update
     partials ``(e_part f32 [B, 1], m_part int32 [B, 1])``."""
-    b, h, w = spins.shape
-    n = h * w
-    d = j_fwd.shape[0]
+    b, shape = spins.shape[0], tuple(spins.shape[1:])
+    d, n, n_dirs = j_fwd.shape
     if wolff:
         flip = wolff_flip_mask(labels, scalars[:, 2])
     else:
         flip = cluster_coin_flip_mask(labels, scalars[:, :2])
     s = spins.reshape(b, n)
     new = torch.where(flip, -s, s)
-    spins.copy_(new.reshape(b, h, w))
+    spins.copy_(new.reshape(spins.shape))
     if not with_measure:
         return None, None
-    sf = new.to(torch.float32).reshape(d, b // d, h, w)
+    sf = new.to(torch.float32).reshape(d, b // d, n)
     e = torch.zeros_like(sf)
-    for k in range(2):
-        e = e + sf * torch.roll(sf, -1, dims=-2 + k) * j_fwd[:, None, :, k].reshape(
-            d, 1, h, w)
+    for k, off in enumerate(fk_offsets(shape, n_dirs)):
+        e = e + sf * neighbour_values(sf, shape, off) * j_fwd[:, None, :, k]
     return (e.reshape(b, n).sum(-1, keepdim=True),
             new.to(torch.int32).sum(-1, keepdim=True, dtype=torch.int32))
 
@@ -107,35 +111,35 @@ def fk_update_plain(spins, j_fwd, temps, scalars, kb_words, *, wolff,
     kernels' plain versions in turn.
 
     Args:
-        spins: int8 ``[B, H, W]``, updated in place.
-        j_fwd: f32 ``[d, H*W, 2]`` forward couplings; graph ``b`` reads
+        spins: int8 ``[B, *shape]``, updated in place.
+        j_fwd: f32 ``[d, n, n_dirs]`` forward couplings; graph ``b`` reads
             realization ``b // (B // d)``.
         temps: f32 ``[B]``.
         scalars: int32 ``[B, 3]`` ``(salt0, salt1, seed)``.
         kb_words: int32 ``[B, 2]`` bond-draw key words (unused when
             ``uniforms`` is given).
-        uniforms: optional f32 ``[B, H*W, 2]`` injected bond uniforms.
+        uniforms: optional f32 ``[B, n, n_dirs]`` injected bond uniforms.
 
     Returns:
         ``(e_part f32 [B, 1], m_part int32 [B, 1])`` of the post-update
         spins when ``with_measure`` (else ``None, None``), and the int32
-        ``[B, H, W]`` labels when ``with_labels`` (else ``None``).
+        ``[B, *shape]`` labels when ``with_labels`` (else ``None``).
     """
-    b, h, w = spins.shape
     bonds = fk_bonds_plain(spins, j_fwd, temps, kb_words, uniforms)
-    labels = fk_link_plain(bonds, (h, w))
+    labels = fk_link_plain(bonds, tuple(spins.shape[1:]))
     e_part, m_part = fk_finish_plain(spins, labels, j_fwd, scalars, wolff=wolff,
                                      with_measure=with_measure)
-    return e_part, m_part, labels.reshape(b, h, w) if with_labels else None
+    return e_part, m_part, labels.reshape(spins.shape) if with_labels else None
 
 
-def launch_link(lib, stream, p_state, p_parent, n_graphs, l0, l1, l2):
+def launch_link(lib, stream, p_state, p_parent, n_graphs, l0, l1, l2, tri=False):
     """Launch ``fk_link`` on raw pointers: label ``n_graphs`` bond graphs of
     an ``(l0, l1, l2)`` lattice (``l2 = 1`` in 2D) whose state bytes hold
-    the forward bonds in bits ``0 .. n_dims - 1``.  The FK update and the
-    overlap moves (:mod:`.overlap`) both label their graphs so."""
+    the forward bonds in bits ``0 .. n_dirs - 1`` (``tri``: the triangular
+    lattice's three).  The FK update and the overlap moves (:mod:`.overlap`)
+    both label their graphs so."""
     _build.check(lib.peapods_fk_link(p_state, p_parent, n_graphs, l0, l1, l2,
-                                     stream), "fk_link")
+                                     int(tri), stream), "fk_link")
     LAUNCHES["fk_link"] += 1
 
 
@@ -143,8 +147,9 @@ def fk_update(spins, j_fwd, temps, scalars, kb_words, *, wolff, with_measure,
               with_labels, uniforms=None):
     """One FK update of every graph (see :func:`fk_update_plain`): the plain
     version for CPU tensors, the ``fk_bonds``, ``fk_link`` and
-    ``fk_finish`` kernels for CUDA tensors.  The kernel partials have one
-    entry per block of 256 sites.  ``uniforms`` (CPU only) are the bond
+    ``fk_finish`` kernels for CUDA tensors (2 or 3 bond directions, see the
+    module docstring).  The kernel partials have one entry per block of 256
+    sites.  ``uniforms`` (CPU only) are the bond
     uniforms of ``kb_words`` drawn ahead by the caller."""
     kw = dict(wolff=wolff, with_measure=with_measure, with_labels=with_labels)
     if _build.device_kind(spins) == "cpu":
@@ -153,13 +158,16 @@ def fk_update(spins, j_fwd, temps, scalars, kb_words, *, wolff, with_measure,
     if uniforms is not None:
         raise ValueError("the FK kernels draw their own uniforms")
     dev = spins.device
-    b, h, w = spins.shape
-    n = h * w
-    d = j_fwd.shape[0]
+    b, shape = spins.shape[0], tuple(spins.shape[1:])
+    n = spins[0].numel()
+    d, n_dirs = j_fwd.shape[0], j_fwd.shape[-1]
+    fk_offsets(shape, n_dirs)  # raises for a graph the kernels do not take
+    tri = len(shape) == 2 and n_dirs == 3
+    l0, l1, l2 = _build.dims3(shape)
     if d == 0 or b % d:
         raise ValueError(f"{b} graphs do not split over {d} realizations")
-    _build.expect(spins, "spins", torch.int8, (b, h, w), dev)
-    _build.expect(j_fwd, "j_fwd", torch.float32, (d, n, 2), dev)
+    _build.expect(spins, "spins", torch.int8, (b, *shape), dev)
+    _build.expect(j_fwd, "j_fwd", torch.float32, (d, n, n_dirs), dev)
     _build.expect(temps, "temps", torch.float32, (b,), dev)
     _build.expect(scalars, "scalars", torch.int32, (b, 3), dev)
     _build.expect(kb_words, "kb_words", torch.int32, (b, 2), dev)
@@ -169,22 +177,22 @@ def fk_update(spins, j_fwd, temps, scalars, kb_words, *, wolff, with_measure,
     stream = torch.cuda.current_stream(dev).cuda_stream
     state = torch.empty((b, n), dtype=torch.uint8, device=dev)
     parent = torch.empty((b, n), dtype=torch.int32, device=dev)
-    labels = (torch.empty((b, h, w), dtype=torch.int32, device=dev)
+    labels = (torch.empty((b, *shape), dtype=torch.int32, device=dev)
               if with_labels else None)
     e_part = m_part = None
     if with_measure:
-        nb = lib.peapods_fk_blocks(h, w)
+        nb = lib.peapods_fk_blocks(n)
         e_part = torch.empty((b, nb), dtype=torch.float32, device=dev)
         m_part = torch.empty((b, nb), dtype=torch.int32, device=dev)
     _build.check(lib.peapods_fk_bonds(
         spins.data_ptr(), j_fwd.data_ptr(), temps.data_ptr(),
         kb_words.data_ptr(), state.data_ptr(), parent.data_ptr(), b, b // d,
-        h, w, stream), "fk_bonds")
+        l0, l1, l2, int(tri), stream), "fk_bonds")
     LAUNCHES["fk_bonds"] += 1
-    launch_link(lib, stream, state.data_ptr(), parent.data_ptr(), b, h, w, 1)
+    launch_link(lib, stream, state.data_ptr(), parent.data_ptr(), b, l0, l1, l2, tri)
     _build.check(lib.peapods_fk_finish(
         spins.data_ptr(), state.data_ptr(), parent.data_ptr(), _ptr(labels),
         j_fwd.data_ptr(), scalars.data_ptr(), _ptr(e_part), _ptr(m_part), b, b // d,
-        h, w, int(wolff), stream), "fk_finish")
+        l0, l1, l2, int(tri), int(wolff), stream), "fk_finish")
     LAUNCHES["fk_finish"] += 1
     return e_part, m_part, labels

@@ -61,7 +61,7 @@ def reset_launches() -> None:
 
 def supports_mega(lattice, n_replicas) -> bool:
     """2D square lattice with even extents and one replica."""
-    return isinstance(lattice, Lattice) and lattice.n_dims == 2 and n_replicas == 1
+    return isinstance(lattice, Lattice) and lattice.square and n_replicas == 1
 
 
 # ------------------------------------------------------------ plain torch

@@ -12,7 +12,9 @@ site ``site`` takes output word ``site % 4``.  A uniform is the word's top
 (``peapods_tpu/ops/pallas_sweep.py:294-298``).
 
 The per-sweep path's sweep uses the same draw with the system index in
-place of the slot (``csrc/sweep.cu``), and the FK update and the overlap
+place of the slot (``csrc/sweep.cu``); on the lattices without a
+checkerboard it counts every site (:func:`site_uniforms`,
+``csrc/sweep_nb.cu``).  The FK update and the overlap
 moves draw their bond uniforms from Philox keyed by each graph's (task's)
 two key words, counter ``(dir, site // 4, 0, 0)`` (:func:`bond_uniforms`,
 ``csrc/fk.cu``, ``csrc/overlap.cu``).
@@ -29,7 +31,7 @@ import math
 import torch
 
 __all__ = ["MASK32", "mul_lo32", "mulhilo32", "philox4x32", "uniform24",
-           "colour_uniforms", "bond_uniforms", "blocked"]
+           "colour_uniforms", "site_uniforms", "bond_uniforms", "blocked"]
 
 MASK32 = 0xFFFFFFFF
 _M0 = 0xD2511F53
@@ -99,6 +101,24 @@ def colour_uniforms(words, n_slots: int, colour: int, shape):
     # full-lattice site (..., col) reads active-colour site row * W/2 + col // 2
     u = u.reshape(*lead, n_slots, h, wh).repeat_interleave(2, dim=-1)
     return u.reshape(*lead, n_slots, *shape)
+
+
+def site_uniforms(words, n_slots: int, colour: int, n_spins: int):
+    """Uniforms of one colour pass of the per-sweep path on a coloured
+    lattice (``csrc/sweep_nb.cu``): f32 ``[..., n_slots, n_spins]`` from
+    int32 key words ``[..., 2]``.  Site ``i`` takes word ``i % 4`` of Philox
+    keyed by the words, counter ``(slot, colour, i // 4, 0)``; only the
+    sites of colour ``colour`` read theirs."""
+    dev = words.device
+    k = words.to(torch.int64) & MASK32
+    lead = k.shape[:-1]
+    k0 = k[..., 0].reshape(*lead, 1, 1)
+    k1 = k[..., 1].reshape(*lead, 1, 1)
+    slot = torch.arange(n_slots, device=dev, dtype=torch.int64)[:, None]
+    grp = torch.arange((n_spins + 3) // 4, device=dev, dtype=torch.int64)
+    zero = torch.zeros((), device=dev, dtype=torch.int64)
+    out = philox4x32(k0, k1, slot, zero + colour, grp, zero)
+    return uniform24(torch.stack(out, dim=-1)).flatten(-2)[..., :n_spins]
 
 
 def bond_uniforms(words, n_spins: int, n_dirs: int = 2, first: int = 0):

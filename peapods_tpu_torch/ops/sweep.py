@@ -21,6 +21,19 @@ of every (realization, system) at each system's temperature, for runs with
 a cluster phase.  On CUDA tensors it launches ``csrc/sweep.cu`` twice (one
 launch per colour) and counts them in :data:`LAUNCHES`; on CPU tensors it
 runs :func:`sweep_2d_plain`, which draws the same Philox uniforms.
+
+:func:`sweep_nb` is the sweep of every other lattice (triangular, BCC, FCC,
+3D cubic with one replica, any offset table): one pass per colour of the
+lattice's greedy colouring, the port of ``pallas_sweep_tri``,
+``pallas_sweep3d``, ``pallas_sweep_diag.sweep_diag`` and ``sweep_gen``,
+which all compute ``mc_sweep`` (``peapods_tpu/ops/sweep.py:74-123``).  Its
+plain version is :func:`mc_sweep` with the reference's order of adds
+(``local_fields`` :53-71) and rules::
+
+    Metropolis: flip iff u < (15/16) * exp(min(-s * field * (1 / (T/2)), 0))
+    Gibbs:      flip iff -s * field >= (T/2) * ln(u / (1 - u))
+
+On CUDA tensors it launches ``csrc/sweep_nb.cu`` once per colour.
 """
 
 from __future__ import annotations
@@ -29,6 +42,7 @@ import torch
 
 from . import _build, rng
 from .energy import per_spin
+from .lattice import neighbour_values
 
 __all__ = [
     "METROPOLIS_LAZINESS",
@@ -41,10 +55,14 @@ __all__ = [
     "sweep",
     "sweep_2d",
     "sweep_2d_plain",
+    "nb_local_fields",
+    "mc_sweep",
+    "sweep_nb",
+    "sweep_nb_plain",
 ]
 
 # kernel launches since the last reset, by kernel name
-LAUNCHES = {"sweep_2d": 0}
+LAUNCHES = {"sweep_2d": 0, "sweep_nb": 0}
 
 # Acceptance-probability scale 1-eps of the lazy synchronous Metropolis
 # kernel (peapods_tpu/ops/sweep.py:50).
@@ -228,3 +246,97 @@ def sweep_2d(spins, jgrids, sys_temps, words, *, gibbs, measure=False,
         ), "sweep_2d")
         LAUNCHES["sweep_2d"] += 1
     return parts
+
+
+# ------------------------------------------------- coloured lattices
+
+
+def nb_local_fields(s, coup_fwd, coup_bwd, lattice):
+    """f32 local field of every site (``local_fields``,
+    peapods_tpu/ops/sweep.py:53-71): ``s`` f32 ``[..., n_spins]``, forward
+    and backward couplings ``[..., n_spins, n_neighbors]`` (broadcast);
+    ``h += s_fwd * J_fwd[d]``, then ``h += s_bwd * J_bwd[d]``, for each
+    offset ``d`` in order."""
+    h = torch.zeros_like(s)
+    for d, off in enumerate(lattice.offsets):
+        h = h + neighbour_values(s, lattice.shape, off) * coup_fwd[..., d]
+        h = h + neighbour_values(s, lattice.shape, -off) * coup_bwd[..., d]
+    return h
+
+
+def mc_sweep(spins, coup_fwd, coup_bwd, colours, lattice, sys_temps, uniforms, *,
+             gibbs):
+    """One sweep of every system, each colour of ``colours`` in turn
+    (``mc_sweep(uniforms=)``, peapods_tpu/ops/sweep.py:74-123): int8
+    ``spins [..., n_spins]``, couplings ``[..., n_spins, n_neighbors]``
+    (broadcast), the colour table uint8 ``[n_spins]``, ``sys_temps [...]``
+    and uniforms ``[n_colors, ..., n_spins]``; returns the new spins."""
+    for c in range(lattice.n_colors):
+        s = spins.to(torch.float32)
+        eng_change = -s * nb_local_fields(s, coup_fwd, coup_bwd, lattice)
+        u = uniforms[c]
+        if gibbs:
+            half_t = (sys_temps * 0.5)[..., None]
+            flip = eng_change >= half_t * torch.log(u / (1.0 - u))
+        else:
+            inv_half_t = (1.0 / (sys_temps * 0.5))[..., None]
+            flip = u < _KEEP * torch.exp(torch.clamp(eng_change * inv_half_t, max=0.0))
+        spins = torch.where(flip & (colours == c), -spins, spins)
+    return spins
+
+
+def sweep_nb_plain(spins, coup_fwd, coup_bwd, colours, sys_temps, words, lattice,
+                   *, gibbs, uniforms=None):
+    """One sweep (each colour in turn) of every (realization, system), in
+    place.
+
+    Args:
+        spins: int8 ``[d, S, n_spins]`` by system.
+        coup_fwd, coup_bwd: f32 ``[d, n_spins, n_neighbors]`` forward
+            couplings and ``J[i - off_d, d]``.
+        colours: uint8 ``[n_spins]`` the lattice's colouring.
+        sys_temps: f32 ``[d, S]``.
+        words: int32 ``[d, 2]`` the sweep's key words (unused when
+            ``uniforms`` is given): Philox, counter ``(system, colour,
+            site // 4, 0)`` (:func:`~.rng.site_uniforms`).
+        uniforms: optional f32 ``[d, n_colors, S, n_spins]``.
+    """
+    n_sys, n = spins.shape[1:]
+    u = (uniforms.transpose(0, 1) if uniforms is not None else torch.stack(
+        [rng.site_uniforms(words, n_sys, c, n) for c in range(lattice.n_colors)]))
+    spins.copy_(mc_sweep(spins, coup_fwd[:, None], coup_bwd[:, None], colours, lattice,
+                         sys_temps, u, gibbs=gibbs))
+
+
+def sweep_nb(spins, coup_fwd, coup_bwd, colours, sys_temps, words, lattice, *,
+             gibbs, uniforms=None):
+    """One sweep of every (realization, system) on a coloured lattice (see
+    :func:`sweep_nb_plain`): the plain version for CPU tensors, one launch
+    of the ``sweep_nb`` kernel per colour for CUDA tensors.  ``uniforms``
+    (CPU only) are the sweep's Philox uniforms drawn ahead by the caller."""
+    if _build.device_kind(spins) == "cpu":
+        sweep_nb_plain(spins, coup_fwd, coup_bwd, colours, sys_temps, words,
+                       lattice, gibbs=gibbs, uniforms=uniforms)
+        return
+    if uniforms is not None:
+        raise ValueError("the sweep_nb kernel draws its own uniforms")
+    dev = spins.device
+    d, n_sys, n = spins.shape
+    nb = lattice.n_neighbors
+    _build.expect(spins, "spins", torch.int8, (d, n_sys, lattice.n_spins), dev)
+    _build.expect(coup_fwd, "coup_fwd", torch.float32, (d, n, nb), dev)
+    _build.expect(coup_bwd, "coup_bwd", torch.float32, (d, n, nb), dev)
+    _build.expect(colours, "colours", torch.uint8, (n,), dev)
+    _build.expect(sys_temps, "sys_temps", torch.float32, (d, n_sys), dev)
+    _build.expect(words, "words", torch.int32, (d, 2), dev)
+    if d > 65535 or n_sys > 65535:
+        raise ValueError("at most 65535 realizations and systems")
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    geom = lattice.kernel_geometry.ctypes.data
+    for colour in range(lattice.n_colors):
+        _build.check(lib.peapods_sweep_nb(
+            spins.data_ptr(), coup_fwd.data_ptr(), coup_bwd.data_ptr(),
+            colours.data_ptr(), sys_temps.data_ptr(), words.data_ptr(), geom, d,
+            n_sys, colour, int(gibbs), stream), "sweep_nb")
+        LAUNCHES["sweep_nb"] += 1

@@ -160,7 +160,7 @@ def zero_uniforms(monkeypatch):
         lambda words, n, c, shape: torch.zeros(words.shape[:-1] + (n, *shape)))
     monkeypatch.setattr(
         trng, "bond_uniforms",
-        lambda words, n: torch.zeros(words.shape[:-1] + (n, 2)))
+        lambda words, n, n_dirs=2: torch.zeros(words.shape[:-1] + (n, n_dirs)))
 
 
 @pytest.mark.parametrize(

@@ -4,7 +4,8 @@ Every test here needs an NVIDIA GPU and skips without one.  They cover the
 mega path's kernels (colour_pass, pt_step), the per-sweep path's
 (sweep_2d and the three FK kernels) and the replica path's (colour_pass in
 3D, pt_step on R ladders, pair_overlap, the ov_* overlap-move kernels and
-energy_partials).  On a machine
+energy_partials) and the coloured lattices' (sweep_nb, measure_nb and the
+FK kernels with three bond directions).  On a machine
 with a GPU (jax is not needed; ``--noconftest`` skips the JAX package's
 test configuration):
 
@@ -550,3 +551,168 @@ def test_replica_sample_on_card_matches_the_cpu(cuda, shape, build, wolff, pt_fu
         np.testing.assert_allclose(ra[key], rc[key], rtol=1e-12, err_msg=key)
     np.testing.assert_array_equal(np.asarray(ra["overlap_histogram"]),
                                   np.asarray(rc["overlap_histogram"]))
+
+
+# --------------------------------------------- the coloured lattices
+
+NNN = [[1, 0], [0, 1], [1, 1], [1, -1]]
+NB_SHAPES = [
+    ("config2-tri", (32, 32), "triangular", 1, 8),
+    ("cubic-32", (32, 32, 32), None, 1, 16),
+    ("bcc-16", (16, 16, 16), "bcc", 1, 8),
+    ("fcc-16", (16, 16, 16), "fcc", 1, 8),
+    ("nnn-64", (64, 64), NNN, 1, 8),
+    ("fcc-2x2x4", (2, 2, 4), "fcc", 2, 3),
+    ("tri-6x10", (6, 10), "tri", 3, 5),
+]
+
+
+def _nb_inputs(dev, seed, shape, geometry, d, n_sys, couplings="pm"):
+    """A coloured lattice's sweep inputs: couplings and their backward twins
+    [d, n, n_nb], the colour table, spins [d, S, n], temperatures, words."""
+    from peapods_tpu_torch.ops.lattice import GEOMETRY_OFFSETS, Lattice
+
+    offsets = GEOMETRY_OFFSETS[geometry] if isinstance(geometry, str) else geometry
+    lat = Lattice(shape, offsets)
+    rng = np.random.default_rng(seed)
+    n, nb = lat.n_spins, lat.n_neighbors
+    coup = (rng.choice([-1.0, 1.0], size=(d, n, nb)) if couplings == "pm"
+            else rng.standard_normal((d, n, nb))).astype(np.float32)
+    coup_bwd = coup[:, lat.bwd, np.arange(nb)[None, :]]
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return lat, dict(
+        spins=up(rng.choice([-1, 1], size=(d, n_sys, n)).astype(np.int8)),
+        coup=up(coup), coup_bwd=up(coup_bwd),
+        colours=up(lat.colors.astype(np.uint8)),
+        sys_temps=up(rng.uniform(1.5, 9.0, (d, n_sys)).astype(np.float32)),
+        words=up(rng.integers(-2**31, 2**31, (d, 2)).astype(np.int32)))
+
+
+@pytest.mark.parametrize("gibbs", [False, True], ids=["metropolis", "gibbs"])
+@pytest.mark.parametrize("name,shape,geometry,d,n_sys", NB_SHAPES,
+                         ids=[s[0] for s in NB_SHAPES])
+def test_sweep_nb_and_measure_nb_kernels_match_plain(cuda, name, shape, geometry, d,
+                                                     n_sys, gibbs):
+    """Four sweeps, each colour a launch: spins bitwise; the (e, m) partial
+    sums bitwise (+-1 couplings: exact integers in any order)."""
+    from peapods_tpu_torch.ops import energy
+
+    lat, x = _nb_inputs(cuda, 3 + d + n_sys, shape, geometry, d, n_sys)
+    a, b = x["spins"].clone(), x["spins"].clone()
+    args = (x["coup"], x["coup_bwd"], x["colours"], x["sys_temps"])
+    sweep.LAUNCHES["sweep_nb"] = 0
+    energy.LAUNCHES["measure_nb"] = 0
+    for step in range(4):
+        sweep.sweep_nb(a, *args, x["words"], lat, gibbs=gibbs)
+        sweep.sweep_nb_plain(b, *args, x["words"], lat, gibbs=gibbs)
+        ek, mk = energy.measure_nb(a, x["coup"], lat)
+        ep, mp = energy.measure_nb_plain(b, x["coup"], lat)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), step
+        assert torch.equal(ek.sum(-1), ep.sum(-1)), step
+        assert torch.equal(mk.sum(-1), mp.sum(-1)), step
+        x["words"] = x["words"] * 3 + 1
+    assert sweep.LAUNCHES["sweep_nb"] == 4 * lat.n_colors
+    assert energy.LAUNCHES["measure_nb"] == 4
+    assert not torch.equal(a, x["spins"])
+
+
+def test_sweep_nb_gaussian_couplings_match_plain(cuda):
+    """Gaussian couplings on FCC: spins bitwise (the field adds its terms in
+    the plain version's order), e to rtol 1e-5 (partials in another
+    order)."""
+    from peapods_tpu_torch.ops import energy
+
+    lat, x = _nb_inputs(cuda, 9, (8, 8, 8), "fcc", 2, 4, couplings="gauss")
+    a, b = x["spins"].clone(), x["spins"].clone()
+    args = (x["coup"], x["coup_bwd"], x["colours"], x["sys_temps"], x["words"], lat)
+    for gibbs in (False, True):
+        sweep.sweep_nb(a, *args, gibbs=gibbs)
+        sweep.sweep_nb_plain(b, *args, gibbs=gibbs)
+    ek, mk = energy.measure_nb(a, x["coup"], lat)
+    ep, mp = energy.measure_nb_plain(b, x["coup"], lat)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert torch.equal(mk.sum(-1), mp.sum(-1))
+    torch.testing.assert_close(ek.sum(-1), ep.sum(-1), rtol=1e-5, atol=1e-4)
+
+
+def test_sweep_nb_rejects_what_the_kernel_does_not_take(cuda):
+    lat, x = _nb_inputs(cuda, 5, (8, 8), "tri", 1, 2)
+    args = (x["coup"], x["coup_bwd"], x["colours"])
+    with pytest.raises(ValueError):  # the kernel draws its own uniforms
+        sweep.sweep_nb(x["spins"], *args, x["sys_temps"], x["words"], lat,
+                       gibbs=False, uniforms=torch.zeros(1, device=cuda))
+    with pytest.raises(ValueError):
+        sweep.sweep_nb(x["spins"], *args, x["sys_temps"].double(), x["words"], lat,
+                       gibbs=False)
+    with pytest.raises(ValueError):
+        sweep.sweep_nb(x["spins"], x["coup"][..., :2].contiguous(), *args[1:],
+                       x["sys_temps"], x["words"], lat, gibbs=False)
+
+
+@pytest.mark.parametrize("wolff", [False, True], ids=["sw", "wolff"])
+@pytest.mark.parametrize("shape,d,n_sys,temp", [
+    ((32, 32), 1, 8, 3.64), ((8, 16), 2, 3, 3.64), ((32, 32, 32), 1, 4, 4.51),
+    ((8, 8, 8), 2, 3, 4.51),
+], ids=["config2-tri", "tri-8x16", "cubic-32", "cubic-8"])
+def test_fk_update_three_directions_kernel_matches_plain(cuda, shape, d, n_sys, temp,
+                                                         wolff):
+    """The FK kernels with three bond directions (the triangular lattice's
+    [1, -1], or z) near T_c: spins, labels, m and e bitwise (+-1)."""
+    from peapods_tpu_torch.engine import seeds
+
+    rng = np.random.default_rng(len(shape) + d + wolff)
+    b, n = d * n_sys, int(np.prod(shape))
+    coup = torch.from_numpy(rng.choice([-1.0, 1.0], size=(d, n, 3)).astype(
+        np.float32)).to(cuda)
+    kf = rng.integers(0, 2**32, (b, 2), dtype=np.uint64).astype(np.uint32)
+    scal = torch.from_numpy(seeds.fk_scalars(kf, n, wolff=wolff)).to(cuda)
+    kb = torch.from_numpy(rng.integers(-2**31, 2**31, (b, 2)).astype(np.int32)).to(cuda)
+    temps = torch.full((b,), temp, device=cuda)
+    s0 = torch.from_numpy(rng.choice([-1, 1], size=(b, *shape)).astype(np.int8)).to(cuda)
+    ka, kp = s0.clone(), s0.clone()
+    for k in fk.LAUNCHES:
+        fk.LAUNCHES[k] = 0
+    kw = dict(wolff=wolff, with_measure=True, with_labels=True)
+    ek, mk, lk = fk.fk_update(ka, coup, temps, scal, kb, **kw)
+    ep, mp, lp = fk.fk_update_plain(kp, coup, temps, scal, kb, **kw)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES == {"fk_bonds": 1, "fk_link": 1, "fk_finish": 1}
+    assert torch.equal(ka, kp)
+    assert torch.equal(lk, lp)
+    e_k, m_k = fk.fk_energy_mag(ek, mk, n)
+    e_p, m_p = fk.fk_energy_mag(ep, mp, n)
+    assert torch.equal(m_k, m_p)
+    assert torch.equal(e_k, e_p)
+    assert not torch.equal(ka, s0)
+
+
+@pytest.mark.parametrize("shape,geometry,couplings,kw", [
+    ((8, 16), "triangular", "bimodal",
+     dict(cluster_update_interval=2, cluster_mode="wolff", pt_interval=1,
+          collect_cluster_stats=True)),
+    ((8, 8, 8), None, "bimodal",
+     dict(cluster_update_interval=1, cluster_mode="sw", pt_interval=1,
+          pt_schedule="full_ladder")),
+    ((4, 4, 8), "fcc", "bimodal", dict(pt_interval=1, sweep_mode="gibbs")),
+    ((8, 8), NNN, "ferro", dict(pt_interval=2)),
+], ids=["tri-wolff", "cubic-sw-full", "fcc-gibbs", "nnn"])
+def test_geometry_sample_on_card_matches_the_cpu(cuda, shape, geometry, couplings, kw):
+    """The per-sweep path on a coloured lattice: the kernels on the card and
+    the plain path on the CPU follow one trajectory (+-1 couplings: every
+    energy sum is an exact integer)."""
+    geo = dict(geometry=geometry) if isinstance(geometry, str) else dict(
+        neighbor_offsets=geometry)
+    temps = np.geomspace(3.0, 6.0, 3).astype(np.float32)
+    a = Ising(shape, couplings=couplings, temperatures=temps, seed=4, n_disorder=2,
+              device="cuda", **geo)
+    c = Ising(shape, couplings=couplings, temperatures=temps, seed=4, n_disorder=2,
+              device="cpu", **geo)
+    ra, rc = a.sample(40, **kw), c.sample(40, **kw)
+    for key in ("spins", "system_ids", "pt_edge_acceptances"):
+        assert torch.equal(a._sim.state[key].cpu(), c._sim.state[key]), key
+    for key in ("mags", "mags2", "energies", "energies2"):
+        np.testing.assert_allclose(ra[key], rc[key], rtol=1e-12, err_msg=key)
+    if "fk_csd" in rc:
+        np.testing.assert_array_equal(np.asarray(ra["fk_csd"]), np.asarray(rc["fk_csd"]))

@@ -419,4 +419,6 @@ def test_overlap_needs_enough_replicas():
     with pytest.raises(ValueError, match="n_replicas >= max group_size"):
         m.sample(4, overlap_cluster_update_interval=1)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Ising((4, 4, 4), temperatures=[2.0], seed=1, device="cpu")  # one replica
+        # replicas on a lattice other than square or cubic
+        Ising((4, 4, 4), geometry="fcc", temperatures=[2.0], n_replicas=2, seed=1,
+              device="cpu")

@@ -192,10 +192,10 @@ def test_out_of_slice_sample_options_raise(kwargs):
 @pytest.mark.parametrize(
     "kwargs",
     [
-        dict(lattice_shape=(4, 4, 4)),
+        dict(lattice_shape=(4, 4, 4), geometry="bcc", n_replicas=2),
         dict(lattice_shape=(5, 4)),
         dict(lattice_shape=(4, 4, 5), n_replicas=2),
-        dict(lattice_shape=(4, 4), geometry="tri"),
+        dict(lattice_shape=(4, 4), geometry="tri", n_replicas=2),
     ],
     ids=["3d", "odd", "replicas", "geometry"],
 )
