@@ -33,7 +33,18 @@ through the user's entry points:
   against exact enumeration; ``sweep_nb`` and ``measure_nb`` against their
   plain versions at each path's shape, the FK kernels with three bond
   directions at config 2 and 32^3, and ``sweep_2d`` at 32^2 x 16 (the TPU's
-  narrow-lattice sweep).
+  narrow-lattice sweep);
+* FK observe and the staged FK path: 256^2 SW observe at T_c through
+  ``Ising.sample`` twice from one seed (the observations' invariants, the
+  active-bond density against p x the satisfied-bond fraction, the rate),
+  SW observe + PT on the harness shape (2048 graphs a sweep), SW + PT +
+  cluster statistics on 16^3 BCC and FCC and SW observe + PT on the 64^2
+  next-nearest-neighbour table through the staged path (bonds,
+  ``cc_link`` / ``cc_label``, flips), NNN observe against the same run
+  without the observer (bitwise), a 4x4 NNN magnet with staged SW against
+  exact enumeration, and each new kernel (``winding``, ``cc_link``,
+  ``cc_label``, ``fk_bonds_nb``, ``fk_finish`` in observe form and reading
+  the CC labels) held against its plain version on those runs' states.
 
 Each path's launch counts are zeroed just before its main run and read just
 after.  Every phase prints lines; any failure raises and the script exits
@@ -485,9 +496,10 @@ def plain_path_rate(sim, n):
 
 
 def reset_cluster_counts():
-    from peapods_tpu_torch.ops import energy, fk, mega, sweep
+    from peapods_tpu_torch.ops import cc, energy, fk, mega, sweep, winding
 
-    for table in (sweep.LAUNCHES, fk.LAUNCHES, mega.LAUNCHES, energy.LAUNCHES):
+    for table in (sweep.LAUNCHES, fk.LAUNCHES, mega.LAUNCHES, energy.LAUNCHES,
+                  cc.LAUNCHES, winding.LAUNCHES):
         for k in table:
             table[k] = 0
 
@@ -495,10 +507,10 @@ def reset_cluster_counts():
 def cluster_counts():
     """The per-sweep path's launches since the last reset, the kernels that
     ran."""
-    from peapods_tpu_torch.ops import energy, fk, mega, sweep
+    from peapods_tpu_torch.ops import cc, energy, fk, mega, sweep, winding
 
-    counts = {**sweep.LAUNCHES, **fk.LAUNCHES, **energy.LAUNCHES,
-              "pt_step": mega.LAUNCHES["pt_step"]}
+    counts = {**sweep.LAUNCHES, **fk.LAUNCHES, **energy.LAUNCHES, **cc.LAUNCHES,
+              **winding.LAUNCHES, "pt_step": mega.LAUNCHES["pt_step"]}
     return {k: v for k, v in counts.items() if v}
 
 
@@ -868,13 +880,14 @@ def profile_window(model, kw, sweeps_s, n,
     a model's main-path run, from the profiler's kernel records: per launch
     and per sweep, and the share of the unprofiled wall time per sweep that
     the device is busy."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         model.sample(n, "metropolis", **dict(kw, warmup_ratio=0.0))
         torch.cuda.synchronize()
-    per_launch, per_sweep, other = {}, {}, 0.0
+    per_launch, per_sweep, others = {}, {}, {}
     for ev in prof.key_averages():
         if ev.self_device_time_total <= 0:
             continue
@@ -882,15 +895,19 @@ def profile_window(model, kw, sweeps_s, n,
         if hit:
             per_launch[hit[0]] = ev.self_device_time_total / ev.count
             per_sweep[hit[0]] = ev.self_device_time_total / n
-        else:
-            other += ev.self_device_time_total / n
+        elif ev.device_type != DeviceType.CPU:  # a torch op's kernels, not the op
+            others[ev.key] = others.get(ev.key, 0.0) + ev.self_device_time_total / n
     missing = [k for k in names if k not in per_launch]
     if missing:
         raise AssertionError(f"the profiler saw no device time for {missing}")
+    other = sum(others.values())
     busy = sum(per_sweep.values()) + other
+    top = sorted(others.items(), key=lambda kv: -kv[1])[:3]
     line = ("device us per sweep: " + ", ".join(
         f"{k} {v:.3f}" for k, v in per_sweep.items())
-        + f", other device work {other:.3f}, sum {busy:.3f} against "
+        + f", other device work {other:.3f} (most: " + "; ".join(
+            f"{k[:60]} {v:.3f}" for k, v in top)
+        + f"), sum {busy:.3f} against "
         f"{1e6 / sweeps_s:.3f} us of wall time per sweep: the device is busy "
         f"{busy * sweeps_s / 1e6:.3f} of it")
     return per_launch, line
@@ -1498,14 +1515,25 @@ def nb_model(c, dev, seed=None):
 
 
 def nb_want(model, kw, n):
-    """Launches of ``n`` sweeps from sweep 0 on a coloured lattice: a
-    ``sweep_nb`` launch per colour, then the FK kernels on cluster sweeps or
-    ``measure_nb`` on the others, and one ``pt_step``."""
-    n_col = model._sim.rt.lattice.n_colors
+    """Launches of ``n`` sweeps from sweep 0 (all recorded) on a coloured
+    lattice: a ``sweep_nb`` launch per colour; on cluster sweeps the FK
+    kernels (square, triangular, cubic: their update measures) or the
+    staged path's ``fk_bonds_nb``, ``cc_link``, ``cc_label`` and, to update,
+    ``fk_finish`` (BCC, FCC, offset tables); ``measure_nb`` on every sweep
+    the FK kernels did not measure; and one ``pt_step``."""
+    from peapods_tpu_torch.ops.fk import fused_lattice
+
+    lat = model._sim.rt.lattice
     k = kw.get("cluster_update_interval")
     n_fk = len(range(0, n, k)) if k else 0
-    want = {"sweep_nb": n_col * n, "measure_nb": n - n_fk, "pt_step": n}
-    want.update({f: n_fk for f in ("fk_bonds", "fk_link", "fk_finish")})
+    update = kw.get("cluster_action", "update") == "update"
+    want = {"sweep_nb": lat.n_colors * n, "pt_step": n}
+    if fused_lattice(lat):
+        want.update({f: n_fk for f in ("fk_bonds", "fk_link", "fk_finish")})
+        want["measure_nb"] = n - n_fk if update else n
+    else:
+        want.update(fk_bonds_nb=n_fk, cc_link=n_fk, cc_label=n_fk,
+                    fk_finish=n_fk if update else 0, measure_nb=n)
     return {key: v for key, v in want.items() if v}
 
 
@@ -1760,6 +1788,18 @@ def check_sweep_2d_row4(dev, rng, card):
                 launches=launches)
 
 
+def exact_moments(lat, T):
+    """Exact <E>/N and <m^2> of a ferromagnet on a small lattice by
+    enumeration of its states, the bonds from the forward table."""
+    n = lat.n_spins
+    states = (((np.arange(2**n)[:, None] >> np.arange(n)[None, :]) & 1) * 2 - 1)
+    bonds = np.repeat(np.arange(n), lat.n_neighbors)
+    E = (states[:, bonds] * states[:, lat.fwd.reshape(-1)]).sum(1).astype(np.float64)
+    M = states.sum(1).astype(np.float64)
+    w = np.exp((E - E.max()) / T)
+    return (E * w).sum() / w.sum() / n, ((M / n) ** 2 * w).sum() / w.sum()
+
+
 def exact_tri_4x4(dev):
     """The 4x4 triangular ferromagnet against exact enumeration, Metropolis
     and Wolff every sweep (8 chains of 4000 sweeps each)."""
@@ -1767,15 +1807,7 @@ def exact_tri_4x4(dev):
     from peapods_tpu_torch.ops.lattice import GEOMETRY_OFFSETS, Lattice
 
     T = 4.0
-    lat = Lattice((4, 4), GEOMETRY_OFFSETS["triangular"])
-    n = lat.n_spins
-    states = (((np.arange(2**n)[:, None] >> np.arange(n)[None, :]) & 1) * 2 - 1)
-    E = (states[:, np.repeat(np.arange(n), 3)] * states[:, lat.fwd.reshape(-1)]).sum(1)
-    E = E.astype(np.float64)
-    M = states.sum(1).astype(np.float64)
-    w = np.exp((E - E.max()) / T)
-    e_ex = (E * w).sum() / w.sum() / n
-    m2_ex = ((M / n) ** 2 * w).sum() / w.sum()
+    e_ex, m2_ex = exact_moments(Lattice((4, 4), GEOMETRY_OFFSETS["triangular"]), T)
     for name, kw in (("metropolis", {}),
                      ("wolff", dict(cluster_update_interval=1, cluster_mode="wolff"))):
         m = Ising((4, 4), geometry="triangular", temperatures=np.array([T], np.float32),
@@ -1893,6 +1925,493 @@ def add_nb_records(kernels, nb):
         kernels.append(kr)
 
 
+# ------------------------------------------------ FK observe and the staged path
+
+
+# the main workload of FK observe: the fk arm of benchmarks/observe_ab.py:35-53,
+# uncut (256^2 at T_c, Metropolis, SW observe every sweep)
+OBSERVE_SWEEPS = 1024
+OBSERVE_KW = dict(cluster_update_interval=1, cluster_mode="sw", cluster_action="observe")
+# the harness shape with SW observe and PT every sweep: 2048 graphs a sweep
+HARNESS_OBSERVE_SWEEPS = 32
+# the staged FK path: the BCC and FCC paths of NB_PATHS with SW, PT and cluster
+# statistics every sweep, and the next-nearest-neighbour table with SW
+# observe every 2 sweeps and PT (no winding: an offset table is not the
+# canonical lattice)
+STAGED_PATHS = {
+    "bcc16_sw": dict(NB_PATHS["bcc16"], kw=dict(
+        cluster_update_interval=1, cluster_mode="sw", pt_interval=1,
+        collect_cluster_stats=True)),
+    "fcc16_sw": dict(NB_PATHS["fcc16"], kw=dict(
+        cluster_update_interval=1, cluster_mode="sw", pt_interval=1,
+        collect_cluster_stats=True)),
+    "nnn64_observe": dict(NB_PATHS["nnn64"], kw=dict(OBSERVE_KW, cluster_update_interval=2,
+                                                     pt_interval=1)),
+}
+FK_OBS_KEYS = ("observation_count", "cluster_size_counts", "top_four_component_fractions",
+               "active_bond_density", "large_component_count")
+WINDING_KEYS = ("winding_x", "winding_y", "winding_either", "winding_both")
+CC_SRC = "peapods_tpu_torch/csrc/cc.cu"
+CC_REPLACES = "peapods_tpu/ops/pallas_cc_batch.py:394"  # _cc_batch_kernel (row 14)
+CC2D_REPLACES = "peapods_tpu/ops/pallas_cc.py:47"  # _cc_kernel (row 15)
+WINDING_REPLACES = "peapods_tpu/ops/pallas_cc_batch.py:501"  # _winding_kernel (row 16)
+FUSED_REPLACES = "peapods_tpu/ops/pallas_sweep.py:313"  # _kernel_fused (row 2)
+
+
+def run_checksum(sim, result) -> str:
+    """:func:`state_checksum` and every FK observation sum and cluster-size
+    histogram of the result."""
+    h = hashlib.sha256(state_checksum(sim, result).encode())
+    fk = result.get("per_disorder", {}).get("cluster_observations", {}).get("fk", {})
+    for key in sorted(fk):
+        h.update(np.ascontiguousarray(fk[key]).tobytes())
+    if "fk_csd" in result:
+        h.update(np.ascontiguousarray(result["fk_csd"]).tobytes())
+    return h.hexdigest()[:16]
+
+
+def check_observations(result, sim, n_obs, winding):
+    """The FK observations of a run: the reference's keys (the winding ones
+    only on the canonical square) and dtypes, ``n_obs`` graphs a
+    temperature and realization, every site in one cluster of each graph
+    (sum_s s csd[s] = n_spins x observation_count, exact), fractions in [0,
+    1] with the top four descending, and either >= max(x, y), both <=
+    min(x, y).  Returns the observations."""
+    fk = result["per_disorder"]["cluster_observations"]["fk"]
+    keys = set(FK_OBS_KEYS) | (set(WINDING_KEYS) if winding else set())
+    if set(fk) != keys:
+        raise AssertionError(f"FK observation keys {sorted(fk)}, expected {sorted(keys)}")
+    cnt, csd = fk["observation_count"], fk["cluster_size_counts"]
+    if cnt.dtype != np.uint64 or csd.dtype != np.uint64 or not (cnt == n_obs).all():
+        raise AssertionError(f"observation counts {cnt} ({cnt.dtype}), expected {n_obs}")
+    n = sim.rt.n_spins
+    sites = (csd.astype(np.float64) * np.arange(n + 1)).sum(-1)
+    if not (sites == n * cnt.astype(np.float64)).all():
+        raise AssertionError("the cluster sizes do not add up to the sites")
+    top4 = fk["top_four_component_fractions"]
+    fr = [top4, fk["active_bond_density"]] + [fk[k] for k in WINDING_KEYS if winding]
+    if not all(f.dtype == np.float64 and (f >= 0).all() and (f <= 1).all() for f in fr):
+        raise AssertionError("an FK fraction outside [0, 1]")
+    if not ((np.diff(top4, axis=-1) <= 0).all() and (top4.sum(-1) <= 1 + 1e-12).all()):
+        raise AssertionError(f"top-4 fractions {top4}")
+    if winding:
+        wx, wy = fk["winding_x"], fk["winding_y"]
+        if not ((fk["winding_either"] >= np.maximum(wx, wy)).all()
+                and (fk["winding_both"] <= np.minimum(wx, wy)).all()):
+            raise AssertionError("winding either / both against x, y")
+    return fk
+
+
+def observe_main(dev, card):
+    """Phase 20: the main workload, 256^2 SW observe at T_c, through
+    Ising.sample twice from one seed: launch counts, two equal checksums
+    (spins, records, every observation), the observations' invariants, the
+    active-bond density against p x the satisfied-bond fraction (batch
+    means), and the rate over three warm calls."""
+    from peapods_tpu_torch import Ising
+
+    temps = np.array([T_C], np.float32)
+    n = OBSERVE_SWEEPS
+    kw = dict(OBSERVE_KW, warmup_ratio=0.0)
+    checks, models = [], []
+    for run in range(2):
+        model = Ising((L, L), temperatures=temps, seed=3, device=dev)
+        torch.cuda.synchronize()
+        reset_cluster_counts()
+        result = model.sample(n, "metropolis", **kw)
+        torch.cuda.synchronize()
+        if run == 0:
+            launches, r0 = cluster_counts(), result
+        checks.append(run_checksum(model._sim, result))
+        models.append(model)
+    want = {"sweep_2d": 2 * n, "fk_bonds": n, "fk_link": n, "fk_finish": n,
+            "winding": n, "pt_step": n}
+    if launches != want:
+        raise AssertionError(f"observe launch counts {launches}, expected {want}")
+    if checks[0] != checks[1]:
+        raise AssertionError(f"observe checksums differ: {checks}")
+    fk = check_observations(r0, models[0]._sim, n, winding=True)
+    log("20 observe", f"{L}x{L} SW observe at T_c = {T_C:.6f}, {n} sweeps on {dev}: "
+        f"launches {launches}; checksum {checks[0]} == {checks[1]}; observations "
+        f"ok: top-4 {np.round(fk['top_four_component_fractions'][0, 0], 5).tolist()}, "
+        f"bond density {fk['active_bond_density'][0, 0]:.6f}, large "
+        f"{fk['large_component_count'][0, 0]:.4f}, winding x / y / either / both "
+        f"{[round(float(fk[k][0, 0]), 4) for k in WINDING_KEYS]}")
+    # E[active bonds | spins] = p x satisfied bonds on every observed sweep,
+    # and the sweep's e is measured on those spins: e per spin is the sum of
+    # s_i s_j over its 2 bonds, so the satisfied fraction is (1 + e / 2) / 2
+    p = 1.0 - np.exp(-2.0 / T_C)
+    resid = []
+    for _ in range(8):
+        r = models[1].sample(256, "metropolis", **kw)
+        dens = r["per_disorder"]["cluster_observations"]["fk"]["active_bond_density"]
+        resid.append(dens[0, 0] - p * (1.0 + r["energies"][0] / 2.0) / 2.0)
+    resid = np.array(resid)
+    se = resid.std(ddof=1) / np.sqrt(len(resid))
+    if not abs(resid.mean()) < 4 * se:
+        raise AssertionError(f"bond density - p x satisfied fraction: {resid.mean()} "
+                             f"+- {se}")
+    log("20 observe", f"bond density - p x satisfied fraction (p = {p:.6f}), 8 batches "
+        f"of 256 sweeps: {resid.mean():.3e} +- {se:.3e} (limit 4 standard errors) ok")
+    sweeps_s, rates = warm_rate(models[1], n, OBSERVE_KW)
+    log("20 observe", f"kernel path: {sweeps_s:.1f} sweeps/s = {sweeps_s * L * L:.4e} "
+        f"flips/s (single-spin attempts) on {card} (median of "
+        f"{', '.join(f'{r:.1f}' for r in rates)} sweeps/s)")
+    return dict(model=models[1], launches=launches, sweeps_s=sweeps_s, kw=OBSERVE_KW,
+                checksum=checks[0])
+
+
+def observe_harness(dev, card):
+    """Phase 21: SW observe with PT every sweep on the harness shape (2048
+    graphs a sweep), twice from one seed: launch counts, equal checksums,
+    the observations' invariants, the rate over three warm calls."""
+    from peapods_tpu_torch import Ising
+
+    h, n = HARNESS, HARNESS_OBSERVE_SWEEPS
+    temps = np.geomspace(0.1, 10, h["n_temps"]).astype(np.float32)
+    kw = dict(OBSERVE_KW, pt_interval=1)
+    checks, models = [], []
+    for run in range(2):
+        model = Ising(h["shape"], temperatures=temps, n_disorder=h["n_disorder"],
+                      seed=3, device=dev)
+        torch.cuda.synchronize()
+        reset_cluster_counts()
+        result = model.sample(n, "metropolis", **dict(kw, warmup_ratio=0.0))
+        torch.cuda.synchronize()
+        if run == 0:
+            launches, r0 = cluster_counts(), result
+        checks.append(run_checksum(model._sim, result))
+        models.append(model)
+    want = {"sweep_2d": 2 * n, "fk_bonds": n, "fk_link": n, "fk_finish": n,
+            "winding": n, "pt_step": n}
+    if launches != want:
+        raise AssertionError(f"harness observe launch counts {launches}, expected {want}")
+    if checks[0] != checks[1]:
+        raise AssertionError(f"harness observe checksums differ: {checks}")
+    fk = check_observations(r0, models[0]._sim, n, winding=True)
+    wx = fk["winding_x"].mean(0)
+    # at T = 10 the bond density (~0.09) is far below percolation (1/2)
+    if wx[-1] != 0:
+        raise AssertionError(f"harness observe winding_x by temperature {wx}")
+    n_graphs = h["n_disorder"] * h["n_temps"]
+    sweeps_s, rates = warm_rate(models[1], n, kw)
+    log("21 observe-harness", f"64x64 x {h['n_temps']} temps x {h['n_disorder']} "
+        f"realizations ({n_graphs} graphs), SW observe + PT every sweep, {n} sweeps: "
+        f"launches {launches}; checksum {checks[0]} == {checks[1]}; winding_x by T "
+        f"{np.round(wx, 4).tolist()}; "
+        f"{sweeps_s:.1f} sweeps/s = {sweeps_s * n_graphs * 64 * 64:.4e} flips/s on "
+        f"{card} (median of {', '.join(f'{r:.1f}' for r in rates)} sweeps/s)")
+    return dict(model=models[1], launches=launches, sweeps_s=sweeps_s, kw=kw,
+                checksum=checks[0])
+
+
+def exact_nnn_4x4(dev):
+    """The 4x4 next-nearest-neighbour ferromagnet against exact enumeration,
+    SW every sweep through the staged path (8 chains of 4000 sweeps)."""
+    from peapods_tpu_torch import Ising
+    from peapods_tpu_torch.ops.lattice import Lattice
+
+    T = 5.0
+    e_ex, m2_ex = exact_moments(Lattice((4, 4), NNN), T)
+    m = Ising((4, 4), neighbor_offsets=NNN, temperatures=np.array([T], np.float32),
+              n_disorder=8, seed=12, device=dev)
+    m.sample(4000, warmup_ratio=0.25, cluster_update_interval=1, cluster_mode="sw")
+    de, dm2 = abs(m.energies_avg[0] - e_ex), abs(m.mags2[0] - m2_ex)
+    if not (de < 0.05 and dm2 < 0.06):
+        raise AssertionError(f"4x4 NNN exact (staged SW): |dE| {de}, |dm2| {dm2}")
+    log("22 staged", f"4x4 NNN T={T} SW every sweep (staged path), 8 chains x 4000 "
+        f"sweeps on {dev}: <E> {m.energies_avg[0]:.5f} (exact {e_ex:.5f}), <m2> "
+        f"{m.mags2[0]:.5f} (exact {m2_ex:.5f}) ok (tolerances 0.05, 0.06)")
+
+
+def staged_paths(dev, card):
+    """Phase 22: the staged FK path through Ising.sample, each run twice from
+    one seed (launch counts, equal checksums, sanity, the rate of a warm
+    call); NNN observe against the same run without the observer, bitwise;
+    the 4x4 NNN magnet against exact enumeration."""
+    out = {}
+    for name, c in STAGED_PATHS.items():
+        n, kw = c["sweeps"], dict(c["kw"], warmup_ratio=0.0)
+        checks, models = [], []
+        for run in range(2):
+            model = nb_model(c, dev)
+            torch.cuda.synchronize()
+            reset_cluster_counts()
+            result = model.sample(n, "metropolis", **kw)
+            torch.cuda.synchronize()
+            if run == 0:
+                launches, r0 = cluster_counts(), result
+            checks.append(run_checksum(model._sim, result))
+            models.append(model)
+        want = nb_want(models[0], kw, n)
+        if launches != want:
+            raise AssertionError(f"{name} launch counts {launches}, expected {want}")
+        if checks[0] != checks[1]:
+            raise AssertionError(f"{name} checksums differ: {checks}")
+        e = r0["energies"]
+        if not (np.isfinite(e).all() and e[0] > e[-1]):
+            raise AssertionError(f"{name} sanity: energies {e}")
+        sim = models[0]._sim
+        if c["kw"].get("cluster_action") == "observe":
+            fk = check_observations(r0, sim, len(range(0, n, c["kw"][
+                "cluster_update_interval"])), winding=False)
+            dens = np.round(fk["active_bond_density"][0], 4).tolist()
+            extra = f"bond density by T {dens}"
+        else:
+            csd = np.asarray(r0["fk_csd"], np.float64)
+            if not ((csd * np.arange(csd.shape[-1])).sum(-1) == sim.rt.n_spins * n).all():
+                raise AssertionError(f"{name}: fk_csd does not add up to the sites")
+            extra = "fk_csd adds up to the sites"
+        sweeps_s, _ = warm_rate(models[1], n, c["kw"], calls=1)
+        n_sites = int(np.prod(c["shape"]))
+        log("22 staged", f"{name}: {'x'.join(map(str, c['shape']))} x {c['n_temps']} "
+            f"temps geomspace{c['t']}, {c['kw']}, {n} sweeps on {dev}: launches "
+            f"{launches}; checksum {checks[0]} == {checks[1]}; <e>[0,-1] {e[0]:.5f}, "
+            f"{e[-1]:.5f}; {extra}; {sweeps_s:.1f} sweeps/s = "
+            f"{sweeps_s * n_sites * c['n_temps']:.4e} flips/s on {card}")
+        out[name] = dict(model=models[1], launches=launches, sweeps_s=sweeps_s,
+                         kw=c["kw"], checksum=checks[0], result=r0, sim=sim)
+
+    # observe mutates nothing: the NNN run without the observer, same seed
+    c = STAGED_PATHS["nnn64_observe"]
+    kw = {k: v for k, v in c["kw"].items() if not k.startswith("cluster")}
+    model = nb_model(c, dev)
+    result = model.sample(c["sweeps"], "metropolis", **dict(kw, warmup_ratio=0.0))
+    obs = out["nnn64_observe"]
+    same = {key: bool(torch.equal(model._sim.state[key], obs["sim"].state[key]))
+            for key in ("spins", "system_ids", "pt_edge_acceptances")}
+    check_plain = state_checksum(model._sim, result)
+    check_obs = state_checksum(obs["sim"], obs["result"])
+    if not all(same.values()) or check_plain != check_obs:
+        raise AssertionError(f"NNN observe changed the run: {same}, checksums "
+                             f"{check_obs} (observe) {check_plain} (no observer)")
+    log("22 staged", f"nnn64: observe every 2 sweeps + PT leaves the run bitwise as "
+        f"without the observer (spins, system ids, PT counters; state checksum "
+        f"{check_obs} == {check_plain})")
+    exact_nnn_4x4(dev)
+    return out
+
+
+def kernel_ms(fn, reps, names):
+    """Device ms a launch of each kernel ``names`` over ``reps`` calls of
+    ``fn``, from the profiler's kernel records."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        hit = [k for k in names if f"{k}_kernel" in ev.key]
+        if hit and ev.self_device_time_total > 0:
+            out[hit[0]] = ev.self_device_time_total / ev.count / 1e3
+    if set(out) != set(names):
+        raise AssertionError(f"the profiler saw {sorted(out)}, expected {names}")
+    return out
+
+
+def staged_bounds(b, n, n_nb, d, n_comp):
+    """The bounds of the staged path's launches on ``b`` graphs of ``n``
+    sites, ``n_nb`` offsets, ``d`` realizations' couplings."""
+    cb = 4 * n_nb * d * n
+    return {
+        # spins, couplings, temps, kb in; state, parents out
+        "fk_bonds_nb": bound(b * n + cb + 12 * b + 5 * b * n, 8 * n_nb * b * n),
+        # state and parents in; a parent written per union
+        "cc_link": bound(5 * b * n + 4 * (b * n - n_comp), 0),
+        # parents in, labels out
+        "cc_label": bound(8 * b * n, 0),
+        # spins, labels, scalars in; spins out
+        "fk_finish": bound(2 * b * n + 4 * b * n + 12 * b, 0),
+    }
+
+
+def check_observe_kernels(obs, hobs, staged, dev, rng):
+    """Phase 23: every new kernel against its plain version on the main
+    paths' states: ``fk_finish`` in observe form (spins untouched, labels
+    and masks equal), ``winding`` (flags equal) and ``cc_link`` /
+    ``cc_label`` (labels bitwise) on the 256^2 graph at T_c (row 15's shape)
+    and the harness's 2048 graphs; ``fk_bonds_nb``, ``cc_link``,
+    ``cc_label`` and ``fk_finish`` reading the labels on the staged runs'
+    states, SW and Wolff (masks, labels, spins bitwise), with the CC kernels
+    alone on those masks.  Then the plain versions' times and the bounds at
+    each shape."""
+    from peapods_tpu_torch.ops import cc, cluster, fk, winding
+    from peapods_tpu_torch.ops.lattice import Lattice
+
+    times = {}
+    for name, run in (("observe256", obs), ("harness_observe", hobs)):
+        model = run["model"]
+        x = fk_inputs(model, dev, rng, False)
+        b, shape = x["spins"].shape[0], tuple(x["spins"].shape[1:])
+        n = int(np.prod(shape))
+        lat = Lattice(shape)
+        s0 = x["spins"].clone()
+        args = (x["j_fwd"], x["temps"], x["kb_words"])
+        lk, mk = fk.fk_observe(x["spins"], *args)
+        lp, mp = fk.fk_observe_plain(s0.clone(), *args)
+        lp = lp.view(b, n)
+        wk = winding.winding_flags(mk, lk.view(b, n), shape)
+        wp = cluster.winding_flags(mp, lp, shape)
+        ck = cc.cc_labels(mk, lat)
+        torch.cuda.synchronize()
+        bad = {"spins": int((x["spins"] != s0).sum()),
+               "labels": int((lk.view(b, n) != lp).sum()), "masks": int((mk != mp).sum()),
+               "winding": int((wk[0] != wp[0]).sum() + (wk[1] != wp[1]).sum()),
+               "cc labels": int((ck != lp).sum())}
+        if any(bad.values()):
+            raise AssertionError(f"observe kernels on {name} differ from plain: {bad}")
+        n_comp = int((lp == torch.arange(n, device=dev)).sum())
+        log("23 kernel-vs-plain", f"fk_finish (observe form), winding, cc_link / "
+            f"cc_label on {name} ({b} graph(s) of {'x'.join(map(str, shape))}): "
+            f"mismatches {bad}; {n_comp} clusters, {int(mk.sum())} active bonds, "
+            f"{int(wk[0].sum())} / {int(wk[1].sum())} graphs wind along x / y")
+        plain = {
+            "winding": wall_ms(lambda: cluster.winding_flags(mp, lp, shape), 2),
+            "cc_link": wall_ms(lambda: cc.cc_labels_plain(mp, lat), 3),
+            # the observe form's function: labels from the bonds
+            "fk_finish": wall_ms(lambda: fk.fk_link_plain(mp, shape), 3),
+        }
+        plain["cc_label"] = plain["cc_link"]
+        t = {
+            # masks and labels in; one flag byte a graph out
+            "winding": bound(6 * b * n + b, 0),
+            "cc_link": bound(5 * b * n + 4 * (b * n - n_comp), 0),
+            "cc_label": bound(8 * b * n, 0),
+            # parents in, labels out
+            "fk_finish": bound(8 * b * n, 0),
+        }
+        for k, v in t.items():
+            times.setdefault(k, {})[name] = dict(bound_ms=v[0], bound_by=v[1],
+                                                 plain_ms=plain[k])
+        # the CC kernels on these graphs (row 15: one 256^2 graph), off the
+        # main path: the profiler's device time a launch
+        for k, v in kernel_ms(lambda: cc.cc_labels(mk, lat), 20,
+                              ("cc_link", "cc_label")).items():
+            times[k][name]["ms_off_path"] = v
+
+    for name, run in staged.items():
+        model = run["model"]
+        lat = model._sim.rt.lattice
+        n, n_nb = lat.n_spins, lat.n_neighbors
+        for wolff in (False, True):
+            x = fk_inputs(model, dev, rng, wolff)
+            b = x["spins"].shape[0]
+            a, p = x["spins"], x["spins"].clone()
+            args = (x["j_fwd"], x["temps"], x["scalars"], x["kb_words"], lat)
+            lk, mk = fk.fk_staged(a, *args, wolff=wolff, with_masks=True)
+            lp, mp = fk.fk_staged_plain(p, *args, wolff=wolff)
+            ck = cc.cc_labels(mk, lat)
+            torch.cuda.synchronize()
+            bad = {"masks": int((mk != mp).sum()), "labels": int((lk != lp).sum()),
+                   "spins": int((a != p).sum()), "cc labels": int((ck != lp).sum())}
+            if any(bad.values()):
+                raise AssertionError(f"staged kernels on {name} differ from plain: {bad}")
+            n_comp = int((lp == torch.arange(n, device=dev)).sum())
+            log("23 kernel-vs-plain", f"fk_bonds_nb, cc_link / cc_label, fk_finish "
+                f"{'wolff' if wolff else 'sw'} on {name} ({b} graphs of "
+                f"{'x'.join(map(str, lat.shape))}, {n_nb} offsets): mismatches {bad}; "
+                f"{n_comp} clusters, {int(mk.sum())} active bonds")
+        sp = x["spins"]
+        bd = fk.fk_bonds_plain(sp, x["j_fwd"], x["temps"], x["kb_words"],
+                               offsets=lat.offsets)
+        lab = cc.cc_labels_plain(bd, lat)
+        plain = {
+            "fk_bonds_nb": wall_ms(lambda: fk.fk_bonds_plain(
+                sp, x["j_fwd"], x["temps"], x["kb_words"], offsets=lat.offsets), 3),
+            "cc_link": wall_ms(lambda: cc.cc_labels_plain(bd, lat), 3),
+            "fk_finish": wall_ms(lambda: fk.fk_finish_plain(
+                sp.clone(), lab, x["j_fwd"], x["scalars"], wolff=False,
+                with_measure=False), 3),
+        }
+        plain["cc_label"] = plain["cc_link"]
+        n_comp = int((lab == torch.arange(n, device=dev)).sum())
+        for k, v in staged_bounds(b, n, n_nb, x["j_fwd"].shape[0], n_comp).items():
+            times.setdefault(k, {})[name] = dict(bound_ms=v[0], bound_by=v[1],
+                                                 plain_ms=plain[k])
+    return times
+
+
+def observe_times(obs, hobs, staged, card):
+    """Per-launch device times of every kernel over main-path windows of the
+    observe and staged runs (profiler), with the busy share; returns
+    ``{run: {kernel: us per launch}}``."""
+    windows = {"observe256": (obs, 256), "harness_observe": (hobs, 16),
+               **{k: (v, 64) for k, v in staged.items()}}
+    us = {}
+    for name, (run, n_win) in windows.items():
+        us[name], line = profile_window(run["model"], run["kw"], run["sweeps_s"], n_win,
+                                        names=tuple(run["launches"]))
+        log("23 times", f"{name} {line} (on {card})")
+    return us
+
+
+def add_observe_records(kernels, obs, hobs, staged, times, us, card):
+    """Add this section's numbers to the kernel records: ``cc_link``,
+    ``cc_label`` (the BCC SW run's numbers; FCC, NNN, the 256^2 graph and
+    the harness beside them), ``winding`` (the 256^2 observe run's; the
+    harness beside them), ``fk_bonds_nb`` (BCC; FCC, NNN); the observe and
+    staged runs' numbers beside the FK kernels', ``sweep_2d``'s (row 2) and
+    the coloured lattices' kernels'."""
+    runs = {"observe256": obs, "harness_observe": hobs, **staged}
+    by_name = {kr["name"]: kr for kr in kernels}
+
+    def at(k, name):
+        rec = dict(times.get(k, {}).get(name, {}), launches=runs[name]["launches"].get(k, 0))
+        if k in us[name]:
+            rec["ms"] = us[name][k] / 1e3
+            rec["launches_per_sweep"] = rec["launches"] / runs[name]["launches"]["pt_step"]
+        return rec
+
+    lines = []  # (main run, record)
+    for k, src, main, rep in (("cc_link", CC_SRC, "bcc16_sw", CC_REPLACES),
+                              ("cc_label", CC_SRC, "bcc16_sw", CC_REPLACES),
+                              ("winding", "peapods_tpu_torch/csrc/winding.cu",
+                               "observe256", WINDING_REPLACES),
+                              ("fk_bonds_nb", "peapods_tpu_torch/csrc/fk.cu", "bcc16_sw",
+                               "peapods_tpu/ops/pallas_event.py:621")):
+        kr = dict(name=k, route="cuda", source=src, replaces=rep, max_abs_err=0.0,
+                  library_ms=None, **at(k, main))
+        for name in runs:
+            if name != main and name in times.get(k, {}):
+                kr[f"at_{name}"] = at(k, name)
+        if k.startswith("cc_"):
+            kr["at_observe256"]["replaces"] = CC2D_REPLACES
+        if k == "fk_bonds_nb":
+            kr["on_the_reference_path"] = ("peapods_tpu/ops/cluster.py:555 "
+                                           "fk_bond_activation (jnp, staged path)")
+        kernels.append(kr)
+        lines.append((main, kr))
+    for k in ("fk_bonds", "fk_link", "fk_finish"):
+        for name in ("observe256", "harness_observe"):
+            by_name[k][f"at_{name}"] = dict(at(k, name), max_abs_err=0.0)
+    for name in staged:
+        if "fk_finish" in runs[name]["launches"]:
+            by_name["fk_finish"][f"at_{name}"] = dict(at("fk_finish", name),
+                                                      max_abs_err=0.0)
+        for k in ("sweep_nb", "measure_nb", "pt_step"):
+            by_name[k][f"at_{name}"] = dict(launches=runs[name]["launches"][k],
+                                            ms=us[name][k] / 1e3)
+    # row 2: sweep_2d's measuring pass on every observe sweep (config 3's
+    # shape: its plain time and bound are the 256^2 observe run's)
+    sw = by_name["sweep_2d"]
+    sw["covers"] = FUSED_REPLACES
+    sw["at_observe256"] = dict(
+        at("sweep_2d", "observe256"), replaces=FUSED_REPLACES,
+        **{k: sw[k] for k in ("max_abs_err", "plain_ms", "bound_ms", "bound_by")})
+    for main, kr in lines:
+        shapes = {main: kr,
+                  **{key[3:]: v for key, v in kr.items() if key.startswith("at_")}}
+        log("23 times", f"{kr['name']} per launch: " + "; ".join(
+            (f"{name} {v['ms']:.5f} ms x {v['launches_per_sweep']:g} a sweep"
+             if "ms" in v else f"{name} {v['ms_off_path']:.5f} ms (off the path)")
+            + f" (bound {v['bound_ms']:.6f} ms by {v['bound_by']}, plain "
+            f"{v['plain_ms']:.4f} ms)" for name, v in shapes.items()) + f" on {card}")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -1985,6 +2504,13 @@ def main():
     # the per-sweep path on the coloured lattices
     nb = coloured_paths(dev, card)
 
+    # FK observe and the staged FK path
+    obs = observe_main(dev, card)
+    hobs = observe_harness(dev, card)
+    staged = staged_paths(dev, card)
+    ob_times = check_observe_kernels(obs, hobs, staged, dev, np.random.default_rng(2028))
+    ob_us = observe_times(obs, hobs, staged, card)
+
     mega_src = "peapods_tpu_torch/csrc/mega.cu"
     mega_replaces = "peapods_tpu/ops/pallas_mega.py:96"
     fk_src = "peapods_tpu_torch/csrc/fk.cu"
@@ -2023,6 +2549,7 @@ def main():
             kr["at_config5"] = pk["config5"][k]
         kernels.append(kr)
     add_nb_records(kernels, nb)
+    add_observe_records(kernels, obs, hobs, staged, ob_times, ob_us, card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     record = {"kernels": [{**{k: kr[k] for k in keys},

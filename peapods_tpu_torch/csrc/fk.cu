@@ -35,7 +35,18 @@
 //              bonds comes from the state byte and the neighbours' flip
 //              decisions (no neighbour spin is read while spins are
 //              rewritten), and the block writes one (e, m) partial per graph
-//              ([B, blocks]); pt_step adds them in a fixed order.
+//              ([B, blocks]); pt_step adds them in a fixed order.  In
+//              observe form (cluster_action="observe") it writes the labels
+//              and nothing else: the spins stay as they are.
+//
+// The staged path (the reference's fk_bond_activation -> _cc_many -> coin
+// or Wolff flips, peapods_tpu/engine/loop.py:1883-1976) serves the lattices
+// given by an offset table (BCC, FCC, custom offsets): fk_bonds_nb draws
+// the bonds along each forward offset (nb.cuh) with fk_bonds' Philox
+// counter, cc.cu's cc_link / cc_label label the graphs, and fk_finish,
+// given no parent array, reads each site's root from those labels and
+// flips; the measurement is then sweep_nb.cu's measure_nb, so the state
+// byte needs no "s differs" bits and holds up to six bonds.
 //
 // What bounds it on the H100: each launch touches a few bytes per site --
 // the int8 spins, 8 or 12 B of couplings, the state byte and the int32
@@ -55,6 +66,7 @@
 #include <cstdint>
 
 #include "mega.cuh"
+#include "nb.cuh"
 #include "uf.cuh"
 
 using namespace peapods;
@@ -106,6 +118,54 @@ fk_bonds_kernel(const int8_t* __restrict__ spins, const float* __restrict__ j_fw
   }
 }
 
+// fk_bonds on a lattice given by its offset table (the staged path): the
+// bond draws of fk_bonds along each forward offset, bit d of the state byte
+// set when bond d is active (no "s differs" bits: the staged path measures
+// after the flips), parent[i] = i for cc.cu's cc_link.
+__global__ void __launch_bounds__(kThreads)
+fk_bonds_nb_kernel(const int8_t* __restrict__ spins, const float* __restrict__ j_fwd,
+                   const float* __restrict__ temps, const int32_t* __restrict__ kb,
+                   uint8_t* __restrict__ state, int32_t* __restrict__ parent,
+                   const NbGeom geo, int n_systems) {
+  const int b = blockIdx.y;
+  const int n = geo.L[0] * geo.L[1] * geo.L[2];
+  const int nd = geo.n_nb;
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (kSitesPerThread * g >= n) return;
+  const size_t base = static_cast<size_t>(b) * n;
+  const int8_t* s = spins + base;
+  const float* J = j_fwd + static_cast<size_t>(b / n_systems) * n * nd;
+  const float T = temps[b];
+  const uint32_t k0 = static_cast<uint32_t>(kb[2 * b]);
+  const uint32_t k1 = static_cast<uint32_t>(kb[2 * b + 1]);
+  uint32_t w[kMaxOffsets][4];
+  for (int dir = 0; dir < nd; ++dir) {
+    const uint4 r = philox4x32_10(k0, k1, static_cast<uint32_t>(dir),
+                                  static_cast<uint32_t>(g), 0u, 0u);
+    w[dir][0] = r.x;
+    w[dir][1] = r.y;
+    w[dir][2] = r.z;
+    w[dir][3] = r.w;
+  }
+#pragma unroll
+  for (int k = 0; k < kSitesPerThread; ++k) {
+    const int i = kSitesPerThread * g + k;
+    if (i >= n) break;
+    int c[3];
+    coords(geo, i, c);
+    const float si = static_cast<float>(s[i]);
+    uint8_t st = 0;
+    for (int dir = 0; dir < nd; ++dir) {
+      const float sf = static_cast<float>(s[neighbour(geo, c, dir, 1)]);
+      const float inter = si * sf * J[static_cast<size_t>(i) * nd + dir];
+      const float p = 1.0f - expf(-2.0f * inter / T);
+      if (inter > 0.0f && uniform24(w[dir][k]) < p) st |= 1u << dir;
+    }
+    state[base + i] = st;
+    parent[base + i] = i;
+  }
+}
+
 __global__ void __launch_bounds__(kThreads)
 fk_link_kernel(const uint8_t* __restrict__ state, int32_t* parent, const Dims dims) {
   const int b = blockIdx.y;
@@ -125,11 +185,10 @@ __device__ __forceinline__ bool flips(int root, int wolff, int seed_root,
 
 __global__ void __launch_bounds__(kThreads)
 fk_finish_kernel(int8_t* __restrict__ spins, const uint8_t* __restrict__ state,
-                 int32_t* parent, int32_t* __restrict__ labels,
-                 const float* __restrict__ j_fwd,
+                 int32_t* parent, int32_t* labels, const float* __restrict__ j_fwd,
                  const int32_t* __restrict__ scalars, float* __restrict__ e_part,
                  int32_t* __restrict__ m_part, const Dims dims, int n_systems,
-                 int wolff) {
+                 int wolff, int observe) {
   const int b = blockIdx.y;
   const int n = dims.n[0] * dims.n[1] * dims.n[2];
   const int nd = dims.ndir;
@@ -139,12 +198,16 @@ fk_finish_kernel(int8_t* __restrict__ spins, const uint8_t* __restrict__ state,
   int m_acc = 0;
   if (i < n) {
     const size_t base = static_cast<size_t>(b) * n;
-    int32_t* P = parent + base;
+    int32_t* P = parent == nullptr ? nullptr : parent + base;
+    // the root of site j: from the union-find, or (parent null, the staged
+    // path) from the labels of the CC kernels
+    auto root = [&](int j) { return P ? find_root(P, j) : labels[base + j]; };
+    const int r = root(i);
+    if (P && labels != nullptr) labels[base + i] = r;
+    if (observe) return;  // labels only: no flip, no measurement
     const uint32_t s0 = static_cast<uint32_t>(scalars[3 * b]);
     const uint32_t s1 = static_cast<uint32_t>(scalars[3 * b + 1]);
-    const int seed_root = wolff ? find_root(P, scalars[3 * b + 2]) : -1;
-    const int r = find_root(P, i);
-    if (labels != nullptr) labels[base + i] = r;
+    const int seed_root = wolff ? root(scalars[3 * b + 2]) : -1;
     const bool fl = flips(r, wolff, seed_root, s0, s1);
     const int8_t sn = fl ? static_cast<int8_t>(-spins[base + i]) : spins[base + i];
     spins[base + i] = sn;
@@ -154,8 +217,7 @@ fk_finish_kernel(int8_t* __restrict__ spins, const uint8_t* __restrict__ state,
       // s * s_fwd after the update, from "s differed" and the two flips
       float e = 0.0f;
       for (int dir = 0; dir < nd; ++dir) {
-        const bool ff = flips(find_root(P, fwd_site(i, dims, dir)), wolff,
-                              seed_root, s0, s1);
+        const bool ff = flips(root(fwd_site(i, dims, dir)), wolff, seed_root, s0, s1);
         const float prod = (((st >> (3 + dir)) & 1u) != 0) != (fl != ff) ? -1.0f : 1.0f;
         e = e + prod * J[dir];
       }
@@ -205,19 +267,36 @@ int peapods_fk_link(const void* state, void* parent, int n_graphs, int L0, int L
   return static_cast<int>(cudaGetLastError());
 }
 
+// Graphs of an offset table (geom: ops/lattice.Lattice.kernel_geometry);
+// state: uint8 [n_graphs, n]; parent: int32 [n_graphs, n].
+int peapods_fk_bonds_nb(const void* spins, const void* j_fwd, const void* temps,
+                        const void* kb, void* state, void* parent, const int* geom,
+                        int n_graphs, int n_systems, void* stream) {
+  const NbGeom geo = make_geom(geom);
+  fk_bonds_nb_kernel<<<site_grid(geo.L[0] * geo.L[1] * geo.L[2], kSitesPerThread,
+                                 n_graphs),
+                       kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(spins), static_cast<const float*>(j_fwd),
+      static_cast<const float*>(temps), static_cast<const int32_t*>(kb),
+      static_cast<uint8_t*>(state), static_cast<int32_t*>(parent), geo, n_systems);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // labels: int32 [n_graphs, n] or null; e_part / m_part: [n_graphs,
-// peapods_fk_blocks(n)], or both null.
+// peapods_fk_blocks(n)], or both null.  parent null: the roots are read from
+// labels (the staged path's CC output), which are not written.  observe:
+// write the labels only, leaving the spins and the partials alone.
 int peapods_fk_finish(void* spins, const void* state, void* parent, void* labels,
                       const void* j_fwd, const void* scalars, void* e_part,
                       void* m_part, int n_graphs, int n_systems, int L0, int L1,
-                      int L2, int tri, int wolff, void* stream) {
+                      int L2, int tri, int wolff, int observe, void* stream) {
   fk_finish_kernel<<<site_grid(L0 * L1 * L2, 1, n_graphs), kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<int8_t*>(spins), static_cast<const uint8_t*>(state),
       static_cast<int32_t*>(parent), static_cast<int32_t*>(labels),
       static_cast<const float*>(j_fwd), static_cast<const int32_t*>(scalars),
       static_cast<float*>(e_part), static_cast<int32_t*>(m_part),
-      make_dims(L0, L1, L2, tri != 0), n_systems, wolff);
+      make_dims(L0, L1, L2, tri != 0), n_systems, wolff, observe);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -39,8 +39,8 @@
 //               checkerboard.
 //
 // Neighbours come from the coordinates of the row-major index and the
-// offsets (kernel arguments), each axis wrapped on its own (rem_euclid); a
-// 2D lattice is [L0, L1, 1].  Built with -fmad=false and no fast math, so
+// offsets (kernel arguments, nb.cuh), each axis wrapped on its own
+// (rem_euclid); a 2D lattice is [L0, L1, 1].  Built with -fmad=false and no fast math, so
 // the field, the acceptance and the (+-1) energies round exactly as the
 // plain torch versions (ops/sweep.py, ops/energy.py).
 //
@@ -60,39 +60,11 @@
 #include <cstdint>
 
 #include "mega.cuh"
+#include "nb.cuh"
 
 using namespace peapods;
 
 namespace {
-
-constexpr int kMaxOffsets = 6;
-
-// Extents, strides and forward offsets of a lattice ([L0, L1, 1] in 2D).
-struct NbGeom {
-  int L[3];
-  int stride[3];
-  int n_nb;
-  int off[kMaxOffsets][3];
-};
-
-__device__ __forceinline__ int wrap(int x, int L) {
-  x %= L;
-  return x < 0 ? x + L : x;
-}
-
-// The site at coordinates c + sign * off_d.
-__device__ __forceinline__ int neighbour(const NbGeom& g, const int c[3], int d,
-                                         int sign) {
-  int j = 0;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) j += wrap(c[k] + sign * g.off[d][k], g.L[k]) * g.stride[k];
-  return j;
-}
-
-__device__ __forceinline__ void coords(const NbGeom& g, int i, int c[3]) {
-#pragma unroll
-  for (int k = 0; k < 3; ++k) c[k] = (i / g.stride[k]) % g.L[k];
-}
 
 __global__ void __launch_bounds__(kThreads)
 sweep_nb_kernel(int8_t* __restrict__ spins, const float* __restrict__ coup_fwd,
@@ -173,19 +145,6 @@ measure_nb_kernel(const int8_t* __restrict__ spins, const float* __restrict__ co
     m_acc += s[i];
   }
   block_partials(e_acc, m_acc, e_part, m_part, row * gridDim.x + blockIdx.x);
-}
-
-// geom: L0, L1, L2, n_nb, then kMaxOffsets x 3 offsets (host memory).
-NbGeom make_geom(const int* geom) {
-  NbGeom g;
-  for (int k = 0; k < 3; ++k) g.L[k] = geom[k];
-  g.stride[2] = 1;
-  g.stride[1] = g.L[2];
-  g.stride[0] = g.L[1] * g.L[2];
-  g.n_nb = geom[3];
-  for (int d = 0; d < kMaxOffsets; ++d)
-    for (int k = 0; k < 3; ++k) g.off[d][k] = geom[4 + 3 * d + k];
-  return g;
 }
 
 }  // namespace

@@ -1,13 +1,15 @@
-// Device helpers shared by the cluster kernels (fk.cu, overlap.cu): the
-// periodic neighbours of a 2D or 3D lattice (and of the triangular lattice's
-// third bond direction), the salted per-cluster coin, and the union-find
-// whose roots are each component's minimum site index.
+// Device helpers shared by the cluster kernels (fk.cu, overlap.cu, cc.cu):
+// the periodic neighbours of a 2D or 3D lattice (and of the triangular
+// lattice's third bond direction), the salted per-cluster coin, and the
+// union-find whose roots are each component's minimum site index, linked
+// along the lattice's axes or along any offset table (nb.cuh).
 #pragma once
 
 #include <cstddef>
 #include <cstdint>
 
 #include "mega.cuh"
+#include "nb.cuh"
 
 namespace peapods {
 
@@ -116,6 +118,18 @@ __device__ __forceinline__ void link_site(int32_t* P, uint8_t st, int i,
                                           const Dims& g) {
   for (int dir = 0; dir < g.ndir; ++dir)
     if ((st >> dir) & 1u) unite(P, i, fwd_site(i, g, dir));
+}
+
+// Unite site i with its neighbours at the forward offsets of an offset
+// table along the bonds set in bits 0 .. n_nb-1 of its state byte (cc.cu);
+// a self-bond (an offset that wraps onto the site) unites i with itself,
+// a no-op.
+__device__ __forceinline__ void link_site_nb(int32_t* P, uint8_t st, int i,
+                                             const NbGeom& g) {
+  int c[3];
+  coords(g, i, c);
+  for (int d = 0; d < g.n_nb; ++d)
+    if ((st >> d) & 1u) unite(P, i, neighbour(g, c, d, 1));
 }
 
 // Whether site i has a bond (bits 0 .. ndir-1 of the state bytes): its own

@@ -39,9 +39,6 @@ _ROADMAP_ITEMS = {
     "4a": "item 4a, the per-sweep path for other lattices",
     "4b": "item 4b, autocorrelation and the equilibration diagnostic",
     "4c": "item 4c, checkpoints",
-    "6": "item 6, the cluster layer",
-    "6o": "item 6, the cluster layer's observe mode",
-    "6s": "item 6, the cluster layer's staged CC path (queue 2, item 5)",
     "7a": "item 7a, replicas with an FK cluster phase",
     "7b": "item 7b, overlap observe, cluster statistics and snapshots",
     "7c": "item 7c, Houdayer(N > 2)",

@@ -27,8 +27,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops import fk, mega, megapair, rng
-from ..ops.cluster import component_counts, csd_histogram
+from ..ops import fk, mega, megapair, rng, winding
+from ..ops.cluster import component_counts, csd_histogram, graph_observation
 from ..ops.energy import measure_nb
 from ..ops.lattice import Lattice, neighbour_values
 from ..ops.measure import per_slot_values, slot_temps_for_systems
@@ -36,7 +36,7 @@ from ..ops.sweep import pack_coupling_grids, sweep_2d, sweep_nb
 from ..ops.tempering import hot_cold_slots, pt_draws_pairs
 from . import seeds
 from .config import SimConfig
-from .records import N_REC, REC
+from .records import N_FK_OBS, N_REC, REC
 
 __all__ = ["Runtime", "init_accumulators", "run_chunk", "run_chunk_sweeps",
            "run_chunk_pairs"]
@@ -109,7 +109,12 @@ class Runtime:
 def init_accumulators(rt: Runtime, cfg: SimConfig) -> dict:
     """Record sums per (realization, record row, temperature); the FK
     cluster-size histograms ``fk_csd`` int64 ``[d, T, n_spins + 1]`` when
-    the run collects cluster statistics; and with replica pairs the P(q)
+    the run collects cluster statistics; on FK observe runs the graph
+    observation sums ``fk_obs`` (int64 ``[d, T, N_FK_OBS]``, the columns of
+    ``records.FK_OBS``; the fractions are taken when the results are built,
+    where the reference sums them in f32) and ``winding_errors`` (int32
+    ``[1]``, set by the winding kernel when labels and masks disagree); and
+    with replica pairs the P(q)
     histogram ``q_hist`` and the sums ``ql_at_q`` / ``ql2_at_q`` of the
     link-overlap integers ``ql`` and ``ql**2`` at each q bin, int64 ``[d, T,
     n_spins + 1]``.
@@ -134,6 +139,10 @@ def init_accumulators(rt: Runtime, cfg: SimConfig) -> dict:
         acc["fk_csd"] = torch.zeros(
             (rt.n_disorder, rt.n_temps, rt.n_spins + 1), dtype=torch.int64,
             device=rt.device)
+    if c is not None and c.action == "observe":
+        acc["fk_obs"] = torch.zeros((rt.n_disorder, rt.n_temps, N_FK_OBS),
+                                    dtype=torch.int64, device=rt.device)
+        acc["winding_errors"] = torch.zeros(1, dtype=torch.int32, device=rt.device)
     return acc
 
 
@@ -249,6 +258,40 @@ def run_chunk(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
     _fold_records(rt, state, acc, e, m, s_begin, n)
 
 
+def _by_temp(rt: Runtime, values, sid):
+    """Per-system values ``[d * n_systems, ...]`` summed into their
+    temperatures' rows ``[d, n_temps, ...]`` (over the replicas), in int64."""
+    d, R, T = rt.n_disorder, rt.n_replicas, rt.n_temps
+    v = values.reshape(d, R * T, *values.shape[1:])
+    return per_slot_values(v, sid).reshape(d, R, T, *v.shape[2:]).sum(
+        1, dtype=torch.int64)
+
+
+def _fold_fk_graphs(rt: Runtime, acc: dict, labels, masks, sid) -> None:
+    """Add one recorded FK sweep's graphs to the sums: the cluster-size
+    histograms ``fk_csd`` and, on observe runs, the graph observations
+    ``fk_obs`` (the reference's ``_sum_slots_obs`` / ``_obs_add``,
+    peapods_tpu/engine/loop.py:498-527): per temperature the count of
+    graphs, the sums of their top-4 sizes, active bonds, large components
+    and winding flags ``(x, y, x | y, x & y)`` (winding on the canonical 2D
+    square only), all integers, in the columns of ``records.FK_OBS``."""
+    b = rt.n_disorder * rt.n_systems
+    counts = component_counts(labels.reshape(b, -1))
+    acc["fk_csd"] += _by_temp(rt, csd_histogram(counts), sid)
+    if "fk_obs" not in acc:
+        return
+    wind = None
+    if rt.lattice.canonical_square:
+        wind = winding.winding_flags(masks, labels.reshape(b, -1), rt.lattice.shape,
+                                     errors=acc["winding_errors"])
+    g = graph_observation(masks, counts, wind)
+    wx, wy = g.winding_x, g.winding_y
+    cols = torch.cat([torch.ones_like(g.active_bonds)[:, None], g.top4,
+                      g.active_bonds[:, None], g.large_components[:, None],
+                      torch.stack([wx, wy, wx | wy, wx & wy], -1).to(torch.int32)], -1)
+    acc["fk_obs"] += _by_temp(rt, cols, sid)
+
+
 def run_chunk_sweeps(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
                      s_begin: int, n: int) -> None:
     """The per-sweep path (the reference's ``_make_step_body``,
@@ -259,21 +302,35 @@ def run_chunk_sweeps(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
        :func:`~peapods_tpu_torch.ops.sweep.sweep_2d` on a square lattice,
        one :func:`~peapods_tpu_torch.ops.sweep.sweep_nb` pass per colour on
        any other;
-    2. on sweeps ``s`` with ``s % interval == 0``, the FK update of every
-       system with the measurement of the updated spins
-       (:func:`~peapods_tpu_torch.ops.fk.fk_update`); on the others the
-       measurement: ``sweep_2d``'s second colour pass, or
-       :func:`~peapods_tpu_torch.ops.energy.measure_nb`;
-    3. ``pt_step`` reduces the measurement into the sweep's (e, m) rows and,
-       on PT sweeps, runs the PT event with the reference's jnp-form draws;
-    4. the records (and the cluster-size histograms) of the sweeps past
-       warmup are folded into the sums.
+    2. on sweeps ``s`` with ``s % interval == 0``, the FK phase of every
+       system.  On the FK kernels' lattices (square, triangular, 3D cubic)
+       an update measures the updated spins
+       (:func:`~peapods_tpu_torch.ops.fk.fk_update`); on the lattices given
+       by an offset table (BCC, FCC, custom) the staged path
+       (:func:`~peapods_tpu_torch.ops.fk.fk_staged`: bonds, the CC kernels,
+       flips) updates them.  Observe (``cluster_action="observe"``) builds
+       the bond graphs and their labels (:func:`~peapods_tpu_torch.ops.fk.
+       fk_observe` or ``fk_staged``), leaves the spins alone and is skipped
+       on sweeps that record nothing;
+    3. the measurement, unless the FK update made it: ``sweep_2d``'s second
+       colour pass (the counterpart of ``pallas_sweep.sweep_2d_fused``,
+       every sweep of an observe run) or
+       :func:`~peapods_tpu_torch.ops.energy.measure_nb` after the FK phase;
+       ``pt_step`` reduces it into the sweep's (e, m) rows and, on PT
+       sweeps, runs the PT event with the reference's jnp-form draws, so an
+       observe run's PT reads the sweep's (e, m), as a run without the
+       observer does;
+    4. the records of the sweeps past warmup, the cluster-size histograms
+       and the graph observations of their FK phases are folded into the
+       sums.
     """
     c = cfg.cluster_update
     wolff = c is not None and c.mode == "wolff"
+    observe = c is not None and c.action == "observe"
     pt_on = cfg.pt_interval is not None and rt.n_temps >= 2
     pt_full = cfg.pt_schedule == "full_ladder"
     lat = rt.lattice
+    staged = not fk.fused_lattice(lat)
     d, n_sys, n_sp = rt.n_disorder, rt.n_systems, rt.n_spins
     n_dirs = lat.n_neighbors
     dev = rt.device
@@ -282,13 +339,17 @@ def run_chunk_sweeps(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
     warmup = int(state["warmup"])
 
     sweep_w = _upload(seeds.sweep_words(base, counter, n, seeds.PH_SWEEP), dev)
-    fk_t = ([t for t in range(n) if (s_begin + t) % c.interval == 0]
+    # the FK phase's sweeps; observe skips those that record nothing
+    fk_t = ([t for t in range(n) if (s_begin + t) % c.interval == 0
+             and not (observe and s_begin + t < warmup)]
             if c is not None else [])
     fk_at = {t: k for k, t in enumerate(fk_t)}
+    scal = None
     if fk_t:
         kb, kf = seeds.fk_keys(base, counter + np.asarray(fk_t), n_sys)
         kb_w = _upload(kb.view(np.int32), dev)
-        scal = _upload(seeds.fk_scalars(kf, n_sp, wolff=wolff), dev)
+        if not observe:
+            scal = _upload(seeds.fk_scalars(kf, n_sp, wolff=wolff), dev)
     draws = None
     if pt_on:
         dr = seeds.pt_draws_jnp(base, counter, n, n_sys - 1, pt_full=pt_full)
@@ -316,6 +377,7 @@ def run_chunk_sweeps(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
     graphs = state["spins"].view(d * n_sys, *lat.shape)
     sid = state["system_ids"].view(d, n_sys)
     sys_temps = slot_temps_for_systems(sid, rt.temps)
+    graph_temps = sys_temps.view(-1)
     pt_state = [state[k] for k in ("pt_edge_attempts", "pt_edge_acceptances",
                                    "pt_round_trips", "pt_trip_state")]
     e = torch.empty((d, n, n_sys), dtype=torch.float32, device=dev)
@@ -325,23 +387,35 @@ def run_chunk_sweeps(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
     collect = "fk_csd" in acc
     for t in range(n):
         k = fk_at.get(t)
+        # the FK kernels' update measures the spins it leaves
+        fk_measures = k is not None and not (observe or staged)
         u = None if sweep_u is None else sweep_u(t)
+        parts = None
         if lat.square:
             parts = sweep_2d(spins, rt.jgrids, sys_temps, sweep_w[t], gibbs=gibbs,
-                             measure=k is None, uniforms=u)
+                             measure=not fk_measures, uniforms=u)
         else:
             sweep_nb(flat, rt.coup, rt.coup_bwd, rt.colours, sys_temps, sweep_w[t],
                      lat, gibbs=gibbs, uniforms=u)
-            parts = measure_nb(flat, rt.coup, lat) if k is None else None
         if k is not None:
-            e_part, m_part, labels = fk.fk_update(
-                graphs, rt.coup, sys_temps.view(-1), scal[k], kb_w[k],
-                wolff=wolff, with_measure=True, with_labels=collect,
-                uniforms=None if bond_u is None else bond_u(k))
-            parts = (e_part.view(d, n_sys, -1), m_part.view(d, n_sys, -1))
+            bu = None if bond_u is None else bond_u(k)
+            masks = None
+            if staged:
+                labels, masks = fk.fk_staged(
+                    graphs, rt.coup, graph_temps, None if scal is None else scal[k],
+                    kb_w[k], lat, wolff=wolff, with_masks=observe, uniforms=bu)
+            elif observe:
+                labels, masks = fk.fk_observe(graphs, rt.coup, graph_temps, kb_w[k],
+                                              uniforms=bu)
+            else:
+                e_part, m_part, labels = fk.fk_update(
+                    graphs, rt.coup, graph_temps, scal[k], kb_w[k],
+                    wolff=wolff, with_measure=True, with_labels=collect, uniforms=bu)
+                parts = (e_part.view(d, n_sys, -1), m_part.view(d, n_sys, -1))
             if collect and s_begin + t >= warmup:
-                csd = csd_histogram(component_counts(labels.view(d * n_sys, -1)))
-                acc["fk_csd"] += per_slot_values(csd.view(d, n_sys, -1), sid)
+                _fold_fk_graphs(rt, acc, labels, masks, sid)
+        if parts is None:
+            parts = measure_nb(flat, rt.coup, lat)
         do_pt = pt_on and (s_begin + t) % cfg.pt_interval == 0
         parity = mega.pt_step(
             *parts, e[:, t], m[:, t], sid, *pt_state, rt.temps,

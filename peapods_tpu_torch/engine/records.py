@@ -2,10 +2,13 @@
 
 The same rows, in the same order, as ``REC`` / ``N_REC`` in
 ``peapods_tpu/engine/loop.py:59-81``; the slice fills the magnetization and
-energy rows.
+energy rows.  ``FK_OBS`` lays out the integer sums of FK observe's graph
+observations per (realization, temperature), the columns of the
+reference's ``_zero_obs`` (:486-495) but the histograms, which are
+``fk_csd``.
 """
 
-__all__ = ["REC", "N_REC"]
+__all__ = ["REC", "N_REC", "FK_OBS", "N_FK_OBS"]
 
 REC = {
     name: i
@@ -30,3 +33,9 @@ REC = {
     )
 }
 N_REC = len(REC)
+
+# the observed graphs, then the sums of their top-4 component sizes, active
+# bonds, large components and winding flags (x, y, either, both)
+FK_OBS = {"count": slice(0, 1), "top4": slice(1, 5), "bonds": slice(5, 6),
+          "large": slice(6, 7), "winding": slice(7, 11)}
+N_FK_OBS = 11

@@ -5,7 +5,8 @@ Counterpart of the subset of ``HostAccum.finalize``
 magnetization and energy moments, the overlap and link-overlap moments
 with the P(q) histograms and ``ql_at_q`` sums when there are replica pairs
 (and their ``per_sample_*`` copies with more than one realization),
-``per_disorder.parallel_tempering`` when PT is configured, and the FK
+``per_disorder.parallel_tempering`` when PT is configured,
+``per_disorder.cluster_observations.fk`` on FK observe runs, and the FK
 cluster-size histograms ``fk_csd`` when cluster statistics are collected,
 with the reference's keys, dtypes and presence rules.
 """
@@ -14,14 +15,14 @@ from __future__ import annotations
 
 import numpy as np
 
-from .records import REC
+from .records import FK_OBS, REC
 
 __all__ = ["finalize"]
 
 
 def finalize(rec_sums: np.ndarray, n_recorded: int, n_replicas: int,
              pt_state: dict | None, fk_csd: np.ndarray | None = None,
-             pairs: dict | None = None) -> dict:
+             pairs: dict | None = None, fk_obs: dict | None = None) -> dict:
     """Build the results dict.
 
     Args:
@@ -35,6 +36,10 @@ def finalize(rec_sums: np.ndarray, n_recorded: int, n_replicas: int,
             n_dims) and the integer ``[d, T, n_spins + 1]`` arrays
             ``q_hist``, ``ql_at_q`` and ``ql2_at_q`` (sums of the link
             overlap integers ``ql`` and ``ql**2`` at each q bin).
+        fk_obs: on FK observe runs, ``sums`` (the integer ``[d, T,
+            N_FK_OBS]`` sums of the graph observations, columns
+            ``records.FK_OBS``), ``n_spins``, ``n_neighbors`` and
+            ``with_winding``; their histograms are ``fk_csd``.
     """
     d, _, t = rec_sums.shape
     result = {}
@@ -69,17 +74,42 @@ def finalize(rec_sums: np.ndarray, n_recorded: int, n_replicas: int,
             result["per_sample_overlap_histogram"] = q_hist
             result["per_sample_ql_at_q_sum"] = ql_at_q
             result["per_sample_ql2_at_q_sum"] = ql2_at_q
-    if pt_state is not None:
-        result["per_disorder"] = {
-            "parallel_tempering": {
-                "edge_attempts": pt_state["pt_edge_attempts"].astype(np.uint64),
-                "edge_acceptances":
-                    pt_state["pt_edge_acceptances"].astype(np.uint64),
-                "round_trips": pt_state["pt_round_trips"]
-                .astype(np.uint64)
-                .reshape(d, n_replicas, t),
-            }
+    per_disorder = {}
+    sums = None if fk_obs is None else fk_obs["sums"]
+    count = None if sums is None else sums[..., FK_OBS["count"]][..., 0]
+    if sums is not None and (count.sum(1) > 0).all():
+        # the kind is kept only when every realization observed a graph
+        # (peapods_tpu/engine/results.py:289-327)
+        safe = np.maximum(count, 1)[..., None].astype(np.float64)
+
+        def mean(key, scale=1.0):
+            total = sums[..., FK_OBS[key]].astype(np.float64)
+            return np.where(count[..., None] > 0, total / scale / safe, 0.0)
+
+        n = fk_obs["n_spins"]
+        graph = {
+            "observation_count": count.astype(np.uint64),
+            "cluster_size_counts": fk_csd.astype(np.uint64),
+            "top_four_component_fractions": mean("top4", n),
+            "active_bond_density": mean("bonds", n * fk_obs["n_neighbors"])[..., 0],
+            "large_component_count": mean("large")[..., 0],
         }
+        if fk_obs["with_winding"]:
+            wind = mean("winding")
+            for k, name in enumerate(("winding_x", "winding_y", "winding_either",
+                                      "winding_both")):
+                graph[name] = wind[..., k]
+        per_disorder["cluster_observations"] = {"fk": graph}
+    if pt_state is not None:
+        per_disorder["parallel_tempering"] = {
+            "edge_attempts": pt_state["pt_edge_attempts"].astype(np.uint64),
+            "edge_acceptances": pt_state["pt_edge_acceptances"].astype(np.uint64),
+            "round_trips": pt_state["pt_round_trips"]
+            .astype(np.uint64)
+            .reshape(d, n_replicas, t),
+        }
+    if per_disorder:
+        result["per_disorder"] = per_disorder
     if fk_csd is not None and fk_csd.sum() > 0:
         # summed over realizations, one uint64 histogram per temperature
         # (peapods_tpu/engine/results.py:344-346)

@@ -6,10 +6,14 @@ tempering (both schedules), every sweep measured, on lattices with even
 extents, on three paths:
 
 * one replica on a 2D square lattice: the mega path, or the per-sweep path
-  with SW or Wolff cluster updates (with or without cluster statistics);
+  with an FK cluster phase: SW or Wolff updates (with or without cluster
+  statistics), or SW observe (``cluster_action="observe"``: the graph
+  observations, with the winding flags when the lattice was built without
+  explicit offsets);
 * one replica on any other lattice (triangular, BCC, FCC, 3D cubic, an
   offset table of up to six ``neighbor_offsets``): the per-sweep path, with
-  SW or Wolff cluster updates on the triangular and 3D cubic lattices;
+  the same FK phases (on BCC, FCC and offset tables through the staged
+  path: bonds, the connected-components kernels, flips);
 * two replicas or more on a 2D square or 3D cubic lattice: the replica
   path, with the pair overlaps q and q_l, PT on each replica's ladder and
   the pair overlap moves (Houdayer, Joerg, CMR; Wolff or SW; in round
@@ -266,14 +270,8 @@ class IsingSimulation:
                 "overlap cluster requires n_replicas >= max group_size "
                 f"({self.n_replicas} < {h.max_group_size()})"
             )
-        if cluster_update is not None and cluster_update.action == "observe":
-            not_ported("cluster_action='observe'", "6o")
         if cluster_update is not None and self.n_replicas > 1:
             not_ported("replicas with an FK cluster phase", "7a")
-        lat = self.lattice
-        if cluster_update is not None and not (lat.hypercubic or lat.triangular):
-            not_ported("an FK cluster phase on BCC, FCC or an offset table "
-                       "(the reference's staged CC path)", "6s")
         if h is not None:
             if h.action == "observe":
                 not_ported("overlap_cluster_action='observe'", "7b")
@@ -300,10 +298,18 @@ class IsingSimulation:
             pt_state = {k: state[k].cpu().numpy() for k in (
                 "pt_edge_attempts", "pt_edge_acceptances", "pt_round_trips")}
         fk_csd = acc["fk_csd"].cpu().numpy() if "fk_csd" in acc else None
+        fk_obs = None
+        if "fk_obs" in acc:
+            if int(acc["winding_errors"].item()):
+                raise RuntimeError("the winding kernel could not settle a graph: "
+                                   "its labels do not belong to its bond masks")
+            fk_obs = dict(sums=acc["fk_obs"].cpu().numpy(), n_spins=self.rt.n_spins,
+                          n_neighbors=self.lattice.n_neighbors,
+                          with_winding=self.lattice.canonical_square)
         pairs = None
         if "q_hist" in acc:
             pairs = {k: acc[k].cpu().numpy() for k in ("q_hist", "ql_at_q", "ql2_at_q")}
             pairs.update(n_pairs=self.rt.n_pairs,
                          n_bonds=self.rt.n_spins * self.lattice.n_dims)
         return finalize(acc["rec_sums"].cpu().numpy(), acc["n_recorded"],
-                        self.rt.n_replicas, pt_state, fk_csd, pairs)
+                        self.rt.n_replicas, pt_state, fk_csd, pairs, fk_obs)

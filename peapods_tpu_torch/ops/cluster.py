@@ -8,7 +8,9 @@ TPU's scan devices), the per-cluster coin ``salted_uniform`` (:516), the SW
 and Wolff flip masks (:537, :550), ``find_seed`` (:481) and
 ``nonsingleton_mask`` (:529), component counts and the cluster-size
 histogram (:460, :466; a scatter-add count in place of the TPU's one-hot
-matmul, which only worked around slow scatters there).  Every function
+matmul, which only worked around slow scatters there), and FK observe's
+``top4_sizes`` (:475), ``graph_observation`` (:585) and ``winding_flags``
+(:612, the plain version of ``csrc/winding.cu``).  Every function
 takes a leading batch of graphs; a graph is a 2D ``[H, W]`` or 3D ``[L0,
 L1, L2]`` periodic lattice with one forward bond per axis, or per offset of
 ``offsets`` (the triangular lattice's three, :func:`fk_offsets`), stored as
@@ -16,6 +18,8 @@ L1, L2]`` periodic lattice with one forward bond per axis, or per offset of
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -34,6 +38,10 @@ __all__ = [
     "nonsingleton_mask",
     "component_counts",
     "csd_histogram",
+    "top4_sizes",
+    "GraphObservation",
+    "graph_observation",
+    "winding_flags",
 ]
 
 _INV24 = 1.0 / (1 << 24)
@@ -181,3 +189,90 @@ def csd_histogram(counts):
     """int32 ``[B, n_spins + 1]`` cluster-size histogram, ``hist[b, s]`` =
     number of clusters of size ``s`` (clusters/utils.rs:297-303)."""
     return _count(counts, counts > 0, counts.shape[1] + 1)
+
+
+def top4_sizes(counts):
+    """int32 ``[B, 4]``: the four largest component sizes, descending, 0
+    where a graph has fewer components (clusters/utils.rs:305-315)."""
+    return counts.topk(4, dim=-1).values
+
+
+class GraphObservation(NamedTuple):
+    """The observables of a batch of bond graphs (clusters/utils.rs:317-325):
+    ``top4`` int32 ``[B, 4]``, ``active_bonds`` and ``large_components``
+    int32 ``[B]``, ``winding_x`` / ``winding_y`` bool ``[B]``."""
+
+    top4: torch.Tensor
+    active_bonds: torch.Tensor
+    winding_x: torch.Tensor
+    winding_y: torch.Tensor
+    large_components: torch.Tensor
+
+
+def graph_observation(active_fwd, counts, winding=None):
+    """The graph observables (clusters/utils.rs:334-368) of bond masks
+    ``[B, n_spins, n_bonds]`` with component counts ``[B, n_spins]``
+    (:func:`component_counts`): the top-4 sizes, the active (site, offset)
+    entries of the masks, the components of at least ``ceil(0.05 n)``
+    sites, and the winding flags ``winding = (wx, wy)`` (all False when
+    ``None``: lattices other than the canonical 2D square)."""
+    n = counts.shape[-1]
+    threshold = -(-n * 5 // 100)
+    if winding is None:
+        no = torch.zeros(counts.shape[:-1], dtype=torch.bool, device=counts.device)
+        winding = (no, no)
+    return GraphObservation(
+        top4=top4_sizes(counts),
+        active_bonds=active_fwd.sum((-2, -1), dtype=torch.int32),
+        winding_x=winding[0],
+        winding_y=winding[1],
+        large_components=(counts >= threshold).sum(-1, dtype=torch.int32),
+    )
+
+
+def winding_flags(active_fwd, labels, shape):
+    """bool ``(wx, wy) [B]``: does any component of each 2D square bond graph
+    wrap the torus along axis 0 (x) / axis 1 (y) (cluster.py:612-677).
+
+    The jnp settle loop: from each component's root (``labels == site``)
+    an unwrapped displacement potential ``d`` is settled along the active
+    bonds, one round at a time (a site settles from a neighbour settled in
+    the previous round); a component winds along axis ``a`` iff an active
+    bond has ``d[j] - d[i] != off[a]``.  Raises ``ValueError`` when a round
+    settles nothing while sites remain unsettled: the labels do not belong
+    to the masks.
+    """
+    n = active_fwd.shape[-2]
+    dev = active_fwd.device
+    offsets = np.eye(2, dtype=np.int64)
+    settled = labels == torch.arange(n, device=dev, dtype=labels.dtype)
+    disp = torch.zeros(labels.shape[:-1] + (2, n), dtype=torch.int32, device=dev)
+    fwd_on = [active_fwd[..., d] for d in range(2)]
+    bwd_on = [neighbour_values(active_fwd[..., d], shape, -off)
+              for d, off in enumerate(offsets)]
+    off_col = [torch.as_tensor(off, dtype=torch.int32, device=dev)[:, None]
+               for off in offsets]
+    while not bool(settled.all()):
+        new_settled, new_disp = settled, disp
+        for d, off in enumerate(offsets):
+            ok = fwd_on[d] & neighbour_values(settled, shape, off) & ~new_settled
+            cand = neighbour_values(disp, shape, off) - off_col[d]
+            new_disp = torch.where(ok[..., None, :], cand, new_disp)
+            new_settled = new_settled | ok
+            ok = bwd_on[d] & neighbour_values(settled, shape, -off) & ~new_settled
+            cand = neighbour_values(disp, shape, -off) + off_col[d]
+            new_disp = torch.where(ok[..., None, :], cand, new_disp)
+            new_settled = new_settled | ok
+        if torch.equal(new_settled, settled):
+            raise ValueError("winding: sites left unsettled, the labels do not "
+                             "belong to the bond masks")
+        settled, disp = new_settled, new_disp
+    flags = []
+    for axis in range(2):
+        hit = torch.zeros(labels.shape[:-1], dtype=torch.bool, device=dev)
+        for d, off in enumerate(offsets):
+            x = disp[..., axis, :]
+            viol = neighbour_values(x, shape, off) - x - int(off[axis])
+            hit = hit | (fwd_on[d] & (viol != 0)).any(-1)
+        flags.append(hit)
+    return flags[0], flags[1]

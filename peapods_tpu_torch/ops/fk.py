@@ -20,13 +20,21 @@ bond uniforms from Philox keyed by ``kb`` (``rng.bond_uniforms``), labels
 equal to each component's minimum site index, and per-graph partial sums
 of the post-update energy and magnetization (one partial per kernel block;
 one per graph in the plain version).
+
+:func:`fk_observe` is FK observe on those lattices: the same bonds and
+labels, ``fk_finish`` in observe form (labels only, the spins untouched),
+and the bond masks, bits of the kernels' state bytes.  :func:`fk_staged`
+is the staged path of the lattices given by an offset table (BCC, FCC,
+custom offsets): ``fk_bonds_nb`` draws the bonds along each offset, the
+connected-components kernels of :mod:`.cc` label them, and ``fk_finish``
+flips from those labels (nothing, when observing); the caller measures.
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import _build, rng
+from . import _build, cc, rng
 from .cluster import (
     cluster_coin_flip_mask,
     connected_components,
@@ -39,8 +47,14 @@ from .lattice import neighbour_values
 
 __all__ = [
     "LAUNCHES",
+    "fused_lattice",
     "fk_update",
     "fk_update_plain",
+    "fk_observe",
+    "fk_observe_plain",
+    "fk_staged",
+    "fk_staged_plain",
+    "state_masks",
     "fk_bonds_plain",
     "fk_link_plain",
     "fk_finish_plain",
@@ -49,11 +63,18 @@ __all__ = [
 ]
 
 # kernel launches since the last reset, by kernel name
-LAUNCHES = {"fk_bonds": 0, "fk_link": 0, "fk_finish": 0}
+LAUNCHES = {"fk_bonds": 0, "fk_bonds_nb": 0, "fk_link": 0, "fk_finish": 0}
 
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def fused_lattice(lattice) -> bool:
+    """Whether the FK kernels (``fk_bonds`` / ``fk_link`` / ``fk_finish``)
+    take the lattice's graphs: square, triangular or 3D cubic.  The others
+    (BCC, FCC, offset tables) take the staged path, :func:`fk_staged`."""
+    return lattice.hypercubic or lattice.triangular
 
 
 def fk_energy_mag(e_part, m_part, n_spins: int):
@@ -62,8 +83,9 @@ def fk_energy_mag(e_part, m_part, n_spins: int):
     return per_spin(e_part.sum(-1), n_spins), m_part.sum(-1, dtype=torch.int32)
 
 
-def fk_bonds_plain(spins, j_fwd, temps, kb_words, uniforms=None):
-    """Plain version of ``fk_bonds``: bool ``[B, n, n_dirs]`` FK bonds of
+def fk_bonds_plain(spins, j_fwd, temps, kb_words, uniforms=None, offsets=None):
+    """Plain version of ``fk_bonds`` (and, given an offset table's
+    ``offsets``, of ``fk_bonds_nb``): bool ``[B, n, n_dirs]`` FK bonds of
     every graph (arguments as in :func:`fk_update_plain`)."""
     b, shape = spins.shape[0], tuple(spins.shape[1:])
     d, n, n_dirs = j_fwd.shape
@@ -72,7 +94,7 @@ def fk_bonds_plain(spins, j_fwd, temps, kb_words, uniforms=None):
     bonds = fk_bond_activation(spins.reshape(d, b // d, n), j_fwd[:, None],
                                shape, temps.reshape(d, -1),
                                u.reshape(d, -1, n, n_dirs),
-                               fk_offsets(shape, n_dirs))
+                               fk_offsets(shape, n_dirs) if offsets is None else offsets)
     return bonds.reshape(b, n, n_dirs)
 
 
@@ -80,6 +102,13 @@ def fk_link_plain(bonds, shape):
     """Plain version of ``fk_link``: int32 ``[B, n]`` labels, each
     component's minimum site index."""
     return connected_components(bonds, shape, fk_offsets(shape, bonds.shape[-1]))
+
+
+def state_masks(state, n_dirs: int):
+    """bool ``[B, n, n_dirs]`` bond masks from the kernels' state bytes
+    ``[B, n]``: bits ``0 .. n_dirs - 1``."""
+    bits = torch.arange(n_dirs, device=state.device, dtype=torch.uint8)
+    return ((state[..., None] >> bits) & 1).to(torch.bool)
 
 
 def fk_finish_plain(spins, labels, j_fwd, scalars, *, wolff, with_measure):
@@ -143,6 +172,49 @@ def launch_link(lib, stream, p_state, p_parent, n_graphs, l0, l1, l2, tri=False)
     LAUNCHES["fk_link"] += 1
 
 
+def _check_graphs(spins, j_fwd, temps, kb_words, scalars=None):
+    """Raise unless the flat graph batch is what the FK kernels take;
+    ``(b, n, d)``."""
+    dev = spins.device
+    b, shape = spins.shape[0], tuple(spins.shape[1:])
+    n = spins[0].numel()
+    d, n_dirs = j_fwd.shape[0], j_fwd.shape[-1]
+    if d == 0 or b % d:
+        raise ValueError(f"{b} graphs do not split over {d} realizations")
+    _build.expect(spins, "spins", torch.int8, (b, *shape), dev)
+    _build.expect(j_fwd, "j_fwd", torch.float32, (d, n, n_dirs), dev)
+    _build.expect(temps, "temps", torch.float32, (b,), dev)
+    if scalars is not None:
+        _build.expect(scalars, "scalars", torch.int32, (b, 3), dev)
+    _build.expect(kb_words, "kb_words", torch.int32, (b, 2), dev)
+    if b > 65535:
+        raise ValueError("at most 65535 graphs per update")
+    return b, n, d
+
+
+def _bonds_and_link(spins, j_fwd, temps, kb_words, scalars=None):
+    """Check the arguments, then launch ``fk_bonds`` and ``fk_link``:
+    ``(lib, stream, state, parent, dims)``."""
+    dev = spins.device
+    shape = tuple(spins.shape[1:])
+    n_dirs = j_fwd.shape[-1]
+    fk_offsets(shape, n_dirs)  # raises for a graph the kernels do not take
+    b, n, d = _check_graphs(spins, j_fwd, temps, kb_words, scalars)
+    tri = len(shape) == 2 and n_dirs == 3
+    l0, l1, l2 = _build.dims3(shape)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    state = torch.empty((b, n), dtype=torch.uint8, device=dev)
+    parent = torch.empty((b, n), dtype=torch.int32, device=dev)
+    _build.check(lib.peapods_fk_bonds(
+        spins.data_ptr(), j_fwd.data_ptr(), temps.data_ptr(),
+        kb_words.data_ptr(), state.data_ptr(), parent.data_ptr(), b, b // d,
+        l0, l1, l2, int(tri), stream), "fk_bonds")
+    LAUNCHES["fk_bonds"] += 1
+    launch_link(lib, stream, state.data_ptr(), parent.data_ptr(), b, l0, l1, l2, tri)
+    return lib, stream, state, parent, (l0, l1, l2, int(tri))
+
+
 def fk_update(spins, j_fwd, temps, scalars, kb_words, *, wolff, with_measure,
               with_labels, uniforms=None):
     """One FK update of every graph (see :func:`fk_update_plain`): the plain
@@ -157,42 +229,107 @@ def fk_update(spins, j_fwd, temps, scalars, kb_words, *, wolff, with_measure,
                                uniforms=uniforms, **kw)
     if uniforms is not None:
         raise ValueError("the FK kernels draw their own uniforms")
+    lib, stream, state, parent, dims = _bonds_and_link(spins, j_fwd, temps, kb_words,
+                                                       scalars)
     dev = spins.device
-    b, shape = spins.shape[0], tuple(spins.shape[1:])
-    n = spins[0].numel()
-    d, n_dirs = j_fwd.shape[0], j_fwd.shape[-1]
-    fk_offsets(shape, n_dirs)  # raises for a graph the kernels do not take
-    tri = len(shape) == 2 and n_dirs == 3
-    l0, l1, l2 = _build.dims3(shape)
-    if d == 0 or b % d:
-        raise ValueError(f"{b} graphs do not split over {d} realizations")
-    _build.expect(spins, "spins", torch.int8, (b, *shape), dev)
-    _build.expect(j_fwd, "j_fwd", torch.float32, (d, n, n_dirs), dev)
-    _build.expect(temps, "temps", torch.float32, (b,), dev)
-    _build.expect(scalars, "scalars", torch.int32, (b, 3), dev)
-    _build.expect(kb_words, "kb_words", torch.int32, (b, 2), dev)
-    if b > 65535:
-        raise ValueError("at most 65535 graphs per update")
-    lib = _build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    state = torch.empty((b, n), dtype=torch.uint8, device=dev)
-    parent = torch.empty((b, n), dtype=torch.int32, device=dev)
-    labels = (torch.empty((b, *shape), dtype=torch.int32, device=dev)
+    b, n, d = spins.shape[0], spins[0].numel(), j_fwd.shape[0]
+    labels = (torch.empty((b, *spins.shape[1:]), dtype=torch.int32, device=dev)
               if with_labels else None)
     e_part = m_part = None
     if with_measure:
         nb = lib.peapods_fk_blocks(n)
         e_part = torch.empty((b, nb), dtype=torch.float32, device=dev)
         m_part = torch.empty((b, nb), dtype=torch.int32, device=dev)
-    _build.check(lib.peapods_fk_bonds(
-        spins.data_ptr(), j_fwd.data_ptr(), temps.data_ptr(),
-        kb_words.data_ptr(), state.data_ptr(), parent.data_ptr(), b, b // d,
-        l0, l1, l2, int(tri), stream), "fk_bonds")
-    LAUNCHES["fk_bonds"] += 1
-    launch_link(lib, stream, state.data_ptr(), parent.data_ptr(), b, l0, l1, l2, tri)
     _build.check(lib.peapods_fk_finish(
         spins.data_ptr(), state.data_ptr(), parent.data_ptr(), _ptr(labels),
         j_fwd.data_ptr(), scalars.data_ptr(), _ptr(e_part), _ptr(m_part), b, b // d,
-        l0, l1, l2, int(tri), int(wolff), stream), "fk_finish")
+        *dims, int(wolff), 0, stream), "fk_finish")
     LAUNCHES["fk_finish"] += 1
     return e_part, m_part, labels
+
+
+def fk_observe_plain(spins, j_fwd, temps, kb_words, uniforms=None):
+    """Plain version of the observe form: the FK bond graphs of the spins,
+    which stay as they are.  Returns the int32 labels ``[B, *shape]`` and
+    the bool bond masks ``[B, n, n_dirs]``."""
+    bonds = fk_bonds_plain(spins, j_fwd, temps, kb_words, uniforms)
+    labels = fk_link_plain(bonds, tuple(spins.shape[1:]))
+    return labels.reshape(spins.shape).to(torch.int32), bonds
+
+
+def fk_observe(spins, j_fwd, temps, kb_words, *, uniforms=None):
+    """FK observe (``cluster_action="observe"``) on the FK kernels' lattices
+    (see :func:`fk_observe_plain`): ``fk_bonds``, ``fk_link`` and
+    ``fk_finish`` in observe form, which writes the labels and leaves the
+    spins alone; the masks are bits ``0 .. n_dirs - 1`` of the state
+    bytes."""
+    if _build.device_kind(spins) == "cpu":
+        return fk_observe_plain(spins, j_fwd, temps, kb_words, uniforms)
+    if uniforms is not None:
+        raise ValueError("the FK kernels draw their own uniforms")
+    lib, stream, state, parent, dims = _bonds_and_link(spins, j_fwd, temps, kb_words)
+    b, d = spins.shape[0], j_fwd.shape[0]
+    labels = torch.empty(spins.shape, dtype=torch.int32, device=spins.device)
+    _build.check(lib.peapods_fk_finish(
+        spins.data_ptr(), state.data_ptr(), parent.data_ptr(), labels.data_ptr(),
+        j_fwd.data_ptr(), None, None, None, b, b // d, *dims, 0, 1, stream),
+        "fk_finish")
+    LAUNCHES["fk_finish"] += 1
+    return labels, state_masks(state, j_fwd.shape[-1])
+
+
+def fk_staged_plain(spins, j_fwd, temps, scalars, kb_words, lattice, *, wolff,
+                    uniforms=None):
+    """Plain version of the staged FK path on a lattice given by its offset
+    table (the reference's ``fk_bond_activation -> _cc_many -> coin / Wolff
+    flips``, peapods_tpu/engine/loop.py:1883-1976): the bonds along
+    ``lattice.offsets``, their min-label components, and, unless
+    ``scalars`` is ``None`` (observe), the flips in place.  Returns the
+    int32 labels ``[B, n]`` and the bool masks ``[B, n, n_nb]``."""
+    bonds = fk_bonds_plain(spins, j_fwd, temps, kb_words, uniforms, lattice.offsets)
+    labels = connected_components(bonds, lattice.shape, lattice.offsets)
+    if scalars is not None:
+        fk_finish_plain(spins, labels, j_fwd, scalars, wolff=wolff, with_measure=False)
+    return labels, bonds
+
+
+def fk_staged(spins, j_fwd, temps, scalars, kb_words, lattice, *, wolff,
+              with_masks=False, uniforms=None):
+    """The staged FK path (see :func:`fk_staged_plain`): the plain version
+    for CPU tensors; for CUDA tensors ``fk_bonds_nb``, ``csrc/cc.cu``'s
+    ``cc_link`` and ``cc_label`` and, to update, ``fk_finish`` reading the
+    roots from those labels.  Nothing is measured: the caller measures the
+    spins after (``energy.measure_nb``).  The masks are returned when
+    ``with_masks`` (else ``None``)."""
+    if _build.device_kind(spins) == "cpu":
+        labels, bonds = fk_staged_plain(spins, j_fwd, temps, scalars, kb_words,
+                                        lattice, wolff=wolff, uniforms=uniforms)
+        return labels, bonds if with_masks else None
+    if uniforms is not None:
+        raise ValueError("the FK kernels draw their own uniforms")
+    if tuple(spins.shape[1:]) != tuple(lattice.shape):
+        raise ValueError(f"spins of shape {tuple(spins.shape[1:])} on a "
+                         f"{lattice.shape} lattice")
+    b, n, d = _check_graphs(spins, j_fwd, temps, kb_words, scalars)
+    if j_fwd.shape[-1] != lattice.n_neighbors:
+        raise ValueError("the couplings do not match the lattice's offsets")
+    dev = spins.device
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    state = torch.empty((b, n), dtype=torch.uint8, device=dev)
+    parent = torch.empty((b, n), dtype=torch.int32, device=dev)
+    labels = torch.empty((b, n), dtype=torch.int32, device=dev)
+    _build.check(lib.peapods_fk_bonds_nb(
+        spins.data_ptr(), j_fwd.data_ptr(), temps.data_ptr(), kb_words.data_ptr(),
+        state.data_ptr(), parent.data_ptr(), lattice.kernel_geometry.ctypes.data, b,
+        b // d, stream), "fk_bonds_nb")
+    LAUNCHES["fk_bonds_nb"] += 1
+    cc.launch(lib, stream, state.data_ptr(), parent.data_ptr(), labels.data_ptr(),
+              lattice, b)
+    if scalars is not None:
+        _build.check(lib.peapods_fk_finish(
+            spins.data_ptr(), state.data_ptr(), None, labels.data_ptr(),
+            j_fwd.data_ptr(), scalars.data_ptr(), None, None, b, b // d,
+            *_build.dims3(lattice.shape), 0, int(wolff), 0, stream), "fk_finish")
+        LAUNCHES["fk_finish"] += 1
+    return labels, state_masks(state, lattice.n_neighbors) if with_masks else None

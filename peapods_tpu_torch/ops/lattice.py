@@ -84,6 +84,9 @@ class Lattice:
             not_ported(f"a {n_dims}D lattice", "4a")
         if any(s < 2 or s % 2 for s in shape):
             not_ported(f"lattice extents {list(shape)} (odd or < 2)", "4a")
+        # built without explicit offsets: the reference's canonical lattice,
+        # whose 2D form reports winding (peapods_tpu/ops/lattice.py:57-92)
+        self.canonical = offsets is None
         if offsets is None:
             offsets = hypercubic_offsets(n_dims)
         offsets = [[int(x) for x in off] for off in offsets]
@@ -128,6 +131,13 @@ class Lattice:
         """2D with one forward bond per axis: the mega path's and
         ``sweep_2d``'s lattice."""
         return self.hypercubic and self.n_dims == 2
+
+    @property
+    def canonical_square(self) -> bool:
+        """A 2D lattice built without explicit offsets: the one whose FK
+        observations carry the winding flags (the reference's
+        ``canonical_square_shape``)."""
+        return self.canonical and self.n_dims == 2
 
     def color_masks(self) -> np.ndarray:
         """``bool [n_colors, n_spins]`` one mask per colour."""

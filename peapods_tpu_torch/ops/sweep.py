@@ -21,6 +21,11 @@ of every (realization, system) at each system's temperature, for runs with
 a cluster phase.  On CUDA tensors it launches ``csrc/sweep.cu`` twice (one
 launch per colour) and counts them in :data:`LAUNCHES`; on CPU tensors it
 runs :func:`sweep_2d_plain`, which draws the same Philox uniforms.
+With ``measure=True`` its second pass also writes per-block (e, m)
+partials of the swept spins: the counterpart of ``sweep_2d_fused``
+(``pallas_sweep.py:892``, kernel ``_kernel_fused`` :313), the sweep plus
+measurement of every sweep without an FK update, FK observe sweeps
+included.  It is one kernel, not a second one.
 
 :func:`sweep_nb` is the sweep of every other lattice (triangular, BCC, FCC,
 3D cubic with one replica, any offset table): one pass per colour of the

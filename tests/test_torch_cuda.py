@@ -4,8 +4,10 @@ Every test here needs an NVIDIA GPU and skips without one.  They cover the
 mega path's kernels (colour_pass, pt_step), the per-sweep path's
 (sweep_2d and the three FK kernels) and the replica path's (colour_pass in
 3D, pt_step on R ladders, pair_overlap, the ov_* overlap-move kernels and
-energy_partials) and the coloured lattices' (sweep_nb, measure_nb and the
-FK kernels with three bond directions).  On a machine
+energy_partials), the coloured lattices' (sweep_nb, measure_nb and the
+FK kernels with three bond directions) and FK observe's and the staged
+path's (cc_link / cc_label, winding, fk_finish in observe form,
+fk_bonds_nb and fk_finish reading labels).  On a machine
 with a GPU (jax is not needed; ``--noconftest`` skips the JAX package's
 test configuration):
 
@@ -225,7 +227,8 @@ def test_fk_update_kernel_matches_plain(cuda, shape, d, n_sys, wolff):
     ek, mk, lk = fk.fk_update(ka, *args, **kw)
     ep, mp, lp = fk.fk_update_plain(kp, *args, **kw)
     torch.cuda.synchronize()
-    assert fk.LAUNCHES == {"fk_bonds": 1, "fk_link": 1, "fk_finish": 1}
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {
+        "fk_bonds": 1, "fk_link": 1, "fk_finish": 1}
     assert torch.equal(ka, kp)
     assert torch.equal(lk, lp)
     e_k, m_k = fk.fk_energy_mag(ek, mk, h * w)
@@ -678,7 +681,8 @@ def test_fk_update_three_directions_kernel_matches_plain(cuda, shape, d, n_sys, 
     ek, mk, lk = fk.fk_update(ka, coup, temps, scal, kb, **kw)
     ep, mp, lp = fk.fk_update_plain(kp, coup, temps, scal, kb, **kw)
     torch.cuda.synchronize()
-    assert fk.LAUNCHES == {"fk_bonds": 1, "fk_link": 1, "fk_finish": 1}
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {
+        "fk_bonds": 1, "fk_link": 1, "fk_finish": 1}
     assert torch.equal(ka, kp)
     assert torch.equal(lk, lp)
     e_k, m_k = fk.fk_energy_mag(ek, mk, n)
@@ -716,3 +720,218 @@ def test_geometry_sample_on_card_matches_the_cpu(cuda, shape, geometry, coupling
         np.testing.assert_allclose(ra[key], rc[key], rtol=1e-12, err_msg=key)
     if "fk_csd" in rc:
         np.testing.assert_array_equal(np.asarray(ra["fk_csd"]), np.asarray(rc["fk_csd"]))
+
+
+# --------------------------------------------- FK observe and the staged path
+
+
+STAGED = [("bcc-16", (16, 16, 16), "bcc", 1, 8, 6.3), ("fcc-8", (8, 8, 8), "fcc", 2, 4, 9.8),
+          ("nnn-64", (64, 64), NNN, 1, 8, 5.3), ("nnn-2x8", (2, 8), NNN, 2, 3, 5.0),
+          ("self-bond-2x8", (2, 8), [[1, 0], [0, 1], [2, 0]], 2, 3, 4.0)]
+
+
+def _staged_inputs(dev, seed, shape, geometry, d, n_sys, temp):
+    from peapods_tpu_torch.ops.lattice import GEOMETRY_OFFSETS, Lattice
+
+    offsets = GEOMETRY_OFFSETS[geometry] if isinstance(geometry, str) else geometry
+    lat = Lattice(shape, offsets)
+    rng = np.random.default_rng(seed)
+    b, n, nb = d * n_sys, lat.n_spins, lat.n_neighbors
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return lat, dict(
+        spins=up(rng.choice([-1, 1], size=(b, *shape)).astype(np.int8)),
+        coup=up(rng.choice([-1.0, 1.0], size=(d, n, nb)).astype(np.float32)),
+        temps=up(rng.uniform(0.8 * temp, 1.2 * temp, b).astype(np.float32)),
+        kf=rng.integers(0, 2**32, (b, 2), dtype=np.uint64).astype(np.uint32),
+        kb=up(rng.integers(-2**31, 2**31, (b, 2)).astype(np.int32)))
+
+
+@pytest.mark.parametrize("name,shape,geometry,d,n_sys,temp", STAGED,
+                         ids=[c[0] for c in STAGED])
+def test_cc_labels_kernel_matches_plain(cuda, name, shape, geometry, d, n_sys, temp):
+    """cc_link / cc_label on batches of random masks from empty to full:
+    labels bitwise the min-label fixed point."""
+    from peapods_tpu_torch.ops import cc
+
+    lat, _ = _staged_inputs(cuda, 1, shape, geometry, d, n_sys, temp)
+    b = 8
+    rng = np.random.default_rng(len(shape) + lat.n_neighbors)
+    dens = np.linspace(0.0, 1.0, b)[:, None, None]
+    masks = torch.from_numpy(rng.random((b, lat.n_spins, lat.n_neighbors)) < dens).to(cuda)
+    for k in cc.LAUNCHES:
+        cc.LAUNCHES[k] = 0
+    got = cc.cc_labels(masks, lat)
+    want = cc.cc_labels_plain(masks, lat)
+    torch.cuda.synchronize()
+    assert cc.LAUNCHES == {"cc_link": 1, "cc_label": 1}
+    assert torch.equal(got, want)
+
+
+def test_cc_labels_one_256_graph(cuda):
+    """Row 15's shape: one 256^2 square graph at the bond-percolation
+    threshold, where one cluster spans the lattice."""
+    from peapods_tpu_torch.ops import cc
+    from peapods_tpu_torch.ops.lattice import Lattice
+
+    lat = Lattice((256, 256))
+    g = torch.Generator(device=cuda).manual_seed(5)
+    masks = torch.rand((1, lat.n_spins, 2), device=cuda, generator=g) < 0.5
+    got = cc.cc_labels(masks, lat)
+    want = cc.cc_labels_plain(masks, lat)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert int(torch.bincount(got.view(-1).long()).max()) > lat.n_spins // 10
+
+
+@pytest.mark.parametrize("shape,b", [((64, 64), 2048), ((256, 256), 2), ((8, 8), 64)],
+                         ids=["64-2048", "256", "8-64"])
+def test_winding_kernel_matches_plain(cuda, shape, b):
+    from peapods_tpu_torch.ops import cluster, winding
+
+    n = shape[0] * shape[1]
+    g = torch.Generator(device=cuda).manual_seed(b)
+    dens = torch.linspace(0.3, 0.75, b, device=cuda)[:, None, None]
+    masks = torch.rand((b, n, 2), device=cuda, generator=g) < dens
+    masks[0] = False
+    masks[-1] = True
+    labels = cluster.connected_components(masks, shape)
+    winding.LAUNCHES["winding"] = 0
+    wx, wy = winding.winding_flags(masks, labels, shape)
+    px, py = cluster.winding_flags(masks, labels, shape)
+    torch.cuda.synchronize()
+    assert winding.LAUNCHES["winding"] == 1
+    assert torch.equal(wx, px) and torch.equal(wy, py)
+    assert not wx[0] and wx[-1] and wy[-1]
+    # labels of other masks: the kernel cannot settle them and says so
+    err = torch.zeros(1, dtype=torch.int32, device=cuda)
+    winding.winding_flags(torch.zeros_like(masks[:1]), torch.zeros_like(labels[:1]),
+                          shape, errors=err)
+    assert int(err) == 1
+    with pytest.raises(ValueError, match="unsettled"):
+        winding.winding_flags(torch.zeros_like(masks[:1]), torch.zeros_like(labels[:1]),
+                              shape)
+
+
+@pytest.mark.parametrize("shape,d,n_sys,n_dirs,temp", [
+    ((256, 256), 1, 1, 2, 2.269), ((64, 64), 16, 8, 2, 2.269), ((32, 32), 1, 8, 3, 3.64),
+    ((16, 16, 16), 1, 4, 3, 4.51),
+], ids=["256", "64-128-graphs", "tri-32", "cubic-16"])
+def test_fk_observe_kernel_matches_plain(cuda, shape, d, n_sys, n_dirs, temp):
+    """fk_finish in observe form: the spins stay bitwise unchanged; labels
+    and masks equal the plain version's."""
+    rng = np.random.default_rng(d + n_dirs)
+    b, n = d * n_sys, int(np.prod(shape))
+    coup = torch.from_numpy(rng.choice([-1.0, 1.0], size=(d, n, n_dirs)).astype(
+        np.float32)).to(cuda)
+    kb = torch.from_numpy(rng.integers(-2**31, 2**31, (b, 2)).astype(np.int32)).to(cuda)
+    temps = torch.full((b,), temp, device=cuda)
+    s0 = torch.from_numpy(rng.choice([-1, 1], size=(b, *shape)).astype(np.int8)).to(cuda)
+    ka = s0.clone()
+    for k in fk.LAUNCHES:
+        fk.LAUNCHES[k] = 0
+    lk, mk = fk.fk_observe(ka, coup, temps, kb)
+    lp, mp = fk.fk_observe_plain(s0.clone(), coup, temps, kb)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {
+        "fk_bonds": 1, "fk_link": 1, "fk_finish": 1}
+    assert torch.equal(ka, s0)
+    assert torch.equal(lk, lp)
+    assert torch.equal(mk, mp)
+    assert mk.any() and not mk.all()
+
+
+@pytest.mark.parametrize("wolff", [False, True], ids=["sw", "wolff"])
+@pytest.mark.parametrize("name,shape,geometry,d,n_sys,temp", STAGED,
+                         ids=[c[0] for c in STAGED])
+def test_fk_staged_kernels_match_plain(cuda, name, shape, geometry, d, n_sys, temp,
+                                       wolff):
+    """fk_bonds_nb, cc_link, cc_label and fk_finish reading the labels:
+    masks, labels and spins bitwise the plain staged path; observe leaves
+    the spins alone."""
+    from peapods_tpu_torch.engine import seeds
+    from peapods_tpu_torch.ops import cc
+
+    lat, x = _staged_inputs(cuda, 7 + wolff, shape, geometry, d, n_sys, temp)
+    scal = torch.from_numpy(seeds.fk_scalars(x["kf"], lat.n_spins, wolff=wolff)).to(cuda)
+    a, p = x["spins"].clone(), x["spins"].clone()
+    for table in (fk.LAUNCHES, cc.LAUNCHES):
+        for k in table:
+            table[k] = 0
+    args = (x["coup"], x["temps"], scal, x["kb"], lat)
+    lk, mk = fk.fk_staged(a, *args, wolff=wolff, with_masks=True)
+    lp, mp = fk.fk_staged_plain(p, *args, wolff=wolff)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {"fk_bonds_nb": 1,
+                                                          "fk_finish": 1}
+    assert cc.LAUNCHES == {"cc_link": 1, "cc_label": 1}
+    assert torch.equal(mk, mp)
+    assert torch.equal(lk, lp)
+    assert torch.equal(a, p)
+    assert not torch.equal(a, x["spins"])
+    o = x["spins"].clone()
+    lo, mo = fk.fk_staged(o, x["coup"], x["temps"], None, x["kb"], lat, wolff=False,
+                          with_masks=True)
+    torch.cuda.synchronize()
+    assert torch.equal(o, x["spins"]) and torch.equal(lo, lk) and torch.equal(mo, mk)
+
+
+def test_observe_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from peapods_tpu_torch.ops import cc, winding
+    from peapods_tpu_torch.ops.lattice import Lattice
+
+    lat, x = _staged_inputs(cuda, 3, (4, 4, 4), "bcc", 1, 2, 6.0)
+    masks = torch.zeros((2, 64, 4), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):  # a CPU tensor with a CUDA partner
+        fk.fk_staged(x["spins"], x["coup"].cpu(), x["temps"], None, x["kb"], lat,
+                     wolff=False)
+    with pytest.raises(ValueError):
+        winding.winding_flags(masks[..., :2].contiguous(),
+                              torch.zeros((2, 64), dtype=torch.int32), (8, 8))
+    with pytest.raises(ValueError):  # masks of another lattice
+        cc.cc_labels(masks[..., :3], lat)
+    with pytest.raises(ValueError):  # winding is 2D
+        winding.winding_flags(masks[..., :2], torch.zeros((2, 64), dtype=torch.int32,
+                                                          device=cuda), (4, 4, 4))
+    with pytest.raises(ValueError):  # the FK kernels draw their own uniforms
+        fk.fk_observe(torch.ones((1, 8, 8), dtype=torch.int8, device=cuda),
+                      torch.ones((1, 64, 2), device=cuda), torch.ones(1, device=cuda),
+                      torch.zeros((1, 2), dtype=torch.int32, device=cuda),
+                      uniforms=torch.zeros(1, device=cuda))
+    assert not Lattice((4, 4), [[1, 0], [0, 1]]).canonical_square
+
+
+@pytest.mark.parametrize("shape,geometry,kw", [
+    ((16, 128), None, dict(cluster_update_interval=1, cluster_action="observe",
+                           pt_interval=1)),
+    ((8, 8, 8), "bcc", dict(cluster_update_interval=1, pt_interval=1,
+                            collect_cluster_stats=True)),
+    ((8, 8, 8), "fcc", dict(cluster_update_interval=2, cluster_mode="wolff",
+                            pt_interval=1)),
+    ((16, 16), NNN, dict(cluster_update_interval=2, cluster_action="observe",
+                         pt_interval=1)),
+], ids=["square-observe", "bcc-sw-stats", "fcc-wolff", "nnn-observe"])
+def test_observe_and_staged_sample_on_card_match_the_cpu(cuda, shape, geometry, kw):
+    """The kernels on the card and the plain path on the CPU follow one
+    trajectory and give the same observations (+-1 couplings: every sum is
+    an exact integer)."""
+    geo = (dict(geometry=geometry) if isinstance(geometry, str)
+           else dict(neighbor_offsets=geometry) if geometry is not None else {})
+    temps = np.geomspace(2.0, 8.0, 3).astype(np.float32)
+    a = Ising(shape, couplings="bimodal", temperatures=temps, seed=4, n_disorder=2,
+              device="cuda", **geo)
+    c = Ising(shape, couplings="bimodal", temperatures=temps, seed=4, n_disorder=2,
+              device="cpu", **geo)
+    ra, rc = a.sample(24, **kw), c.sample(24, **kw)
+    for key in ("spins", "system_ids", "pt_edge_acceptances"):
+        assert torch.equal(a._sim.state[key].cpu(), c._sim.state[key]), key
+    for key in ("mags", "mags2", "energies", "energies2"):
+        np.testing.assert_allclose(ra[key], rc[key], rtol=1e-12, err_msg=key)
+    assert ("fk_csd" in ra) == ("fk_csd" in rc)
+    if "fk_csd" in rc:
+        np.testing.assert_array_equal(np.asarray(ra["fk_csd"]), np.asarray(rc["fk_csd"]))
+    if kw.get("cluster_action") == "observe":
+        oa = ra["per_disorder"]["cluster_observations"]["fk"]
+        oc = rc["per_disorder"]["cluster_observations"]["fk"]
+        assert set(oa) == set(oc)
+        for key in oc:
+            np.testing.assert_array_equal(oa[key], oc[key], err_msg=key)

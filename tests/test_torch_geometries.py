@@ -446,16 +446,13 @@ def test_geometry_api_matches_reference():
 
 @pytest.mark.parametrize("kwargs,sample,item", [
     (dict(lattice_shape=(4, 4), geometry="tri", n_replicas=2), None, "7a"),
-    (dict(lattice_shape=(4, 4, 4), geometry="bcc"),
-     dict(cluster_update_interval=1, cluster_mode="sw"), "6"),
+    # SW on BCC runs (the staged path); with replicas it is item 7a
+    (dict(lattice_shape=(4, 4, 4), geometry="bcc", n_replicas=2),
+     dict(cluster_update_interval=1, cluster_mode="sw"), "7a"),
     (dict(lattice_shape=(4, 5), geometry="tri"), None, "4a"),
 ], ids=["replicas-tri", "sw-bcc", "odd-extents"])
 def test_out_of_slice_geometry_options_raise(kwargs, sample, item):
     match = f"ROADMAP.md, queue 1, item {item}"
-    if sample is None:
-        with pytest.raises(NotImplementedError, match=match):
-            Ising(temperatures=[2.0, 3.0], seed=1, device="cpu", **kwargs)
-        return
-    m = Ising(temperatures=[2.0, 3.0], seed=1, device="cpu", **kwargs)
     with pytest.raises(NotImplementedError, match=match):
-        m.sample(4, **sample)
+        m = Ising(temperatures=[2.0, 3.0], seed=1, device="cpu", **kwargs)
+        m.sample(4, **(sample or {}))
