@@ -22,9 +22,10 @@ through the user's entry points:
   realizations, through ``Ising.sample`` twice from one seed; q and P(q) at
   config 4's hottest temperature; a 4x4 +-J glass against exact
   enumeration with each overlap move; and each kernel (``colour_pass`` in
-  3D, ``pair_overlap``, ``pt_step`` on R ladders, ``ov_bonds``,
-  ``fk_link``, ``ov_mid``, ``ov_finish``, ``energy_partials``) held against
-  its plain version at both configs' shapes;
+  3D, ``pair_overlap``, ``pt_step`` on R ladders, ``houdn_bonds``,
+  ``houdn_finish`` (Houdayer), ``ov_bonds``, ``ov_mid``, ``ov_finish``
+  (Joerg, CMR), ``fk_link``, ``energy_partials``) held against its plain
+  version at both configs' shapes;
 * the per-sweep path on the coloured lattices: config 2 (32x32 triangular,
   8 temperatures, Wolff every 2 sweeps) at full width through
   ``Ising.sample`` twice from one seed, its Wolff <e> against Metropolis
@@ -44,7 +45,19 @@ through the user's entry points:
   without the observer (bitwise), a 4x4 NNN magnet with staged SW against
   exact enumeration, and each new kernel (``winding``, ``cc_link``,
   ``cc_label``, ``fk_bonds_nb``, ``fk_finish`` in observe form and reading
-  the CC labels) held against its plain version on those runs' states.
+  the CC labels) held against its plain version on those runs' states;
+* Houdayer(N), the overlap moves' statistics and overlap observe: config 4
+  with ``cmr+houd4`` SW and cluster statistics through ``Ising.sample``
+  twice from one seed (checksums over spins, records, ``overlap_csd`` and
+  ``top_cluster_sizes``; the histograms against the stats graphs; the
+  rates and the host's share), config 4 with Wolff ``houd4``, a 4x4 +-J
+  glass with R = 4 (houd4 on the card bitwise the plain path on the CPU;
+  the pair-Houdayer control against exact enumeration, houd4's deviation
+  from it measured), SW overlap observe at config 4's shape and on a 64^2
+  square with winding (the observations' invariants, each run bitwise the
+  run without overlap moves), and ``houdn_bonds`` / ``houdn_finish`` (g =
+  4 and 6) and the pair moves' labels, masks and observe form held
+  against their plain versions.
 
 Each path's launch counts are zeroed just before its main run and read just
 after.  Every phase prints lines; any failure raises and the script exits
@@ -60,6 +73,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -944,23 +958,56 @@ GLASS_Q2_TOL = 0.05
 # order, each order's error below ~(log2 n + 8) f32 epsilons of sum |J|
 E_SUM_TOL = 1e-6  # of sum |J| of the system's realization
 PAIR_KERNELS = ("colour_pass", "pair_overlap", "pt_step", "ov_bonds", "fk_link",
-                "ov_mid", "ov_finish", "energy_partials")
+                "ov_mid", "ov_finish", "energy_partials", "houdn_bonds",
+                "houdn_finish", "winding")
+
+
+def move_kernels(build):
+    """The overlap-move kernels that the moves of a build mode launch:
+    ``houdn_bonds``, ``houdn_finish`` for Houdayer (any group size);
+    ``ov_bonds``, ``ov_finish`` for Joerg and CMR, and ``ov_mid`` for CMR;
+    ``fk_link`` for every move."""
+    ks = {"fk_link"}
+    for m in build.split("+"):
+        ks |= ({"houdn_bonds", "houdn_finish"} if m.startswith("houd") else
+               {"ov_bonds", "ov_finish"} | ({"ov_mid"} if m == "cmr" else set()))
+    return tuple(k for k in PAIR_KERNELS if k in ks)
+
+
+def houdn_bounds(b, n, g, d, s, *, wolff, labels, flipped, observe=False):
+    """``{kernel: (bound_ms, bound_by)}`` of ``houdn_bonds`` and
+    ``houdn_finish`` on ``b`` tasks of ``g`` members of ``n`` sites in one
+    form: the bytes that form must move.  Both read the tasks and sid;
+    ``houdn_bonds`` the group's spins, and in the Wolff form the 64 probes
+    of a task and writes its seed; it writes a state byte and a parent a
+    site.  ``houdn_finish`` reads the parents, the state bytes and two salts
+    a task (SW) or the seed (Wolff), writes the labels when asked, and reads
+    and writes the ``flipped`` spins that this run's data flips; in observe
+    form it reads the parents and writes the labels only."""
+    index = 4 * g * b + 4 * d * s
+    bonds = g * b * n + index + 5 * b * n + (256 * b + 4 * b if wolff else 0)
+    if observe:
+        finish = 8 * b * n
+    else:
+        finish = (4 * b * n + index + 2 * flipped + (4 * b * n if labels else 0)
+                  + (4 * b if wolff else b * n + 8 * b))
+    return {"houdn_bonds": bound(bonds, 0), "houdn_finish": bound(finish, 0)}
 
 
 def reset_pair_counts():
-    from peapods_tpu_torch.ops import fk, mega, megapair, overlap, sweep
+    from peapods_tpu_torch.ops import fk, mega, megapair, overlap, sweep, winding
 
     for table in (sweep.LAUNCHES, fk.LAUNCHES, mega.LAUNCHES, megapair.LAUNCHES,
-                  overlap.LAUNCHES):
+                  overlap.LAUNCHES, winding.LAUNCHES):
         for k in table:
             table[k] = 0
 
 
 def pair_counts():
-    from peapods_tpu_torch.ops import fk, mega, megapair, overlap
+    from peapods_tpu_torch.ops import fk, mega, megapair, overlap, winding
 
     return {**mega.LAUNCHES, **megapair.LAUNCHES, **overlap.LAUNCHES,
-            "fk_link": fk.LAUNCHES["fk_link"]}
+            "fk_link": fk.LAUNCHES["fk_link"], **winding.LAUNCHES}
 
 
 def sg_model(name, dev, seed=None):
@@ -989,16 +1036,20 @@ def pair_checksum(sim, result) -> str:
 def expected_pair_counts(name, n):
     """Launches of ``n`` sweeps from sweep 0: two colour passes, a pair
     measurement and a PT step per sweep; per move (every 10th sweep) its
-    kernels (``fk_link`` twice for CMR: blue, then grey), the energy
-    re-derivation and a second PT step."""
+    kernels (``houdn_bonds``, ``fk_link``, ``houdn_finish`` for Houdayer;
+    ``ov_bonds``, ``fk_link``, ``ov_finish`` for Joerg and CMR, with
+    ``ov_mid`` and a second ``fk_link`` for CMR: blue, then grey), the
+    energy re-derivation and a second PT step."""
     c = SG_CONFIGS[name]
     interval = c["kw"]["overlap_cluster_update_interval"]
     modes = c["kw"]["overlap_cluster_build_mode"].split("+")
     moves = [modes[(s // interval) % len(modes)] for s in range(0, n, interval)]
     n_cmr = sum(k == "cmr" for k in moves)
+    n_houd = sum(k.startswith("houd") for k in moves)
     e = len(moves)
     return {"colour_pass": 2 * n, "pt_step": n + e, "pair_overlap": n,
-            "ov_bonds": e, "fk_link": e + n_cmr, "ov_mid": n_cmr, "ov_finish": e,
+            "ov_bonds": e - n_houd, "fk_link": e + n_cmr, "ov_mid": n_cmr,
+            "ov_finish": e - n_houd, "houdn_bonds": n_houd, "houdn_finish": n_houd,
             "energy_partials": e}
 
 
@@ -1012,7 +1063,8 @@ def sim_config(sim, kw):
         pt_schedule=kw.get("pt_schedule", "single_random_edge"),
         overlap_cluster=OverlapClusterConfig(
             interval=kw["overlap_cluster_update_interval"],
-            modes=parse_overlap_modes(kw["overlap_cluster_build_mode"])))
+            modes=parse_overlap_modes(kw["overlap_cluster_build_mode"]),
+            cluster_mode=kw.get("overlap_cluster_mode", "wolff")))
 
 
 def sg_config(name, dev, card):
@@ -1351,7 +1403,7 @@ def check_pair_kernels(runs, dev, rng):
         log("13 kernel-vs-plain", f"{name} energy_partials ok: m exact, max |e_kernel - "
             f"e_plain| {e_err}, {worst:.4f} of the limit {E_SUM_TOL} sum|J| per system "
             "(+-J: exact; gaussian: f32 sums in another order)")
-        for k in ("ov_bonds", "fk_link", "ov_mid", "ov_finish"):
+        for k in move_kernels(run["kw"]["overlap_cluster_build_mode"]):
             rec[k] = dict(max_abs_err=0.0)
         rec["_tables"] = moved
         out[name] = rec
@@ -1399,12 +1451,13 @@ def pair_times(runs, checks, dev):
         # the move's plain version is one function for all of its kernels:
         # its time, on the main path's kinds, stands beside each of them
         plain_move = {}
-        for kind in (("houdayer",) if name == "config4" else ("jorg", "cmr")):
+        build = run["kw"]["overlap_cluster_build_mode"]
+        for kind in build.split("+"):
             tab = rec["_tables"][(kind, True)]
             plain_move[kind] = wall_ms(lambda: overlap.overlap_event_plain(
                 sp.clone(), x["sid"], tab[0], rt.coup, rt.temps, *tab[1:], kind=kind,
                 wolff=True, shape=shape), 3)
-        for k in ("ov_bonds", "fk_link", "ov_mid", "ov_finish"):
+        for k in move_kernels(build):
             rec[k]["plain_ms"] = max(plain_move.values())
             rec[k]["plain_is"] = "the whole move: " + ", ".join(
                 f"{kind} {ms:.4f} ms" for kind, ms in plain_move.items())
@@ -1430,11 +1483,23 @@ def pair_times(runs, checks, dev):
                                 3 * nd * sys_bytes),
         }
         for k, (nbytes, flops) in bounds.items():
-            rec[k]["bound_ms"], rec[k]["bound_by"] = bound(nbytes, flops)
+            if k in rec:
+                rec[k]["bound_ms"], rec[k]["bound_by"] = bound(nbytes, flops)
+        if "houdn_bonds" in rec:
+            # pair Houdayer in the config's Wolff form, no labels: the spins
+            # that the check's move flips on this state
+            tab = rec["_tables"][("houdayer", True)]
+            moved_sp = sp.clone()
+            overlap.overlap_event_plain(moved_sp, x["sid"], tab[0], rt.coup, rt.temps,
+                                        *tab[1:], kind="houdayer", wolff=True,
+                                        shape=shape)
+            for k, v in houdn_bounds(b_tasks, n, 2, d, s, wolff=True, labels=False,
+                                     flipped=int((moved_sp != sp).sum())).items():
+                rec[k]["bound_ms"], rec[k]["bound_by"] = v
         rec.pop("_tables")
 
 
-def pair_profile(run, n, card, name):
+def pair_profile(run, n, card, name, phase="14 times"):
     """Device time per launch and per sweep of each replica-path kernel over
     a profiled window of ``n`` sweeps of the main path, and the busy share
     of the unprofiled wall time per sweep."""
@@ -1459,7 +1524,7 @@ def pair_profile(run, n, card, name):
     if missing:
         raise AssertionError(f"the profiler saw no device time for {missing}")
     busy = sum(per_sweep.values()) + other
-    log("14 times", f"{name} device us per sweep: " + ", ".join(
+    log(phase, f"{name} device us per sweep: " + ", ".join(
         f"{k} {v:.3f}" for k, v in per_sweep.items())
         + f", other device work {other:.3f}, sum {busy:.3f} against "
         f"{1e6 / run['sweeps_s']:.3f} us of wall time per sweep: the device is busy "
@@ -2412,6 +2477,590 @@ def add_observe_records(kernels, obs, hobs, staged, times, us, card):
             f"{v['plain_ms']:.4f} ms)" for name, v in shapes.items()) + f" on {card}")
 
 
+# ------------------- Houdayer(N), the overlap moves' statistics and observe
+
+
+# config 4 at full width with the spin-glass script's cmr_houd4 move list
+# (benchmarks/driver_configs.py:71-83, tests/spin_glass_crossings.py:88-92):
+# one CMR pair move and one Houdayer(4) move in turn every 10 sweeps
+HOUDN_KW = dict(pt_interval=1, overlap_cluster_update_interval=10,
+                overlap_cluster_build_mode="cmr+houd4", overlap_cluster_mode="sw",
+                collect_cluster_stats=True)
+HOUDN_WOLFF_KW = dict(pt_interval=1, overlap_cluster_update_interval=10,
+                      overlap_cluster_build_mode="houd4")
+OV_OBSERVE_KW = dict(pt_interval=1, overlap_cluster_update_interval=10,
+                     overlap_cluster_build_mode="houdayer+jorg+cmr",
+                     overlap_cluster_mode="sw", overlap_cluster_action="observe")
+# the 2D square with winding: a 64^2 +-J glass, R = 2, 8 temperatures, 4
+# realizations, observe every sweep (cut in depth to 256 sweeps)
+OV_OBSERVE_2D = dict(shape=(64, 64), t=(0.8, 2.0), n_temps=8, n_replicas=2,
+                     n_disorder=4, sweeps=256,
+                     kw=dict(OV_OBSERVE_KW, overlap_cluster_update_interval=1))
+# the 4x4 glass of glass_physics with R = 4: the pair-Houdayer control
+# against exact enumeration; houd4's deviation from it is measured, since
+# Houdayer(N > 2) does not keep the group's summed energy yet accepts every
+# move (the reference warns that it breaks detailed balance), and its run
+# on the card is held bitwise to the plain path on the CPU
+HOUDN_GLASS_SWEEPS = 20000
+HOUDN_BITWISE_SWEEPS = 1000
+HOUDN_SRC = "peapods_tpu_torch/csrc/overlap.cu"
+HOUDN_REPLACES = "peapods_tpu/ops/pallas_event.py:901"  # _houdn_kernel (row 20)
+EV_REPLACES = "peapods_tpu/ops/pallas_event.py:274"  # _event_kernel (row 19)
+OBS_NAMES = {"houdayer": "houdayer", "jorg": "jorg", "cmr": "cmr_blue"}
+
+
+def move_counts(kw, n, warmup, observe=False, winding=False):
+    """Launches of ``n`` sweeps of the replica path from sweep 0 with the
+    moves of ``kw``: per sweep two colour passes, a pair measurement and a
+    PT step; per move (every interval, only recorded sweeps when observing)
+    a second PT step and the move's kernels: ``houdn_bonds``, ``fk_link``,
+    ``houdn_finish`` for Houdayer (any group size); ``ov_bonds``,
+    ``fk_link`` (twice for CMR), ``ov_mid`` (CMR), ``ov_finish`` for Joerg
+    and CMR; ``energy_partials`` after an update; ``winding`` after an observed
+    move on the canonical square.  The observe form builds no grey graph."""
+    interval = kw["overlap_cluster_update_interval"]
+    modes = kw["overlap_cluster_build_mode"].split("+")
+    moves = [modes[(s // interval) % len(modes)] for s in range(0, n, interval)
+             if not (observe and s < warmup)]
+    houdn = sum(m.startswith("houd") for m in moves)
+    pair = len(moves) - houdn
+    n_cmr = 0 if observe else sum(m == "cmr" for m in moves)
+    counts = {"colour_pass": 2 * n, "pt_step": n + len(moves), "pair_overlap": n,
+              "ov_bonds": pair, "fk_link": len(moves) + n_cmr, "ov_mid": n_cmr,
+              "ov_finish": pair, "houdn_bonds": houdn, "houdn_finish": houdn,
+              "energy_partials": 0 if observe else len(moves),
+              "winding": len(moves) if winding else 0}
+    return {k: v for k, v in counts.items() if v}
+
+
+def stats_checksum(sim, result) -> str:
+    """:func:`pair_checksum`, the overlap moves' cluster-size histograms,
+    top-4 sizes and graph observations."""
+    h = hashlib.sha256(pair_checksum(sim, result).encode())
+    for key in ("overlap_csd", "top_cluster_sizes"):
+        for x in result.get(key, []):
+            h.update(np.ascontiguousarray(np.asarray(x)).tobytes())
+    obs = result.get("per_disorder", {}).get("cluster_observations", {})
+    for name in sorted(obs):
+        for key in sorted(obs[name]):
+            h.update(np.ascontiguousarray(obs[name][key]).tobytes())
+    return h.hexdigest()[:16]
+
+
+def glass_run(dev, kw, n, shape=(8, 8, 8), t=(0.9, 2.2), n_temps=SG_T,
+              n_replicas=SG_R, n_disorder=SG_D, seed=4):
+    """A +-J glass (config 4's by default) through Ising.sample from its
+    seed, its launches counted from zero just before the run and read just
+    after: ``(model, result, launches)``."""
+    from peapods_tpu_torch import Ising
+
+    model = Ising(shape, couplings="bimodal", temperatures=np.geomspace(*t, n_temps),
+                  n_replicas=n_replicas, n_disorder=n_disorder, seed=seed, device=dev)
+    torch.cuda.synchronize()
+    reset_pair_counts()
+    result = model.sample(n, "metropolis", **kw)
+    torch.cuda.synchronize()
+    return model, result, {k: v for k, v in pair_counts().items() if v}
+
+
+def twice(name, dev, kw, n, want, **glass):
+    """:func:`glass_run` twice from one seed: the launch counts of the first
+    against ``want`` and two equal checksums."""
+    runs = [glass_run(dev, kw, n, **glass) for _ in range(2)]
+    if runs[0][2] != want:
+        raise AssertionError(f"{name} launch counts {runs[0][2]}, expected {want}")
+    checks = [stats_checksum(m._sim, r) for m, r, _ in runs]
+    if checks[0] != checks[1]:
+        raise AssertionError(f"{name} checksums differ: {checks}")
+    return runs, checks[0]
+
+
+def mode_graphs(sim, kw, n, warmup):
+    """The stats graphs of each mode's recorded moves over ``n`` sweeps."""
+    from peapods_tpu_torch.engine.config import parse_overlap_modes
+
+    rt = sim.rt
+    interval = kw["overlap_cluster_update_interval"]
+    modes = parse_overlap_modes(kw["overlap_cluster_build_mode"])
+    return [sum(s >= warmup and (s // interval) % len(modes) == m
+                for s in range(0, n, interval))
+            * rt.n_disorder * rt.n_temps * (rt.n_replicas // mode.group_size)
+            for m, mode in enumerate(modes)]
+
+
+def check_mode_stats(result, sim, graphs):
+    """Every site of every recorded move's stats graph in one cluster
+    (sum_s s csd[s] = n_spins x graphs, per mode, exact) and the top-4
+    sizes finite, in [0, 1] and descending."""
+    n = sim.rt.n_spins
+    for m, g in enumerate(graphs):
+        csd = np.asarray(result["overlap_csd"][m])
+        if csd.dtype != np.uint64 or csd.shape != (sim.rt.n_temps, n + 1):
+            raise AssertionError(f"mode {m} overlap_csd {csd.dtype} {csd.shape}")
+        sites = (csd.astype(np.float64) * np.arange(n + 1)).sum()
+        if sites != n * g:
+            raise AssertionError(f"mode {m}: {sites} sites in the histograms, "
+                                 f"expected {n} x {g} graphs")
+        top = result["top_cluster_sizes"][m]
+        if not (top.shape == (sim.rt.n_temps, 4) and np.isfinite(top).all()
+                and (top >= 0).all() and (top <= 1).all()
+                and (np.diff(top, axis=-1) <= 0).all()):
+            raise AssertionError(f"mode {m} top_cluster_sizes {top}")
+
+
+def check_overlap_observations(result, sim, kw, n, warmup, winding):
+    """Each observed kind's graph observations: the reference's keys (the
+    winding ones only on the canonical square) and dtypes, the moves of the
+    kind times the groups a temperature and realization, every site in one
+    cluster, fractions in [0, 1] with the top four descending, either >=
+    max(x, y) and both <= min(x, y)."""
+    rt = sim.rt
+    interval = kw["overlap_cluster_update_interval"]
+    kinds = kw["overlap_cluster_build_mode"].split("+")
+    obs = result["per_disorder"]["cluster_observations"]
+    if list(obs) != [OBS_NAMES[k] for k in kinds]:
+        raise AssertionError(f"observed kinds {list(obs)}")
+    keys = set(FK_OBS_KEYS) | (set(WINDING_KEYS) if winding else set())
+    for i, kind in enumerate(kinds):
+        o = obs[OBS_NAMES[kind]]
+        if set(o) != keys:
+            raise AssertionError(f"{kind} observation keys {sorted(o)}")
+        moves = sum(s >= warmup and (s // interval) % len(kinds) == i
+                    for s in range(0, n, interval))
+        cnt, csd = o["observation_count"], o["cluster_size_counts"]
+        want = moves * (rt.n_replicas // 2)
+        if cnt.dtype != np.uint64 or csd.dtype != np.uint64 or not (cnt == want).all():
+            raise AssertionError(f"{kind} observation counts {cnt}, expected {want}")
+        sites = (csd.astype(np.float64) * np.arange(rt.n_spins + 1)).sum(-1)
+        if not (sites == rt.n_spins * cnt.astype(np.float64)).all():
+            raise AssertionError(f"{kind}: the cluster sizes do not add up to the sites")
+        top4 = o["top_four_component_fractions"]
+        fr = [top4, o["active_bond_density"]] + [o[k] for k in WINDING_KEYS if winding]
+        if not all(f.dtype == np.float64 and (f >= 0).all() and (f <= 1).all()
+                   for f in fr):
+            raise AssertionError(f"{kind}: a fraction outside [0, 1]")
+        if not ((np.diff(top4, axis=-1) <= 0).all()
+                and (top4.sum(-1) <= 1 + 1e-12).all()):
+            raise AssertionError(f"{kind} top-4 fractions {top4}")
+        if winding and not ((o["winding_either"] >= np.maximum(
+                o["winding_x"], o["winding_y"])).all() and (o["winding_both"] <= np.minimum(
+                o["winding_x"], o["winding_y"])).all()):
+            raise AssertionError(f"{kind}: winding either / both against x, y")
+    return obs
+
+
+def houdn_main(dev, card):
+    """Phase 24: config 4 with cmr+houd4 SW and the moves' statistics
+    through Ising.sample twice from one seed: launch counts, two equal
+    checksums (spins, records, overlap_csd, top_cluster_sizes), the
+    histograms against the stats graphs, the rates and the host's share."""
+    from peapods_tpu_torch.engine import loop
+
+    n = SG_CONFIGS["config4"]["sweeps"]
+    warmup = int(np.floor(n * 0.25 + 0.5))
+    runs, check = twice("cmr+houd4", dev, HOUDN_KW, n, move_counts(HOUDN_KW, n, warmup))
+    (m0, r0, launches), (m1, _, _) = runs
+    graphs = mode_graphs(m0._sim, HOUDN_KW, n, warmup)
+    check_mode_stats(r0, m0._sim, graphs)
+    e, q2 = r0["energies"], r0["overlap2"]
+    if not (np.isfinite(e).all() and e[0] > e[-1] and q2[0] > q2[-1]):
+        raise AssertionError(f"cmr+houd4 sanity: <e> {e}, <q^2> {q2}")
+    top = r0["top_cluster_sizes"]
+    log("24 cmr+houd4", f"8x8x8 +-J, {SG_T} temps x {SG_R} replicas x {SG_D} "
+        f"realizations, cmr+houd4 SW every 10 sweeps with cluster statistics, {n} "
+        f"sweeps on {dev}: launches {launches}; checksum {check} == {check}; "
+        f"sum_s s csd[s] = 512 x {graphs} graphs (cmr, houd4) ok; top_cluster_sizes "
+        f"at T[0] cmr {np.round(top[0][0], 5).tolist()}, houd4 "
+        f"{np.round(top[1][0], 5).tolist()}; <e>[0,-1] {e[0]:.5f}, {e[-1]:.5f}; "
+        f"<q^2>[0,-1] {q2[0]:.5f}, {q2[-1]:.5f}")
+    sweeps_s, rates = warm_rate(m1, n, HOUDN_KW)
+    sim = m1._sim
+    cfg = sim_config(sim, HOUDN_KW)
+    t0 = time.perf_counter()
+    loop._event_tables(sim.rt, cfg, sim.state["base_keys"], 0, 0, 256)
+    torch.cuda.synchronize()
+    host_us = (time.perf_counter() - t0) * 1e6 / 256
+    log("24 cmr+houd4", f"host: the overlap-move tables (a CMR and a houd4 table) of "
+        f"a 256-sweep chunk take {host_us:.1f} us per sweep against "
+        f"{1e6 / sweeps_s:.1f} us of wall time per sweep")
+    log("24 cmr+houd4", f"kernel path: {sweeps_s:.1f} sweeps/s = "
+        f"{sweeps_s * 512 * SG_R * SG_T * SG_D:.4e} flips/s (single-spin attempts) "
+        f"on {card} (median of {', '.join(f'{r:.1f}' for r in rates)} sweeps/s)")
+    return dict(model=m1, result=r0, sweeps_s=sweeps_s, launches=launches,
+                kw=HOUDN_KW, checksum=check, host_us=host_us)
+
+
+def houdn_wolff(dev, card):
+    """Phase 25: config 4 with Houdayer(4) in its Wolff form, no statistics,
+    twice from one seed (launch counts, equal checksums) and its rate."""
+    n = SG_CONFIGS["config4"]["sweeps"]
+    runs, check = twice("houd4", dev, HOUDN_WOLFF_KW, n,
+                        move_counts(HOUDN_WOLFF_KW, n, 0))
+    (m0, r0, launches), (m1, _, _) = runs
+    if not np.isfinite(r0["energies"]).all() or "overlap_csd" in r0:
+        raise AssertionError("houd4 Wolff: records or keys")
+    sweeps_s, rates = warm_rate(m1, n, HOUDN_WOLFF_KW)
+    log("25 houd4", f"8x8x8 +-J config 4 with houd4 (Wolff) every 10 sweeps, {n} "
+        f"sweeps on {dev}: launches {launches}; checksum {check} == {check}; kernel "
+        f"path {sweeps_s:.1f} sweeps/s = {sweeps_s * 512 * SG_R * SG_T * SG_D:.4e} "
+        f"flips/s on {card} (median of {', '.join(f'{r:.1f}' for r in rates)})")
+    return dict(model=m1, sweeps_s=sweeps_s, launches=launches, kw=HOUDN_WOLFF_KW,
+                checksum=check)
+
+
+def houdn_glass(dev):
+    """Phase 25: the 4x4 +-J glass of glass_physics with R = 4 and PT and
+    the move every sweep.  houd4 (Wolff, SW) on the card bitwise the plain
+    path on the CPU over HOUDN_BITWISE_SWEEPS; over HOUDN_GLASS_SWEEPS the
+    pair-Houdayer control against exact enumeration (GLASS tolerances) and
+    houd4's deviation from it, measured."""
+    from peapods_tpu_torch import Ising
+
+    rng = np.random.default_rng(44)
+    J = rng.choice([-1.0, 1.0], size=(4, 4, 2)).astype(np.float32)
+    temps = np.array([0.8, 1.3, 2.0], np.float32)
+    exact = [glass_4x4_exact(J.reshape(16, 2), float(t)) for t in temps]
+
+    def run(device, n, build, mode):
+        m = Ising((4, 4), couplings=J, temperatures=temps, n_replicas=4, seed=7,
+                  device=device)
+        r = m.sample(n, pt_interval=1, overlap_cluster_update_interval=1,
+                     overlap_cluster_build_mode=build, overlap_cluster_mode=mode,
+                     warmup_ratio=0.1)
+        return m, r
+
+    for mode in ("wolff", "sw"):
+        (mk, rk), (mp, rp) = (run(d, HOUDN_BITWISE_SWEEPS, "houd4", mode)
+                              for d in (dev, "cpu"))
+        for key in ("spins", "system_ids", "pt_edge_acceptances"):
+            if not torch.equal(mk._sim.state[key].cpu(), mp._sim.state[key]):
+                raise AssertionError(f"4x4 houd4 ({mode}): {key} differs from the CPU")
+        for key in ("energies", "overlap2"):
+            np.testing.assert_allclose(rk[key], rp[key], rtol=1e-12, err_msg=key)
+        log("25 physics", f"4x4 +-J glass, R=4, houd4 ({mode}) every sweep + PT, "
+            f"{HOUDN_BITWISE_SWEEPS} sweeps: the card's run bitwise the plain path's "
+            "on the CPU (spins, sid, PT counts) ok")
+    for build, mode in (("houdayer", "wolff"), ("houd4", "wolff"), ("houd4", "sw")):
+        m, _ = run(dev, HOUDN_GLASS_SWEEPS, build, mode)
+        de = m.energies_avg - np.array([x[0] for x in exact])
+        dq = m.overlap2 - np.array([x[1] for x in exact])
+        exact_ok = (np.abs(de) < GLASS_E_TOL).all() and (np.abs(dq) < GLASS_Q2_TOL).all()
+        if build == "houdayer" and not exact_ok:
+            raise AssertionError(f"4x4 glass R=4 ({build}): dE {de}, dq2 {dq}")
+        if not (np.isfinite(de).all() and ((m.overlap2 >= 0) & (m.overlap2 <= 1)).all()):
+            raise AssertionError(f"4x4 glass R=4 ({build}, {mode}): records")
+        verdict = ("within the tolerances" if exact_ok else
+                   "outside the tolerances: Houdayer(N > 2) is not Boltzmann-exact")
+        log("25 physics", f"4x4 +-J glass, R=4, T {temps.tolist()}, {build} ({mode}) "
+            f"every sweep + PT, {HOUDN_GLASS_SWEEPS} sweeps on {dev}: <E> - exact "
+            f"{np.round(de, 4).tolist()}, <q^2> - exact {np.round(dq, 4).tolist()} "
+            f"({verdict} {GLASS_E_TOL} / {GLASS_Q2_TOL})")
+
+
+def overlap_observe(dev, card):
+    """Phase 26: overlap observe (houdayer+jorg+cmr SW) at config 4's shape
+    (every 10 sweeps, 3D: no winding) and on the 64^2 square (every sweep,
+    with winding), each twice from one seed (launch counts, equal
+    checksums), the observations' invariants, each run bitwise the same run
+    without overlap moves (spins, sid, PT counts, records) and its rate."""
+    out = {}
+    c2 = OV_OBSERVE_2D
+    for name, kw, n, glass, winding in (
+            ("observe3d", OV_OBSERVE_KW, SG_CONFIGS["config4"]["sweeps"], {}, False),
+            ("observe2d", c2["kw"], c2["sweeps"],
+             dict(shape=c2["shape"], t=c2["t"], n_temps=c2["n_temps"],
+                  n_replicas=c2["n_replicas"], n_disorder=c2["n_disorder"], seed=26),
+             True)):
+        warmup = int(np.floor(n * 0.25 + 0.5))
+        runs, check = twice(name, dev, kw, n, move_counts(kw, n, warmup, observe=True,
+                                                          winding=winding), **glass)
+        (m0, r0, launches), (m1, _, _) = runs
+        obs = check_overlap_observations(r0, m0._sim, kw, n, warmup, winding)
+        graphs = mode_graphs(m0._sim, kw, n, warmup)
+        check_mode_stats(r0, m0._sim, graphs)
+        plain, rp, _ = glass_run(dev, dict(pt_interval=1), n, **glass)
+        for key in ("spins", "system_ids", "pt_edge_acceptances", "pt_round_trips"):
+            if not torch.equal(m0._sim.state[key], plain._sim.state[key]):
+                raise AssertionError(f"{name}: {key} differs from the run without moves")
+        for key in ("energies", "energies2", "mags2", "overlap", "overlap2",
+                    "link_overlap", "overlap_histogram"):
+            if not np.array_equal(np.asarray(r0[key]), np.asarray(rp[key])):
+                raise AssertionError(f"{name}: {key} differs from the run without moves")
+        rt = m0._sim.rt
+        shape = "x".join(map(str, rt.lattice.shape))
+        log(f"26 {name}", f"{shape} +-J, {rt.n_temps} temps x {rt.n_replicas} replicas "
+            f"x {rt.n_disorder} realizations, houdayer+jorg+cmr SW observe every "
+            f"{kw['overlap_cluster_update_interval']} sweeps, {n} sweeps on {dev}: "
+            f"launches {launches}; checksum {check} == {check}; observations ok; "
+            "spins, sid, PT counts and records bitwise the run without overlap "
+            f"moves; bond density at T[0] " + ", ".join(
+                f"{k} {o['active_bond_density'][0, 0]:.5f}" for k, o in obs.items())
+            + ("; winding either at T[-1] " + ", ".join(
+                f"{k} {o['winding_either'][0, -1]:.4f}" for k, o in obs.items())
+               if winding else ""))
+        sweeps_s, rates = warm_rate(m1, n, kw)
+        log(f"26 {name}", f"kernel path: {sweeps_s:.1f} sweeps/s = "
+            f"{sweeps_s * rt.n_spins * rt.n_systems * rt.n_disorder:.4e} flips/s on "
+            f"{card} (median of {', '.join(f'{r:.1f}' for r in rates)} sweeps/s)")
+        out[name] = dict(model=m1, sweeps_s=sweeps_s, launches=launches, kw=kw,
+                         checksum=check)
+    return out
+
+
+def move_tables(rng, d, n_replicas, n_temps, n, kind, wolff, g, dev):
+    """One move's tables on the device: tasks of groups of ``g`` replicas,
+    scalars, probes and key words, from random realization keys."""
+    from peapods_tpu_torch.engine import seeds
+
+    keys = rng.integers(0, 2**32, (d, 2), dtype=np.uint64).astype(np.uint32)
+    tasks, tkeys = seeds.overlap_tasks(keys, [5], n_replicas, n_temps, g)
+    scal, probes = seeds.event_scalars(kind, wolff, tkeys[0], n)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return (up(tasks[0]), up(scal.reshape(-1, 6)), up(probes.reshape(-1, 64)),
+            up(tkeys[0].view(np.int32).reshape(-1, 2)))
+
+
+def check_houdn_kernels(main, wolff_run, obs, dev, rng):
+    """Row 20 (houdn_bonds -> fk_link -> houdn_finish) in both forms with
+    labels at g = 4 on config 4's equilibrated cmr+houd4 state and at g = 6
+    on a 12-replica state stacked from it; row 19's labels (grey and blue
+    for CMR), masks and observe form for each kind (SW) there; and on each
+    overlap-observe run's own state (3D, and the 64^2 square with winding
+    on the masks and labels) every kind's observe form: everything bitwise
+    the plain versions.  Then the plain versions' times and the bounds of
+    each form: ``{kernel: record}`` with ``at_<run>`` beside the main one."""
+    from peapods_tpu_torch.ops import cluster, overlap, winding
+
+    x = pair_inputs(main, dev)
+    rt = x["rt"]
+    shape = rt.lattice.shape
+    d, s = x["sid"].shape
+    n = rt.n_spins
+    # a 12-replica state: the 4 replicas, then two copies from the
+    # neighbouring realizations
+    stacked = dict(spins=torch.cat([x["spins"], x["spins"].roll(1, 0),
+                                    x["spins"].roll(2, 0)], 1).contiguous(),
+                   sid=torch.cat([x["sid"], x["sid"].roll(1, 0) + s,
+                                  x["sid"].roll(2, 0) + 2 * s], 1).contiguous())
+    for g, st, n_rep in ((4, x, rt.n_replicas), (6, stacked, 3 * rt.n_replicas)):
+        for wolff in (True, False):
+            tab = move_tables(rng, d, n_rep, rt.n_temps, n, "houdayer", wolff, g, dev)
+            a, b = st["spins"].clone(), st["spins"].clone()
+            kw = dict(kind="houdayer", wolff=wolff, shape=shape, with_labels=True)
+            gk = overlap.overlap_event(a, st["sid"], tab[0], rt.coup, rt.temps,
+                                       *tab[1:], **kw)
+            gp = overlap.overlap_event_plain(b, st["sid"], tab[0], rt.coup, rt.temps,
+                                             *tab[1:], **kw)
+            torch.cuda.synchronize()
+            bad = {"spins": int((a != b).sum()),
+                   "labels": int((gk.labels != gp.labels).sum())}
+            flipped = int((a != st["spins"]).sum())
+            msg = (f"row 20 houd{g} ({'wolff' if wolff else 'sw'}) on "
+                   f"{d} x {rt.n_temps} x {n_rep // g} groups of {g}: mismatches {bad}; "
+                   f"{flipped} spins flipped, "
+                   f"{int((gk.labels == torch.arange(n, device=dev)).sum())} clusters")
+            if any(bad.values()) or not flipped:
+                raise AssertionError(msg)
+            log("24 kernel-vs-plain", msg + " ok")
+    for kind in ("houdayer", "jorg", "cmr"):
+        tab = move_tables(rng, d, rt.n_replicas, rt.n_temps, n, kind, False, 2, dev)
+        graphs = {}
+        for observe in (False, True):
+            a, b = x["spins"].clone(), x["spins"].clone()
+            kw = dict(kind=kind, wolff=False, shape=shape, with_labels=True,
+                      with_masks=True, observe=observe)
+            gk = overlap.overlap_event(a, x["sid"], tab[0], rt.coup, rt.temps,
+                                       *tab[1:], **kw)
+            gp = overlap.overlap_event_plain(b, x["sid"], tab[0], rt.coup, rt.temps,
+                                             *tab[1:], **kw)
+            torch.cuda.synchronize()
+            bad = graph_mismatches(a, b, gk, gp)
+            if any(bad.values()) or torch.equal(a, x["spins"]) != observe:
+                raise AssertionError(f"row 19 {kind} (sw, observe={observe}): {bad}")
+            graphs[observe] = gk
+        if not (torch.equal(graphs[True].stats, graphs[False].stats)
+                and torch.equal(graphs[True].masks, graphs[False].masks)):
+            raise AssertionError(f"row 19 {kind}: the observe form's graph differs")
+        log("24 kernel-vs-plain", f"row 19 {kind} (sw) at config 4: labels"
+            f"{' (grey and blue)' if kind == 'cmr' else ''}, the stats graph's masks "
+            f"[{d * rt.n_temps * rt.n_pairs}, {n}, {len(shape)}] and the observe form "
+            "(no spin written, the same stats graph) bitwise the plain version ok")
+
+    def flips(st, tab, wolff):
+        sp = st["spins"].clone()
+        overlap.overlap_event_plain(sp, st["sid"], tab[0], rt.coup, rt.temps, *tab[1:],
+                                    kind="houdayer", wolff=wolff, shape=shape)
+        return int((sp != st["spins"]).sum())
+
+    # the plain version's time (the whole move) and the bounds of each form
+    # at its run's shape and state: cmr+houd4 SW with labels (the main
+    # record), Wolff houd4 without labels (groups of 4: d T tasks)
+    b, g = d * rt.n_temps * (rt.n_replicas // 4), 4
+    out = {}
+    for name, st, wolff, labels in (("main", x, False, True),
+                                    ("houd4_wolff", pair_inputs(wolff_run, dev), True,
+                                     False)):
+        tab = move_tables(rng, d, rt.n_replicas, rt.n_temps, n, "houdayer", wolff, g, dev)
+        plain_ms = wall_ms(lambda: overlap.overlap_event_plain(
+            st["spins"].clone(), st["sid"], tab[0], rt.coup, rt.temps, *tab[1:],
+            kind="houdayer", wolff=wolff, shape=shape, with_labels=labels), 3)
+        for k, (bound_ms, bound_by) in houdn_bounds(
+                b, n, g, d, s, wolff=wolff, labels=labels,
+                flipped=flips(st, tab, wolff)).items():
+            rec = dict(max_abs_err=0.0, bound_ms=bound_ms, bound_by=bound_by,
+                       plain_ms=plain_ms, plain_is="the whole Houdayer(4) move"
+                       + (", with labels" if labels else ""))
+            if name == "main":
+                out[k] = rec
+            else:
+                out[k][f"at_{name}"] = rec
+    # every kind's observe form on each observe run's own state; on the
+    # canonical square, winding on the stats graph's masks and labels
+    for name, run in obs.items():
+        y = pair_inputs(run, dev)
+        rt_o = y["rt"]
+        shape_o = rt_o.lattice.shape
+        d_o, s_o = y["sid"].shape
+        n_o = rt_o.n_spins
+        b_o = d_o * rt_o.n_temps * rt_o.n_pairs
+        wind = rt_o.lattice.canonical_square
+        for kind in ("houdayer", "jorg", "cmr"):
+            tab = move_tables(rng, d_o, rt_o.n_replicas, rt_o.n_temps, n_o, kind, False,
+                              2, dev)
+            a, b_sp = y["spins"].clone(), y["spins"].clone()
+            args = (y["sid"], tab[0], rt_o.coup, rt_o.temps, *tab[1:])
+            kw = dict(kind=kind, wolff=False, shape=shape_o, with_labels=True,
+                      with_masks=True, observe=True)
+            gk = overlap.overlap_event(a, *args, **kw)
+            gp = overlap.overlap_event_plain(b_sp, *args, **kw)
+            torch.cuda.synchronize()
+            bad = graph_mismatches(a, b_sp, gk, gp)
+            bad["spins written"] = int((a != y["spins"]).sum())
+            extra = ""
+            if wind:
+                wk = winding.winding_flags(gk.masks, gk.stats, shape_o)
+                wp = cluster.winding_flags(gp.masks, gp.stats, shape_o)
+                torch.cuda.synchronize()
+                bad["winding"] = int((wk[0] != wp[0]).sum() + (wk[1] != wp[1]).sum())
+                extra = (f", winding: {int(wk[0].sum())} / {int(wk[1].sum())} graphs "
+                         "wind along x / y")
+            if any(bad.values()):
+                raise AssertionError(f"row 19 {kind} observe on {name}: {bad}")
+            log("26 kernel-vs-plain", f"{kind} observe form on {name}'s state ({b_o} "
+                f"graphs of {'x'.join(map(str, shape_o))}): labels"
+                f"{' (blue)' if kind == 'cmr' else ''}, masks"
+                f"{' and winding flags' if wind else ''} bitwise the plain version, no "
+                f"spin written: mismatches {bad}; "
+                f"{int((gk.stats == torch.arange(n_o, device=dev)).sum())} clusters, "
+                f"{int(gk.masks.sum())} active bonds{extra} ok")
+            if kind != "houdayer":
+                continue
+            plain_ms = wall_ms(lambda: overlap.overlap_event_plain(
+                y["spins"].clone(), *args, **kw), 3)
+            for k, (bound_ms, bound_by) in houdn_bounds(
+                    b_o, n_o, 2, d_o, s_o, wolff=False, labels=True, flipped=0,
+                    observe=True).items():
+                out[k][f"at_{name}"] = dict(
+                    max_abs_err=0.0, bound_ms=bound_ms, bound_by=bound_by,
+                    plain_ms=plain_ms, plain_is="the whole pair-Houdayer observe move")
+            if wind:
+                masks, labels = gp.masks, gp.stats
+                out[f"winding_{name}"] = dict(
+                    max_abs_err=0.0,
+                    plain_ms=wall_ms(lambda: cluster.winding_flags(masks, labels,
+                                                                   shape_o), 2),
+                    **dict(zip(("bound_ms", "bound_by"), bound(6 * b_o * n_o + b_o, 0))))
+    return out
+
+
+def graph_mismatches(a, b, gk, gp):
+    """Spins and the :class:`MoveGraphs` fields (labels, blue, masks) of a
+    kernel move against its plain version: differing elements each (1 where
+    one of them is missing)."""
+    bad = {"spins": int((a != b).sum())}
+    for f in ("labels", "blue", "masks"):
+        k, p = getattr(gk, f), getattr(gp, f)
+        bad[f] = (int((k != p).sum()) if k is not None and p is not None
+                  else int((k is None) != (p is None)))
+    return bad
+
+
+def add_houdn_records(kernels, pk, main, wolff, obs, houdn, us, card):
+    """The kernels line's records of row 20's kernels (phase 24's numbers;
+    Wolff houd4's, config 4's pair Houdayer and the observe runs' beside
+    them) and phase 24's / 26's numbers beside row 19's kernels and
+    winding's."""
+    per_sweep = lambda run, k: run["launches"].get(k, 0) / run["launches"]["pair_overlap"]  # noqa: E731
+
+    def at(run, name, k):
+        return dict(launches=run["launches"][k], ms=us[name][k] / 1e3,
+                    launches_per_sweep=per_sweep(run, k))
+
+    runs = (("houd4_wolff", wolff, "wolff"), ("observe3d", obs["observe3d"], "observe3d"),
+            ("observe2d", obs["observe2d"], "observe2d"))
+    for k in ("houdn_bonds", "houdn_finish"):
+        kr = dict(name=k, route="cuda", source=HOUDN_SRC, replaces=HOUDN_REPLACES,
+                  library_ms=None, **at(main, "main", k),
+                  **{f: v for f, v in houdn[k].items() if not f.startswith("at_")})
+        for name, run, key in runs:
+            kr[f"at_{name}"] = dict(houdn[k][f"at_{name}"], **at(run, key, k))
+        kr["at_config4"] = dict(pk["config4"][k], replaces=EV_REPLACES,
+                                launches_per_sweep=pk["config4"][k]["launches"]
+                                / SG_CONFIGS["config4"]["sweeps"])
+        kernels.append(kr)
+    by_name = {kr["name"]: kr for kr in kernels}
+    for k in ("ov_bonds", "fk_link", "ov_mid", "ov_finish"):
+        for run, name in ((main, "main"), (obs["observe3d"], "observe3d"),
+                          (obs["observe2d"], "observe2d")):
+            if k in run["launches"]:
+                by_name[k][f"at_{'cmr_houd4' if name == 'main' else name}"] = at(
+                    run, name, k)
+    w = by_name["winding"]
+    w["at_observe2d"] = dict(houdn["winding_observe2d"],
+                             **at(obs["observe2d"], "observe2d", "winding"))
+    for k in ("houdn_bonds", "houdn_finish"):
+        kr = by_name[k]
+        log("24 times", f"{k} per launch: cmr+houd4 (SW, labels) {kr['ms']:.5f} ms x "
+            f"{kr['launches_per_sweep']:g} a sweep (bound {kr['bound_ms']:.6f} ms by "
+            f"{kr['bound_by']}, plain {kr['plain_ms']:.4f} ms, the whole move); " + "; ".join(
+                f"{name} {v['ms']:.5f} ms x {v['launches_per_sweep']:g} a sweep (bound "
+                f"{v['bound_ms']:.6f} ms, plain {v['plain_ms']:.4f} ms)"
+                for name, v in ((key[3:], kr[key]) for key in kr if key.startswith("at_")))
+            + f" on {card}")
+    v = w["at_observe2d"]
+    log("26 times", f"winding per launch at observe2d: {v['ms']:.5f} ms x "
+        f"{v['launches_per_sweep']:g} a sweep (bound {v['bound_ms']:.6f} ms by "
+        f"{v['bound_by']}, plain {v['plain_ms']:.4f} ms) on {card}")
+
+
+def kernel_registers(text) -> str:
+    """``library: kernel registers, ...`` from the ``ptxas -v`` log of the
+    build: each entry function's registers under its kernel's name."""
+    out, fn = [], None
+    for ln in text.splitlines():
+        if ln.endswith(".so:"):
+            out.append(("|" if out else "") + ln.rsplit("/", 1)[-1].split("_")[0] + ":")
+        entry = re.search(r"Compiling entry function '([^']+)'", ln)
+        if entry:
+            fn = entry.group(1)
+        used = re.search(r"Used (\d+) registers", ln)
+        if used and fn:
+            out.append(f"{kernel_name(fn)} {used.group(1)}")
+            fn = None
+    return " ".join(out)
+
+
+def kernel_name(mangled) -> str:
+    """The ``<name>`` of a mangled ``..<length><name>_kernel..`` entry."""
+    end = mangled.find("_kernel") + len("_kernel")
+    for start in range(end - len("_kernel"), 0, -1):
+        digits = re.search(r"\d+$", mangled[:start])
+        if digits and any(int(digits.group(0)[i:]) == end - start
+                          for i in range(len(digits.group(0)))):
+            return mangled[start:end - len("_kernel")]
+    return mangled
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: torch sees no CUDA device", file=sys.stderr)
@@ -2427,11 +3076,9 @@ def main():
 
     t0 = time.perf_counter()
     _build.library()
-    regs = [ln.strip() for ln in _build.build_info["log"].splitlines()
-            if "registers" in ln or ln.endswith(".so:")]
     log("2 build", f"built {len(_build.build_info['paths'])} libraries "
         f"({', '.join(_build.build_info['paths'])}) in {time.perf_counter() - t0:.2f} s; "
-        f"ptxas: {' | '.join(regs)}")
+        f"ptxas registers by kernel: {kernel_registers(_build.build_info['log'])}")
 
     # the mega path
     rng = np.random.default_rng(2024)
@@ -2511,12 +3158,23 @@ def main():
     ob_times = check_observe_kernels(obs, hobs, staged, dev, np.random.default_rng(2028))
     ob_us = observe_times(obs, hobs, staged, card)
 
+    # Houdayer(N), the overlap moves' statistics and overlap observe
+    hmain = houdn_main(dev, card)
+    hwolff = houdn_wolff(dev, card)
+    houdn_glass(dev)
+    hobs_ov = overlap_observe(dev, card)
+    houdn = check_houdn_kernels(hmain, hwolff, hobs_ov, dev, np.random.default_rng(2029))
+    h_us = {"main": pair_profile(hmain, 200, card, "cmr+houd4", "24 times"),
+            "wolff": pair_profile(hwolff, 200, card, "houd4 wolff", "25 times"),
+            **{name: pair_profile(run, 200 if name == "observe3d" else 32, card, name,
+                                  "26 times") for name, run in hobs_ov.items()}}
+
     mega_src = "peapods_tpu_torch/csrc/mega.cu"
     mega_replaces = "peapods_tpu/ops/pallas_mega.py:96"
     fk_src = "peapods_tpu_torch/csrc/fk.cu"
     fk_replaces = "peapods_tpu/ops/pallas_event.py:621"
     mp_replaces = "peapods_tpu/ops/pallas_megapair.py:325"
-    ev_replaces = "peapods_tpu/ops/pallas_event.py:274"
+    ev_replaces = EV_REPLACES
     kernels = [
         dict(name="colour_pass", route="cuda", source=mega_src,
              replaces=mega_replaces, launches=launches["colour_pass"], **cp),
@@ -2540,9 +3198,10 @@ def main():
                         ("ov_mid", "overlap.cu", ev_replaces),
                         ("ov_finish", "overlap.cu", ev_replaces),
                         ("energy_partials", "overlap.cu", ev_replaces)):
-        # the numbers of config 4's main path (config 5's for ov_mid, which
-        # only CMR launches), and config 5's beside them
-        main = "config5" if k == "ov_mid" else "config4"
+        # the numbers of config 4's main path (config 5's for the ov_*
+        # kernels, which only Joerg and CMR launch), and config 5's beside
+        # them
+        main = "config5" if k.startswith("ov_") else "config4"
         kr = dict(name=k, route="cuda", source=f"peapods_tpu_torch/csrc/{src}",
                   replaces=rep, library_ms=None, **pk[main][k])
         if main == "config4":
@@ -2550,6 +3209,7 @@ def main():
         kernels.append(kr)
     add_nb_records(kernels, nb)
     add_observe_records(kernels, obs, hobs, staged, ob_times, ob_us, card)
+    add_houdn_records(kernels, pk, hmain, hwolff, hobs_ov, houdn, h_us, card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     record = {"kernels": [{**{k: kr[k] for k in keys},

@@ -1,32 +1,48 @@
-// Hopper kernels of the pair overlap moves (Houdayer, Joerg, CMR, each in
+// Hopper kernels of the overlap moves (Houdayer(N), Joerg, CMR, each in
 // Wolff or SW form) and of the energy re-derivation after a move.
 //
-// Replaces the TPU's fused overlap event peapods_tpu/ops/pallas_event.py:542
+// Replaces the TPU's fused overlap events peapods_tpu/ops/pallas_event.py:542
 // overlap_event_batch (kernel _event_kernel :274, with the CC fixed point
-// pallas_cc_batch.cc_fixed_point and the coin _salted_uniform_i32).  A task
-// b = (d T + t) P + g pairs the replicas tasks[b] = (r_a, r_b) at
-// temperature t of realization d; its two systems are found through sid
-// (slot r T + t), so the spins stay by system ([d, n_slots, n] int8) and
-// are flipped in place.  n is a 2D [L0, L1] (L2 = 1) or 3D [L0, L1, L2]
+// pallas_cc_batch.cc_fixed_point and the coin _salted_uniform_i32) and :989
+// houdn_event_batch (kernel _houdn_kernel :901).  A task b = (d T + t) G + j
+// groups the g replicas tasks[b g .. b g + g - 1] at temperature t of
+// realization d (g = 2 for Joerg and CMR); its systems are found through
+// sid (slot r T + t), so the spins stay by system ([d, n_slots, n] int8)
+// and are flipped in place.  n is a 2D [L0, L1] (L2 = 1) or 3D [L0, L1, L2]
 // lattice; J/T is computed per bond as J / T in f32, as the reference's
 // pack_event_jt does.  The launches of one move, on the caller's stream:
 //
-//   ov_bonds   thread g owns sites 4g .. 4g+3 of a task and writes, per
-//              site, a state byte (bit d: forward bond d) and parent[i] = i:
-//                Houdayer  active_i && active_fwd       (active: a b < 0)
+// Houdayer(N) on groups of any even g, the pair move (g = 2) included:
+//
+//   houdn_bonds   thread j owns sites 4j .. 4j+3 of a task and writes, per
+//                 site, a state byte (bit d: forward bond d) and parent[i] =
+//                 i: a site is active where the group's g spins sum to 0
+//                 (for a pair, a != b), a bond joins two active neighbours.
+//                 The first warp of the task's first block picks the Wolff
+//                 seed: the first of the task's 64 probes that is active
+//                 (n when none is, and the move is then a no-op), each lane
+//                 testing two probes, a ballot choosing.
+//   fk_link       (csrc/fk.cu, shared with the FK update) one thread per
+//                 site: union-find over the bonds (uf.cuh), the roots being
+//                 each component's minimum site index.
+//   houdn_finish  one thread per site flips the seed's component (Wolff) or
+//                 each non-singleton component with salted_uniform(root, s0,
+//                 s1) < 1/2 (SW) in all g systems; optionally writes the
+//                 labels.  In observe form (overlap_cluster_action=
+//                 "observe", pairs only) it writes the labels and no spin.
+//
+// Joerg and CMR on pairs:
+//
+//   ov_bonds   as houdn_bonds, with the bonds
 //                Joerg     a a_fwd J/T > 0 && u < 1 - exp(-4 a a_fwd J/T)
-//                          && active_i && active_fwd
+//                          && active_i && active_fwd       (active: a b < 0)
 //                CMR blue  a a_fwd J/T > 0 && b b_fwd J/T > 0 && u < 1 - r^2,
 //                          r = exp(-2 |J/T|)
 //              in the reference's operation order, u from Philox4x32-10
 //              keyed by the task's two key words, counter (dir, site / 4, 0,
-//              0).  Thread 0 of the task's first block picks the Wolff seed:
-//              the first of the task's 64 probes with a != b (Houdayer,
-//              Joerg; n when there is none, and the move is then a no-op),
-//              or CMR's drawn seed.
-//   fk_link    (csrc/fk.cu, shared with the FK update) one thread per site:
-//              union-find over the bonds (uf.cuh), the roots being each
-//              component's minimum site index.
+//              0), and the Wolff seed: Joerg's first probe with a != b, or
+//              CMR's drawn seed.
+//   fk_link    as above.
 //   ov_mid     CMR only: the blue flip of each site (Wolff: the seed's blue
 //              component; SW: salted_uniform(root, s0, s1) < 1/2 on
 //              non-singletons), then the grey bonds on the flipped spins,
@@ -35,20 +51,25 @@
 //              (bit 7: the blue flip) and parent array; a second fk_link
 //              labels the grey graph.  The flipped spins are never written
 //              here: a neighbour's flip comes from its blue root.
-//   ov_finish  one thread per site flips its spin in both systems: Wolff,
-//              the seed's component; SW, salted_uniform(root, s0, s1) < 1/2
-//              on non-singletons; CMR, the blue flip and then the grey flip
-//              of a (k & 1) and of b (k & 2), k drawn per task (Wolff) or
-//              k = floor(4 salted_uniform(grey root, s2, s3)) (SW).
-//              Optionally writes the labels (the grey ones for CMR).
+//   ov_finish  one thread per site flips its spin in both systems: Joerg as
+//              houdn_finish; CMR, the blue flip and then the grey flip of a
+//              (k & 1) and of b (k & 2), k drawn per task (Wolff) or k =
+//              floor(4 salted_uniform(grey root, s2, s3)) (SW).  Optionally
+//              writes the labels (the grey ones for CMR).  In observe form
+//              it writes the labels of ov_bonds' graph (CMR: the blue one,
+//              with no ov_mid before it) and no spin.
+//
+// In every observe form the bond masks are bits 0 .. nd-1 of the first
+// kernel's state bytes.
+//
 //   energy_partials  per (realization, system) block partials of the
 //              forward-bond energy sum_d s s_fwd J and of m, which pt_step
 //              adds up: the energies of PT after a move (loop.py:3602-3612).
 //
-// What bounds it on the H100: a move touches per site the two int8 spins,
+// What bounds it on the H100: a move touches per site the g int8 spins,
 // a few coupling floats, a state byte and an int32 parent, a few times:
 // under 10 MB per launch at 16^3 x 384 tasks.  The chains of dependent
-// parent loads in find and the launch count (4 or 6 launches a move, plus
+// parent loads in find and the launch count (3 to 5 launches a move, plus
 // energy_partials) bound it, as for the FK kernels.
 
 #include <cuda_runtime.h>
@@ -63,7 +84,8 @@ using namespace peapods;
 
 namespace {
 
-constexpr int kHoudayer = 0;
+// the move kinds of ov_bonds / ov_finish (Houdayer takes the houdn_*
+// kernels)
 constexpr int kJorg = 1;
 constexpr int kCmr = 2;
 constexpr int kProbes = 64;
@@ -118,7 +140,7 @@ ov_bonds_kernel(int8_t* spins, const int32_t* __restrict__ sid,
     int seed = n;  // none
     if (kind == kCmr) {
       seed = scal[6 * b + 4];
-    } else if (wolff) {
+    } else if (wolff) {  // Joerg
       for (int p = 0; p < kProbes; ++p) {
         const int s = probes[kProbes * b + p];
         if (k.a[s] != k.b[s]) {
@@ -133,8 +155,8 @@ ov_bonds_kernel(int8_t* spins, const int32_t* __restrict__ sid,
   if (kSitesPerThread * gi >= n) return;
   const float T = temps[k.t];
   const float* J = coup + static_cast<size_t>(k.d) * n * g.nd;
-  uint32_t w[3][4] = {};
-  if (kind != kHoudayer) philox_words(words, b, 0, g.nd, gi, w);
+  uint32_t w[3][4];
+  philox_words(words, b, 0, g.nd, gi, w);
   const size_t base = static_cast<size_t>(b) * n;
 #pragma unroll
   for (int q = 0; q < kSitesPerThread; ++q) {
@@ -147,22 +169,17 @@ ov_bonds_kernel(int8_t* spins, const int32_t* __restrict__ sid,
       const int f = fwd_site(i, g, dir);
       const int af = k.a[f];
       const int bf = k.b[f];
-      const bool active = ai * bi < 0 && af * bf < 0;
+      const float jt = J[static_cast<size_t>(i) * g.nd + dir] / T;
+      const float u = uniform24(w[dir][q]);
       bool bond;
-      if (kind == kHoudayer) {
-        bond = active;
+      if (kind == kJorg) {
+        const float inter = static_cast<float>(ai * af) * jt;
+        const float p = 1.0f - expf(-4.0f * inter);
+        bond = inter > 0.0f && u < p && ai * bi < 0 && af * bf < 0;
       } else {
-        const float jt = J[static_cast<size_t>(i) * g.nd + dir] / T;
-        const float u = uniform24(w[dir][q]);
-        if (kind == kJorg) {
-          const float inter = static_cast<float>(ai * af) * jt;
-          const float p = 1.0f - expf(-4.0f * inter);
-          bond = inter > 0.0f && u < p && active;
-        } else {
-          const float r = expf(-2.0f * fabsf(jt));
-          bond = static_cast<float>(ai * af) * jt > 0.0f &&
-                 static_cast<float>(bi * bf) * jt > 0.0f && u < 1.0f - r * r;
-        }
+        const float r = expf(-2.0f * fabsf(jt));
+        bond = static_cast<float>(ai * af) * jt > 0.0f &&
+               static_cast<float>(bi * bf) * jt > 0.0f && u < 1.0f - r * r;
       }
       if (bond) st |= 1u << dir;
     }
@@ -236,14 +253,19 @@ ov_finish_kernel(int8_t* spins, const int32_t* __restrict__ sid,
                  const uint8_t* __restrict__ state, int32_t* parent,
                  const int32_t* __restrict__ seeds, const uint8_t* __restrict__ state2,
                  int32_t* parent2, int32_t* __restrict__ labels, int L0, int L1,
-                 int L2, int n_temps, int n_pairs, int n_slots, int kind, int wolff) {
+                 int L2, int n_temps, int n_pairs, int n_slots, int kind, int wolff,
+                 int observe) {
   const Dims g = make_dims(L0, L1, L2);
   const int n = L0 * L1 * L2;
   const int b = blockIdx.y;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const Task k = task_of(spins, sid, tasks, b, n, n_temps, n_pairs, n_slots);
   const size_t base = static_cast<size_t>(b) * n;
+  if (observe) {
+    labels[base + i] = find_root(parent + base, i);
+    return;
+  }
+  const Task k = task_of(spins, sid, tasks, b, n, n_temps, n_pairs, n_slots);
   const int seed = seeds[b];
   const int* sc = scal + 6 * b;
   int ai = k.a[i];
@@ -251,7 +273,7 @@ ov_finish_kernel(int8_t* spins, const int32_t* __restrict__ sid,
   bool fa;
   bool fb;
   int root;
-  if (kind != kCmr) {
+  if (kind == kJorg) {
     int32_t* P = parent + base;
     root = find_root(P, i);
     bool fl;
@@ -288,6 +310,110 @@ ov_finish_kernel(int8_t* spins, const int32_t* __restrict__ sid,
   if (labels != nullptr) labels[base + i] = root;
   k.a[i] = static_cast<int8_t>(fa ? -ai : ai);
   k.b[i] = static_cast<int8_t>(fb ? -bi : bi);
+}
+
+// The spins of member r of task b (d, t): the system at slot tasks[b g + r]
+// T + t of realization d.
+__device__ __forceinline__ int8_t* member(int8_t* spins, const int32_t* sd,
+                                          const int32_t* tk, int r, int t, int n,
+                                          int n_temps, size_t row) {
+  return spins + (row + sd[tk[r] * n_temps + t]) * n;
+}
+
+__device__ __forceinline__ bool balanced(int8_t* spins, const int32_t* sd,
+                                         const int32_t* tk, int g_size, int t, int i,
+                                         int n, int n_temps, size_t row) {
+  int sum = 0;
+  for (int r = 0; r < g_size; ++r)
+    sum += member(spins, sd, tk, r, t, n, n_temps, row)[i];
+  return sum == 0;
+}
+
+__global__ void __launch_bounds__(kThreads)
+houdn_bonds_kernel(int8_t* spins, const int32_t* __restrict__ sid,
+                   const int32_t* __restrict__ tasks, const int32_t* __restrict__ probes,
+                   uint8_t* __restrict__ state, int32_t* __restrict__ parent,
+                   int32_t* __restrict__ seeds, int L0, int L1, int L2, int n_temps,
+                   int n_groups, int n_slots, int g_size, int wolff) {
+  const Dims g = make_dims(L0, L1, L2);
+  const int n = L0 * L1 * L2;
+  const int b = blockIdx.y;
+  const int d = b / (n_temps * n_groups);
+  const int t = (b / n_groups) % n_temps;
+  const size_t row = static_cast<size_t>(d) * n_slots;
+  const int32_t* sd = sid + row;
+  const int32_t* tk = tasks + static_cast<size_t>(b) * g_size;
+  if (blockIdx.x == 0 && threadIdx.x < 32) {
+    // the first warp tests the 64 probes at once, lane l probes l and
+    // 32 + l; the seed is the first active one in probe order
+    int seed = n;  // none
+    if (wolff) {
+      const int32_t* pr = probes + kProbes * b;
+      const int l = threadIdx.x;
+      const unsigned lo = __ballot_sync(
+          0xffffffffu, balanced(spins, sd, tk, g_size, t, pr[l], n, n_temps, row));
+      const unsigned hi = __ballot_sync(
+          0xffffffffu, balanced(spins, sd, tk, g_size, t, pr[32 + l], n, n_temps, row));
+      if (lo != 0u)
+        seed = pr[__ffs(lo) - 1];
+      else if (hi != 0u)
+        seed = pr[32 + __ffs(hi) - 1];
+    }
+    if (threadIdx.x == 0) seeds[b] = seed;
+  }
+  const int gi = blockIdx.x * blockDim.x + threadIdx.x;
+  const size_t base = static_cast<size_t>(b) * n;
+#pragma unroll
+  for (int q = 0; q < kSitesPerThread; ++q) {
+    const int i = kSitesPerThread * gi + q;
+    if (i >= n) break;
+    uint8_t st = 0;
+    if (balanced(spins, sd, tk, g_size, t, i, n, n_temps, row)) {
+      for (int dir = 0; dir < g.nd; ++dir)
+        if (balanced(spins, sd, tk, g_size, t, fwd_site(i, g, dir), n, n_temps, row))
+          st |= 1u << dir;
+    }
+    state[base + i] = st;
+    parent[base + i] = i;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+houdn_finish_kernel(int8_t* spins, const int32_t* __restrict__ sid,
+                    const int32_t* __restrict__ tasks, const int32_t* __restrict__ scal,
+                    const uint8_t* __restrict__ state, int32_t* parent,
+                    const int32_t* __restrict__ seeds, int32_t* __restrict__ labels,
+                    int L0, int L1, int L2, int n_temps, int n_groups, int n_slots,
+                    int g_size, int wolff, int observe) {
+  const Dims g = make_dims(L0, L1, L2);
+  const int n = L0 * L1 * L2;
+  const int b = blockIdx.y;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int d = b / (n_temps * n_groups);
+  const int t = (b / n_groups) % n_temps;
+  const size_t row = static_cast<size_t>(d) * n_slots;
+  const size_t base = static_cast<size_t>(b) * n;
+  int32_t* P = parent + base;
+  const int root = find_root(P, i);
+  if (observe) {
+    labels[base + i] = root;
+    return;
+  }
+  const int seed = seeds[b];
+  const bool flip =
+      wolff ? seed < n && root == find_root(P, seed)
+            : salted_uniform(static_cast<uint32_t>(root),
+                             static_cast<uint32_t>(scal[6 * b]),
+                             static_cast<uint32_t>(scal[6 * b + 1])) < 0.5f &&
+                  nonsingleton(state + base, i, g);
+  if (labels != nullptr) labels[base + i] = root;
+  if (!flip) return;
+  const int32_t* tk = tasks + static_cast<size_t>(b) * g_size;
+  for (int r = 0; r < g_size; ++r) {
+    int8_t* s = member(spins, sid + row, tk, r, t, n, n_temps, row);
+    s[i] = static_cast<int8_t>(-s[i]);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -330,12 +456,13 @@ int peapods_site_blocks(int n) { return (n + kThreads - 1) / kThreads; }
 // nd], temps f32 [n_temps], scal int32 [n_tasks, 6] (s0, s1, s2, s3, seed,
 // k), probes int32 [n_tasks, 64], words int32 [n_tasks, 2]; scratch state /
 // state2 uint8 [n_tasks, n], parent / parent2 int32 [n_tasks, n], seeds
-// int32 [n_tasks].  kind: 0 Houdayer, 1 Joerg, 2 CMR.
+// int32 [n_tasks].  kind: 1 Joerg, 2 CMR (Houdayer: peapods_houdn_*).
 int peapods_ov_bonds(void* spins, const void* sid, const void* tasks,
                      const void* coup, const void* temps, const void* scal,
                      const void* probes, const void* words, void* state, void* parent,
                      void* seeds, int n_tasks, int L0, int L1, int L2, int n_temps,
                      int n_pairs, int n_slots, int kind, int wolff, void* stream) {
+  if (kind != kJorg && kind != kCmr) return static_cast<int>(cudaErrorInvalidValue);
   ov_bonds_kernel<<<site_grid(L0 * L1 * L2, kSitesPerThread, n_tasks), kThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<int8_t*>(spins), static_cast<const int32_t*>(sid),
@@ -368,12 +495,16 @@ int peapods_ov_mid(void* spins, const void* sid, const void* tasks, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-// labels: int32 [n_tasks, n] or null (the grey labels for CMR).
+// labels: int32 [n_tasks, n] or null (the grey labels for CMR); observe:
+// write the labels of ov_bonds' graph (required then) and no spin.
 int peapods_ov_finish(void* spins, const void* sid, const void* tasks,
                       const void* scal, const void* state, void* parent,
                       const void* seeds, const void* state2, void* parent2,
                       void* labels, int n_tasks, int L0, int L1, int L2, int n_temps,
-                      int n_pairs, int n_slots, int kind, int wolff, void* stream) {
+                      int n_pairs, int n_slots, int kind, int wolff, int observe,
+                      void* stream) {
+  if ((observe && labels == nullptr) || (kind != kJorg && kind != kCmr))
+    return static_cast<int>(cudaErrorInvalidValue);
   ov_finish_kernel<<<site_grid(L0 * L1 * L2, 1, n_tasks), kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
       static_cast<int8_t*>(spins), static_cast<const int32_t*>(sid),
@@ -381,7 +512,42 @@ int peapods_ov_finish(void* spins, const void* sid, const void* tasks,
       static_cast<const uint8_t*>(state), static_cast<int32_t*>(parent),
       static_cast<const int32_t*>(seeds), static_cast<const uint8_t*>(state2),
       static_cast<int32_t*>(parent2), static_cast<int32_t*>(labels), L0, L1, L2,
-      n_temps, n_pairs, n_slots, kind, wolff);
+      n_temps, n_pairs, n_slots, kind, wolff, observe);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Houdayer(N), g_size even (2: the pair move): tasks int32 [d, n_temps,
+// n_groups, g_size] (replica indices), probes int32 [n_tasks, 64], scal
+// int32 [n_tasks, 6] (s0, s1 the SW salts); scratch as for the pair moves;
+// labels int32 [n_tasks, n] or null; observe: write the labels (required
+// then) and no spin.
+int peapods_houdn_bonds(void* spins, const void* sid, const void* tasks,
+                        const void* probes, void* state, void* parent, void* seeds,
+                        int n_tasks, int L0, int L1, int L2, int n_temps, int n_groups,
+                        int n_slots, int g_size, int wolff, void* stream) {
+  houdn_bonds_kernel<<<site_grid(L0 * L1 * L2, kSitesPerThread, n_tasks), kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int8_t*>(spins), static_cast<const int32_t*>(sid),
+      static_cast<const int32_t*>(tasks), static_cast<const int32_t*>(probes),
+      static_cast<uint8_t*>(state), static_cast<int32_t*>(parent),
+      static_cast<int32_t*>(seeds), L0, L1, L2, n_temps, n_groups, n_slots, g_size,
+      wolff);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int peapods_houdn_finish(void* spins, const void* sid, const void* tasks,
+                         const void* scal, const void* state, void* parent,
+                         const void* seeds, void* labels, int n_tasks, int L0, int L1,
+                         int L2, int n_temps, int n_groups, int n_slots, int g_size,
+                         int wolff, int observe, void* stream) {
+  if (observe && labels == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  houdn_finish_kernel<<<site_grid(L0 * L1 * L2, 1, n_tasks), kThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int8_t*>(spins), static_cast<const int32_t*>(sid),
+      static_cast<const int32_t*>(tasks), static_cast<const int32_t*>(scal),
+      static_cast<const uint8_t*>(state), static_cast<int32_t*>(parent),
+      static_cast<const int32_t*>(seeds), static_cast<int32_t*>(labels), L0, L1, L2,
+      n_temps, n_groups, n_slots, g_size, wolff, observe);
   return static_cast<int>(cudaGetLastError());
 }
 

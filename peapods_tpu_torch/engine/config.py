@@ -17,6 +17,7 @@ __all__ = [
     "PT_SCHEDULES",
     "CLUSTER_MODES",
     "CLUSTER_ACTIONS",
+    "AC_BACKENDS",
     "ClusterUpdate",
     "OverlapBuildMode",
     "OverlapClusterConfig",
@@ -25,6 +26,7 @@ __all__ = [
     "parse_pt_schedule",
     "parse_cluster_mode",
     "parse_cluster_action",
+    "parse_ac_backend",
     "parse_overlap_modes",
     "not_ported",
 ]
@@ -33,15 +35,14 @@ SWEEP_MODES = ("metropolis", "gibbs")
 PT_SCHEDULES = ("single_random_edge", "full_ladder")
 CLUSTER_MODES = ("wolff", "sw")
 CLUSTER_ACTIONS = ("update", "observe")
+AC_BACKENDS = ("ring", "fft")
 
 # ROADMAP.md, queue 1 ("Modules to port"): the item that brings each option
 _ROADMAP_ITEMS = {
     "4a": "item 4a, the per-sweep path for other lattices",
     "4b": "item 4b, autocorrelation and the equilibration diagnostic",
     "4c": "item 4c, checkpoints",
-    "7a": "item 7a, replicas with an FK cluster phase",
-    "7b": "item 7b, overlap observe, cluster statistics and snapshots",
-    "7c": "item 7c, Houdayer(N > 2)",
+    "7a": "item 7a, replicas with an FK cluster phase, and snapshots",
     "9": "item 9, multi-GPU",
 }
 
@@ -69,6 +70,14 @@ def parse_cluster_mode(s: str) -> str:
 def parse_cluster_action(s: str) -> str:
     if s not in CLUSTER_ACTIONS:
         raise ValueError(f"unknown cluster action '{s}', expected 'update' or 'observe'")
+    return s
+
+
+def parse_ac_backend(s: str) -> str:
+    if s not in AC_BACKENDS:
+        raise ValueError(
+            f"unknown autocorrelation_backend '{s}', expected 'ring' or 'fft'"
+        )
     return s
 
 
@@ -165,6 +174,9 @@ class SimConfig:
     pt_interval: int | None = None
     pt_schedule: str = "single_random_edge"
     overlap_cluster: OverlapClusterConfig | None = None
+    # the port runs no autocorrelation yet (any max lag raises item 4b), so
+    # "fft" always lacks its max lag
+    autocorrelation_backend: str = "ring"
 
     def validate(self) -> None:
         """Cross-field validation, mirroring config.rs:180-247."""
@@ -180,6 +192,10 @@ class SimConfig:
                 raise ValueError("cluster_action='observe' requires cluster_mode='sw'")
         if self.pt_interval is not None and self.pt_interval == 0:
             raise ValueError("pt_interval must be >= 1")
+        if self.autocorrelation_backend == "fft":
+            raise ValueError(
+                "autocorrelation_backend='fft' requires autocorrelation_max_lag"
+            )
         h = self.overlap_cluster
         if h is not None:
             if h.interval < 1:

@@ -28,10 +28,12 @@ import numpy as np
 import torch
 
 from ..ops import fk, mega, megapair, rng, winding
-from ..ops.cluster import component_counts, csd_histogram, graph_observation
+from ..ops.cluster import (component_counts, csd_histogram, graph_observation,
+                            top4_sizes)
 from ..ops.energy import measure_nb
 from ..ops.lattice import Lattice, neighbour_values
 from ..ops.measure import per_slot_values, slot_temps_for_systems
+from ..ops.overlap import KINDS
 from ..ops.sweep import pack_coupling_grids, sweep_2d, sweep_nb
 from ..ops.tempering import hot_cold_slots, pt_draws_pairs
 from . import seeds
@@ -117,7 +119,13 @@ def init_accumulators(rt: Runtime, cfg: SimConfig) -> dict:
     with replica pairs the P(q)
     histogram ``q_hist`` and the sums ``ql_at_q`` / ``ql2_at_q`` of the
     link-overlap integers ``ql`` and ``ql**2`` at each q bin, int64 ``[d, T,
-    n_spins + 1]``.
+    n_spins + 1]``.  Runs whose overlap moves collect statistics (or
+    observe) keep per mode ``n_modes`` the stats graphs' cluster-size
+    histograms ``overlap_csd`` int64 ``[d, n_modes, T, n_spins + 1]``, their
+    top-4 sizes over n_spins ``top4_sum`` f64 ``[d, n_modes, T, 4]`` and the
+    moves counted ``top4_n`` int64 ``[d, n_modes]``; overlap observe runs
+    add per kind used ``ov_obs_<kind>`` (as ``fk_obs``) and
+    ``winding_errors``.
 
     They accumulate on the device in float64 / int64, where the reference
     keeps Kahan-compensated f32 pairs (peapods_tpu/engine/loop.py:99-104)
@@ -125,8 +133,9 @@ def init_accumulators(rt: Runtime, cfg: SimConfig) -> dict:
     integers, exact and independent of the order of the device's adds, and
     are scaled when the results are built.
     """
+    d = rt.n_disorder
     acc = {
-        "rec_sums": torch.zeros((rt.n_disorder, N_REC, rt.n_temps),
+        "rec_sums": torch.zeros((d, N_REC, rt.n_temps),
                                 dtype=torch.float64, device=rt.device),
         "n_recorded": 0,
     }
@@ -143,6 +152,18 @@ def init_accumulators(rt: Runtime, cfg: SimConfig) -> dict:
         acc["fk_obs"] = torch.zeros((rt.n_disorder, rt.n_temps, N_FK_OBS),
                                     dtype=torch.int64, device=rt.device)
         acc["winding_errors"] = torch.zeros(1, dtype=torch.int32, device=rt.device)
+    h = cfg.overlap_cluster
+    if h is not None and h.collect_stats and rt.n_pairs:
+        m, T, nb = len(h.modes), rt.n_temps, rt.n_spins + 1
+        z = dict(device=rt.device)
+        acc["overlap_csd"] = torch.zeros((d, m, T, nb), dtype=torch.int64, **z)
+        acc["top4_sum"] = torch.zeros((d, m, T, 4), dtype=torch.float64, **z)
+        acc["top4_n"] = torch.zeros((d, m), dtype=torch.int64, **z)
+        if h.action == "observe":
+            for kind in (k for k in KINDS if k in {x.kind for x in h.modes}):
+                acc[f"ov_obs_{kind}"] = torch.zeros((d, T, N_FK_OBS),
+                                                    dtype=torch.int64, **z)
+            acc["winding_errors"] = torch.zeros(1, dtype=torch.int32, **z)
     return acc
 
 
@@ -429,35 +450,87 @@ def run_chunk_sweeps(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
 
 
 def _event_tables(rt: Runtime, cfg: SimConfig, base, counter: int,
-                  s_begin: int, n: int):
+                  s_begin: int, n: int, fold=None):
     """The overlap moves of sweeps ``s_begin .. s_begin + n - 1``: on sweep
     ``s`` with ``s % interval == 0``, mode ``(s // interval) % n_modes``
-    (loop.py:3550-3595), its tasks and scalars from the sweep's counter;
-    uploaded as one :class:`~peapods_tpu_torch.ops.megapair.Events`, or
-    ``None`` when the chunk has no move."""
+    (loop.py:3550-3595), its tasks and scalars from the sweep's counter, a
+    table per group size; uploaded as one
+    :class:`~peapods_tpu_torch.ops.megapair.Events`, or ``None`` when the
+    chunk has no move.  The moves of the sweeps past warmup are
+    ``record``-ed for ``fold``; an observe run, whose moves change nothing,
+    runs only those."""
     h = cfg.overlap_cluster
     if h is None:
         return None
-    at = [t for t in range(n) if (s_begin + t) % h.interval == 0]
+    warmup = int(cfg.warmup_sweeps)
+    observe = h.action == "observe"
+    at = [t for t in range(n) if (s_begin + t) % h.interval == 0
+          and not (observe and s_begin + t < warmup)]
     if not at:
         return None
-    kinds = [h.modes[((s_begin + t) // h.interval) % len(h.modes)].kind for t in at]
-    tasks, tkeys = seeds.overlap_tasks(base, counter + np.asarray(at),
-                                       rt.n_replicas, rt.n_temps)
-    e_n = len(at)
-    scal = np.empty((e_n, tkeys.shape[1] * tkeys.shape[2], 6), np.int32)
-    probes = np.empty((e_n, scal.shape[1], 64), np.int32)
+    modes = [((s_begin + t) // h.interval) % len(h.modes) for t in at]
     wolff = h.cluster_mode == "wolff"
-    for kind in set(kinds):
-        sel = [i for i, k in enumerate(kinds) if k == kind]
-        sc, pr = seeds.event_scalars(kind, wolff, tkeys[sel], rt.n_spins)
-        scal[sel] = sc.reshape(len(sel), -1, 6)
-        probes[sel] = pr.reshape(len(sel), -1, 64)
-    words = tkeys.view(np.int32).reshape(e_n, -1, 2)
     dev = rt.device
-    return megapair.Events(at=list(zip(at, kinds)), tasks=_upload(tasks, dev),
-                           scal=_upload(scal, dev), probes=_upload(probes, dev),
-                           words=_upload(words, dev))
+    groups = [h.modes[m].group_size for m in modes]
+    rows, tables = [0] * len(at), {}
+    for g in sorted(set(groups)):
+        sel = [i for i, x in enumerate(groups) if x == g]
+        tasks, tkeys = seeds.overlap_tasks(base, counter + np.asarray(at)[sel],
+                                           rt.n_replicas, rt.n_temps, g)
+        b = tkeys.shape[1] * tkeys.shape[2]
+        scal = np.empty((len(sel), b, 6), np.int32)
+        probes = np.empty((len(sel), b, 64), np.int32)
+        kinds = [h.modes[modes[i]].kind for i in sel]
+        for kind in set(kinds):
+            sub = [j for j, k in enumerate(kinds) if k == kind]
+            sc, pr = seeds.event_scalars(kind, wolff, tkeys[sub], rt.n_spins)
+            scal[sub] = sc.reshape(len(sub), -1, 6)
+            probes[sub] = pr.reshape(len(sub), -1, 64)
+        words = tkeys.view(np.int32).reshape(len(sel), -1, 2)
+        tables[g] = tuple(_upload(x, dev) for x in (tasks, scal, probes, words))
+        for j, i in enumerate(sel):
+            rows[i] = j
+    record = frozenset(k for k, t in enumerate(at) if s_begin + t >= warmup)
+    return megapair.Events(
+        at=at, kinds=[h.modes[m].kind for m in modes], groups=groups, rows=rows,
+        tables=tables, observe=observe, record=record,
+        fold=None if fold is None else (lambda k, graphs: fold(modes[k], graphs)))
+
+
+def _fold_overlap_graphs(rt: Runtime, cfg: SimConfig, acc: dict, mode: int,
+                         graphs) -> None:
+    """Add one recorded overlap move's stats graphs (mode ``mode``, tasks
+    ``[d T G]``) to the sums (the reference's ``_task_stats`` and its
+    ``rec_i_evt``-gated adds, peapods_tpu/engine/loop.py:2517-2536,
+    3554-3590): per temperature the cluster-size histogram ``overlap_csd``
+    and the top-4 sizes ``top4_sum`` (summed over the groups, over n_spins)
+    of the mode, one more move in ``top4_n``; on observe runs the graph
+    observations of the move's kind in ``ov_obs_<kind>`` (columns of
+    ``records.FK_OBS``: the groups observed, their top-4 sizes, active
+    bonds, large components and winding flags on the canonical 2D
+    square)."""
+    h = cfg.overlap_cluster
+    kind = h.modes[mode].kind
+    d, T = rt.n_disorder, rt.n_temps
+    labels = graphs.stats
+    counts = component_counts(labels)
+    by_temp = lambda x: x.reshape(d, T, -1, *x.shape[1:]).sum(2, dtype=torch.int64)  # noqa: E731
+    acc["overlap_csd"][:, mode] += by_temp(csd_histogram(counts))
+    acc["top4_sum"][:, mode] += (by_temp(top4_sizes(counts)).to(torch.float64)
+                                 / rt.n_spins)
+    acc["top4_n"][:, mode] += 1
+    if h.action != "observe":
+        return
+    wind = None
+    if rt.lattice.canonical_square:
+        wind = winding.winding_flags(graphs.masks, labels, rt.lattice.shape,
+                                     errors=acc["winding_errors"])
+    g = graph_observation(graphs.masks, counts, wind)
+    wx, wy = g.winding_x, g.winding_y
+    cols = torch.cat([torch.ones_like(g.active_bonds)[:, None], g.top4,
+                      g.active_bonds[:, None], g.large_components[:, None],
+                      torch.stack([wx, wy, wx | wy, wx & wy], -1).to(torch.int32)], -1)
+    acc[f"ov_obs_{kind}"] += by_temp(cols)
 
 
 def run_chunk_pairs(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
@@ -481,7 +554,10 @@ def run_chunk_pairs(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
         dr = pt_draws_pairs(pt_w, R, T - 1, pt_full=pt_full)
         draws = (dr.contiguous() if pt_full
                  else (dr[0].to(torch.int32).contiguous(), dr[1].contiguous()))
-    events = _event_tables(rt, cfg, base, counter, s_begin, n)
+    fold = None
+    if "overlap_csd" in acc:
+        fold = lambda mode, graphs: _fold_overlap_graphs(rt, cfg, acc, mode, graphs)  # noqa: E731
+    events = _event_tables(rt, cfg, base, counter, s_begin, n, fold)
     d = rt.n_disorder
     h = cfg.overlap_cluster
     e, m, qs, ql, parity = megapair.pairs_chunk(

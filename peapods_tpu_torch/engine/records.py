@@ -2,10 +2,11 @@
 
 The same rows, in the same order, as ``REC`` / ``N_REC`` in
 ``peapods_tpu/engine/loop.py:59-81``; the slice fills the magnetization and
-energy rows.  ``FK_OBS`` lays out the integer sums of FK observe's graph
+energy rows.  ``FK_OBS`` lays out the integer sums of the graph
 observations per (realization, temperature), the columns of the
-reference's ``_zero_obs`` (:486-495) but the histograms, which are
-``fk_csd``.
+reference's ``_zero_obs`` (:486-495) but the histograms: FK observe's sums
+(whose histograms are ``fk_csd``) and overlap observe's, one per move kind
+(whose histograms are the ``overlap_csd`` rows of that kind's modes).
 """
 
 __all__ = ["REC", "N_REC", "FK_OBS", "N_FK_OBS"]

@@ -6,9 +6,11 @@ magnetization and energy moments, the overlap and link-overlap moments
 with the P(q) histograms and ``ql_at_q`` sums when there are replica pairs
 (and their ``per_sample_*`` copies with more than one realization),
 ``per_disorder.parallel_tempering`` when PT is configured,
-``per_disorder.cluster_observations.fk`` on FK observe runs, and the FK
+``per_disorder.cluster_observations`` (``fk`` on FK observe runs;
+``houdayer``, ``jorg`` and ``cmr_blue`` on overlap observe runs), the FK
 cluster-size histograms ``fk_csd`` when cluster statistics are collected,
-with the reference's keys, dtypes and presence rules.
+and the overlap moves' ``overlap_csd`` and ``top_cluster_sizes``, with the
+reference's keys, dtypes and presence rules.
 """
 
 from __future__ import annotations
@@ -22,7 +24,8 @@ __all__ = ["finalize"]
 
 def finalize(rec_sums: np.ndarray, n_recorded: int, n_replicas: int,
              pt_state: dict | None, fk_csd: np.ndarray | None = None,
-             pairs: dict | None = None, fk_obs: dict | None = None) -> dict:
+             pairs: dict | None = None, fk_obs: dict | None = None,
+             overlap: dict | None = None) -> dict:
     """Build the results dict.
 
     Args:
@@ -40,6 +43,12 @@ def finalize(rec_sums: np.ndarray, n_recorded: int, n_replicas: int,
             N_FK_OBS]`` sums of the graph observations, columns
             ``records.FK_OBS``), ``n_spins``, ``n_neighbors`` and
             ``with_winding``; their histograms are ``fk_csd``.
+        overlap: when the overlap moves collect statistics, ``overlap_csd``
+            (integer ``[d, n_modes, T, n_spins + 1]``), ``top4_sum`` (f64
+            ``[d, n_modes, T, 4]``), ``top4_n`` (integer ``[d, n_modes]``),
+            ``kinds`` (each mode's move kind), ``n_pairs``, and for observe
+            runs ``obs`` (per kind used, the integer ``[d, T, N_FK_OBS]``
+            sums) with ``n_spins``, ``n_neighbors`` and ``with_winding``.
     """
     d, _, t = rec_sums.shape
     result = {}
@@ -75,31 +84,45 @@ def finalize(rec_sums: np.ndarray, n_recorded: int, n_replicas: int,
             result["per_sample_ql_at_q_sum"] = ql_at_q
             result["per_sample_ql2_at_q_sum"] = ql2_at_q
     per_disorder = {}
-    sums = None if fk_obs is None else fk_obs["sums"]
-    count = None if sums is None else sums[..., FK_OBS["count"]][..., 0]
-    if sums is not None and (count.sum(1) > 0).all():
-        # the kind is kept only when every realization observed a graph
-        # (peapods_tpu/engine/results.py:289-327)
+    obs_sets = []
+    if fk_obs is not None:
+        obs_sets.append(("fk", fk_obs["sums"], fk_csd, fk_obs))
+    if overlap is not None:
+        for kind, sums in overlap["obs"].items():
+            # a kind's histograms are those of its modes
+            csd = sum(overlap["overlap_csd"][:, m] for m, k in
+                      enumerate(overlap["kinds"]) if k == kind)
+            obs_sets.append(("cmr_blue" if kind == "cmr" else kind, sums, csd,
+                             overlap))
+    observations = {}
+    for name, sums, csd, meta in obs_sets:
+        count = sums[..., FK_OBS["count"]][..., 0]
+        if not (count.sum(1) > 0).all():
+            # the kind is kept only when every realization observed a graph
+            # (peapods_tpu/engine/results.py:289-327)
+            continue
         safe = np.maximum(count, 1)[..., None].astype(np.float64)
 
         def mean(key, scale=1.0):
             total = sums[..., FK_OBS[key]].astype(np.float64)
             return np.where(count[..., None] > 0, total / scale / safe, 0.0)
 
-        n = fk_obs["n_spins"]
+        n = meta["n_spins"]
         graph = {
             "observation_count": count.astype(np.uint64),
-            "cluster_size_counts": fk_csd.astype(np.uint64),
+            "cluster_size_counts": csd.astype(np.uint64),
             "top_four_component_fractions": mean("top4", n),
-            "active_bond_density": mean("bonds", n * fk_obs["n_neighbors"])[..., 0],
+            "active_bond_density": mean("bonds", n * meta["n_neighbors"])[..., 0],
             "large_component_count": mean("large")[..., 0],
         }
-        if fk_obs["with_winding"]:
+        if meta["with_winding"]:
             wind = mean("winding")
-            for k, name in enumerate(("winding_x", "winding_y", "winding_either",
-                                      "winding_both")):
-                graph[name] = wind[..., k]
-        per_disorder["cluster_observations"] = {"fk": graph}
+            for k, wname in enumerate(("winding_x", "winding_y", "winding_either",
+                                       "winding_both")):
+                graph[wname] = wind[..., k]
+        observations[name] = graph
+    if observations:
+        per_disorder["cluster_observations"] = observations
     if pt_state is not None:
         per_disorder["parallel_tempering"] = {
             "edge_attempts": pt_state["pt_edge_attempts"].astype(np.uint64),
@@ -115,4 +138,27 @@ def finalize(rec_sums: np.ndarray, n_recorded: int, n_replicas: int,
         # (peapods_tpu/engine/results.py:344-346)
         agg = fk_csd.astype(np.uint64).sum(0)
         result["fk_csd"] = [agg[i] for i in range(t)]
+    if overlap is not None:
+        csd = overlap["overlap_csd"]
+        n_modes = csd.shape[1]
+        if csd.sum() > 0:
+            # per mode, one uint64 histogram per temperature summed over the
+            # realizations (peapods_tpu/engine/results.py:348-353)
+            agg = csd.astype(np.uint64).sum(0)
+            result["overlap_csd"] = [[agg[m, i] for i in range(t)]
+                                     for m in range(n_modes)]
+        top4_n = overlap["top4_n"]
+        if top4_n.sum() > 0:
+            # per-realization average, then the disorder mean, over the moves
+            # times n_pairs whatever the mode's group size, as the reference
+            # divides (peapods_tpu/engine/results.py:355-365)
+            tops = []
+            for m in range(n_modes):
+                counts = top4_n[:, m].astype(np.float64)
+                if counts.sum() == 0:
+                    tops.append(np.zeros((0, 4), np.float64))
+                    continue
+                denom = np.maximum(counts * overlap["n_pairs"], 1.0)[:, None, None]
+                tops.append((overlap["top4_sum"][:, m] / denom).mean(0))
+            result["top_cluster_sizes"] = tops
     return result

@@ -280,29 +280,30 @@ def permutation(key, n: int) -> np.ndarray:
     return x
 
 
-def overlap_tasks(base_keys, counters, n_replicas: int, n_temps: int):
-    """The pair tasks of the overlap moves at the sweeps ``counters``.
+def overlap_tasks(base_keys, counters, n_replicas: int, n_temps: int, g: int = 2):
+    """The tasks of the overlap moves at the sweeps ``counters``: groups of
+    ``g`` replicas (pairs, or Houdayer(N)'s groups of N).
 
     Per realization key ``k`` and sweep counter ``ctr`` (the megapair
-    runner's ``_overlap_branch_slots``, peapods_tpu/engine/loop.py:3156-3203):
+    runner's ``_overlap_branch_slots``, peapods_tpu/engine/loop.py:3156-3203,
+    and ``ops/overlap.py`` ``build_tasks`` :58-74):
     ``k_shuffle, k_tasks = split(fold_in(fold_in(k, ctr), PH_OVERLAP))``,
     the replicas at temperature ``t`` are ``permutation(split(k_shuffle,
-    T)[t], R)``, task ``g`` pairs the first ``2 n_pairs`` of them two by two,
-    and the task keys are ``split(k_tasks, T n_pairs)`` (task ``t n_pairs +
-    g``).
+    T)[t], R)``, group ``j`` takes the first ``G g`` of them ``g`` by ``g``
+    (``G = R // g``), and the task keys are ``split(k_tasks, T G)`` (task
+    ``t G + j``).
 
-    Returns ``(tasks int32 [m, d, T, n_pairs, 2], tkeys uint32 [m, d, T
-    n_pairs, 2])``.
+    Returns ``(tasks int32 [m, d, T, G, g], tkeys uint32 [m, d, T G, 2])``.
     """
     keys = np.asarray(base_keys, np.uint32)
     ctr = np.asarray(counters, np.int64)[:, None]
     k = fold_in(fold_in(keys[None], ctr), PH_OVERLAP)  # [m, d, 2]
     kk = split(k)
     k_shuffle, k_tasks = kk[..., 0, :], kk[..., 1, :]
-    n_pairs = n_replicas // 2
+    n_groups = n_replicas // g
     perm = permutation(split(k_shuffle, n_temps), n_replicas)  # [m, d, T, R]
-    tasks = perm[..., :2 * n_pairs].reshape(perm.shape[:-1] + (n_pairs, 2))
-    return tasks.astype(np.int32), split(k_tasks, n_temps * n_pairs)
+    tasks = perm[..., :g * n_groups].reshape(perm.shape[:-1] + (n_groups, g))
+    return tasks.astype(np.int32), split(k_tasks, n_temps * n_groups)
 
 
 def event_scalars(kind: str, wolff: bool, tkeys, n_spins: int):
@@ -317,7 +318,10 @@ def event_scalars(kind: str, wolff: bool, tkeys, n_spins: int):
       k_coin = split(key, 3)``): SW coin salts ``randint(k_coin, (2,),
       -2**31, 2**31 - 1)``; under Wolff, the 64 ``find_seed`` probes
       ``randint(k_seed, (64,), 0, n)``, of which the kernel takes the first
-      where the replicas differ (the seed column holds ``n``: none yet).
+      active one (the seed column holds ``n``: none yet).  Houdayer(N)
+      draws the same (``pallas_event.houdn_scalars`` :877-898): a site is
+      active where the group's ``g`` spins sum to 0, which for a pair is
+      where the replicas differ.
     * CMR (``_, _, k_seed, k_bcoin, k_gcoin = split(key, 5)``): the seed
       ``randint(k_seed, (), 0, n)``; Wolff ``k = randint(k_gcoin, (), 1,
       4)``; SW the blue and grey coin salts.

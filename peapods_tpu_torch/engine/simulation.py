@@ -16,8 +16,10 @@ extents, on three paths:
   path: bonds, the connected-components kernels, flips);
 * two replicas or more on a 2D square or 3D cubic lattice: the replica
   path, with the pair overlaps q and q_l, PT on each replica's ladder and
-  the pair overlap moves (Houdayer, Joerg, CMR; Wolff or SW; in round
-  robin).
+  the overlap moves (Houdayer(N), Joerg, CMR; Wolff or SW; in round
+  robin), with or without their cluster statistics, or observed (SW:
+  the graph observations of each move kind, winding on the canonical 2D
+  square; the spins untouched).
 
 The device is explicit (``device="cuda"`` by default); a CUDA device runs
 the hand-written kernels, ``device="cpu"`` their plain torch versions, and
@@ -47,6 +49,7 @@ from .config import (
     SimConfig,
     not_ported,
     parse_cluster_action,
+    parse_ac_backend,
     parse_cluster_mode,
     parse_overlap_modes,
     parse_pt_schedule,
@@ -227,6 +230,7 @@ class IsingSimulation:
         Kwarg semantics and defaults mirror src/lib.rs:176-284; options
         outside the slice raise ``NotImplementedError``.
         """
+        ac_backend = parse_ac_backend(autocorrelation_backend or "ring")
         if autocorrelation_max_lag is not None:
             not_ported("autocorrelation_max_lag", "4b")
         if equilibration_diagnostic:
@@ -262,6 +266,7 @@ class IsingSimulation:
             pt_interval=int(pt_interval) if pt_interval is not None else None,
             pt_schedule=parse_pt_schedule(pt_schedule or "single_random_edge"),
             overlap_cluster=overlap_cluster,
+            autocorrelation_backend=ac_backend,
         )
         cfg.validate()
         h = overlap_cluster
@@ -272,15 +277,8 @@ class IsingSimulation:
             )
         if cluster_update is not None and self.n_replicas > 1:
             not_ported("replicas with an FK cluster phase", "7a")
-        if h is not None:
-            if h.action == "observe":
-                not_ported("overlap_cluster_action='observe'", "7b")
-            if h.collect_stats:
-                not_ported("collect_cluster_stats with overlap moves", "7b")
-            if h.snapshot_interval is not None:
-                not_ported("snapshot_interval", "7b")
-            if h.max_group_size() > 2:
-                not_ported("Houdayer(N) with N > 2", "7c")
+        if h is not None and h.snapshot_interval is not None:
+            not_ported("snapshot_interval", "7a")
 
         state = self.state
         state["warmup"] = np.int32(warmup_sweeps)
@@ -300,16 +298,27 @@ class IsingSimulation:
         fk_csd = acc["fk_csd"].cpu().numpy() if "fk_csd" in acc else None
         fk_obs = None
         if "fk_obs" in acc:
-            if int(acc["winding_errors"].item()):
-                raise RuntimeError("the winding kernel could not settle a graph: "
-                                   "its labels do not belong to its bond masks")
             fk_obs = dict(sums=acc["fk_obs"].cpu().numpy(), n_spins=self.rt.n_spins,
                           n_neighbors=self.lattice.n_neighbors,
                           with_winding=self.lattice.canonical_square)
+        overlap = None
+        if "overlap_csd" in acc:
+            rt = self.rt
+            overlap = {k: acc[k].cpu().numpy() for k in (
+                "overlap_csd", "top4_sum", "top4_n")}
+            overlap.update(
+                kinds=[m.kind for m in h.modes], n_pairs=rt.n_pairs,
+                obs={k[len("ov_obs_"):]: acc[k].cpu().numpy() for k in acc
+                     if k.startswith("ov_obs_")},
+                n_spins=rt.n_spins, n_neighbors=self.lattice.n_neighbors,
+                with_winding=self.lattice.canonical_square)
+        if "winding_errors" in acc and int(acc["winding_errors"].item()):
+            raise RuntimeError("the winding kernel could not settle a graph: "
+                               "its labels do not belong to its bond masks")
         pairs = None
         if "q_hist" in acc:
             pairs = {k: acc[k].cpu().numpy() for k in ("q_hist", "ql_at_q", "ql2_at_q")}
             pairs.update(n_pairs=self.rt.n_pairs,
                          n_bonds=self.rt.n_spins * self.lattice.n_dims)
         return finalize(acc["rec_sums"].cpu().numpy(), acc["n_recorded"],
-                        self.rt.n_replicas, pt_state, fk_csd, pairs, fk_obs)
+                        self.rt.n_replicas, pt_state, fk_csd, pairs, fk_obs, overlap)

@@ -39,6 +39,7 @@ _PASSTHROUGH_ATTRS = (
     "per_sample_overlap_histogram",
     "per_sample_ql_at_q_sum",
     "per_sample_ql2_at_q_sum",
+    "top_cluster_sizes",
 )
 _SAMPLE_GATES = (
     ("cluster_mode", "cluster_update_interval"),

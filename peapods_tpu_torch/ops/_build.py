@@ -56,7 +56,9 @@ _SIGNATURES = {
     "peapods_site_blocks": [_I],
     "peapods_ov_bonds": [_P] * 11 + [_I] * 9 + [_P],
     "peapods_ov_mid": [_P] * 13 + [_I] * 8 + [_P],
-    "peapods_ov_finish": [_P] * 10 + [_I] * 9 + [_P],
+    "peapods_ov_finish": [_P] * 10 + [_I] * 10 + [_P],
+    "peapods_houdn_bonds": [_P] * 7 + [_I] * 9 + [_P],
+    "peapods_houdn_finish": [_P] * 8 + [_I] * 10 + [_P],
     "peapods_energy_partials": [_P] * 4 + [_I] * 5 + [_P],
     "peapods_nb_blocks": [_I],
     "peapods_sweep_nb": [_P] * 7 + [_I] * 4 + [_P],

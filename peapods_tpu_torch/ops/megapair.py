@@ -21,6 +21,11 @@ before the move, and PT runs on energies re-derived from the moved spins
     ... -> pair_overlap -> pt_step (rows only) -> the move's ov_* kernels
         -> energy_partials -> pt_step (PT only)
 
+An observed move (``overlap_cluster_action="observe"``) writes no spin,
+so PT then reads the sweep's own (e, m), as a run without the move does.
+A move whose statistics are collected hands its stats graph to the
+caller's fold (:class:`Events`) right after its launches.
+
 ``colour_pass`` and ``pt_step`` are the mega path's kernels
 (``csrc/mega.cu``) with a 3D body and ``R`` ladders; ``pair_overlap`` is
 ``csrc/pairs.cu``; the move is :mod:`~peapods_tpu_torch.ops.overlap`.
@@ -39,7 +44,7 @@ from dataclasses import dataclass
 
 import torch
 
-from . import _build, mega, overlap, rng
+from . import _build, fk, mega, overlap, rng
 from ._build import expect as _expect
 from .lattice import Lattice
 from .measure import overlap_dots
@@ -66,19 +71,34 @@ def supports_megapair(lattice, n_replicas) -> bool:
 
 @dataclass
 class Events:
-    """The overlap moves of a chunk: move ``k`` runs after the measurement
-    of sweep ``at[k][0]`` of the chunk, of kind ``at[k][1]``, on the tables
-    ``tasks[k]`` (int32 ``[d, T, P, 2]``), ``scal[k]`` (``[d T P, 6]``),
-    ``probes[k]`` (``[d T P, 64]``) and ``words[k]`` (``[d T P, 2]``)."""
+    """The overlap moves of a chunk.  Move ``k`` runs after the measurement
+    of sweep ``at[k]`` of the chunk, of kind ``kinds[k]`` on groups of
+    ``groups[k]`` replicas, on row ``rows[k]`` of the tables of its group
+    size: ``tables[g] = (tasks, scal, probes, words)``, int32 ``[e_g, d, T,
+    G, g]``, ``[e_g, B, 6]``, ``[e_g, B, 64]`` and ``[e_g, B, 2]`` with ``G
+    = R // g`` and ``B = d T G`` (a chunk may mix pairs and Houdayer(N)'s
+    groups, whose task counts differ).
+
+    ``observe``: the moves build their graphs and leave the spins alone,
+    and PT reads the sweep's own energies.  ``fold``: ``None``, or
+    ``fold(k, graphs)``, handed the :class:`~.overlap.MoveGraphs` of every
+    move ``k`` in ``record`` (the stats graph's labels; its masks too when
+    ``observe``) right after the move's launches, on the same stream."""
 
     at: list
-    tasks: torch.Tensor
-    scal: torch.Tensor
-    probes: torch.Tensor
-    words: torch.Tensor
+    kinds: list
+    groups: list
+    rows: list
+    tables: dict
+    observe: bool = False
+    record: frozenset = frozenset()
+    fold: object = None
 
     def table(self, k):
-        return self.tasks[k], self.scal[k], self.probes[k], self.words[k]
+        return tuple(t[self.rows[k]] for t in self.tables[self.groups[k]])
+
+    def wants(self, k):
+        return self.fold is not None and k in self.record
 
 
 # ------------------------------------------------------------ pair_overlap
@@ -165,7 +185,7 @@ def pairs_chunk_plain(spins, jgrids, coup, temps, slot_temps, sid, ea, ec,
     uniforms = rng.blocked(lambda a, b: torch.stack(
         [rng.colour_uniforms(sweep_words[a:b], n_slots, c, shape) for c in (0, 1)],
         dim=1), 2 * d * n_slots * n_sites)
-    at = {} if events is None else {t: k for k, (t, _) in enumerate(events.at)}
+    at = {} if events is None else {t: k for k, t in enumerate(events.at)}
     pt = (ea, ec, rtrips, tstate, slot_temps)
     kw = dict(pt_full=pt_full, hot_slot=hot_slot, cold_slot=cold_slot,
               n_spins=n_sites, n_replicas=n_replicas)
@@ -184,12 +204,17 @@ def pairs_chunk_plain(spins, jgrids, coup, temps, slot_temps, sid, ea, ec,
             continue
         mega.pt_step_plain(e_part, m_part, e[:, t], m[:, t], sid, *pt, None,
                            sys_temps, do_pt=False, parity=parity, **kw)
+        want = events.wants(k)
         tasks, scal, probes, words = events.table(k)
-        overlap.overlap_event_plain(spins, sid, tasks, coup, temps, scal, probes,
-                                    words, kind=events.at[k][1], wolff=wolff,
-                                    shape=shape)
+        graphs = overlap.overlap_event_plain(
+            spins, sid, tasks, coup, temps, scal, probes, words, kind=events.kinds[k],
+            wolff=wolff, shape=shape, with_labels=want,
+            with_masks=want and events.observe, observe=events.observe)
+        if want:
+            events.fold(k, graphs)
         if do_pt:
-            e2, m2 = overlap.energy_partials_plain(spins, coup, shape)
+            e2, m2 = ((e_part, m_part) if events.observe
+                      else overlap.energy_partials_plain(spins, coup, shape))
             parity = mega.pt_step_plain(e2, m2, None, None, sid, *pt,
                                         _draw(draws, t), sys_temps, do_pt=True,
                                         parity=parity, **kw)
@@ -263,27 +288,32 @@ def pairs_chunk(spins, jgrids, coup, temps, slot_temps, sid, ea, ec, rtrips,
         raise ValueError("a run with PT needs its draws")
     scratch = None
     if events is not None and events.at:
-        e_n = len(events.at)
-        b = d * T * P
-        for name, tensor, tail in (("tasks", events.tasks, (d, T, P, 2)),
-                                   ("scal", events.scal, (b, 6)),
-                                   ("probes", events.probes, (b, 64)),
-                                   ("words", events.words, (b, 2))):
-            _expect(tensor, f"event {name}", torch.int32, (e_n,) + tail, dev)
-        if not set(k for _, k in events.at) <= set(overlap.KINDS):
-            raise ValueError(f"unknown overlap move kinds in {events.at}")
-        if b > 65535:
+        # one scratch, and one labels buffer, for the largest task batch of
+        # the chunk, held until the chunk returns: their memory must not be
+        # handed out again while the launches that use them are queued
+        ev_p, ev_bytes, ev_b = {}, {}, {}
+        for g, tab in events.tables.items():
+            e_g, b = tab[0].shape[0], d * T * (R // g)
+            for name, tensor, tail in (("tasks", tab[0], (d, T, R // g, g)),
+                                       ("scal", tab[1], (b, 6)),
+                                       ("probes", tab[2], (b, 64)),
+                                       ("words", tab[3], (b, 2))):
+                _expect(tensor, f"event {name}", torch.int32, (e_g,) + tail, dev)
+            ev_p[g] = [t.data_ptr() for t in tab]
+            ev_bytes[g] = [t[0].numel() * 4 for t in tab]
+            ev_b[g] = b
+        for kind, g in zip(events.kinds, events.groups):
+            overlap.task_group_size(kind, events.tables[g][0])
+        b_max = max(ev_b.values())
+        if b_max > 65535:
             raise ValueError("at most 65535 overlap tasks")
-        # held until the chunk returns: its memory must not be handed out
-        # again while the launches that use it are queued
-        scratch_buf = overlap.Scratch(b, n_sites, dev,
-                                      any(k == "cmr" for _, k in events.at))
+        cmr = "cmr" in events.kinds
+        scratch_buf = overlap.Scratch(b_max, n_sites, dev, cmr and not events.observe)
         scratch = scratch_buf.ptrs()
-        ev_dims = (b, *_build.dims3(shape), T, P, n_slots)
-        ev_p = [t.data_ptr() for t in (events.tasks, events.scal, events.probes,
-                                       events.words)]
-        ev_bytes = [t[0].numel() * 4 for t in (events.tasks, events.scal,
-                                               events.probes, events.words)]
+        lab_buf = blue_buf = None
+        if events.fold is not None and events.record:
+            lab_buf = torch.empty((b_max, n_sites), dtype=torch.int32, device=dev)
+            blue_buf = torch.empty_like(lab_buf) if cmr else None
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     e_part, m_part = mega._partials(lib, *dims5, dev)
@@ -300,7 +330,7 @@ def pairs_chunk(spins, jgrids, coup, temps, slot_temps, sid, ea, ec, rtrips,
     p_e, p_m, p_qs, p_ql = (t.data_ptr() for t in (e, m, qs, ql))
     p_pt = [t.data_ptr() for t in (ea, ec, rtrips, tstate)]
     p_sw, p_systemps = sweep_words.data_ptr(), sys_temps.data_ptr()
-    at = {} if events is None else {t: k for k, (t, _) in enumerate(events.at)}
+    at = {} if events is None else {t: k for k, t in enumerate(events.at)}
     row_bytes, col_bytes = n_slots * 4, P * T * 4
     pt_kw = dict(pt_full=pt_full, hot_slot=hot_slot, cold_slot=cold_slot,
                  n_replicas=R)
@@ -324,16 +354,39 @@ def pairs_chunk(spins, jgrids, coup, temps, slot_temps, sid, ea, ec, rtrips,
         mega._launch_pt(lib, stream, d, n_slots, n_sites, p_ep, p_mp,
                         e_part.shape[2], *rows, p_sid, *p_pt, p_st, None, None,
                         p_systemps, do_pt=False, parity=parity, **pt_kw)
-        p_tasks, p_scal, p_probes, p_words = (p + k * nb for p, nb in
-                                              zip(ev_p, ev_bytes))
-        overlap.launch_event(lib, stream, ev_dims, p_spins, p_sid, p_tasks,
-                             p_coup, p_temps, p_scal, p_probes, p_words, scratch,
-                             kind=events.at[k][1], wolff=wolff)
+        g, kind = events.groups[k], events.kinds[k]
+        b = ev_b[g]
+        p_tasks, p_scal, p_probes, p_words = (
+            p + events.rows[k] * nb for p, nb in zip(ev_p[g], ev_bytes[g]))
+        want = events.wants(k)
+        graphs = None
+        if want:
+            graphs = overlap.MoveGraphs(
+                None if kind == "cmr" else lab_buf[:b],
+                blue_buf[:b] if kind == "cmr" else None,
+                None)
+        overlap.launch_event(
+            lib, stream, (b, *_build.dims3(shape), T, R // g, n_slots), p_spins,
+            p_sid, p_tasks, p_coup, p_temps, p_scal, p_probes, p_words, scratch,
+            kind=kind, wolff=wolff, group=g,
+            p_labels=None if graphs is None or graphs.labels is None
+            else graphs.labels.data_ptr(),
+            p_blue=None if graphs is None or graphs.blue is None
+            else graphs.blue.data_ptr(), observe=events.observe)
+        if want:
+            if events.observe:
+                graphs = graphs._replace(masks=fk.state_masks(
+                    scratch_buf.state[:b], len(shape)))
+            events.fold(k, graphs)
         if do_pt:
-            overlap.launch_energy(lib, stream, d, n_slots, *_build.dims3(shape),
-                                  p_spins, p_coup, p_ep2, p_mp2)
+            if events.observe:
+                parts = (p_ep, p_mp, e_part.shape[2])
+            else:
+                overlap.launch_energy(lib, stream, d, n_slots, *_build.dims3(shape),
+                                      p_spins, p_coup, p_ep2, p_mp2)
+                parts = (p_ep2, p_mp2, nb2)
             parity = mega._launch_pt(
-                lib, stream, d, n_slots, n_sites, p_ep2, p_mp2, nb2, None, None,
+                lib, stream, d, n_slots, n_sites, *parts, None, None,
                 0, p_sid, *p_pt, p_st, *dr, p_systemps, do_pt=True,
                 parity=parity, **pt_kw)
     return e, m, qs, ql, parity

@@ -1,14 +1,15 @@
-"""The pair overlap moves (Houdayer, Joerg, CMR; Wolff or SW) and the
+"""The overlap moves (Houdayer(N), Joerg, CMR; Wolff or SW) and the
 energy re-derivation after a move.
 
 Counterpart of ``peapods_tpu/ops/overlap.py`` (the staged per-task moves)
 and of ``peapods_tpu/ops/pallas_event.py`` ``overlap_event_batch`` (:463,
-kernel ``_event_kernel`` :274), which runs a whole move per task.  A task
-pairs two replicas ``tasks[d, t, g] = (r_a, r_b)`` at temperature ``t`` of
-realization ``d`` (:func:`~peapods_tpu_torch.engine.seeds.overlap_tasks`);
-its systems are read through ``sid`` (slot ``r T + t``), so the spins stay
-by system ``[d, n_systems, n_spins]`` and are flipped in place.  Per task
-come six scalars and 64 Wolff probes
+kernel ``_event_kernel`` :274) and ``houdn_event_batch`` (:989, kernel
+``_houdn_kernel`` :901), which run a whole move per task.  A task groups
+``g`` replicas ``tasks[d, t, j] = (r_0, .., r_{g-1})`` at temperature ``t``
+of realization ``d`` (:func:`~peapods_tpu_torch.engine.seeds.overlap_tasks`;
+``g = 2`` but for Houdayer(N)); its systems are read through ``sid`` (slot
+``r T + t``), so the spins stay by system ``[d, n_systems, n_spins]`` and
+are flipped in place.  Per task come six scalars and 64 Wolff probes
 (:func:`~peapods_tpu_torch.engine.seeds.event_scalars`) and two key words
 for the bond uniforms (Philox, counter ``(dir, site // 4, 0, 0)``; CMR's red
 bonds ``(n_dims + dir, ...)``: :func:`~peapods_tpu_torch.ops.rng.bond_uniforms`).
@@ -21,12 +22,14 @@ labelling the bond graphs (counted in ``fk.LAUNCHES``), and runs
 move's rules, in the reference kernel's operation order (J/T = J / T in
 f32):
 
-* Houdayer: bonds between neighbours that are both active (``a b < 0``).
+* Houdayer(N): a site is active where the group's ``g`` spins sum to 0
+  (for a pair, ``a b < 0``); bonds between neighbours that are both
+  active.
 * Joerg: ``inter = a a_fwd J/T``; bond iff ``inter > 0``, ``u < 1 -
   exp(-4 inter)`` and both ends active.
-* Flips (Houdayer, Joerg): Wolff, the component of the first probe with
-  ``a != b`` (none: no flip); SW, each non-singleton component with
-  ``salted_uniform(label, s0, s1) < 1/2``; in both replicas.
+* Flips (Houdayer, Joerg): Wolff, the component of the first active probe
+  (none: no flip); SW, each non-singleton component with
+  ``salted_uniform(label, s0, s1) < 1/2``; in every replica of the group.
 * CMR: ``r = exp(-2 |J/T|)``; blue bonds on edges satisfied in both
   replicas with ``u < 1 - r^2``; the blue flip (Wolff: the drawn seed's
   component; SW: the coin on non-singletons) in both replicas; on the
@@ -35,12 +38,18 @@ f32):
   with ``k`` drawn per task (Wolff, on the seed's grey component) or ``k =
   floor(4 salted_uniform(grey label, s2, s3))`` (SW, on non-singletons).
 
-Labels are each component's minimum site index.
+Labels are each component's minimum site index.  The move's statistics
+(cluster sizes, graph observations) are taken on its *stats graph*: the
+move's bonds, CMR's blue ones (the reference's ``cmr_blue``).  On request
+the move returns that graph's labels and bond masks (:class:`MoveGraphs`);
+its observe form (``overlap_cluster_action="observe"``) labels the stats
+graph and writes no spin.
 """
 
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -52,10 +61,13 @@ from .energy import bond_sums
 __all__ = [
     "KINDS",
     "LAUNCHES",
+    "MoveGraphs",
     "gather_tasks",
+    "task_group_size",
     "overlap_event",
     "overlap_event_plain",
     "houdayer_plain",
+    "houdn_plain",
     "jorg_plain",
     "cmr_plain",
     "energy_partials",
@@ -65,43 +77,86 @@ __all__ = [
 KINDS = ("houdayer", "jorg", "cmr")
 
 # kernel launches since the last reset, by kernel name
-LAUNCHES = {"ov_bonds": 0, "ov_mid": 0, "ov_finish": 0, "energy_partials": 0}
+LAUNCHES = {"ov_bonds": 0, "ov_mid": 0, "ov_finish": 0, "houdn_bonds": 0,
+            "houdn_finish": 0, "energy_partials": 0}
+
+
+class MoveGraphs(NamedTuple):
+    """What a move returns on request, per task ``[B, ...]``: ``labels``,
+    the move's labels (CMR's grey ones; ``None`` for CMR's observe form,
+    which builds no grey graph); ``blue``, CMR's blue labels (else
+    ``None``); ``masks``, the stats graph's bond masks bool ``[B, n,
+    n_dims]``."""
+
+    labels: torch.Tensor | None
+    blue: torch.Tensor | None
+    masks: torch.Tensor | None
+
+    @property
+    def stats(self):
+        """The stats graph's labels: CMR's blue ones, else the move's."""
+        return self.labels if self.blue is None else self.blue
 
 
 # ------------------------------------------------------------ plain torch
 
 
 def gather_tasks(spins, sid, tasks, n_temps: int):
-    """``(sys int64 [d, T, P, 2], a int8 [B, n], b int8 [B, n])``: the two
-    systems of every task and their spins, tasks flat ``B = d T P`` in the
-    order ``(d, t, g)``."""
+    """``(sys int64 [d, T, G, g], x_0, .., x_{g-1})``: the ``g`` systems of
+    every task and the spins of each member, int8 ``[B, n]``, tasks flat
+    ``B = d T G`` in the order ``(d, t, j)``."""
     d = spins.shape[0]
     t = torch.arange(n_temps, device=spins.device)[None, :, None, None]
-    slot = tasks.to(torch.int64) * n_temps + t  # [d, T, P, 2]
+    slot = tasks.to(torch.int64) * n_temps + t  # [d, T, G, g]
     sys = sid.to(torch.int64).gather(1, slot.reshape(d, -1)).reshape(slot.shape)
     di = torch.arange(d, device=spins.device)[:, None, None]
     n = spins.shape[-1]
-    a = spins[di, sys[..., 0]].reshape(-1, n)
-    b = spins[di, sys[..., 1]].reshape(-1, n)
-    return sys, a, b
+    return (sys,) + tuple(spins[di, sys[..., r]].reshape(-1, n)
+                          for r in range(tasks.shape[-1]))
 
 
 def _flip(x, mask):
     return torch.where(mask, -x, x)
 
 
+def _cluster_flip(labels, bonds, scal, probes, active, shape, *, wolff):
+    """Which sites a Houdayer or Joerg move flips: the first active probe's
+    component (Wolff) or the non-singletons whose coin falls below 1/2
+    (SW)."""
+    if wolff:
+        seed = find_seed(probes, active)
+        n = labels.shape[-1]
+        root = labels.gather(-1, seed.clamp(max=n - 1)[:, None])
+        return (labels == root) & (seed < n)[:, None]
+    return (salted_uniform(labels, scal[:, 0:1], scal[:, 1:2]) < 0.5) \
+        & nonsingleton_mask(bonds, shape)
+
+
+def _houdn(x, scal, probes, shape, *, wolff):
+    active = x.to(torch.int32).sum(1) == 0
+    bonds = torch.stack([active & _fwd(active, shape, d)
+                         for d in range(len(shape))], dim=-1)
+    labels = connected_components(bonds, shape)
+    flip = _cluster_flip(labels, bonds, scal, probes, active, shape, wolff=wolff)
+    return _flip(x, flip[:, None]), labels, bonds
+
+
+def houdn_plain(x, scal, probes, shape, *, wolff):
+    """Houdayer(N) on tasks of ``g`` replicas ``x`` int8 ``[B, g, n]``:
+    returns ``(x, labels)``, every member flipped on the chosen
+    clusters."""
+    x, labels, _ = _houdn(x, scal, probes, shape, wolff=wolff)
+    return x, labels
+
+
 def houdayer_plain(a, b, scal, probes, shape, *, wolff):
     """Houdayer on tasks ``a``, ``b`` int8 ``[B, n]``: returns ``(a, b,
     labels)``."""
-    active = a.to(torch.int32) * b.to(torch.int32) < 0
-    bonds = torch.stack([active & _fwd(active, shape, d)
-                         for d in range(len(shape))], dim=-1)
-    return _finish_pair(a, b, bonds, scal, probes, active, shape, wolff=wolff)
+    x, labels = houdn_plain(torch.stack([a, b], 1), scal, probes, shape, wolff=wolff)
+    return x[:, 0], x[:, 1], labels
 
 
-def jorg_plain(a, b, jt, scal, probes, shape, *, wolff, u):
-    """Joerg on tasks ``a``, ``b`` int8 ``[B, n]`` with ``jt`` = J/T f32
-    ``[B, n, n_dims]`` and bond uniforms ``u`` ``[B, n, n_dims]``."""
+def _jorg(a, b, jt, scal, probes, shape, *, wolff, u):
     active = a.to(torch.int32) * b.to(torch.int32) < 0
     af = a.to(torch.float32)
     bonds = []
@@ -110,21 +165,16 @@ def jorg_plain(a, b, jt, scal, probes, shape, *, wolff, u):
         p = 1.0 - torch.exp(-4.0 * inter)
         bonds.append((inter > 0.0) & (u[..., d] < p) & active
                      & _fwd(active, shape, d))
-    return _finish_pair(a, b, torch.stack(bonds, dim=-1), scal, probes, active,
-                        shape, wolff=wolff)
-
-
-def _finish_pair(a, b, bonds, scal, probes, active, shape, *, wolff):
+    bonds = torch.stack(bonds, dim=-1)
     labels = connected_components(bonds, shape)
-    if wolff:
-        seed = find_seed(probes, active)
-        n = a.shape[-1]
-        root = labels.gather(-1, seed.clamp(max=n - 1)[:, None])
-        flip = (labels == root) & (seed < n)[:, None]
-    else:
-        flip = (salted_uniform(labels, scal[:, 0:1], scal[:, 1:2]) < 0.5) \
-            & nonsingleton_mask(bonds, shape)
-    return _flip(a, flip), _flip(b, flip), labels
+    flip = _cluster_flip(labels, bonds, scal, probes, active, shape, wolff=wolff)
+    return _flip(a, flip), _flip(b, flip), labels, bonds
+
+
+def jorg_plain(a, b, jt, scal, probes, shape, *, wolff, u):
+    """Joerg on tasks ``a``, ``b`` int8 ``[B, n]`` with ``jt`` = J/T f32
+    ``[B, n, n_dims]`` and bond uniforms ``u`` ``[B, n, n_dims]``."""
+    return _jorg(a, b, jt, scal, probes, shape, wolff=wolff, u=u)[:3]
 
 
 def _sats(af, bf, jt, shape, d):
@@ -132,10 +182,7 @@ def _sats(af, bf, jt, shape, d):
             bf * _fwd(bf, shape, d) * jt[..., d] > 0.0)
 
 
-def cmr_plain(a, b, jt, scal, shape, *, wolff, u_blue, u_red):
-    """CMR on tasks ``a``, ``b`` int8 ``[B, n]``: returns ``(a, b, grey
-    labels, blue labels)``.  ``u_blue`` / ``u_red``: f32 ``[B, n,
-    n_dims]``."""
+def _cmr(a, b, jt, scal, shape, *, wolff, u_blue, u_red):
     nd = len(shape)
     af = a.to(torch.float32)
     bf = b.to(torch.float32)
@@ -167,59 +214,88 @@ def cmr_plain(a, b, jt, scal, shape, *, wolff, u_blue, u_red):
         k = (salted_uniform(labels, scal[:, 2:3], scal[:, 3:4]) * 4.0).to(torch.int32)
     a_new = _flip(af, inside & ((k & 1) != 0)).to(torch.int8)
     b_new = _flip(bf, inside & ((k & 2) != 0)).to(torch.int8)
-    return a_new, b_new, labels, blue_labels
+    return a_new, b_new, labels, blue_labels, blue
 
 
-def task_jt(coup, temps, n_pairs: int):
-    """f32 ``[d T P, n, n_dims]``: J / T of every task's bonds."""
+def cmr_plain(a, b, jt, scal, shape, *, wolff, u_blue, u_red):
+    """CMR on tasks ``a``, ``b`` int8 ``[B, n]``: returns ``(a, b, grey
+    labels, blue labels)``.  ``u_blue`` / ``u_red``: f32 ``[B, n,
+    n_dims]``."""
+    return _cmr(a, b, jt, scal, shape, wolff=wolff, u_blue=u_blue, u_red=u_red)[:4]
+
+
+def task_jt(coup, temps, n_groups: int):
+    """f32 ``[d T G, n, n_dims]``: J / T of every task's bonds."""
     d, n, nd = coup.shape
     jt = coup[:, None] / temps[None, :, None, None]  # [d, T, n, nd]
     t = temps.shape[0]
-    return jt[:, :, None].expand(d, t, n_pairs, n, nd).reshape(-1, n, nd)
+    return jt[:, :, None].expand(d, t, n_groups, n, nd).reshape(-1, n, nd)
+
+
+def task_group_size(kind, tasks):
+    """The replicas of a task of ``tasks [..., g]``: 2 for every kind, any
+    even ``g`` for Houdayer(N); raises otherwise."""
+    g = tasks.shape[-1]
+    if kind not in KINDS:
+        raise ValueError(f"unknown overlap move kind {kind!r}")
+    if g < 2 or g % 2 or (g > 2 and kind != "houdayer"):
+        raise ValueError(f"a {kind} task cannot group {g} replicas")
+    return g
 
 
 def overlap_event_plain(spins, sid, tasks, coup, temps, scal, probes, words,
-                        *, kind, wolff, shape, with_labels=False):
+                        *, kind, wolff, shape, with_labels=False, with_masks=False,
+                        observe=False):
     """One overlap move of every task, in place (see the module doc).
 
     Args:
-        spins: int8 ``[d, n_systems, n]`` by system, updated in place.
+        spins: int8 ``[d, n_systems, n]`` by system, updated in place
+            unless ``observe``.
         sid: int32 ``[d, n_slots]``.
-        tasks: int32 ``[d, T, P, 2]`` replica pairs.
+        tasks: int32 ``[d, T, G, g]`` replica groups (``g = 2`` but for
+            Houdayer(N)).
         coup: f32 ``[d, n, n_dims]`` forward couplings.
         temps: f32 ``[T]``.
-        scal, probes, words: int32 ``[d T P, 6]``, ``[d T P, 64]``,
-            ``[d T P, 2]``.
+        scal, probes, words: int32 ``[d T G, 6]``, ``[d T G, 64]``,
+            ``[d T G, 2]``.
+        observe: build the graphs and leave the spins alone.
 
     Returns:
-        ``(labels, blue_labels)`` int32 ``[d T P, n]`` when
-        ``with_labels`` (the move's labels, CMR's grey ones; CMR's blue
-        labels, else ``None``), else ``None``.
+        :class:`MoveGraphs` (the labels when ``with_labels``, the stats
+        graph's masks when ``with_masks``), or ``None`` when neither is
+        asked for.
     """
-    n_temps, n_pairs = tasks.shape[1:3]
+    n_temps, n_groups = tasks.shape[1:3]
+    g = task_group_size(kind, tasks)
     nd = len(shape)
     n = spins.shape[-1]
-    sys, a, b = gather_tasks(spins, sid, tasks, n_temps)
+    sys, *slots = gather_tasks(spins, sid, tasks, n_temps)
     blue = None
     if kind == "houdayer":
-        a, b, labels = houdayer_plain(a, b, scal, probes, shape, wolff=wolff)
+        x, labels, bonds = _houdn(torch.stack(slots, 1), scal, probes, shape,
+                                  wolff=wolff)
+        slots = x.unbind(1)
     else:
-        jt = task_jt(coup, temps, n_pairs)
+        jt = task_jt(coup, temps, n_groups)
         u = rng.bond_uniforms(words, n, nd)
         if kind == "jorg":
-            a, b, labels = jorg_plain(a, b, jt, scal, probes, shape, wolff=wolff,
-                                      u=u)
-        elif kind == "cmr":
-            a, b, labels, blue = cmr_plain(a, b, jt, scal, shape, wolff=wolff,
-                                           u_blue=u,
-                                           u_red=rng.bond_uniforms(words, n, nd, nd))
+            *slots, labels, bonds = _jorg(*slots, jt, scal, probes, shape,
+                                          wolff=wolff, u=u)
         else:
-            raise ValueError(f"unknown overlap move kind {kind!r}")
-    d = spins.shape[0]
-    di = torch.arange(d, device=spins.device)[:, None, None]
-    spins[di, sys[..., 0]] = a.reshape(sys.shape[:3] + (n,))
-    spins[di, sys[..., 1]] = b.reshape(sys.shape[:3] + (n,))
-    return (labels, blue) if with_labels else None
+            *slots, labels, blue, bonds = _cmr(
+                *slots, jt, scal, shape, wolff=wolff, u_blue=u,
+                u_red=rng.bond_uniforms(words, n, nd, nd))
+            if observe:
+                labels = None  # the observe form labels the blue graph only
+    if not observe:
+        d = spins.shape[0]
+        di = torch.arange(d, device=spins.device)[:, None, None]
+        for r in range(g):
+            spins[di, sys[..., r]] = slots[r].reshape(sys.shape[:3] + (n,))
+    if not (with_labels or with_masks):
+        return None
+    return MoveGraphs(labels if with_labels else None, blue if with_labels else None,
+                      bonds if with_masks else None)
 
 
 def energy_partials_plain(spins, coup, shape):
@@ -252,19 +328,38 @@ class Scratch:
 
 
 def launch_event(lib, stream, dims, p_spins, p_sid, p_tasks, p_coup, p_temps,
-                 p_scal, p_probes, p_words, scratch, *, kind, wolff,
-                 p_labels=None, p_blue=None):
+                 p_scal, p_probes, p_words, scratch, *, kind, wolff, group=2,
+                 p_labels=None, p_blue=None, observe=False):
     """Launch one move's kernels on raw pointers: ``dims`` is ``(n_tasks,
-    L0, L1, L2, T, P, S)``; ``scratch`` the :meth:`Scratch.ptrs`."""
+    L0, L1, L2, T, G, S)``; ``scratch`` the :meth:`Scratch.ptrs`; ``group``
+    the replicas of a task.  Houdayer, on groups of any even size, takes the
+    ``houdn_*`` kernels; Joerg and CMR the ``ov_*`` ones.  The observe form
+    writes the stats graph's labels into ``p_labels`` (CMR: ``p_blue``) and
+    no spin."""
     n_tasks, l0, l1, l2 = dims[:4]
     st, par, seeds, st2, par2 = scratch
+    if kind == "houdayer":
+        if observe and group > 2:
+            raise ValueError("Houdayer(N > 2) moves have no observe form")
+        _build.check(lib.peapods_houdn_bonds(
+            p_spins, p_sid, p_tasks, p_probes, st, par, seeds, *dims, group,
+            int(wolff), stream), "houdn_bonds")
+        LAUNCHES["houdn_bonds"] += 1
+        fk.launch_link(lib, stream, st, par, n_tasks, l0, l1, l2)
+        _build.check(lib.peapods_houdn_finish(
+            p_spins, p_sid, p_tasks, p_scal, st, par, seeds, p_labels, *dims, group,
+            int(wolff), int(observe), stream), "houdn_finish")
+        LAUNCHES["houdn_finish"] += 1
+        return
     k = KINDS.index(kind)
     _build.check(lib.peapods_ov_bonds(
         p_spins, p_sid, p_tasks, p_coup, p_temps, p_scal, p_probes, p_words,
         st, par, seeds, *dims, k, int(wolff), stream), "ov_bonds")
     LAUNCHES["ov_bonds"] += 1
     fk.launch_link(lib, stream, st, par, n_tasks, l0, l1, l2)
-    if kind == "cmr":
+    if observe:
+        p_labels = p_blue if kind == "cmr" else p_labels
+    elif kind == "cmr":
         _build.check(lib.peapods_ov_mid(
             p_spins, p_sid, p_tasks, p_coup, p_temps, p_scal, p_words, st, par,
             seeds, st2, par2, p_blue, *dims, int(wolff), stream), "ov_mid")
@@ -272,7 +367,7 @@ def launch_event(lib, stream, dims, p_spins, p_sid, p_tasks, p_coup, p_temps,
         fk.launch_link(lib, stream, st2, par2, n_tasks, l0, l1, l2)
     _build.check(lib.peapods_ov_finish(
         p_spins, p_sid, p_tasks, p_scal, st, par, seeds, st2, par2, p_labels,
-        *dims, k, int(wolff), stream), "ov_finish")
+        *dims, k, int(wolff), int(observe), stream), "ov_finish")
     LAUNCHES["ov_finish"] += 1
 
 
@@ -284,18 +379,19 @@ def launch_energy(lib, stream, d, n_sys, l0, l1, l2, p_spins, p_coup, p_e, p_m):
     LAUNCHES["energy_partials"] += 1
 
 
-def check_event(spins, sid, tasks, coup, temps, scal, probes, words, shape):
+def check_event(spins, sid, tasks, coup, temps, scal, probes, words, shape, kind):
     """Validate a move's tensors (the kernels' layout); returns the kernel
-    dims ``(n_tasks, L0, L1, L2, T, P, S)``."""
+    dims ``(n_tasks, L0, L1, L2, T, G, S)`` and the group size."""
     dev = spins.device
     d, n_sys, n = spins.shape
-    n_temps, n_pairs = tasks.shape[1:3]
-    b = d * n_temps * n_pairs
+    n_temps, n_groups = tasks.shape[1:3]
+    g = task_group_size(kind, tasks)
+    b = d * n_temps * n_groups
     nd = len(shape)
     ex = _build.expect
     ex(spins, "spins", torch.int8, (d, n_sys, n), dev)
     ex(sid, "sid", torch.int32, (d, n_sys), dev)
-    ex(tasks, "tasks", torch.int32, (d, n_temps, n_pairs, 2), dev)
+    ex(tasks, "tasks", torch.int32, (d, n_temps, n_groups, g), dev)
     ex(coup, "coup", torch.float32, (d, n, nd), dev)
     ex(temps, "temps", torch.float32, (n_temps,), dev)
     ex(scal, "scal", torch.int32, (b, 6), dev)
@@ -305,34 +401,40 @@ def check_event(spins, sid, tasks, coup, temps, scal, probes, words, shape):
         raise ValueError(f"spins do not hold lattices of shape {shape}")
     if b > 65535 or n_sys > 65535 or d > 65535:
         raise ValueError("at most 65535 tasks, systems and realizations")
-    return (b, *_build.dims3(shape), n_temps, n_pairs, n_sys)
+    return (b, *_build.dims3(shape), n_temps, n_groups, n_sys), g
 
 
 def overlap_event(spins, sid, tasks, coup, temps, scal, probes, words, *, kind,
-                  wolff, shape, with_labels=False):
+                  wolff, shape, with_labels=False, with_masks=False, observe=False):
     """One overlap move of every task (see :func:`overlap_event_plain`):
-    the plain version for CPU tensors, the ``ov_*`` kernels for CUDA
-    tensors."""
-    kw = dict(kind=kind, wolff=wolff, shape=shape, with_labels=with_labels)
+    the plain version for CPU tensors, the ``houdn_*`` kernels (Houdayer)
+    or the ``ov_*`` ones (Joerg, CMR) for CUDA tensors.  The masks are bits
+    ``0 .. n_dims - 1`` of the first kernel's state bytes."""
+    kw = dict(kind=kind, wolff=wolff, shape=shape, with_labels=with_labels,
+              with_masks=with_masks, observe=observe)
     args = (spins, sid, tasks, coup, temps, scal, probes, words)
     if _build.device_kind(spins) == "cpu":
         return overlap_event_plain(*args, **kw)
-    if kind not in KINDS:
-        raise ValueError(f"unknown overlap move kind {kind!r}")
-    dims = check_event(*args, shape)
+    dims, g = check_event(*args, shape, kind)
     dev = spins.device
     n = spins.shape[-1]
+    cmr = kind == "cmr"
     labels = blue = None
-    if with_labels:
-        labels = torch.empty((dims[0], n), dtype=torch.int32, device=dev)
-        if kind == "cmr":
-            blue = torch.empty_like(labels)
-    scratch = Scratch(dims[0], n, dev, kind == "cmr")
+    if with_labels or observe:
+        if not (observe and cmr):
+            labels = torch.empty((dims[0], n), dtype=torch.int32, device=dev)
+        if cmr:
+            blue = torch.empty((dims[0], n), dtype=torch.int32, device=dev)
+    scratch = Scratch(dims[0], n, dev, cmr and not observe)
     launch_event(_build.library(), torch.cuda.current_stream(dev).cuda_stream,
                  dims, *(t.data_ptr() for t in args), scratch.ptrs(), kind=kind,
-                 wolff=wolff, p_labels=None if labels is None else labels.data_ptr(),
-                 p_blue=None if blue is None else blue.data_ptr())
-    return (labels, blue) if with_labels else None
+                 wolff=wolff, group=g,
+                 p_labels=None if labels is None else labels.data_ptr(),
+                 p_blue=None if blue is None else blue.data_ptr(), observe=observe)
+    if not (with_labels or with_masks):
+        return None
+    return MoveGraphs(labels if with_labels else None, blue if with_labels else None,
+                      fk.state_masks(scratch.state, len(shape)) if with_masks else None)
 
 
 def energy_partials(spins, coup, shape):

@@ -5,9 +5,10 @@ mega path's kernels (colour_pass, pt_step), the per-sweep path's
 (sweep_2d and the three FK kernels) and the replica path's (colour_pass in
 3D, pt_step on R ladders, pair_overlap, the ov_* overlap-move kernels and
 energy_partials), the coloured lattices' (sweep_nb, measure_nb and the
-FK kernels with three bond directions) and FK observe's and the staged
+FK kernels with three bond directions), FK observe's and the staged
 path's (cc_link / cc_label, winding, fk_finish in observe form,
-fk_bonds_nb and fk_finish reading labels).  On a machine
+fk_bonds_nb and fk_finish reading labels) and Houdayer(N)'s (houdn_bonds,
+houdn_finish) with the overlap moves' labels, masks and observe form.  On a machine
 with a GPU (jax is not needed; ``--noconftest`` skips the JAX package's
 test configuration):
 
@@ -458,11 +459,12 @@ def test_pt_step_ladders_kernel_matches_plain(cuda, n_rep, pt_full):
     assert 0 < int(k["ec"].sum()) < int(k["ea"].sum())
 
 
-def _event_inputs(x, d, n_rep, n_temps, n, kind, wolff, seed):
+def _event_inputs(x, d, n_rep, n_temps, n, kind, wolff, seed, g=2):
     from peapods_tpu_torch.engine import seeds
 
     keys = np.random.default_rng(seed).integers(0, 2**32, (d, 2), dtype=np.uint64)
-    tasks, tkeys = seeds.overlap_tasks(keys.astype(np.uint32), [seed], n_rep, n_temps)
+    tasks, tkeys = seeds.overlap_tasks(keys.astype(np.uint32), [seed], n_rep, n_temps,
+                                       g)
     scal, probes = seeds.event_scalars(kind, wolff, tkeys[0], n)
     dev = x["spins"].device
     up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
@@ -478,7 +480,8 @@ def _event_inputs(x, d, n_rep, n_temps, n, kind, wolff, seed):
 def test_overlap_event_kernel_matches_plain(cuda, shape, d, n_rep, n_temps, kind,
                                             wolff):
     """One move of every task: spins and labels (CMR: grey and blue)
-    bitwise; Houdayer keeps E_a + E_b of every task."""
+    bitwise; Houdayer (through the houdn_* kernels) keeps E_a + E_b of
+    every task."""
     from peapods_tpu_torch.ops import fk, overlap
     from peapods_tpu_torch.ops.energy import bond_sums
 
@@ -494,7 +497,9 @@ def test_overlap_event_kernel_matches_plain(cuda, shape, d, n_rep, n_temps, kind
     lp = overlap.overlap_event_plain(b, x["sid"], tab[0], x["coup"], x["temps"],
                                      *tab[1:], **kw)
     torch.cuda.synchronize()
-    assert overlap.LAUNCHES["ov_finish"] == 1
+    finish = "houdn_finish" if kind == "houdayer" else "ov_finish"
+    assert overlap.LAUNCHES[finish] == 1
+    assert overlap.LAUNCHES["houdn_finish"] + overlap.LAUNCHES["ov_finish"] == 1
     assert fk.LAUNCHES["fk_link"] == (2 if kind == "cmr" else 1)  # CMR: blue, grey
     assert torch.equal(a, b)
     assert torch.equal(lk[0], lp[0])
@@ -542,10 +547,11 @@ def test_replica_sample_on_card_matches_the_cpu(cuda, shape, build, wolff, pt_fu
     c = Ising(shape, couplings="bimodal", temperatures=temps, n_replicas=4,
               n_disorder=2, seed=4, device="cpu")
     megapair.LAUNCHES["pair_overlap"] = 0
-    overlap.LAUNCHES["ov_finish"] = 0
+    finish = "houdn_finish" if build == "houdayer" else "ov_finish"
+    overlap.LAUNCHES[finish] = 0
     ra, rc = a.sample(24, **kw), c.sample(24, **kw)
     assert megapair.LAUNCHES["pair_overlap"] == 24
-    assert overlap.LAUNCHES["ov_finish"] == 8
+    assert overlap.LAUNCHES[finish] == 8
     for key in ("spins", "system_ids", "pt_edge_acceptances", "pt_round_trips"):
         assert torch.equal(a._sim.state[key].cpu(), c._sim.state[key]), key
     # float64 record sums, reduced in another order on each device
@@ -935,3 +941,123 @@ def test_observe_and_staged_sample_on_card_match_the_cpu(cuda, shape, geometry, 
         assert set(oa) == set(oc)
         for key in oc:
             np.testing.assert_array_equal(oa[key], oc[key], err_msg=key)
+
+
+# ------------------------------------- Houdayer(N) and the moves' graphs
+
+
+@pytest.mark.parametrize("g", [2, 4, 6])
+@pytest.mark.parametrize("wolff", [True, False], ids=["wolff", "sw"])
+@pytest.mark.parametrize("shape", [(8, 8, 8), (8, 64)], ids=["8cube", "2d"])
+def test_houdn_kernels_match_plain(cuda, shape, wolff, g):
+    """houdn_bonds -> fk_link -> houdn_finish on groups of g = 2 (the pair
+    move), 4 and 6 replicas: every member's spins and the labels bitwise
+    the plain version."""
+    from peapods_tpu_torch.ops import fk, overlap
+
+    d, n_rep, n_temps = 4, 12, 6
+    x = _pair_inputs(cuda, 23 + g, shape, d, n_rep, n_temps)
+    n = int(np.prod(shape))
+    tab = _event_inputs(x, d, n_rep, n_temps, n, "houdayer", wolff, 7, g=g)
+    assert tuple(tab[0].shape) == (d, n_temps, n_rep // g, g)
+    a, b = x["spins"].clone(), x["spins"].clone()
+    for k in overlap.LAUNCHES:
+        overlap.LAUNCHES[k] = 0
+    fk.LAUNCHES["fk_link"] = 0
+    kw = dict(kind="houdayer", wolff=wolff, shape=shape, with_labels=True)
+    lk = overlap.overlap_event(a, x["sid"], tab[0], x["coup"], x["temps"], *tab[1:], **kw)
+    lp = overlap.overlap_event_plain(b, x["sid"], tab[0], x["coup"], x["temps"],
+                                     *tab[1:], **kw)
+    torch.cuda.synchronize()
+    assert overlap.LAUNCHES["houdn_bonds"] == overlap.LAUNCHES["houdn_finish"] == 1
+    assert overlap.LAUNCHES["ov_bonds"] == overlap.LAUNCHES["ov_finish"] == 0
+    assert fk.LAUNCHES["fk_link"] == 1
+    assert torch.equal(a, b)
+    assert torch.equal(lk.labels, lp.labels)
+    assert not torch.equal(a, x["spins"])
+
+
+@pytest.mark.parametrize("kind", ["houdayer", "jorg", "cmr"])
+@pytest.mark.parametrize("shape,d,n_rep,n_temps", [
+    ((8, 8, 8), 8, 4, 24), ((8, 64), 2, 2, 3),
+], ids=["config4", "2d"])
+def test_overlap_event_graphs_and_observe_form_match_plain(cuda, shape, d, n_rep,
+                                                           n_temps, kind):
+    """Row 19's outputs (SW): the labels (CMR: grey and blue) and the stats
+    graph's masks bitwise the plain version; the observe form writes no
+    spin and returns the same stats graph."""
+    from peapods_tpu_torch.ops import overlap
+
+    x = _pair_inputs(cuda, 29, shape, d, n_rep, n_temps)
+    n = int(np.prod(shape))
+    tab = _event_inputs(x, d, n_rep, n_temps, n, kind, False, 9)
+    args = (x["sid"], tab[0], x["coup"], x["temps"], *tab[1:])
+    kw = dict(kind=kind, wolff=False, shape=shape, with_labels=True, with_masks=True)
+    out = {}
+    for observe in (False, True):
+        a, b = x["spins"].clone(), x["spins"].clone()
+        gk = overlap.overlap_event(a, *args, observe=observe, **kw)
+        gp = overlap.overlap_event_plain(b, *args, observe=observe, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+        assert torch.equal(a, x["spins"]) == observe
+        for name in ("labels", "blue", "masks"):
+            k, p = getattr(gk, name), getattr(gp, name)
+            assert (k is None) == (p is None), name
+            if k is not None:
+                assert torch.equal(k, p), name
+        out[observe] = gk
+    assert torch.equal(out[True].stats, out[False].stats)
+    assert torch.equal(out[True].masks, out[False].masks)
+    assert out[True].masks.shape == (d * n_temps * (n_rep // 2), n, len(shape))
+
+
+@pytest.mark.parametrize("shape,n_rep,kw", [
+    ((8, 8, 8), 4, dict(overlap_cluster_build_mode="houd4")),
+    ((8, 8, 8), 4, dict(overlap_cluster_build_mode="cmr+houd4",
+                        overlap_cluster_mode="sw", collect_cluster_stats=True)),
+    ((8, 8, 8), 4, dict(overlap_cluster_build_mode="houdayer+jorg+cmr",
+                        overlap_cluster_mode="sw", overlap_cluster_action="observe")),
+    ((16, 64), 2, dict(overlap_cluster_build_mode="houdayer+jorg+cmr",
+                       overlap_cluster_mode="sw", overlap_cluster_action="observe")),
+], ids=["houd4-wolff", "cmr+houd4-sw-stats", "8cube-observe", "2d-observe"])
+def test_overlap_stats_sample_on_card_match_the_cpu(cuda, shape, n_rep, kw):
+    """Houdayer(N), the moves' statistics and overlap observe: the kernels
+    on the card and the plain path on the CPU follow one trajectory and
+    give the same overlap_csd, top_cluster_sizes and observations (+-1
+    couplings: every sum is an exact integer); observe leaves the card's
+    run as it is without overlap moves."""
+    from peapods_tpu_torch.ops import overlap
+
+    kw = dict(kw, pt_interval=1, overlap_cluster_update_interval=2)
+    temps = np.geomspace(0.9, 2.2, 4).astype(np.float32)
+
+    def model(dev):
+        return Ising(shape, couplings="bimodal", temperatures=temps, n_replicas=n_rep,
+                     n_disorder=2, seed=6, device=dev)
+
+    a, c = model("cuda"), model("cpu")
+    for k in overlap.LAUNCHES:
+        overlap.LAUNCHES[k] = 0
+    ra, rc = a.sample(24, **kw), c.sample(24, **kw)
+    houdn = "houd" in kw["overlap_cluster_build_mode"]  # houd4 and houdayer
+    assert (overlap.LAUNCHES["houdn_finish"] > 0) == houdn
+    for key in ("spins", "system_ids", "pt_edge_acceptances", "pt_round_trips"):
+        assert torch.equal(a._sim.state[key].cpu(), c._sim.state[key]), key
+    for key in ("overlap_csd", "top_cluster_sizes"):
+        assert (key in ra) == (key in rc)
+        for x, y in zip(ra.get(key, []), rc.get(key, [])):
+            np.testing.assert_array_equal(np.asarray(x), np.asarray(y), err_msg=key)
+    oa = ra.get("per_disorder", {}).get("cluster_observations", {})
+    oc = rc.get("per_disorder", {}).get("cluster_observations", {})
+    assert list(oa) == list(oc)
+    for name in oc:
+        for key in oc[name]:
+            np.testing.assert_array_equal(oa[name][key], oc[name][key],
+                                          err_msg=f"{name} {key}")
+    if kw.get("overlap_cluster_action") == "observe":
+        plain = model("cuda")
+        rp = plain.sample(24, pt_interval=1)
+        for key in ("spins", "system_ids", "pt_edge_acceptances"):
+            assert torch.equal(a._sim.state[key], plain._sim.state[key]), key
+        np.testing.assert_array_equal(ra["energies"], rp["energies"])

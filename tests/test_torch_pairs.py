@@ -402,16 +402,27 @@ def test_results_schema_matches_reference(n_disorder):
 @pytest.mark.parametrize("kwargs,item", [
     (dict(cluster_update_interval=1), "7a"),
     (dict(overlap_cluster_update_interval=1, overlap_cluster_mode="sw",
-          overlap_cluster_action="observe"), "7b"),
-    (dict(overlap_cluster_update_interval=1, collect_cluster_stats=True), "7b"),
-    (dict(overlap_cluster_update_interval=2, snapshot_interval=2), "7b"),
+          overlap_cluster_action="observe"), None),
+    (dict(overlap_cluster_update_interval=1, collect_cluster_stats=True), None),
+    (dict(overlap_cluster_update_interval=2, snapshot_interval=2), "7a"),
     (dict(overlap_cluster_update_interval=1, overlap_cluster_build_mode="houd4"),
-     "7c"),
+     None),
 ], ids=["fk-phase", "observe", "collect-stats", "snapshots", "houd4"])
 def test_out_of_slice_replica_options_raise(kwargs, item):
+    """Options outside the slice raise, naming the ROADMAP item that brings
+    them; the ones that items 7b and 7c brought in (overlap observe, the
+    overlap moves' cluster statistics, Houdayer(N)) run."""
     m = Ising((4, 4, 4), temperatures=[1.0, 2.0], n_replicas=4, seed=1, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, queue 1, item {item}"):
-        m.sample(4, **kwargs)
+    if item is not None:
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md, queue 1, item {item}"):
+            m.sample(4, **kwargs)
+        return
+    r = m.sample(4, warmup_ratio=0, **kwargs)
+    assert int(m._sim.state["counter"]) == 4
+    observe = kwargs.get("overlap_cluster_action") == "observe"
+    assert ("overlap_csd" in r) == (observe or "collect_cluster_stats" in kwargs)
+    assert ("cluster_observations" in r.get("per_disorder", {})) == observe
 
 
 def test_overlap_needs_enough_replicas():

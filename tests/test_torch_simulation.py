@@ -176,8 +176,7 @@ def test_state_converts_both_ways():
     "kwargs",
     [
         dict(cluster_update_interval=1, cluster_action="observe"),
-        dict(overlap_cluster_update_interval=1, overlap_cluster_mode="sw",
-             overlap_cluster_action="observe"),
+        dict(overlap_cluster_update_interval=1, snapshot_interval=1),
         dict(autocorrelation_max_lag=4),
         dict(equilibration_diagnostic=True),
     ],
