@@ -57,7 +57,19 @@ through the user's entry points:
   square with winding (the observations' invariants, each run bitwise the
   run without overlap moves), and ``houdn_bonds`` / ``houdn_finish`` (g =
   4 and 6) and the pair moves' labels, masks and observe form held
-  against their plain versions.
+  against their plain versions;
+* the space-sharded path (a lattice split into row bands over a
+  ``("space",)`` mesh that names the one card four times, through
+  ``IsingSimulation.sample``): a 4096^2 ferromagnet at T_c with SW and PT
+  every sweep in 4 bands, in 1 band and unsharded (three equal checksums,
+  each run's rate); the flagship shape, a narrow 64^2 square, 128^3 cubic
+  with SW + PT, 256^2 triangular with PT and 32^3 FCC with SW + PT + cluster
+  statistics, each in 4 bands bitwise its unsharded per-sweep run; every
+  band kernel (``sweep_halo``, ``measure_halo``, ``fk_bonds_band``,
+  ``cc_band_link`` / ``cc_band_min`` / ``cc_band_write``, ``fk_finish_band``)
+  held against its plain version on those runs' states; and the band
+  kernels' device times, the halo copies' and the busy share over main-path
+  windows.
 
 Each path's launch counts are zeroed just before its main run and read just
 after.  Every phase prints lines; any failure raises and the script exits
@@ -3033,6 +3045,495 @@ def add_houdn_records(kernels, pk, main, wolff, obs, houdn, us, card):
         f"{v['bound_by']}, plain {v['plain_ms']:.4f} ms) on {card}")
 
 
+# ------------------------------------------------ the space-sharded path
+
+
+HALO_SRC = "peapods_tpu_torch/csrc/halo.cu"
+CC_BAND_SRC = "peapods_tpu_torch/csrc/cc_band.cu"
+ROW5 = "peapods_tpu/ops/pallas_sweep.py:339"  # _kernel_color_halo
+ROW6 = "peapods_tpu/ops/pallas_sweep.py:522"  # _kernel_color_halo_packed (W < 128)
+ROW9 = "peapods_tpu/ops/pallas_sweep3d.py:514"  # _kernel_color_halo3d
+ROW13 = "peapods_tpu/ops/pallas_sweep_diag.py:654"  # _kernel_gen_halo
+ROW17 = "peapods_tpu/ops/pallas_cc_band.py:169"  # _band_kernel
+SPACE_BANDS = 4
+SPACE_SW = dict(pt_interval=1, cluster_update_interval=1, cluster_mode="sw")
+# the slice's headline run: 256 times the flagship's sites at T_c, in bands
+SPACE_BIG = dict(shape=(4096, 4096), offsets=None, t=(2.25, 2.29), n_temps=4,
+                 sweeps=128, kw=SPACE_SW, replaces=ROW5)
+# each in 4 bands on the card, bitwise its unsharded per-sweep run
+SPACE_RUNS = {
+    "flagship": dict(shape=(L, L), offsets=None, t=(1.8, 3.2), n_temps=N_TEMPS,
+                     sweeps=512, kw=dict(pt_interval=1), replaces=ROW5),
+    "narrow64": dict(shape=(64, 64), offsets=None, t=(1.8, 3.2), n_temps=16,
+                     sweeps=256, kw=dict(pt_interval=1), replaces=ROW6),
+    "cubic128": dict(shape=(128, 128, 128), offsets=None, t=(4.4, 4.6), n_temps=8,
+                     sweeps=64, kw=SPACE_SW, replaces=ROW9),
+    "tri256": dict(shape=(256, 256), offsets="triangular", t=(3.4, 3.9), n_temps=8,
+                   sweeps=256, kw=dict(pt_interval=1), replaces=ROW13),
+    "fcc32": dict(shape=(32, 32, 32), offsets="fcc", t=(8.5, 11.0), n_temps=8,
+                  sweeps=128, kw=dict(SPACE_SW, collect_cluster_stats=True),
+                  replaces=ROW13),
+}
+SPACE_KERNELS = ("sweep_halo", "measure_halo", "fk_bonds_band", "cc_band_link",
+                 "cc_band_min", "cc_band_write", "fk_finish_band", "pt_step")
+
+
+def reset_space_counts():
+    from peapods_tpu_torch.ops import cc_band, halo
+
+    reset_cluster_counts()
+    for table in (halo.LAUNCHES, cc_band.LAUNCHES):
+        for k in table:
+            table[k] = 0
+
+
+def space_counts():
+    """Every per-sweep kernel's launches since the last reset, those that
+    ran."""
+    from peapods_tpu_torch.ops import cc_band, halo
+
+    counts = {**cluster_counts(), **halo.LAUNCHES, **cc_band.LAUNCHES}
+    return {k: v for k, v in counts.items() if v}
+
+
+class per_sweep_path:
+    """Drive ``sample`` through the unsharded per-sweep path
+    (``run_chunk_sweeps``) on every lattice, the square's too, whose
+    unsharded run would otherwise take the mega path."""
+
+    def __enter__(self):
+        from peapods_tpu_torch.engine import loop, simulation
+
+        self.saved = simulation.run_chunk
+        simulation.run_chunk = loop.run_chunk_sweeps
+
+    def __exit__(self, *exc):
+        from peapods_tpu_torch.engine import simulation
+
+        simulation.run_chunk = self.saved
+
+
+def space_sim(c, dev, bands):
+    """A ferromagnet of a space run's configuration: ``bands`` row bands on
+    the one card (a mesh naming it ``bands`` times), or unsharded (None)."""
+    from peapods_tpu_torch.engine.simulation import IsingSimulation
+    from peapods_tpu_torch.ops.lattice import GEOMETRY_OFFSETS
+    from peapods_tpu_torch.parallel.mesh import make_mesh
+
+    offsets = GEOMETRY_OFFSETS[c["offsets"]] if c["offsets"] else None
+    nb = len(offsets) if offsets else len(c["shape"])
+    temps = np.geomspace(*c["t"], c["n_temps"]).astype(np.float32)
+    mesh = (None if bands is None
+            else make_mesh(bands, ("space",), devices=[dev] * bands))
+    return IsingSimulation(list(c["shape"]), np.ones(tuple(c["shape"]) + (nb,), np.float32),
+                           temps, 1, offsets, SEED, mesh=mesh, device=dev)
+
+
+def space_checksum(sim, result) -> str:
+    """state_checksum over the spins gathered from the bands."""
+    h = hashlib.sha256()
+    h.update(sim.all_spins().cpu().numpy().tobytes())
+    h.update(sim.state["system_ids"].cpu().numpy().tobytes())
+    h.update(np.asarray(sim.state["counter"], np.int32).tobytes())
+    for key in ("mags", "mags2", "energies", "energies2"):
+        h.update(np.asarray(result[key]).tobytes())
+    if "fk_csd" in result:
+        h.update(np.asarray(result["fk_csd"]).tobytes())
+    return h.hexdigest()[:16]
+
+
+def space_want(sim, c, n, bands):
+    """The launches a space run of ``n`` sweeps must count: every colour pass
+    of every band; on FK sweeps the band forms and a CC round per band;
+    measure_halo where neither the last pass (square, cubic) nor an FK
+    update (square, triangular, cubic) measures."""
+    lat = sim.lattice
+    k = c["kw"].get("cluster_update_interval")
+    n_fk = len(range(0, n, k)) if k else 0
+    fused = lat.hypercubic or lat.triangular
+    n_meas = 0 if lat.hypercubic else (n - n_fk if fused else n)
+    want = {"sweep_halo": n * lat.n_colors * bands, "pt_step": n,
+            "measure_halo": n_meas * bands}
+    if n_fk:
+        rounds = sim.rt.space.cc_rounds
+        # the first round of each FK phase has no cc_band_min
+        want.update(fk_bonds_band=n_fk * bands, cc_band_link=n_fk * bands,
+                    cc_band_min=(rounds - n_fk) * bands, cc_band_write=rounds * bands,
+                    fk_finish_band=n_fk * bands)
+    return {key: v for key, v in want.items() if v}
+
+
+def space_run(name, c, dev, bands, card, n=None):
+    """One run of a space configuration through IsingSimulation.sample: in
+    ``bands`` bands (None: the unsharded per-sweep path), launch counts
+    zeroed just before and read just after, a checksum, the rate."""
+    n = n or c["sweeps"]
+    t_setup = time.perf_counter()
+    sim = space_sim(c, dev, bands)
+    torch.cuda.synchronize()
+    t_setup = time.perf_counter() - t_setup
+    reset_space_counts()
+    t0 = time.perf_counter()
+    if bands is None:
+        with per_sweep_path():
+            result = sim.sample(n, "metropolis", **dict(c["kw"], warmup_ratio=0.25))
+    else:
+        result = sim.sample(n, "metropolis", **dict(c["kw"], warmup_ratio=0.25))
+    torch.cuda.synchronize()
+    sweeps_s = n / (time.perf_counter() - t0)
+    launches = space_counts()
+    if bands is not None:
+        want = space_want(sim, c, n, bands)
+        if launches != want:
+            raise AssertionError(f"{name} in {bands} bands: launches {launches}, "
+                                 f"expected {want}")
+    e = result["energies"]
+    if not np.isfinite(e).all():
+        raise AssertionError(f"{name}: energies {e}")
+    n_sites = int(np.prod(c["shape"])) * c["n_temps"]
+    label = ("unsharded per-sweep path" if bands is None
+             else f"{bands} band{'s' if bands > 1 else ''} on one card")
+    extra = ""
+    if bands is not None and "cc_band_link" in launches:
+        extra = (f", {launches['cc_band_write'] / launches['cc_band_link']:.2f} CC rounds "
+                 "an FK phase")
+    log("28 space" if name == "4096" else "29 space",
+        f"{name} ({'x'.join(map(str, c['shape']))}"
+        f"{' ' + c['offsets'] if c['offsets'] else ''} x {c['n_temps']} temps geomspace"
+        f"{c['t']}, {c['kw']}, {n} sweeps) {label}: set-up {t_setup:.2f} s, "
+        f"{sweeps_s:.2f} sweeps/s = "
+        f"{sweeps_s * n_sites:.4e} flips/s (first call, host clock) on {card}; launches "
+        f"{launches}{extra}; checksum {space_checksum(sim, result)}")
+    return dict(sim=sim, result=result, sweeps_s=sweeps_s, launches=launches,
+                checksum=space_checksum(sim, result), n=n)
+
+
+def space_profile(sim, kw, sweeps_s, n):
+    """Per-launch device time and launches per sweep of each band kernel
+    over ``n`` sweeps of a space run, the halo copies' device time per
+    sweep, and the busy share of the unprofiled wall time per sweep."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sim.sample(n, "metropolis", **dict(kw, warmup_ratio=0.0))
+        torch.cuda.synchronize()
+    per_launch, per_sweep, counts = {}, {}, {}
+    copies = other = 0.0
+    for ev in prof.key_averages():
+        if ev.self_device_time_total <= 0:
+            continue
+        hit = [k for k in SPACE_KERNELS if f"{k}_kernel" in ev.key]
+        if hit:
+            per_launch[hit[0]] = ev.self_device_time_total / ev.count
+            per_sweep[hit[0]] = ev.self_device_time_total / n
+            counts[hit[0]] = ev.count / n
+        elif ev.device_type != DeviceType.CPU:
+            if "copy" in ev.key.lower() or "memcpy" in ev.key.lower():
+                copies += ev.self_device_time_total / n
+            else:
+                other += ev.self_device_time_total / n
+    busy = sum(per_sweep.values()) + copies + other
+    line = ("device us per sweep: " + ", ".join(f"{k} {v:.3f}" for k, v in per_sweep.items())
+            + f", halo and gather copies {copies:.3f}, other device work {other:.3f}, sum "
+            f"{busy:.3f} against {1e6 / sweeps_s:.3f} us of wall time per sweep: the "
+            f"device is busy {busy * sweeps_s / 1e6:.3f} of it")
+    return dict(per_launch=per_launch, per_sweep=counts, copies_us=copies, busy=busy,
+                line=line)
+
+
+def band_pass_ties(band, win, f, bw, col, temps, words, colour, gibbs):
+    """Sites of a band's colour pass whose decision lies within TIE_ULPS ulp
+    of its threshold on the pass's input: bool [d, S, n_band]."""
+    from peapods_tpu_torch.ops import halo
+
+    *_, active, lhs, thr, _ = halo.pass_decisions(win, f, bw, col, temps, words, band,
+                                                  colour, gibbs=gibbs)
+    ulp = (torch.nextafter(thr, torch.full_like(thr, np.inf)) - thr).abs()
+    return ((lhs - thr).abs() <= TIE_ULPS * ulp) & active
+
+
+def space_bounds(sim):
+    """``(bound_ms, bound_by)`` per launch of each band kernel on band 0 of
+    a space simulation (bytes: each input read once, each output written
+    once; f32 operations)."""
+    sp, lat = sim.rt.space, sim.lattice
+    b0 = sp.bands[0]
+    g = n_sys = sim.rt.n_disorder * sim.rt.n_systems
+    nb, nc, nw, nbd = lat.n_neighbors, lat.n_colors, b0.n_window, b0.n_band
+    active = n_sys * nbd // nc
+    n_blk = ((nbd + 3) // 4 + 255) // 256
+    measure = lat.hypercubic or lat.triangular
+    colours = 0 if lat.square else nw  # the square form reads its parity
+    return {
+        # the window's spins, the active sites' couplings, the colours in;
+        # the active spins out; 4 n_nb + 20 operations an active site
+        "sweep_halo": bound(n_sys * nw + 8 * nb * nbd // nc + colours + 4 * n_sys + 8
+                            + active, (4 * nb + 20) * active),
+        "measure_halo": bound(n_sys * nw + 4 * nb * nbd + 8 * n_sys * n_blk,
+                              3 * nb * n_sys * nbd),
+        # spins and couplings in; state byte, parent, label and cmin out
+        "fk_bonds_band": bound(g * nw + 4 * nb * nw + 12 * g + 13 * g * nw,
+                               8 * nb * g * nw),
+        "cc_band_link": bound(9 * g * nw, 0),
+        "cc_band_min": bound(12 * g * (nw - nbd), 0),
+        "cc_band_write": bound(8 * g * nw + 8 * g * nbd, 0),
+        "fk_finish_band": bound(2 * g * nbd + g * nbd + 4 * g * nw + 4 * nb * nbd + 12 * g
+                                + (8 * g * ((nbd + 255) // 256) if measure else 0),
+                                30 * g * nbd),
+    }
+
+
+def check_space_kernels(name, sim, dev, rng):
+    """Each band kernel against its plain version on the card, on the state
+    of a 4-band run: every colour pass of every band (Metropolis and Gibbs,
+    exp ties counted), measure_halo, the FK band forms (SW and Wolff) and
+    the banded labels; the plain versions' times and the bounds per launch
+    on band 0 of this state."""
+    from peapods_tpu_torch.engine import seeds
+    from peapods_tpu_torch.ops import cc_band, fk, halo
+
+    t_check = time.perf_counter()
+    sp, lat = sim.rt.space, sim.lattice
+    bands = sp.bands
+    d, n_sys = 1, sim.rt.n_systems
+    temps = sim.rt.temps[None].contiguous()
+    recs = {k: dict(max_abs_err=0.0) for k in SPACE_KERNELS if k != "pt_step"}
+    ties = decisions = 0
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, (1, 2)).astype(np.int32)).to(dev)
+    wins = [w.clone() for w in sim.state["bands"]]
+    for gibbs in (False, True):
+        for colour in range(lat.n_colors):
+            halo.exchange(wins, bands)
+            last = colour == lat.n_colors - 1 and lat.hypercubic
+            for j, b in enumerate(bands):
+                args = (sp.coup_fwd[j], sp.coup_bwd[j], sp.colours[j], temps, words, b,
+                        colour)
+                tie = band_pass_ties(b, wins[j], *args[:5], colour, gibbs)
+                a, c = wins[j].clone(), wins[j].clone()
+                pk = halo.sweep_halo(a, *args, gibbs=gibbs, measure=last)
+                pp = halo.sweep_halo_plain(c, *args, gibbs=gibbs, measure=last)
+                torch.cuda.synchronize()
+                diff = (a != c)[..., b.interior]
+                if (diff & ~tie).any():
+                    raise AssertionError(f"sweep_halo on {name} band {j} colour "
+                                         f"{colour} gibbs={gibbs}: "
+                                         f"{int((diff & ~tie).sum())} spins differ "
+                                         "away from ulp ties")
+                ties += int((diff & tie).sum())
+                decisions += n_sys * (b.n_band // 2 if lat.square else int(
+                    (sp.colours[j][b.interior] == colour).sum()))
+                if last and not torch.equal(pk[1].sum(-1), pp[1].sum(-1)):
+                    raise AssertionError(f"sweep_halo on {name}: m differs")
+                if last:
+                    err = float((pk[0].double().sum(-1) - pp[0].double().sum(-1))
+                                .abs().max())
+                    if err:
+                        raise AssertionError(f"sweep_halo on {name}: e differs by {err}")
+                wins[j] = c
+    if ties > MAX_TIE_SHARE * decisions:
+        raise AssertionError(f"sweep_halo on {name}: {ties} ties in {decisions}")
+    recs["sweep_halo"].update(ulp_ties=ties, decisions=decisions,
+                              max_abs_err=2.0 if ties else 0.0)
+    halo.exchange(wins, bands)
+    for j, b in enumerate(bands):
+        ek, mk = halo.measure_halo(wins[j], sp.coup_fwd[j], b)
+        ep, mp = halo.measure_halo_plain(wins[j], sp.coup_fwd[j], b)
+        torch.cuda.synchronize()
+        if not (torch.equal(mk.sum(-1), mp.sum(-1))
+                and torch.equal(ek.sum(-1), ep.sum(-1))):
+            raise AssertionError(f"measure_halo on {name} band {j} differs")
+    # the FK band forms and the banded labels at the run's temperatures
+    g = d * n_sys
+    gw = [w.view(g, -1) for w in wins]
+    measure = fk.fused_lattice(lat)
+    kb = torch.from_numpy(rng.integers(-2**31, 2**31, (g, 2)).astype(np.int32)).to(dev)
+    # the bonds and labels do not depend on the update's kind: SW and Wolff
+    # finish from the same ones
+    ccs = {}
+    for kind in ("kernel", "plain"):
+        ws = [w.clone() for w in gw]
+        ccs[kind] = [cc_band.BandCC.empty(g, b, dev) for b in bands]
+        bonds = fk.fk_bonds_band if kind == "kernel" else fk.fk_bonds_band_plain
+        for j, b in enumerate(bands):
+            bonds(ws[j], sp.coup_fwd[j], temps.view(-1), kb, ccs[kind][j], b)
+        (cc_band.banded_labels if kind == "kernel" else cc_band.banded_labels_plain)(
+            ccs[kind], bands, 0)
+    torch.cuda.synchronize()
+    for what, field in (("fk_bonds_band", "state"), ("cc_band", "labels")):
+        # every window site's state byte (the halo rows' bonds too), the
+        # band sites' labels
+        a, b = ([getattr(cb, field) if field == "state" else cb.labels[:, band.interior]
+                 for cb, band in zip(ccs[kind], bands)] for kind in ("kernel", "plain"))
+        if not all(torch.equal(x, y) for x, y in zip(a, b)):
+            raise AssertionError(f"{what} on {name} differs from its plain version")
+    lk = torch.cat([cb.labels[:, b.interior] for cb, b in zip(ccs["kernel"], bands)], -1)
+    n_comp = int(sum(int(torch.unique(lk[i]).numel()) for i in range(g)))
+    del lk
+    for wolff in (False, True):
+        kf = rng.integers(0, 2**32, (g, 2), dtype=np.uint64).astype(np.uint32)
+        scal = torch.from_numpy(seeds.fk_scalars(kf, lat.n_spins, wolff=wolff)).to(dev)
+        res = {}
+        for kind in ("kernel", "plain"):
+            ws = [w.clone() for w in gw]
+            seed_lab = fk.wolff_seed_labels(ccs[kind], bands, scal[:, 2]) if wolff else None
+            fin = fk.fk_finish_band if kind == "kernel" else fk.fk_finish_band_plain
+            parts = [fin(ws[j], ccs[kind][j], sp.coup_fwd[j], scal, seed_lab, b, wolff=wolff,
+                         measure=measure) for j, b in enumerate(bands)]
+            torch.cuda.synchronize()
+            res[kind] = (torch.cat([w[:, b.interior] for w, b in zip(ws, bands)], -1),
+                         [torch.cat([p[i] for p in parts], -1).sum(-1) for i in (0, 1)]
+                         if measure else [])
+        (xk, pk), (xp, pp) = res["kernel"], res["plain"]
+        if not torch.equal(xk, xp):
+            raise AssertionError(f"fk_finish_band on {name} (wolff={wolff}) differs "
+                                 "from its plain version")
+        for a, b in zip(pk, pp):
+            if not torch.equal(a, b):
+                raise AssertionError(f"fk_finish_band partials on {name} differ")
+    del ccs
+    log("27 kernel-vs-plain", f"{name}: sweep_halo ok ({len(bands)} bands, "
+        f"{lat.n_colors} colours, Metropolis and Gibbs: {decisions} decisions, 0 "
+        f"differ but {ties} ulp ties); measure_halo ok (bitwise); fk_bonds_band, the "
+        f"banded labels (cc_band_link / _min / _write) and fk_finish_band ok, SW and "
+        f"Wolff (state bytes, labels, spins{' and partials' if measure else ''} "
+        f"bitwise; {n_comp} components in {g} graphs)")
+    # plain times and bounds per launch on band 0 of this state (the
+    # kernels' times come from the runs' profiled windows)
+    for k, (bms, by) in space_bounds(sim).items():
+        recs[k].update(bound_ms=bms, bound_by=by)
+    b0, w0 = bands[0], wins[0]
+    args0 = (sp.coup_fwd[0], sp.coup_bwd[0], sp.colours[0], temps, words, b0, 0)
+    w_a = w0.clone()
+    recs["sweep_halo"]["plain_ms"] = wall_ms(
+        lambda: halo.sweep_halo_plain(w_a, *args0, gibbs=False), 1)
+    recs["measure_halo"]["plain_ms"] = wall_ms(
+        lambda: halo.measure_halo_plain(w_a, sp.coup_fwd[0], b0), 1)
+    cb0 = cc_band.BandCC.empty(g, b0, dev)
+    g0 = w_a.view(g, -1)
+    tv = temps.view(-1)
+    recs["fk_bonds_band"]["plain_ms"] = wall_ms(
+        lambda: fk.fk_bonds_band_plain(g0, sp.coup_fwd[0], tv, kb, cb0, b0), 1)
+    recs["cc_band_link"]["plain_ms"] = wall_ms(lambda: cc_band.link_plain(cb0, b0), 1)
+    # the plain round does both halves in one
+    recs["cc_band_min"]["plain_ms"] = recs["cc_band_write"]["plain_ms"] = wall_ms(
+        lambda: cc_band.band_round_plain(cb0, b0, 1), 1)
+    sl = torch.zeros(g, dtype=torch.int32, device=dev)
+    w_f = w_a.view(g, -1).clone()
+    recs["fk_finish_band"]["plain_ms"] = wall_ms(lambda: fk.fk_finish_band_plain(
+        w_f, cb0, sp.coup_fwd[0], scal, sl, b0, wolff=False, measure=measure), 1)
+    log("27 kernel-vs-plain", f"{name}: the checks took {time.perf_counter() - t_check:.1f} s")
+    return recs
+
+
+def log_space_times(name, prof, check, card):
+    """The profile line of a 4-band run: each band kernel's device time per
+    launch and launches per sweep against its bound and plain time."""
+    per = "; ".join(
+        f"{k} {prof['per_launch'][k] / 1e3:.5f} ms x {prof['per_sweep'][k]:g} a sweep"
+        + (f" (bound {check[k]['bound_ms']:.5f} ms, plain {check[k]['plain_ms']:.5f} ms)"
+           if k in check else "")
+        for k in prof["per_launch"])
+    log("30 times", f"{name} in 4 bands: {prof['line']}; per launch: {per} on {card}")
+
+
+def space_paths(dev, card, mega_sweeps_s):
+    """Phases 27-30: the 4096^2 SW + PT run at T_c in 4 bands, 1 band and
+    unsharded (equal checksums), the flagship shape, a narrow 64^2, 128^3,
+    256^2 triangular and 32^3 FCC in 4 bands, each bitwise its unsharded
+    per-sweep run, every band kernel against its plain version on each
+    4-band run's state (the 4096^2 one's too), and the band kernels'
+    device times over main-path windows."""
+    t_all = time.perf_counter()
+    rng = np.random.default_rng(2030)
+    big, checks = {}, {}
+    for label, bands in (("4 bands", SPACE_BANDS), ("1 band", 1), ("unsharded", None)):
+        run = space_run("4096", SPACE_BIG, dev, bands, card)
+        if label == "4 bands":
+            run["profile"] = space_profile(run["sim"], SPACE_BIG["kw"], run["sweeps_s"], 8)
+            checks["4096"] = check_space_kernels("4096", run["sim"], dev, rng)
+            log_space_times("4096", run["profile"], checks["4096"], card)
+        run.pop("sim")
+        big[label] = run
+        torch.cuda.empty_cache()
+    sums = {k: v["checksum"] for k, v in big.items()}
+    if len(set(sums.values())) != 1:
+        raise AssertionError(f"4096^2 checksums differ: {sums}")
+    log("28 space", f"4096^2 SW + PT at T_c: checksums equal in 4 bands, 1 band and "
+        f"unsharded ({sums['unsharded']}); 4 bands run at "
+        f"{big['4 bands']['sweeps_s'] / big['unsharded']['sweeps_s']:.3f} of the "
+        f"unsharded rate, 1 band at {big['1 band']['sweeps_s'] / big['unsharded']['sweeps_s']:.3f}")
+    runs, plain = {}, {}
+    for name, c in SPACE_RUNS.items():
+        runs[name] = space_run(name, c, dev, SPACE_BANDS, card)
+        plain[name] = space_run(name, c, dev, None, card)
+        if runs[name]["checksum"] != plain[name]["checksum"]:
+            raise AssertionError(f"{name}: 4 bands {runs[name]['checksum']}, unsharded "
+                                 f"{plain[name]['checksum']}")
+        extra = (f"; the mega path {mega_sweeps_s:.1f} sweeps/s (phase 4)"
+                 if name == "flagship" else "")
+        log("29 space", f"{name}: 4 bands bitwise the unsharded per-sweep run "
+            f"({runs[name]['checksum']}); {runs[name]['sweeps_s']:.1f} against "
+            f"{plain[name]['sweeps_s']:.1f} sweeps/s{extra} on {card}")
+        plain[name].pop("sim")
+    for name, run in runs.items():
+        checks[name] = check_space_kernels(name, run["sim"], dev, rng)
+    for name, run in runs.items():
+        prof = space_profile(run["sim"], SPACE_RUNS[name]["kw"], run["sweeps_s"],
+                             16 if name == "cubic128" else 32)
+        run["profile"] = prof
+        log_space_times(name, prof, checks[name], card)
+    log("30 times", f"phases 27-30 took {time.perf_counter() - t_all:.1f} s")
+    return dict(big=big, runs=runs, plain=plain, checks=checks)
+
+
+def add_space_records(kernels, sp):
+    """The band kernels' records: launches, per-launch times, bounds and
+    plain times of the run on whose path each kernel is (the 4096^2 run in
+    4 bands; measure_halo: 256^2 triangular), each other run's numbers
+    beside them; rows 6, 9 and 13 as sweep_halo records of their runs."""
+    src = {"sweep_halo": HALO_SRC, "measure_halo": HALO_SRC,
+           "fk_bonds_band": "peapods_tpu_torch/csrc/fk.cu",
+           "fk_finish_band": "peapods_tpu_torch/csrc/fk.cu",
+           "cc_band_link": CC_BAND_SRC, "cc_band_min": CC_BAND_SRC,
+           "cc_band_write": CC_BAND_SRC}
+    rep = {"sweep_halo": ROW5, "measure_halo": ROW13, "fk_bonds_band":
+           "peapods_tpu/ops/pallas_event.py:621", "fk_finish_band":
+           "peapods_tpu/ops/pallas_event.py:621", "cc_band_link": ROW17,
+           "cc_band_min": ROW17, "cc_band_write": ROW17}
+    big4 = sp["big"]["4 bands"]
+    for k in src:
+        main = "tri256" if k == "measure_halo" else "4096"
+        main_run = sp["runs"]["tri256"] if main == "tri256" else big4
+        check = sp["checks"][main][k]
+        at = {}
+        for name, run in sp["runs"].items():
+            chk = sp["checks"][name][k]
+            t = run["profile"]["per_launch"].get(k)
+            at[f"at_{name}"] = dict(
+                chk, launches=run["launches"].get(k, 0),
+                ms=None if t is None else t / 1e3,
+                replaces=SPACE_RUNS[name]["replaces"] if k == "sweep_halo" else rep[k])
+        kernels.append(dict(
+            name=k, route="cuda", source=src[k], replaces=rep[k],
+            launches=main_run["launches"][k],
+            max_abs_err=max(sp["checks"][n][k]["max_abs_err"] for n in sp["checks"]),
+            ms=main_run["profile"]["per_launch"][k] / 1e3, plain_ms=check["plain_ms"],
+            bound_ms=check["bound_ms"], bound_by=check["bound_by"], library_ms=None,
+            run=main, **at))
+    for name in ("narrow64", "cubic128", "tri256"):
+        chk = sp["checks"][name]["sweep_halo"]
+        run = sp["runs"][name]
+        kernels.append(dict(
+            name="sweep_halo", route="cuda", source=HALO_SRC,
+            replaces=SPACE_RUNS[name]["replaces"], launches=run["launches"]["sweep_halo"],
+            max_abs_err=chk["max_abs_err"],
+            ms=run["profile"]["per_launch"]["sweep_halo"] / 1e3, plain_ms=chk["plain_ms"],
+            bound_ms=chk["bound_ms"], bound_by=chk["bound_by"], library_ms=None,
+            run=name))
+
+
 def kernel_registers(text) -> str:
     """``library: kernel registers, ...`` from the ``ptxas -v`` log of the
     build: each entry function's registers under its kernel's name."""
@@ -3169,6 +3670,9 @@ def main():
             **{name: pair_profile(run, 200 if name == "observe3d" else 32, card, name,
                                   "26 times") for name, run in hobs_ov.items()}}
 
+    # the space-sharded path: row bands on the one card
+    space = space_paths(dev, card, sweeps_s)
+
     mega_src = "peapods_tpu_torch/csrc/mega.cu"
     mega_replaces = "peapods_tpu/ops/pallas_mega.py:96"
     fk_src = "peapods_tpu_torch/csrc/fk.cu"
@@ -3210,6 +3714,7 @@ def main():
     add_nb_records(kernels, nb)
     add_observe_records(kernels, obs, hobs, staged, ob_times, ob_us, card)
     add_houdn_records(kernels, pk, hmain, hwolff, hobs_ov, houdn, h_us, card)
+    add_space_records(kernels, space)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     record = {"kernels": [{**{k: kr[k] for k in keys},

@@ -6,9 +6,10 @@ one replica on a 2D square lattice with even extents (the mega path), with
 optional Swendsen-Wang or Wolff cluster updates (the per-sweep path); and
 two replicas or more on a 2D square or 3D cubic lattice with even extents
 (the replica path: the pair overlaps, PT on each replica's ladder, and the
-Houdayer, Joerg and CMR overlap moves) -- on an NVIDIA H100 through
-hand-written CUDA kernels (``device="cuda"``), or on the CPU through their
-plain torch versions (``device="cpu"``).
+Houdayer, Joerg and CMR overlap moves); and one replica on a lattice
+split into row bands over a ``space`` mesh (``parallel.mesh.make_mesh``)
+-- on an NVIDIA H100 through hand-written CUDA kernels (``device="cuda"``),
+or on the CPU through their plain torch versions (``device="cpu"``).
 
 Importing the package is cheap; torch is imported with the first use of
 ``Ising`` or ``IsingSimulation``.

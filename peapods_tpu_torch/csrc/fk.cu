@@ -48,6 +48,26 @@
 // flips; the measurement is then sweep_nb.cu's measure_nb, so the state
 // byte needs no "s differs" bits and holds up to six bonds.
 //
+// The band forms serve a lattice split into row bands over a "space" mesh
+// (band.cuh: each band's rows and a halo of its neighbours' edge rows, the
+// window):
+//
+//   fk_bonds_band   fk_bonds / fk_bonds_nb over every window site whose
+//                   forward neighbour lies in the window: the band's own
+//                   bonds, those that cross its edges, and the halo rows'
+//                   bonds into the band, each drawn with the unsharded
+//                   kernels' Philox counter (dir, global site / 4, 0, 0).
+//                   With three directions or fewer it also writes the
+//                   "s differs" bits.  It starts cc_band.cu's arrays:
+//                   parent[w] = w, label and cmin = the site's global
+//                   index.
+//   fk_finish_band  the flips of the band's sites from the global labels
+//                   (cc_band.cu): the SW coin on the label, or Wolff's
+//                   label == the seed's label, which the engine reads from
+//                   the band that holds the seed; optionally the post-update
+//                   partials of fk_finish, the forward neighbours' flips
+//                   read from the halo labels.
+//
 // What bounds it on the H100: each launch touches a few bytes per site --
 // the int8 spins, 8 or 12 B of couplings, the state byte and the int32
 // parent.
@@ -65,6 +85,7 @@
 #include <cstddef>
 #include <cstdint>
 
+#include "band.cuh"
 #include "mega.cuh"
 #include "nb.cuh"
 #include "uf.cuh"
@@ -230,6 +251,101 @@ fk_finish_kernel(int8_t* __restrict__ spins, const uint8_t* __restrict__ state,
                  static_cast<size_t>(b) * gridDim.x + blockIdx.x);
 }
 
+__global__ void __launch_bounds__(kThreads)
+fk_bonds_band_kernel(const int8_t* __restrict__ spins, const float* __restrict__ j_win,
+                     const float* __restrict__ temps, const int32_t* __restrict__ kb,
+                     uint8_t* __restrict__ state, int32_t* __restrict__ parent,
+                     int32_t* __restrict__ labels, int32_t* __restrict__ cmin,
+                     const BandGeom geo, int n_systems) {
+  const int b = blockIdx.y;
+  const int nw = geo.w.L[0] * geo.block;
+  const int nd = geo.w.n_nb;
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  if (kSitesPerThread * g >= nw) return;
+  const size_t base = static_cast<size_t>(b) * nw;
+  const int8_t* s = spins + base;
+  const float* J = j_win + static_cast<size_t>(b / n_systems) * nw * nd;
+  const float T = temps[b];
+  const uint32_t k0 = static_cast<uint32_t>(kb[2 * b]);
+  const uint32_t k1 = static_cast<uint32_t>(kb[2 * b + 1]);
+  uint4 r[kMaxOffsets];
+  int grp = -1;
+#pragma unroll
+  for (int k = 0; k < kSitesPerThread; ++k) {
+    const int w = kSitesPerThread * g + k;
+    if (w >= nw) break;
+    const int gid = window_global(geo, w);
+    if ((gid >> 2) != grp) {
+      grp = gid >> 2;
+      for (int dir = 0; dir < nd; ++dir)
+        r[dir] = philox4x32_10(k0, k1, static_cast<uint32_t>(dir),
+                               static_cast<uint32_t>(grp), 0u, 0u);
+    }
+    int c[3];
+    coords(geo.w, w, c);
+    const float si = static_cast<float>(s[w]);
+    uint8_t st = 0;
+    for (int dir = 0; dir < nd; ++dir) {
+      const int j = window_neighbour(geo, c, dir, 1);
+      if (j < 0) continue;
+      const float sf = static_cast<float>(s[j]);
+      const float inter = si * sf * J[static_cast<size_t>(w) * nd + dir];
+      const float p = 1.0f - expf(-2.0f * inter / T);
+      if (inter > 0.0f && uniform24(philox_word(r[dir], gid)) < p) st |= 1u << dir;
+      if (nd <= kMaxDirs && si != sf) st |= 8u << dir;
+    }
+    state[base + w] = st;
+    parent[base + w] = w;
+    labels[base + w] = gid;
+    cmin[base + w] = gid;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads)
+fk_finish_band_kernel(int8_t* __restrict__ spins, const uint8_t* __restrict__ state,
+                      const int32_t* __restrict__ labels,
+                      const float* __restrict__ j_win,
+                      const int32_t* __restrict__ scalars,
+                      const int32_t* __restrict__ seed_labels,
+                      float* __restrict__ e_part, int32_t* __restrict__ m_part,
+                      const BandGeom geo, int n_systems, int wolff) {
+  const int b = blockIdx.y;
+  const int nw = geo.w.L[0] * geo.block;
+  const int nd = geo.w.n_nb;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool measure = e_part != nullptr;
+  float e_acc = 0.0f;
+  int m_acc = 0;
+  if (i < geo.hl * geo.block) {
+    const size_t base = static_cast<size_t>(b) * nw;
+    const int w = geo.halo * geo.block + i;
+    const uint32_t s0 = static_cast<uint32_t>(scalars[3 * b]);
+    const uint32_t s1 = static_cast<uint32_t>(scalars[3 * b + 1]);
+    const int seed_label = wolff ? seed_labels[b] : -1;
+    const bool fl = flips(labels[base + w], wolff, seed_label, s0, s1);
+    const int8_t sn = fl ? static_cast<int8_t>(-spins[base + w]) : spins[base + w];
+    spins[base + w] = sn;
+    if (measure) {
+      const uint8_t st = state[base + w];
+      const float* J = j_win + (static_cast<size_t>(b / n_systems) * nw + w) * nd;
+      int c[3];
+      coords(geo.w, w, c);
+      float e = 0.0f;
+      for (int dir = 0; dir < nd; ++dir) {
+        const int j = window_neighbour(geo, c, dir, 1);
+        const bool ff = flips(labels[base + j], wolff, seed_label, s0, s1);
+        const float prod = (((st >> (3 + dir)) & 1u) != 0) != (fl != ff) ? -1.0f : 1.0f;
+        e = e + prod * J[dir];
+      }
+      e_acc = e;
+      m_acc = sn;
+    }
+  }
+  if (!measure) return;  // uniform across the launch
+  block_partials(e_acc, m_acc, e_part, m_part,
+                 static_cast<size_t>(b) * gridDim.x + blockIdx.x);
+}
+
 inline dim3 site_grid(int n, int per_thread, int n_graphs) {
   const int groups = (n + per_thread - 1) / per_thread;
   return dim3((groups + kThreads - 1) / kThreads, n_graphs);
@@ -297,6 +413,42 @@ int peapods_fk_finish(void* spins, const void* state, void* parent, void* labels
       static_cast<const float*>(j_fwd), static_cast<const int32_t*>(scalars),
       static_cast<float*>(e_part), static_cast<int32_t*>(m_part),
       make_dims(L0, L1, L2, tri != 0), n_systems, wolff, observe);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Band forms (band.cuh; geom: ops/lattice.Band.words).  spins int8
+// [n_graphs, n_window]; j_win f32 [n_graphs / n_systems, n_window, n_nb];
+// state uint8, parent / labels / cmin int32 [n_graphs, n_window].
+int peapods_fk_bonds_band(const void* spins, const void* j_win, const void* temps,
+                          const void* kb, void* state, void* parent, void* labels,
+                          void* cmin, const int* geom, int n_graphs, int n_systems,
+                          void* stream) {
+  const BandGeom geo = make_band_geom(geom);
+  fk_bonds_band_kernel<<<site_grid(geo.w.L[0] * geo.block, kSitesPerThread, n_graphs),
+                         kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(spins), static_cast<const float*>(j_win),
+      static_cast<const float*>(temps), static_cast<const int32_t*>(kb),
+      static_cast<uint8_t*>(state), static_cast<int32_t*>(parent),
+      static_cast<int32_t*>(labels), static_cast<int32_t*>(cmin), geo, n_systems);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// seed_labels int32 [n_graphs] (Wolff; else null); e_part / m_part [n_graphs,
+// peapods_fk_blocks(hl * L1 * L2)] or both null (no measurement; the state
+// bytes must hold the "s differs" bits when measuring).
+int peapods_fk_finish_band(void* spins, const void* state, const void* labels,
+                           const void* j_win, const void* scalars,
+                           const void* seed_labels, void* e_part, void* m_part,
+                           const int* geom, int n_graphs, int n_systems, int wolff,
+                           void* stream) {
+  const BandGeom geo = make_band_geom(geom);
+  fk_finish_band_kernel<<<site_grid(geo.hl * geo.block, 1, n_graphs), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int8_t*>(spins), static_cast<const uint8_t*>(state),
+      static_cast<const int32_t*>(labels), static_cast<const float*>(j_win),
+      static_cast<const int32_t*>(scalars), static_cast<const int32_t*>(seed_labels),
+      static_cast<float*>(e_part), static_cast<int32_t*>(m_part), geo, n_systems,
+      wolff);
   return static_cast<int>(cudaGetLastError());
 }
 

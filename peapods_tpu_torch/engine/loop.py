@@ -13,7 +13,8 @@ sums on the device.  :func:`run_chunk` takes the replica path when there
 are two replicas or more, the mega path for one replica on a square
 lattice without a cluster phase, and the per-sweep path otherwise (a
 cluster phase, or any other lattice: triangular, BCC, FCC, 3D cubic, an
-offset table).
+offset table).  On a ``space`` mesh, :func:`run_chunk_space` runs the
+per-sweep path over the lattice's row bands.
 
 The reference's sentinel padding of short chunks and its ``n_inner <= 256``
 SMEM cap exist only to keep one compiled TPU program per chunk length; a
@@ -27,11 +28,11 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops import fk, mega, megapair, rng, winding
+from ..ops import cc_band, fk, halo, mega, megapair, rng, winding
 from ..ops.cluster import (component_counts, csd_histogram, graph_observation,
                             top4_sizes)
 from ..ops.energy import measure_nb
-from ..ops.lattice import Lattice, neighbour_values
+from ..ops.lattice import BandGeometry, Lattice, neighbour_values
 from ..ops.measure import per_slot_values, slot_temps_for_systems
 from ..ops.overlap import KINDS
 from ..ops.sweep import pack_coupling_grids, sweep_2d, sweep_nb
@@ -40,8 +41,8 @@ from . import seeds
 from .config import SimConfig
 from .records import N_FK_OBS, N_REC, REC
 
-__all__ = ["Runtime", "init_accumulators", "run_chunk", "run_chunk_sweeps",
-           "run_chunk_pairs"]
+__all__ = ["Runtime", "SpaceRuntime", "init_accumulators", "run_chunk",
+           "run_chunk_sweeps", "run_chunk_space", "run_chunk_pairs"]
 
 
 @dataclass
@@ -61,13 +62,25 @@ class Runtime:
     coup: torch.Tensor  # f32 [n_disorder, n_spins, n_neighbors] forward couplings
     coup_bwd: torch.Tensor  # f32 [n_disorder, n_spins, n_neighbors]: J[i - off_d, d]
     colours: torch.Tensor  # uint8 [n_spins] the lattice's colouring
+    # the row bands on a space mesh (the couplings then live in the bands
+    # only: jgrids, coup and coup_bwd are None)
+    space: SpaceRuntime | None = None
 
     @classmethod
-    def build(cls, lattice, couplings_nd, temps, n_replicas, device):
-        """couplings_nd: f32 ``[n_disorder, n_spins, n_neighbors]`` (numpy)."""
-        coup = torch.as_tensor(np.asarray(couplings_nd, np.float32), device=device)
+    def build(cls, lattice, couplings_nd, temps, n_replicas, device, space=None):
+        """couplings_nd: f32 ``[n_disorder, n_spins, n_neighbors]`` (numpy);
+        ``space``: the bands' :class:`SpaceRuntime` on a space mesh."""
         temps_np = np.asarray(temps, dtype=np.float32)
         t = torch.as_tensor(temps_np, device=device)
+        colours = torch.as_tensor(lattice.colors.astype(np.uint8), device=device)
+        if space is not None:
+            return cls(lattice=lattice, n_replicas=int(n_replicas),
+                       n_temps=len(temps_np), n_disorder=int(couplings_nd.shape[0]),
+                       device=device, temps_np=temps_np, temps=t,
+                       slot_temps=t.repeat(int(n_replicas)).contiguous(),
+                       jgrids=None, coup=None, coup_bwd=None, colours=colours,
+                       space=space)
+        coup = torch.as_tensor(np.asarray(couplings_nd, np.float32), device=device)
         coup_bwd = torch.stack(
             [neighbour_values(coup[..., k], lattice.shape, -off)
              for k, off in enumerate(lattice.offsets)], dim=-1)
@@ -84,7 +97,7 @@ class Runtime:
                     if lattice.hypercubic else None),
             coup=coup.contiguous(),
             coup_bwd=coup_bwd.contiguous(),
-            colours=torch.as_tensor(lattice.colors.astype(np.uint8), device=device),
+            colours=colours,
         )
 
     @property
@@ -106,6 +119,45 @@ class Runtime:
     @property
     def cold_slot(self):
         return hot_cold_slots(self.temps_np)[1]
+
+
+@dataclass
+class SpaceRuntime:
+    """The row bands of a lattice on a ``space`` mesh: the band geometry,
+    each band's device and its window constants (``halo.band_couplings``;
+    the colour table at the window sites), and the number of the last CC
+    round (``cc_band.banded_labels``: round numbers grow over a run)."""
+
+    geometry: BandGeometry
+    devices: list
+    coup_fwd: list  # f32 [n_disorder, n_window, n_neighbors] per band
+    coup_bwd: list
+    colours: list  # uint8 [n_window] per band
+    cc_rounds: int = 0
+
+    @classmethod
+    def build(cls, lattice, couplings_nd, devices):
+        geom = BandGeometry(lattice, len(devices))
+        coup = np.asarray(couplings_nd, np.float32)
+        coup_bwd = halo.backward_couplings(coup, lattice)
+        fwd, bwd, col = [], [], []
+        for band, dev in zip(geom.bands, devices):
+            f, b = halo.band_couplings(coup, band, dev, coup_bwd)
+            fwd.append(f)
+            bwd.append(b)
+            col.append(torch.as_tensor(lattice.colors[band.window_sites()].astype(np.uint8),
+                                       device=dev))
+        return cls(geom, list(devices), fwd, bwd, col)
+
+    @property
+    def bands(self):
+        return self.geometry.bands
+
+    def windows(self, spins):
+        """The bands' spin windows ``[d, S, n_window]`` of spins ``[d, S,
+        n_spins]``, on their devices."""
+        return [spins[..., torch.from_numpy(b.window_sites()).to(spins.device)]
+                .to(dev).contiguous() for b, dev in zip(self.bands, self.devices)]
 
 
 def init_accumulators(rt: Runtime, cfg: SimConfig) -> dict:
@@ -232,9 +284,13 @@ def _fold_pairs(rt: Runtime, state: dict, acc: dict, qs, ql, s_begin: int,
 def run_chunk(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
               s_begin: int, n: int) -> None:
     """Run sweeps ``s_begin .. s_begin + n - 1`` of a sample() call,
-    updating ``state`` and ``acc`` in place: the replica path with two
-    replicas or more, the mega path for one replica on a square lattice
-    without a cluster phase, else the per-sweep path."""
+    updating ``state`` and ``acc`` in place: the row bands' path on a space
+    mesh, the replica path with two replicas or more, the mega path for one
+    replica on a square lattice without a cluster phase, else the per-sweep
+    path."""
+    if rt.space is not None:
+        run_chunk_space(rt, cfg, state, acc, s_begin, n)
+        return
     if megapair.supports_megapair(rt.lattice, rt.n_replicas):
         run_chunk_pairs(rt, cfg, state, acc, s_begin, n)
         return
@@ -440,6 +496,143 @@ def run_chunk_sweeps(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
         do_pt = pt_on and (s_begin + t) % cfg.pt_interval == 0
         parity = mega.pt_step(
             *parts, e[:, t], m[:, t], sid, *pt_state, rt.temps,
+            None if not do_pt else (
+                draws[t] if pt_full else (draws[0][t], draws[1][t])),
+            sys_temps, do_pt=do_pt, pt_full=pt_full, parity=parity,
+            hot_slot=rt.hot_slot, cold_slot=rt.cold_slot, n_spins=n_sp)
+    state["counter"] = np.int32(counter + n)
+    state["pt_parity"] = np.int32(parity)
+    _fold_records(rt, state, acc, e, m, s_begin, n)
+
+
+def run_chunk_space(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
+                    s_begin: int, n: int) -> None:
+    """The per-sweep path over the row bands of a ``space`` mesh (the
+    reference's step body under its space axis, peapods_tpu/engine/
+    loop.py:2723-2952 with ``_sweep_phase_halo`` :1541, ``_halo3d`` :1646,
+    ``_halo_gen`` :1727 and the banded ``_cc_many`` :1463-1484), one replica,
+    bitwise :func:`run_chunk_sweeps` at any band count.  ``state["bands"]``
+    holds each band's spin window ``[d, S, n_window]`` on its device.  Per
+    sweep:
+
+    1. each colour pass: the halos copied from the neighbouring bands
+       (``halo.exchange``), then ``halo.sweep_halo`` on every band; on the
+       square and cubic lattices the last pass also measures, unless an FK
+       update will;
+    2. on FK sweeps: fresh halos, ``fk.fk_bonds_band`` on every band, the
+       banded labels (``cc_band.banded_labels``: rounds until no band's
+       labels fall, halo label rows copied between rounds), each Wolff
+       seed's label read from its band, and ``fk.fk_finish_band`` (which
+       measures on the square, triangular and cubic lattices); the
+       cluster-size histograms fold the bands' labels gathered on the first
+       device;
+    3. the measurement, unless made: fresh halos and ``halo.measure_halo``;
+    4. the bands' partials gathered, in band order, on the mesh's first
+       device for ``pt_step`` (the reference's psum over ``space``,
+       loop.py:1602), which folds them in that order, then the records.
+
+    Halos are copied only when a band's spins changed since the last copy.
+    """
+    sp = rt.space
+    bands, devs = sp.bands, sp.devices
+    c = cfg.cluster_update
+    wolff = c is not None and c.mode == "wolff"
+    pt_on = cfg.pt_interval is not None and rt.n_temps >= 2
+    pt_full = cfg.pt_schedule == "full_ladder"
+    lat = rt.lattice
+    staged = not fk.fused_lattice(lat)
+    d, n_sys, n_sp = rt.n_disorder, rt.n_systems, rt.n_spins
+    n_graphs = d * n_sys
+    dev = rt.device
+    counter = int(state["counter"])
+    base = state["base_keys"]
+    warmup = int(state["warmup"])
+
+    def on(x, k):
+        """``x`` on band ``k``'s device."""
+        return x if x is None or x.device == devs[k] else x.to(devs[k])
+
+    sweep_w = _upload(seeds.sweep_words(base, counter, n, seeds.PH_SWEEP), dev)
+    fk_t = ([t for t in range(n) if (s_begin + t) % c.interval == 0]
+            if c is not None else [])
+    fk_at = {t: k for k, t in enumerate(fk_t)}
+    ccs = None
+    if fk_t:
+        kb, kf = seeds.fk_keys(base, counter + np.asarray(fk_t), n_sys)
+        kb_w = _upload(kb.view(np.int32), dev)
+        scal = _upload(seeds.fk_scalars(kf, n_sp, wolff=wolff), dev)
+        ccs = [cc_band.BandCC.empty(n_graphs, b, dv) for b, dv in zip(bands, devs)]
+    draws = None
+    if pt_on:
+        dr = seeds.pt_draws_jnp(base, counter, n, n_sys - 1, pt_full=pt_full)
+        draws = (_upload(dr, dev) if pt_full
+                 else tuple(_upload(x, dev) for x in dr))
+
+    windows = state["bands"]
+    graphs = [w.view(n_graphs, -1) for w in windows]
+    sid = state["system_ids"].view(d, n_sys)
+    sys_temps = slot_temps_for_systems(sid, rt.temps)
+    pt_state = [state[k] for k in ("pt_edge_attempts", "pt_edge_acceptances",
+                                   "pt_round_trips", "pt_trip_state")]
+    e = torch.empty((d, n, n_sys), dtype=torch.float32, device=dev)
+    m = torch.empty((d, n, n_sys), dtype=torch.int32, device=dev)
+    parity = int(state["pt_parity"])
+    gibbs = cfg.sweep_mode == "gibbs"
+    collect = "fk_csd" in acc
+    fresh = False  # the halos hold the neighbours' current edge rows
+
+    def refresh():
+        nonlocal fresh
+        if not fresh:
+            halo.exchange(windows, bands)
+            fresh = True
+
+    for t in range(n):
+        k = fk_at.get(t)
+        fk_measures = k is not None and not staged
+        temps_b = [on(sys_temps, j) for j in range(len(bands))]
+        words_b = [on(sweep_w[t], j) for j in range(len(bands))]
+        parts = None
+        for colour in range(lat.n_colors):
+            refresh()
+            measure = (colour == lat.n_colors - 1 and lat.hypercubic
+                       and not fk_measures)
+            out = [halo.sweep_halo(windows[j], sp.coup_fwd[j], sp.coup_bwd[j],
+                                   sp.colours[j], temps_b[j], words_b[j], band, colour,
+                                   gibbs=gibbs, measure=measure)
+                   for j, band in enumerate(bands)]
+            fresh = False
+            if measure:
+                parts = out
+        if k is not None:
+            refresh()
+            for j, band in enumerate(bands):
+                fk.fk_bonds_band(graphs[j], sp.coup_fwd[j], temps_b[j].view(-1),
+                                 on(kb_w[k], j), ccs[j], band)
+            sp.cc_rounds = cc_band.banded_labels(ccs, bands, sp.cc_rounds)
+            seed_lab = (fk.wolff_seed_labels(ccs, bands, scal[k][:, 2]) if wolff
+                        else None)
+            out = [fk.fk_finish_band(graphs[j], ccs[j], sp.coup_fwd[j], on(scal[k], j),
+                                     on(seed_lab, j), band, wolff=wolff,
+                                     measure=fk_measures)
+                   for j, band in enumerate(bands)]
+            fresh = False
+            if fk_measures:
+                parts = [(ep.view(d, n_sys, -1), mp.view(d, n_sys, -1))
+                         for ep, mp in out]
+            if collect and s_begin + t >= warmup:
+                labels = torch.cat([cb.labels[:, b.interior].to(dev)
+                                    for cb, b in zip(ccs, bands)], -1)
+                _fold_fk_graphs(rt, acc, labels, None, sid)
+        if parts is None:
+            refresh()
+            parts = [halo.measure_halo(windows[j], sp.coup_fwd[j], band)
+                     for j, band in enumerate(bands)]
+        e_part = torch.cat([p[0].to(dev) for p in parts], -1)
+        m_part = torch.cat([p[1].to(dev) for p in parts], -1)
+        do_pt = pt_on and (s_begin + t) % cfg.pt_interval == 0
+        parity = mega.pt_step(
+            e_part, m_part, e[:, t], m[:, t], sid, *pt_state, rt.temps,
             None if not do_pt else (
                 draws[t] if pt_full else (draws[0][t], draws[1][t])),
             sys_temps, do_pt=do_pt, pt_full=pt_full, parity=parity,

@@ -351,16 +351,43 @@ def event_scalars(kind: str, wolff: bool, tkeys, n_spins: int):
     return scal, probes
 
 
-def initial_spins(base_keys, n_systems: int, n_spins: int) -> np.ndarray:
+def _threefry2x32_torch(k0: int, k1: int, x0, x1):
+    """:func:`threefry2x32` with a scalar key on int64 tensors holding
+    uint32 values (on any torch device)."""
+    mask = 0xFFFFFFFF
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & mask
+    x1 = (x1 + ks[1]) & mask
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & mask
+            x1 = (((x1 << r) & mask) | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & mask
+        x1 = (x1 + (ks[(i + 2) % 3] + i + 1)) & mask
+    return x0, x1
+
+
+def initial_spins(base_keys, n_systems: int, n_spins: int, device=None):
     """int8 ``[d, n_systems, n_spins]`` initial spins, bitwise
     ``where(bernoulli(fold_in(key, 0x5EED), 0.5, shape), 1, -1)``
-    (peapods_tpu/engine/simulation.py:179-187).
+    (peapods_tpu/engine/simulation.py:179-187): numpy, or a torch tensor
+    computed on ``device`` when one is given (the draw of a lattice of
+    millions of sites takes seconds in numpy).
 
     With partitionable threefry, element ``i`` draws
     ``bits = y0 ^ y1`` of ``threefry(key, (0, i))``; the float
     ``(bits >> 9) * 2**-23`` lies below 1/2 iff the top bit is clear.
     """
     keys = fold_in(np.asarray(base_keys, np.uint32), INIT_DOMAIN)  # [d, 2]
+    if device is not None:
+        import torch
+
+        idx = torch.arange(n_systems * n_spins, dtype=torch.int64, device=device)
+        rows = []
+        for k0, k1 in keys.astype(np.int64).tolist():
+            y0, y1 = _threefry2x32_torch(k0, k1, torch.zeros_like(idx), idx)
+            rows.append(torch.where(((y0 ^ y1) >> 31) == 0, 1, -1).to(torch.int8))
+        return torch.stack(rows).reshape(len(keys), n_systems, n_spins)
     idx = np.arange(n_systems * n_spins, dtype=np.uint32)
     y0, y1 = threefry2x32(
         keys[:, 0, None], keys[:, 1, None], np.uint32(0), idx[None, :]

@@ -3,7 +3,7 @@
 Counterpart of ``peapods_tpu/engine/simulation.py`` (:75-436) for the slice
 the port runs today, Metropolis or Gibbs sweeps with optional parallel
 tempering (both schedules), every sweep measured, on lattices with even
-extents, on three paths:
+extents, on four paths:
 
 * one replica on a 2D square lattice: the mega path, or the per-sweep path
   with an FK cluster phase: SW or Wolff updates (with or without cluster
@@ -19,16 +19,23 @@ extents, on three paths:
   the overlap moves (Houdayer(N), Joerg, CMR; Wolff or SW; in round
   robin), with or without their cluster statistics, or observed (SW:
   the graph observations of each move kind, winding on the canonical 2D
-  square; the spins untouched).
+  square; the spins untouched);
+* one replica on a ``space`` mesh (:func:`~peapods_tpu_torch.parallel.mesh.
+  make_mesh` with the axis ``("space",)``; the mesh may name one card for
+  every band): the per-sweep path over the lattice's row bands, on every
+  lattice, with the same sweeps, PT and FK updates, bitwise the unsharded
+  per-sweep path.
 
 The device is explicit (``device="cuda"`` by default); a CUDA device runs
 the hand-written kernels, ``device="cpu"`` their plain torch versions, and
 nothing ever falls back from one to the other.
 
 ``state`` has the reference's keys: ``spins`` int8 ``[d, n_systems,
-n_spins]`` stored by system on the device, ``system_ids`` int32 ``[d, R,
-T]``, the PT counters, and on the host ``base_keys`` (uint32 ``[d, 2]``
-threefry key data), ``counter``, ``warmup`` and ``pt_parity``.
+n_spins]`` stored by system on the device (on a space mesh ``bands``
+instead: each band's window ``[d, n_systems, n_window]`` on its device),
+``system_ids`` int32 ``[d, R, T]``, the PT counters, and on the host
+``base_keys`` (uint32 ``[d, 2]`` threefry key data), ``counter``,
+``warmup`` and ``pt_parity``.
 """
 
 from __future__ import annotations
@@ -40,8 +47,10 @@ import threading
 import numpy as np
 import torch
 
+from ..ops.halo import gather_band_spins
 from ..ops.lattice import Lattice
 from ..ops.tempering import init_trip_state
+from ..parallel.mesh import Mesh, auto_mesh
 from . import seeds as seedlib
 from .config import (
     ClusterUpdate,
@@ -55,7 +64,7 @@ from .config import (
     parse_pt_schedule,
     parse_sweep_mode,
 )
-from .loop import Runtime, init_accumulators, run_chunk
+from .loop import Runtime, SpaceRuntime, init_accumulators, run_chunk
 from .results import finalize
 
 __all__ = ["IsingSimulation", "resolve_device"]
@@ -118,8 +127,13 @@ class IsingSimulation:
         mesh="auto",
         device="cuda",
     ):
-        if mesh not in ("auto", None):
-            not_ported("a device mesh", "9")
+        if isinstance(mesh, str) and mesh == "auto":
+            mesh = auto_mesh(None)
+        if mesh is not None and not isinstance(mesh, Mesh):
+            not_ported(f"a device mesh of type {type(mesh).__name__}", "9")
+        if mesh is not None and mesh.axis_names != ("space",):
+            not_ported(f"a mesh with the axes {list(mesh.axis_names)} (only "
+                       "('space',) runs)", "9")
         n_replicas = int(n_replicas) if n_replicas is not None else 1
         lattice = Lattice(lattice_shape, neighbor_offsets)
         if n_replicas < 1:
@@ -128,6 +142,16 @@ class IsingSimulation:
             not_ported("replicas on a lattice other than square or cubic", "7a")
         self.lattice = lattice
         self.device = resolve_device(device)
+        self.mesh = mesh
+        band_devices = None
+        if mesh is not None:
+            if any(x.type != self.device.type for x in mesh.devices):
+                raise ValueError(f"device={device!r} does not name the mesh's "
+                                 f"devices {[str(x) for x in mesh.devices]}")
+            band_devices = [resolve_device(x) for x in mesh.devices]
+            self.device = band_devices[0]
+            if n_replicas > 1:
+                not_ported("replicas on a space mesh", "9")
 
         couplings = np.asarray(couplings, dtype=np.float32)
         expected_single = tuple(lattice.shape) + (lattice.n_neighbors,)
@@ -152,7 +176,10 @@ class IsingSimulation:
         self.n_realizations = int(n_realizations)
         self.constructor_seed = int(seed) if seed is not None else 42
         self.default_chunk = int(default_chunk)
-        self.rt = Runtime.build(lattice, coup_nd, temps, n_replicas, self.device)
+        space = (None if band_devices is None
+                 else SpaceRuntime.build(lattice, coup_nd, band_devices))
+        self.rt = Runtime.build(lattice, coup_nd, temps, n_replicas, self.device,
+                                space=space)
         self.state = None
         self._init_state(self.constructor_seed)
 
@@ -168,13 +195,14 @@ class IsingSimulation:
             [seedlib.key_from_u64(seedlib.realization_seed(base_seed, r))
              for r in range(d)]
         )
-        spins = seedlib.initial_spins(base_keys, rt.n_systems, rt.n_spins)
+        spins = seedlib.initial_spins(base_keys, rt.n_systems, rt.n_spins, device=dev)
         sid0 = torch.arange(rt.n_systems, dtype=torch.int32, device=dev)
         sid0 = sid0.reshape(1, rt.n_replicas, rt.n_temps).repeat(d, 1, 1)
         n_edges = max(rt.n_temps - 1, 0)
         i32 = dict(dtype=torch.int32, device=dev)
         self.state = {
-            "spins": torch.from_numpy(spins).to(dev),
+            **({"spins": spins} if rt.space is None
+               else {"bands": rt.space.windows(spins)}),
             "system_ids": sid0,
             "base_keys": base_keys,
             "counter": np.int32(0),
@@ -192,9 +220,16 @@ class IsingSimulation:
     def load_checkpoint(self, path) -> None:
         not_ported("load_checkpoint", "4c")
 
+    def all_spins(self):
+        """int8 ``[d, n_systems, n_spins]`` spins by system on the device (on
+        a space mesh gathered from the bands onto the first band's)."""
+        if self.rt.space is None:
+            return self.state["spins"]
+        return gather_band_spins(self.state["bands"], self.rt.space.bands)
+
     def get_spins(self) -> np.ndarray:
         """Flat int8 spins of the first realization (src/lib.rs:620-622)."""
-        return self.state["spins"][0].cpu().numpy().reshape(-1)
+        return self.all_spins()[0].cpu().numpy().reshape(-1)
 
     def reset(self, seed=None) -> None:
         """Deterministic re-initialization (src/lib.rs:624-633)."""
@@ -279,6 +314,15 @@ class IsingSimulation:
             not_ported("replicas with an FK cluster phase", "7a")
         if h is not None and h.snapshot_interval is not None:
             not_ported("snapshot_interval", "7a")
+        if self.rt.space is not None:
+            if snapshot_interval is not None:
+                not_ported("snapshot_interval on a space mesh", "9")
+            if cluster_update is not None and cluster_update.action == "observe":
+                not_ported('cluster_action="observe" on a space mesh', "9")
+            if (cluster_update is not None
+                    and self.rt.space.geometry.halo > 1):
+                not_ported("an FK phase on offsets that reach more than one row "
+                           "on a space mesh", "9")
 
         state = self.state
         state["warmup"] = np.int32(warmup_sweeps)

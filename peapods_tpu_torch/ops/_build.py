@@ -63,6 +63,14 @@ _SIGNATURES = {
     "peapods_nb_blocks": [_I],
     "peapods_sweep_nb": [_P] * 7 + [_I] * 4 + [_P],
     "peapods_measure_nb": [_P] * 5 + [_I] * 2 + [_P],
+    "peapods_halo_blocks": [_P, _I],
+    "peapods_sweep_halo": [_P] * 9 + [_I] * 5 + [_P],
+    "peapods_measure_halo": [_P] * 5 + [_I] * 2 + [_P],
+    "peapods_cc_band_link": [_P] * 3 + [_I] + [_P],
+    "peapods_cc_band_min": [_P] * 4 + [_I] + [_P],
+    "peapods_cc_band_write": [_P] * 5 + [_I] * 2 + [_P],
+    "peapods_fk_bonds_band": [_P] * 9 + [_I] * 2 + [_P],
+    "peapods_fk_finish_band": [_P] * 9 + [_I] * 3 + [_P],
 }
 
 _lib = None

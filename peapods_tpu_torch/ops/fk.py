@@ -28,6 +28,15 @@ is the staged path of the lattices given by an offset table (BCC, FCC,
 custom offsets): ``fk_bonds_nb`` draws the bonds along each offset, the
 connected-components kernels of :mod:`.cc` label them, and ``fk_finish``
 flips from those labels (nothing, when observing); the caller measures.
+
+The band forms serve a lattice split into row bands over a ``space`` mesh
+(:class:`~.lattice.Band`: each band's rows and its halos, the window):
+:func:`fk_bonds_band` draws the bonds of every window site whose forward
+neighbour lies in the window, with the unsharded kernels' uniforms, and
+starts the band's :class:`~.cc_band.BandCC` buffers; after
+``cc_band.banded_labels``, :func:`fk_finish_band` flips the band's sites
+from the global labels (:func:`wolff_seed_labels` reads each Wolff seed's
+label from the band that holds it) and optionally measures them.
 """
 
 from __future__ import annotations
@@ -35,6 +44,7 @@ from __future__ import annotations
 import torch
 
 from . import _build, cc, rng
+from .cc_band import INT32_MAX, window_reach
 from .cluster import (
     cluster_coin_flip_mask,
     connected_components,
@@ -60,10 +70,16 @@ __all__ = [
     "fk_finish_plain",
     "fk_energy_mag",
     "launch_link",
+    "fk_bonds_band",
+    "fk_bonds_band_plain",
+    "fk_finish_band",
+    "fk_finish_band_plain",
+    "wolff_seed_labels",
 ]
 
 # kernel launches since the last reset, by kernel name
-LAUNCHES = {"fk_bonds": 0, "fk_bonds_nb": 0, "fk_link": 0, "fk_finish": 0}
+LAUNCHES = {"fk_bonds": 0, "fk_bonds_nb": 0, "fk_link": 0, "fk_finish": 0,
+            "fk_bonds_band": 0, "fk_finish_band": 0}
 
 
 def _ptr(t):
@@ -333,3 +349,177 @@ def fk_staged(spins, j_fwd, temps, scalars, kb_words, lattice, *, wolff,
             *_build.dims3(lattice.shape), 0, int(wolff), 0, stream), "fk_finish")
         LAUNCHES["fk_finish"] += 1
     return labels, state_masks(state, lattice.n_neighbors) if with_masks else None
+
+
+# ------------------------------------------------------------- band forms
+
+
+def _graph_couplings(j_win, n_graphs):
+    """``[G, n_window, n_nb]`` couplings of every graph from ``[d,
+    n_window, n_nb]``."""
+    d = j_win.shape[0]
+    return j_win[:, None].expand(d, n_graphs // d, *j_win.shape[1:]).reshape(
+        n_graphs, *j_win.shape[1:])
+
+
+def _window_shift(x, off, band):
+    """``x [G, n_window]`` at each window site's neighbour at ``off``
+    (periodic along the window's rows too: the caller masks the sites whose
+    neighbour leaves the window)."""
+    g = x.reshape(x.shape[0], *band.window_shape)
+    nd = len(band.window_shape)
+    return torch.roll(g, tuple(-int(o) for o in off), tuple(range(1, nd + 1))).reshape(
+        x.shape)
+
+
+def fk_bonds_band_plain(spins, j_win, temps, kb_words, cc_buf, band, uniforms=None):
+    """Plain version of ``fk_bonds_band``: the FK bonds of every window site
+    of a band whose forward neighbour lies in the window (bit ``k`` of the
+    state byte; with three directions or fewer, bit ``3 + k`` when the two
+    spins differ), drawn with the unsharded kernels' uniforms, and the
+    started CC buffers (parent = window index, label and cmin = global
+    index).
+
+    Args:
+        spins: int8 ``[G, n_window]`` the graphs' windows (halos current).
+        j_win: f32 ``[d, n_window, n_nb]`` forward couplings of the window
+            sites; graph ``b`` reads realization ``b // (G // d)``.
+        temps: f32 ``[G]``.
+        kb_words: int32 ``[G, 2]`` (unused when ``uniforms`` is given).
+        cc_buf: the band's :class:`~.cc_band.BandCC`.
+        uniforms: optional f32 ``[G, n_window, n_nb]``.
+    """
+    g, nw = spins.shape
+    nb = band.lattice.n_neighbors
+    dev = spins.device
+    sites = torch.from_numpy(band.window_sites()).to(dev)
+    u = uniforms if uniforms is not None else rng.bond_uniforms_at(kb_words, sites, nb)
+    reach = torch.from_numpy(window_reach(band)).to(dev)
+    s = spins.to(torch.float32)
+    j = _graph_couplings(j_win, g)
+    t = temps[:, None]
+    st = torch.zeros((g, nw), dtype=torch.uint8, device=dev)
+    for k, off in enumerate(band.lattice.offsets):
+        sf = _window_shift(s, off, band)
+        inter = s * sf * j[..., k]
+        p = 1.0 - torch.exp(-2.0 * inter / t)
+        bond = (inter > 0.0) & (u[..., k] < p) & reach[:, k]
+        st |= bond.to(torch.uint8) << k
+        if nb <= 3:
+            st |= ((s != sf) & reach[:, k]).to(torch.uint8) << (3 + k)
+    cc_buf.state.copy_(st)
+    cc_buf.parent.copy_(torch.arange(nw, dtype=torch.int32, device=dev))
+    cc_buf.labels.copy_(sites.to(torch.int32))
+    cc_buf.cmin.copy_(sites.to(torch.int32))
+
+
+def fk_bonds_band(spins, j_win, temps, kb_words, cc_buf, band, *, uniforms=None):
+    """The FK bonds of a band (see :func:`fk_bonds_band_plain`): the plain
+    version for CPU tensors, the ``fk_bonds_band`` kernel for CUDA
+    tensors."""
+    if _build.device_kind(spins) == "cpu":
+        fk_bonds_band_plain(spins, j_win, temps, kb_words, cc_buf, band, uniforms)
+        return
+    if uniforms is not None:
+        raise ValueError("the FK kernels draw their own uniforms")
+    dev = spins.device
+    g, d = _check_band(spins, j_win, band)
+    _build.expect(temps, "temps", torch.float32, (g,), dev)
+    _build.expect(kb_words, "kb_words", torch.int32, (g, 2), dev)
+    _build.check(_build.library().peapods_fk_bonds_band(
+        spins.data_ptr(), j_win.data_ptr(), temps.data_ptr(), kb_words.data_ptr(),
+        cc_buf.state.data_ptr(), cc_buf.parent.data_ptr(), cc_buf.labels.data_ptr(),
+        cc_buf.cmin.data_ptr(), band.words.ctypes.data, g, g // d,
+        torch.cuda.current_stream(dev).cuda_stream), "fk_bonds_band")
+    LAUNCHES["fk_bonds_band"] += 1
+
+
+def _check_band(spins, j_win, band):
+    dev = spins.device
+    g = spins.shape[0]
+    d, nb = j_win.shape[0], band.lattice.n_neighbors
+    if d == 0 or g % d:
+        raise ValueError(f"{g} graphs do not split over {d} realizations")
+    _build.expect(spins, "spins", torch.int8, (g, band.n_window), dev)
+    _build.expect(j_win, "j_win", torch.float32, (d, band.n_window, nb), dev)
+    if not 1 <= g <= 65535:
+        raise ValueError("1 to 65535 graphs per band")
+    return g, d
+
+
+def wolff_seed_labels(ccs, bands, seeds):
+    """int32 ``[G]``: the label of each graph's Wolff seed (global site
+    ``seeds [G]``), read from the band that holds it, on the seeds'
+    device."""
+    dev = seeds.device
+    seeds = seeds.to(torch.int64)
+    out = None
+    for cc_buf, band in zip(ccs, bands):
+        lo = band.row0 * band.block
+        mine = (seeds >= lo) & (seeds < lo + band.n_band)
+        at = (seeds - lo).clamp(0, band.n_band - 1) + band.halo * band.block
+        lab = cc_buf.labels.gather(1, at.to(cc_buf.labels.device)[:, None])[:, 0].to(dev)
+        lab = torch.where(mine, lab, INT32_MAX)
+        out = lab if out is None else torch.minimum(out, lab)
+    return out.to(torch.int32)
+
+
+def fk_finish_band_plain(spins, cc_buf, j_win, scalars, seed_labels, band, *, wolff,
+                         measure):
+    """Plain version of ``fk_finish_band``: flip the band's sites in place
+    from the global labels (SW coin on the label, or Wolff: the label is
+    the seed's) and, when ``measure``, return the post-update partials
+    ``(e_part f32 [G, 1], m_part int32 [G, 1])`` of the band's sites, the
+    forward neighbours across its edge flipped from the halo labels."""
+    g = spins.shape[0]
+    labels = cc_buf.labels
+    if wolff:
+        flip = labels == seed_labels[:, None]
+    else:
+        flip = cluster_coin_flip_mask(labels, scalars[:, :2])
+    new = torch.where(flip, -spins, spins)
+    inner = band.interior
+    spins[:, inner] = new[:, inner]
+    if not measure:
+        return None, None
+    sf = new.to(torch.float32)
+    j = _graph_couplings(j_win, g)[:, inner]
+    e = torch.zeros_like(sf[:, inner])
+    for k, off in enumerate(band.lattice.offsets):
+        e = e + sf[:, inner] * _window_shift(sf, off, band)[:, inner] * j[..., k]
+    return (e.sum(-1, keepdim=True),
+            new[:, inner].to(torch.int32).sum(-1, keepdim=True, dtype=torch.int32))
+
+
+def fk_finish_band(spins, cc_buf, j_win, scalars, seed_labels, band, *, wolff,
+                   measure):
+    """The flips of a band (see :func:`fk_finish_band_plain`): the plain
+    version for CPU tensors, the ``fk_finish_band`` kernel for CUDA
+    tensors, whose partials have one entry per block of 256 sites of the
+    band.  Measuring needs the "s differs" bits: three bond directions or
+    fewer."""
+    if _build.device_kind(spins) == "cpu":
+        return fk_finish_band_plain(spins, cc_buf, j_win, scalars, seed_labels, band,
+                                    wolff=wolff, measure=measure)
+    dev = spins.device
+    g, d = _check_band(spins, j_win, band)
+    _build.expect(scalars, "scalars", torch.int32, (g, 3), dev)
+    if wolff:
+        _build.expect(seed_labels, "seed_labels", torch.int32, (g,), dev)
+    if measure and band.lattice.n_neighbors > 3:
+        raise ValueError("the band measurement reads at most three bond directions")
+    lib = _build.library()
+    parts = (None, None)
+    if measure:
+        nb = lib.peapods_fk_blocks(band.n_band)
+        parts = (torch.empty((g, nb), dtype=torch.float32, device=dev),
+                 torch.empty((g, nb), dtype=torch.int32, device=dev))
+    _build.check(lib.peapods_fk_finish_band(
+        spins.data_ptr(), cc_buf.state.data_ptr(), cc_buf.labels.data_ptr(),
+        j_win.data_ptr(), scalars.data_ptr(),
+        seed_labels.data_ptr() if wolff else None,
+        *(None if t is None else t.data_ptr() for t in parts), band.words.ctypes.data,
+        g, g // d, int(wolff), torch.cuda.current_stream(dev).cuda_stream),
+        "fk_finish_band")
+    LAUNCHES["fk_finish_band"] += 1
+    return parts

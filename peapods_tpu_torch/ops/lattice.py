@@ -15,17 +15,25 @@ path's site schedule is the colouring: the checkerboard ``sum(coords) & 1``
 on hypercubic lattices (all extents are even), otherwise the greedy pass in
 site order, each site taking the smallest colour unused by its forward and
 backward neighbours of smaller index, self-bonds ignored.
+
+:class:`BandGeometry` splits a lattice into contiguous row bands along its
+leading axis (the ``space`` mesh axis): each band holds its rows plus ``m =
+max |offset[0]|`` halo rows on each side, the window that its kernels
+read.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
+from functools import cached_property
 
 import numpy as np
 import torch
 
 from ..engine.config import not_ported
 
-__all__ = ["GEOMETRY_OFFSETS", "MAX_OFFSETS", "Lattice", "hypercubic_offsets",
-           "neighbour_values"]
+__all__ = ["GEOMETRY_OFFSETS", "MAX_OFFSETS", "Lattice", "Band", "BandGeometry",
+           "hypercubic_offsets", "neighbour_values"]
 
 # named geometries (peapods_tpu/ops/lattice.py:26-31)
 GEOMETRY_OFFSETS = {
@@ -105,16 +113,8 @@ class Lattice:
         self.hypercubic = offsets == hypercubic_offsets(n_dims)
         # 2D with the triangular offsets: the FK kernels' third direction
         self.triangular = offsets == _TRI
-        strides = np.cumprod((1,) + shape[:0:-1])[::-1]
-        coords = (np.arange(self.n_spins)[:, None] // strides) % shape
-
-        def table(sign):
-            c = (coords[:, None, :] + sign * self.offsets[None]) % shape
-            return (c * strides).sum(-1).astype(np.int32)
-
-        self.fwd, self.bwd = table(1), table(-1)
         if self.hypercubic:
-            self.colors = (coords.sum(1) % 2).astype(np.int32)
+            self.colors = (np.indices(shape).sum(0) % 2).reshape(-1).astype(np.int32)
         else:
             self.colors = _greedy_colours(self.fwd, self.bwd)
         self.n_colors = int(self.colors.max()) + 1
@@ -125,6 +125,25 @@ class Lattice:
         self.kernel_geometry = np.concatenate(
             [shape + (1,) * (3 - n_dims), [self.n_neighbors], off.reshape(-1)]
         ).astype(np.int32)
+
+    def _table(self, sign):
+        shape = self.shape
+        strides = np.cumprod((1,) + shape[:0:-1])[::-1]
+        coords = (np.arange(self.n_spins)[:, None] // strides) % shape
+        c = (coords[:, None, :] + sign * self.offsets[None]) % shape
+        return (c * strides).sum(-1).astype(np.int32)
+
+    @cached_property
+    def fwd(self) -> np.ndarray:
+        """int32 ``[n_spins, n_neighbors]``: the neighbour at ``+offset``
+        (built at first use: a lattice of millions of sites needs it only
+        on the greedy-coloured lattices)."""
+        return self._table(1)
+
+    @cached_property
+    def bwd(self) -> np.ndarray:
+        """int32 ``[n_spins, n_neighbors]``: the neighbour at ``-offset``."""
+        return self._table(-1)
 
     @property
     def square(self) -> bool:
@@ -142,3 +161,83 @@ class Lattice:
     def color_masks(self) -> np.ndarray:
         """``bool [n_colors, n_spins]`` one mask per colour."""
         return self.colors[None, :] == np.arange(self.n_colors)[:, None]
+
+
+@dataclass(frozen=True)
+class Band:
+    """Row band ``k`` of a lattice: interior rows ``row0 .. row0 + hl - 1``
+    held in a window of ``rows = hl + 2 halo`` rows whose first and last
+    ``halo`` rows are copies of the neighbouring bands' edge rows (global
+    rows ``row0 - halo ..`` and ``row0 + hl ..``, periodic).  A window
+    index is ``window_row * block + rest``; ``words`` are the kernels'
+    geometry words (``csrc/band.cuh``)."""
+
+    lattice: Lattice
+    k: int
+    row0: int
+    hl: int
+    halo: int
+    block: int
+    words: np.ndarray
+
+    @property
+    def rows(self) -> int:
+        return self.hl + 2 * self.halo
+
+    @property
+    def n_window(self) -> int:
+        return self.rows * self.block
+
+    @property
+    def n_band(self) -> int:
+        return self.hl * self.block
+
+    @property
+    def interior(self) -> slice:
+        """The band's own sites in a window's last axis."""
+        return slice(self.halo * self.block, (self.halo + self.hl) * self.block)
+
+    @property
+    def window_shape(self) -> tuple:
+        return (self.rows,) + tuple(self.lattice.shape[1:])
+
+    def window_sites(self):
+        """int64 ``[n_window]`` global site index of every window site."""
+        L0 = self.lattice.shape[0]
+        rows = (self.row0 - self.halo + np.arange(self.rows)) % L0
+        return (rows[:, None] * self.block + np.arange(self.block)).reshape(-1)
+
+    def band_sites(self):
+        """int64 ``[n_band]`` global site index of every interior site."""
+        return self.row0 * self.block + np.arange(self.n_band)
+
+
+class BandGeometry:
+    """A lattice split into ``n_shards`` row bands of ``hl = L0 /
+    n_shards`` rows along its leading axis, with halos of ``m = max
+    |offset[0]|`` rows (the reference's ``halo_gen_meta``,
+    peapods_tpu/ops/pallas_sweep_diag.py:629-652: 1 on the square, cubic,
+    triangular, BCC and FCC lattices)."""
+
+    def __init__(self, lattice: Lattice, n_shards: int):
+        L0 = lattice.shape[0]
+        n_shards = int(n_shards)
+        if n_shards < 1 or L0 % n_shards:
+            raise ValueError(f"lattice extent {L0} does not divide over the "
+                             f"{n_shards}-way 'space' mesh axis")
+        hl = L0 // n_shards
+        halo = int(np.abs(lattice.offsets[:, 0]).max())
+        if hl < halo:
+            raise ValueError(f"bands of {hl} rows are thinner than the halo of "
+                             f"{halo} rows that the offsets reach")
+        self.lattice = lattice
+        self.n_shards = n_shards
+        self.hl = hl
+        self.halo = halo
+        self.block = lattice.n_spins // L0
+        self.bands = []
+        for k in range(n_shards):
+            words = lattice.kernel_geometry.copy()
+            words[0] = hl + 2 * halo
+            words = np.concatenate([words, [L0, k * hl, halo, hl]]).astype(np.int32)
+            self.bands.append(Band(lattice, k, k * hl, hl, halo, self.block, words))

@@ -19,6 +19,10 @@ moves draw their bond uniforms from Philox keyed by each graph's (task's)
 two key words, counter ``(dir, site // 4, 0, 0)`` (:func:`bond_uniforms`,
 ``csrc/fk.cu``, ``csrc/overlap.cu``).
 
+A row band of a lattice split over a ``space`` mesh draws the same bits
+for its sites as the whole lattice does (:func:`slot_uniforms_at`,
+:func:`bond_uniforms_at`: the draws at a list of global indices).
+
 The CUDA kernels (``csrc/mega.cuh``) compute the same function in uint32;
 this version works in int64 with 32-bit masks, and splits every 32x32-bit
 product into 16-bit halves so that no intermediate leaves int64.
@@ -31,7 +35,8 @@ import math
 import torch
 
 __all__ = ["MASK32", "mul_lo32", "mulhilo32", "philox4x32", "uniform24",
-           "colour_uniforms", "site_uniforms", "bond_uniforms", "blocked"]
+           "colour_uniforms", "site_uniforms", "bond_uniforms", "slot_uniforms_at",
+           "bond_uniforms_at", "blocked"]
 
 MASK32 = 0xFFFFFFFF
 _M0 = 0xD2511F53
@@ -139,6 +144,40 @@ def bond_uniforms(words, n_spins: int, n_dirs: int = 2, first: int = 0):
     out = philox4x32(k0, k1, d, grp, zero, zero)  # 4 x [..., n_dirs, groups]
     u = uniform24(torch.stack(out, dim=-1)).flatten(-2)[..., :n_spins]
     return u.transpose(-1, -2)
+
+
+def _words_at(k, heads, idx):
+    """Word ``idx % 4`` of Philox keyed by int64 key words ``k [..., 2]``,
+    counter ``(*heads, idx // 4, ...)`` zero-padded to four words; every
+    head and ``idx`` broadcast against ``k[..., 0]``."""
+    zero = torch.zeros((), device=k.device, dtype=torch.int64)
+    counter = [*heads, idx // 4] + [zero] * (3 - len(heads))
+    out = torch.stack(philox4x32(k[..., 0], k[..., 1], *counter), dim=-1)
+    return out.gather(-1, (idx % 4).expand(out.shape[:-1])[..., None])[..., 0]
+
+
+def slot_uniforms_at(words, n_slots: int, colour: int, idx):
+    """The uniforms of :func:`colour_uniforms` (``idx`` counts the active
+    colour's sites) or :func:`site_uniforms` (``idx`` counts sites) at the
+    global indices ``idx`` (int64 ``[n]``): f32 ``[..., n_slots, n]`` from
+    key words ``[..., 2]``.  Index ``i`` takes word ``i % 4`` of Philox
+    counter ``(slot, colour, i // 4, 0)``."""
+    dev = words.device
+    k = (words.to(torch.int64) & MASK32)[..., None, None, :]
+    slot = torch.arange(n_slots, device=dev, dtype=torch.int64)[:, None]
+    idx = idx.to(device=dev, dtype=torch.int64)
+    return uniform24(_words_at(k, (slot, torch.full_like(slot, colour)), idx))
+
+
+def bond_uniforms_at(words, idx, n_dirs: int):
+    """The uniforms of :func:`bond_uniforms` (``first`` 0) at the global
+    sites ``idx`` (int64 ``[n]``): f32 ``[..., n, n_dirs]`` from key words
+    ``[..., 2]``."""
+    dev = words.device
+    k = (words.to(torch.int64) & MASK32)[..., None, None, :]
+    d = torch.arange(n_dirs, device=dev, dtype=torch.int64)[:, None]
+    idx = idx.to(device=dev, dtype=torch.int64)
+    return uniform24(_words_at(k, (d,), idx)).transpose(-1, -2)
 
 
 def blocked(draw, per_item: int):

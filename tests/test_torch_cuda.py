@@ -1061,3 +1061,248 @@ def test_overlap_stats_sample_on_card_match_the_cpu(cuda, shape, n_rep, kw):
         for key in ("spins", "system_ids", "pt_edge_acceptances"):
             assert torch.equal(a._sim.state[key], plain._sim.state[key]), key
         np.testing.assert_array_equal(ra["energies"], rp["energies"])
+
+
+# ------------------------------------------------- the space-sharded path
+
+
+SPACE = [("square", (128, 32), None, 2),  # bands of 2048 sites: block-aligned
+         ("square-odd", (24, 14), None, 3),  # band starts split Philox groups
+         ("tri", (32, 32), "tri", 4), ("cubic", (16, 8, 8), None, 4),
+         ("bcc", (8, 8, 8), "bcc", 2), ("fcc", (16, 8, 8), "fcc", 4),
+         ("nnn", (16, 16), [[1, 0], [0, 1], [1, 1], [1, -1]], 4)]
+
+
+def _space_inputs(dev, seed, shape, geometry, ns, d, n_sys, couplings="pm"):
+    from peapods_tpu_torch.ops import halo
+    from peapods_tpu_torch.ops.lattice import GEOMETRY_OFFSETS, BandGeometry, Lattice
+
+    offsets = GEOMETRY_OFFSETS[geometry] if isinstance(geometry, str) else geometry
+    lat = Lattice(shape, offsets)
+    geom = BandGeometry(lat, ns)
+    rng = np.random.default_rng(seed)
+    if couplings == "pm":
+        coup = rng.choice([-1.0, 1.0], size=(d, lat.n_spins, lat.n_neighbors))
+    else:
+        coup = rng.standard_normal((d, lat.n_spins, lat.n_neighbors))
+    coup = coup.astype(np.float32)
+    spins = torch.from_numpy(rng.choice([-1, 1], size=(d, n_sys, lat.n_spins))
+                             .astype(np.int8)).to(dev)
+    bands = []
+    for b in geom.bands:
+        f, bw = halo.band_couplings(coup, b, dev)
+        col = torch.from_numpy(lat.colors[b.window_sites()].astype(np.uint8)).to(dev)
+        bands.append((b, f, bw, col))
+    up = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return lat, geom, coup, bands, spins, dict(
+        sys_temps=up(rng.uniform(1.5, 6.0, (d, n_sys)).astype(np.float32)),
+        words=up(rng.integers(-2**31, 2**31, (d, 2)).astype(np.int32)))
+
+
+def _windows_of(spins, geom):
+    return [spins[..., torch.from_numpy(b.window_sites()).to(spins.device)].contiguous()
+            for b in geom.bands]
+
+
+@pytest.mark.parametrize("gibbs", [False, True], ids=["metropolis", "gibbs"])
+@pytest.mark.parametrize("name,shape,geometry,ns", SPACE, ids=[s[0] for s in SPACE])
+def test_sweep_halo_and_measure_halo_kernels_match_plain(cuda, name, shape, geometry,
+                                                         ns, gibbs):
+    """Three sweeps in bands, each colour a launch per band with the halos
+    copied between: the kernel's windows bitwise the plain version's and
+    the unsharded kernel's spins; (e, m) partial sums bitwise (+-1
+    couplings)."""
+    from peapods_tpu_torch.ops import energy, halo
+
+    lat, geom, coup, bands, spins, x = _space_inputs(cuda, 5 + ns, shape, geometry, ns,
+                                                     2, 3)
+    wk, wp = _windows_of(spins, geom), _windows_of(spins, geom)
+    whole = spins.clone()
+    cf = torch.from_numpy(coup).to(cuda)
+    cb = torch.stack([cf[:, torch.from_numpy(lat.bwd[:, k]).to(cuda), k]
+                      for k in range(lat.n_neighbors)], -1).contiguous()
+    colours = torch.from_numpy(lat.colors.astype(np.uint8)).to(cuda)
+    jg = sweep.pack_coupling_grids(cf, shape).contiguous() if lat.square else None
+    for k in halo.LAUNCHES:
+        halo.LAUNCHES[k] = 0
+    for step in range(3):
+        for colour in range(lat.n_colors):
+            last = colour == lat.n_colors - 1 and lat.hypercubic
+            for w in (wk, wp):
+                halo.exchange(w, geom.bands)
+            pk = [halo.sweep_halo(w, f, bw, col, x["sys_temps"], x["words"], b, colour,
+                                  gibbs=gibbs, measure=last)
+                  for w, (b, f, bw, col) in zip(wk, bands)]
+            pp = [halo.sweep_halo_plain(w, f, bw, col, x["sys_temps"], x["words"], b,
+                                        colour, gibbs=gibbs, measure=last)
+                  for w, (b, f, bw, col) in zip(wp, bands)]
+        if lat.square:
+            parts = sweep.sweep_2d(whole.view(2, 3, *shape), jg, x["sys_temps"],
+                                   x["words"], gibbs=gibbs, measure=True)
+        else:
+            sweep.sweep_nb(whole, cf, cb, colours, x["sys_temps"], x["words"], lat,
+                           gibbs=gibbs)
+        for w in (wk, wp):
+            halo.exchange(w, geom.bands)
+        mk = [halo.measure_halo(w, f, b) for w, (b, f, _, _) in zip(wk, bands)]
+        mp = [halo.measure_halo_plain(w, f, b) for w, (b, f, _, _) in zip(wp, bands)]
+        torch.cuda.synchronize()
+        for a, b in zip(wk, wp):
+            assert torch.equal(a, b), step
+        assert torch.equal(halo.gather_band_spins(wk, geom.bands), whole), step
+        for k_parts, p_parts in ([(pk, pp)] if lat.hypercubic else []) + [(mk, mp)]:
+            for i in (0, 1):
+                assert torch.equal(torch.cat([p[i] for p in k_parts], -1).sum(-1),
+                                   torch.cat([p[i] for p in p_parts], -1).sum(-1)), step
+        if name == "square":  # block-aligned bands: the unsharded kernel's partials
+            for i in (0, 1):
+                assert torch.equal(torch.cat([p[i] for p in pk], -1), parts[i])
+        x["words"] = x["words"] * 3 + 1
+    assert halo.LAUNCHES["sweep_halo"] == 3 * lat.n_colors * ns
+    assert halo.LAUNCHES["measure_halo"] == 3 * ns
+
+
+def test_sweep_halo_gaussian_partials_are_the_unsharded_partials(cuda):
+    """Gaussian couplings, bands of 2048 sites on the square lattice and of
+    1024 on the cubic one: the bands' partials, concatenated, are the
+    unsharded kernels' partials bit for bit."""
+    from peapods_tpu_torch.ops import energy, halo
+
+    for shape, ns in (((128, 32), 2), ((16, 8, 16), 2)):
+        lat, geom, coup, bands, spins, x = _space_inputs(cuda, 3, shape, None, ns, 2, 3,
+                                                         couplings="gauss")
+        wk = _windows_of(spins, geom)
+        whole = spins.clone()
+        cf = torch.from_numpy(coup).to(cuda)
+        for colour in (0, 1):
+            halo.exchange(wk, geom.bands)
+            pk = [halo.sweep_halo(w, f, bw, col, x["sys_temps"], x["words"], b, colour,
+                                  gibbs=False, measure=colour == 1 and lat.square)
+                  for w, (b, f, bw, col) in zip(wk, bands)]
+        if lat.square:
+            want = sweep.sweep_2d(whole.view(2, 3, *shape),
+                                  sweep.pack_coupling_grids(cf, shape).contiguous(),
+                                  x["sys_temps"], x["words"], gibbs=False, measure=True)
+        else:
+            cb = torch.stack([cf[:, torch.from_numpy(lat.bwd[:, k]).to(cuda), k]
+                              for k in range(3)], -1).contiguous()
+            sweep.sweep_nb(whole, cf, cb, torch.from_numpy(lat.colors.astype(np.uint8))
+                           .to(cuda), x["sys_temps"], x["words"], lat, gibbs=False)
+            want = energy.measure_nb(whole, cf, lat)
+            halo.exchange(wk, geom.bands)
+            pk = [halo.measure_halo(w, f, b) for w, (b, f, _, _) in zip(wk, bands)]
+        torch.cuda.synchronize()
+        assert torch.equal(halo.gather_band_spins(wk, geom.bands), whole)
+        for i in (0, 1):
+            assert torch.equal(torch.cat([p[i] for p in pk], -1), want[i]), shape
+
+
+@pytest.mark.parametrize("name,shape,geometry,ns", SPACE, ids=[s[0] for s in SPACE])
+def test_band_cc_kernels_match_plain(cuda, name, shape, geometry, ns):
+    """The banded labels of random bond masks at three densities (all bonds
+    on: spanning clusters) bitwise the unsharded plain labels."""
+    from peapods_tpu_torch.ops import cc_band
+    from peapods_tpu_torch.ops.cluster import connected_components
+
+    lat, geom, *_ = _space_inputs(cuda, 7, shape, geometry, ns, 1, 1)
+    rng = np.random.default_rng(13)
+    masks = torch.from_numpy(np.stack(
+        [rng.random((lat.n_spins, lat.n_neighbors)) < p for p in (0.3, 0.55, 1.01)]))
+    want = connected_components(masks, shape, lat.offsets)
+    for k in cc_band.LAUNCHES:
+        cc_band.LAUNCHES[k] = 0
+    got = cc_band.band_cc_labels(masks.to(cuda), geom)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert cc_band.LAUNCHES["cc_band_link"] == ns
+    # no cc_band_min in the first round
+    assert cc_band.LAUNCHES["cc_band_min"] + ns == cc_band.LAUNCHES["cc_band_write"] >= 2 * ns
+
+
+@pytest.mark.parametrize("wolff", [False, True], ids=["sw", "wolff"])
+@pytest.mark.parametrize("name,shape,geometry,ns", SPACE, ids=[s[0] for s in SPACE])
+def test_fk_band_kernels_match_plain(cuda, name, shape, geometry, ns, wolff):
+    """fk_bonds_band, the banded labels and fk_finish_band near T_c: state
+    bytes, labels, spins and the measured partials bitwise the plain
+    versions' on the same CUDA tensors (+-1 couplings)."""
+    from peapods_tpu_torch.engine import seeds
+    from peapods_tpu_torch.ops import cc_band, halo
+
+    lat, geom, coup, bands, spins, _ = _space_inputs(cuda, 11 + ns, shape, geometry, ns,
+                                                     2, 2)
+    g = 4
+    rng = np.random.default_rng(17)
+    kf = rng.integers(0, 2**32, (g, 2), dtype=np.uint64).astype(np.uint32)
+    scal = torch.from_numpy(seeds.fk_scalars(kf, lat.n_spins, wolff=wolff)).to(cuda)
+    kb = torch.from_numpy(rng.integers(-2**31, 2**31, (g, 2)).astype(np.int32)).to(cuda)
+    temps = torch.full((g,), 2.3 * lat.n_neighbors / 2, device=cuda)
+    measure = fk.fused_lattice(lat)
+    out = {}
+    for kind in ("kernel", "plain"):
+        wins = [w.view(g, -1) for w in _windows_of(spins, geom)]
+        ccs = [cc_band.BandCC.empty(g, b, cuda) for b in geom.bands]
+        for w, cb, (b, f, _, _) in zip(wins, ccs, bands):
+            (fk.fk_bonds_band if kind == "kernel" else fk.fk_bonds_band_plain)(
+                w, f, temps, kb, cb, b)
+        (cc_band.banded_labels if kind == "kernel" else cc_band.banded_labels_plain)(
+            ccs, geom.bands, 0)
+        seed_lab = fk.wolff_seed_labels(ccs, geom.bands, scal[:, 2]) if wolff else None
+        fin = fk.fk_finish_band if kind == "kernel" else fk.fk_finish_band_plain
+        parts = [fin(w, cb, f, scal, seed_lab, b, wolff=wolff, measure=measure)
+                 for w, cb, (b, f, _, _) in zip(wins, ccs, bands)]
+        torch.cuda.synchronize()
+        out[kind] = (torch.cat([cb.state for cb in ccs], -1),
+                     torch.cat([cb.labels[:, b.interior] for cb, b in zip(ccs, geom.bands)], -1),
+                     halo.gather_band_spins(wins, geom.bands),
+                     [torch.cat([p[i] for p in parts], -1).sum(-1) for i in (0, 1)]
+                     if measure else [])
+    (sk, lk, xk, pk), (sp, lp, xp, pp) = out["kernel"], out["plain"]
+    assert torch.equal(sk, sp)
+    assert torch.equal(lk, lp)
+    assert torch.equal(xk, xp)
+    for a, b in zip(pk, pp):
+        assert torch.equal(a, b)
+    assert not torch.equal(xk, spins.view(g, -1))
+
+
+@pytest.mark.parametrize("shape,geometry,kw", [
+    ((64, 64), None, dict(pt_interval=1, cluster_update_interval=1, cluster_mode="sw",
+                          collect_cluster_stats=True)),
+    ((16, 16, 16), None, dict(pt_interval=1, cluster_update_interval=2,
+                              cluster_mode="wolff")),
+    ((32, 32), "tri", dict(pt_interval=1)),
+    ((16, 8, 8), "fcc", dict(pt_interval=1, cluster_update_interval=1,
+                             cluster_mode="sw", collect_cluster_stats=True)),
+], ids=["square-sw", "cubic-wolff", "tri-metropolis", "fcc-sw-staged"])
+def test_space_sample_on_card_is_bitwise_the_unsharded_run(cuda, shape, geometry, kw):
+    """A space mesh of four bands on the one card: bitwise the unsharded
+    per-sweep run on the card (``run_chunk_sweeps``), spins, records and
+    fk_csd."""
+    from peapods_tpu_torch.engine import loop, simulation
+    from peapods_tpu_torch.ops.lattice import GEOMETRY_OFFSETS
+    from peapods_tpu_torch.parallel.mesh import make_mesh
+
+    offsets = GEOMETRY_OFFSETS[geometry] if geometry else None
+    nb = len(offsets) if offsets else len(shape)
+    temps = np.geomspace(2.0, 3.0, 4).astype(np.float32) * (1 + (nb > 2))
+
+    def run(mesh):
+        sim = simulation.IsingSimulation(list(shape), np.ones(shape + (nb,), np.float32),
+                                         temps, 1, offsets, 3, mesh=mesh)
+        old = simulation.run_chunk
+        if mesh is None:
+            simulation.run_chunk = loop.run_chunk_sweeps
+        try:
+            r = sim.sample(24, "metropolis", warmup_ratio=0.25, **kw)
+        finally:
+            simulation.run_chunk = old
+        return sim, r
+
+    a, ra = run(make_mesh(4, ("space",), devices=[cuda] * 4))
+    b, rb = run(None)
+    assert torch.equal(a.all_spins(), b.state["spins"])
+    assert torch.equal(a.state["system_ids"], b.state["system_ids"])
+    for key in ("energies", "mags", "mags2"):
+        np.testing.assert_array_equal(ra[key], rb[key])
+    if "fk_csd" in rb:
+        np.testing.assert_array_equal(ra["fk_csd"], rb["fk_csd"])
