@@ -65,11 +65,12 @@ through the user's entry points:
   each run's rate); the flagship shape, a narrow 64^2 square, 128^3 cubic
   with SW + PT, 256^2 triangular with PT and 32^3 FCC with SW + PT + cluster
   statistics, each in 4 bands bitwise its unsharded per-sweep run; every
-  band kernel (``sweep_halo``, ``measure_halo``, ``fk_bonds_band``,
-  ``cc_band_link`` / ``cc_band_min`` / ``cc_band_write``, ``fk_finish_band``)
+  band kernel (``sweep_halo``, ``measure_halo``, ``fk_bonds_band``, the
+  banded labelling's ``cc_band_link`` / ``_border`` / ``_flatten`` /
+  ``_export`` / ``_merge`` / ``_resolve`` / ``_write``, ``fk_finish_band``)
   held against its plain version on those runs' states; and the band
-  kernels' device times, the halo copies' and the busy share over main-path
-  windows.
+  kernels' device times (the labelling's per FK phase beside its bound),
+  the halo copies' and the busy share over main-path windows.
 
 Each path's launch counts are zeroed just before its main run and read just
 after.  Every phase prints lines; any failure raises and the script exits
@@ -3020,13 +3021,27 @@ def add_houdn_records(kernels, pk, main, wolff, obs, houdn, us, card):
                                 launches_per_sweep=pk["config4"][k]["launches"]
                                 / SG_CONFIGS["config4"]["sweeps"])
         kernels.append(kr)
+    def move_bounds(run):
+        """Row 19's bounds per launch on a run's shapes, as config 5's (an
+        observe form writes each task's labels where an update reads and
+        writes its spins: the same bytes)."""
+        rt = run["model"]._sim.rt
+        n, nd = rt.n_spins, rt.lattice.n_dims
+        b = rt.n_disorder * rt.n_temps * rt.n_pairs
+        cb = 4 * nd * rt.n_disorder * n
+        return {"ov_bonds": bound(2 * b * n + cb + 5 * b * n, 12 * nd * b * n),
+                "fk_link": bound(5 * b * n, 0),
+                "ov_mid": bound(5 * b * n + cb + 5 * b * n, 12 * nd * b * n),
+                "ov_finish": bound(9 * b * n, 4 * b * n)}
+
     by_name = {kr["name"]: kr for kr in kernels}
     for k in ("ov_bonds", "fk_link", "ov_mid", "ov_finish"):
         for run, name in ((main, "main"), (obs["observe3d"], "observe3d"),
                           (obs["observe2d"], "observe2d")):
             if k in run["launches"]:
-                by_name[k][f"at_{'cmr_houd4' if name == 'main' else name}"] = at(
-                    run, name, k)
+                by_name[k][f"at_{'cmr_houd4' if name == 'main' else name}"] = dict(
+                    at(run, name, k), **dict(zip(("bound_ms", "bound_by"),
+                                                 move_bounds(run)[k])))
     w = by_name["winding"]
     w["at_observe2d"] = dict(houdn["winding_observe2d"],
                              **at(obs["observe2d"], "observe2d", "winding"))
@@ -3074,8 +3089,10 @@ SPACE_RUNS = {
                   sweeps=128, kw=dict(SPACE_SW, collect_cluster_stats=True),
                   replaces=ROW13),
 }
-SPACE_KERNELS = ("sweep_halo", "measure_halo", "fk_bonds_band", "cc_band_link",
-                 "cc_band_min", "cc_band_write", "fk_finish_band", "pt_step")
+CC_BAND_KERNELS = ("cc_band_link", "cc_band_border", "cc_band_flatten", "cc_band_export",
+                   "cc_band_merge", "cc_band_resolve", "cc_band_write")
+SPACE_KERNELS = ("sweep_halo", "measure_halo", "fk_bonds_band", *CC_BAND_KERNELS,
+                 "fk_finish_band", "pt_step")
 
 
 def reset_space_counts():
@@ -3144,9 +3161,10 @@ def space_checksum(sim, result) -> str:
 
 def space_want(sim, c, n, bands):
     """The launches a space run of ``n`` sweeps must count: every colour pass
-    of every band; on FK sweeps the band forms and a CC round per band;
-    measure_halo where neither the last pass (square, cubic) nor an FK
-    update (square, triangular, cubic) measures."""
+    of every band; on FK sweeps the band forms and the banded labelling's
+    fixed sequence (five launches a band, the merge's two); measure_halo
+    where neither the last pass (square, cubic) nor an FK update (square,
+    triangular, cubic) measures."""
     lat = sim.lattice
     k = c["kw"].get("cluster_update_interval")
     n_fk = len(range(0, n, k)) if k else 0
@@ -3155,11 +3173,10 @@ def space_want(sim, c, n, bands):
     want = {"sweep_halo": n * lat.n_colors * bands, "pt_step": n,
             "measure_halo": n_meas * bands}
     if n_fk:
-        rounds = sim.rt.space.cc_rounds
-        # the first round of each FK phase has no cc_band_min
-        want.update(fk_bonds_band=n_fk * bands, cc_band_link=n_fk * bands,
-                    cc_band_min=(rounds - n_fk) * bands, cc_band_write=rounds * bands,
-                    fk_finish_band=n_fk * bands)
+        want.update(dict.fromkeys(("fk_bonds_band", "cc_band_link", "cc_band_border",
+                                   "cc_band_flatten", "cc_band_export", "cc_band_write",
+                                   "fk_finish_band"), n_fk * bands),
+                    cc_band_merge=n_fk, cc_band_resolve=n_fk)
     return {key: v for key, v in want.items() if v}
 
 
@@ -3194,9 +3211,9 @@ def space_run(name, c, dev, bands, card, n=None):
     label = ("unsharded per-sweep path" if bands is None
              else f"{bands} band{'s' if bands > 1 else ''} on one card")
     extra = ""
-    if bands is not None and "cc_band_link" in launches:
-        extra = (f", {launches['cc_band_write'] / launches['cc_band_link']:.2f} CC rounds "
-                 "an FK phase")
+    if bands is not None and "cc_band_merge" in launches:
+        extra = (f", {sum(launches[k] for k in CC_BAND_KERNELS) / launches['cc_band_merge']:g}"
+                 " banded-CC launches an FK phase")
     log("28 space" if name == "4096" else "29 space",
         f"{name} ({'x'.join(map(str, c['shape']))}"
         f"{' ' + c['offsets'] if c['offsets'] else ''} x {c['n_temps']} temps geomspace"
@@ -3235,12 +3252,13 @@ def space_profile(sim, kw, sweeps_s, n):
             else:
                 other += ev.self_device_time_total / n
     busy = sum(per_sweep.values()) + copies + other
+    cc_us = sum(per_sweep.get(k, 0.0) for k in CC_BAND_KERNELS)
     line = ("device us per sweep: " + ", ".join(f"{k} {v:.3f}" for k, v in per_sweep.items())
             + f", halo and gather copies {copies:.3f}, other device work {other:.3f}, sum "
             f"{busy:.3f} against {1e6 / sweeps_s:.3f} us of wall time per sweep: the "
             f"device is busy {busy * sweeps_s / 1e6:.3f} of it")
     return dict(per_launch=per_launch, per_sweep=counts, copies_us=copies, busy=busy,
-                line=line)
+                cc_us=cc_us, line=line)
 
 
 def band_pass_ties(band, win, f, bw, col, temps, words, colour, gibbs):
@@ -3257,9 +3275,15 @@ def band_pass_ties(band, win, f, bw, col, temps, words, colour, gibbs):
 def space_bounds(sim):
     """``(bound_ms, bound_by)`` per launch of each band kernel on band 0 of
     a space simulation (bytes: each input read once, each output written
-    once; f32 operations)."""
+    once; f32 operations; writes whose count depends on the data, such as
+    the roots a union-find hangs, are not counted), and ``"labelling"``:
+    the least a whole banded labelling could take, the state bytes in and
+    the labels out on every band."""
+    from peapods_tpu_torch.ops import cc_band
+
     sp, lat = sim.rt.space, sim.lattice
     b0 = sp.bands[0]
+    n_bands, e = len(sp.bands), cc_band.n_slots(b0)
     g = n_sys = sim.rt.n_disorder * sim.rt.n_systems
     nb, nc, nw, nbd = lat.n_neighbors, lat.n_colors, b0.n_window, b0.n_band
     active = n_sys * nbd // nc
@@ -3273,16 +3297,71 @@ def space_bounds(sim):
                             + active, (4 * nb + 20) * active),
         "measure_halo": bound(n_sys * nw + 4 * nb * nbd + 8 * n_sys * n_blk,
                               3 * nb * n_sys * nbd),
-        # spins and couplings in; state byte, parent, label and cmin out
-        "fk_bonds_band": bound(g * nw + 4 * nb * nw + 12 * g + 13 * g * nw,
-                               8 * nb * g * nw),
-        "cc_band_link": bound(9 * g * nw, 0),
-        "cc_band_min": bound(12 * g * (nw - nbd), 0),
-        "cc_band_write": bound(8 * g * nw + 8 * g * nbd, 0),
+        # spins and couplings in; the state byte out
+        "fk_bonds_band": bound(g * nw + 4 * nb * nw + 12 * g + g * nw, 8 * nb * g * nw),
+        # the state bytes in, the parents out (and cmin at the tile roots)
+        "cc_band_link": bound(5 * g * nw, 0),
+        # the state bytes in (and the parents of the roots it hangs)
+        "cc_band_border": bound(g * nw, 0),
+        # the parents in (and the changed parents, the roots' slots out)
+        "cc_band_flatten": bound(4 * g * nw, 0),
+        # each slot's parent in, its node and value out
+        "cc_band_export": bound(12 * g * e, 0),
+        # every slot's merge parent in (and the roots' values)
+        "cc_band_merge": bound(4 * g * e * n_bands, 0),
+        # every slot's merge parent in, its set minimum out
+        "cc_band_resolve": bound(8 * g * e * n_bands, 0),
+        # the parents in, the labels out
+        "cc_band_write": bound(8 * g * nw, 0),
+        "labelling": bound(5 * g * nw * n_bands, 0),
         "fk_finish_band": bound(2 * g * nbd + g * nbd + 4 * g * nw + 4 * nb * nbd + 12 * g
                                 + (8 * g * ((nbd + 255) // 256) if measure else 0),
                                 30 * g * nbd),
     }
+
+
+def band_cc_stages(name, kern, plain, bands, dev):
+    """The banded labelling of the same state bytes, ``kern``'s by the
+    kernels stage by stage and ``plain``'s by ``banded_labels_plain``: each
+    kernel bitwise its plain version on the kernels' own inputs (the link's
+    three: parents and the roots' slots; the export: nodes and values; the
+    merge and resolve: the set minima; the write: every window site's
+    label, halos included), and the two labellings equal.  Returns the
+    merge's inputs with their set minima."""
+    from peapods_tpu_torch.ops import cc_band
+
+    def same(what, a, b):
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what} on {name} differs from its plain version")
+
+    cc_band.banded_labels_plain(plain, bands)
+    for x, b in zip(kern, bands):
+        cc_band.link(x, b)
+    mb = cc_band.BandMerge.empty(kern[0].state.shape[0], bands, dev)
+    for x, b in zip(kern, bands):
+        cc_band.export(x, b, mb)
+    inputs = cc_band.BandMerge(mb.rep.clone(), mb.val.clone(), torch.empty_like(mb.labels))
+    cc_band.merge(mb)
+    for x, b in zip(kern, bands):
+        cc_band.write(x, b, mb.labels[b.k])
+    torch.cuda.synchronize()
+    for x, y, b in zip(kern, plain, bands):
+        same("cc_band_link / _border / _flatten (parents)", x.parent, y.parent)
+        roots = x.parent.long()
+        same("cc_band_flatten (the roots' slots)", x.cmin.gather(1, roots),
+             y.cmin.gather(1, roots))
+        rep, val = (torch.empty_like(inputs.rep[0]) for _ in range(2))
+        cc_band.export_plain(x, b, rep, val)
+        same("cc_band_export (nodes)", inputs.rep[b.k], rep)
+        same("cc_band_export (values)", inputs.val[b.k], val)
+    cc_band.merge_plain(inputs)
+    same("cc_band_merge / _resolve", mb.labels, inputs.labels)
+    for x, y, b in zip(kern, plain, bands):
+        z = cc_band.BandCC(x.state, x.parent, torch.empty_like(x.labels), x.cmin)
+        cc_band.write_plain(z, b, inputs.labels[b.k])
+        same("cc_band_write", x.labels, z.labels)
+        same("the banded labels", x.labels, y.labels)
+    return inputs
 
 
 def check_space_kernels(name, sim, dev, rng):
@@ -3358,16 +3437,11 @@ def check_space_kernels(name, sim, dev, rng):
         bonds = fk.fk_bonds_band if kind == "kernel" else fk.fk_bonds_band_plain
         for j, b in enumerate(bands):
             bonds(ws[j], sp.coup_fwd[j], temps.view(-1), kb, ccs[kind][j], b)
-        (cc_band.banded_labels if kind == "kernel" else cc_band.banded_labels_plain)(
-            ccs[kind], bands, 0)
     torch.cuda.synchronize()
-    for what, field in (("fk_bonds_band", "state"), ("cc_band", "labels")):
-        # every window site's state byte (the halo rows' bonds too), the
-        # band sites' labels
-        a, b = ([getattr(cb, field) if field == "state" else cb.labels[:, band.interior]
-                 for cb, band in zip(ccs[kind], bands)] for kind in ("kernel", "plain"))
-        if not all(torch.equal(x, y) for x, y in zip(a, b)):
-            raise AssertionError(f"{what} on {name} differs from its plain version")
+    # every window site's state byte (the halo rows' bonds too)
+    if not all(torch.equal(x.state, y.state) for x, y in zip(ccs["kernel"], ccs["plain"])):
+        raise AssertionError(f"fk_bonds_band on {name} differs from its plain version")
+    merged = band_cc_stages(name, ccs["kernel"], ccs["plain"], bands, dev)
     lk = torch.cat([cb.labels[:, b.interior] for cb, b in zip(ccs["kernel"], bands)], -1)
     n_comp = int(sum(int(torch.unique(lk[i]).numel()) for i in range(g)))
     del lk
@@ -3396,12 +3470,16 @@ def check_space_kernels(name, sim, dev, rng):
     log("27 kernel-vs-plain", f"{name}: sweep_halo ok ({len(bands)} bands, "
         f"{lat.n_colors} colours, Metropolis and Gibbs: {decisions} decisions, 0 "
         f"differ but {ties} ulp ties); measure_halo ok (bitwise); fk_bonds_band, the "
-        f"banded labels (cc_band_link / _min / _write) and fk_finish_band ok, SW and "
-        f"Wolff (state bytes, labels, spins{' and partials' if measure else ''} "
-        f"bitwise; {n_comp} components in {g} graphs)")
+        f"banded labels (each of cc_band_link / _border / _flatten, _export, _merge / "
+        f"_resolve, _write on its inputs, every window site's label) and "
+        f"fk_finish_band ok, SW and Wolff (state bytes, parents, slots, labels, "
+        f"spins{' and partials' if measure else ''} bitwise; {n_comp} components in {g} "
+        "graphs)")
     # plain times and bounds per launch on band 0 of this state (the
     # kernels' times come from the runs' profiled windows)
-    for k, (bms, by) in space_bounds(sim).items():
+    bounds = space_bounds(sim)
+    recs["labelling"] = dict(zip(("bound_ms", "bound_by"), bounds.pop("labelling")))
+    for k, (bms, by) in bounds.items():
         recs[k].update(bound_ms=bms, bound_by=by)
     b0, w0 = bands[0], wins[0]
     args0 = (sp.coup_fwd[0], sp.coup_bwd[0], sp.colours[0], temps, words, b0, 0)
@@ -3415,10 +3493,17 @@ def check_space_kernels(name, sim, dev, rng):
     tv = temps.view(-1)
     recs["fk_bonds_band"]["plain_ms"] = wall_ms(
         lambda: fk.fk_bonds_band_plain(g0, sp.coup_fwd[0], tv, kb, cb0, b0), 1)
-    recs["cc_band_link"]["plain_ms"] = wall_ms(lambda: cc_band.link_plain(cb0, b0), 1)
-    # the plain round does both halves in one
-    recs["cc_band_min"]["plain_ms"] = recs["cc_band_write"]["plain_ms"] = wall_ms(
-        lambda: cc_band.band_round_plain(cb0, b0, 1), 1)
+    # the plain link does the work of three kernels, the plain merge of two
+    t = wall_ms(lambda: cc_band.link_plain(cb0, b0), 1)
+    for k in ("cc_band_link", "cc_band_border", "cc_band_flatten"):
+        recs[k]["plain_ms"] = t
+    rep, val = (torch.empty_like(merged.rep[0]) for _ in range(2))
+    recs["cc_band_export"]["plain_ms"] = wall_ms(
+        lambda: cc_band.export_plain(cb0, b0, rep, val), 1)
+    recs["cc_band_merge"]["plain_ms"] = recs["cc_band_resolve"]["plain_ms"] = wall_ms(
+        lambda: cc_band.merge_plain(merged), 1)
+    recs["cc_band_write"]["plain_ms"] = wall_ms(
+        lambda: cc_band.write_plain(cb0, b0, merged.labels[0]), 1)
     sl = torch.zeros(g, dtype=torch.int32, device=dev)
     w_f = w_a.view(g, -1).clone()
     recs["fk_finish_band"]["plain_ms"] = wall_ms(lambda: fk.fk_finish_band_plain(
@@ -3427,15 +3512,26 @@ def check_space_kernels(name, sim, dev, rng):
     return recs
 
 
-def log_space_times(name, prof, check, card):
+def log_space_times(name, prof, check, card, kw):
     """The profile line of a 4-band run: each band kernel's device time per
-    launch and launches per sweep against its bound and plain time."""
+    launch and launches per sweep against its bound and plain time; on FK
+    runs the banded labelling's device time per FK phase against its bound
+    (kept in ``check["labelling"]["ms"]``)."""
     per = "; ".join(
         f"{k} {prof['per_launch'][k] / 1e3:.5f} ms x {prof['per_sweep'][k]:g} a sweep"
-        + (f" (bound {check[k]['bound_ms']:.5f} ms, plain {check[k]['plain_ms']:.5f} ms)"
-           if k in check else "")
+        + (f" (bound {check[k]['bound_ms']:.7f} ms"
+           + (f", plain {check[k]['plain_ms']:.5f} ms" if "plain_ms" in check[k] else "")
+           + ")" if k in check else "")
         for k in prof["per_launch"])
     log("30 times", f"{name} in 4 bands: {prof['line']}; per launch: {per} on {card}")
+    interval = kw.get("cluster_update_interval")
+    if interval and prof["cc_us"]:
+        lab = check["labelling"]
+        lab["ms"] = prof["cc_us"] / 1e3 * interval
+        log("28 space" if name == "4096" else "30 times",
+            f"{name} in 4 bands: the banded labelling {lab['ms']:.5f} ms of device time an "
+            f"FK phase against its bound {lab['bound_ms']:.5f} ms ({lab['bound_by']}: the "
+            f"state bytes in, the labels out) on {card}")
 
 
 def space_paths(dev, card, mega_sweeps_s):
@@ -3445,6 +3541,8 @@ def space_paths(dev, card, mega_sweeps_s):
     per-sweep run, every band kernel against its plain version on each
     4-band run's state (the 4096^2 one's too), and the band kernels'
     device times over main-path windows."""
+    from peapods_tpu_torch.ops import _build
+
     t_all = time.perf_counter()
     rng = np.random.default_rng(2030)
     big, checks = {}, {}
@@ -3453,7 +3551,14 @@ def space_paths(dev, card, mega_sweeps_s):
         if label == "4 bands":
             run["profile"] = space_profile(run["sim"], SPACE_BIG["kw"], run["sweeps_s"], 8)
             checks["4096"] = check_space_kernels("4096", run["sim"], dev, rng)
-            log_space_times("4096", run["profile"], checks["4096"], card)
+            # pt_step folds the fk_finish_band partials of every band
+            blocks = len(run["sim"].rt.space.bands) * _build.library().peapods_fk_blocks(
+                run["sim"].rt.space.bands[0].n_band)
+            checks["4096"]["pt_step"] = dict(zip(("bound_ms", "bound_by"), pt_step_bound(
+                1, SPACE_BIG["n_temps"], blocks, True, False)), partials=blocks)
+            log_space_times("4096", run["profile"], checks["4096"], card, SPACE_BIG["kw"])
+            log("28 space", "ptxas, the banded labelling's kernels: "
+                + band_cc_resources(_build.build_info["log"]))
         run.pop("sim")
         big[label] = run
         torch.cuda.empty_cache()
@@ -3483,7 +3588,7 @@ def space_paths(dev, card, mega_sweeps_s):
         prof = space_profile(run["sim"], SPACE_RUNS[name]["kw"], run["sweeps_s"],
                              16 if name == "cubic128" else 32)
         run["profile"] = prof
-        log_space_times(name, prof, checks[name], card)
+        log_space_times(name, prof, checks[name], card, SPACE_RUNS[name]["kw"])
     log("30 times", f"phases 27-30 took {time.perf_counter() - t_all:.1f} s")
     return dict(big=big, runs=runs, plain=plain, checks=checks)
 
@@ -3496,12 +3601,10 @@ def add_space_records(kernels, sp):
     src = {"sweep_halo": HALO_SRC, "measure_halo": HALO_SRC,
            "fk_bonds_band": "peapods_tpu_torch/csrc/fk.cu",
            "fk_finish_band": "peapods_tpu_torch/csrc/fk.cu",
-           "cc_band_link": CC_BAND_SRC, "cc_band_min": CC_BAND_SRC,
-           "cc_band_write": CC_BAND_SRC}
+           **dict.fromkeys(CC_BAND_KERNELS, CC_BAND_SRC)}
     rep = {"sweep_halo": ROW5, "measure_halo": ROW13, "fk_bonds_band":
            "peapods_tpu/ops/pallas_event.py:621", "fk_finish_band":
-           "peapods_tpu/ops/pallas_event.py:621", "cc_band_link": ROW17,
-           "cc_band_min": ROW17, "cc_band_write": ROW17}
+           "peapods_tpu/ops/pallas_event.py:621", **dict.fromkeys(CC_BAND_KERNELS, ROW17)}
     big4 = sp["big"]["4 bands"]
     for k in src:
         main = "tri256" if k == "measure_halo" else "4096"
@@ -3522,6 +3625,17 @@ def add_space_records(kernels, sp):
             ms=main_run["profile"]["per_launch"][k] / 1e3, plain_ms=check["plain_ms"],
             bound_ms=check["bound_ms"], bound_by=check["bound_by"], library_ms=None,
             run=main, **at))
+    # pt_step at 4096^2 in 4 bands, on the flagship's pt_step record
+    pt = next(kr for kr in kernels if kr["name"] == "pt_step")
+    pt["at_space4096"] = dict(sp["checks"]["4096"]["pt_step"],
+                              ms=big4["profile"]["per_launch"]["pt_step"] / 1e3,
+                              launches=big4["launches"]["pt_step"])
+    # the whole banded labelling per FK phase, on the cc_band_link record
+    link = next(kr for kr in kernels if kr["name"] == "cc_band_link")
+    for name, chk in sp["checks"].items():
+        if "ms" in chk["labelling"]:
+            link[f"labelling_{name}"] = dict(fk_phase_ms=chk["labelling"]["ms"],
+                                             bound_ms=chk["labelling"]["bound_ms"])
     for name in ("narrow64", "cubic128", "tri256"):
         chk = sp["checks"][name]["sweep_halo"]
         run = sp["runs"][name]
@@ -3534,21 +3648,39 @@ def add_space_records(kernels, sp):
             run=name))
 
 
-def kernel_registers(text) -> str:
-    """``library: kernel registers, ...`` from the ``ptxas -v`` log of the
-    build: each entry function's registers under its kernel's name."""
-    out, fn = [], None
+def ptxas_entries(text):
+    """``(library, None, 0, 0)`` for each library the ``ptxas -v`` log of
+    the build names, then ``(None, kernel, registers, shared bytes)`` for
+    each of its entry functions."""
+    fn = None
     for ln in text.splitlines():
         if ln.endswith(".so:"):
-            out.append(("|" if out else "") + ln.rsplit("/", 1)[-1].split("_")[0] + ":")
+            yield ln.rsplit("/", 1)[-1].split("_")[0], None, 0, 0
         entry = re.search(r"Compiling entry function '([^']+)'", ln)
         if entry:
             fn = entry.group(1)
         used = re.search(r"Used (\d+) registers", ln)
         if used and fn:
-            out.append(f"{kernel_name(fn)} {used.group(1)}")
+            smem = re.search(r"(\d+) bytes smem", ln)
+            yield None, kernel_name(fn), int(used.group(1)), int(smem.group(1)) if smem else 0
             fn = None
+
+
+def kernel_registers(text) -> str:
+    """``library: kernel registers, ...`` from the ``ptxas -v`` log of the
+    build: each entry function's registers under its kernel's name."""
+    out = []
+    for lib, name, regs, _ in ptxas_entries(text):
+        out.append(("|" if out else "") + lib + ":" if name is None else f"{name} {regs}")
     return " ".join(out)
+
+
+def band_cc_resources(text) -> str:
+    """``name registers, shared bytes`` of each banded-CC kernel from the
+    ``ptxas -v`` log of the build."""
+    return "; ".join(f"{name} {regs} registers, {smem} B shared"
+                     for _, name, regs, smem in ptxas_entries(text)
+                     if name and name.startswith("cc_band_"))
 
 
 def kernel_name(mangled) -> str:

@@ -58,9 +58,8 @@
 //                   bonds into the band, each drawn with the unsharded
 //                   kernels' Philox counter (dir, global site / 4, 0, 0).
 //                   With three directions or fewer it also writes the
-//                   "s differs" bits.  It starts cc_band.cu's arrays:
-//                   parent[w] = w, label and cmin = the site's global
-//                   index.
+//                   "s differs" bits.  The state bytes are all that
+//                   cc_band.cu's labelling reads.
 //   fk_finish_band  the flips of the band's sites from the global labels
 //                   (cc_band.cu): the SW coin on the label, or Wolff's
 //                   label == the seed's label, which the engine reads from
@@ -254,9 +253,7 @@ fk_finish_kernel(int8_t* __restrict__ spins, const uint8_t* __restrict__ state,
 __global__ void __launch_bounds__(kThreads)
 fk_bonds_band_kernel(const int8_t* __restrict__ spins, const float* __restrict__ j_win,
                      const float* __restrict__ temps, const int32_t* __restrict__ kb,
-                     uint8_t* __restrict__ state, int32_t* __restrict__ parent,
-                     int32_t* __restrict__ labels, int32_t* __restrict__ cmin,
-                     const BandGeom geo, int n_systems) {
+                     uint8_t* __restrict__ state, const BandGeom geo, int n_systems) {
   const int b = blockIdx.y;
   const int nw = geo.w.L[0] * geo.block;
   const int nd = geo.w.n_nb;
@@ -295,9 +292,6 @@ fk_bonds_band_kernel(const int8_t* __restrict__ spins, const float* __restrict__
       if (nd <= kMaxDirs && si != sf) st |= 8u << dir;
     }
     state[base + w] = st;
-    parent[base + w] = w;
-    labels[base + w] = gid;
-    cmin[base + w] = gid;
   }
 }
 
@@ -418,18 +412,16 @@ int peapods_fk_finish(void* spins, const void* state, void* parent, void* labels
 
 // Band forms (band.cuh; geom: ops/lattice.Band.words).  spins int8
 // [n_graphs, n_window]; j_win f32 [n_graphs / n_systems, n_window, n_nb];
-// state uint8, parent / labels / cmin int32 [n_graphs, n_window].
+// state uint8 [n_graphs, n_window].
 int peapods_fk_bonds_band(const void* spins, const void* j_win, const void* temps,
-                          const void* kb, void* state, void* parent, void* labels,
-                          void* cmin, const int* geom, int n_graphs, int n_systems,
-                          void* stream) {
+                          const void* kb, void* state, const int* geom, int n_graphs,
+                          int n_systems, void* stream) {
   const BandGeom geo = make_band_geom(geom);
   fk_bonds_band_kernel<<<site_grid(geo.w.L[0] * geo.block, kSitesPerThread, n_graphs),
                          kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(spins), static_cast<const float*>(j_win),
       static_cast<const float*>(temps), static_cast<const int32_t*>(kb),
-      static_cast<uint8_t*>(state), static_cast<int32_t*>(parent),
-      static_cast<int32_t*>(labels), static_cast<int32_t*>(cmin), geo, n_systems);
+      static_cast<uint8_t*>(state), geo, n_systems);
   return static_cast<int>(cudaGetLastError());
 }
 

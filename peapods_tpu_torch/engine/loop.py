@@ -125,15 +125,13 @@ class Runtime:
 class SpaceRuntime:
     """The row bands of a lattice on a ``space`` mesh: the band geometry,
     each band's device and its window constants (``halo.band_couplings``;
-    the colour table at the window sites), and the number of the last CC
-    round (``cc_band.banded_labels``: round numbers grow over a run)."""
+    the colour table at the window sites)."""
 
     geometry: BandGeometry
     devices: list
     coup_fwd: list  # f32 [n_disorder, n_window, n_neighbors] per band
     coup_bwd: list
     colours: list  # uint8 [n_window] per band
-    cc_rounds: int = 0
 
     @classmethod
     def build(cls, lattice, couplings_nd, devices):
@@ -520,8 +518,9 @@ def run_chunk_space(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
        square and cubic lattices the last pass also measures, unless an FK
        update will;
     2. on FK sweeps: fresh halos, ``fk.fk_bonds_band`` on every band, the
-       banded labels (``cc_band.banded_labels``: rounds until no band's
-       labels fall, halo label rows copied between rounds), each Wolff
+       banded labels (``cc_band.banded_labels``: each band's window
+       linked, the bands' boundary rows merged on the first device, every
+       window site labelled, halos included; no host sync), each Wolff
        seed's label read from its band, and ``fk.fk_finish_band`` (which
        measures on the square, triangular and cubic lattices); the
        cluster-size histograms fold the bands' labels gathered on the first
@@ -609,7 +608,7 @@ def run_chunk_space(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
             for j, band in enumerate(bands):
                 fk.fk_bonds_band(graphs[j], sp.coup_fwd[j], temps_b[j].view(-1),
                                  on(kb_w[k], j), ccs[j], band)
-            sp.cc_rounds = cc_band.banded_labels(ccs, bands, sp.cc_rounds)
+            cc_band.banded_labels(ccs, bands)
             seed_lab = (fk.wolff_seed_labels(ccs, bands, scal[k][:, 2]) if wolff
                         else None)
             out = [fk.fk_finish_band(graphs[j], ccs[j], sp.coup_fwd[j], on(scal[k], j),

@@ -66,10 +66,14 @@ _SIGNATURES = {
     "peapods_halo_blocks": [_P, _I],
     "peapods_sweep_halo": [_P] * 9 + [_I] * 5 + [_P],
     "peapods_measure_halo": [_P] * 5 + [_I] * 2 + [_P],
-    "peapods_cc_band_link": [_P] * 3 + [_I] + [_P],
-    "peapods_cc_band_min": [_P] * 4 + [_I] + [_P],
-    "peapods_cc_band_write": [_P] * 5 + [_I] * 2 + [_P],
-    "peapods_fk_bonds_band": [_P] * 9 + [_I] * 2 + [_P],
+    "peapods_cc_band_link": [_P] * 4 + [_I] + [_P],
+    "peapods_cc_band_border": [_P] * 3 + [_I] + [_P],
+    "peapods_cc_band_flatten": [_P] * 3 + [_I] + [_P],
+    "peapods_cc_band_export": [_P] * 5 + [_I] * 2 + [_P],
+    "peapods_cc_band_merge": [_P] * 2 + [_I] * 3 + [_P],
+    "peapods_cc_band_resolve": [_P] * 3 + [_I] * 3 + [_P],
+    "peapods_cc_band_write": [_P] * 5 + [_I] + [_P],
+    "peapods_fk_bonds_band": [_P] * 6 + [_I] * 2 + [_P],
     "peapods_fk_finish_band": [_P] * 9 + [_I] * 3 + [_P],
 }
 

@@ -33,7 +33,7 @@ The band forms serve a lattice split into row bands over a ``space`` mesh
 (:class:`~.lattice.Band`: each band's rows and its halos, the window):
 :func:`fk_bonds_band` draws the bonds of every window site whose forward
 neighbour lies in the window, with the unsharded kernels' uniforms, and
-starts the band's :class:`~.cc_band.BandCC` buffers; after
+writes the state bytes of the band's :class:`~.cc_band.BandCC`; after
 ``cc_band.banded_labels``, :func:`fk_finish_band` flips the band's sites
 from the global labels (:func:`wolff_seed_labels` reads each Wolff seed's
 label from the band that holds it) and optionally measures them.
@@ -376,9 +376,8 @@ def fk_bonds_band_plain(spins, j_win, temps, kb_words, cc_buf, band, uniforms=No
     """Plain version of ``fk_bonds_band``: the FK bonds of every window site
     of a band whose forward neighbour lies in the window (bit ``k`` of the
     state byte; with three directions or fewer, bit ``3 + k`` when the two
-    spins differ), drawn with the unsharded kernels' uniforms, and the
-    started CC buffers (parent = window index, label and cmin = global
-    index).
+    spins differ), drawn with the unsharded kernels' uniforms, into
+    ``cc_buf.state``.
 
     Args:
         spins: int8 ``[G, n_window]`` the graphs' windows (halos current).
@@ -408,9 +407,6 @@ def fk_bonds_band_plain(spins, j_win, temps, kb_words, cc_buf, band, uniforms=No
         if nb <= 3:
             st |= ((s != sf) & reach[:, k]).to(torch.uint8) << (3 + k)
     cc_buf.state.copy_(st)
-    cc_buf.parent.copy_(torch.arange(nw, dtype=torch.int32, device=dev))
-    cc_buf.labels.copy_(sites.to(torch.int32))
-    cc_buf.cmin.copy_(sites.to(torch.int32))
 
 
 def fk_bonds_band(spins, j_win, temps, kb_words, cc_buf, band, *, uniforms=None):
@@ -426,10 +422,10 @@ def fk_bonds_band(spins, j_win, temps, kb_words, cc_buf, band, *, uniforms=None)
     g, d = _check_band(spins, j_win, band)
     _build.expect(temps, "temps", torch.float32, (g,), dev)
     _build.expect(kb_words, "kb_words", torch.int32, (g, 2), dev)
+    _build.expect(cc_buf.state, "state", torch.uint8, (g, band.n_window), dev)
     _build.check(_build.library().peapods_fk_bonds_band(
         spins.data_ptr(), j_win.data_ptr(), temps.data_ptr(), kb_words.data_ptr(),
-        cc_buf.state.data_ptr(), cc_buf.parent.data_ptr(), cc_buf.labels.data_ptr(),
-        cc_buf.cmin.data_ptr(), band.words.ctypes.data, g, g // d,
+        cc_buf.state.data_ptr(), band.words.ctypes.data, g, g // d,
         torch.cuda.current_stream(dev).cuda_stream), "fk_bonds_band")
     LAUNCHES["fk_bonds_band"] += 1
 

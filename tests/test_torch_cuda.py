@@ -1197,26 +1197,103 @@ def test_sweep_halo_gaussian_partials_are_the_unsharded_partials(cuda):
             assert torch.equal(torch.cat([p[i] for p in pk], -1), want[i]), shape
 
 
+def _band_masks(lat, seed):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(np.stack(
+        [rng.random((lat.n_spins, lat.n_neighbors)) < p for p in (0.3, 0.55, 1.01)]))
+
+
+def _band_buffers(masks, geom, dev):
+    """Each band's ``BandCC`` with the state bytes of bond masks ``[G,
+    n_spins, n_nb]``."""
+    from peapods_tpu_torch.ops import cc_band
+
+    bits = torch.arange(geom.lattice.n_neighbors, dtype=torch.uint8, device=dev)
+    ccs = []
+    for b in geom.bands:
+        m = (masks.to(dev)[:, torch.from_numpy(b.window_sites()).to(dev)]
+             & torch.from_numpy(cc_band.window_reach(b)).to(dev))
+        cc = cc_band.BandCC.empty(masks.shape[0], b, dev)
+        cc.state.copy_((m.to(torch.uint8) << bits).sum(-1, dtype=torch.uint8))
+        ccs.append(cc)
+    return ccs
+
+
 @pytest.mark.parametrize("name,shape,geometry,ns", SPACE, ids=[s[0] for s in SPACE])
 def test_band_cc_kernels_match_plain(cuda, name, shape, geometry, ns):
     """The banded labels of random bond masks at three densities (all bonds
-    on: spanning clusters) bitwise the unsharded plain labels."""
+    on: spanning clusters) bitwise the unsharded plain labels, each density
+    in the same launches (five a band and the merge's two) and with no host
+    synchronisation."""
     from peapods_tpu_torch.ops import cc_band
     from peapods_tpu_torch.ops.cluster import connected_components
 
     lat, geom, *_ = _space_inputs(cuda, 7, shape, geometry, ns, 1, 1)
-    rng = np.random.default_rng(13)
-    masks = torch.from_numpy(np.stack(
-        [rng.random((lat.n_spins, lat.n_neighbors)) < p for p in (0.3, 0.55, 1.01)]))
+    masks = _band_masks(lat, 13)
     want = connected_components(masks, shape, lat.offsets)
-    for k in cc_band.LAUNCHES:
-        cc_band.LAUNCHES[k] = 0
-    got = cc_band.band_cc_labels(masks.to(cuda), geom)
+    per_band = ("cc_band_link", "cc_band_border", "cc_band_flatten", "cc_band_export",
+                "cc_band_write")
+    for i in range(3):
+        ccs = _band_buffers(masks[i:i + 1], geom, cuda)
+        for k in cc_band.LAUNCHES:
+            cc_band.LAUNCHES[k] = 0
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            cc_band.banded_labels(ccs, geom.bands)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        got = torch.cat([cc.labels[:, b.interior] for cc, b in zip(ccs, geom.bands)], -1)
+        assert torch.equal(got.cpu(), want[i:i + 1]), i
+        assert cc_band.LAUNCHES == {**dict.fromkeys(per_band, ns), "cc_band_merge": 1,
+                                    "cc_band_resolve": 1}, i
+        assert torch.equal(cc_band.band_cc_labels(masks[i:i + 1].to(cuda), geom).cpu(),
+                           want[i:i + 1]), i
+
+
+@pytest.mark.parametrize("name,shape,geometry,ns", SPACE, ids=[s[0] for s in SPACE])
+def test_band_cc_each_kernel_matches_plain(cuda, name, shape, geometry, ns):
+    """Each kernel of the banded labelling bitwise its plain version on the
+    kernels' own inputs, at three bond densities: the link's three
+    (parents, the roots' slots), the export (nodes, values), the merge and
+    resolve (set minima), the write (every window site's label); the halo
+    sites' labels are the unsharded labels of the sites they copy."""
+    from peapods_tpu_torch.ops import cc_band
+    from peapods_tpu_torch.ops.cluster import connected_components
+
+    lat, geom, *_ = _space_inputs(cuda, 9, shape, geometry, ns, 1, 1)
+    masks = _band_masks(lat, 19)
+    want = connected_components(masks, shape, lat.offsets).to(cuda)
+    ccs = _band_buffers(masks, geom, cuda)
+    plain = [cc_band.BandCC(c.state.clone(), *(torch.empty_like(c.parent) for _ in range(3)))
+             for c in ccs]
+    for c, p, b in zip(ccs, plain, geom.bands):
+        cc_band.link(c, b)
+        cc_band.link_plain(p, b)
     torch.cuda.synchronize()
-    assert torch.equal(got.cpu(), want)
-    assert cc_band.LAUNCHES["cc_band_link"] == ns
-    # no cc_band_min in the first round
-    assert cc_band.LAUNCHES["cc_band_min"] + ns == cc_band.LAUNCHES["cc_band_write"] >= 2 * ns
+    for c, p in zip(ccs, plain):
+        assert torch.equal(c.parent, p.parent)
+        roots = c.parent.long()
+        assert torch.equal(c.cmin.gather(1, roots), p.cmin.gather(1, roots))
+    mb = cc_band.BandMerge.empty(3, geom.bands, cuda)
+    for c, b in zip(ccs, geom.bands):
+        cc_band.export(c, b, mb)
+        rep, val = (torch.empty_like(mb.rep[0]) for _ in range(2))
+        cc_band.export_plain(c, b, rep, val)
+        torch.cuda.synchronize()
+        assert torch.equal(mb.rep[b.k], rep)
+        assert torch.equal(mb.val[b.k], val)
+    check = cc_band.BandMerge(mb.rep.clone(), mb.val.clone(), torch.empty_like(mb.labels))
+    cc_band.merge(mb)
+    cc_band.merge_plain(check)
+    torch.cuda.synchronize()
+    assert torch.equal(mb.labels, check.labels)
+    for c, p, b in zip(ccs, plain, geom.bands):
+        cc_band.write(c, b, mb.labels[b.k])
+        cc_band.write_plain(p, b, mb.labels[b.k])
+        torch.cuda.synchronize()
+        assert torch.equal(c.labels, p.labels)
+        assert torch.equal(c.labels, want[:, torch.from_numpy(b.window_sites()).to(cuda)])
 
 
 @pytest.mark.parametrize("wolff", [False, True], ids=["sw", "wolff"])
@@ -1245,14 +1322,14 @@ def test_fk_band_kernels_match_plain(cuda, name, shape, geometry, ns, wolff):
             (fk.fk_bonds_band if kind == "kernel" else fk.fk_bonds_band_plain)(
                 w, f, temps, kb, cb, b)
         (cc_band.banded_labels if kind == "kernel" else cc_band.banded_labels_plain)(
-            ccs, geom.bands, 0)
+            ccs, geom.bands)
         seed_lab = fk.wolff_seed_labels(ccs, geom.bands, scal[:, 2]) if wolff else None
         fin = fk.fk_finish_band if kind == "kernel" else fk.fk_finish_band_plain
         parts = [fin(w, cb, f, scal, seed_lab, b, wolff=wolff, measure=measure)
                  for w, cb, (b, f, _, _) in zip(wins, ccs, bands)]
         torch.cuda.synchronize()
         out[kind] = (torch.cat([cb.state for cb in ccs], -1),
-                     torch.cat([cb.labels[:, b.interior] for cb, b in zip(ccs, geom.bands)], -1),
+                     torch.cat([cb.labels for cb in ccs], -1),
                      halo.gather_band_spins(wins, geom.bands),
                      [torch.cat([p[i] for p in parts], -1).sum(-1) for i in (0, 1)]
                      if measure else [])

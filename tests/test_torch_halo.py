@@ -22,7 +22,7 @@ components and the FK update (a lattice split into row bands over a
 * The banded CC over 1, 2 and 4 bands, bitwise the unsharded labels and
   the reference's ``connected_components_banded`` under ``jax.shard_map``
   on a 4-device CPU mesh with its Pallas band kernel (row 17) in interpret
-  mode.
+  mode (``tests/test_torch_cc_band.py`` holds its steps).
 * The FK band forms, bitwise the unsharded FK update and staged path.
 """
 
@@ -403,8 +403,8 @@ def test_banded_cc_matches_unsharded_and_reference(name, shape, offsets):
 
 
 def test_banded_cc_rounds_stop_when_nothing_falls():
-    """A snake that crosses the band edges many times needs many rounds;
-    each round lowers labels until the last, which changes none."""
+    """A snake that crosses the band edges many times: the one fixed
+    sequence (link, export, merge, write) gives every site its label 0."""
     lat = Lattice((8, 8))
     masks = np.zeros((1, 64, 2), bool)
     for r in range(8):  # a serpentine path through every site
@@ -459,7 +459,7 @@ def test_fk_band_forms_match_the_unsharded_update(name, shape, offsets, ns, wolf
     ccs = [cc_band.BandCC.empty(g, b, "cpu") for b in geom.bands]
     for w, j, cb, b in zip(wins, jw, ccs, geom.bands):
         fk.fk_bonds_band(w, j, temps, kb, cb, b)
-    cc_band.banded_labels(ccs, geom.bands, 0)
+    cc_band.banded_labels(ccs, geom.bands)
     got_labels = torch.cat([cb.labels[:, b.interior] for cb, b in zip(ccs, geom.bands)], -1)
     np.testing.assert_array_equal(got_labels.numpy(), labels.reshape(g, -1).numpy())
     seed_lab = fk.wolff_seed_labels(ccs, geom.bands, scal[:, 2]) if wolff else None
