@@ -70,7 +70,8 @@ through the user's entry points:
   ``_export`` / ``_merge`` / ``_resolve`` / ``_write``, ``fk_finish_band``)
   held against its plain version on those runs' states; and the band
   kernels' device times (the labelling's per FK phase beside its bound),
-  the halo copies' and the busy share over main-path windows.
+  the halo copies' and the busy share over main-path windows, and their
+  ptxas registers and spills.
 
 Each path's launch counts are zeroed just before its main run and read just
 after.  Every phase prints lines; any failure raises and the script exits
@@ -3557,8 +3558,8 @@ def space_paths(dev, card, mega_sweeps_s):
             checks["4096"]["pt_step"] = dict(zip(("bound_ms", "bound_by"), pt_step_bound(
                 1, SPACE_BIG["n_temps"], blocks, True, False)), partials=blocks)
             log_space_times("4096", run["profile"], checks["4096"], card, SPACE_BIG["kw"])
-            log("28 space", "ptxas, the banded labelling's kernels: "
-                + band_cc_resources(_build.build_info["log"]))
+            log("28 space", "ptxas, the banded labelling's kernels and the other band "
+                "kernels: " + band_kernel_resources(_build.build_info["log"]))
         run.pop("sim")
         big[label] = run
         torch.cuda.empty_cache()
@@ -3589,6 +3590,11 @@ def space_paths(dev, card, mega_sweeps_s):
                              16 if name == "cubic128" else 32)
         run["profile"] = prof
         log_space_times(name, prof, checks[name], card, SPACE_RUNS[name]["kw"])
+    for name in ("fcc32", "tri256"):
+        chk = checks[name]["sweep_halo"]
+        log("30 times", f"sweep_halo per launch at {name}: "
+            f"{runs[name]['profile']['per_launch']['sweep_halo'] / 1e3:.5f} ms against its "
+            f"bound {chk['bound_ms']:.7f} ms ({chk['bound_by']}) on {card}")
     log("30 times", f"phases 27-30 took {time.perf_counter() - t_all:.1f} s")
     return dict(big=big, runs=runs, plain=plain, checks=checks)
 
@@ -3649,20 +3655,25 @@ def add_space_records(kernels, sp):
 
 
 def ptxas_entries(text):
-    """``(library, None, 0, 0)`` for each library the ``ptxas -v`` log of
-    the build names, then ``(None, kernel, registers, shared bytes)`` for
-    each of its entry functions."""
-    fn = None
+    """``(library, None, 0, 0, 0)`` for each library the ``ptxas -v`` log
+    of the build names, then ``(None, kernel, registers, shared bytes,
+    spill bytes)`` for each of its entry functions (spill stores and loads
+    added)."""
+    fn, spill = None, 0
     for ln in text.splitlines():
         if ln.endswith(".so:"):
-            yield ln.rsplit("/", 1)[-1].split("_")[0], None, 0, 0
+            yield ln.rsplit("/", 1)[-1].split("_")[0], None, 0, 0, 0
         entry = re.search(r"Compiling entry function '([^']+)'", ln)
         if entry:
-            fn = entry.group(1)
+            fn, spill = entry.group(1), 0
+        spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if spills:
+            spill = int(spills.group(1)) + int(spills.group(2))
         used = re.search(r"Used (\d+) registers", ln)
         if used and fn:
             smem = re.search(r"(\d+) bytes smem", ln)
-            yield None, kernel_name(fn), int(used.group(1)), int(smem.group(1)) if smem else 0
+            yield (None, kernel_name(fn), int(used.group(1)),
+                   int(smem.group(1)) if smem else 0, spill)
             fn = None
 
 
@@ -3670,17 +3681,21 @@ def kernel_registers(text) -> str:
     """``library: kernel registers, ...`` from the ``ptxas -v`` log of the
     build: each entry function's registers under its kernel's name."""
     out = []
-    for lib, name, regs, _ in ptxas_entries(text):
+    for lib, name, regs, *_ in ptxas_entries(text):
         out.append(("|" if out else "") + lib + ":" if name is None else f"{name} {regs}")
     return " ".join(out)
 
 
-def band_cc_resources(text) -> str:
-    """``name registers, shared bytes`` of each banded-CC kernel from the
-    ``ptxas -v`` log of the build."""
-    return "; ".join(f"{name} {regs} registers, {smem} B shared"
-                     for _, name, regs, smem in ptxas_entries(text)
-                     if name and name.startswith("cc_band_"))
+def band_kernel_resources(text) -> str:
+    """``name registers, shared bytes, spill bytes`` of each banded-CC
+    kernel, of ``fk_bonds_band``, ``fk_finish_band``, ``measure_halo`` and
+    of ``sweep_halo`` (one entry for each of its forms: the square form and
+    1 to 6 offsets) from the ``ptxas -v`` log of the build."""
+    return "; ".join(f"{name} {regs} registers, {smem} B shared, {spill} B spilled"
+                     for _, name, regs, smem, spill in ptxas_entries(text)
+                     if name and (name.startswith("cc_band_")
+                                  or name in ("fk_bonds_band", "fk_finish_band",
+                                              "measure_halo", "sweep_halo")))
 
 
 def kernel_name(mangled) -> str:

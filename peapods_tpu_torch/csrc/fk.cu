@@ -67,6 +67,23 @@
 //                   partials of fk_finish, the forward neighbours' flips
 //                   read from the halo labels.
 //
+// What bounds fk_finish_band on the H100, and its design: when measuring it
+// reads per site the int32 label, the state byte, the spin and 4 n_dirs B
+// of couplings and writes the spin: 45 us at 4096^2 x 4 graphs in 4 bands
+// (3.35 TB/s).  Its first design, one site a thread, ran 0.923 ms there and
+// 0.305 ms at 128^3 x 8 (NVIDIA H100 80GB HBM3, 700 W): integer work, not
+// bytes.  Each site worked out its coordinates and neighbours with about
+// ten runtime divisions (the card has no divide instruction) and drew its
+// SW coin 1 + n_dirs times, its own and once for each backward neighbour;
+// the block tree of partials took eight barriers a 256 sites.  Now a CTA
+// takes up to 32 partial blocks: it decides each of its sites' flips once
+// into shared memory (with the flips of the sites its forward neighbours
+// reach within one tile, so that at 4096^2 a coin is drawn 1.5 times a site
+// and only the +x neighbour of a cubic lattice, a plane away, is drawn
+// again), finds neighbours with band.cuh's multiply-shift division and
+// residues, and reduces each block's 256 terms with one warp (warp_tree, the
+// tree's pairing), eight blocks at a time: 0.154 ms and 0.050 ms.
+//
 // What bounds it on the H100: each launch touches a few bytes per site --
 // the int8 spins, 8 or 12 B of couplings, the state byte and the int32
 // parent.
@@ -253,7 +270,7 @@ fk_finish_kernel(int8_t* __restrict__ spins, const uint8_t* __restrict__ state,
 __global__ void __launch_bounds__(kThreads)
 fk_bonds_band_kernel(const int8_t* __restrict__ spins, const float* __restrict__ j_win,
                      const float* __restrict__ temps, const int32_t* __restrict__ kb,
-                     uint8_t* __restrict__ state, const BandGeom geo, int n_systems) {
+                     uint8_t* __restrict__ state, const BandWalk geo, int n_systems) {
   const int b = blockIdx.y;
   const int nw = geo.w.L[0] * geo.block;
   const int nd = geo.w.n_nb;
@@ -274,17 +291,23 @@ fk_bonds_band_kernel(const int8_t* __restrict__ spins, const float* __restrict__
     const int gid = window_global(geo, w);
     if ((gid >> 2) != grp) {
       grp = gid >> 2;
-      for (int dir = 0; dir < nd; ++dir)
+#pragma unroll
+      for (int dir = 0; dir < kMaxOffsets; ++dir) {
+        if (dir == nd) break;
         r[dir] = philox4x32_10(k0, k1, static_cast<uint32_t>(dir),
                                static_cast<uint32_t>(grp), 0u, 0u);
+      }
     }
-    int c[3];
-    coords(geo.w, w, c);
+    int c1, c2;
+    const int row = band_coords(geo, w, c1, c2);
     const float si = static_cast<float>(s[w]);
     uint8_t st = 0;
-    for (int dir = 0; dir < nd; ++dir) {
-      const int j = window_neighbour(geo, c, dir, 1);
-      if (j < 0) continue;
+#pragma unroll
+    for (int dir = 0; dir < kMaxOffsets; ++dir) {
+      if (dir == nd) break;
+      const int to = row + geo.w.off[dir][0];  // the bond leaves the window: none
+      if (to < 0 || to >= geo.w.L[0]) continue;
+      const int j = band_neighbour(geo, w, c1, c2, dir, false);
       const float sf = static_cast<float>(s[j]);
       const float inter = si * sf * J[static_cast<size_t>(w) * nd + dir];
       const float p = 1.0f - expf(-2.0f * inter / T);
@@ -295,6 +318,44 @@ fk_bonds_band_kernel(const int8_t* __restrict__ spins, const float* __restrict__
   }
 }
 
+// fk_finish_band's work of one CTA: `parts` consecutive partial blocks of
+// kThreads sites, and the flips it stages in shared memory, `ext` sites
+// from its first (its own and, when measuring, those that its sites' forward
+// neighbours reach within one tile).
+struct FinishTile {
+  int parts;
+  int ext;
+};
+
+constexpr int kMaxFinishParts = 32;
+constexpr int kFinishCtas = 1024;  // about one wave of the H100's resident CTAs
+constexpr int kPartWarps = kThreads / 32;
+
+inline FinishTile finish_tile(const BandGeom& g, int n_graphs) {
+  const int n_blk = (g.hl * g.block + kThreads - 1) / kThreads;
+  FinishTile ft{kMaxFinishParts, 0};
+  while (ft.parts > 1 &&
+         static_cast<long long>((n_blk + ft.parts - 1) / ft.parts) * n_graphs < kFinishCtas)
+    ft.parts >>= 1;
+  const int tile = ft.parts * kThreads;
+  int reach = 0;
+  for (int d = 0; d < g.w.n_nb; ++d) {
+    const int f = g.w.off[d][0] * g.block + g.w.off[d][1] * g.w.L[2] + g.w.off[d][2];
+    if (f <= tile && f > reach) reach = f;
+  }
+  ft.ext = tile + reach;
+  return ft;
+}
+
+// Phase 1: every site of the CTA's range flips (its label's coin, or
+// Wolff's label == the seed's label), each decision made once and kept in
+// shared memory with the new spin, and the next `ext - tile` sites'
+// decisions (halo rows too: their labels are their owners') beside them.
+// Phase 2 (measuring): each site's forward bonds after the update from the
+// state byte and the two decisions, read from shared memory where the
+// neighbour lies in the staged range (the others' coins recomputed from
+// their labels); one site a thread for each partial block, the block's 256
+// (e, m) terms reduced by one warp in block_partials' pairing.
 __global__ void __launch_bounds__(kThreads)
 fk_finish_band_kernel(int8_t* __restrict__ spins, const uint8_t* __restrict__ state,
                       const int32_t* __restrict__ labels,
@@ -302,42 +363,85 @@ fk_finish_band_kernel(int8_t* __restrict__ spins, const uint8_t* __restrict__ st
                       const int32_t* __restrict__ scalars,
                       const int32_t* __restrict__ seed_labels,
                       float* __restrict__ e_part, int32_t* __restrict__ m_part,
-                      const BandGeom geo, int n_systems, int wolff) {
+                      const BandWalk geo, int n_systems, int wolff, const FinishTile ft) {
+  extern __shared__ uint8_t flag[];  // bit 0: the site flips; bit 1: its new spin is +1
+  __shared__ float se[kPartWarps][kThreads];
+  __shared__ int sm[kPartWarps][kThreads];
   const int b = blockIdx.y;
   const int nw = geo.w.L[0] * geo.block;
   const int nd = geo.w.n_nb;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int n_band = geo.hl * geo.block;
+  const int n_blk = (n_band + kThreads - 1) / kThreads;
   const bool measure = e_part != nullptr;
-  float e_acc = 0.0f;
-  int m_acc = 0;
-  if (i < geo.hl * geo.block) {
-    const size_t base = static_cast<size_t>(b) * nw;
-    const int w = geo.halo * geo.block + i;
-    const uint32_t s0 = static_cast<uint32_t>(scalars[3 * b]);
-    const uint32_t s1 = static_cast<uint32_t>(scalars[3 * b + 1]);
-    const int seed_label = wolff ? seed_labels[b] : -1;
-    const bool fl = flips(labels[base + w], wolff, seed_label, s0, s1);
-    const int8_t sn = fl ? static_cast<int8_t>(-spins[base + w]) : spins[base + w];
-    spins[base + w] = sn;
-    if (measure) {
-      const uint8_t st = state[base + w];
-      const float* J = j_win + (static_cast<size_t>(b / n_systems) * nw + w) * nd;
-      int c[3];
-      coords(geo.w, w, c);
-      float e = 0.0f;
-      for (int dir = 0; dir < nd; ++dir) {
-        const int j = window_neighbour(geo, c, dir, 1);
-        const bool ff = flips(labels[base + j], wolff, seed_label, s0, s1);
-        const float prod = (((st >> (3 + dir)) & 1u) != 0) != (fl != ff) ? -1.0f : 1.0f;
-        e = e + prod * J[dir];
-      }
-      e_acc = e;
-      m_acc = sn;
+  const size_t base = static_cast<size_t>(b) * nw;
+  const int q0 = blockIdx.x * ft.parts;  // the CTA's first partial block
+  const int i0 = q0 * kThreads;          // its first interior site
+  const int n_own = min(ft.parts * kThreads, n_band - i0);
+  const int lo = geo.halo * geo.block + i0;  // the window site of flag[0]
+  const int n_flag = measure ? min(ft.ext, nw - lo) : n_own;
+  const uint32_t s0 = static_cast<uint32_t>(scalars[3 * b]);
+  const uint32_t s1 = static_cast<uint32_t>(scalars[3 * b + 1]);
+  const int seed_label = wolff ? seed_labels[b] : -1;
+  int8_t* s = spins + base;
+  const int32_t* lab = labels + base;
+  for (int k = threadIdx.x; k < n_flag; k += kThreads) {
+    const bool fl = flips(lab[lo + k], wolff, seed_label, s0, s1);
+    uint8_t f = fl ? 1u : 0u;
+    if (k < n_own) {
+      const int8_t sv = s[lo + k];
+      const int8_t sn = fl ? static_cast<int8_t>(-sv) : sv;
+      s[lo + k] = sn;
+      f |= sn > 0 ? 2u : 0u;
     }
+    if (measure) flag[k] = f;
   }
   if (!measure) return;  // uniform across the launch
-  block_partials(e_acc, m_acc, e_part, m_part,
-                 static_cast<size_t>(b) * gridDim.x + blockIdx.x);
+  __syncthreads();
+  const uint8_t* st = state + base;
+  const float* J = j_win + static_cast<size_t>(b / n_systems) * nw * nd;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int parts = min(ft.parts, n_blk - q0);
+  for (int c = 0; c < parts; c += kPartWarps) {
+    for (int k = 0; k < kPartWarps && c + k < parts; ++k) {
+      const int i = (q0 + c + k) * kThreads + threadIdx.x;
+      float e = 0.0f;
+      int m = 0;
+      if (i < n_band) {
+        const int w = lo + (i - i0);
+        const uint8_t f = flag[i - i0];
+        const bool fl = (f & 1u) != 0;
+        const uint8_t sb = st[w];
+        int c1, c2;
+        band_coords(geo, i, c1, c2);
+#pragma unroll
+        for (int dir = 0; dir < kMaxDirs; ++dir) {
+          if (dir == nd) break;
+          const int j = band_neighbour(geo, w, c1, c2, dir, false);
+          const unsigned lj = static_cast<unsigned>(j - lo);
+          const bool ff = lj < static_cast<unsigned>(n_flag)
+                              ? (flag[lj] & 1u) != 0
+                              : flips(lab[j], wolff, seed_label, s0, s1);
+          const float prod = (((sb >> (3 + dir)) & 1u) != 0) != (fl != ff) ? -1.0f : 1.0f;
+          e = e + prod * J[static_cast<size_t>(w) * nd + dir];
+        }
+        m = (f & 2u) ? 1 : -1;
+      }
+      se[k][threadIdx.x] = e;
+      sm[k][threadIdx.x] = m;
+    }
+    __syncthreads();
+    if (c + warp < parts) {
+      const float et = warp_tree(se[warp], lane);
+      const int mt = warp_tree(sm[warp], lane);
+      if (lane == 0) {
+        const size_t o = static_cast<size_t>(b) * n_blk + q0 + c + warp;
+        e_part[o] = et;
+        m_part[o] = mt;
+      }
+    }
+    __syncthreads();
+  }
 }
 
 inline dim3 site_grid(int n, int per_thread, int n_graphs) {
@@ -416,7 +520,7 @@ int peapods_fk_finish(void* spins, const void* state, void* parent, void* labels
 int peapods_fk_bonds_band(const void* spins, const void* j_win, const void* temps,
                           const void* kb, void* state, const int* geom, int n_graphs,
                           int n_systems, void* stream) {
-  const BandGeom geo = make_band_geom(geom);
+  const BandWalk geo = make_band_walk(geom);
   fk_bonds_band_kernel<<<site_grid(geo.w.L[0] * geo.block, kSitesPerThread, n_graphs),
                          kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(spins), static_cast<const float*>(j_win),
@@ -433,14 +537,17 @@ int peapods_fk_finish_band(void* spins, const void* state, const void* labels,
                            const void* seed_labels, void* e_part, void* m_part,
                            const int* geom, int n_graphs, int n_systems, int wolff,
                            void* stream) {
-  const BandGeom geo = make_band_geom(geom);
-  fk_finish_band_kernel<<<site_grid(geo.hl * geo.block, 1, n_graphs), kThreads, 0,
+  const BandWalk geo = make_band_walk(geom);
+  const FinishTile ft = finish_tile(geo, n_graphs);
+  const int n_blk = (geo.hl * geo.block + kThreads - 1) / kThreads;
+  const dim3 grid((n_blk + ft.parts - 1) / ft.parts, n_graphs);
+  fk_finish_band_kernel<<<grid, kThreads, e_part != nullptr ? ft.ext : 0,
                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<int8_t*>(spins), static_cast<const uint8_t*>(state),
       static_cast<const int32_t*>(labels), static_cast<const float*>(j_win),
       static_cast<const int32_t*>(scalars), static_cast<const int32_t*>(seed_labels),
-      static_cast<float*>(e_part), static_cast<int32_t*>(m_part), geo, n_systems,
-      wolff);
+      static_cast<float*>(e_part), static_cast<int32_t*>(m_part), geo, n_systems, wolff,
+      ft);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -168,6 +168,20 @@ __device__ __forceinline__ void block_partials(float e_acc, int m_acc,
   }
 }
 
+// The sum of kThreads values x[0 .. kThreads) in shared memory, paired as
+// block_partials pairs them: the first three tree levels (offsets 128, 64,
+// 32) read by the lanes of one warp, the last five as shuffles; lane 0
+// holds it.  One warp reduces a block's partial while the others go on.
+template <typename T>
+__device__ __forceinline__ T warp_tree(const T* x, int lane) {
+  static_assert(kThreads == 256, "three shared levels, then a warp");
+  T v = ((x[lane] + x[lane + 128]) + (x[lane + 64] + x[lane + 192])) +
+        ((x[lane + 32] + x[lane + 160]) + (x[lane + 96] + x[lane + 224]));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
 // Blocks per system of a colour pass: the length of its partial-sum rows.
 __host__ __device__ inline int colour_pass_blocks(int H, int W) {
   const int n_half = H * (W / 2);

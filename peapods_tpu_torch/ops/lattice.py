@@ -33,7 +33,7 @@ import torch
 from ..engine.config import not_ported
 
 __all__ = ["GEOMETRY_OFFSETS", "MAX_OFFSETS", "Lattice", "Band", "BandGeometry",
-           "hypercubic_offsets", "neighbour_values"]
+           "hypercubic_offsets", "neighbour_values", "fast_divisor"]
 
 # named geometries (peapods_tpu/ops/lattice.py:26-31)
 GEOMETRY_OFFSETS = {
@@ -61,6 +61,19 @@ def neighbour_values(x, shape, off):
     g = x.reshape(*x.shape[:-1], *shape)
     g = torch.roll(g, tuple(-int(o) for o in off), tuple(range(-nd, 0)))
     return g.reshape(x.shape)
+
+
+def fast_divisor(d: int) -> tuple[int, int]:
+    """``(m, s)`` with ``n // d == (n * m >> 32) >> s`` for ``0 <= n <
+    2**31``: ``m = ceil(2**(31 + l) / d)``, ``s = l - 1``, ``l = ceil(log2
+    d)`` (Granlund and Montgomery; CUTLASS's ``FastDivmod``), ``m < 2**32``;
+    ``(0, 0)`` for ``d = 1``, whose quotient is ``n``."""
+    if d < 1:
+        raise ValueError(f"divisor {d} < 1")
+    if d == 1:
+        return 0, 0
+    lg = (d - 1).bit_length()
+    return (2 ** (31 + lg) + d - 1) // d, lg - 1
 
 
 def _greedy_colours(fwd, bwd):
@@ -170,7 +183,11 @@ class Band:
     ``halo`` rows are copies of the neighbouring bands' edge rows (global
     rows ``row0 - halo ..`` and ``row0 + hl ..``, periodic).  A window
     index is ``window_row * block + rest``; ``words`` are the kernels'
-    geometry words (``csrc/band.cuh``)."""
+    geometry words (``csrc/band.cuh`` ``make_band_geom``): the window's
+    ``kernel_geometry``, ``L0, row0, halo, hl``, then per offset ``d``
+    the residues ``off[d][1] % L1, off[d][2] % L2, -off[d][1] % L1,
+    -off[d][2] % L2``, then :func:`fast_divisor` ``(m, s)`` of ``L1 L2``,
+    ``L2`` and ``L1 // 2``."""
 
     lattice: Lattice
     k: int
@@ -236,8 +253,14 @@ class BandGeometry:
         self.halo = halo
         self.block = lattice.n_spins // L0
         self.bands = []
+        _, L1, L2 = (int(x) for x in lattice.kernel_geometry[:3])
+        off = lattice.kernel_geometry[4:].reshape(-1, 3).astype(np.int64)
+        res = np.stack([off[:, 1] % L1, off[:, 2] % L2, -off[:, 1] % L1, -off[:, 2] % L2], 1)
+        div = [fast_divisor(x) for x in (L1 * L2, L2, L1 // 2)]
+        tail = np.concatenate([res.reshape(-1), np.asarray(div, np.int64).reshape(-1)])
         for k in range(n_shards):
             words = lattice.kernel_geometry.copy()
             words[0] = hl + 2 * halo
-            words = np.concatenate([words, [L0, k * hl, halo, hl]]).astype(np.int32)
+            words = np.concatenate([words, [L0, k * hl, halo, hl], tail])
+            words = words.astype(np.uint32).view(np.int32)
             self.bands.append(Band(lattice, k, k * hl, hl, halo, self.block, words))

@@ -1342,6 +1342,194 @@ def test_fk_band_kernels_match_plain(cuda, name, shape, geometry, ns, wolff):
     assert not torch.equal(xk, spins.view(g, -1))
 
 
+# the redesigned band kernels' cases: a narrow square (a 256-site block spans
+# four rows; in 4 bands each band's first colour site is off the 1024-site
+# boundary), bands whose first site lies on no 256- or 1024-site boundary, 2
+# and 4 bands, and an offset table that reaches two rows down and two
+# columns back
+FAR = [[1, 0], [0, 2], [1, -2], [2, -1]]
+BAND_EDGE = [("narrow64", (64, 64), None, 4), ("narrow64-2", (64, 64), None, 2),
+             ("cubic-odd", (12, 6, 10), None, 4), ("tri-odd", (20, 10), "tri", 4),
+             ("far", (16, 12), FAR, 2), ("fcc", (16, 8, 8), "fcc", 4)]
+# cases wide enough that a sweep_halo CTA loops over several systems, the last
+# CTA over fewer, and an fk_finish_band CTA over several partial blocks (the
+# last, off the square, over fewer): name, shape, geometry, bands, then the
+# systems of each realization in the sweep_halo test and in the
+# fk_finish_band test (two realizations each)
+BAND_WIDE = [("sq-wide", (512, 512), None, 2, 25, 16),
+             ("cubic-wide", (36, 20, 30), None, 4, 179, 96),
+             ("tri-wide", (132, 250), "tri", 4, 149, 64),
+             ("far-wide", (96, 250), FAR, 2, 130, 48)]
+HALO_CASES = [c + (3,) for c in BAND_EDGE] + [c[:5] for c in BAND_WIDE]
+FINISH_CASES = [c + (2,) for c in BAND_EDGE] + [c[:4] + c[5:] for c in BAND_WIDE]
+WIDE = {c[0] for c in BAND_WIDE}
+
+
+def _halo_systems_per_cta(band, square, d, n_sys):
+    """The systems a sweep_halo CTA takes (csrc/halo.cu peapods_sweep_halo):
+    as many as leave about 1056 CTAs a launch."""
+    n = band.hl * band.lattice.shape[1] // 2 if square else band.n_band
+    n_blk = -(-(-(-n // 4)) // 256)
+    groups = min(n_sys, max(1, -(-1056 // (n_blk * d))))
+    return -(-n_sys // groups)
+
+
+def _finish_parts(band, g):
+    """The partial blocks an fk_finish_band CTA takes (csrc/fk.cu
+    finish_tile): halved from 32 while the launch has fewer than 1024
+    CTAs."""
+    n_blk = -(-band.n_band // 256)
+    parts = 32
+    while parts > 1 and -(-n_blk // parts) * g < 1024:
+        parts //= 2
+    return parts
+
+
+def _tree_partials(terms, block, per_thread):
+    """Partials of per-site terms ``[..., n]`` as the band kernels add them:
+    blocks of ``block`` sites from the first, ``per_thread`` consecutive
+    sites a thread added in order from 0, then the 256 threads' sums paired
+    as a shared-memory tree (offsets 128 down to 1)."""
+    n = terms.shape[-1]
+    nblk = -(-n // block)
+    x = torch.nn.functional.pad(terms, (0, nblk * block - n))
+    x = x.reshape(*terms.shape[:-1], nblk, block // per_thread, per_thread)
+    acc = torch.zeros_like(x[..., 0])
+    for k in range(per_thread):
+        acc = acc + x[..., k]
+    while acc.shape[-1] > 1:
+        h = acc.shape[-1] // 2
+        acc = acc[..., :h] + acc[..., h:]
+    return acc[..., 0]
+
+
+@pytest.mark.parametrize("gibbs", [False, True], ids=["metropolis", "gibbs"])
+@pytest.mark.parametrize("name,shape,geometry,ns,n_sys", HALO_CASES,
+                         ids=[s[0] for s in HALO_CASES])
+def test_sweep_halo_matches_plain_with_its_partials(cuda, name, shape, geometry, ns, n_sys,
+                                                    gibbs):
+    """Two sweeps in bands, gaussian couplings, every colour pass measuring
+    and not (two-colour lattices): each band's window bitwise the plain
+    version's, and every partial bitwise the per-block sum of the plain
+    pass's site terms (e: s * field of the pass's sites; m: the band's
+    spins), four consecutive (colour) sites a thread, 1024 a block; where a
+    band is a whole number of blocks, the partials of the square lattice's
+    second pass are the unsharded sweep_2d's.  The wide cases' CTAs each
+    take several systems, the last CTA fewer."""
+    from peapods_tpu_torch.ops import halo
+
+    lat, geom, coup, bands, spins, x = _space_inputs(cuda, 21 + ns, shape, geometry, ns,
+                                                     2, n_sys, couplings="gauss")
+    if name in WIDE:
+        per = [_halo_systems_per_cta(b, lat.square, 2, n_sys) for b in geom.bands]
+        assert min(per) > 1 and all(n_sys % p for p in per), per
+    wk, wp = _windows_of(spins, geom), _windows_of(spins, geom)
+    whole = spins.clone()
+    cf = torch.from_numpy(coup).to(cuda)
+    for step in range(2):
+        got, words = [], x["words"].clone()
+        for colour in range(lat.n_colors):
+            measure = lat.n_colors == 2 and (colour + step) % 2 == 1
+            for w in (wk, wp):
+                halo.exchange(w, geom.bands)
+            for j, (b, f, bw, col) in enumerate(bands):
+                args = (f, bw, col, x["sys_temps"], x["words"], b, colour)
+                c, field, active, *_ = halo.pass_decisions(wp[j], *args, gibbs=gibbs)
+                pk = halo.sweep_halo(wk[j], *args, gibbs=gibbs, measure=measure)
+                halo.sweep_halo_plain(wp[j], *args, gibbs=gibbs)
+                torch.cuda.synchronize()
+                assert torch.equal(wk[j], wp[j]), (step, colour, j)
+                if not measure:
+                    assert pk is None
+                    continue
+                new = wp[j][..., b.interior].to(torch.float32)
+                e = torch.where(active, new * field, 0.0)
+                m = wp[j][..., b.interior].to(torch.int32)
+                if lat.square:
+                    e = e[..., active]
+                    m = m.reshape(*m.shape[:-1], -1, 2).sum(-1, dtype=torch.int32)
+                assert torch.equal(pk[0], _tree_partials(e, 1024, 4)), (step, colour, j)
+                assert torch.equal(pk[1], _tree_partials(m, 1024, 4)), (step, colour, j)
+                got.append(pk)
+        x["words"] = x["words"] * 5 + 3
+        aligned = all(b.n_band // 2 % 1024 == 0 for b in geom.bands)
+        if lat.square and aligned and step == 0:
+            want = sweep.sweep_2d(whole.view(2, n_sys, *shape),
+                                  sweep.pack_coupling_grids(cf, shape).contiguous(),
+                                  x["sys_temps"], words, gibbs=gibbs, measure=True)
+            torch.cuda.synchronize()
+            assert torch.equal(halo.gather_band_spins(wk, geom.bands), whole)
+            for i in (0, 1):
+                assert torch.equal(torch.cat([p[i] for p in got], -1), want[i])
+
+
+@pytest.mark.parametrize("wolff", [False, True], ids=["sw", "wolff"])
+@pytest.mark.parametrize("name,shape,geometry,ns,n_sys", FINISH_CASES,
+                         ids=[s[0] for s in FINISH_CASES])
+def test_fk_finish_band_matches_plain_with_its_partials(cuda, name, shape, geometry, ns,
+                                                        n_sys, wolff):
+    """fk_finish_band on the banded labels near T_c, gaussian couplings,
+    measuring (square, triangular, cubic) and not: the spins bitwise the
+    plain version's, and every partial bitwise the per-block sum of the
+    plain update's site terms (e: s s_fwd J over the forward bonds in
+    order; m: the new spin), one site a thread, 256 a block from each
+    band's first site; where every band is a whole number of blocks, the
+    bands' partials are the unsharded fk_update's.  The wide cases' CTAs
+    each take several partial blocks."""
+    from peapods_tpu_torch.engine import seeds
+    from peapods_tpu_torch.ops import cc_band
+
+    lat, geom, coup, bands, spins, _ = _space_inputs(cuda, 31 + ns, shape, geometry, ns,
+                                                     2, n_sys, couplings="gauss")
+    g = 2 * n_sys
+    if name in WIDE:
+        parts = [_finish_parts(b, g) for b in geom.bands]
+        assert min(parts) > 1, parts
+    rng = np.random.default_rng(23)
+    kf = rng.integers(0, 2**32, (g, 2), dtype=np.uint64).astype(np.uint32)
+    scal = torch.from_numpy(seeds.fk_scalars(kf, lat.n_spins, wolff=wolff)).to(cuda)
+    kb = torch.from_numpy(rng.integers(-2**31, 2**31, (g, 2)).astype(np.int32)).to(cuda)
+    temps = torch.full((g,), 2.3 * lat.n_neighbors / 2, device=cuda)
+    wins = [w.view(g, -1) for w in _windows_of(spins, geom)]
+    ccs = [cc_band.BandCC.empty(g, b, cuda) for b in geom.bands]
+    for w, cb, (b, f, _, _) in zip(wins, ccs, bands):
+        fk.fk_bonds_band(w, f, temps, kb, cb, b)
+    cc_band.banded_labels(ccs, geom.bands)
+    seed_lab = fk.wolff_seed_labels(ccs, geom.bands, scal[:, 2]) if wolff else None
+    for measure in ([True, False] if fk.fused_lattice(lat) else [False]):
+        got = []
+        for w, cb, (b, f, _, _) in zip(wins, ccs, bands):
+            wk, wp = w.clone(), w.clone()
+            pk = fk.fk_finish_band(wk, cb, f, scal, seed_lab, b, wolff=wolff,
+                                   measure=measure)
+            fk.fk_finish_band_plain(wp, cb, f, scal, seed_lab, b, wolff=wolff,
+                                    measure=measure)
+            torch.cuda.synchronize()
+            assert torch.equal(wk, wp), (measure, b.k)
+            if not measure:
+                assert pk == (None, None)
+                continue
+            flip = (cb.labels == seed_lab[:, None] if wolff
+                    else fk.cluster_coin_flip_mask(cb.labels, scal[:, :2]))
+            new = torch.where(flip, -w, w).to(torch.float32)
+            j = fk._graph_couplings(f, g)[:, b.interior]
+            e = torch.zeros_like(new[:, b.interior])
+            for k, off in enumerate(lat.offsets):
+                e = e + (new[:, b.interior] * fk._window_shift(new, off, b)[:, b.interior]
+                         * j[..., k])
+            assert torch.equal(pk[0], _tree_partials(e, 256, 1)), b.k
+            m = wp[:, b.interior].to(torch.int32)
+            assert torch.equal(pk[1], _tree_partials(m, 256, 1)), b.k
+            got.append(pk)
+        if measure and all(b.n_band % 256 == 0 for b in geom.bands):
+            want = fk.fk_update(spins.view(g, *shape).clone(), torch.from_numpy(coup).to(cuda),
+                                temps, scal, kb, wolff=wolff, with_measure=True,
+                                with_labels=False)
+            torch.cuda.synchronize()
+            for i in (0, 1):
+                assert torch.equal(torch.cat([p[i] for p in got], -1), want[i])
+
+
 @pytest.mark.parametrize("shape,geometry,kw", [
     ((64, 64), None, dict(pt_interval=1, cluster_update_interval=1, cluster_mode="sw",
                           collect_cluster_stats=True)),
