@@ -8,14 +8,18 @@ through the user's entry points:
 
 * the mega path: the flagship configuration (256x256, 24 temperatures, PT
   every sweep) through ``IsingSimulation.sample``, each of its kernels
-  (``colour_pass``, ``pt_step``) held against its plain torch version;
+  (``colour_pass``, ``pt_step``) held against its plain torch version
+  (``pt_step`` also on gaussian partials at the 4096^2 bands' and config
+  5's shapes, bitwise: its rows add in one fixed order);
 * the per-sweep path with SW / Wolff cluster updates: config 3 (256x256 at
   T_c, SW every sweep) through ``Ising.sample`` twice from one seed, its
   Binder cumulant against the torus value, a Wolff run against it, SW with
   PT on the 64x64 x 16 temperatures x 128 realizations harness shape, 4x4
   exact enumeration, and each kernel (``sweep_2d``, ``fk_bonds``,
   ``fk_link``, ``fk_finish``, ``pt_step``) held against its plain version
-  at both shapes;
+  at both shapes, the labelling one launch at a time (``fk_link`` in its
+  whole-graph form, or tiled with ``fk_link_border`` and
+  ``fk_link_flatten``);
 * the replica path: configs 4 (8^3 +-J glass, Houdayer every 10 sweeps,
   PT on a random edge) and 5 (16^3 gaussian glass, Joerg + CMR every 10
   sweeps, full-ladder PT), each 24 temperatures x 4 replicas x 8
@@ -71,7 +75,7 @@ through the user's entry points:
   held against its plain version on those runs' states; and the band
   kernels' device times (the labelling's per FK phase beside its bound),
   the halo copies' and the busy share over main-path windows, and their
-  ptxas registers and spills.
+  ptxas registers and spills; the unsharded 4096^2 run's labelling.
 
 Each path's launch counts are zeroed just before its main run and read just
 after.  Every phase prints lines; any failure raises and the script exits
@@ -123,6 +127,14 @@ def bound(n_bytes, flops):
     operations."""
     t_b, t_f = n_bytes / HBM_BYTES_S, flops / F32_FLOPS
     return max(t_b, t_f) * 1e3, "bytes" if t_b >= t_f else "operations"
+
+
+def add_kernel_time(acc, name, ev):
+    """Add a profiler record to ``acc[name] = [device us, launches]`` (each
+    instantiation of a template kernel is a record of its own)."""
+    t = acc.setdefault(name, [0.0, 0])
+    t[0] += ev.self_device_time_total
+    t[1] += ev.count
 
 
 def log(phase, msg):
@@ -395,6 +407,47 @@ def check_pt_step(dev, rng):
                 bound_by=by, library_ms=None)
 
 
+def check_pt_step_rows(dev, rng):
+    """``pt_step`` against its plain version on gaussian partials where a
+    row's order matters most: 4096^2 in 4 bands (1 x 4 rows of 65,536
+    partials, each split over CTAs; 64 events in a row, each finding the
+    tickets the last one left at zero) and config 5's ladders (8 x 96 rows
+    of 2, a thread a slot); every output bitwise.  Then the card time of
+    ``e_part.sum(-1)`` and ``m_part.sum(-1)`` on the 4096^2 partials, the
+    yardstick of the reduction."""
+    from peapods_tpu_torch.ops import mega
+    from peapods_tpu_torch.ops.tempering import pt_draws
+
+    out = {}
+    for label, (d, s, nb) in (("4096^2 in 4 bands", (1, SPACE_BIG["n_temps"], 65536)),
+                              ("config 5", (SG_D, SG_R * SG_T, 2))):
+        e_part = torch.from_numpy((rng.standard_normal((d, s, nb)) * 64).astype(
+            np.float32)).to(dev)
+        m_part = torch.from_numpy(rng.integers(-256, 256, (d, s, nb)).astype(
+            np.int32)).to(dev)
+        sid = torch.from_numpy(np.stack([rng.permutation(s) for _ in range(d)]).astype(
+            np.int32)).to(dev)
+        temps = torch.from_numpy(np.geomspace(2.0, 2.6, s).astype(np.float32)).to(dev)
+        words = torch.from_numpy(rng.integers(-2**31, 2**31, (64, d, 2)).astype(
+            np.int32)).to(dev)
+        dr = pt_draws(words, s - 1, pt_full=False)
+        draws = list(zip(dr[0].to(torch.int32), dr[1]))
+        _, acc, att = pt_step_events(e_part, m_part, sid, temps, draws, do_pt=True,
+                                     pt_full=False, n_spins=nb * 256,
+                                     label=f"{label}, gaussian partials")
+        split = mega.pt_split(nb)
+        log("28 space", f"pt_step ok ({label}: {d} x {s} rows of {nb} gaussian partials, "
+            f"{split} CTA(s) a row): 64 events in a row bitwise, {acc} of {att} swaps "
+            "accepted")
+        if nb == 65536:
+            out = dict(split=split, sum_ms=gpu_ms(
+                lambda: (e_part.sum(-1), m_part.sum(-1)), 200))
+            log("28 space", f"the reduction's yardstick: e_part.sum(-1) and "
+                f"m_part.sum(-1) on {d} x {s} x {nb} partials take {out['sum_ms']:.5f} "
+                "ms of card time")
+    return out
+
+
 def exact_4x4(T):
     n = 16
     states = (((np.arange(2**n)[:, None] >> np.arange(n)[None, :]) & 1) * 2 - 1)
@@ -532,6 +585,20 @@ def reset_cluster_counts():
             table[k] = 0
 
 
+# the per-sweep path's FK kernels: the bonds, the labelling's launches (the
+# border and the flatten where tiles split a graph), the flips
+FK_KERNELS = ("fk_bonds", "fk_link", "fk_link_border", "fk_link_flatten", "fk_finish")
+
+
+def link_want(shape, n_graphs, n):
+    """The labelling's launches in ``n`` FK phases of ``n_graphs`` graphs of
+    ``shape``: ``fk_link``, and where its tiles split a graph
+    ``fk_link_border`` and ``fk_link_flatten``."""
+    from peapods_tpu_torch.ops import fk
+
+    return {k: n * v for k, v in fk.link_launches(shape, n_graphs).items()}
+
+
 def cluster_counts():
     """The per-sweep path's launches since the last reset, the kernels that
     ran."""
@@ -577,8 +644,8 @@ def config3(dev, card):
     torch.cuda.synchronize()
     launches = cluster_counts()
     n = CONFIG3_SWEEPS
-    want = {"sweep_2d": 2 * n, "fk_bonds": n, "fk_link": n, "fk_finish": n,
-            "pt_step": n}
+    want = {"sweep_2d": 2 * n, "fk_bonds": n, **link_want((L, L), 1, n),
+            "fk_finish": n, "pt_step": n}
     if launches != want:
         raise AssertionError(f"config 3 launch counts {launches}, expected {want}")
     check_a = state_checksum(model._sim, result)
@@ -643,7 +710,8 @@ def harness(dev, card):
         checks.append(state_checksum(model._sim, result))
         models.append(model)
     n = h["sweeps"]
-    want = {"sweep_2d": 2 * n, "fk_bonds": n, "fk_link": n, "fk_finish": n,
+    want = {"sweep_2d": 2 * n, "fk_bonds": n,
+            **link_want(h["shape"], h["n_disorder"] * h["n_temps"], n), "fk_finish": n,
             "pt_step": n}
     if launches != want:
         raise AssertionError(f"harness launch counts {launches}, expected {want}")
@@ -803,19 +871,14 @@ def check_fk(models, dev, rng, card, phase="8 kernel-vs-plain"):
         plain = {
             "fk_bonds": wall_ms(lambda: fk.fk_bonds_plain(
                 sp, x["j_fwd"], x["temps"], x["kb_words"]), 3),
-            "fk_link": wall_ms(lambda: fk.fk_link_plain(bd, shape), 3),
             "fk_finish": wall_ms(lambda: fk.fk_finish_plain(
                 sp.clone(), lab, x["j_fwd"], x["scalars"], wolff=False,
                 with_measure=True), 3),
         }
-        # the components a union-find must join on this state
-        n_comp = int((lab == torch.arange(n, device=dev)).sum())
         cb = 4 * n_dirs * d * n  # the realizations' couplings
         t = {
             # spins, couplings, temps, kb in; state, parents out
             "fk_bonds": bound(b * n + cb + 12 * b + 5 * b * n, 8 * n_dirs * b * n),
-            # state and parents in; a parent written per union
-            "fk_link": bound(5 * b * n + 4 * (b * n - n_comp), 0),
             # spins, state, parents, couplings, scalars in; spins, partials out
             "fk_finish": bound(6 * b * n + cb + 12 * b + b * n
                                + 8 * b * ((n + 255) // 256), 2 * n_dirs * b * n),
@@ -823,8 +886,87 @@ def check_fk(models, dev, rng, card, phase="8 kernel-vs-plain"):
         for k, v in t.items():
             times.setdefault(k, {})[name] = dict(bound_ms=v[0], bound_by=v[1],
                                                  plain_ms=plain[k])
+        for k, v in link_stages(x, dev, name, phase).items():
+            times.setdefault(k, {})[name] = v
     return {k: dict(max_abs_err=max_err, library_ms=None, shapes=v)
             for k, v in times.items()}
+
+
+def link_stages(x, dev, name, phase):
+    """The labelling's launches one at a time on the FK bonds of ``x``'s
+    graphs (``fk_bonds``' state bytes), each against its plain version:
+    ``fk_link``'s parents (whole-graph form: the labels, flat, every parent
+    at most its site; tiled form: each site's tile-component minimum), then
+    ``fk_link_border``'s, which must lead to the labels (a forest that
+    depends on the order of its unions), and ``fk_link_flatten``'s, the
+    labels.  Returns each launch's plain time and bound, from this state's
+    counts: every parent written once by the link; the border's face sites,
+    the two tile roots of each bond that leaves a tile and a parent a hook;
+    every parent read and the changed ones written by the flatten."""
+    from peapods_tpu_torch.ops import _build, fk
+
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    b, shape = x["spins"].shape[0], tuple(x["spins"].shape[1:])
+    n, n_dirs = int(np.prod(shape)), x["j_fwd"].shape[-1]
+    tri = len(shape) == 2 and n_dirs == 3
+    dims = _build.dims3(shape)
+    state = torch.empty((b, n), dtype=torch.uint8, device=dev)
+    parent = torch.empty((b, n), dtype=torch.int32, device=dev)
+    _build.check(lib.peapods_fk_bonds(
+        x["spins"].data_ptr(), x["j_fwd"].data_ptr(), x["temps"].data_ptr(),
+        x["kb_words"].data_ptr(), state.data_ptr(), parent.data_ptr(), b,
+        b // x["j_fwd"].shape[0], *dims, int(tri), stream), "fk_bonds")
+    bonds = fk.state_masks(state, n_dirs)
+    labels = fk.fk_link_plain(bonds, shape)
+    sites = torch.arange(n, device=dev)
+    n_comp = int((labels == sites).sum())
+    plan = fk.link_plan(dims, b)
+    parent.fill_(-1)  # the link writes every parent
+    _build.check(lib.peapods_fk_link(state.data_ptr(), parent.data_ptr(), b, *dims,
+                                     int(tri), *plan.tile, plan.threads, stream), "fk_link")
+    linked = parent.clone()
+    recs = {}
+    if not plan.tiled:
+        flat = bool(((linked.gather(1, linked.long()) == linked) & (linked <= sites)).all())
+        bad = {"fk_link": int((linked != labels).sum()) + (not flat)}
+        plain_link = lambda: fk.fk_link_plain(bonds, shape)  # noqa: E731
+        form = "whole-graph form, parents flat"
+    else:
+        tiles = fk.fk_link_tiles_plain(bonds, shape, plan.tile)
+        plain_link = lambda: fk.fk_link_tiles_plain(bonds, shape, plan.tile)  # noqa: E731
+        _build.check(lib.peapods_fk_link_border(state.data_ptr(), parent.data_ptr(), b,
+                                                *dims, int(tri), *plan.tile, stream),
+                     "fk_link_border")
+        crossed = parent.clone()
+        _build.check(lib.peapods_fk_link_flatten(parent.data_ptr(), b, n, stream),
+                     "fk_link_flatten")
+        leads = fk.fk_link_flatten_plain(crossed)
+        bad = {"fk_link": int((linked != tiles).sum()),
+               "fk_link_border": int((leads != labels).sum()),
+               "fk_link_flatten": int((parent != leads).sum())}
+        keep = fk.tile_bonds(shape, n_dirs, plan.tile, dev)
+        faces = b * int((~keep).any(-1).sum())
+        crossing = int((bonds & ~keep).sum())
+        hooks = int((linked == sites).sum()) - n_comp
+        changed = int((crossed != labels).sum())
+        recs["fk_link_border"] = dict(zip(("bound_ms", "bound_by"), bound(
+            faces + 8 * crossing + 4 * hooks, 0)), plain_ms=wall_ms(
+            lambda: fk.fk_link_plain(bonds, shape), 3),
+            plain_is="the labels its parents lead to (fk_link_plain)")
+        recs["fk_link_flatten"] = dict(zip(("bound_ms", "bound_by"), bound(
+            4 * b * n + 4 * changed, 0)), plain_ms=wall_ms(
+            lambda: fk.fk_link_flatten_plain(crossed), 3))
+        form = (f"tiled form, tiles {plan.tile}: {faces} face sites, {crossing} bonds "
+                f"leave a tile, {hooks} tile roots hooked, {changed} parents flattened")
+    recs["fk_link"] = dict(zip(("bound_ms", "bound_by"), bound(5 * b * n, 0)),
+                           plain_ms=wall_ms(plain_link, 3), form=form)
+    torch.cuda.synchronize()
+    log(phase, f"fk_link launches one at a time on {name} ({b} graph(s) of "
+        f"{'x'.join(map(str, shape))}; {form}): mismatches {bad}; {n_comp} clusters")
+    if any(bad.values()):
+        raise AssertionError(f"the labelling's launches differ from plain on {name}: {bad}")
+    return recs
 
 
 def check_pt_step_per_sweep(models, dev, phase="8 kernel-vs-plain"):
@@ -902,12 +1044,11 @@ def exact_4x4_cluster(dev):
             f"{m4.mags2[0]:.5f} (exact {m2_ex:.5f}) ok")
 
 
-def profile_window(model, kw, sweeps_s, n,
-                   names=("sweep_2d", "fk_bonds", "fk_link", "fk_finish", "pt_step")):
-    """Device time of each kernel of the per-sweep path over ``n`` sweeps of
-    a model's main-path run, from the profiler's kernel records: per launch
-    and per sweep, and the share of the unprofiled wall time per sweep that
-    the device is busy."""
+def profile_window(model, kw, sweeps_s, n, names):
+    """Device time of each kernel of the per-sweep path (``names``: those
+    the run launches) over ``n`` sweeps of a model's main-path run, from the
+    profiler's kernel records: per launch and per sweep, and the share of
+    the unprofiled wall time per sweep that the device is busy."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -915,16 +1056,17 @@ def profile_window(model, kw, sweeps_s, n,
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         model.sample(n, "metropolis", **dict(kw, warmup_ratio=0.0))
         torch.cuda.synchronize()
-    per_launch, per_sweep, others = {}, {}, {}
+    acc, others = {}, {}
     for ev in prof.key_averages():
         if ev.self_device_time_total <= 0:
             continue
         hit = [k for k in names if f"{k}_kernel" in ev.key]
         if hit:
-            per_launch[hit[0]] = ev.self_device_time_total / ev.count
-            per_sweep[hit[0]] = ev.self_device_time_total / n
+            add_kernel_time(acc, hit[0], ev)
         elif ev.device_type != DeviceType.CPU:  # a torch op's kernels, not the op
             others[ev.key] = others.get(ev.key, 0.0) + ev.self_device_time_total / n
+    per_launch = {k: t / c for k, (t, c) in acc.items()}
+    per_sweep = {k: t / n for k, (t, c) in acc.items()}
     missing = [k for k in names if k not in per_launch]
     if missing:
         raise AssertionError(f"the profiler saw no device time for {missing}")
@@ -1020,8 +1162,12 @@ def reset_pair_counts():
 def pair_counts():
     from peapods_tpu_torch.ops import fk, mega, megapair, overlap, winding
 
+    # the overlap graphs (at most 8192 sites) take the whole-graph labelling:
+    # a border or flatten launch would show here as an unexpected count
     return {**mega.LAUNCHES, **megapair.LAUNCHES, **overlap.LAUNCHES,
-            "fk_link": fk.LAUNCHES["fk_link"], **winding.LAUNCHES}
+            "fk_link": fk.LAUNCHES["fk_link"], **winding.LAUNCHES,
+            **{k: fk.LAUNCHES[k] for k in ("fk_link_border", "fk_link_flatten")
+               if fk.LAUNCHES[k]}}
 
 
 def sg_model(name, dev, seed=None):
@@ -1524,16 +1670,17 @@ def pair_profile(run, n, card, name, phase="14 times"):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         model.sample(n, "metropolis", **dict(run["kw"], warmup_ratio=0.0))
         torch.cuda.synchronize()
-    per_launch, per_sweep, other = {}, {}, 0.0
+    acc, other = {}, 0.0
     for ev in prof.key_averages():
         if ev.self_device_time_total <= 0:
             continue
         hit = [k for k in PAIR_KERNELS if f"{k}_kernel" in ev.key]
         if hit:
-            per_launch[hit[0]] = ev.self_device_time_total / ev.count
-            per_sweep[hit[0]] = ev.self_device_time_total / n
+            add_kernel_time(acc, hit[0], ev)
         else:
             other += ev.self_device_time_total / n
+    per_launch = {k: t / c for k, (t, c) in acc.items()}
+    per_sweep = {k: t / n for k, (t, c) in acc.items()}
     missing = [k for k in run["launches"] if k not in per_launch]
     if missing:
         raise AssertionError(f"the profiler saw no device time for {missing}")
@@ -1608,7 +1755,9 @@ def nb_want(model, kw, n):
     update = kw.get("cluster_action", "update") == "update"
     want = {"sweep_nb": lat.n_colors * n, "pt_step": n}
     if fused_lattice(lat):
-        want.update({f: n_fk for f in ("fk_bonds", "fk_link", "fk_finish")})
+        want.update({f: n_fk for f in ("fk_bonds", "fk_finish")})
+        want.update(link_want(lat.shape, model._sim.rt.n_disorder * model._sim.rt.n_systems,
+                              n_fk))
         want["measure_nb"] = n - n_fk if update else n
     else:
         want.update(fk_bonds_nb=n_fk, cc_link=n_fk, cc_label=n_fk,
@@ -1978,8 +2127,10 @@ def add_nb_records(kernels, nb):
     windows, nb_us = nb["windows"], nb["nb_us"]
     fk_replaces = "peapods_tpu/ops/pallas_event.py:621"
     by_name = {kr["name"]: kr for kr in kernels}
-    for k in ("fk_bonds", "fk_link", "fk_finish"):
+    for k in FK_KERNELS:
         for name in nb["fk_models"]:
+            if name not in fk_nb[k]["shapes"]:
+                continue  # a launch of the tiled labelling, on a whole-graph path
             by_name[k][f"at_{name}"] = dict(
                 fk_nb[k]["shapes"][name], max_abs_err=fk_nb[k]["max_abs_err"],
                 ms=nb_us[name][k] / 1e3, launches=windows[name][0]["launches"][k],
@@ -2103,8 +2254,8 @@ def observe_main(dev, card):
             launches, r0 = cluster_counts(), result
         checks.append(run_checksum(model._sim, result))
         models.append(model)
-    want = {"sweep_2d": 2 * n, "fk_bonds": n, "fk_link": n, "fk_finish": n,
-            "winding": n, "pt_step": n}
+    want = {"sweep_2d": 2 * n, "fk_bonds": n, **link_want((L, L), 1, n),
+            "fk_finish": n, "winding": n, "pt_step": n}
     if launches != want:
         raise AssertionError(f"observe launch counts {launches}, expected {want}")
     if checks[0] != checks[1]:
@@ -2161,7 +2312,8 @@ def observe_harness(dev, card):
             launches, r0 = cluster_counts(), result
         checks.append(run_checksum(model._sim, result))
         models.append(model)
-    want = {"sweep_2d": 2 * n, "fk_bonds": n, "fk_link": n, "fk_finish": n,
+    want = {"sweep_2d": 2 * n, "fk_bonds": n,
+            **link_want(h["shape"], h["n_disorder"] * h["n_temps"], n), "fk_finish": n,
             "winding": n, "pt_step": n}
     if launches != want:
         raise AssertionError(f"harness observe launch counts {launches}, expected {want}")
@@ -2282,11 +2434,12 @@ def kernel_ms(fn, reps, names):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    out = {}
+    acc = {}
     for ev in prof.key_averages():
         hit = [k for k in names if f"{k}_kernel" in ev.key]
         if hit and ev.self_device_time_total > 0:
-            out[hit[0]] = ev.self_device_time_total / ev.count / 1e3
+            add_kernel_time(acc, hit[0], ev)
+    out = {k: t / c / 1e3 for k, (t, c) in acc.items()}
     if set(out) != set(names):
         raise AssertionError(f"the profiler saw {sorted(out)}, expected {names}")
     return out
@@ -2464,9 +2617,10 @@ def add_observe_records(kernels, obs, hobs, staged, times, us, card):
                                            "fk_bond_activation (jnp, staged path)")
         kernels.append(kr)
         lines.append((main, kr))
-    for k in ("fk_bonds", "fk_link", "fk_finish"):
+    for k in FK_KERNELS:
         for name in ("observe256", "harness_observe"):
-            by_name[k][f"at_{name}"] = dict(at(k, name), max_abs_err=0.0)
+            if k in runs[name]["launches"]:
+                by_name[k][f"at_{name}"] = dict(at(k, name), max_abs_err=0.0)
     for name in staged:
         if "fk_finish" in runs[name]["launches"]:
             by_name["fk_finish"][f"at_{name}"] = dict(at("fk_finish", name),
@@ -3096,6 +3250,33 @@ SPACE_KERNELS = ("sweep_halo", "measure_halo", "fk_bonds_band", *CC_BAND_KERNELS
                  "fk_finish_band", "pt_step")
 
 
+# the unsharded per-sweep run's kernels at 4096^2
+UNSHARDED_KERNELS = ("sweep_2d", *FK_KERNELS, "pt_step")
+
+
+def log_unsharded_link(run, card):
+    """The unsharded 4096^2 run's labelling over a main-path window: each
+    launch's device time, and an FK phase's against its bound (the state
+    bytes in and the labels out, 5 bytes a site)."""
+    from peapods_tpu_torch.ops import fk
+
+    c = SPACE_BIG
+    prof = run["profile"]
+    n_sites = int(np.prod(c["shape"])) * c["n_temps"]
+    link = {k: prof["per_launch"][k] / 1e3 for k in FK_KERNELS
+            if k.startswith("fk_link") and k in prof["per_launch"]}
+    names = tuple(fk.link_launches(c["shape"], c["n_temps"]))
+    if set(link) != set(names):
+        raise AssertionError(f"unsharded 4096^2: the profiler saw {sorted(link)}, "
+                             f"expected {names}")
+    run["labelling"] = dict(ms=sum(link.values()), per_launch=link,
+                            bound_ms=bound(5 * n_sites, 0)[0])
+    log("28 space", f"unsharded 4096^2: the labelling {run['labelling']['ms']:.5f} ms an "
+        f"FK phase (" + ", ".join(f"{k} {v:.5f}" for k, v in link.items())
+        + f" ms a launch) against its bound {run['labelling']['bound_ms']:.5f} ms; "
+        f"{prof['line']} (on {card})")
+
+
 def reset_space_counts():
     from peapods_tpu_torch.ops import cc_band, halo
 
@@ -3226,10 +3407,11 @@ def space_run(name, c, dev, bands, card, n=None):
                 checksum=space_checksum(sim, result), n=n)
 
 
-def space_profile(sim, kw, sweeps_s, n):
+def space_profile(sim, kw, sweeps_s, n, names=None):
     """Per-launch device time and launches per sweep of each band kernel
-    over ``n`` sweeps of a space run, the halo copies' device time per
-    sweep, and the busy share of the unprofiled wall time per sweep."""
+    (or of ``names``) over ``n`` sweeps of a space run, the halo copies'
+    device time per sweep, and the busy share of the unprofiled wall time
+    per sweep."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -3237,21 +3419,22 @@ def space_profile(sim, kw, sweeps_s, n):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         sim.sample(n, "metropolis", **dict(kw, warmup_ratio=0.0))
         torch.cuda.synchronize()
-    per_launch, per_sweep, counts = {}, {}, {}
+    acc = {}
     copies = other = 0.0
     for ev in prof.key_averages():
         if ev.self_device_time_total <= 0:
             continue
-        hit = [k for k in SPACE_KERNELS if f"{k}_kernel" in ev.key]
+        hit = [k for k in names or SPACE_KERNELS if f"{k}_kernel" in ev.key]
         if hit:
-            per_launch[hit[0]] = ev.self_device_time_total / ev.count
-            per_sweep[hit[0]] = ev.self_device_time_total / n
-            counts[hit[0]] = ev.count / n
+            add_kernel_time(acc, hit[0], ev)
         elif ev.device_type != DeviceType.CPU:
             if "copy" in ev.key.lower() or "memcpy" in ev.key.lower():
                 copies += ev.self_device_time_total / n
             else:
                 other += ev.self_device_time_total / n
+    per_launch = {k: t / c for k, (t, c) in acc.items()}
+    per_sweep = {k: t / n for k, (t, c) in acc.items()}
+    counts = {k: c / n for k, (t, c) in acc.items()}
     busy = sum(per_sweep.values()) + copies + other
     cc_us = sum(per_sweep.get(k, 0.0) for k in CC_BAND_KERNELS)
     line = ("device us per sweep: " + ", ".join(f"{k} {v:.3f}" for k, v in per_sweep.items())
@@ -3556,10 +3739,16 @@ def space_paths(dev, card, mega_sweeps_s):
             blocks = len(run["sim"].rt.space.bands) * _build.library().peapods_fk_blocks(
                 run["sim"].rt.space.bands[0].n_band)
             checks["4096"]["pt_step"] = dict(zip(("bound_ms", "bound_by"), pt_step_bound(
-                1, SPACE_BIG["n_temps"], blocks, True, False)), partials=blocks)
+                1, SPACE_BIG["n_temps"], blocks, True, False)), partials=blocks,
+                **check_pt_step_rows(dev, rng))
             log_space_times("4096", run["profile"], checks["4096"], card, SPACE_BIG["kw"])
             log("28 space", "ptxas, the banded labelling's kernels and the other band "
                 "kernels: " + band_kernel_resources(_build.build_info["log"]))
+        if label == "unsharded":
+            with per_sweep_path():
+                run["profile"] = space_profile(run["sim"], SPACE_BIG["kw"],
+                                               run["sweeps_s"], 4, UNSHARDED_KERNELS)
+            log_unsharded_link(run, card)
         run.pop("sim")
         big[label] = run
         torch.cuda.empty_cache()
@@ -3631,6 +3820,12 @@ def add_space_records(kernels, sp):
             ms=main_run["profile"]["per_launch"][k] / 1e3, plain_ms=check["plain_ms"],
             bound_ms=check["bound_ms"], bound_by=check["bound_by"], library_ms=None,
             run=main, **at))
+    # the unsharded 4096^2 run's labelling, on the fk_link record
+    unsharded = sp["big"]["unsharded"]
+    fk_link = next(kr for kr in kernels if kr["name"] == "fk_link")
+    fk_link["at_space4096_unsharded"] = dict(
+        unsharded["labelling"], launches={k: unsharded["launches"][k]
+                                          for k in unsharded["labelling"]["per_launch"]})
     # pt_step at 4096^2 in 4 bands, on the flagship's pt_step record
     pt = next(kr for kr in kernels if kr["name"] == "pt_step")
     pt["at_space4096"] = dict(sp["checks"]["4096"]["pt_step"],
@@ -3760,25 +3955,27 @@ def main():
     # per-launch device times over main-path windows; the sweep's launches
     # are one colour each
     for name, run, n in (("config3", c3, 512), ("harness", hs, 32)):
-        us, line = profile_window(run["model"], run["kw"], run["sweeps_s"], n)
+        us, line = profile_window(run["model"], run["kw"], run["sweeps_s"], n,
+                                  names=tuple(run["launches"]))
         log("10 times", f"{name} {line}")
-        for k, rec in ks.items():
-            rec["shapes"][name]["ms"] = us[k] / 1e3
+        here = {k: rec["shapes"][name] for k, rec in ks.items() if name in rec["shapes"]}
+        for k, rec in here.items():
+            rec["ms"] = us[k] / 1e3
         pt_ps[name].update(ms=us["pt_step"] / 1e3,
                            launches=run["launches"]["pt_step"])
         log("10 times", f"{name} per launch: " + "; ".join(
-            f"{k} {rec['shapes'][name]['ms']:.5f} ms (bound "
-            f"{rec['shapes'][name]['bound_ms']:.5f} ms by "
-            f"{rec['shapes'][name]['bound_by']}, plain "
-            f"{rec['shapes'][name]['plain_ms']:.4f} ms)" for k, rec in ks.items())
-            + f" on {card}")
+            f"{k} {rec['ms']:.5f} ms (bound {rec['bound_ms']:.5f} ms by "
+            f"{rec['bound_by']}, plain {rec['plain_ms']:.4f} ms)"
+            for k, rec in here.items()) + f" on {card}")
         rec = pt_ps[name]
         log("10 times", f"{name} pt_step per launch: {rec['ms']:.5f} ms (bound "
             f"{rec['bound_ms']:.5f} ms by {rec['bound_by']}, plain "
             f"{rec['plain_ms']:.4f} ms) on {card}")
     for rec in ks.values():
         shapes = rec.pop("shapes")
-        rec.update(shapes["config3"], at_harness=shapes["harness"])
+        rec.update(shapes["config3"])
+        if "harness" in shapes:
+            rec["at_harness"] = shapes["harness"]
 
     # the replica path: configs 4 and 5
     runs = {name: sg_config(name, dev, card) for name in SG_CONFIGS}

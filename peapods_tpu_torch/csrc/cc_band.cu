@@ -96,6 +96,7 @@
 #include <cstdint>
 
 #include "band.cuh"
+#include "uf.cuh"
 
 using namespace peapods;
 
@@ -251,40 +252,6 @@ __device__ __forceinline__ int box_window(const BandGeom& g, const TileBox& b, c
 // row that repeats the band's own rows (one band) never ties.
 __device__ __forceinline__ long long band_key(const BandGeom& g, int w) {
   return static_cast<long long>(window_global(g, w)) * (g.w.L[0] * g.block) + w;
-}
-
-// Root of x in the tile's shared parents, halving the path on the way
-// (only non-roots are written, so a root's CAS never races a halving).
-__device__ __forceinline__ int tile_root(int* P, int x) {
-  volatile int* V = P;
-  while (true) {
-    const int p = V[x];
-    if (p == x) return x;
-    const int gp = V[p];
-    if (gp == p) return p;
-    V[x] = gp;
-    x = gp;
-  }
-}
-
-// Join the trees of x and y in the tile's shared parents: the larger root
-// takes the smaller as its parent (atomicMin); where the larger was hung
-// elsewhere meanwhile, its old parent is joined next.  In a tile the site
-// order is band_key's.
-__device__ __forceinline__ void tile_unite(int* P, int x, int y) {
-  while (true) {
-    x = tile_root(P, x);
-    y = tile_root(P, y);
-    if (x == y) return;
-    if (x < y) {
-      const int t = x;
-      x = y;
-      y = t;
-    }
-    const int old = atomicMin(P + x, y);
-    if (old == x) return;
-    x = old;
-  }
 }
 
 // Root of x in a band's global parents, halving the path on the way

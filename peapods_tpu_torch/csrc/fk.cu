@@ -17,18 +17,28 @@
 //              comparison is bitwise), u from Philox4x32-10 keyed by the
 //              graph's kb words, counter (dir, site // 4, 0, 0).  Writes a
 //              state byte (bit d: bond d active; bit 3 + d: s != s_fwd) and
-//              parent[i] = i.
-//   fk_link    one thread per site unites the two ends of each active bond
-//              of the graph (uf.cuh: find with path halving, then
-//              the larger root hung under the smaller with atomicCAS), so
-//              that when the launch ends each component is one tree whose
-//              root is its minimum site index, whatever order the threads
-//              ran in: the reference's min-label fixed point, bitwise.
-//              The overlap moves (csrc/overlap.cu) label their bond graphs
-//              with it too.
-//   fk_finish  one thread per site: label = find(i), optionally written
-//              to a labels array (the parent array keeps being halved by
-//              other threads' finds, so it is not the output); SW flips iff
+//              parent[i] = i (which the labelling does not read).
+//   fk_link    the labelling, in shared memory (ops/fk.py link_plan picks
+//              the form from the shape).  Whole-graph form, a graph of at
+//              most kLinkSites sites: a CTA stages its state bytes, hangs
+//              each run of fast-axis bonds inside a warp under its first
+//              site (a ballot), unites the other bonds with a union-find in
+//              shared memory (uf.cuh tile_unite: the smaller root wins), a
+//              round of lines at a time with the round's sites then pointed
+//              at their roots, and writes every parent once, as its root:
+//              each component's minimum site index, the reference's
+//              min-label fixed point, bitwise, in one launch.  Tiled form,
+//              a larger graph: the same in boxes of up to kLinkSites sites
+//              (each site's parent its box component's minimum), then
+//              fk_link_border unites the bonds that leave a box, as pairs
+//              of box roots in global memory (uf.cuh unite, atomicCAS), and
+//              fk_link_flatten points every parent at its root.  Either way
+//              every parent is written, and ends as its site's label.  The
+//              overlap moves (csrc/overlap.cu) label their bond graphs with
+//              it too.
+//   fk_finish  one thread per site: label = find(i) (one or two loads on
+//              the labelling's parents), optionally written to a labels
+//              array; SW flips iff
 //              salted_uniform(label, salt0, salt1) < 1/2, Wolff iff label ==
 //              find(seed) (found on the device).  When measuring, the
 //              post-update energy s * s_fwd * J of the site's forward
@@ -88,13 +98,21 @@
 // the int8 spins, 8 or 12 B of couplings, the state byte and the int32
 // parent.
 // At config 3 (one 256^2 graph) that is well under 1 MB per launch (under
-// 1 us at 3.35 TB/s): the launches are bound by latency and by the chains of
-// dependent parent loads and atomics near T_c, where one cluster spans the
-// lattice.  At 64^2 x 2048 graphs the int32 parents alone are 33.5 MB,
-// read and written several times, so the kernels are bandwidth-bound at
-// tens of microseconds.  Path halving keeps the chains short; holding a
-// graph in shared memory with block-local union-find is later work (ROADMAP
-// queue 3).
+// 1 us at 3.35 TB/s): the launches are bound by latency.  At 64^2 x 2048
+// graphs a labelling's least bytes are the state bytes in and the parents
+// out, 42 MB (12.5 us).  What holds the labelling back is its unions: the
+// first design, one thread a site uniting in global memory, followed long
+// chains of dependent parent loads and atomics near T_c and in ordered
+// systems, 1.04 ms at the harness and 5.06 ms at 4096^2 x 4 (NVIDIA H100
+// 80GB HBM3, 700 W).  In shared memory the chains cost tens of cycles a
+// step instead of hundreds, a warp's runs along the fast axis need no
+// atomics, and each round's compression keeps the next round's finds
+// short: 0.187 ms at the harness, 2.62 ms at 4096^2.  A CTA's unions run
+// one after another in each thread, so the time follows the sites a
+// thread unites: 512 or 1024 threads a CTA (more where a launch has few
+// CTAs), boxes that shrink until a launch has 1024 CTAs.  Small 3D graphs
+// gain least (32^3 x 16: 0.060 ms against 0.062): half of a box's sites
+// lie on a face, and the border's global unions cost as much as the link.
 
 #include <cuda_runtime.h>
 
@@ -203,15 +221,276 @@ fk_bonds_nb_kernel(const int8_t* __restrict__ spins, const float* __restrict__ j
   }
 }
 
+// fk_link's tiles (ops/fk.py link_plan): boxes of t[0] x t[1] x t[2] sites
+// of an [L0, L1, L2] lattice (L2 = 1 in 2D), nt[k] of them along axis k; a
+// tile that spans an axis (nt[k] == 1) holds the bonds that wrap around
+// it.  A CTA takes a tile of one graph, its threads along the fast axis (2
+// in 3D, 1 in 2D), whose bond direction has the same number.
+struct LinkTiles {
+  int L[3];
+  int t[3];
+  int nt[3];
+  int ndir;
+  int tri;
+  int fast;
+};
+
+constexpr int kLinkThreads = 1024;
+constexpr int kLinkSites = 8192;  // a tile's parents and state bytes: 40 KB of shared memory
+
+inline LinkTiles make_link_tiles(int L0, int L1, int L2, int tri, int t0, int t1, int t2) {
+  LinkTiles g;
+  const int L[3] = {L0, L1, L2};
+  const int t[3] = {t0, t1, t2};
+  for (int k = 0; k < 3; ++k) {
+    g.L[k] = L[k];
+    g.t[k] = t[k];
+    g.nt[k] = (L[k] + t[k] - 1) / t[k];
+  }
+  g.tri = tri;
+  g.ndir = tri ? 3 : L2 > 1 ? 3 : 2;
+  g.fast = L2 > 1 ? 2 : 1;
+  return g;
+}
+
+inline bool link_tiles_ok(const LinkTiles& g, int n_graphs) {
+  if (n_graphs < 1 || n_graphs > 65535) return false;
+  long long sites = 1;
+  for (int k = 0; k < 3; ++k) {
+    if (g.L[k] < 1 || g.t[k] < 1 || g.t[k] > g.L[k]) return false;
+    sites *= g.t[k];
+  }
+  return sites <= kLinkSites && g.t[g.fast] <= kLinkThreads;
+}
+
+inline int link_tile_count(const LinkTiles& g) { return g.nt[0] * g.nt[1] * g.nt[2]; }
+
+// Component k of bond direction dir's forward offset: +1 along axis dir, or
+// the triangular lattice's [1, -1].
+__device__ __forceinline__ int link_off(const LinkTiles& g, int dir, int k) {
+  if (g.tri && dir == 2) return k == 0 ? 1 : k == 1 ? -1 : 0;
+  return k == dir ? 1 : 0;
+}
+
+struct LinkBox {
+  int o[3];
+  int e[3];
+};
+
+__device__ __forceinline__ LinkBox link_box(const LinkTiles& g, int tile) {
+  LinkBox b;
+  const int i2 = tile % g.nt[2];
+  tile /= g.nt[2];
+  const int i1 = tile % g.nt[1];
+  const int i0 = tile / g.nt[1];
+  const int i[3] = {i0, i1, i2};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    b.o[k] = i[k] * g.t[k];
+    b.e[k] = min(g.t[k], g.L[k] - b.o[k]);
+  }
+  return b;
+}
+
+// Box coordinates of the site at line s (of one graph's lines in the box)
+// and fast coordinate x.
+__device__ __forceinline__ void link_coords(const LinkTiles& g, const LinkBox& b, int s,
+                                            int x, int c[3]) {
+  if (g.fast == 2) {
+    c[0] = s / b.e[1];
+    c[1] = s - c[0] * b.e[1];
+    c[2] = x;
+  } else {
+    c[0] = s;
+    c[1] = x;
+    c[2] = 0;
+  }
+}
+
+// The site index in its graph of box coordinates c (+ direction dir's
+// offset when dir >= 0), periodic.
+__device__ __forceinline__ int link_site_of(const LinkTiles& g, const LinkBox& b,
+                                            const int c[3], int dir) {
+  int i = 0;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    int x = b.o[k] + c[k] + (dir >= 0 ? link_off(g, dir, k) : 0);
+    x = x < 0 ? x + g.L[k] : x >= g.L[k] ? x - g.L[k] : x;
+    i = i * g.L[k] + x;
+  }
+  return i;
+}
+
+// The box index of the neighbour of c along bond direction dir, or -1 where
+// the bond leaves the box (an axis the box spans wraps inside it).
+__device__ __forceinline__ int link_step(const LinkTiles& g, const LinkBox& b,
+                                         const int c[3], int dir) {
+  int l = 0;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    int x = c[k] + link_off(g, dir, k);
+    if (g.nt[k] == 1) x = x < 0 ? x + b.e[k] : x >= b.e[k] ? x - b.e[k] : x;
+    if (x < 0 || x >= b.e[k]) return -1;
+    l = l * b.e[k] + x;
+  }
+  return l;
+}
+
+// A CTA labels one tile of a graph in shared memory: (1) the state bytes'
+// bonds into S, then each run of fast-axis bonds inside a warp hung under
+// its first site (a ballot, no atomics); (2) the other bonds inside the
+// box united (tile_unite: the smaller root wins, and box order is site
+// order), a round of lines at a time, each round ending with its sites
+// pointed at their roots (so that the next round's finds stay short); (3)
+// every site's parent written once, as its box root's site index.  Where the box is the whole graph (kWhole) that is the component's
+// minimum site, the final label, and a site's box index is its site index.
+// (No array is indexed at run time: that would put it in local memory.)
+template <bool kWhole>
+__global__ void __launch_bounds__(kLinkThreads)
+fk_link_kernel(const uint8_t* __restrict__ state, int32_t* __restrict__ parent,
+               const LinkTiles g) {
+  __shared__ int P[kLinkSites];
+  __shared__ uint8_t S[kLinkSites];
+  const unsigned lanes = __activemask();
+  const size_t n = static_cast<size_t>(g.L[0]) * g.L[1] * g.L[2];
+  const LinkBox b = link_box(g, blockIdx.x);
+  const bool three = g.fast == 2;
+  const int ef = three ? b.e[2] : b.e[1];
+  const int n_slow = b.e[0] * (three ? b.e[1] : 1);  // the box's lines
+  const int x = threadIdx.x;
+  const int iters = (n_slow + blockDim.y - 1) / blockDim.y;
+  const int lane = (threadIdx.y * blockDim.x + x) & 31;
+  const unsigned mask = (1u << g.ndir) - 1u;
+  const uint8_t* st0 = state + blockIdx.y * n;
+  int32_t* par0 = parent + blockIdx.y * n;
+  if (x < ef) {
+#pragma unroll 4
+    for (int s = threadIdx.y; s < n_slow; s += blockDim.y) {
+      int c[3];
+      link_coords(g, b, s, x, c);
+      S[s * ef + x] = st0[kWhole ? s * ef + x : link_site_of(g, b, c, -1)] & mask;
+    }
+  }
+  __syncthreads();
+  for (int it = 0; it < iters; ++it) {
+    const int l = (threadIdx.y + it * blockDim.y) * ef + x;
+    const bool on = l < n_slow * ef && x < ef;
+    const bool run = on && ((S[l] >> g.fast) & 1u) && x + 1 < ef;
+    const unsigned starts = ~(__ballot_sync(lanes, run) << 1);
+    const int first = 31 - __clz(starts & (0xffffffffu >> (31 - lane)));
+    if (on) P[l] = l - (lane - first);
+  }
+  __syncthreads();
+  for (int it = 0; it < iters; ++it) {  // a round of unions, then its sites' finds
+    const int s = threadIdx.y + it * blockDim.y;
+    const int l = s * ef + x;
+    const bool on = s < n_slow && x < ef;
+    const unsigned st = on ? S[l] : 0u;
+    if (st) {
+      int c[3];
+      link_coords(g, b, s, x, c);
+#pragma unroll
+      for (int dir = 0; dir < 3; ++dir) {
+        if (dir == g.ndir) break;
+        if (!((st >> dir) & 1u)) continue;
+        if (dir == g.fast && x + 1 < ef && lane != 31) continue;  // a run of step (1)
+        const int j = link_step(g, b, c, dir);
+        if (j >= 0) tile_unite(P, l, j);
+      }
+    }
+    __syncthreads();
+    if (on) P[l] = tile_root(P, l);
+    __syncthreads();
+  }
+  for (int it = 0; it < iters; ++it) {
+    const int s = threadIdx.y + it * blockDim.y;
+    if (s >= n_slow || x >= ef) continue;
+    const int l = s * ef + x;
+    const int r = tile_root(P, l);
+    if (kWhole) {
+      par0[l] = r;
+      continue;
+    }
+    const int sr = r / ef;
+    int c[3], cr[3];
+    link_coords(g, b, s, x, c);
+    link_coords(g, b, sr, r - sr * ef, cr);
+    par0[link_site_of(g, b, c, -1)] = link_site_of(g, b, cr, -1);
+  }
+}
+
+// The tiled form's bonds that leave their tile, united in global memory
+// (uf.cuh unite: the larger root hung under the smaller with atomicCAS):
+// a CTA walks its tile's faces, the last layer along each axis the tiles
+// split (and on the triangular lattice the first column, whose [1, -1]
+// bonds leave backwards along axis 1).
 __global__ void __launch_bounds__(kThreads)
-fk_link_kernel(const uint8_t* __restrict__ state, int32_t* parent, const Dims dims) {
-  const int b = blockIdx.y;
-  const int n = dims.n[0] * dims.n[1] * dims.n[2];
+fk_link_border_kernel(const uint8_t* __restrict__ state, int32_t* parent,
+                      const LinkTiles g) {
+  const size_t n = static_cast<size_t>(g.L[0]) * g.L[1] * g.L[2];
+  const uint8_t* st = state + blockIdx.y * n;
+  int32_t* P = parent + blockIdx.y * n;
+  const LinkBox b = link_box(g, blockIdx.x);
+  const int e0 = b.e[0], e1 = b.e[1], e2 = b.e[2];
+  const int f0 = g.nt[0] > 1 ? e1 * e2 : 0;
+  const int f1 = g.nt[1] > 1 ? e0 * e2 : 0;
+  const int f2 = g.nt[2] > 1 ? e0 * e1 : 0;
+  const int f3 = g.tri && g.nt[1] > 1 ? e0 : 0;
+  const unsigned mask = (1u << g.ndir) - 1u;
+  const int lane = threadIdx.x & 31;
+  const int n_face = f0 + f1 + f2 + f3;
+  for (int q0 = 0; q0 < n_face; q0 += blockDim.x) {  // uniform: the warps shuffle
+    const int q = q0 + threadIdx.x;
+    int c[3];
+    int r = q < n_face ? q : 0;
+    if (r < f0) {
+      c[0] = e0 - 1;
+      c[1] = r / e2;
+      c[2] = r - c[1] * e2;
+    } else if ((r -= f0) < f1) {
+      c[0] = r / e2;
+      c[1] = e1 - 1;
+      c[2] = r - c[0] * e2;
+    } else if ((r -= f1) < f2) {
+      c[0] = r / e1;
+      c[1] = r - c[0] * e1;
+      c[2] = e2 - 1;
+    } else {
+      c[0] = r - f2;
+      c[1] = 0;
+      c[2] = 0;
+    }
+    const int i = link_site_of(g, b, c, -1);
+    const unsigned bonds = q < n_face ? st[i] & mask : 0u;
+#pragma unroll
+    for (int dir = 0; dir < 3; ++dir) {
+      if (dir == g.ndir) break;
+      const bool cross = (bonds >> dir) & 1u && link_step(g, b, c, dir) < 0;
+      const int j = cross ? link_site_of(g, b, c, dir) : 0;
+      // the two ends' tile roots (the link wrote them), skipped where the
+      // previous lane unites the same pair
+      const int ra = cross ? __ldcg(P + i) : -1;
+      const int rb = cross ? __ldcg(P + j) : -1;
+      const int pa = __shfl_up_sync(0xffffffffu, ra, 1);
+      const int pb = __shfl_up_sync(0xffffffffu, rb, 1);
+      if (cross && !(lane > 0 && pa == ra && pb == rb)) unite(P, ra, rb);
+    }
+  }
+}
+
+// The tiled form's last pass: every parent becomes its root.  A thread
+// writes its own site only, and only the root, so a parent read here is
+// always an ancestor (find_root's halving could store a grandparent over a
+// root that another thread has just written).
+__global__ void __launch_bounds__(kThreads)
+fk_link_flatten_kernel(int32_t* parent, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  const uint8_t st = state[static_cast<size_t>(b) * n + i];
-  if (!(st & ((1u << dims.ndir) - 1u))) return;
-  link_site(parent + static_cast<size_t>(b) * n, st, i, dims);
+  int32_t* P = parent + static_cast<size_t>(blockIdx.y) * n;
+  const int p = __ldcg(P + i);
+  int r = p;
+  for (int q; (q = __ldcg(P + r)) != r;) r = q;
+  if (r != p) P[i] = r;
 }
 
 __device__ __forceinline__ bool flips(int root, int wolff, int seed_root,
@@ -471,13 +750,43 @@ int peapods_fk_bonds(const void* spins, const void* j_fwd, const void* temps,
 }
 
 // state: uint8 [n_graphs, n] whose bits 0 .. ndir-1 are the forward bonds;
-// parent: int32 [n_graphs, n], parent[i] = i.
+// parent: int32 [n_graphs, n], every entry written.  Tiles of t0 x t1 x t2
+// sites, CTAs of up to `threads` threads (ops/fk.py link_plan).  When the
+// tiles split the graph,
+// fk_link_border and then fk_link_flatten complete the labelling.
 int peapods_fk_link(const void* state, void* parent, int n_graphs, int L0, int L1,
-                    int L2, int tri, void* stream) {
-  fk_link_kernel<<<site_grid(L0 * L1 * L2, 1, n_graphs), kThreads, 0,
-                   static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(state), static_cast<int32_t*>(parent),
-      make_dims(L0, L1, L2, tri != 0));
+                    int L2, int tri, int t0, int t1, int t2, int threads, void* stream) {
+  const LinkTiles g = make_link_tiles(L0, L1, L2, tri, t0, t1, t2);
+  if (!link_tiles_ok(g, n_graphs) || threads < g.t[g.fast] || threads > kLinkThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(link_tile_count(g), n_graphs);
+  const int lines = g.t[0] * (g.fast == 2 ? g.t[1] : 1);
+  const int rows = threads / g.t[g.fast];
+  const dim3 block(g.t[g.fast], rows < lines ? rows : lines);
+  const auto st = static_cast<const uint8_t*>(state);
+  const auto par = static_cast<int32_t*>(parent);
+  if (link_tile_count(g) == 1)
+    fk_link_kernel<true><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(st, par, g);
+  else
+    fk_link_kernel<false><<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(st, par, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int peapods_fk_link_border(const void* state, void* parent, int n_graphs, int L0,
+                           int L1, int L2, int tri, int t0, int t1, int t2,
+                           void* stream) {
+  const LinkTiles g = make_link_tiles(L0, L1, L2, tri, t0, t1, t2);
+  if (!link_tiles_ok(g, n_graphs)) return static_cast<int>(cudaErrorInvalidValue);
+  fk_link_border_kernel<<<dim3(link_tile_count(g), n_graphs), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(state), static_cast<int32_t*>(parent), g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int peapods_fk_link_flatten(void* parent, int n_graphs, int n, void* stream) {
+  fk_link_flatten_kernel<<<site_grid(n, 1, n_graphs), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int32_t*>(parent), n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -30,8 +30,9 @@
 //   free, pallas_sweep.py:176-180) and s over both sites of each column
 //   pair.  Each block writes one partial per (realization, system), the
 //   layout of the per-sweep path's kernels too; pt_step adds each slot's
-//   system's partials in a fixed order.  No float atomics: e is the same
-//   from run to run.
+//   system's partials in one fixed order, set by the row's length alone
+//   (share_sum; ops/mega.py ordered_partial_sum is the same order in
+//   torch).  No float atomics: e is the same from run to run.
 // * pt_step reads its draws from tensors in one form for both paths: the
 //   mega path's murmur draws of its PT words and the per-sweep path's
 //   jnp-form draws are both computed per chunk outside the kernel.
@@ -50,6 +51,19 @@
 // many sweeps of one slot between PT steps), and a CUDA graph or a
 // persistent cooperative kernel with a grid-wide barrier per sweep in
 // place of 3 launches per sweep.
+//
+// What bounds pt_step: it reads each slot's row of partials (8 B a partial)
+// and a few bytes of PT state -- 2 MB at 4096^2 in 4 bands (4 rows of
+// 65,536 partials; 0.63 us at 3.35 TB/s), a few KB at the flagship, where
+// its launch's latency is the bound.  Its first design gave a realization
+// one CTA and each slot one thread, which added the row in a chain of
+// dependent loads and adds: 1.55 ms at 4096^2, four threads of the card
+// streaming 2 MB.  Now a warp sums a row (8 loads in flight a lane, the
+// lanes paired as warp_tree pairs them), a row longer than kThreads
+// partials is split over up to kPtMaxSplit CTAs whose last, found by a
+// ticket, adds their sums and runs PT (still one launch), and a row of at
+// most 32 partials takes one thread and 16-byte loads: 0.0057 ms at 4096^2,
+// 0.0036 ms at the flagship (0.0044 before; NVIDIA H100 80GB HBM3, 700 W).
 
 #include <cuda_runtime.h>
 
@@ -61,6 +75,8 @@
 using namespace peapods;
 
 namespace {
+
+constexpr int kPtMaxSplit = 256;  // CTAs that share a row of pt_step
 
 __global__ void __launch_bounds__(kThreads)
 colour_pass_kernel(int8_t* __restrict__ spins, const float* __restrict__ jgrids,
@@ -137,33 +153,169 @@ __device__ void try_edge(PtState& st, int e, float u) {
   }
 }
 
-__global__ void pt_step_kernel(const float* __restrict__ e_part,
-                               const int32_t* __restrict__ m_part, int n_blocks,
-                               float* __restrict__ e_out, int32_t* __restrict__ m_out,
-                               int out_stride, int32_t* sid, int32_t* ea, int32_t* ec,
-                               int32_t* rtrips, int32_t* tstate,
-                               const float* __restrict__ temps,
-                               const int32_t* __restrict__ edge_draw,
-                               const float* __restrict__ u_draw,
-                               float* __restrict__ sys_temps, int n_slots,
-                               int n_replicas, int n_spins, int do_pt, int pt_full,
-                               int parity, int hot, int cold) {
-  extern __shared__ float es[];
-  const int d = blockIdx.x;
-  for (int slot = threadIdx.x; slot < n_slots; slot += blockDim.x) {
-    const size_t base =
-        (static_cast<size_t>(d) * n_slots + sid[d * n_slots + slot]) * n_blocks;
-    float acc = 0.0f;
-    int macc = 0;
-    for (int b = 0; b < n_blocks; ++b) {
-      acc += e_part[base + b];
-      macc += m_part[base + b];
+// One CTA's share of a row of n partials (`first` = the share's first
+// lane, P = kThreads x the CTAs of a row): the warp's lane l holds the sums
+// of lanes first + l + 32 j (j < 8), each lane adding its values first +
+// lane, + P, + 2P, ... from 0 in turn (a lane past the row adds 0, which is
+// exact); the 256 lane sums are then paired as warp_tree pairs them, and
+// lane 0 returns the share's sum.  Coherent: the values were written by
+// other CTAs of this launch (read through L2).  ops/mega.py
+// ordered_partial_sum is this order in torch.
+template <bool kCoherent>
+__device__ __forceinline__ void share_sum(const float* __restrict__ e,
+                                          const int32_t* __restrict__ m, int n,
+                                          int first, int P, int lane, float& e_sum,
+                                          int& m_sum) {
+  float a[8];
+  int b[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    a[j] = 0.0f;
+    b[j] = 0;
+  }
+  for (int o = first + lane; o < n; o += P) {
+    float x[8];
+    int y[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {  // every load issued before any add
+      const int i = o + 32 * j;
+      x[j] = i < n ? (kCoherent ? __ldcg(e + i) : e[i]) : 0.0f;
+      y[j] = i < n ? (kCoherent ? __ldcg(m + i) : m[i]) : 0;
     }
-    const float e = acc / static_cast<float>(n_spins);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      a[j] += x[j];
+      b[j] += y[j];
+    }
+  }
+  float s = ((a[0] + a[4]) + (a[2] + a[6])) + ((a[1] + a[5]) + (a[3] + a[7]));
+  int t = ((b[0] + b[4]) + (b[2] + b[6])) + ((b[1] + b[5]) + (b[3] + b[7]));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s += __shfl_down_sync(0xffffffffu, s, off);
+    t += __shfl_down_sync(0xffffffffu, t, off);
+  }
+  e_sum = s;
+  m_sum = t;
+}
+
+// One level of a halving tree in registers: v[l] += v[l + H] for l < H.
+template <int H>
+__device__ __forceinline__ void halve(float* v, int* w) {
+#pragma unroll
+  for (int l = 0; l < H; ++l) {
+    v[l] += v[l + H];
+    w[l] += w[l + H];
+  }
+}
+
+// Grid (split, d): CTA c of realization d sums its share (lanes c kThreads
+// .. c kThreads + 255 of the split kThreads lanes) of every slot's row, a
+// warp a slot.  With one CTA a realization (split 1) that is the row's sum;
+// else each CTA writes its shares' sums to part_e / part_m [d, n_slots,
+// split] and takes a ticket, and the realization's last CTA adds the split
+// sums as a row of its own (share_sum again), resets the ticket for the next
+// launch and runs the PT event.  kShort: rows of at most 32 partials
+// (split 1), a thread a slot and no more threads than slots: lanes past the
+// row hold 0 and lane l's sum is 0 + x[l], so share_sum's pairing is the
+// halving tree of these 32 values, here in registers (no chain of shuffles
+// a slot), read 16 bytes a load where a row is a multiple of 4 long.
+template <bool kShort>
+__global__ void __launch_bounds__(kThreads)
+pt_step_kernel(const float* __restrict__ e_part, const int32_t* __restrict__ m_part,
+               int n_blocks, int split, float* part_e, int32_t* part_m,
+               int32_t* ticket, float* __restrict__ e_out, int32_t* __restrict__ m_out,
+               int out_stride, int32_t* sid, int32_t* ea, int32_t* ec, int32_t* rtrips,
+               int32_t* tstate, const float* __restrict__ temps,
+               const int32_t* __restrict__ edge_draw, const float* __restrict__ u_draw,
+               float* __restrict__ sys_temps, int n_slots, int n_replicas, int n_spins,
+               int do_pt, int pt_full, int parity, int hot, int cold) {
+  extern __shared__ float es[];
+  __shared__ bool last;
+  const int d = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  constexpr int kWarps = kThreads / 32;
+  // the slot's energy per spin and magnetization, once its row is summed
+  auto finish = [&](int slot, float e_sum, int m_sum) {
+    const float e = e_sum / static_cast<float>(n_spins);
     es[slot] = e;
     if (e_out != nullptr) {
       e_out[static_cast<size_t>(d) * out_stride + slot] = e;
-      m_out[static_cast<size_t>(d) * out_stride + slot] = macc;
+      m_out[static_cast<size_t>(d) * out_stride + slot] = m_sum;
+    }
+  };
+  // the row of the slot's system
+  auto row = [&](int slot) {
+    return (static_cast<size_t>(d) * n_slots + sid[d * n_slots + slot]) * n_blocks;
+  };
+  if (kShort) {
+    for (int slot = threadIdx.x; slot < n_slots; slot += blockDim.x) {
+      const size_t o = row(slot);
+      float v[32];
+      int w[32];
+      if ((n_blocks & 3) == 0 && ((reinterpret_cast<size_t>(e_part) |
+                                   reinterpret_cast<size_t>(m_part)) & 15) == 0) {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const bool in = 4 * q < n_blocks;
+          const float4 a = in ? reinterpret_cast<const float4*>(e_part + o)[q]
+                              : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          const int4 c = in ? reinterpret_cast<const int4*>(m_part + o)[q]
+                            : make_int4(0, 0, 0, 0);
+          v[4 * q] = in ? 0.0f + a.x : 0.0f;
+          v[4 * q + 1] = in ? 0.0f + a.y : 0.0f;
+          v[4 * q + 2] = in ? 0.0f + a.z : 0.0f;
+          v[4 * q + 3] = in ? 0.0f + a.w : 0.0f;
+          w[4 * q] = c.x;
+          w[4 * q + 1] = c.y;
+          w[4 * q + 2] = c.z;
+          w[4 * q + 3] = c.w;
+        }
+      } else {
+#pragma unroll
+        for (int l = 0; l < 32; ++l) {
+          v[l] = l < n_blocks ? 0.0f + e_part[o + l] : 0.0f;
+          w[l] = l < n_blocks ? m_part[o + l] : 0;
+        }
+      }
+      halve<16>(v, w);
+      halve<8>(v, w);
+      halve<4>(v, w);
+      halve<2>(v, w);
+      halve<1>(v, w);
+      finish(slot, v[0], w[0]);
+    }
+  } else {
+    for (int slot = warp; slot < n_slots; slot += kWarps) {
+      const size_t o = row(slot);
+      float e_sum;
+      int m_sum;
+      share_sum<false>(e_part + o, m_part + o, n_blocks, blockIdx.x * kThreads,
+                       split * kThreads, lane, e_sum, m_sum);
+      if (lane != 0) continue;
+      if (split == 1) {
+        finish(slot, e_sum, m_sum);
+      } else {
+        const size_t q = (static_cast<size_t>(d) * n_slots + slot) * split + blockIdx.x;
+        part_e[q] = e_sum;
+        part_m[q] = m_sum;
+      }
+    }
+    if (split > 1) {
+      __threadfence();  // the shares' sums reach L2 before the ticket
+      __syncthreads();
+      if (threadIdx.x == 0) last = atomicAdd(ticket + d, 1) == split - 1;
+      __syncthreads();
+      if (!last) return;
+      for (int slot = warp; slot < n_slots; slot += kWarps) {
+        const size_t o = (static_cast<size_t>(d) * n_slots + slot) * split;
+        float e_sum;
+        int m_sum;
+        share_sum<true>(part_e + o, part_m + o, split, 0, kThreads, lane, e_sum, m_sum);
+        if (lane == 0) finish(slot, e_sum, m_sum);
+      }
+      if (threadIdx.x == 0) ticket[d] = 0;
     }
   }
   __syncthreads();
@@ -226,23 +378,35 @@ int peapods_colour_pass(void* spins, const void* jgrids, const void* sid,
 // every realization (slots r T .. r T + T - 1, temps [n_slots] by slot),
 // with the draws u_draw (f32 [d, R] single edge, [d, R, 2, n_edges] full
 // ladder) and edge_draw (int32 [d, R]); a PT event then rewrites each
-// system's temperature sys_temps ([d, n_systems]).
-int peapods_pt_step(const void* e_part, const void* m_part, int n_blocks,
-                    void* e_out, void* m_out, int out_stride, void* sid, void* ea,
-                    void* ec, void* rtrips, void* tstate, const void* temps,
-                    const void* edge_draw, const void* u_draw, void* sys_temps,
-                    int n_disorder, int n_slots, int n_replicas, int n_spins,
-                    int do_pt, int pt_full, int parity, int hot, int cold,
-                    void* stream) {
-  pt_step_kernel<<<n_disorder, 32, n_slots * sizeof(float),
-                   static_cast<cudaStream_t>(stream)>>>(
+// system's temperature sys_temps ([d, n_systems]).  split: the CTAs that
+// share a row (1 to kPtMaxSplit; ops/mega.py pt_split); with split > 1,
+// part_e / part_m hold [d, n_slots, split] values and ticket [d] zeros,
+// which the kernel leaves zero.
+int peapods_pt_step(const void* e_part, const void* m_part, int n_blocks, int split,
+                    void* part_e, void* part_m, void* ticket, void* e_out, void* m_out,
+                    int out_stride, void* sid, void* ea, void* ec, void* rtrips,
+                    void* tstate, const void* temps, const void* edge_draw,
+                    const void* u_draw, void* sys_temps, int n_disorder, int n_slots,
+                    int n_replicas, int n_spins, int do_pt, int pt_full, int parity,
+                    int hot, int cold, void* stream) {
+  if (split < 1 || split > kPtMaxSplit || (n_blocks <= 32 && split != 1) ||
+      (split > 1 && (part_e == nullptr || part_m == nullptr || ticket == nullptr)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool short_rows = n_blocks <= 32;  // split 1
+  const int slots32 = (n_slots + 31) / 32 * 32;
+  const int threads = short_rows && slots32 < kThreads ? slots32 : kThreads;
+  auto kernel = short_rows ? pt_step_kernel<true> : pt_step_kernel<false>;
+  kernel<<<dim3(split, n_disorder), threads, n_slots * sizeof(float),
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(e_part), static_cast<const int32_t*>(m_part), n_blocks,
-      static_cast<float*>(e_out), static_cast<int32_t*>(m_out), out_stride,
-      static_cast<int32_t*>(sid), static_cast<int32_t*>(ea), static_cast<int32_t*>(ec),
-      static_cast<int32_t*>(rtrips), static_cast<int32_t*>(tstate),
-      static_cast<const float*>(temps), static_cast<const int32_t*>(edge_draw),
-      static_cast<const float*>(u_draw), static_cast<float*>(sys_temps), n_slots,
-      n_replicas, n_spins, do_pt, pt_full, parity, hot, cold);
+      split, static_cast<float*>(part_e), static_cast<int32_t*>(part_m),
+      static_cast<int32_t*>(ticket), static_cast<float*>(e_out),
+      static_cast<int32_t*>(m_out), out_stride, static_cast<int32_t*>(sid),
+      static_cast<int32_t*>(ea), static_cast<int32_t*>(ec), static_cast<int32_t*>(rtrips),
+      static_cast<int32_t*>(tstate), static_cast<const float*>(temps),
+      static_cast<const int32_t*>(edge_draw), static_cast<const float*>(u_draw),
+      static_cast<float*>(sys_temps), n_slots, n_replicas, n_spins, do_pt, pt_full,
+      parity, hot, cold);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,8 +1,10 @@
-// Device helpers shared by the cluster kernels (fk.cu, overlap.cu, cc.cu):
-// the periodic neighbours of a 2D or 3D lattice (and of the triangular
-// lattice's third bond direction), the salted per-cluster coin, and the
-// union-find whose roots are each component's minimum site index, linked
-// along the lattice's axes or along any offset table (nb.cuh).
+// Device helpers shared by the cluster kernels (fk.cu, overlap.cu, cc.cu,
+// cc_band.cu): the periodic neighbours of a 2D or 3D lattice (and of the
+// triangular lattice's third bond direction), the salted per-cluster coin,
+// the union-find in global memory whose roots are each component's minimum
+// site index (find_root, unite; linked along any offset table, nb.cuh, or
+// between tile roots, fk.cu's border), and the union-find of a tile in
+// shared memory (tile_root, tile_unite).
 #pragma once
 
 #include <cstddef>
@@ -112,12 +114,39 @@ __device__ __forceinline__ void unite(int32_t* P, int a, int b) {
   }
 }
 
-// Unite site i with its forward neighbours along the bonds set in bits
-// 0 .. ndir-1 of its state byte.
-__device__ __forceinline__ void link_site(int32_t* P, uint8_t st, int i,
-                                          const Dims& g) {
-  for (int dir = 0; dir < g.ndir; ++dir)
-    if ((st >> dir) & 1u) unite(P, i, fwd_site(i, g, dir));
+// Root of x in the tile's shared parents, halving the path on the way
+// (only non-roots are written, so a root's CAS never races a halving).
+__device__ __forceinline__ int tile_root(int* P, int x) {
+  volatile int* V = P;
+  while (true) {
+    const int p = V[x];
+    if (p == x) return x;
+    const int gp = V[p];
+    if (gp == p) return p;
+    V[x] = gp;
+    x = gp;
+  }
+}
+
+// Join the trees of x and y in the tile's shared parents: the larger root
+// takes the smaller as its parent (atomicMin); where the larger was hung
+// elsewhere meanwhile, its old parent is joined next.  A tile's site order
+// is its sites' global order (cc_band.cu: band_key's; fk.cu: the site
+// index's), so each tile component's root is its smallest site.
+__device__ __forceinline__ void tile_unite(int* P, int x, int y) {
+  while (true) {
+    x = tile_root(P, x);
+    y = tile_root(P, y);
+    if (x == y) return;
+    if (x < y) {
+      const int t = x;
+      x = y;
+      y = t;
+    }
+    const int old = atomicMin(P + x, y);
+    if (old == x) return;
+    x = old;
+  }
 }
 
 // Unite site i with its neighbours at the forward offsets of an offset

@@ -41,11 +41,13 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "peapods_colour_pass_blocks": [_I, _I],
     "peapods_colour_pass": [_P] * 7 + [_I] * 7 + [_P],
-    "peapods_pt_step": [_P, _P, _I, _P, _P, _I] + [_P] * 9 + [_I] * 9 + [_P],
+    "peapods_pt_step": [_P, _P, _I, _I] + [_P] * 5 + [_I] + [_P] * 9 + [_I] * 9 + [_P],
     "peapods_sweep_2d": [_P] * 6 + [_I] * 6 + [_P],
     "peapods_fk_blocks": [_I],
     "peapods_fk_bonds": [_P] * 6 + [_I] * 6 + [_P],
-    "peapods_fk_link": [_P, _P] + [_I] * 5 + [_P],
+    "peapods_fk_link": [_P, _P] + [_I] * 9 + [_P],
+    "peapods_fk_link_border": [_P, _P] + [_I] * 8 + [_P],
+    "peapods_fk_link_flatten": [_P] + [_I] * 2 + [_P],
     "peapods_fk_bonds_nb": [_P] * 7 + [_I] * 2 + [_P],
     "peapods_fk_finish": [_P] * 8 + [_I] * 8 + [_P],
     "peapods_cc_link": [_P] * 3 + [_I] + [_P],

@@ -13,10 +13,13 @@ directions), a 2D triangular (three: down, right and ``[1, -1]``, the
 reference's ``tri=True``) or a 3D cubic lattice (three); its bond offsets
 are :func:`~.cluster.fk_offsets`.  The graphs are not packed into tiles.
 
-:func:`fk_update` launches the three kernels of ``csrc/fk.cu`` on CUDA
-tensors (counted in :data:`LAUNCHES`) and runs :func:`fk_update_plain` on
-CPU tensors.  Both update the spins in place and return the same values:
-bond uniforms from Philox keyed by ``kb`` (``rng.bond_uniforms``), labels
+:func:`fk_update` launches the kernels of ``csrc/fk.cu`` on CUDA tensors
+(counted in :data:`LAUNCHES`): ``fk_bonds``, the labelling
+(:func:`launch_link`: ``fk_link``, and where :func:`link_plan` cuts a graph
+into tiles ``fk_link_border`` and ``fk_link_flatten``) and ``fk_finish``;
+it runs :func:`fk_update_plain` on CPU tensors.  Both update the spins in
+place and return the same values: bond uniforms from Philox keyed by
+``kb`` (``rng.bond_uniforms``), labels
 equal to each component's minimum site index, and per-graph partial sums
 of the post-update energy and magnetization (one partial per kernel block;
 one per graph in the plain version).
@@ -40,6 +43,10 @@ label from the band that holds it) and optionally measures them.
 """
 
 from __future__ import annotations
+
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -67,9 +74,15 @@ __all__ = [
     "state_masks",
     "fk_bonds_plain",
     "fk_link_plain",
+    "fk_link_tiles_plain",
+    "fk_link_flatten_plain",
+    "tile_bonds",
     "fk_finish_plain",
     "fk_energy_mag",
     "launch_link",
+    "LinkPlan",
+    "link_plan",
+    "link_launches",
     "fk_bonds_band",
     "fk_bonds_band_plain",
     "fk_finish_band",
@@ -78,8 +91,20 @@ __all__ = [
 ]
 
 # kernel launches since the last reset, by kernel name
-LAUNCHES = {"fk_bonds": 0, "fk_bonds_nb": 0, "fk_link": 0, "fk_finish": 0,
-            "fk_bonds_band": 0, "fk_finish_band": 0}
+LAUNCHES = {"fk_bonds": 0, "fk_bonds_nb": 0, "fk_link": 0, "fk_link_border": 0,
+            "fk_link_flatten": 0, "fk_finish": 0, "fk_bonds_band": 0,
+            "fk_finish_band": 0}
+
+# fk_link (csrc/fk.cu kLinkSites, kLinkThreads): a CTA holds a tile of at
+# most LINK_TILE_SITES sites of one graph in shared memory, its threads
+# along the fast axis.  A graph that fits is one tile; a larger graph is cut
+# into tiles that shrink, down to LINK_MIN_TILE sites, until a launch has
+# LINK_MIN_CTAS CTAs.  A launch of fewer CTAs gives each LINK_THREADS
+# threads, else LINK_THREADS // 2 (more CTAs in flight an SM).
+LINK_TILE_SITES = 8192
+LINK_THREADS = 1024
+LINK_MIN_TILE = 512
+LINK_MIN_CTAS = 1024
 
 
 def _ptr(t):
@@ -118,6 +143,41 @@ def fk_link_plain(bonds, shape):
     """Plain version of ``fk_link``: int32 ``[B, n]`` labels, each
     component's minimum site index."""
     return connected_components(bonds, shape, fk_offsets(shape, bonds.shape[-1]))
+
+
+def tile_bonds(shape, n_dirs: int, tile, device):
+    """bool ``[n, n_dirs]``: which forward bonds stay inside their site's
+    tile of ``tile`` sites (an ``(l0, l1, l2)`` box; a tile that spans an
+    axis keeps the bonds that wrap around it)."""
+    dims = _build.dims3(shape)
+    c = torch.stack(torch.meshgrid(*(torch.arange(d, device=device) for d in dims),
+                                   indexing="ij"), -1).reshape(-1, 3)
+    keep = torch.ones((c.shape[0], n_dirs), dtype=torch.bool, device=device)
+    for k, off in enumerate(fk_offsets(tuple(shape), n_dirs)):
+        for a, o in enumerate(tuple(off) + (0,) * (3 - len(off))):
+            if dims[a] > tile[a] and o:
+                to = c[:, a] + o
+                keep[:, k] &= (to >= 0) & (to < dims[a]) & (to // tile[a] == c[:, a] // tile[a])
+    return keep
+
+
+def fk_link_tiles_plain(bonds, shape, tile):
+    """Plain version of ``fk_link`` in the tiled form: int32 ``[B, n]``, each
+    site's parent the minimum site of its component inside its tile."""
+    keep = tile_bonds(shape, bonds.shape[-1], tile, bonds.device)
+    return fk_link_plain(bonds & keep, shape)
+
+
+def fk_link_flatten_plain(parent):
+    """Plain version of ``fk_link_flatten``: int32 ``[B, n]``, every parent
+    replaced by its root (the labels that ``fk_link_border``'s parents lead
+    to)."""
+    p = parent.long()
+    while True:
+        q = p.gather(-1, p)
+        if torch.equal(q, p):
+            return q.to(torch.int32)
+        p = q
 
 
 def state_masks(state, n_dirs: int):
@@ -177,15 +237,99 @@ def fk_update_plain(spins, j_fwd, temps, scalars, kb_words, *, wolff,
     return e_part, m_part, labels.reshape(spins.shape) if with_labels else None
 
 
-def launch_link(lib, stream, p_state, p_parent, n_graphs, l0, l1, l2, tri=False):
-    """Launch ``fk_link`` on raw pointers: label ``n_graphs`` bond graphs of
-    an ``(l0, l1, l2)`` lattice (``l2 = 1`` in 2D) whose state bytes hold
-    the forward bonds in bits ``0 .. n_dirs - 1`` (``tri``: the triangular
-    lattice's three).  The FK update and the overlap moves (:mod:`.overlap`)
-    both label their graphs so."""
+class LinkPlan(NamedTuple):
+    """How ``fk_link`` cuts a graph: tiles of ``tile`` sites (an ``(l0, l1,
+    l2)`` box), CTAs of up to ``threads`` threads, and whether the tiles
+    split the graph (``tiled``: ``fk_link_border`` and ``fk_link_flatten``
+    follow the link)."""
+
+    tile: tuple
+    threads: int
+    tiled: bool
+
+
+def _link_tile(dims, sites):
+    """A box of at most ``sites`` sites: in 2D 32 to 128 sites along the
+    rows and as many rows as fit; in 3D lines of up to 32 sites along axis
+    2 in a square of lines, then as many planes as fit."""
+    l0, l1, l2 = dims
+    if l2 > 1:
+        t2 = min(l2, 32)
+        lines = max(1, sites // t2)
+        w = 1
+        while (2 * w) ** 2 <= lines:
+            w *= 2
+        t1 = min(l1, w)
+        return min(l0, max(1, lines // t1)), t1, t2
+    w = 32
+    while w < 128 and w * w < sites:
+        w *= 2
+    t1 = min(l1, w)
+    return min(l0, max(1, sites // t1)), t1, 1
+
+
+@functools.lru_cache(maxsize=None)
+def link_plan(dims, n_graphs: int) -> LinkPlan:
+    """``fk_link``'s form for ``n_graphs`` graphs of ``dims = (l0, l1, l2)``
+    sites (``l2 = 1`` in 2D), from the shape alone: the whole-graph form
+    where a graph fits a CTA's tile, else the tiled form."""
+    dims = tuple(int(x) for x in dims)
+    n = math.prod(dims)
+    fast = dims[2] if dims[2] > 1 else dims[1]
+    if n <= LINK_TILE_SITES and fast <= LINK_THREADS:
+        tile = dims
+    else:
+        sites = LINK_TILE_SITES
+        tile = _link_tile(dims, sites)
+        while sites > LINK_MIN_TILE and _n_tiles(dims, tile) * n_graphs < LINK_MIN_CTAS:
+            sites //= 2
+            tile = _link_tile(dims, sites)
+    return LinkPlan(tile, _link_threads(dims, tile, n_graphs), tile != dims)
+
+
+def _n_tiles(dims, tile):
+    return math.prod(-(-d // t) for d, t in zip(dims, tile))
+
+
+def _link_threads(dims, tile, n_graphs):
+    few = _n_tiles(dims, tile) * n_graphs < LINK_MIN_CTAS
+    wide = tile[2 if dims[2] > 1 else 1] > LINK_THREADS // 2
+    return LINK_THREADS if few or wide else LINK_THREADS // 2
+
+
+def link_launches(shape, n_graphs: int) -> dict:
+    """The launches of one labelling of ``n_graphs`` graphs of ``shape``, by
+    kernel name."""
+    plan = link_plan(_build.dims3(shape), n_graphs)
+    names = ("fk_link", "fk_link_border", "fk_link_flatten") if plan.tiled else ("fk_link",)
+    return dict.fromkeys(names, 1)
+
+
+def launch_link(lib, stream, p_state, p_parent, n_graphs, l0, l1, l2, tri=False,
+                plan=None):
+    """Label ``n_graphs`` bond graphs of an ``(l0, l1, l2)`` lattice (``l2 =
+    1`` in 2D) on raw pointers: state bytes with the forward bonds in bits
+    ``0 .. n_dirs - 1`` (``tri``: the triangular lattice's three) in,
+    every parent written out.  When the launches end each parent is the
+    site's component's minimum site index: ``fk_link`` in shared memory,
+    and where the tiles split a graph (``plan``, default
+    :func:`link_plan`) ``fk_link_border`` and ``fk_link_flatten``.  The FK
+    update and the overlap moves (:mod:`.overlap`) both label their graphs
+    so."""
+    plan = plan or link_plan((l0, l1, l2), n_graphs)
     _build.check(lib.peapods_fk_link(p_state, p_parent, n_graphs, l0, l1, l2,
-                                     int(tri), stream), "fk_link")
+                                     int(tri), *plan.tile, plan.threads, stream),
+                 "fk_link")
     LAUNCHES["fk_link"] += 1
+    if not plan.tiled:
+        return
+    _build.check(lib.peapods_fk_link_border(p_state, p_parent, n_graphs, l0, l1, l2,
+                                            int(tri), *plan.tile, stream),
+                 "fk_link_border")
+    LAUNCHES["fk_link_border"] += 1
+    _build.check(lib.peapods_fk_link_flatten(p_parent, n_graphs, l0 * l1 * l2, stream),
+                 "fk_link_flatten")
+    LAUNCHES["fk_link_flatten"] += 1
 
 
 def _check_graphs(spins, j_fwd, temps, kb_words, scalars=None):

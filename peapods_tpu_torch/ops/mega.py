@@ -6,8 +6,9 @@ keeps every slot's spins in VMEM; on the H100 one sweep is three launches of
 the hand-written kernels in ``csrc/mega.cu`` on the current stream::
 
     colour_pass(colour 0) -> colour_pass(colour 1, partial e and m sums)
-        -> pt_step (reduce the partials into the sweep's (e, m) rows, then
-           the PT event when the sweep is on the PT interval)
+        -> pt_step (reduce the partials into the sweep's (e, m) rows in one
+           fixed order, :func:`ordered_partial_sum`, then the PT event when
+           the sweep is on the PT interval)
 
 with no host synchronisation inside a chunk.  State is updated in place:
 spins by system ``[d, n_systems, H, W]`` and the slot -> system map ``sid``
@@ -46,6 +47,8 @@ __all__ = [
     "colour_pass_plain",
     "pt_step",
     "pt_step_plain",
+    "pt_split",
+    "ordered_partial_sum",
     "mega_chunk",
     "mega_chunk_plain",
 ]
@@ -57,6 +60,13 @@ LAUNCHES = {"colour_pass": 0, "pt_step": 0}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+# pt_step's reduction: a CTA's share of a row is REDUCE_LANES lanes, and a
+# row of more than REDUCE_LANES partials is split over up to MAX_SPLIT CTAs
+# (csrc/mega.cu kThreads, kPtMaxSplit)
+REDUCE_LANES = 256
+MAX_SPLIT = 256
 
 
 def supports_mega(lattice, n_replicas) -> bool:
@@ -106,6 +116,38 @@ def colour_pass_plain(spins, jgrids, sid, temps, words, colour, *, gibbs,
     return e_part, m_part
 
 
+def pt_split(n_blocks: int) -> int:
+    """The CTAs of ``pt_step`` that share a row of ``n_blocks`` partials:
+    one a ``REDUCE_LANES`` partials, up to ``MAX_SPLIT``.  The order of the
+    row's sum depends on it, and so only on the row's length."""
+    return max(1, min(MAX_SPLIT, -(-n_blocks // REDUCE_LANES)))
+
+
+def ordered_partial_sum(x, n_split: int = 1):
+    """The sum of the partials ``x [..., n]`` over the last axis in
+    ``pt_step``'s order (``csrc/mega.cu`` ``share_sum``), bitwise on every
+    device: ``P = REDUCE_LANES * n_split`` lanes, lane ``l`` adding ``x[l]``,
+    ``x[l + P]``, ... from 0 in turn; each CTA's ``REDUCE_LANES`` lane sums
+    paired as a tree (lane ``l`` with ``l + 128``, then ``l + 64``, ...,
+    ``mega.cuh`` ``warp_tree``); and with ``n_split > 1`` the CTAs' sums
+    added as a row of their own."""
+    n = x.shape[-1]
+    if n == 1 and n_split == 1:
+        return x[..., 0] + 0.0  # the tree of one value and 255 zeros
+    p = REDUCE_LANES * n_split
+    k = -(-n // p)
+    xs = torch.nn.functional.pad(x, (0, k * p - n)).reshape(*x.shape[:-1], k, p)
+    acc = torch.zeros_like(xs[..., 0, :])
+    for i in range(k):
+        acc = acc + xs[..., i, :]
+    v = acc.reshape(*x.shape[:-1], n_split, REDUCE_LANES)
+    while v.shape[-1] > 1:
+        h = v.shape[-1] // 2
+        v = v[..., :h] + v[..., h:]
+    v = v[..., 0]
+    return v[..., 0] if n_split == 1 else ordered_partial_sum(v)
+
+
 def pt_step_plain(e_part, m_part, e_row, m_row, sid, ea, ec, rtrips, tstate,
                   temps, draws, sys_temps, *, do_pt, pt_full, parity, hot_slot,
                   cold_slot, n_spins, n_replicas=1) -> int:
@@ -128,9 +170,13 @@ def pt_step_plain(e_part, m_part, e_row, m_row, sid, ea, ec, rtrips, tstate,
         sys_temps: f32 ``[d, n_systems]`` each system's temperature,
             rewritten after a PT event.
 
+    The energy rows add the partials in the kernel's order
+    (:func:`ordered_partial_sum`), so they are bitwise the kernel's.
+
     Returns the parity of the next PT event."""
+    split = pt_split(e_part.shape[-1])
     e_part, m_part = (per_slot_values(x, sid) for x in (e_part, m_part))
-    es = per_spin(e_part.sum(-1), n_spins)
+    es = per_spin(ordered_partial_sum(e_part, split), n_spins)
     if e_row is not None:
         e_row.copy_(es)
         m_row.copy_(m_part.sum(-1, dtype=torch.int32))
@@ -245,18 +291,42 @@ def _launch_colour(lib, stream, shape, spins, jgrids, sid, temps, words,
     LAUNCHES["colour_pass"] += 1
 
 
-def _launch_pt(lib, stream, d, n_slots, n_spins, e_part, m_part, n_blocks,
+# device -> (ticket int32, part_e f32, part_m int32): the cross-CTA sums
+# of pt_step, grown on demand.  The tickets start at zero and every launch
+# leaves them zero; the port runs a device's launches on one stream.
+_PT_SCRATCH = {}
+
+
+def _pt_scratch(dev, d, n_slots, split):
+    """Pointers ``(part_e, part_m, ticket)`` of a launch whose rows are split
+    over ``split`` CTAs (``None`` each for one CTA a row)."""
+    if split == 1:
+        return None, None, None
+    buf = _PT_SCRATCH.get(dev)
+    n = d * n_slots * split
+    if buf is None or buf[0].numel() < d or buf[1].numel() < n:
+        if buf is not None:
+            d, n = max(d, buf[0].numel()), max(n, buf[1].numel())
+        buf = (torch.zeros(d, dtype=torch.int32, device=dev),
+               torch.empty(n, dtype=torch.float32, device=dev),
+               torch.empty(n, dtype=torch.int32, device=dev))
+        _PT_SCRATCH[dev] = buf
+    return buf[1].data_ptr(), buf[2].data_ptr(), buf[0].data_ptr()
+
+
+def _launch_pt(lib, stream, dev, d, n_slots, n_spins, e_part, m_part, n_blocks,
                e_row, m_row, out_stride, sid, ea, ec, rtrips, tstate, temps,
                edge_draw, u_draw, sys_temps, *, do_pt, pt_full, parity,
                hot_slot, cold_slot, n_replicas=1) -> int:
-    """Launch ``pt_step``; pointers are ints (``None`` for draws that the
-    event does not read, and for rows that are not written).  Returns the
-    next parity."""
+    """Launch ``pt_step`` on ``dev``; pointers are ints (``None`` for draws
+    that the event does not read, and for rows that are not written).
+    Returns the next parity."""
+    split = pt_split(n_blocks)
     _build.check(lib.peapods_pt_step(
-        e_part, m_part, n_blocks, e_row, m_row, out_stride, sid, ea, ec,
-        rtrips, tstate, temps, edge_draw, u_draw, sys_temps, d, n_slots,
-        n_replicas, n_spins, int(do_pt), int(pt_full), int(parity), hot_slot,
-        cold_slot, stream,
+        e_part, m_part, n_blocks, split, *_pt_scratch(dev, d, n_slots, split),
+        e_row, m_row, out_stride, sid, ea, ec, rtrips, tstate, temps, edge_draw,
+        u_draw, sys_temps, d, n_slots, n_replicas, n_spins, int(do_pt),
+        int(pt_full), int(parity), hot_slot, cold_slot, stream,
     ), "pt_step")
     LAUNCHES["pt_step"] += 1
     return 1 - parity if (do_pt and pt_full) else parity
@@ -339,7 +409,7 @@ def pt_step(e_part, m_part, e_row, m_row, sid, ea, ec, rtrips, tstate, temps,
                 raise ValueError(f"{name} must be a {dtype} [d, n_slots] row view")
         rows = (e_row.data_ptr(), m_row.data_ptr(), e_row.stride(0))
     return _launch_pt(
-        _build.library(), torch.cuda.current_stream(dev).cuda_stream,
+        _build.library(), torch.cuda.current_stream(dev).cuda_stream, dev,
         d, n_slots, n_spins, e_part.data_ptr(), m_part.data_ptr(),
         n_blocks, *rows, sid.data_ptr(), ea.data_ptr(), ec.data_ptr(),
         rtrips.data_ptr(), tstate.data_ptr(), temps.data_ptr(), edge_draw,
@@ -415,7 +485,7 @@ def mega_chunk(spins, jgrids, temps, sid, ea, ec, rtrips, tstate, sweep_words,
                            p_sw + t * word_bytes, *parts, colour, gibbs)
         do_pt = _pt_due(sweep_base, t, pt_interval)
         parity = _launch_pt(
-            lib, stream, d, n_slots, h * w, p_ep, p_mp, e_part.shape[2],
+            lib, stream, dev, d, n_slots, h * w, p_ep, p_mp, e_part.shape[2],
             p_e + t * row_bytes, p_m + t * row_bytes, n * n_slots, p_sid,
             *p_pt, p_temps,
             p_edge + t * edge_bytes if do_pt and p_edge is not None else None,

@@ -347,11 +347,11 @@ def pairs_chunk(spins, jgrids, coup, temps, slot_temps, sid, ea, ec, rtrips,
         rows = (p_e + t * row_bytes, p_m + t * row_bytes, n * n_slots)
         if k is None:
             parity = mega._launch_pt(
-                lib, stream, d, n_slots, n_sites, p_ep, p_mp, e_part.shape[2],
+                lib, stream, dev, d, n_slots, n_sites, p_ep, p_mp, e_part.shape[2],
                 *rows, p_sid, *p_pt, p_st, *dr, p_systemps, do_pt=do_pt,
                 parity=parity, **pt_kw)
             continue
-        mega._launch_pt(lib, stream, d, n_slots, n_sites, p_ep, p_mp,
+        mega._launch_pt(lib, stream, dev, d, n_slots, n_sites, p_ep, p_mp,
                         e_part.shape[2], *rows, p_sid, *p_pt, p_st, None, None,
                         p_systemps, do_pt=False, parity=parity, **pt_kw)
         g, kind = events.groups[k], events.kinds[k]
@@ -386,7 +386,7 @@ def pairs_chunk(spins, jgrids, coup, temps, slot_temps, sid, ea, ec, rtrips,
                                       p_spins, p_coup, p_ep2, p_mp2)
                 parts = (p_ep2, p_mp2, nb2)
             parity = mega._launch_pt(
-                lib, stream, d, n_slots, n_sites, *parts, None, None,
+                lib, stream, dev, d, n_slots, n_sites, *parts, None, None,
                 0, p_sid, *p_pt, p_st, *dr, p_systemps, do_pt=True,
                 parity=parity, **pt_kw)
     return e, m, qs, ql, parity

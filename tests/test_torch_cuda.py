@@ -27,7 +27,7 @@ import pytest
 import torch
 
 from peapods_tpu_torch import Ising
-from peapods_tpu_torch.ops import fk, mega, sweep
+from peapods_tpu_torch.ops import _build, fk, mega, sweep
 from peapods_tpu_torch.ops.sweep import pack_coupling_grids
 from peapods_tpu_torch.ops.tempering import hot_cold_slots, init_trip_state
 
@@ -229,7 +229,7 @@ def test_fk_update_kernel_matches_plain(cuda, shape, d, n_sys, wolff):
     ep, mp, lp = fk.fk_update_plain(kp, *args, **kw)
     torch.cuda.synchronize()
     assert {k: v for k, v in fk.LAUNCHES.items() if v} == {
-        "fk_bonds": 1, "fk_link": 1, "fk_finish": 1}
+        "fk_bonds": 1, **fk.link_launches(shape, b), "fk_finish": 1}
     assert torch.equal(ka, kp)
     assert torch.equal(lk, lp)
     e_k, m_k = fk.fk_energy_mag(ek, mk, h * w)
@@ -306,6 +306,206 @@ def test_pt_step_kernel_matches_plain(cuda, d, n_sys, n_blocks, pt_full):
     assert k["parity"] == p["parity"]
     if do_pt:
         assert 0 < int(k["ec"].sum()) < int(k["ea"].sum())
+
+
+@pytest.mark.parametrize("d,n_sys,n_blocks,pt_full", [
+    (1, 4, 65536, False), (1, 4, 65536, True), (128, 16, 16, False),
+    (128, 16, 16, True), (2, 5, 700, False), (3, 7, 3, True),
+], ids=["4096-bands-single", "4096-bands-full", "harness-single", "harness-full",
+        "split-ragged", "short-odd"])
+def test_pt_step_kernel_adds_gaussian_partials_in_the_plain_order(cuda, d, n_sys,
+                                                                  n_blocks, pt_full):
+    """Non-integer partials, whose sum depends on the order: the e rows and
+    every PT output bitwise pt_step_plain, over 24 events in a row from one
+    start state (at 65,536 and 700 partials a row is split over CTAs, and
+    each launch finds the tickets the last one left at zero)."""
+    from peapods_tpu_torch.ops.measure import slot_temps_for_systems
+    from peapods_tpu_torch.ops.tempering import pt_draws
+
+    rng = np.random.default_rng(n_blocks + n_sys)
+    n_events = 24
+    temps = torch.from_numpy(np.geomspace(1.5, 3.5, n_sys).astype(np.float32)).to(cuda)
+    hot, cold = hot_cold_slots(temps.cpu().numpy())
+    sid0 = torch.from_numpy(np.stack(
+        [rng.permutation(n_sys) for _ in range(d)]).astype(np.int32)).to(cuda)
+    e_part = torch.from_numpy((rng.standard_normal((d, n_sys, n_blocks)) * 37).astype(
+        np.float32)).to(cuda)
+    m_part = torch.from_numpy(rng.integers(
+        -64, 64, (d, n_sys, n_blocks)).astype(np.int32)).to(cuda)
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, (n_events, d, 2)).astype(
+        np.int32)).to(cuda)
+    dr = pt_draws(words, n_sys - 1, pt_full=pt_full)
+    draws = list(dr) if pt_full else list(zip(dr[0].to(torch.int32), dr[1]))
+    i32 = dict(dtype=torch.int32, device=cuda)
+    mega.LAUNCHES["pt_step"] = 0
+    out = []
+    for fn in (mega.pt_step, mega.pt_step_plain):
+        st = dict(sid=sid0.clone(), ea=torch.zeros((d, n_sys - 1), **i32),
+                  ec=torch.zeros((d, n_sys - 1), **i32),
+                  rt=torch.zeros((d, n_sys), **i32),
+                  ts=init_trip_state(sid0[:, None], hot),
+                  sys_temps=slot_temps_for_systems(sid0, temps),
+                  e=torch.empty((d, n_events, n_sys), device=cuda),
+                  m=torch.empty((d, n_events, n_sys), **i32), parity=1)
+        for t in range(n_events):
+            st["parity"] = fn(
+                e_part, m_part, st["e"][:, t], st["m"][:, t], st["sid"], st["ea"],
+                st["ec"], st["rt"], st["ts"], temps, draws[t], st["sys_temps"],
+                do_pt=True, pt_full=pt_full, parity=st["parity"], hot_slot=hot,
+                cold_slot=cold, n_spins=n_blocks * 256)
+        out.append(st)
+    torch.cuda.synchronize()
+    assert mega.LAUNCHES["pt_step"] == n_events
+    k, p = out
+    for key in ("sid", "ea", "ec", "rt", "ts", "sys_temps", "e", "m"):
+        assert torch.equal(k[key], p[key]), key
+    assert k["parity"] == p["parity"]
+    assert 0 < int(k["ec"].sum()) < int(k["ea"].sum())
+    # the order is not torch.sum's: the rows would differ somewhere
+    by_slot = e_part.gather(1, k["sid"].long()[..., None].expand(d, n_sys, n_blocks))
+    if n_blocks == 65536:
+        assert not torch.equal(by_slot.sum(-1), mega.ordered_partial_sum(
+            by_slot, mega.pt_split(n_blocks)))
+
+
+def _link_graphs(dev, shape, b, density, seed):
+    """State bytes of ``b`` bond graphs of ``shape`` (bits above the bonds
+    set at random, as fk_bonds' "s differs" bits) and their bool bonds: none,
+    all, or each bond with probability ``density`` (None: an FK state near
+    T_c, fk_bonds on random spins)."""
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    tri = shape == (32, 32)
+    n_dirs = 3 if (tri or len(shape) == 3) else 2
+    if density is None:
+        d = 1
+        coup = torch.ones((d, n, n_dirs), device=dev)
+        t_c = {2: 2.269, 3: 4.51}[len(shape)] if not tri else 3.64
+        spins = torch.from_numpy(rng.choice([-1, 1], size=(b, *shape)).astype(
+            np.int8)).to(dev)
+        kb = torch.from_numpy(rng.integers(-2**31, 2**31, (b, 2)).astype(np.int32)).to(dev)
+        bonds = fk.fk_bonds_plain(spins, coup, torch.full((b,), t_c, device=dev), kb)
+    else:
+        bonds = torch.from_numpy(rng.random((b, n, n_dirs)) < density).to(dev)
+    bits = torch.arange(n_dirs, device=dev, dtype=torch.uint8)
+    state = (bonds.to(torch.uint8) << bits).sum(-1).to(torch.uint8)
+    state |= torch.from_numpy(rng.integers(0, 8, (b, n)).astype(np.uint8)).to(dev) << 3
+    return state, bonds, tri
+
+
+LINK_SHAPES = [((64, 64), 2048), ((256, 256), 1), ((32, 32, 32), 4), ((32, 32), 8),
+               ((8, 8, 8), 256)]
+
+
+@pytest.mark.parametrize("density", [0.0, 1.0, None], ids=["none", "all", "t_c"])
+@pytest.mark.parametrize("shape,b", LINK_SHAPES,
+                         ids=["harness", "256", "cubic-32", "tri-32", "cubic-8-x256"])
+def test_fk_link_forms_match_plain(cuda, shape, b, density):
+    """The labelling in each form that takes the shape (the plan's; the
+    tiled form with other tiles; the whole-graph form where a graph fits a
+    CTA): every parent its component's minimum site, bitwise fk_link_plain,
+    whatever the parents held before; the whole-graph form's in one launch,
+    with parent[parent[i]] == parent[i] <= i."""
+    state, bonds, tri = _link_graphs(cuda, shape, b, density, len(shape) + b)
+    want = fk.fk_link_plain(bonds, shape)
+    dims = _build.dims3(shape)
+    n = int(np.prod(shape))
+    plan = fk.link_plan(dims, b)
+    plans = {"plan": plan}
+    for sites in (4096, 512):
+        tile = fk._link_tile(dims, sites)
+        if tile != dims:
+            plans[f"tiled-{sites}"] = fk.LinkPlan(tile, 1024, True)
+    if n <= fk.LINK_TILE_SITES:
+        plans["whole-512"] = fk.LinkPlan(dims, 512, False)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    sites = torch.arange(n, device=cuda)
+    for name, p in plans.items():
+        parent = torch.full((b, n), -7, dtype=torch.int32, device=cuda)
+        for k in fk.LAUNCHES:
+            fk.LAUNCHES[k] = 0
+        fk.launch_link(lib, stream, state.data_ptr(), parent.data_ptr(), b, *dims, tri,
+                       plan=p)
+        torch.cuda.synchronize()
+        assert torch.equal(parent, want), name
+        assert {k: v for k, v in fk.LAUNCHES.items() if v} == dict.fromkeys(
+            ("fk_link", "fk_link_border", "fk_link_flatten") if p.tiled else ("fk_link",),
+            1), name
+        if not p.tiled:
+            assert bool((parent.gather(1, parent.long()) == parent).all())
+            assert bool((parent <= sites).all())
+
+
+@pytest.mark.parametrize("shape,b", [((256, 256), 1), ((32, 32, 32), 4)],
+                         ids=["256", "cubic-32"])
+def test_fk_link_tiled_launches_match_their_plain_versions(cuda, shape, b):
+    """The tiled form one launch at a time near T_c: the link's parents are
+    each site's tile-component minimum (fk_link_tiles_plain); the border's
+    lead to the labels; the flatten's are the labels."""
+    state, bonds, tri = _link_graphs(cuda, shape, b, None, 3)
+    dims = _build.dims3(shape)
+    n = int(np.prod(shape))
+    plan = fk.link_plan(dims, b)
+    assert plan.tiled
+    lib = _build.library()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    parent = torch.full((b, n), -1, dtype=torch.int32, device=cuda)
+    sp, pp = state.data_ptr(), parent.data_ptr()
+    assert lib.peapods_fk_link(sp, pp, b, *dims, int(tri), *plan.tile, plan.threads,
+                               stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(parent, fk.fk_link_tiles_plain(bonds, shape, plan.tile))
+    assert lib.peapods_fk_link_border(sp, pp, b, *dims, int(tri), *plan.tile, stream) == 0
+    torch.cuda.synchronize()
+    crossed = parent.clone()
+    labels = fk.fk_link_plain(bonds, shape)
+    assert torch.equal(fk.fk_link_flatten_plain(crossed), labels)
+    assert not torch.equal(crossed, labels)  # the flatten has work to do
+    assert lib.peapods_fk_link_flatten(pp, b, n, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(parent, labels)
+
+
+def test_fk_link_rejects_tiles_it_does_not_take(cuda):
+    lib = _build.library()
+    st = torch.zeros((1, 64 * 64), dtype=torch.uint8, device=cuda)
+    par = torch.zeros((1, 64 * 64), dtype=torch.int32, device=cuda)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for tile, threads in (((128, 64, 1), 1024), ((64, 64, 4), 1024), ((32, 32, 1), 16),
+                          ((64, 64, 1), 2048)):
+        assert lib.peapods_fk_link(st.data_ptr(), par.data_ptr(), 1, 64, 64, 1, 0,
+                                   *tile, threads, stream) != 0
+
+
+@pytest.mark.parametrize("kind", ["houdayer", "jorg", "cmr"])
+def test_overlap_moves_through_the_tiled_labelling_match_plain(cuda, kind, monkeypatch):
+    """The overlap moves find their clusters with find_root on the
+    labelling's parents: with the tiled form forced on their 8^3 graphs
+    (flattened parents) every move is still bitwise its plain version."""
+    from peapods_tpu_torch.ops import overlap
+
+    shape, d, n_rep, n_temps = (8, 8, 8), 2, 4, 6
+    plan = fk.LinkPlan((4, 4, 8), 1024, True)
+    monkeypatch.setattr(fk, "link_plan", lambda dims, b: plan)
+    x = _pair_inputs(cuda, 17, shape, d, n_rep, n_temps)
+    n = int(np.prod(shape))
+    tab = _event_inputs(x, d, n_rep, n_temps, n, kind, False, 7)
+    a, b = x["spins"].clone(), x["spins"].clone()
+    for k in fk.LAUNCHES:
+        fk.LAUNCHES[k] = 0
+    kw = dict(kind=kind, wolff=False, shape=shape, with_labels=True)
+    lk = overlap.overlap_event(a, x["sid"], tab[0], x["coup"], x["temps"], *tab[1:], **kw)
+    lp = overlap.overlap_event_plain(b, x["sid"], tab[0], x["coup"], x["temps"],
+                                     *tab[1:], **kw)
+    torch.cuda.synchronize()
+    links = 2 if kind == "cmr" else 1
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == dict.fromkeys(
+        ("fk_link", "fk_link_border", "fk_link_flatten"), links)
+    assert torch.equal(a, b)
+    assert torch.equal(lk[0], lp[0])
+    if kind == "cmr":
+        assert torch.equal(lk[1], lp[1])
 
 
 @pytest.mark.parametrize("mode", ["sw", "wolff"])
@@ -688,7 +888,7 @@ def test_fk_update_three_directions_kernel_matches_plain(cuda, shape, d, n_sys, 
     ep, mp, lp = fk.fk_update_plain(kp, coup, temps, scal, kb, **kw)
     torch.cuda.synchronize()
     assert {k: v for k, v in fk.LAUNCHES.items() if v} == {
-        "fk_bonds": 1, "fk_link": 1, "fk_finish": 1}
+        "fk_bonds": 1, **fk.link_launches(shape, b), "fk_finish": 1}
     assert torch.equal(ka, kp)
     assert torch.equal(lk, lp)
     e_k, m_k = fk.fk_energy_mag(ek, mk, n)
@@ -839,7 +1039,7 @@ def test_fk_observe_kernel_matches_plain(cuda, shape, d, n_sys, n_dirs, temp):
     lp, mp = fk.fk_observe_plain(s0.clone(), coup, temps, kb)
     torch.cuda.synchronize()
     assert {k: v for k, v in fk.LAUNCHES.items() if v} == {
-        "fk_bonds": 1, "fk_link": 1, "fk_finish": 1}
+        "fk_bonds": 1, **fk.link_launches(shape, b), "fk_finish": 1}
     assert torch.equal(ka, s0)
     assert torch.equal(lk, lp)
     assert torch.equal(mk, mp)
