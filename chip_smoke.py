@@ -7,10 +7,16 @@ checkout (one nvcc per source, all at once) and drives the port's paths
 through the user's entry points:
 
 * the mega path: the flagship configuration (256x256, 24 temperatures, PT
-  every sweep) through ``IsingSimulation.sample``, each of its kernels
-  (``colour_pass``, ``pt_step``) held against its plain torch version
-  (``pt_step`` also on gaussian partials at the 4096^2 bands' and config
-  5's shapes, bitwise: its rows add in one fixed order);
+  every sweep) through ``IsingSimulation.sample``, one ``mega_resident``
+  launch a chunk of 256 sweeps (the route ``ops/mega.py`` ``resident_route``
+  picks, printed), its checksum the one of the three launches a sweep; a
+  chunk of its state through the resident kernel, the three launches and
+  the plain torch chunk, bitwise (ulp ties counted apart); both routes'
+  device time a sweep and sweeps/s in the same run; ``colour_pass`` and
+  ``pt_step`` (the three launches, and the other paths' kernels) held
+  against their plain torch versions at the flagship's shapes (``pt_step``
+  also on gaussian partials at the 4096^2 bands' and config 5's shapes,
+  bitwise: its rows add in one fixed order);
 * the per-sweep path with SW / Wolff cluster updates: config 3 (256x256 at
   T_c, SW every sweep) through ``Ising.sample`` twice from one seed, its
   Binder cumulant against the torus value, a Wolff run against it, SW with
@@ -102,6 +108,9 @@ import torch
 L = 256
 N_TEMPS = 24
 FLAGSHIP_SWEEPS = 4096
+# the flagship's state_checksum (bench.py:120-128), the same on either route of
+# the mega path
+FLAGSHIP_CHECKSUM = "cf44dd66b98cb934"
 SEED = 42
 TIE_ULPS = 4  # |u - p| within this many ulp of p: an exp rounding tie
 MAX_TIE_SHARE = 1e-5
@@ -470,27 +479,31 @@ def flagship(dev):
     kw = dict(pt_interval=1, warmup_ratio=0.0)
 
     sim = IsingSimulation([L, L], coup, temps, 1, None, SEED, device=dev)
+    plan = mega.resident_route(dev, L, L, 1, N_TEMPS)
+    if plan is None:
+        raise AssertionError("the resident kernel's rule refuses the flagship")
+    log("4 flagship", f"route: mega_resident, a cluster of {plan.cluster} CTAs a "
+        f"system, {plan.rows} rows and {plan.threads} threads a CTA, {plan.smem} B of "
+        f"shared memory; {N_TEMPS} clusters, a chunk of {sim.default_chunk} sweeps a "
+        "launch")
     mega.reset_launches()
     result = sim.sample(FLAGSHIP_SWEEPS, "metropolis", **kw)
     launches = dict(mega.LAUNCHES)
     check_a = state_checksum(sim, result)
-    want = {"colour_pass": 2 * FLAGSHIP_SWEEPS, "pt_step": FLAGSHIP_SWEEPS}
+    want = {"colour_pass": 0, "pt_step": 0,
+            "mega_resident": -(-FLAGSHIP_SWEEPS // sim.default_chunk)}
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
+    if check_a != FLAGSHIP_CHECKSUM:
+        raise AssertionError(f"flagship checksum {check_a}, expected {FLAGSHIP_CHECKSUM} "
+                             "(the three launches' a sweep)")
 
     sim_b = IsingSimulation([L, L], coup, temps, 1, None, SEED, device=dev)
     result_b = sim_b.sample(FLAGSHIP_SWEEPS, "metropolis", **kw)
     check_b = state_checksum(sim_b, result_b)
     if check_a != check_b:
         raise AssertionError(f"checksums differ: {check_a} {check_b}")
-    # steady-state rate: further calls on the warm simulation
-    rates = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        sim_b.sample(FLAGSHIP_SWEEPS, "metropolis", **kw)
-        torch.cuda.synchronize()
-        rates.append(FLAGSHIP_SWEEPS / (time.perf_counter() - t0))
+    rates = warm_rates(sim_b)  # steady state: further calls on the warm simulation
 
     e, m2 = result["energies"], result["mags2"]
     sid = sim.state["system_ids"].cpu().numpy().reshape(-1)
@@ -526,27 +539,239 @@ def flagship(dev):
     return sweeps_s, rates, launches, sim
 
 
+class three_launches:
+    """Drive the mega path through its three launches a sweep
+    (``mega_chunk_launches``) where the resident kernel's rule would take
+    the chunk."""
+
+    def __enter__(self):
+        from peapods_tpu_torch.ops import mega
+
+        self.saved = mega.resident_route
+        mega.resident_route = lambda *args: None
+
+    def __exit__(self, *exc):
+        from peapods_tpu_torch.ops import mega
+
+        mega.resident_route = self.saved
+
+
+MEGA_KERNELS = ("mega_resident", "colour_pass", "pt_step")
+
+
 def kernel_share(sim, sweeps_s, n=512):
-    """Device time per sweep of each kernel over a profiled window of ``n``
-    sweeps, and the share of the unprofiled wall time it fills."""
+    """Device time per sweep of each mega-path kernel (and of any other
+    device work) over a profiled window of ``n`` flagship sweeps, and the
+    share of the unprofiled wall time per sweep (``1 / sweeps_s``) that the
+    device is busy.  Returns ``(us by kernel, busy share, line)``."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         sim.sample(n, "metropolis", pt_interval=1, warmup_ratio=0.0)
         torch.cuda.synchronize()
-    us = {"colour_pass": 0.0, "pt_step": 0.0}
+    us = {}
     for ev in prof.key_averages():
-        for name in us:
-            if f"{name}_kernel" in ev.key:
-                us[name] += ev.self_device_time_total / n
-    if not all(us.values()):
-        return "kernel device time not measured (the profiler saw no kernel)"
+        if ev.self_device_time_total <= 0 or ev.device_type == DeviceType.CPU:
+            continue
+        hit = [k for k in MEGA_KERNELS if f"{k}_kernel" in ev.key]
+        key = hit[0] if hit else "other device work"
+        us[key] = us.get(key, 0.0) + ev.self_device_time_total / n
+    if not any(k in us for k in MEGA_KERNELS):
+        raise AssertionError("the profiler saw no mega-path kernel")
     per_sweep = sum(us.values())
-    return (f"device us per sweep: colour_pass x2 {us['colour_pass']:.3f}, pt_step "
-            f"{us['pt_step']:.3f}, sum {per_sweep:.3f} against {1e6 / sweeps_s:.3f} "
-            f"us of wall time per sweep: the kernels fill "
-            f"{per_sweep * sweeps_s / 1e6:.3f} of it")
+    busy = per_sweep * sweeps_s / 1e6
+    return us, busy, (
+        "device us per sweep: " + ", ".join(f"{k} {v:.3f}" for k, v in us.items())
+        + f", sum {per_sweep:.3f} against {1e6 / sweeps_s:.3f} us of wall time per "
+        f"sweep: the device is busy {busy:.3f} of it")
+
+
+def warm_rates(sim, calls=3):
+    """Sweeps/s of ``calls`` further flagship sample() calls (host clock)."""
+    rates = []
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.sample(FLAGSHIP_SWEEPS, "metropolis", pt_interval=1, warmup_ratio=0.0)
+        torch.cuda.synchronize()
+        rates.append(FLAGSHIP_SWEEPS / (time.perf_counter() - t0))
+    return rates
+
+
+def mega_routes(sim, resident_rates, card):
+    """Phase 5: the flagship on both routes of the mega path in one run:
+    sweeps/s (median of three warm 4096-sweep calls; the resident route's
+    from phase 4) and device time a sweep by kernel (profiled 512-sweep
+    windows in the order resident, three launches, three launches,
+    resident)."""
+    out = {"resident": dict(rates=list(resident_rates), profiles=[]),
+           "launches": dict(rates=[], profiles=[])}
+    with three_launches():
+        out["launches"]["rates"] = warm_rates(sim)
+    for route in ("resident", "launches", "launches", "resident"):
+        rate = float(np.median(out[route]["rates"]))
+        if route == "launches":
+            with three_launches():
+                out[route]["profiles"].append(kernel_share(sim, rate))
+        else:
+            out[route]["profiles"].append(kernel_share(sim, rate))
+    for route, label in (("resident", "one mega_resident launch a chunk"),
+                         ("launches", "three launches a sweep")):
+        r = out[route]
+        r["sweeps_s"] = float(np.median(r["rates"]))
+        r["device_us"] = [sum(us.values()) for us, _, _ in r["profiles"]]
+        r["busy"] = [b for _, b, _ in r["profiles"]]
+        log("5 times", f"{label}: {r['sweeps_s']:.1f} sweeps/s (median of "
+            f"{', '.join(f'{x:.1f}' for x in r['rates'])}); "
+            + "; ".join(line for _, _, line in r["profiles"]) + f" on {card}")
+    return out
+
+
+# operations a colour-site update counts (csrc/mega_resident.cu, the
+# function of mega.cuh update_sites): a quarter of a Philox4x32-10 block (10
+# rounds of two 32-bit multiplies, each for its high and low word, four xors
+# and two key additions: 100 integer operations for 4 sites), the 24-bit
+# uniform (shift, conversion, scale: 3), the field (4 products, 3 sums), x
+# (negation, product: 2), the acceptance (min, exp, scale: 3, the exp
+# counted as one operation), the test and the flip (2); the measuring pass
+# adds s h to e and s to m (4).  Integer operations count at the f32 rate.
+SITE_OPS = 25 + 3 + 7 + 2 + 3 + 2
+MEASURE_OPS = 4
+
+
+def resident_bound(n_sweeps, d, n_slots, n_spins):
+    """``bound()`` of one ``mega_resident`` launch of ``n_sweeps`` sweeps:
+    bytes (the spins read and written once, the four f32 coupling grids
+    read once, the (e, m) rows written) against the site updates'
+    operations (SITE_OPS a site and colour, MEASURE_OPS a measured site)."""
+    sites = d * n_slots * n_spins
+    n_bytes = 2 * sites + 16 * d * n_spins + 8 * d * n_sweeps * n_slots
+    ops = n_sweeps * (sites * SITE_OPS + sites // 2 * MEASURE_OPS)
+    return bound(n_bytes, ops)
+
+
+def chunk_tie(sim, state, sw, pw, kw):
+    """After a resident chunk parted from the plain chunk: step both one
+    sweep at a time from the plain chunk's state to the first sweep where
+    they part, and hold that sweep's colour passes (``colour_pass`` against
+    ``colour_pass_plain``, each on the same input) to ulp ties.  Raises if
+    a site differs away from a tie; returns ``(sweep, ties)``."""
+    from peapods_tpu_torch.ops import mega
+
+    rt = sim.rt
+    s = {k: v.clone() for k, v in state.items()}
+    for t in range(sw.shape[0]):
+        a, b = ({k: v.clone() for k, v in s.items()} for _ in range(2))
+        step = dict(kw, sweep_base=t)
+        for fn, x in ((mega.mega_chunk_resident, a), (mega.mega_chunk_plain, b)):
+            x["e"], x["m"], x["parity"] = fn(
+                x["spins"], rt.jgrids, rt.temps, x["sid"], x["ea"], x["ec"], x["rtrips"],
+                x["tstate"], sw[t:t + 1], pw[t:t + 1], **step)
+        torch.cuda.synchronize()
+        if all(torch.equal(a[k], b[k]) for k in state):
+            s = {k: b[k] for k in state}
+            kw = dict(kw, parity=b["parity"])
+            continue
+        x = dict(rt=rt, sid=s["sid"], grid=s["spins"].clone())
+        ties = 0
+        for colour in (0, 1):
+            tie = colour_ties(x, sw[t], colour, kw["gibbs"])
+            ka, pb = x["grid"].clone(), x["grid"].clone()
+            mega.colour_pass(ka, rt.jgrids, s["sid"], rt.slot_temps, sw[t], colour,
+                             gibbs=kw["gibbs"])
+            mega.colour_pass_plain(pb, rt.jgrids, s["sid"], rt.slot_temps, sw[t], colour,
+                                   gibbs=kw["gibbs"])
+            torch.cuda.synchronize()
+            di = torch.arange(s["sid"].shape[0], device=pb.device)[:, None]
+            diff = ka[di, s["sid"].long()] != pb[di, s["sid"].long()]
+            if (diff & ~tie).any():
+                raise AssertionError(f"sweep {t} colour {colour}: "
+                                     f"{int((diff & ~tie).sum())} spins differ away "
+                                     "from ulp ties")
+            ties += int((diff & tie).sum())
+            x["grid"] = pb
+        if ties == 0:
+            raise AssertionError(f"the chunks part at sweep {t} without an ulp tie")
+        return t, ties
+    raise AssertionError("the chunks part, but no single sweep does")
+
+
+def check_resident_chunk(sim, card, reps=5):
+    """Phase 4b: one chunk of the flagship (its state after phase 4, the
+    words of its first chunk) through ``mega_chunk_resident``,
+    ``mega_chunk_launches`` and ``mega_chunk_plain`` from the same state:
+    spins, e, m, sid, the PT counters, the trip state and the parity bitwise
+    (against the plain chunk up to a counted ulp tie, past which they are
+    not compared); then the device time of a chunk on each kernel route
+    (CUDA events, in the order resident, launches, launches, resident) and
+    the plain chunk's time.  Returns the mega_resident record."""
+    from peapods_tpu_torch.engine import seeds
+    from peapods_tpu_torch.ops import mega
+
+    rt, st = sim.rt, sim.state
+    d, n = rt.n_disorder, sim.default_chunk
+    sw, pw = (torch.from_numpy(seeds.sweep_words(st["base_keys"], 0, n, ph)).to(rt.device)
+              for ph in (seeds.PH_SWEEP, seeds.PH_PT))
+    state = dict(spins=st["spins"].view(d, N_TEMPS, L, L), sid=st["system_ids"].view(d, N_TEMPS),
+                 ea=st["pt_edge_attempts"], ec=st["pt_edge_acceptances"],
+                 rtrips=st["pt_round_trips"], tstate=st["pt_trip_state"])
+    kw = dict(sweep_base=0, parity=0, gibbs=False, pt_interval=1, pt_full=False,
+              hot_slot=rt.hot_slot, cold_slot=rt.cold_slot)
+    fns = {"resident": mega.mega_chunk_resident, "launches": mega.mega_chunk_launches,
+           "plain": mega.mega_chunk_plain}
+
+    def run(route, x):
+        return fns[route](x["spins"], rt.jgrids, rt.temps, x["sid"], x["ea"], x["ec"],
+                          x["rtrips"], x["tstate"], sw, pw, **kw)
+
+    runs, wall = {}, {}
+    for route in fns:
+        x = {k: v.clone() for k, v in state.items()}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x["e"], x["m"], x["parity"] = run(route, x)
+        torch.cuda.synchronize()
+        wall[route] = (time.perf_counter() - t0) * 1e3
+        runs[route] = x
+    keys = ("spins", "sid", "ea", "ec", "rtrips", "tstate", "e", "m", "parity")
+
+    def differ(a, b):
+        return [k for k in keys if not (a[k] == b[k] if k == "parity" else torch.equal(a[k], b[k]))]
+
+    res = runs["resident"]
+    bad = differ(res, runs["launches"])
+    if bad:
+        raise AssertionError(f"the resident chunk differs from the three launches' in {bad}")
+    bad = differ(res, runs["plain"])
+    tie_at, ties = None, 0
+    if bad:
+        tie_at, ties = chunk_tie(sim, state, sw, pw, kw)
+        log("4b chunk", f"the plain chunk parts from the kernels' at sweep {tie_at} on "
+            f"{ties} ulp ties (in {bad}); not compared past it")
+        if ties > MAX_TIE_SHARE * 2 * N_TEMPS * L * L // 2:
+            raise AssertionError(f"{ties} ulp ties in one sweep")
+    upto = n if tie_at is None else tie_at  # the e rows compared
+    err = float((res["e"] - runs["plain"]["e"])[:, :upto].abs().max()) if upto else 0.0
+    chunk = {"resident": [], "launches": []}
+    for route in ("resident", "launches", "launches", "resident"):
+        x = {k: v.clone() for k, v in state.items()}
+        chunk[route].append(gpu_ms(lambda: run(route, x), reps))
+    ms = float(np.mean(chunk["resident"]))
+    bms, by = resident_bound(n, d, N_TEMPS, L * L)
+    log("4b chunk", f"a {n}-sweep chunk of the flagship's state: mega_resident bitwise the "
+        f"three launches' (spins, e, m, sid, PT counters, trip state, parity) and "
+        + ("the plain chunk's" if tie_at is None else f"the plain chunk's to sweep {tie_at}")
+        + f", {ties} ulp ties, {int(res['ec'].sum() - state['ec'].sum())} swaps accepted; "
+        f"device ms a chunk: mega_resident {', '.join(f'{v:.4f}' for v in chunk['resident'])}, "
+        f"three launches {', '.join(f'{v:.4f}' for v in chunk['launches'])}; plain "
+        f"{wall['plain']:.1f} ms; bound {bms:.5f} ms ({by}) on {card}")
+    return dict(max_abs_err=err, ties=ties, ms=ms, ms_per_sweep=ms / n,
+                plain_ms=wall["plain"], plain_ms_per_sweep=wall["plain"] / n,
+                bound_ms=bms, bound_ms_per_sweep=bms / n, bound_by=by, library_ms=None,
+                sweeps_per_launch=n, three_launch_ms=float(np.mean(chunk["launches"])),
+                chunk_ms=chunk)
 
 
 def plain_path_rate(sim, n):
@@ -3932,15 +4157,24 @@ def main():
     flips = sweeps_s * N_TEMPS * L * L
     log("4 flagship", f"kernel path: {sweeps_s:.1f} sweeps/s = {flips:.4e} flips/s "
         f"on {card} (median of {', '.join(f'{r:.1f}' for r in rates)} sweeps/s)")
+    res = check_resident_chunk(sim, card)
 
-    log("5 times", kernel_share(sim, sweeps_s))
+    routes = mega_routes(sim, rates, card)
     plain_s = plain_path_rate(sim, 16)
     log("5 times", f"plain torch path: {plain_s:.2f} sweeps/s = "
         f"{plain_s * N_TEMPS * L * L:.4e} flips/s; kernel path {sweeps_s:.1f} "
         f"sweeps/s ({sweeps_s / plain_s:.1f}x) on {card}")
-    log("5 times", f"colour_pass {cp['ms']:.5f} ms (bound {cp['bound_ms']:.5f} ms, "
-        f"plain {cp['plain_ms']:.4f} ms), pt_step {pts['ms']:.5f} ms (bound "
-        f"{pts['bound_ms']:.5f} ms, plain {pts['plain_ms']:.4f} ms) per launch")
+    log("5 times", f"mega_resident {res['ms']:.5f} ms a chunk of {res['sweeps_per_launch']} "
+        f"sweeps, {1e3 * res['ms_per_sweep']:.3f} us a sweep (bound {res['bound_ms']:.5f} ms "
+        f"by {res['bound_by']}, plain {res['plain_ms']:.1f} ms); off the flagship's "
+        f"route at its shapes: colour_pass {cp['ms']:.5f} ms (bound {cp['bound_ms']:.5f} "
+        f"ms, plain {cp['plain_ms']:.4f} ms), pt_step {pts['ms']:.5f} ms (bound "
+        f"{pts['bound_ms']:.5f} ms, plain {pts['plain_ms']:.4f} ms) per launch on {card}")
+    res.update(device_us_per_sweep=routes["resident"]["device_us"],
+               busy=routes["resident"]["busy"], sweeps_s=routes["resident"]["sweeps_s"],
+               three_launches=dict(device_us_per_sweep=routes["launches"]["device_us"],
+                                   busy=routes["launches"]["busy"],
+                                   sweeps_s=routes["launches"]["sweeps_s"]))
 
     # the per-sweep path with cluster updates
     c3 = config3(dev, card)
@@ -4023,12 +4257,19 @@ def main():
     fk_replaces = "peapods_tpu/ops/pallas_event.py:621"
     mp_replaces = "peapods_tpu/ops/pallas_megapair.py:325"
     ev_replaces = EV_REPLACES
+    # colour_pass and pt_step left the flagship's route: their main-path
+    # numbers are config 4's (the replica path) and config 3's (the
+    # per-sweep path); their flagship-shape checks stand beside them
     kernels = [
-        dict(name="colour_pass", route="cuda", source=mega_src,
-             replaces=mega_replaces, launches=launches["colour_pass"], **cp),
-        dict(name="pt_step", route="cuda", source=mega_src,
-             replaces=mega_replaces, launches=launches["pt_step"], **pts,
-             at_config3=pt_ps["config3"], at_harness=pt_ps["harness"]),
+        dict(name="mega_resident", route="cuda",
+             source="peapods_tpu_torch/csrc/mega_resident.cu", replaces=mega_replaces,
+             launches=launches["mega_resident"], **res),
+        dict(name="colour_pass", route="cuda", source=mega_src, replaces=mp_replaces,
+             **{"library_ms": None, **pk["config4"]["colour_pass"]},
+             at_flagship_shape=dict(cp, launches=launches["colour_pass"])),
+        dict(name="pt_step", route="cuda", source=mega_src, replaces=mega_replaces,
+             **{"library_ms": None, **pt_ps["config3"]}, at_harness=pt_ps["harness"],
+             at_flagship_shape=dict(pts, launches=launches["pt_step"])),
         dict(name="sweep_2d", route="cuda", source="peapods_tpu_torch/csrc/sweep.cu",
              replaces="peapods_tpu/ops/pallas_sweep.py:301",
              launches=c3["launches"]["sweep_2d"], **ks.pop("sweep_2d")),

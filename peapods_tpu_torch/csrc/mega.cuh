@@ -182,6 +182,111 @@ __device__ __forceinline__ T warp_tree(const T* x, int lane) {
   return v;
 }
 
+// The parallel-tempering event and the ordered sum of a row of partials,
+// shared by mega.cu's pt_step and mega_resident.cu's chunk kernel.
+
+struct PtState {
+  float* es;  // [n_temps] energies per spin of the ladder's slots (shared memory)
+  int32_t* sid;
+  int32_t* ea;
+  int32_t* ec;
+  int32_t* rtrips;
+  int32_t* tstate;
+  const float* temps;
+  int n_spins;
+  int hot;
+  int cold;
+};
+
+// An accepted swap on ladder edge e: the two slots exchange their energies
+// and systems, and the round-trip state of the systems that arrive at the
+// hot or the cold slot moves on.
+__device__ inline void swap_edge(PtState& st, int e) {
+  const float el = st.es[e];
+  st.es[e] = st.es[e + 1];
+  st.es[e + 1] = el;
+  const int32_t sl = st.sid[e];
+  st.sid[e] = st.sid[e + 1];
+  st.sid[e + 1] = sl;
+  // arrivals: only the hot and cold slots matter, and a swap touches them
+  // iff e borders them
+  if (e == st.hot || e + 1 == st.hot) {
+    const int sys = st.sid[st.hot];
+    if (st.tstate[sys] == 2) st.rtrips[sys] += 1;
+    st.tstate[sys] = 1;
+  }
+  if (e == st.cold || e + 1 == st.cold) {
+    const int sys = st.sid[st.cold];
+    if (st.tstate[sys] == 1) st.tstate[sys] = 2;
+  }
+}
+
+// Metropolis swap attempt on ladder edge e (tempering.rs:73-102).
+__device__ inline void try_edge(PtState& st, int e, float u) {
+  const float delta = (static_cast<float>(st.n_spins) * (st.es[e + 1] - st.es[e])) *
+                      (1.0f / st.temps[e] - 1.0f / st.temps[e + 1]);
+  atomicAdd(st.ea + e, 1);  // the ladders of a realization share the counters
+  if (!(delta >= logf(u))) return;
+  atomicAdd(st.ec + e, 1);
+  swap_edge(st, e);
+}
+
+// One CTA's share of a row of n partials (`first` = the share's first
+// lane, P = kThreads x the CTAs of a row): the warp's lane l holds the sums
+// of lanes first + l + 32 j (j < 8), each lane adding its values first +
+// lane, + P, + 2P, ... from 0 in turn (a lane past the row adds 0, which is
+// exact); the 256 lane sums are then paired as warp_tree pairs them, and
+// lane 0 returns the share's sum.  Coherent: the values were written by
+// other CTAs of this launch (read through L2).  ops/mega.py
+// ordered_partial_sum is this order in torch.
+template <bool kCoherent>
+__device__ __forceinline__ void share_sum(const float* __restrict__ e,
+                                          const int32_t* __restrict__ m, int n,
+                                          int first, int P, int lane, float& e_sum,
+                                          int& m_sum) {
+  float a[8];
+  int b[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    a[j] = 0.0f;
+    b[j] = 0;
+  }
+  for (int o = first + lane; o < n; o += P) {
+    float x[8];
+    int y[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {  // every load issued before any add
+      const int i = o + 32 * j;
+      x[j] = i < n ? (kCoherent ? __ldcg(e + i) : e[i]) : 0.0f;
+      y[j] = i < n ? (kCoherent ? __ldcg(m + i) : m[i]) : 0;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      a[j] += x[j];
+      b[j] += y[j];
+    }
+  }
+  float s = ((a[0] + a[4]) + (a[2] + a[6])) + ((a[1] + a[5]) + (a[3] + a[7]));
+  int t = ((b[0] + b[4]) + (b[2] + b[6])) + ((b[1] + b[5]) + (b[3] + b[7]));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    s += __shfl_down_sync(0xffffffffu, s, off);
+    t += __shfl_down_sync(0xffffffffu, t, off);
+  }
+  e_sum = s;
+  m_sum = t;
+}
+
+// One level of a halving tree in registers: v[l] += v[l + H] for l < H.
+template <int H>
+__device__ __forceinline__ void halve(float* v, int* w) {
+#pragma unroll
+  for (int l = 0; l < H; ++l) {
+    v[l] += v[l + H];
+    w[l] += w[l + H];
+  }
+}
+
 // Blocks per system of a colour pass: the length of its partial-sum rows.
 __host__ __device__ inline int colour_pass_blocks(int H, int W) {
   const int n_half = H * (W / 2);

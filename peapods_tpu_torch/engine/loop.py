@@ -39,7 +39,7 @@ from ..ops.sweep import pack_coupling_grids, sweep_2d, sweep_nb
 from ..ops.tempering import hot_cold_slots, pt_draws_pairs
 from . import seeds
 from .config import SimConfig
-from .records import N_FK_OBS, N_REC, REC
+from .records import N_FK_OBS, N_REC, REC, link_bonds
 
 __all__ = ["Runtime", "SpaceRuntime", "init_accumulators", "run_chunk",
            "run_chunk_sweeps", "run_chunk_space", "run_chunk_pairs"]
@@ -252,8 +252,8 @@ def _fold_pairs(rt: Runtime, state: dict, acc: dict, qs, ql, s_begin: int,
                 n: int) -> None:
     """Add the pair records of the sweeps past warmup (loop.py:3358-3394):
     ``qs`` / ``ql`` int32 ``[d, n, P T]`` (pair-major); q = qs / n_spins,
-    q_l = ql / (n_spins n_dims), and ``(qs + n_spins) // 2`` is the P(q)
-    bin."""
+    q_l = ql / :func:`~.records.link_bonds`, and ``(qs + n_spins) // 2`` is
+    the P(q) bin."""
     lo = max(0, int(state["warmup"]) - s_begin)
     if lo >= n:
         return
@@ -262,7 +262,7 @@ def _fold_pairs(rt: Runtime, state: dict, acc: dict, qs, ql, s_begin: int,
     qs_i = qs[:, lo:].reshape(d, k, P, T).to(torch.int64)
     ql_i = ql[:, lo:].reshape(d, k, P, T).to(torch.int64)
     q = qs_i.to(torch.float64) / n_sp
-    q_l = ql_i.to(torch.float64) / (n_sp * rt.lattice.n_dims)
+    q_l = ql_i.to(torch.float64) / link_bonds(rt.lattice)
     sums = acc["rec_sums"]
     over = (1, 2)  # sweeps and pairs
     for name, x in (("q", q), ("ql", q_l)):

@@ -7,9 +7,17 @@ observations per (realization, temperature), the columns of the
 reference's ``_zero_obs`` (:486-495) but the histograms: FK observe's sums
 (whose histograms are ``fk_csd``) and overlap observe's, one per move kind
 (whose histograms are the ``overlap_csd`` rows of that kind's modes).
+``link_bonds`` is the count the link-overlap rows divide by.
 """
 
-__all__ = ["REC", "N_REC", "FK_OBS", "N_FK_OBS"]
+__all__ = ["REC", "N_REC", "FK_OBS", "N_FK_OBS", "link_bonds"]
+
+
+def link_bonds(lattice) -> int:
+    """The bonds the link overlap q_l is a mean over: each site's bonds to
+    its neighbours at the lattice's offsets, ``n_spins * n_neighbors`` (the
+    reference's ``_measure_phase``, ``peapods_tpu/engine/loop.py:2651``)."""
+    return lattice.n_spins * lattice.n_neighbors
 
 REC = {
     name: i

@@ -35,8 +35,8 @@ def finalize(rec_sums: np.ndarray, n_recorded: int, n_replicas: int,
             ``pt_round_trips`` when PT is configured, else ``None``.
         fk_csd: integer ``[d, T, n_spins + 1]`` cluster-size histograms of
             the recorded FK updates per temperature, when collected.
-        pairs: with replica pairs, ``n_pairs``, ``n_bonds`` (n_spins
-            n_dims) and the integer ``[d, T, n_spins + 1]`` arrays
+        pairs: with replica pairs, ``n_pairs``, ``n_bonds``
+            (:func:`~.records.link_bonds`) and the integer ``[d, T, n_spins + 1]`` arrays
             ``q_hist``, ``ql_at_q`` and ``ql2_at_q`` (sums of the link
             overlap integers ``ql`` and ``ql**2`` at each q bin).
         fk_obs: on FK observe runs, ``sums`` (the integer ``[d, T,

@@ -65,6 +65,7 @@ from .config import (
     parse_sweep_mode,
 )
 from .loop import Runtime, SpaceRuntime, init_accumulators, run_chunk
+from .records import link_bonds
 from .results import finalize
 
 __all__ = ["IsingSimulation", "resolve_device"]
@@ -362,7 +363,6 @@ class IsingSimulation:
         pairs = None
         if "q_hist" in acc:
             pairs = {k: acc[k].cpu().numpy() for k in ("q_hist", "ql_at_q", "ql2_at_q")}
-            pairs.update(n_pairs=self.rt.n_pairs,
-                         n_bonds=self.rt.n_spins * self.lattice.n_dims)
+            pairs.update(n_pairs=self.rt.n_pairs, n_bonds=link_bonds(self.lattice))
         return finalize(acc["rec_sums"].cpu().numpy(), acc["n_recorded"],
                         self.rt.n_replicas, pt_state, fk_csd, pairs, fk_obs, overlap)

@@ -42,6 +42,9 @@ _SIGNATURES = {
     "peapods_colour_pass_blocks": [_I, _I],
     "peapods_colour_pass": [_P] * 7 + [_I] * 7 + [_P],
     "peapods_pt_step": [_P, _P, _I, _I] + [_P] * 5 + [_I] + [_P] * 9 + [_I] * 9 + [_P],
+    "peapods_smem_per_block_optin": [],
+    "peapods_resident_max_clusters": [_I] * 3,
+    "peapods_mega_resident": [_P] * 14 + [_I] * 15 + [_P],
     "peapods_sweep_2d": [_P] * 6 + [_I] * 6 + [_P],
     "peapods_fk_blocks": [_I],
     "peapods_fk_bonds": [_P] * 6 + [_I] * 6 + [_P],

@@ -2,30 +2,39 @@
 
 Counterpart of ``peapods_tpu/ops/pallas_mega.py`` (``supports_mega`` :64-69,
 ``mega_chunk`` :302-428).  The TPU runs a chunk as one Pallas call that
-keeps every slot's spins in VMEM; on the H100 one sweep is three launches of
-the hand-written kernels in ``csrc/mega.cu`` on the current stream::
+keeps every slot's spins in VMEM.  On the H100 a chunk is one launch of
+``mega_resident`` (``csrc/mega_resident.cu``: each system's lattice held in
+the shared memory of a thread-block cluster; at a PT event the clusters
+that it concerns wait for each other's sums) wherever
+:func:`resident_plan` finds it a layout that the card runs with every
+cluster resident.  Other shapes run three launches a
+sweep of the kernels in ``csrc/mega.cu`` on the current stream::
 
     colour_pass(colour 0) -> colour_pass(colour 1, partial e and m sums)
         -> pt_step (reduce the partials into the sweep's (e, m) rows in one
            fixed order, :func:`ordered_partial_sum`, then the PT event when
            the sweep is on the PT interval)
 
-with no host synchronisation inside a chunk.  State is updated in place:
-spins by system ``[d, n_systems, H, W]`` and the slot -> system map ``sid``
-(a PT swap exchanges ``sid`` entries, never spin tiles), and the PT
-counters.  The replica path (:mod:`~peapods_tpu_torch.ops.megapair`) runs
-the same two kernels on 2D and 3D lattices with ``R`` ladders per
-realization.
+Both routes give the same numbers bit for bit, with no host
+synchronisation inside a chunk.  State is updated in place: spins by
+system ``[d, n_systems, H, W]`` and the slot -> system map ``sid`` (a PT
+swap exchanges ``sid`` entries, never spin tiles), and the PT counters.
+The replica path (:mod:`~peapods_tpu_torch.ops.megapair`) runs
+``colour_pass`` and ``pt_step`` on 2D and 3D lattices with ``R`` ladders
+per realization.
 
 Each kernel has a plain torch version here (:func:`colour_pass_plain`,
-:func:`pt_step_plain`, :func:`mega_chunk_plain`).  The dispatch wrappers
-(:func:`colour_pass`, :func:`pt_step`, :func:`mega_chunk`) take the plain
-version for tensors on the CPU, launch the kernel for CUDA tensors, and
-raise for anything else; they never fall back.  :data:`LAUNCHES` counts the
-kernel launches.
+:func:`pt_step_plain`, :func:`mega_chunk_plain`; :func:`resident_partition`
+mirrors the resident kernel's partition of a system).  The dispatch
+wrappers (:func:`colour_pass`, :func:`pt_step`, :func:`mega_chunk`) take
+the plain version for tensors on the CPU, launch a kernel for CUDA
+tensors, and raise for anything else; they never fall back.
+:data:`LAUNCHES` counts the kernel launches.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -49,12 +58,19 @@ __all__ = [
     "pt_step_plain",
     "pt_split",
     "ordered_partial_sum",
+    "ResidentPlan",
+    "resident_smem",
+    "resident_plan",
+    "resident_route",
+    "resident_partition",
     "mega_chunk",
+    "mega_chunk_launches",
+    "mega_chunk_resident",
     "mega_chunk_plain",
 ]
 
 # kernel launches since the last reset_launches(), by kernel name
-LAUNCHES = {"colour_pass": 0, "pt_step": 0}
+LAUNCHES = {"colour_pass": 0, "pt_step": 0, "mega_resident": 0}
 
 
 def reset_launches() -> None:
@@ -67,6 +83,14 @@ def reset_launches() -> None:
 # (csrc/mega.cu kThreads, kPtMaxSplit)
 REDUCE_LANES = 256
 MAX_SPLIT = 256
+
+# the resident kernel (csrc/mega_resident.cu): the portable cluster sizes,
+# tried in this order, its most threads a CTA, and the colour sites of a
+# logical block, whose partial it writes (mega.cuh kThreads x
+# kSitesPerThread, a block of colour_pass)
+RESIDENT_CLUSTERS = (1, 2, 4, 8)
+RESIDENT_MAX_THREADS = 1024
+BLOCK_SITES = REDUCE_LANES * 4
 
 
 def supports_mega(lattice, n_replicas) -> bool:
@@ -239,6 +263,117 @@ def mega_chunk_plain(spins, jgrids, temps, sid, ea, ec, rtrips, tstate,
 
 def _index(draws, t):
     return tuple(x[t] for x in draws) if isinstance(draws, tuple) else draws[t]
+
+
+# ------------------------------------------------------------ resident layout
+
+
+class ResidentPlan(NamedTuple):
+    """How ``mega_resident`` lays out each system: a cluster of ``cluster``
+    CTAs of ``threads`` threads, each holding ``rows`` lattice rows in
+    ``smem`` bytes of shared memory."""
+
+    cluster: int
+    rows: int
+    threads: int
+    smem: int
+
+
+def _round16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def resident_smem(h: int, w: int, cluster: int, n_slots: int) -> int:
+    """Shared memory of one CTA of ``mega_resident`` (``layout`` in
+    ``csrc/mega_resident.cu``): its rows' int8 spins with a halo row on
+    either side, the down couplings of one row more and the right couplings
+    of its rows (f32, by colour), a Philox block and an (e, m) per logical
+    thread, the system's row of partials, the PT state and a sweep's PT
+    draws."""
+    rows, wh = h // cluster, w // 2
+    return (_round16(_round16(w) + (rows + 1) * w) + _round16(8 * (rows + 1) * wh)
+            + _round16(8 * rows * wh) + _round16(16 * (rows * wh // 4))
+            + _round16(8 * (rows * wh // 4))
+            + _round16(8 * (h * wh // BLOCK_SITES))
+            + _round16(4 * (6 * n_slots + 4 * (n_slots - 1) + 1)))
+
+
+def resident_plan(h, w, d, n_slots, smem_per_block, max_clusters):
+    """The resident kernel's layout of ``d`` realizations of ``n_slots``
+    ``[h, w]`` systems, or ``None``: then the chunk runs three launches a
+    sweep.
+
+    The smallest cluster of :data:`RESIDENT_CLUSTERS` whose CTAs hold whole
+    logical blocks of both colours (``rows * w / 2`` a multiple of
+    :data:`BLOCK_SITES`), in at most ``smem_per_block`` bytes each, and of
+    which the card runs all ``d * n_slots`` at once: ``max_clusters(cluster,
+    threads, smem)`` is the card's count (``cudaOccupancyMaxActiveClusters``).
+    ``w`` must be a multiple of 8 (a thread's 4 sites in one 8-byte word), a
+    system's row of partials one share of ``pt_step`` (:func:`pt_split`),
+    the order the kernel adds it in, and the ladder at least one edge."""
+    if w % 8 or n_slots < 2 or pt_split(h * w // 2 // BLOCK_SITES) != 1:
+        return None
+    for c in RESIDENT_CLUSTERS:
+        rows = h // c
+        if h % c or (rows * w // 2) % BLOCK_SITES:
+            continue
+        smem = resident_smem(h, w, c, n_slots)
+        threads = min(RESIDENT_MAX_THREADS, rows * w // 8)
+        if smem <= smem_per_block and d * n_slots <= max_clusters(c, threads, smem):
+            return ResidentPlan(c, rows, threads, smem)
+    return None
+
+
+# device -> (the shared memory a block may opt in to, {(cluster, threads,
+# smem): clusters resident at once}): the card's numbers resident_plan reads
+_CARD = {}
+
+
+def resident_route(dev, h, w, d, n_slots):
+    """:func:`resident_plan` with the numbers of the card ``dev``."""
+    lib = _build.library()
+    if dev not in _CARD:
+        with torch.cuda.device(dev):
+            limit = lib.peapods_smem_per_block_optin()
+        if limit < 0:
+            raise RuntimeError("cudaDeviceGetAttribute failed")
+        _CARD[dev] = (limit, {})
+    limit, counts = _CARD[dev]
+
+    def max_clusters(c, threads, smem):
+        key = (c, threads, smem)
+        if key not in counts:
+            with torch.cuda.device(dev):
+                got = lib.peapods_resident_max_clusters(*key)
+            _build.check(-min(got, 0), "cudaOccupancyMaxActiveClusters")
+            counts[key] = got
+        return counts[key]
+
+    return resident_plan(h, w, d, n_slots, limit, max_clusters)
+
+
+def resident_partition(h, w, cluster, threads):
+    """Plain mirror of how ``mega_resident`` splits one ``[h, w]`` system
+    over a cluster of ``cluster`` CTAs of ``threads`` threads.
+
+    Colour site ``i`` of colour ``c`` sits at row ``i // (w/2)``, column
+    ``2 (i % (w/2)) + ((row + c) & 1)`` (``colour_pass``'s order).  Returns
+    int64 tensors ``[h w / 2]`` by ``i``: ``rank`` (the CTA that holds the
+    row), ``block`` (the partial of the system's row it adds into),
+    ``group`` and ``word`` (the Philox counter's g and the word k it takes),
+    ``thread`` and ``step`` (the thread that updates it, in which turn of
+    that thread's loop), ``row``; and ``col`` ``[2, h w / 2]`` by colour."""
+    wh, rows = w // 2, h // cluster
+    per_row = wh // 4
+    i = torch.arange(h * wh)
+    row, j = i // wh, i % wh
+    rank = row // rows
+    local = (row - rank * rows) * per_row + j // 4
+    return dict(
+        rank=rank, block=rank * (rows * per_row // REDUCE_LANES) + local // REDUCE_LANES,
+        group=rank * rows * per_row + local, word=j % 4, thread=local % threads,
+        step=local // threads, row=row,
+        col=torch.stack([2 * j + ((row + c) & 1) for c in (0, 1)]))
 
 
 # ------------------------------------------------------------ CUDA kernels
@@ -417,14 +552,45 @@ def pt_step(e_part, m_part, e_row, m_row, sid, ea, ec, rtrips, tstate, temps,
     )
 
 
+def _check_chunk(spins, jgrids, temps, sid, ea, ec, rtrips, tstate, sweep_words,
+                 pt_words):
+    """Validate a chunk's tensors; returns ``(d, n_slots, H, W, n)``."""
+    d, n_slots, h, w, l2 = _check_sweep(spins, jgrids, sid, temps)
+    if l2 != 1:
+        raise ValueError("the mega path runs 2D lattices")
+    dev = spins.device
+    n = sweep_words.shape[0]
+    _check_pt(d, n_slots, dev, ea, ec, rtrips, tstate)
+    _expect(sweep_words, "sweep_words", torch.int32, (n, d, 2), dev)
+    _expect(pt_words, "pt_words", torch.int32, (n, d, 2), dev)
+    return d, n_slots, h, w, n
+
+
+def _chunk_draws(pt_words, n_slots, pt_interval, pt_full):
+    """The chunk's PT draws, made from its words on the device in one go:
+    ``(edges int32 [n, d] or None, u f32 [n, d] or [n, d, 2, n_edges])``,
+    both ``None`` without PT; the kernels read them as the per-sweep path's
+    jnp-form draws."""
+    if pt_interval is None:
+        return None, None
+    draws = pt_draws(pt_words, n_slots - 1, pt_full=pt_full)
+    if pt_full:
+        return None, draws.contiguous()
+    return draws[0].to(torch.int32).contiguous(), draws[1].contiguous()
+
+
 def mega_chunk(spins, jgrids, temps, sid, ea, ec, rtrips, tstate, sweep_words,
                pt_words, *, sweep_base, parity, gibbs, pt_interval, pt_full,
                hot_slot, cold_slot):
-    """Run ``n`` sweeps (+ fused measurement + PT) on every realization.
+    """Run ``n`` sweeps (+ fused measurement + PT) on every realization:
+    the plain version for CPU tensors; for CUDA tensors one
+    ``mega_resident`` launch where :func:`resident_route` finds a layout,
+    else three launches a sweep (:func:`mega_chunk_launches`).
 
     Args:
         spins: int8 ``[d, n_systems, H, W]`` by system, updated in place.
-        jgrids: f32 ``[d, 4, H, W]`` pre-shifted coupling grids.
+        jgrids: f32 ``[d, 4, H, W]`` pre-shifted coupling grids
+            (:func:`~.sweep.pack_coupling_grids`).
         temps: f32 ``[n_slots]``.
         sid: int32 ``[d, n_slots]`` system at each slot, updated in place.
         ea, ec: int32 ``[d, n_edges]`` PT edge attempts / acceptances.
@@ -447,31 +613,32 @@ def mega_chunk(spins, jgrids, temps, sid, ea, ec, rtrips, tstate, sweep_words,
               cold_slot=cold_slot)
     if _device_kind(spins) == "cpu":
         return mega_chunk_plain(*args, **kw)
-    shape = _check_sweep(spins, jgrids, sid, temps)
-    d, n_slots, h, w, _ = shape
+    d, n_slots, h, w, _ = _check_chunk(*args)
+    plan = resident_route(spins.device, h, w, d, n_slots)
+    if plan is None:
+        return mega_chunk_launches(*args, **kw)
+    return mega_chunk_resident(*args, plan=plan, **kw)
+
+
+def mega_chunk_launches(spins, jgrids, temps, sid, ea, ec, rtrips, tstate,
+                        sweep_words, pt_words, *, sweep_base, parity, gibbs,
+                        pt_interval, pt_full, hot_slot, cold_slot):
+    """:func:`mega_chunk` on CUDA tensors as three launches a sweep
+    (``colour_pass`` twice, ``pt_step``)."""
+    d, n_slots, h, w, n = _check_chunk(spins, jgrids, temps, sid, ea, ec, rtrips,
+                                       tstate, sweep_words, pt_words)
+    shape = (d, n_slots, h, w, 1)
     dev = spins.device
-    n = sweep_words.shape[0]
-    _check_pt(d, n_slots, dev, ea, ec, rtrips, tstate)
-    _expect(sweep_words, "sweep_words", torch.int32, (n, d, 2), dev)
-    _expect(pt_words, "pt_words", torch.int32, (n, d, 2), dev)
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     e_part, m_part = _partials(lib, *shape, dev)
     e = torch.empty((d, n, n_slots), dtype=torch.float32, device=dev)
     m = torch.empty((d, n, n_slots), dtype=torch.int32, device=dev)
-    # the chunk's PT draws, made from its words on the device in one go;
-    # the kernel reads them as the per-sweep path's jnp-form draws
-    p_edge = p_u = None
-    edge_bytes = u_bytes = 0  # one sweep's draws
-    if pt_interval is not None:
-        draws = pt_draws(pt_words, n_slots - 1, pt_full=pt_full)
-        if pt_full:
-            u = draws.contiguous()
-        else:
-            edges = draws[0].to(torch.int32).contiguous()
-            u = draws[1].contiguous()
-            p_edge, edge_bytes = edges.data_ptr(), d * 4
-        p_u, u_bytes = u.data_ptr(), u[0].numel() * 4
+    edges, u = _chunk_draws(pt_words, n_slots, pt_interval, pt_full)
+    p_edge = None if edges is None else edges.data_ptr()
+    p_u = None if u is None else u.data_ptr()
+    edge_bytes = d * 4  # one sweep's draws
+    u_bytes = 0 if u is None else u[0].numel() * 4
     sys_temps = slot_temps_for_systems(sid, temps)  # written, not read here
     p_spins, p_jg, p_sid, p_temps = (t.data_ptr() for t in (spins, jgrids, sid, temps))
     p_ep, p_mp, p_e, p_m = (t.data_ptr() for t in (e_part, m_part, e, m))
@@ -494,3 +661,52 @@ def mega_chunk(spins, jgrids, temps, sid, ea, ec, rtrips, tstate, sweep_words,
             cold_slot=cold_slot,
         )
     return e, m, parity
+
+
+# device -> int64 scratch of the resident kernel: per PT event each system's
+# tagged sum and the single-edge outcome of each realization, grown on
+# demand; the kernel's entry point sets it before each launch
+_RESIDENT_SCRATCH = {}
+
+
+def _pt_events(n, sweep_base, pt_interval) -> int:
+    return sum(_pt_due(sweep_base, t, pt_interval) for t in range(n))
+
+
+def mega_chunk_resident(spins, jgrids, temps, sid, ea, ec, rtrips, tstate,
+                        sweep_words, pt_words, *, sweep_base, parity, gibbs,
+                        pt_interval, pt_full, hot_slot, cold_slot, plan=None):
+    """:func:`mega_chunk` on CUDA tensors as one launch of
+    ``mega_resident``, laid out by ``plan`` (:func:`resident_route`'s by
+    default; a shape without a layout raises)."""
+    d, n_slots, h, w, n = _check_chunk(spins, jgrids, temps, sid, ea, ec, rtrips,
+                                       tstate, sweep_words, pt_words)
+    dev = spins.device
+    if plan is None:
+        plan = resident_route(dev, h, w, d, n_slots)
+    if plan is None:
+        raise ValueError(f"no resident layout of {d} x {n_slots} systems of "
+                         f"{h} x {w} on {dev}")
+    if spins.data_ptr() % 16:
+        raise ValueError("spins must be 16-byte aligned")
+    events = _pt_events(n, sweep_base, pt_interval)
+    scratch = _RESIDENT_SCRATCH.get(dev)
+    if scratch is None or scratch.numel() < events * d * (n_slots + 1):
+        scratch = torch.empty(max(1, events * d * (n_slots + 1)), dtype=torch.int64,
+                              device=dev)
+        _RESIDENT_SCRATCH[dev] = scratch
+    e = torch.empty((d, n, n_slots), dtype=torch.float32, device=dev)
+    m = torch.empty((d, n, n_slots), dtype=torch.int32, device=dev)
+    edges, u = _chunk_draws(pt_words, n_slots, pt_interval, pt_full)
+    _build.check(_build.library().peapods_mega_resident(
+        spins.data_ptr(), jgrids.data_ptr(), temps.data_ptr(), sid.data_ptr(),
+        ea.data_ptr(), ec.data_ptr(), rtrips.data_ptr(), tstate.data_ptr(),
+        sweep_words.data_ptr(), None if edges is None else edges.data_ptr(),
+        None if u is None else u.data_ptr(), e.data_ptr(), m.data_ptr(),
+        scratch.data_ptr(), d, n_slots, h, w, n, sweep_base,
+        pt_interval or 0, int(pt_full), int(parity), int(gibbs), hot_slot,
+        cold_slot, plan.cluster, plan.threads, plan.smem,
+        torch.cuda.current_stream(dev).cuda_stream,
+    ), "mega_resident")
+    LAUNCHES["mega_resident"] += 1
+    return e, m, (parity + events) % 2 if pt_full else parity

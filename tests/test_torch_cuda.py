@@ -99,9 +99,13 @@ def test_mega_chunk_kernel_matches_plain(cuda, shape, d, n_temps, gibbs, pt_full
     mega.reset_launches()
     e_k, m_k, par_k = mega.mega_chunk(*(k[key] for key in order), **kw)
     torch.cuda.synchronize()
-    assert mega.LAUNCHES == {"colour_pass": 2 * n, "pt_step": n}
+    # the route the shape rule picks: one resident launch, or three a sweep
+    want = ({"colour_pass": 0, "pt_step": 0, "mega_resident": 1}
+            if mega.resident_route(cuda, *shape, d, n_temps) is not None
+            else {"colour_pass": 2 * n, "pt_step": n, "mega_resident": 0})
+    assert mega.LAUNCHES == want
     e_p, m_p, par_p = mega.mega_chunk_plain(*(p[key] for key in order), **kw)
-    assert mega.LAUNCHES == {"colour_pass": 2 * n, "pt_step": n}
+    assert mega.LAUNCHES == want
 
     for key in ("spins", "sid", "ea", "ec", "rtrips", "tstate"):
         assert torch.equal(k[key], p[key]), key
@@ -131,7 +135,148 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
         a[i] = t
         with pytest.raises(ValueError):
             mega.colour_pass(*a, words, 0, gibbs=False)
-    assert mega.LAUNCHES == {"colour_pass": 0, "pt_step": 0}
+    assert mega.LAUNCHES == {"colour_pass": 0, "pt_step": 0, "mega_resident": 0}
+
+
+CHUNK_ORDER = ("spins", "jgrids", "temps", "sid", "ea", "ec", "rtrips", "tstate",
+               "sweep_words", "pt_words")
+CHUNK_STATE = ("spins", "sid", "ea", "ec", "rtrips", "tstate")
+TIE_ULPS = 4  # |u - p| within this many ulp of p: an exp rounding tie
+
+
+def _pass_ties(x, sid, words, colour, gibbs):
+    """Spins where ``colour_pass`` and ``colour_pass_plain`` part on one pass
+    from ``x["spins"]``, all of which must be ulp ties; returns their count
+    and the plain pass's spins."""
+    from peapods_tpu_torch.ops.rng import colour_uniforms
+    from peapods_tpu_torch.ops.sweep import acceptance, colour_mask, local_field
+
+    d, n_slots = sid.shape
+    shape = tuple(x["spins"].shape[2:])
+    di = torch.arange(d, device=sid.device)[:, None]
+    s = x["spins"][di, sid.long()].float()
+    inv = (1.0 / (0.5 * x["temps"])).reshape(1, n_slots, 1, 1)
+    p = acceptance((-s * local_field(s, x["jgrids"][:, None])) * inv, gibbs=gibbs)
+    u = colour_uniforms(words, n_slots, colour, shape)
+    ulp = torch.nextafter(p, torch.full_like(p, np.inf)) - p
+    tie = ((u - p).abs() <= TIE_ULPS * ulp) & colour_mask(shape, colour, sid.device)
+    a, b = x["spins"].clone(), x["spins"].clone()
+    mega.colour_pass(a, x["jgrids"], sid, x["temps"], words, colour, gibbs=gibbs)
+    mega.colour_pass_plain(b, x["jgrids"], sid, x["temps"], words, colour, gibbs=gibbs)
+    diff = a[di, sid.long()] != b[di, sid.long()]
+    assert not (diff & ~tie).any(), "spins differ away from ulp ties"
+    return int((diff & tie).sum()), b
+
+
+def _ulp_tie_sweep(x, kw, n):
+    """The first sweep at which one-sweep resident and plain chunks from the
+    plain chunk's state part, which must be on ulp ties of its colour
+    passes: ``(sweep, ties)``."""
+    s = {key: v.clone() for key, v in x.items()}
+    for t in range(n):
+        words = {key: s[key][t:t + 1] for key in ("sweep_words", "pt_words")}
+        runs = []
+        for fn in (mega.mega_chunk_resident, mega.mega_chunk_plain):
+            r = {key: v.clone() for key, v in s.items()}
+            r.update(words)
+            par = fn(*(r[key] for key in CHUNK_ORDER), **dict(kw, sweep_base=kw["sweep_base"] + t))[2]
+            runs.append((r, par))
+        (a, _), (b, par) = runs
+        if all(torch.equal(a[key], b[key]) for key in CHUNK_STATE):
+            s.update({key: b[key] for key in CHUNK_STATE})
+            kw = dict(kw, parity=par)
+            continue
+        ties, spins = _pass_ties(s, s["sid"], s["sweep_words"][t], 0, kw["gibbs"])
+        more, _ = _pass_ties(dict(s, spins=spins), s["sid"], s["sweep_words"][t], 1,
+                             kw["gibbs"])
+        assert ties + more > 0, f"sweep {t} parts without an ulp tie"
+        return t, ties + more
+    raise AssertionError("the chunks part, but no single sweep does")
+
+
+@pytest.mark.parametrize(
+    "shape,d,n_temps,n,gibbs,pt_full,pt_interval,sweep_base,couplings",
+    [
+        ((64, 64), 2, 5, 24, False, False, 1, 0, "pm"),
+        ((32, 128), 3, 6, 24, False, True, 3, 5, "pm"),
+        ((256, 256), 1, 24, 256, False, False, 1, 0, "pm"),
+        ((256, 256), 1, 24, 256, True, False, 1, 0, "pm"),
+        ((256, 256), 1, 24, 256, False, True, 1, 0, "pm"),
+        ((256, 256), 1, 24, 256, False, False, 3, 5, "pm"),
+        ((256, 256), 1, 24, 256, False, False, None, 0, "gauss"),
+    ],
+    ids=["64-metropolis-single", "32x128-full-interval3", "256-flagship",
+         "256-gibbs", "256-full-ladder", "256-interval3-base5", "256-gauss-no-pt"],
+)
+def test_resident_chunk_matches_launches_and_plain(cuda, shape, d, n_temps, n, gibbs,
+                                                   pt_full, pt_interval, sweep_base,
+                                                   couplings):
+    """The resident chunk bitwise the three launches a sweep and the plain
+    chunk: spins, e, m, sid, PT counters, trip state, parity (gaussian
+    couplings: the plain e to rtol 1e-5; exp ulp ties against the plain
+    chunk counted apart, the chunks not compared past one)."""
+    x = _chunk_inputs(cuda, 29 + d * n_temps, shape, d, n_temps, n, couplings)
+    hot, cold = hot_cold_slots(x["temps"].cpu().numpy())
+    kw = dict(sweep_base=sweep_base, parity=1, gibbs=gibbs, pt_interval=pt_interval,
+              pt_full=pt_full, hot_slot=hot, cold_slot=cold)
+    assert mega.resident_route(cuda, *shape, d, n_temps) is not None
+    runs = {}
+    for route, fn in (("resident", mega.mega_chunk_resident),
+                      ("launches", mega.mega_chunk_launches),
+                      ("plain", mega.mega_chunk_plain)):
+        r = {key: v.clone() for key, v in x.items()}
+        mega.reset_launches()
+        r["e"], r["m"], r["parity"] = fn(*(r[key] for key in CHUNK_ORDER), **kw)
+        torch.cuda.synchronize()
+        if route == "resident":
+            assert mega.LAUNCHES == {"colour_pass": 0, "pt_step": 0, "mega_resident": 1}
+        runs[route] = r
+    res, three, plain = runs["resident"], runs["launches"], runs["plain"]
+    for key in CHUNK_STATE + ("e", "m"):
+        assert torch.equal(res[key], three[key]), key
+    assert res["parity"] == three["parity"]
+    if not torch.equal(res["spins"], plain["spins"]):
+        t, ties = _ulp_tie_sweep(x, kw, n)
+        assert ties <= 1e-5 * 2 * d * n_temps * shape[0] * shape[1] // 2
+        print(f"resident and plain chunks part at sweep {t} on {ties} ulp ties")
+        return
+    for key in CHUNK_STATE + ("m",):
+        assert torch.equal(res[key], plain[key]), key
+    assert res["parity"] == plain["parity"]
+    if couplings == "pm":
+        assert torch.equal(res["e"], plain["e"])
+    else:
+        torch.testing.assert_close(res["e"], plain["e"], rtol=1e-5, atol=0)
+    if pt_interval is not None:
+        assert int(res["ea"].sum()) > 0
+
+
+def test_resident_entry_refuses_what_it_cannot_run(cuda):
+    """The entry point launches nothing for a layout other than the rule's:
+    shared memory that is not the layout's, more clusters than the card
+    holds at once, or a cluster whose rows split a logical block."""
+    x = _chunk_inputs(cuda, 5, (256, 256), 2, 24, 2, "pm")
+    hot, cold = hot_cold_slots(x["temps"].cpu().numpy())
+    kw = dict(sweep_base=0, parity=0, gibbs=False, pt_interval=1, pt_full=False,
+              hot_slot=hot, cold_slot=cold)
+    assert mega.resident_route(cuda, 256, 256, 2, 24) is None  # 48 clusters of 4
+    fits = mega.resident_route(cuda, 256, 256, 1, 24)
+    one = {key: v if key == "temps" else (v[:, :1] if key.endswith("words") else v[:1])
+           .contiguous() for key, v in x.items()}
+    small = _chunk_inputs(cuda, 5, (16, 64), 1, 3, 2, "pm")  # 512 colour sites a row
+    hot3, cold3 = hot_cold_slots(small["temps"].cpu().numpy())
+    mega.reset_launches()
+    for inputs, plan, kw_plan in (
+            (x, fits, kw),  # two realizations: 48 clusters
+            (one, fits._replace(smem=fits.smem + 16), kw),
+            (small, mega.ResidentPlan(1, 16, 128, mega.resident_smem(16, 64, 1, 3)),
+             dict(kw, hot_slot=hot3, cold_slot=cold3))):
+        with pytest.raises(RuntimeError, match="mega_resident"):
+            mega.mega_chunk_resident(*(inputs[key] for key in CHUNK_ORDER), plan=plan,
+                                     **kw_plan)
+    with pytest.raises(ValueError, match="no resident layout"):
+        mega.mega_chunk_resident(*(x[key] for key in CHUNK_ORDER), **kw)
+    assert mega.LAUNCHES["mega_resident"] == 0
 
 
 def test_sample_on_card_is_deterministic_with_the_cpu_schema(cuda):

@@ -132,6 +132,6 @@ def test_dispatch_and_gate():
     words = torch.zeros((1, 2), dtype=torch.int32)
     e_part, m_part = mega.colour_pass(spins, jg, sid, temps, words, 1, gibbs=False)
     assert e_part.shape == (1, 2, 1) and m_part.dtype == torch.int32
-    assert mega.LAUNCHES == {"colour_pass": 0, "pt_step": 0}
+    assert mega.LAUNCHES == {"colour_pass": 0, "pt_step": 0, "mega_resident": 0}
     with pytest.raises(ValueError, match="not supported"):
         mega.colour_pass(spins.to("meta"), jg, sid, temps, words, 0, gibbs=False)
