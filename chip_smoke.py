@@ -25,7 +25,8 @@ through the user's entry points:
   ``fk_link``, ``fk_finish``, ``pt_step``) held against its plain version
   at both shapes, the labelling one launch at a time (``fk_link`` in its
   whole-graph form, or tiled with ``fk_link_border`` and
-  ``fk_link_flatten``);
+  ``fk_link_flatten``), ``fk_finish`` alone on the labelling's parents
+  (spins and every partial block bitwise);
 * the replica path: configs 4 (8^3 +-J glass, Houdayer every 10 sweeps,
   PT on a random edge) and 5 (16^3 gaussian glass, Joerg + CMR every 10
   sweeps, full-ladder PT), each 24 temperatures x 4 replicas x 8
@@ -53,9 +54,12 @@ through the user's entry points:
   next-nearest-neighbour table through the staged path (bonds,
   ``cc_link`` / ``cc_label``, flips), NNN observe against the same run
   without the observer (bitwise), a 4x4 NNN magnet with staged SW against
-  exact enumeration, and each new kernel (``winding``, ``cc_link``,
-  ``cc_label``, ``fk_bonds_nb``, ``fk_finish`` in observe form and reading
-  the CC labels) held against its plain version on those runs' states;
+  exact enumeration, and each kernel (the winding flags: ``winding`` on
+  the harness's graphs, and on the 256^2 graph the tiled form's
+  ``winding_link``, ``_border``, ``_wrap``, ``_check`` one launch at a
+  time; ``cc_link``, ``cc_label``, ``fk_bonds_nb``, ``fk_finish`` reading
+  the CC labels; FK observe's labels, the labelling's parents) held
+  against its plain version on those runs' states;
 * Houdayer(N), the overlap moves' statistics and overlap observe: config 4
   with ``cmr+houd4`` SW and cluster statistics through ``Ising.sample``
   twice from one seed (checksums over spins, records, ``overlap_csd`` and
@@ -81,7 +85,9 @@ through the user's entry points:
   held against its plain version on those runs' states; and the band
   kernels' device times (the labelling's per FK phase beside its bound),
   the halo copies' and the busy share over main-path windows, and their
-  ptxas registers and spills; the unsharded 4096^2 run's labelling.
+  ptxas registers and spills; the unsharded 4096^2 run's labelling and
+  ``fk_finish`` (its time and bound, bitwise its plain version on the
+  run's state).
 
 Each path's launch counts are zeroed just before its main run and read just
 after.  Every phase prints lines; any failure raises and the script exits
@@ -1026,13 +1032,13 @@ def check_sweep_2d(dev, rng, card):
 
 
 def fk_inputs(model, dev, rng, wolff):
-    """The FK kernels' inputs on a model's current state: its spins as a flat
-    graph batch, couplings, the systems' temperatures, and fresh scalars and
-    bond key words."""
+    """The FK kernels' inputs on a model's (or a simulation's) current state:
+    its spins as a flat graph batch, couplings, the systems' temperatures,
+    and fresh scalars and bond key words."""
     from peapods_tpu_torch.engine import seeds
     from peapods_tpu_torch.ops.measure import slot_temps_for_systems
 
-    sim = model._sim
+    sim = getattr(model, "_sim", model)
     rt, st = sim.rt, sim.state
     b = rt.n_disorder * rt.n_systems
     kf = rng.integers(0, 2**32, (b, 2), dtype=np.uint64).astype(np.uint32)
@@ -1113,8 +1119,40 @@ def check_fk(models, dev, rng, card, phase="8 kernel-vs-plain"):
                                                  plain_ms=plain[k])
         for k, v in link_stages(x, dev, name, phase).items():
             times.setdefault(k, {})[name] = v
+        check_finish(model, dev, rng, name, phase)
     return {k: dict(max_abs_err=max_err, library_ms=None, shapes=v)
             for k, v in times.items()}
+
+
+def check_finish(model, dev, rng, name, phase):
+    """``fk_finish`` alone on the labelling's parents of a model's state (or
+    a simulation's), SW and Wolff: the spins and every partial block's (e,
+    m) bitwise ``fk_finish_plain``'s (the same terms in the same pairing).
+    Returns the plain version's time (SW, measuring)."""
+    from peapods_tpu_torch.ops import fk
+
+    plain_ms = None
+    for wolff in (False, True):
+        x = fk_inputs(model, dev, rng, wolff)
+        b, n = x["spins"].shape[0], x["spins"][0].numel()
+        state, parent = fk._bonds_and_link(x["spins"], x["j_fwd"], x["temps"],
+                                           x["kb_words"])
+        args = (parent, x["j_fwd"], x["scalars"])
+        a, p = x["spins"].clone(), x["spins"].clone()
+        ek, mk = fk.fk_finish(a, state, *args, wolff=wolff, with_measure=True)
+        ep, mp = fk.fk_finish_plain(p, *args, wolff=wolff, with_measure=True, blocks=True)
+        torch.cuda.synchronize()
+        bad = {"spins": int((a != p).sum()), "e partials": int((ek != ep).sum()),
+               "m partials": int((mk != mp).sum())}
+        log(phase, f"fk_finish alone {'wolff' if wolff else 'sw'} on {name} ({b} graph(s) "
+            f"of {n} sites, {ek.shape[1]} partial blocks each): mismatches {bad}; "
+            f"{int((a != x['spins']).sum())} spins flipped")
+        if any(bad.values()):
+            raise AssertionError(f"fk_finish on {name} differs from plain: {bad}")
+        if not wolff:
+            plain_ms = wall_ms(lambda: fk.fk_finish_plain(
+                x["spins"].clone(), *args, wolff=False, with_measure=True, blocks=True), 2)
+    return plain_ms
 
 
 def link_stages(x, dev, name, phase):
@@ -2410,6 +2448,7 @@ CC_SRC = "peapods_tpu_torch/csrc/cc.cu"
 CC_REPLACES = "peapods_tpu/ops/pallas_cc_batch.py:394"  # _cc_batch_kernel (row 14)
 CC2D_REPLACES = "peapods_tpu/ops/pallas_cc.py:47"  # _cc_kernel (row 15)
 WINDING_REPLACES = "peapods_tpu/ops/pallas_cc_batch.py:501"  # _winding_kernel (row 16)
+WINDING_SRC = "peapods_tpu_torch/csrc/winding.cu"
 FUSED_REPLACES = "peapods_tpu/ops/pallas_sweep.py:313"  # _kernel_fused (row 2)
 
 
@@ -2423,6 +2462,84 @@ def run_checksum(sim, result) -> str:
     if "fk_csd" in result:
         h.update(np.ascontiguousarray(result["fk_csd"]).tobytes())
     return h.hexdigest()[:16]
+
+
+def winding_want(shape, n_graphs, n):
+    """The winding kernels' launches in ``n`` observed sweeps of ``n_graphs``
+    graphs of ``shape``: ``winding``, or where the graph does not fit one
+    CTA ``winding_link``, ``_border``, ``_wrap`` and ``_check``."""
+    from peapods_tpu_torch.ops import winding
+
+    return {k: n * v for k, v in winding.winding_launches(shape, n_graphs).items()}
+
+
+def winding_stages(masks, labels, shape, dev):
+    """The tiled winding's launches one at a time on a graph batch of the
+    main path, each against its plain version on the kernels' own inputs:
+    ``winding_link``'s parents (each site's open-component minimum in its
+    box), ``winding_border``'s (they lead to the open labels),
+    ``winding_wrap``'s flags from them, ``winding_check``'s error word (0)
+    and counts (a claim for each component).  Returns each launch's plain
+    time and bound from this state's counts: the masks in and parents and W
+    out (link); the face sites' masks, the two box roots of each open bond
+    that leaves a box (border); the active wrap bonds' masks, their ends'
+    two finds' parents and W words, the flags (wrap); the labels and
+    parents in, the roots' W words (check)."""
+    from peapods_tpu_torch.ops import _build, fk, winding
+
+    b, n = labels.shape
+    l0, l1 = shape
+    plan = winding.winding_plan(shape, b)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    parent = torch.full((b, n), -1, dtype=torch.int32, device=dev)
+    wsheet = torch.empty((b, n), dtype=torch.int64, device=dev)
+    cnt = torch.full((b, 3), 7, dtype=torch.int32, device=dev)
+    out = torch.empty(b, dtype=torch.uint8, device=dev)
+    err = torch.zeros(1, dtype=torch.int32, device=dev)
+    t0, t1, _ = plan.tile
+    pm, pp, pw, pc = masks.data_ptr(), parent.data_ptr(), wsheet.data_ptr(), cnt.data_ptr()
+    _build.check(lib.peapods_winding_link(pm, pp, pw, pc, b, l0, l1, t0, t1, plan.threads,
+                                          stream), "winding_link")
+    boxes = parent.clone()
+    _build.check(lib.peapods_winding_border(pm, pp, b, l0, l1, t0, t1, stream),
+                 "winding_border")
+    crossed = parent.clone()
+    _build.check(lib.peapods_winding_wrap(pm, pp, pw, out.data_ptr(), b, l0, l1, stream),
+                 "winding_wrap")
+    _build.check(lib.peapods_winding_check(labels.data_ptr(), pp, pw, pc, err.data_ptr(),
+                                           b, l0, l1, stream), "winding_check")
+    torch.cuda.synchronize()
+    sites = torch.arange(n, device=dev)
+    open_labels = winding.winding_border_plain(masks, shape)
+    wx, wy = winding.winding_wrap_plain(masks, open_labels, shape)
+    comps = (labels == sites).sum(-1, dtype=torch.int32)
+    bad = {"winding_link": int((boxes != winding.winding_link_plain(
+               masks, shape, plan.tile)).sum()),
+           "winding_border": int((fk.fk_link_flatten_plain(crossed) != open_labels).sum()),
+           "winding_wrap": int((((out & 1) != 0) != wx).sum() + (((out & 2) != 0) != wy).sum()),
+           "winding_check": int(err) + int((cnt[:, 0] != comps).sum())
+           + int((cnt[:, 1] != comps).sum())}
+    opened = winding.open_masks(masks, shape)
+    keep = fk.tile_bonds(shape, 2, plan.tile, dev)
+    faces = b * int((~keep).any(-1).sum())
+    crossing = int((opened & ~keep).sum())
+    wrap = b * (l0 + l1)
+    active = int(masks.sum()) - int(opened.sum())
+    n_open = int((open_labels == sites).sum())
+    plain = {
+        "winding_link": wall_ms(lambda: winding.winding_link_plain(masks, shape, plan.tile), 2),
+        "winding_border": wall_ms(lambda: winding.winding_border_plain(masks, shape), 2),
+        "winding_wrap": wall_ms(lambda: winding.winding_wrap_plain(masks, open_labels,
+                                                                   shape), 2),
+        "winding_check": wall_ms(lambda: winding.winding_check_plain(masks, labels, shape), 2),
+    }
+    by = {"winding_link": 14 * b * n, "winding_border": 2 * faces + 8 * crossing,
+          "winding_wrap": 2 * wrap + 24 * active + b, "winding_check": 8 * b * n + 8 * n_open}
+    recs = {k: dict(zip(("bound_ms", "bound_by"), bound(by[k], 0)), plain_ms=plain[k])
+            for k in by}
+    return bad, recs, dict(faces=faces, crossing=crossing, active_wrap=active,
+                           open_roots=n_open, tile=plan.tile)
 
 
 def check_observations(result, sim, n_obs, winding):
@@ -2480,7 +2597,7 @@ def observe_main(dev, card):
         checks.append(run_checksum(model._sim, result))
         models.append(model)
     want = {"sweep_2d": 2 * n, "fk_bonds": n, **link_want((L, L), 1, n),
-            "fk_finish": n, "winding": n, "pt_step": n}
+            **winding_want((L, L), 1, n), "pt_step": n}
     if launches != want:
         raise AssertionError(f"observe launch counts {launches}, expected {want}")
     if checks[0] != checks[1]:
@@ -2537,9 +2654,9 @@ def observe_harness(dev, card):
             launches, r0 = cluster_counts(), result
         checks.append(run_checksum(model._sim, result))
         models.append(model)
-    want = {"sweep_2d": 2 * n, "fk_bonds": n,
-            **link_want(h["shape"], h["n_disorder"] * h["n_temps"], n), "fk_finish": n,
-            "winding": n, "pt_step": n}
+    b = h["n_disorder"] * h["n_temps"]
+    want = {"sweep_2d": 2 * n, "fk_bonds": n, **link_want(h["shape"], b, n),
+            **winding_want(h["shape"], b, n), "pt_step": n}
     if launches != want:
         raise AssertionError(f"harness observe launch counts {launches}, expected {want}")
     if checks[0] != checks[1]:
@@ -2722,28 +2839,39 @@ def check_observe_kernels(obs, hobs, staged, dev, rng):
         if any(bad.values()):
             raise AssertionError(f"observe kernels on {name} differ from plain: {bad}")
         n_comp = int((lp == torch.arange(n, device=dev)).sum())
-        log("23 kernel-vs-plain", f"fk_finish (observe form), winding, cc_link / "
-            f"cc_label on {name} ({b} graph(s) of {'x'.join(map(str, shape))}): "
-            f"mismatches {bad}; {n_comp} clusters, {int(mk.sum())} active bonds, "
-            f"{int(wk[0].sum())} / {int(wk[1].sum())} graphs wind along x / y")
+        log("23 kernel-vs-plain", f"FK observe's labels (the labelling's parents), "
+            f"winding, cc_link / cc_label on {name} ({b} graph(s) of "
+            f"{'x'.join(map(str, shape))}): mismatches {bad}; {n_comp} clusters, "
+            f"{int(mk.sum())} active bonds, {int(wk[0].sum())} / {int(wk[1].sum())} graphs "
+            f"wind along x / y; winding launches {winding.winding_launches(shape, b)}")
         plain = {
-            "winding": wall_ms(lambda: cluster.winding_flags(mp, lp, shape), 2),
             "cc_link": wall_ms(lambda: cc.cc_labels_plain(mp, lat), 3),
-            # the observe form's function: labels from the bonds
-            "fk_finish": wall_ms(lambda: fk.fk_link_plain(mp, shape), 3),
         }
         plain["cc_label"] = plain["cc_link"]
         t = {
-            # masks and labels in; one flag byte a graph out
-            "winding": bound(6 * b * n + b, 0),
             "cc_link": bound(5 * b * n + 4 * (b * n - n_comp), 0),
             "cc_label": bound(8 * b * n, 0),
-            # parents in, labels out
-            "fk_finish": bound(8 * b * n, 0),
         }
         for k, v in t.items():
             times.setdefault(k, {})[name] = dict(bound_ms=v[0], bound_by=v[1],
                                                  plain_ms=plain[k])
+        if winding.winding_plan(shape, b).tiled:
+            wbad, recs, counts = winding_stages(mk, lk.view(b, n), shape, dev)
+            log("23 kernel-vs-plain", f"winding's tiled launches one at a time on {name} "
+                f"(tiles {counts['tile']}: {counts['faces']} face sites, "
+                f"{counts['crossing']} open bonds leave a box, {counts['active_wrap']} "
+                f"active wrap bonds, {counts['open_roots']} open components): "
+                f"mismatches {wbad}")
+            if any(wbad.values()):
+                raise AssertionError(f"winding's launches differ from plain on {name}: "
+                                     f"{wbad}")
+            for k, v in recs.items():
+                times.setdefault(k, {})[name] = v
+        else:
+            # masks and labels in; one flag byte a graph out
+            times.setdefault("winding", {})[name] = dict(
+                zip(("bound_ms", "bound_by"), bound(6 * b * n + b, 0)),
+                plain_ms=wall_ms(lambda: cluster.winding_flags(mp, lp, shape), 2))
         # the CC kernels on these graphs (row 15: one 256^2 graph), off the
         # main path: the profiler's device time a launch
         for k, v in kernel_ms(lambda: cc.cc_labels(mk, lat), 20,
@@ -2809,10 +2937,13 @@ def observe_times(obs, hobs, staged, card):
 def add_observe_records(kernels, obs, hobs, staged, times, us, card):
     """Add this section's numbers to the kernel records: ``cc_link``,
     ``cc_label`` (the BCC SW run's numbers; FCC, NNN, the 256^2 graph and
-    the harness beside them), ``winding`` (the 256^2 observe run's; the
-    harness beside them), ``fk_bonds_nb`` (BCC; FCC, NNN); the observe and
+    the harness beside them), the tiled winding's launches (the 256^2
+    observe run's), ``winding`` (the harness observe's), ``fk_bonds_nb``
+    (BCC; FCC, NNN); the observe and
     staged runs' numbers beside the FK kernels', ``sweep_2d``'s (row 2) and
     the coloured lattices' kernels'."""
+    from peapods_tpu_torch.ops import winding
+
     runs = {"observe256": obs, "harness_observe": hobs, **staged}
     by_name = {kr["name"]: kr for kr in kernels}
 
@@ -2826,8 +2957,9 @@ def add_observe_records(kernels, obs, hobs, staged, times, us, card):
     lines = []  # (main run, record)
     for k, src, main, rep in (("cc_link", CC_SRC, "bcc16_sw", CC_REPLACES),
                               ("cc_label", CC_SRC, "bcc16_sw", CC_REPLACES),
-                              ("winding", "peapods_tpu_torch/csrc/winding.cu",
-                               "observe256", WINDING_REPLACES),
+                              *((k, WINDING_SRC, "observe256", WINDING_REPLACES)
+                                for k in winding.TILED),
+                              ("winding", WINDING_SRC, "harness_observe", WINDING_REPLACES),
                               ("fk_bonds_nb", "peapods_tpu_torch/csrc/fk.cu", "bcc16_sw",
                                "peapods_tpu/ops/pallas_event.py:621")):
         kr = dict(name=k, route="cuda", source=src, replaces=rep, max_abs_err=0.0,
@@ -3496,9 +3628,19 @@ def log_unsharded_link(run, card):
                              f"expected {names}")
     run["labelling"] = dict(ms=sum(link.values()), per_launch=link,
                             bound_ms=bound(5 * n_sites, 0)[0])
+    # fk_finish: spins (read and written), state bytes and labels a site, the
+    # realization's couplings once, the partials written
+    b, n = c["n_temps"], int(np.prod(c["shape"]))
+    fin = run["finish"]
+    fin.update(ms=prof["per_launch"]["fk_finish"] / 1e3, launches=run["launches"]["fk_finish"],
+               **dict(zip(("bound_ms", "bound_by"), bound(
+                   7 * b * n + 4 * 2 * n + 12 * b + 8 * b * ((n + 255) // 256),
+                   2 * 2 * b * n))))
     log("28 space", f"unsharded 4096^2: the labelling {run['labelling']['ms']:.5f} ms an "
         f"FK phase (" + ", ".join(f"{k} {v:.5f}" for k, v in link.items())
         + f" ms a launch) against its bound {run['labelling']['bound_ms']:.5f} ms; "
+        f"fk_finish {fin['ms']:.5f} ms a launch x {fin['launches']} (bound "
+        f"{fin['bound_ms']:.5f} ms by {fin['bound_by']}, plain {fin['plain_ms']:.4f} ms); "
         f"{prof['line']} (on {card})")
 
 
@@ -3973,6 +4115,8 @@ def space_paths(dev, card, mega_sweeps_s):
             with per_sweep_path():
                 run["profile"] = space_profile(run["sim"], SPACE_BIG["kw"],
                                                run["sweeps_s"], 4, UNSHARDED_KERNELS)
+            run["finish"] = dict(max_abs_err=0.0, plain_ms=check_finish(
+                run["sim"], dev, rng, "unsharded 4096^2", "28 space"))
             log_unsharded_link(run, card)
         run.pop("sim")
         big[label] = run
@@ -4051,6 +4195,8 @@ def add_space_records(kernels, sp):
     fk_link["at_space4096_unsharded"] = dict(
         unsharded["labelling"], launches={k: unsharded["launches"][k]
                                           for k in unsharded["labelling"]["per_launch"]})
+    fk_finish = next(kr for kr in kernels if kr["name"] == "fk_finish")
+    fk_finish["at_space4096_unsharded"] = unsharded["finish"]
     # pt_step at 4096^2 in 4 bands, on the flagship's pt_step record
     pt = next(kr for kr in kernels if kr["name"] == "pt_step")
     pt["at_space4096"] = dict(sp["checks"]["4096"]["pt_step"],

@@ -36,26 +36,24 @@
 //              every parent is written, and ends as its site's label.  The
 //              overlap moves (csrc/overlap.cu) label their bond graphs with
 //              it too.
-//   fk_finish  one thread per site: label = find(i) (one or two loads on
-//              the labelling's parents), optionally written to a labels
-//              array; SW flips iff
-//              salted_uniform(label, salt0, salt1) < 1/2, Wolff iff label ==
-//              find(seed) (found on the device).  When measuring, the
-//              post-update energy s * s_fwd * J of the site's forward
-//              bonds comes from the state byte and the neighbours' flip
-//              decisions (no neighbour spin is read while spins are
-//              rewritten), and the block writes one (e, m) partial per graph
-//              ([B, blocks]); pt_step adds them in a fixed order.  In
-//              observe form (cluster_action="observe") it writes the labels
-//              and nothing else: the spins stay as they are.
+//   fk_finish  the flips from each site's root, read with one load: fk_link
+//              leaves every parent at its root (so the parents are the
+//              labels, and the update and observe forms hand them on as
+//              such), the staged path's CC kernels write their labels.  SW
+//              flips iff salted_uniform(label, salt0, salt1) < 1/2, Wolff
+//              iff label == the seed's label.  When measuring, the
+//              post-update energy s * s_fwd * J of the site's forward bonds
+//              comes from the state byte and the neighbours' flip decisions
+//              (no neighbour spin is read while spins are rewritten), and
+//              each block of 256 sites writes one (e, m) partial per graph
+//              ([B, blocks]); pt_step adds them in a fixed order.
 //
 // The staged path (the reference's fk_bond_activation -> _cc_many -> coin
 // or Wolff flips, peapods_tpu/engine/loop.py:1883-1976) serves the lattices
 // given by an offset table (BCC, FCC, custom offsets): fk_bonds_nb draws
 // the bonds along each forward offset (nb.cuh) with fk_bonds' Philox
-// counter, cc.cu's cc_link / cc_label label the graphs, and fk_finish,
-// given no parent array, reads each site's root from those labels and
-// flips; the measurement is then sweep_nb.cu's measure_nb, so the state
+// counter, cc.cu's cc_link / cc_label label the graphs, and fk_finish
+// reads each site's root from those labels and flips; the measurement is then sweep_nb.cu's measure_nb, so the state
 // byte needs no "s differs" bits and holds up to six bonds.
 //
 // The band forms serve a lattice split into row bands over a "space" mesh
@@ -94,9 +92,25 @@
 // residues, and reduces each block's 256 terms with one warp (warp_tree, the
 // tree's pairing), eight blocks at a time: 0.154 ms and 0.050 ms.
 //
-// What bounds it on the H100: each launch touches a few bytes per site --
-// the int8 spins, 8 or 12 B of couplings, the state byte and the int32
-// parent.
+// fk_finish is built as fk_finish_band is: a CTA takes up to 32 partial
+// blocks (ops/fk.py finish_words), decides each flip once into shared
+// memory (its sites' and those of the sites its forward neighbours reach
+// within its range), finds the neighbours with a multiply-shift division
+// and one compare an axis (the geometry a template: no runtime branch on
+// the lattice), and reduces each block's 256 terms with one warp.  The
+// graphs of a tile run side by side (blockIdx.x the graph), so that all but
+// the first read the realization's couplings from L2.  Its first design,
+// one site a thread, walked the union-find for the site and each forward
+// neighbour, drew the SW coin 1 + n_dirs times a site, took two runtime
+// divisions a step and eight barriers a block: 1.321 ms at the unsharded
+// 4096^2 x 4 and 0.161 ms at the harness, now 0.461 and 0.057 (bounds
+// 0.181, 0.019; NVIDIA H100 80GB HBM3, 700 W, tools/probe_finish_winding.py).
+// What is left is integer work (a coin's hash, the neighbours' indices) and,
+// at small graphs, the latency of each CTA's chain of loads and barriers.
+//
+// What bounds the update on the H100: each launch touches a few bytes per
+// site -- the int8 spins, 8 or 12 B of couplings, the state byte and the
+// int32 label.
 // At config 3 (one 256^2 graph) that is well under 1 MB per launch (under
 // 1 us at 3.35 TB/s): the launches are bound by latency.  At 64^2 x 2048
 // graphs a labelling's least bytes are the state bytes in and the parents
@@ -499,51 +513,181 @@ __device__ __forceinline__ bool flips(int root, int wolff, int seed_root,
                : salted_uniform(static_cast<uint32_t>(root), s0, s1) < 0.5f;
 }
 
+// fk_finish's work of one CTA: `parts` consecutive partial blocks of
+// kThreads sites, and the flips it stages in shared memory, `ext` sites
+// from its first (its own and, when measuring, those that its sites' forward
+// neighbours reach within one tile).
+struct FinishTile {
+  int parts;
+  int ext;
+};
+
+constexpr int kMaxFinishParts = 32;
+constexpr int kFinishCtas = 1024;  // about one wave of the H100's resident CTAs
+constexpr int kPartWarps = kThreads / 32;
+
+// fk_finish's geometry (ops/fk.py finish_words): a periodic [L0, L1, L2]
+// lattice (L2 = 1 in 2D), its bond directions (the triangular lattice's
+// third is [1, -1]), the CTA's tile and n / (L1 L2), n / L2 as umulhi(n, m)
+// >> s (band.cuh's multiply-shift; m = 0 for a divisor of 1).
+struct FinishWalk {
+  int L[3];
+  int ndir;
+  int tri;
+  FinishTile ft;
+  uint32_t div_m[2];
+  int div_s[2];
+};
+
+inline FinishWalk make_finish_walk(const int* w) {
+  FinishWalk g;
+  for (int k = 0; k < 3; ++k) g.L[k] = w[k];
+  g.ndir = w[3];
+  g.tri = w[4];
+  g.ft = FinishTile{w[5], w[6]};
+  for (int k = 0; k < 2; ++k) {
+    g.div_m[k] = static_cast<uint32_t>(w[7 + 2 * k]);
+    g.div_s[k] = w[8 + 2 * k];
+  }
+  return g;
+}
+
+__device__ __forceinline__ int finish_div(const FinishWalk& g, int k, int n) {
+  return g.div_m[k]
+             ? static_cast<int>(__umulhi(static_cast<uint32_t>(n), g.div_m[k]) >>
+                                g.div_s[k])
+             : n;
+}
+
+// The post-update energy of site i's forward bonds on a lattice of kNd bond
+// directions (kTri: the triangular lattice's third, [1, -1]; else a third
+// is a 3D lattice's axis 2): the neighbours by one compare an axis (row r
+// by the multiply-shift division, no other division), each bond's product
+// s * s_fwd from the "s differs" bit of the state byte sb and the two flip
+// decisions, the neighbour's from the staged flags where it lies in the
+// CTA's staged range [i0, i0 + n_flag), else drawn again from its label.
+template <int kNd, bool kTri>
+__device__ __forceinline__ float finish_energy(const FinishWalk& g, int i, uint8_t sb, bool fl,
+                                               int i0, int n_flag, const uint8_t* flag,
+                                               const float* J, const int32_t* lab,
+                                               int wolff, int seed_label, uint32_t s0,
+                                               uint32_t s1) {
+  constexpr bool k3d = kNd == 3 && !kTri;
+  const int block = g.L[1] * g.L[2];
+  const int r = finish_div(g, 0, i);
+  int c1 = i - r * block;
+  int c2 = 0;
+  if (k3d) {
+    const int p = c1;
+    c1 = finish_div(g, 1, p);
+    c2 = p - c1 * g.L[2];
+  }
+  int j[kNd];
+  float jv[kNd];
+  j[0] = r + 1 == g.L[0] ? i + block - g.L[0] * block : i + block;
+  j[1] = c1 + 1 == g.L[1] ? i + g.L[2] - block : i + g.L[2];
+  if (kNd == 3)
+    j[2] = kTri ? (c1 == 0 ? j[0] + g.L[1] - 1 : j[0] - 1) : (c2 + 1 == g.L[2] ? i + 1 - g.L[2]
+                                                                                : i + 1);
+  if (kNd == 2) {
+    const float2 v = reinterpret_cast<const float2*>(J)[i];
+    jv[0] = v.x;
+    jv[1] = v.y;
+  } else {
+#pragma unroll
+    for (int d = 0; d < kNd; ++d) jv[d] = J[static_cast<size_t>(i) * kNd + d];
+  }
+  float e = 0.0f;
+#pragma unroll
+  for (int d = 0; d < kNd; ++d) {
+    const unsigned lj = static_cast<unsigned>(j[d] - i0);
+    const bool ff = lj < static_cast<unsigned>(n_flag) ? (flag[lj] & 1u) != 0
+                                                      : flips(lab[j[d]], wolff, seed_label, s0, s1);
+    const float prod = (((sb >> (3 + d)) & 1u) != 0) != (fl != ff) ? -1.0f : 1.0f;
+    e = e + prod * jv[d];
+  }
+  return e;
+}
+
+// Phase 1: every site of the CTA's range flips (its label's coin, or
+// Wolff's label == the seed's label), each decision made once from one load
+// of the label and kept in shared memory with the new spin, and the next
+// `ext - tile` sites' decisions beside them.  Phase 2 (measuring): each
+// site's forward bonds after the update (finish_energy), one site a thread
+// for each partial block, eight blocks at a time, each block's 256 (e, m)
+// terms then reduced by one warp in block_partials' pairing.  The geometry
+// is a template (kNd, kTri): each lattice's neighbours and couplings
+// without runtime branches.
+template <int kNd, bool kTri>
 __global__ void __launch_bounds__(kThreads)
 fk_finish_kernel(int8_t* __restrict__ spins, const uint8_t* __restrict__ state,
-                 int32_t* parent, int32_t* labels, const float* __restrict__ j_fwd,
+                 const int32_t* __restrict__ labels, const float* __restrict__ j_fwd,
                  const int32_t* __restrict__ scalars, float* __restrict__ e_part,
-                 int32_t* __restrict__ m_part, const Dims dims, int n_systems,
-                 int wolff, int observe) {
-  const int b = blockIdx.y;
-  const int n = dims.n[0] * dims.n[1] * dims.n[2];
-  const int nd = dims.ndir;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+                 int32_t* __restrict__ m_part, const FinishWalk g, int n_systems,
+                 int wolff) {
+  extern __shared__ uint8_t flag[];  // bit 0: the site flips; bit 1: its new spin is +1
+  __shared__ float se[kPartWarps][kThreads];
+  __shared__ int sm[kPartWarps][kThreads];
+  const int b = blockIdx.x;  // the graphs of a tile run together: their couplings are shared
+  const int n = g.L[0] * g.L[1] * g.L[2];
+  const int n_blk = (n + kThreads - 1) / kThreads;
   const bool measure = e_part != nullptr;
-  float e_acc = 0.0f;
-  int m_acc = 0;
-  if (i < n) {
-    const size_t base = static_cast<size_t>(b) * n;
-    int32_t* P = parent == nullptr ? nullptr : parent + base;
-    // the root of site j: from the union-find, or (parent null, the staged
-    // path) from the labels of the CC kernels
-    auto root = [&](int j) { return P ? find_root(P, j) : labels[base + j]; };
-    const int r = root(i);
-    if (P && labels != nullptr) labels[base + i] = r;
-    if (observe) return;  // labels only: no flip, no measurement
-    const uint32_t s0 = static_cast<uint32_t>(scalars[3 * b]);
-    const uint32_t s1 = static_cast<uint32_t>(scalars[3 * b + 1]);
-    const int seed_root = wolff ? root(scalars[3 * b + 2]) : -1;
-    const bool fl = flips(r, wolff, seed_root, s0, s1);
-    const int8_t sn = fl ? static_cast<int8_t>(-spins[base + i]) : spins[base + i];
-    spins[base + i] = sn;
-    if (measure) {
-      const uint8_t st = state[base + i];
-      const float* J = j_fwd + (static_cast<size_t>(b / n_systems) * n + i) * nd;
-      // s * s_fwd after the update, from "s differed" and the two flips
-      float e = 0.0f;
-      for (int dir = 0; dir < nd; ++dir) {
-        const bool ff = flips(root(fwd_site(i, dims, dir)), wolff, seed_root, s0, s1);
-        const float prod = (((st >> (3 + dir)) & 1u) != 0) != (fl != ff) ? -1.0f : 1.0f;
-        e = e + prod * J[dir];
-      }
-      e_acc = e;
-      m_acc = sn;
+  const size_t base = static_cast<size_t>(b) * n;
+  const int q0 = blockIdx.y * g.ft.parts;  // the CTA's first partial block
+  const int i0 = q0 * kThreads;            // its first site
+  const int n_own = min(g.ft.parts * kThreads, n - i0);
+  const int n_flag = measure ? min(g.ft.ext, n - i0) : n_own;
+  const uint32_t s0 = static_cast<uint32_t>(scalars[3 * b]);
+  const uint32_t s1 = static_cast<uint32_t>(scalars[3 * b + 1]);
+  const int32_t* lab = labels + base;
+  const int seed_label = wolff ? lab[scalars[3 * b + 2]] : -1;
+  int8_t* s = spins + base;
+#pragma unroll 4
+  for (int k = threadIdx.x; k < n_flag; k += kThreads) {
+    const bool fl = flips(lab[i0 + k], wolff, seed_label, s0, s1);
+    uint8_t f = fl ? 1u : 0u;
+    if (k < n_own) {
+      const int8_t sv = s[i0 + k];
+      const int8_t sn = fl ? static_cast<int8_t>(-sv) : sv;
+      s[i0 + k] = sn;
+      f |= sn > 0 ? 2u : 0u;
     }
+    if (measure) flag[k] = f;
   }
-  if (!measure) return;  // uniform across the block
-  block_partials(e_acc, m_acc, e_part, m_part,
-                 static_cast<size_t>(b) * gridDim.x + blockIdx.x);
+  if (!measure) return;  // uniform across the launch
+  __syncthreads();
+  const uint8_t* st = state + base;
+  const float* J = j_fwd + static_cast<size_t>(b / n_systems) * n * kNd;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int parts = min(g.ft.parts, n_blk - q0);
+  for (int c = 0; c < parts; c += kPartWarps) {
+#pragma unroll
+    for (int k = 0; k < kPartWarps; ++k) {
+      const int i = (q0 + c + k) * kThreads + threadIdx.x;
+      float e = 0.0f;
+      int m = 0;
+      if (c + k < parts && i < n) {
+        const uint8_t f = flag[i - i0];
+        e = finish_energy<kNd, kTri>(g, i, st[i], (f & 1u) != 0, i0, n_flag, flag, J, lab,
+                                     wolff, seed_label, s0, s1);
+        m = (f & 2u) ? 1 : -1;
+      }
+      se[k][threadIdx.x] = e;
+      sm[k][threadIdx.x] = m;
+    }
+    __syncthreads();
+    if (c + warp < parts) {
+      const float et = warp_tree(se[warp], lane);
+      const int mt = warp_tree(sm[warp], lane);
+      if (lane == 0) {
+        const size_t o = static_cast<size_t>(b) * n_blk + q0 + c + warp;
+        e_part[o] = et;
+        m_part[o] = mt;
+      }
+    }
+    if (c + kPartWarps < parts) __syncthreads();  // before the next chunk's terms
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -596,19 +740,6 @@ fk_bonds_band_kernel(const int8_t* __restrict__ spins, const float* __restrict__
     state[base + w] = st;
   }
 }
-
-// fk_finish_band's work of one CTA: `parts` consecutive partial blocks of
-// kThreads sites, and the flips it stages in shared memory, `ext` sites
-// from its first (its own and, when measuring, those that its sites' forward
-// neighbours reach within one tile).
-struct FinishTile {
-  int parts;
-  int ext;
-};
-
-constexpr int kMaxFinishParts = 32;
-constexpr int kFinishCtas = 1024;  // about one wave of the H100's resident CTAs
-constexpr int kPartWarps = kThreads / 32;
 
 inline FinishTile finish_tile(const BandGeom& g, int n_graphs) {
   const int n_blk = (g.hl * g.block + kThreads - 1) / kThreads;
@@ -805,21 +936,31 @@ int peapods_fk_bonds_nb(const void* spins, const void* j_fwd, const void* temps,
   return static_cast<int>(cudaGetLastError());
 }
 
-// labels: int32 [n_graphs, n] or null; e_part / m_part: [n_graphs,
-// peapods_fk_blocks(n)], or both null.  parent null: the roots are read from
-// labels (the staged path's CC output), which are not written.  observe:
-// write the labels only, leaving the spins and the partials alone.
-int peapods_fk_finish(void* spins, const void* state, void* parent, void* labels,
-                      const void* j_fwd, const void* scalars, void* e_part,
-                      void* m_part, int n_graphs, int n_systems, int L0, int L1,
-                      int L2, int tri, int wolff, int observe, void* stream) {
-  fk_finish_kernel<<<site_grid(L0 * L1 * L2, 1, n_graphs), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+// words: ops/fk.py finish_words (host memory).  labels: int32 [n_graphs,
+// n], each site's root (fk_link's parents, or the staged path's CC labels);
+// e_part / m_part: [n_graphs, peapods_fk_blocks(n)], or both null (no
+// measurement; the state bytes are then not read).
+int peapods_fk_finish(void* spins, const void* state, const void* labels,
+                      const void* j_fwd, const void* scalars, void* e_part, void* m_part,
+                      const int* words, int n_graphs, int n_systems, int wolff,
+                      void* stream) {
+  const FinishWalk g = make_finish_walk(words);
+  const int n_blk = (g.L[0] * g.L[1] * g.L[2] + kThreads - 1) / kThreads;
+  if (g.ft.parts < 1 || g.ft.parts > kMaxFinishParts || g.ft.ext < g.ft.parts * kThreads ||
+      g.ft.ext > 2 * g.ft.parts * kThreads ||
+      (e_part != nullptr && g.ndir != 2 && g.ndir != 3) || n_graphs < 1 || n_graphs > 65535 ||
+      (n_blk + g.ft.parts - 1) / g.ft.parts > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(n_graphs, (n_blk + g.ft.parts - 1) / g.ft.parts);
+  // no measurement: any geometry (the second phase does not run)
+  const auto kernel = g.ndir == 3 ? (g.tri ? fk_finish_kernel<3, true> : fk_finish_kernel<3, false>)
+                                  : fk_finish_kernel<2, false>;
+  kernel<<<grid, kThreads, e_part != nullptr ? g.ft.ext : 0,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<int8_t*>(spins), static_cast<const uint8_t*>(state),
-      static_cast<int32_t*>(parent), static_cast<int32_t*>(labels),
-      static_cast<const float*>(j_fwd), static_cast<const int32_t*>(scalars),
-      static_cast<float*>(e_part), static_cast<int32_t*>(m_part),
-      make_dims(L0, L1, L2, tri != 0), n_systems, wolff, observe);
+      static_cast<const int32_t*>(labels), static_cast<const float*>(j_fwd),
+      static_cast<const int32_t*>(scalars), static_cast<float*>(e_part),
+      static_cast<int32_t*>(m_part), g, n_systems, wolff);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -52,11 +52,14 @@ _SIGNATURES = {
     "peapods_fk_link_border": [_P, _P] + [_I] * 8 + [_P],
     "peapods_fk_link_flatten": [_P] + [_I] * 2 + [_P],
     "peapods_fk_bonds_nb": [_P] * 7 + [_I] * 2 + [_P],
-    "peapods_fk_finish": [_P] * 8 + [_I] * 8 + [_P],
+    "peapods_fk_finish": [_P] * 8 + [_I] * 3 + [_P],
     "peapods_cc_link": [_P] * 3 + [_I] + [_P],
     "peapods_cc_label": [_P] * 2 + [_I] * 2 + [_P],
-    "peapods_winding_max_sites": [],
-    "peapods_winding": [_P] * 6 + [_I] * 3 + [_P],
+    "peapods_winding": [_P] * 4 + [_I] * 4 + [_P],
+    "peapods_winding_link": [_P] * 4 + [_I] * 6 + [_P],
+    "peapods_winding_border": [_P] * 2 + [_I] * 5 + [_P],
+    "peapods_winding_wrap": [_P] * 4 + [_I] * 3 + [_P],
+    "peapods_winding_check": [_P] * 5 + [_I] * 3 + [_P],
     "peapods_pair_overlap": [_P] * 4 + [_I] * 8 + [_P],
     "peapods_site_blocks": [_I],
     "peapods_ov_bonds": [_P] * 11 + [_I] * 9 + [_P],

@@ -20,13 +20,14 @@ into tiles ``fk_link_border`` and ``fk_link_flatten``) and ``fk_finish``;
 it runs :func:`fk_update_plain` on CPU tensors.  Both update the spins in
 place and return the same values: bond uniforms from Philox keyed by
 ``kb`` (``rng.bond_uniforms``), labels
-equal to each component's minimum site index, and per-graph partial sums
-of the post-update energy and magnetization (one partial per kernel block;
-one per graph in the plain version).
+equal to each component's minimum site index (on the card the labelling's
+parents, each its site's root), and per-graph partial sums of the
+post-update energy and magnetization (one partial per kernel block of 256
+sites, :func:`block_partials_plain`; one per graph in the plain version).
 
 :func:`fk_observe` is FK observe on those lattices: the same bonds and
-labels, ``fk_finish`` in observe form (labels only, the spins untouched),
-and the bond masks, bits of the kernels' state bytes.  :func:`fk_staged`
+labels (the parents, handed on: no flip launch, the spins untouched), and
+the bond masks, bits of the kernels' state bytes.  :func:`fk_staged`
 is the staged path of the lattices given by an offset table (BCC, FCC,
 custom offsets): ``fk_bonds_nb`` draws the bonds along each offset, the
 connected-components kernels of :mod:`.cc` label them, and ``fk_finish``
@@ -48,6 +49,7 @@ import functools
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import _build, cc, rng
@@ -60,7 +62,7 @@ from .cluster import (
     wolff_flip_mask,
 )
 from .energy import per_spin
-from .lattice import neighbour_values
+from .lattice import fast_divisor, neighbour_values
 
 __all__ = [
     "LAUNCHES",
@@ -77,7 +79,10 @@ __all__ = [
     "fk_link_tiles_plain",
     "fk_link_flatten_plain",
     "tile_bonds",
+    "fk_finish",
     "fk_finish_plain",
+    "block_partials_plain",
+    "finish_words",
     "fk_energy_mag",
     "launch_link",
     "LinkPlan",
@@ -187,12 +192,15 @@ def state_masks(state, n_dirs: int):
     return ((state[..., None] >> bits) & 1).to(torch.bool)
 
 
-def fk_finish_plain(spins, labels, j_fwd, scalars, *, wolff, with_measure):
+def fk_finish_plain(spins, labels, j_fwd, scalars, *, wolff, with_measure, blocks=False):
     """Plain version of ``fk_finish``: flip the clusters in place (SW coin
     or Wolff seed) and, when ``with_measure``, return the post-update
-    partials ``(e_part f32 [B, 1], m_part int32 [B, 1])``."""
+    partials ``(e_part f32, m_part int32)``: ``[B, 1]``, or with ``blocks``
+    the kernel's ``[B, fk_blocks(n)]``, one a block of 256 sites added in
+    its pairing (:func:`block_partials_plain`)."""
     b, shape = spins.shape[0], tuple(spins.shape[1:])
     d, n, n_dirs = j_fwd.shape
+    labels = labels.reshape(b, n)
     if wolff:
         flip = wolff_flip_mask(labels, scalars[:, 2])
     else:
@@ -206,8 +214,27 @@ def fk_finish_plain(spins, labels, j_fwd, scalars, *, wolff, with_measure):
     e = torch.zeros_like(sf)
     for k, off in enumerate(fk_offsets(shape, n_dirs)):
         e = e + sf * neighbour_values(sf, shape, off) * j_fwd[:, None, :, k]
-    return (e.reshape(b, n).sum(-1, keepdim=True),
-            new.to(torch.int32).sum(-1, keepdim=True, dtype=torch.int32))
+    e, m = e.reshape(b, n), new.to(torch.int32)
+    if blocks:
+        return block_partials_plain(e), block_partials_plain(m)
+    return e.sum(-1, keepdim=True), m.sum(-1, keepdim=True, dtype=torch.int32)
+
+
+def block_partials_plain(x):
+    """``[B, ceil(n / 256)]`` sums of ``x [B, n]`` over blocks of 256 sites
+    (the last padded with zeros), paired as ``csrc/mega.cuh``
+    ``block_partials`` and ``warp_tree`` pair them: ``x[t] += x[t + off]``
+    for ``off = 128 .. 1``."""
+    b, n = x.shape
+    nb = (n + 255) // 256
+    t = torch.zeros((b, nb * 256), dtype=x.dtype, device=x.device)
+    t[:, :n] = x
+    t = t.view(b, nb, 256)
+    off = 128
+    while off:
+        t = t[..., :off] + t[..., off:2 * off]
+        off //= 2
+    return t[..., 0]
 
 
 def fk_update_plain(spins, j_fwd, temps, scalars, kb_words, *, wolff,
@@ -353,8 +380,8 @@ def _check_graphs(spins, j_fwd, temps, kb_words, scalars=None):
 
 
 def _bonds_and_link(spins, j_fwd, temps, kb_words, scalars=None):
-    """Check the arguments, then launch ``fk_bonds`` and ``fk_link``:
-    ``(lib, stream, state, parent, dims)``."""
+    """Check the arguments, then launch ``fk_bonds`` and the labelling:
+    ``(state, parent)``, every parent its site's root."""
     dev = spins.device
     shape = tuple(spins.shape[1:])
     n_dirs = j_fwd.shape[-1]
@@ -372,7 +399,81 @@ def _bonds_and_link(spins, j_fwd, temps, kb_words, scalars=None):
         l0, l1, l2, int(tri), stream), "fk_bonds")
     LAUNCHES["fk_bonds"] += 1
     launch_link(lib, stream, state.data_ptr(), parent.data_ptr(), b, l0, l1, l2, tri)
-    return lib, stream, state, parent, (l0, l1, l2, int(tri))
+    return state, parent
+
+
+# fk_finish (csrc/fk.cu kMaxFinishParts): a CTA takes up to FINISH_PARTS
+# partial blocks of 256 sites, fewer until a launch has FINISH_CTAS CTAs.
+# Larger tiles shorten the launch where it is a chain of latencies and stage
+# the neighbours a plane away (32^3 x 16: tools/probe_finish_winding.py
+# --ctas); a single 256^2 graph keeps 256 CTAs of one block.
+FINISH_PARTS = 32
+FINISH_CTAS = 256
+
+
+def finish_offsets(dims, n_dirs: int, tri: bool):
+    """The forward neighbours' distances in site index of each bond
+    direction of a ``dims = (l0, l1, l2)`` lattice, unwrapped: ``l1 l2``
+    along axis 0, ``l2`` along axis 1, 1 along axis 2, ``l1 l2 - 1`` along
+    the triangular lattice's ``[1, -1]``."""
+    _, l1, l2 = dims
+    return [(l1 * l2, l2, l1 * l2 - 1 if tri else 1)[k] for k in range(n_dirs)]
+
+
+@functools.lru_cache(maxsize=None)
+def finish_words(dims, n_dirs: int, tri: bool, n_graphs: int):
+    """int32 host words of ``fk_finish`` (``csrc/fk.cu`` ``FinishWalk``):
+    ``dims = (l0, l1, l2)``, the bond directions it measures (0: none), the
+    triangular flag, the CTA's partial blocks ``parts`` and the sites it
+    stages ``ext`` (its ``parts * 256`` and the farthest forward neighbour
+    within that tile), then ``n // (l1 l2)`` and ``n // l2`` as
+    :func:`~.lattice.fast_divisor` pairs."""
+    dims = tuple(int(x) for x in dims)
+    n = math.prod(dims)
+    n_blk = (n + 255) // 256
+    parts = FINISH_PARTS
+    while parts > 1 and -(-n_blk // parts) * n_graphs < FINISH_CTAS:
+        parts //= 2
+    tile = parts * 256
+    reach = max([f for f in finish_offsets(dims, n_dirs, tri) if f <= tile], default=0)
+    div = [x for d in (dims[1] * dims[2], dims[2]) for x in fast_divisor(d)]
+    words = np.array([*dims, n_dirs, int(tri), parts, tile + reach, *div], np.int64)
+    return words.astype(np.uint32).view(np.int32)
+
+
+def fk_finish(spins, state, labels, j_fwd, scalars, *, wolff, with_measure):
+    """The flips of every graph from its labels, in place (see
+    :func:`fk_finish_plain`): the plain version for CPU tensors, the
+    ``fk_finish`` kernel for CUDA tensors, whose partials have one entry per
+    block of 256 sites.  ``labels`` int32 ``[B, n]`` hold each site's root
+    (``fk_link``'s parents or the CC labels); ``state`` the kernels' state
+    bytes ``[B, n]``, read only when measuring (the "s differs" bits: the
+    square, triangular and cubic lattices)."""
+    b, shape = spins.shape[0], tuple(spins.shape[1:])
+    if _build.device_kind(spins) == "cpu":
+        return fk_finish_plain(spins, labels, j_fwd, scalars, wolff=wolff,
+                               with_measure=with_measure)
+    dev = spins.device
+    d, n, n_dirs = j_fwd.shape
+    tri = len(shape) == 2 and n_dirs == 3
+    if with_measure:
+        fk_offsets(shape, n_dirs)  # raises for a lattice the measurement does not take
+    _build.expect(labels, "labels", torch.int32, (b, n), dev)
+    _build.expect(scalars, "scalars", torch.int32, (b, 3), dev)
+    lib = _build.library()
+    parts = (None, None)
+    if with_measure:
+        _build.expect(state, "state", torch.uint8, (b, n), dev)
+        nb = lib.peapods_fk_blocks(n)
+        parts = (torch.empty((b, nb), dtype=torch.float32, device=dev),
+                 torch.empty((b, nb), dtype=torch.int32, device=dev))
+    words = finish_words(_build.dims3(shape), n_dirs if with_measure else 0, tri, b)
+    _build.check(lib.peapods_fk_finish(
+        spins.data_ptr(), _ptr(state) if with_measure else None, labels.data_ptr(),
+        j_fwd.data_ptr(), scalars.data_ptr(), *map(_ptr, parts), words.ctypes.data, b,
+        b // d, int(wolff), torch.cuda.current_stream(dev).cuda_stream), "fk_finish")
+    LAUNCHES["fk_finish"] += 1
+    return parts
 
 
 def fk_update(spins, j_fwd, temps, scalars, kb_words, *, wolff, with_measure,
@@ -381,31 +482,19 @@ def fk_update(spins, j_fwd, temps, scalars, kb_words, *, wolff, with_measure,
     version for CPU tensors, the ``fk_bonds``, ``fk_link`` and
     ``fk_finish`` kernels for CUDA tensors (2 or 3 bond directions, see the
     module docstring).  The kernel partials have one entry per block of 256
-    sites.  ``uniforms`` (CPU only) are the bond
-    uniforms of ``kb_words`` drawn ahead by the caller."""
+    sites; the labels are the labelling's parents, each its site's root.
+    ``uniforms`` (CPU only) are the bond uniforms of ``kb_words`` drawn
+    ahead by the caller."""
     kw = dict(wolff=wolff, with_measure=with_measure, with_labels=with_labels)
     if _build.device_kind(spins) == "cpu":
         return fk_update_plain(spins, j_fwd, temps, scalars, kb_words,
                                uniforms=uniforms, **kw)
     if uniforms is not None:
         raise ValueError("the FK kernels draw their own uniforms")
-    lib, stream, state, parent, dims = _bonds_and_link(spins, j_fwd, temps, kb_words,
-                                                       scalars)
-    dev = spins.device
-    b, n, d = spins.shape[0], spins[0].numel(), j_fwd.shape[0]
-    labels = (torch.empty((b, *spins.shape[1:]), dtype=torch.int32, device=dev)
-              if with_labels else None)
-    e_part = m_part = None
-    if with_measure:
-        nb = lib.peapods_fk_blocks(n)
-        e_part = torch.empty((b, nb), dtype=torch.float32, device=dev)
-        m_part = torch.empty((b, nb), dtype=torch.int32, device=dev)
-    _build.check(lib.peapods_fk_finish(
-        spins.data_ptr(), state.data_ptr(), parent.data_ptr(), _ptr(labels),
-        j_fwd.data_ptr(), scalars.data_ptr(), _ptr(e_part), _ptr(m_part), b, b // d,
-        *dims, int(wolff), 0, stream), "fk_finish")
-    LAUNCHES["fk_finish"] += 1
-    return e_part, m_part, labels
+    state, parent = _bonds_and_link(spins, j_fwd, temps, kb_words, scalars)
+    e_part, m_part = fk_finish(spins, state, parent, j_fwd, scalars, wolff=wolff,
+                               with_measure=with_measure)
+    return e_part, m_part, parent.view(spins.shape) if with_labels else None
 
 
 def fk_observe_plain(spins, j_fwd, temps, kb_words, uniforms=None):
@@ -419,23 +508,16 @@ def fk_observe_plain(spins, j_fwd, temps, kb_words, uniforms=None):
 
 def fk_observe(spins, j_fwd, temps, kb_words, *, uniforms=None):
     """FK observe (``cluster_action="observe"``) on the FK kernels' lattices
-    (see :func:`fk_observe_plain`): ``fk_bonds``, ``fk_link`` and
-    ``fk_finish`` in observe form, which writes the labels and leaves the
-    spins alone; the masks are bits ``0 .. n_dirs - 1`` of the state
+    (see :func:`fk_observe_plain`): ``fk_bonds`` and ``fk_link``, whose
+    parents, each its site's root, are the labels (no flip: the spins stay
+    as they are); the masks are bits ``0 .. n_dirs - 1`` of the state
     bytes."""
     if _build.device_kind(spins) == "cpu":
         return fk_observe_plain(spins, j_fwd, temps, kb_words, uniforms)
     if uniforms is not None:
         raise ValueError("the FK kernels draw their own uniforms")
-    lib, stream, state, parent, dims = _bonds_and_link(spins, j_fwd, temps, kb_words)
-    b, d = spins.shape[0], j_fwd.shape[0]
-    labels = torch.empty(spins.shape, dtype=torch.int32, device=spins.device)
-    _build.check(lib.peapods_fk_finish(
-        spins.data_ptr(), state.data_ptr(), parent.data_ptr(), labels.data_ptr(),
-        j_fwd.data_ptr(), None, None, None, b, b // d, *dims, 0, 1, stream),
-        "fk_finish")
-    LAUNCHES["fk_finish"] += 1
-    return labels, state_masks(state, j_fwd.shape[-1])
+    state, parent = _bonds_and_link(spins, j_fwd, temps, kb_words)
+    return parent.view(spins.shape), state_masks(state, j_fwd.shape[-1])
 
 
 def fk_staged_plain(spins, j_fwd, temps, scalars, kb_words, lattice, *, wolff,
@@ -487,11 +569,7 @@ def fk_staged(spins, j_fwd, temps, scalars, kb_words, lattice, *, wolff,
     cc.launch(lib, stream, state.data_ptr(), parent.data_ptr(), labels.data_ptr(),
               lattice, b)
     if scalars is not None:
-        _build.check(lib.peapods_fk_finish(
-            spins.data_ptr(), state.data_ptr(), None, labels.data_ptr(),
-            j_fwd.data_ptr(), scalars.data_ptr(), None, None, b, b // d,
-            *_build.dims3(lattice.shape), 0, int(wolff), 0, stream), "fk_finish")
-        LAUNCHES["fk_finish"] += 1
+        fk_finish(spins, None, labels, j_fwd, scalars, wolff=wolff, with_measure=False)
     return labels, state_masks(state, lattice.n_neighbors) if with_masks else None
 
 

@@ -5,8 +5,9 @@ mega path's kernels (colour_pass, pt_step), the per-sweep path's
 (sweep_2d and the three FK kernels) and the replica path's (colour_pass in
 3D, pt_step on R ladders, pair_overlap, the ov_* overlap-move kernels and
 energy_partials), the coloured lattices' (sweep_nb, measure_nb and the
-FK kernels with three bond directions), FK observe's and the staged
-path's (cc_link / cc_label, winding, fk_finish in observe form,
+FK kernels with three bond directions; fk_finish alone with its partials
+per block), FK observe's and the staged path's (cc_link / cc_label, the
+winding kernels in both forms, one launch at a time and at 2048^2,
 fk_bonds_nb and fk_finish reading labels) and Houdayer(N)'s (houdn_bonds,
 houdn_finish) with the overlap moves' labels, masks and observe form.  On a machine
 with a GPU (jax is not needed; ``--noconftest`` skips the JAX package's
@@ -1134,6 +1135,13 @@ def test_cc_labels_one_256_graph(cuda):
     assert int(torch.bincount(got.view(-1).long()).max()) > lat.n_spins // 10
 
 
+def _reset_winding():
+    from peapods_tpu_torch.ops import winding
+
+    for k in winding.LAUNCHES:
+        winding.LAUNCHES[k] = 0
+
+
 @pytest.mark.parametrize("shape,b", [((64, 64), 2048), ((256, 256), 2), ((8, 8), 64)],
                          ids=["64-2048", "256", "8-64"])
 def test_winding_kernel_matches_plain(cuda, shape, b):
@@ -1146,14 +1154,15 @@ def test_winding_kernel_matches_plain(cuda, shape, b):
     masks[0] = False
     masks[-1] = True
     labels = cluster.connected_components(masks, shape)
-    winding.LAUNCHES["winding"] = 0
+    _reset_winding()
     wx, wy = winding.winding_flags(masks, labels, shape)
     px, py = cluster.winding_flags(masks, labels, shape)
     torch.cuda.synchronize()
-    assert winding.LAUNCHES["winding"] == 1
+    assert {k: v for k, v in winding.LAUNCHES.items() if v} == winding.winding_launches(
+        shape, b)
     assert torch.equal(wx, px) and torch.equal(wy, py)
     assert not wx[0] and wx[-1] and wy[-1]
-    # labels of other masks: the kernel cannot settle them and says so
+    # labels of other masks: a component with no site labelled as itself
     err = torch.zeros(1, dtype=torch.int32, device=cuda)
     winding.winding_flags(torch.zeros_like(masks[:1]), torch.zeros_like(labels[:1]),
                           shape, errors=err)
@@ -1163,13 +1172,252 @@ def test_winding_kernel_matches_plain(cuda, shape, b):
                               shape)
 
 
+def test_winding_2048_graph_near_pc(cuda):
+    """One 2048^2 graph at the bond-percolation threshold, more sites than
+    the first design took (1,859,584): the tiled form, bitwise the plain
+    version; and the error mark where one component's label names a site of
+    another."""
+    from peapods_tpu_torch.ops import cluster, winding
+
+    shape, n = (2048, 2048), 2048 * 2048
+    g = torch.Generator(device=cuda).manual_seed(2048)
+    masks = torch.rand((1, n, 2), device=cuda, generator=g) < 0.5
+    labels = cluster.connected_components(masks, shape)
+    _reset_winding()
+    wx, wy = winding.winding_flags(masks, labels, shape)
+    px, py = cluster.winding_flags(masks, labels, shape)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in winding.LAUNCHES.items() if v} == dict.fromkeys(
+        winding.TILED, 1)
+    assert torch.equal(wx, px) and torch.equal(wy, py)
+    # relabel the largest component with another component's root: it holds
+    # no site labelled as itself, the other holds two
+    big = int(torch.bincount(labels[0].long()).argmax())
+    other = int(labels[0, (labels[0] != big).nonzero()[0, 0]])
+    bad = torch.where(labels == big, other, labels).to(torch.int32)
+    err = torch.zeros(1, dtype=torch.int32, device=cuda)
+    winding.winding_flags(masks, bad, shape, errors=err)
+    assert int(err) == 1
+    assert bool(winding.winding_check_plain(masks, bad, shape)[0])
+
+
+def _hand_cases(l0, l1):
+    """The hand cases: bool masks [n, 2] and their flags (wx, wy) on an
+    l0 x l1 torus."""
+    def grid():
+        return np.zeros((l0, l1, 2), bool)
+
+    full = np.ones((l0, l1, 2), bool)
+    ring = grid()
+    ring[:, 0, 0] = True  # column 0 closes along x
+    seam = ring.copy()
+    seam[l0 // 2, 0, 0] = False  # a path across the seam, no cycle
+    stair = grid()
+    for k in range(l0):  # (k, k) -> (k, k+1) -> (k+1, k+1): winds (1, 1)
+        stair[k, k % l1, 1] = True
+        stair[k, (k + 1) % l1, 0] = True
+    twice = grid()  # across the row seam down at column 0, back up at 1
+    twice[l0 - 1, 0, 0] = twice[l0 - 1, 1, 0] = True
+    twice[0, 0, 1] = twice[l0 - 1, 0, 1] = True
+    row = grid()
+    row[0, :, 1] = True  # row 0 closes along y
+    cases = {"full": (full, (True, True)), "column-ring": (ring, (True, False)),
+             "seam-path": (seam, (False, False)), "empty": (grid(), (False, False)),
+             "twice-across-the-seam": (twice, (False, False)), "row-ring": (row, (False, True))}
+    if l0 == l1:
+        cases["staircase"] = (stair, (True, True))
+    return {k: (m.reshape(l0 * l1, 2), f) for k, (m, f) in cases.items()}
+
+
+@pytest.mark.parametrize("shape", [(4, 4), (256, 256), (128, 512)],
+                         ids=["4-whole", "256-tiled", "128x512-tiled"])
+def test_winding_hand_cases(cuda, shape):
+    from peapods_tpu_torch.ops import cluster, winding
+
+    cases = _hand_cases(*shape)
+    masks = torch.from_numpy(np.stack([m for m, _ in cases.values()])).to(cuda)
+    labels = cluster.connected_components(masks, shape)
+    wx, wy = winding.winding_flags(masks, labels, shape)
+    px, py = cluster.winding_flags(masks, labels, shape)
+    want = np.array([f for _, f in cases.values()])
+    assert torch.equal(wx, px) and torch.equal(wy, py)
+    np.testing.assert_array_equal(torch.stack([wx, wy], -1).cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("shape,b,p", [((256, 256), 2, 0.5), ((256, 256), 3, 0.45),
+                                       ((2048, 2048), 1, 0.5), ((96, 160), 8, 0.55)],
+                         ids=["256", "256-sparse", "2048", "96x160"])
+def test_winding_tiled_launches_match_their_plain_versions(cuda, shape, b, p):
+    """The tiled form one launch at a time on the kernels' own inputs:
+    winding_link's parents, each site's open component minimum in its box;
+    winding_border's parents, which lead to the open labels; winding_wrap's
+    flags from them; winding_check's error word, 0 on these labels."""
+    from peapods_tpu_torch.ops import _build, cluster, fk, winding
+
+    l0, l1 = shape
+    n = l0 * l1
+    g = torch.Generator(device=cuda).manual_seed(n + b)
+    masks = torch.rand((b, n, 2), device=cuda, generator=g) < p
+    labels = cluster.connected_components(masks, shape)
+    plan = winding.winding_plan(shape, b)
+    assert plan.tiled
+    lib = _build.library()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    parent = torch.full((b, n), -1, dtype=torch.int32, device=cuda)
+    wsheet = torch.empty((b, n), dtype=torch.int64, device=cuda)
+    cnt = torch.full((b, 3), 7, dtype=torch.int32, device=cuda)
+    out = torch.empty(b, dtype=torch.uint8, device=cuda)
+    err = torch.zeros(1, dtype=torch.int32, device=cuda)
+    t0, t1, _ = plan.tile
+    pm, pp, pw, pc = masks.data_ptr(), parent.data_ptr(), wsheet.data_ptr(), cnt.data_ptr()
+    _build.check(lib.peapods_winding_link(pm, pp, pw, pc, b, l0, l1, t0, t1, plan.threads,
+                                          stream), "winding_link")
+    boxes = parent.clone()
+    sites = torch.arange(n, device=cuda, dtype=torch.int64)
+    assert torch.equal(boxes, winding.winding_link_plain(masks, shape, plan.tile))
+    assert torch.equal(wsheet, (sites << 32).expand(b, n))
+    assert not cnt.any()
+    _build.check(lib.peapods_winding_border(pm, pp, b, l0, l1, t0, t1, stream),
+                 "winding_border")
+    open_labels = winding.winding_border_plain(masks, shape)
+    assert torch.equal(fk.fk_link_flatten_plain(parent), open_labels)
+    assert torch.equal(winding.winding_border_unions(boxes, masks, shape, plan.tile),
+                       open_labels)
+    _build.check(lib.peapods_winding_wrap(pm, pp, pw, out.data_ptr(), b, l0, l1, stream),
+                 "winding_wrap")
+    wx, wy = winding.winding_wrap_plain(masks, open_labels, shape)
+    assert torch.equal((out & 1) != 0, wx) and torch.equal((out & 2) != 0, wy)
+    px, py = cluster.winding_flags(masks, labels, shape)
+    assert torch.equal(wx, px) and torch.equal(wy, py)
+    _build.check(lib.peapods_winding_check(labels.data_ptr(), pp, pw, pc, err.data_ptr(), b,
+                                           l0, l1, stream), "winding_check")
+    torch.cuda.synchronize()
+    assert int(err) == 0
+    comps = (labels == sites).sum(-1, dtype=torch.int32)
+    assert torch.equal(cnt[:, 0], comps) and torch.equal(cnt[:, 1], comps)
+
+
+def test_observe_2048_runs_the_tiled_winding(cuda, monkeypatch):
+    """cluster_action="observe" on a 2048^2 square (more sites than the
+    first design took) through Ising.sample: every sweep's winding flags
+    come from the tiled kernels, bitwise the plain version on the same
+    masks and labels."""
+    from peapods_tpu_torch.ops import cluster, winding
+
+    seen = []
+    kernel = winding.winding_flags
+
+    def both(masks, labels, shape, errors=None):
+        got = kernel(masks, labels, shape, errors=errors)
+        seen.append((got, cluster.winding_flags(masks, labels, shape)))
+        return got
+
+    monkeypatch.setattr(winding, "winding_flags", both)
+    model = Ising((2048, 2048), temperatures=np.array([2.269], np.float32), seed=5,
+                  device=cuda)
+    _reset_winding()
+    model.sample(3, "metropolis", warmup_ratio=0.0, cluster_update_interval=1,
+                 cluster_mode="sw", cluster_action="observe")
+    torch.cuda.synchronize()
+    assert {k: v for k, v in winding.LAUNCHES.items() if v} == dict.fromkeys(
+        winding.TILED, 3)
+    assert len(seen) == 3
+    for (wx, wy), (px, py) in seen:
+        assert torch.equal(wx, px) and torch.equal(wy, py)
+
+
+def _finish_inputs(dev, seed, shape, d, n_sys, couplings, tri=False):
+    """Spins, couplings, temperatures near each lattice's T_c and key words
+    of ``d * n_sys`` graphs; the FK kernels' state bytes and labels (the
+    labelling's parents) of one bond draw."""
+    from peapods_tpu_torch.engine import seeds
+
+    rng = np.random.default_rng(seed)
+    b, n = d * n_sys, int(np.prod(shape))
+    nd = 3 if (tri or len(shape) == 3) else 2
+    coup = (rng.standard_normal((d, n, nd)) if couplings == "gauss"
+            else np.ones((d, n, nd)))
+    t_c = 3.64 if tri else 4.51 if len(shape) == 3 else 2.269
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    x = dict(spins=up(rng.choice([-1, 1], size=(b, *shape)).astype(np.int8)),
+             j_fwd=up(coup.astype(np.float32)),
+             temps=up(rng.uniform(0.9 * t_c, 1.1 * t_c, b).astype(np.float32)),
+             kb=up(rng.integers(-2**31, 2**31, (b, 2)).astype(np.int32)))
+    kf = rng.integers(0, 2**32, (b, 2), dtype=np.uint64).astype(np.uint32)
+    x["scal"] = {w: up(seeds.fk_scalars(kf, n, wolff=w)) for w in (False, True)}
+    x["state"], x["labels"] = fk._bonds_and_link(x["spins"], x["j_fwd"], x["temps"], x["kb"])
+    return x
+
+
+# (name, shape, realizations, systems, couplings, triangular): config 3, the
+# harness, gaussian couplings, the triangular lattice, 32^3 x 16, a ragged
+# cubic and square lattice, the unsharded 4096^2 x 4
+FINISH_CASES = [
+    ("256", (256, 256), 1, 1, "ferro", False),
+    ("harness", (64, 64), 128, 16, "ferro", False),
+    ("gauss-64", (64, 64), 2, 8, "gauss", False),
+    ("tri-32", (32, 32), 2, 4, "gauss", True),
+    ("cubic-32", (32, 32, 32), 1, 16, "gauss", False),
+    ("cubic-8x6x10", (8, 6, 10), 3, 2, "ferro", False),
+    ("6x10", (6, 10), 1, 3, "gauss", False),
+    ("4096", (4096, 4096), 1, 4, "ferro", False),
+]
+
+
+@pytest.mark.parametrize("wolff", [False, True], ids=["sw", "wolff"])
+@pytest.mark.parametrize("name,shape,d,n_sys,couplings,tri", FINISH_CASES,
+                         ids=[c[0] for c in FINISH_CASES])
+def test_fk_finish_matches_plain_with_its_partials(cuda, name, shape, d, n_sys, couplings,
+                                                   tri, wolff):
+    """fk_finish alone on the labelling's parents: the spins and every
+    partial block's (e, m) bitwise fk_finish_plain's (the same sums in the
+    same pairing); without measuring, the spins alone."""
+    x = _finish_inputs(cuda, len(name) + wolff, shape, d, n_sys, couplings, tri)
+    args = (x["j_fwd"], x["scal"][wolff])
+    for measure in (True, False):
+        a, p = x["spins"].clone(), x["spins"].clone()
+        fk.LAUNCHES["fk_finish"] = 0
+        ek, mk = fk.fk_finish(a, x["state"], x["labels"], *args, wolff=wolff,
+                              with_measure=measure)
+        ep, mp = fk.fk_finish_plain(p, x["labels"], *args, wolff=wolff,
+                                    with_measure=measure, blocks=True)
+        torch.cuda.synchronize()
+        assert fk.LAUNCHES["fk_finish"] == 1
+        assert torch.equal(a, p)
+        assert not torch.equal(a, x["spins"])
+        if measure:
+            assert ek.shape == ep.shape == (d * n_sys, -(-int(np.prod(shape)) // 256))
+            assert torch.equal(ek, ep) and torch.equal(mk, mp)
+        else:
+            assert ek is None and mk is None
+
+
+@pytest.mark.parametrize("wolff", [False, True], ids=["sw", "wolff"])
+def test_fk_finish_on_staged_labels_matches_plain(cuda, wolff):
+    """fk_finish reading the CC labels of an offset table (BCC 16^3, no
+    measurement): the spins bitwise the plain flips."""
+    from peapods_tpu_torch.engine import seeds
+    from peapods_tpu_torch.ops import cc
+
+    lat, x = _staged_inputs(cuda, 21 + wolff, (16, 16, 16), "bcc", 2, 4, 6.3)
+    scal = torch.from_numpy(seeds.fk_scalars(x["kf"], lat.n_spins, wolff=wolff)).to(cuda)
+    bonds = fk.fk_bonds_plain(x["spins"], x["coup"], x["temps"], x["kb"],
+                              offsets=lat.offsets)
+    labels = cc.cc_labels(bonds, lat)
+    a, p = x["spins"].clone(), x["spins"].clone()
+    fk.fk_finish(a, None, labels, x["coup"], scal, wolff=wolff, with_measure=False)
+    fk.fk_finish_plain(p, labels, x["coup"], scal, wolff=wolff, with_measure=False)
+    torch.cuda.synchronize()
+    assert torch.equal(a, p) and not torch.equal(a, x["spins"])
+
+
 @pytest.mark.parametrize("shape,d,n_sys,n_dirs,temp", [
     ((256, 256), 1, 1, 2, 2.269), ((64, 64), 16, 8, 2, 2.269), ((32, 32), 1, 8, 3, 3.64),
     ((16, 16, 16), 1, 4, 3, 4.51),
 ], ids=["256", "64-128-graphs", "tri-32", "cubic-16"])
 def test_fk_observe_kernel_matches_plain(cuda, shape, d, n_sys, n_dirs, temp):
-    """fk_finish in observe form: the spins stay bitwise unchanged; labels
-    and masks equal the plain version's."""
+    """FK observe: the spins stay bitwise unchanged; labels (the
+    labelling's parents) and masks equal the plain version's."""
     rng = np.random.default_rng(d + n_dirs)
     b, n = d * n_sys, int(np.prod(shape))
     coup = torch.from_numpy(rng.choice([-1.0, 1.0], size=(d, n, n_dirs)).astype(
@@ -1183,8 +1431,10 @@ def test_fk_observe_kernel_matches_plain(cuda, shape, d, n_sys, n_dirs, temp):
     lk, mk = fk.fk_observe(ka, coup, temps, kb)
     lp, mp = fk.fk_observe_plain(s0.clone(), coup, temps, kb)
     torch.cuda.synchronize()
+    # the labelling's parents, each its site's root, are the labels: no
+    # flip launch
     assert {k: v for k, v in fk.LAUNCHES.items() if v} == {
-        "fk_bonds": 1, **fk.link_launches(shape, b), "fk_finish": 1}
+        "fk_bonds": 1, **fk.link_launches(shape, b)}
     assert torch.equal(ka, s0)
     assert torch.equal(lk, lp)
     assert torch.equal(mk, mp)
