@@ -2480,11 +2480,14 @@ def winding_stages(masks, labels, shape, dev):
     box), ``winding_border``'s (they lead to the open labels),
     ``winding_wrap``'s flags from them, ``winding_check``'s error word (0)
     and counts (a claim for each component).  Returns each launch's plain
-    time and bound from this state's counts: the masks in and parents and W
-    out (link); the face sites' masks, the two box roots of each open bond
-    that leaves a box (border); the active wrap bonds' masks, their ends'
-    two finds' parents and W words, the flags (wrap); the labels and
-    parents in, the roots' W words (check)."""
+    time and bound from this state's counts: the masks in and the open
+    labelling's parents out (link); the face sites' masks, the two box
+    roots of each open bond that leaves a box (border); the wrap bonds'
+    masks, the parents of each active one's two ends, the flags (wrap); the
+    labels and parents in (check).  The bounds leave out W, the union-find
+    of sheets that only this design keeps (its scratch); the function's
+    own bound, the masks and labels in and a flag byte a graph out, is the
+    four launches' together (``check_observe_kernels``)."""
     from peapods_tpu_torch.ops import _build, fk, winding
 
     b, n = labels.shape
@@ -2534,8 +2537,8 @@ def winding_stages(masks, labels, shape, dev):
                                                                    shape), 2),
         "winding_check": wall_ms(lambda: winding.winding_check_plain(masks, labels, shape), 2),
     }
-    by = {"winding_link": 14 * b * n, "winding_border": 2 * faces + 8 * crossing,
-          "winding_wrap": 2 * wrap + 24 * active + b, "winding_check": 8 * b * n + 8 * n_open}
+    by = {"winding_link": 6 * b * n, "winding_border": 2 * faces + 8 * crossing,
+          "winding_wrap": 2 * wrap + 8 * active + b, "winding_check": 8 * b * n}
     recs = {k: dict(zip(("bound_ms", "bound_by"), bound(by[k], 0)), plain_ms=plain[k])
             for k in by}
     return bad, recs, dict(faces=faces, crossing=crossing, active_wrap=active,
@@ -2867,11 +2870,11 @@ def check_observe_kernels(obs, hobs, staged, dev, rng):
                                      f"{wbad}")
             for k, v in recs.items():
                 times.setdefault(k, {})[name] = v
-        else:
-            # masks and labels in; one flag byte a graph out
-            times.setdefault("winding", {})[name] = dict(
-                zip(("bound_ms", "bound_by"), bound(6 * b * n + b, 0)),
-                plain_ms=wall_ms(lambda: cluster.winding_flags(mp, lp, shape), 2))
+        # the function, in either form: masks and labels in; one flag byte a
+        # graph out
+        times.setdefault("winding", {})[name] = dict(
+            zip(("bound_ms", "bound_by"), bound(6 * b * n + b, 0)),
+            plain_ms=wall_ms(lambda: cluster.winding_flags(mp, lp, shape), 2))
         # the CC kernels on these graphs (row 15: one 256^2 graph), off the
         # main path: the profiler's device time a launch
         for k, v in kernel_ms(lambda: cc.cc_labels(mk, lat), 20,
@@ -2974,6 +2977,23 @@ def add_observe_records(kernels, obs, hobs, staged, times, us, card):
                                            "fk_bond_activation (jnp, staged path)")
         kernels.append(kr)
         lines.append((main, kr))
+    # the winding flags as a function at 256^2 observe: the tiled form's
+    # launches together against the function's bound (on the winding record)
+    la, u = runs["observe256"]["launches"], us["observe256"]
+    tiled = [k for k in winding.TILED if k in la]
+    if tiled:
+        calls = la[tiled[0]]
+        rec = next(kr for kr in kernels if kr["name"] == "winding")
+        rec["at_observe256"] = dict(
+            times["winding"]["observe256"], max_abs_err=0.0,
+            ms=sum(u[k] * la[k] for k in tiled) / calls / 1e3,
+            launches_per_sweep=calls / la["pt_step"], launches={k: la[k] for k in tiled},
+            per_launch_ms={k: u[k] / 1e3 for k in tiled},
+            form="tiled: a call is one launch of each, the bound the function's")
+        log("23 times", f"winding flags at observe256, a call of {len(tiled)} launches: "
+            f"{rec['at_observe256']['ms']:.5f} ms against the function's bound "
+            f"{rec['at_observe256']['bound_ms']:.6f} ms (masks and labels in, a flag byte "
+            f"a graph out; the launches' own bounds leave out W) on {card}")
     for k in FK_KERNELS:
         for name in ("observe256", "harness_observe"):
             if k in runs[name]["launches"]:

@@ -513,17 +513,17 @@ __device__ __forceinline__ bool flips(int root, int wolff, int seed_root,
                : salted_uniform(static_cast<uint32_t>(root), s0, s1) < 0.5f;
 }
 
-// fk_finish's work of one CTA: `parts` consecutive partial blocks of
-// kThreads sites, and the flips it stages in shared memory, `ext` sites
-// from its first (its own and, when measuring, those that its sites' forward
-// neighbours reach within one tile).
+// The work of one fk_finish or fk_finish_band CTA: `parts` consecutive
+// partial blocks of kThreads sites, and the flips it stages in shared
+// memory, `ext` sites from its first (its own and, when measuring, those
+// that its sites' forward neighbours reach within one tile).  Both forms
+// take it from the host (ops/fk.py finish_tile).
 struct FinishTile {
   int parts;
   int ext;
 };
 
 constexpr int kMaxFinishParts = 32;
-constexpr int kFinishCtas = 1024;  // about one wave of the H100's resident CTAs
 constexpr int kPartWarps = kThreads / 32;
 
 // fk_finish's geometry (ops/fk.py finish_words): a periodic [L0, L1, L2]
@@ -741,20 +741,11 @@ fk_bonds_band_kernel(const int8_t* __restrict__ spins, const float* __restrict__
   }
 }
 
-inline FinishTile finish_tile(const BandGeom& g, int n_graphs) {
-  const int n_blk = (g.hl * g.block + kThreads - 1) / kThreads;
-  FinishTile ft{kMaxFinishParts, 0};
-  while (ft.parts > 1 &&
-         static_cast<long long>((n_blk + ft.parts - 1) / ft.parts) * n_graphs < kFinishCtas)
-    ft.parts >>= 1;
-  const int tile = ft.parts * kThreads;
-  int reach = 0;
-  for (int d = 0; d < g.w.n_nb; ++d) {
-    const int f = g.w.off[d][0] * g.block + g.w.off[d][1] * g.w.L[2] + g.w.off[d][2];
-    if (f <= tile && f > reach) reach = f;
-  }
-  ft.ext = tile + reach;
-  return ft;
+// A launch's tile (ops/fk.py finish_tile, the rule of both forms) as the
+// kernels take it: 1 to kMaxFinishParts blocks, its flags at most two tiles.
+inline bool finish_tile_ok(const FinishTile& ft) {
+  return ft.parts >= 1 && ft.parts <= kMaxFinishParts && ft.ext >= ft.parts * kThreads &&
+         ft.ext <= 2 * ft.parts * kThreads;
 }
 
 // Phase 1: every site of the CTA's range flips (its label's coin, or
@@ -946,10 +937,8 @@ int peapods_fk_finish(void* spins, const void* state, const void* labels,
                       void* stream) {
   const FinishWalk g = make_finish_walk(words);
   const int n_blk = (g.L[0] * g.L[1] * g.L[2] + kThreads - 1) / kThreads;
-  if (g.ft.parts < 1 || g.ft.parts > kMaxFinishParts || g.ft.ext < g.ft.parts * kThreads ||
-      g.ft.ext > 2 * g.ft.parts * kThreads ||
-      (e_part != nullptr && g.ndir != 2 && g.ndir != 3) || n_graphs < 1 || n_graphs > 65535 ||
-      (n_blk + g.ft.parts - 1) / g.ft.parts > 65535)
+  if (!finish_tile_ok(g.ft) || (e_part != nullptr && g.ndir != 2 && g.ndir != 3) ||
+      n_graphs < 1 || n_graphs > 65535 || (n_blk + g.ft.parts - 1) / g.ft.parts > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(n_graphs, (n_blk + g.ft.parts - 1) / g.ft.parts);
   // no measurement: any geometry (the second phase does not run)
@@ -981,15 +970,18 @@ int peapods_fk_bonds_band(const void* spins, const void* j_win, const void* temp
 
 // seed_labels int32 [n_graphs] (Wolff; else null); e_part / m_part [n_graphs,
 // peapods_fk_blocks(hl * L1 * L2)] or both null (no measurement; the state
-// bytes must hold the "s differs" bits when measuring).
+// bytes must hold the "s differs" bits when measuring).  parts, ext: a
+// CTA's tile (ops/fk.py band_finish_tile).
 int peapods_fk_finish_band(void* spins, const void* state, const void* labels,
                            const void* j_win, const void* scalars,
                            const void* seed_labels, void* e_part, void* m_part,
                            const int* geom, int n_graphs, int n_systems, int wolff,
-                           void* stream) {
+                           int parts, int ext, void* stream) {
   const BandWalk geo = make_band_walk(geom);
-  const FinishTile ft = finish_tile(geo, n_graphs);
+  const FinishTile ft{parts, ext};
   const int n_blk = (geo.hl * geo.block + kThreads - 1) / kThreads;
+  if (!finish_tile_ok(ft) || n_graphs < 1 || n_graphs > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid((n_blk + ft.parts - 1) / ft.parts, n_graphs);
   fk_finish_band_kernel<<<grid, kThreads, e_part != nullptr ? ft.ext : 0,
                           static_cast<cudaStream_t>(stream)>>>(

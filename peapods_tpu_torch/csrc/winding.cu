@@ -18,8 +18,12 @@
 // test of pallas_cc_batch.py:505-516 on at most L0 + L1 edges in place of
 // L0 L1 sites.  The sheets live in a union-find with offsets, W: a 64-bit
 // word per open root, its parent and the sheet offset to it along each axis
-// (16 bits each, mod 2^16: a path of the small graph has fewer than 2^15
-// edges, so a difference compared mod 2^16 is exact).  An edge hangs the
+// (16 bits each, mod 2^16).  A potential difference is a sum of shifts along
+// a path of the spanning forest, each wrap bond at most once, so along axis
+// 0 it counts at most the L1 bonds that wrap axis 0, along axis 1 at most
+// the L0 that wrap axis 1; with L0, L1 < 2^15 (kMaxExtent) a chord's
+// disagreement is under 2^15 in size and exact mod 2^16, and L0 L1 < 2^30
+// keeps the site indices in an int.  An edge hangs the
 // larger root under the smaller with atomicCAS, with the offset that makes
 // the two ends' sheets differ by its shift; an edge whose ends already share
 // a root is a chord, and flags each axis along which its sheets disagree.
@@ -76,7 +80,7 @@ namespace {
 
 constexpr int kLinkThreads = 1024;
 constexpr int kLinkSites = 8192;   // fk.cu's: a box's parents, state bytes and W
-constexpr int kMaxExtent = 16384;  // L0 + L1 < 2^15: the offsets mod 2^16 stay exact
+constexpr int kMaxExtent = 32767;  // L0, L1 < 2^15: the offsets mod 2^16 stay exact
 constexpr int kCheckSites = 1024;  // sites a winding_check CTA counts
 
 using u64 = unsigned long long;

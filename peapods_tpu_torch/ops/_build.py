@@ -82,7 +82,7 @@ _SIGNATURES = {
     "peapods_cc_band_resolve": [_P] * 3 + [_I] * 3 + [_P],
     "peapods_cc_band_write": [_P] * 5 + [_I] + [_P],
     "peapods_fk_bonds_band": [_P] * 6 + [_I] * 2 + [_P],
-    "peapods_fk_finish_band": [_P] * 9 + [_I] * 3 + [_P],
+    "peapods_fk_finish_band": [_P] * 9 + [_I] * 5 + [_P],
 }
 
 _lib = None

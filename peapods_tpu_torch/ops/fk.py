@@ -83,6 +83,8 @@ __all__ = [
     "fk_finish_plain",
     "block_partials_plain",
     "finish_words",
+    "finish_tile",
+    "band_finish_tile",
     "fk_energy_mag",
     "launch_link",
     "LinkPlan",
@@ -402,13 +404,48 @@ def _bonds_and_link(spins, j_fwd, temps, kb_words, scalars=None):
     return state, parent
 
 
-# fk_finish (csrc/fk.cu kMaxFinishParts): a CTA takes up to FINISH_PARTS
-# partial blocks of 256 sites, fewer until a launch has FINISH_CTAS CTAs.
-# Larger tiles shorten the launch where it is a chain of latencies and stage
-# the neighbours a plane away (32^3 x 16: tools/probe_finish_winding.py
-# --ctas); a single 256^2 graph keeps 256 CTAs of one block.
+# fk_finish and fk_finish_band (csrc/fk.cu kMaxFinishParts): a CTA takes up
+# to FINISH_PARTS partial blocks of 256 sites, fewer until a launch has
+# FINISH_CTAS CTAs (about one wave of the H100's resident CTAs), but not
+# fewer than stage the farthest forward neighbour a tile can reach
+# (finish_tile, the one rule of both forms).  Below that floor every site
+# draws that neighbour's coin again: 32^3 x 16 takes four blocks a CTA, a
+# plane, where 1024 CTAs of two ran 13% slower; 128^3 in 4 bands, whose
+# plane no tile reaches, keeps 1024 CTAs, where 512 ran 13% slower (NVIDIA
+# H100: tools/probe_finish_winding.py --ctas, chip_smoke.py).
 FINISH_PARTS = 32
-FINISH_CTAS = 256
+FINISH_CTAS = 1024
+
+
+@functools.lru_cache(maxsize=None)
+def finish_tile(n_sites: int, reaches: tuple, n_graphs: int):
+    """``(parts, ext)`` of an ``fk_finish`` or ``fk_finish_band`` CTA on
+    ``n_graphs`` graphs (or bands) of ``n_sites`` sites: its partial blocks
+    of 256 sites, halved from :data:`FINISH_PARTS` while the launch has
+    fewer than :data:`FINISH_CTAS` CTAs and the tile still holds the
+    farthest forward neighbour that a tile of :data:`FINISH_PARTS` blocks
+    holds, and the sites whose flips it stages: its ``parts * 256`` and the
+    farthest forward neighbour within that tile (``reaches``: each bond
+    direction's distance in site index)."""
+    n_blk = -(-int(n_sites) // 256)
+    far = max([0] + [f for f in reaches if f <= FINISH_PARTS * 256])
+    parts = FINISH_PARTS
+    while (parts > 1 and (parts // 2) * 256 >= far
+           and -(-n_blk // parts) * n_graphs < FINISH_CTAS):
+        parts //= 2
+    tile = parts * 256
+    return parts, tile + max([0] + [f for f in reaches if f <= tile])
+
+
+def band_finish_tile(band, n_graphs: int):
+    """:func:`finish_tile` of ``fk_finish_band`` on ``n_graphs`` graphs of
+    ``band``: its interior sites, each offset's distance in window index."""
+    geo = band.lattice.kernel_geometry
+    l2, n_nb = int(geo[2]), int(geo[3])
+    off = geo[4:4 + 3 * n_nb].tolist()
+    reaches = tuple(off[3 * d] * band.block + off[3 * d + 1] * l2 + off[3 * d + 2]
+                    for d in range(n_nb))
+    return finish_tile(band.n_band, reaches, n_graphs)
 
 
 def finish_offsets(dims, n_dirs: int, tri: bool):
@@ -425,19 +462,13 @@ def finish_words(dims, n_dirs: int, tri: bool, n_graphs: int):
     """int32 host words of ``fk_finish`` (``csrc/fk.cu`` ``FinishWalk``):
     ``dims = (l0, l1, l2)``, the bond directions it measures (0: none), the
     triangular flag, the CTA's partial blocks ``parts`` and the sites it
-    stages ``ext`` (its ``parts * 256`` and the farthest forward neighbour
-    within that tile), then ``n // (l1 l2)`` and ``n // l2`` as
-    :func:`~.lattice.fast_divisor` pairs."""
+    stages ``ext`` (:func:`finish_tile`), then ``n // (l1 l2)`` and ``n //
+    l2`` as :func:`~.lattice.fast_divisor` pairs."""
     dims = tuple(int(x) for x in dims)
-    n = math.prod(dims)
-    n_blk = (n + 255) // 256
-    parts = FINISH_PARTS
-    while parts > 1 and -(-n_blk // parts) * n_graphs < FINISH_CTAS:
-        parts //= 2
-    tile = parts * 256
-    reach = max([f for f in finish_offsets(dims, n_dirs, tri) if f <= tile], default=0)
+    parts, ext = finish_tile(math.prod(dims), tuple(finish_offsets(dims, n_dirs, tri)),
+                             n_graphs)
     div = [x for d in (dims[1] * dims[2], dims[2]) for x in fast_divisor(d)]
-    words = np.array([*dims, n_dirs, int(tri), parts, tile + reach, *div], np.int64)
+    words = np.array([*dims, n_dirs, int(tri), parts, ext, *div], np.int64)
     return words.astype(np.uint32).view(np.int32)
 
 
@@ -737,7 +768,7 @@ def fk_finish_band(spins, cc_buf, j_win, scalars, seed_labels, band, *, wolff,
         j_win.data_ptr(), scalars.data_ptr(),
         seed_labels.data_ptr() if wolff else None,
         *(None if t is None else t.data_ptr() for t in parts), band.words.ctypes.data,
-        g, g // d, int(wolff), torch.cuda.current_stream(dev).cuda_stream),
-        "fk_finish_band")
+        g, g // d, int(wolff), *band_finish_tile(band, g),
+        torch.cuda.current_stream(dev).cuda_stream), "fk_finish_band")
     LAUNCHES["fk_finish_band"] += 1
     return parts

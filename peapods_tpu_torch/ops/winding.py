@@ -43,9 +43,10 @@ __all__ = ["LAUNCHES", "MAX_EXTENT", "winding_flags", "winding_flags_plain",
 LAUNCHES = {"winding": 0, "winding_link": 0, "winding_border": 0, "winding_wrap": 0,
             "winding_check": 0}
 TILED = ("winding_link", "winding_border", "winding_wrap", "winding_check")
-# the largest extent the kernels take (csrc/winding.cu kMaxExtent): the
-# sheet offsets, kept mod 2**16, stay exact while L0 + L1 < 2**15
-MAX_EXTENT = 16384
+# the largest extent the kernels take (csrc/winding.cu kMaxExtent): a sheet
+# offset along one axis sums at most the other extent's wrap bonds, so kept
+# mod 2**16 it stays exact while L0 and L1 are each below 2**15
+MAX_EXTENT = 2**15 - 1
 
 
 def winding_plan(shape, n_graphs: int):
@@ -117,11 +118,13 @@ def launch_winding(lib, stream, masks, labels, out, errors, shape):
         LAUNCHES["winding"] += 1
         return
     t0, t1, _ = plan.tile
-    dev = masks.device
-    parent = torch.empty((b, l0 * l1), dtype=torch.int32, device=dev)
-    wsheet = torch.empty((b, l0 * l1), dtype=torch.int64, device=dev)
-    cnt = torch.empty((b, 3), dtype=torch.int32, device=dev)
-    pp, pw, pc = parent.data_ptr(), wsheet.data_ptr(), cnt.data_ptr()
+    # one scratch allocation: W (int64 [B, n]), the parents (int32 [B, n]),
+    # the counts (int32 [B, 3]), each written before it is read
+    bn = b * l0 * l1
+    scratch = torch.empty(bn + (bn + 3 * b + 1) // 2, dtype=torch.int64, device=masks.device)
+    pw = scratch.data_ptr()
+    pp = pw + 8 * bn
+    pc = pp + 4 * bn
     for name, args in (
             ("winding_link", (pm, pp, pw, pc, b, l0, l1, t0, t1, plan.threads)),
             ("winding_border", (pm, pp, b, l0, l1, t0, t1)),

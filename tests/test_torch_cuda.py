@@ -23,6 +23,8 @@ per-block partials in another order than ``torch.sum``, and e agrees to
 rtol 1e-5.
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -1213,9 +1215,11 @@ def _hand_cases(l0, l1):
     seam = ring.copy()
     seam[l0 // 2, 0, 0] = False  # a path across the seam, no cycle
     stair = grid()
-    for k in range(l0):  # (k, k) -> (k, k+1) -> (k+1, k+1): winds (1, 1)
-        stair[k, k % l1, 1] = True
-        stair[k, (k + 1) % l1, 0] = True
+    # (k, k) -> (k, k+1) -> (k+1, k+1) until it closes: across the row seam
+    # lcm / l0 times, the column seam lcm / l1 times
+    for k in range(math.lcm(l0, l1)):
+        stair[k % l0, k % l1, 1] = True
+        stair[k % l0, (k + 1) % l1, 0] = True
     twice = grid()  # across the row seam down at column 0, back up at 1
     twice[l0 - 1, 0, 0] = twice[l0 - 1, 1, 0] = True
     twice[0, 0, 1] = twice[l0 - 1, 0, 1] = True
@@ -1223,9 +1227,8 @@ def _hand_cases(l0, l1):
     row[0, :, 1] = True  # row 0 closes along y
     cases = {"full": (full, (True, True)), "column-ring": (ring, (True, False)),
              "seam-path": (seam, (False, False)), "empty": (grid(), (False, False)),
-             "twice-across-the-seam": (twice, (False, False)), "row-ring": (row, (False, True))}
-    if l0 == l1:
-        cases["staircase"] = (stair, (True, True))
+             "twice-across-the-seam": (twice, (False, False)), "row-ring": (row, (False, True)),
+             "staircase": (stair, (True, True))}
     return {k: (m.reshape(l0 * l1, 2), f) for k, (m, f) in cases.items()}
 
 
@@ -1242,6 +1245,48 @@ def test_winding_hand_cases(cuda, shape):
     want = np.array([f for _, f in cases.values()])
     assert torch.equal(wx, px) and torch.equal(wy, py)
     np.testing.assert_array_equal(torch.stack([wx, wy], -1).cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("shape", [(2, 32767), (32767, 2), (5, 20000)],
+                         ids=["2x32767", "32767x2", "5x20000"])
+def test_winding_long_strips(cuda, shape):
+    """Strips longer than the 16384-site rows of before, up to the largest
+    extent (winding.MAX_EXTENT): the hand cases, whose staircase crosses
+    one seam as often as the other extent has wrap bonds (the largest sheet
+    offsets a graph can hold), give their flags; an extent beyond is
+    refused."""
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    from peapods_tpu_torch.ops import winding
+
+    l0, l1 = shape
+    n = l0 * l1
+    cases = _hand_cases(l0, l1)
+    sites = np.arange(n).reshape(l0, l1)
+    ends = (np.roll(sites, -1, 0).reshape(-1), np.roll(sites, -1, 1).reshape(-1))
+    labels = []
+    for m, _ in cases.values():
+        i = np.concatenate([sites.reshape(-1)[m[:, d]] for d in (0, 1)])
+        j = np.concatenate([ends[d][m[:, d]] for d in (0, 1)])
+        _, comp = connected_components(coo_matrix((np.ones(len(i)), (i, j)), (n, n)),
+                                       directed=False)
+        first = np.full(comp.max() + 1, n)
+        np.minimum.at(first, comp, np.arange(n))
+        labels.append(first[comp])
+    masks = torch.from_numpy(np.stack([m for m, _ in cases.values()])).to(cuda)
+    labels = torch.from_numpy(np.stack(labels).astype(np.int32)).to(cuda)
+    _reset_winding()
+    wx, wy = winding.winding_flags(masks, labels, shape)
+    assert {k: v for k, v in winding.LAUNCHES.items() if v} == dict.fromkeys(
+        winding.TILED, 1)
+    want = np.array([f for _, f in cases.values()])
+    np.testing.assert_array_equal(torch.stack([wx, wy], -1).cpu().numpy(), want)
+    wide = (l0, winding.MAX_EXTENT + 1) if l0 < l1 else (winding.MAX_EXTENT + 1, l1)
+    m = torch.zeros((1, wide[0] * wide[1], 2), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="extents"):
+        winding.winding_flags(m, torch.zeros(m.shape[:2], dtype=torch.int32, device=cuda),
+                              wide)
 
 
 @pytest.mark.parametrize("shape,b,p", [((256, 256), 2, 0.5), ((256, 256), 3, 0.45),
@@ -1970,14 +2015,11 @@ def _halo_systems_per_cta(band, square, d, n_sys):
 
 
 def _finish_parts(band, g):
-    """The partial blocks an fk_finish_band CTA takes (csrc/fk.cu
-    finish_tile): halved from 32 while the launch has fewer than 1024
-    CTAs."""
-    n_blk = -(-band.n_band // 256)
-    parts = 32
-    while parts > 1 and -(-n_blk // parts) * g < 1024:
-        parts //= 2
-    return parts
+    """The partial blocks an fk_finish_band CTA takes (ops/fk.py
+    band_finish_tile): halved from 32 while the launch has fewer than
+    fk.FINISH_CTAS CTAs, down to the tile that stages the farthest forward
+    neighbour a tile can."""
+    return fk.band_finish_tile(band, g)[0]
 
 
 def _tree_partials(terms, block, per_thread):

@@ -3,9 +3,12 @@ CPU, as ``tests/test_torch_band_index.py`` models the band form's.
 
 * ``fk.finish_words`` hold the extents, the bond directions, a CTA's
   partial blocks (halved from 32 until a launch has ``fk.FINISH_CTAS``
-  CTAs) and the sites it stages (its tile and the farthest forward
+  CTAs, but not below the tile that stages the farthest forward neighbour
+  a tile of 32 blocks stages) and the sites it stages (its tile and the farthest forward
   neighbour within it), and the multiply-shift divisors of ``n / (L1 L2)``
-  and ``n / L2``.
+  and ``n / L2``.  ``fk_finish_band``'s tile (``fk.band_finish_tile``)
+  comes from the same rule, ``fk.finish_tile``, over a band's interior
+  sites and its offsets' window distances.
 * A numpy model of each CTA over every site of a shape: its own sites
   (consecutive partial blocks: every site once over the launch), the sites
   it stages, each site's forward neighbours by the division-free
@@ -24,7 +27,8 @@ import torch
 
 from peapods_tpu_torch.ops import fk
 from peapods_tpu_torch.ops.cluster import cluster_coin_flip_mask, wolff_flip_mask
-from peapods_tpu_torch.ops.lattice import GEOMETRY_OFFSETS, Lattice, fast_divisor
+from peapods_tpu_torch.ops.lattice import (GEOMETRY_OFFSETS, BandGeometry, Lattice,
+                                           fast_divisor)
 
 torch.set_num_threads(1)
 
@@ -60,19 +64,60 @@ def test_finish_words(name, shape, tri, b):
     n = int(np.prod(dims))
     n_blk = -(-n // 256)
     ctas = -(-n_blk // parts) * b
-    # halved from 32 while the launch has fewer than FINISH_CTAS CTAs
-    assert parts in (1, 2, 4, 8, 16, 32)
-    assert parts == 1 or ctas >= fk.FINISH_CTAS
-    assert parts == 32 or -(-n_blk // (2 * parts)) * b < fk.FINISH_CTAS
-    tile = parts * 256
+    # halved from 32 while the launch has fewer than FINISH_CTAS CTAs and
+    # half the tile still stages the farthest neighbour 32 blocks stage
     fwd = fk.finish_offsets(dims, nd, tri)
+    far = max([0] + [f for f in fwd if f <= 32 * 256])
+    assert parts in (1, 2, 4, 8, 16, 32)
+    assert parts == 1 or ctas >= fk.FINISH_CTAS or parts * 128 < far
+    assert parts == 32 or -(-n_blk // (2 * parts)) * b < fk.FINISH_CTAS
+    assert parts * 256 >= far
+    tile = parts * 256
     assert ext == tile + max([f for f in fwd if f <= tile], default=0) <= 2 * tile
+    assert (parts, ext) == fk.finish_tile(n, tuple(fwd), b)
     div = w[7:11].view(np.uint32).astype(np.int64).reshape(2, 2)
     assert tuple(div[0]) == fast_divisor(dims[1] * dims[2])
     assert tuple(div[1]) == fast_divisor(dims[2])
-    # no measurement: no neighbours, the CTA stages its own sites only
+    # no measurement: no neighbours, no floor, the CTA stages its own sites
     w0 = fk.finish_words(dims, 0, tri, b)
-    assert int(w0[3]) == 0 and int(w0[6]) == tile
+    assert int(w0[3]) == 0 and int(w0[6]) == int(w0[5]) * 256 <= tile
+    assert (int(w0[5]), int(w0[6])) == fk.finish_tile(n, (), b)
+
+
+# fk_finish_band's bands: the space path's 4096^2, 128^3 and 256^2
+# triangular in 4 bands, 32^3 FCC, an offset table that reaches two rows,
+# one band of a small square: (name, shape, offsets, bands, graphs)
+BANDS = [("space4096", (4096, 4096), None, 4, 4), ("cubic128", (128, 128, 128), None, 4, 8),
+         ("tri256", (256, 256), TRI, 4, 8), ("fcc32", (32, 32, 32),
+                                               GEOMETRY_OFFSETS["fcc"], 4, 4),
+         ("far", (16, 12), [[1, 0], [0, 2], [1, -2], [2, -1]], 2, 3),
+         ("square-1", (16, 16), None, 1, 2)]
+
+
+@pytest.mark.parametrize("name,shape,offsets,ns,g", BANDS, ids=[c[0] for c in BANDS])
+def test_band_finish_tile_is_the_whole_forms_rule(name, shape, offsets, ns, g):
+    """Each band's tile: partial blocks halved from 32 while the launch has
+    fewer than fk.FINISH_CTAS CTAs and half the tile stages the farthest
+    neighbour 32 blocks stage, as fk_finish's, and the staged sites the
+    tile and the farthest forward neighbour within it, each offset's
+    distance in window index taken from a site mid-row of the band's first
+    interior row and its neighbour's coordinates."""
+    lat = Lattice(shape, offsets)
+    for band in BandGeometry(lat, ns).bands:
+        parts, ext = fk.band_finish_tile(band, g)
+        n_blk = -(-band.n_band // 256)
+        at = np.array([band.row0] + [x // 2 for x in shape[1:]])
+        i = np.ravel_multi_index(at, shape)
+        reach = [int(np.ravel_multi_index((at + off) % shape, shape)) - int(i)
+                 for off in lat.offsets]
+        far = max([0] + [f for f in reach if f <= 32 * 256])
+        assert parts in (1, 2, 4, 8, 16, 32)
+        assert parts == 1 or -(-n_blk // parts) * g >= fk.FINISH_CTAS or parts * 128 < far
+        assert parts == 32 or -(-n_blk // (2 * parts)) * g < fk.FINISH_CTAS
+        assert parts * 256 >= far
+        tile = parts * 256
+        assert ext == tile + max([0] + [f for f in reach if f <= tile]) <= 2 * tile
+        assert (parts, ext) == fk.finish_tile(band.n_band, tuple(reach), g)
 
 
 def _cta(w, q):
@@ -117,10 +162,9 @@ def _model(shape, tri, b, ctas=None):
 
 
 # coins drawn a site over a launch (staged flags and the coins drawn
-# again): a CTA of one row at config 3 also stages the next row; the
-# harness's CTA takes a whole graph; 256^2 x 4's CTA of four rows stages a
-# fifth
-COINS = {"config3": 2.0, "256x4": 1.25, "harness": 1.0}
+# again): a CTA of one row at config 3 and at 256^2 x 4 also stages the
+# next row; the harness's CTA takes a whole graph
+COINS = {"config3": 2.0, "256x4": 2.0, "harness": 1.0}
 
 
 @pytest.mark.parametrize("name,shape,tri,b", SHAPES, ids=[s[0] for s in SHAPES])
@@ -163,9 +207,10 @@ def test_partition_covers_every_site_and_finds_the_neighbours(name, shape, tri, 
         # one CTA a graph: every neighbour staged, the wrapped ones too
         assert int(w[5]) * 256 >= n
     if name == "cubic32":
-        # two planes a CTA, the next staged: the +x neighbour is drawn
+        # a plane a CTA (the floor: 1024 CTAs of half a plane would draw
+        # every +x coin again), the next staged: the +x neighbour is drawn
         # again only from the last plane
-        assert int(w[5]) * 256 == 2 * 32 * 32 and covered
+        assert int(w[5]) * 256 == 32 * 32 and covered
         *_, nbrs, staged = next(_model(shape, tri, b, [n_cta - 1]))
         assert (~staged[:, 0]).sum() == 32 * 32 and staged[:, 2].all()
 

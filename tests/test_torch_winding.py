@@ -18,7 +18,14 @@ the JAX package.
   with no site labelled as itself), and not where labels name two roots in
   one component while every component holds one.
 * The kernels' form: one launch up to one CTA's box, four beyond.
+* The extent limit: a helix that winds an axis as often as the other
+  extent allows, at the largest extent the kernels take, keeps the model's
+  offsets mod 2**16 exact; the limit is the source's.
 """
+
+import math
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -259,3 +266,65 @@ def test_the_kernels_form(shape, b, launches):
     assert plan == fk.link_plan((*shape, 1), b)
     assert plan.tile[0] * plan.tile[1] <= fk.LINK_TILE_SITES and plan.tile[2] == 1
     assert max(shape) <= winding.MAX_EXTENT
+
+
+def _helix(l0, l1):
+    """Bool masks [n, 2] of the (1, 1) staircase from (0, 0) until it
+    closes: lcm(l0, l1) steps, across the row seam lcm / l0 times and the
+    column seam lcm / l1 times."""
+    m = np.zeros((l0, l1, 2), bool)
+    for k in range(math.lcm(l0, l1)):  # (k, k) -> (k, k+1) -> (k+1, k+1)
+        m[k % l0, k % l1, 1] = True
+        m[k % l0, (k + 1) % l1, 0] = True
+    return m.reshape(l0 * l1, 2)
+
+
+def _open_labels(masks, shape):
+    """Each site's open-component minimum (a sequential union-find)."""
+    l0, l1 = shape
+    n = l0 * l1
+    parent = np.arange(n)
+
+    def find(x):
+        while parent[x] != x:
+            parent[x] = parent[parent[x]]
+            x = parent[x]
+        return x
+
+    opened = winding.open_masks(torch.from_numpy(masks[None]), shape)[0].numpy()
+    for i, d in zip(*np.nonzero(opened)):
+        a, b = find(i), find(i + (l1 if d == 0 else 1))
+        parent[max(a, b)] = min(a, b)
+    return np.array([find(i) for i in range(n)])
+
+
+@pytest.mark.parametrize("shape", [(2, winding.MAX_EXTENT), (winding.MAX_EXTENT, 2),
+                                   (3, 20000), (6, 10)],
+                         ids=["2xmax", "maxx2", "3x20000", "6x10"])
+def test_sheet_offsets_stay_exact_at_the_extent_limit(shape):
+    """A helix whose one cycle crosses an axis's seam as often as the other
+    extent has wrap bonds (the most a path of the spanning forest can): at
+    2 x 32767 the chord that closes it disagrees by 32767 along x, still
+    nonzero mod 2**16, so the model of the kernels' union-find flags both
+    axes in any order of the wrap bonds."""
+    l0, l1 = shape
+    masks = _helix(l0, l1)
+    lab = _open_labels(masks, shape)
+    turns = (math.lcm(l0, l1) // l0, math.lcm(l0, l1) // l1)
+    assert max(turns) == max(shape) // math.gcd(l0, l1)
+    edges = np.arange(l0 + l1)
+    for order in (edges, edges[::-1], np.random.default_rng(l1).permutation(edges)):
+        assert _model_flags(masks, lab, shape, order) == (True, True)
+    if l0 * l1 <= 64:
+        labels = cluster.connected_components(torch.from_numpy(masks[None]), shape)
+        px, py = cluster.winding_flags(torch.from_numpy(masks[None]), labels, shape)
+        assert bool(px[0]) and bool(py[0])
+
+
+def test_extent_limit_is_the_kernels():
+    """MAX_EXTENT is csrc/winding.cu's kMaxExtent: each extent below 2**15
+    (a sheet offset sums at most the other extent's wrap bonds), the sites
+    of a graph below 2**30."""
+    src = (Path(winding.__file__).parent.parent / "csrc" / "winding.cu").read_text()
+    assert int(re.search(r"kMaxExtent = (\d+);", src).group(1)) == winding.MAX_EXTENT
+    assert winding.MAX_EXTENT == 2**15 - 1 and winding.MAX_EXTENT**2 < 2**30

@@ -9,7 +9,9 @@ ones on one NVIDIA GPU, to find what sets their time.
 Each ``--src`` names a directory of the port's CUDA sources (default: this
 checkout's ``peapods_tpu_torch/csrc``); give the parent commit's sources
 (``git archive`` of it unpacked under a directory ``.gitignore`` lists) and
-this checkout's to compare two designs on one card.  For every source the
+this checkout's to compare two designs on one card (``fk_finish_band`` is
+called with its tile from the host, ``ops/fk.py`` ``band_finish_tile``, as
+this checkout's entry point takes it).  For every source the
 script builds ``fk.cu``, ``halo.cu`` and ``cc_band.cu`` as they are
 ("base") and ``fk.cu`` / ``halo.cu`` patched into the variants of the
 source's design (the first design of ``fk_finish_band`` and ``sweep_halo``,
@@ -69,7 +71,7 @@ import torch
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
-from peapods_tpu_torch.ops import _build, cc_band  # noqa: E402
+from peapods_tpu_torch.ops import _build, cc_band, fk  # noqa: E402
 from peapods_tpu_torch.ops.lattice import GEOMETRY_OFFSETS, BandGeometry, Lattice  # noqa: E402
 
 # (kernel source, anchor, replacement) of each variant on the first design
@@ -392,7 +394,8 @@ def launches(kl, variant, x, dev):
                     _build.check(lib.peapods_fk_finish_band(
                         x["spins"].data_ptr(), x["state"].data_ptr(), x["labels"].data_ptr(),
                         x["coup"].data_ptr(), x["scal"].data_ptr(), None, *parts, words,
-                        n_sys, n_sys, 0, stream), "fk_finish_band")
+                        n_sys, n_sys, 0, *fk.band_finish_tile(band, n_sys), stream),
+                        "fk_finish_band")
                 out.append(("fk_finish_band", dict(measure=meas), go))
     if "cc_band" in kl:
         lib, cc = kl["cc_band"][0], x["cc"]

@@ -187,6 +187,7 @@ def probe_ctas(x, state, parent, ctas, name, card, results):
     try:
         for target in ctas:
             fk.FINISH_CTAS = target
+            fk.finish_tile.cache_clear()
             fk.finish_words.cache_clear()
             spins = x["spins"].clone()
 
@@ -208,6 +209,7 @@ def probe_ctas(x, state, parent, ctas, name, card, results):
                   flush=True)
     finally:
         fk.FINISH_CTAS = kept
+        fk.finish_tile.cache_clear()
         fk.finish_words.cache_clear()
 
 
