@@ -25,8 +25,9 @@ through the user's entry points:
   ``fk_link``, ``fk_finish``, ``pt_step``) held against its plain version
   at both shapes, the labelling one launch at a time (``fk_link`` in its
   whole-graph form, or tiled with ``fk_link_border`` and
-  ``fk_link_flatten``), ``fk_finish`` alone on the labelling's parents
-  (spins and every partial block bitwise);
+  ``fk_link_flatten``), ``fk_bonds`` alone (every state byte bitwise) and
+  ``fk_finish`` alone on the labelling's parents (spins and every partial
+  block bitwise);
 * the replica path: configs 4 (8^3 +-J glass, Houdayer every 10 sweeps,
   PT on a random edge) and 5 (16^3 gaussian glass, Joerg + CMR every 10
   sweeps, full-ladder PT), each 24 temperatures x 4 replicas x 8
@@ -85,9 +86,9 @@ through the user's entry points:
   held against its plain version on those runs' states; and the band
   kernels' device times (the labelling's per FK phase beside its bound),
   the halo copies' and the busy share over main-path windows, and their
-  ptxas registers and spills; the unsharded 4096^2 run's labelling and
-  ``fk_finish`` (its time and bound, bitwise its plain version on the
-  run's state).
+  ptxas registers and spills; the unsharded 4096^2 run's labelling,
+  ``fk_finish``, ``fk_bonds`` and ``sweep_2d`` (their times and bounds,
+  each bitwise its plain version on the run's state).
 
 Each path's launch counts are zeroed just before its main run and read just
 after.  Every phase prints lines; any failure raises and the script exits
@@ -150,6 +151,32 @@ def add_kernel_time(acc, name, ev):
     t = acc.setdefault(name, [0.0, 0])
     t[0] += ev.self_device_time_total
     t[1] += ev.count
+
+
+def kernel_times(prof, names, n, ran):
+    """Split a profiled window of ``n`` sweeps: each kernel of ``names``'s
+    device time a launch, its launches and device time a sweep, the launches
+    the profiler missed, and the other device records.  Launches a sweep
+    come from the wrappers' counts over the window (``ran``): the profiler
+    can miss the first sweep's launches of a long window (the unsharded
+    4096^2 run's sweep_2d, fk_bonds and labelling: 3 sweeps of 4), so a
+    sweep's device time is each launch's time times the launches made."""
+    from torch.autograd import DeviceType
+
+    acc, rest = {}, []
+    for ev in prof.key_averages():
+        if ev.self_device_time_total <= 0:
+            continue
+        hit = [k for k in names if f"{k}_kernel" in ev.key]
+        if hit:
+            add_kernel_time(acc, hit[0], ev)
+        elif ev.device_type != DeviceType.CPU:  # a torch op's kernels, not the op
+            rest.append(ev)
+    per_launch = {k: t / c for k, (t, c) in acc.items()}
+    counts = {k: (ran.get(k) or c) / n for k, (t, c) in acc.items()}
+    per_sweep = {k: per_launch[k] * counts[k] for k in acc}
+    missed = {k: f"{c} of {ran[k]}" for k, (t, c) in acc.items() if ran.get(k, c) != c}
+    return per_launch, counts, per_sweep, missed, rest
 
 
 def log(phase, msg):
@@ -974,6 +1001,14 @@ def harness(dev, card):
     return dict(model=models[1], sweeps_s=rate, kw=kw, launches=launches)
 
 
+def sweep_2d_bound(n, n_real):
+    """A ``sweep_2d`` pass's bound on ``n`` sites of ``n_real`` sites' worth
+    of realizations: every spin read, the active colour's four couplings a
+    site (half the sites), the active spins written; 20 operations an
+    active site."""
+    return bound(n + 8 * n_real + n // 2, 10 * n)
+
+
 def check_sweep_2d(dev, rng, card):
     """The sweep kernel against its plain version at 256^2 over 8 systems
     and at the harness shape (bitwise spins and partial sums); its plain
@@ -1025,10 +1060,46 @@ def check_sweep_2d(dev, rng, card):
         yargs = (y["jgrids"], y["sys_temps"], y["words"])
         plain = wall_ms(lambda: sweep.sweep_2d_plain(
             y["spins"], *yargs, gibbs=False), 10) / 2
-        n = d * n_sys * shape[0] * shape[1]
-        bms, by = bound(n + d * 16 * shape[0] * shape[1] + n // 2, 20 * n // 2)
+        bms, by = sweep_2d_bound(d * n_sys * shape[0] * shape[1], d * shape[0] * shape[1])
         times[name] = dict(plain_ms=plain, bound_ms=bms, bound_by=by)
     return dict(max_abs_err=max_err, library_ms=None, shapes=times)
+
+
+def check_sweep_state(sim, dev, rng, name, phase):
+    """``sweep_2d`` (both passes, measuring) on a simulation's state,
+    Metropolis and Gibbs: the spins and the (e, m) sums of its partial
+    blocks bitwise ``sweep_2d_plain``'s.  With +-1 couplings every energy
+    term is an even integer and every sum stays within 2^25, so float32
+    adds them exactly in any order: the tolerance is 0.  Returns the max
+    |de| and the plain version's time a pass (Metropolis)."""
+    from peapods_tpu_torch.ops import sweep
+    from peapods_tpu_torch.ops.measure import slot_temps_for_systems
+
+    rt, st = sim.rt, sim.state
+    d, n_sys = rt.n_disorder, rt.n_systems
+    spins = st["spins"].view(d, n_sys, *rt.lattice.shape)
+    args = (rt.jgrids, slot_temps_for_systems(st["system_ids"].view(d, -1), rt.temps),
+            torch.from_numpy(rng.integers(-2**31, 2**31, (d, 2)).astype(np.int32)).to(dev))
+    max_err = 0.0
+    for gibbs in (False, True):
+        a, b = spins.clone(), spins.clone()
+        pk = sweep.sweep_2d(a, *args, gibbs=gibbs, measure=True)
+        pp = sweep.sweep_2d_plain(b, *args, gibbs=gibbs, measure=True)
+        torch.cuda.synchronize()
+        n_diff = int((a != b).sum())
+        e_err = float((pk[0].sum(-1) - pp[0].sum(-1)).abs().max())
+        m_diff = int((pk[1].sum(-1) != pp[1].sum(-1)).sum())
+        log(phase, f"sweep_2d alone on {name} ({d * n_sys} systems, "
+            f"{'Gibbs' if gibbs else 'Metropolis'}): {n_diff} of {a.numel()} spins "
+            f"differ, {m_diff} m sums differ, max |de| {e_err}; "
+            f"{int((a != spins).sum())} spins flipped")
+        if n_diff or e_err or m_diff:
+            raise AssertionError(f"sweep_2d on {name} (gibbs={gibbs}) differs from plain")
+        max_err = max(max_err, e_err)
+        del a, b, pk, pp
+    b = spins.clone()
+    plain = wall_ms(lambda: sweep.sweep_2d_plain(b, *args, gibbs=False), 2) / 2
+    return max_err, plain
 
 
 def fk_inputs(model, dev, rng, wolff):
@@ -1100,16 +1171,14 @@ def check_fk(models, dev, rng, card, phase="8 kernel-vs-plain"):
         bd = fk.fk_bonds_plain(sp, x["j_fwd"], x["temps"], x["kb_words"])
         lab = fk.fk_link_plain(bd, shape)
         plain = {
-            "fk_bonds": wall_ms(lambda: fk.fk_bonds_plain(
-                sp, x["j_fwd"], x["temps"], x["kb_words"]), 3),
+            "fk_bonds": check_bonds(model, dev, rng, name, phase),
             "fk_finish": wall_ms(lambda: fk.fk_finish_plain(
                 sp.clone(), lab, x["j_fwd"], x["scalars"], wolff=False,
                 with_measure=True), 3),
         }
         cb = 4 * n_dirs * d * n  # the realizations' couplings
         t = {
-            # spins, couplings, temps, kb in; state, parents out
-            "fk_bonds": bound(b * n + cb + 12 * b + 5 * b * n, 8 * n_dirs * b * n),
+            "fk_bonds": bonds_bound(b, n, n_dirs, d),
             # spins, state, parents, couplings, scalars in; spins, partials out
             "fk_finish": bound(6 * b * n + cb + 12 * b + b * n
                                + 8 * b * ((n + 255) // 256), 2 * n_dirs * b * n),
@@ -1122,6 +1191,37 @@ def check_fk(models, dev, rng, card, phase="8 kernel-vs-plain"):
         check_finish(model, dev, rng, name, phase)
     return {k: dict(max_abs_err=max_err, library_ms=None, shapes=v)
             for k, v in times.items()}
+
+
+def bonds_bound(b, n, n_dirs, d):
+    """``fk_bonds``' bound on ``b`` graphs of ``n`` sites over ``d``
+    realizations: the spins, the realizations' couplings (each read once),
+    the temperatures and key words in, the state bytes out; 8 operations a
+    bond."""
+    return bound(b * n + 4 * n_dirs * d * n + 12 * b + b * n, 8 * n_dirs * b * n)
+
+
+def check_bonds(model, dev, rng, name, phase):
+    """``fk_bonds`` alone on a model's state (or a simulation's): every
+    state byte (bond bits and "s differs" bits) bitwise ``fk_state_plain``'s.
+    Returns the plain version's time."""
+    from peapods_tpu_torch.ops import fk
+
+    x = fk_inputs(model, dev, rng, False)
+    args = (x["spins"], x["j_fwd"], x["temps"], x["kb_words"])
+    got = fk.fk_bonds(*args)
+    want = fk.fk_state_plain(*args)
+    torch.cuda.synchronize()
+    (b, n), (d, _, n_dirs) = got.shape, x["j_fwd"].shape
+    bad = int((got != want).sum())
+    bonded = int((got & ((1 << n_dirs) - 1)).ne(0).sum())
+    per = fk.bonds_per(n, b, b // d, fk.resident_threads(dev.index))
+    log(phase, f"fk_bonds alone on {name} ({b} graph(s) of {n} sites, {n_dirs} bond "
+        f"directions, {per} a thread): {bad} state bytes differ; "
+        f"{bonded} sites with a bond")
+    if bad:
+        raise AssertionError(f"fk_bonds on {name} differs from fk_state_plain: {bad} bytes")
+    return wall_ms(lambda: fk.fk_state_plain(*args), 2)
 
 
 def check_finish(model, dev, rng, name, phase):
@@ -1176,10 +1276,7 @@ def link_stages(x, dev, name, phase):
     dims = _build.dims3(shape)
     state = torch.empty((b, n), dtype=torch.uint8, device=dev)
     parent = torch.empty((b, n), dtype=torch.int32, device=dev)
-    _build.check(lib.peapods_fk_bonds(
-        x["spins"].data_ptr(), x["j_fwd"].data_ptr(), x["temps"].data_ptr(),
-        x["kb_words"].data_ptr(), state.data_ptr(), parent.data_ptr(), b,
-        b // x["j_fwd"].shape[0], *dims, int(tri), stream), "fk_bonds")
+    fk.launch_bonds(lib, stream, x["spins"], x["j_fwd"], x["temps"], x["kb_words"], state)
     bonds = fk.state_masks(state, n_dirs)
     labels = fk.fk_link_plain(bonds, shape)
     sites = torch.arange(n, device=dev)
@@ -1312,24 +1409,18 @@ def profile_window(model, kw, sweeps_s, n, names):
     the run launches) over ``n`` sweeps of a model's main-path run, from the
     profiler's kernel records: per launch and per sweep, and the share of
     the unprofiled wall time per sweep that the device is busy."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    before = space_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         model.sample(n, "metropolis", **dict(kw, warmup_ratio=0.0))
         torch.cuda.synchronize()
-    acc, others = {}, {}
-    for ev in prof.key_averages():
-        if ev.self_device_time_total <= 0:
-            continue
-        hit = [k for k in names if f"{k}_kernel" in ev.key]
-        if hit:
-            add_kernel_time(acc, hit[0], ev)
-        elif ev.device_type != DeviceType.CPU:  # a torch op's kernels, not the op
-            others[ev.key] = others.get(ev.key, 0.0) + ev.self_device_time_total / n
-    per_launch = {k: t / c for k, (t, c) in acc.items()}
-    per_sweep = {k: t / n for k, (t, c) in acc.items()}
+    ran = {k: v - before.get(k, 0) for k, v in space_counts().items()}
+    per_launch, _, per_sweep, missed, rest = kernel_times(prof, names, n, ran)
+    others = {}
+    for ev in rest:
+        others[ev.key] = others.get(ev.key, 0.0) + ev.self_device_time_total / n
     missing = [k for k in names if k not in per_launch]
     if missing:
         raise AssertionError(f"the profiler saw no device time for {missing}")
@@ -1342,7 +1433,8 @@ def profile_window(model, kw, sweeps_s, n, names):
             f"{k[:60]} {v:.3f}" for k, v in top)
         + f"), sum {busy:.3f} against "
         f"{1e6 / sweeps_s:.3f} us of wall time per sweep: the device is busy "
-        f"{busy * sweeps_s / 1e6:.3f} of it")
+        f"{busy * sweeps_s / 1e6:.3f} of it; the profiler saw "
+        + (f"{missed} launches" if missed else "every launch"))
     return per_launch, line
 
 
@@ -3656,6 +3748,18 @@ def log_unsharded_link(run, card):
                **dict(zip(("bound_ms", "bound_by"), bound(
                    7 * b * n + 4 * 2 * n + 12 * b + 8 * b * ((n + 255) // 256),
                    2 * 2 * b * n))))
+    # fk_bonds and sweep_2d (a pass) at this shape: the next redesign's ranking
+    bnd = run["bonds"]
+    sw = run["sweep_2d"]
+    bnd.update(ms=prof["per_launch"]["fk_bonds"] / 1e3, launches=run["launches"]["fk_bonds"],
+               **dict(zip(("bound_ms", "bound_by"), bonds_bound(b, n, 2, 1))))
+    sw.update(ms=prof["per_launch"]["sweep_2d"] / 1e3, launches=run["launches"]["sweep_2d"],
+              **dict(zip(("bound_ms", "bound_by"), sweep_2d_bound(b * n, n))))
+    log("28 space", f"unsharded 4096^2: fk_bonds {bnd['ms']:.5f} ms a launch x "
+        f"{bnd['launches']} (bound {bnd['bound_ms']:.5f} ms by {bnd['bound_by']}, plain "
+        f"{bnd['plain_ms']:.4f} ms); sweep_2d {sw['ms']:.5f} ms a pass x {sw['launches']} "
+        f"(bound {sw['bound_ms']:.5f} ms by {sw['bound_by']}, plain {sw['plain_ms']:.4f} "
+        f"ms) on {card}")
     log("28 space", f"unsharded 4096^2: the labelling {run['labelling']['ms']:.5f} ms an "
         f"FK phase (" + ", ".join(f"{k} {v:.5f}" for k, v in link.items())
         + f" ms a launch) against its bound {run['labelling']['bound_ms']:.5f} ms; "
@@ -3799,35 +3903,29 @@ def space_profile(sim, kw, sweeps_s, n, names=None):
     (or of ``names``) over ``n`` sweeps of a space run, the halo copies'
     device time per sweep, and the busy share of the unprofiled wall time
     per sweep."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    before = space_counts()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         sim.sample(n, "metropolis", **dict(kw, warmup_ratio=0.0))
         torch.cuda.synchronize()
-    acc = {}
+    ran = {k: v - before.get(k, 0) for k, v in space_counts().items()}
+    per_launch, counts, per_sweep, missed, rest = kernel_times(
+        prof, names or SPACE_KERNELS, n, ran)
     copies = other = 0.0
-    for ev in prof.key_averages():
-        if ev.self_device_time_total <= 0:
-            continue
-        hit = [k for k in names or SPACE_KERNELS if f"{k}_kernel" in ev.key]
-        if hit:
-            add_kernel_time(acc, hit[0], ev)
-        elif ev.device_type != DeviceType.CPU:
-            if "copy" in ev.key.lower() or "memcpy" in ev.key.lower():
-                copies += ev.self_device_time_total / n
-            else:
-                other += ev.self_device_time_total / n
-    per_launch = {k: t / c for k, (t, c) in acc.items()}
-    per_sweep = {k: t / n for k, (t, c) in acc.items()}
-    counts = {k: c / n for k, (t, c) in acc.items()}
+    for ev in rest:
+        if "copy" in ev.key.lower() or "memcpy" in ev.key.lower():
+            copies += ev.self_device_time_total / n
+        else:
+            other += ev.self_device_time_total / n
     busy = sum(per_sweep.values()) + copies + other
     cc_us = sum(per_sweep.get(k, 0.0) for k in CC_BAND_KERNELS)
     line = ("device us per sweep: " + ", ".join(f"{k} {v:.3f}" for k, v in per_sweep.items())
             + f", halo and gather copies {copies:.3f}, other device work {other:.3f}, sum "
             f"{busy:.3f} against {1e6 / sweeps_s:.3f} us of wall time per sweep: the "
-            f"device is busy {busy * sweeps_s / 1e6:.3f} of it")
+            f"device is busy {busy * sweeps_s / 1e6:.3f} of it; the profiler saw "
+            + (f"{missed} launches" if missed else "every launch"))
     return dict(per_launch=per_launch, per_sweep=counts, copies_us=copies, busy=busy,
                 cc_us=cc_us, line=line)
 
@@ -4137,6 +4235,10 @@ def space_paths(dev, card, mega_sweeps_s):
                                                run["sweeps_s"], 4, UNSHARDED_KERNELS)
             run["finish"] = dict(max_abs_err=0.0, plain_ms=check_finish(
                 run["sim"], dev, rng, "unsharded 4096^2", "28 space"))
+            run["bonds"] = dict(max_abs_err=0.0, plain_ms=check_bonds(
+                run["sim"], dev, rng, "unsharded 4096^2", "28 space"))
+            run["sweep_2d"] = dict(zip(("max_abs_err", "plain_ms"), check_sweep_state(
+                run["sim"], dev, rng, "unsharded 4096^2", "28 space")))
             log_unsharded_link(run, card)
         run.pop("sim")
         big[label] = run
@@ -4215,8 +4317,8 @@ def add_space_records(kernels, sp):
     fk_link["at_space4096_unsharded"] = dict(
         unsharded["labelling"], launches={k: unsharded["launches"][k]
                                           for k in unsharded["labelling"]["per_launch"]})
-    fk_finish = next(kr for kr in kernels if kr["name"] == "fk_finish")
-    fk_finish["at_space4096_unsharded"] = unsharded["finish"]
+    for k, rec in (("fk_finish", "finish"), ("fk_bonds", "bonds"), ("sweep_2d", "sweep_2d")):
+        next(kr for kr in kernels if kr["name"] == k)["at_space4096_unsharded"] = unsharded[rec]
     # pt_step at 4096^2 in 4 bands, on the flagship's pt_step record
     pt = next(kr for kr in kernels if kr["name"] == "pt_step")
     pt["at_space4096"] = dict(sp["checks"]["4096"]["pt_step"],

@@ -11,13 +11,15 @@
 // lattice (forward bonds down, right), the triangular lattice (also
 // [1, -1], the reference's tri=True) or a 3D cubic one (+x, +y, +z).
 //
-//   fk_bonds   thread g owns sites 4g .. 4g+3: inter = s * s_fwd * J and
-//              bond = inter > 0 && u < 1 - exp(-2 * inter / T) per forward
-//              bond (the reference's operation order, so an injected-uniform
-//              comparison is bitwise), u from Philox4x32-10 keyed by the
+//   fk_bonds   inter = s * s_fwd * J and bond = inter > 0 && u < 1 -
+//              exp(-2 * inter / T) per forward bond (the reference's
+//              operation order, so an injected-uniform comparison is
+//              bitwise), u word (site & 3) of Philox4x32-10 keyed by the
 //              graph's kb words, counter (dir, site // 4, 0, 0).  Writes a
-//              state byte (bit d: bond d active; bit 3 + d: s != s_fwd) and
-//              parent[i] = i (which the labelling does not read).
+//              state byte a site (bit d: bond d active; bit 3 + d: s !=
+//              s_fwd) and nothing else.  A thread takes a group of four
+//              sites of several graphs of one realization (bonds_body,
+//              shared with fk_bonds_band).
 //   fk_link    the labelling, in shared memory (ops/fk.py link_plan picks
 //              the form from the shape).  Whole-graph form, a graph of at
 //              most kLinkSites sites: a CTA stages its state bytes, hangs
@@ -67,13 +69,39 @@
 //                   kernels' Philox counter (dir, global site / 4, 0, 0).
 //                   With three directions or fewer it also writes the
 //                   "s differs" bits.  The state bytes are all that
-//                   cc_band.cu's labelling reads.
+//                   cc_band.cu's labelling reads.  fk_bonds' body, on the
+//                   window's geometry (up to six offsets).
 //   fk_finish_band  the flips of the band's sites from the global labels
 //                   (cc_band.cu): the SW coin on the label, or Wolff's
 //                   label == the seed's label, which the engine reads from
 //                   the band that holds the seed; optionally the post-update
 //                   partials of fk_finish, the forward neighbours' flips
 //                   read from the halo labels.
+//
+// What bounds fk_bonds and fk_bonds_band on the H100, and their design: the
+// function reads each spin and each realization's couplings once and writes
+// a state byte a site, 268 MB at the unsharded 4096^2 x 4 (0.080 ms at 3.35
+// TB/s) and 67 MB a band of it in 4 bands (0.020 ms).  The first design,
+// one group of four sites of one graph a thread, moved about 940 MB there
+// in 0.837 ms (0.200 a band; tools/probe_bonds.py, NVIDIA H100 80GB HBM3,
+// 700 W): fwd_site's two runtime divisions a bond (57 division sequences
+// in its SASS; the card has no divide instruction) cost 0.170 ms, the dead
+// parent writes 0.053, the couplings that every graph read again 0.020,
+// byte-wide memory 0.018.  Now a thread finds its group's coordinates once
+// (band.cuh's multiply-shift), its neighbours with residues and one
+// compare an axis, loads its 4 n_dirs couplings once as float4s and draws
+// `per` graphs of the realization with them (ops/fk.py bonds_per: the
+// realization's graphs, fewer where a launch would hold fewer threads than
+// the card holds resident, fk.resident_threads: 132 x 2048 on the H100; the
+// rest side by side, reading the couplings from L2), a
+// group's spins, neighbours and state bytes in 32-bit words where it lies
+// in one row of the fast axis, and no parents: 0.300 ms at 4096^2 x 4,
+// 0.085 a band.  What is left is arithmetic and its latency: ten Philox
+// rounds a direction and a group (23% of the time, n-nophilox), the
+// comparisons of 4 n_dirs bonds; a unit bond (a ferromagnet's, a +-J
+// glass's) compares its uniform's word with an integer threshold, and only
+// other couplings draw the exp and the division (33% more time without
+// that, n-eager).
 //
 // What bounds fk_finish_band on the H100, and its design: when measuring it
 // reads per site the int32 label, the state byte, the spin and 4 n_dirs B
@@ -144,47 +172,220 @@ namespace {
 
 constexpr int kMaxDirs = 3;
 
-__global__ void __launch_bounds__(kThreads)
+// The four spin bytes s[j .. j+3] as one word (little-endian: byte q is
+// site j + q), s 4-byte aligned: one load, or two and a funnel shift.
+__device__ __forceinline__ uint32_t load4(const int8_t* s, int j) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(s) + (j >> 2);
+  const int r = j & 3;
+  const uint32_t lo = __ldg(w);
+  return r ? __funnelshift_r(lo, __ldg(w + 1), 8 * r) : lo;
+}
+
+__device__ __forceinline__ float byte_spin(uint32_t w, int q) {
+  return static_cast<float>(static_cast<int8_t>(w >> (8 * q)));
+}
+
+// The FK bond of a forward bond whose product s * s_fwd * J is inter, drawn
+// by the uniform word u: inter > 0 && uniform24(u) < 1 - exp(-2 inter / T),
+// the reference's operation order (an injected-uniform comparison is
+// bitwise).  At inter == 1 (a ferromagnet's or a +-J glass's satisfied
+// bond) the comparison is u >> 8 < thr1 (unit_threshold, once a graph), so
+// the exp and the division are drawn only for other couplings.
+__device__ __forceinline__ bool bond_active(float inter, uint32_t u, float T, uint32_t thr1) {
+  if (inter == 1.0f) return (u >> 8) < thr1;
+  if (!(inter > 0.0f)) return false;
+  return uniform24(u) < 1.0f - expf(-2.0f * inter / T);
+}
+
+// The least 24-bit word x with uniform24 of it (x 2^-24, exact) not below
+// p1 = 1 - exp(-2 / T), the bond probability at inter == 1: x 2^-24 < p1
+// iff x < ceil(p1 2^24), the product exact (a power of two); 0 where p1 is
+// not above 0 (or NaN), 2^24 where it is 1.
+__device__ __forceinline__ uint32_t unit_threshold(float T) {
+  const float p1 = 1.0f - expf(-2.0f * 1.0f / T);
+  return p1 > 0.0f ? static_cast<uint32_t>(fminf(ceilf(p1 * 16777216.0f), 16777216.0f)) : 0u;
+}
+
+// fk_bonds (kBand false: the whole periodic lattice, ops/fk.py bonds_words)
+// and fk_bonds_band (kBand: a band's window, whose bonds that leave it are
+// none; ops/lattice.Band.words), on a lattice of kNb forward offsets: the
+// state byte of every site, bit d for an active bond d and, with three
+// directions or fewer, bit 3 + d where s != s_fwd.  A thread takes the
+// group of window sites 4g .. 4g+3 of `per` graphs of one realization
+// (blockIdx.z; blockIdx.x the realization's graphs `per` at a time, side
+// by side; blockIdx.y the group's block of kThreads, strided): the group's
+// coordinates (band.cuh's multiply-shift, once), its neighbours (residues
+// and one compare an axis) and its 4 kNb couplings are found once and used
+// for each graph.  Each bond's uniform is word (site & 3) of Philox keyed
+// by the graph's kb words, counter (d, global site / 4, 0, 0): the same
+// draws in either form.  Where `vec` (the graphs' rows and the pointers
+// aligned, and a band's rows a multiple of 4 sites) and the group lies in
+// one row of the fast axis, its spins are one 32-bit load, each direction's
+// four neighbours one or two (load4; bytes where the fast axis wraps inside
+// the group), its couplings kNb float4 loads, its state one 32-bit store;
+// else each site takes the per-site path.
+template <int kNb, bool kBand>
+__device__ __forceinline__ void bonds_body(const int8_t* __restrict__ spins,
+                                           const float* __restrict__ j_fwd,
+                                           const float* __restrict__ temps,
+                                           const int32_t* __restrict__ kb,
+                                           uint8_t* __restrict__ state, const BandWalk& geo,
+                                           int n_systems, int per, int vec) {
+  const int rows = geo.w.L[0];
+  const int n = rows * geo.block;  // sites of a graph (a band's window)
+  const int n_grp = (n + 3) >> 2;
+  const bool three = geo.w.L[2] > 1;
+  const int lf = three ? geo.w.L[2] : geo.w.L[1];  // the fast axis
+  const int b0 = blockIdx.z * n_systems + blockIdx.x * per;
+  const float* J = j_fwd + static_cast<size_t>(blockIdx.z) * n * kNb;
+  for (int g = blockIdx.y * kThreads + threadIdx.x; g < n_grp; g += gridDim.y * kThreads) {
+    const int w0 = 4 * g;
+    int c1, c2;
+    const int r = band_coords(geo, w0, c1, c2);
+    int gr = r;  // the group's global row
+    if (kBand) {
+      gr = geo.row0 - geo.halo + r;
+      gr = gr < 0 ? gr + geo.L0 : gr >= geo.L0 ? gr - geo.L0 : gr;
+    }
+    const int f0 = three ? c2 : c1;
+    float jc[4 * kNb];
+    if (vec && w0 + 4 <= n) {
+#pragma unroll
+      for (int v = 0; v < kNb; ++v) {
+        const float4 x = __ldg(reinterpret_cast<const float4*>(J + static_cast<size_t>(w0) * kNb) + v);
+        jc[4 * v] = x.x;
+        jc[4 * v + 1] = x.y;
+        jc[4 * v + 2] = x.z;
+        jc[4 * v + 3] = x.w;
+      }
+    } else {
+#pragma unroll
+      for (int v = 0; v < 4 * kNb; ++v)
+        jc[v] = w0 + v / kNb < n ? __ldg(J + static_cast<size_t>(w0) * kNb + v) : 0.0f;
+    }
+    if (vec && f0 + 3 < lf) {
+      // one row of the fast axis: direction d's four neighbours start at
+      // j[d] and run along the fast axis, wrapping after split[d] of them
+      const uint32_t ctr = static_cast<uint32_t>((gr * geo.block + (w0 - r * geo.block)) >> 2);
+      int j[kNb], split[kNb];
+      bool on[kNb];
+#pragma unroll
+      for (int d = 0; d < kNb; ++d) {
+        const int to = r + geo.w.off[d][0];
+        on[d] = !kBand || (to >= 0 && to < rows);
+        j[d] = band_neighbour(geo, w0, c1, c2, d, false);
+        if (!kBand) j[d] += to >= rows ? -n : to < 0 ? n : 0;
+        const int t = f0 + (three ? geo.res[d][1] : geo.res[d][0]);
+        split[d] = lf - (t >= lf ? t - lf : t);
+      }
+      for (int k = 0; k < per; ++k) {
+        const int b = b0 + k;
+        const int8_t* s = spins + static_cast<size_t>(b) * n;
+        const uint32_t sw = __ldg(reinterpret_cast<const uint32_t*>(s) + g);
+        const float T = temps[b];
+        const uint32_t thr1 = unit_threshold(T);
+        const uint32_t k0 = static_cast<uint32_t>(kb[2 * b]);
+        const uint32_t k1 = static_cast<uint32_t>(kb[2 * b + 1]);
+        uint32_t st = 0;
+#pragma unroll
+        for (int d = 0; d < kNb; ++d) {
+          if (!on[d]) continue;
+          uint32_t nw;
+          if (split[d] >= 4) {
+            nw = load4(s, j[d]);
+          } else {
+            nw = 0;
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              nw |= static_cast<uint32_t>(static_cast<uint8_t>(
+                        s[j[d] + q - (q >= split[d] ? lf : 0)])) << (8 * q);
+          }
+          const uint4 u = philox4x32_10(k0, k1, static_cast<uint32_t>(d), ctr, 0u, 0u);
+          const uint32_t uw[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (bond_active(byte_spin(sw, q) * byte_spin(nw, q) * jc[q * kNb + d], uw[q], T,
+                            thr1))
+              st |= 1u << (8 * q + d);
+          if (kNb <= kMaxDirs) st |= (__vcmpne4(sw, nw) & 0x01010101u) << (3 + d);
+        }
+        reinterpret_cast<uint32_t*>(state + static_cast<size_t>(b) * n)[g] = st;
+      }
+      continue;
+    }
+    // the per-site path: a group that crosses a row of the fast axis (or a
+    // window row), or unaligned graphs
+    for (int k = 0; k < per; ++k) {
+      const int b = b0 + k;
+      const int8_t* s = spins + static_cast<size_t>(b) * n;
+      uint8_t* out = state + static_cast<size_t>(b) * n;
+      const float T = temps[b];
+      const uint32_t thr1 = unit_threshold(T);
+      const uint32_t k0 = static_cast<uint32_t>(kb[2 * b]);
+      const uint32_t k1 = static_cast<uint32_t>(kb[2 * b + 1]);
+      int rr = r, gg = gr, e1 = c1, e2 = c2;
+      uint4 u[kNb];
+      int cur = -1;  // the Philox block of u
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int w = w0 + q;
+        if (w >= n) break;
+        if (q) {  // the next site's coordinates
+          if (++e2 == geo.w.L[2]) {
+            e2 = 0;
+            if (++e1 == geo.w.L[1]) {
+              e1 = 0;
+              ++rr;
+              gg = gg + 1 == geo.L0 ? 0 : gg + 1;
+            }
+          }
+        }
+        const int gid = kBand ? gg * geo.block + e1 * geo.w.L[2] + e2 : w;
+        if ((gid >> 2) != cur) {
+          cur = gid >> 2;
+#pragma unroll
+          for (int d = 0; d < kNb; ++d)
+            u[d] = philox4x32_10(k0, k1, static_cast<uint32_t>(d), static_cast<uint32_t>(cur),
+                                 0u, 0u);
+        }
+        const float si = static_cast<float>(s[w]);
+        uint8_t st = 0;
+#pragma unroll
+        for (int d = 0; d < kNb; ++d) {
+          const int to = rr + geo.w.off[d][0];
+          if (kBand && (to < 0 || to >= rows)) continue;  // the bond leaves the window: none
+          int jn = band_neighbour(geo, w, e1, e2, d, false);
+          if (!kBand) jn += to >= rows ? -n : to < 0 ? n : 0;
+          const float sf = static_cast<float>(s[jn]);
+          if (bond_active(si * sf * jc[q * kNb + d], philox_word(u[d], gid), T, thr1))
+            st |= 1u << d;
+          if (kNb <= kMaxDirs && si != sf) st |= 8u << d;
+        }
+        out[w] = st;
+      }
+    }
+  }
+}
+
+// The two forms' kernels (their own names, for the profiler), one body;
+// kBlocks the blocks an SM they are built for (launch_bonds: 4, at most 64
+// registers, where the threads loop over several graphs).
+template <int kNb, int kBlocks>
+__global__ void __launch_bounds__(kThreads, kBlocks)
 fk_bonds_kernel(const int8_t* __restrict__ spins, const float* __restrict__ j_fwd,
                 const float* __restrict__ temps, const int32_t* __restrict__ kb,
-                uint8_t* __restrict__ state, int32_t* __restrict__ parent,
-                const Dims dims, int n_systems) {
-  const int b = blockIdx.y;
-  const int n = dims.n[0] * dims.n[1] * dims.n[2];
-  const int nd = dims.ndir;
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (kSitesPerThread * g >= n) return;
-  const size_t base = static_cast<size_t>(b) * n;
-  const int8_t* s = spins + base;
-  const float* J = j_fwd + static_cast<size_t>(b / n_systems) * n * nd;
-  const float T = temps[b];
-  const uint32_t k0 = static_cast<uint32_t>(kb[2 * b]);
-  const uint32_t k1 = static_cast<uint32_t>(kb[2 * b + 1]);
-  uint32_t w[kMaxDirs][4];
-  for (int dir = 0; dir < nd; ++dir) {
-    const uint4 r = philox4x32_10(k0, k1, static_cast<uint32_t>(dir),
-                                  static_cast<uint32_t>(g), 0u, 0u);
-    w[dir][0] = r.x;
-    w[dir][1] = r.y;
-    w[dir][2] = r.z;
-    w[dir][3] = r.w;
-  }
-#pragma unroll
-  for (int k = 0; k < kSitesPerThread; ++k) {
-    const int i = kSitesPerThread * g + k;
-    if (i >= n) break;
-    const float si = static_cast<float>(s[i]);
-    uint8_t st = 0;
-    for (int dir = 0; dir < nd; ++dir) {
-      const float sf = static_cast<float>(s[fwd_site(i, dims, dir)]);
-      const float inter = si * sf * J[static_cast<size_t>(i) * nd + dir];
-      const float p = 1.0f - expf(-2.0f * inter / T);
-      if (inter > 0.0f && uniform24(w[dir][k]) < p) st |= 1u << dir;
-      if (si != sf) st |= 8u << dir;
-    }
-    state[base + i] = st;
-    parent[base + i] = i;
-  }
+                uint8_t* __restrict__ state, const BandWalk geo, int n_systems, int per,
+                int vec) {
+  bonds_body<kNb, false>(spins, j_fwd, temps, kb, state, geo, n_systems, per, vec);
+}
+
+template <int kNb, int kBlocks>
+__global__ void __launch_bounds__(kThreads, kBlocks)
+fk_bonds_band_kernel(const int8_t* __restrict__ spins, const float* __restrict__ j_win,
+                     const float* __restrict__ temps, const int32_t* __restrict__ kb,
+                     uint8_t* __restrict__ state, const BandWalk geo, int n_systems, int per,
+                     int vec) {
+  bonds_body<kNb, true>(spins, j_win, temps, kb, state, geo, n_systems, per, vec);
 }
 
 // fk_bonds on a lattice given by its offset table (the staged path): the
@@ -690,57 +891,6 @@ fk_finish_kernel(int8_t* __restrict__ spins, const uint8_t* __restrict__ state,
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-fk_bonds_band_kernel(const int8_t* __restrict__ spins, const float* __restrict__ j_win,
-                     const float* __restrict__ temps, const int32_t* __restrict__ kb,
-                     uint8_t* __restrict__ state, const BandWalk geo, int n_systems) {
-  const int b = blockIdx.y;
-  const int nw = geo.w.L[0] * geo.block;
-  const int nd = geo.w.n_nb;
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (kSitesPerThread * g >= nw) return;
-  const size_t base = static_cast<size_t>(b) * nw;
-  const int8_t* s = spins + base;
-  const float* J = j_win + static_cast<size_t>(b / n_systems) * nw * nd;
-  const float T = temps[b];
-  const uint32_t k0 = static_cast<uint32_t>(kb[2 * b]);
-  const uint32_t k1 = static_cast<uint32_t>(kb[2 * b + 1]);
-  uint4 r[kMaxOffsets];
-  int grp = -1;
-#pragma unroll
-  for (int k = 0; k < kSitesPerThread; ++k) {
-    const int w = kSitesPerThread * g + k;
-    if (w >= nw) break;
-    const int gid = window_global(geo, w);
-    if ((gid >> 2) != grp) {
-      grp = gid >> 2;
-#pragma unroll
-      for (int dir = 0; dir < kMaxOffsets; ++dir) {
-        if (dir == nd) break;
-        r[dir] = philox4x32_10(k0, k1, static_cast<uint32_t>(dir),
-                               static_cast<uint32_t>(grp), 0u, 0u);
-      }
-    }
-    int c1, c2;
-    const int row = band_coords(geo, w, c1, c2);
-    const float si = static_cast<float>(s[w]);
-    uint8_t st = 0;
-#pragma unroll
-    for (int dir = 0; dir < kMaxOffsets; ++dir) {
-      if (dir == nd) break;
-      const int to = row + geo.w.off[dir][0];  // the bond leaves the window: none
-      if (to < 0 || to >= geo.w.L[0]) continue;
-      const int j = band_neighbour(geo, w, c1, c2, dir, false);
-      const float sf = static_cast<float>(s[j]);
-      const float inter = si * sf * J[static_cast<size_t>(w) * nd + dir];
-      const float p = 1.0f - expf(-2.0f * inter / T);
-      if (inter > 0.0f && uniform24(philox_word(r[dir], gid)) < p) st |= 1u << dir;
-      if (nd <= kMaxDirs && si != sf) st |= 8u << dir;
-    }
-    state[base + w] = st;
-  }
-}
-
 // A launch's tile (ops/fk.py finish_tile, the rule of both forms) as the
 // kernels take it: 1 to kMaxFinishParts blocks, its flags at most two tiles.
 inline bool finish_tile_ok(const FinishTile& ft) {
@@ -850,6 +1000,57 @@ inline dim3 site_grid(int n, int per_thread, int n_graphs) {
   return dim3((groups + kThreads - 1) / kThreads, n_graphs);
 }
 
+// fk_bonds_kernel's launch: blockIdx.x a realization's graphs `per` at a
+// time, y the groups' blocks (at most 65535, a thread striding over the
+// rest), z the realization; refused unless per divides n_systems and
+// n_systems n_graphs.  The vector path where every graph's row of sites (a
+// band's window row too) and the pointers are aligned.  Where the threads
+// loop over graphs (per > 1: a launch of at least fk.bonds_per's threads)
+// on three directions or fewer, the kernel built for four blocks an SM:
+// 0.300 ms against 0.342 at 4096^2 x 4, 0.085 against 0.093 in its 4-band
+// window; one graph a thread (32^3 x 16: 0.0091 against 0.0077 ms) and six
+// directions (FCC, 0.0118 against 0.0065) lose to its spills
+// (tools/probe_bonds.py, NVIDIA H100 80GB HBM3, 700 W).
+template <bool kBand>
+int launch_bonds(const void* spins, const void* j_fwd, const void* temps, const void* kb,
+                 void* state, const int* words, int n_graphs, int n_systems, int per,
+                 void* stream) {
+  const BandWalk geo = make_band_walk(words);
+  const int nb = geo.w.n_nb;
+  const long long n = static_cast<long long>(geo.w.L[0]) * geo.block;
+  if (n_graphs < 1 || n_graphs > 65535 || n_systems < 1 || n_graphs % n_systems || per < 1 ||
+      n_systems % per || nb < 1 || (kBand ? nb > kMaxOffsets : nb != 2 && nb != 3) || n < 1 ||
+      n > (1LL << 31) - 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long blocks = (n + 4LL * kThreads - 1) / (4LL * kThreads);
+  const dim3 grid(n_systems / per, static_cast<unsigned>(blocks < 65535 ? blocks : 65535),
+                  n_graphs / n_systems);
+  const auto at = [](const void* p, unsigned a) {
+    return reinterpret_cast<uintptr_t>(p) % a == 0;
+  };
+  const int vec = n % 4 == 0 && (!kBand || geo.block % 4 == 0) && at(spins, 4) &&
+                  at(state, 4) && at(j_fwd, 16);
+  using Kernel = void (*)(const int8_t*, const float*, const float*, const int32_t*,
+                          uint8_t*, const BandWalk, int, int, int);
+  const bool loop = per > 1;
+  Kernel kernel;
+  if (nb == 2)
+    kernel = kBand ? (loop ? fk_bonds_band_kernel<2, 4> : fk_bonds_band_kernel<2, 1>)
+                   : (loop ? fk_bonds_kernel<2, 4> : fk_bonds_kernel<2, 1>);
+  else if (nb == 3)
+    kernel = kBand ? (loop ? fk_bonds_band_kernel<3, 4> : fk_bonds_band_kernel<3, 1>)
+                   : (loop ? fk_bonds_kernel<3, 4> : fk_bonds_kernel<3, 1>);
+  else
+    kernel = nb == 1 ? fk_bonds_band_kernel<1, 1>
+                     : nb == 4 ? fk_bonds_band_kernel<4, 1>
+                               : nb == 5 ? fk_bonds_band_kernel<5, 1> : fk_bonds_band_kernel<6, 1>;
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(spins), static_cast<const float*>(j_fwd),
+      static_cast<const float*>(temps), static_cast<const int32_t*>(kb),
+      static_cast<uint8_t*>(state), geo, n_systems, per, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -857,18 +1058,16 @@ extern "C" {
 // Blocks per graph of fk_finish: the length of the partial-sum rows.
 int peapods_fk_blocks(int n) { return (n + kThreads - 1) / kThreads; }
 
-// Graphs of [L0, L1, L2] sites (L2 = 1 in 2D); tri: the triangular lattice.
-// spins int8 [n_graphs, n]; j_fwd f32 [n_graphs / n_systems, n, ndir].
+// Graphs of a periodic 2D or 3D lattice of 2 or 3 bond directions (square,
+// triangular, cubic; words: ops/fk.py bonds_words, host memory).  spins int8
+// [n_graphs, n]; j_fwd f32 [n_graphs / n_systems, n, ndir]; state uint8
+// [n_graphs, n]; per: the graphs of a realization a thread takes
+// (ops/fk.py bonds_per).
 int peapods_fk_bonds(const void* spins, const void* j_fwd, const void* temps,
-                     const void* kb, void* state, void* parent, int n_graphs,
-                     int n_systems, int L0, int L1, int L2, int tri, void* stream) {
-  const Dims dims = make_dims(L0, L1, L2, tri != 0);
-  fk_bonds_kernel<<<site_grid(L0 * L1 * L2, kSitesPerThread, n_graphs), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(spins), static_cast<const float*>(j_fwd),
-      static_cast<const float*>(temps), static_cast<const int32_t*>(kb),
-      static_cast<uint8_t*>(state), static_cast<int32_t*>(parent), dims, n_systems);
-  return static_cast<int>(cudaGetLastError());
+                     const void* kb, void* state, const int* words, int n_graphs,
+                     int n_systems, int per, void* stream) {
+  return launch_bonds<false>(spins, j_fwd, temps, kb, state, words, n_graphs, n_systems,
+                             per, stream);
 }
 
 // state: uint8 [n_graphs, n] whose bits 0 .. ndir-1 are the forward bonds;
@@ -958,14 +1157,9 @@ int peapods_fk_finish(void* spins, const void* state, const void* labels,
 // state uint8 [n_graphs, n_window].
 int peapods_fk_bonds_band(const void* spins, const void* j_win, const void* temps,
                           const void* kb, void* state, const int* geom, int n_graphs,
-                          int n_systems, void* stream) {
-  const BandWalk geo = make_band_walk(geom);
-  fk_bonds_band_kernel<<<site_grid(geo.w.L[0] * geo.block, kSitesPerThread, n_graphs),
-                         kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(spins), static_cast<const float*>(j_win),
-      static_cast<const float*>(temps), static_cast<const int32_t*>(kb),
-      static_cast<uint8_t*>(state), geo, n_systems);
-  return static_cast<int>(cudaGetLastError());
+                          int n_systems, int per, void* stream) {
+  return launch_bonds<true>(spins, j_win, temps, kb, state, geom, n_graphs, n_systems, per,
+                            stream);
 }
 
 // seed_labels int32 [n_graphs] (Wolff; else null); e_part / m_part [n_graphs,

@@ -47,7 +47,7 @@ _SIGNATURES = {
     "peapods_mega_resident": [_P] * 14 + [_I] * 15 + [_P],
     "peapods_sweep_2d": [_P] * 6 + [_I] * 6 + [_P],
     "peapods_fk_blocks": [_I],
-    "peapods_fk_bonds": [_P] * 6 + [_I] * 6 + [_P],
+    "peapods_fk_bonds": [_P] * 6 + [_I] * 3 + [_P],
     "peapods_fk_link": [_P, _P] + [_I] * 9 + [_P],
     "peapods_fk_link_border": [_P, _P] + [_I] * 8 + [_P],
     "peapods_fk_link_flatten": [_P] + [_I] * 2 + [_P],
@@ -81,7 +81,7 @@ _SIGNATURES = {
     "peapods_cc_band_merge": [_P] * 2 + [_I] * 3 + [_P],
     "peapods_cc_band_resolve": [_P] * 3 + [_I] * 3 + [_P],
     "peapods_cc_band_write": [_P] * 5 + [_I] + [_P],
-    "peapods_fk_bonds_band": [_P] * 6 + [_I] * 2 + [_P],
+    "peapods_fk_bonds_band": [_P] * 6 + [_I] * 3 + [_P],
     "peapods_fk_finish_band": [_P] * 9 + [_I] * 5 + [_P],
 }
 

@@ -14,7 +14,8 @@ reference's ``tri=True``) or a 3D cubic lattice (three); its bond offsets
 are :func:`~.cluster.fk_offsets`.  The graphs are not packed into tiles.
 
 :func:`fk_update` launches the kernels of ``csrc/fk.cu`` on CUDA tensors
-(counted in :data:`LAUNCHES`): ``fk_bonds``, the labelling
+(counted in :data:`LAUNCHES`): ``fk_bonds`` (:func:`fk_bonds`, the state
+bytes, a thread a group of four sites of :func:`bonds_per` graphs), the labelling
 (:func:`launch_link`: ``fk_link``, and where :func:`link_plan` cuts a graph
 into tiles ``fk_link_border`` and ``fk_link_flatten``) and ``fk_finish``;
 it runs :func:`fk_update_plain` on CPU tensors.  Both update the spins in
@@ -62,7 +63,7 @@ from .cluster import (
     wolff_flip_mask,
 )
 from .energy import per_spin
-from .lattice import fast_divisor, neighbour_values
+from .lattice import MAX_OFFSETS, fast_divisor, neighbour_values, walk_tail
 
 __all__ = [
     "LAUNCHES",
@@ -74,7 +75,13 @@ __all__ = [
     "fk_staged",
     "fk_staged_plain",
     "state_masks",
+    "fk_bonds",
     "fk_bonds_plain",
+    "fk_state_plain",
+    "bonds_words",
+    "resident_threads",
+    "bonds_per",
+    "launch_bonds",
     "fk_link_plain",
     "fk_link_tiles_plain",
     "fk_link_flatten_plain",
@@ -144,6 +151,92 @@ def fk_bonds_plain(spins, j_fwd, temps, kb_words, uniforms=None, offsets=None):
                                u.reshape(d, -1, n, n_dirs),
                                fk_offsets(shape, n_dirs) if offsets is None else offsets)
     return bonds.reshape(b, n, n_dirs)
+
+
+def fk_state_plain(spins, j_fwd, temps, kb_words, uniforms=None):
+    """Plain version of ``fk_bonds``' state bytes: uint8 ``[B, n]``, bit
+    ``k`` the FK bond of direction ``k`` (:func:`fk_bonds_plain`), bit ``3 +
+    k`` where the site's spin and its forward neighbour's differ."""
+    b, shape = spins.shape[0], tuple(spins.shape[1:])
+    n_dirs = j_fwd.shape[-1]
+    bonds = fk_bonds_plain(spins, j_fwd, temps, kb_words, uniforms)
+    s = spins.reshape(b, -1)
+    st = torch.zeros(s.shape, dtype=torch.uint8, device=s.device)
+    for k, off in enumerate(fk_offsets(shape, n_dirs)):
+        differs = s != neighbour_values(s, shape, off)
+        st |= (bonds[..., k].to(torch.uint8) << k) | (differs.to(torch.uint8) << (3 + k))
+    return st
+
+
+# fk_bonds and fk_bonds_band (csrc/fk.cu bonds_body): a thread takes a group
+# of four sites of `per` graphs of one realization and reads the group's
+# couplings once for them; `per` is the realization's graphs, halved while a
+# launch would have fewer threads than the card holds resident
+# (resident_threads: the H100's 132 SMs x 2048), the other graphs then side
+# by side, reading the couplings from L2.
+@functools.lru_cache(maxsize=None)
+def resident_threads(index: int) -> int:
+    """The threads card ``index`` holds resident at once: its SMs times
+    each SM's most resident threads."""
+    p = torch.cuda.get_device_properties(index)
+    return p.multi_processor_count * p.max_threads_per_multi_processor
+
+
+@functools.lru_cache(maxsize=None)
+def bonds_per(n_sites: int, n_graphs: int, n_systems: int, threads: int) -> int:
+    """The graphs a thread of ``fk_bonds`` / ``fk_bonds_band`` takes in
+    turn: ``n_systems`` (a realization's graphs), halved while the launch of
+    ``n_graphs`` graphs of ``n_sites`` sites would have fewer than
+    ``threads`` threads (:func:`resident_threads` of the card); 1 where an
+    odd count is still short."""
+    groups = -(-int(n_sites) // 4)
+    per = int(n_systems)
+    while per % 2 == 0 and groups * (n_graphs // per) < threads:
+        per //= 2
+    return per if groups * (n_graphs // per) >= threads else 1
+
+
+@functools.lru_cache(maxsize=None)
+def bonds_words(shape, n_dirs: int):
+    """int32 host words of ``fk_bonds`` (``csrc/band.cuh`` ``BandWalk``): the
+    whole periodic lattice of ``shape`` as a window of all its rows with no
+    halo, its bond directions' offsets (:func:`~.cluster.fk_offsets`), their
+    residues and the multiply-shift divisors of ``L1 L2`` and ``L2``."""
+    shape = tuple(int(x) for x in shape)
+    dims = _build.dims3(shape)
+    off = np.zeros((MAX_OFFSETS, 3), np.int64)
+    off[:n_dirs, :len(shape)] = fk_offsets(shape, n_dirs)
+    geometry = np.concatenate([dims, [n_dirs], off.reshape(-1)])
+    words = np.concatenate([geometry, [dims[0], 0, 0, dims[0]], walk_tail(geometry)])
+    return words.astype(np.uint32).view(np.int32)
+
+
+def launch_bonds(lib, stream, spins, j_fwd, temps, kb_words, state):
+    """One ``fk_bonds`` launch on checked CUDA tensors (not counted): the
+    state bytes of every graph into ``state`` uint8 ``[B, n]``."""
+    b, n = spins.shape[0], spins[0].numel()
+    d, n_dirs = j_fwd.shape[0], j_fwd.shape[-1]
+    words = bonds_words(tuple(spins.shape[1:]), n_dirs)
+    _build.check(lib.peapods_fk_bonds(
+        spins.data_ptr(), j_fwd.data_ptr(), temps.data_ptr(), kb_words.data_ptr(),
+        state.data_ptr(), words.ctypes.data, b, b // d,
+        bonds_per(n, b, b // d, resident_threads(spins.device.index)), stream),
+        "fk_bonds")
+
+
+def fk_bonds(spins, j_fwd, temps, kb_words):
+    """The state bytes of every graph (see :func:`fk_state_plain`): the
+    plain version for CPU tensors, the ``fk_bonds`` kernel for CUDA tensors
+    (2 or 3 bond directions)."""
+    if _build.device_kind(spins) == "cpu":
+        return fk_state_plain(spins, j_fwd, temps, kb_words)
+    fk_offsets(tuple(spins.shape[1:]), j_fwd.shape[-1])  # raises for a graph it does not take
+    b, n, _ = _check_graphs(spins, j_fwd, temps, kb_words)
+    state = torch.empty((b, n), dtype=torch.uint8, device=spins.device)
+    launch_bonds(_build.library(), torch.cuda.current_stream(spins.device).cuda_stream,
+                 spins, j_fwd, temps, kb_words, state)
+    LAUNCHES["fk_bonds"] += 1
+    return state
 
 
 def fk_link_plain(bonds, shape):
@@ -386,27 +479,21 @@ def _bonds_and_link(spins, j_fwd, temps, kb_words, scalars=None):
     ``(state, parent)``, every parent its site's root."""
     dev = spins.device
     shape = tuple(spins.shape[1:])
-    n_dirs = j_fwd.shape[-1]
-    fk_offsets(shape, n_dirs)  # raises for a graph the kernels do not take
-    b, n, d = _check_graphs(spins, j_fwd, temps, kb_words, scalars)
-    tri = len(shape) == 2 and n_dirs == 3
-    l0, l1, l2 = _build.dims3(shape)
-    lib = _build.library()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    state = torch.empty((b, n), dtype=torch.uint8, device=dev)
+    if scalars is not None:
+        _build.expect(scalars, "scalars", torch.int32, (spins.shape[0], 3), dev)
+    state = fk_bonds(spins, j_fwd, temps, kb_words)
+    b, n = state.shape
     parent = torch.empty((b, n), dtype=torch.int32, device=dev)
-    _build.check(lib.peapods_fk_bonds(
-        spins.data_ptr(), j_fwd.data_ptr(), temps.data_ptr(),
-        kb_words.data_ptr(), state.data_ptr(), parent.data_ptr(), b, b // d,
-        l0, l1, l2, int(tri), stream), "fk_bonds")
-    LAUNCHES["fk_bonds"] += 1
-    launch_link(lib, stream, state.data_ptr(), parent.data_ptr(), b, l0, l1, l2, tri)
+    launch_link(_build.library(), torch.cuda.current_stream(dev).cuda_stream,
+                state.data_ptr(), parent.data_ptr(), b, *_build.dims3(shape),
+                len(shape) == 2 and j_fwd.shape[-1] == 3)
     return state, parent
 
 
 # fk_finish and fk_finish_band (csrc/fk.cu kMaxFinishParts): a CTA takes up
 # to FINISH_PARTS partial blocks of 256 sites, fewer until a launch has
-# FINISH_CTAS CTAs (about one wave of the H100's resident CTAs), but not
+# FINISH_CTAS CTAs (a count tuned by measurement, not read from the card:
+# one wave of the H100's 256-thread CTAs is 1056), but not
 # fewer than stage the farthest forward neighbour a tile can reach
 # (finish_tile, the one rule of both forms).  Below that floor every site
 # draws that neighbour's coin again: 32^3 x 16 takes four blocks a CTA, a
@@ -679,7 +766,9 @@ def fk_bonds_band(spins, j_win, temps, kb_words, cc_buf, band, *, uniforms=None)
     _build.check(_build.library().peapods_fk_bonds_band(
         spins.data_ptr(), j_win.data_ptr(), temps.data_ptr(), kb_words.data_ptr(),
         cc_buf.state.data_ptr(), band.words.ctypes.data, g, g // d,
-        torch.cuda.current_stream(dev).cuda_stream), "fk_bonds_band")
+        bonds_per(band.n_window, g, g // d, resident_threads(dev.index)),
+        torch.cuda.current_stream(dev).cuda_stream),
+        "fk_bonds_band")
     LAUNCHES["fk_bonds_band"] += 1
 
 

@@ -33,7 +33,7 @@ import torch
 from ..engine.config import not_ported
 
 __all__ = ["GEOMETRY_OFFSETS", "MAX_OFFSETS", "Lattice", "Band", "BandGeometry",
-           "hypercubic_offsets", "neighbour_values", "fast_divisor"]
+           "hypercubic_offsets", "neighbour_values", "fast_divisor", "walk_tail"]
 
 # named geometries (peapods_tpu/ops/lattice.py:26-31)
 GEOMETRY_OFFSETS = {
@@ -74,6 +74,20 @@ def fast_divisor(d: int) -> tuple[int, int]:
         return 0, 0
     lg = (d - 1).bit_length()
     return (2 ** (31 + lg) + d - 1) // d, lg - 1
+
+
+def walk_tail(geometry):
+    """int64 words that follow a window's ``make_band_geom`` words
+    (``csrc/band.cuh`` ``make_band_walk``) of a lattice with
+    ``kernel_geometry`` words ``geometry``: per offset ``d`` the residues
+    ``off[d][1] % L1, off[d][2] % L2, -off[d][1] % L1, -off[d][2] % L2``,
+    then :func:`fast_divisor` ``(m, s)`` of ``L1 L2``, ``L2`` and ``L1 //
+    2``."""
+    _, L1, L2 = (int(x) for x in geometry[:3])
+    off = np.asarray(geometry[4:], np.int64).reshape(-1, 3)
+    res = np.stack([off[:, 1] % L1, off[:, 2] % L2, -off[:, 1] % L1, -off[:, 2] % L2], 1)
+    div = [fast_divisor(x) for x in (L1 * L2, L2, max(L1 // 2, 1))]
+    return np.concatenate([res.reshape(-1), np.asarray(div, np.int64).reshape(-1)])
 
 
 def _greedy_colours(fwd, bwd):
@@ -253,11 +267,7 @@ class BandGeometry:
         self.halo = halo
         self.block = lattice.n_spins // L0
         self.bands = []
-        _, L1, L2 = (int(x) for x in lattice.kernel_geometry[:3])
-        off = lattice.kernel_geometry[4:].reshape(-1, 3).astype(np.int64)
-        res = np.stack([off[:, 1] % L1, off[:, 2] % L2, -off[:, 1] % L1, -off[:, 2] % L2], 1)
-        div = [fast_divisor(x) for x in (L1 * L2, L2, L1 // 2)]
-        tail = np.concatenate([res.reshape(-1), np.asarray(div, np.int64).reshape(-1)])
+        tail = walk_tail(lattice.kernel_geometry)
         for k in range(n_shards):
             words = lattice.kernel_geometry.copy()
             words[0] = hl + 2 * halo

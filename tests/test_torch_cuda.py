@@ -2,7 +2,8 @@
 
 Every test here needs an NVIDIA GPU and skips without one.  They cover the
 mega path's kernels (colour_pass, pt_step), the per-sweep path's
-(sweep_2d and the three FK kernels) and the replica path's (colour_pass in
+(sweep_2d and the three FK kernels; fk_bonds and fk_bonds_band alone,
+their state bytes) and the replica path's (colour_pass in
 3D, pt_step on R ladders, pair_overlap, the ov_* overlap-move kernels and
 energy_partials), the coloured lattices' (sweep_nb, measure_nb and the
 FK kernels with three bond directions; fk_finish alone with its partials
@@ -1435,6 +1436,122 @@ def test_fk_finish_matches_plain_with_its_partials(cuda, name, shape, d, n_sys, 
             assert torch.equal(ek, ep) and torch.equal(mk, mp)
         else:
             assert ek is None and mk is None
+
+
+# fk_bonds alone: (name, shape, realizations, systems, couplings, triangular):
+# config 3, the harness, gaussian couplings, the triangular lattice, 32^3 x
+# 16, ragged rows of 6 and 10 sites (groups of four that straddle a row), a
+# ragged box, the unsharded 4096^2 x 4
+BONDS_CASES = [
+    ("256", (256, 256), 1, 1, "ferro", False),
+    ("harness", (64, 64), 128, 16, "ferro", False),
+    ("gauss-64", (64, 64), 2, 8, "gauss", False),
+    ("tri-32", (32, 32), 2, 4, "gauss", True),
+    ("cubic-32", (32, 32, 32), 1, 16, "pm", False),
+    ("6x6", (6, 6), 2, 3, "gauss", False),
+    ("10x6-tri", (10, 6), 1, 4, "pm", True),
+    ("6x10x4", (6, 10, 4), 2, 2, "gauss", False),
+    ("4096", (4096, 4096), 1, 4, "ferro", False),
+]
+
+
+@pytest.mark.parametrize("temp", [0.05, 50.0], ids=["cold", "hot"])
+@pytest.mark.parametrize("name,shape,d,n_sys,couplings,tri", BONDS_CASES,
+                         ids=[c[0] for c in BONDS_CASES])
+def test_fk_bonds_state_bytes_match_plain(cuda, name, shape, d, n_sys, couplings, tri, temp):
+    """fk_bonds alone: every state byte (bond bits and "s differs" bits)
+    bitwise fk_state_plain's, near T = 0 (every satisfied unit bond drawn)
+    and at a large T, one launch; also with one graph a thread and a
+    realization's graphs a thread, and on spins one byte off alignment (the
+    per-site path everywhere)."""
+    rng = np.random.default_rng(len(name) + int(temp))
+    b, n = d * n_sys, int(np.prod(shape))
+    nd = 3 if (tri or len(shape) == 3) else 2
+    coup = {"gauss": rng.standard_normal((d, n, nd)), "ferro": np.ones((d, n, nd)),
+            "pm": rng.choice([-1.0, 1.0], size=(d, n, nd))}[couplings]
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(cuda)  # noqa: E731
+    spins = up(rng.choice([-1, 1], size=(b, *shape)).astype(np.int8))
+    j_fwd = up(coup.astype(np.float32))
+    temps = up(rng.uniform(0.9 * temp, 1.1 * temp, b).astype(np.float32))
+    kb = up(rng.integers(-2**31, 2**31, (b, 2)).astype(np.int32))
+    want = fk.fk_state_plain(spins, j_fwd, temps, kb)
+    fk.LAUNCHES["fk_bonds"] = 0
+    got = fk.fk_bonds(spins, j_fwd, temps, kb)
+    torch.cuda.synchronize()
+    assert fk.LAUNCHES["fk_bonds"] == 1
+    assert torch.equal(got, want)
+    assert bool((want & ((1 << nd) - 1)).any()) and bool((want >> 3).any())
+    lib = _build.library()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    words = fk.bonds_words(shape, nd)
+    for per in sorted({1, n_sys}):
+        state = torch.full_like(got, 255)
+        _build.check(lib.peapods_fk_bonds(spins.data_ptr(), j_fwd.data_ptr(), temps.data_ptr(),
+                                          kb.data_ptr(), state.data_ptr(), words.ctypes.data,
+                                          b, n_sys, per, stream), "fk_bonds")
+        torch.cuda.synchronize()
+        assert torch.equal(state, want), per
+    if b * n < 2**24:
+        off = torch.empty(b * n + 1, dtype=torch.int8, device=cuda)[1:].view(spins.shape)
+        off.copy_(spins)
+        assert torch.equal(fk.fk_bonds(off, j_fwd, temps, kb), want)
+
+
+# fk_bonds_band alone: (name, shape, geometry, bands); windows whose rows
+# are a multiple of 4 sites (the vector path) and are not (6-site rows, an
+# 18-site window), 3D boxes whose fast rows of 10 and 6 sites straddle
+# groups, the offset tables of up to six directions
+BONDS_BAND_CASES = [
+    ("square", (64, 64), None, 4), ("square-1024", (1024, 1024), None, 4),
+    ("rows6", (12, 6), None, 3), ("tri6", (6, 6), "triangular", 6),
+    ("cubic-8x6x10", (8, 6, 10), None, 4), ("cubic-4x6x6", (4, 6, 6), None, 2),
+    ("fcc", (16, 16, 8), "fcc", 4), ("bcc", (8, 4, 8), "bcc", 2),
+    ("tri", (16, 12), "triangular", 2),
+]
+
+
+@pytest.mark.parametrize("temp", [0.05, 50.0], ids=["cold", "hot"])
+@pytest.mark.parametrize("name,shape,geometry,ns", BONDS_BAND_CASES,
+                         ids=[c[0] for c in BONDS_BAND_CASES])
+def test_fk_bonds_band_state_bytes_match_plain(cuda, name, shape, geometry, ns, temp):
+    """fk_bonds_band alone on every band's window (random spins, gaussian and
+    unit couplings): the state bytes bitwise fk_bonds_band_plain's, near T = 0
+    and at a large T, with the launch's graphs a thread and one."""
+    from types import SimpleNamespace
+
+    from peapods_tpu_torch.ops import cc_band
+    from peapods_tpu_torch.ops.lattice import GEOMETRY_OFFSETS, BandGeometry, Lattice
+
+    lat = Lattice(shape, GEOMETRY_OFFSETS[geometry] if geometry else None)
+    rng = np.random.default_rng(len(name) + ns + int(temp))
+    g, nb = 4, lat.n_neighbors
+    lib = _build.library()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for band in BandGeometry(lat, ns).bands:
+        nw = band.n_window
+        for couplings in ("gauss", "ferro"):
+            j = (rng.standard_normal((1, nw, nb)) if couplings == "gauss"
+                 else np.ones((1, nw, nb)))
+            j_win = torch.from_numpy(j.astype(np.float32)).to(cuda)
+            spins = torch.from_numpy(rng.choice([-1, 1], size=(g, nw)).astype(np.int8)).to(cuda)
+            temps = torch.from_numpy(rng.uniform(0.9 * temp, 1.1 * temp, g).astype(
+                np.float32)).to(cuda)
+            kb = torch.from_numpy(rng.integers(-2**31, 2**31, (g, 2)).astype(np.int32)).to(cuda)
+            want = SimpleNamespace(state=torch.empty((g, nw), dtype=torch.uint8, device=cuda))
+            fk.fk_bonds_band_plain(spins, j_win, temps, kb, want, band)
+            got = cc_band.BandCC.empty(g, band, cuda)
+            got.state.fill_(255)
+            fk.LAUNCHES["fk_bonds_band"] = 0
+            fk.fk_bonds_band(spins, j_win, temps, kb, got, band)
+            torch.cuda.synchronize()
+            assert fk.LAUNCHES["fk_bonds_band"] == 1
+            assert torch.equal(got.state, want.state), (band.k, couplings)
+            state = torch.full_like(got.state, 255)
+            _build.check(lib.peapods_fk_bonds_band(
+                spins.data_ptr(), j_win.data_ptr(), temps.data_ptr(), kb.data_ptr(),
+                state.data_ptr(), band.words.ctypes.data, g, g, 1, stream), "fk_bonds_band")
+            torch.cuda.synchronize()
+            assert torch.equal(state, want.state), (band.k, couplings, "one a thread")
 
 
 @pytest.mark.parametrize("wolff", [False, True], ids=["sw", "wolff"])

@@ -259,10 +259,10 @@ def compile_all(todo):
         for name in names:
             so = d / (Path(name).stem + ".so")
             cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(d / name)]
-            procs.append((key, name, so, subprocess.Popen(
+            procs.append((key, d, name, so, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
     libs = {}
-    for key, name, so, proc in procs:
+    for key, d, name, so, proc in procs:
         text = proc.communicate()[0]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {key} {name}:\n{text}")
@@ -271,6 +271,12 @@ def compile_all(todo):
             if hasattr(lib, fn):
                 getattr(lib, fn).argtypes = args
                 getattr(lib, fn).restype = ctypes.c_int
+        # fk_bonds_band takes the graphs a thread (fk.bonds_per) since its
+        # redesign; the earlier design's entry point does not
+        lib.bonds_per = "int n_systems, int per, void* stream" in (d / name).read_text()
+        if name == "fk.cu" and not lib.bonds_per:
+            lib.peapods_fk_bonds_band.argtypes = args = [ctypes.c_void_p] * 6 + [
+                ctypes.c_int] * 2 + [ctypes.c_void_p]
         libs.setdefault(key, {})[Path(name).stem] = (lib, text)
     return libs
 
@@ -378,10 +384,13 @@ def launches(kl, variant, x, dev):
         lib = kl["fk"][0]
         if variant == "base":
             def go(lib=lib):
+                threads = fk.resident_threads(dev.index)
+                per = ((fk.bonds_per(band.n_window, n_sys, n_sys, threads),)
+                       if lib.bonds_per else ())
                 _build.check(lib.peapods_fk_bonds_band(
                     x["spins"].data_ptr(), x["coup"].data_ptr(), x["temps"].data_ptr(),
                     x["kb"].data_ptr(), x["out_state"].data_ptr(), words, n_sys, n_sys,
-                    stream), "fk_bonds_band")
+                    *per, stream), "fk_bonds_band")
             out.append(("fk_bonds_band", {}, go))
         if fused:
             nblk = lib.peapods_fk_blocks(band.n_band)

@@ -330,14 +330,12 @@ REAL_RUNS = (
 )
 
 
-def real_states(lib, dev, only=()):
+def real_states(dev, only=()):
     """``(name, shape, graphs, state bytes, tri)`` of each real run: its
-    equilibrated spins' FK bonds drawn by this design's ``fk_bonds``."""
+    equilibrated spins' FK bonds drawn by this checkout's ``fk_bonds``."""
     from chip_smoke import fk_inputs
     from peapods_tpu_torch import Ising
 
-    fn = lib.peapods_fk_bonds
-    fn.argtypes, fn.restype = [_P] * 6 + [_I] * 6 + [_P], _I
     out = []
     for name, args, sweeps, kw in REAL_RUNS:
         if only and name.removeprefix("real-") not in only:
@@ -348,16 +346,9 @@ def real_states(lib, dev, only=()):
         model = Ising(shape, temperatures=temps, seed=3, device=dev, **args)
         model.sample(sweeps, "metropolis", warmup_ratio=0.0, **kw)
         x = fk_inputs(model, dev, np.random.default_rng(5), False)
-        b, n = x["spins"].shape[0], x["spins"][0].numel()
-        state = torch.empty((b, n), dtype=torch.uint8, device=dev)
-        parent = torch.empty((b, n), dtype=torch.int32, device=dev)
+        b = x["spins"].shape[0]
+        state = fk.fk_bonds(x["spins"], x["j_fwd"], x["temps"], x["kb_words"])
         tri = args.get("geometry") == "triangular"
-        code = fn(x["spins"].data_ptr(), x["j_fwd"].data_ptr(), x["temps"].data_ptr(),
-                  x["kb_words"].data_ptr(), state.data_ptr(), parent.data_ptr(), b,
-                  b // x["j_fwd"].shape[0], *_build.dims3(shape), int(tri),
-                  torch.cuda.current_stream(dev).cuda_stream)
-        if code:
-            raise RuntimeError(f"fk_bonds: CUDA error {code}")
         torch.cuda.synchronize()
         out.append((name, tuple(shape), b, state, tri))
     return out
@@ -398,9 +389,7 @@ def graphs(libs, dev, real, only=()):
     if given)."""
     rng = np.random.default_rng(11)
     if real:
-        new = next(ls["fk.cu"] for ls in libs.values()
-                   if "fk.cu" in ls and ls["fk.cu"]._peapods_new)
-        for name, shape, b, state, tri in real_states(new, dev, only):
+        for name, shape, b, state, tri in real_states(dev, only):
             yield name, shape, b, state, tri, None
     for name, shape, b, p in ((n, s, b, p) for n, s, b, ps in LINK_SHAPES for p in ps
                               if not only or n in only):
