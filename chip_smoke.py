@@ -23,7 +23,9 @@ through the user's entry points:
   PT on the 64x64 x 16 temperatures x 128 realizations harness shape, 4x4
   exact enumeration, and each kernel (``sweep_2d``, ``fk_bonds``,
   ``fk_link``, ``fk_finish``, ``pt_step``) held against its plain version
-  at both shapes, the labelling one launch at a time (``fk_link`` in its
+  at both shapes (``sweep_2d``'s every partial bitwise
+  ``sweep_2d_partials``', gaussian couplings too), the labelling one
+  launch at a time (``fk_link`` in its
   whole-graph form, or tiled with ``fk_link_border`` and
   ``fk_link_flatten``), ``fk_bonds`` alone (every state byte bitwise) and
   ``fk_finish`` alone on the labelling's parents (spins and every partial
@@ -1010,95 +1012,119 @@ def sweep_2d_bound(n, n_real):
 
 
 def check_sweep_2d(dev, rng, card):
-    """The sweep kernel against its plain version at 256^2 over 8 systems
-    and at the harness shape (bitwise spins and partial sums); its plain
-    version's time and its bound per launch at config 3 and at the harness
-    shape."""
+    """The sweep kernel against its plain versions at 256^2 over 8 systems
+    and at the harness shape, +-1 couplings, and at the harness shape with
+    gaussian couplings: spins bitwise ``sweep_2d_plain``'s, every partial
+    bitwise ``sweep_2d_partials``' (the kernel's order of adds) and, with
+    +-1 couplings, their sums bitwise ``sweep_2d_plain``'s; then its time a
+    launch (CUDA events), its plain version's and its bound at config 3 and
+    at the harness shape."""
     from peapods_tpu_torch.ops import sweep
     from peapods_tpu_torch.ops.sweep import pack_coupling_grids
 
-    def inputs(shape, d, n_sys):
+    def inputs(shape, d, n_sys, couplings="pm"):
         h, w = shape
-        coup = rng.choice([-1.0, 1.0], size=(d, h * w, 2)).astype(np.float32)
+        coup = (rng.choice([-1.0, 1.0], size=(d, h * w, 2)) if couplings == "pm"
+                else rng.standard_normal((d, h * w, 2))).astype(np.float32)
         temps = np.stack([rng.permutation(np.geomspace(1.8, 3.2, n_sys))
                           for _ in range(d)]).astype(np.float32)
+        coup_t = torch.from_numpy(coup).to(dev)
         return dict(
             spins=torch.from_numpy(
                 rng.choice([-1, 1], size=(d, n_sys, h, w)).astype(np.int8)).to(dev),
-            jgrids=pack_coupling_grids(torch.from_numpy(coup), shape).contiguous().to(dev),
+            coup=coup_t, jgrids=pack_coupling_grids(coup_t, shape).contiguous(),
             sys_temps=torch.from_numpy(temps).to(dev),
             words=torch.from_numpy(
                 rng.integers(-2**31, 2**31, (d, 2)).astype(np.int32)).to(dev))
 
     max_err = 0.0
-    for shape, d, n_sys in (((L, L), 1, 8), (HARNESS["shape"],
-                                             HARNESS["n_disorder"],
-                                             HARNESS["n_temps"])):
-        x = inputs(shape, d, n_sys)
-        a, b = x["spins"].clone(), x["spins"].clone()
-        args = (x["jgrids"], x["sys_temps"], x["words"])
+    harness = (HARNESS["shape"], HARNESS["n_disorder"], HARNESS["n_temps"])
+    for (shape, d, n_sys), couplings in ((((L, L), 1, 8), "pm"), (harness, "pm"),
+                                         (harness, "gauss")):
+        x = inputs(shape, d, n_sys, couplings)
+        a, b, c = (x["spins"].clone() for _ in range(3))
+        args = (x["sys_temps"], x["words"])
         for gibbs in (False, True):
-            pk = sweep.sweep_2d(a, *args, gibbs=gibbs, measure=True)
-            pp = sweep.sweep_2d_plain(b, *args, gibbs=gibbs, measure=True)
+            pk = sweep.sweep_2d(a, x["coup"], *args, gibbs=gibbs, measure=True)
+            pp = sweep.sweep_2d_plain(b, x["jgrids"], *args, gibbs=gibbs, measure=True)
+            pe, pm = sweep.sweep_2d_partials(c, x["jgrids"], *args, gibbs=gibbs)
             torch.cuda.synchronize()
-            n_diff = int((a != b).sum())
-            e_err = float((pk[0].sum(-1) - pp[0].sum(-1)).abs().max())
-            m_diff = int((pk[1].sum(-1) != pp[1].sum(-1)).sum())
-            if n_diff or e_err or m_diff:
-                raise AssertionError(f"sweep_2d (gibbs={gibbs}): {n_diff} spins, "
-                                     f"{m_diff} m differ, max |de| {e_err}")
-            max_err = max(max_err, e_err)
+            n_diff = int((a != b).sum()) + int((a != c).sum())
+            n_part = int((pk[0] != pe).sum()) + int((pk[1] != pm).sum())
+            e_err = float((pk[0].double().sum(-1) - pp[0][..., 0].double()).abs().max())
+            m_diff = int((pk[1].sum(-1) != pp[1][..., 0]).sum())
+            if n_diff or n_part or m_diff or (couplings == "pm" and e_err):
+                raise AssertionError(f"sweep_2d ({couplings}, gibbs={gibbs}): {n_diff} spins, "
+                                     f"{n_part} partials, {m_diff} m sums differ, max |de| "
+                                     f"{e_err}")
+            max_err = max(max_err, float((pk[0] - pe).abs().max()))
         log("8 kernel-vs-plain", f"sweep_2d ok: {shape[0]}x{shape[1]} x "
-            f"{d * n_sys} systems, Metropolis and Gibbs: 0 of {2 * a.numel()} "
-            "spins differ, (e, m) partial sums bitwise")
+            f"{d * n_sys} systems, {couplings}, Metropolis and Gibbs: 0 of {2 * a.numel()} "
+            f"spins differ, all {2 * pk[0].numel()} (e, m) partials bitwise "
+            f"sweep_2d_partials'" + (", their sums bitwise sweep_2d_plain's"
+                                     if couplings == "pm" else
+                                     f" (sums within {e_err:.3g} of torch.sum's)"))
 
     times = {}
     for name, shape, d, n_sys in (("config3", (L, L), 1, 1),
-                                  ("harness", HARNESS["shape"],
-                                   HARNESS["n_disorder"], HARNESS["n_temps"])):
+                                  ("harness", *harness)):
         y = inputs(shape, d, n_sys)
-        yargs = (y["jgrids"], y["sys_temps"], y["words"])
+        yargs = (y["sys_temps"], y["words"])
+        ms = gpu_ms(lambda: sweep.sweep_2d(y["spins"], y["coup"], *yargs, gibbs=False),
+                    100) / 2
         plain = wall_ms(lambda: sweep.sweep_2d_plain(
-            y["spins"], *yargs, gibbs=False), 10) / 2
+            y["spins"], y["jgrids"], *yargs, gibbs=False), 10) / 2
         bms, by = sweep_2d_bound(d * n_sys * shape[0] * shape[1], d * shape[0] * shape[1])
-        times[name] = dict(plain_ms=plain, bound_ms=bms, bound_by=by)
+        times[name] = dict(ms_events=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+        log("8 kernel-vs-plain", f"sweep_2d at {name} ({shape[0]}x{shape[1]} x "
+            f"{d * n_sys} systems): {ms:.5f} ms a pass (CUDA events; bound {bms:.5f} ms by "
+            f"{by}, plain {plain:.4f} ms) on {card}")
     return dict(max_abs_err=max_err, library_ms=None, shapes=times)
 
 
 def check_sweep_state(sim, dev, rng, name, phase):
     """``sweep_2d`` (both passes, measuring) on a simulation's state,
-    Metropolis and Gibbs: the spins and the (e, m) sums of its partial
-    blocks bitwise ``sweep_2d_plain``'s.  With +-1 couplings every energy
-    term is an even integer and every sum stays within 2^25, so float32
-    adds them exactly in any order: the tolerance is 0.  Returns the max
-    |de| and the plain version's time a pass (Metropolis)."""
+    Metropolis and Gibbs: the spins bitwise ``sweep_2d_plain``'s, every
+    partial bitwise ``sweep_2d_partials``' and the (e, m) sums bitwise
+    ``sweep_2d_plain``'s.  With +-1 couplings every energy term is an even
+    integer and every sum stays within 2^25, so float32 adds them exactly in
+    any order: the tolerance is 0.  Returns the max |de| and the plain
+    version's time a pass (Metropolis)."""
     from peapods_tpu_torch.ops import sweep
     from peapods_tpu_torch.ops.measure import slot_temps_for_systems
 
     rt, st = sim.rt, sim.state
     d, n_sys = rt.n_disorder, rt.n_systems
     spins = st["spins"].view(d, n_sys, *rt.lattice.shape)
-    args = (rt.jgrids, slot_temps_for_systems(st["system_ids"].view(d, -1), rt.temps),
-            torch.from_numpy(rng.integers(-2**31, 2**31, (d, 2)).astype(np.int32)).to(dev))
+    temps = slot_temps_for_systems(st["system_ids"].view(d, -1), rt.temps)
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, (d, 2)).astype(np.int32)).to(dev)
     max_err = 0.0
     for gibbs in (False, True):
         a, b = spins.clone(), spins.clone()
-        pk = sweep.sweep_2d(a, *args, gibbs=gibbs, measure=True)
-        pp = sweep.sweep_2d_plain(b, *args, gibbs=gibbs, measure=True)
+        pk = sweep.sweep_2d(a, rt.coup, temps, words, gibbs=gibbs, measure=True)
+        pp = sweep.sweep_2d_plain(b, rt.jgrids, temps, words, gibbs=gibbs, measure=True)
         torch.cuda.synchronize()
         n_diff = int((a != b).sum())
-        e_err = float((pk[0].sum(-1) - pp[0].sum(-1)).abs().max())
-        m_diff = int((pk[1].sum(-1) != pp[1].sum(-1)).sum())
+        e_err = float((pk[0].sum(-1) - pp[0][..., 0]).abs().max())
+        m_diff = int((pk[1].sum(-1) != pp[1][..., 0]).sum())
+        del b, pp
+        c = spins.clone()
+        pe, pm = sweep.sweep_2d_partials(c, rt.jgrids, temps, words, gibbs=gibbs)
+        torch.cuda.synchronize()
+        n_part = int((pk[0] != pe).sum()) + int((pk[1] != pm).sum())
+        n_diff += int((a != c).sum())
         log(phase, f"sweep_2d alone on {name} ({d * n_sys} systems, "
             f"{'Gibbs' if gibbs else 'Metropolis'}): {n_diff} of {a.numel()} spins "
-            f"differ, {m_diff} m sums differ, max |de| {e_err}; "
+            f"differ, {n_part} of {2 * pe.numel()} partials differ from sweep_2d_partials', "
+            f"{m_diff} m sums differ, max |de| {e_err}; "
             f"{int((a != spins).sum())} spins flipped")
-        if n_diff or e_err or m_diff:
+        if n_diff or e_err or m_diff or n_part:
             raise AssertionError(f"sweep_2d on {name} (gibbs={gibbs}) differs from plain")
         max_err = max(max_err, e_err)
-        del a, b, pk, pp
+        del a, c, pk, pe, pm
     b = spins.clone()
-    plain = wall_ms(lambda: sweep.sweep_2d_plain(b, *args, gibbs=False), 2) / 2
+    plain = wall_ms(lambda: sweep.sweep_2d_plain(b, rt.jgrids, temps, words, gibbs=False),
+                    2) / 2
     return max_err, plain
 
 
@@ -2320,6 +2346,10 @@ def check_nb_kernels(dev, rng):
         n_blocks = ((n + 3) // 4 + 255) // 256
         rec_m["bound_ms"], rec_m["bound_by"] = bound(
             sys_sites + 4 * nb * n + 8 * n_sys * n_blocks, 3 * nb * sys_sites)
+        log("17 kernel-vs-plain", f"sweep_nb at {name}: {rec_s['ms']:.5f} ms a pass (CUDA "
+            f"events; bound {rec_s['bound_ms']:.7f} ms by {rec_s['bound_by']}, plain "
+            f"{rec_s['plain_ms']:.4f} ms); measure_nb {rec_m['ms']:.5f} ms (bound "
+            f"{rec_m['bound_ms']:.7f} ms) on {card_line()}")
         out[name] = dict(sweep_nb=rec_s, measure_nb=rec_m)
     return out
 
@@ -2335,22 +2365,23 @@ def check_sweep_2d_row4(dev, rng, card):
 
     h = w = 32
     n_sys = 16
-    coup = rng.choice([-1.0, 1.0], size=(1, h * w, 2)).astype(np.float32)
-    jg = pack_coupling_grids(torch.from_numpy(coup), (h, w)).contiguous().to(dev)
+    coup = torch.from_numpy(rng.choice([-1.0, 1.0], size=(1, h * w, 2)).astype(np.float32)
+                            ).to(dev)
+    jg = pack_coupling_grids(coup, (h, w)).contiguous()
     temps = torch.from_numpy(np.geomspace(1.8, 3.2, n_sys).astype(np.float32)[None]).to(dev)
     words = torch.from_numpy(rng.integers(-2**31, 2**31, (1, 2)).astype(np.int32)).to(dev)
     s0 = torch.from_numpy(rng.choice([-1, 1], size=(1, n_sys, h, w)).astype(np.int8)).to(dev)
     a, b = s0.clone(), s0.clone()
     for gibbs in (False, True):
         for _ in range(2):
-            pk = sweep.sweep_2d(a, jg, temps, words, gibbs=gibbs, measure=True)
+            pk = sweep.sweep_2d(a, coup, temps, words, gibbs=gibbs, measure=True)
             pp = sweep.sweep_2d_plain(b, jg, temps, words, gibbs=gibbs, measure=True)
             torch.cuda.synchronize()
             if not (torch.equal(a, b) and torch.equal(pk[0].sum(-1), pp[0].sum(-1))
                     and torch.equal(pk[1].sum(-1), pp[1].sum(-1))):
                 raise AssertionError(f"sweep_2d at 32x32 x 16 (gibbs={gibbs}) differs")
             words = words * 3 + 1
-    ms = gpu_ms(lambda: sweep.sweep_2d(a, jg, temps, words, gibbs=False), 100) / 2
+    ms = gpu_ms(lambda: sweep.sweep_2d(a, coup, temps, words, gibbs=False), 100) / 2
     plain = wall_ms(lambda: sweep.sweep_2d_plain(b, jg, temps, words, gibbs=False), 10) / 2
     n = n_sys * h * w
     bms, by = bound(n + 16 * h * w + n // 2, 20 * n // 2)

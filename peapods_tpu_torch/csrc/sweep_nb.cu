@@ -18,18 +18,20 @@
 //
 //   sweep_nb    one colour of every (realization, system) at the system's
 //               temperature.  Thread g owns sites 4g .. 4g+3 (full-lattice
-//               row-major index), draws one Philox4x32-10 block keyed by the
-//               sweep's two words, counter (system, colour, g, 0), and
-//               updates the sites of the active colour: site i takes word
-//               i % 4 (ops/rng.site_uniforms).  The field adds, for each
-//               offset d in order, s(i + off_d) J[i, d] and then
-//               s(i - off_d) J_bwd[i, d] (J_bwd[i, d] = J[i - off_d, d]),
-//               from 0, as local_fields (ops/sweep.py:53-71) does; the
-//               rules are the reference's: Metropolis u < (15/16) exp(min(
-//               -s h / (T/2), 0)), Gibbs -s h >= (T/2) ln(u / (1 - u)).
-//               A colour is an independent set, so no active site reads a
-//               site that the pass writes (a self-bond reads the site's own
-//               value before the write).
+//               row-major index) of `per` systems of one realization
+//               (ops/sweep.py systems_per), draws one Philox4x32-10 block a
+//               system keyed by the sweep's two words, counter (system,
+//               colour, g, 0), and updates the sites of the active colour:
+//               site i takes word i % 4 (ops/rng.site_uniforms).  The field
+//               adds, for each offset d in order, s(i + off_d) J[i, d] and
+//               then s(i - off_d) J[i - off_d, d] (the backward bond read
+//               from the forward couplings at the neighbour: the engine's
+//               coup_bwd, bitwise), from 0, as local_fields (ops/sweep.py:
+//               53-71) does; the rules are the reference's: Metropolis u <
+//               (15/16) exp(min(-s h / (T/2), 0)), Gibbs -s h >= (T/2) ln(u
+//               / (1 - u)).  A colour is an independent set, so no active
+//               site reads a site that the pass writes (a self-bond reads
+//               the site's own value before the write).
 //   measure_nb  per-block partials [d, n_systems, blocks] of e = sum_{i,d}
 //               (s_i s(i + off_d)) J[i, d] and m = sum_i s_i, in a fixed
 //               order with no float atomics; pt_step adds them in order.
@@ -38,83 +40,159 @@
 //               so the energy cannot ride in the last pass as it does on the
 //               checkerboard.
 //
-// Neighbours come from the coordinates of the row-major index and the
-// offsets (kernel arguments, nb.cuh), each axis wrapped on its own
-// (rem_euclid); a 2D lattice is [L0, L1, 1].  Built with -fmad=false and no fast math, so
-// the field, the acceptance and the (+-1) energies round exactly as the
-// plain torch versions (ops/sweep.py, ops/energy.py).
+// sweep_nb is templated on the number of offsets and the dimension, and
+// finds its neighbours with no runtime division (the H100 has no integer
+// divide instruction: a `/` or `%` by a runtime value is a sequence of
+// about twenty): one multiply-shift division for a group's first site, a
+// step for the next, and each axis of a neighbour wrapped by a residue and
+// one compare (band.cuh, the whole lattice as a window without halo).
+// measure_nb finds them from nb.cuh's coordinates and rem_euclid wraps.
+// Built with -fmad=false and no fast math, so the field, the acceptance and
+// the (+-1) energies round exactly as the plain torch versions
+// (ops/sweep.py, ops/energy.py).
 //
 // What bounds it on the H100: per active site, the int8 spin, 2 n_nb int8
-// neighbours, 8 n_nb bytes of couplings (forward and backward) and a colour
-// byte are read and one byte written; each pass reads the colour table of
-// every site.  At config 2 (8 systems of 32 x 32, 4 colours) a pass moves
-// about 40 KB: a few ns at HBM rate, so the launch is latency-bound (4
-// blocks of 256 threads for 8 x 1024 sites).  At 32^3 x 16 systems a pass
-// reads 0.5 MB of spins and 1.5 MB of couplings.  The simple design reads
-// every neighbour from global memory (L1 / L2 hits); a lattice held in
-// shared memory and one launch for all colours are later work.
+// neighbours, 8 n_nb bytes of couplings (forward and backward, from one
+// array) are read and one byte written; each pass reads the colour table.
+// At config 2 (8 systems of 32 x 32, 4 colours) a pass moves about 40 KB: a
+// few ns at HBM rate, so the launch is latency-bound (4 blocks of 256
+// threads), and its time is one thread's chain of dependent steps.  The
+// first design (a thread a group of one system, coordinates and wraps by
+// runtime divisions and modulos, 6 + 12 n_nb a site, a runtime loop over
+// the offsets whose loads waited for each other, a second coupling array)
+// took 0.0129 ms a pass at FCC 16^3 x 8 and 0.0220 ms at 32^3 x 16; this
+// one 0.0055 and 0.0077 (NVIDIA H100 80GB HBM3, 700 W; tools/probe_sweep.py
+// times both designs).  The old design's divisions were most of its time
+// (0.0062 and 0.0120 without them).  The template pays: a runtime count of
+// offsets costs 3-36%; a grid of only the groups that hold the pass's
+// colour would save at most 4% at FCC (a quarter of the grid: 0.0053), so
+// the grid covers every group and the others return after one colour load.
 
 #include <cuda_runtime.h>
 
 #include <cstddef>
 #include <cstdint>
 
+#include "band.cuh"
 #include "mega.cuh"
-#include "nb.cuh"
 
 using namespace peapods;
 
 namespace {
 
+// The neighbour of the site at (r, c1, c2) at +off_d (back = false) or
+// -off_d on the whole periodic lattice, with no division: the host reduces
+// off_d[0] into [0, L0) (ops/lattice.py Lattice.sweep_words), band.cuh's
+// residues step axes 1 and 2; each axis wraps with one compare.  d must be
+// known at compile time (an unrolled loop).
+template <bool k3>
+__device__ __forceinline__ int nb_site(const BandWalk& g, int r, int c1, int c2, int d,
+                                       bool back) {
+  const int L0 = g.w.L[0];
+  int n0 = back ? r - g.w.off[d][0] : r + g.w.off[d][0];
+  if (back && n0 < 0) n0 += L0;
+  if (!back && n0 >= L0) n0 -= L0;
+  int n1 = c1 + g.res[d][back ? 2 : 0];
+  if (n1 >= g.w.L[1]) n1 -= g.w.L[1];
+  if (!k3) return n0 * g.w.L[1] + n1;
+  int n2 = c2 + g.res[d][back ? 3 : 1];
+  if (n2 >= g.w.L[2]) n2 -= g.w.L[2];
+  return (n0 * g.w.L[1] + n1) * g.w.L[2] + n2;
+}
+
+// One colour pass of sites 4g .. 4g+3 (thread g; blockIdx.x its block of
+// kThreads groups) of systems blockIdx.y per .. + per - 1 of realization
+// blockIdx.z, on a lattice of NB forward offsets, 3D or (k3 false) 2D.  The
+// group's colours are one 32-bit load; a group with no site of the colour
+// returns.  Its first site's coordinates are one multiply-shift division
+// (band_coords), the next sites' a step each.  Per system: one Philox block,
+// then for each active site every neighbour spin and coupling load (the
+// backward coupling J[i - off_d, d] read from the forward couplings at the
+// neighbour) before the field's adds, and the flips stored after the
+// group's four decisions, so that no load waits for a store.
+template <int NB, bool k3>
 __global__ void __launch_bounds__(kThreads)
-sweep_nb_kernel(int8_t* __restrict__ spins, const float* __restrict__ coup_fwd,
-                const float* __restrict__ coup_bwd,
-                const uint8_t* __restrict__ colours,
-                const float* __restrict__ sys_temps,
-                const int32_t* __restrict__ words, const NbGeom g, int n,
-                int n_systems, int colour, int gibbs) {
-  const int sys = blockIdx.y;
-  const int dz = blockIdx.z;
-  const int g4 = blockIdx.x * blockDim.x + threadIdx.x;
-  const int i0 = kSitesPerThread * g4;
+sweep_nb_kernel(int8_t* __restrict__ spins, const float* __restrict__ coup,
+                const uint8_t* __restrict__ colours, const float* __restrict__ sys_temps,
+                const int32_t* __restrict__ words, const BandWalk geo, int n_systems, int per,
+                int colour, int gibbs) {
+  const int n = geo.w.L[0] * geo.block;
+  const int g = blockIdx.x * kThreads + threadIdx.x;
+  const int i0 = kSitesPerThread * g;
   if (i0 >= n) return;
-  bool any = false;
+  unsigned act = 0;
+  if ((n & 3) == 0 && (reinterpret_cast<uintptr_t>(colours) & 3) == 0) {
+    const uint32_t cw = __ldg(reinterpret_cast<const uint32_t*>(colours) + g);
 #pragma unroll
-  for (int k = 0; k < kSitesPerThread; ++k)
-    any |= i0 + k < n && colours[i0 + k] == colour;
-  if (!any) return;
-  const size_t row = static_cast<size_t>(dz) * n_systems + sys;
-  int8_t* s = spins + row * n;
-  const size_t jo = static_cast<size_t>(dz) * n * g.n_nb;
-  const float* jf = coup_fwd + jo;
-  const float* jb = coup_bwd + jo;
-  const float T = sys_temps[row];
-  const float half_t = T * 0.5f;
-  const float inv_half_t = 1.0f / (T * 0.5f);
-  const uint4 r4 = philox4x32_10(static_cast<uint32_t>(words[2 * dz]),
-                                 static_cast<uint32_t>(words[2 * dz + 1]),
-                                 static_cast<uint32_t>(sys),
-                                 static_cast<uint32_t>(colour),
-                                 static_cast<uint32_t>(g4), 0u);
-  const uint32_t w4[4] = {r4.x, r4.y, r4.z, r4.w};
+    for (int k = 0; k < kSitesPerThread; ++k)
+      act |= static_cast<unsigned>(((cw >> (8 * k)) & 0xFFu) == static_cast<uint32_t>(colour)) << k;
+  } else {
 #pragma unroll
-  for (int k = 0; k < kSitesPerThread; ++k) {
-    const int i = i0 + k;
-    if (i >= n || colours[i] != colour) continue;
-    int c[3];
-    coords(g, i, c);
-    float field = 0.0f;
-    for (int d = 0; d < g.n_nb; ++d) {
-      const size_t b = static_cast<size_t>(i) * g.n_nb + d;
-      field = field + static_cast<float>(s[neighbour(g, c, d, 1)]) * jf[b];
-      field = field + static_cast<float>(s[neighbour(g, c, d, -1)]) * jb[b];
+    for (int k = 0; k < kSitesPerThread; ++k)
+      act |= static_cast<unsigned>(i0 + k < n && __ldg(colours + i0 + k) == colour) << k;
+  }
+  if (!act) return;
+  int c1_0, c2_0;
+  const int r_0 = band_coords(geo, i0, c1_0, c2_0);
+  const int dz = blockIdx.z;
+  const uint32_t k0 = static_cast<uint32_t>(words[2 * dz]);
+  const uint32_t k1 = static_cast<uint32_t>(words[2 * dz + 1]);
+  const float* J = coup + static_cast<size_t>(dz) * n * NB;
+  for (int q = 0; q < per; ++q) {
+    const int sys = blockIdx.y * per + q;
+    const size_t row = static_cast<size_t>(dz) * n_systems + sys;
+    int8_t* s = spins + row * n;
+    const float T = sys_temps[row];
+    const float half_t = T * 0.5f;
+    const float inv_half_t = 1.0f / (T * 0.5f);
+    const uint4 r4 = philox4x32_10(k0, k1, static_cast<uint32_t>(sys),
+                                   static_cast<uint32_t>(colour), static_cast<uint32_t>(g), 0u);
+    const uint32_t w4[4] = {r4.x, r4.y, r4.z, r4.w};
+    unsigned flips = 0;
+    float sv[kSitesPerThread];
+    int r = r_0, c1 = c1_0, c2 = c2_0;
+#pragma unroll
+    for (int k = 0; k < kSitesPerThread; ++k) {
+      if (k) {  // the next site's coordinates
+        if (!k3 || ++c2 == geo.w.L[2]) {
+          c2 = 0;
+          if (++c1 == geo.w.L[1]) {
+            c1 = 0;
+            ++r;
+          }
+        }
+      }
+      sv[k] = 0.0f;
+      if (!((act >> k) & 1u)) continue;
+      const int i = i0 + k;
+      int8_t sn[2 * NB];
+      float jn[2 * NB];
+#pragma unroll
+      for (int d = 0; d < NB; ++d) {
+        const int f = nb_site<k3>(geo, r, c1, c2, d, false);
+        const int b = nb_site<k3>(geo, r, c1, c2, d, true);
+        sn[2 * d] = s[f];
+        sn[2 * d + 1] = s[b];
+        jn[2 * d] = __ldg(J + static_cast<size_t>(i) * NB + d);
+        jn[2 * d + 1] = __ldg(J + static_cast<size_t>(b) * NB + d);
+      }
+      sv[k] = static_cast<float>(s[i]);
+      float field = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 2 * NB; ++e) field = field + static_cast<float>(sn[e]) * jn[e];
+      const float eng = -sv[k] * field;
+      const float u = uniform24(w4[k]);
+      bool flip;
+      if (gibbs) {
+        flip = eng >= half_t * logf(u / (1.0f - u));
+      } else {
+        flip = u < kKeep * expf(fminf(eng * inv_half_t, 0.0f));
+      }
+      flips |= static_cast<unsigned>(flip) << k;
     }
-    const float sv = static_cast<float>(s[i]);
-    const float eng = -sv * field;
-    const float u = uniform24(w4[k]);
-    const bool flip = gibbs ? eng >= half_t * logf(u / (1.0f - u))
-                            : u < kKeep * expf(fminf(eng * inv_half_t, 0.0f));
-    if (flip) s[i] = static_cast<int8_t>(-sv);
+#pragma unroll
+    for (int k = 0; k < kSitesPerThread; ++k)
+      if ((flips >> k) & 1u) s[i0 + k] = static_cast<int8_t>(-sv[k]);
   }
 }
 
@@ -158,20 +236,36 @@ int peapods_nb_blocks(int n) {
 }
 
 // One colour pass of every (realization, system).  spins int8 [d, n_systems,
-// n]; coup_fwd / coup_bwd f32 [d, n, n_nb]; colours uint8 [n]; sys_temps f32
-// [d, n_systems]; words int32 [d, 2].
-int peapods_sweep_nb(void* spins, const void* coup_fwd, const void* coup_bwd,
-                     const void* colours, const void* sys_temps, const void* words,
-                     const int* geom, int n_disorder, int n_systems, int colour,
-                     int gibbs, void* stream) {
-  const NbGeom g = make_geom(geom);
-  const int n = g.L[0] * g.L[1] * g.L[2];
-  const dim3 grid(peapods_nb_blocks(n), n_systems, n_disorder);
-  sweep_nb_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int8_t*>(spins), static_cast<const float*>(coup_fwd),
-      static_cast<const float*>(coup_bwd), static_cast<const uint8_t*>(colours),
-      static_cast<const float*>(sys_temps), static_cast<const int32_t*>(words), g, n,
-      n_systems, colour, gibbs);
+// n]; coup f32 [d, n, n_nb] (forward couplings); colours uint8 [n];
+// sys_temps f32 [d, n_systems]; words int32 [d, 2]; walk: the lattice as a
+// band.cuh BandWalk (ops/lattice.py Lattice.sweep_words, host memory); per
+// the systems a thread (a divisor of n_systems: ops/sweep.py systems_per).
+int peapods_sweep_nb(void* spins, const void* coup, const void* colours, const void* sys_temps,
+                     const void* words, const int* walk, int n_disorder, int n_systems,
+                     int colour, int gibbs, int per, void* stream) {
+  const BandWalk g = make_band_walk(walk);
+  const long long n = static_cast<long long>(g.w.L[0]) * g.block;
+  const int nb = g.w.n_nb;
+  if (n_disorder < 1 || n_disorder > 65535 || n_systems < 1 || per < 1 || n_systems % per ||
+      n_systems / per > 65535 || nb < 1 || nb > kMaxOffsets || n < 1 || n > (1LL << 31) - 4 ||
+      g.hl != g.w.L[0] || g.halo != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(peapods_nb_blocks(static_cast<int>(n)), n_systems / per, n_disorder);
+  const bool k3 = g.w.L[2] > 1;
+  auto go = [&](auto kernel) {
+    kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<int8_t*>(spins), static_cast<const float*>(coup),
+        static_cast<const uint8_t*>(colours), static_cast<const float*>(sys_temps),
+        static_cast<const int32_t*>(words), g, n_systems, per, colour, gibbs);
+  };
+  switch (nb) {
+    case 1: k3 ? go(sweep_nb_kernel<1, true>) : go(sweep_nb_kernel<1, false>); break;
+    case 2: k3 ? go(sweep_nb_kernel<2, true>) : go(sweep_nb_kernel<2, false>); break;
+    case 3: k3 ? go(sweep_nb_kernel<3, true>) : go(sweep_nb_kernel<3, false>); break;
+    case 4: k3 ? go(sweep_nb_kernel<4, true>) : go(sweep_nb_kernel<4, false>); break;
+    case 5: k3 ? go(sweep_nb_kernel<5, true>) : go(sweep_nb_kernel<5, false>); break;
+    default: k3 ? go(sweep_nb_kernel<6, true>) : go(sweep_nb_kernel<6, false>); break;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -467,7 +467,7 @@ def run_chunk_sweeps(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
         u = None if sweep_u is None else sweep_u(t)
         parts = None
         if lat.square:
-            parts = sweep_2d(spins, rt.jgrids, sys_temps, sweep_w[t], gibbs=gibbs,
+            parts = sweep_2d(spins, rt.coup, sys_temps, sweep_w[t], gibbs=gibbs,
                              measure=not fk_measures, uniforms=u)
         else:
             sweep_nb(flat, rt.coup, rt.coup_bwd, rt.colours, sys_temps, sweep_w[t],

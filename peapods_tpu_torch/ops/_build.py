@@ -45,7 +45,7 @@ _SIGNATURES = {
     "peapods_smem_per_block_optin": [],
     "peapods_resident_max_clusters": [_I] * 3,
     "peapods_mega_resident": [_P] * 14 + [_I] * 15 + [_P],
-    "peapods_sweep_2d": [_P] * 6 + [_I] * 6 + [_P],
+    "peapods_sweep_2d": [_P] * 6 + [_I] * 9 + [_P],
     "peapods_fk_blocks": [_I],
     "peapods_fk_bonds": [_P] * 6 + [_I] * 3 + [_P],
     "peapods_fk_link": [_P, _P] + [_I] * 9 + [_P],
@@ -69,7 +69,7 @@ _SIGNATURES = {
     "peapods_houdn_finish": [_P] * 8 + [_I] * 10 + [_P],
     "peapods_energy_partials": [_P] * 4 + [_I] * 5 + [_P],
     "peapods_nb_blocks": [_I],
-    "peapods_sweep_nb": [_P] * 7 + [_I] * 4 + [_P],
+    "peapods_sweep_nb": [_P] * 6 + [_I] * 5 + [_P],
     "peapods_measure_nb": [_P] * 5 + [_I] * 2 + [_P],
     "peapods_halo_blocks": [_P, _I],
     "peapods_sweep_halo": [_P] * 9 + [_I] * 5 + [_P],

@@ -315,21 +315,25 @@ def fk_finish_plain(spins, labels, j_fwd, scalars, *, wolff, with_measure, block
     return e.sum(-1, keepdim=True), m.sum(-1, keepdim=True, dtype=torch.int32)
 
 
-def block_partials_plain(x):
-    """``[B, ceil(n / 256)]`` sums of ``x [B, n]`` over blocks of 256 sites
-    (the last padded with zeros), paired as ``csrc/mega.cuh``
-    ``block_partials`` and ``warp_tree`` pair them: ``x[t] += x[t + off]``
-    for ``off = 128 .. 1``."""
-    b, n = x.shape
-    nb = (n + 255) // 256
-    t = torch.zeros((b, nb * 256), dtype=x.dtype, device=x.device)
-    t[:, :n] = x
-    t = t.view(b, nb, 256)
+def block_partials_plain(x, per_thread: int = 1):
+    """``[..., ceil(n / (256 per_thread))]`` sums of ``x [..., n]`` over
+    blocks of 256 threads of ``per_thread`` consecutive sites each (the
+    last block padded with zeros): a thread's sites added in order from 0,
+    the threads' sums paired as ``csrc/mega.cuh`` ``block_partials`` and
+    ``warp_tree`` pair them: ``x[t] += x[t + off]`` for ``off = 128 .. 1``."""
+    n = x.shape[-1]
+    block = 256 * per_thread
+    nb = (n + block - 1) // block
+    t = torch.nn.functional.pad(x, (0, nb * block - n)).reshape(*x.shape[:-1], nb, 256,
+                                                              per_thread)
+    acc = torch.zeros_like(t[..., 0])
+    for k in range(per_thread):
+        acc = acc + t[..., k]
     off = 128
     while off:
-        t = t[..., :off] + t[..., off:2 * off]
+        acc = acc[..., :off] + acc[..., off:2 * off]
         off //= 2
-    return t[..., 0]
+    return acc[..., 0]
 
 
 def fk_update_plain(spins, j_fwd, temps, scalars, kb_words, *, wolff,

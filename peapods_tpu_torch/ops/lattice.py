@@ -153,6 +153,19 @@ class Lattice:
             [shape + (1,) * (3 - n_dims), [self.n_neighbors], off.reshape(-1)]
         ).astype(np.int32)
 
+    @cached_property
+    def sweep_words(self) -> np.ndarray:
+        """int32 host words of ``csrc/sweep_nb.cu`` ``sweep_nb`` (a
+        ``csrc/band.cuh`` ``BandWalk``): the whole periodic lattice as a
+        window of all its rows with no halo, each offset's axis-0 component
+        reduced into ``[0, L0)`` (the kernel wraps axis 0 with one compare),
+        then :func:`walk_tail`'s residues and divisors."""
+        geometry = self.kernel_geometry.astype(np.int64)
+        L0 = int(geometry[0])
+        geometry[4::3] %= L0
+        words = np.concatenate([geometry, [L0, 0, 0, L0], walk_tail(geometry)])
+        return words.astype(np.uint32).view(np.int32)
+
     def _table(self, sign):
         shape = self.shape
         strides = np.cumprod((1,) + shape[:0:-1])[::-1]

@@ -18,9 +18,11 @@ ergodic (see the docstring of ``peapods_tpu/ops/sweep.py``).
 
 :func:`sweep_2d` is the port of ``pallas_sweep.sweep_2d`` (:728): one sweep
 of every (realization, system) at each system's temperature, for runs with
-a cluster phase.  On CUDA tensors it launches ``csrc/sweep.cu`` twice (one
-launch per colour) and counts them in :data:`LAUNCHES`; on CPU tensors it
-runs :func:`sweep_2d_plain`, which draws the same Philox uniforms.
+a cluster phase, given the forward couplings ``[d, H W, 2]``.  On CUDA
+tensors it launches ``csrc/sweep.cu`` twice (one launch per colour) and
+counts them in :data:`LAUNCHES`; on CPU tensors it runs
+:func:`sweep_2d_plain` on their pre-shifted grids
+(:func:`pack_coupling_grids`), which draws the same Philox uniforms.
 With ``measure=True`` its second pass also writes per-block (e, m)
 partials of the swept spins: the counterpart of ``sweep_2d_fused``
 (``pallas_sweep.py:892``, kernel ``_kernel_fused`` :313), the sweep plus
@@ -47,7 +49,8 @@ import torch
 
 from . import _build, rng
 from .energy import per_spin
-from .lattice import neighbour_values
+from .fk import block_partials_plain, resident_threads
+from .lattice import fast_divisor, neighbour_values
 
 __all__ = [
     "METROPOLIS_LAZINESS",
@@ -60,6 +63,8 @@ __all__ = [
     "sweep",
     "sweep_2d",
     "sweep_2d_plain",
+    "sweep_2d_partials",
+    "systems_per",
     "nb_local_fields",
     "mc_sweep",
     "sweep_nb",
@@ -176,6 +181,21 @@ def sweep(spins, jgrids, temps, uniforms, *, gibbs: bool):
     return s.to(torch.int8), per_spin(e_tot, h * w), m
 
 
+def _sweep_2d_passes(spins, jgrids, sys_temps, words, gibbs, uniforms):
+    """Both colour passes of every (realization, system), in place; returns
+    the f32 spins after them and the colour-1 pass's field."""
+    d, n_sys, h, w = spins.shape
+    s = spins.to(torch.float32)
+    inv_half_t = (1.0 / (0.5 * sys_temps))[..., None, None]
+    for colour in (0, 1):
+        u = (uniforms[:, :, colour] if uniforms is not None
+             else rng.colour_uniforms(words, n_sys, colour, (h, w)))
+        s, field = colour_update(s, jgrids[:, None], inv_half_t, u, colour,
+                                 gibbs=gibbs)
+    spins.copy_(s.to(torch.int8))
+    return s, field
+
+
 def sweep_2d_plain(spins, jgrids, sys_temps, words, *, gibbs, measure=False,
                    uniforms=None):
     """One sweep (colour 0, then colour 1) of every (realization, system),
@@ -197,39 +217,86 @@ def sweep_2d_plain(spins, jgrids, sys_temps, words, *, gibbs, measure=False,
     Returns:
         The partials when ``measure``, else ``None``.
     """
-    d, n_sys, h, w = spins.shape
-    s = spins.to(torch.float32)
-    inv_half_t = (1.0 / (0.5 * sys_temps))[..., None, None]
-    for colour in (0, 1):
-        u = (uniforms[:, :, colour] if uniforms is not None
-             else rng.colour_uniforms(words, n_sys, colour, (h, w)))
-        s, field = colour_update(s, jgrids[:, None], inv_half_t, u, colour,
-                                 gibbs=gibbs)
-    spins.copy_(s.to(torch.int8))
+    s, field = _sweep_2d_passes(spins, jgrids, sys_temps, words, gibbs, uniforms)
     if not measure:
         return None
-    odd = colour_mask((h, w), 1, s.device)
+    odd = colour_mask(spins.shape[-2:], 1, s.device)
     e_part = torch.where(odd, s * field, 0.0).sum((-2, -1))
     m_part = s.to(torch.int32).sum((-2, -1), dtype=torch.int32)
     return e_part[..., None], m_part[..., None]
 
 
-def sweep_2d(spins, jgrids, sys_temps, words, *, gibbs, measure=False,
-             uniforms=None):
+def sweep_2d_partials(spins, jgrids, sys_temps, words, *, gibbs, uniforms=None):
+    """One sweep as :func:`sweep_2d_plain` (in place), returning the
+    ``sweep_2d`` kernel's partials ``(e_part f32, m_part int32)`` ``[d, S,
+    colour_pass_blocks(H, W)]`` in its order of adds: the colour-1 pass's
+    site terms (``s * field`` of each odd site, ``s`` of both sites of its
+    column pair) in the order of the colour's sites, four a thread, 256
+    threads a block (:func:`~.fk.block_partials_plain`)."""
+    d, n_sys, h, w = spins.shape
+    s, field = _sweep_2d_passes(spins, jgrids, sys_temps, words, gibbs, uniforms)
+    e = (s * field)[..., colour_mask((h, w), 1, s.device)]
+    m = spins.to(torch.int32).reshape(d, n_sys, h * w // 2, 2).sum(-1, dtype=torch.int32)
+    return block_partials_plain(e, 4), block_partials_plain(m, 4)
+
+
+# sweep_2d and sweep_nb (csrc/sweep.cu, csrc/sweep_nb.cu): a thread takes a
+# group of four sites of `per` systems of one realization, which share its
+# couplings; at most MAX_PER (the measuring launch's shared rows).  A launch
+# keeps at least half the card's resident threads (tools/probe_sweep.py,
+# NVIDIA H100 80GB HBM3: sweep_2d at the harness shape 0.0208 ms a pass
+# with 2 systems a thread, 0.0185 with 4 (262,144 threads), 0.0180 with 8;
+# sweep_nb at 32^3 x 16 0.0077 with 1, 0.0081 with 2 (65,536 threads)).
+MAX_PER = 8
+
+
+def systems_per(n_groups: int, n_disorder: int, n_systems: int, threads: int) -> int:
+    """The systems a thread of ``sweep_2d`` / ``sweep_nb`` takes in turn:
+    the largest divisor of ``n_systems`` up to :data:`MAX_PER` whose launch
+    of ``n_groups`` groups a system still has ``threads`` threads (half the
+    card's resident threads, :func:`~.fk.resident_threads`); 1 where none
+    has."""
+    groups = int(n_groups) * int(n_disorder)
+    fits = [p for p in range(1, min(int(n_systems), MAX_PER) + 1)
+            if n_systems % p == 0 and groups * (n_systems // p) >= threads]
+    return max(fits, default=1)
+
+
+def _per(spins, n_groups, d, n_sys):
+    return systems_per(n_groups, d, n_sys, resident_threads(spins.device.index) // 2)
+
+
+def launch_sweep_2d(lib, stream, spins, coup, sys_temps, words, colour, gibbs, parts=None,
+                    per=None):
+    """One ``sweep_2d`` launch (one colour) on checked CUDA tensors (not
+    counted); ``parts``: the measuring launch's ``(e_part, m_part)``;
+    ``per``: the systems a thread (default :func:`systems_per`'s)."""
+    d, n_sys, h, w = spins.shape
+    div_m, div_s = fast_divisor(w // 2)
+    per = per or _per(spins, -(-(h * w // 2) // 4), d, n_sys)
+    ptrs = (None, None) if parts is None else tuple(t.data_ptr() for t in parts)
+    _build.check(lib.peapods_sweep_2d(
+        spins.data_ptr(), coup.data_ptr(), sys_temps.data_ptr(), words.data_ptr(), *ptrs,
+        d, n_sys, h, w, colour, int(gibbs), per, int(div_m), div_s, stream), "sweep_2d")
+
+
+def sweep_2d(spins, coup, sys_temps, words, *, gibbs, measure=False, uniforms=None):
     """One sweep of every (realization, system) (see
-    :func:`sweep_2d_plain`): the plain version for CPU tensors, two launches
-    of the ``sweep_2d`` kernel for CUDA tensors, whose partials have one
-    entry per block of the pass.  ``uniforms`` (CPU only) are
-    the sweep's Philox uniforms drawn ahead by the caller."""
+    :func:`sweep_2d_plain`), the couplings given as the forward bonds ``coup``
+    f32 ``[d, H W, 2]``: the plain version (on :func:`pack_coupling_grids`
+    of them) for CPU tensors, two launches of the ``sweep_2d`` kernel for
+    CUDA tensors, whose partials have one entry per block of the pass
+    (:func:`sweep_2d_partials`).  ``uniforms`` (CPU only) are the sweep's
+    Philox uniforms drawn ahead by the caller."""
+    d, n_sys, h, w = spins.shape
     if _build.device_kind(spins) == "cpu":
-        return sweep_2d_plain(spins, jgrids, sys_temps, words, gibbs=gibbs,
-                              measure=measure, uniforms=uniforms)
+        return sweep_2d_plain(spins, pack_coupling_grids(coup, (h, w)), sys_temps, words,
+                              gibbs=gibbs, measure=measure, uniforms=uniforms)
     if uniforms is not None:
         raise ValueError("the sweep_2d kernel draws its own uniforms")
     dev = spins.device
-    d, n_sys, h, w = spins.shape
     _build.expect(spins, "spins", torch.int8, (d, n_sys, h, w), dev)
-    _build.expect(jgrids, "jgrids", torch.float32, (d, 4, h, w), dev)
+    _build.expect(coup, "coup", torch.float32, (d, h * w, 2), dev)
     _build.expect(sys_temps, "sys_temps", torch.float32, (d, n_sys), dev)
     _build.expect(words, "words", torch.int32, (d, 2), dev)
     if d > 65535 or n_sys > 65535:
@@ -242,13 +309,8 @@ def sweep_2d(spins, jgrids, sys_temps, words, *, gibbs, measure=False,
         parts = (torch.empty((d, n_sys, nb), dtype=torch.float32, device=dev),
                  torch.empty((d, n_sys, nb), dtype=torch.int32, device=dev))
     for colour in (0, 1):
-        ptrs = ((None, None) if colour == 0 or parts is None
-                else tuple(t.data_ptr() for t in parts))
-        _build.check(lib.peapods_sweep_2d(
-            spins.data_ptr(), jgrids.data_ptr(), sys_temps.data_ptr(),
-            words.data_ptr(), *ptrs, d, n_sys, h, w, colour, int(gibbs),
-            stream,
-        ), "sweep_2d")
+        launch_sweep_2d(lib, stream, spins, coup, sys_temps, words, colour, gibbs,
+                        parts if colour == 1 else None)
         LAUNCHES["sweep_2d"] += 1
     return parts
 
@@ -313,12 +375,26 @@ def sweep_nb_plain(spins, coup_fwd, coup_bwd, colours, sys_temps, words, lattice
                          sys_temps, u, gibbs=gibbs))
 
 
+def launch_sweep_nb(lib, stream, spins, coup_fwd, colours, sys_temps, words, lattice,
+                    colour, gibbs, per=None):
+    """One ``sweep_nb`` launch (one colour) on checked CUDA tensors (not
+    counted); ``per``: the systems a thread (default :func:`systems_per`'s)."""
+    d, n_sys, n = spins.shape
+    per = per or _per(spins, -(-n // 4), d, n_sys)
+    _build.check(lib.peapods_sweep_nb(
+        spins.data_ptr(), coup_fwd.data_ptr(), colours.data_ptr(), sys_temps.data_ptr(),
+        words.data_ptr(), lattice.sweep_words.ctypes.data, d, n_sys, colour, int(gibbs),
+        per, stream), "sweep_nb")
+
+
 def sweep_nb(spins, coup_fwd, coup_bwd, colours, sys_temps, words, lattice, *,
              gibbs, uniforms=None):
     """One sweep of every (realization, system) on a coloured lattice (see
     :func:`sweep_nb_plain`): the plain version for CPU tensors, one launch
-    of the ``sweep_nb`` kernel per colour for CUDA tensors.  ``uniforms``
-    (CPU only) are the sweep's Philox uniforms drawn ahead by the caller."""
+    of the ``sweep_nb`` kernel per colour for CUDA tensors, which reads the
+    backward couplings from ``coup_fwd`` at the neighbour (``coup_bwd`` is
+    the plain version's).  ``uniforms`` (CPU only) are the sweep's Philox
+    uniforms drawn ahead by the caller."""
     if _build.device_kind(spins) == "cpu":
         sweep_nb_plain(spins, coup_fwd, coup_bwd, colours, sys_temps, words,
                        lattice, gibbs=gibbs, uniforms=uniforms)
@@ -330,7 +406,6 @@ def sweep_nb(spins, coup_fwd, coup_bwd, colours, sys_temps, words, lattice, *,
     nb = lattice.n_neighbors
     _build.expect(spins, "spins", torch.int8, (d, n_sys, lattice.n_spins), dev)
     _build.expect(coup_fwd, "coup_fwd", torch.float32, (d, n, nb), dev)
-    _build.expect(coup_bwd, "coup_bwd", torch.float32, (d, n, nb), dev)
     _build.expect(colours, "colours", torch.uint8, (n,), dev)
     _build.expect(sys_temps, "sys_temps", torch.float32, (d, n_sys), dev)
     _build.expect(words, "words", torch.int32, (d, 2), dev)
@@ -338,10 +413,7 @@ def sweep_nb(spins, coup_fwd, coup_bwd, colours, sys_temps, words, lattice, *,
         raise ValueError("at most 65535 realizations and systems")
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    geom = lattice.kernel_geometry.ctypes.data
     for colour in range(lattice.n_colors):
-        _build.check(lib.peapods_sweep_nb(
-            spins.data_ptr(), coup_fwd.data_ptr(), coup_bwd.data_ptr(),
-            colours.data_ptr(), sys_temps.data_ptr(), words.data_ptr(), geom, d,
-            n_sys, colour, int(gibbs), stream), "sweep_nb")
+        launch_sweep_nb(lib, stream, spins, coup_fwd, colours, sys_temps, words, lattice,
+                        colour, gibbs)
         LAUNCHES["sweep_nb"] += 1

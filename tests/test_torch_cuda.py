@@ -343,7 +343,7 @@ def test_sweep_2d_kernel_matches_plain(cuda, shape, d, n_sys, gibbs):
     a, b = x["spins"].clone(), x["spins"].clone()
     sweep.LAUNCHES["sweep_2d"] = 0
     for step in range(4):
-        pk = sweep.sweep_2d(a, x["jgrids"], x["sys_temps"], x["words"],
+        pk = sweep.sweep_2d(a, x["coup"], x["sys_temps"], x["words"],
                             gibbs=gibbs, measure=step % 2 == 1)
         pp = sweep.sweep_2d_plain(b, x["jgrids"], x["sys_temps"], x["words"],
                                   gibbs=gibbs, measure=step % 2 == 1)
@@ -391,7 +391,7 @@ def test_fk_update_kernel_matches_plain(cuda, shape, d, n_sys, wolff):
 def test_cluster_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = _graph_inputs(cuda, 5, (8, 8), 1, 2)
     with pytest.raises(ValueError):
-        sweep.sweep_2d(x["spins"], x["jgrids"], x["sys_temps"].double(),
+        sweep.sweep_2d(x["spins"], x["coup"], x["sys_temps"].double(),
                        x["words"], gibbs=False)
     with pytest.raises(ValueError):
         fk.fk_update(x["spins"].view(2, 8, 8), x["coup"],
@@ -399,7 +399,7 @@ def test_cluster_wrappers_reject_what_the_kernels_do_not_take(cuda):
                                                           device=cuda),
                      x["kb"], wolff=False, with_measure=True, with_labels=False)
     with pytest.raises(ValueError):  # the kernels draw their own uniforms
-        sweep.sweep_2d(x["spins"], x["jgrids"], x["sys_temps"], x["words"],
+        sweep.sweep_2d(x["spins"], x["coup"], x["sys_temps"], x["words"],
                        gibbs=False, uniforms=torch.zeros(1, device=cuda))
 
 
@@ -1879,7 +1879,6 @@ def test_sweep_halo_and_measure_halo_kernels_match_plain(cuda, name, shape, geom
     cb = torch.stack([cf[:, torch.from_numpy(lat.bwd[:, k]).to(cuda), k]
                       for k in range(lat.n_neighbors)], -1).contiguous()
     colours = torch.from_numpy(lat.colors.astype(np.uint8)).to(cuda)
-    jg = sweep.pack_coupling_grids(cf, shape).contiguous() if lat.square else None
     for k in halo.LAUNCHES:
         halo.LAUNCHES[k] = 0
     for step in range(3):
@@ -1894,7 +1893,7 @@ def test_sweep_halo_and_measure_halo_kernels_match_plain(cuda, name, shape, geom
                                         colour, gibbs=gibbs, measure=last)
                   for w, (b, f, bw, col) in zip(wp, bands)]
         if lat.square:
-            parts = sweep.sweep_2d(whole.view(2, 3, *shape), jg, x["sys_temps"],
+            parts = sweep.sweep_2d(whole.view(2, 3, *shape), cf, x["sys_temps"],
                                    x["words"], gibbs=gibbs, measure=True)
         else:
             sweep.sweep_nb(whole, cf, cb, colours, x["sys_temps"], x["words"], lat,
@@ -1937,9 +1936,8 @@ def test_sweep_halo_gaussian_partials_are_the_unsharded_partials(cuda):
                                   gibbs=False, measure=colour == 1 and lat.square)
                   for w, (b, f, bw, col) in zip(wk, bands)]
         if lat.square:
-            want = sweep.sweep_2d(whole.view(2, 3, *shape),
-                                  sweep.pack_coupling_grids(cf, shape).contiguous(),
-                                  x["sys_temps"], x["words"], gibbs=False, measure=True)
+            want = sweep.sweep_2d(whole.view(2, 3, *shape), cf, x["sys_temps"], x["words"],
+                                  gibbs=False, measure=True)
         else:
             cb = torch.stack([cf[:, torch.from_numpy(lat.bwd[:, k]).to(cuda), k]
                               for k in range(3)], -1).contiguous()
@@ -2208,9 +2206,8 @@ def test_sweep_halo_matches_plain_with_its_partials(cuda, name, shape, geometry,
         x["words"] = x["words"] * 5 + 3
         aligned = all(b.n_band // 2 % 1024 == 0 for b in geom.bands)
         if lat.square and aligned and step == 0:
-            want = sweep.sweep_2d(whole.view(2, n_sys, *shape),
-                                  sweep.pack_coupling_grids(cf, shape).contiguous(),
-                                  x["sys_temps"], words, gibbs=gibbs, measure=True)
+            want = sweep.sweep_2d(whole.view(2, n_sys, *shape), cf, x["sys_temps"], words,
+                                  gibbs=gibbs, measure=True)
             torch.cuda.synchronize()
             assert torch.equal(halo.gather_band_spins(wk, geom.bands), whole)
             for i in (0, 1):
@@ -2325,3 +2322,127 @@ def test_space_sample_on_card_is_bitwise_the_unsharded_run(cuda, shape, geometry
         np.testing.assert_array_equal(ra[key], rb[key])
     if "fk_csd" in rb:
         np.testing.assert_array_equal(ra["fk_csd"], rb["fk_csd"])
+
+
+# ----------------------- sweep_2d and sweep_nb: every width, every per
+
+# (name, shape, realizations, systems each): widths whose groups straddle
+# rows (6, 10, 34: the per-site path), row 4's 32^2 x 16, config 3's 256^2,
+# the harness and the unsharded 4096^2 x 4 (the vector path)
+SWEEP_2D_SHAPES = [
+    ("w6", (4, 6), 2, 3), ("w10", (6, 10), 1, 5), ("w34", (10, 34), 2, 3),
+    ("row4-32", (32, 32), 1, 16), ("config3-256", (256, 256), 1, 8),
+    ("harness-64", (64, 64), 128, 16), ("space-4096", (4096, 4096), 1, 4),
+]
+
+
+def _sweep_2d_inputs(dev, seed, shape, d, n_sys, couplings):
+    rng = np.random.default_rng(seed)
+    h, w = shape
+    coup = (rng.choice([-1.0, 1.0], size=(d, h * w, 2)) if couplings == "pm"
+            else rng.standard_normal((d, h * w, 2))).astype(np.float32)
+    up = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    coup_t = up(coup)
+    return dict(
+        spins=up(rng.choice([-1, 1], size=(d, n_sys, h, w)).astype(np.int8)),
+        coup=coup_t, jgrids=pack_coupling_grids(coup_t, shape).contiguous(),
+        sys_temps=up(rng.uniform(1.5, 3.5, (d, n_sys)).astype(np.float32)),
+        words=up(rng.integers(-2**31, 2**31, (d, 2)).astype(np.int32)))
+
+
+@pytest.mark.parametrize("couplings", ["pm", "gauss"])
+@pytest.mark.parametrize("gibbs", [False, True], ids=["metropolis", "gibbs"])
+@pytest.mark.parametrize("name,shape,d,n_sys", SWEEP_2D_SHAPES,
+                         ids=[s[0] for s in SWEEP_2D_SHAPES])
+def test_sweep_2d_matches_plain_with_its_partials(cuda, name, shape, d, n_sys, gibbs,
+                                                  couplings):
+    """Two sweeps, the second measuring: spins bitwise sweep_2d_plain's,
+    every partial bitwise sweep_2d_partials' (the kernel's order of adds,
+    gaussian couplings too), and with +-1 couplings their sums bitwise
+    sweep_2d_plain's."""
+    x = _sweep_2d_inputs(cuda, 17 + n_sys, shape, d, n_sys, couplings)
+    a, b, c = (x["spins"].clone() for _ in range(3))
+    args = (x["sys_temps"], x["words"])
+    sweep.sweep_2d(a, x["coup"], *args, gibbs=gibbs)
+    sweep.sweep_2d_plain(b, x["jgrids"], *args, gibbs=gibbs)
+    sweep.sweep_2d_plain(c, x["jgrids"], *args, gibbs=gibbs)
+    pk = sweep.sweep_2d(a, x["coup"], *args, gibbs=gibbs, measure=True)
+    pp = sweep.sweep_2d_plain(b, x["jgrids"], *args, gibbs=gibbs, measure=True)
+    pe, pm = sweep.sweep_2d_partials(c, x["jgrids"], *args, gibbs=gibbs)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and torch.equal(a, c)
+    assert not torch.equal(a, x["spins"])
+    assert pk[0].shape == pe.shape == (d, n_sys, mega_blocks(*shape))
+    assert torch.equal(pk[0], pe) and torch.equal(pk[1], pm)
+    assert torch.equal(pk[1].sum(-1), pp[1][..., 0])
+    if couplings == "pm":
+        assert torch.equal(pk[0].sum(-1), pp[0][..., 0])
+
+
+def mega_blocks(h, w):
+    return _build.library().peapods_colour_pass_blocks(h, w)
+
+
+@pytest.mark.parametrize("name,shape,d,n_sys", [
+    ("w6", (4, 6), 2, 4), ("w34", (10, 34), 1, 6), ("64", (64, 64), 2, 8),
+], ids=["w6", "w34", "64"])
+def test_sweep_2d_every_systems_per_is_bitwise(cuda, name, shape, d, n_sys):
+    """Each count of systems a thread (every divisor of n_systems up to 8)
+    gives the same spins and partials, measuring and not, Metropolis and
+    Gibbs, gaussian couplings."""
+    x = _sweep_2d_inputs(cuda, 29, shape, d, n_sys, "gauss")
+    lib = _build.library()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    nb = mega_blocks(*shape)
+    runs = []
+    for per in [p for p in range(1, 9) if n_sys % p == 0]:
+        s = x["spins"].clone()
+        parts = (torch.empty((d, n_sys, nb), dtype=torch.float32, device=cuda),
+                 torch.empty((d, n_sys, nb), dtype=torch.int32, device=cuda))
+        for gibbs in (False, True):
+            for colour in (0, 1):
+                sweep.launch_sweep_2d(lib, stream, s, x["coup"], x["sys_temps"], x["words"],
+                                      colour, gibbs, parts if colour else None, per=per)
+        torch.cuda.synchronize()
+        runs.append((per, s, parts))
+    c = x["spins"].clone()
+    sweep.sweep_2d_plain(c, x["jgrids"], x["sys_temps"], x["words"], gibbs=False)
+    pe, pm = sweep.sweep_2d_partials(c, x["jgrids"], x["sys_temps"], x["words"], gibbs=True)
+    for per, s, (e, m) in runs:
+        assert torch.equal(s, c), per
+        assert torch.equal(e, pe) and torch.equal(m, pm), per
+
+
+# the sweep_nb shapes beyond NB_SHAPES: fast axes of 6, 10 and 34 sites
+NB_WIDTHS = [
+    ("tri-4x6", (4, 6), "tri", 2, 3), ("nnn-6x10", (6, 10), NNN, 1, 5),
+    ("tri-10x34", (10, 34), "tri", 2, 3), ("cubic-4x6x10", (4, 6, 10), None, 1, 4),
+    ("bcc-6x6x34", (6, 6, 34), "bcc", 1, 2), ("fcc-4x10x6", (4, 10, 6), "fcc", 2, 2),
+    ("far-8x6", (8, 6), [[3, 0], [1, 2], [9, -7]], 1, 3),
+]
+
+
+@pytest.mark.parametrize("couplings", ["pm", "gauss"])
+@pytest.mark.parametrize("name,shape,geometry,d,n_sys", NB_SHAPES + NB_WIDTHS,
+                         ids=[s[0] for s in NB_SHAPES + NB_WIDTHS])
+def test_sweep_nb_every_lattice_and_per_is_bitwise_plain(cuda, name, shape, geometry, d,
+                                                         n_sys, couplings):
+    """Two sweeps, Metropolis then Gibbs, with the rule's systems a thread
+    and each other divisor of n_systems up to 8: spins bitwise
+    sweep_nb_plain's on every lattice (offsets past the extents too)."""
+    lat, x = _nb_inputs(cuda, 41 + n_sys, shape, geometry, d, n_sys, couplings)
+    b = x["spins"].clone()
+    args = (x["coup"], x["coup_bwd"], x["colours"], x["sys_temps"], x["words"], lat)
+    for gibbs in (False, True):
+        sweep.sweep_nb_plain(b, *args, gibbs=gibbs)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for per in [None] + [p for p in range(1, 9) if n_sys % p == 0]:
+        a = x["spins"].clone()
+        for gibbs in (False, True):
+            for colour in range(lat.n_colors):
+                sweep.launch_sweep_nb(lib, stream, a, x["coup"], x["colours"], x["sys_temps"],
+                                      x["words"], lat, colour, gibbs, per=per)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), per
+    assert not torch.equal(b, x["spins"])
