@@ -54,15 +54,18 @@ through the user's entry points:
   active-bond density against p x the satisfied-bond fraction, the rate),
   SW observe + PT on the harness shape (2048 graphs a sweep), SW + PT +
   cluster statistics on 16^3 BCC and FCC and SW observe + PT on the 64^2
-  next-nearest-neighbour table through the staged path (bonds,
-  ``cc_link`` / ``cc_label``, flips), NNN observe against the same run
+  next-nearest-neighbour table through the staged path (bonds, the
+  labelling ``cc_link``, flips), NNN observe against the same run
   without the observer (bitwise), a 4x4 NNN magnet with staged SW against
   exact enumeration, and each kernel (the winding flags: ``winding`` on
   the harness's graphs, and on the 256^2 graph the tiled form's
   ``winding_link``, ``_border``, ``_wrap``, ``_check`` one launch at a
-  time; ``cc_link``, ``cc_label``, ``fk_bonds_nb``, ``fk_finish`` reading
-  the CC labels; FK observe's labels, the labelling's parents) held
-  against its plain version on those runs' states;
+  time; ``cc_link`` (whole graphs, over a cluster of CTAs a graph where
+  the batch is small; on the 256^2 graph tiled, with ``cc_link_border``
+  and ``fk_link_flatten``), ``fk_bonds_nb``,
+  ``fk_finish`` reading the CC labels; FK observe's labels, the
+  labelling's parents) held against its plain version on those runs'
+  states;
 * Houdayer(N), the overlap moves' statistics and overlap observe: config 4
   with ``cmr+houd4`` SW and cluster statistics through ``Ising.sample``
   twice from one seed (checksums over spins, records, ``overlap_csd`` and
@@ -81,7 +84,9 @@ through the user's entry points:
   every sweep in 4 bands, in 1 band and unsharded (three equal checksums,
   each run's rate); the flagship shape, a narrow 64^2 square, 128^3 cubic
   with SW + PT, 256^2 triangular with PT and 32^3 FCC with SW + PT + cluster
-  statistics, each in 4 bands bitwise its unsharded per-sweep run; every
+  statistics, each in 4 bands bitwise its unsharded per-sweep run (the
+  32^3 FCC one through the staged path's tiled labelling, held against
+  its plain version on that run's state and timed); every
   band kernel (``sweep_halo``, ``measure_halo``, ``fk_bonds_band``, the
   banded labelling's ``cc_band_link`` / ``_border`` / ``_flatten`` /
   ``_export`` / ``_merge`` / ``_resolve`` / ``_write``, ``fk_finish_band``)
@@ -1786,6 +1791,7 @@ def check_pair_kernels(runs, dev, rng):
     energy_partials.  Then the plain versions' times and the bounds."""
     from peapods_tpu_torch.engine import seeds
     from peapods_tpu_torch.ops import mega, megapair, overlap
+    from peapods_tpu_torch.ops._build import dims3 as _dims3
     from peapods_tpu_torch.ops.energy import bond_sums
     from peapods_tpu_torch.ops.measure import slot_temps_for_systems
     from peapods_tpu_torch.ops.tempering import init_trip_state, pt_draws_pairs
@@ -1803,7 +1809,7 @@ def check_pair_kernels(runs, dev, rng):
         # colour_pass
         words = torch.from_numpy(rng.integers(-2**31, 2**31, (d, 2)).astype(
             np.int32)).to(dev)
-        ties, err, worst = 0, 0.0, 0.0
+        ties, err, worst, parts_checked = 0, 0.0, 0.0, 0
         for colour in (0, 1):
             tie = colour_ties(x, words, colour)
             a, b = x["grid"].clone(), x["grid"].clone()
@@ -1818,6 +1824,17 @@ def check_pair_kernels(runs, dev, rng):
                 raise AssertionError(f"{name} colour_pass: {int((diff & ~tie).sum())} "
                                      "spins differ away from ulp ties")
             ties += int((diff & tie).sum())
+            if pk is not None and not (diff & tie).any():
+                # every partial in the first design's order of adds
+                c = x["grid"].clone()
+                pe, pm = mega.colour_pass_partials(c, rt.jgrids, x["sid"], rt.slot_temps,
+                                                   words, gibbs=False)
+                if not (torch.equal(pk[0], pe) and torch.equal(pk[1], pm)):
+                    raise AssertionError(
+                        f"{name} colour_pass: {int((pk[0] != pe).sum())} e and "
+                        f"{int((pk[1] != pm).sum())} m partials differ from "
+                        "colour_pass_partials")
+                parts_checked += pe.numel()
             if pk is not None:
                 if not torch.equal(pk[1].sum(-1), pp[1].sum(-1)):
                     raise AssertionError(f"{name} colour_pass: m differs")
@@ -1830,9 +1847,13 @@ def check_pair_kernels(runs, dev, rng):
         if ties > MAX_TIE_SHARE * d * s * n:
             raise AssertionError(f"{name}: {ties} ulp ties in {d * s * n} sites")
         rec["colour_pass"] = dict(max_abs_err=err, ties=ties)
-        log("13 kernel-vs-plain", f"{name} colour_pass ok: {d * s * n} sites, 0 "
-            f"differ but {ties} ulp ties; max |e_kernel - e_plain| per spin {err}, "
-            f"{worst:.4f} of the limit {E_SUM_TOL} sum|J| per system (+-J: exact)")
+        plan = mega._colour_plan(dev, (d, s, *_dims3(shape)))
+        log("13 kernel-vs-plain", f"{name} colour_pass ok ({plan.per} slots a CTA, "
+            f"{plan.gp} x {plan.sub} threads): {d * s * n} sites, 0 "
+            f"differ but {ties} ulp ties; {parts_checked} partials bitwise "
+            f"colour_pass_partials (the first design's order of adds); max |e_kernel - "
+            f"e_plain| per spin {err}, {worst:.4f} of the limit {E_SUM_TOL} sum|J| per "
+            "system (+-J: exact)")
         # pair_overlap
         cols = rt.n_pairs * rt.n_temps
         qs = torch.empty((d, cols), dtype=torch.int32, device=dev)
@@ -2125,9 +2146,10 @@ def nb_want(model, kw, n):
     """Launches of ``n`` sweeps from sweep 0 (all recorded) on a coloured
     lattice: a ``sweep_nb`` launch per colour; on cluster sweeps the FK
     kernels (square, triangular, cubic: their update measures) or the
-    staged path's ``fk_bonds_nb``, ``cc_link``, ``cc_label`` and, to update,
-    ``fk_finish`` (BCC, FCC, offset tables); ``measure_nb`` on every sweep
-    the FK kernels did not measure; and one ``pt_step``."""
+    staged path's ``fk_bonds_nb``, the labelling (``cc.link_launches``) and,
+    to update, ``fk_finish`` (BCC, FCC, offset tables); ``measure_nb`` on
+    every sweep the FK kernels did not measure; and one ``pt_step``."""
+    from peapods_tpu_torch.ops import cc
     from peapods_tpu_torch.ops.fk import fused_lattice
 
     lat = model._sim.rt.lattice
@@ -2141,8 +2163,9 @@ def nb_want(model, kw, n):
                               n_fk))
         want["measure_nb"] = n - n_fk if update else n
     else:
-        want.update(fk_bonds_nb=n_fk, cc_link=n_fk, cc_label=n_fk,
-                    fk_finish=n_fk if update else 0, measure_nb=n)
+        want.update(fk_bonds_nb=n_fk, fk_finish=n_fk if update else 0, measure_nb=n,
+                    **{k: n_fk * v for k, v in cc.link_launches(
+                        lat.shape, model._sim.rt.n_disorder * model._sim.rt.n_systems).items()})
     return {key: v for key, v in want.items() if v}
 
 
@@ -2918,27 +2941,33 @@ def staged_bounds(b, n, n_nb, d, n_comp):
     sites, ``n_nb`` offsets, ``d`` realizations' couplings."""
     cb = 4 * n_nb * d * n
     return {
-        # spins, couplings, temps, kb in; state, parents out
-        "fk_bonds_nb": bound(b * n + cb + 12 * b + 5 * b * n, 8 * n_nb * b * n),
-        # state and parents in; a parent written per union
-        "cc_link": bound(5 * b * n + 4 * (b * n - n_comp), 0),
-        # parents in, labels out
-        "cc_label": bound(8 * b * n, 0),
+        # spins, couplings, temps, kb in; state bytes out
+        "fk_bonds_nb": bound(b * n + cb + 12 * b + b * n, 8 * n_nb * b * n),
+        # the labelling: state bytes in, labels out
+        "cc_link": cc_bound(b, n),
         # spins, labels, scalars in; spins out
         "fk_finish": bound(2 * b * n + 4 * b * n + 12 * b, 0),
     }
 
 
+def cc_bound(b, n):
+    """The labelling's bound on ``b`` graphs of ``n`` sites, in either form:
+    the state bytes in and the int32 labels out, 5 bytes a site."""
+    return bound(5 * b * n, 0)
+
+
 def check_observe_kernels(obs, hobs, staged, dev, rng):
     """Phase 23: every new kernel against its plain version on the main
     paths' states: ``fk_finish`` in observe form (spins untouched, labels
-    and masks equal), ``winding`` (flags equal) and ``cc_link`` /
-    ``cc_label`` (labels bitwise) on the 256^2 graph at T_c (row 15's shape)
-    and the harness's 2048 graphs; ``fk_bonds_nb``, ``cc_link``,
-    ``cc_label`` and ``fk_finish`` reading the labels on the staged runs'
-    states, SW and Wolff (masks, labels, spins bitwise), with the CC kernels
-    alone on those masks.  Then the plain versions' times and the bounds at
-    each shape."""
+    and masks equal), ``winding`` (flags equal) and the labelling (labels
+    bitwise ``connected_components``: on the 256^2 graph at T_c, row 15's
+    shape, tiled, ``cc_link``, ``cc_link_border``, ``fk_link_flatten``; on
+    the harness's 2048 graphs of 64^2 one ``cc_link`` launch);
+    ``fk_bonds_nb``, ``cc_link`` and ``fk_finish`` reading the labels on
+    the staged runs' states, SW and Wolff (masks, labels, spins bitwise),
+    with the labelling alone on those masks.  Then the plain versions'
+    times and the bounds at each shape (the labelling's: the function's,
+    state bytes in, labels out)."""
     from peapods_tpu_torch.ops import cc, cluster, fk, winding
     from peapods_tpu_torch.ops.lattice import Lattice
 
@@ -2966,21 +2995,14 @@ def check_observe_kernels(obs, hobs, staged, dev, rng):
             raise AssertionError(f"observe kernels on {name} differ from plain: {bad}")
         n_comp = int((lp == torch.arange(n, device=dev)).sum())
         log("23 kernel-vs-plain", f"FK observe's labels (the labelling's parents), "
-            f"winding, cc_link / cc_label on {name} ({b} graph(s) of "
+            f"winding, the CC labelling {cc.link_launches(shape, b)} on {name} ({b} graph(s) of "
             f"{'x'.join(map(str, shape))}): mismatches {bad}; {n_comp} clusters, "
             f"{int(mk.sum())} active bonds, {int(wk[0].sum())} / {int(wk[1].sum())} graphs "
             f"wind along x / y; winding launches {winding.winding_launches(shape, b)}")
-        plain = {
-            "cc_link": wall_ms(lambda: cc.cc_labels_plain(mp, lat), 3),
-        }
-        plain["cc_label"] = plain["cc_link"]
-        t = {
-            "cc_link": bound(5 * b * n + 4 * (b * n - n_comp), 0),
-            "cc_label": bound(8 * b * n, 0),
-        }
-        for k, v in t.items():
-            times.setdefault(k, {})[name] = dict(bound_ms=v[0], bound_by=v[1],
-                                                 plain_ms=plain[k])
+        times.setdefault("cc_link", {})[name] = dict(
+            zip(("bound_ms", "bound_by"), cc_bound(b, n)),
+            plain_ms=wall_ms(lambda: cc.cc_labels_plain(mp, lat), 3),
+            bound_is="the labelling's: state bytes in, labels out")
         if winding.winding_plan(shape, b).tiled:
             wbad, recs, counts = winding_stages(mk, lk.view(b, n), shape, dev)
             log("23 kernel-vs-plain", f"winding's tiled launches one at a time on {name} "
@@ -2998,11 +3020,12 @@ def check_observe_kernels(obs, hobs, staged, dev, rng):
         times.setdefault("winding", {})[name] = dict(
             zip(("bound_ms", "bound_by"), bound(6 * b * n + b, 0)),
             plain_ms=wall_ms(lambda: cluster.winding_flags(mp, lp, shape), 2))
-        # the CC kernels on these graphs (row 15: one 256^2 graph), off the
-        # main path: the profiler's device time a launch
-        for k, v in kernel_ms(lambda: cc.cc_labels(mk, lat), 20,
-                              ("cc_link", "cc_label")).items():
-            times[k][name]["ms_off_path"] = v
+        # the labelling on these graphs (row 15: one 256^2 graph, tiled),
+        # off the main path: the profiler's device time a launch, and a call
+        got = kernel_ms(lambda: cc.cc_labels(mk, lat), 20, tuple(cc.link_launches(shape, b)))
+        times["cc_link"][name].update(ms_off_path=got["cc_link"],
+                                      call_ms_off_path=sum(got.values()),
+                                      per_launch_ms_off_path=got)
 
     for name, run in staged.items():
         model = run["model"]
@@ -3022,7 +3045,7 @@ def check_observe_kernels(obs, hobs, staged, dev, rng):
             if any(bad.values()):
                 raise AssertionError(f"staged kernels on {name} differ from plain: {bad}")
             n_comp = int((lp == torch.arange(n, device=dev)).sum())
-            log("23 kernel-vs-plain", f"fk_bonds_nb, cc_link / cc_label, fk_finish "
+            log("23 kernel-vs-plain", f"fk_bonds_nb, cc_link, fk_finish "
                 f"{'wolff' if wolff else 'sw'} on {name} ({b} graphs of "
                 f"{'x'.join(map(str, lat.shape))}, {n_nb} offsets): mismatches {bad}; "
                 f"{n_comp} clusters, {int(mk.sum())} active bonds")
@@ -3038,7 +3061,6 @@ def check_observe_kernels(obs, hobs, staged, dev, rng):
                 sp.clone(), lab, x["j_fwd"], x["scalars"], wolff=False,
                 with_measure=False), 3),
         }
-        plain["cc_label"] = plain["cc_link"]
         n_comp = int((lab == torch.arange(n, device=dev)).sum())
         for k, v in staged_bounds(b, n, n_nb, x["j_fwd"].shape[0], n_comp).items():
             times.setdefault(k, {})[name] = dict(bound_ms=v[0], bound_by=v[1],
@@ -3061,9 +3083,10 @@ def observe_times(obs, hobs, staged, card):
 
 
 def add_observe_records(kernels, obs, hobs, staged, times, us, card):
-    """Add this section's numbers to the kernel records: ``cc_link``,
-    ``cc_label`` (the BCC SW run's numbers; FCC, NNN, the 256^2 graph and
-    the harness beside them), the tiled winding's launches (the 256^2
+    """Add this section's numbers to the kernel records: ``cc_link`` (the
+    BCC SW run's numbers; FCC, NNN, the 256^2 graph and the harness beside
+    them; ``cc_link_border``'s record comes with the space path's tiled
+    run, :func:`add_space_records`), the tiled winding's launches (the 256^2
     observe run's), ``winding`` (the harness observe's), ``fk_bonds_nb``
     (BCC; FCC, NNN); the observe and
     staged runs' numbers beside the FK kernels', ``sweep_2d``'s (row 2) and
@@ -3082,7 +3105,6 @@ def add_observe_records(kernels, obs, hobs, staged, times, us, card):
 
     lines = []  # (main run, record)
     for k, src, main, rep in (("cc_link", CC_SRC, "bcc16_sw", CC_REPLACES),
-                              ("cc_label", CC_SRC, "bcc16_sw", CC_REPLACES),
                               *((k, WINDING_SRC, "observe256", WINDING_REPLACES)
                                 for k in winding.TILED),
                               ("winding", WINDING_SRC, "harness_observe", WINDING_REPLACES),
@@ -3093,7 +3115,7 @@ def add_observe_records(kernels, obs, hobs, staged, times, us, card):
         for name in runs:
             if name != main and name in times.get(k, {}):
                 kr[f"at_{name}"] = at(k, name)
-        if k.startswith("cc_"):
+        if k == "cc_link":
             kr["at_observe256"]["replaces"] = CC2D_REPLACES
         if k == "fk_bonds_nb":
             kr["on_the_reference_path"] = ("peapods_tpu/ops/cluster.py:555 "
@@ -3799,6 +3821,74 @@ def log_unsharded_link(run, card):
         f"{prof['line']} (on {card})")
 
 
+def leaving_bonds(masks, lat, tile):
+    """The active bonds of bool masks ``[B, n, n_nb]`` whose neighbour lies
+    outside the site's box of ``tile`` sites (``csrc/cc.cu`` ``cc_step``):
+    what ``cc_link_border`` unites."""
+    dims = lat.shape + (1,) * (3 - len(lat.shape))
+    c = torch.stack(torch.meshgrid(*(torch.arange(a, device=masks.device) for a in dims),
+                                   indexing="ij"), -1).reshape(-1, 3)
+    off = torch.zeros((lat.n_neighbors, 3), dtype=torch.int64, device=masks.device)
+    off[:, :lat.n_dims] = torch.from_numpy(lat.offsets).to(masks.device)
+    leave = torch.zeros((c.shape[0], lat.n_neighbors), dtype=torch.bool, device=masks.device)
+    for k, (a, t) in enumerate(zip(dims, tile)):
+        if t == a:
+            continue
+        x = c[:, k] % t
+        e = torch.clamp(a - (c[:, k] - x), max=t)
+        y = x[:, None] + off[None, :, k]
+        leave |= (y < 0) | (y >= e[:, None])
+    return int((masks & leave[None]).sum())
+
+
+def check_cc_tiled(run, dev, rng, card):
+    """Phase 29: the staged path's tiled labelling on the unsharded 32^3 FCC
+    run: its launches in the run (cc.link_launches an FK phase), the labels
+    bitwise ``connected_components`` on the run's FK graphs (SW bonds of its
+    state), each launch's device time (profiler) against its own bytes, and
+    the call's against the function's bound."""
+    from peapods_tpu_torch.ops import cc, fk
+
+    sim = run["sim"]
+    lat = sim.rt.lattice
+    b, n = sim.rt.n_disorder * sim.rt.n_systems, lat.n_spins
+    n_fk = run["n"]  # SW every sweep
+    names = tuple(cc.link_launches(lat.shape, b))
+    want = {k: n_fk * v for k, v in cc.link_launches(lat.shape, b).items()}
+    got = {k: run["launches"].get(k, 0) for k in want}
+    if got != want or len(names) != 3:
+        raise AssertionError(f"32^3 FCC unsharded: labelling launches {got}, expected {want}")
+    x = fk_inputs(sim, dev, rng, False)
+    masks = fk.fk_bonds_plain(x["spins"], x["j_fwd"], x["temps"], x["kb_words"],
+                              offsets=lat.offsets)
+    lk = cc.cc_labels(masks, lat)
+    lp = cc.cc_labels_plain(masks, lat)
+    torch.cuda.synchronize()
+    bad = int((lk != lp).sum())
+    if bad:
+        raise AssertionError(f"32^3 FCC unsharded: {bad} labels differ from plain")
+    ms = kernel_ms(lambda: cc.cc_labels(masks, lat), 20, names)
+    plan = cc.link_plan(lat.shape + (1,) * (3 - lat.n_dims), b)
+    crossing = leaving_bonds(masks, lat, plan.tile)
+    bounds = {"cc_link": bound(5 * b * n, 0), "cc_link_border": bound(b * n + 8 * crossing, 0),
+              "fk_link_flatten": bound(8 * b * n, 0)}
+    plain_ms = wall_ms(lambda: cc.cc_labels_plain(masks, lat), 3)
+    n_comp = int((lp == torch.arange(n, device=dev)).sum())
+    out = dict(launches=got, per_launch_ms=ms, call_ms=sum(ms.values()),
+               call_bound_ms=cc_bound(b, n)[0], plain_ms=plain_ms, tile=plan.tile,
+               crossing=crossing, bounds={k: dict(zip(("bound_ms", "bound_by"), v))
+                                          for k, v in bounds.items()})
+    log("29 space", f"32^3 FCC unsharded: the staged labelling (tiles {plan.tile}, "
+        f"{plan.threads} threads) {got} in the run; bitwise connected_components on its "
+        f"{b} FK graphs ({n_comp} clusters, {int(masks.sum())} active bonds, {crossing} leave "
+        f"their box); " + ", ".join(f"{k} {v:.5f} ms (bound {bounds[k][0]:.6f})"
+                                   for k, v in ms.items())
+        + f"; a call {out['call_ms']:.5f} ms against the function's bound "
+        f"{out['call_bound_ms']:.6f} ms (state bytes in, labels out; plain {plain_ms:.4f} ms) "
+        f"on {card}")
+    return out
+
+
 def reset_space_counts():
     from peapods_tpu_torch.ops import cc_band, halo
 
@@ -4293,6 +4383,8 @@ def space_paths(dev, card, mega_sweeps_s):
         log("29 space", f"{name}: 4 bands bitwise the unsharded per-sweep run "
             f"({runs[name]['checksum']}); {runs[name]['sweeps_s']:.1f} against "
             f"{plain[name]['sweeps_s']:.1f} sweeps/s{extra} on {card}")
+        if name == "fcc32":
+            plain[name]["cc"] = check_cc_tiled(plain[name], dev, rng, card)
         plain[name].pop("sim")
     for name, run in runs.items():
         checks[name] = check_space_kernels(name, run["sim"], dev, rng)
@@ -4350,6 +4442,27 @@ def add_space_records(kernels, sp):
                                           for k in unsharded["labelling"]["per_launch"]})
     for k, rec in (("fk_finish", "finish"), ("fk_bonds", "bonds"), ("sweep_2d", "sweep_2d")):
         next(kr for kr in kernels if kr["name"] == k)["at_space4096_unsharded"] = unsharded[rec]
+    # the staged path's tiled labelling (the unsharded 32^3 FCC run): the
+    # border's record, and the call and its flatten beside the others
+    tc = sp["plain"]["fcc32"]["cc"]
+    kernels.append(dict(
+        name="cc_link_border", route="cuda", source=CC_SRC, replaces=CC_REPLACES,
+        launches=tc["launches"]["cc_link_border"], max_abs_err=0.0,
+        ms=tc["per_launch_ms"]["cc_link_border"], plain_ms=tc["plain_ms"],
+        **tc["bounds"]["cc_link_border"], library_ms=None, run="fcc32 unsharded",
+        plain_is="the whole labelling (cc_labels_plain)",
+        bound_is="the state bytes and two box roots a bond that leaves its box",
+        call=dict(ms=tc["call_ms"], bound_ms=tc["call_bound_ms"], tile=tc["tile"],
+                  per_launch_ms=tc["per_launch_ms"], launches=tc["launches"])))
+    cc_rec = next(kr for kr in kernels if kr["name"] == "cc_link")
+    cc_rec["at_fcc32_unsharded"] = dict(
+        launches=tc["launches"]["cc_link"], ms=tc["per_launch_ms"]["cc_link"],
+        max_abs_err=0.0, plain_ms=tc["plain_ms"], **tc["bounds"]["cc_link"],
+        form="tiled (the link of the boxes)")
+    next(kr for kr in kernels if kr["name"] == "fk_link_flatten")["at_fcc32_unsharded_cc"] = dict(
+        launches=tc["launches"]["fk_link_flatten"], ms=tc["per_launch_ms"]["fk_link_flatten"],
+        max_abs_err=0.0, **tc["bounds"]["fk_link_flatten"],
+        form="the staged labelling's last launch")
     # pt_step at 4096^2 in 4 bands, on the flagship's pt_step record
     pt = next(kr for kr in kernels if kr["name"] == "pt_step")
     pt["at_space4096"] = dict(sp["checks"]["4096"]["pt_step"],

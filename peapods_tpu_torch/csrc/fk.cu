@@ -54,9 +54,11 @@
 // or Wolff flips, peapods_tpu/engine/loop.py:1883-1976) serves the lattices
 // given by an offset table (BCC, FCC, custom offsets): fk_bonds_nb draws
 // the bonds along each forward offset (nb.cuh) with fk_bonds' Philox
-// counter, cc.cu's cc_link / cc_label label the graphs, and fk_finish
-// reads each site's root from those labels and flips; the measurement is then sweep_nb.cu's measure_nb, so the state
-// byte needs no "s differs" bits and holds up to six bonds.
+// counter, cc.cu's labelling (cc_link; tiled, cc_link_border and
+// fk_link_flatten) labels the graphs from the state bytes alone, and
+// fk_finish reads each site's root from those labels and flips; the
+// measurement is then sweep_nb.cu's measure_nb, so the state byte needs no
+// "s differs" bits and holds up to six bonds.
 //
 // The band forms serve a lattice split into row bands over a "space" mesh
 // (band.cuh: each band's rows and a halo of its neighbours' edge rows, the
@@ -391,12 +393,12 @@ fk_bonds_band_kernel(const int8_t* __restrict__ spins, const float* __restrict__
 // fk_bonds on a lattice given by its offset table (the staged path): the
 // bond draws of fk_bonds along each forward offset, bit d of the state byte
 // set when bond d is active (no "s differs" bits: the staged path measures
-// after the flips), parent[i] = i for cc.cu's cc_link.
+// after the flips), and nothing else: cc.cu's labelling reads only the
+// state bytes.
 __global__ void __launch_bounds__(kThreads)
 fk_bonds_nb_kernel(const int8_t* __restrict__ spins, const float* __restrict__ j_fwd,
                    const float* __restrict__ temps, const int32_t* __restrict__ kb,
-                   uint8_t* __restrict__ state, int32_t* __restrict__ parent,
-                   const NbGeom geo, int n_systems) {
+                   uint8_t* __restrict__ state, const NbGeom geo, int n_systems) {
   const int b = blockIdx.y;
   const int n = geo.L[0] * geo.L[1] * geo.L[2];
   const int nd = geo.n_nb;
@@ -432,7 +434,6 @@ fk_bonds_nb_kernel(const int8_t* __restrict__ spins, const float* __restrict__ j
       if (inter > 0.0f && uniform24(w[dir][k]) < p) st |= 1u << dir;
     }
     state[base + i] = st;
-    parent[base + i] = i;
   }
 }
 
@@ -693,7 +694,8 @@ fk_link_border_kernel(const uint8_t* __restrict__ state, int32_t* parent,
   }
 }
 
-// The tiled form's last pass: every parent becomes its root.  A thread
+// The tiled form's last pass (fk_link's, and cc.cu's labelling of offset
+// tables): every parent becomes its root.  A thread
 // writes its own site only, and only the root, so a parent read here is
 // always an ancestor (find_root's halving could store a grandparent over a
 // root that another thread has just written).
@@ -1112,17 +1114,17 @@ int peapods_fk_link_flatten(void* parent, int n_graphs, int n, void* stream) {
 }
 
 // Graphs of an offset table (geom: ops/lattice.Lattice.kernel_geometry);
-// state: uint8 [n_graphs, n]; parent: int32 [n_graphs, n].
+// state: uint8 [n_graphs, n].
 int peapods_fk_bonds_nb(const void* spins, const void* j_fwd, const void* temps,
-                        const void* kb, void* state, void* parent, const int* geom,
-                        int n_graphs, int n_systems, void* stream) {
+                        const void* kb, void* state, const int* geom, int n_graphs,
+                        int n_systems, void* stream) {
   const NbGeom geo = make_geom(geom);
   fk_bonds_nb_kernel<<<site_grid(geo.L[0] * geo.L[1] * geo.L[2], kSitesPerThread,
                                  n_graphs),
                        kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(spins), static_cast<const float*>(j_fwd),
       static_cast<const float*>(temps), static_cast<const int32_t*>(kb),
-      static_cast<uint8_t*>(state), static_cast<int32_t*>(parent), geo, n_systems);
+      static_cast<uint8_t*>(state), geo, n_systems);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -29,7 +29,7 @@
 //                   row0 W/2 + i, which takes word (its index) % 4 of
 //                   Philox keyed by the sweep's words, counter (system,
 //                   colour, index / 4, 0); the field adds up, down, left,
-//                   right in mega.cuh update_sites' order, and the parity
+//                   right in mega.cu colour_pass's order, and the parity
 //                   is (global row + column) & 1.
 //                 * otherwise (triangular, cubic, BCC, FCC, offset tables):
 //                   sweep_nb.cu's sweep_nb.  Site i of the band is global

@@ -1,7 +1,7 @@
 // Device helpers of the port's kernels: Philox4x32-10, the 24-bit uniform,
-// and the checkerboard site update with its block partial sums.  Each is
-// bitwise its plain torch version (ops/rng.py, ops/sweep.py); the tests and
-// chip_smoke.py hold them against each other.
+// the checkerboard flip probabilities, a multiply-shift division and the
+// block partial sums.  Each is bitwise its plain torch version (ops/rng.py,
+// ops/sweep.py); the tests and chip_smoke.py hold them against each other.
 #pragma once
 
 #include <cstddef>
@@ -39,110 +39,23 @@ __device__ __forceinline__ float uniform24(uint32_t w) {
   return static_cast<float>(w >> 8) * kInv24;
 }
 
-// The checkerboard update of one thread's active-colour sites 4g .. 4g+3 of
-// one [H, W] system s with coupling grids jg ([4, H, W]: ju, jd, jl, jr);
-// site i of the colour sits at row i / (W/2), column 2 (i % (W/2)) +
-// ((row + colour) & 1), and takes word i % 4 of r4.  When measuring, adds
-// s*field of the (odd) sites and s of both sites of each column pair to
-// e_acc / m_acc.  Shared by mega.cu's colour_pass and sweep.cu's sweep_2d.
-__device__ __forceinline__ void update_sites(int8_t* s, const float* jg, int H,
-                                             int W, int colour, float inv_half_t,
-                                             int gibbs, uint4 r4, int g,
-                                             bool measure, float& e_acc,
-                                             int& m_acc) {
-  const int wh = W >> 1;
-  const int n_half = H * wh;
-  const size_t hw = static_cast<size_t>(H) * W;
-  const float* ju = jg;
-  const float* jd = ju + hw;
-  const float* jl = jd + hw;
-  const float* jr = jl + hw;
-  const uint32_t w4[4] = {r4.x, r4.y, r4.z, r4.w};
-#pragma unroll
-  for (int k = 0; k < kSitesPerThread; ++k) {
-    const int i = kSitesPerThread * g + k;
-    if (i >= n_half) break;
-    const int r = i / wh;
-    const int col = 2 * (i - r * wh) + ((r + colour) & 1);
-    const int up = r == 0 ? H - 1 : r - 1;
-    const int dn = r == H - 1 ? 0 : r + 1;
-    const int lf = col == 0 ? W - 1 : col - 1;
-    const int rg = col == W - 1 ? 0 : col + 1;
-    const size_t idx = static_cast<size_t>(r) * W + col;
-    float field = static_cast<float>(s[static_cast<size_t>(up) * W + col]) * ju[idx] +
-                  static_cast<float>(s[static_cast<size_t>(dn) * W + col]) * jd[idx];
-    field = field + static_cast<float>(s[static_cast<size_t>(r) * W + lf]) * jl[idx];
-    field = field + static_cast<float>(s[static_cast<size_t>(r) * W + rg]) * jr[idx];
-    float sv = static_cast<float>(s[idx]);
-    const float x = (-sv * field) * inv_half_t;
-    const float p = gibbs ? 1.0f / (1.0f + expf(-x))
-                          : kKeep * expf(fminf(x, 0.0f));
-    if (uniform24(w4[k]) < p) {
-      sv = -sv;
-      s[idx] = static_cast<int8_t>(sv);
-    }
-    if (measure) {
-      e_acc += sv * field;
-      m_acc += static_cast<int>(sv) + static_cast<int>(s[idx ^ 1]);
-    }
-  }
+// Metropolis and Gibbs flip probabilities of the checkerboard passes
+// (colour_pass, sweep_2d, mega_resident), x = (-s field) / (T/2):
+// Metropolis (15/16) exp(min(x, 0)), Gibbs 1 / (1 + exp(-x)), in the
+// operation order of the plain torch version (ops/sweep.py acceptance).
+__device__ __forceinline__ float flip_probability(float x, int gibbs) {
+  return gibbs ? 1.0f / (1.0f + expf(-x)) : kKeep * expf(fminf(x, 0.0f));
 }
 
-// The 3D cubic counterpart of update_sites: system s is [L0, L1, L2] (all
-// even) with coupling grids jg ([6, n]: the bond arriving from x-1, the own
-// x bond, then the same for y and z).  Site i of the colour sits at x = i /
-// (L1 L2/2), y = (i / (L2/2)) % L1, z = 2 (i % (L2/2)) + ((x + y + colour) &
-// 1), and takes word i % 4 of r4.  The field adds the six terms in the order
-// x-, x+, y-, y+, z-, z+ (pallas_megapair._mp_body).  z pairs (2k, 2k+1) are
-// index pairs (idx, idx ^ 1), so m adds both sites of each as in 2D.
-__device__ __forceinline__ void update_sites_3d(int8_t* s, const float* jg, int L0,
-                                                int L1, int L2, int colour,
-                                                float inv_half_t, int gibbs, uint4 r4,
-                                                int g, bool measure, float& e_acc,
-                                                int& m_acc) {
-  const int zh = L2 >> 1;
-  const int plane = L1 * zh;
-  const int n_half = L0 * plane;
-  const size_t n = static_cast<size_t>(L0) * L1 * L2;
-  const size_t sx = static_cast<size_t>(L1) * L2;
-  const uint32_t w4[4] = {r4.x, r4.y, r4.z, r4.w};
-#pragma unroll
-  for (int k = 0; k < kSitesPerThread; ++k) {
-    const int i = kSitesPerThread * g + k;
-    if (i >= n_half) break;
-    const int x = i / plane;
-    const int rem = i - x * plane;
-    const int y = rem / zh;
-    const int z = 2 * (rem - y * zh) + ((x + y + colour) & 1);
-    const size_t row = static_cast<size_t>(x) * sx + static_cast<size_t>(y) * L2;
-    const size_t idx = row + z;
-    const size_t xm = (x == 0 ? L0 - 1 : x - 1) * sx + static_cast<size_t>(y) * L2 + z;
-    const size_t xp = (x == L0 - 1 ? 0 : x + 1) * sx + static_cast<size_t>(y) * L2 + z;
-    const size_t ym = static_cast<size_t>(x) * sx +
-                      static_cast<size_t>(y == 0 ? L1 - 1 : y - 1) * L2 + z;
-    const size_t yp = static_cast<size_t>(x) * sx +
-                      static_cast<size_t>(y == L1 - 1 ? 0 : y + 1) * L2 + z;
-    const size_t zm = row + (z == 0 ? L2 - 1 : z - 1);
-    const size_t zp = row + (z == L2 - 1 ? 0 : z + 1);
-    float field = static_cast<float>(s[xm]) * jg[idx] +
-                  static_cast<float>(s[xp]) * jg[n + idx];
-    field = field + static_cast<float>(s[ym]) * jg[2 * n + idx];
-    field = field + static_cast<float>(s[yp]) * jg[3 * n + idx];
-    field = field + static_cast<float>(s[zm]) * jg[4 * n + idx];
-    field = field + static_cast<float>(s[zp]) * jg[5 * n + idx];
-    float sv = static_cast<float>(s[idx]);
-    const float xv = (-sv * field) * inv_half_t;
-    const float p = gibbs ? 1.0f / (1.0f + expf(-xv))
-                          : kKeep * expf(fminf(xv, 0.0f));
-    if (uniform24(w4[k]) < p) {
-      sv = -sv;
-      s[idx] = static_cast<int8_t>(sv);
-    }
-    if (measure) {
-      e_acc += sv * field;
-      m_acc += static_cast<int>(sv) + static_cast<int>(s[idx ^ 1]);
-    }
-  }
+// q / divisor for 0 <= q < 2^31 (m, s: ops/lattice.py fast_divisor; m = 0
+// for a divisor of 1): a multiply and a shift, no division.
+__device__ __forceinline__ int fast_div(int q, uint32_t m, int s) {
+  return m ? static_cast<int>(__umulhi(static_cast<uint32_t>(q), m) >> s) : q;
+}
+
+// Byte k of w as a spin.
+__device__ __forceinline__ float spin_at(uint64_t w, int k) {
+  return static_cast<float>(static_cast<int8_t>(w >> (8 * k)));
 }
 
 // Tree sum of the block's kThreads (e, m) values into e_part[o] / m_part[o]
@@ -177,6 +90,19 @@ __device__ __forceinline__ T warp_tree(const T* x, int lane) {
   static_assert(kThreads == 256, "three shared levels, then a warp");
   T v = ((x[lane] + x[lane + 128]) + (x[lane + 64] + x[lane + 192])) +
         ((x[lane + 32] + x[lane + 160]) + (x[lane + 96] + x[lane + 224]));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
+  return v;
+}
+
+// warp_tree of x[0 .. n) followed by kThreads - n zeros, which are not
+// read: the same adds (0 is added exactly), for a block whose threads past
+// n hold no sites.
+template <typename T>
+__device__ __forceinline__ T warp_tree_prefix(const T* x, int lane, int n) {
+  const auto at = [&](int i) { return i < n ? x[i] : T(0); };
+  T v = ((at(lane) + at(lane + 128)) + (at(lane + 64) + at(lane + 192))) +
+        ((at(lane + 32) + at(lane + 160)) + (at(lane + 96) + at(lane + 224)));
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
   return v;

@@ -11,7 +11,7 @@
 //
 // * Uniforms: Philox4x32-10 keyed by the sweep's words, counter (slot,
 //   colour, g, 0), word k for colour site 4 g + k (colour_pass's).
-// * Arithmetic: mega.cuh update_sites' field (up, down, left, right in that
+// * Arithmetic: mega.cu colour_pass's field (up, down, left, right in that
 //   order; s J as J with its sign flipped, which is exact), expf and
 //   sigmoid forms; -fmad=false.
 // * Partials: one per logical block of kThreads x 4 colour sites, the sum of
@@ -187,7 +187,7 @@ __device__ __forceinline__ float times(float f, uint32_t sign) {
 // words wo (own row), wu, wd (the rows above and below); edge: the sign of
 // the neighbour outside the word (left of site 0 for P = 0, right of site 3
 // for P = 1); cu, cd, cr, cl: the up, down, right and left couplings.  The
-// arithmetic of mega.cuh update_sites (s x J as a sign flip, exact).
+// arithmetic of mega.cu colour_pass (s x J as a sign flip, exact).
 // Returns the updated own word and adds s h of the sites to e_acc.
 template <bool kMeasure, int P>
 __device__ __forceinline__ uint64_t sites4(uint64_t wo, uint64_t wu, uint64_t wd,

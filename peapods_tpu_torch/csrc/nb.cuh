@@ -1,6 +1,7 @@
 // The geometry of a lattice given by its forward offsets (up to six), shared
 // by the coloured sweep (sweep_nb.cu), the FK bonds of the staged path
-// (fk.cu) and the connected components (cc.cu): extents, row-major
+// (fk.cu) and the band kernels (band.cuh); cc.cu takes its offset count:
+// extents, row-major
 // strides and the offsets, each axis wrapped on its own (rem_euclid); a 2D
 // lattice is [L0, L1, 1].
 #pragma once

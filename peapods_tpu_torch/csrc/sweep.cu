@@ -23,7 +23,7 @@
 //   system its own stream the same way.  ops/rng.colour_uniforms draws the
 //   same bits on the host side.
 // * The field adds s_up ju + s_dn jd, then s_l jl, then s_r jr, and the
-//   rules are mega.cuh update_sites' (Metropolis u < (15/16) exp(min(x,
+//   rules are mega.cuh flip_probability's (Metropolis u < (15/16) exp(min(x,
 //   0)), Gibbs u < 1 / (1 + exp(-x)), x = (-s field) / (T/2)): the spins are
 //   bitwise colour_pass's and the plain version's.  A colour-1 launch given
 //   e_part / m_part also writes per-block partial sums of the post-sweep
@@ -52,7 +52,7 @@
 // What bounds it on the H100: per pass every spin read (the neighbours),
 // the realization's couplings once (8 B a site) and the active spins
 // written: 235 MB at 4096^2 x 4 systems, 0.070 ms at 3.35 TB/s.  The first
-// design (a CTA a block of one system, update_sites' division a site, the
+// design (a CTA a block of one system, a division a site, the
 // four pre-shifted planes read again by every system, byte loads) took
 // 0.443 ms a pass there; this one 0.131 (NVIDIA H100 80GB HBM3, 700 W;
 // tools/probe_sweep.py times both designs).  Its first form held the
@@ -74,23 +74,6 @@ namespace {
 
 constexpr int kMaxPer = 8;  // systems a thread: the measuring launch's shared rows
 constexpr int kSweepBlocks = 4;  // CTAs an SM the kernel is built for (64 registers)
-
-// Byte k of w as a spin.
-__device__ __forceinline__ float spin_at(uint64_t w, int k) {
-  return static_cast<float>(static_cast<int8_t>(w >> (8 * k)));
-}
-
-// Metropolis and Gibbs flip probabilities of update_sites, x = (-s field)
-// / (T/2).
-__device__ __forceinline__ float flip_probability(float x, int gibbs) {
-  return gibbs ? 1.0f / (1.0f + expf(-x)) : kKeep * expf(fminf(x, 0.0f));
-}
-
-// q / divisor for 0 <= q < 2^31 (m, s: ops/lattice.py fast_divisor; m = 0
-// for a divisor of 1).
-__device__ __forceinline__ int fast_div(int q, uint32_t m, int s) {
-  return m ? static_cast<int>(__umulhi(static_cast<uint32_t>(q), m) >> s) : q;
-}
 
 // One colour pass of group g (blockIdx.x * kThreads + lane: active sites
 // 4g .. 4g+3) of systems blockIdx.y per .. + per - 1 of realization

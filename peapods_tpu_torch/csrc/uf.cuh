@@ -2,9 +2,9 @@
 // cc_band.cu): the periodic neighbours of a 2D or 3D lattice (and of the
 // triangular lattice's third bond direction), the salted per-cluster coin,
 // the union-find in global memory whose roots are each component's minimum
-// site index (find_root, unite; linked along any offset table, nb.cuh, or
-// between tile roots, fk.cu's border), and the union-find of a tile in
-// shared memory (tile_root, tile_unite).
+// site index (find_root, unite: between tile or box roots, fk.cu's and
+// cc.cu's borders), and the union-find of a tile in shared memory
+// (tile_root, tile_unite).
 #pragma once
 
 #include <cstddef>
@@ -131,8 +131,8 @@ __device__ __forceinline__ int tile_root(int* P, int x) {
 // Join the trees of x and y in the tile's shared parents: the larger root
 // takes the smaller as its parent (atomicMin); where the larger was hung
 // elsewhere meanwhile, its old parent is joined next.  A tile's site order
-// is its sites' global order (cc_band.cu: band_key's; fk.cu: the site
-// index's), so each tile component's root is its smallest site.
+// is its sites' global order (cc_band.cu: band_key's; fk.cu, cc.cu: the
+// site index's), so each tile component's root is its smallest site.
 __device__ __forceinline__ void tile_unite(int* P, int x, int y) {
   while (true) {
     x = tile_root(P, x);
@@ -147,18 +147,6 @@ __device__ __forceinline__ void tile_unite(int* P, int x, int y) {
     if (old == x) return;
     x = old;
   }
-}
-
-// Unite site i with its neighbours at the forward offsets of an offset
-// table along the bonds set in bits 0 .. n_nb-1 of its state byte (cc.cu);
-// a self-bond (an offset that wraps onto the site) unites i with itself,
-// a no-op.
-__device__ __forceinline__ void link_site_nb(int32_t* P, uint8_t st, int i,
-                                             const NbGeom& g) {
-  int c[3];
-  coords(g, i, c);
-  for (int d = 0; d < g.n_nb; ++d)
-    if ((st >> d) & 1u) unite(P, i, neighbour(g, c, d, 1));
 }
 
 // Whether site i has a bond (bits 0 .. ndir-1 of the state bytes): its own

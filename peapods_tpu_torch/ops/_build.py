@@ -40,7 +40,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "peapods_colour_pass_blocks": [_I, _I],
-    "peapods_colour_pass": [_P] * 7 + [_I] * 7 + [_P],
+    "peapods_colour_pass": [_P] * 7 + [_I] * 7 + [_P, _P],
     "peapods_pt_step": [_P, _P, _I, _I] + [_P] * 5 + [_I] + [_P] * 9 + [_I] * 9 + [_P],
     "peapods_smem_per_block_optin": [],
     "peapods_resident_max_clusters": [_I] * 3,
@@ -51,10 +51,10 @@ _SIGNATURES = {
     "peapods_fk_link": [_P, _P] + [_I] * 9 + [_P],
     "peapods_fk_link_border": [_P, _P] + [_I] * 8 + [_P],
     "peapods_fk_link_flatten": [_P] + [_I] * 2 + [_P],
-    "peapods_fk_bonds_nb": [_P] * 7 + [_I] * 2 + [_P],
+    "peapods_fk_bonds_nb": [_P] * 6 + [_I] * 2 + [_P],
     "peapods_fk_finish": [_P] * 8 + [_I] * 3 + [_P],
-    "peapods_cc_link": [_P] * 3 + [_I] + [_P],
-    "peapods_cc_label": [_P] * 2 + [_I] * 2 + [_P],
+    "peapods_cc_link": [_P] * 3 + [_I] * 2 + [_P],
+    "peapods_cc_link_border": [_P] * 3 + [_I] + [_P],
     "peapods_winding": [_P] * 4 + [_I] * 4 + [_P],
     "peapods_winding_link": [_P] * 4 + [_I] * 6 + [_P],
     "peapods_winding_border": [_P] * 2 + [_I] * 5 + [_P],

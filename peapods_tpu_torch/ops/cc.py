@@ -8,26 +8,140 @@ component's minimum site index, of bool masks ``[B, n, n_nb]`` whose entry
 ``[b, i, d]`` is the bond from site ``i`` to its neighbour at the lattice's
 forward offset ``d``.
 
-:func:`cc_labels` launches ``csrc/cc.cu``'s ``cc_link`` and ``cc_label`` on
-CUDA tensors (counted in :data:`LAUNCHES`) and runs the plain version
+:func:`cc_labels` launches ``csrc/cc.cu``'s labelling on CUDA tensors
+(:func:`launch`, counted in :data:`LAUNCHES`) and runs the plain version
 :func:`~.cluster.connected_components` on CPU tensors.  The kernels read
-the masks packed into one state byte a site (bit ``d``: bond ``d``) and a
-parent array that starts as ``parent[i] = i``; the FK bonds of the staged
-path (``fk.fk_staged``) write both and call :func:`launch` directly.
+the masks packed into one state byte a site (bit ``d``: bond ``d``) and
+nothing else; the FK bonds of the staged path (``fk.fk_staged``) write
+those bytes and call :func:`launch` directly.  :func:`link_plan` picks the
+form from the shape alone: a graph of at most :data:`LINK_TILE_SITES`
+sites is one box, labelled by one ``cc_link`` launch (a cluster of CTAs a
+graph where the batch is small); a larger one is cut into
+``fk.link_plan``'s tiles, and ``cc_link_border`` and
+``fk.launch_flatten`` complete it.
 """
 
 from __future__ import annotations
 
+import functools
+import math
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from . import _build
 from .cluster import connected_components
-from .lattice import MAX_OFFSETS
+from .lattice import MAX_OFFSETS, fast_divisor
 
-__all__ = ["LAUNCHES", "cc_labels", "cc_labels_plain", "launch", "pack_masks"]
+__all__ = ["LAUNCHES", "LinkPlan", "cc_labels", "cc_labels_plain", "launch",
+           "link_launches", "link_plan", "link_words", "pack_masks"]
 
-# kernel launches since the last reset, by kernel name
-LAUNCHES = {"cc_link": 0, "cc_label": 0}
+# kernel launches since the last reset, by kernel name (the tiled form's
+# flatten is fk.cu's fk_link_flatten, counted in fk.LAUNCHES)
+LAUNCHES = {"cc_link": 0, "cc_link_border": 0}
+
+# csrc/cc.cu kCcSites, kCcThreads, kCcMaxCluster: a box of at most
+# LINK_TILE_SITES sites in a CTA's shared memory, a CTA of at most
+# LINK_THREADS threads; the whole-graph form spreads a graph over a cluster
+# of up to LINK_MAX_CLUSTER CTAs (slabs of at least LINK_MIN_SLAB sites),
+# until a launch has LINK_CLUSTER_CTAS CTAs
+LINK_TILE_SITES = 8192
+LINK_THREADS = 1024
+LINK_MAX_CLUSTER = 8
+LINK_CLUSTER_CTAS = 132
+LINK_MIN_SLAB = 64
+
+
+class LinkPlan(NamedTuple):
+    """How the labelling cuts a graph: boxes of ``tile`` sites (an ``(l0,
+    l1, l2)`` box), CTAs of ``threads`` threads (a multiple of 32), whether
+    the boxes split the graph (``tiled``: ``cc_link_border`` and
+    ``fk_link_flatten`` follow ``cc_link``) and, in the whole-graph form,
+    the CTAs of a graph's cluster (``cluster``: slabs of consecutive
+    sites)."""
+
+    tile: tuple
+    threads: int
+    tiled: bool
+    cluster: int = 1
+
+
+def _threads(sites: int) -> int:
+    """A CTA's threads for ``sites`` sites: a multiple of 32, at most
+    ``LINK_THREADS``."""
+    return min(LINK_THREADS, -(-int(sites) // 32) * 32)
+
+
+@functools.lru_cache(maxsize=None)
+def link_plan(dims, n_graphs: int) -> LinkPlan:
+    """The labelling's form for ``n_graphs`` graphs of ``dims = (l0, l1,
+    l2)`` sites (``l2 = 1`` in 2D), from the shape alone: the whole graph,
+    in one launch, where it has at most :data:`LINK_TILE_SITES` sites, over
+    a cluster of up to :data:`LINK_MAX_CLUSTER` CTAs (a power of two) while
+    the launch holds fewer than :data:`LINK_CLUSTER_CTAS` CTAs; else
+    ``fk_link``'s tiles (``fk.link_plan``).  A CTA takes up to
+    :data:`LINK_THREADS` threads, a round of sites each."""
+    from .fk import link_plan as fk_link_plan
+
+    dims = tuple(int(x) for x in dims)
+    n = math.prod(dims)
+    if n > LINK_TILE_SITES:
+        tile = tuple(fk_link_plan(dims, n_graphs).tile)
+        return LinkPlan(tile, _threads(math.prod(tile)), True)
+    c = 1
+    while (c < LINK_MAX_CLUSTER and n // (2 * c) >= LINK_MIN_SLAB
+           and n_graphs * 2 * c <= LINK_CLUSTER_CTAS):
+        c *= 2
+    return LinkPlan(dims, _threads(-(-n // c)), False, c)
+
+
+def link_launches(shape, n_graphs: int) -> dict:
+    """The launches of one labelling of ``n_graphs`` graphs of ``shape``, by
+    kernel name."""
+    plan = link_plan(_build.dims3(shape), n_graphs)
+    names = ("cc_link", "cc_link_border", "fk_link_flatten") if plan.tiled else ("cc_link",)
+    return dict.fromkeys(names, 1)
+
+
+def fast_offset(offsets, n_dims: int) -> int:
+    """The index of the offset that is the fast axis' unit step (``[0, 1]``
+    in 2D, ``[0, 0, 1]`` in 3D), whose runs ``cc_link`` hangs with a ballot,
+    or -1."""
+    unit = [0] * (n_dims - 1) + [1]
+    for d, off in enumerate(np.asarray(offsets).tolist()):
+        if off == unit:
+            return d
+    return -1
+
+
+@functools.lru_cache(maxsize=None)
+def _words(geometry: tuple, n_dims: int, tile: tuple, cluster: int) -> np.ndarray:
+    L = np.asarray(geometry[:3], np.int64)
+    n_nb = int(geometry[3])
+    off = np.asarray(geometry[4:], np.int64).reshape(MAX_OFFSETS, 3)
+    t = np.asarray(tile, np.int64)
+    nt = -(-L // t)
+    res = off % L
+    bs = -(-int(np.prod(L)) // cluster)
+    div = [fast_divisor(int(x)) for x in (t[1] * t[2], t[2], nt[1] * nt[2], nt[2], bs)]
+    words = np.concatenate([L, t, nt, [n_nb, fast_offset(off[:n_nb, :n_dims], n_dims)],
+                            off.reshape(-1), res.reshape(-1),
+                            np.asarray(div, np.int64).reshape(-1), [cluster, bs]])
+    return words.astype(np.uint32).view(np.int32)
+
+
+def link_words(lattice, tile, cluster: int = 1) -> np.ndarray:
+    """int32 host words of ``csrc/cc.cu``'s kernels (``make_cc_walk``): the
+    extents, the box extents ``tile``, the boxes along each axis, the
+    number of offsets and the fast axis' unit step (:func:`fast_offset`),
+    the six zero-padded offsets, their residues ``off mod L`` per axis,
+    :func:`~.lattice.fast_divisor` ``(m, s)`` of ``t1 t2``, ``t2``, ``nt1
+    nt2``, ``nt2`` and the slab ``bs``, then the whole-graph form's
+    ``cluster`` of CTAs a graph and ``bs = ceil(n / cluster)``, the sites of
+    a CTA's slab."""
+    return _words(tuple(int(x) for x in lattice.kernel_geometry), lattice.n_dims,
+                  tuple(int(x) for x in tile), int(cluster))
 
 
 def cc_labels_plain(masks, lattice):
@@ -43,23 +157,32 @@ def pack_masks(masks):
     return (masks.to(torch.uint8) << bits).sum(-1, dtype=torch.uint8)
 
 
-def launch(lib, stream, p_state, p_parent, p_labels, lattice, n_graphs):
-    """Launch ``cc_link`` then ``cc_label`` on raw pointers: ``n_graphs``
-    graphs of ``lattice`` whose state bytes hold the bonds and whose parents
-    start as ``parent[i] = i``; the labels go to ``p_labels``."""
-    _build.check(lib.peapods_cc_link(p_state, p_parent,
-                                     lattice.kernel_geometry.ctypes.data, n_graphs,
+def launch(lib, stream, p_state, p_labels, lattice, n_graphs):
+    """Label ``n_graphs`` graphs of ``lattice`` on raw pointers: their state
+    bytes (bit ``d``: bond ``d``) in, every label written to ``p_labels``
+    (int32 ``[n_graphs, n]``).  ``cc_link``, and where :func:`link_plan`
+    cuts a graph into boxes ``cc_link_border`` and ``fk_link_flatten`` on
+    the labels as parents."""
+    from . import fk
+
+    dims = _build.dims3(lattice.shape)
+    plan = link_plan(dims, n_graphs)
+    words = link_words(lattice, plan.tile, plan.cluster).ctypes.data
+    _build.check(lib.peapods_cc_link(p_state, p_labels, words, n_graphs, plan.threads,
                                      stream), "cc_link")
     LAUNCHES["cc_link"] += 1
-    _build.check(lib.peapods_cc_label(p_parent, p_labels, lattice.n_spins, n_graphs,
-                                      stream), "cc_label")
-    LAUNCHES["cc_label"] += 1
+    if not plan.tiled:
+        return
+    _build.check(lib.peapods_cc_link_border(p_state, p_labels, words, n_graphs, stream),
+                 "cc_link_border")
+    LAUNCHES["cc_link_border"] += 1
+    fk.launch_flatten(lib, stream, p_labels, n_graphs, lattice.n_spins)
 
 
 def cc_labels(masks, lattice):
     """int32 ``[B, n]`` component labels of bool masks ``[B, n, n_nb]`` on
     ``lattice`` (any offsets, up to six): the plain version for CPU tensors,
-    the two kernels for CUDA tensors."""
+    the kernels for CUDA tensors."""
     if _build.device_kind(masks) == "cpu":
         return cc_labels_plain(masks, lattice)
     dev = masks.device
@@ -71,8 +194,7 @@ def cc_labels(masks, lattice):
     if not 1 <= b <= 65535:
         raise ValueError("1 to 65535 graphs per call")
     state = pack_masks(masks)
-    parent = torch.arange(n, dtype=torch.int32, device=dev).repeat(b, 1)
     labels = torch.empty((b, n), dtype=torch.int32, device=dev)
     launch(_build.library(), torch.cuda.current_stream(dev).cuda_stream,
-           state.data_ptr(), parent.data_ptr(), labels.data_ptr(), lattice, b)
+           state.data_ptr(), labels.data_ptr(), lattice, b)
     return labels

@@ -94,6 +94,7 @@ __all__ = [
     "band_finish_tile",
     "fk_energy_mag",
     "launch_link",
+    "launch_flatten",
     "LinkPlan",
     "link_plan",
     "link_launches",
@@ -453,7 +454,14 @@ def launch_link(lib, stream, p_state, p_parent, n_graphs, l0, l1, l2, tri=False,
                                             int(tri), *plan.tile, stream),
                  "fk_link_border")
     LAUNCHES["fk_link_border"] += 1
-    _build.check(lib.peapods_fk_link_flatten(p_parent, n_graphs, l0 * l1 * l2, stream),
+    launch_flatten(lib, stream, p_parent, n_graphs, l0 * l1 * l2)
+
+
+def launch_flatten(lib, stream, p_parent, n_graphs, n):
+    """Launch ``fk_link_flatten`` on raw pointers: every parent of
+    ``n_graphs`` graphs of ``n`` sites pointed at its root.  The tiled
+    labellings end with it (:func:`launch_link`, ``cc.launch``)."""
+    _build.check(lib.peapods_fk_link_flatten(p_parent, n_graphs, n, stream),
                  "fk_link_flatten")
     LAUNCHES["fk_link_flatten"] += 1
 
@@ -660,11 +668,12 @@ def fk_staged_plain(spins, j_fwd, temps, scalars, kb_words, lattice, *, wolff,
 def fk_staged(spins, j_fwd, temps, scalars, kb_words, lattice, *, wolff,
               with_masks=False, uniforms=None):
     """The staged FK path (see :func:`fk_staged_plain`): the plain version
-    for CPU tensors; for CUDA tensors ``fk_bonds_nb``, ``csrc/cc.cu``'s
-    ``cc_link`` and ``cc_label`` and, to update, ``fk_finish`` reading the
-    roots from those labels.  Nothing is measured: the caller measures the
-    spins after (``energy.measure_nb``).  The masks are returned when
-    ``with_masks`` (else ``None``)."""
+    for CPU tensors; for CUDA tensors ``fk_bonds_nb`` (the state bytes), the
+    labelling of :func:`.cc.launch` (``cc_link``; where its boxes split a
+    graph, ``cc_link_border`` and ``fk_link_flatten``) and, to update,
+    ``fk_finish`` reading the roots from those labels.  Nothing is measured:
+    the caller measures the spins after (``energy.measure_nb``).  The masks
+    are returned when ``with_masks`` (else ``None``)."""
     if _build.device_kind(spins) == "cpu":
         labels, bonds = fk_staged_plain(spins, j_fwd, temps, scalars, kb_words,
                                         lattice, wolff=wolff, uniforms=uniforms)
@@ -681,15 +690,13 @@ def fk_staged(spins, j_fwd, temps, scalars, kb_words, lattice, *, wolff,
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     state = torch.empty((b, n), dtype=torch.uint8, device=dev)
-    parent = torch.empty((b, n), dtype=torch.int32, device=dev)
     labels = torch.empty((b, n), dtype=torch.int32, device=dev)
     _build.check(lib.peapods_fk_bonds_nb(
         spins.data_ptr(), j_fwd.data_ptr(), temps.data_ptr(), kb_words.data_ptr(),
-        state.data_ptr(), parent.data_ptr(), lattice.kernel_geometry.ctypes.data, b,
-        b // d, stream), "fk_bonds_nb")
+        state.data_ptr(), lattice.kernel_geometry.ctypes.data, b, b // d, stream),
+        "fk_bonds_nb")
     LAUNCHES["fk_bonds_nb"] += 1
-    cc.launch(lib, stream, state.data_ptr(), parent.data_ptr(), labels.data_ptr(),
-              lattice, b)
+    cc.launch(lib, stream, state.data_ptr(), labels.data_ptr(), lattice, b)
     if scalars is not None:
         fk_finish(spins, None, labels, j_fwd, scalars, wolff=wolff, with_measure=False)
     return labels, state_masks(state, lattice.n_neighbors) if with_masks else None

@@ -34,15 +34,17 @@ tensors, and raise for anything else; they never fall back.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import _build, rng
 from ._build import device_kind as _device_kind
 from ._build import expect as _expect
 from .energy import per_spin
-from .lattice import Lattice
+from .lattice import Lattice, fast_divisor
 from .measure import per_slot_values, slot_temps_for_systems
 from .rng import colour_uniforms
 from .sweep import colour_mask, colour_update
@@ -54,6 +56,9 @@ __all__ = [
     "supports_mega",
     "colour_pass",
     "colour_pass_plain",
+    "colour_pass_partials",
+    "ColourPlan",
+    "colour_plan",
     "pt_step",
     "pt_step_plain",
     "pt_split",
@@ -91,6 +96,58 @@ MAX_SPLIT = 256
 RESIDENT_CLUSTERS = (1, 2, 4, 8)
 RESIDENT_MAX_THREADS = 1024
 BLOCK_SITES = REDUCE_LANES * 4
+
+
+# colour_pass (csrc/mega.cu kMaxPer, kThreads): a CTA takes up to
+# COLOUR_MAX_PER slots of one realization, its groups of four colour sites
+# a block of up to REDUCE_LANES threads
+COLOUR_MAX_PER = 8
+
+
+class ColourPlan(NamedTuple):
+    """``colour_pass``'s layout: ``per`` slots of one realization a CTA,
+    ``gp`` groups of a logical block a CTA (a power of two, 32 to 256; below
+    256 the lattice has one block of at most ``gp`` groups), ``sub`` slot
+    lanes (the CTA's threads are ``gp x sub``: thread ``t`` takes group ``t
+    % gp`` of slots ``t // gp``, ``+ sub``, ...), and the kernel's host
+    words ``(per, gp, m0, s0, m1, s1)``: :func:`~.lattice.fast_divisor` of
+    the active sites' row length ``W / 2`` (2D), or of ``L1 L2 / 2`` and
+    ``L2 / 2`` (3D)."""
+
+    per: int
+    gp: int
+    sub: int
+    words: np.ndarray
+
+
+@functools.lru_cache(maxsize=None)
+def colour_plan(dims, n_disorder: int, n_slots: int, threads: int) -> ColourPlan:
+    """``colour_pass``'s layout for ``n_slots`` slots of ``n_disorder``
+    realizations of ``dims = (L0, L1, L2)`` (``L2 = 1`` in 2D), from the
+    shape and the least ``threads`` a launch keeps (a quarter of the card's
+    resident threads, :func:`_colour_plan`): a lattice of more than 128
+    groups a slot takes :func:`~.sweep.systems_per` slots a CTA, one block
+    of 256 groups, each thread its slots in turn; a smaller one fills its
+    CTAs with slots side by side, one slot a thread, as many as divide
+    ``n_slots`` up to ``256 / gp``.  (tools/probe_colour_cc.py, NVIDIA H100
+    80GB HBM3: config 5 0.01281 ms a pass with 2 slots a thread, the rule
+    of half the resident threads, 0.01125 with 4; the flagship shape
+    0.00850 with 1, 0.00685 with 2.)"""
+    from .sweep import systems_per
+
+    l0, l1, l2 = (int(x) for x in dims)
+    groups = -(-(l0 * l1 * l2 // 2) // 4)
+    if groups > REDUCE_LANES // 2:
+        gp = REDUCE_LANES
+        per = systems_per(groups, n_disorder, n_slots, threads)
+    else:
+        gp = max(32, 1 << (groups - 1).bit_length())
+        per = max(p for p in range(1, min(COLOUR_MAX_PER, REDUCE_LANES // gp) + 1)
+                  if n_slots % p == 0)
+    divs = ((l1 * l2 // 2, l2 // 2) if l2 > 1 else (l1 // 2, 1))
+    words = np.asarray([per, gp, *(x for dv in divs for x in fast_divisor(dv))],
+                       np.int64).astype(np.uint32).view(np.int32)
+    return ColourPlan(per, gp, min(REDUCE_LANES // gp, per), words)
 
 
 def supports_mega(lattice, n_replicas) -> bool:
@@ -379,6 +436,36 @@ def resident_partition(h, w, cluster, threads):
 # ------------------------------------------------------------ CUDA kernels
 
 
+def colour_pass_partials(spins, jgrids, sid, temps, words, *, gibbs, u=None):
+    """A colour-1 pass as :func:`colour_pass_plain` (in place), returning
+    the ``colour_pass`` kernel's partials ``(e_part f32, m_part int32)``
+    ``[d, n_systems, colour_pass_blocks]`` by system in its order of adds:
+    the pass's site terms (``s * field`` of each odd site, ``s`` of both
+    sites of its pair along the fast axis) in the order of the colour's
+    sites, four a thread, 256 threads a block
+    (:func:`~.fk.block_partials_plain`)."""
+    from .fk import block_partials_plain
+
+    d, n_slots, shape = spins.shape[0], sid.shape[1], tuple(spins.shape[2:])
+    nd = len(shape)
+    if u is None:
+        u = colour_uniforms(words, n_slots, 1, shape)
+    di = torch.arange(d, device=spins.device)[:, None]
+    sys = sid.to(torch.int64)
+    inv_half_t = (1.0 / (0.5 * temps)).reshape((1, n_slots) + (1,) * nd)
+    s, field = colour_update(spins[di, sys].to(torch.float32), jgrids[:, None],
+                             inv_half_t, u, 1, gibbs=gibbs, n_dims=nd)
+    spins[di, sys] = s.to(torch.int8)
+    e = (s * field)[..., colour_mask(shape, 1, spins.device)]
+    m = s.to(torch.int32).reshape(d, n_slots, -1, 2).sum(-1, dtype=torch.int32)
+    ep, mp = block_partials_plain(e, 4), block_partials_plain(m, 4)
+    e_part = torch.empty_like(ep)
+    m_part = torch.empty_like(mp)
+    e_part[di, sys] = ep
+    m_part[di, sys] = mp
+    return e_part, m_part
+
+
 def _check_sweep(spins, jgrids, sid, temps):
     """Validate the colour pass's tensors; returns ``(d, n_slots, L0, L1,
     L2)`` (``L2 = 1`` for a 2D lattice)."""
@@ -416,14 +503,24 @@ def _partials(lib, d, n_slots, l0, l1, l2, dev):
 
 
 def _launch_colour(lib, stream, shape, spins, jgrids, sid, temps, words,
-                   e_part, m_part, colour, gibbs):
+                   e_part, m_part, colour, gibbs, plan):
     """Launch ``colour_pass``; pointers are ints (``None`` for no partials);
-    ``shape`` is ``(d, n_slots, L0, L1, L2)``."""
+    ``shape`` is ``(d, n_slots, L0, L1, L2)``, ``plan`` its
+    :func:`colour_plan`."""
     _build.check(lib.peapods_colour_pass(
         spins, jgrids, sid, temps, words, e_part, m_part, *shape,
-        colour, int(gibbs), stream,
+        colour, int(gibbs), plan.words.ctypes.data, stream,
     ), "colour_pass")
     LAUNCHES["colour_pass"] += 1
+
+
+def _colour_plan(dev, shape):
+    """:func:`colour_plan` of a launch on ``dev``, keeping a quarter of its
+    resident threads; ``shape`` is ``(d, n_slots, L0, L1, L2)``."""
+    from .fk import resident_threads
+
+    return colour_plan(tuple(shape[2:]), shape[0], shape[1],
+                       resident_threads(dev.index) // 4)
 
 
 # device -> (ticket int32, part_e f32, part_m int32): the cross-CTA sums
@@ -485,7 +582,8 @@ def colour_pass(spins, jgrids, sid, temps, words, colour, *, gibbs):
     ptrs = [None if t is None else t.data_ptr() for t in parts]
     _launch_colour(lib, torch.cuda.current_stream(dev).cuda_stream, shape,
                    spins.data_ptr(), jgrids.data_ptr(), sid.data_ptr(),
-                   temps.data_ptr(), words.data_ptr(), *ptrs, colour, gibbs)
+                   temps.data_ptr(), words.data_ptr(), *ptrs, colour, gibbs,
+                   _colour_plan(dev, shape))
     return parts if colour == 1 else None
 
 
@@ -646,10 +744,11 @@ def mega_chunk_launches(spins, jgrids, temps, sid, ea, ec, rtrips, tstate,
     p_sw = sweep_words.data_ptr()
     word_bytes = d * 2 * 4  # one sweep's [d, 2] int32 words
     row_bytes = n_slots * 4  # one sweep's [n_slots] row of e or m
+    plan = _colour_plan(dev, shape)
     for t in range(n):
         for colour, parts in ((0, (None, None)), (1, (p_ep, p_mp))):
             _launch_colour(lib, stream, shape, p_spins, p_jg, p_sid, p_temps,
-                           p_sw + t * word_bytes, *parts, colour, gibbs)
+                           p_sw + t * word_bytes, *parts, colour, gibbs, plan)
         do_pt = _pt_due(sweep_base, t, pt_interval)
         parity = _launch_pt(
             lib, stream, dev, d, n_slots, h * w, p_ep, p_mp, e_part.shape[2],

@@ -334,10 +334,11 @@ def pairs_chunk(spins, jgrids, coup, temps, slot_temps, sid, ea, ec, rtrips,
     row_bytes, col_bytes = n_slots * 4, P * T * 4
     pt_kw = dict(pt_full=pt_full, hot_slot=hot_slot, cold_slot=cold_slot,
                  n_replicas=R)
+    plan = mega._colour_plan(dev, dims5)
     for t in range(n):
         for colour, parts in ((0, (None, None)), (1, (p_ep, p_mp))):
             mega._launch_colour(lib, stream, dims5, p_spins, p_jg, p_sid, p_st,
-                                p_sw + t * d * 8, *parts, colour, gibbs)
+                                p_sw + t * d * 8, *parts, colour, gibbs, plan)
         _launch_pair(lib, stream, p_spins, p_sid, p_qs + t * col_bytes,
                      p_ql + t * col_bytes, n * P * T, d, P, T, n_slots, shape)
         do_pt = _pt_due(sweep_base + t, pt_interval)

@@ -7,7 +7,7 @@ their state bytes) and the replica path's (colour_pass in
 3D, pt_step on R ladders, pair_overlap, the ov_* overlap-move kernels and
 energy_partials), the coloured lattices' (sweep_nb, measure_nb and the
 FK kernels with three bond directions; fk_finish alone with its partials
-per block), FK observe's and the staged path's (cc_link / cc_label, the
+per block), FK observe's and the staged path's (cc_link, whole and tiled, the
 winding kernels in both forms, one launch at a time and at 2048^2,
 fk_bonds_nb and fk_finish reading labels) and Houdayer(N)'s (houdn_bonds,
 houdn_finish) with the overlap moves' labels, masks and observe form.  On a machine
@@ -711,12 +711,29 @@ def _pair_inputs(dev, seed, shape, d, n_rep, n_temps, couplings="pm"):
     )
 
 
-@pytest.mark.parametrize("shape,d,n_rep,n_temps,gibbs,couplings", [
+COLOUR_SHAPES = [
     ((8, 8, 8), 8, 4, 24, False, "pm"), ((16, 16, 16), 2, 4, 6, True, "pm"),
     ((8, 64), 2, 2, 3, False, "pm"), ((6, 4, 10), 1, 2, 3, False, "gauss"),
-], ids=["8cube-config4", "16cube-gibbs", "2d-8x64", "6x4x10-gauss"])
+    ((16, 16, 16), 8, 4, 24, False, "gauss"), ((32, 32), 1, 2, 16, False, "pm"),
+    ((32, 32), 1, 2, 16, True, "gauss"), ((2, 2, 2), 2, 2, 3, False, "gauss"),
+    ((2, 2, 16), 1, 4, 2, True, "pm"), ((4, 6, 8), 3, 2, 5, False, "gauss"),
+    ((2, 8), 2, 3, 2, False, "gauss"), ((6, 10), 1, 2, 7, True, "gauss"),
+    ((64, 48), 2, 2, 5, False, "gauss"), ((12, 8, 24), 1, 2, 9, True, "gauss"),
+]
+
+
+@pytest.mark.parametrize("shape,d,n_rep,n_temps,gibbs,couplings", COLOUR_SHAPES,
+                         ids=["8cube-config4", "16cube-gibbs", "2d-8x64", "6x4x10-gauss",
+                              "config5-gauss", "config1", "config1-gibbs-gauss",
+                              "2cube", "2x2x16-gibbs", "4x6x8-gauss", "2x8-gauss",
+                              "6x10-gibbs", "64x48-2-blocks", "12x8x24-gibbs"])
 def test_colour_pass_3d_kernel_matches_plain(cuda, shape, d, n_rep, n_temps, gibbs,
                                              couplings):
+    """colour_pass on 2D and 3D replica batches (vector and per-site
+    paths, one and several slots a thread, CTAs filled with several slots
+    at small lattices): spins bitwise colour_pass_plain on the same card,
+    every partial bitwise the first design's order of adds
+    (colour_pass_partials)."""
     x = _pair_inputs(cuda, 5, shape, d, n_rep, n_temps, couplings)
     s = n_rep * n_temps
     a = x["spins"].view(d, s, *shape).clone()
@@ -725,11 +742,15 @@ def test_colour_pass_3d_kernel_matches_plain(cuda, shape, d, n_rep, n_temps, gib
         np.int32)).to(cuda)
     args = (x["jgrids"], x["sid"], x["slot_temps"])
     for colour in (0, 1, 0, 1):
+        c = b.clone()
         pk = mega.colour_pass(a, *args, words, colour, gibbs=gibbs)
         pp = mega.colour_pass_plain(b, *args, words, colour, gibbs=gibbs)
         torch.cuda.synchronize()
         assert torch.equal(a, b), colour
         if pk is not None:
+            pe, pm = mega.colour_pass_partials(c, *args, words, gibbs=gibbs)
+            assert torch.equal(c, b)
+            assert torch.equal(pk[0], pe) and torch.equal(pk[1], pm)
             assert torch.equal(pk[1].sum(-1), pp[1].sum(-1))
             if couplings == "pm":
                 assert torch.equal(pk[0].sum(-1), pp[0].sum(-1))
@@ -738,6 +759,31 @@ def test_colour_pass_3d_kernel_matches_plain(cuda, shape, d, n_rep, n_temps, gib
                                            rtol=1e-5, atol=1e-4)
         words = words * 3 + 1
     assert not torch.equal(a, x["spins"].view(d, s, *shape))
+
+
+@pytest.mark.parametrize("shape,d,n_rep,n_temps", [
+    ((8, 8, 8), 8, 4, 24), ((16, 16, 16), 8, 4, 24), ((32, 32), 1, 2, 16),
+    ((4, 4, 10), 2, 3, 3),
+], ids=["config4", "config5", "config1", "4x4x10-odd-slots"])
+def test_colour_pass_layout_and_launches(cuda, shape, d, n_rep, n_temps):
+    """colour_pass's plan at the replica configs: at 8^3 and 32^2 several
+    slots fill each CTA (gp x sub = 256 threads where the slots divide so),
+    at 16^3 a thread takes the rule's slots in turn; one launch a pass."""
+    x = _pair_inputs(cuda, 9, shape, d, n_rep, n_temps)
+    s = n_rep * n_temps
+    dims = _build.dims3(shape)
+    plan = mega._colour_plan(cuda, (d, s, *dims))
+    groups = -(-int(np.prod(shape)) // 8)
+    if groups <= 128:
+        assert plan.gp >= groups and plan.gp * plan.sub <= 256 and plan.sub == plan.per
+    if shape in ((8, 8, 8), (32, 32)):
+        assert plan.gp * plan.sub == 256
+    mega.reset_launches()
+    a = x["spins"].view(d, s, *shape).clone()
+    mega.colour_pass(a, x["jgrids"], x["sid"], x["slot_temps"],
+                     torch.zeros((d, 2), dtype=torch.int32, device=cuda), 1, gibbs=False)
+    torch.cuda.synchronize()
+    assert mega.LAUNCHES == {"colour_pass": 1, "pt_step": 0, "mega_resident": 0}
 
 
 @pytest.mark.parametrize("shape,d,n_rep,n_temps", [
@@ -1101,24 +1147,45 @@ def _staged_inputs(dev, seed, shape, geometry, d, n_sys, temp):
         kb=up(rng.integers(-2**31, 2**31, (b, 2)).astype(np.int32)))
 
 
-@pytest.mark.parametrize("name,shape,geometry,d,n_sys,temp", STAGED,
-                         ids=[c[0] for c in STAGED])
-def test_cc_labels_kernel_matches_plain(cuda, name, shape, geometry, d, n_sys, temp):
-    """cc_link / cc_label on batches of random masks from empty to full:
-    labels bitwise the min-label fixed point."""
-    from peapods_tpu_torch.ops import cc
+# the labelling on both sides of csrc/cc.cu kCcSites (8192 sites): whole
+# graphs (8 of them: over clusters of CTAs, a last slab cut short too), and
+# boxes that split a graph along one, two or three axes, with diagonal
+# offsets, an offset of length 2, extents of 2 and a fast axis longer than
+# a CTA
+CC_SHAPES = [*((c[0], c[1], c[2]) for c in STAGED),
+             ("fcc-32", (32, 32, 32), "fcc"), ("bcc-24x20x22", (24, 20, 22), "bcc"),
+             ("nnn-128", (128, 128), NNN), ("tri-100x96", (100, 96), "triangular"),
+             ("len2-96", (96, 96), [[2, 0], [0, 1], [1, -2]]),
+             ("nnn-2x4096-whole", (2, 4096), NNN), ("nnn-2x4100", (2, 4100), NNN),
+             ("fcc-2x2x4096", (2, 2, 4096), "fcc"), ("bcc-64x2x64-whole", (64, 2, 64), "bcc"),
+             ("len2-3d-18x18x30", (18, 18, 30), [[0, 0, 1], [2, 1, 0], [0, -2, 1]]),
+             ("nnn-18x30-ragged-slabs", (18, 30), NNN)]
 
-    lat, _ = _staged_inputs(cuda, 1, shape, geometry, d, n_sys, temp)
+
+@pytest.mark.parametrize("name,shape,geometry", CC_SHAPES, ids=[c[0] for c in CC_SHAPES])
+def test_cc_labels_kernel_matches_plain(cuda, name, shape, geometry):
+    """cc_link (and, where its boxes split a graph, cc_link_border and
+    fk_link_flatten) on batches of random masks from empty to full: labels
+    bitwise the min-label fixed point, in the launches cc.link_launches
+    names."""
+    from peapods_tpu_torch.ops import cc
+    from peapods_tpu_torch.ops.lattice import GEOMETRY_OFFSETS, Lattice
+
+    lat = Lattice(shape, GEOMETRY_OFFSETS[geometry] if isinstance(geometry, str)
+                  else geometry)
     b = 8
     rng = np.random.default_rng(len(shape) + lat.n_neighbors)
     dens = np.linspace(0.0, 1.0, b)[:, None, None]
     masks = torch.from_numpy(rng.random((b, lat.n_spins, lat.n_neighbors)) < dens).to(cuda)
-    for k in cc.LAUNCHES:
-        cc.LAUNCHES[k] = 0
+    for table in (cc.LAUNCHES, fk.LAUNCHES):
+        for k in table:
+            table[k] = 0
     got = cc.cc_labels(masks, lat)
     want = cc.cc_labels_plain(masks, lat)
     torch.cuda.synchronize()
-    assert cc.LAUNCHES == {"cc_link": 1, "cc_label": 1}
+    counts = {k: v for k, v in {**cc.LAUNCHES, **fk.LAUNCHES}.items() if v}
+    assert counts == cc.link_launches(shape, b)
+    assert (len(counts) > 1) == (lat.n_spins > 8192)
     assert torch.equal(got, want)
 
 
@@ -1608,7 +1675,7 @@ def test_fk_observe_kernel_matches_plain(cuda, shape, d, n_sys, n_dirs, temp):
                          ids=[c[0] for c in STAGED])
 def test_fk_staged_kernels_match_plain(cuda, name, shape, geometry, d, n_sys, temp,
                                        wolff):
-    """fk_bonds_nb, cc_link, cc_label and fk_finish reading the labels:
+    """fk_bonds_nb, cc_link and fk_finish reading the labels:
     masks, labels and spins bitwise the plain staged path; observe leaves
     the spins alone."""
     from peapods_tpu_torch.engine import seeds
@@ -1626,7 +1693,7 @@ def test_fk_staged_kernels_match_plain(cuda, name, shape, geometry, d, n_sys, te
     torch.cuda.synchronize()
     assert {k: v for k, v in fk.LAUNCHES.items() if v} == {"fk_bonds_nb": 1,
                                                           "fk_finish": 1}
-    assert cc.LAUNCHES == {"cc_link": 1, "cc_label": 1}
+    assert cc.LAUNCHES == {"cc_link": 1, "cc_link_border": 0}
     assert torch.equal(mk, mp)
     assert torch.equal(lk, lp)
     assert torch.equal(a, p)
