@@ -62,7 +62,7 @@ through the user's entry points:
   ``winding_link``, ``_border``, ``_wrap``, ``_check`` one launch at a
   time; ``cc_link`` (whole graphs, over a cluster of CTAs a graph where
   the batch is small; on the 256^2 graph tiled, with ``cc_link_border``
-  and ``fk_link_flatten``), ``fk_bonds_nb``,
+  and ``fk_link_flatten``), ``fk_bonds_staged``,
   ``fk_finish`` reading the CC labels; FK observe's labels, the
   labelling's parents) held against its plain version on those runs'
   states;
@@ -2146,7 +2146,7 @@ def nb_want(model, kw, n):
     """Launches of ``n`` sweeps from sweep 0 (all recorded) on a coloured
     lattice: a ``sweep_nb`` launch per colour; on cluster sweeps the FK
     kernels (square, triangular, cubic: their update measures) or the
-    staged path's ``fk_bonds_nb``, the labelling (``cc.link_launches``) and,
+    staged path's ``fk_bonds_staged``, the labelling (``cc.link_launches``) and,
     to update, ``fk_finish`` (BCC, FCC, offset tables); ``measure_nb`` on
     every sweep the FK kernels did not measure; and one ``pt_step``."""
     from peapods_tpu_torch.ops import cc
@@ -2163,7 +2163,7 @@ def nb_want(model, kw, n):
                               n_fk))
         want["measure_nb"] = n - n_fk if update else n
     else:
-        want.update(fk_bonds_nb=n_fk, fk_finish=n_fk if update else 0, measure_nb=n,
+        want.update(fk_bonds_staged=n_fk, fk_finish=n_fk if update else 0, measure_nb=n,
                     **{k: n_fk * v for k, v in cc.link_launches(
                         lat.shape, model._sim.rt.n_disorder * model._sim.rt.n_systems).items()})
     return {key: v for key, v in want.items() if v}
@@ -2942,7 +2942,7 @@ def staged_bounds(b, n, n_nb, d, n_comp):
     cb = 4 * n_nb * d * n
     return {
         # spins, couplings, temps, kb in; state bytes out
-        "fk_bonds_nb": bound(b * n + cb + 12 * b + b * n, 8 * n_nb * b * n),
+        "fk_bonds_staged": bound(b * n + cb + 12 * b + b * n, 8 * n_nb * b * n),
         # the labelling: state bytes in, labels out
         "cc_link": cc_bound(b, n),
         # spins, labels, scalars in; spins out
@@ -2963,12 +2963,12 @@ def check_observe_kernels(obs, hobs, staged, dev, rng):
     bitwise ``connected_components``: on the 256^2 graph at T_c, row 15's
     shape, tiled, ``cc_link``, ``cc_link_border``, ``fk_link_flatten``; on
     the harness's 2048 graphs of 64^2 one ``cc_link`` launch);
-    ``fk_bonds_nb``, ``cc_link`` and ``fk_finish`` reading the labels on
+    ``fk_bonds_staged``, ``cc_link`` and ``fk_finish`` reading the labels on
     the staged runs' states, SW and Wolff (masks, labels, spins bitwise),
     with the labelling alone on those masks.  Then the plain versions'
     times and the bounds at each shape (the labelling's: the function's,
     state bytes in, labels out)."""
-    from peapods_tpu_torch.ops import cc, cluster, fk, winding
+    from peapods_tpu_torch.ops import _build, cc, cluster, fk, winding
     from peapods_tpu_torch.ops.lattice import Lattice
 
     times = {}
@@ -3045,16 +3045,28 @@ def check_observe_kernels(obs, hobs, staged, dev, rng):
             if any(bad.values()):
                 raise AssertionError(f"staged kernels on {name} differ from plain: {bad}")
             n_comp = int((lp == torch.arange(n, device=dev)).sum())
-            log("23 kernel-vs-plain", f"fk_bonds_nb, cc_link, fk_finish "
+            log("23 kernel-vs-plain", f"fk_bonds_staged, cc_link, fk_finish "
                 f"{'wolff' if wolff else 'sw'} on {name} ({b} graphs of "
                 f"{'x'.join(map(str, lat.shape))}, {n_nb} offsets): mismatches {bad}; "
                 f"{n_comp} clusters, {int(mk.sum())} active bonds")
         sp = x["spins"]
         bd = fk.fk_bonds_plain(sp, x["j_fwd"], x["temps"], x["kb_words"],
                                offsets=lat.offsets)
+        # the staged bonds' state bytes alone: the bonds and no other bit
+        st = torch.empty((b, n), dtype=torch.uint8, device=dev)
+        fk.launch_staged_bonds(_build.library(), torch.cuda.current_stream(dev).cuda_stream,
+                               sp, x["j_fwd"], x["temps"], x["kb_words"], st, lat)
+        bits = torch.arange(n_nb, dtype=torch.uint8, device=dev)
+        want = (bd.to(torch.uint8) << bits).sum(-1, dtype=torch.uint8)
+        torch.cuda.synchronize()
+        if not torch.equal(st, want):
+            raise AssertionError(f"fk_bonds_staged's state bytes on {name}: "
+                                 f"{int((st != want).sum())} differ from the plain bonds")
+        log("23 kernel-vs-plain", f"fk_bonds_staged's state bytes on {name}: every byte "
+            f"the plain bonds' bits 0 .. {n_nb - 1} and no other bit")
         lab = cc.cc_labels_plain(bd, lat)
         plain = {
-            "fk_bonds_nb": wall_ms(lambda: fk.fk_bonds_plain(
+            "fk_bonds_staged": wall_ms(lambda: fk.fk_bonds_plain(
                 sp, x["j_fwd"], x["temps"], x["kb_words"], offsets=lat.offsets), 3),
             "cc_link": wall_ms(lambda: cc.cc_labels_plain(bd, lat), 3),
             "fk_finish": wall_ms(lambda: fk.fk_finish_plain(
@@ -3087,7 +3099,7 @@ def add_observe_records(kernels, obs, hobs, staged, times, us, card):
     BCC SW run's numbers; FCC, NNN, the 256^2 graph and the harness beside
     them; ``cc_link_border``'s record comes with the space path's tiled
     run, :func:`add_space_records`), the tiled winding's launches (the 256^2
-    observe run's), ``winding`` (the harness observe's), ``fk_bonds_nb``
+    observe run's), ``winding`` (the harness observe's), ``fk_bonds_staged``
     (BCC; FCC, NNN); the observe and
     staged runs' numbers beside the FK kernels', ``sweep_2d``'s (row 2) and
     the coloured lattices' kernels'."""
@@ -3108,7 +3120,7 @@ def add_observe_records(kernels, obs, hobs, staged, times, us, card):
                               *((k, WINDING_SRC, "observe256", WINDING_REPLACES)
                                 for k in winding.TILED),
                               ("winding", WINDING_SRC, "harness_observe", WINDING_REPLACES),
-                              ("fk_bonds_nb", "peapods_tpu_torch/csrc/fk.cu", "bcc16_sw",
+                              ("fk_bonds_staged", "peapods_tpu_torch/csrc/fk.cu", "bcc16_sw",
                                "peapods_tpu/ops/pallas_event.py:621")):
         kr = dict(name=k, route="cuda", source=src, replaces=rep, max_abs_err=0.0,
                   library_ms=None, **at(k, main))
@@ -3117,7 +3129,7 @@ def add_observe_records(kernels, obs, hobs, staged, times, us, card):
                 kr[f"at_{name}"] = at(k, name)
         if k == "cc_link":
             kr["at_observe256"]["replaces"] = CC2D_REPLACES
-        if k == "fk_bonds_nb":
+        if k == "fk_bonds_staged":
             kr["on_the_reference_path"] = ("peapods_tpu/ops/cluster.py:555 "
                                            "fk_bond_activation (jnp, staged path)")
         kernels.append(kr)

@@ -19,7 +19,7 @@
 //              state byte a site (bit d: bond d active; bit 3 + d: s !=
 //              s_fwd) and nothing else.  A thread takes a group of four
 //              sites of several graphs of one realization (bonds_body,
-//              shared with fk_bonds_band).
+//              shared with fk_bonds_staged and fk_bonds_band).
 //   fk_link    the labelling, in shared memory (ops/fk.py link_plan picks
 //              the form from the shape).  Whole-graph form, a graph of at
 //              most kLinkSites sites: a CTA stages its state bytes, hangs
@@ -52,19 +52,26 @@
 //
 // The staged path (the reference's fk_bond_activation -> _cc_many -> coin
 // or Wolff flips, peapods_tpu/engine/loop.py:1883-1976) serves the lattices
-// given by an offset table (BCC, FCC, custom offsets): fk_bonds_nb draws
-// the bonds along each forward offset (nb.cuh) with fk_bonds' Philox
-// counter, cc.cu's labelling (cc_link; tiled, cc_link_border and
-// fk_link_flatten) labels the graphs from the state bytes alone, and
-// fk_finish reads each site's root from those labels and flips; the
-// measurement is then sweep_nb.cu's measure_nb, so the state byte needs no
-// "s differs" bits and holds up to six bonds.
+// given by an offset table (BCC, FCC, custom offsets): fk_bonds_staged
+// draws the bonds along each forward offset with fk_bonds' body and Philox
+// counter on the whole lattice of the table (1 to 6 offsets, the words of
+// ops/lattice.Lattice.sweep_words), cc.cu's labelling (cc_link; tiled,
+// cc_link_border and fk_link_flatten) labels the graphs from the state
+// bytes alone, and fk_finish reads each site's root from those labels and
+// flips; the measurement is then sweep_nb.cu's measure_nb, so the state
+// byte holds the bonds alone, up to six.  Its first design (one kernel of
+// its own) found each site's coordinates and neighbours with nb.cuh's
+// runtime divisions and modulos (18 a site at FCC), read the couplings
+// again for each graph, drew the exp for every bond and loaded and stored
+// bytes: 0.0139 ms at FCC 16^3 x 8, where fk_bonds_staged takes 0.0041
+// (tools/probe_bonds.py, NVIDIA H100 80GB HBM3, 700 W); the divisions were
+// a third of it, the unit bonds' exp an eighth.
 //
 // The band forms serve a lattice split into row bands over a "space" mesh
 // (band.cuh: each band's rows and a halo of its neighbours' edge rows, the
 // window):
 //
-//   fk_bonds_band   fk_bonds / fk_bonds_nb over every window site whose
+//   fk_bonds_band   fk_bonds / fk_bonds_staged over every window site whose
 //                   forward neighbour lies in the window: the band's own
 //                   bonds, those that cross its edges, and the halo rows'
 //                   bonds into the band, each drawn with the unsharded
@@ -80,10 +87,11 @@
 //                   partials of fk_finish, the forward neighbours' flips
 //                   read from the halo labels.
 //
-// What bounds fk_bonds and fk_bonds_band on the H100, and their design: the
-// function reads each spin and each realization's couplings once and writes
-// a state byte a site, 268 MB at the unsharded 4096^2 x 4 (0.080 ms at 3.35
-// TB/s) and 67 MB a band of it in 4 bands (0.020 ms).  The first design,
+// What bounds fk_bonds, fk_bonds_staged and fk_bonds_band on the H100, and
+// their design: the function reads each spin and each realization's
+// couplings once and writes a state byte a site, 268 MB at the unsharded
+// 4096^2 x 4 (0.080 ms at 3.35 TB/s) and 67 MB a band of it in 4 bands
+// (0.020 ms).  The first design,
 // one group of four sites of one graph a thread, moved about 940 MB there
 // in 0.837 ms (0.200 a band; tools/probe_bonds.py, NVIDIA H100 80GB HBM3,
 // 700 W): fwd_site's two runtime divisions a bond (57 division sequences
@@ -208,31 +216,42 @@ __device__ __forceinline__ uint32_t unit_threshold(float T) {
   return p1 > 0.0f ? static_cast<uint32_t>(fminf(ceilf(p1 * 16777216.0f), 16777216.0f)) : 0u;
 }
 
-// fk_bonds (kBand false: the whole periodic lattice, ops/fk.py bonds_words)
-// and fk_bonds_band (kBand: a band's window, whose bonds that leave it are
-// none; ops/lattice.Band.words), on a lattice of kNb forward offsets: the
-// state byte of every site, bit d for an active bond d and, with three
-// directions or fewer, bit 3 + d where s != s_fwd.  A thread takes the
-// group of window sites 4g .. 4g+3 of `per` graphs of one realization
-// (blockIdx.z; blockIdx.x the realization's graphs `per` at a time, side
-// by side; blockIdx.y the group's block of kThreads, strided): the group's
-// coordinates (band.cuh's multiply-shift, once), its neighbours (residues
-// and one compare an axis) and its 4 kNb couplings are found once and used
-// for each graph.  Each bond's uniform is word (site & 3) of Philox keyed
-// by the graph's kb words, counter (d, global site / 4, 0, 0): the same
-// draws in either form.  Where `vec` (the graphs' rows and the pointers
-// aligned, and a band's rows a multiple of 4 sites) and the group lies in
-// one row of the fast axis, its spins are one 32-bit load, each direction's
-// four neighbours one or two (load4; bytes where the fast axis wraps inside
-// the group), its couplings kNb float4 loads, its state one 32-bit store;
-// else each site takes the per-site path.
-template <int kNb, bool kBand>
+// fk_bonds and fk_bonds_staged (kBand false: the whole periodic lattice,
+// ops/fk.py bonds_words, ops/lattice.Lattice.sweep_words) and fk_bonds_band
+// (kBand: a band's window, whose bonds that leave it are none;
+// ops/lattice.Band.words), on a lattice of kNb forward offsets: the state
+// byte of every site, bit d for an active bond d and, where kDiffers (three
+// directions or fewer, and not the staged path), bit 3 + d where s !=
+// s_fwd.  A thread takes the group of window sites 4g .. 4g+3 of `per`
+// graphs of one realization (blockIdx.z; blockIdx.x the realization's
+// graphs `per` at a time, side by side; blockIdx.y the group's block of
+// kThreads, strided): the group's coordinates (band.cuh's multiply-shift,
+// once), its neighbours (residues and one compare an axis) and its 4 kNb
+// couplings are found once and used for each graph.  Each bond's uniform
+// is word (site & 3) of Philox keyed by the graph's kb words, counter (d,
+// global site / 4, 0, 0): the same draws in either form.  Where `vec` (the
+// graphs' rows and the pointers aligned, and a band's rows a multiple of 4
+// sites) and the group lies in one row of the fast axis, its spins are one
+// 32-bit load, each direction's four neighbours one or two (load4; bytes
+// where the fast axis wraps inside the group), its couplings kNb float4
+// loads, its state one 32-bit store; else each site takes the per-site
+// path.
+//
+// kSpread (the staged form's launches of one graph a thread, too small to
+// fill the card: 8 graphs of 16^3 are 32 CTAs): a CTA is kNb warps that
+// take the same 32 groups, warp d drawing direction d alone (a warp-uniform
+// choice: no divergence), and the warps' bits of each group's four state
+// bytes meet in shared memory, where warp 0 ors and stores them; per must
+// be 1.  BCC 16^3 x 8 0.0047 -> 0.0035 ms, FCC 0.0057 -> 0.0041, NNN 64^2 x
+// 8 0.0047 -> 0.0035 (tools/probe_bonds.py, NVIDIA H100 80GB HBM3, 700 W).
+template <int kNb, bool kBand, bool kDiffers = (kNb <= kMaxDirs), bool kSpread = false>
 __device__ __forceinline__ void bonds_body(const int8_t* __restrict__ spins,
                                            const float* __restrict__ j_fwd,
                                            const float* __restrict__ temps,
                                            const int32_t* __restrict__ kb,
                                            uint8_t* __restrict__ state, const BandWalk& geo,
                                            int n_systems, int per, int vec) {
+  __shared__ uint32_t spread_bits[kSpread ? kNb : 1][32];
   const int rows = geo.w.L[0];
   const int n = rows * geo.block;  // sites of a graph (a band's window)
   const int n_grp = (n + 3) >> 2;
@@ -240,136 +259,172 @@ __device__ __forceinline__ void bonds_body(const int8_t* __restrict__ spins,
   const int lf = three ? geo.w.L[2] : geo.w.L[1];  // the fast axis
   const int b0 = blockIdx.z * n_systems + blockIdx.x * per;
   const float* J = j_fwd + static_cast<size_t>(blockIdx.z) * n * kNb;
-  for (int g = blockIdx.y * kThreads + threadIdx.x; g < n_grp; g += gridDim.y * kThreads) {
+  const int lane = kSpread ? static_cast<int>(threadIdx.x & 31) : static_cast<int>(threadIdx.x);
+  const int dsel = kSpread ? static_cast<int>(threadIdx.x >> 5) : 0;  // kSpread: the warp's direction
+  const int span = kSpread ? 32 : kThreads;  // the groups a CTA takes at a time
+  // (kSpread: every warp of the CTA runs the same iterations, for its barriers)
+  for (int g = blockIdx.y * span + lane; (kSpread ? g - lane : g) < n_grp;
+       g += gridDim.y * span) {
     const int w0 = 4 * g;
-    int c1, c2;
-    const int r = band_coords(geo, w0, c1, c2);
-    int gr = r;  // the group's global row
-    if (kBand) {
-      gr = geo.row0 - geo.halo + r;
-      gr = gr < 0 ? gr + geo.L0 : gr >= geo.L0 ? gr - geo.L0 : gr;
-    }
-    const int f0 = three ? c2 : c1;
-    float jc[4 * kNb];
-    if (vec && w0 + 4 <= n) {
-#pragma unroll
-      for (int v = 0; v < kNb; ++v) {
-        const float4 x = __ldg(reinterpret_cast<const float4*>(J + static_cast<size_t>(w0) * kNb) + v);
-        jc[4 * v] = x.x;
-        jc[4 * v + 1] = x.y;
-        jc[4 * v + 2] = x.z;
-        jc[4 * v + 3] = x.w;
+    bool whole = false;  // the vector path
+    uint32_t bits = 0;   // kSpread: this warp's bits of the group's four state bytes
+    if (!kSpread || g < n_grp) {
+      int c1, c2;
+      const int r = band_coords(geo, w0, c1, c2);
+      int gr = r;  // the group's global row
+      if (kBand) {
+        gr = geo.row0 - geo.halo + r;
+        gr = gr < 0 ? gr + geo.L0 : gr >= geo.L0 ? gr - geo.L0 : gr;
       }
-    } else {
+      const int f0 = three ? c2 : c1;
+      float jc[4 * kNb];
+      if (vec && w0 + 4 <= n) {
 #pragma unroll
-      for (int v = 0; v < 4 * kNb; ++v)
-        jc[v] = w0 + v / kNb < n ? __ldg(J + static_cast<size_t>(w0) * kNb + v) : 0.0f;
-    }
-    if (vec && f0 + 3 < lf) {
-      // one row of the fast axis: direction d's four neighbours start at
-      // j[d] and run along the fast axis, wrapping after split[d] of them
-      const uint32_t ctr = static_cast<uint32_t>((gr * geo.block + (w0 - r * geo.block)) >> 2);
-      int j[kNb], split[kNb];
-      bool on[kNb];
+        for (int v = 0; v < kNb; ++v) {
+          const float4 x =
+              __ldg(reinterpret_cast<const float4*>(J + static_cast<size_t>(w0) * kNb) + v);
+          jc[4 * v] = x.x;
+          jc[4 * v + 1] = x.y;
+          jc[4 * v + 2] = x.z;
+          jc[4 * v + 3] = x.w;
+        }
+      } else {
 #pragma unroll
-      for (int d = 0; d < kNb; ++d) {
-        const int to = r + geo.w.off[d][0];
-        on[d] = !kBand || (to >= 0 && to < rows);
-        j[d] = band_neighbour(geo, w0, c1, c2, d, false);
-        if (!kBand) j[d] += to >= rows ? -n : to < 0 ? n : 0;
-        const int t = f0 + (three ? geo.res[d][1] : geo.res[d][0]);
-        split[d] = lf - (t >= lf ? t - lf : t);
+        for (int v = 0; v < 4 * kNb; ++v)
+          jc[v] = w0 + v / kNb < n ? __ldg(J + static_cast<size_t>(w0) * kNb + v) : 0.0f;
       }
-      for (int k = 0; k < per; ++k) {
-        const int b = b0 + k;
-        const int8_t* s = spins + static_cast<size_t>(b) * n;
-        const uint32_t sw = __ldg(reinterpret_cast<const uint32_t*>(s) + g);
-        const float T = temps[b];
-        const uint32_t thr1 = unit_threshold(T);
-        const uint32_t k0 = static_cast<uint32_t>(kb[2 * b]);
-        const uint32_t k1 = static_cast<uint32_t>(kb[2 * b + 1]);
-        uint32_t st = 0;
+      whole = vec && f0 + 3 < lf;
+      if (whole) {
+        // one row of the fast axis: direction d's four neighbours start at
+        // j[d] and run along the fast axis, wrapping after split[d] of them
+        const uint32_t ctr = static_cast<uint32_t>((gr * geo.block + (w0 - r * geo.block)) >> 2);
+        int j[kNb], split[kNb];
+        bool on[kNb];
 #pragma unroll
         for (int d = 0; d < kNb; ++d) {
-          if (!on[d]) continue;
-          uint32_t nw;
-          if (split[d] >= 4) {
-            nw = load4(s, j[d]);
-          } else {
-            nw = 0;
+          const int to = r + geo.w.off[d][0];
+          on[d] = (!kBand || (to >= 0 && to < rows)) && (!kSpread || d == dsel);
+          j[d] = band_neighbour(geo, w0, c1, c2, d, false);
+          if (!kBand) j[d] += to >= rows ? -n : to < 0 ? n : 0;
+          const int t = f0 + (three ? geo.res[d][1] : geo.res[d][0]);
+          split[d] = lf - (t >= lf ? t - lf : t);
+        }
+        for (int k = 0; k < per; ++k) {
+          const int b = b0 + k;
+          const int8_t* s = spins + static_cast<size_t>(b) * n;
+          const uint32_t sw = __ldg(reinterpret_cast<const uint32_t*>(s) + g);
+          const float T = temps[b];
+          const uint32_t thr1 = unit_threshold(T);
+          const uint32_t k0 = static_cast<uint32_t>(kb[2 * b]);
+          const uint32_t k1 = static_cast<uint32_t>(kb[2 * b + 1]);
+          uint32_t st = 0;
+#pragma unroll
+          for (int d = 0; d < kNb; ++d) {
+            if (!on[d]) continue;
+            uint32_t nw;
+            if (split[d] >= 4) {
+              nw = load4(s, j[d]);
+            } else {
+              nw = 0;
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+                nw |= static_cast<uint32_t>(static_cast<uint8_t>(
+                          s[j[d] + q - (q >= split[d] ? lf : 0)])) << (8 * q);
+            }
+            const uint4 u = philox4x32_10(k0, k1, static_cast<uint32_t>(d), ctr, 0u, 0u);
+            const uint32_t uw[4] = {u.x, u.y, u.z, u.w};
 #pragma unroll
             for (int q = 0; q < 4; ++q)
-              nw |= static_cast<uint32_t>(static_cast<uint8_t>(
-                        s[j[d] + q - (q >= split[d] ? lf : 0)])) << (8 * q);
+              if (bond_active(byte_spin(sw, q) * byte_spin(nw, q) * jc[q * kNb + d], uw[q], T,
+                              thr1))
+                st |= 1u << (8 * q + d);
+            if (kDiffers) st |= (__vcmpne4(sw, nw) & 0x01010101u) << (3 + d);
           }
-          const uint4 u = philox4x32_10(k0, k1, static_cast<uint32_t>(d), ctr, 0u, 0u);
-          const uint32_t uw[4] = {u.x, u.y, u.z, u.w};
+          if (kSpread)
+            bits = st;
+          else
+            reinterpret_cast<uint32_t*>(state + static_cast<size_t>(b) * n)[g] = st;
+        }
+      } else {
+        // the per-site path: a group that crosses a row of the fast axis (or
+        // a window row), or unaligned graphs
+        for (int k = 0; k < per; ++k) {
+          const int b = b0 + k;
+          const int8_t* s = spins + static_cast<size_t>(b) * n;
+          uint8_t* out = state + static_cast<size_t>(b) * n;
+          const float T = temps[b];
+          const uint32_t thr1 = unit_threshold(T);
+          const uint32_t k0 = static_cast<uint32_t>(kb[2 * b]);
+          const uint32_t k1 = static_cast<uint32_t>(kb[2 * b + 1]);
+          int rr = r, gg = gr, e1 = c1, e2 = c2;
+          uint4 u[kNb];
+          int cur = -1;  // the Philox block of u
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int w = w0 + q;
+            if (w >= n) break;
+            if (q) {  // the next site's coordinates
+              if (++e2 == geo.w.L[2]) {
+                e2 = 0;
+                if (++e1 == geo.w.L[1]) {
+                  e1 = 0;
+                  ++rr;
+                  gg = gg + 1 == geo.L0 ? 0 : gg + 1;
+                }
+              }
+            }
+            const int gid = kBand ? gg * geo.block + e1 * geo.w.L[2] + e2 : w;
+            if ((gid >> 2) != cur) {
+              cur = gid >> 2;
+#pragma unroll
+              for (int d = 0; d < kNb; ++d)
+                if (!kSpread || d == dsel)
+                  u[d] = philox4x32_10(k0, k1, static_cast<uint32_t>(d),
+                                       static_cast<uint32_t>(cur), 0u, 0u);
+            }
+            const float si = static_cast<float>(s[w]);
+            uint8_t st = 0;
+#pragma unroll
+            for (int d = 0; d < kNb; ++d) {
+              if (kSpread && d != dsel) continue;
+              const int to = rr + geo.w.off[d][0];
+              if (kBand && (to < 0 || to >= rows)) continue;  // the bond leaves the window: none
+              int jn = band_neighbour(geo, w, e1, e2, d, false);
+              if (!kBand) jn += to >= rows ? -n : to < 0 ? n : 0;
+              const float sf = static_cast<float>(s[jn]);
+              if (bond_active(si * sf * jc[q * kNb + d], philox_word(u[d], gid), T, thr1))
+                st |= 1u << d;
+              if (kDiffers && si != sf) st |= 8u << d;
+            }
+            if (kSpread)
+              bits |= static_cast<uint32_t>(st) << (8 * q);
+            else
+              out[w] = st;
+          }
+        }
+      }
+    }
+    if (kSpread) {  // warp 0 ors the warps' bits and stores the group's bytes
+      spread_bits[dsel][lane] = bits;
+      __syncthreads();
+      if (dsel == 0 && g < n_grp) {
+#pragma unroll
+        for (int d = 1; d < kNb; ++d) bits |= spread_bits[d][lane];
+        uint8_t* out = state + static_cast<size_t>(b0) * n;
+        if (whole) {
+          reinterpret_cast<uint32_t*>(out)[g] = bits;
+        } else {
 #pragma unroll
           for (int q = 0; q < 4; ++q)
-            if (bond_active(byte_spin(sw, q) * byte_spin(nw, q) * jc[q * kNb + d], uw[q], T,
-                            thr1))
-              st |= 1u << (8 * q + d);
-          if (kNb <= kMaxDirs) st |= (__vcmpne4(sw, nw) & 0x01010101u) << (3 + d);
+            if (w0 + q < n) out[w0 + q] = static_cast<uint8_t>(bits >> (8 * q));
         }
-        reinterpret_cast<uint32_t*>(state + static_cast<size_t>(b) * n)[g] = st;
       }
-      continue;
-    }
-    // the per-site path: a group that crosses a row of the fast axis (or a
-    // window row), or unaligned graphs
-    for (int k = 0; k < per; ++k) {
-      const int b = b0 + k;
-      const int8_t* s = spins + static_cast<size_t>(b) * n;
-      uint8_t* out = state + static_cast<size_t>(b) * n;
-      const float T = temps[b];
-      const uint32_t thr1 = unit_threshold(T);
-      const uint32_t k0 = static_cast<uint32_t>(kb[2 * b]);
-      const uint32_t k1 = static_cast<uint32_t>(kb[2 * b + 1]);
-      int rr = r, gg = gr, e1 = c1, e2 = c2;
-      uint4 u[kNb];
-      int cur = -1;  // the Philox block of u
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const int w = w0 + q;
-        if (w >= n) break;
-        if (q) {  // the next site's coordinates
-          if (++e2 == geo.w.L[2]) {
-            e2 = 0;
-            if (++e1 == geo.w.L[1]) {
-              e1 = 0;
-              ++rr;
-              gg = gg + 1 == geo.L0 ? 0 : gg + 1;
-            }
-          }
-        }
-        const int gid = kBand ? gg * geo.block + e1 * geo.w.L[2] + e2 : w;
-        if ((gid >> 2) != cur) {
-          cur = gid >> 2;
-#pragma unroll
-          for (int d = 0; d < kNb; ++d)
-            u[d] = philox4x32_10(k0, k1, static_cast<uint32_t>(d), static_cast<uint32_t>(cur),
-                                 0u, 0u);
-        }
-        const float si = static_cast<float>(s[w]);
-        uint8_t st = 0;
-#pragma unroll
-        for (int d = 0; d < kNb; ++d) {
-          const int to = rr + geo.w.off[d][0];
-          if (kBand && (to < 0 || to >= rows)) continue;  // the bond leaves the window: none
-          int jn = band_neighbour(geo, w, e1, e2, d, false);
-          if (!kBand) jn += to >= rows ? -n : to < 0 ? n : 0;
-          const float sf = static_cast<float>(s[jn]);
-          if (bond_active(si * sf * jc[q * kNb + d], philox_word(u[d], gid), T, thr1))
-            st |= 1u << d;
-          if (kNb <= kMaxDirs && si != sf) st |= 8u << d;
-        }
-        out[w] = st;
-      }
+      __syncthreads();  // before the next groups' bits
     }
   }
 }
 
-// The two forms' kernels (their own names, for the profiler), one body;
+// The three forms' kernels (their own names, for the profiler), one body;
 // kBlocks the blocks an SM they are built for (launch_bonds: 4, at most 64
 // registers, where the threads loop over several graphs).
 template <int kNb, int kBlocks>
@@ -381,6 +436,20 @@ fk_bonds_kernel(const int8_t* __restrict__ spins, const float* __restrict__ j_fw
   bonds_body<kNb, false>(spins, j_fwd, temps, kb, state, geo, n_systems, per, vec);
 }
 
+// The staged path's bonds (the lattices of an offset table: BCC, FCC,
+// custom offsets), whose state bytes hold the bonds alone: cc.cu's
+// labelling reads nothing else, and the path measures after the flips
+// (sweep_nb.cu measure_nb).
+template <int kNb, int kBlocks, bool kSpread>
+__global__ void __launch_bounds__(kThreads, kBlocks)
+fk_bonds_staged_kernel(const int8_t* __restrict__ spins, const float* __restrict__ j_fwd,
+                       const float* __restrict__ temps, const int32_t* __restrict__ kb,
+                       uint8_t* __restrict__ state, const BandWalk geo, int n_systems, int per,
+                       int vec) {
+  bonds_body<kNb, false, false, kSpread>(spins, j_fwd, temps, kb, state, geo, n_systems, per,
+                                         vec);
+}
+
 template <int kNb, int kBlocks>
 __global__ void __launch_bounds__(kThreads, kBlocks)
 fk_bonds_band_kernel(const int8_t* __restrict__ spins, const float* __restrict__ j_win,
@@ -388,53 +457,6 @@ fk_bonds_band_kernel(const int8_t* __restrict__ spins, const float* __restrict__
                      uint8_t* __restrict__ state, const BandWalk geo, int n_systems, int per,
                      int vec) {
   bonds_body<kNb, true>(spins, j_win, temps, kb, state, geo, n_systems, per, vec);
-}
-
-// fk_bonds on a lattice given by its offset table (the staged path): the
-// bond draws of fk_bonds along each forward offset, bit d of the state byte
-// set when bond d is active (no "s differs" bits: the staged path measures
-// after the flips), and nothing else: cc.cu's labelling reads only the
-// state bytes.
-__global__ void __launch_bounds__(kThreads)
-fk_bonds_nb_kernel(const int8_t* __restrict__ spins, const float* __restrict__ j_fwd,
-                   const float* __restrict__ temps, const int32_t* __restrict__ kb,
-                   uint8_t* __restrict__ state, const NbGeom geo, int n_systems) {
-  const int b = blockIdx.y;
-  const int n = geo.L[0] * geo.L[1] * geo.L[2];
-  const int nd = geo.n_nb;
-  const int g = blockIdx.x * blockDim.x + threadIdx.x;
-  if (kSitesPerThread * g >= n) return;
-  const size_t base = static_cast<size_t>(b) * n;
-  const int8_t* s = spins + base;
-  const float* J = j_fwd + static_cast<size_t>(b / n_systems) * n * nd;
-  const float T = temps[b];
-  const uint32_t k0 = static_cast<uint32_t>(kb[2 * b]);
-  const uint32_t k1 = static_cast<uint32_t>(kb[2 * b + 1]);
-  uint32_t w[kMaxOffsets][4];
-  for (int dir = 0; dir < nd; ++dir) {
-    const uint4 r = philox4x32_10(k0, k1, static_cast<uint32_t>(dir),
-                                  static_cast<uint32_t>(g), 0u, 0u);
-    w[dir][0] = r.x;
-    w[dir][1] = r.y;
-    w[dir][2] = r.z;
-    w[dir][3] = r.w;
-  }
-#pragma unroll
-  for (int k = 0; k < kSitesPerThread; ++k) {
-    const int i = kSitesPerThread * g + k;
-    if (i >= n) break;
-    int c[3];
-    coords(geo, i, c);
-    const float si = static_cast<float>(s[i]);
-    uint8_t st = 0;
-    for (int dir = 0; dir < nd; ++dir) {
-      const float sf = static_cast<float>(s[neighbour(geo, c, dir, 1)]);
-      const float inter = si * sf * J[static_cast<size_t>(i) * nd + dir];
-      const float p = 1.0f - expf(-2.0f * inter / T);
-      if (inter > 0.0f && uniform24(w[dir][k]) < p) st |= 1u << dir;
-    }
-    state[base + i] = st;
-  }
 }
 
 // fk_link's tiles (ops/fk.py link_plan): boxes of t[0] x t[1] x t[2] sites
@@ -1002,7 +1024,12 @@ inline dim3 site_grid(int n, int per_thread, int n_graphs) {
   return dim3((groups + kThreads - 1) / kThreads, n_graphs);
 }
 
-// fk_bonds_kernel's launch: blockIdx.x a realization's graphs `per` at a
+// The bond kernels' forms: fk_bonds (the square, triangular and cubic
+// lattices: 2 or 3 directions), fk_bonds_staged (an offset table's whole
+// lattice) and fk_bonds_band (a band's window), the last two of 1 to 6.
+enum BondsForm { kFusedForm, kStagedForm, kBandForm };
+
+// The bond kernels' launch: blockIdx.x a realization's graphs `per` at a
 // time, y the groups' blocks (at most 65535, a thread striding over the
 // rest), z the realization; refused unless per divides n_systems and
 // n_systems n_graphs.  The vector path where every graph's row of sites (a
@@ -1013,18 +1040,25 @@ inline dim3 site_grid(int n, int per_thread, int n_graphs) {
 // window; one graph a thread (32^3 x 16: 0.0091 against 0.0077 ms) and six
 // directions (FCC, 0.0118 against 0.0065) lose to its spills
 // (tools/probe_bonds.py, NVIDIA H100 80GB HBM3, 700 W).
-template <bool kBand>
+template <BondsForm kForm>
 int launch_bonds(const void* spins, const void* j_fwd, const void* temps, const void* kb,
                  void* state, const int* words, int n_graphs, int n_systems, int per,
                  void* stream) {
+  constexpr bool kBand = kForm == kBandForm;
   const BandWalk geo = make_band_walk(words);
   const int nb = geo.w.n_nb;
   const long long n = static_cast<long long>(geo.w.L[0]) * geo.block;
   if (n_graphs < 1 || n_graphs > 65535 || n_systems < 1 || n_graphs % n_systems || per < 1 ||
-      n_systems % per || nb < 1 || (kBand ? nb > kMaxOffsets : nb != 2 && nb != 3) || n < 1 ||
+      n_systems % per || nb < 1 ||
+      (kForm == kFusedForm ? nb != 2 && nb != 3 : nb > kMaxOffsets) || n < 1 ||
       n > (1LL << 31) - 4)
     return static_cast<int>(cudaErrorInvalidValue);
-  const long long blocks = (n + 4LL * kThreads - 1) / (4LL * kThreads);
+  constexpr bool kStaged = kForm == kStagedForm;
+  // the staged form's launches of one graph a thread: kNb warps a CTA, one
+  // direction each, 32 groups a CTA (bonds_body's kSpread)
+  const bool spread = kStaged && per == 1;
+  const long long span = spread ? 32 : kThreads;  // the groups a CTA takes at a time
+  const long long blocks = ((n + 3) / 4 + span - 1) / span;
   const dim3 grid(n_systems / per, static_cast<unsigned>(blocks < 65535 ? blocks : 65535),
                   n_graphs / n_systems);
   const auto at = [](const void* p, unsigned a) {
@@ -1036,17 +1070,38 @@ int launch_bonds(const void* spins, const void* j_fwd, const void* temps, const 
                           uint8_t*, const BandWalk, int, int, int);
   const bool loop = per > 1;
   Kernel kernel;
-  if (nb == 2)
+  if (kStaged) {
+    switch (nb) {
+      case 1:
+        kernel = spread ? fk_bonds_staged_kernel<1, 1, true> : fk_bonds_staged_kernel<1, 1, false>;
+        break;
+      case 2:  // not spread: per > 1, the threads loop over graphs
+        kernel = spread ? fk_bonds_staged_kernel<2, 1, true> : fk_bonds_staged_kernel<2, 4, false>;
+        break;
+      case 3:
+        kernel = spread ? fk_bonds_staged_kernel<3, 1, true> : fk_bonds_staged_kernel<3, 4, false>;
+        break;
+      case 4:
+        kernel = spread ? fk_bonds_staged_kernel<4, 1, true> : fk_bonds_staged_kernel<4, 1, false>;
+        break;
+      case 5:
+        kernel = spread ? fk_bonds_staged_kernel<5, 1, true> : fk_bonds_staged_kernel<5, 1, false>;
+        break;
+      default:
+        kernel = spread ? fk_bonds_staged_kernel<6, 1, true> : fk_bonds_staged_kernel<6, 1, false>;
+    }
+  } else if (nb == 2) {
     kernel = kBand ? (loop ? fk_bonds_band_kernel<2, 4> : fk_bonds_band_kernel<2, 1>)
                    : (loop ? fk_bonds_kernel<2, 4> : fk_bonds_kernel<2, 1>);
-  else if (nb == 3)
+  } else if (nb == 3) {
     kernel = kBand ? (loop ? fk_bonds_band_kernel<3, 4> : fk_bonds_band_kernel<3, 1>)
                    : (loop ? fk_bonds_kernel<3, 4> : fk_bonds_kernel<3, 1>);
-  else
+  } else {
     kernel = nb == 1 ? fk_bonds_band_kernel<1, 1>
                      : nb == 4 ? fk_bonds_band_kernel<4, 1>
                                : nb == 5 ? fk_bonds_band_kernel<5, 1> : fk_bonds_band_kernel<6, 1>;
-  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  }
+  kernel<<<grid, spread ? 32 * nb : kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(spins), static_cast<const float*>(j_fwd),
       static_cast<const float*>(temps), static_cast<const int32_t*>(kb),
       static_cast<uint8_t*>(state), geo, n_systems, per, vec);
@@ -1068,8 +1123,18 @@ int peapods_fk_blocks(int n) { return (n + kThreads - 1) / kThreads; }
 int peapods_fk_bonds(const void* spins, const void* j_fwd, const void* temps,
                      const void* kb, void* state, const int* words, int n_graphs,
                      int n_systems, int per, void* stream) {
-  return launch_bonds<false>(spins, j_fwd, temps, kb, state, words, n_graphs, n_systems,
-                             per, stream);
+  return launch_bonds<kFusedForm>(spins, j_fwd, temps, kb, state, words, n_graphs, n_systems,
+                                  per, stream);
+}
+
+// Graphs of a lattice given by its offset table, 1 to 6 offsets (the staged
+// path; words: ops/lattice.Lattice.sweep_words, host memory); arguments as
+// peapods_fk_bonds's.  The state bytes hold the bonds alone.
+int peapods_fk_bonds_staged(const void* spins, const void* j_fwd, const void* temps,
+                            const void* kb, void* state, const int* words, int n_graphs,
+                            int n_systems, int per, void* stream) {
+  return launch_bonds<kStagedForm>(spins, j_fwd, temps, kb, state, words, n_graphs, n_systems,
+                                   per, stream);
 }
 
 // state: uint8 [n_graphs, n] whose bits 0 .. ndir-1 are the forward bonds;
@@ -1113,21 +1178,6 @@ int peapods_fk_link_flatten(void* parent, int n_graphs, int n, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Graphs of an offset table (geom: ops/lattice.Lattice.kernel_geometry);
-// state: uint8 [n_graphs, n].
-int peapods_fk_bonds_nb(const void* spins, const void* j_fwd, const void* temps,
-                        const void* kb, void* state, const int* geom, int n_graphs,
-                        int n_systems, void* stream) {
-  const NbGeom geo = make_geom(geom);
-  fk_bonds_nb_kernel<<<site_grid(geo.L[0] * geo.L[1] * geo.L[2], kSitesPerThread,
-                                 n_graphs),
-                       kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(spins), static_cast<const float*>(j_fwd),
-      static_cast<const float*>(temps), static_cast<const int32_t*>(kb),
-      static_cast<uint8_t*>(state), geo, n_systems);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // words: ops/fk.py finish_words (host memory).  labels: int32 [n_graphs,
 // n], each site's root (fk_link's parents, or the staged path's CC labels);
 // e_part / m_part: [n_graphs, peapods_fk_blocks(n)], or both null (no
@@ -1160,8 +1210,8 @@ int peapods_fk_finish(void* spins, const void* state, const void* labels,
 int peapods_fk_bonds_band(const void* spins, const void* j_win, const void* temps,
                           const void* kb, void* state, const int* geom, int n_graphs,
                           int n_systems, int per, void* stream) {
-  return launch_bonds<true>(spins, j_win, temps, kb, state, geom, n_graphs, n_systems, per,
-                            stream);
+  return launch_bonds<kBandForm>(spins, j_win, temps, kb, state, geom, n_graphs, n_systems,
+                                 per, stream);
 }
 
 // seed_labels int32 [n_graphs] (Wolff; else null); e_part / m_part [n_graphs,

@@ -1,9 +1,11 @@
 // The geometry of a lattice given by its forward offsets (up to six), shared
-// by the coloured sweep (sweep_nb.cu), the FK bonds of the staged path
-// (fk.cu) and the band kernels (band.cuh); cc.cu takes its offset count:
-// extents, row-major
-// strides and the offsets, each axis wrapped on its own (rem_euclid); a 2D
-// lattice is [L0, L1, 1].
+// by the coloured sweep's measurement (sweep_nb.cu measure_nb, the one
+// kernel left that finds coordinates and neighbours with coords / neighbour:
+// runtime divisions and modulos) and the band kernels (band.cuh, whose
+// BandWalk the division-free kernels of sweep_nb.cu, fk.cu and halo.cu
+// take); cc.cu takes its offset count: extents, row-major strides and the
+// offsets, each axis wrapped on its own (rem_euclid); a 2D lattice is
+// [L0, L1, 1].
 #pragma once
 
 #include <cstdint>

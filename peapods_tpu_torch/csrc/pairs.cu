@@ -5,19 +5,49 @@
 // peapods_tpu/ops/pallas_megapair.py:_mp_kernel (:599-619; the reference's
 // OverlapAccum.collect, statistics/overlap.rs:251-333), which sums products
 // of resident partner regions of its slot tiles.  Here spins stay by system:
-// block (p T + t, d) reads the systems at slots (2p) T + t and (2p + 1) T + t
-// of realization d through sid, and sums over the lattice
+// column (p T + t) of realization d reads the systems at slots (2p) T + t
+// and (2p + 1) T + t through sid, and sums over the lattice
 //   qs = sum_i a_i b_i,   ql = sum_i q_i (q_{i+x} + q_{i+y} [+ q_{i+z}])
-// with q_i = a_i b_i, in int32 (exact in any order), into the sweep's rows
-// qs_out / ql_out [d, n_pairs T] (row stride out_stride).  It runs after the
-// measuring colour pass and before pt_step, so it reads the sweep's final
-// spins through the sid that the sweep ran with; it cannot ride in the odd
-// pass itself, since a partner system is being updated by other blocks.
+// with q_i = a_i b_i, into the sweep's rows qs_out / ql_out [d, n_pairs T]
+// (row stride out_stride).  It runs after the measuring colour pass and
+// before pt_step, so it reads the sweep's final spins through the sid that
+// the sweep ran with; it cannot ride in the odd pass itself, since a
+// partner system is being updated by other blocks.
 //
-// What bounds it on the H100: each block reads its two systems' spins (8^3:
-// 1 KB, 16^3: 8 KB) and the forward neighbours' (mostly cached): 768 KB to
-// 6.3 MB per launch at configs 4 and 5, microseconds at HBM rate, so launch
-// latency dominates at 8^3.
+// The sums as disagreement bits: with spins in {-1, +1} and delta_i =
+// [a_i != b_i], q_i = 1 - 2 delta_i and q_i q_j = 1 - 2 (delta_i XOR
+// delta_j), so
+//   qs = n - 2 sum_i delta_i,
+//   ql = nd n - 2 sum over forward bonds (i, j) of (delta_i XOR delta_j),
+// integer counts, exact in any order: bitwise ops/measure.py overlap_dots.
+// A thread takes W-byte words of the two systems along the fast axis
+// (W = 8 or 4 where the fast extent holds whole words; W = 1, a site at a
+// time, where it does not): the sign bits of a ^ b are the word's delta
+// bits (every spin byte is 0x01 or 0xff), __popc counts them, the fast-axis
+// neighbours' bits are the word funnel-shifted by one byte with the row's
+// next word (the row's first where it wraps), and the slower axes'
+// neighbours' bits are the same word of the next row or plane, found with a
+// multiply-shift division and one compare an axis (pair_link_bits).
+//
+// The launch: a column's threads (tpc, a power of two from 32 to 1024, the
+// fewest that take one word each: 64 at 8^3, 128 at 32^2, 512 at 16^3;
+// ops/megapair.py pair_words) stride over its words; a CTA of max(128,
+// tpc) threads holds 128 / tpc columns side by side.  Each warp adds its counts with __reduce_add_sync, and
+// where a column has several warps their counts meet in shared memory
+// behind one barrier and one warp adds them.
+//
+// What bounds it on the H100: the function reads the two systems of every
+// column, 2 n bytes, and writes 8 bytes: 0.79 MB at config 4 (8^3 x 384
+// columns), 6.3 MB at config 5 (16^3), 0.1 to 2 us at 3.35 TB/s (and
+// mostly from L2: the colour pass has just written them).  The first
+// design (a CTA of 256 threads a column, two runtime divisions a step and
+// six steps a site in 3D, byte loads, each q recomputed nd + 1 times, a
+// shared-memory tree of nine barriers) took 0.0147 ms at 16^3, 0.0043 at
+// 8^3 and 0.0040 at config 1's 32^2, its divisions half of it at 16^3;
+// this one takes 0.0036, 0.0026 and 0.0024 (tools/probe_pairs.py, NVIDIA
+// H100 80GB HBM3, 700 W), the launch and one chain of dependent loads (sid,
+// then the words).  Bytes a word count: 1-byte words doubled it at 16^3,
+// and so did one warp a column there.
 
 #include <cuda_runtime.h>
 
@@ -25,54 +55,155 @@
 #include <cstdint>
 
 #include "mega.cuh"
-#include "uf.cuh"
 
 using namespace peapods;
 
 namespace {
 
-__global__ void __launch_bounds__(kThreads)
+constexpr int kPairMaxThreads = 1024;
+
+// The launch's geometry and plan (ops/megapair.py pair_words): a lattice of
+// n sites in lines of wpl words along the fast axis; the lines run over an
+// inner slow axis of extent Lb (2D: L0; 3D: L1) and, in 3D, an outer one of
+// extent La (L0; 0 in 2D).  n / W words a system, tpc threads a column
+// (2^lt), CTAs of `block` threads; line = k / wpl, the outer coordinate =
+// line / Lb and p = column / T as umulhi(q, m) >> s (fast_div).
+struct PairWalk {
+  int W;
+  int n;
+  int nw;
+  int wpl;
+  int Lb;
+  int La;
+  int nd;
+  int T;
+  int cols;
+  int n_slots;
+  int tpc;
+  int lt;
+  int block;
+  uint32_t m[3];
+  int s[3];
+};
+
+inline PairWalk make_pair_walk(const int* w) {
+  PairWalk g;
+  g.W = w[0];
+  g.n = w[1];
+  g.nw = w[2];
+  g.wpl = w[3];
+  g.Lb = w[4];
+  g.La = w[5];
+  g.nd = w[6];
+  g.T = w[7];
+  g.cols = w[8];
+  g.n_slots = w[9];
+  g.tpc = w[10];
+  g.lt = w[11];
+  g.block = w[12];
+  for (int k = 0; k < 3; ++k) {
+    g.m[k] = static_cast<uint32_t>(w[13 + 2 * k]);
+    g.s[k] = w[14 + 2 * k];
+  }
+  return g;
+}
+
+template <int W>
+struct SpinWord;
+template <>
+struct SpinWord<8> {
+  typedef unsigned long long T;
+};
+template <>
+struct SpinWord<4> {
+  typedef unsigned int T;
+};
+template <>
+struct SpinWord<1> {
+  typedef unsigned char T;
+};
+
+// The delta bits of word k of systems a and b: bit 8q + 7 set where site q
+// of the word differs (the spins' sign bits).
+template <int W>
+__device__ __forceinline__ unsigned long long delta_bits(const int8_t* a, const int8_t* b,
+                                                         int k) {
+  typedef typename SpinWord<W>::T T;
+  const T x = __ldg(reinterpret_cast<const T*>(a) + k) ^ __ldg(reinterpret_cast<const T*>(b) + k);
+  return static_cast<unsigned long long>(x) & (0x8080808080808080ull >> (64 - 8 * W));
+}
+
+// sum over the forward bonds of word k's sites of (delta_i XOR delta_j),
+// with m0 the word's delta bits: the fast axis (the word shifted by a byte,
+// the line's next word shifted in) and each slower axis (the same word of
+// the next line along it).  The lattice's neighbour step, in one place.
+template <int W>
+__device__ __forceinline__ int pair_link_bits(const int8_t* a, const int8_t* b, int k,
+                                              unsigned long long m0, const PairWalk& g) {
+  const int line = fast_div(k, g.m[0], g.s[0]);
+  const int pos = k - line * g.wpl;
+  const unsigned long long mf = delta_bits<W>(a, b, pos + 1 < g.wpl ? k + 1 : k + 1 - g.wpl);
+  const unsigned long long full = 0xffffffffffffffffull >> (64 - 8 * W);
+  int x = __popcll(m0 ^ (((m0 >> 8) | (mf << (8 * (W - 1)))) & full));
+  int cb = line;
+  int ca = 0;
+  if (g.La) {
+    ca = fast_div(line, g.m[1], g.s[1]);
+    cb = line - ca * g.Lb;
+  }
+  x += __popcll(m0 ^ delta_bits<W>(a, b, cb + 1 < g.Lb ? k + g.wpl : k + g.wpl - g.Lb * g.wpl));
+  if (g.La) {
+    const int plane = g.Lb * g.wpl;
+    x += __popcll(m0 ^ delta_bits<W>(a, b, ca + 1 < g.La ? k + plane : k + plane - g.nw));
+  }
+  return x;
+}
+
+// Column blockIdx.x * (block / tpc) + threadIdx.x / tpc of realization
+// blockIdx.y: its threads' words, each warp's counts added by
+// __reduce_add_sync, a column's warps' sums by its first warp.
+template <int W>
+__global__ void __launch_bounds__(kPairMaxThreads)
 pair_overlap_kernel(const int8_t* __restrict__ spins, const int32_t* __restrict__ sid,
                     int32_t* __restrict__ qs_out, int32_t* __restrict__ ql_out,
-                    int out_stride, int L0, int L1, int L2, int n_temps,
-                    int n_slots) {
-  const Dims g = make_dims(L0, L1, L2);
-  const int n = L0 * L1 * L2;
-  const int col = blockIdx.x;  // p T + t
+                    int out_stride, const PairWalk g) {
+  __shared__ int part[2][kPairMaxThreads / 32];
   const int d = blockIdx.y;
-  const int p = col / n_temps;
-  const int t = col - p * n_temps;
-  const int32_t* sd = sid + static_cast<size_t>(d) * n_slots;
-  const int8_t* a = spins + (static_cast<size_t>(d) * n_slots + sd[2 * p * n_temps + t]) * n;
-  const int8_t* b =
-      spins + (static_cast<size_t>(d) * n_slots + sd[(2 * p + 1) * n_temps + t]) * n;
-  int qs = 0;
-  int ql = 0;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const int q = a[i] * b[i];
-    int nbr = 0;
-    for (int dir = 0; dir < g.nd; ++dir) {
-      const int f = fwd_site(i, g, dir);
-      nbr += a[f] * b[f];
+  const int x = threadIdx.x & (g.tpc - 1);  // the thread's place in its column
+  const int col = blockIdx.x * (g.block >> g.lt) + (threadIdx.x >> g.lt);
+  int nq = 0;
+  int nx = 0;
+  if (col < g.cols) {
+    const int p = fast_div(col, g.m[2], g.s[2]);
+    const int sa = col + p * g.T;  // slot (2p) T + t; its partner's is sa + T
+    const int32_t* sd = sid + static_cast<size_t>(d) * g.n_slots;
+    const int8_t* a = spins + (static_cast<size_t>(d) * g.n_slots + sd[sa]) * g.n;
+    const int8_t* b = spins + (static_cast<size_t>(d) * g.n_slots + sd[sa + g.T]) * g.n;
+    for (int k = x; k < g.nw; k += g.tpc) {
+      const unsigned long long m0 = delta_bits<W>(a, b, k);
+      nq += __popcll(m0);
+      nx += pair_link_bits<W>(a, b, k, m0, g);
     }
-    qs += q;
-    ql += q * nbr;
   }
-  __shared__ int sq[kThreads];
-  __shared__ int sl[kThreads];
-  sq[threadIdx.x] = qs;
-  sl[threadIdx.x] = ql;
-  __syncthreads();
-  for (int off = kThreads / 2; off > 0; off >>= 1) {
-    if (threadIdx.x < off) {
-      sq[threadIdx.x] += sq[threadIdx.x + off];
-      sl[threadIdx.x] += sl[threadIdx.x + off];
+  nq = __reduce_add_sync(0xffffffffu, nq);
+  nx = __reduce_add_sync(0xffffffffu, nx);
+  if (g.tpc > 32) {  // uniform across the launch
+    const int lane = threadIdx.x & 31;
+    if (lane == 0) {
+      part[0][threadIdx.x >> 5] = nq;
+      part[1][threadIdx.x >> 5] = nx;
     }
     __syncthreads();
+    if (x < 32) {  // the column's first warp adds its warps' sums
+      const int w0 = threadIdx.x >> 5;
+      const bool on = lane < (g.tpc >> 5);
+      nq = __reduce_add_sync(0xffffffffu, on ? part[0][w0 + lane] : 0);
+      nx = __reduce_add_sync(0xffffffffu, on ? part[1][w0 + lane] : 0);
+    }
   }
-  if (threadIdx.x == 0) {
-    qs_out[static_cast<size_t>(d) * out_stride + col] = sq[0];
-    ql_out[static_cast<size_t>(d) * out_stride + col] = sl[0];
+  if (x == 0 && col < g.cols) {
+    qs_out[static_cast<size_t>(d) * out_stride + col] = g.n - 2 * nq;
+    ql_out[static_cast<size_t>(d) * out_stride + col] = g.nd * g.n - 2 * nx;
   }
 }
 
@@ -82,16 +213,26 @@ extern "C" {
 
 // spins int8 [d, n_slots, n] by system, sid int32 [d, n_slots] (slot r T +
 // t); writes qs / ql of pair p at temperature t to [d, p T + t] of rows
-// with stride out_stride.  2D lattices pass L2 = 1.
-int peapods_pair_overlap(const void* spins, const void* sid, void* qs_out,
-                         void* ql_out, int out_stride, int n_disorder, int n_pairs,
-                         int n_temps, int n_slots, int L0, int L1, int L2,
-                         void* stream) {
-  pair_overlap_kernel<<<dim3(n_pairs * n_temps, n_disorder), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+// with stride out_stride.  words: ops/megapair.py pair_words (host
+// memory); spins aligned to W bytes.
+int peapods_pair_overlap(const void* spins, const void* sid, void* qs_out, void* ql_out,
+                         int out_stride, int n_disorder, const int* words, void* stream) {
+  const PairWalk g = make_pair_walk(words);
+  const int cpc = g.tpc > 0 ? g.block / g.tpc : 0;  // columns a CTA
+  if ((g.W != 1 && g.W != 4 && g.W != 8) || g.n < 1 || g.nw * g.W != g.n || g.wpl < 1 ||
+      g.Lb < 1 || g.La < 0 || g.wpl * g.Lb * (g.La ? g.La : 1) != g.nw ||
+      g.nd != (g.La ? 3 : 2) ||
+      g.tpc < 32 || g.tpc > kPairMaxThreads || (1 << g.lt) != g.tpc ||
+      g.block != (g.tpc > 128 ? g.tpc : 128) || cpc < 1 || g.cols < 1 || n_disorder < 1 ||
+      n_disorder > 65535 || out_stride < g.cols ||
+      reinterpret_cast<uintptr_t>(spins) % g.W != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((g.cols + cpc - 1) / cpc, n_disorder);
+  const auto kernel = g.W == 8 ? pair_overlap_kernel<8>
+                               : g.W == 4 ? pair_overlap_kernel<4> : pair_overlap_kernel<1>;
+  kernel<<<grid, g.block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(spins), static_cast<const int32_t*>(sid),
-      static_cast<int32_t*>(qs_out), static_cast<int32_t*>(ql_out), out_stride, L0,
-      L1, L2, n_temps, n_slots);
+      static_cast<int32_t*>(qs_out), static_cast<int32_t*>(ql_out), out_stride, g);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -48,10 +48,10 @@ _SIGNATURES = {
     "peapods_sweep_2d": [_P] * 6 + [_I] * 9 + [_P],
     "peapods_fk_blocks": [_I],
     "peapods_fk_bonds": [_P] * 6 + [_I] * 3 + [_P],
+    "peapods_fk_bonds_staged": [_P] * 6 + [_I] * 3 + [_P],
     "peapods_fk_link": [_P, _P] + [_I] * 9 + [_P],
     "peapods_fk_link_border": [_P, _P] + [_I] * 8 + [_P],
     "peapods_fk_link_flatten": [_P] + [_I] * 2 + [_P],
-    "peapods_fk_bonds_nb": [_P] * 6 + [_I] * 2 + [_P],
     "peapods_fk_finish": [_P] * 8 + [_I] * 3 + [_P],
     "peapods_cc_link": [_P] * 3 + [_I] * 2 + [_P],
     "peapods_cc_link_border": [_P] * 3 + [_I] + [_P],
@@ -60,7 +60,7 @@ _SIGNATURES = {
     "peapods_winding_border": [_P] * 2 + [_I] * 5 + [_P],
     "peapods_winding_wrap": [_P] * 4 + [_I] * 3 + [_P],
     "peapods_winding_check": [_P] * 5 + [_I] * 3 + [_P],
-    "peapods_pair_overlap": [_P] * 4 + [_I] * 8 + [_P],
+    "peapods_pair_overlap": [_P] * 4 + [_I] * 2 + [_P] * 2,
     "peapods_site_blocks": [_I],
     "peapods_ov_bonds": [_P] * 11 + [_I] * 9 + [_P],
     "peapods_ov_mid": [_P] * 13 + [_I] * 8 + [_P],

@@ -30,8 +30,9 @@ sites, :func:`block_partials_plain`; one per graph in the plain version).
 labels (the parents, handed on: no flip launch, the spins untouched), and
 the bond masks, bits of the kernels' state bytes.  :func:`fk_staged`
 is the staged path of the lattices given by an offset table (BCC, FCC,
-custom offsets): ``fk_bonds_nb`` draws the bonds along each offset, the
-connected-components kernels of :mod:`.cc` label them, and ``fk_finish``
+custom offsets): ``fk_bonds_staged`` (``fk_bonds``' body on the table's
+whole lattice, :func:`launch_staged_bonds`) draws the bonds along each
+offset, the connected-components kernels of :mod:`.cc` label them, and ``fk_finish``
 flips from those labels (nothing, when observing); the caller measures.
 
 The band forms serve a lattice split into row bands over a ``space`` mesh
@@ -82,6 +83,7 @@ __all__ = [
     "resident_threads",
     "bonds_per",
     "launch_bonds",
+    "launch_staged_bonds",
     "fk_link_plain",
     "fk_link_tiles_plain",
     "fk_link_flatten_plain",
@@ -106,7 +108,7 @@ __all__ = [
 ]
 
 # kernel launches since the last reset, by kernel name
-LAUNCHES = {"fk_bonds": 0, "fk_bonds_nb": 0, "fk_link": 0, "fk_link_border": 0,
+LAUNCHES = {"fk_bonds": 0, "fk_bonds_staged": 0, "fk_link": 0, "fk_link_border": 0,
             "fk_link_flatten": 0, "fk_finish": 0, "fk_bonds_band": 0,
             "fk_finish_band": 0}
 
@@ -141,7 +143,7 @@ def fk_energy_mag(e_part, m_part, n_spins: int):
 
 def fk_bonds_plain(spins, j_fwd, temps, kb_words, uniforms=None, offsets=None):
     """Plain version of ``fk_bonds`` (and, given an offset table's
-    ``offsets``, of ``fk_bonds_nb``): bool ``[B, n, n_dirs]`` FK bonds of
+    ``offsets``, of ``fk_bonds_staged``): bool ``[B, n, n_dirs]`` FK bonds of
     every graph (arguments as in :func:`fk_update_plain`)."""
     b, shape = spins.shape[0], tuple(spins.shape[1:])
     d, n, n_dirs = j_fwd.shape
@@ -223,6 +225,20 @@ def launch_bonds(lib, stream, spins, j_fwd, temps, kb_words, state):
         state.data_ptr(), words.ctypes.data, b, b // d,
         bonds_per(n, b, b // d, resident_threads(spins.device.index)), stream),
         "fk_bonds")
+
+
+def launch_staged_bonds(lib, stream, spins, j_fwd, temps, kb_words, state, lattice):
+    """One ``fk_bonds_staged`` launch on checked CUDA tensors (not counted):
+    the bonds of every graph of ``lattice`` (an offset table's, 1 to 6
+    offsets; its words :attr:`~.lattice.Lattice.sweep_words`) into ``state``
+    uint8 ``[B, n]``, bit ``k`` the bond along offset ``k``."""
+    b, n = spins.shape[0], lattice.n_spins
+    d = j_fwd.shape[0]
+    _build.check(lib.peapods_fk_bonds_staged(
+        spins.data_ptr(), j_fwd.data_ptr(), temps.data_ptr(), kb_words.data_ptr(),
+        state.data_ptr(), lattice.sweep_words.ctypes.data, b, b // d,
+        bonds_per(n, b, b // d, resident_threads(spins.device.index)), stream),
+        "fk_bonds_staged")
 
 
 def fk_bonds(spins, j_fwd, temps, kb_words):
@@ -668,9 +684,10 @@ def fk_staged_plain(spins, j_fwd, temps, scalars, kb_words, lattice, *, wolff,
 def fk_staged(spins, j_fwd, temps, scalars, kb_words, lattice, *, wolff,
               with_masks=False, uniforms=None):
     """The staged FK path (see :func:`fk_staged_plain`): the plain version
-    for CPU tensors; for CUDA tensors ``fk_bonds_nb`` (the state bytes), the
-    labelling of :func:`.cc.launch` (``cc_link``; where its boxes split a
-    graph, ``cc_link_border`` and ``fk_link_flatten``) and, to update,
+    for CPU tensors; for CUDA tensors ``fk_bonds_staged`` (the state bytes:
+    the bonds alone, bits ``0 .. n_nb - 1``), the labelling of
+    :func:`.cc.launch` (``cc_link``; where its boxes split a graph,
+    ``cc_link_border`` and ``fk_link_flatten``) and, to update,
     ``fk_finish`` reading the roots from those labels.  Nothing is measured:
     the caller measures the spins after (``energy.measure_nb``).  The masks
     are returned when ``with_masks`` (else ``None``)."""
@@ -691,11 +708,8 @@ def fk_staged(spins, j_fwd, temps, scalars, kb_words, lattice, *, wolff,
     stream = torch.cuda.current_stream(dev).cuda_stream
     state = torch.empty((b, n), dtype=torch.uint8, device=dev)
     labels = torch.empty((b, n), dtype=torch.int32, device=dev)
-    _build.check(lib.peapods_fk_bonds_nb(
-        spins.data_ptr(), j_fwd.data_ptr(), temps.data_ptr(), kb_words.data_ptr(),
-        state.data_ptr(), lattice.kernel_geometry.ctypes.data, b, b // d, stream),
-        "fk_bonds_nb")
-    LAUNCHES["fk_bonds_nb"] += 1
+    launch_staged_bonds(lib, stream, spins, j_fwd, temps, kb_words, state, lattice)
+    LAUNCHES["fk_bonds_staged"] += 1
     cc.launch(lib, stream, state.data_ptr(), labels.data_ptr(), lattice, b)
     if scalars is not None:
         fk_finish(spins, None, labels, j_fwd, scalars, wolff=wolff, with_measure=False)

@@ -40,13 +40,15 @@ the kernels' plain versions in the same order.  :data:`LAUNCHES` counts
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from . import _build, fk, mega, overlap, rng
 from ._build import expect as _expect
-from .lattice import Lattice
+from .lattice import Lattice, fast_divisor
 from .measure import overlap_dots
 
 __all__ = [
@@ -55,6 +57,8 @@ __all__ = [
     "supports_megapair",
     "pair_overlap",
     "pair_overlap_plain",
+    "pair_words",
+    "pair_word_bytes",
     "pairs_chunk",
     "pairs_chunk_plain",
 ]
@@ -111,11 +115,60 @@ def pair_overlap_plain(spins, sid, shape, n_replicas):
     return qs.flatten(1), ql.flatten(1)
 
 
-def _launch_pair(lib, stream, p_spins, p_sid, p_qs, p_ql, out_stride, d,
-                 n_pairs, n_temps, n_slots, shape):
+# pair_overlap (csrc/pairs.cu): a column's threads, a power of two from 32 to
+# 1024, are the fewest that take at most PAIR_WORDS_A_THREAD words each (one
+# word a thread: 0.0026, 0.0036, 0.0024 ms at configs 4, 5, 1; four words a
+# thread 0.0029, 0.0038, 0.0034; tools/probe_pairs.py, NVIDIA H100 80GB
+# HBM3, 700 W); a CTA holds PAIR_BLOCK // tpc columns (one column where tpc
+# is larger)
+PAIR_WORDS_A_THREAD = 1
+PAIR_BLOCK = 128
+PAIR_MAX_THREADS = 1024
+
+
+def pair_word_bytes(fast: int, align: int) -> int:
+    """The bytes of a ``pair_overlap`` word: 8 or 4 where the fast axis of
+    ``fast`` sites holds whole words (and the spins are aligned to them,
+    ``align``), else 1 (the per-site path)."""
+    for w in (8, 4):
+        if fast % w == 0 and align % w == 0:
+            return w
+    return 1
+
+
+@functools.lru_cache(maxsize=None)
+def pair_words(shape, n_replicas: int, n_slots: int, align: int = 0):
+    """int32 host words of ``pair_overlap`` (``csrc/pairs.cu`` ``PairWalk``):
+    ``W, n, n / W, wpl, Lb, La, nd, T, P T, n_slots, tpc, log2 tpc, block``,
+    then :func:`~.lattice.fast_divisor` ``(m, s)`` of ``wpl``, ``Lb`` and
+    ``T``.  A system is ``n / W`` words of ``W`` bytes (:func:`pair_word_bytes`
+    of the fast extent and ``align``, the spins' address modulo 8), in lines
+    of ``wpl`` words along the fast axis; the lines run over an inner slow
+    axis of extent ``Lb`` (2D: ``L0``; 3D: ``L1``) and in 3D an outer one of
+    extent ``La = L0`` (0 in 2D)."""
+    shape = tuple(int(x) for x in shape)
+    nd = len(shape)
+    n = int(np.prod(shape))
+    w = pair_word_bytes(shape[-1], align)
+    wpl = shape[-1] // w
+    lb, la = (shape[0], 0) if nd == 2 else (shape[1], shape[0])
+    n_temps = n_slots // n_replicas
+    cols = (n_replicas // 2) * n_temps
+    nw = n // w
+    tpc = 32
+    while tpc * PAIR_WORDS_A_THREAD < nw and tpc < PAIR_MAX_THREADS:
+        tpc *= 2
+    head = [w, n, nw, wpl, lb, la, nd, n_temps, cols, n_slots, tpc,
+            tpc.bit_length() - 1, max(PAIR_BLOCK, tpc)]
+    div = [fast_divisor(x) for x in (wpl, lb, n_temps)]
+    words = np.asarray(head + [v for md in div for v in md], np.int64)
+    return words.astype(np.uint32).view(np.int32)
+
+
+def _launch_pair(lib, stream, p_spins, p_sid, p_qs, p_ql, out_stride, d, words):
     _build.check(lib.peapods_pair_overlap(
-        p_spins, p_sid, p_qs, p_ql, out_stride, d, n_pairs, n_temps, n_slots,
-        *_build.dims3(shape), stream), "pair_overlap")
+        p_spins, p_sid, p_qs, p_ql, out_stride, d, words.ctypes.data, stream),
+        "pair_overlap")
     LAUNCHES["pair_overlap"] += 1
 
 
@@ -141,8 +194,8 @@ def pair_overlap(spins, sid, qs_row, ql_row, *, shape, n_replicas):
             raise ValueError(f"{name} must be an int32 [d, n_pairs T] row view")
     _launch_pair(_build.library(), torch.cuda.current_stream(dev).cuda_stream,
                  spins.data_ptr(), sid.data_ptr(), qs_row.data_ptr(),
-                 ql_row.data_ptr(), qs_row.stride(0), d, n_pairs,
-                 n_slots // n_replicas, n_slots, shape)
+                 ql_row.data_ptr(), qs_row.stride(0), d,
+                 pair_words(tuple(shape), n_replicas, n_slots, spins.data_ptr() % 8))
 
 
 # ------------------------------------------------------------ the chunk
@@ -335,12 +388,13 @@ def pairs_chunk(spins, jgrids, coup, temps, slot_temps, sid, ea, ec, rtrips,
     pt_kw = dict(pt_full=pt_full, hot_slot=hot_slot, cold_slot=cold_slot,
                  n_replicas=R)
     plan = mega._colour_plan(dev, dims5)
+    pw = pair_words(shape, R, n_slots, p_spins % 8)
     for t in range(n):
         for colour, parts in ((0, (None, None)), (1, (p_ep, p_mp))):
             mega._launch_colour(lib, stream, dims5, p_spins, p_jg, p_sid, p_st,
                                 p_sw + t * d * 8, *parts, colour, gibbs, plan)
         _launch_pair(lib, stream, p_spins, p_sid, p_qs + t * col_bytes,
-                     p_ql + t * col_bytes, n * P * T, d, P, T, n_slots, shape)
+                     p_ql + t * col_bytes, n * P * T, d, pw)
         do_pt = _pt_due(sweep_base + t, pt_interval)
         dr = ((p_edge + t * edge_bytes if p_edge is not None else None,
                p_u + t * u_bytes) if do_pt else (None, None))

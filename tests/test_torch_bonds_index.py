@@ -21,6 +21,14 @@
   graph's ``unit_threshold``) are bitwise
   ``fk.fk_state_plain``'s and ``fk.fk_bonds_band_plain``'s on random spins
   and gaussian or +-1 couplings.
+* The staged form (``fk_bonds_staged``, the lattices of an offset table):
+  ``Lattice.sweep_words`` as its ``BandWalk`` (BCC, FCC, NNN, a 3-offset
+  table, a negative axis-0 offset, an offset of length 2 along the fast
+  axis, a self-bond), the partition, neighbours and Philox counters
+  against ``rng.bond_uniforms_at``, its spread launch (a CTA of n_dirs
+  warps, warp d drawing direction d of 32 groups, warp 0 storing) drawing
+  every (group, direction) once, and the model's bond bits bitwise
+  ``fk_bonds_plain(..., offsets)``.
 """
 
 from types import SimpleNamespace
@@ -422,3 +430,151 @@ def test_unit_threshold_is_the_bond_comparison():
     u = (x << 8) | 0xAB  # the uniform's low 8 bits are dropped
     assert torch.equal((u >> 8) < thr, rng.uniform24(u) < p1)
     assert int(thr[0]) == 2**24 and int(thr[-1]) == 0
+
+
+# ---------------------------------------------------------------- staged form
+#
+# fk_bonds_staged (csrc/fk.cu): bonds_body's whole-lattice form on a lattice
+# given by its offset table, with the words of Lattice.sweep_words (each
+# offset's axis-0 component reduced into [0, L0): the body's one-compare
+# wrap of axis 0 then holds for offsets as long as the lattice, the
+# self-bond of an offset [2, 0] on two rows among them), and no "s
+# differs" bits.  (name, shape, offsets, realizations, systems each): the
+# smoke's BCC / FCC 16^3 x 8 and NNN 64^2 x 8, the 2 x 8 lattices of the
+# card tests, a 3-offset table, a table with a negative axis-0 offset, and
+# one with an offset of length 2 along the fast axis.
+NNN = [[1, 0], [0, 1], [1, 1], [1, -1]]
+STAGED = [("bcc16", (16, 16, 16), GEOMETRY_OFFSETS["bcc"], 1, 8),
+          ("fcc16", (16, 16, 16), GEOMETRY_OFFSETS["fcc"], 1, 8),
+          ("nnn64", (64, 64), NNN, 1, 8), ("nnn2x8", (2, 8), NNN, 2, 3),
+          ("self-bond-2x8", (2, 8), [[1, 0], [0, 1], [2, 0]], 2, 3),
+          ("three-6x8x4", (6, 8, 4), [[1, 0, 0], [0, 1, 1], [1, -1, 2]], 2, 2),
+          ("neg0-8x12", (8, 12), [[-1, 2], [0, 1]], 1, 4),
+          ("len2-6x10", (6, 10), [[0, 2], [1, 0], [1, -2]], 2, 2),
+          ("fcc-6x4x6", (6, 4, 6), GEOMETRY_OFFSETS["fcc"], 1, 3)]
+STAGED_IDS = [c[0] for c in STAGED]
+
+
+@pytest.mark.parametrize("name,shape,offsets,d,s", STAGED, ids=STAGED_IDS)
+def test_staged_words(name, shape, offsets, d, s):
+    lat = Lattice(shape, offsets)
+    g = Walk(lat.sweep_words)
+    dims = tuple(shape) + (1,) * (3 - len(shape))
+    assert (g.rows, g.L1, g.L2, g.nb) == (*dims, lat.n_neighbors)
+    assert (g.L0, g.row0, g.halo, g.hl) == (dims[0], 0, 0, dims[0])
+    off = np.zeros((lat.n_neighbors, 3), np.int64)
+    off[:, :len(shape)] = lat.offsets
+    np.testing.assert_array_equal(g.off[:, 0], off[:, 0] % dims[0])
+    np.testing.assert_array_equal(g.off[:, 1:], off[:, 1:])
+    for dd in range(lat.n_neighbors):
+        o = off[dd]
+        assert list(g.res[dd]) == [o[1] % g.L1, o[2] % g.L2, -o[1] % g.L1, -o[2] % g.L2]
+    assert tuple(g.div[0]) == fast_divisor(g.block) and tuple(g.div[1]) == fast_divisor(g.L2)
+    # the smoke's 8 graphs of 16^3 or 64^2: one graph a thread
+    per = fk.bonds_per(lat.n_spins, d * s, s, RESIDENT)
+    assert s % per == 0
+    if name in ("bcc16", "fcc16", "nnn64"):
+        assert per == 1
+
+
+@pytest.mark.parametrize("name,shape,offsets,d,s", STAGED, ids=STAGED_IDS)
+def test_staged_partition_counters_and_neighbours(name, shape, offsets, d, s):
+    lat = Lattice(shape, offsets)
+    n = lat.n_spins
+    vec = n % 4 == 0
+    b = d * s
+    assert _covered(n, b, s, fk.bonds_per(n, b, s, RESIDENT))
+    m = model(lat.sweep_words, False, vec)
+    sites, live = m["sites"], m["sites"] >= 0
+    assert np.array_equal(np.sort(sites[live]), np.arange(n))
+    np.testing.assert_array_equal(m["glob"][live], sites[live])
+    np.testing.assert_array_equal(m["nbr"][live], lat.fwd[sites[live]])
+    assert m["on"][live].all()
+    # each bond's Philox counter and word give bond_uniforms_at's uniform
+    kb = torch.from_numpy(np.random.default_rng(n).integers(-2**31, 2**31, (2, 2)).astype(
+        np.int32))
+    kbl = kb.to(torch.int64) & 0xFFFFFFFF
+    ctr = torch.from_numpy(m["ctr"][live])
+    word = torch.from_numpy(m["word"][live])
+    want = rng.bond_uniforms_at(kb, torch.from_numpy(sites[live]), lat.n_neighbors)
+    zero = torch.zeros_like(ctr)
+    for dd in range(lat.n_neighbors):
+        w = torch.stack(rng.philox4x32(kbl[:, 0:1], kbl[:, 1:2], torch.full_like(ctr, dd),
+                                       ctr, zero, zero), -1)
+        u = rng.uniform24(w.gather(-1, word.expand(2, -1)[..., None])[..., 0])
+        assert torch.equal(u, want[..., dd])
+    # the vector path: groups of aligned graphs in one row of the fast axis
+    fast = shape[-1]
+    w0 = 4 * m["groups"]
+    np.testing.assert_array_equal(m["vector"], vec & ((w0 % fast) + 3 < fast))
+    if fast % 4 == 0:
+        assert m["vector"].all()
+
+
+@pytest.mark.parametrize("coup", ["gauss", "pm"])
+@pytest.mark.parametrize("name,shape,offsets,d,s", [c for c in STAGED if c[0] not in (
+    "bcc16", "fcc16")], ids=[c for c in STAGED_IDS if c not in ("bcc16", "fcc16")])
+def test_staged_model_bond_bits_match_plain(name, shape, offsets, d, s, coup):
+    """The model's state bytes are the bonds alone, bit ``k`` bitwise
+    ``fk_bonds_plain(..., offsets)``'s bond along offset ``k``."""
+    lat = Lattice(shape, offsets)
+    n, nb = lat.n_spins, lat.n_neighbors
+    r = np.random.default_rng(n + nb)
+    b = d * s
+    spins = torch.from_numpy(r.choice([-1, 1], size=(b, *shape)).astype(np.int8))
+    j = (r.standard_normal((d, n, nb)) if coup == "gauss"
+         else r.choice([-1.0, 1.0], size=(d, n, nb)))
+    j = torch.from_numpy(j.astype(np.float32))
+    temps = torch.from_numpy(r.uniform(0.5, 8.0, b).astype(np.float32))
+    kb = torch.from_numpy(r.integers(-2**31, 2**31, (b, 2)).astype(np.int32))
+    m = model(lat.sweep_words, False, n % 4 == 0)
+    got = _state_from_model(m, spins.view(b, n), j.repeat_interleave(s, 0), temps, kb, False)
+    bonds = fk.fk_bonds_plain(spins, j, temps, kb, offsets=lat.offsets)
+    want = (bonds.to(torch.uint8) << torch.arange(nb, dtype=torch.uint8)).sum(-1, dtype=torch.uint8)
+    assert torch.equal(got, want)
+    assert torch.equal(fk.state_masks(got, nb), bonds)
+
+
+def spread_cover(n_sites, n_dirs, max_blocks=65535):
+    """The staged form's spread launch (``bonds_body``'s kSpread, one graph
+    a thread): a CTA of ``n_dirs`` warps takes 32 groups at a time, warp
+    ``d`` drawing direction ``d`` of its lane's group, the grid's y blocks
+    striding over the rest; warp 0 stores each group.  Returns ``(drawn
+    [groups, n_dirs], stored [groups])``, the count of each."""
+    n_grp = (n_sites + 3) // 4
+    gy = min(-(-n_grp // 32), max_blocks)
+    drawn = np.zeros((n_grp, n_dirs), np.int64)
+    stored = np.zeros(n_grp, np.int64)
+    lane = np.arange(32)
+    for y in range(gy):
+        g0 = y * 32
+        while g0 < n_grp:  # the CTA's iterations, the same in every warp
+            g = g0 + lane
+            live = g[g < n_grp]
+            for d in range(n_dirs):
+                drawn[live, d] += 1
+            stored[live] += 1
+            g0 += gy * 32
+    return drawn, stored
+
+
+@pytest.mark.parametrize("n_sites,n_dirs,max_blocks", [
+    (4096, 6, 65535), (4096, 4, 65535), (16, 3, 65535), (144, 6, 65535), (36, 1, 65535),
+    (4 * 32 * 7 + 12, 5, 3)], ids=["fcc16", "bcc16", "2x8", "6x4x6", "6x6", "strided"])
+def test_staged_spread_draws_every_direction_once(n_sites, n_dirs, max_blocks):
+    drawn, stored = spread_cover(n_sites, n_dirs, max_blocks)
+    assert (drawn == 1).all() and (stored == 1).all()
+
+
+@pytest.mark.parametrize("name,shape,offsets,d,s", STAGED, ids=STAGED_IDS)
+def test_staged_small_launches_spread(name, shape, offsets, d, s):
+    """The spread launch is taken where one graph is a thread's
+    (``bonds_per`` 1): the smoke's 8 graphs of 16^3 and 64^2, whose launch
+    of 8192 threads would hold 32 CTAs, become 256 CTAs of n_dirs warps."""
+    n = int(np.prod(shape))
+    per = fk.bonds_per(n, d * s, s, RESIDENT)
+    if name in ("bcc16", "fcc16", "nnn64"):
+        assert per == 1
+        n_dirs = len(offsets)
+        assert -(-n // 4 // 32) * (d * s) == 256
+        assert -(-n // 4 // 256) * (d * s) == 32 and 32 * n_dirs <= THREADS

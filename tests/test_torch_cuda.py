@@ -9,7 +9,7 @@ energy_partials), the coloured lattices' (sweep_nb, measure_nb and the
 FK kernels with three bond directions; fk_finish alone with its partials
 per block), FK observe's and the staged path's (cc_link, whole and tiled, the
 winding kernels in both forms, one launch at a time and at 2048^2,
-fk_bonds_nb and fk_finish reading labels) and Houdayer(N)'s (houdn_bonds,
+fk_bonds_staged and fk_finish reading labels) and Houdayer(N)'s (houdn_bonds,
 houdn_finish) with the overlap moves' labels, masks and observe form.  On a machine
 with a GPU (jax is not needed; ``--noconftest`` skips the JAX package's
 test configuration):
@@ -786,24 +786,41 @@ def test_colour_pass_layout_and_launches(cuda, shape, d, n_rep, n_temps):
     assert mega.LAUNCHES == {"colour_pass": 1, "pt_step": 0, "mega_resident": 0}
 
 
-@pytest.mark.parametrize("shape,d,n_rep,n_temps", [
-    ((8, 8, 8), 8, 4, 24), ((16, 16, 16), 8, 4, 24), ((8, 64), 3, 3, 4),
-], ids=["config4", "config5", "2d-odd-R"])
-def test_pair_overlap_kernel_matches_plain(cuda, shape, d, n_rep, n_temps):
+@pytest.mark.parametrize("shape,d,n_rep,n_temps,shift", [
+    ((8, 8, 8), 8, 4, 24, 0), ((16, 16, 16), 8, 4, 24, 0), ((32, 32), 8, 2, 16, 0),
+    ((8, 64), 3, 3, 4, 0), ((2, 2), 2, 2, 3, 0), ((2, 8), 2, 6, 3, 0),
+    ((8, 2), 1, 4, 5, 0), ((2, 2, 2), 3, 6, 2, 0), ((4, 6, 12), 2, 4, 3, 0),
+    ((6, 2, 10), 2, 2, 4, 0), ((4, 4, 16), 2, 4, 3, 4), ((16, 16), 2, 6, 3, 2),
+    ((64, 64, 64), 1, 2, 2, 0),
+], ids=["config4", "config5", "config1", "2d-odd-R", "2x2", "2x8-R6", "8x2", "2x2x2-R6",
+        "4x6x12-w4", "6x2x10-site", "4x4x16-shift4", "16x16-shift2-R6", "64^3"])
+def test_pair_overlap_kernel_matches_plain(cuda, shape, d, n_rep, n_temps, shift):
+    """qs, ql bitwise the plain version, written into strided row views:
+    configs 4, 5 and 1, extents of 2 (the per-site path), fast extents of
+    4-byte words, spins that start 4 or 2 bytes past an 8-byte boundary
+    (4-byte and per-site words), R = 6, and a column of 1024 threads."""
     from peapods_tpu_torch.ops import megapair
 
     x = _pair_inputs(cuda, 7, shape, d, n_rep, n_temps)
+    spins = x["spins"]
+    if shift:
+        buf = torch.empty(spins.numel() + 8, dtype=torch.int8, device=cuda)
+        spins = buf[shift:shift + spins.numel()].view(spins.shape)
+        spins.copy_(x["spins"])
+        assert spins.data_ptr() % 8 == shift
     cols = (n_rep // 2) * n_temps
-    qs = torch.empty((d, 3, cols), dtype=torch.int32, device=cuda)
-    ql = torch.empty_like(qs)
+    qs = torch.full((d, 3, cols), -7, dtype=torch.int32, device=cuda)
+    ql = torch.full_like(qs, -7)
     megapair.LAUNCHES["pair_overlap"] = 0
-    megapair.pair_overlap(x["spins"], x["sid"], qs[:, 1], ql[:, 1], shape=shape,
+    megapair.pair_overlap(spins, x["sid"], qs[:, 1], ql[:, 1], shape=shape,
                           n_replicas=n_rep)
     torch.cuda.synchronize()
     assert megapair.LAUNCHES["pair_overlap"] == 1
     ps, pl = megapair.pair_overlap_plain(x["spins"], x["sid"], shape, n_rep)
     assert torch.equal(qs[:, 1], ps)
     assert torch.equal(ql[:, 1], pl)
+    # the rows beside the one written are untouched
+    assert bool((qs[:, 0::2] == -7).all()) and bool((ql[:, 0::2] == -7).all())
 
 
 @pytest.mark.parametrize("n_rep,pt_full", [(4, False), (4, True), (1, True)],
@@ -1129,6 +1146,16 @@ def test_geometry_sample_on_card_matches_the_cpu(cuda, shape, geometry, coupling
 STAGED = [("bcc-16", (16, 16, 16), "bcc", 1, 8, 6.3), ("fcc-8", (8, 8, 8), "fcc", 2, 4, 9.8),
           ("nnn-64", (64, 64), NNN, 1, 8, 5.3), ("nnn-2x8", (2, 8), NNN, 2, 3, 5.0),
           ("self-bond-2x8", (2, 8), [[1, 0], [0, 1], [2, 0]], 2, 3, 4.0)]
+# the staged bonds alone, beside those: the smoke's FCC 16^3 x 8, a
+# 3-offset table, a negative axis-0 offset, an offset of length 2 along the
+# fast axis, rows of 6 sites (the per-site path) and a batch whose threads
+# loop over graphs
+STAGED_BONDS = [*STAGED, ("fcc-16", (16, 16, 16), "fcc", 1, 8, 9.8),
+                ("three-6x8x4", (6, 8, 4), [[1, 0, 0], [0, 1, 1], [1, -1, 2]], 2, 2, 3.0),
+                ("neg0-8x12", (8, 12), [[-1, 2], [0, 1]], 1, 4, 2.5),
+                ("len2-6x10", (6, 10), [[0, 2], [1, 0], [1, -2]], 2, 2, 3.5),
+                ("fcc-6x4x6", (6, 4, 6), "fcc", 1, 3, 9.8),
+                ("nnn-64x2048", (64, 64), NNN, 128, 16, 5.3)]
 
 
 def _staged_inputs(dev, seed, shape, geometry, d, n_sys, temp):
@@ -1671,11 +1698,11 @@ def test_fk_observe_kernel_matches_plain(cuda, shape, d, n_sys, n_dirs, temp):
 
 
 @pytest.mark.parametrize("wolff", [False, True], ids=["sw", "wolff"])
-@pytest.mark.parametrize("name,shape,geometry,d,n_sys,temp", STAGED,
-                         ids=[c[0] for c in STAGED])
+@pytest.mark.parametrize("name,shape,geometry,d,n_sys,temp", STAGED_BONDS,
+                         ids=[c[0] for c in STAGED_BONDS])
 def test_fk_staged_kernels_match_plain(cuda, name, shape, geometry, d, n_sys, temp,
                                        wolff):
-    """fk_bonds_nb, cc_link and fk_finish reading the labels:
+    """fk_bonds_staged, cc_link and fk_finish reading the labels:
     masks, labels and spins bitwise the plain staged path; observe leaves
     the spins alone."""
     from peapods_tpu_torch.engine import seeds
@@ -1691,7 +1718,7 @@ def test_fk_staged_kernels_match_plain(cuda, name, shape, geometry, d, n_sys, te
     lk, mk = fk.fk_staged(a, *args, wolff=wolff, with_masks=True)
     lp, mp = fk.fk_staged_plain(p, *args, wolff=wolff)
     torch.cuda.synchronize()
-    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {"fk_bonds_nb": 1,
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == {"fk_bonds_staged": 1,
                                                           "fk_finish": 1}
     assert cc.LAUNCHES == {"cc_link": 1, "cc_link_border": 0}
     assert torch.equal(mk, mp)
@@ -1703,6 +1730,31 @@ def test_fk_staged_kernels_match_plain(cuda, name, shape, geometry, d, n_sys, te
                           with_masks=True)
     torch.cuda.synchronize()
     assert torch.equal(o, x["spins"]) and torch.equal(lo, lk) and torch.equal(mo, mk)
+
+
+@pytest.mark.parametrize("couplings", ["pm", "gauss"])
+@pytest.mark.parametrize("name,shape,geometry,d,n_sys,temp", STAGED_BONDS,
+                         ids=[c[0] for c in STAGED_BONDS])
+def test_fk_bonds_staged_state_is_the_plain_bonds(cuda, name, shape, geometry, d, n_sys,
+                                                  temp, couplings):
+    """fk_bonds_staged's state bytes: bit k the bond along offset k, bitwise
+    fk_bonds_plain(..., offsets), and no other bit."""
+    lat, x = _staged_inputs(cuda, 11, shape, geometry, d, n_sys, temp)
+    coup = x["coup"]
+    if couplings == "gauss":
+        rng = np.random.default_rng(5)
+        coup = torch.from_numpy(rng.standard_normal(tuple(coup.shape)).astype(
+            np.float32)).to(cuda)
+    b = x["spins"].shape[0]
+    state = torch.full((b, lat.n_spins), 0xAA, dtype=torch.uint8, device=cuda)
+    fk.launch_staged_bonds(_build.library(), torch.cuda.current_stream(cuda).cuda_stream,
+                           x["spins"], coup, x["temps"], x["kb"], state, lat)
+    bonds = fk.fk_bonds_plain(x["spins"], coup, x["temps"], x["kb"], offsets=lat.offsets)
+    torch.cuda.synchronize()
+    bits = torch.arange(lat.n_neighbors, dtype=torch.uint8, device=cuda)
+    want = (bonds.to(torch.uint8) << bits).sum(-1, dtype=torch.uint8)
+    assert torch.equal(state, want)
+    assert bonds.any() and not bonds.all()
 
 
 def test_observe_wrappers_reject_what_the_kernels_do_not_take(cuda):

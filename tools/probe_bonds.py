@@ -1,7 +1,7 @@
-"""Time the FK bond draws (``csrc/fk.cu`` ``fk_bonds``, ``fk_bonds_band``) of
-two source trees side by side on one NVIDIA GPU, with variants that take
-one part of a design away or cure one defect of the first design, and count
-each kernel's SASS instructions.
+"""Time the FK bond draws (``csrc/fk.cu`` ``fk_bonds``, ``fk_bonds_band`` and
+the staged path's bonds) of two source trees side by side on one NVIDIA
+GPU, with variants that take one part of a design away or cure one defect
+of the first design, and count each kernel's SASS instructions.
 
     python3 tools/probe_bonds.py --src old=CSRC_DIR --src new=CSRC_DIR
                                  [--out DIR] [--rounds N] [--variants a,b,...]
@@ -33,7 +33,26 @@ defect's share of the time):
 * ``o-vector``: a group's four spins one 32-bit load and its four state
   bytes one 32-bit store.
 
-Variants of the redesign, one part taken away each:
+The staged path's bonds (the lattices of an offset table) are told apart
+the same way: the first design is a kernel of its own
+(``peapods_fk_bonds_nb``: a thread a group of four sites of one graph,
+``nb.cuh``'s runtime divisions and modulos, the couplings read again for
+each graph, the exp drawn for every bond, byte memory), the redesign
+``fk_bonds_staged``, ``bonds_body`` on the table's whole lattice.  Its
+variants of the first design, one defect cured each:
+
+* ``s-o-nodiv``: each neighbour at the site's index plus the offset's
+  (clamped to the graph): no division (wrong at the edges);
+* ``s-o-once``: the graphs of a launch side by side in ``blockIdx.x``;
+* ``s-o-unit``: the integer threshold of a unit bond in place of its exp;
+
+and of the redesign, ``n-nospread``: its launches of one graph a thread
+without the spread (each thread draws every direction of its group; the
+redesign gives each direction a warp of its own, ``bonds_body``'s
+``kSpread``).
+
+Variants of the redesign, one part taken away each (also on the staged
+bonds where the source's staged path is the redesign):
 
 * ``n-eager``: the ``exp`` and the division drawn for every bond (no
   ``inter > 0`` gate, no integer comparison at ``inter == 1``);
@@ -48,8 +67,11 @@ harness with gaussian couplings (every bond through the ``exp``):
 config 3 (256^2), the harness (64^2 x 2048 graphs, 16 a realization),
 config 2 (32^2 triangular x 8), 32^3 x 16, the unsharded 4096^2 x 4 (one
 realization), and band 0 of 4096^2 x 4, 128^3 x 8 and 32^3 FCC x 8 in 4
-bands.  Every base build and every variant that keeps the function is held
-bitwise to ``fk_state_plain`` / ``fk_bonds_band_plain``.  ``--per`` also
+bands; the staged shapes BCC and FCC 16^3 x 8 and the next-nearest-neighbour
+table at 64^2 x 8 (the smoke's staged runs).  Every base build and every
+variant that keeps the function is held bitwise to ``fk_state_plain`` /
+``fk_bonds_band_plain`` (the staged bonds: the bits of ``fk_bonds_plain``
+along the table's offsets).  ``--per`` also
 times the redesign with each count of graphs a thread (a realization's,
 one, and ``ops/fk.py`` ``bonds_per``'s).  Times are device times of one
 launch (CUDA events over warm launches queued behind a sleep kernel),
@@ -154,19 +176,56 @@ N_EAGER = [
 N_LB1 = [("  const bool loop = per > 1;", "  const bool loop = per < 1;")]
 N_SCALAR = [("  const int vec = n % 4 == 0 &&", "  const int vec = 0 * (n % 4) &&")]
 N_NOPHILOX = [
-    ("          const uint4 u = philox4x32_10(k0, k1, static_cast<uint32_t>(d), ctr, 0u, 0u);",
-     "          const uint4 u = make_uint4(k0 ^ ctr, k1 + ctr, ctr * 0x9E3779B9u ^ d, k0 + k1);"),
+    ("const uint4 u = philox4x32_10(k0, k1, static_cast<uint32_t>(d), ctr, 0u, 0u);",
+     "const uint4 u = make_uint4(k0 ^ ctr, k1 + ctr, ctr * 0x9E3779B9u ^ d, k0 + k1);"),
 ]
-# name: (design, edits, whether the variant keeps the function)
+# ... of the staged path's first design
+S_O_NODIV = [
+    ("    coords(geo, i, c);\n", "    c[0] = c[1] = c[2] = 0;\n"),
+    ("      const float sf = static_cast<float>(s[neighbour(geo, c, dir, 1)]);",
+     "      const float sf = static_cast<float>(s[min(max(i + geo.off[dir][0] * geo.stride[0]"
+     " + geo.off[dir][1] * geo.stride[1] + geo.off[dir][2], 0), n - 1)]);"),
+]
+S_O_ONCE = [
+    ("  const int b = blockIdx.y;\n  const int n = geo.L[0] * geo.L[1] * geo.L[2];\n"
+     "  const int nd = geo.n_nb;\n  const int g = blockIdx.x * blockDim.x + threadIdx.x;",
+     "  const int b = blockIdx.x;\n  const int n = geo.L[0] * geo.L[1] * geo.L[2];\n"
+     "  const int nd = geo.n_nb;\n  const int g = blockIdx.y * blockDim.x + threadIdx.x;"),
+    ("  fk_bonds_nb_kernel<<<site_grid(geo.L[0] * geo.L[1] * geo.L[2], kSitesPerThread,\n"
+     "                                 n_graphs),",
+     "  fk_bonds_nb_kernel<<<dim3(n_graphs, site_grid(geo.L[0] * geo.L[1] * geo.L[2],"
+     " kSitesPerThread, 1).x),"),
+]
+S_O_UNIT = [
+    ("  const float T = temps[b];\n  const uint32_t k0 = static_cast<uint32_t>(kb[2 * b]);\n"
+     "  const uint32_t k1 = static_cast<uint32_t>(kb[2 * b + 1]);\n"
+     "  uint32_t w[kMaxOffsets][4];",
+     "  const float T = temps[b];\n  const uint32_t thr1 = unit_threshold(T);\n"
+     "  const uint32_t k0 = static_cast<uint32_t>(kb[2 * b]);\n"
+     "  const uint32_t k1 = static_cast<uint32_t>(kb[2 * b + 1]);\n"
+     "  uint32_t w[kMaxOffsets][4];"),
+    ("      const float p = 1.0f - expf(-2.0f * inter / T);\n"
+     "      if (inter > 0.0f && uniform24(w[dir][k]) < p) st |= 1u << dir;",
+     "      if (bond_active(inter, w[dir][k], T, thr1)) st |= 1u << dir;"),
+]
+# ... and the redesign's staged form without its spread: one graph a thread
+# draws every direction of its group, 256 threads a CTA
+N_NOSPREAD = [("  const bool spread = kStaged && per == 1;", "  const bool spread = false;")]
+# name: (design, edits, whether the variant keeps the function, the bonds
+# it is timed on: "all" but the staged ones', "staged" only, or "any")
 VARIANTS = {
-    "o-noparent": ("first", O_NOPARENT, True),
-    "o-once": ("first", O_ONCE, True),
-    "o-noindex": ("first", O_NOINDEX, False),
-    "o-vector": ("first", O_VECTOR, True),
-    "n-eager": ("redesign", N_EAGER, True),
-    "n-scalar": ("redesign", N_SCALAR, True),
-    "n-nophilox": ("redesign", N_NOPHILOX, False),
-    "n-lb1": ("redesign", N_LB1, True),
+    "o-noparent": ("first", O_NOPARENT, True, "all"),
+    "o-once": ("first", O_ONCE, True, "all"),
+    "o-noindex": ("first", O_NOINDEX, False, "all"),
+    "o-vector": ("first", O_VECTOR, True, "all"),
+    "s-o-nodiv": ("staged-first", S_O_NODIV, False, "staged"),
+    "s-o-once": ("staged-first", S_O_ONCE, True, "staged"),
+    "s-o-unit": ("staged-first", S_O_UNIT, True, "staged"),
+    "n-eager": ("redesign", N_EAGER, True, "any"),
+    "n-scalar": ("redesign", N_SCALAR, True, "any"),
+    "n-nophilox": ("redesign", N_NOPHILOX, False, "any"),
+    "n-lb1": ("redesign", N_LB1, True, "any"),
+    "n-nospread": ("redesign", N_NOSPREAD, True, "staged"),
 }
 
 T_SQ = 2.0 / np.log(1.0 + np.sqrt(2.0))
@@ -178,6 +237,13 @@ UNSHARDED = (
     ("config2", (32, 32), "triangular", 1, 8, 3.64, "unit"),
     ("cubic32", (32, 32, 32), None, 1, 16, 4.51, "unit"),
     ("space4096", (4096, 4096), None, 1, 4, T_SQ, "unit"),
+)
+# the staged runs' graphs: (name, shape, offsets, systems, temperature)
+NNN = [[1, 0], [0, 1], [1, 1], [1, -1]]
+STAGED = (
+    ("bcc16", (16, 16, 16), GEOMETRY_OFFSETS["bcc"], 8, 6.3),
+    ("fcc16", (16, 16, 16), GEOMETRY_OFFSETS["fcc"], 8, 9.8),
+    ("nnn64", (64, 64), NNN, 8, 5.3),
 )
 # band 0 of each in 4 bands: (name, shape, geometry, systems, temperature)
 BANDS = (
@@ -191,6 +257,13 @@ def design(csrc: Path) -> str:
     return "redesign" if "bonds_body" in (csrc / "fk.cu").read_text() else "first"
 
 
+def staged_design(csrc: Path) -> str:
+    """The design of the staged path's bonds: the first (a kernel of its
+    own) or the redesign (``bonds_body``'s whole-lattice form)."""
+    return ("staged-first" if "peapods_fk_bonds_nb" in (csrc / "fk.cu").read_text()
+            else "redesign")
+
+
 def builds(sources, out, variants):
     """``{(label, variant): (fk.cu path, design)}``: each source's base and
     the variants of its design; a variant of its own design whose anchors
@@ -201,8 +274,9 @@ def builds(sources, out, variants):
         text = (csrc / "fk.cu").read_text()
         for variant in ("base", *variants):
             if variant != "base":
-                aim, edits, _ = VARIANTS[variant]
-                if aim != own:
+                aim, edits, _, timed = VARIANTS[variant]
+                if aim not in (own, staged_design(csrc)) or (
+                        timed == "staged" and aim != staged_design(csrc)):
                     continue
                 gone = [old.splitlines()[0] for old, _ in edits if text.count(old) != 1]
                 if gone:
@@ -215,14 +289,14 @@ def builds(sources, out, variants):
             for old, new in ([] if variant == "base" else VARIANTS[variant][1]):
                 src = src.replace(old, new)
             (d / "fk.cu").write_text(src)
-            todo[(label, variant)] = (d / "fk.cu", own)
+            todo[(label, variant)] = (d / "fk.cu", own, staged_design(csrc))
     return todo
 
 
 def compile_all(todo):
     """One nvcc for each build, all at once: ``{key: (lib, ptxas log, sass)}``."""
     procs = []
-    for key, (src, _) in todo.items():
+    for key, (src, *_) in todo.items():
         so = src.with_suffix(".so")
         cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(src)]
         procs.append((key, so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -277,10 +351,12 @@ def sass_counts(sass: str) -> dict:
             close()
             fn = m.group(1)
             name = None
-            if "fk_bonds_kernel" in fn or "fk_bonds_band_kernel" in fn:
-                args = re.findall(r"Li(\d+)E", fn.split("_kernel", 1)[1])
-                name = ("fk_bonds_band" if "band" in fn else "fk_bonds") + (
-                    f"<{', '.join(args)}>" if args else "")
+            kind = next((k for k in ("fk_bonds_band", "fk_bonds_staged", "fk_bonds_nb",
+                                     "fk_bonds") if f"{k}_kernel" in fn), None)
+            if kind:
+                args = [f"{'true' if v == '1' else 'false'}" if t == "b" else v
+                        for t, v in re.findall(r"L([ib])(\d+)E", fn.split("_kernel", 1)[1])]
+                name = kind + (f"<{', '.join(args)}>" if args else "")
             body = []
         else:
             body.append(ln)
@@ -312,15 +388,38 @@ def band_inputs(shape, geometry, s, temp, dev, rng):
                 band=band, b=s, n=nw, nd=nb, s=s)
 
 
-def launcher(lib, first, x, band, per):
-    """``(fn, state)``: one launch of a build's fk_bonds (or fk_bonds_band)."""
+def staged_inputs(shape, offsets, s, temp, dev, rng):
+    lat = Lattice(shape, offsets)
+    n, nb = lat.n_spins, lat.n_neighbors
+    up = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    return dict(spins=up(rng.choice([-1, 1], size=(s, *shape)).astype(np.int8)),
+                j=torch.ones((1, n, nb), dtype=torch.float32, device=dev),
+                temps=torch.full((s,), temp, dtype=torch.float32, device=dev),
+                kb=up(rng.integers(-2**31, 2**31, (s, 2)).astype(np.int32)),
+                lat=lat, b=s, n=n, nd=nb, s=s)
+
+
+def launcher(lib, first, x, form, per):
+    """``(fn, state)``: one launch of a build's fk_bonds, fk_bonds_band or
+    staged bonds (``form``; ``first``: the build's design of that form is
+    the first)."""
     dev = x["spins"].device
     b, n = x["b"], x["n"]
-    state = torch.empty((b, n), dtype=torch.uint8, device=dev)
+    band = form == "band"
+    state = torch.zeros((b, n), dtype=torch.uint8, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     head = (x["spins"].data_ptr(), x["j"].data_ptr(), x["temps"].data_ptr(),
             x["kb"].data_ptr(), state.data_ptr())
-    if band:
+    if form == "staged":
+        if first:
+            fn = lib.peapods_fk_bonds_nb
+            fn.argtypes = [_P] * 6 + [_I] * 2 + [_P]
+            args = (*head, x["lat"].kernel_geometry.ctypes.data, b, x["s"], stream)
+        else:
+            fn = lib.peapods_fk_bonds_staged
+            fn.argtypes = [_P] * 6 + [_I] * 3 + [_P]
+            args = (*head, x["lat"].sweep_words.ctypes.data, b, x["s"], per, stream)
+    elif band:
         fn = lib.peapods_fk_bonds_band
         fn.argtypes = [_P] * 6 + [_I] * (2 if first else 3) + [_P]
         args = (*head, x["band"].words.ctypes.data, b, x["s"], *(() if first else (per,)),
@@ -340,8 +439,13 @@ def launcher(lib, first, x, band, per):
     return (lambda: _build.check(fn(*args), "fk_bonds")), state
 
 
-def plain_state(x, band):
-    if band:
+def plain_state(x, form):
+    if form == "staged":
+        bonds = fk.fk_bonds_plain(x["spins"], x["j"], x["temps"], x["kb"],
+                                  offsets=x["lat"].offsets)
+        bits = torch.arange(x["nd"], dtype=torch.uint8, device=bonds.device)
+        return (bonds.to(torch.uint8) << bits).sum(-1, dtype=torch.uint8)
+    if form == "band":
         buf = SimpleNamespace(state=torch.empty((x["b"], x["n"]), dtype=torch.uint8,
                                                 device=x["spins"].device))
         fk.fk_bonds_band_plain(x["spins"], x["j"], x["temps"], x["kb"], buf, x["band"])
@@ -358,18 +462,23 @@ def bound_ms(x):
 
 def probe(libs, todo, states, dev, card, rounds, pers, results):
     keys = list(libs)
-    for name, x, band in states():
-        want = plain_state(x, band)
+    for name, x, form in states():
+        want = plain_state(x, form)
         reps = 50 if x["b"] * x["n"] < 2**24 else 10
         rule = fk.bonds_per(x["n"], x["b"], x["s"], fk.resident_threads(dev.index))
         for rnd in range(rounds):
             for key in (keys if rnd % 2 == 0 else keys[::-1]):
                 label, variant = key
-                first = todo[key][1] == "first"
-                keeps = variant == "base" or VARIANTS[variant][2]
+                staged = form == "staged"
+                first = todo[key][2 if staged else 1] != "redesign"
+                spec = VARIANTS.get(variant)
+                if spec and (spec[3] == ("all" if staged else "staged")
+                             or (staged and spec[0] == "redesign" and first)):
+                    continue  # not this form's variant, or not of its design here
+                keeps = variant == "base" or spec[2]
                 for per in ([rule] if first or not pers or variant != "base"
                             else sorted({rule, x["s"], 1})):
-                    fn, state = launcher(libs[key][0], first, x, band, per)
+                    fn, state = launcher(libs[key][0], first, x, form, per)
                     fn()
                     torch.cuda.synchronize()
                     ok = bool(torch.equal(state, want)) if keeps else None
@@ -378,7 +487,8 @@ def probe(libs, todo, states, dev, card, rounds, pers, results):
                                              f"differs from its plain version: "
                                              f"{int((state != want).sum())} bytes")
                     ms = events_ms(fn, reps)
-                    rec = dict(kind="fk_bonds_band" if band else "fk_bonds", source=label,
+                    kind = {"band": "fk_bonds_band", "staged": "staged"}.get(form, "fk_bonds")
+                    rec = dict(kind=kind, source=label,
                                variant=variant, state=name, round=rnd, per=None if first else per,
                                ms=ms, bound_ms=bound_ms(x), graphs=x["b"], sites=x["n"],
                                bitwise_plain=ok)
@@ -417,8 +527,7 @@ def main():
     libs = compile_all(todo)
     results = []
     for key, (_, log, sass) in libs.items():
-        regs = {k: v for k, v in registers(log).items() if k.startswith("fk_bonds")
-                and not k.startswith("fk_bonds_nb")}
+        regs = {k: v for k, v in registers(log).items() if k.startswith("fk_bonds")}
         counts = sass_counts(sass)
         results.append(dict(kind="build", source=key[0], variant=key[1], registers=regs,
                             sass=counts))
@@ -437,10 +546,14 @@ def main():
     def states():
         for name, shape, geometry, d, s, temp, coup in UNSHARDED:
             if not only or name in only:
-                yield name, unsharded_inputs(shape, geometry, d, s, temp, coup, dev, rng), False
+                yield (name, unsharded_inputs(shape, geometry, d, s, temp, coup, dev, rng),
+                       "fused")
         for name, shape, geometry, s, temp in BANDS:
             if not only or name in only:
-                yield name, band_inputs(shape, geometry, s, temp, dev, rng), True
+                yield name, band_inputs(shape, geometry, s, temp, dev, rng), "band"
+        for name, shape, offsets, s, temp in STAGED:
+            if not only or name in only:
+                yield name, staged_inputs(shape, offsets, s, temp, dev, rng), "staged"
 
     probe(libs, todo, states, dev, card, a.rounds, a.per, results)
     (out / "probe.json").write_text(json.dumps(dict(card=card, results=results)))
