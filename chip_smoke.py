@@ -1953,7 +1953,12 @@ def check_pair_kernels(runs, dev, rng):
         # energy_partials
         ek, mk = overlap.energy_partials(x["spins"], rt.coup, shape)
         ep, mp = overlap.energy_partials_plain(x["spins"], rt.coup, shape)
+        bp = overlap.energy_partials_plain(x["spins"], rt.coup, shape, blocks=True)
         torch.cuda.synchronize()
+        if not (torch.equal(ek.view(torch.int32), bp[0].view(torch.int32))
+                and torch.equal(mk, bp[1])):
+            raise AssertionError(f"{name} energy_partials: partials not bitwise the block "
+                                 "plain version")
         de = (ek.double().sum(-1) - ep.double().sum(-1)).abs()
         e_err = float(de.max())
         worst = float((de / e_lim).max())
@@ -1962,7 +1967,8 @@ def check_pair_kernels(runs, dev, rng):
             raise AssertionError(f"{name} energy_partials differ ({e_err}, {worst} of "
                                  "the limit)")
         rec["energy_partials"] = dict(max_abs_err=e_err)
-        log("13 kernel-vs-plain", f"{name} energy_partials ok: m exact, max |e_kernel - "
+        log("13 kernel-vs-plain", f"{name} energy_partials ok: each of {ek.numel()} "
+            "partials bitwise energy_partials_plain(blocks=True); m exact, max |e_kernel - "
             f"e_plain| {e_err}, {worst:.4f} of the limit {E_SUM_TOL} sum|J| per system "
             "(+-J: exact; gaussian: f32 sums in another order)")
         for k in move_kernels(run["kw"]["overlap_cluster_build_mode"]):
@@ -2327,9 +2333,14 @@ def check_nb_kernels(dev, rng):
                     s = b  # the next pass starts from the plain output
                 ek, mk = energy.measure_nb(s, x["coup"], lat)
                 ep, mp = energy.measure_nb_plain(s, x["coup"], lat)
+                bp = energy.measure_nb_plain(s, x["coup"], lat, blocks=True)
                 torch.cuda.synchronize()
                 if not torch.equal(mk.sum(-1), mp.sum(-1)):
                     raise AssertionError(f"measure_nb on {name}: m differs")
+                if not (torch.equal(ek.view(torch.int32), bp[0].view(torch.int32))
+                        and torch.equal(mk, bp[1])):
+                    raise AssertionError(f"measure_nb on {name} ({couplings}): partials "
+                                         "not bitwise the block plain version")
                 de = (ek.double().sum(-1) - ep.double().sum(-1)).abs()
                 lim = E_SUM_TOL * x["coup"].double().abs().sum()
                 if (couplings == "pm" and float(de.max())) or float(de.max()) > lim:
@@ -2344,7 +2355,8 @@ def check_nb_kernels(dev, rng):
         log("17 kernel-vs-plain", f"sweep_nb ok on {name} ({'x'.join(map(str, shape))}"
             f" x {n_sys} systems, {lat.n_colors} colours, +-1 and gaussian, "
             f"Metropolis and Gibbs): {rec_s['decisions']} decisions, 0 differ but "
-            f"{rec_s['ulp_ties']} ulp ties; measure_nb ok: m exact, e bitwise (+-1), max "
+            f"{rec_s['ulp_ties']} ulp ties; measure_nb ok: every partial bitwise "
+            "measure_nb_plain(blocks=True) (+-1 and gaussian), m exact, e bitwise (+-1), max "
             f"|e_kernel - e_plain| per spin {rec_m['max_abs_err']} (gaussian, limit "
             f"{E_SUM_TOL} sum |J|)")
         # times at this shape: one colour per launch

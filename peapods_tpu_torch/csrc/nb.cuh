@@ -1,11 +1,10 @@
-// The geometry of a lattice given by its forward offsets (up to six), shared
-// by the coloured sweep's measurement (sweep_nb.cu measure_nb, the one
-// kernel left that finds coordinates and neighbours with coords / neighbour:
-// runtime divisions and modulos) and the band kernels (band.cuh, whose
-// BandWalk the division-free kernels of sweep_nb.cu, fk.cu and halo.cu
-// take); cc.cu takes its offset count: extents, row-major strides and the
-// offsets, each axis wrapped on its own (rem_euclid); a 2D lattice is
-// [L0, L1, 1].
+// The geometry of a lattice given by its forward offsets (up to six):
+// extents, row-major strides and the offsets, a 2D lattice as [L0, L1, 1].
+// The band kernels hold it as their window (band.cuh, whose BandWalk the
+// division-free kernels of sweep_nb.cu, fk.cu and halo.cu take: residues
+// and multiply-shift divisors in place of coordinates by division); cc.cu
+// takes its offset count.  wrap, a rem_euclid by a runtime modulo, serves
+// cc_band.cu's steps off a tile and band.cuh's window_global.
 #pragma once
 
 #include <cstdint>
@@ -25,20 +24,6 @@ struct NbGeom {
 __device__ __forceinline__ int wrap(int x, int L) {
   x %= L;
   return x < 0 ? x + L : x;
-}
-
-// The site at coordinates c + sign * off_d.
-__device__ __forceinline__ int neighbour(const NbGeom& g, const int c[3], int d,
-                                         int sign) {
-  int j = 0;
-#pragma unroll
-  for (int k = 0; k < 3; ++k) j += wrap(c[k] + sign * g.off[d][k], g.L[k]) * g.stride[k];
-  return j;
-}
-
-__device__ __forceinline__ void coords(const NbGeom& g, int i, int c[3]) {
-#pragma unroll
-  for (int k = 0; k < 3; ++k) c[k] = (i / g.stride[k]) % g.L[k];
 }
 
 // geom: L0, L1, L2, n_nb, then kMaxOffsets x 3 offsets (host memory; the

@@ -64,13 +64,30 @@
 //
 //   energy_partials  per (realization, system) block partials of the
 //              forward-bond energy sum_d s s_fwd J and of m, which pt_step
-//              adds up: the energies of PT after a move (loop.py:3602-3612).
+//              adds up: the energies of PT after a move (the reference's
+//              re-derivation, peapods_tpu/engine/loop.py:3602-3612 through
+//              peapods_tpu/ops/energy.py energies).
 //
 // What bounds it on the H100: a move touches per site the g int8 spins,
 // a few coupling floats, a state byte and an int32 parent, a few times:
 // under 10 MB per launch at 16^3 x 384 tasks.  The chains of dependent
 // parent loads in find and the launch count (3 to 5 launches a move, plus
 // energy_partials) bound it, as for the FK kernels.
+//
+// energy_partials reads every system's spins and each realization's
+// couplings once: 3.5 MB at config 5 (16^3, 96 systems, 8 realizations),
+// 0.00109 ms at 3.35 TB/s.  Its first design (a thread a site, two runtime
+// divisions a forward neighbour, byte loads, the couplings read again by
+// every system, eight barriers a partial) took 0.0449 ms there,
+// issue-bound.  Now a warp takes a 256-site block of `per` systems of one
+// realization (ops/overlap.py energy_words), a lane eight sites: their
+// couplings read once by 16-byte loads, their spins as 8- or 4-byte words,
+// each neighbour the same word of the next line or plane or the word
+// shifted by a byte, found by multiply-shift, each bond's term a sign flip
+// of J, and the block's values paired by the warp: 0.0066 ms (CUDA events;
+// NVIDIA H100 80GB HBM3, 700 W; tools/probe_measure.py times both designs).
+// Byte words took 0.0142, one system a warp 0.0095, float products 0.0075;
+// loading the next system's words while summing one gained nothing.
 
 #include <cuda_runtime.h>
 
@@ -416,27 +433,204 @@ houdn_finish_kernel(int8_t* spins, const int32_t* __restrict__ sid,
   }
 }
 
+// energy_partials' launch (ops/overlap.py energy_words): a system is n / W
+// words of W bytes (8 or 4 where the fast extent holds whole words and the
+// spins are aligned to them, else 1: the per-site path), in lines of wpl
+// words along the fast axis; the lines run over an inner slow axis of
+// extent Lb (2D: L0; 3D: L1) and, in 3D, an outer one of extent La (L0).
+// A warp takes one 256-site block (nb a system) of `per` systems of one
+// realization, `sets` = S / per such system sets a realization: warp w is
+// block w % nb of set (w / nb) % sets of realization w / (nb sets), as
+// multiply-shift divisions (m, s) of wpl, Lb, nb and sets.
+struct EnergyWalk {
+  int W;
+  int n;
+  int nw;
+  int wpl;
+  int Lb;
+  int La;
+  int nd;
+  int per;
+  int S;
+  int nb;
+  int sets;
+  int d;
+  int warps;
+  uint32_t m[4];
+  int s[4];
+};
+
+inline EnergyWalk make_energy_walk(const int* w) {
+  EnergyWalk g;
+  g.W = w[0];
+  g.n = w[1];
+  g.nw = w[2];
+  g.wpl = w[3];
+  g.Lb = w[4];
+  g.La = w[5];
+  g.nd = w[6];
+  g.per = w[7];
+  g.S = w[8];
+  g.nb = w[9];
+  g.sets = w[10];
+  g.d = w[11];
+  g.warps = w[12];
+  for (int k = 0; k < 4; ++k) {
+    g.m[k] = static_cast<uint32_t>(w[13 + 2 * k]);
+    g.s[k] = w[14 + 2 * k];
+  }
+  return g;
+}
+
+template <int W>
+struct SpinWord;
+template <>
+struct SpinWord<8> {
+  typedef unsigned long long T;
+};
+template <>
+struct SpinWord<4> {
+  typedef unsigned int T;
+};
+template <>
+struct SpinWord<1> {
+  typedef unsigned char T;
+};
+
+// Word k of a system's spins, as the low W bytes of a 64-bit word.
+template <int W>
+__device__ __forceinline__ unsigned long long spin_word(const int8_t* s, int k) {
+  typedef typename SpinWord<W>::T T;
+  return static_cast<unsigned long long>(__ldg(reinterpret_cast<const T*>(s) + k));
+}
+
+// Byte b's term (s s_j) J of a bond whose spins' bytes are XORed into x
+// (b known at compile time, an unrolled loop): J with its sign flipped
+// where they differ (the sign bit of byte b), bitwise the product in
+// floats for spins in {-1, +1}.
+__device__ __forceinline__ float bond_term(unsigned long long x, int b, float J) {
+  const uint32_t flip = static_cast<uint32_t>(x >> (8 * b + 7)) << 31;
+  return __uint_as_float(__float_as_uint(J) ^ flip);
+}
+
+// The (e, m) partials of every (realization, system, 256-site block), one
+// warp a block of `per` systems of one realization (EnergyWalk).  Lane l
+// takes the block's sites 8 l .. 8 l + 7 (8 / W words).  Its forward
+// couplings (8 nd floats, contiguous in [d, n, nd]) are read once for its
+// systems, by 16-byte loads; each word's neighbour words (the line's next
+// word, wrapping at its end; the same word of the next line and, in 3D,
+// plane) are found once, by multiply-shift divisions and one compare an
+// axis.  Per system the lane loads its words and their neighbour words
+// before any add; the fast-axis neighbour of byte q is byte q + 1 of the
+// word, or byte 0 of the next word.  A site's e is 0 + (s s_a) J[i, a]
+// over the axes in order (the first design's thread a site), each term J's
+// sign flipped where the two spins differ; the warp stages the block's 256
+// values in shared memory and pairs them as warp_tree does (the first
+// design's block_partials order), so the e partials are bitwise the first
+// design's (ops/overlap.py energy_partials_plain(blocks=True)); m, an
+// integer, is W - 2 popc of each word's sign bits, added over the warp.
+// Sites past n (a padded last block) hold 0, as the first design's idle
+// threads did.
+template <int W, bool k3>
 __global__ void __launch_bounds__(kThreads)
 energy_partials_kernel(const int8_t* __restrict__ spins, const float* __restrict__ coup,
-                       float* __restrict__ e_part, int32_t* __restrict__ m_part, int L0,
-                       int L1, int L2, int n_slots) {
-  const Dims g = make_dims(L0, L1, L2);
-  const int n = L0 * L1 * L2;
-  const int sys = blockIdx.y;
-  const int d = blockIdx.z;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  float e_acc = 0.0f;
-  int m_acc = 0;
-  if (i < n) {
-    const int8_t* s = spins + (static_cast<size_t>(d) * n_slots + sys) * n;
-    const float* J = coup + (static_cast<size_t>(d) * n + i) * g.nd;
-    const float si = static_cast<float>(s[i]);
-    for (int dir = 0; dir < g.nd; ++dir)
-      e_acc = e_acc + (si * static_cast<float>(s[fwd_site(i, g, dir)])) * J[dir];
-    m_acc = s[i];
+                       float* __restrict__ e_part, int32_t* __restrict__ m_part,
+                       const EnergyWalk g) {
+  constexpr int ND = k3 ? 3 : 2;
+  constexpr int kWords = 8 / W;
+  constexpr unsigned long long kSigns = 0x8080808080808080ull >> (64 - 8 * W);
+  __shared__ __align__(16) float se[kThreads / 32][kThreads];
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+  const int gw = blockIdx.x * (kThreads / 32) + wid;
+  if (gw >= g.warps) return;  // the whole warp: no barrier follows across warps
+  const int rest = fast_div(gw, g.m[2], g.s[2]);
+  const int blk = gw - rest * g.nb;
+  const int dz = fast_div(rest, g.m[3], g.s[3]);
+  const int set = rest - dz * g.sets;
+  const int i0 = blk * kThreads + 8 * lane;
+  const int cnt = g.n - i0;  // a multiple of 4: the lane's sites are 8, 4 or none
+  float jc[8 * ND];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (4 * h < cnt) {
+      const float4* p =
+          reinterpret_cast<const float4*>(coup + (static_cast<size_t>(dz) * g.n + i0 + 4 * h) * ND);
+#pragma unroll
+      for (int u = 0; u < ND; ++u) {
+        const float4 x = __ldg(p + u);
+        jc[4 * ND * h + 4 * u] = x.x;
+        jc[4 * ND * h + 4 * u + 1] = x.y;
+        jc[4 * ND * h + 4 * u + 2] = x.z;
+        jc[4 * ND * h + 4 * u + 3] = x.w;
+      }
+    }
   }
-  block_partials(e_acc, m_acc, e_part, m_part,
-                 (static_cast<size_t>(d) * n_slots + sys) * gridDim.x + blockIdx.x);
+  // each word's neighbour words: the fast axis' next, the inner slow
+  // axis' (kb) and the outer one's (ka, 3D)
+  int kf[kWords], kb[kWords], ka[kWords];
+#pragma unroll
+  for (int j = 0; j < kWords; ++j) {
+    const int k = i0 / W + j;
+    const int line = fast_div(k, g.m[0], g.s[0]);
+    const int pos = k - line * g.wpl;
+    kf[j] = pos + 1 < g.wpl ? k + 1 : k + 1 - g.wpl;
+    int cb = line;
+    int ca = 0;
+    if (k3) {
+      ca = fast_div(line, g.m[1], g.s[1]);
+      cb = line - ca * g.Lb;
+    }
+    kb[j] = cb + 1 < g.Lb ? k + g.wpl : k + g.wpl - g.Lb * g.wpl;
+    const int plane = g.Lb * g.wpl;
+    ka[j] = k3 ? (ca + 1 < g.La ? k + plane : k + plane - g.nw) : 0;
+  }
+  float* xe = se[wid];
+  for (int q = 0; q < g.per; ++q) {
+    const size_t row = static_cast<size_t>(dz) * g.S + set * g.per + q;
+    const int8_t* s = spins + row * g.n;
+    // the lane's own words, and the fast, inner and outer neighbour words
+    unsigned long long w[4][kWords] = {};
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) {
+      if (j * W < cnt) {
+        w[0][j] = spin_word<W>(s, i0 / W + j);
+        w[1][j] = spin_word<W>(s, kf[j]);
+        w[2][j] = spin_word<W>(s, kb[j]);
+        w[3][j] = k3 ? spin_word<W>(s, ka[j]) : 0;
+      }
+    }
+    float e[8];
+    int m = 0;
+#pragma unroll
+    for (int j = 0; j < kWords; ++j) {
+      const bool on = j * W < cnt;
+      const unsigned long long w0 = w[0][j];
+      const unsigned long long xf = w0 ^ ((w0 >> 8) | (w[1][j] << (8 * (W - 1))));
+      const unsigned long long xb = w0 ^ w[2][j];
+      const unsigned long long xa = w0 ^ w[3][j];
+      if (on) m += W - 2 * __popcll(w0 & kSigns);
+#pragma unroll
+      for (int b = 0; b < W; ++b) {
+        const int site = j * W + b;
+        float x = 0.0f;
+        if (k3) x = x + bond_term(xa, b, jc[ND * site]);
+        x = x + bond_term(xb, b, jc[ND * site + ND - 2]);
+        x = x + bond_term(xf, b, jc[ND * site + ND - 1]);
+        e[site] = on ? x : 0.0f;
+      }
+    }
+    reinterpret_cast<float4*>(xe + 8 * lane)[0] = make_float4(e[0], e[1], e[2], e[3]);
+    reinterpret_cast<float4*>(xe + 8 * lane)[1] = make_float4(e[4], e[5], e[6], e[7]);
+    __syncwarp();
+    const float et = warp_tree(xe, lane);
+    m = __reduce_add_sync(0xffffffffu, m);
+    if (lane == 0) {
+      e_part[row * g.nb + blk] = et;
+      m_part[row * g.nb + blk] = m;
+    }
+    __syncwarp();  // the values are read before the next system writes them
+  }
 }
 
 inline dim3 site_grid(int n, int per_thread, int rows) {
@@ -551,16 +745,31 @@ int peapods_houdn_finish(void* spins, const void* sid, const void* tasks,
   return static_cast<int>(cudaGetLastError());
 }
 
-// e_part f32 / m_part int32 [d, n_slots, peapods_site_blocks(n)] by system.
-int peapods_energy_partials(const void* spins, const void* coup, void* e_part,
-                            void* m_part, int n_disorder, int n_slots, int L0, int L1,
-                            int L2, void* stream) {
-  const int n = L0 * L1 * L2;
-  energy_partials_kernel<<<dim3(peapods_site_blocks(n), n_slots, n_disorder), kThreads,
-                           0, static_cast<cudaStream_t>(stream)>>>(
+// e_part f32 / m_part int32 [d, S, peapods_site_blocks(n)] by system; spins
+// int8 [d, S, n] (aligned to W bytes), coup f32 [d, n, nd] (16-byte
+// aligned); words: ops/overlap.py energy_words (host memory).
+int peapods_energy_partials(const void* spins, const void* coup, void* e_part, void* m_part,
+                            const int* words, void* stream) {
+  const EnergyWalk g = make_energy_walk(words);
+  if ((g.W != 1 && g.W != 4 && g.W != 8) || g.n < 4 || g.n % 4 || g.nw * g.W != g.n ||
+      g.wpl < 1 || g.Lb < 1 || g.La < 0 || g.wpl * g.Lb * (g.La ? g.La : 1) != g.nw ||
+      g.nd != (g.La ? 3 : 2) || g.per < 1 || g.S < 1 || g.S % g.per ||
+      g.sets * g.per != g.S || g.nb != peapods_site_blocks(g.n) || g.d < 1 ||
+      static_cast<long long>(g.d) * g.sets * g.nb != g.warps ||
+      reinterpret_cast<uintptr_t>(spins) % g.W != 0 || reinterpret_cast<uintptr_t>(coup) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kWarps = kThreads / 32;
+  const unsigned grid = static_cast<unsigned>((g.warps + kWarps - 1) / kWarps);
+  const bool k3 = g.La > 0;
+  const auto kernel = k3 ? (g.W == 8   ? energy_partials_kernel<8, true>
+                            : g.W == 4 ? energy_partials_kernel<4, true>
+                                       : energy_partials_kernel<1, true>)
+                         : (g.W == 8   ? energy_partials_kernel<8, false>
+                            : g.W == 4 ? energy_partials_kernel<4, false>
+                                       : energy_partials_kernel<1, false>);
+  kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(spins), static_cast<const float*>(coup),
-      static_cast<float*>(e_part), static_cast<int32_t*>(m_part), L0, L1, L2,
-      n_slots);
+      static_cast<float*>(e_part), static_cast<int32_t*>(m_part), g);
   return static_cast<int>(cudaGetLastError());
 }
 

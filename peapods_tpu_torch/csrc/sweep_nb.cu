@@ -40,13 +40,12 @@
 //               so the energy cannot ride in the last pass as it does on the
 //               checkerboard.
 //
-// sweep_nb is templated on the number of offsets and the dimension, and
-// finds its neighbours with no runtime division (the H100 has no integer
-// divide instruction: a `/` or `%` by a runtime value is a sequence of
-// about twenty): one multiply-shift division for a group's first site, a
+// Both kernels are templated on the number of offsets and the dimension,
+// and find their neighbours with no runtime division (the H100 has no
+// integer divide instruction: a `/` or `%` by a runtime value is a sequence
+// of about twenty): one multiply-shift division for a group's first site, a
 // step for the next, and each axis of a neighbour wrapped by a residue and
 // one compare (band.cuh, the whole lattice as a window without halo).
-// measure_nb finds them from nb.cuh's coordinates and rem_euclid wraps.
 // Built with -fmad=false and no fast math, so the field, the acceptance and
 // the (+-1) energies round exactly as the plain torch versions
 // (ops/sweep.py, ops/energy.py).
@@ -67,6 +66,25 @@
 // offsets costs 3-36%; a grid of only the groups that hold the pass's
 // colour would save at most 4% at FCC (a quarter of the grid: 0.0053), so
 // the grid covers every group and the others return after one colour load.
+//
+// What bounds measure_nb: it reads every spin and the realization's forward
+// couplings once and writes 8 bytes a block of 1024 sites: 0.00003-0.00004
+// ms at the staged shapes (16^3 x 8 systems, 64^2 x 8), where the launch
+// and one thread's chain of loads are its time.  The first design (a thread
+// a group of one system, three runtime divisions and modulos for a site's
+// coordinates and one a neighbour's axis, a runtime loop over the offsets,
+// the couplings read again by every system, eight barriers a block's
+// partial) took 0.0066-0.0078 ms a launch there and 0.0130 at 32^3 x 16.
+// Now the neighbours come from residues, every load is issued before the
+// adds, a bond's term is a sign flip of J, one warp pairs each partial, and
+// where the launch is large a thread takes `per` systems and reads its
+// couplings once (ops/energy.py measure_per): 0.0031-0.0039 and 0.0042 ms
+// (CUDA events; NVIDIA H100 80GB HBM3, 700 W; tools/probe_measure.py times
+// both designs).  Its divisions back cost 20-31% at the staged shapes.
+// Spreading a group's sites over two or four lanes to fill the card, a
+// group's own spins as one 4-byte load, and float products in place of the
+// sign flips were each within 5% (the launch's chain, not its thread count
+// or its instructions, is the time).
 
 #include <cuda_runtime.h>
 
@@ -79,6 +97,8 @@
 using namespace peapods;
 
 namespace {
+
+constexpr int kMaxPer = 8;  // systems a thread of measure_nb: its shared rows
 
 // The neighbour of the site at (r, c1, c2) at +off_d (back = false) or
 // -off_d on the whole periodic lattice, with no division: the host reduces
@@ -196,33 +216,110 @@ sweep_nb_kernel(int8_t* __restrict__ spins, const float* __restrict__ coup,
   }
 }
 
+// (s_i s_j) J for spins s_i, s_j in {-1, +1}: J with its sign flipped
+// where the spins differ (their sign bits), bitwise the product in floats.
+__device__ __forceinline__ float bond_term(int8_t si, int8_t sj, float J) {
+  const uint32_t flip = (static_cast<uint32_t>(static_cast<uint8_t>(si ^ sj)) >> 7) << 31;
+  return __uint_as_float(__float_as_uint(J) ^ flip);
+}
+
+// The (e, m) partials of block blockIdx.x (groups of four sites 4 (256
+// blockIdx.x + t), thread t) of systems blockIdx.y per .. + per - 1 of
+// realization blockIdx.z, on a lattice of NB forward offsets, 3D or (k3
+// false) 2D.  A thread's forward couplings (its four sites' NB each,
+// contiguous in [d, n, NB]) are read once for its systems, by vector
+// loads; its first site's coordinates are one multiply-shift division
+// (band_coords), the next sites' a step each, and the forward neighbours
+// residues and one compare an axis (nb_site), found once for all systems.
+// Per system every spin load is issued before the first add.  A site's e
+// is 0 + (s s_fwd) J[i, d] in offset order (bond_term), the group's four
+// values added in order from 0, as the first design's thread added them;
+// each system's 256 group sums are staged in shared memory and paired by
+// one warp (warp_tree, the first design's block_partials order), so the
+// partials are bitwise the first design's (ops/energy.py
+// measure_nb_plain(blocks=True)).
+template <int NB, bool k3>
 __global__ void __launch_bounds__(kThreads)
-measure_nb_kernel(const int8_t* __restrict__ spins, const float* __restrict__ coup_fwd,
-                  const NbGeom g, float* __restrict__ e_part,
-                  int32_t* __restrict__ m_part, int n, int n_systems) {
-  const int sys = blockIdx.y;
+measure_nb_kernel(const int8_t* __restrict__ spins, const float* __restrict__ coup,
+                  const BandWalk geo, float* __restrict__ e_part,
+                  int32_t* __restrict__ m_part, int n_systems, int per) {
+  __shared__ float se[kMaxPer][kThreads];
+  __shared__ int sm[kMaxPer][kThreads];
+  const int n = geo.w.L[0] * geo.block;
+  const int i0 = kSitesPerThread * (blockIdx.x * kThreads + threadIdx.x);
+  const bool has = i0 < n;  // n % 4 == 0: a group is whole or absent
   const int dz = blockIdx.z;
-  const int i0 = kSitesPerThread * (blockIdx.x * blockDim.x + threadIdx.x);
-  const size_t row = static_cast<size_t>(dz) * n_systems + sys;
-  const int8_t* s = spins + row * n;
-  const float* jf = coup_fwd + static_cast<size_t>(dz) * n * g.n_nb;
-  float e_acc = 0.0f;
-  int m_acc = 0;
+  const int sys0 = blockIdx.y * per;
+  float jc[kSitesPerThread * NB];
+  int nbr[kSitesPerThread][NB];
+  if (has) {
+    // the group's 4 NB couplings: 16-byte aligned (the couplings are, and
+    // i0 is a multiple of 4)
+    const float4* cp =
+        reinterpret_cast<const float4*>(coup + (static_cast<size_t>(dz) * n + i0) * NB);
 #pragma unroll
-  for (int k = 0; k < kSitesPerThread; ++k) {
-    const int i = i0 + k;
-    if (i >= n) break;
-    int c[3];
-    coords(g, i, c);
-    const float sv = static_cast<float>(s[i]);
-    float e = 0.0f;
-    for (int d = 0; d < g.n_nb; ++d)
-      e = e + sv * static_cast<float>(s[neighbour(g, c, d, 1)]) *
-                  jf[static_cast<size_t>(i) * g.n_nb + d];
-    e_acc += e;
-    m_acc += s[i];
+    for (int u = 0; u < NB; ++u) {
+      const float4 x = __ldg(cp + u);
+      jc[4 * u] = x.x;
+      jc[4 * u + 1] = x.y;
+      jc[4 * u + 2] = x.z;
+      jc[4 * u + 3] = x.w;
+    }
+    int c1, c2;
+    int r = band_coords(geo, i0, c1, c2);
+#pragma unroll
+    for (int k = 0; k < kSitesPerThread; ++k) {
+      if (k) {  // the next site's coordinates
+        if (!k3 || ++c2 == geo.w.L[2]) {
+          c2 = 0;
+          if (++c1 == geo.w.L[1]) {
+            c1 = 0;
+            ++r;
+          }
+        }
+      }
+#pragma unroll
+      for (int d = 0; d < NB; ++d) nbr[k][d] = nb_site<k3>(geo, r, c1, c2, d, false);
+    }
   }
-  block_partials(e_acc, m_acc, e_part, m_part, row * gridDim.x + blockIdx.x);
+  for (int q = 0; q < per; ++q) {
+    const int8_t* s = spins + (static_cast<size_t>(dz) * n_systems + sys0 + q) * n;
+    float acc = 0.0f;
+    int m = 0;
+    if (has) {
+      int8_t sv[kSitesPerThread];
+      int8_t sn[kSitesPerThread][NB];
+#pragma unroll
+      for (int k = 0; k < kSitesPerThread; ++k) {
+        sv[k] = __ldg(s + i0 + k);
+#pragma unroll
+        for (int d = 0; d < NB; ++d) sn[k][d] = __ldg(s + nbr[k][d]);
+      }
+#pragma unroll
+      for (int k = 0; k < kSitesPerThread; ++k) {
+        float e = 0.0f;
+#pragma unroll
+        for (int d = 0; d < NB; ++d) e = e + bond_term(sv[k], sn[k][d], jc[k * NB + d]);
+        acc += e;
+        m += sv[k];
+      }
+    }
+    se[q][threadIdx.x] = acc;
+    sm[q][threadIdx.x] = m;
+  }
+  __syncthreads();
+  // warp v pairs systems v, v + 8, ... of the CTA
+  const int lane = threadIdx.x & 31;
+  for (int q = threadIdx.x >> 5; q < per; q += kThreads >> 5) {
+    const float et = warp_tree(se[q], lane);
+    const int mt = warp_tree(sm[q], lane);
+    if (lane == 0) {
+      const size_t o =
+          (static_cast<size_t>(dz) * n_systems + sys0 + q) * gridDim.x + blockIdx.x;
+      e_part[o] = et;
+      m_part[o] = mt;
+    }
+  }
 }
 
 }  // namespace
@@ -269,16 +366,35 @@ int peapods_sweep_nb(void* spins, const void* coup, const void* colours, const v
   return static_cast<int>(cudaGetLastError());
 }
 
-// e_part f32 / m_part int32 [d, n_systems, peapods_nb_blocks(n)].
-int peapods_measure_nb(const void* spins, const void* coup_fwd, const int* geom,
-                       void* e_part, void* m_part, int n_disorder, int n_systems,
-                       void* stream) {
-  const NbGeom g = make_geom(geom);
-  const int n = g.L[0] * g.L[1] * g.L[2];
-  const dim3 grid(peapods_nb_blocks(n), n_systems, n_disorder);
-  measure_nb_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(spins), static_cast<const float*>(coup_fwd), g,
-      static_cast<float*>(e_part), static_cast<int32_t*>(m_part), n, n_systems);
+// e_part f32 / m_part int32 [d, n_systems, peapods_nb_blocks(n)].  spins
+// int8 [d, n_systems, n]; coup f32 [d, n, n_nb] (forward couplings, 16-byte
+// aligned); walk: as peapods_sweep_nb's; per the systems a thread (a
+// divisor of n_systems, at most kMaxPer; ops/energy.py measure_per).
+int peapods_measure_nb(const void* spins, const void* coup, const int* walk, void* e_part,
+                       void* m_part, int n_disorder, int n_systems, int per, void* stream) {
+  const BandWalk g = make_band_walk(walk);
+  const long long n = static_cast<long long>(g.w.L[0]) * g.block;
+  const int nb = g.w.n_nb;
+  if (n_disorder < 1 || n_disorder > 65535 || n_systems < 1 || per < 1 || per > kMaxPer ||
+      n_systems % per || n_systems / per > 65535 || nb < 1 || nb > kMaxOffsets || n < 4 ||
+      n % 4 || n > (1LL << 31) - 4 || g.hl != g.w.L[0] || g.halo != 0 ||
+      reinterpret_cast<uintptr_t>(coup) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(peapods_nb_blocks(static_cast<int>(n)), n_systems / per, n_disorder);
+  const bool k3 = g.w.L[2] > 1;
+  auto go = [&](auto kernel) {
+    kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int8_t*>(spins), static_cast<const float*>(coup), g,
+        static_cast<float*>(e_part), static_cast<int32_t*>(m_part), n_systems, per);
+  };
+  switch (nb) {
+    case 1: k3 ? go(measure_nb_kernel<1, true>) : go(measure_nb_kernel<1, false>); break;
+    case 2: k3 ? go(measure_nb_kernel<2, true>) : go(measure_nb_kernel<2, false>); break;
+    case 3: k3 ? go(measure_nb_kernel<3, true>) : go(measure_nb_kernel<3, false>); break;
+    case 4: k3 ? go(measure_nb_kernel<4, true>) : go(measure_nb_kernel<4, false>); break;
+    case 5: k3 ? go(measure_nb_kernel<5, true>) : go(measure_nb_kernel<5, false>); break;
+    default: k3 ? go(measure_nb_kernel<6, true>) : go(measure_nb_kernel<6, false>); break;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

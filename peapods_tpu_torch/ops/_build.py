@@ -67,10 +67,10 @@ _SIGNATURES = {
     "peapods_ov_finish": [_P] * 10 + [_I] * 10 + [_P],
     "peapods_houdn_bonds": [_P] * 7 + [_I] * 9 + [_P],
     "peapods_houdn_finish": [_P] * 8 + [_I] * 10 + [_P],
-    "peapods_energy_partials": [_P] * 4 + [_I] * 5 + [_P],
+    "peapods_energy_partials": [_P] * 6,
     "peapods_nb_blocks": [_I],
     "peapods_sweep_nb": [_P] * 6 + [_I] * 5 + [_P],
-    "peapods_measure_nb": [_P] * 5 + [_I] * 2 + [_P],
+    "peapods_measure_nb": [_P] * 5 + [_I] * 3 + [_P],
     "peapods_halo_blocks": [_P, _I],
     "peapods_sweep_halo": [_P] * 9 + [_I] * 5 + [_P],
     "peapods_measure_halo": [_P] * 5 + [_I] * 2 + [_P],

@@ -6,7 +6,8 @@ positive forward-bond sum per spin, ``e = +sum_{i,d} J[i,d] s_i s_fwd / N``.
 
 :func:`measure_nb` measures the per-sweep path on the coloured lattices
 (``csrc/sweep_nb.cu``): per-block partial sums of e and m on CUDA tensors
-(counted in :data:`LAUNCHES`), :func:`measure_nb_plain` on CPU tensors.
+(counted in :data:`LAUNCHES`), :func:`measure_nb_plain` on CPU tensors;
+:func:`site_energies` is both measurement kernels' per-site order of adds.
 """
 
 from __future__ import annotations
@@ -16,8 +17,8 @@ import torch
 
 from . import _build
 
-__all__ = ["LAUNCHES", "bond_sums", "energies_and_mags", "per_spin", "measure_nb",
-           "measure_nb_plain"]
+__all__ = ["LAUNCHES", "bond_sums", "energies_and_mags", "per_spin", "site_energies",
+           "measure_nb", "measure_nb_plain", "measure_per"]
 
 # kernel launches since the last reset, by kernel name
 LAUNCHES = {"measure_nb": 0}
@@ -61,23 +62,67 @@ def energies_and_mags(spins, coup_fwd, shape, offsets=None):
     return per_spin(bond_sums(spins, coup_fwd, shape, offsets), spins.shape[-1]), m
 
 
-def measure_nb_plain(spins, coup_fwd, lattice):
+def site_energies(spins, coup_fwd, shape, offsets=None):
+    """f32 ``[..., n_spins]``: each site's forward-bond energy ``0 + (s_i
+    s_fwd) J[i, d]``, added over the offsets in order (one per axis when
+    ``None``), as ``measure_nb`` and ``energy_partials`` add a site's
+    terms; int8 spins ``[..., n_spins]``, couplings ``[..., n_spins,
+    n_offsets]`` (broadcast)."""
+    shape = tuple(shape)
+    if offsets is None:
+        offsets = np.eye(len(shape), dtype=np.int64)
+    s = spins.to(torch.float32)
+    g = s.reshape(*s.shape[:-1], *shape)
+    spatial = tuple(range(-len(shape), 0))
+    e = torch.zeros_like(s)
+    for d, off in enumerate(offsets):
+        fwd = torch.roll(g, tuple(-int(o) for o in off), spatial).reshape(s.shape)
+        e = e + s * fwd * coup_fwd[..., d]
+    return e
+
+
+def measure_nb_plain(spins, coup_fwd, lattice, blocks=False):
     """Plain version of ``measure_nb``: ``(e_part f32 [d, S, 1], m_part
     int32 [d, S, 1])``, the forward-bond energy sum and the magnetization
     of spins int8 ``[d, S, n_spins]`` with couplings ``[d, n_spins,
-    n_neighbors]``."""
+    n_neighbors]``; with ``blocks`` the kernel's partials ``[d, S,
+    nb_blocks]``, one a block of 256 groups of four sites, added as the
+    kernel adds them (:func:`site_energies`, then
+    :func:`~.fk.block_partials_plain` with four sites a thread)."""
+    if blocks:
+        from .fk import block_partials_plain
+
+        e = site_energies(spins, coup_fwd[:, None], lattice.shape, lattice.offsets)
+        return (block_partials_plain(e, 4),
+                block_partials_plain(spins.to(torch.int32), 4))
     e = bond_sums(spins, coup_fwd[:, None], lattice.shape, lattice.offsets)
     m = spins.to(torch.int32).sum(-1, dtype=torch.int32)
     return e[..., None], m[..., None]
 
 
-def measure_nb(spins, coup_fwd, lattice):
+def measure_per(n_spins: int, n_disorder: int, n_systems: int, threads: int) -> int:
+    """The systems a thread of ``measure_nb`` takes, reading its couplings
+    once for them: ``sweep.systems_per`` of the launch's groups of four
+    sites against ``threads`` (an eighth of the card's resident threads:
+    tools/probe_measure.py, NVIDIA H100 80GB HBM3, 32^3 x 16 0.0050 ms a
+    launch with 1, 0.0042 with 2 (65,536 threads); at the staged shapes,
+    8,192 threads, 2 systems ran 9-16% slower than 1)."""
+    from .sweep import systems_per
+
+    return systems_per(-(-n_spins // 4), n_disorder, n_systems, threads)
+
+
+def measure_nb(spins, coup_fwd, lattice, per=None):
     """The (e, m) partials of every (realization, system) on a coloured
     lattice (see :func:`measure_nb_plain`): the plain version for CPU
     tensors, the ``measure_nb`` kernel for CUDA tensors, whose partials have
-    one entry per block of 1024 sites."""
+    one entry per block of 1024 sites, bitwise ``measure_nb_plain(...,
+    blocks=True)``.  ``per``: the systems a thread, in place of
+    :func:`measure_per`'s."""
     if _build.device_kind(spins) == "cpu":
         return measure_nb_plain(spins, coup_fwd, lattice)
+    from .fk import resident_threads
+
     dev = spins.device
     d, n_sys, n = spins.shape
     _build.expect(spins, "spins", torch.int8, (d, n_sys, lattice.n_spins), dev)
@@ -85,13 +130,16 @@ def measure_nb(spins, coup_fwd, lattice):
                   dev)
     if d > 65535 or n_sys > 65535:
         raise ValueError("at most 65535 realizations and systems")
+    if coup_fwd.data_ptr() % 16:
+        raise ValueError("coup_fwd must be 16-byte aligned")
+    per = per or measure_per(n, d, n_sys, resident_threads(dev.index) // 8)
     lib = _build.library()
     nb = lib.peapods_nb_blocks(n)
     e_part = torch.empty((d, n_sys, nb), dtype=torch.float32, device=dev)
     m_part = torch.empty((d, n_sys, nb), dtype=torch.int32, device=dev)
     _build.check(lib.peapods_measure_nb(
-        spins.data_ptr(), coup_fwd.data_ptr(), lattice.kernel_geometry.ctypes.data,
-        e_part.data_ptr(), m_part.data_ptr(), d, n_sys,
+        spins.data_ptr(), coup_fwd.data_ptr(), lattice.sweep_words.ctypes.data,
+        e_part.data_ptr(), m_part.data_ptr(), d, n_sys, per,
         torch.cuda.current_stream(dev).cuda_stream), "measure_nb")
     LAUNCHES["measure_nb"] += 1
     return e_part, m_part

@@ -389,6 +389,8 @@ def pairs_chunk(spins, jgrids, coup, temps, slot_temps, sid, ea, ec, rtrips,
                  n_replicas=R)
     plan = mega._colour_plan(dev, dims5)
     pw = pair_words(shape, R, n_slots, p_spins % 8)
+    ew = overlap.energy_words(shape, d, n_slots, p_spins % 8,
+                              fk.resident_threads(dev.index) // 4)
     for t in range(n):
         for colour, parts in ((0, (None, None)), (1, (p_ep, p_mp))):
             mega._launch_colour(lib, stream, dims5, p_spins, p_jg, p_sid, p_st,
@@ -437,8 +439,7 @@ def pairs_chunk(spins, jgrids, coup, temps, slot_temps, sid, ea, ec, rtrips,
             if events.observe:
                 parts = (p_ep, p_mp, e_part.shape[2])
             else:
-                overlap.launch_energy(lib, stream, d, n_slots, *_build.dims3(shape),
-                                      p_spins, p_coup, p_ep2, p_mp2)
+                overlap.launch_energy(lib, stream, ew, p_spins, p_coup, p_ep2, p_mp2)
                 parts = (p_ep2, p_mp2, nb2)
             parity = mega._launch_pt(
                 lib, stream, dev, d, n_slots, n_sites, *parts, None, None,

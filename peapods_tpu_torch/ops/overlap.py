@@ -48,15 +48,19 @@ graph and writes no spin.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from . import _build, fk, rng
 from .cluster import _fwd, connected_components, find_seed, nonsingleton_mask
 from .cluster import salted_uniform
-from .energy import bond_sums
+from .energy import bond_sums, site_energies
+from .lattice import fast_divisor
+from .sweep import systems_per
 
 __all__ = [
     "KINDS",
@@ -72,6 +76,7 @@ __all__ = [
     "cmr_plain",
     "energy_partials",
     "energy_partials_plain",
+    "energy_words",
 ]
 
 KINDS = ("houdayer", "jorg", "cmr")
@@ -298,9 +303,15 @@ def overlap_event_plain(spins, sid, tasks, coup, temps, scal, probes, words,
                       bonds if with_masks else None)
 
 
-def energy_partials_plain(spins, coup, shape):
+def energy_partials_plain(spins, coup, shape, blocks=False):
     """``(e_part f32 [d, S, 1], m_part int32 [d, S, 1])``: each system's
-    forward-bond energy sum and magnetization, by system."""
+    forward-bond energy sum and magnetization, by system; with ``blocks``
+    the kernel's partials ``[d, S, site_blocks]``, one a block of 256 sites,
+    added as the kernel adds them (:func:`~.energy.site_energies`, then
+    :func:`~.fk.block_partials_plain` with a site a thread)."""
+    if blocks:
+        e = site_energies(spins, coup[:, None], shape)
+        return fk.block_partials_plain(e), fk.block_partials_plain(spins.to(torch.int32))
     e = bond_sums(spins, coup[:, None], shape)
     m = spins.to(torch.int32).sum(-1, dtype=torch.int32)
     return e[..., None], m[..., None]
@@ -371,11 +382,50 @@ def launch_event(lib, stream, dims, p_spins, p_sid, p_tasks, p_coup, p_temps,
     LAUNCHES["ov_finish"] += 1
 
 
-def launch_energy(lib, stream, d, n_sys, l0, l1, l2, p_spins, p_coup, p_e, p_m):
-    """Launch ``energy_partials`` on raw pointers."""
+# energy_partials (csrc/overlap.cu): a warp takes a block of 256 sites of
+# `per` systems of one realization, a lane eight sites
+ENERGY_BLOCK = 256
+
+
+@functools.lru_cache(maxsize=None)
+def energy_words(shape, n_disorder: int, n_systems: int, align: int = 0,
+                 threads: int = 0, per: int = 0):
+    """int32 host words of ``energy_partials`` (``csrc/overlap.cu``
+    ``EnergyWalk``): ``W, n, n / W, wpl, Lb, La, nd, per, S, nb, S / per,
+    d, warps``, then :func:`~.lattice.fast_divisor` ``(m, s)`` of ``wpl``,
+    ``Lb``, ``nb`` and ``S / per``.  A system is ``n / W`` words of ``W``
+    bytes (``megapair.pair_word_bytes``, as ``pair_overlap``'s) in lines of
+    ``wpl`` words along the fast axis, over an inner slow axis of extent
+    ``Lb`` (2D: ``L0``; 3D: ``L1``) and in 3D an outer one of extent ``La =
+    L0`` (0 in 2D); ``nb`` blocks of 256 sites a system, a warp a
+    (realization, system set, block), ``per`` systems a set:
+    ``sweep.systems_per`` of the launch's lanes (eight sites each) against
+    ``threads`` (its callers: a quarter of the card's resident threads;
+    tools/probe_measure.py, NVIDIA H100 80GB HBM3: config 5 0.0095 ms a
+    launch with 1 system a warp, 0.0083 with 2, 0.0066 with 4; config 4
+    0.0036 with 1, 0.0033 with 2; the 64^2 glass 0.0031 with 1, 0.0033 with
+    2), unless ``per`` is given."""
+    from .megapair import pair_word_bytes
+
+    shape = tuple(int(x) for x in shape)
+    nd = len(shape)
+    n = math.prod(shape)
+    w = pair_word_bytes(shape[-1], align)
+    lb, la = (shape[0], 0) if nd == 2 else (shape[1], shape[0])
+    nb = -(-n // ENERGY_BLOCK)
+    per = per or systems_per(nb * 32, n_disorder, n_systems, threads)
+    sets = n_systems // per
+    head = [w, n, n // w, shape[-1] // w, lb, la, nd, per, n_systems, nb, sets,
+            n_disorder, n_disorder * sets * nb]
+    div = [fast_divisor(x) for x in (shape[-1] // w, lb, nb, sets)]
+    words = np.asarray(head + [v for md in div for v in md], np.int64)
+    return words.astype(np.uint32).view(np.int32)
+
+
+def launch_energy(lib, stream, words, p_spins, p_coup, p_e, p_m):
+    """Launch ``energy_partials`` on raw pointers (:func:`energy_words`)."""
     _build.check(lib.peapods_energy_partials(
-        p_spins, p_coup, p_e, p_m, d, n_sys, l0, l1, l2, stream),
-        "energy_partials")
+        p_spins, p_coup, p_e, p_m, words.ctypes.data, stream), "energy_partials")
     LAUNCHES["energy_partials"] += 1
 
 
@@ -437,22 +487,28 @@ def overlap_event(spins, sid, tasks, coup, temps, scal, probes, words, *, kind,
                       fk.state_masks(scratch.state, len(shape)) if with_masks else None)
 
 
-def energy_partials(spins, coup, shape):
+def energy_partials(spins, coup, shape, per=0):
     """Each system's energy and magnetization as partial sums ``(e_part
     f32, m_part int32)`` ``[d, S, blocks]`` by system (see
-    :func:`energy_partials_plain`; one partial per block of 256 sites on
-    the card)."""
+    :func:`energy_partials_plain`; on the card one partial per block of 256
+    sites, bitwise ``energy_partials_plain(..., blocks=True)``).  ``per``:
+    the systems a warp takes, in place of :func:`energy_words`' rule."""
     if _build.device_kind(spins) == "cpu":
         return energy_partials_plain(spins, coup, shape)
     dev = spins.device
     d, n_sys, n = spins.shape
     _build.expect(spins, "spins", torch.int8, (d, n_sys, n), dev)
     _build.expect(coup, "coup", torch.float32, (d, n, len(shape)), dev)
+    if len(shape) not in (2, 3) or n != math.prod(shape):
+        raise ValueError(f"spins do not hold lattices of shape {shape}")
+    if coup.data_ptr() % 16:
+        raise ValueError("coup must be 16-byte aligned")
     lib = _build.library()
     nb = lib.peapods_site_blocks(n)
     e_part = torch.empty((d, n_sys, nb), dtype=torch.float32, device=dev)
     m_part = torch.empty((d, n_sys, nb), dtype=torch.int32, device=dev)
-    launch_energy(lib, torch.cuda.current_stream(dev).cuda_stream, d, n_sys,
-                  *_build.dims3(shape), spins.data_ptr(), coup.data_ptr(),
-                  e_part.data_ptr(), m_part.data_ptr())
+    words = energy_words(tuple(shape), d, n_sys, spins.data_ptr() % 8,
+                         fk.resident_threads(dev.index) // 4, per)
+    launch_energy(lib, torch.cuda.current_stream(dev).cuda_stream, words,
+                  spins.data_ptr(), coup.data_ptr(), e_part.data_ptr(), m_part.data_ptr())
     return e_part, m_part

@@ -936,6 +936,41 @@ def test_energy_partials_kernel_matches_plain(cuda):
         ep, mp = overlap.energy_partials_plain(x["spins"], x["coup"], shape)
         assert torch.equal(ek.sum(-1), ep.sum(-1))  # +-1 sums: exact
         assert torch.equal(mk.sum(-1), mp.sum(-1))
+        bp = overlap.energy_partials_plain(x["spins"], x["coup"], shape, blocks=True)
+        assert torch.equal(ek, bp[0]) and torch.equal(mk, bp[1])
+
+
+def _offset_copy(t, offset):
+    """A contiguous copy of ``t`` whose data starts ``offset`` bytes past an
+    8-byte boundary (the kernels' word widths follow the address)."""
+    buf = torch.empty(t.numel() * t.element_size() + 16, dtype=torch.uint8, device=t.device)
+    out = buf[offset:offset + t.numel() * t.element_size()].view(t.dtype).view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 8 == offset % 8
+    return out
+
+
+@pytest.mark.parametrize("offset", [0, 4, 2], ids=["aligned", "plus4", "plus2"])
+@pytest.mark.parametrize("couplings", ["pm", "gauss"])
+@pytest.mark.parametrize("shape", [(8, 8, 8), (16, 16, 16), (8, 64), (6, 10), (4, 6, 8)],
+                         ids=["8cube", "16cube", "8x64", "6x10", "4x6x8"])
+def test_energy_partials_partials_are_bitwise_block_plain(cuda, shape, couplings, offset):
+    """Every partial bitwise ``energy_partials_plain(blocks=True)``: +-1 and
+    gaussian couplings, spins aligned and 4 or 2 bytes past an 8-byte
+    boundary (8-, 4-byte and per-site words), the rule's systems a warp and
+    1, 2, 3, 4, 6 of them."""
+    from peapods_tpu_torch.ops import overlap
+
+    x = _pair_inputs(cuda, 23 + offset, shape, 3, 2, 6, couplings=couplings)
+    spins = _offset_copy(x["spins"], offset)
+    want = overlap.energy_partials_plain(spins, x["coup"], shape, blocks=True)
+    overlap.LAUNCHES["energy_partials"] = 0
+    for per in (0, 1, 2, 3, 4, 6):
+        ek, mk = overlap.energy_partials(spins, x["coup"], shape, per=per)
+        torch.cuda.synchronize()
+        assert torch.equal(ek.view(torch.int32), want[0].view(torch.int32)), per
+        assert torch.equal(mk, want[1]), per
+    assert overlap.LAUNCHES["energy_partials"] == 6
 
 
 @pytest.mark.parametrize("shape,build,wolff,pt_full", [
@@ -1028,10 +1063,12 @@ def test_sweep_nb_and_measure_nb_kernels_match_plain(cuda, name, shape, geometry
         sweep.sweep_nb_plain(b, *args, x["words"], lat, gibbs=gibbs)
         ek, mk = energy.measure_nb(a, x["coup"], lat)
         ep, mp = energy.measure_nb_plain(b, x["coup"], lat)
+        bp = energy.measure_nb_plain(b, x["coup"], lat, blocks=True)
         torch.cuda.synchronize()
         assert torch.equal(a, b), step
         assert torch.equal(ek.sum(-1), ep.sum(-1)), step
         assert torch.equal(mk.sum(-1), mp.sum(-1)), step
+        assert torch.equal(ek, bp[0]) and torch.equal(mk, bp[1]), step
         x["words"] = x["words"] * 3 + 1
     assert sweep.LAUNCHES["sweep_nb"] == 4 * lat.n_colors
     assert energy.LAUNCHES["measure_nb"] == 4
@@ -1052,10 +1089,43 @@ def test_sweep_nb_gaussian_couplings_match_plain(cuda):
         sweep.sweep_nb_plain(b, *args, gibbs=gibbs)
     ek, mk = energy.measure_nb(a, x["coup"], lat)
     ep, mp = energy.measure_nb_plain(b, x["coup"], lat)
+    bp = energy.measure_nb_plain(b, x["coup"], lat, blocks=True)
     torch.cuda.synchronize()
     assert torch.equal(a, b)
     assert torch.equal(mk.sum(-1), mp.sum(-1))
     torch.testing.assert_close(ek.sum(-1), ep.sum(-1), rtol=1e-5, atol=1e-4)
+    assert torch.equal(ek.view(torch.int32), bp[0].view(torch.int32))
+    assert torch.equal(mk, bp[1])
+
+
+MEASURE_SHAPES = NB_SHAPES + [("cubic-8", (8, 8, 8), None, 2, 6),
+                              ("cubic-16", (16, 16, 16), None, 1, 4),
+                              ("square-8x64", (8, 64), None, 2, 4)]
+
+
+@pytest.mark.parametrize("offset", [0, 4, 2], ids=["aligned", "plus4", "plus2"])
+@pytest.mark.parametrize("couplings", ["pm", "gauss"])
+@pytest.mark.parametrize("name,shape,geometry,d,n_sys", MEASURE_SHAPES,
+                         ids=[s[0] for s in MEASURE_SHAPES])
+def test_measure_nb_partials_are_bitwise_block_plain(cuda, name, shape, geometry, d, n_sys,
+                                                     couplings, offset):
+    """Every partial bitwise ``measure_nb_plain(blocks=True)``: +-1 and
+    gaussian couplings, spins aligned and 4 or 2 bytes past an 8-byte
+    boundary, the rule's systems a thread and every count from 1 to 8 that
+    divides the systems."""
+    from peapods_tpu_torch.ops import energy
+
+    lat, x = _nb_inputs(cuda, 31 + offset, shape, geometry, d, n_sys, couplings=couplings)
+    spins = _offset_copy(x["spins"], offset)
+    want = energy.measure_nb_plain(spins, x["coup"], lat, blocks=True)
+    pers = [None] + [p for p in range(1, 9) if n_sys % p == 0]
+    energy.LAUNCHES["measure_nb"] = 0
+    for per in pers:
+        ek, mk = energy.measure_nb(spins, x["coup"], lat, per=per)
+        torch.cuda.synchronize()
+        assert torch.equal(ek.view(torch.int32), want[0].view(torch.int32)), per
+        assert torch.equal(mk, want[1]), per
+    assert energy.LAUNCHES["measure_nb"] == len(pers)
 
 
 def test_sweep_nb_rejects_what_the_kernel_does_not_take(cuda):
