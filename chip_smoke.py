@@ -1787,7 +1787,8 @@ def check_pair_kernels(runs, dev, rng):
     equilibrated state (at its full width): colour_pass 3D (spins equal
     apart from counted ulp ties), pair_overlap (exact), pt_step on R ladders
     with both schedules (bitwise), each overlap mode x {Wolff, SW} (spins and
-    labels bitwise; Houdayer keeps E_a + E_b of every task) and
+    labels bitwise; Houdayer keeps E_a + E_b of every task; Joerg's and
+    CMR's state bytes, state2 bytes and seeds bitwise the plain bonds) and
     energy_partials.  Then the plain versions' times and the bounds."""
     from peapods_tpu_torch.engine import seeds
     from peapods_tpu_torch.ops import mega, megapair, overlap
@@ -1948,6 +1949,8 @@ def check_pair_kernels(runs, dev, rng):
                     if drift > tol:
                         raise AssertionError(f"{msg}; E_a + E_b moved by {drift}")
                     msg += f"; E_a + E_b of every task kept (max drift {drift}, tolerance {tol})"
+                if kind != "houdayer":
+                    msg += "; " + check_bond_states(x, rt, tab, kind, wolff, dev)
                 log("13 kernel-vs-plain", msg + " ok")
                 moved[(kind, wolff)] = tab
         # energy_partials
@@ -1976,6 +1979,41 @@ def check_pair_kernels(runs, dev, rng):
         rec["_tables"] = moved
         out[name] = rec
     return out
+
+
+def check_bond_states(x, rt, tab, kind, wolff, dev):
+    """ov_bonds' state bytes and seeds and (CMR) ov_mid's state2 bytes and
+    blue labels, launched through ``launch_event`` on a ``Scratch``,
+    bitwise the plain bonds (``overlap.bond_states_plain``) and the plain
+    blue labelling; returns the log's words."""
+    from peapods_tpu_torch.ops import _build, fk, overlap
+    from peapods_tpu_torch.ops.cluster import connected_components
+
+    shape = rt.lattice.shape
+    n = rt.n_spins
+    sp = x["spins"].clone()
+    args = (x["sid"], tab[0], rt.coup, rt.temps, *tab[1:])
+    st, st2, sd = overlap.bond_states_plain(sp.clone(), *args, kind=kind, wolff=wolff,
+                                            shape=shape)
+    dims, _ = overlap.check_event(sp, *args, shape, kind)
+    scratch = overlap.Scratch(dims[0], n, dev, kind == "cmr")
+    blue = torch.full((dims[0], n), -1, dtype=torch.int32, device=dev)
+    overlap.launch_event(_build.library(), torch.cuda.current_stream(dev).cuda_stream, dims,
+                         sp.data_ptr(), *(t.data_ptr() for t in args), scratch.ptrs(),
+                         kind=kind, wolff=wolff,
+                         p_blue=blue.data_ptr() if kind == "cmr" else None)
+    torch.cuda.synchronize()
+    bad = {"state": int((scratch.state != st).sum()), "seeds": int((scratch.seeds != sd).sum())}
+    if kind == "cmr":
+        bad["state2"] = int((scratch.state2 != st2).sum())
+        want = connected_components(fk.state_masks(st, len(shape)), shape).to(torch.int32)
+        bad["blue labels"] = int((blue != want).sum())
+    if any(bad.values()):
+        raise AssertionError(f"{kind} ({'wolff' if wolff else 'sw'}) bond states: "
+                             f"mismatches {bad}")
+    bonds = int(fk.state_masks(scratch.state, len(shape)).sum())
+    return ("state bytes" + (", state2 bytes, blue labels" if kind == "cmr" else "")
+            + f" and seeds bitwise the plain bonds ({bonds} bonds)")
 
 
 def pair_times(runs, checks, dev):
@@ -2041,10 +2079,15 @@ def pair_times(runs, checks, dev):
             "pair_overlap": (2 * d * rt.n_pairs * rt.n_temps * n + 8 * b_tasks,
                              (2 + 2 * nd) * 2 * d * rt.n_pairs * rt.n_temps * n // 2),
             "pt_step": (8 * d * s * e_part.shape[2] + 16 * d * s, 10 * d * s),
-            # both replicas' spins and couplings in; state bytes, parents out
-            "ov_bonds": (2 * b_tasks * n + cb + 5 * b_tasks * n, 12 * nd * b_tasks * n),
+            # both replicas' spins and the couplings in, the state bytes out
+            # (the first design's bound also counted a parent written a
+            # site: none is needed, as fk_link writes every parent)
+            "ov_bonds": (3 * b_tasks * n + cb, 12 * nd * b_tasks * n),
             "fk_link": (5 * b_tasks * n, 0),
-            "ov_mid": (5 * b_tasks * n + cb + 5 * b_tasks * n, 12 * nd * b_tasks * n),
+            # both spins, the state bytes and the flat parents in, state2 out
+            # (the first design's also counted parent2 written and the state
+            # bytes read twice)
+            "ov_mid": (8 * b_tasks * n + cb, 12 * nd * b_tasks * n),
             "ov_finish": (2 * b_tasks * n + 5 * b_tasks * n + 2 * b_tasks * n,
                           4 * b_tasks * n),
             "energy_partials": (sys_bytes + cb + 8 * d * s * ((n + 255) // 256),
@@ -3730,9 +3773,14 @@ def add_houdn_records(kernels, pk, main, wolff, obs, houdn, us, card):
         n, nd = rt.n_spins, rt.lattice.n_dims
         b = rt.n_disorder * rt.n_temps * rt.n_pairs
         cb = 4 * nd * rt.n_disorder * n
-        return {"ov_bonds": bound(2 * b * n + cb + 5 * b * n, 12 * nd * b * n),
+        # ov_bonds: both spins and the couplings in, the state bytes out;
+        # ov_mid: also the state bytes and the flat parents in, state2 and
+        # the blue labels (written on these runs) out; no parent written
+        # (fk_link writes every parent; the first design's bound counted
+        # one a site)
+        return {"ov_bonds": bound(3 * b * n + cb, 12 * nd * b * n),
                 "fk_link": bound(5 * b * n, 0),
-                "ov_mid": bound(5 * b * n + cb + 5 * b * n, 12 * nd * b * n),
+                "ov_mid": bound(12 * b * n + cb, 12 * nd * b * n),
                 "ov_finish": bound(9 * b * n, 4 * b * n)}
 
     by_name = {kr["name"]: kr for kr in kernels}

@@ -33,24 +33,27 @@
 //
 // Joerg and CMR on pairs:
 //
-//   ov_bonds   as houdn_bonds, with the bonds
+//   ov_bonds   the state byte of every site (bit d: forward bond d) and
+//              the Wolff seed, no parent (fk_link writes every parent):
 //                Joerg     a a_fwd J/T > 0 && u < 1 - exp(-4 a a_fwd J/T)
 //                          && active_i && active_fwd       (active: a b < 0)
 //                CMR blue  a a_fwd J/T > 0 && b b_fwd J/T > 0 && u < 1 - r^2,
 //                          r = exp(-2 |J/T|)
 //              in the reference's operation order, u from Philox4x32-10
 //              keyed by the task's two key words, counter (dir, site / 4, 0,
-//              0), and the Wolff seed: Joerg's first probe with a != b, or
-//              CMR's drawn seed.
+//              0); the seed Joerg's first probe with a != b (Wolff; n for
+//              SW), or CMR's drawn seed.
 //   fk_link    as above.
 //   ov_mid     CMR only: the blue flip of each site (Wolff: the seed's blue
 //              component; SW: salted_uniform(root, s0, s1) < 1/2 on
-//              non-singletons), then the grey bonds on the flipped spins,
-//              blue || (sat_a != sat_b && u < 1 - r) with u from counter
-//              (n_dims + dir, site / 4, 0, 0), into a second state byte
-//              (bit 7: the blue flip) and parent array; a second fk_link
-//              labels the grey graph.  The flipped spins are never written
-//              here: a neighbour's flip comes from its blue root.
+//              non-singletons), from the flat parents fk_link leaves, and
+//              the grey bonds on the flipped spins, blue || (sat_a != sat_b
+//              && u < 1 - r) with u from counter (n_dims + dir, site / 4, 0,
+//              0), into a second state byte (bit 7: the blue flip); a
+//              second fk_link labels the grey graph into parent2.  The
+//              flipped spins are never written here: the blue flip flips a
+//              and b together, so sat_a != sat_b is the same before and
+//              after it.
 //   ov_finish  one thread per site flips its spin in both systems: Joerg as
 //              houdn_finish; CMR, the blue flip and then the grey flip of a
 //              (k & 1) and of b (k & 2), k drawn per task (Wolff) or k =
@@ -73,6 +76,22 @@
 // under 10 MB per launch at 16^3 x 384 tasks.  The chains of dependent
 // parent loads in find and the launch count (3 to 5 launches a move, plus
 // energy_partials) bound it, as for the FK kernels.
+//
+// ov_bonds reads both replicas' spins and the couplings once and writes a
+// state byte a site: 5.1 MB at config 5 (16^3, 384 tasks), 0.0015 ms at
+// 3.35 TB/s; ov_mid also reads the state bytes and the flat parents: 13.0
+// MB, 0.0039 ms.  Their first designs (a thread a group of one task,
+// fwd_site's runtime divisions, byte loads, the couplings, J / T and exp
+// again for every task and bond, a serial Wolff seed, dead parent writes;
+// ov_mid deciding each blue flip 1 + nd times a site by find_root,
+// nonsingleton's divisions and the coin) took 0.0334 and 0.0527 ms there
+// (NVIDIA H100 80GB HBM3, 700 W).  Now a thread takes a group of four
+// sites of `per` tasks of one realization (ov_words): division-free
+// neighbour words, 4-byte spin words, the couplings read once, J / T and
+// the exps once a temperature (none on +-J), each draw one integer
+// compare, Philox only where a bond can be active,
+// one 4-byte store; ov_mid decides each blue flip once, from one parent
+// load (tools/probe_overlap.py times both designs).
 //
 // energy_partials reads every system's spins and each realization's
 // couplings once: 3.5 MB at config 5 (16^3, 96 systems, 8 realizations),
@@ -127,140 +146,562 @@ __device__ __forceinline__ Task task_of(int8_t* spins, const int32_t* sid,
   return k;
 }
 
-__device__ __forceinline__ void philox_words(const int32_t* words, int b, int first,
-                                             int nd, int g, uint32_t (&w)[3][4]) {
-  const uint32_t k0 = static_cast<uint32_t>(words[2 * b]);
-  const uint32_t k1 = static_cast<uint32_t>(words[2 * b + 1]);
-  for (int dir = 0; dir < nd; ++dir) {
-    const uint4 r = philox4x32_10(k0, k1, static_cast<uint32_t>(first + dir),
-                                  static_cast<uint32_t>(g), 0u, 0u);
-    w[dir][0] = r.x;
-    w[dir][1] = r.y;
-    w[dir][2] = r.z;
-    w[dir][3] = r.w;
+// ov_bonds' and ov_mid's launch (ops/overlap.py ov_words): a periodic
+// lattice of n sites, 2D [L0, L1] or 3D [L0, L1, L2], its fast axis (the
+// last, extent lf) in lines over an inner slow axis of extent lb (2D: L0;
+// 3D: L1) and, in 3D, an outer one of extent la (L0; 1 in 2D); tasks b =
+// (d T + t) G + j of T temperatures and G pairs, S slots a realization,
+// `per` tasks a thread; multiply-shift divisions (m, s) of lf, lb and G.
+struct OvWalk {
+  int n;
+  int nd;
+  int lf;
+  int lb;
+  int la;
+  int T;
+  int G;
+  int S;
+  int per;
+  int d;
+  uint32_t m[3];
+  int s[3];
+};
+
+inline OvWalk make_ov_walk(const int* w) {
+  OvWalk g;
+  g.n = w[0];
+  g.nd = w[1];
+  g.lf = w[2];
+  g.lb = w[3];
+  g.la = w[4];
+  g.T = w[5];
+  g.G = w[6];
+  g.S = w[7];
+  g.per = w[8];
+  g.d = w[9];
+  for (int k = 0; k < 3; ++k) {
+    g.m[k] = static_cast<uint32_t>(w[10 + 2 * k]);
+    g.s[k] = w[11 + 2 * k];
+  }
+  return g;
+}
+
+constexpr int kMaxPer = 8;                // the most tasks a thread takes
+constexpr uint32_t kLow = 0x01010101u;    // bit 0 of each byte of a word
+
+// The entries of a CTA's tasks, in shared memory: each task's two systems
+// (the spins' row offsets), its temperature index, its key words, the unit
+// coupling's threshold at its temperature and (ov_mid) its SW salts and
+// the Wolff seed's blue label.
+struct OvTasks {
+  long long ra[kMaxPer];
+  long long rb[kMaxPer];
+  int t[kMaxPer];
+  uint32_t k0[kMaxPer];
+  uint32_t k1[kMaxPer];
+  uint32_t thr[kMaxPer];
+  uint32_t s0[kMaxPer];
+  uint32_t s1[kMaxPer];
+  int root[kMaxPer];
+};
+
+// The bond probabilities at J/T = jt, in the first design's operation
+// order: Joerg 1 - exp(-4 inter) with inter = |jt| wherever the bond can be
+// active (inter > 0 is jt's sign flipped where the spins differ); CMR blue
+// 1 - r^2 and grey 1 - r, r = exp(-2 |jt|).
+enum { kProbJorg = 0, kProbBlue = 1, kProbGrey = 2 };
+
+__device__ __forceinline__ float bond_prob(int which, float jt) {
+  if (which == kProbJorg) return 1.0f - expf(-4.0f * fabsf(jt));
+  const float r = expf(-2.0f * fabsf(jt));
+  return which == kProbBlue ? 1.0f - r * r : 1.0f - r;
+}
+
+// The least 24-bit word x with uniform24 of it (x 2^-24, exact) not below
+// p: x 2^-24 < p iff x < ceil(p 2^24), the product exact (a power of two);
+// 0 where p is not above 0 (or NaN), 2^24 where it is 1.  So a bond's draw
+// uniform24(u) < p is the integer compare u >> 8 < threshold24(p).  A unit
+// coupling (|J| = 1) has |J/T| = |1/T| bitwise: its threshold is
+// threshold24(bond_prob(which, 1 / T)), once a task.
+__device__ __forceinline__ uint32_t threshold24(float p) {
+  return p > 0.0f ? static_cast<uint32_t>(fminf(ceilf(p * 16777216.0f), 16777216.0f)) : 0u;
+}
+
+// Thread k < per fills task k's entry (blockIdx.z the realization,
+// blockIdx.x its set of `per` consecutive tasks): t = w / G by
+// multiply-shift, the two systems through sid, and the threshold.
+__device__ __forceinline__ void load_tasks(OvTasks& sh, const OvWalk& g,
+                                           const int32_t* __restrict__ sid,
+                                           const int32_t* __restrict__ tasks,
+                                           const float* __restrict__ temps,
+                                           const int32_t* __restrict__ keys, int which) {
+  const int k = threadIdx.x;
+  if (k >= g.per) return;
+  const int w = blockIdx.x * g.per + k;  // the task's index in its realization
+  const int b = blockIdx.z * g.T * g.G + w;
+  const int t = fast_div(w, g.m[2], g.s[2]);
+  const long long row = static_cast<long long>(blockIdx.z) * g.S;
+  const int32_t* sd = sid + row;
+  sh.ra[k] = (row + sd[tasks[2 * b] * g.T + t]) * g.n;
+  sh.rb[k] = (row + sd[tasks[2 * b + 1] * g.T + t]) * g.n;
+  sh.t[k] = t;
+  sh.k0[k] = static_cast<uint32_t>(keys[2 * b]);
+  sh.k1[k] = static_cast<uint32_t>(keys[2 * b + 1]);
+  sh.thr[k] = threshold24(bond_prob(which, 1.0f / temps[t]));
+}
+
+// The coordinates of site i: its position along the fast axis, its line's
+// along the inner slow axis (cb) and, in 3D, the outer one (ca), by
+// multiply-shift.
+struct SiteAt {
+  int i;
+  int pos;
+  int cb;
+  int ca;
+};
+
+template <int ND>
+__device__ __forceinline__ SiteAt site_at(const OvWalk& g, int i) {
+  SiteAt c;
+  c.i = i;
+  const int line = fast_div(i, g.m[0], g.s[0]);
+  c.pos = i - line * g.lf;
+  c.ca = ND == 3 ? fast_div(line, g.m[1], g.s[1]) : 0;
+  c.cb = line - c.ca * g.lb;
+  return c;
+}
+
+// The forward (back = false) or backward neighbour of a site along bond
+// direction dir (ND - 1 the fast axis, ND - 2 the inner slow one, 0 in 3D
+// the outer one): one compare an axis.
+template <int ND>
+__device__ __forceinline__ int site_step(const OvWalk& g, const SiteAt& c, int dir, bool back) {
+  if (dir == ND - 1) {
+    if (back) return c.pos > 0 ? c.i - 1 : c.i - 1 + g.lf;
+    return c.pos + 1 < g.lf ? c.i + 1 : c.i + 1 - g.lf;
+  }
+  const int step = dir == ND - 2 ? g.lf : g.lb * g.lf;
+  const int ext = dir == ND - 2 ? g.lb : g.la;
+  const int at = dir == ND - 2 ? c.cb : c.ca;
+  if (back) return at > 0 ? c.i - step : c.i - step + ext * step;
+  return at + 1 < ext ? c.i + step : c.i + step - ext * step;
+}
+
+// A group of four sites i0 .. i0+3 (the Philox counter's site / 4): where
+// `kVec`, its words (4-byte word k = i0 / 4 of a row) and each direction's
+// forward and backward neighbour words, found once: the fast axis' next
+// (previous) word, wrapping at the line's end (start), the same word of
+// the next (previous) line and plane; else each site's neighbours.
+template <int ND, bool kVec>
+struct Group {
+  int i0;
+  int cnt;   // the group's sites below n
+  int k;     // its word
+  int kf;    // the fast axis' next word, the inner and outer axes' words
+  int kb;
+  int ka;
+  int pf;    // the same backwards
+  int pb;
+  int pa;
+  SiteAt c[kVec ? 1 : 4];
+};
+
+template <int ND, bool kVec>
+__device__ __forceinline__ Group<ND, kVec> group_at(const OvWalk& g, int grp) {
+  Group<ND, kVec> x;
+  x.i0 = 4 * grp;
+  x.cnt = min(4, g.n - x.i0);
+  if (kVec) {
+    const SiteAt c = site_at<ND>(g, x.i0);
+    const int wpl = g.lf >> 2;
+    const int plane = g.lb * wpl;
+    const int nw = g.n >> 2;
+    x.k = grp;
+    x.kf = c.pos + 4 < g.lf ? grp + 1 : grp + 1 - wpl;
+    x.pf = c.pos > 0 ? grp - 1 : grp - 1 + wpl;
+    x.kb = c.cb + 1 < g.lb ? grp + wpl : grp + wpl - plane;
+    x.pb = c.cb > 0 ? grp - wpl : grp - wpl + plane;
+    x.ka = ND == 3 ? (c.ca + 1 < g.la ? grp + plane : grp + plane - nw) : 0;
+    x.pa = ND == 3 ? (c.ca > 0 ? grp - plane : grp - plane + nw) : 0;
+    x.c[0] = c;
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) x.c[q] = site_at<ND>(g, q < x.cnt ? x.i0 + q : x.i0);
+  }
+  return x;
+}
+
+// A system's words at the group: byte q of w is site i0 + q, byte q of
+// f[dir] its forward neighbour along dir (bytes past n: 0).
+template <int ND>
+struct Words {
+  uint32_t w;
+  uint32_t f[ND];
+};
+
+template <int ND, bool kVec>
+__device__ __forceinline__ Words<ND> load_words(const int8_t* __restrict__ s,
+                                                const Group<ND, kVec>& x, const OvWalk& g) {
+  Words<ND> o;
+  if (kVec) {
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(s);
+    o.w = __ldg(p + x.k);
+    o.f[ND - 1] = __funnelshift_r(o.w, __ldg(p + x.kf), 8);
+    o.f[ND - 2] = __ldg(p + x.kb);
+    if (ND == 3) o.f[0] = __ldg(p + x.ka);
+  } else {
+    o.w = 0;
+#pragma unroll
+    for (int d = 0; d < ND; ++d) o.f[d] = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (q >= x.cnt) break;
+      o.w |= static_cast<uint32_t>(static_cast<uint8_t>(__ldg(s + x.c[q].i))) << (8 * q);
+#pragma unroll
+      for (int d = 0; d < ND; ++d)
+        o.f[d] |= static_cast<uint32_t>(static_cast<uint8_t>(
+                      __ldg(s + site_step<ND>(g, x.c[q], d, false)))) << (8 * q);
+    }
+  }
+  return o;
+}
+
+// Bit 0 of byte q: whether the bytes q of u and v differ in sign (spins
+// are +1 = 0x01 and -1 = 0xff).
+__device__ __forceinline__ uint32_t differ(uint32_t u, uint32_t v) {
+  return ((u ^ v) >> 7) & kLow;
+}
+
+// The group's couplings (4 nd floats, contiguous in [d, n, nd]), read once
+// for the thread's tasks: nd float4 loads where kVec; which are of unit
+// magnitude (bit q nd + dir).
+template <int ND, bool kVec>
+__device__ __forceinline__ uint32_t load_couplings(const float* __restrict__ J, int i0, int cnt,
+                                                   float (&jc)[4 * ND]) {
+  if (kVec) {
+    const float4* p = reinterpret_cast<const float4*>(J + static_cast<size_t>(i0) * ND);
+#pragma unroll
+    for (int u = 0; u < ND; ++u) {
+      const float4 v = __ldg(p + u);
+      jc[4 * u] = v.x;
+      jc[4 * u + 1] = v.y;
+      jc[4 * u + 2] = v.z;
+      jc[4 * u + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int v = 0; v < 4 * ND; ++v)
+      jc[v] = v / ND < cnt ? __ldg(J + static_cast<size_t>(i0) * ND + v) : 0.0f;
+  }
+  uint32_t unit = 0;
+#pragma unroll
+  for (int v = 0; v < 4 * ND; ++v)
+    if (fabsf(jc[v]) == 1.0f) unit |= 1u << v;
+  return unit;
+}
+
+// J/T of a (realization, temperature), taken once for the thread's tasks
+// at that temperature: jt = J / T (the first design's f32 division), its
+// sign as byte masks (pos, neg: bit 0 of byte q where jt of site q is > 0,
+// < 0), and each bond's draw as a 24-bit threshold (threshold24 of its
+// probability; a group whose 4 nd couplings are all unit, as on +-J, takes
+// the task's one threshold and draws no exp).  The probabilities are drawn
+// here, whether their bonds can be active or not: drawn lazily, where a
+// bond can be active, the branches and registers cost more than the exps
+// they skip on gaussian couplings (tools/probe_overlap.py n-lazy).
+template <int ND>
+struct JT {
+  float jt[4 * ND];
+  uint32_t thr[4 * ND];
+  uint32_t pos[ND];
+  uint32_t neg[ND];
+};
+
+template <int ND>
+__device__ __forceinline__ void take_jt(JT<ND>& x, const float (&jc)[4 * ND], float T,
+                                        uint32_t unit, int which, uint32_t thr_unit) {
+#pragma unroll
+  for (int d = 0; d < ND; ++d) {
+    x.pos[d] = 0;
+    x.neg[d] = 0;
+  }
+#pragma unroll
+  for (int v = 0; v < 4 * ND; ++v) {
+    x.jt[v] = jc[v] / T;
+    if (x.jt[v] > 0.0f) x.pos[v % ND] |= 1u << (8 * (v / ND));
+    if (x.jt[v] < 0.0f) x.neg[v % ND] |= 1u << (8 * (v / ND));
+  }
+  if (unit == (1u << (4 * ND)) - 1u) {
+#pragma unroll
+    for (int v = 0; v < 4 * ND; ++v) x.thr[v] = thr_unit;
+  } else {
+#pragma unroll
+    for (int v = 0; v < 4 * ND; ++v) x.thr[v] = threshold24(bond_prob(which, x.jt[v]));
   }
 }
 
+// The satisfied bonds (bit 0 of byte q) of direction dir where the spins
+// differ as dd: (s s_f) jt > 0 is jt's sign flipped where they differ.
+template <int ND>
+__device__ __forceinline__ uint32_t satisfied(const JT<ND>& x, int dir, uint32_t dd) {
+  return (dd & x.neg[dir]) | (~dd & x.pos[dir]);
+}
+
+// The bonds of direction dir among the candidates cand (bit 0 of byte q):
+// the uniform of site q is word q of Philox keyed by (k0, k1), counter
+// (first + dir, group, 0, 0), drawn only where a candidate is, and its
+// bond u >> 8 < the bond's threshold.
+template <int ND>
+__device__ __forceinline__ uint32_t draw(const JT<ND>& x, uint32_t cand, int dir, uint32_t k0,
+                                         uint32_t k1, int first, int grp) {
+  if (!cand) return 0;
+  const uint4 r = philox4x32_10(k0, k1, static_cast<uint32_t>(first + dir),
+                                static_cast<uint32_t>(grp), 0u, 0u);
+  const uint32_t uw[4] = {r.x, r.y, r.z, r.w};
+  uint32_t on = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if ((uw[q] >> 8) < x.thr[q * ND + dir]) on |= 1u << (8 * q);
+  return on & cand;
+}
+
+// Joerg's and CMR's bonds (csrc/overlap.cu's first design drew them a
+// thread a group of one task, fwd_site's runtime divisions for each
+// neighbour, byte loads, the couplings, J / T and exp again for every task
+// and bond, a serial Wolff seed and a dead parent written a site).  A
+// thread takes the group of four sites 4 grp .. 4 grp + 3 (blockIdx.y the
+// groups' block of kThreads, strided) of `per` consecutive tasks of one
+// realization (blockIdx.z; blockIdx.x the set): the group's coordinates
+// and neighbour words found once, its couplings read once, J / T and the
+// bond probabilities taken once a temperature, and for each task its
+// systems' words, each bond's satisfaction a sign flip of jt, and a Philox
+// block only where a bond can be active (Joerg: satisfied in a, both ends
+// active; CMR blue: satisfied in both), each draw one integer compare with
+// the bond's threshold; the state bytes one 4-byte store.  The seeds:
+// Joerg Wolff's first active probe by one warp and two ballots a task,
+// CMR's drawn one, n for Joerg SW.  Where !kVec (a fast extent not a multiple of 4, or unaligned
+// pointers) each site's neighbours come from its coordinates and the words
+// are gathered a byte at a time.
+template <int ND, int kKind, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-ov_bonds_kernel(int8_t* spins, const int32_t* __restrict__ sid,
+ov_bonds_kernel(const int8_t* __restrict__ spins, const int32_t* __restrict__ sid,
                 const int32_t* __restrict__ tasks, const float* __restrict__ coup,
                 const float* __restrict__ temps, const int32_t* __restrict__ scal,
-                const int32_t* __restrict__ probes, const int32_t* __restrict__ words,
-                uint8_t* __restrict__ state, int32_t* __restrict__ parent,
-                int32_t* __restrict__ seeds, int L0, int L1, int L2, int n_temps,
-                int n_pairs, int n_slots, int kind, int wolff) {
-  const Dims g = make_dims(L0, L1, L2);
-  const int n = L0 * L1 * L2;
-  const int b = blockIdx.y;
-  const Task k = task_of(spins, sid, tasks, b, n, n_temps, n_pairs, n_slots);
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    int seed = n;  // none
-    if (kind == kCmr) {
-      seed = scal[6 * b + 4];
-    } else if (wolff) {  // Joerg
-      for (int p = 0; p < kProbes; ++p) {
-        const int s = probes[kProbes * b + p];
-        if (k.a[s] != k.b[s]) {
-          seed = s;
-          break;
+                const int32_t* __restrict__ probes, const int32_t* __restrict__ keys,
+                uint8_t* __restrict__ state, int32_t* __restrict__ seeds, const OvWalk g,
+                int wolff) {
+  __shared__ OvTasks sh;
+  load_tasks(sh, g, sid, tasks, temps, keys, kKind == kJorg ? kProbJorg : kProbBlue);
+  __syncthreads();
+  const int b0 = blockIdx.z * g.T * g.G + blockIdx.x * g.per;
+  if (blockIdx.y == 0) {
+    if (kKind == kJorg && wolff) {
+      if (threadIdx.x < 32) {
+        // the first warp tests a task's 64 probes at once, lane l probes
+        // l and 32 + l; the seed is the first active one in probe order
+        const int l = threadIdx.x;
+        for (int k = 0; k < g.per; ++k) {
+          const int32_t* pr = probes + kProbes * (b0 + k);
+          const int8_t* A = spins + sh.ra[k];
+          const int8_t* B = spins + sh.rb[k];
+          const int p0 = pr[l];
+          const int p1 = pr[32 + l];
+          const unsigned lo = __ballot_sync(0xffffffffu, A[p0] != B[p0]);
+          const unsigned hi = __ballot_sync(0xffffffffu, A[p1] != B[p1]);
+          if (l == 0)
+            seeds[b0 + k] = lo ? pr[__ffs(lo) - 1] : hi ? pr[32 + __ffs(hi) - 1] : g.n;
         }
       }
+    } else if (threadIdx.x < g.per) {
+      const int b = b0 + threadIdx.x;
+      seeds[b] = kKind == kCmr ? scal[6 * b + 4] : g.n;
     }
-    seeds[b] = seed;
   }
-  const int gi = blockIdx.x * blockDim.x + threadIdx.x;
-  if (kSitesPerThread * gi >= n) return;
-  const float T = temps[k.t];
-  const float* J = coup + static_cast<size_t>(k.d) * n * g.nd;
-  uint32_t w[3][4];
-  philox_words(words, b, 0, g.nd, gi, w);
-  const size_t base = static_cast<size_t>(b) * n;
-#pragma unroll
-  for (int q = 0; q < kSitesPerThread; ++q) {
-    const int i = kSitesPerThread * gi + q;
-    if (i >= n) break;
-    const int ai = k.a[i];
-    const int bi = k.b[i];
-    uint8_t st = 0;
-    for (int dir = 0; dir < g.nd; ++dir) {
-      const int f = fwd_site(i, g, dir);
-      const int af = k.a[f];
-      const int bf = k.b[f];
-      const float jt = J[static_cast<size_t>(i) * g.nd + dir] / T;
-      const float u = uniform24(w[dir][q]);
-      bool bond;
-      if (kind == kJorg) {
-        const float inter = static_cast<float>(ai * af) * jt;
-        const float p = 1.0f - expf(-4.0f * inter);
-        bond = inter > 0.0f && u < p && ai * bi < 0 && af * bf < 0;
-      } else {
-        const float r = expf(-2.0f * fabsf(jt));
-        bond = static_cast<float>(ai * af) * jt > 0.0f &&
-               static_cast<float>(bi * bf) * jt > 0.0f && u < 1.0f - r * r;
+  const int n_grp = (g.n + 3) >> 2;
+  const float* J = coup + static_cast<size_t>(blockIdx.z) * g.n * ND;
+  for (int grp = blockIdx.y * kThreads + threadIdx.x; grp < n_grp;
+       grp += gridDim.y * kThreads) {
+    const Group<ND, kVec> x = group_at<ND, kVec>(g, grp);
+    float jc[4 * ND];
+    const uint32_t unit = load_couplings<ND, kVec>(J, x.i0, x.cnt, jc);
+    JT<ND> jt;
+    int tp = -1;
+    for (int k = 0; k < g.per; ++k) {
+      const int t = sh.t[k];
+      if (t != tp) {
+        tp = t;
+        take_jt<ND>(jt, jc, __ldg(temps + t), unit, kKind == kJorg ? kProbJorg : kProbBlue,
+                    sh.thr[k]);
       }
-      if (bond) st |= 1u << dir;
+      const Words<ND> a = load_words<ND, kVec>(spins + sh.ra[k], x, g);
+      const Words<ND> b = load_words<ND, kVec>(spins + sh.rb[k], x, g);
+      const uint32_t act = differ(a.w, b.w);  // Joerg: a != b
+      uint32_t st = 0;
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {
+        uint32_t cand = satisfied<ND>(jt, d, differ(a.w, a.f[d]));
+        if (kKind == kJorg)
+          cand &= act & differ(a.f[d], b.f[d]);
+        else
+          cand &= satisfied<ND>(jt, d, differ(b.w, b.f[d]));
+        st |= draw<ND>(jt, cand, d, sh.k0[k], sh.k1[k], 0, grp) << d;
+      }
+      uint8_t* out = state + static_cast<size_t>(b0 + k) * g.n;
+      if (kVec) {
+        reinterpret_cast<uint32_t*>(out)[grp] = st;
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (q < x.cnt) out[x.i0 + q] = static_cast<uint8_t>(st >> (8 * q));
+      }
     }
-    state[base + i] = st;
-    parent[base + i] = i;
   }
 }
 
-// CMR's blue flip of site j (Wolff: the seed's blue component; SW: the
-// cluster coin on non-singletons)
-__device__ __forceinline__ bool blue_flip(int32_t* P, const uint8_t* S, int j,
-                                          const Dims& g, int wolff, int seed_root,
-                                          uint32_t s0, uint32_t s1) {
-  const int r = find_root(P, j);
-  return wolff ? r == seed_root
-               : salted_uniform(static_cast<uint32_t>(r), s0, s1) < 0.5f &&
-                     nonsingleton(S, j, g);
-}
-
+// CMR's grey bonds after the blue flip (the first design decided each blue
+// flip 1 + nd times a site, by find_root and, in SW, a salted coin and
+// nonsingleton's backward neighbours found by division, wrote a dead
+// parent2, and drew exp, J / T and the spins as ov_bonds' first design
+// did).  The flip of a blue cluster flips both replicas, so s s_f of a
+// bond changes sign in a and b together: a bond is satisfied in one
+// replica only (sat_a != sat_b) after the flip iff it was before, iff a_i
+// a_f != b_i b_f and jt is neither +-0 nor NaN.  So the grey bonds need no
+// neighbour's flip, and each site's blue flip is decided once, for bit 7
+// of its own state2 byte: Wolff, its flat parent (fk_link leaves each
+// parent at its root) against the seed's, which one thread loads a task;
+// SW, the salted coin on that root and nonsingleton (a site whose root is
+// another site has a bond; a root's own bonds, then its backward
+// neighbours' state bytes, read as words only where the coin falls below
+// 1/2 on a root with no forward bond).  The blue labels, when asked, are
+// that same load.  The mapping, the couplings, J / T, the words and the
+// draws are ov_bonds' (counter n_dims + dir), a grey bond the blue one or
+// (sat_a != sat_b and u < 1 - r); one 4-byte store of the state2 bytes.
+template <int ND, bool kWolff, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-ov_mid_kernel(int8_t* spins, const int32_t* __restrict__ sid,
+ov_mid_kernel(const int8_t* __restrict__ spins, const int32_t* __restrict__ sid,
               const int32_t* __restrict__ tasks, const float* __restrict__ coup,
               const float* __restrict__ temps, const int32_t* __restrict__ scal,
-              const int32_t* __restrict__ words, const uint8_t* __restrict__ state,
-              int32_t* parent, const int32_t* __restrict__ seeds,
-              uint8_t* __restrict__ state2, int32_t* __restrict__ parent2,
-              int32_t* __restrict__ blue_labels, int L0, int L1, int L2, int n_temps,
-              int n_pairs, int n_slots, int wolff) {
-  const Dims g = make_dims(L0, L1, L2);
-  const int n = L0 * L1 * L2;
-  const int b = blockIdx.y;
-  const int gi = blockIdx.x * blockDim.x + threadIdx.x;
-  if (kSitesPerThread * gi >= n) return;
-  const Task k = task_of(spins, sid, tasks, b, n, n_temps, n_pairs, n_slots);
-  const size_t base = static_cast<size_t>(b) * n;
-  int32_t* P = parent + base;
-  const uint8_t* S = state + base;
-  const int seed_root = wolff ? find_root(P, seeds[b]) : -1;
-  const uint32_t s0 = static_cast<uint32_t>(scal[6 * b]);
-  const uint32_t s1 = static_cast<uint32_t>(scal[6 * b + 1]);
-  const float T = temps[k.t];
-  const float* J = coup + static_cast<size_t>(k.d) * n * g.nd;
-  uint32_t w[3][4];
-  philox_words(words, b, g.nd, g.nd, gi, w);
+              const int32_t* __restrict__ keys, const uint8_t* __restrict__ state,
+              const int32_t* __restrict__ parent, uint8_t* __restrict__ state2,
+              int32_t* __restrict__ blue_labels, const OvWalk g) {
+  __shared__ OvTasks sh;
+  load_tasks(sh, g, sid, tasks, temps, keys, kProbGrey);
+  if (threadIdx.x < g.per) {
+    const int b = blockIdx.z * g.T * g.G + blockIdx.x * g.per + threadIdx.x;
+    sh.s0[threadIdx.x] = static_cast<uint32_t>(scal[6 * b]);
+    sh.s1[threadIdx.x] = static_cast<uint32_t>(scal[6 * b + 1]);
+    if (kWolff)
+      sh.root[threadIdx.x] = __ldg(parent + static_cast<size_t>(b) * g.n + scal[6 * b + 4]);
+  }
+  __syncthreads();
+  const int b0 = blockIdx.z * g.T * g.G + blockIdx.x * g.per;
+  const int n_grp = (g.n + 3) >> 2;
+  const float* J = coup + static_cast<size_t>(blockIdx.z) * g.n * ND;
+  for (int grp = blockIdx.y * kThreads + threadIdx.x; grp < n_grp;
+       grp += gridDim.y * kThreads) {
+    const Group<ND, kVec> x = group_at<ND, kVec>(g, grp);
+    float jc[4 * ND];
+    const uint32_t unit = load_couplings<ND, kVec>(J, x.i0, x.cnt, jc);
+    JT<ND> jt;
+    int tp = -1;
+    for (int k = 0; k < g.per; ++k) {
+      const int t = sh.t[k];
+      if (t != tp) {
+        tp = t;
+        take_jt<ND>(jt, jc, __ldg(temps + t), unit, kProbGrey, sh.thr[k]);
+      }
+      const size_t base = static_cast<size_t>(b0 + k) * g.n;
+      const uint8_t* S = state + base;
+      const int32_t* P = parent + base;
+      // the blue bonds and labels of the group's sites
+      uint32_t st = 0;
+      int lab[4];
+      if (kVec) {
+        st = __ldg(reinterpret_cast<const uint32_t*>(S) + grp);
+        const int4 p = __ldg(reinterpret_cast<const int4*>(P) + grp);
+        lab[0] = p.x;
+        lab[1] = p.y;
+        lab[2] = p.z;
+        lab[3] = p.w;
+      } else {
 #pragma unroll
-  for (int q = 0; q < kSitesPerThread; ++q) {
-    const int i = kSitesPerThread * gi + q;
-    if (i >= n) break;
-    const bool fi = blue_flip(P, S, i, g, wolff, seed_root, s0, s1);
-    const uint8_t st = S[i];
-    uint8_t out = fi ? 0x80u : 0u;
-    for (int dir = 0; dir < g.nd; ++dir) {
-      const int f = fwd_site(i, g, dir);
-      const int sgn = fi != blue_flip(P, S, f, g, wolff, seed_root, s0, s1) ? -1 : 1;
-      const float jt = J[static_cast<size_t>(i) * g.nd + dir] / T;
-      const float r = expf(-2.0f * fabsf(jt));
-      const bool sat_a = static_cast<float>(k.a[i] * k.a[f] * sgn) * jt > 0.0f;
-      const bool sat_b = static_cast<float>(k.b[i] * k.b[f] * sgn) * jt > 0.0f;
-      const bool red = sat_a != sat_b && uniform24(w[dir][q]) < 1.0f - r;
-      if (((st >> dir) & 1u) || red) out |= 1u << dir;
+        for (int q = 0; q < 4; ++q) {
+          lab[q] = q < x.cnt ? __ldg(P + x.i0 + q) : -1;
+          if (q < x.cnt) st |= static_cast<uint32_t>(__ldg(S + x.i0 + q)) << (8 * q);
+        }
+      }
+      uint32_t fl = 0;  // bit 0 of byte q: site q's blue flip
+      if (kWolff) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (lab[q] == sh.root[k]) fl |= 1u << (8 * q);
+      } else {
+        uint32_t coin = 0, root = 0;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (q >= x.cnt) break;
+          if (salted_uniform(static_cast<uint32_t>(lab[q]), sh.s0[k], sh.s1[k]) < 0.5f)
+            coin |= 1u << (8 * q);
+          if (lab[q] == x.i0 + q) root |= 1u << (8 * q);
+        }
+        uint32_t any = 0;  // bit 0 of byte q: site q has a bond
+#pragma unroll
+        for (int d = 0; d < ND; ++d) any |= (st >> d) & kLow;
+        any |= ~root & kLow;
+        if (coin & ~any) {
+          // roots with no forward bond whose coin flips them: their
+          // backward neighbours' bonds towards them
+          uint32_t bw[ND];
+          if (kVec) {
+            const uint32_t* sw = reinterpret_cast<const uint32_t*>(S);
+            bw[ND - 1] = __funnelshift_l(__ldg(sw + x.pf), st, 8);
+            bw[ND - 2] = __ldg(sw + x.pb);
+            if (ND == 3) bw[0] = __ldg(sw + x.pa);
+          } else {
+#pragma unroll
+            for (int d = 0; d < ND; ++d) {
+              bw[d] = 0;
+#pragma unroll
+              for (int q = 0; q < 4; ++q)
+                if (q < x.cnt)
+                  bw[d] |= static_cast<uint32_t>(__ldg(S + site_step<ND>(g, x.c[q], d, true)))
+                           << (8 * q);
+            }
+          }
+#pragma unroll
+          for (int d = 0; d < ND; ++d) any |= (bw[d] >> d) & kLow;
+        }
+        fl = coin & any;
+      }
+      if (blue_labels != nullptr) {
+        int32_t* L = blue_labels + base;
+        if (kVec) {
+          reinterpret_cast<int4*>(L)[grp] = make_int4(lab[0], lab[1], lab[2], lab[3]);
+        } else {
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if (q < x.cnt) L[x.i0 + q] = lab[q];
+        }
+      }
+      const Words<ND> a = load_words<ND, kVec>(spins + sh.ra[k], x, g);
+      const Words<ND> b = load_words<ND, kVec>(spins + sh.rb[k], x, g);
+      uint32_t out = fl << 7;
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {
+        const uint32_t blue = (st >> d) & kLow;
+        const uint32_t cand = differ(a.w ^ a.f[d], b.w ^ b.f[d]) & (jt.pos[d] | jt.neg[d]) &
+                              ~blue;
+        out |= (blue | draw<ND>(jt, cand, d, sh.k0[k], sh.k1[k], ND, grp)) << d;
+      }
+      uint8_t* o = state2 + base;
+      if (kVec) {
+        reinterpret_cast<uint32_t*>(o)[grp] = out;
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (q < x.cnt) o[x.i0 + q] = static_cast<uint8_t>(out >> (8 * q));
+      }
     }
-    state2[base + i] = out;
-    parent2[base + i] = i;
-    if (blue_labels != nullptr) blue_labels[base + i] = find_root(P, i);
   }
 }
 
@@ -638,6 +1079,26 @@ inline dim3 site_grid(int n, int per_thread, int rows) {
   return dim3((groups + kThreads - 1) / kThreads, rows);
 }
 
+// ov_bonds' and ov_mid's launch: x the realization's task sets, y the
+// groups' blocks (at most 65535, a thread striding over the rest), z the
+// realization.
+inline dim3 ov_grid(const OvWalk& g) {
+  const int blocks = ((g.n + 3) / 4 + kThreads - 1) / kThreads;
+  return dim3(g.T * g.G / g.per, blocks < 65535 ? blocks : 65535, g.d);
+}
+
+inline bool ov_walk_ok(const OvWalk& g) {
+  return g.n >= 1 && (g.nd == 2 || g.nd == 3) && g.lf >= 1 && g.lb >= 1 && g.la >= 1 &&
+         (g.nd == 3 || g.la == 1) &&
+         static_cast<long long>(g.lf) * g.lb * g.la == g.n && g.n <= (1 << 30) &&
+         g.T >= 1 && g.G >= 1 && g.S >= 1 && g.d >= 1 && g.per >= 1 && g.per <= kMaxPer &&
+         (g.T * g.G) % g.per == 0 && static_cast<long long>(g.d) * g.T * g.G <= 65535;
+}
+
+inline bool aligned(const void* p, unsigned a) {
+  return reinterpret_cast<uintptr_t>(p) % a == 0;
+}
+
 }  // namespace
 
 extern "C" {
@@ -648,44 +1109,68 @@ int peapods_site_blocks(int n) { return (n + kThreads - 1) / kThreads; }
 // Shared arguments: spins int8 [d, n_slots, n], sid int32 [d, n_slots],
 // tasks int32 [d, n_temps, n_pairs, 2] (replica indices), coup f32 [d, n,
 // nd], temps f32 [n_temps], scal int32 [n_tasks, 6] (s0, s1, s2, s3, seed,
-// k), probes int32 [n_tasks, 64], words int32 [n_tasks, 2]; scratch state /
-// state2 uint8 [n_tasks, n], parent / parent2 int32 [n_tasks, n], seeds
-// int32 [n_tasks].  kind: 1 Joerg, 2 CMR (Houdayer: peapods_houdn_*).
-int peapods_ov_bonds(void* spins, const void* sid, const void* tasks,
+// k), probes int32 [n_tasks, 64], keys (the bond draws' key words) int32
+// [n_tasks, 2]; scratch state / state2 uint8 [n_tasks, n], parent / parent2
+// int32 [n_tasks, n], seeds int32 [n_tasks].  kind: 1 Joerg, 2 CMR
+// (Houdayer: peapods_houdn_*).  words: ops/overlap.py ov_words (host
+// memory).  ov_bonds writes the state bytes (bit d: bond d) and the seeds,
+// no parent: fk_link writes every parent.
+int peapods_ov_bonds(const void* spins, const void* sid, const void* tasks,
                      const void* coup, const void* temps, const void* scal,
-                     const void* probes, const void* words, void* state, void* parent,
-                     void* seeds, int n_tasks, int L0, int L1, int L2, int n_temps,
-                     int n_pairs, int n_slots, int kind, int wolff, void* stream) {
-  if (kind != kJorg && kind != kCmr) return static_cast<int>(cudaErrorInvalidValue);
-  ov_bonds_kernel<<<site_grid(L0 * L1 * L2, kSitesPerThread, n_tasks), kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int8_t*>(spins), static_cast<const int32_t*>(sid),
+                     const void* probes, const void* keys, void* state, void* seeds,
+                     const int* words, int kind, int wolff, void* stream) {
+  const OvWalk g = make_ov_walk(words);
+  if ((kind != kJorg && kind != kCmr) || !ov_walk_ok(g))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = g.lf % 4 == 0 && aligned(spins, 4) && aligned(state, 4) && aligned(coup, 16);
+  using Kernel = void (*)(const int8_t*, const int32_t*, const int32_t*, const float*,
+                          const float*, const int32_t*, const int32_t*, const int32_t*,
+                          uint8_t*, int32_t*, const OvWalk, int);
+  Kernel kernel;
+  if (g.nd == 3)
+    kernel = kind == kJorg ? (vec ? ov_bonds_kernel<3, kJorg, true> : ov_bonds_kernel<3, kJorg, false>)
+                           : (vec ? ov_bonds_kernel<3, kCmr, true> : ov_bonds_kernel<3, kCmr, false>);
+  else
+    kernel = kind == kJorg ? (vec ? ov_bonds_kernel<2, kJorg, true> : ov_bonds_kernel<2, kJorg, false>)
+                           : (vec ? ov_bonds_kernel<2, kCmr, true> : ov_bonds_kernel<2, kCmr, false>);
+  kernel<<<ov_grid(g), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(spins), static_cast<const int32_t*>(sid),
       static_cast<const int32_t*>(tasks), static_cast<const float*>(coup),
       static_cast<const float*>(temps), static_cast<const int32_t*>(scal),
-      static_cast<const int32_t*>(probes), static_cast<const int32_t*>(words),
-      static_cast<uint8_t*>(state), static_cast<int32_t*>(parent),
-      static_cast<int32_t*>(seeds), L0, L1, L2, n_temps, n_pairs, n_slots, kind,
-      wolff);
+      static_cast<const int32_t*>(probes), static_cast<const int32_t*>(keys),
+      static_cast<uint8_t*>(state), static_cast<int32_t*>(seeds), g, wolff);
   return static_cast<int>(cudaGetLastError());
 }
 
-// blue_labels: int32 [n_tasks, n] or null.
-int peapods_ov_mid(void* spins, const void* sid, const void* tasks, const void* coup,
-                   const void* temps, const void* scal, const void* words,
-                   const void* state, void* parent, const void* seeds, void* state2,
-                   void* parent2, void* blue_labels, int n_tasks, int L0, int L1,
-                   int L2, int n_temps, int n_pairs, int n_slots, int wolff,
-                   void* stream) {
-  ov_mid_kernel<<<site_grid(L0 * L1 * L2, kSitesPerThread, n_tasks), kThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int8_t*>(spins), static_cast<const int32_t*>(sid),
+// state: ov_bonds' state bytes; parent: fk_link's parents of its graph
+// (each its root); state2 uint8 [n_tasks, n] out; blue_labels: int32
+// [n_tasks, n] or null.  The Wolff seed is scal's (CMR's drawn one).
+int peapods_ov_mid(const void* spins, const void* sid, const void* tasks, const void* coup,
+                   const void* temps, const void* scal, const void* keys, const void* state,
+                   const void* parent, void* state2, void* blue_labels, const int* words,
+                   int wolff, void* stream) {
+  const OvWalk g = make_ov_walk(words);
+  if (!ov_walk_ok(g)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = g.lf % 4 == 0 && aligned(spins, 4) && aligned(state, 4) &&
+                   aligned(coup, 16) && aligned(parent, 16) && aligned(state2, 4) &&
+                   aligned(blue_labels, 16);
+  using Kernel = void (*)(const int8_t*, const int32_t*, const int32_t*, const float*,
+                          const float*, const int32_t*, const int32_t*, const uint8_t*,
+                          const int32_t*, uint8_t*, int32_t*, const OvWalk);
+  Kernel kernel;
+  if (g.nd == 3)
+    kernel = wolff ? (vec ? ov_mid_kernel<3, true, true> : ov_mid_kernel<3, true, false>)
+                   : (vec ? ov_mid_kernel<3, false, true> : ov_mid_kernel<3, false, false>);
+  else
+    kernel = wolff ? (vec ? ov_mid_kernel<2, true, true> : ov_mid_kernel<2, true, false>)
+                   : (vec ? ov_mid_kernel<2, false, true> : ov_mid_kernel<2, false, false>);
+  kernel<<<ov_grid(g), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(spins), static_cast<const int32_t*>(sid),
       static_cast<const int32_t*>(tasks), static_cast<const float*>(coup),
       static_cast<const float*>(temps), static_cast<const int32_t*>(scal),
-      static_cast<const int32_t*>(words), static_cast<const uint8_t*>(state),
-      static_cast<int32_t*>(parent), static_cast<const int32_t*>(seeds),
-      static_cast<uint8_t*>(state2), static_cast<int32_t*>(parent2),
-      static_cast<int32_t*>(blue_labels), L0, L1, L2, n_temps, n_pairs, n_slots,
-      wolff);
+      static_cast<const int32_t*>(keys), static_cast<const uint8_t*>(state),
+      static_cast<const int32_t*>(parent), static_cast<uint8_t*>(state2),
+      static_cast<int32_t*>(blue_labels), g);
   return static_cast<int>(cudaGetLastError());
 }
 

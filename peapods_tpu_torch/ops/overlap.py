@@ -219,7 +219,7 @@ def _cmr(a, b, jt, scal, shape, *, wolff, u_blue, u_red):
         k = (salted_uniform(labels, scal[:, 2:3], scal[:, 3:4]) * 4.0).to(torch.int32)
     a_new = _flip(af, inside & ((k & 1) != 0)).to(torch.int8)
     b_new = _flip(bf, inside & ((k & 2) != 0)).to(torch.int8)
-    return a_new, b_new, labels, blue_labels, blue
+    return a_new, b_new, labels, blue_labels, blue, grey, blue_flip
 
 
 def cmr_plain(a, b, jt, scal, shape, *, wolff, u_blue, u_red):
@@ -227,6 +227,42 @@ def cmr_plain(a, b, jt, scal, shape, *, wolff, u_blue, u_red):
     labels, blue labels)``.  ``u_blue`` / ``u_red``: f32 ``[B, n,
     n_dims]``."""
     return _cmr(a, b, jt, scal, shape, wolff=wolff, u_blue=u_blue, u_red=u_red)[:4]
+
+
+def _state_bytes(bonds):
+    """uint8 ``[B, n]``: bit ``d`` where bond ``d`` of bool ``[B, n,
+    n_dims]`` is active."""
+    w = torch.tensor([1 << d for d in range(bonds.shape[-1])], dtype=torch.int32,
+                     device=bonds.device)
+    return (bonds.to(torch.int32) * w).sum(-1).to(torch.uint8)
+
+
+def bond_states_plain(spins, sid, tasks, coup, temps, scal, probes, words, *, kind,
+                      wolff, shape):
+    """Plain version of ``ov_bonds`` and ``ov_mid`` (Joerg and CMR): ``(state,
+    state2, seeds)``, the first kernel's state bytes uint8 ``[B, n]`` (bit
+    ``d``: bond ``d``; CMR's blue bonds), CMR's second uint8 ``[B, n]`` (bit
+    ``d``: grey bond ``d``; bit 7: the blue flip; ``None`` for Joerg) and
+    the seeds int32 ``[B]`` (Joerg Wolff: the first active probe, ``n`` when
+    none is, and for SW; CMR: the drawn seed)."""
+    n_temps, n_groups = tasks.shape[1:3]
+    nd = len(shape)
+    n = spins.shape[-1]
+    _, a, b = gather_tasks(spins, sid, tasks, n_temps)
+    jt = task_jt(coup, temps, n_groups)
+    u = rng.bond_uniforms(words, n, nd)
+    if kind == "jorg":
+        bonds = _jorg(a, b, jt, scal, probes, shape, wolff=wolff, u=u)[3]
+        active = a.to(torch.int32) * b.to(torch.int32) < 0
+        seeds = (find_seed(probes, active) if wolff
+                 else torch.full((a.shape[0],), n, device=a.device)).to(torch.int32)
+        return _state_bytes(bonds), None, seeds
+    if kind != "cmr":
+        raise ValueError(f"{kind!r} moves have no ov_bonds")
+    *_, blue, grey, flip = _cmr(a, b, jt, scal, shape, wolff=wolff, u_blue=u,
+                                u_red=rng.bond_uniforms(words, n, nd, nd))
+    state2 = _state_bytes(grey) | (flip.to(torch.uint8) << 7)
+    return _state_bytes(blue), state2, scal[:, 4].to(torch.int32)
 
 
 def task_jt(coup, temps, n_groups: int):
@@ -287,7 +323,7 @@ def overlap_event_plain(spins, sid, tasks, coup, temps, scal, probes, words,
             *slots, labels, bonds = _jorg(*slots, jt, scal, probes, shape,
                                           wolff=wolff, u=u)
         else:
-            *slots, labels, blue, bonds = _cmr(
+            *slots, labels, blue, bonds, _, _ = _cmr(
                 *slots, jt, scal, shape, wolff=wolff, u_blue=u,
                 u_red=rng.bond_uniforms(words, n, nd, nd))
             if observe:
@@ -338,16 +374,58 @@ class Scratch:
                 (self.state, self.parent, self.seeds, self.state2, self.parent2)]
 
 
+# ov_bonds and ov_mid (csrc/overlap.cu): a thread takes a group of four
+# sites of `per` consecutive tasks of one realization, reading the group's
+# couplings once and taking J / T once a temperature for them
+OV_MAX_PER = 8
+
+
+@functools.lru_cache(maxsize=None)
+def ov_per(n_sites: int, n_disorder: int, n_temps: int, n_pairs: int, threads: int) -> int:
+    """The tasks a thread of ``ov_bonds`` / ``ov_mid`` takes in turn: the
+    largest divisor of a realization's ``n_temps * n_pairs`` tasks up to
+    :data:`OV_MAX_PER` that is a multiple or a divisor of ``n_pairs`` (so a
+    thread's tasks of one temperature sit side by side) and whose launch
+    still has ``threads`` threads (its callers: a quarter of the card's
+    resident threads, :func:`~.fk.resident_threads`; tools/probe_overlap.py,
+    NVIDIA H100 80GB HBM3, config 5: 0.0149 ms an ``ov_bonds`` launch with
+    2 tasks a thread, 0.0144 with 4, 0.0147 with 6); 1 where none has."""
+    groups = -(-int(n_sites) // 4) * int(n_disorder)
+    tg = int(n_temps) * int(n_pairs)
+    fits = [p for p in range(1, min(tg, OV_MAX_PER) + 1)
+            if tg % p == 0 and (p % n_pairs == 0 or n_pairs % p == 0)
+            and groups * (tg // p) >= threads]
+    return max(fits, default=1)
+
+
+@functools.lru_cache(maxsize=None)
+def ov_words(shape, n_disorder: int, n_temps: int, n_pairs: int, n_slots: int, per: int):
+    """int32 host words of ``ov_bonds`` and ``ov_mid`` (``csrc/overlap.cu``
+    ``OvWalk``): ``n, nd, lf, lb, la, T, G, S, per, d``, then
+    :func:`~.lattice.fast_divisor` ``(m, s)`` of ``lf``, ``lb`` and ``G``.
+    The fast axis (the last, extent ``lf``) runs in lines over an inner slow
+    axis of extent ``lb`` (2D: ``L0``; 3D: ``L1``) and in 3D an outer one of
+    extent ``la = L0`` (1 in 2D); ``G`` pairs and ``T`` temperatures a
+    realization, ``S`` slots, ``per`` tasks a thread (:func:`ov_per`)."""
+    shape = tuple(int(x) for x in shape)
+    nd = len(shape)
+    lf, lb, la = shape[-1], shape[-2], shape[0] if nd == 3 else 1
+    head = [math.prod(shape), nd, lf, lb, la, n_temps, n_pairs, n_slots, per, n_disorder]
+    div = [v for x in (lf, lb, n_pairs) for v in fast_divisor(x)]
+    return np.asarray(head + div, np.int64).astype(np.uint32).view(np.int32)
+
+
 def launch_event(lib, stream, dims, p_spins, p_sid, p_tasks, p_coup, p_temps,
                  p_scal, p_probes, p_words, scratch, *, kind, wolff, group=2,
-                 p_labels=None, p_blue=None, observe=False):
+                 p_labels=None, p_blue=None, observe=False, per=0):
     """Launch one move's kernels on raw pointers: ``dims`` is ``(n_tasks,
     L0, L1, L2, T, G, S)``; ``scratch`` the :meth:`Scratch.ptrs`; ``group``
     the replicas of a task.  Houdayer, on groups of any even size, takes the
-    ``houdn_*`` kernels; Joerg and CMR the ``ov_*`` ones.  The observe form
-    writes the stats graph's labels into ``p_labels`` (CMR: ``p_blue``) and
-    no spin."""
-    n_tasks, l0, l1, l2 = dims[:4]
+    ``houdn_*`` kernels; Joerg and CMR the ``ov_*`` ones (``per``: the tasks
+    a thread of ``ov_bonds`` / ``ov_mid`` takes, default :func:`ov_per`'s).
+    The observe form writes the stats graph's labels into ``p_labels`` (CMR:
+    ``p_blue``) and no spin."""
+    n_tasks, l0, l1, l2, n_temps, n_groups, n_slots = dims
     st, par, seeds, st2, par2 = scratch
     if kind == "houdayer":
         if observe and group > 2:
@@ -363,9 +441,15 @@ def launch_event(lib, stream, dims, p_spins, p_sid, p_tasks, p_coup, p_temps,
         LAUNCHES["houdn_finish"] += 1
         return
     k = KINDS.index(kind)
+    shape = (l0, l1) if l2 == 1 else (l0, l1, l2)
+    n = l0 * l1 * l2
+    d = n_tasks // (n_temps * n_groups)
+    per = per or ov_per(n, d, n_temps, n_groups,
+                        fk.resident_threads(torch.cuda.current_device()) // 4)
+    words = ov_words(shape, d, n_temps, n_groups, n_slots, per)
     _build.check(lib.peapods_ov_bonds(
         p_spins, p_sid, p_tasks, p_coup, p_temps, p_scal, p_probes, p_words,
-        st, par, seeds, *dims, k, int(wolff), stream), "ov_bonds")
+        st, seeds, words.ctypes.data, k, int(wolff), stream), "ov_bonds")
     LAUNCHES["ov_bonds"] += 1
     fk.launch_link(lib, stream, st, par, n_tasks, l0, l1, l2)
     if observe:
@@ -373,7 +457,7 @@ def launch_event(lib, stream, dims, p_spins, p_sid, p_tasks, p_coup, p_temps,
     elif kind == "cmr":
         _build.check(lib.peapods_ov_mid(
             p_spins, p_sid, p_tasks, p_coup, p_temps, p_scal, p_words, st, par,
-            seeds, st2, par2, p_blue, *dims, int(wolff), stream), "ov_mid")
+            st2, p_blue, words.ctypes.data, int(wolff), stream), "ov_mid")
         LAUNCHES["ov_mid"] += 1
         fk.launch_link(lib, stream, st2, par2, n_tasks, l0, l1, l2)
     _build.check(lib.peapods_ov_finish(

@@ -884,20 +884,27 @@ def _event_inputs(x, d, n_rep, n_temps, n, kind, wolff, seed, g=2):
             up(tkeys[0].view(np.int32).reshape(-1, 2)))
 
 
+# (shape, d, n_rep, n_temps, couplings, spins' offset past an 8-byte
+# boundary): config 4, the 8 x 64 square, config 5's shape (16^3 gaussian)
+# and 6^3 (a fast extent off the 4-byte word) with spins 4 bytes off
+MOVE_SHAPES = [((8, 8, 8), 8, 4, 24, "pm", 0), ((8, 64), 2, 2, 3, "pm", 0),
+               ((16, 16, 16), 8, 4, 24, "gauss", 0), ((6, 6, 6), 2, 4, 3, "gauss", 4)]
+MOVE_IDS = ["config4", "2d", "config5", "6cube-plus4"]
+
+
 @pytest.mark.parametrize("kind", ["houdayer", "jorg", "cmr"])
 @pytest.mark.parametrize("wolff", [True, False], ids=["wolff", "sw"])
-@pytest.mark.parametrize("shape,d,n_rep,n_temps", [
-    ((8, 8, 8), 8, 4, 24), ((8, 64), 2, 2, 3),
-], ids=["config4", "2d"])
-def test_overlap_event_kernel_matches_plain(cuda, shape, d, n_rep, n_temps, kind,
-                                            wolff):
+@pytest.mark.parametrize("shape,d,n_rep,n_temps,couplings,offset", MOVE_SHAPES, ids=MOVE_IDS)
+def test_overlap_event_kernel_matches_plain(cuda, shape, d, n_rep, n_temps, couplings,
+                                            offset, kind, wolff):
     """One move of every task: spins and labels (CMR: grey and blue)
     bitwise; Houdayer (through the houdn_* kernels) keeps E_a + E_b of
     every task."""
     from peapods_tpu_torch.ops import fk, overlap
     from peapods_tpu_torch.ops.energy import bond_sums
 
-    x = _pair_inputs(cuda, 13, shape, d, n_rep, n_temps)
+    x = _pair_inputs(cuda, 13, shape, d, n_rep, n_temps, couplings)
+    x["spins"] = _offset_copy(x["spins"], offset)
     n = int(np.prod(shape))
     tab = _event_inputs(x, d, n_rep, n_temps, n, kind, wolff, 5)
     a, b = x["spins"].clone(), x["spins"].clone()
@@ -921,10 +928,68 @@ def test_overlap_event_kernel_matches_plain(cuda, shape, d, n_rep, n_temps, kind
     if kind == "houdayer":
         sys, _, _ = overlap.gather_tasks(x["spins"], x["sid"], tab[0], n_temps)
         di = torch.arange(d, device=cuda)[:, None, None]
-        e0 = bond_sums(x["spins"], x["coup"][:, None], shape)
-        e1 = bond_sums(a, x["coup"][:, None], shape)
+        # summed in float64: +-J exactly, gaussian to ~1e-12
+        cd = x["coup"].double()[:, None]
+        e0 = bond_sums(x["spins"], cd, shape)
+        e1 = bond_sums(a, cd, shape)
         pair = lambda e: e[di, sys[..., 0]] + e[di, sys[..., 1]]  # noqa: E731
-        assert torch.equal(pair(e0), pair(e1))
+        drift = float((pair(e1) - pair(e0)).abs().max())
+        assert drift <= (1e-9 if couplings == "gauss" else 0.0)
+
+
+@pytest.mark.parametrize("per", ["rule", "one", "most"])
+@pytest.mark.parametrize("kind", ["jorg", "cmr"])
+@pytest.mark.parametrize("wolff", [True, False], ids=["wolff", "sw"])
+@pytest.mark.parametrize("shape,d,n_rep,n_temps,couplings,offset",
+                         MOVE_SHAPES + [((8, 64), 2, 2, 3, "gauss", 1)],
+                         ids=MOVE_IDS + ["2d-plus1"])
+def test_ov_bonds_and_mid_states_match_plain_bonds(cuda, shape, d, n_rep, n_temps,
+                                                   couplings, offset, kind, wolff, per):
+    """ov_bonds' state bytes and seeds and ov_mid's state2 bytes (the grey
+    bonds and the blue flip) and blue labels, launched through
+    ``launch_event`` on a ``Scratch``, bitwise ``bond_states_plain`` and
+    the plain blue labels: the rule's tasks a thread, one, and the most a
+    thread takes (the largest divisor of a realization's tasks up to
+    OV_MAX_PER), the vector path and the per-site one (6^3; spins 1 byte
+    off), a Joerg task with no active probe."""
+    from peapods_tpu_torch.ops import _build, fk, overlap
+    from peapods_tpu_torch.ops.cluster import connected_components
+
+    tg = n_temps * (n_rep // 2)
+    per = {"rule": 0, "one": 1,
+           "most": max(p for p in range(1, overlap.OV_MAX_PER + 1) if tg % p == 0)}[per]
+    x = _pair_inputs(cuda, 31, shape, d, n_rep, n_temps, couplings)
+    n = int(np.prod(shape))
+    tab = _event_inputs(x, d, n_rep, n_temps, n, kind, wolff, 3)
+    if kind == "jorg":  # task 0's pair equal: no probe is active
+        sys, _, _ = overlap.gather_tasks(x["spins"], x["sid"], tab[0], n_temps)
+        x["spins"][0, sys[0, 0, 0, 1]] = x["spins"][0, sys[0, 0, 0, 0]]
+    spins = _offset_copy(x["spins"], offset)
+    args = (x["sid"], tab[0], x["coup"], x["temps"], *tab[1:])
+    st, st2, seeds = overlap.bond_states_plain(spins.clone(), *args, kind=kind, wolff=wolff,
+                                               shape=shape)
+    if kind == "jorg" and wolff:
+        assert int(seeds[0]) == n
+    dims, _ = overlap.check_event(spins, *args, shape, kind)
+    tasks_n = dims[0]
+    scratch = overlap.Scratch(tasks_n, n, cuda, kind == "cmr")
+    blue = torch.full((tasks_n, n), -1, dtype=torch.int32, device=cuda)
+    for k in overlap.LAUNCHES:
+        overlap.LAUNCHES[k] = 0
+    overlap.launch_event(_build.library(), torch.cuda.current_stream(cuda).cuda_stream,
+                         dims, spins.data_ptr(), *(t.data_ptr() for t in args),
+                         scratch.ptrs(), kind=kind, wolff=wolff,
+                         p_blue=blue.data_ptr() if kind == "cmr" else None, per=per)
+    torch.cuda.synchronize()
+    assert overlap.LAUNCHES["ov_bonds"] == 1
+    assert overlap.LAUNCHES["ov_mid"] == (kind == "cmr")
+    assert torch.equal(scratch.state, st)
+    assert torch.equal(scratch.seeds, seeds)
+    if kind == "cmr":
+        assert torch.equal(scratch.state2, st2)
+        bonds = fk.state_masks(st, len(shape))
+        assert torch.equal(blue, connected_components(bonds, shape).to(torch.int32))
+        assert int((st2 >> 7).sum()) > 0
 
 
 def test_energy_partials_kernel_matches_plain(cuda):
@@ -1924,17 +1989,17 @@ def test_houdn_kernels_match_plain(cuda, shape, wolff, g):
 
 
 @pytest.mark.parametrize("kind", ["houdayer", "jorg", "cmr"])
-@pytest.mark.parametrize("shape,d,n_rep,n_temps", [
-    ((8, 8, 8), 8, 4, 24), ((8, 64), 2, 2, 3),
-], ids=["config4", "2d"])
+@pytest.mark.parametrize("shape,d,n_rep,n_temps,couplings,offset", MOVE_SHAPES, ids=MOVE_IDS)
 def test_overlap_event_graphs_and_observe_form_match_plain(cuda, shape, d, n_rep,
-                                                           n_temps, kind):
+                                                           n_temps, couplings, offset,
+                                                           kind):
     """Row 19's outputs (SW): the labels (CMR: grey and blue) and the stats
     graph's masks bitwise the plain version; the observe form writes no
     spin and returns the same stats graph."""
     from peapods_tpu_torch.ops import overlap
 
-    x = _pair_inputs(cuda, 29, shape, d, n_rep, n_temps)
+    x = _pair_inputs(cuda, 29, shape, d, n_rep, n_temps, couplings)
+    x["spins"] = _offset_copy(x["spins"], offset)
     n = int(np.prod(shape))
     tab = _event_inputs(x, d, n_rep, n_temps, n, kind, False, 9)
     args = (x["sid"], tab[0], x["coup"], x["temps"], *tab[1:])
