@@ -39,7 +39,8 @@ through the user's entry points:
   3D, ``pair_overlap``, ``pt_step`` on R ladders, ``houdn_bonds``,
   ``houdn_finish`` (Houdayer), ``ov_bonds``, ``ov_mid``, ``ov_finish``
   (Joerg, CMR), ``fk_link``, ``energy_partials``) held against its plain
-  version at both configs' shapes;
+  version at both configs' shapes (``houdn_bonds`` and the finishes also
+  launched alone, against ``houdn_states_plain`` and ``finish_plain``);
 * the per-sweep path on the coloured lattices: config 2 (32x32 triangular,
   8 temperatures, Wolff every 2 sweeps) at full width through
   ``Ising.sample`` twice from one seed, its Wolff <e> against Metropolis
@@ -75,9 +76,10 @@ through the user's entry points:
   the pair-Houdayer control against exact enumeration, houd4's deviation
   from it measured), SW overlap observe at config 4's shape and on a 64^2
   square with winding (the observations' invariants, each run bitwise the
-  run without overlap moves), and ``houdn_bonds`` / ``houdn_finish`` (g =
-  4 and 6) and the pair moves' labels, masks and observe form held
-  against their plain versions;
+  run without overlap moves; the observe form launches no finish, the
+  labelling's parents handed on as the labels), and ``houdn_bonds`` /
+  ``houdn_finish`` (g = 4 and 6; each also alone) and the pair moves'
+  labels, masks and observe form held against their plain versions;
 * the space-sharded path (a lattice split into row bands over a
   ``("space",)`` mesh that names the one card four times, through
   ``IsingSimulation.sample``): a 4096^2 ferromagnet at T_c with SW and PT
@@ -1516,24 +1518,35 @@ def move_kernels(build):
     return tuple(k for k in PAIR_KERNELS if k in ks)
 
 
-def houdn_bounds(b, n, g, d, s, *, wolff, labels, flipped, observe=False):
+def houdn_bounds(b, n, g, d, s, *, wolff, labels, flipped):
     """``{kernel: (bound_ms, bound_by)}`` of ``houdn_bonds`` and
     ``houdn_finish`` on ``b`` tasks of ``g`` members of ``n`` sites in one
     form: the bytes that form must move.  Both read the tasks and sid;
     ``houdn_bonds`` the group's spins, and in the Wolff form the 64 probes
-    of a task and writes its seed; it writes a state byte and a parent a
-    site.  ``houdn_finish`` reads the parents, the state bytes and two salts
-    a task (SW) or the seed (Wolff), writes the labels when asked, and reads
-    and writes the ``flipped`` spins that this run's data flips; in observe
-    form it reads the parents and writes the labels only."""
+    of a task and writes its seed; it writes a state byte a site (the first
+    design's bound also counted a parent written a site, 5 b n bytes in
+    all: fk_link writes every parent).  ``houdn_finish`` reads the parents,
+    the state bytes and two salts a task (SW) or the seed (Wolff), writes
+    the labels when asked, and reads and writes the ``flipped`` spins that
+    this run's data flips.  The observe form launches no finish."""
     index = 4 * g * b + 4 * d * s
-    bonds = g * b * n + index + 5 * b * n + (256 * b + 4 * b if wolff else 0)
-    if observe:
-        finish = 8 * b * n
-    else:
-        finish = (4 * b * n + index + 2 * flipped + (4 * b * n if labels else 0)
-                  + (4 * b if wolff else b * n + 8 * b))
+    bonds = g * b * n + index + b * n + (256 * b + 4 * b if wolff else 0)
+    finish = (4 * b * n + index + 2 * flipped + (4 * b * n if labels else 0)
+              + (4 * b if wolff else b * n + 8 * b))
     return {"houdn_bonds": bound(bonds, 0), "houdn_finish": bound(finish, 0)}
+
+
+def ov_finish_bound(b, n, kind, wolff, flipped):
+    """``(bound_ms, bound_by)`` of ``ov_finish`` on ``b`` tasks of ``n``
+    sites: the bytes that form must move.  It reads the flat parents, the
+    state bytes (CMR's blue flip is bit 7 of state2, SW's non-singletons
+    their bonds; a Joerg Wolff flip needs only the parents), two salts a
+    task (SW), CMR's k and the seed (Wolff), and reads and writes the
+    ``flipped`` spins that this run's data flips (the first design's bound
+    read and wrote both systems' spins at every site: 9 b n bytes)."""
+    nbytes = (4 * b * n + (0 if kind == "jorg" and wolff else b * n) + 2 * flipped
+              + (4 * b if wolff else 8 * b) + (4 * b if kind == "cmr" else 0))
+    return bound(nbytes, 4 * b * n)
 
 
 def reset_pair_counts():
@@ -1951,6 +1964,8 @@ def check_pair_kernels(runs, dev, rng):
                     msg += f"; E_a + E_b of every task kept (max drift {drift}, tolerance {tol})"
                 if kind != "houdayer":
                     msg += "; " + check_bond_states(x, rt, tab, kind, wolff, dev)
+                msg += "; " + move_alone(x["spins"], x["sid"], tab, rt.coup, rt.temps, shape,
+                                         kind, wolff, dev)
                 log("13 kernel-vs-plain", msg + " ok")
                 moved[(kind, wolff)] = tab
         # energy_partials
@@ -2014,6 +2029,72 @@ def check_bond_states(x, rt, tab, kind, wolff, dev):
     bonds = int(fk.state_masks(scratch.state, len(shape)).sum())
     return ("state bytes" + (", state2 bytes, blue labels" if kind == "cmr" else "")
             + f" and seeds bitwise the plain bonds ({bonds} bonds)")
+
+
+def move_alone(spins, sid, tab, coup, temps, shape, kind, wolff, dev):
+    """The move's first and last kernels launched alone on a state and a
+    move's tables: Houdayer's ``houdn_bonds`` (state bytes and seeds
+    bitwise ``overlap.houdn_states_plain``) and ``houdn_finish``, Joerg's
+    and CMR's ``ov_finish``, each on the plain version's last graph (state
+    bytes, flat parents, seeds; CMR: state2 and the grey parents), every
+    spin bitwise ``overlap.finish_plain``; returns the log's words."""
+    from peapods_tpu_torch.ops import _build, fk, overlap
+    from peapods_tpu_torch.ops.cluster import connected_components
+
+    d, s, n = spins.shape
+    n_temps, n_groups, g = tab[0].shape[1:]
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    threads = fk.resident_threads(dev.index) // 4
+    houd = kind == "houdayer"
+    per = overlap.ov_per(n, d, n_temps, n_groups, threads,
+                         max(1, overlap.HOUDN_ROWS // g) if houd else overlap.OV_MAX_PER)
+    words = overlap.ov_words(tuple(shape), d, n_temps, n_groups, s, per)
+    args = (sid, tab[0], coup, temps, *tab[1:])
+    bad = {}
+    if houd:
+        st, sd = overlap.houdn_states_plain(spins, sid, tab[0], tab[2], wolff=wolff,
+                                            shape=shape)
+        state = torch.full_like(st, 0xAA)
+        seeds = torch.full_like(sd, -1)
+        _build.check(lib.peapods_houdn_bonds(
+            spins.data_ptr(), sid.data_ptr(), tab[0].data_ptr(), tab[2].data_ptr(),
+            state.data_ptr(), seeds.data_ptr(), words.ctypes.data, g, int(wolff), stream),
+            "houdn_bonds")
+        torch.cuda.synchronize()
+        bad = {"houdn_bonds state": int((state != st).sum()),
+               "houdn_bonds seeds": int((seeds != sd).sum())}
+    else:
+        st, st2, sd = overlap.bond_states_plain(spins.clone(), *args, kind=kind, wolff=wolff,
+                                                shape=shape)
+        st = st if kind == "jorg" else st2
+    par = connected_components(fk.state_masks(st, len(shape)), shape).to(torch.int32)
+    a, b = spins.clone(), spins.clone()
+    overlap.finish_plain(b, sid, tab[0], tab[1], sd, st, par, kind=kind, wolff=wolff,
+                         shape=shape)
+    if houd:
+        dims, _ = overlap.check_event(a, *args, shape, kind)
+        labels = torch.full_like(par, -1)
+        _build.check(lib.peapods_houdn_finish(
+            a.data_ptr(), sid.data_ptr(), tab[0].data_ptr(), tab[1].data_ptr(), st.data_ptr(),
+            par.clone().data_ptr(), sd.data_ptr(), labels.data_ptr(), *dims, g, int(wolff), 0,
+            stream), "houdn_finish")
+        torch.cuda.synchronize()
+        bad["houdn_finish labels"] = int((labels != par).sum())
+    else:
+        _build.check(lib.peapods_ov_finish(
+            a.data_ptr(), sid.data_ptr(), tab[0].data_ptr(), tab[1].data_ptr(), sd.data_ptr(),
+            st.data_ptr(), par.data_ptr(), words.ctypes.data, overlap.KINDS.index(kind),
+            int(wolff), stream), "ov_finish")
+        torch.cuda.synchronize()
+    fin = "houdn_finish" if houd else "ov_finish"
+    bad[f"{fin} spins"] = int((a != b).sum())
+    if any(bad.values()):
+        raise AssertionError(f"{kind} ({'wolff' if wolff else 'sw'}) alone: mismatches {bad}")
+    return ((f"houdn_bonds alone: state bytes and seeds bitwise houdn_states_plain "
+             f"({int(fk.state_masks(st, len(shape)).sum())} bonds); " if houd else "")
+            + f"{fin} alone: {int((a != spins).sum())} spins flipped bitwise "
+            f"finish_plain ({per} tasks a thread)")
 
 
 def pair_times(runs, checks, dev):
@@ -2088,14 +2169,27 @@ def pair_times(runs, checks, dev):
             # (the first design's also counted parent2 written and the state
             # bytes read twice)
             "ov_mid": (8 * b_tasks * n + cb, 12 * nd * b_tasks * n),
-            "ov_finish": (2 * b_tasks * n + 5 * b_tasks * n + 2 * b_tasks * n,
-                          4 * b_tasks * n),
             "energy_partials": (sys_bytes + cb + 8 * d * s * ((n + 255) // 256),
                                 3 * nd * sys_bytes),
         }
         for k, (nbytes, flops) in bounds.items():
             if k in rec:
                 rec[k]["bound_ms"], rec[k]["bound_by"] = bound(nbytes, flops)
+        if "ov_finish" in rec:
+            # the build's kinds take turns: the mean of their bounds, each
+            # with the spins that the check's move flips on this state
+            fin = []
+            for kind in build.split("+"):
+                if kind.startswith("houd"):
+                    continue
+                tab = rec["_tables"][(kind, True)]
+                moved_sp = sp.clone()
+                overlap.overlap_event_plain(moved_sp, x["sid"], tab[0], rt.coup, rt.temps,
+                                            *tab[1:], kind=kind, wolff=True, shape=shape)
+                fin.append(ov_finish_bound(b_tasks, n, kind, True,
+                                           int((moved_sp != sp).sum())))
+            rec["ov_finish"]["bound_ms"] = sum(ms for ms, _ in fin) / len(fin)
+            rec["ov_finish"]["bound_by"] = fin[0][1]
         if "houdn_bonds" in rec:
             # pair Houdayer in the config's Wolff form, no labels: the spins
             # that the check's move flips on this state
@@ -3274,7 +3368,9 @@ def move_counts(kw, n, warmup, observe=False, winding=False):
     ``houdn_finish`` for Houdayer (any group size); ``ov_bonds``,
     ``fk_link`` (twice for CMR), ``ov_mid`` (CMR), ``ov_finish`` for Joerg
     and CMR; ``energy_partials`` after an update; ``winding`` after an observed
-    move on the canonical square.  The observe form builds no grey graph."""
+    move on the canonical square.  The observe form builds no grey graph and
+    launches no ``ov_mid``, ``ov_finish`` or ``houdn_finish``: ``fk_link``
+    labels the stats graph into the labels buffer."""
     interval = kw["overlap_cluster_update_interval"]
     modes = kw["overlap_cluster_build_mode"].split("+")
     moves = [modes[(s // interval) % len(modes)] for s in range(0, n, interval)
@@ -3282,9 +3378,10 @@ def move_counts(kw, n, warmup, observe=False, winding=False):
     houdn = sum(m.startswith("houd") for m in moves)
     pair = len(moves) - houdn
     n_cmr = 0 if observe else sum(m == "cmr" for m in moves)
+    fin = 0 if observe else 1  # the observe form launches no finish
     counts = {"colour_pass": 2 * n, "pt_step": n + len(moves), "pair_overlap": n,
               "ov_bonds": pair, "fk_link": len(moves) + n_cmr, "ov_mid": n_cmr,
-              "ov_finish": pair, "houdn_bonds": houdn, "houdn_finish": houdn,
+              "ov_finish": fin * pair, "houdn_bonds": houdn, "houdn_finish": fin * houdn,
               "energy_partials": 0 if observe else len(moves),
               "winding": len(moves) if winding else 0}
     return {k: v for k, v in counts.items() if v}
@@ -3583,8 +3680,10 @@ def check_houdn_kernels(main, wolff_run, obs, dev, rng):
     on a 12-replica state stacked from it; row 19's labels (grey and blue
     for CMR), masks and observe form for each kind (SW) there; and on each
     overlap-observe run's own state (3D, and the 64^2 square with winding
-    on the masks and labels) every kind's observe form: everything bitwise
-    the plain versions.  Then the plain versions' times and the bounds of
+    on the masks and labels) every kind's observe form (its launches: the
+    first kernel and the labelling, no finish): everything bitwise the
+    plain versions, ``houdn_bonds`` and ``houdn_finish`` also alone
+    (:func:`move_alone`).  Then the plain versions' times and the bounds of
     each form: ``{kernel: record}`` with ``at_<run>`` beside the main one."""
     from peapods_tpu_torch.ops import cluster, overlap, winding
 
@@ -3618,6 +3717,8 @@ def check_houdn_kernels(main, wolff_run, obs, dev, rng):
                    f"{int((gk.labels == torch.arange(n, device=dev)).sum())} clusters")
             if any(bad.values()) or not flipped:
                 raise AssertionError(msg)
+            msg += "; " + move_alone(st["spins"], st["sid"], tab, rt.coup, rt.temps, shape,
+                                     "houdayer", wolff, dev)
             log("24 kernel-vs-plain", msg + " ok")
     for kind in ("houdayer", "jorg", "cmr"):
         tab = move_tables(rng, d, rt.n_replicas, rt.n_temps, n, kind, False, 2, dev)
@@ -3635,6 +3736,8 @@ def check_houdn_kernels(main, wolff_run, obs, dev, rng):
             if any(bad.values()) or torch.equal(a, x["spins"]) != observe:
                 raise AssertionError(f"row 19 {kind} (sw, observe={observe}): {bad}")
             graphs[observe] = gk
+            if kind == "cmr" and not observe:
+                cmr_flipped = int((a != x["spins"]).sum())
         if not (torch.equal(graphs[True].stats, graphs[False].stats)
                 and torch.equal(graphs[True].masks, graphs[False].masks)):
             raise AssertionError(f"row 19 {kind}: the observe form's graph differs")
@@ -3671,6 +3774,10 @@ def check_houdn_kernels(main, wolff_run, obs, dev, rng):
                 out[k] = rec
             else:
                 out[k][f"at_{name}"] = rec
+    # ov_finish at the main run (cmr+houd4: CMR SW on config 4's state),
+    # with the spins that the check's CMR move flipped
+    out["ov_finish_cmr_houd4"] = ov_finish_bound(d * rt.n_temps * rt.n_pairs, n, "cmr",
+                                                 False, cmr_flipped)
     # every kind's observe form on each observe run's own state; on the
     # canonical square, winding on the stats graph's masks and labels
     for name, run in obs.items():
@@ -3688,11 +3795,17 @@ def check_houdn_kernels(main, wolff_run, obs, dev, rng):
             args = (y["sid"], tab[0], rt_o.coup, rt_o.temps, *tab[1:])
             kw = dict(kind=kind, wolff=False, shape=shape_o, with_labels=True,
                       with_masks=True, observe=True)
+            for k in overlap.LAUNCHES:
+                overlap.LAUNCHES[k] = 0
             gk = overlap.overlap_event(a, *args, **kw)
             gp = overlap.overlap_event_plain(b_sp, *args, **kw)
             torch.cuda.synchronize()
             bad = graph_mismatches(a, b_sp, gk, gp)
             bad["spins written"] = int((a != y["spins"]).sum())
+            # the observe form: the first kernel and the labelling, no finish
+            launched = {k: v for k, v in overlap.LAUNCHES.items() if v}
+            bad["launches"] = int(launched != {
+                "houdn_bonds" if kind == "houdayer" else "ov_bonds": 1})
             extra = ""
             if wind:
                 wk = winding.winding_flags(gk.masks, gk.stats, shape_o)
@@ -3704,7 +3817,8 @@ def check_houdn_kernels(main, wolff_run, obs, dev, rng):
             if any(bad.values()):
                 raise AssertionError(f"row 19 {kind} observe on {name}: {bad}")
             log("26 kernel-vs-plain", f"{kind} observe form on {name}'s state ({b_o} "
-                f"graphs of {'x'.join(map(str, shape_o))}): labels"
+                f"graphs of {'x'.join(map(str, shape_o))}; launches {launched}, the "
+                f"labelling's parents handed on as the labels): labels"
                 f"{' (blue)' if kind == 'cmr' else ''}, masks"
                 f"{' and winding flags' if wind else ''} bitwise the plain version, no "
                 f"spin written: mismatches {bad}; "
@@ -3712,14 +3826,17 @@ def check_houdn_kernels(main, wolff_run, obs, dev, rng):
                 f"{int(gk.masks.sum())} active bonds{extra} ok")
             if kind != "houdayer":
                 continue
+            log("26 kernel-vs-plain", f"houdayer on {name}'s state: " + move_alone(
+                y["spins"], y["sid"], tab, rt_o.coup, rt_o.temps, shape_o, kind, False, dev)
+                + " ok")
             plain_ms = wall_ms(lambda: overlap.overlap_event_plain(
                 y["spins"].clone(), *args, **kw), 3)
-            for k, (bound_ms, bound_by) in houdn_bounds(
-                    b_o, n_o, 2, d_o, s_o, wolff=False, labels=True, flipped=0,
-                    observe=True).items():
-                out[k][f"at_{name}"] = dict(
-                    max_abs_err=0.0, bound_ms=bound_ms, bound_by=bound_by,
-                    plain_ms=plain_ms, plain_is="the whole pair-Houdayer observe move")
+            # the observe form launches houdn_bonds and the labelling only
+            bound_ms, bound_by = houdn_bounds(b_o, n_o, 2, d_o, s_o, wolff=False, labels=True,
+                                              flipped=0)["houdn_bonds"]
+            out["houdn_bonds"][f"at_{name}"] = dict(
+                max_abs_err=0.0, bound_ms=bound_ms, bound_by=bound_by,
+                plain_ms=plain_ms, plain_is="the whole pair-Houdayer observe move")
             if wind:
                 masks, labels = gp.masks, gp.stats
                 out[f"winding_{name}"] = dict(
@@ -3760,28 +3877,30 @@ def add_houdn_records(kernels, pk, main, wolff, obs, houdn, us, card):
                   library_ms=None, **at(main, "main", k),
                   **{f: v for f, v in houdn[k].items() if not f.startswith("at_")})
         for name, run, key in runs:
-            kr[f"at_{name}"] = dict(houdn[k][f"at_{name}"], **at(run, key, k))
+            if k in run["launches"]:  # the observe runs launch no houdn_finish
+                kr[f"at_{name}"] = dict(houdn[k][f"at_{name}"], **at(run, key, k))
         kr["at_config4"] = dict(pk["config4"][k], replaces=EV_REPLACES,
                                 launches_per_sweep=pk["config4"][k]["launches"]
                                 / SG_CONFIGS["config4"]["sweeps"])
         kernels.append(kr)
     def move_bounds(run):
-        """Row 19's bounds per launch on a run's shapes, as config 5's (an
-        observe form writes each task's labels where an update reads and
-        writes its spins: the same bytes)."""
+        """Row 19's bounds per launch on a run's shapes, as config 5's (the
+        observe runs launch ``ov_bonds`` and the labelling only;
+        ``ov_finish``'s, on the main run, counts the spins that phase 24's
+        CMR move flipped)."""
         rt = run["model"]._sim.rt
         n, nd = rt.n_spins, rt.lattice.n_dims
         b = rt.n_disorder * rt.n_temps * rt.n_pairs
         cb = 4 * nd * rt.n_disorder * n
         # ov_bonds: both spins and the couplings in, the state bytes out;
-        # ov_mid: also the state bytes and the flat parents in, state2 and
-        # the blue labels (written on these runs) out; no parent written
+        # ov_mid: also the state bytes and the flat parents (the blue
+        # labels, which fk_link wrote) in, state2 out; no parent written
         # (fk_link writes every parent; the first design's bound counted
-        # one a site)
+        # one a site, and ov_mid's the blue labels written too)
         return {"ov_bonds": bound(3 * b * n + cb, 12 * nd * b * n),
                 "fk_link": bound(5 * b * n, 0),
-                "ov_mid": bound(12 * b * n + cb, 12 * nd * b * n),
-                "ov_finish": bound(9 * b * n, 4 * b * n)}
+                "ov_mid": bound(8 * b * n + cb, 12 * nd * b * n),
+                "ov_finish": houdn["ov_finish_cmr_houd4"]}
 
     by_name = {kr["name"]: kr for kr in kernels}
     for k in ("ov_bonds", "fk_link", "ov_mid", "ov_finish"):

@@ -14,23 +14,24 @@
 //
 // Houdayer(N) on groups of any even g, the pair move (g = 2) included:
 //
-//   houdn_bonds   thread j owns sites 4j .. 4j+3 of a task and writes, per
-//                 site, a state byte (bit d: forward bond d) and parent[i] =
-//                 i: a site is active where the group's g spins sum to 0
-//                 (for a pair, a != b), a bond joins two active neighbours.
-//                 The first warp of the task's first block picks the Wolff
-//                 seed: the first of the task's 64 probes that is active
-//                 (n when none is, and the move is then a no-op), each lane
-//                 testing two probes, a ballot choosing.
-//   fk_link       (csrc/fk.cu, shared with the FK update) one thread per
-//                 site: union-find over the bonds (uf.cuh), the roots being
-//                 each component's minimum site index.
+//   houdn_bonds   the state byte of every site (bit d: forward bond d) and
+//                 the Wolff seed, no parent (fk_link writes every parent):
+//                 a site is active where the group's g spins sum to 0 (for
+//                 a pair, a != b), a bond joins two active neighbours.  The
+//                 Wolff seed is the first of the task's 64 probes that is
+//                 active (n when none is, and the move is then a no-op; n
+//                 for SW).
+//   fk_link       (csrc/fk.cu, shared with the FK update) the labelling:
+//                 every parent left at its component's minimum site index
+//                 (flat), in the caller's labels buffer where labels are
+//                 asked for.
 //   houdn_finish  one thread per site flips the seed's component (Wolff) or
 //                 each non-singleton component with salted_uniform(root, s0,
-//                 s1) < 1/2 (SW) in all g systems; optionally writes the
-//                 labels.  In observe form (overlap_cluster_action=
-//                 "observe", pairs only) it writes the labels and no spin.
-//
+//                 s1) < 1/2 (SW) in all g systems; optionally copies the
+//                 labels.  The observe form (overlap_cluster_action=
+//                 "observe", pairs only) launches no finish: fk_link's flat
+//                 parents are the labels.
+
 // Joerg and CMR on pairs:
 //
 //   ov_bonds   the state byte of every site (bit d: forward bond d) and
@@ -54,13 +55,17 @@
 //              flipped spins are never written here: the blue flip flips a
 //              and b together, so sat_a != sat_b is the same before and
 //              after it.
-//   ov_finish  one thread per site flips its spin in both systems: Joerg as
-//              houdn_finish; CMR, the blue flip and then the grey flip of a
-//              (k & 1) and of b (k & 2), k drawn per task (Wolff) or k =
-//              floor(4 salted_uniform(grey root, s2, s3)) (SW).  Optionally
-//              writes the labels (the grey ones for CMR).  In observe form
-//              it writes the labels of ov_bonds' graph (CMR: the blue one,
-//              with no ov_mid before it) and no spin.
+//   ov_finish  the flips of both systems from the flat parents of the
+//              move's last graph (Joerg's; CMR's grey one, the blue flip
+//              being bit 7 of state2): Joerg as houdn_finish; CMR, the blue
+//              flip and then the grey flip of a (k & 1) and of b (k & 2), k
+//              drawn per task (Wolff) or k = floor(4 salted_uniform(grey
+//              root, s2, s3)) (SW).  It writes no label: fk_link labels
+//              each graph into the caller's buffer (Joerg's and the grey
+//              one into the labels, CMR's blue one into the blue labels,
+//              which ov_mid then reads as its parents).  The observe form
+//              launches no ov_mid and no ov_finish: fk_link labels the
+//              stats graph (CMR: the blue one) into the caller's buffer.
 //
 // In every observe form the bond masks are bits 0 .. nd-1 of the first
 // kernel's state bytes.
@@ -73,9 +78,28 @@
 //
 // What bounds it on the H100: a move touches per site the g int8 spins,
 // a few coupling floats, a state byte and an int32 parent, a few times:
-// under 10 MB per launch at 16^3 x 384 tasks.  The chains of dependent
-// parent loads in find and the launch count (3 to 5 launches a move, plus
-// energy_partials) bound it, as for the FK kernels.
+// under 10 MB per launch at 16^3 x 384 tasks.  Integer work a site and the
+// launch count (2 to 5 launches a move, plus energy_partials) bound it,
+// not bytes.
+//
+// houdn_bonds reads the group's g spins and writes a state byte a site:
+// 0.00021 ms at 3.35 TB/s at config 4 (8^3, 384 pair tasks); ov_finish
+// reads the flat parents and the state bytes and reads and writes only
+// the spins that flip: 0.0030 ms at config 5.  Their first designs (houdn_bonds a
+// thread four sites of one task, (1 + nd) g chains of tasks -> sid -> spin
+// loads a site, fwd_site's runtime divisions, a dead parent written a
+// site; ov_finish a thread a site, task_of's divisions and loads,
+// find_root on flat parents, nonsingleton's divisions, byte spins) took
+// 0.01036 and 0.02191 ms there (NVIDIA H100 80GB HBM3, 700 W), and now
+// 0.00361 and 0.00475 ms.  Both take ov_bonds' walk, a group of four
+// sites of `per` tasks a thread with each task's rows (houdn_bonds: its g
+// member rows, in dynamic shared memory), salts and seed root staged once
+// a CTA: houdn_bonds counts each byte's negative members over the g
+// members' 4-byte words and their division-free neighbour words
+// (__vcmpeq4 against g / 2); ov_finish reads each group's roots by one
+// int4 load, tests nonsingleton word-wide (the backward words only where
+// a coin falls on a root with no forward bond) and flips each system's
+// word by one xor (tools/probe_overlap.py times both designs).
 //
 // ov_bonds reads both replicas' spins and the couplings once and writes a
 // state byte a site: 5.1 MB at config 5 (16^3, 384 tasks), 0.0015 ms at
@@ -126,32 +150,13 @@ constexpr int kJorg = 1;
 constexpr int kCmr = 2;
 constexpr int kProbes = 64;
 
-struct Task {
-  int d;
-  int t;
-  int8_t* a;
-  int8_t* b;
-};
-
-__device__ __forceinline__ Task task_of(int8_t* spins, const int32_t* sid,
-                                        const int32_t* tasks, int b, int n,
-                                        int n_temps, int n_pairs, int n_slots) {
-  Task k;
-  k.d = b / (n_temps * n_pairs);
-  k.t = (b / n_pairs) % n_temps;
-  const int32_t* sd = sid + static_cast<size_t>(k.d) * n_slots;
-  const size_t row = static_cast<size_t>(k.d) * n_slots;
-  k.a = spins + (row + sd[tasks[2 * b] * n_temps + k.t]) * n;
-  k.b = spins + (row + sd[tasks[2 * b + 1] * n_temps + k.t]) * n;
-  return k;
-}
-
-// ov_bonds' and ov_mid's launch (ops/overlap.py ov_words): a periodic
+// The overlap moves' launch (ops/overlap.py ov_words): a periodic
 // lattice of n sites, 2D [L0, L1] or 3D [L0, L1, L2], its fast axis (the
 // last, extent lf) in lines over an inner slow axis of extent lb (2D: L0;
 // 3D: L1) and, in 3D, an outer one of extent la (L0; 1 in 2D); tasks b =
-// (d T + t) G + j of T temperatures and G pairs, S slots a realization,
-// `per` tasks a thread; multiply-shift divisions (m, s) of lf, lb and G.
+// (d T + t) G + j of T temperatures and G groups (pairs but for
+// Houdayer(N)), S slots a realization, `per` tasks a thread;
+// multiply-shift divisions (m, s) of lf, lb and G.
 struct OvWalk {
   int n;
   int nd;
@@ -191,8 +196,8 @@ constexpr uint32_t kLow = 0x01010101u;    // bit 0 of each byte of a word
 
 // The entries of a CTA's tasks, in shared memory: each task's two systems
 // (the spins' row offsets), its temperature index, its key words, the unit
-// coupling's threshold at its temperature and (ov_mid) its SW salts and
-// the Wolff seed's blue label.
+// coupling's threshold at its temperature, (ov_mid, ov_finish) its SW
+// salts and the Wolff seed's root and (ov_finish) CMR's drawn k.
 struct OvTasks {
   long long ra[kMaxPer];
   long long rb[kMaxPer];
@@ -203,6 +208,7 @@ struct OvTasks {
   uint32_t s0[kMaxPer];
   uint32_t s1[kMaxPer];
   int root[kMaxPer];
+  int k[kMaxPer];
 };
 
 // The bond probabilities at J/T = jt, in the first design's operation
@@ -227,16 +233,12 @@ __device__ __forceinline__ uint32_t threshold24(float p) {
   return p > 0.0f ? static_cast<uint32_t>(fminf(ceilf(p * 16777216.0f), 16777216.0f)) : 0u;
 }
 
-// Thread k < per fills task k's entry (blockIdx.z the realization,
-// blockIdx.x its set of `per` consecutive tasks): t = w / G by
-// multiply-shift, the two systems through sid, and the threshold.
-__device__ __forceinline__ void load_tasks(OvTasks& sh, const OvWalk& g,
-                                           const int32_t* __restrict__ sid,
-                                           const int32_t* __restrict__ tasks,
-                                           const float* __restrict__ temps,
-                                           const int32_t* __restrict__ keys, int which) {
-  const int k = threadIdx.x;
-  if (k >= g.per) return;
+// Task k of the CTA (blockIdx.z the realization, blockIdx.x its set of
+// `per` consecutive tasks): its index b, t = w / G by multiply-shift and
+// its two systems' row offsets through sid.
+__device__ __forceinline__ int task_rows(OvTasks& sh, const OvWalk& g,
+                                         const int32_t* __restrict__ sid,
+                                         const int32_t* __restrict__ tasks, int k) {
   const int w = blockIdx.x * g.per + k;  // the task's index in its realization
   const int b = blockIdx.z * g.T * g.G + w;
   const int t = fast_div(w, g.m[2], g.s[2]);
@@ -245,9 +247,22 @@ __device__ __forceinline__ void load_tasks(OvTasks& sh, const OvWalk& g,
   sh.ra[k] = (row + sd[tasks[2 * b] * g.T + t]) * g.n;
   sh.rb[k] = (row + sd[tasks[2 * b + 1] * g.T + t]) * g.n;
   sh.t[k] = t;
+  return b;
+}
+
+// Thread k < per fills task k's entry: its rows, its key words and the
+// unit coupling's threshold.
+__device__ __forceinline__ void load_tasks(OvTasks& sh, const OvWalk& g,
+                                           const int32_t* __restrict__ sid,
+                                           const int32_t* __restrict__ tasks,
+                                           const float* __restrict__ temps,
+                                           const int32_t* __restrict__ keys, int which) {
+  const int k = threadIdx.x;
+  if (k >= g.per) return;
+  const int b = task_rows(sh, g, sid, tasks, k);
   sh.k0[k] = static_cast<uint32_t>(keys[2 * b]);
   sh.k1[k] = static_cast<uint32_t>(keys[2 * b + 1]);
-  sh.thr[k] = threshold24(bond_prob(which, 1.0f / temps[t]));
+  sh.thr[k] = threshold24(bond_prob(which, 1.0f / temps[sh.t[k]]));
 }
 
 // The coordinates of site i: its position along the fast axis, its line's
@@ -558,6 +573,84 @@ ov_bonds_kernel(const int8_t* __restrict__ spins, const int32_t* __restrict__ si
   }
 }
 
+// A group's state-byte word and its sites' flat parents (fk_link leaves
+// each parent at its root): one 4-byte and one 16-byte load where kVec;
+// sites past n hold state 0 and parent -1.
+template <int ND, bool kVec>
+__device__ __forceinline__ uint32_t load_roots(const uint8_t* __restrict__ S,
+                                               const int32_t* __restrict__ P,
+                                               const Group<ND, kVec>& x, int (&lab)[4]) {
+  uint32_t st = 0;
+  if (kVec) {
+    st = __ldg(reinterpret_cast<const uint32_t*>(S) + x.k);
+    const int4 p = __ldg(reinterpret_cast<const int4*>(P) + x.k);
+    lab[0] = p.x;
+    lab[1] = p.y;
+    lab[2] = p.z;
+    lab[3] = p.w;
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      lab[q] = q < x.cnt ? __ldg(P + x.i0 + q) : -1;
+      if (q < x.cnt) st |= static_cast<uint32_t>(__ldg(S + x.i0 + q)) << (8 * q);
+    }
+  }
+  return st;
+}
+
+// Bit 0 of byte q where site q's root is r.
+__device__ __forceinline__ uint32_t same_root(const int (&lab)[4], int r) {
+  uint32_t f = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (lab[q] == r) f |= 1u << (8 * q);
+  return f;
+}
+
+// Bit 0 of byte q where site q has a bond (bits 0 .. ND-1 of the state
+// bytes S; st the group's word, lab its roots): its own forward bonds, a
+// root other than itself, or else a backward neighbour's forward bond
+// towards it.  The backward words (the fast axis' previous word shifted a
+// byte in, the same word of the previous line and plane) are read only
+// where `need` (bit 0 of byte q) asks about a root with no forward bond.
+template <int ND, bool kVec>
+__device__ __forceinline__ uint32_t nonsingleton_words(const uint8_t* __restrict__ S,
+                                                       uint32_t st, const int (&lab)[4],
+                                                       uint32_t need, const Group<ND, kVec>& x,
+                                                       const OvWalk& g) {
+  uint32_t root = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (q >= x.cnt) break;
+    if (lab[q] == x.i0 + q) root |= 1u << (8 * q);
+  }
+  uint32_t any = ~root & kLow;
+#pragma unroll
+  for (int d = 0; d < ND; ++d) any |= (st >> d) & kLow;
+  if (need & ~any) {
+    uint32_t bw[ND];
+    if (kVec) {
+      const uint32_t* sw = reinterpret_cast<const uint32_t*>(S);
+      bw[ND - 1] = __funnelshift_l(__ldg(sw + x.pf), st, 8);
+      bw[ND - 2] = __ldg(sw + x.pb);
+      if (ND == 3) bw[0] = __ldg(sw + x.pa);
+    } else {
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {
+        bw[d] = 0;
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (q < x.cnt)
+            bw[d] |= static_cast<uint32_t>(__ldg(S + site_step<ND>(g, x.c[q], d, true)))
+                     << (8 * q);
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < ND; ++d) any |= (bw[d] >> d) & kLow;
+  }
+  return any;
+}
+
 // CMR's grey bonds after the blue flip (the first design decided each blue
 // flip 1 + nd times a site, by find_root and, in SW, a salted coin and
 // nonsingleton's backward neighbours found by division, wrote a dead
@@ -572,8 +665,9 @@ ov_bonds_kernel(const int8_t* __restrict__ spins, const int32_t* __restrict__ si
 // SW, the salted coin on that root and nonsingleton (a site whose root is
 // another site has a bond; a root's own bonds, then its backward
 // neighbours' state bytes, read as words only where the coin falls below
-// 1/2 on a root with no forward bond).  The blue labels, when asked, are
-// that same load.  The mapping, the couplings, J / T, the words and the
+// 1/2 on a root with no forward bond: nonsingleton_words).  The parents
+// are the blue labels themselves where the caller asks for them (fk_link
+// labels into its buffer).  The mapping, the couplings, J / T, the words and the
 // draws are ov_bonds' (counter n_dims + dir), a grey bond the blue one or
 // (sat_a != sat_b and u < 1 - r); one 4-byte store of the state2 bytes.
 template <int ND, bool kWolff, bool kVec>
@@ -583,7 +677,7 @@ ov_mid_kernel(const int8_t* __restrict__ spins, const int32_t* __restrict__ sid,
               const float* __restrict__ temps, const int32_t* __restrict__ scal,
               const int32_t* __restrict__ keys, const uint8_t* __restrict__ state,
               const int32_t* __restrict__ parent, uint8_t* __restrict__ state2,
-              int32_t* __restrict__ blue_labels, const OvWalk g) {
+              const OvWalk g) {
   __shared__ OvTasks sh;
   load_tasks(sh, g, sid, tasks, temps, keys, kProbGrey);
   if (threadIdx.x < g.per) {
@@ -613,75 +707,21 @@ ov_mid_kernel(const int8_t* __restrict__ spins, const int32_t* __restrict__ sid,
       const size_t base = static_cast<size_t>(b0 + k) * g.n;
       const uint8_t* S = state + base;
       const int32_t* P = parent + base;
-      // the blue bonds and labels of the group's sites
-      uint32_t st = 0;
+      // the blue bonds and roots of the group's sites
       int lab[4];
-      if (kVec) {
-        st = __ldg(reinterpret_cast<const uint32_t*>(S) + grp);
-        const int4 p = __ldg(reinterpret_cast<const int4*>(P) + grp);
-        lab[0] = p.x;
-        lab[1] = p.y;
-        lab[2] = p.z;
-        lab[3] = p.w;
-      } else {
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          lab[q] = q < x.cnt ? __ldg(P + x.i0 + q) : -1;
-          if (q < x.cnt) st |= static_cast<uint32_t>(__ldg(S + x.i0 + q)) << (8 * q);
-        }
-      }
+      const uint32_t st = load_roots<ND, kVec>(S, P, x, lab);
       uint32_t fl = 0;  // bit 0 of byte q: site q's blue flip
       if (kWolff) {
-#pragma unroll
-        for (int q = 0; q < 4; ++q)
-          if (lab[q] == sh.root[k]) fl |= 1u << (8 * q);
+        fl = same_root(lab, sh.root[k]);
       } else {
-        uint32_t coin = 0, root = 0;
+        uint32_t coin = 0;
 #pragma unroll
         for (int q = 0; q < 4; ++q) {
           if (q >= x.cnt) break;
           if (salted_uniform(static_cast<uint32_t>(lab[q]), sh.s0[k], sh.s1[k]) < 0.5f)
             coin |= 1u << (8 * q);
-          if (lab[q] == x.i0 + q) root |= 1u << (8 * q);
         }
-        uint32_t any = 0;  // bit 0 of byte q: site q has a bond
-#pragma unroll
-        for (int d = 0; d < ND; ++d) any |= (st >> d) & kLow;
-        any |= ~root & kLow;
-        if (coin & ~any) {
-          // roots with no forward bond whose coin flips them: their
-          // backward neighbours' bonds towards them
-          uint32_t bw[ND];
-          if (kVec) {
-            const uint32_t* sw = reinterpret_cast<const uint32_t*>(S);
-            bw[ND - 1] = __funnelshift_l(__ldg(sw + x.pf), st, 8);
-            bw[ND - 2] = __ldg(sw + x.pb);
-            if (ND == 3) bw[0] = __ldg(sw + x.pa);
-          } else {
-#pragma unroll
-            for (int d = 0; d < ND; ++d) {
-              bw[d] = 0;
-#pragma unroll
-              for (int q = 0; q < 4; ++q)
-                if (q < x.cnt)
-                  bw[d] |= static_cast<uint32_t>(__ldg(S + site_step<ND>(g, x.c[q], d, true)))
-                           << (8 * q);
-            }
-          }
-#pragma unroll
-          for (int d = 0; d < ND; ++d) any |= (bw[d] >> d) & kLow;
-        }
-        fl = coin & any;
-      }
-      if (blue_labels != nullptr) {
-        int32_t* L = blue_labels + base;
-        if (kVec) {
-          reinterpret_cast<int4*>(L)[grp] = make_int4(lab[0], lab[1], lab[2], lab[3]);
-        } else {
-#pragma unroll
-          for (int q = 0; q < 4; ++q)
-            if (q < x.cnt) L[x.i0 + q] = lab[q];
-        }
+        fl = coin & nonsingleton_words<ND, kVec>(S, st, lab, coin, x, g);
       }
       const Words<ND> a = load_words<ND, kVec>(spins + sh.ra[k], x, g);
       const Words<ND> b = load_words<ND, kVec>(spins + sh.rb[k], x, g);
@@ -705,69 +745,99 @@ ov_mid_kernel(const int8_t* __restrict__ spins, const int32_t* __restrict__ sid,
   }
 }
 
+// The flips of a Joerg or CMR move (the first design: a thread a site,
+// task_of's runtime divisions and tasks -> sid loads in every thread,
+// find_root on parents fk_link has already flattened, for Wolff also on
+// the seed in every thread, nonsingleton's backward neighbours found by
+// division, byte loads and stores of the spins, and in observe form a
+// launch that only copied the parents into the labels).  ov_bonds' walk: a
+// thread takes the group of four sites 4 grp .. 4 grp + 3 of `per`
+// consecutive tasks of one realization, each task's two rows, its salts
+// (Joerg s0, s1; CMR s2, s3), CMR's k and the Wolff seed's root (one load
+// of parent[b n + seed] a task, none where Joerg's seed is n: no flip)
+// staged once a CTA.  state / parent are Joerg's bonds and fk_link's flat
+// parents of them, or CMR's state2 bytes (bit 7: the blue flip) and the
+// grey graph's flat parents: each group's roots one int4 load; Wolff flips
+// the seed's component, SW each non-singleton (nonsingleton_words) whose
+// coin falls below 1/2 (Joerg) or whose k = floor(4 salted_uniform(root,
+// s2, s3)) is not 0 (CMR).  Each system's word is one 4-byte load and one
+// store: a +-1 byte negated is the byte xor 0xFE, so the word xor f 0xFE
+// (f: bit 0 of byte q where site q flips) flips it with no carry across
+// bytes; CMR's a flips blue ^ (in & k & 1), b blue ^ (in & k & 2).  Each
+// system belongs to one task of a move, so no two threads write one word.
+// Where !kVec (a fast extent not a multiple of 4, or unaligned pointers)
+// the per-site path gathers bytes, as ov_bonds'.
+template <int ND, int kKind, bool kWolff, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-ov_finish_kernel(int8_t* spins, const int32_t* __restrict__ sid,
+ov_finish_kernel(int8_t* __restrict__ spins, const int32_t* __restrict__ sid,
                  const int32_t* __restrict__ tasks, const int32_t* __restrict__ scal,
-                 const uint8_t* __restrict__ state, int32_t* parent,
-                 const int32_t* __restrict__ seeds, const uint8_t* __restrict__ state2,
-                 int32_t* parent2, int32_t* __restrict__ labels, int L0, int L1,
-                 int L2, int n_temps, int n_pairs, int n_slots, int kind, int wolff,
-                 int observe) {
-  const Dims g = make_dims(L0, L1, L2);
-  const int n = L0 * L1 * L2;
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const size_t base = static_cast<size_t>(b) * n;
-  if (observe) {
-    labels[base + i] = find_root(parent + base, i);
-    return;
-  }
-  const Task k = task_of(spins, sid, tasks, b, n, n_temps, n_pairs, n_slots);
-  const int seed = seeds[b];
-  const int* sc = scal + 6 * b;
-  int ai = k.a[i];
-  int bi = k.b[i];
-  bool fa;
-  bool fb;
-  int root;
-  if (kind == kJorg) {
-    int32_t* P = parent + base;
-    root = find_root(P, i);
-    bool fl;
-    if (wolff)
-      fl = seed < n && root == find_root(P, seed);
-    else
-      fl = salted_uniform(static_cast<uint32_t>(root), static_cast<uint32_t>(sc[0]),
-                          static_cast<uint32_t>(sc[1])) < 0.5f &&
-           nonsingleton(state + base, i, g);
-    fa = fl;
-    fb = fl;
-  } else {
-    if (state2[base + i] & 0x80u) {
-      ai = -ai;
-      bi = -bi;
+                 const int32_t* __restrict__ seeds, const uint8_t* __restrict__ state,
+                 const int32_t* __restrict__ parent, const OvWalk g) {
+  __shared__ OvTasks sh;
+  if (threadIdx.x < g.per) {
+    const int k = threadIdx.x;
+    const int b = task_rows(sh, g, sid, tasks, k);
+    const int32_t* sc = scal + 6 * b;
+    sh.s0[k] = static_cast<uint32_t>(sc[kKind == kJorg ? 0 : 2]);
+    sh.s1[k] = static_cast<uint32_t>(sc[kKind == kJorg ? 1 : 3]);
+    sh.k[k] = sc[5];
+    if (kWolff) {
+      const int seed = seeds[b];
+      sh.root[k] = seed < g.n ? __ldg(parent + static_cast<size_t>(b) * g.n + seed) : -1;
     }
-    int32_t* P = parent2 + base;
-    root = find_root(P, i);
-    int kq;
-    bool in;
-    if (wolff) {
-      in = root == find_root(P, seed);
-      kq = sc[5];
-    } else {
-      in = nonsingleton(state2 + base, i, g);
-      kq = static_cast<int>(salted_uniform(static_cast<uint32_t>(root),
-                                           static_cast<uint32_t>(sc[2]),
-                                           static_cast<uint32_t>(sc[3])) *
-                            4.0f);
-    }
-    fa = in && (kq & 1);
-    fb = in && (kq & 2);
   }
-  if (labels != nullptr) labels[base + i] = root;
-  k.a[i] = static_cast<int8_t>(fa ? -ai : ai);
-  k.b[i] = static_cast<int8_t>(fb ? -bi : bi);
+  __syncthreads();
+  const int b0 = blockIdx.z * g.T * g.G + blockIdx.x * g.per;
+  const int n_grp = (g.n + 3) >> 2;
+  for (int grp = blockIdx.y * kThreads + threadIdx.x; grp < n_grp;
+       grp += gridDim.y * kThreads) {
+    const Group<ND, kVec> x = group_at<ND, kVec>(g, grp);
+    for (int k = 0; k < g.per; ++k) {
+      const size_t base = static_cast<size_t>(b0 + k) * g.n;
+      const uint8_t* S = state + base;
+      int lab[4];
+      const uint32_t st = load_roots<ND, kVec>(S, parent + base, x, lab);
+      uint32_t fa, fb;  // bit 0 of byte q: site q flips in a, in b
+      if (kWolff) {
+        const uint32_t in = same_root(lab, sh.root[k]);
+        fa = kKind == kJorg || (sh.k[k] & 1) ? in : 0u;
+        fb = kKind == kJorg || (sh.k[k] & 2) ? in : 0u;
+      } else {
+        uint32_t ka = 0, kb = 0;  // the coin's flips of a and b
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (q >= x.cnt) break;
+          const float u = salted_uniform(static_cast<uint32_t>(lab[q]), sh.s0[k], sh.s1[k]);
+          const int kq = kKind == kJorg ? (u < 0.5f ? 3 : 0) : static_cast<int>(u * 4.0f);
+          ka |= static_cast<uint32_t>(kq & 1) << (8 * q);
+          kb |= static_cast<uint32_t>((kq >> 1) & 1) << (8 * q);
+        }
+        const uint32_t in = nonsingleton_words<ND, kVec>(S, st, lab, ka | kb, x, g);
+        fa = ka & in;
+        fb = kb & in;
+      }
+      if (kKind == kCmr) {
+        const uint32_t blue = (st >> 7) & kLow;
+        fa ^= blue;
+        fb ^= blue;
+      }
+      int8_t* A = spins + sh.ra[k];
+      int8_t* B = spins + sh.rb[k];
+      if (kVec) {
+        uint32_t* aw = reinterpret_cast<uint32_t*>(A) + grp;
+        uint32_t* bw = reinterpret_cast<uint32_t*>(B) + grp;
+        if (fa) *aw ^= fa * 0xFEu;
+        if (fb) *bw ^= fb * 0xFEu;
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          if (q >= x.cnt) break;
+          A[x.i0 + q] ^= static_cast<int8_t>(((fa >> (8 * q)) & 1u) * 0xFEu);
+          B[x.i0 + q] ^= static_cast<int8_t>(((fb >> (8 * q)) & 1u) * 0xFEu);
+        }
+      }
+    }
+  }
 }
 
 // The spins of member r of task b (d, t): the system at slot tasks[b g + r]
@@ -778,61 +848,124 @@ __device__ __forceinline__ int8_t* member(int8_t* spins, const int32_t* sd,
   return spins + (row + sd[tk[r] * n_temps + t]) * n;
 }
 
-__device__ __forceinline__ bool balanced(int8_t* spins, const int32_t* sd,
-                                         const int32_t* tk, int g_size, int t, int i,
-                                         int n, int n_temps, size_t row) {
-  int sum = 0;
-  for (int r = 0; r < g_size; ++r)
-    sum += member(spins, sd, tk, r, t, n, n_temps, row)[i];
-  return sum == 0;
+// Bit 0 of byte q of act[0] where site i0 + q of the group is balanced
+// (its g members' spins sum to 0: g / 2 of them are -1, whose bytes have
+// bit 7 set), of act[1 + d] where its forward neighbour along d is.  Each
+// member's words (load_words) add their sign bits into per-byte counts,
+// compared with g / 2 by __vcmpeq4: no byte overflows while g <= 254; a
+// larger g counts in 16-bit lanes (bytes 0 and 2, then 1 and 3).  rows:
+// the task's g member slots of realization z (row0 = z S).
+template <int ND, bool kVec>
+__device__ __forceinline__ void balanced_words(const int8_t* __restrict__ spins, long long row0,
+                                               const uint16_t* rows, int gs,
+                                               const Group<ND, kVec>& x, const OvWalk& g,
+                                               uint32_t (&act)[ND + 1]) {
+  if (gs <= 254) {
+    uint32_t c[ND + 1] = {};
+    for (int r = 0; r < gs; ++r) {
+      const Words<ND> m = load_words<ND, kVec>(spins + (row0 + rows[r]) * g.n, x, g);
+      c[0] += (m.w >> 7) & kLow;
+#pragma unroll
+      for (int d = 0; d < ND; ++d) c[1 + d] += (m.f[d] >> 7) & kLow;
+    }
+    const uint32_t h = static_cast<uint32_t>(gs >> 1) * kLow;
+#pragma unroll
+    for (int j = 0; j <= ND; ++j) act[j] = __vcmpeq4(c[j], h) & kLow;
+  } else {
+    constexpr uint32_t kLow2 = 0x00010001u;
+    uint32_t lo[ND + 1] = {}, hi[ND + 1] = {};
+    for (int r = 0; r < gs; ++r) {
+      const Words<ND> m = load_words<ND, kVec>(spins + (row0 + rows[r]) * g.n, x, g);
+      lo[0] += (m.w >> 7) & kLow2;
+      hi[0] += (m.w >> 15) & kLow2;
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {
+        lo[1 + d] += (m.f[d] >> 7) & kLow2;
+        hi[1 + d] += (m.f[d] >> 15) & kLow2;
+      }
+    }
+    const uint32_t h = static_cast<uint32_t>(gs >> 1) * kLow2;
+#pragma unroll
+    for (int j = 0; j <= ND; ++j)
+      act[j] = (__vcmpeq2(lo[j], h) & kLow2) | ((__vcmpeq2(hi[j], h) & kLow2) << 8);
+  }
 }
 
+// Houdayer(N)'s bonds (the first design: a thread four sites of one task,
+// each site's 1 + nd balance tests a chain of tasks -> sid -> spin loads
+// per member, fwd_site's two runtime divisions a neighbour, a dead parent
+// written a site).  ov_bonds' walk (blockIdx.z the realization, x its set
+// of `per` consecutive tasks of G groups, y the groups' block, strided):
+// the CTA stages each task's g member slots in dynamic shared memory once
+// (per g entries, t = w / G by multiply-shift), and a thread takes the
+// group of four sites 4 grp .. 4 grp + 3 of each task: balanced_words over
+// the members' 4-byte words and division-free neighbour words, bond d =
+// act & act_f[d], the state bytes one 4-byte store; no parent (fk_link
+// writes every parent).  The Wolff seed: the first warp of the groups'
+// first block takes each task in turn, lane l testing probes l and 32 + l
+// over the staged rows, two ballots choosing the first balanced probe in
+// probe order (n when none is, and for SW).  Where !kVec each site's
+// neighbours come from its coordinates and the words are gathered a byte
+// at a time.
+template <int ND, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-houdn_bonds_kernel(int8_t* spins, const int32_t* __restrict__ sid,
+houdn_bonds_kernel(const int8_t* __restrict__ spins, const int32_t* __restrict__ sid,
                    const int32_t* __restrict__ tasks, const int32_t* __restrict__ probes,
-                   uint8_t* __restrict__ state, int32_t* __restrict__ parent,
-                   int32_t* __restrict__ seeds, int L0, int L1, int L2, int n_temps,
-                   int n_groups, int n_slots, int g_size, int wolff) {
-  const Dims g = make_dims(L0, L1, L2);
-  const int n = L0 * L1 * L2;
-  const int b = blockIdx.y;
-  const int d = b / (n_temps * n_groups);
-  const int t = (b / n_groups) % n_temps;
-  const size_t row = static_cast<size_t>(d) * n_slots;
-  const int32_t* sd = sid + row;
-  const int32_t* tk = tasks + static_cast<size_t>(b) * g_size;
-  if (blockIdx.x == 0 && threadIdx.x < 32) {
-    // the first warp tests the 64 probes at once, lane l probes l and
-    // 32 + l; the seed is the first active one in probe order
-    int seed = n;  // none
-    if (wolff) {
-      const int32_t* pr = probes + kProbes * b;
-      const int l = threadIdx.x;
-      const unsigned lo = __ballot_sync(
-          0xffffffffu, balanced(spins, sd, tk, g_size, t, pr[l], n, n_temps, row));
-      const unsigned hi = __ballot_sync(
-          0xffffffffu, balanced(spins, sd, tk, g_size, t, pr[32 + l], n, n_temps, row));
-      if (lo != 0u)
-        seed = pr[__ffs(lo) - 1];
-      else if (hi != 0u)
-        seed = pr[32 + __ffs(hi) - 1];
-    }
-    if (threadIdx.x == 0) seeds[b] = seed;
+                   uint8_t* __restrict__ state, int32_t* __restrict__ seeds, const OvWalk g,
+                   int gs, int wolff) {
+  extern __shared__ uint16_t houdn_rows[];
+  const int b0 = blockIdx.z * g.T * g.G + blockIdx.x * g.per;
+  const long long row0 = static_cast<long long>(blockIdx.z) * g.S;
+  for (int k = 0; k < g.per; ++k) {
+    const int t = fast_div(blockIdx.x * g.per + k, g.m[2], g.s[2]);
+    const int32_t* tk = tasks + static_cast<size_t>(b0 + k) * gs;
+    for (int r = threadIdx.x; r < gs; r += kThreads)
+      houdn_rows[k * gs + r] = static_cast<uint16_t>(__ldg(sid + row0 + __ldg(tk + r) * g.T + t));
   }
-  const int gi = blockIdx.x * blockDim.x + threadIdx.x;
-  const size_t base = static_cast<size_t>(b) * n;
-#pragma unroll
-  for (int q = 0; q < kSitesPerThread; ++q) {
-    const int i = kSitesPerThread * gi + q;
-    if (i >= n) break;
-    uint8_t st = 0;
-    if (balanced(spins, sd, tk, g_size, t, i, n, n_temps, row)) {
-      for (int dir = 0; dir < g.nd; ++dir)
-        if (balanced(spins, sd, tk, g_size, t, fwd_site(i, g, dir), n, n_temps, row))
-          st |= 1u << dir;
+  __syncthreads();
+  if (blockIdx.y == 0) {
+    if (wolff) {
+      if (threadIdx.x < 32) {
+        const int l = threadIdx.x;
+        for (int k = 0; k < g.per; ++k) {
+          const int32_t* pr = probes + kProbes * (b0 + k);
+          const int p0 = __ldg(pr + l);
+          const int p1 = __ldg(pr + 32 + l);
+          int s0 = 0, s1 = 0;
+          for (int r = 0; r < gs; ++r) {
+            const int8_t* m = spins + (row0 + houdn_rows[k * gs + r]) * g.n;
+            s0 += __ldg(m + p0);
+            s1 += __ldg(m + p1);
+          }
+          const unsigned lo = __ballot_sync(0xffffffffu, s0 == 0);
+          const unsigned hi = __ballot_sync(0xffffffffu, s1 == 0);
+          if (l == 0)
+            seeds[b0 + k] = lo ? pr[__ffs(lo) - 1] : hi ? pr[32 + __ffs(hi) - 1] : g.n;
+        }
+      }
+    } else if (threadIdx.x < g.per) {
+      seeds[b0 + threadIdx.x] = g.n;
     }
-    state[base + i] = st;
-    parent[base + i] = i;
+  }
+  const int n_grp = (g.n + 3) >> 2;
+  for (int grp = blockIdx.y * kThreads + threadIdx.x; grp < n_grp;
+       grp += gridDim.y * kThreads) {
+    const Group<ND, kVec> x = group_at<ND, kVec>(g, grp);
+    for (int k = 0; k < g.per; ++k) {
+      uint32_t act[ND + 1];
+      balanced_words<ND, kVec>(spins, row0, houdn_rows + k * gs, gs, x, g, act);
+      uint32_t st = 0;
+#pragma unroll
+      for (int d = 0; d < ND; ++d) st |= (act[0] & act[1 + d]) << d;
+      uint8_t* out = state + static_cast<size_t>(b0 + k) * g.n;
+      if (kVec) {
+        reinterpret_cast<uint32_t*>(out)[grp] = st;
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (q < x.cnt) out[x.i0 + q] = static_cast<uint8_t>(st >> (8 * q));
+      }
+    }
   }
 }
 
@@ -1074,14 +1207,12 @@ energy_partials_kernel(const int8_t* __restrict__ spins, const float* __restrict
   }
 }
 
-inline dim3 site_grid(int n, int per_thread, int rows) {
-  const int groups = (n + per_thread - 1) / per_thread;
-  return dim3((groups + kThreads - 1) / kThreads, rows);
-}
+// houdn_finish's launch: a thread a site, y the task.
+inline dim3 site_grid(int n, int rows) { return dim3((n + kThreads - 1) / kThreads, rows); }
 
-// ov_bonds' and ov_mid's launch: x the realization's task sets, y the
-// groups' blocks (at most 65535, a thread striding over the rest), z the
-// realization.
+// The overlap moves' launch (ov_bonds, ov_mid, ov_finish, houdn_bonds):
+// x the realization's task sets, y the groups' blocks (at most 65535, a
+// thread striding over the rest), z the realization.
 inline dim3 ov_grid(const OvWalk& g) {
   const int blocks = ((g.n + 3) / 4 + kThreads - 1) / kThreads;
   return dim3(g.T * g.G / g.per, blocks < 65535 ? blocks : 65535, g.d);
@@ -1143,20 +1274,19 @@ int peapods_ov_bonds(const void* spins, const void* sid, const void* tasks,
 }
 
 // state: ov_bonds' state bytes; parent: fk_link's parents of its graph
-// (each its root); state2 uint8 [n_tasks, n] out; blue_labels: int32
-// [n_tasks, n] or null.  The Wolff seed is scal's (CMR's drawn one).
+// (each its root; the caller's blue labels where it asks for them); state2
+// uint8 [n_tasks, n] out.  The Wolff seed is scal's (CMR's drawn one).
 int peapods_ov_mid(const void* spins, const void* sid, const void* tasks, const void* coup,
                    const void* temps, const void* scal, const void* keys, const void* state,
-                   const void* parent, void* state2, void* blue_labels, const int* words,
-                   int wolff, void* stream) {
+                   const void* parent, void* state2, const int* words, int wolff,
+                   void* stream) {
   const OvWalk g = make_ov_walk(words);
   if (!ov_walk_ok(g)) return static_cast<int>(cudaErrorInvalidValue);
   const bool vec = g.lf % 4 == 0 && aligned(spins, 4) && aligned(state, 4) &&
-                   aligned(coup, 16) && aligned(parent, 16) && aligned(state2, 4) &&
-                   aligned(blue_labels, 16);
+                   aligned(coup, 16) && aligned(parent, 16) && aligned(state2, 4);
   using Kernel = void (*)(const int8_t*, const int32_t*, const int32_t*, const float*,
                           const float*, const int32_t*, const int32_t*, const uint8_t*,
-                          const int32_t*, uint8_t*, int32_t*, const OvWalk);
+                          const int32_t*, uint8_t*, const OvWalk);
   Kernel kernel;
   if (g.nd == 3)
     kernel = wolff ? (vec ? ov_mid_kernel<3, true, true> : ov_mid_kernel<3, true, false>)
@@ -1169,58 +1299,82 @@ int peapods_ov_mid(const void* spins, const void* sid, const void* tasks, const 
       static_cast<const int32_t*>(tasks), static_cast<const float*>(coup),
       static_cast<const float*>(temps), static_cast<const int32_t*>(scal),
       static_cast<const int32_t*>(keys), static_cast<const uint8_t*>(state),
-      static_cast<const int32_t*>(parent), static_cast<uint8_t*>(state2),
-      static_cast<int32_t*>(blue_labels), g);
+      static_cast<const int32_t*>(parent), static_cast<uint8_t*>(state2), g);
   return static_cast<int>(cudaGetLastError());
 }
 
-// labels: int32 [n_tasks, n] or null (the grey labels for CMR); observe:
-// write the labels of ov_bonds' graph (required then) and no spin.
-int peapods_ov_finish(void* spins, const void* sid, const void* tasks,
-                      const void* scal, const void* state, void* parent,
-                      const void* seeds, const void* state2, void* parent2,
-                      void* labels, int n_tasks, int L0, int L1, int L2, int n_temps,
-                      int n_pairs, int n_slots, int kind, int wolff, int observe,
-                      void* stream) {
-  if ((observe && labels == nullptr) || (kind != kJorg && kind != kCmr))
+// The flips of a Joerg (kind 1) or CMR (kind 2) move: seeds int32
+// [n_tasks] (ov_bonds'); state / parent: Joerg's state bytes and fk_link's
+// flat parents of their graph, or CMR's state2 bytes and the grey graph's
+// flat parents (the caller's labels where it asks for them).
+int peapods_ov_finish(void* spins, const void* sid, const void* tasks, const void* scal,
+                      const void* seeds, const void* state, const void* parent,
+                      const int* words, int kind, int wolff, void* stream) {
+  const OvWalk g = make_ov_walk(words);
+  if ((kind != kJorg && kind != kCmr) || !ov_walk_ok(g))
     return static_cast<int>(cudaErrorInvalidValue);
-  ov_finish_kernel<<<site_grid(L0 * L1 * L2, 1, n_tasks), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
+  const bool vec = g.lf % 4 == 0 && aligned(spins, 4) && aligned(state, 4) &&
+                   aligned(parent, 16);
+  using Kernel = void (*)(int8_t*, const int32_t*, const int32_t*, const int32_t*,
+                          const int32_t*, const uint8_t*, const int32_t*, const OvWalk);
+  // [nd == 3][kind == CMR][wolff][vec]
+  static const Kernel kernels[2][2][2][2] = {
+      {{{ov_finish_kernel<2, kJorg, false, false>, ov_finish_kernel<2, kJorg, false, true>},
+        {ov_finish_kernel<2, kJorg, true, false>, ov_finish_kernel<2, kJorg, true, true>}},
+       {{ov_finish_kernel<2, kCmr, false, false>, ov_finish_kernel<2, kCmr, false, true>},
+        {ov_finish_kernel<2, kCmr, true, false>, ov_finish_kernel<2, kCmr, true, true>}}},
+      {{{ov_finish_kernel<3, kJorg, false, false>, ov_finish_kernel<3, kJorg, false, true>},
+        {ov_finish_kernel<3, kJorg, true, false>, ov_finish_kernel<3, kJorg, true, true>}},
+       {{ov_finish_kernel<3, kCmr, false, false>, ov_finish_kernel<3, kCmr, false, true>},
+        {ov_finish_kernel<3, kCmr, true, false>, ov_finish_kernel<3, kCmr, true, true>}}}};
+  const Kernel kernel = kernels[g.nd == 3][kind == kCmr][wolff != 0][vec];
+  kernel<<<ov_grid(g), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int8_t*>(spins), static_cast<const int32_t*>(sid),
       static_cast<const int32_t*>(tasks), static_cast<const int32_t*>(scal),
-      static_cast<const uint8_t*>(state), static_cast<int32_t*>(parent),
-      static_cast<const int32_t*>(seeds), static_cast<const uint8_t*>(state2),
-      static_cast<int32_t*>(parent2), static_cast<int32_t*>(labels), L0, L1, L2,
-      n_temps, n_pairs, n_slots, kind, wolff, observe);
+      static_cast<const int32_t*>(seeds), static_cast<const uint8_t*>(state),
+      static_cast<const int32_t*>(parent), g);
   return static_cast<int>(cudaGetLastError());
 }
 
 // Houdayer(N), g_size even (2: the pair move): tasks int32 [d, n_temps,
 // n_groups, g_size] (replica indices), probes int32 [n_tasks, 64], scal
-// int32 [n_tasks, 6] (s0, s1 the SW salts); scratch as for the pair moves;
-// labels int32 [n_tasks, n] or null; observe: write the labels (required
-// then) and no spin.
-int peapods_houdn_bonds(void* spins, const void* sid, const void* tasks,
-                        const void* probes, void* state, void* parent, void* seeds,
-                        int n_tasks, int L0, int L1, int L2, int n_temps, int n_groups,
-                        int n_slots, int g_size, int wolff, void* stream) {
-  houdn_bonds_kernel<<<site_grid(L0 * L1 * L2, kSitesPerThread, n_tasks), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int8_t*>(spins), static_cast<const int32_t*>(sid),
+// int32 [n_tasks, 6] (s0, s1 the SW salts); scratch as for the pair moves.
+// houdn_bonds writes the state bytes and the seeds, no parent (words:
+// ops/overlap.py ov_words with G = n_groups; a CTA's per g_size member
+// slots, each below S <= 65536, staged as 2-byte entries).
+int peapods_houdn_bonds(const void* spins, const void* sid, const void* tasks,
+                        const void* probes, void* state, void* seeds, const int* words,
+                        int g_size, int wolff, void* stream) {
+  const OvWalk g = make_ov_walk(words);
+  const size_t smem = static_cast<size_t>(g.per) * g_size * sizeof(uint16_t);
+  if (!ov_walk_ok(g) || g_size < 2 || g_size % 2 || g.S > 65536 || smem > 232448)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = g.lf % 4 == 0 && aligned(spins, 4) && aligned(state, 4);
+  using Kernel = void (*)(const int8_t*, const int32_t*, const int32_t*, const int32_t*,
+                          uint8_t*, int32_t*, const OvWalk, int, int);
+  const Kernel kernel = g.nd == 3 ? (vec ? houdn_bonds_kernel<3, true> : houdn_bonds_kernel<3, false>)
+                                  : (vec ? houdn_bonds_kernel<2, true> : houdn_bonds_kernel<2, false>);
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<ov_grid(g), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(spins), static_cast<const int32_t*>(sid),
       static_cast<const int32_t*>(tasks), static_cast<const int32_t*>(probes),
-      static_cast<uint8_t*>(state), static_cast<int32_t*>(parent),
-      static_cast<int32_t*>(seeds), L0, L1, L2, n_temps, n_groups, n_slots, g_size,
-      wolff);
+      static_cast<uint8_t*>(state), static_cast<int32_t*>(seeds), g, g_size, wolff);
   return static_cast<int>(cudaGetLastError());
 }
 
+// labels: int32 [n_tasks, n] or null; observe: write the labels (required
+// then) and no spin.
 int peapods_houdn_finish(void* spins, const void* sid, const void* tasks,
                          const void* scal, const void* state, void* parent,
                          const void* seeds, void* labels, int n_tasks, int L0, int L1,
                          int L2, int n_temps, int n_groups, int n_slots, int g_size,
                          int wolff, int observe, void* stream) {
   if (observe && labels == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  houdn_finish_kernel<<<site_grid(L0 * L1 * L2, 1, n_tasks), kThreads, 0,
+  houdn_finish_kernel<<<site_grid(L0 * L1 * L2, n_tasks), kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<int8_t*>(spins), static_cast<const int32_t*>(sid),
       static_cast<const int32_t*>(tasks), static_cast<const int32_t*>(scal),

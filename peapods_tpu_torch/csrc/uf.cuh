@@ -41,7 +41,8 @@ __host__ __device__ inline Dims make_dims(int L0, int L1, int L2, bool tri = fal
   return g;
 }
 
-// One step forward / backward along axis a, periodic.
+// One step forward / backward along axis a, periodic (houdn_finish's
+// nonsingleton, through bwd_site).
 __device__ __forceinline__ int step_fwd(int i, const Dims& g, int a) {
   const int s = g.stride[a];
   const int L = g.n[a];
@@ -52,11 +53,6 @@ __device__ __forceinline__ int step_bwd(int i, const Dims& g, int a) {
   const int s = g.stride[a];
   const int L = g.n[a];
   return (i / s) % L == 0 ? i + (L - 1) * s : i - s;
-}
-
-__device__ __forceinline__ int fwd_site(int i, const Dims& g, int dir) {
-  if (g.tri && dir == 2) return step_bwd(step_fwd(i, g, 0), g, 1);  // (i+1, j-1)
-  return step_fwd(i, g, dir);
 }
 
 __device__ __forceinline__ int bwd_site(int i, const Dims& g, int dir) {

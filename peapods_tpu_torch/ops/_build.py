@@ -63,9 +63,9 @@ _SIGNATURES = {
     "peapods_pair_overlap": [_P] * 4 + [_I] * 2 + [_P] * 2,
     "peapods_site_blocks": [_I],
     "peapods_ov_bonds": [_P] * 11 + [_I] * 2 + [_P],
-    "peapods_ov_mid": [_P] * 12 + [_I] + [_P],
-    "peapods_ov_finish": [_P] * 10 + [_I] * 10 + [_P],
-    "peapods_houdn_bonds": [_P] * 7 + [_I] * 9 + [_P],
+    "peapods_ov_mid": [_P] * 11 + [_I] + [_P],
+    "peapods_ov_finish": [_P] * 8 + [_I] * 2 + [_P],
+    "peapods_houdn_bonds": [_P] * 7 + [_I] * 2 + [_P],
     "peapods_houdn_finish": [_P] * 8 + [_I] * 10 + [_P],
     "peapods_energy_partials": [_P] * 6,
     "peapods_nb_blocks": [_I],

@@ -72,6 +72,8 @@ __all__ = [
     "overlap_event_plain",
     "houdayer_plain",
     "houdn_plain",
+    "houdn_states_plain",
+    "finish_plain",
     "jorg_plain",
     "cmr_plain",
     "energy_partials",
@@ -137,10 +139,17 @@ def _cluster_flip(labels, bonds, scal, probes, active, shape, *, wolff):
         & nonsingleton_mask(bonds, shape)
 
 
-def _houdn(x, scal, probes, shape, *, wolff):
+def _houdn_bonds(x, shape):
+    """``(active, bonds)`` of Houdayer(N) tasks ``x`` int8 ``[B, g, n]``:
+    the sites whose ``g`` spins sum to 0 and the bonds between two active
+    neighbours, bool ``[B, n]`` and ``[B, n, n_dims]``."""
     active = x.to(torch.int32).sum(1) == 0
-    bonds = torch.stack([active & _fwd(active, shape, d)
-                         for d in range(len(shape))], dim=-1)
+    return active, torch.stack([active & _fwd(active, shape, d)
+                                for d in range(len(shape))], dim=-1)
+
+
+def _houdn(x, scal, probes, shape, *, wolff):
+    active, bonds = _houdn_bonds(x, shape)
     labels = connected_components(bonds, shape)
     flip = _cluster_flip(labels, bonds, scal, probes, active, shape, wolff=wolff)
     return _flip(x, flip[:, None]), labels, bonds
@@ -262,7 +271,56 @@ def bond_states_plain(spins, sid, tasks, coup, temps, scal, probes, words, *, ki
     *_, blue, grey, flip = _cmr(a, b, jt, scal, shape, wolff=wolff, u_blue=u,
                                 u_red=rng.bond_uniforms(words, n, nd, nd))
     state2 = _state_bytes(grey) | (flip.to(torch.uint8) << 7)
-    return _state_bytes(blue), state2, scal[:, 4].to(torch.int32)
+    return _state_bytes(blue), state2, scal[:, 4].to(torch.int32).contiguous()
+
+
+def houdn_states_plain(spins, sid, tasks, probes, *, wolff, shape):
+    """Plain version of ``houdn_bonds``: ``(state, seeds)``, the state bytes
+    uint8 ``[B, n]`` (bit ``d``: bond ``d`` between two balanced sites,
+    whose group's ``g`` spins sum to 0) and the seeds int32 ``[B]`` (Wolff:
+    the first balanced probe, ``n`` when none is, and for SW)."""
+    _, *slots = gather_tasks(spins, sid, tasks, tasks.shape[1])
+    active, bonds = _houdn_bonds(torch.stack(slots, 1), shape)
+    n = spins.shape[-1]
+    seeds = (find_seed(probes, active) if wolff
+             else torch.full((active.shape[0],), n, device=spins.device))
+    return _state_bytes(bonds), seeds.to(torch.int32)
+
+
+def finish_plain(spins, sid, tasks, scal, seeds, state, parent, *, kind, wolff, shape):
+    """Plain version of ``ov_finish`` and ``houdn_finish``: every task's
+    flips, in place in ``spins``, from the kernels' own inputs.  ``state``
+    uint8 ``[B, n]`` and ``parent`` int32 ``[B, n]`` (flat: each site's root)
+    are the move's last graph: Houdayer's or Joerg's bonds, or CMR's state2
+    bytes (bit 7: the blue flip) and grey parents; ``seeds`` int32 ``[B]``
+    the first kernel's (``n``: no Wolff flip).  Wolff flips the seed's
+    component, SW each non-singleton whose ``salted_uniform(root, s0, s1)
+    < 1/2`` (Houdayer, Joerg: in every member) or whose ``k =
+    floor(4 salted_uniform(root, s2, s3))`` is not 0 (CMR, after the blue
+    flip: ``a`` where ``k & 1``, ``b`` where ``k & 2``; Wolff: the task's
+    ``k``).  Returns the labels (the parents)."""
+    n_temps = tasks.shape[1]
+    n = spins.shape[-1]
+    sys, *slots = gather_tasks(spins, sid, tasks, n_temps)
+    lab = parent.to(torch.int64)
+    if wolff:
+        sd = seeds.to(torch.int64)
+        inside = (lab == lab.gather(-1, sd.clamp(max=n - 1)[:, None])) & (sd < n)[:, None]
+    else:
+        inside = nonsingleton_mask(fk.state_masks(state, len(shape)), shape)
+    if kind == "cmr":
+        k = (scal[:, 5:6] if wolff
+             else (salted_uniform(lab, scal[:, 2:3], scal[:, 3:4]) * 4.0).to(torch.int32))
+        blue = (state >> 7).to(torch.bool)
+        flips = [blue ^ (inside & ((k & 1) != 0)), blue ^ (inside & ((k & 2) != 0))]
+    else:
+        if not wolff:
+            inside = inside & (salted_uniform(lab, scal[:, 0:1], scal[:, 1:2]) < 0.5)
+        flips = [inside] * len(slots)
+    di = torch.arange(spins.shape[0], device=spins.device)[:, None, None]
+    for r, x in enumerate(slots):
+        spins[di, sys[..., r]] = _flip(x, flips[r]).reshape(sys.shape[:3] + (n,))
+    return parent
 
 
 def task_jt(coup, temps, n_groups: int):
@@ -374,25 +432,32 @@ class Scratch:
                 (self.state, self.parent, self.seeds, self.state2, self.parent2)]
 
 
-# ov_bonds and ov_mid (csrc/overlap.cu): a thread takes a group of four
-# sites of `per` consecutive tasks of one realization, reading the group's
-# couplings once and taking J / T once a temperature for them
+# the overlap moves' kernels (csrc/overlap.cu ov_bonds, ov_mid, ov_finish,
+# houdn_bonds): a thread takes a group of four sites of `per` consecutive
+# tasks of one realization, reading the group's couplings once and taking
+# J / T once a temperature for them
 OV_MAX_PER = 8
+# houdn_bonds stages a CTA's per g member slots (2 bytes each) in shared
+# memory: the rule keeps them within the 48 KB a launch takes without
+# opting in (one task of g > HOUDN_ROWS members opts in to more)
+HOUDN_ROWS = 24576
 
 
 @functools.lru_cache(maxsize=None)
-def ov_per(n_sites: int, n_disorder: int, n_temps: int, n_pairs: int, threads: int) -> int:
-    """The tasks a thread of ``ov_bonds`` / ``ov_mid`` takes in turn: the
+def ov_per(n_sites: int, n_disorder: int, n_temps: int, n_pairs: int, threads: int,
+           most: int = OV_MAX_PER) -> int:
+    """The tasks a thread of the overlap moves' kernels takes in turn: the
     largest divisor of a realization's ``n_temps * n_pairs`` tasks up to
-    :data:`OV_MAX_PER` that is a multiple or a divisor of ``n_pairs`` (so a
-    thread's tasks of one temperature sit side by side) and whose launch
-    still has ``threads`` threads (its callers: a quarter of the card's
-    resident threads, :func:`~.fk.resident_threads`; tools/probe_overlap.py,
-    NVIDIA H100 80GB HBM3, config 5: 0.0149 ms an ``ov_bonds`` launch with
-    2 tasks a thread, 0.0144 with 4, 0.0147 with 6); 1 where none has."""
+    ``most`` (:data:`OV_MAX_PER`; ``houdn_bonds``: ``HOUDN_ROWS // g``) that
+    is a multiple or a divisor of ``n_pairs`` (so a thread's tasks of one
+    temperature sit side by side) and whose launch still has ``threads``
+    threads (its callers: a quarter of the card's resident threads,
+    :func:`~.fk.resident_threads`; tools/probe_overlap.py, NVIDIA H100 80GB
+    HBM3, config 5: 0.0149 ms an ``ov_bonds`` launch with 2 tasks a thread,
+    0.0144 with 4, 0.0147 with 6); 1 where none has."""
     groups = -(-int(n_sites) // 4) * int(n_disorder)
     tg = int(n_temps) * int(n_pairs)
-    fits = [p for p in range(1, min(tg, OV_MAX_PER) + 1)
+    fits = [p for p in range(1, min(tg, OV_MAX_PER, most) + 1)
             if tg % p == 0 and (p % n_pairs == 0 or n_pairs % p == 0)
             and groups * (tg // p) >= threads]
     return max(fits, default=1)
@@ -400,13 +465,14 @@ def ov_per(n_sites: int, n_disorder: int, n_temps: int, n_pairs: int, threads: i
 
 @functools.lru_cache(maxsize=None)
 def ov_words(shape, n_disorder: int, n_temps: int, n_pairs: int, n_slots: int, per: int):
-    """int32 host words of ``ov_bonds`` and ``ov_mid`` (``csrc/overlap.cu``
+    """int32 host words of the overlap moves' kernels (``csrc/overlap.cu``
     ``OvWalk``): ``n, nd, lf, lb, la, T, G, S, per, d``, then
     :func:`~.lattice.fast_divisor` ``(m, s)`` of ``lf``, ``lb`` and ``G``.
     The fast axis (the last, extent ``lf``) runs in lines over an inner slow
     axis of extent ``lb`` (2D: ``L0``; 3D: ``L1``) and in 3D an outer one of
-    extent ``la = L0`` (1 in 2D); ``G`` pairs and ``T`` temperatures a
-    realization, ``S`` slots, ``per`` tasks a thread (:func:`ov_per`)."""
+    extent ``la = L0`` (1 in 2D); ``G`` groups (pairs but for Houdayer(N))
+    and ``T`` temperatures a realization, ``S`` slots, ``per`` tasks a
+    thread (:func:`ov_per`)."""
     shape = tuple(int(x) for x in shape)
     nd = len(shape)
     lf, lb, la = shape[-1], shape[-2], shape[0] if nd == 3 else 1
@@ -420,49 +486,68 @@ def launch_event(lib, stream, dims, p_spins, p_sid, p_tasks, p_coup, p_temps,
                  p_labels=None, p_blue=None, observe=False, per=0):
     """Launch one move's kernels on raw pointers: ``dims`` is ``(n_tasks,
     L0, L1, L2, T, G, S)``; ``scratch`` the :meth:`Scratch.ptrs`; ``group``
-    the replicas of a task.  Houdayer, on groups of any even size, takes the
-    ``houdn_*`` kernels; Joerg and CMR the ``ov_*`` ones (``per``: the tasks
-    a thread of ``ov_bonds`` / ``ov_mid`` takes, default :func:`ov_per`'s).
-    The observe form writes the stats graph's labels into ``p_labels`` (CMR:
-    ``p_blue``) and no spin."""
+    the replicas of a task; ``per`` the tasks a thread of ``houdn_bonds``
+    and the ``ov_*`` kernels takes (default :func:`ov_per`'s).  Houdayer,
+    on groups of any even size, takes ``houdn_bonds``, ``fk_link`` and
+    ``houdn_finish`` (which copies the labels into ``p_labels``); Joerg
+    ``ov_bonds``, ``fk_link``, ``ov_finish``; CMR ``ov_bonds``, ``fk_link``
+    (blue), ``ov_mid``, ``fk_link`` (grey), ``ov_finish``.  The Joerg and
+    CMR labellings write straight into the caller's buffers, which the
+    next kernel reads as its flat parents: Joerg's graph and CMR's grey one
+    into ``p_labels``, CMR's blue one into ``p_blue`` (the scratch parents
+    where a buffer is ``None``).  The observe form launches no finish (and
+    no ``ov_mid``): ``fk_link`` labels the stats graph into ``p_labels``
+    (CMR: ``p_blue``, required then) and no spin is written."""
     n_tasks, l0, l1, l2, n_temps, n_groups, n_slots = dims
     st, par, seeds, st2, par2 = scratch
-    if kind == "houdayer":
-        if observe and group > 2:
-            raise ValueError("Houdayer(N > 2) moves have no observe form")
-        _build.check(lib.peapods_houdn_bonds(
-            p_spins, p_sid, p_tasks, p_probes, st, par, seeds, *dims, group,
-            int(wolff), stream), "houdn_bonds")
-        LAUNCHES["houdn_bonds"] += 1
-        fk.launch_link(lib, stream, st, par, n_tasks, l0, l1, l2)
-        _build.check(lib.peapods_houdn_finish(
-            p_spins, p_sid, p_tasks, p_scal, st, par, seeds, p_labels, *dims, group,
-            int(wolff), int(observe), stream), "houdn_finish")
-        LAUNCHES["houdn_finish"] += 1
-        return
-    k = KINDS.index(kind)
+    stats = p_blue if kind == "cmr" else p_labels
+    if observe and stats is None:
+        raise ValueError(f"the observe form of a {kind} move needs "
+                         f"{'p_blue' if kind == 'cmr' else 'p_labels'}")
     shape = (l0, l1) if l2 == 1 else (l0, l1, l2)
     n = l0 * l1 * l2
     d = n_tasks // (n_temps * n_groups)
-    per = per or ov_per(n, d, n_temps, n_groups,
-                        fk.resident_threads(torch.cuda.current_device()) // 4)
+    threads = fk.resident_threads(torch.cuda.current_device()) // 4
+    houd = kind == "houdayer"
+    if houd and observe and group > 2:
+        raise ValueError("Houdayer(N > 2) moves have no observe form")
+    per = per or ov_per(n, d, n_temps, n_groups, threads,
+                        max(1, HOUDN_ROWS // group) if houd else OV_MAX_PER)
     words = ov_words(shape, d, n_temps, n_groups, n_slots, per)
-    _build.check(lib.peapods_ov_bonds(
-        p_spins, p_sid, p_tasks, p_coup, p_temps, p_scal, p_probes, p_words,
-        st, seeds, words.ctypes.data, k, int(wolff), stream), "ov_bonds")
-    LAUNCHES["ov_bonds"] += 1
-    fk.launch_link(lib, stream, st, par, n_tasks, l0, l1, l2)
+    k = KINDS.index(kind)
+    if houd:
+        _build.check(lib.peapods_houdn_bonds(
+            p_spins, p_sid, p_tasks, p_probes, st, seeds, words.ctypes.data, group,
+            int(wolff), stream), "houdn_bonds")
+        LAUNCHES["houdn_bonds"] += 1
+    else:
+        _build.check(lib.peapods_ov_bonds(
+            p_spins, p_sid, p_tasks, p_coup, p_temps, p_scal, p_probes, p_words,
+            st, seeds, words.ctypes.data, k, int(wolff), stream), "ov_bonds")
+        LAUNCHES["ov_bonds"] += 1
+    # the first graph's flat parents: the stats graph's labels where the
+    # caller asks for them (Houdayer's update form copies them instead)
+    first = stats if stats is not None and (observe or not houd) else par
+    fk.launch_link(lib, stream, st, first, n_tasks, l0, l1, l2)
     if observe:
-        p_labels = p_blue if kind == "cmr" else p_labels
-    elif kind == "cmr":
+        return
+    if houd:
+        _build.check(lib.peapods_houdn_finish(
+            p_spins, p_sid, p_tasks, p_scal, st, par, seeds, p_labels, *dims, group,
+            int(wolff), 0, stream), "houdn_finish")
+        LAUNCHES["houdn_finish"] += 1
+        return
+    last_st, last = st, first
+    if kind == "cmr":
         _build.check(lib.peapods_ov_mid(
-            p_spins, p_sid, p_tasks, p_coup, p_temps, p_scal, p_words, st, par,
-            st2, p_blue, words.ctypes.data, int(wolff), stream), "ov_mid")
+            p_spins, p_sid, p_tasks, p_coup, p_temps, p_scal, p_words, st, first,
+            st2, words.ctypes.data, int(wolff), stream), "ov_mid")
         LAUNCHES["ov_mid"] += 1
-        fk.launch_link(lib, stream, st2, par2, n_tasks, l0, l1, l2)
+        last_st, last = st2, par2 if p_labels is None else p_labels
+        fk.launch_link(lib, stream, st2, last, n_tasks, l0, l1, l2)
     _build.check(lib.peapods_ov_finish(
-        p_spins, p_sid, p_tasks, p_scal, st, par, seeds, st2, par2, p_labels,
-        *dims, k, int(wolff), int(observe), stream), "ov_finish")
+        p_spins, p_sid, p_tasks, p_scal, seeds, last_st, last, words.ctypes.data, k,
+        int(wolff), stream), "ov_finish")
     LAUNCHES["ov_finish"] += 1
 
 

@@ -10,7 +10,9 @@ FK kernels with three bond directions; fk_finish alone with its partials
 per block), FK observe's and the staged path's (cc_link, whole and tiled, the
 winding kernels in both forms, one launch at a time and at 2048^2,
 fk_bonds_staged and fk_finish reading labels) and Houdayer(N)'s (houdn_bonds,
-houdn_finish) with the overlap moves' labels, masks and observe form.  On a machine
+houdn_finish) with the overlap moves' labels, masks and observe form;
+houdn_bonds and the finishes (ov_finish, houdn_finish) each alone against
+houdn_states_plain / finish_plain.  On a machine
 with a GPU (jax is not needed; ``--noconftest`` skips the JAX package's
 test configuration):
 
@@ -1988,6 +1990,155 @@ def test_houdn_kernels_match_plain(cuda, shape, wolff, g):
     assert not torch.equal(a, x["spins"])
 
 
+def _move_per(plan, n_temps, n_groups, g):
+    """The tasks a thread: the rule's (0), one, or the most a thread takes
+    (the largest divisor of a realization's tasks the rule allows)."""
+    from peapods_tpu_torch.ops import overlap
+
+    most = min(overlap.OV_MAX_PER, max(1, overlap.HOUDN_ROWS // g))
+    tg = n_temps * n_groups
+    return {"rule": 0, "one": 1, "most": max(p for p in range(1, most + 1) if tg % p == 0)}[plan]
+
+
+# (shape, d, replicas, temperatures, spins' offset past an 8-byte
+# boundary): config 4, 2D, a fast extent off the word (6^3, 8 x 6), and
+# the per-site path on spins 1 byte off
+ALONE_SHAPES = [((8, 8, 8), 4, 12, 6, 0), ((8, 64), 2, 12, 3, 0), ((6, 6, 6), 2, 12, 3, 0),
+                ((8, 6), 2, 12, 3, 0), ((4, 8, 8), 2, 12, 3, 1)]
+ALONE_IDS = ["8cube", "2d", "6cube", "8x6", "4x8x8-plus1"]
+
+
+@pytest.mark.parametrize("per", ["rule", "one", "most"])
+@pytest.mark.parametrize("g", [2, 4, 6])
+@pytest.mark.parametrize("wolff", [True, False], ids=["wolff", "sw"])
+@pytest.mark.parametrize("shape,d,n_rep,n_temps,offset", ALONE_SHAPES, ids=ALONE_IDS)
+def test_houdn_bonds_alone_matches_plain(cuda, shape, d, n_rep, n_temps, offset, wolff, g,
+                                         per):
+    """houdn_bonds launched alone: its state bytes and seeds bitwise
+    ``houdn_states_plain`` (groups of 2, 4, 6; the vector and per-site
+    paths; every plan of tasks a thread); it writes no parent."""
+    from peapods_tpu_torch.ops import overlap
+
+    x = _pair_inputs(cuda, 41 + g, shape, d, n_rep, n_temps)
+    n = int(np.prod(shape))
+    tab = _event_inputs(x, d, n_rep, n_temps, n, "houdayer", wolff, 13, g=g)
+    spins = _offset_copy(x["spins"], offset)
+    st, sd = overlap.houdn_states_plain(spins, x["sid"], tab[0], tab[2], wolff=wolff,
+                                        shape=shape)
+    b = st.shape[0]
+    state = torch.full((b, n), 0xAA, dtype=torch.uint8, device=cuda)
+    seeds = torch.full((b,), -1, dtype=torch.int32, device=cuda)
+    per = _move_per(per, n_temps, n_rep // g, g) or overlap.ov_per(
+        n, d, n_temps, n_rep // g, fk.resident_threads(cuda.index) // 4,
+        max(1, overlap.HOUDN_ROWS // g))
+    words = overlap.ov_words(shape, d, n_temps, n_rep // g, n_rep * n_temps, per)
+    _build.check(_build.library().peapods_houdn_bonds(
+        spins.data_ptr(), x["sid"].data_ptr(), tab[0].data_ptr(), tab[2].data_ptr(),
+        state.data_ptr(), seeds.data_ptr(), words.ctypes.data, g, int(wolff),
+        torch.cuda.current_stream(cuda).cuda_stream), "houdn_bonds")
+    torch.cuda.synchronize()
+    assert torch.equal(state, st)
+    assert torch.equal(seeds, sd)
+    assert int(st.sum()) > 0 and (not wolff or int((sd < n).sum()) > 0)
+
+
+@pytest.mark.parametrize("wolff", [True, False], ids=["wolff", "sw"])
+@pytest.mark.parametrize("g,d", [(256, 2), (24578, 1)], ids=["g256", "rows-past-48k"])
+def test_houdn_bonds_large_groups_match_plain(cuda, g, d, wolff):
+    """houdn_bonds on one group of g replicas at one temperature (4^3):
+    g = 256 counts in 16-bit lanes (past g = 254), and g past HOUDN_ROWS
+    stages more than 48 KB of member slots (the launch opts in to more
+    shared memory).  Half the members are the other half negated on half
+    the sites, so balanced sites and bonds are many; state bytes and seeds
+    bitwise ``houdn_states_plain``."""
+    from peapods_tpu_torch.ops import overlap
+
+    shape = (4, 4, 4)
+    n = 64
+    assert g > 254 and (g == 256 or g > overlap.HOUDN_ROWS)
+    x = _pair_inputs(cuda, 47, shape, d, g, 1)
+    mask = torch.from_numpy(np.random.default_rng(5).random(n) < 0.5).to(cuda)
+    half = x["spins"][:, g // 2:]
+    half[:, :, mask] = -x["spins"][:, :g // 2][:, :, mask]
+    tab = _event_inputs(x, d, g, 1, n, "houdayer", wolff, 19, g=g)
+    st, sd = overlap.houdn_states_plain(x["spins"], x["sid"], tab[0], tab[2], wolff=wolff,
+                                        shape=shape)
+    state = torch.full((d, n), 0xAA, dtype=torch.uint8, device=cuda)
+    seeds = torch.full((d,), -1, dtype=torch.int32, device=cuda)
+    per = overlap.ov_per(n, d, 1, 1, fk.resident_threads(cuda.index) // 4,
+                         max(1, overlap.HOUDN_ROWS // g))
+    words = overlap.ov_words(shape, d, 1, 1, g, per)
+    _build.check(_build.library().peapods_houdn_bonds(
+        x["spins"].data_ptr(), x["sid"].data_ptr(), tab[0].data_ptr(), tab[2].data_ptr(),
+        state.data_ptr(), seeds.data_ptr(), words.ctypes.data, g, int(wolff),
+        torch.cuda.current_stream(cuda).cuda_stream), "houdn_bonds")
+    torch.cuda.synchronize()
+    assert torch.equal(state, st)
+    assert torch.equal(seeds, sd)
+    assert int(fk.state_masks(st, 3).sum()) > 0 and (not wolff or int((sd < n).sum()) == d)
+
+
+@pytest.mark.parametrize("per", ["rule", "one", "most"])
+@pytest.mark.parametrize("kind", ["houdayer", "jorg", "cmr"])
+@pytest.mark.parametrize("wolff", [True, False], ids=["wolff", "sw"])
+@pytest.mark.parametrize("shape,d,n_rep,n_temps,offset", ALONE_SHAPES, ids=ALONE_IDS)
+def test_finish_alone_matches_finish_plain(cuda, shape, d, n_rep, n_temps, offset, wolff,
+                                           kind, per):
+    """ov_finish (Joerg, CMR) and houdn_finish (Houdayer, g = 4) launched
+    alone on the plain version's state bytes, flat parents and seeds (CMR:
+    state2 and the grey parents): every spin bitwise ``finish_plain``;
+    houdn_finish's labels the parents; a Joerg task with no active probe
+    (seed n) flips nothing."""
+    from peapods_tpu_torch.ops import overlap
+    from peapods_tpu_torch.ops.cluster import connected_components
+
+    g = 4 if kind == "houdayer" else 2
+    x = _pair_inputs(cuda, 43, shape, d, n_rep, n_temps, "gauss")
+    n = int(np.prod(shape))
+    tab = _event_inputs(x, d, n_rep, n_temps, n, kind, wolff, 17, g=g)
+    sys = overlap.gather_tasks(x["spins"], x["sid"], tab[0], n_temps)[0]
+    if kind == "jorg":  # task 0's pair equal: no probe is active
+        x["spins"][0, sys[0, 0, 0, 1]] = x["spins"][0, sys[0, 0, 0, 0]]
+    spins = _offset_copy(x["spins"], offset)
+    args = (x["sid"], tab[0], x["coup"], x["temps"], *tab[1:])
+    if kind == "houdayer":
+        st, sd = overlap.houdn_states_plain(spins, x["sid"], tab[0], tab[2], wolff=wolff,
+                                            shape=shape)
+    else:
+        st, st2, sd = overlap.bond_states_plain(spins.clone(), *args, kind=kind, wolff=wolff,
+                                                shape=shape)
+        st = st if kind == "jorg" else st2
+    par = connected_components(fk.state_masks(st, len(shape)), shape).to(torch.int32)
+    a, b = _offset_copy(spins, offset), spins.clone()
+    overlap.finish_plain(b, x["sid"], tab[0], tab[1], sd, st, par, kind=kind, wolff=wolff,
+                         shape=shape)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    lib = _build.library()
+    if kind == "houdayer":
+        dims, _ = overlap.check_event(a, *args, shape, kind)
+        labels = torch.full_like(par, -1)
+        _build.check(lib.peapods_houdn_finish(
+            a.data_ptr(), x["sid"].data_ptr(), tab[0].data_ptr(), tab[1].data_ptr(),
+            st.data_ptr(), par.clone().data_ptr(), sd.data_ptr(), labels.data_ptr(), *dims,
+            g, int(wolff), 0, stream), "houdn_finish")
+    else:
+        per = _move_per(per, n_temps, n_rep // 2, 2) or overlap.ov_per(
+            n, d, n_temps, n_rep // 2, fk.resident_threads(cuda.index) // 4)
+        words = overlap.ov_words(shape, d, n_temps, n_rep // 2, n_rep * n_temps, per)
+        _build.check(lib.peapods_ov_finish(
+            a.data_ptr(), x["sid"].data_ptr(), tab[0].data_ptr(), tab[1].data_ptr(),
+            sd.data_ptr(), st.data_ptr(), par.data_ptr(), words.ctypes.data,
+            overlap.KINDS.index(kind), int(wolff), stream), "ov_finish")
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert not torch.equal(a, spins)
+    if kind == "houdayer":
+        assert torch.equal(labels, par)
+    if kind == "jorg" and wolff:
+        assert int(sd[0]) == n
+        assert torch.equal(a[0, sys[0, 0, 0]], spins[0, sys[0, 0, 0]])
+
+
 @pytest.mark.parametrize("kind", ["houdayer", "jorg", "cmr"])
 @pytest.mark.parametrize("shape,d,n_rep,n_temps,couplings,offset", MOVE_SHAPES, ids=MOVE_IDS)
 def test_overlap_event_graphs_and_observe_form_match_plain(cuda, shape, d, n_rep,
@@ -2007,9 +2158,16 @@ def test_overlap_event_graphs_and_observe_form_match_plain(cuda, shape, d, n_rep
     out = {}
     for observe in (False, True):
         a, b = x["spins"].clone(), x["spins"].clone()
+        for k in overlap.LAUNCHES:
+            overlap.LAUNCHES[k] = 0
         gk = overlap.overlap_event(a, *args, observe=observe, **kw)
         gp = overlap.overlap_event_plain(b, *args, observe=observe, **kw)
         torch.cuda.synchronize()
+        # the observe form launches no finish: fk_link labels the stats
+        # graph into the labels buffer
+        finish = overlap.LAUNCHES["houdn_finish"] + overlap.LAUNCHES["ov_finish"]
+        assert finish == (0 if observe else 1)
+        assert overlap.LAUNCHES["ov_mid"] == (kind == "cmr" and not observe)
         assert torch.equal(a, b)
         assert torch.equal(a, x["spins"]) == observe
         for name in ("labels", "blue", "masks"):
@@ -2052,7 +2210,12 @@ def test_overlap_stats_sample_on_card_match_the_cpu(cuda, shape, n_rep, kw):
         overlap.LAUNCHES[k] = 0
     ra, rc = a.sample(24, **kw), c.sample(24, **kw)
     houdn = "houd" in kw["overlap_cluster_build_mode"]  # houd4 and houdayer
-    assert (overlap.LAUNCHES["houdn_finish"] > 0) == houdn
+    observe = kw.get("overlap_cluster_action") == "observe"
+    assert (overlap.LAUNCHES["houdn_bonds"] > 0) == houdn
+    # the observe form launches no finish
+    assert (overlap.LAUNCHES["houdn_finish"] > 0) == (houdn and not observe)
+    assert (overlap.LAUNCHES["ov_finish"] > 0) == (not observe and kw[
+        "overlap_cluster_build_mode"] != "houd4")
     for key in ("spins", "system_ids", "pt_edge_acceptances", "pt_round_trips"):
         assert torch.equal(a._sim.state[key].cpu(), c._sim.state[key]), key
     for key in ("overlap_csd", "top_cluster_sizes"):

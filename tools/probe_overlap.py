@@ -1,29 +1,36 @@
-"""Time the bond kernels of the Joerg and CMR overlap moves
-(``csrc/overlap.cu`` ``ov_bonds``: Joerg's bonds or CMR's blue ones and
-the Wolff seed; ``ov_mid``: CMR's blue flip and grey bonds) of two source
-trees side by side on one NVIDIA GPU, with variants that cure one defect
-of the first design or take one part of the redesign away, and count each
-kernel's SASS integer-division sequences.
+"""Time the kernels of the overlap moves (``csrc/overlap.cu``:
+``ov_bonds``, Joerg's bonds or CMR's blue ones and the Wolff seed;
+``ov_mid``, CMR's blue flip and grey bonds; ``houdn_bonds``, Houdayer(N)'s
+state bytes and seed; ``ov_finish``, the Joerg / CMR flips from the
+labelling's flat parents) of two source trees side by side on one NVIDIA
+GPU, with variants that cure one defect of a first design or take one part
+of a redesign away, and count each kernel's SASS integer-division
+sequences.
 
     python3 tools/probe_overlap.py --src old=CSRC_DIR --src new=CSRC_DIR
                                    [--out DIR] [--rounds N] [--variants a,b,...]
-                                   [--shapes a,b,...] [--json PATH]
+                                   [--shapes a,b,...] [--kernels a,b,...] [--json PATH]
 
-Each ``--src`` names a directory of the port's CUDA sources; the first
-design (a thread a group of four sites of one task, ``fwd_site``'s runtime
-divisions, byte loads, the couplings, J / T and exp again for every task
-and bond, a serial Wolff seed, a parent written a site; ``ov_mid`` deciding
-each blue flip 1 + nd times a site by ``find_root``, ``nonsingleton``'s
-divisions and the coin, a parent2 written a site) is told from the
-redesign by its source.  Give the parent commit's sources (``git archive``
-of it unpacked under a directory ``.gitignore`` lists) and this
-checkout's.  The script builds ``overlap.cu`` of every source as it is and
-patched into each variant of its design, all with nvcc for sm_90a at once
-(into ``--out``), and prints each kernel's ``ptxas -v`` registers and, from
-``cuobjdump -sass``, its static instructions and integer-division sequences
-(``I2F.U32.RP``).
+Each ``--src`` names a directory of the port's CUDA sources; each kernel's
+design is told by the source.  The bond kernels' first design (before
+``OvWalk``): a thread a group of four sites of one task, ``fwd_site``'s
+runtime divisions, byte loads, the couplings, J / T and exp again for
+every task and bond, a serial Wolff seed, a parent written a site;
+``ov_mid`` deciding each blue flip 1 + nd times a site by ``find_root``,
+``nonsingleton``'s divisions and the coin, a parent2 written a site.  The
+other two's first design (before ``houdn_rows``): ``houdn_bonds`` a thread
+four sites of one task, (1 + nd) g chains of tasks -> sid -> spin loads a
+site, ``fwd_site``'s divisions, a parent written a site; ``ov_finish`` a
+thread a site, ``task_of``'s divisions, ``find_root`` on flat parents,
+``nonsingleton``'s divisions, byte spins.  Give the parent commit's
+sources (``git archive`` of it unpacked under a directory ``.gitignore``
+lists) and this checkout's.  The script builds ``overlap.cu`` of every
+source as it is and patched into each variant that applies to it, all with
+nvcc for sm_90a at once (into ``--out``), and prints each kernel's
+``ptxas -v`` registers and, from ``cuobjdump -sass``, its static
+instructions and integer-division sequences (``I2F.U32.RP``).
 
-Variants of the first design, one defect cured each:
+Variants of the bond kernels' first design, one defect cured each:
 
 * ``o-nodiv``: each forward neighbour at a clamped ``i + stride`` and
   ``nonsingleton``'s backward ones at ``i - stride``: no division (wrong
@@ -32,32 +39,47 @@ Variants of the first design, one defect cured each:
 * ``o-ballot``: Joerg's Wolff seed by one warp and two ballots, as
   ``houdn_bonds`` finds its own (bitwise).
 
-Variants of the redesign, one part taken away each:
+Variants of the redesigns, one part taken away each (a variant applies to
+a source where every kernel it changes is redesigned):
 
-* ``n-div``: the sites' coordinates and the task's temperature by runtime
-  divisions again;
-* ``n-per1``: one task a thread;
-* ``n-lazy``: each bond's probability (its exp) drawn only where the bond
-  can be active, in a branch, for every task, and compared as a float
-  (groups of unit couplings keep their threshold);
-* ``n-pertask``: J / T and the probabilities taken for every task, not
-  once a temperature;
-* ``n-reflip``: ``ov_mid`` deciding each forward neighbour's blue flip
+* ``n-div`` (all four): the sites' coordinates and the tasks' temperature
+  by runtime divisions again;
+* ``n-per1`` (all four): one task a thread;
+* ``n-lazy`` (``ov_bonds``, ``ov_mid``): each bond's probability (its exp)
+  drawn only where the bond can be active, in a branch, for every task,
+  and compared as a float (groups of unit couplings keep their
+  threshold);
+* ``n-pertask`` (``ov_bonds``, ``ov_mid``): J / T and the probabilities
+  taken for every task, not once a temperature;
+* ``n-reflip`` (``ov_mid``): deciding each forward neighbour's blue flip
   again for every bond (one parent load and, SW, the coin) and testing
   sat_a != sat_b on the flipped spins, as the first design did;
-* ``n-nodraw``: no Philox rounds, the counter words taken as the uniforms
-  (wrong values): the draws' share of the time.
+* ``n-nodraw`` (``ov_bonds``, ``ov_mid``): no Philox rounds, the counter
+  words taken as the uniforms (wrong values): the draws' share of the
+  time;
+* ``n-findroot`` (``ov_finish``): each site's root by ``find_root`` (a
+  second dependent load for every site that is not a root) in place of
+  the one load of its flat parent;
+* ``n-bytes`` (``houdn_bonds``, ``ov_finish``): the per-site path (byte
+  loads and stores, each site's neighbours from its coordinates);
+* ``n-parent`` (``houdn_bonds``): a parent written a site again.
 
 The states are random +-1 spins at the replica path's shapes: config 5
-(16^3 gaussian, 8 realizations, R = 4, 24 temperatures: 384 tasks),
-config 4's (8^3 +-J: the ``cmr+houd4`` runs' pair tasks) and the 64^2
-glass of overlap observe (4 realizations, R = 2, 8 temperatures).  Each
-kernel is timed per move kind and form: ``ov_bonds`` for Joerg and CMR,
-Wolff and SW (the observe form launches the SW one), ``ov_mid`` Wolff,
-SW, and SW writing the blue labels.  Every build and every variant that
-keeps the function is held bitwise to the plain version
+(16^3 gaussian, 8 realizations, R = 4, 24 temperatures: 384 pair tasks),
+config 4's (8^3 +-J) and the 64^2 glass of overlap observe (4
+realizations, R = 2, 8 temperatures).  ``ov_bonds`` is timed on each for
+Joerg and CMR, Wolff and SW (the observe form launches the SW one),
+``ov_mid`` Wolff, SW, and SW writing the blue labels (sources whose
+``ov_mid`` reads the blue labels as its parents, as the labelling writes
+them, skip that form); ``houdn_bonds`` and ``ov_finish`` in the forms
+that the main paths launch (``FINISH_FORMS``).  Every build and every
+variant that keeps the function is held bitwise to the plain version
 (``overlap.bond_states_plain``: the state bytes, state2 bytes and seeds;
-the blue labels against the plain labelling).  Times are device times of
+the blue labels against the plain labelling;
+``overlap.houdn_states_plain``: the state bytes and seeds;
+``overlap.finish_plain``: every spin, on the plain version's last graph).
+The bounds are ``chip_smoke.py``'s, on each state (``ov_finish``'s
+counting the spins that the plain move flips).  Times are device times of
 one launch (CUDA events over warm launches queued behind a sleep kernel),
 ``--rounds`` times with the builds in order and then reversed.  Prints one
 line per measurement with the card, writes all of them as JSON to
@@ -83,14 +105,18 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
 
-from chip_smoke import HBM_BYTES_S, card_line  # noqa: E402
+from chip_smoke import bound, card_line, houdn_bounds, ov_finish_bound  # noqa: E402
 from peapods_tpu_torch.engine import seeds  # noqa: E402
 from peapods_tpu_torch.ops import _build, fk, overlap  # noqa: E402
 from peapods_tpu_torch.ops.cluster import connected_components  # noqa: E402
 from probe_pt_link import events_ms  # noqa: E402
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-KERNELS = ("ov_bonds", "ov_mid")
+KERNELS = ("ov_bonds", "ov_mid", "houdn_bonds", "ov_finish")
+BONDS, FINISH = ("ov_bonds", "ov_mid"), ("houdn_bonds", "ov_finish")
+# a kernel's design: redesigned where its source holds the marker
+MARKER = {"ov_bonds": "OvWalk", "ov_mid": "OvWalk", "houdn_bonds": "houdn_rows",
+          "ov_finish": "houdn_rows"}
 
 O_NODIV = [
     ("      const int f = fwd_site(i, g, dir);\n      const int af = k.a[f];",
@@ -130,7 +156,9 @@ O_BALLOT = [(
 N_DIV = [("  const int line = fast_div(i, g.m[0], g.s[0]);", "  const int line = i / g.lf;"),
          ("  c.ca = ND == 3 ? fast_div(line, g.m[1], g.s[1]) : 0;",
           "  c.ca = ND == 3 ? line / g.lb : 0;"),
-         ("  const int t = fast_div(w, g.m[2], g.s[2]);", "  const int t = w / g.G;")]
+         ("  const int t = fast_div(w, g.m[2], g.s[2]);", "  const int t = w / g.G;"),
+         ("    const int t = fast_div(blockIdx.x * g.per + k, g.m[2], g.s[2]);",
+          "    const int t = (blockIdx.x * g.per + k) / g.G;")]
 N_LAZY = [("  uint32_t pos[ND];\n  uint32_t neg[ND];\n};",
            "  uint32_t pos[ND];\n  uint32_t neg[ND];\n  int which;\n  bool lazy;\n};"),
           ("  } else {\n#pragma unroll\n"
@@ -165,55 +193,114 @@ N_REFLIP = [(
     "        const uint32_t sb = satisfied<ND>(jt, d, differ(b.w ^ sg, b.f[d]));\n"
     "        const uint32_t cand = (sa ^ sb) & ~blue;\n")]
 
-# name: (design, source edits, tasks a thread or None, keeps the function)
+N_FINDROOT = [(
+    "      const uint32_t st = load_roots<ND, kVec>(S, parent + base, x, lab);\n",
+    "      const uint32_t st = load_roots<ND, kVec>(S, parent + base, x, lab);\n"
+    "#pragma unroll\n      for (int q = 0; q < 4; ++q)\n"
+    "        if (q < x.cnt) lab[q] = find_root(const_cast<int32_t*>(parent + base), x.i0 + q);\n")]
+N_BYTES = [("  const bool vec = g.lf % 4 == 0 && aligned(spins, 4) && aligned(state, 4) &&\n"
+            "                   aligned(parent, 16);",
+            "  const bool vec = false;"),
+           ("  const bool vec = g.lf % 4 == 0 && aligned(spins, 4) && aligned(state, 4);\n"
+            "  using Kernel = void (*)(const int8_t*, const int32_t*, const int32_t*, const int32_t*,\n"
+            "                          uint8_t*, int32_t*, const OvWalk, int, int);",
+            "  const bool vec = false;\n"
+            "  using Kernel = void (*)(const int8_t*, const int32_t*, const int32_t*, const int32_t*,\n"
+            "                          uint8_t*, int32_t*, const OvWalk, int, int);")]
+N_PARENT = [
+    ("                   uint8_t* __restrict__ state, int32_t* __restrict__ seeds, const OvWalk g,\n"
+     "                   int gs, int wolff) {",
+     "                   uint8_t* __restrict__ state, int32_t* __restrict__ seeds, const OvWalk g,\n"
+     "                   int gs, int wolff, int32_t* __restrict__ parent) {"),
+    ("      for (int d = 0; d < ND; ++d) st |= (act[0] & act[1 + d]) << d;\n",
+     "      for (int d = 0; d < ND; ++d) st |= (act[0] & act[1 + d]) << d;\n"
+     "      int32_t* pout = parent + static_cast<size_t>(b0 + k) * g.n;\n"
+     "#pragma unroll\n      for (int q = 0; q < 4; ++q)\n"
+     "        if (q < x.cnt) pout[x.i0 + q] = x.i0 + q;\n"),
+    ("                        const void* probes, void* state, void* seeds, const int* words,\n"
+     "                        int g_size, int wolff, void* stream) {",
+     "                        const void* probes, void* state, void* seeds, const int* words,\n"
+     "                        int g_size, int wolff, void* stream, void* parent) {"),
+    ("                          uint8_t*, int32_t*, const OvWalk, int, int);\n"
+     "  const Kernel kernel = g.nd == 3",
+     "                          uint8_t*, int32_t*, const OvWalk, int, int, int32_t*);\n"
+     "  const Kernel kernel = g.nd == 3"),
+    ("      static_cast<uint8_t*>(state), static_cast<int32_t*>(seeds), g, g_size, wolff);",
+     "      static_cast<uint8_t*>(state), static_cast<int32_t*>(seeds), g, g_size, wolff,\n"
+     "      static_cast<int32_t*>(parent));")]
+
+# name: (design, source edits, tasks a thread or None, keeps the function,
+# the kernels it changes)
 VARIANTS = {
-    "o-nodiv": ("first", O_NODIV, None, False),
-    "o-noparent": ("first", O_NOPARENT, None, True),
-    "o-ballot": ("first", O_BALLOT, None, True),
-    "n-div": ("redesign", N_DIV, None, True),
-    "n-per1": ("redesign", [], 1, True),
-    "n-lazy": ("redesign", N_LAZY, None, True),
-    "n-pertask": ("redesign", N_PERTASK, None, True),
-    "n-reflip": ("redesign", N_REFLIP, None, True),
-    "n-nodraw": ("redesign", N_NODRAW, None, False),
+    "o-nodiv": ("first", O_NODIV, None, False, BONDS),
+    "o-noparent": ("first", O_NOPARENT, None, True, BONDS),
+    "o-ballot": ("first", O_BALLOT, None, True, BONDS),
+    "n-div": ("redesign", N_DIV, None, True, KERNELS),
+    "n-per1": ("redesign", [], 1, True, KERNELS),
+    "n-lazy": ("redesign", N_LAZY, None, True, BONDS),
+    "n-pertask": ("redesign", N_PERTASK, None, True, BONDS),
+    "n-reflip": ("redesign", N_REFLIP, None, True, ("ov_mid",)),
+    "n-nodraw": ("redesign", N_NODRAW, None, False, BONDS),
+    "n-findroot": ("redesign", N_FINDROOT, None, True, ("ov_finish",)),
+    "n-bytes": ("redesign", N_BYTES, None, True, FINISH),
+    "n-parent": ("redesign", N_PARENT, None, True, ("houdn_bonds",)),
 }
 
 # (name, shape, realizations, replicas, temperatures, their range, couplings)
 SHAPES = (("config5", (16, 16, 16), 8, 4, 24, (0.8, 2.0), "gauss"),
           ("config4", (8, 8, 8), 8, 4, 24, (0.9, 2.2), "pm"),
           ("glass64", (64, 64), 4, 2, 8, (0.8, 2.0), "pm"))
-# (kernel, kind, wolff, blue labels): the forms timed
-FORMS = (("ov_bonds", "jorg", True, False), ("ov_bonds", "jorg", False, False),
-         ("ov_bonds", "cmr", True, False), ("ov_bonds", "cmr", False, False),
-         ("ov_mid", "cmr", True, False), ("ov_mid", "cmr", False, False),
-         ("ov_mid", "cmr", False, True))
+# (kernel, kind, wolff, blue labels): the bond kernels' forms, on every state
+BOND_FORMS = (("ov_bonds", "jorg", True, False), ("ov_bonds", "jorg", False, False),
+              ("ov_bonds", "cmr", True, False), ("ov_bonds", "cmr", False, False),
+              ("ov_mid", "cmr", True, False), ("ov_mid", "cmr", False, False),
+              ("ov_mid", "cmr", False, True))
+# (state, kernel, kind, wolff, group size): the other two's forms, each on
+# the state of a main path that launches it
+FINISH_FORMS = (("config5", "ov_finish", "jorg", True, 2),
+                ("config5", "ov_finish", "jorg", False, 2),
+                ("config5", "ov_finish", "cmr", True, 2),
+                ("config5", "ov_finish", "cmr", False, 2),
+                ("config4", "houdn_bonds", "houdayer", True, 2),
+                ("config4", "houdn_bonds", "houdayer", True, 4),
+                ("config4", "houdn_bonds", "houdayer", False, 4),
+                ("config4", "ov_finish", "cmr", False, 2),
+                ("glass64", "houdn_bonds", "houdayer", False, 2))
 
 
-def design(csrc: Path) -> str:
-    return "redesign" if "OvWalk" in (csrc / "overlap.cu").read_text() else "first"
+def forms(state):
+    """``(kernel, kind, wolff, group size, blue labels)`` timed on a state."""
+    return ([(k, kind, wolff, 2, labels) for k, kind, wolff, labels in BOND_FORMS]
+            + [(k, kind, wolff, g, False) for name, k, kind, wolff, g in FINISH_FORMS
+               if name == state])
+
+
+def designs(text: str) -> dict:
+    return {k: "redesign" if MARKER[k] in text else "first" for k in KERNELS}
 
 
 def builds(sources, out, variants):
-    """``{(label, variant): (source path or None, design)}``: each source's
-    base build and the variants of its design that edit the source (a
-    host-plan variant shares its base's build); a variant whose anchors are
-    not found stops the probe."""
+    """``{(label, variant): (source path or None, each kernel's design,
+    whether ov_mid writes blue labels)}``: each source's base build and the
+    variants that apply to it (a host-plan variant shares its base's
+    build); a variant whose anchors are not found stops the probe."""
     todo = {}
     for label, csrc in sources:
-        own = design(csrc)
         text = (csrc / "overlap.cu").read_text()
+        own = designs(text)
+        labelled = "blue_labels" in text
         for variant in ("base", *variants):
             edits = []
             if variant != "base":
-                aim, edits, _, _ = VARIANTS[variant]
-                if aim != own:
+                aim, edits, _, _, changed = VARIANTS[variant]
+                if any(own[k] != aim for k in changed):
                     continue
                 gone = [old.splitlines()[0] for old, _ in edits if text.count(old) != 1]
                 if gone:
                     raise SystemExit(f"probe_overlap: {variant} does not apply to {csrc}: "
                                      f"{gone}")
                 if not edits:
-                    todo[(label, variant)] = (None, own)
+                    todo[(label, variant)] = (None, own, labelled)
                     continue
             d = out / label / variant
             d.mkdir(parents=True, exist_ok=True)
@@ -223,12 +310,12 @@ def builds(sources, out, variants):
             for old, new in edits:
                 src = src.replace(old, new)
             (d / "overlap.cu").write_text(src)
-            todo[(label, variant)] = (d / "overlap.cu", own)
+            todo[(label, variant)] = (d / "overlap.cu", own, labelled)
     return todo
 
 
-def _kernel_name(fn):
-    for k in KERNELS:
+def _kernel_name(fn, kernels=KERNELS):
+    for k in kernels:
         if f"{k}_kernel" in fn:
             args = re.findall(r"Li(\d+)E|Lb([01])E", fn.split("_kernel", 1)[1])
             args = [a or b for a, b in args]
@@ -239,7 +326,7 @@ def _kernel_name(fn):
 def compile_all(todo):
     """One nvcc for each build, all at once: ``{key: (lib, ptxas log, sass)}``."""
     procs = []
-    for key, (src, _) in todo.items():
+    for key, (src, *_) in todo.items():
         if src is None:
             continue
         so = src.with_suffix(".so")
@@ -258,13 +345,13 @@ def compile_all(todo):
     return out
 
 
-def kernel_counts(log: str, sass: str):
-    """Registers and SASS counts of the two kernels (each template instance)."""
+def kernel_counts(log: str, sass: str, kernels=KERNELS):
+    """Registers and SASS counts of ``kernels`` (each template instance)."""
     regs, counts, name, spill = {}, {}, None, 0
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
         if m:
-            name = _kernel_name(m.group(1))
+            name = _kernel_name(m.group(1), kernels)
             spill = 0
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
@@ -288,7 +375,7 @@ def kernel_counts(log: str, sass: str):
         m = re.search(r"Function : (\S+)", ln)
         if m:
             close()
-            name = _kernel_name(m.group(1))
+            name = _kernel_name(m.group(1), kernels)
             body = []
         else:
             body.append(ln)
@@ -311,28 +398,42 @@ def inputs(shape, d, n_rep, n_temps, t_range, couplings, dev, rng):
                 coup=up(coup), temps=up(temps), sid=up(sid))
 
 
-def tables(x, kind, wolff, rng, dev):
+def tables(x, kind, wolff, g, rng, dev):
     keys = rng.integers(0, 2**32, (x["d"], 2), dtype=np.uint64).astype(np.uint32)
-    tasks, tkeys = seeds.overlap_tasks(keys, [5], x["n_rep"], x["n_temps"])
+    tasks, tkeys = seeds.overlap_tasks(keys, [5], x["n_rep"], x["n_temps"], g)
     scal, probes = seeds.event_scalars(kind, wolff, tkeys[0], x["n"])
     up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     return (up(tasks[0]), up(scal.reshape(-1, 6)), up(probes.reshape(-1, 64)),
             up(tkeys[0].view(np.int32).reshape(-1, 2)))
 
 
-def want(x, tab, kind, wolff):
-    """The plain version: ``(state, state2, seeds, blue labels, parents)``
-    (the parents: each site's root of the blue graph, as fk_link leaves
-    them)."""
+def want(x, tab, kernel, kind, wolff):
+    """The plain version: the bond kernels' ``(state, state2, seeds, blue
+    labels)`` (the blue labels: each site's root of the blue graph, as
+    fk_link leaves them); ``houdn_bonds``' ``(state, seeds)``;
+    ``ov_finish``'s inputs ``(state, parent, seeds)`` (the move's last
+    graph) and its spins."""
+    shape = x["shape"]
+    if kernel == "houdn_bonds":
+        return overlap.houdn_states_plain(x["spins"], x["sid"], tab[0], tab[2], wolff=wolff,
+                                          shape=shape)
     args = (x["sid"], tab[0], x["coup"], x["temps"], *tab[1:])
-    st, st2, sd = overlap.bond_states_plain(x["spins"].clone(), *args, kind=kind,
-                                            wolff=wolff, shape=x["shape"])
-    lab = connected_components(fk.state_masks(st, len(x["shape"])), x["shape"]).to(torch.int32)
-    return st, st2, sd, lab
+    st, st2, sd = overlap.bond_states_plain(x["spins"].clone(), *args, kind=kind, wolff=wolff,
+                                            shape=shape)
+    if kernel in BONDS:
+        lab = connected_components(fk.state_masks(st, len(shape)), shape).to(torch.int32)
+        return st, st2, sd, lab
+    st = st if kind == "jorg" else st2
+    par = connected_components(fk.state_masks(st, len(shape)), shape).to(torch.int32)
+    sp = x["spins"].clone()
+    overlap.finish_plain(sp, x["sid"], tab[0], tab[1], sd, st, par, kind=kind, wolff=wolff,
+                         shape=shape)
+    return st, par, sd, sp
 
 
-def launcher(lib, first, x, tab, kind, wolff, labels, kernel, plain, per):
-    """``(fn, outputs)``: one launch of a build's kernel."""
+def bond_launcher(lib, first, x, tab, kind, wolff, labels, kernel, plain, per, labelled=True):
+    """``(fn, outputs)``: one launch of a build's bond kernel
+    (``labelled``: the build's ``ov_mid`` takes a blue-labels pointer)."""
     dev = x["spins"].device
     d, n, shape = x["d"], x["n"], x["shape"]
     b = tab[0].numel() // 2
@@ -378,69 +479,170 @@ def launcher(lib, first, x, tab, kind, wolff, labels, kernel, plain, per):
                 state2.data_ptr(), par2.data_ptr(), p_blue, *dims, int(wolff), stream)
         state2.keep = (sd, par2)  # the launch's scratch lives as long as its outputs
     else:
-        fn.argtypes = [_P] * 12 + [_I] + [_P]
+        # since the labels' hand-over ov_mid writes no blue labels: its
+        # parents are the blue labels (the labels form is not launched)
+        blue_out = [p_blue] if labelled else []
+        fn.argtypes = [_P] * (11 + len(blue_out)) + [_I] + [_P]
         words = overlap.ov_words(shape, d, x["n_temps"], g, s, per)
         args = (*head, tab[3].data_ptr(), st.data_ptr(), parent.data_ptr(),
-                state2.data_ptr(), p_blue, words.ctypes.data, int(wolff), stream)
+                state2.data_ptr(), *blue_out, words.ctypes.data, int(wolff), stream)
         state2.words = words
     state2.parent = parent
     return (lambda: _build.check(fn(*args), "ov_mid")), (state2, blue)
 
 
-def bound_ms(x, kernel, labels):
-    """``chip_smoke.py``'s bound: ``ov_bonds`` reads both replicas' spins
-    and the couplings once and writes the state bytes; ``ov_mid`` also
-    reads the state bytes and the flat parents and writes the state2 bytes
-    (and the blue labels)."""
-    b = x["d"] * x["n_temps"] * (x["n_rep"] // 2)
-    n = x["n"]
-    cb = 4 * len(x["shape"]) * x["d"] * n
-    nbytes = (3 * b * n if kernel == "ov_bonds" else 8 * b * n + 4 * b * n * labels) + cb
-    return nbytes / HBM_BYTES_S * 1e3
+def finish_launcher(lib, first, variant, x, tab, kernel, kind, wolff, g, plain, per):
+    """``(fn, check)``: one launch of a build's ``houdn_bonds`` or
+    ``ov_finish``, and a function that runs it once on fresh outputs and
+    says whether they are the plain version's."""
+    dev = x["spins"].device
+    d, n, shape = x["d"], x["n"], x["shape"]
+    b = tab[0].numel() // g
+    G = x["n_rep"] // g
+    s = x["n_rep"] * x["n_temps"]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    dims = (b, *_build.dims3(shape), x["n_temps"], G, s)
+    words = overlap.ov_words(shape, d, x["n_temps"], G, s, per)
+    u8 = dict(dtype=torch.uint8, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    if kernel == "houdn_bonds":
+        state = torch.empty((b, n), **u8)
+        sd = torch.empty((b,), **i32)
+        par = torch.empty((b, n), **i32)
+        fn = lib.peapods_houdn_bonds
+        fn.restype = _I
+        head = [t.data_ptr() for t in (x["spins"], x["sid"], tab[0], tab[2])]
+        if first:
+            fn.argtypes = [_P] * 7 + [_I] * 9 + [_P]
+            args = (*head, state.data_ptr(), par.data_ptr(), sd.data_ptr(), *dims, g,
+                    int(wolff), stream)
+        else:
+            extra = [par.data_ptr()] if variant == "n-parent" else []
+            fn.argtypes = [_P] * 7 + [_I] * 2 + [_P] * (1 + len(extra))
+            args = (*head, state.data_ptr(), sd.data_ptr(), words.ctypes.data, g, int(wolff),
+                    stream, *extra)
+
+        def run():
+            return _build.check(fn(*args), "houdn_bonds")
+
+        def check():
+            state.fill_(0xAA)
+            sd.fill_(-1)
+            run()
+            torch.cuda.synchronize()
+            return bool(torch.equal(state, plain[0]) and torch.equal(sd, plain[1]))
+
+        return run, check
+    st, par, sd, sp = plain
+    spins = x["spins"].clone()
+    k = overlap.KINDS.index(kind)
+    fn = lib.peapods_ov_finish
+    fn.restype = _I
+    head = [t.data_ptr() for t in (spins, x["sid"], tab[0], tab[1])]
+    if first:
+        fn.argtypes = [_P] * 10 + [_I] * 10 + [_P]
+        pp = par.clone()  # find_root may halve paths: flat parents are left as they are
+        args = (*head, st.data_ptr(), pp.data_ptr(), sd.data_ptr(), st.data_ptr(),
+                pp.data_ptr(), None, *dims, k, int(wolff), 0, stream)
+    else:
+        fn.argtypes = [_P] * 8 + [_I] * 2 + [_P]
+        args = (*head, sd.data_ptr(), st.data_ptr(), par.data_ptr(), words.ctypes.data, k,
+                int(wolff), stream)
+
+    def run():
+        return _build.check(fn(*args), "ov_finish")
+
+    def check():
+        spins.copy_(x["spins"])
+        run()
+        torch.cuda.synchronize()
+        return bool(torch.equal(spins, sp))
+
+    return run, check
 
 
-def probe(libs, todo, states, card, rounds, results, rng):
+def bound_of(x, kernel, kind, wolff, g, labels, plain):
+    """``chip_smoke.py``'s ``(bound_ms, bound_by)`` on this state:
+    ``ov_bonds`` reads both spins and the couplings once and writes the
+    state bytes; ``ov_mid`` also reads the state bytes and the flat parents
+    and writes the state2 bytes (and the blue labels, in sources that write
+    them); ``houdn_bonds`` and ``ov_finish`` as ``houdn_bounds`` and
+    ``ov_finish_bound`` count them (the latter the spins that the plain
+    move flips)."""
+    d, n = x["d"], x["n"]
+    b = d * x["n_temps"] * (x["n_rep"] // g)
+    nd = len(x["shape"])
+    cb = 4 * nd * d * n
+    if kernel == "ov_bonds":
+        return bound(3 * b * n + cb, 12 * nd * b * n)
+    if kernel == "ov_mid":
+        return bound(8 * b * n + 4 * b * n * labels + cb, 12 * nd * b * n)
+    if kernel == "houdn_bonds":
+        return houdn_bounds(b, n, g, d, x["n_rep"] * x["n_temps"], wolff=wolff, labels=False,
+                            flipped=0)["houdn_bonds"]
+    return ov_finish_bound(b, n, kind, wolff, int((plain[3] != x["spins"]).sum()))
+
+
+def probe(libs, todo, states, card, rounds, results, rng, kernels):
     for name, x in states():
         dev = x["spins"].device
-        per0 = overlap.ov_per(x["n"], x["d"], x["n_temps"], x["n_rep"] // 2,
-                              fk.resident_threads(dev.index) // 4)
-        for kernel, kind, wolff, labels in FORMS:
-            tab = tables(x, kind, wolff, rng, dev)
-            plain = want(x, tab, kind, wolff)
-            form = f"{kind} {'wolff' if wolff else 'sw'}{' labels' if labels else ''}"
+        threads = fk.resident_threads(dev.index) // 4
+        for kernel, kind, wolff, g, labels in forms(name):
+            if kernel not in kernels:
+                continue
+            G = x["n_rep"] // g
+            per0 = overlap.ov_per(x["n"], x["d"], x["n_temps"], G, threads,
+                                  max(1, overlap.HOUDN_ROWS // g) if kernel == "houdn_bonds"
+                                  else overlap.OV_MAX_PER)
+            tab = tables(x, kind, wolff, g, rng, dev)
+            plain = want(x, tab, kernel, kind, wolff)
+            bnd = bound_of(x, kernel, kind, wolff, g, labels, plain)
+            form = (f"{kind}{g if kind == 'houdayer' else ''} {'wolff' if wolff else 'sw'}"
+                    f"{' labels' if labels else ''}")
             for rnd in range(rounds):
                 keys = list(todo)
                 for key in (keys if rnd % 2 == 0 else keys[::-1]):
                     label, variant = key
-                    first = todo[key][1] == "first"
-                    spec = VARIANTS.get(variant, (None, [], None, True))
+                    first = todo[key][1][kernel] == "first"
+                    spec = VARIANTS.get(variant, (None, [], None, True, KERNELS))
+                    if kernel not in spec[4]:
+                        continue
+                    if labels and not todo[key][2]:
+                        continue  # this build's ov_mid writes no blue labels
                     lib = libs[key if todo[key][0] is not None else (label, "base")][0]
                     per = spec[2] or per0
-                    if (x["n_temps"] * (x["n_rep"] // 2)) % per:
+                    if (x["n_temps"] * G) % per:
                         continue  # a host plan this state's tasks do not split into
-                    fn, outs = launcher(lib, first, x, tab, kind, wolff, labels, kernel,
-                                        plain, per)
-                    fn()
-                    torch.cuda.synchronize()
+                    if kernel in BONDS:
+                        fn, outs = bond_launcher(lib, first, x, tab, kind, wolff, labels,
+                                                 kernel, plain, per, todo[key][2])
+
+                        def check(fn=fn, outs=outs):
+                            fn()
+                            torch.cuda.synchronize()
+                            if kernel == "ov_bonds":
+                                return bool(torch.equal(outs[0], plain[0])
+                                            and torch.equal(outs[1], plain[2]))
+                            return bool(torch.equal(outs[0], plain[1])
+                                        and (outs[1] is None or torch.equal(outs[1], plain[3])))
+                    else:
+                        fn, check = finish_launcher(lib, first, variant, x, tab, kernel, kind,
+                                                    wolff, g, plain, per)
                     ok = None
                     if spec[3]:
-                        if kernel == "ov_bonds":
-                            ok = bool(torch.equal(outs[0], plain[0])
-                                      and torch.equal(outs[1], plain[2]))
-                        else:
-                            ok = bool(torch.equal(outs[0], plain[1])
-                                      and (outs[1] is None or torch.equal(outs[1], plain[3])))
+                        ok = check()
                         if not ok:
-                            raise AssertionError(f"{label} {variant} {kernel} {form} at {name} "
-                                                 "differs from its plain version")
+                            raise AssertionError(f"{label} {variant} {kernel} {form} at "
+                                                 f"{name} differs from its plain version")
+                    else:
+                        fn()
                     ms = events_ms(fn, 200)
                     rec = dict(kind=kernel, form=form, source=label, variant=variant,
-                               state=name, round=rnd, ms=ms,
-                               bound_ms=bound_ms(x, kernel, labels), bitwise_plain=ok,
-                               per=None if first else per)
+                               state=name, round=rnd, ms=ms, bound_ms=bnd[0],
+                               bound_by=bnd[1], bitwise_plain=ok, per=None if first else per)
                     results.append(rec)
                     print(f"[{kernel}] {label} {variant} {name} {form}: {ms:.5f} ms a launch "
-                          f"(bound {rec['bound_ms']:.7f} ms, bytes"
+                          f"(bound {bnd[0]:.7f} ms, {bnd[1]}"
                           + ("" if first else f"; {per} tasks a thread") + ")"
                           + (", bitwise plain" if ok else "") + f" round {rnd} on {card}",
                           flush=True)
@@ -453,8 +655,10 @@ def main():
     ap.add_argument("--json", default=None)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--variants", default=",".join(VARIANTS),
-                    help="comma-separated variants (default: all of each source's design)")
+                    help="comma-separated variants (default: all that apply to each source)")
     ap.add_argument("--shapes", default="", help="comma-separated state names (default: all)")
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="comma-separated kernels to time (default: all four)")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_overlap: torch sees no CUDA device", file=sys.stderr)
@@ -486,7 +690,8 @@ def main():
             if not only or name in only:
                 yield name, inputs(shape, d, n_rep, n_temps, t_range, couplings, dev, rng)
 
-    probe(libs, todo, states, card, a.rounds, results, rng)
+    probe(libs, todo, states, card, a.rounds, results, rng,
+          {k for k in a.kernels.split(",") if k})
     path = Path(a.json) if a.json else out / "probe.json"
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(dict(card=card, results=results)))
