@@ -78,8 +78,9 @@ through the user's entry points:
   square with winding (the observations' invariants, each run bitwise the
   run without overlap moves; the observe form launches no finish, the
   labelling's parents handed on as the labels), and ``houdn_bonds`` /
-  ``houdn_finish`` (g = 4 and 6; each also alone) and the pair moves'
-  labels, masks and observe form held against their plain versions;
+  ``houdn_finish`` (g = 4 and 6; each also alone, with ``fk_link``'s
+  labels between them) and the pair moves' labels, masks and observe form
+  held against their plain versions;
 * the space-sharded path (a lattice split into row bands over a
   ``("space",)`` mesh that names the one card four times, through
   ``IsingSimulation.sample``): a 4096^2 ferromagnet at T_c with SW and PT
@@ -1518,21 +1519,22 @@ def move_kernels(build):
     return tuple(k for k in PAIR_KERNELS if k in ks)
 
 
-def houdn_bounds(b, n, g, d, s, *, wolff, labels, flipped):
+def houdn_bounds(b, n, g, d, s, *, wolff, flipped):
     """``{kernel: (bound_ms, bound_by)}`` of ``houdn_bonds`` and
     ``houdn_finish`` on ``b`` tasks of ``g`` members of ``n`` sites in one
     form: the bytes that form must move.  Both read the tasks and sid;
     ``houdn_bonds`` the group's spins, and in the Wolff form the 64 probes
     of a task and writes its seed; it writes a state byte a site (the first
     design's bound also counted a parent written a site, 5 b n bytes in
-    all: fk_link writes every parent).  ``houdn_finish`` reads the parents,
-    the state bytes and two salts a task (SW) or the seed (Wolff), writes
-    the labels when asked, and reads and writes the ``flipped`` spins that
-    this run's data flips.  The observe form launches no finish."""
+    all: fk_link writes every parent).  ``houdn_finish`` reads the flat
+    parents, the state bytes and two salts a task (SW) or the seed (Wolff),
+    and reads and writes the ``flipped`` spins that this run's data flips;
+    it writes no label (the first design's bound counted the labels it
+    copied, 4 b n bytes more: fk_link labels into the caller's buffer).
+    The observe form launches no finish."""
     index = 4 * g * b + 4 * d * s
     bonds = g * b * n + index + b * n + (256 * b + 4 * b if wolff else 0)
-    finish = (4 * b * n + index + 2 * flipped + (4 * b * n if labels else 0)
-              + (4 * b if wolff else b * n + 8 * b))
+    finish = 4 * b * n + index + 2 * flipped + (4 * b if wolff else b * n + 8 * b)
     return {"houdn_bonds": bound(bonds, 0), "houdn_finish": bound(finish, 0)}
 
 
@@ -2034,10 +2036,12 @@ def check_bond_states(x, rt, tab, kind, wolff, dev):
 def move_alone(spins, sid, tab, coup, temps, shape, kind, wolff, dev):
     """The move's first and last kernels launched alone on a state and a
     move's tables: Houdayer's ``houdn_bonds`` (state bytes and seeds
-    bitwise ``overlap.houdn_states_plain``) and ``houdn_finish``, Joerg's
-    and CMR's ``ov_finish``, each on the plain version's last graph (state
-    bytes, flat parents, seeds; CMR: state2 and the grey parents), every
-    spin bitwise ``overlap.finish_plain``; returns the log's words."""
+    bitwise ``overlap.houdn_states_plain``; ``fk_link`` labels its state
+    bytes into a labels buffer, bitwise the plain parents) and
+    ``houdn_finish``, Joerg's and CMR's ``ov_finish``, each on the plain
+    version's last graph (state bytes, flat parents, seeds; CMR: state2 and
+    the grey parents), every spin bitwise ``overlap.finish_plain``; returns
+    the log's words."""
     from peapods_tpu_torch.ops import _build, fk, overlap
     from peapods_tpu_torch.ops.cluster import connected_components
 
@@ -2073,14 +2077,17 @@ def move_alone(spins, sid, tab, coup, temps, shape, kind, wolff, dev):
     overlap.finish_plain(b, sid, tab[0], tab[1], sd, st, par, kind=kind, wolff=wolff,
                          shape=shape)
     if houd:
-        dims, _ = overlap.check_event(a, *args, shape, kind)
+        # the labelling between them: fk_link's labels in the caller's
+        # buffer, which houdn_finish reads as its flat parents
         labels = torch.full_like(par, -1)
+        fk.launch_link(lib, stream, state.data_ptr(), labels.data_ptr(), st.shape[0],
+                       *_build.dims3(shape))
         _build.check(lib.peapods_houdn_finish(
             a.data_ptr(), sid.data_ptr(), tab[0].data_ptr(), tab[1].data_ptr(), st.data_ptr(),
-            par.clone().data_ptr(), sd.data_ptr(), labels.data_ptr(), *dims, g, int(wolff), 0,
-            stream), "houdn_finish")
+            par.data_ptr(), sd.data_ptr(), words.ctypes.data, g, int(wolff), stream),
+            "houdn_finish")
         torch.cuda.synchronize()
-        bad["houdn_finish labels"] = int((labels != par).sum())
+        bad["fk_link labels"] = int((labels != par).sum())
     else:
         _build.check(lib.peapods_ov_finish(
             a.data_ptr(), sid.data_ptr(), tab[0].data_ptr(), tab[1].data_ptr(), sd.data_ptr(),
@@ -2198,7 +2205,7 @@ def pair_times(runs, checks, dev):
             overlap.overlap_event_plain(moved_sp, x["sid"], tab[0], rt.coup, rt.temps,
                                         *tab[1:], kind="houdayer", wolff=True,
                                         shape=shape)
-            for k, v in houdn_bounds(b_tasks, n, 2, d, s, wolff=True, labels=False,
+            for k, v in houdn_bounds(b_tasks, n, 2, d, s, wolff=True,
                                      flipped=int((moved_sp != sp).sum())).items():
                 rec[k]["bound_ms"], rec[k]["bound_by"] = v
         rec.pop("_tables")
@@ -3765,8 +3772,7 @@ def check_houdn_kernels(main, wolff_run, obs, dev, rng):
             st["spins"].clone(), st["sid"], tab[0], rt.coup, rt.temps, *tab[1:],
             kind="houdayer", wolff=wolff, shape=shape, with_labels=labels), 3)
         for k, (bound_ms, bound_by) in houdn_bounds(
-                b, n, g, d, s, wolff=wolff, labels=labels,
-                flipped=flips(st, tab, wolff)).items():
+                b, n, g, d, s, wolff=wolff, flipped=flips(st, tab, wolff)).items():
             rec = dict(max_abs_err=0.0, bound_ms=bound_ms, bound_by=bound_by,
                        plain_ms=plain_ms, plain_is="the whole Houdayer(4) move"
                        + (", with labels" if labels else ""))
@@ -3832,7 +3838,7 @@ def check_houdn_kernels(main, wolff_run, obs, dev, rng):
             plain_ms = wall_ms(lambda: overlap.overlap_event_plain(
                 y["spins"].clone(), *args, **kw), 3)
             # the observe form launches houdn_bonds and the labelling only
-            bound_ms, bound_by = houdn_bounds(b_o, n_o, 2, d_o, s_o, wolff=False, labels=True,
+            bound_ms, bound_by = houdn_bounds(b_o, n_o, 2, d_o, s_o, wolff=False,
                                               flipped=0)["houdn_bonds"]
             out["houdn_bonds"][f"at_{name}"] = dict(
                 max_abs_err=0.0, bound_ms=bound_ms, bound_by=bound_by,

@@ -25,12 +25,12 @@
 //                 every parent left at its component's minimum site index
 //                 (flat), in the caller's labels buffer where labels are
 //                 asked for.
-//   houdn_finish  one thread per site flips the seed's component (Wolff) or
-//                 each non-singleton component with salted_uniform(root, s0,
-//                 s1) < 1/2 (SW) in all g systems; optionally copies the
-//                 labels.  The observe form (overlap_cluster_action=
-//                 "observe", pairs only) launches no finish: fk_link's flat
-//                 parents are the labels.
+//   houdn_finish  the flips of the seed's component (Wolff) or of each
+//                 non-singleton component with salted_uniform(root, s0, s1)
+//                 < 1/2 (SW) in all g systems, from fk_link's flat parents.
+//                 It writes no label.  The observe form
+//                 (overlap_cluster_action="observe", pairs only) launches no
+//                 finish: fk_link's flat parents are the labels.
 
 // Joerg and CMR on pairs:
 //
@@ -85,21 +85,25 @@
 // houdn_bonds reads the group's g spins and writes a state byte a site:
 // 0.00021 ms at 3.35 TB/s at config 4 (8^3, 384 pair tasks); ov_finish
 // reads the flat parents and the state bytes and reads and writes only
-// the spins that flip: 0.0030 ms at config 5.  Their first designs (houdn_bonds a
-// thread four sites of one task, (1 + nd) g chains of tasks -> sid -> spin
-// loads a site, fwd_site's runtime divisions, a dead parent written a
-// site; ov_finish a thread a site, task_of's divisions and loads,
-// find_root on flat parents, nonsingleton's divisions, byte spins) took
-// 0.01036 and 0.02191 ms there (NVIDIA H100 80GB HBM3, 700 W), and now
-// 0.00361 and 0.00475 ms.  Both take ov_bonds' walk, a group of four
-// sites of `per` tasks a thread with each task's rows (houdn_bonds: its g
-// member rows, in dynamic shared memory), salts and seed root staged once
-// a CTA: houdn_bonds counts each byte's negative members over the g
-// members' 4-byte words and their division-free neighbour words
-// (__vcmpeq4 against g / 2); ov_finish reads each group's roots by one
-// int4 load, tests nonsingleton word-wide (the backward words only where
-// a coin falls on a root with no forward bond) and flips each system's
-// word by one xor (tools/probe_overlap.py times both designs).
+// the spins that flip: 0.0030 ms at config 5; houdn_finish the same for
+// Houdayer's g members.  Their first designs (houdn_bonds a thread four
+// sites of one task, (1 + nd) g chains of tasks -> sid -> spin loads a
+// site, runtime divisions for each neighbour, a dead parent written a
+// site; ov_finish and houdn_finish a thread a site, runtime divisions for
+// the task's temperature and realization and for the backward neighbours
+// of the singleton test, find_root on flat parents, byte spins, and
+// houdn_finish a tasks -> sid -> spins chain a member and a site and a
+// copy of the roots into the labels) took 0.01036 and 0.02191 ms there
+// (NVIDIA H100 80GB HBM3, 700 W), and now 0.00361 and 0.00475 ms.  All
+// three take ov_bonds' walk, a group of four sites of `per` tasks a thread
+// with each task's rows (houdn_*: its g member rows, in dynamic shared
+// memory), salts and seed root staged once a CTA: houdn_bonds counts each
+// byte's negative members over the g members' 4-byte words and their
+// division-free neighbour words (__vcmpeq4 against g / 2); the finishes
+// read each group's roots by one int4 load, test nonsingleton word-wide
+// (the backward words only where a coin falls on a root with no forward
+// bond) and flip each system's word by one xor (tools/probe_overlap.py
+// times both designs).
 //
 // ov_bonds reads both replicas' spins and the couplings once and writes a
 // state byte a site: 5.1 MB at config 5 (16^3, 384 tasks), 0.0015 ms at
@@ -607,6 +611,19 @@ __device__ __forceinline__ uint32_t same_root(const int (&lab)[4], int r) {
   return f;
 }
 
+// Bit 0 of byte q where the coin of site q's root lab[q] falls below 1/2
+// (salted_uniform(root, s0, s1), SW), for the group's cnt sites.
+__device__ __forceinline__ uint32_t half_coins(const int (&lab)[4], int cnt, uint32_t s0,
+                                               uint32_t s1) {
+  uint32_t coin = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (q >= cnt) break;
+    if (salted_uniform(static_cast<uint32_t>(lab[q]), s0, s1) < 0.5f) coin |= 1u << (8 * q);
+  }
+  return coin;
+}
+
 // Bit 0 of byte q where site q has a bond (bits 0 .. ND-1 of the state
 // bytes S; st the group's word, lab its roots): its own forward bonds, a
 // root other than itself, or else a backward neighbour's forward bond
@@ -714,13 +731,7 @@ ov_mid_kernel(const int8_t* __restrict__ spins, const int32_t* __restrict__ sid,
       if (kWolff) {
         fl = same_root(lab, sh.root[k]);
       } else {
-        uint32_t coin = 0;
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          if (q >= x.cnt) break;
-          if (salted_uniform(static_cast<uint32_t>(lab[q]), sh.s0[k], sh.s1[k]) < 0.5f)
-            coin |= 1u << (8 * q);
-        }
+        const uint32_t coin = half_coins(lab, x.cnt, sh.s0[k], sh.s1[k]);
         fl = coin & nonsingleton_words<ND, kVec>(S, st, lab, coin, x, g);
       }
       const Words<ND> a = load_words<ND, kVec>(spins + sh.ra[k], x, g);
@@ -840,12 +851,21 @@ ov_finish_kernel(int8_t* __restrict__ spins, const int32_t* __restrict__ sid,
   }
 }
 
-// The spins of member r of task b (d, t): the system at slot tasks[b g + r]
-// T + t of realization d.
-__device__ __forceinline__ int8_t* member(int8_t* spins, const int32_t* sd,
-                                          const int32_t* tk, int r, int t, int n,
-                                          int n_temps, size_t row) {
-  return spins + (row + sd[tk[r] * n_temps + t]) * n;
+// The CTA's member slots, staged once in shared memory by houdn_bonds and
+// houdn_finish: rows[k gs + r] = sid[z S + tasks[(b0 + k) gs + r] T + t],
+// member r of the CTA's task k (b0 its first task, z = blockIdx.z its
+// realization), t = w / G by multiply-shift.
+__device__ __forceinline__ void stage_members(uint16_t* rows, const int32_t* __restrict__ sid,
+                                              const int32_t* __restrict__ tasks, int gs,
+                                              const OvWalk& g) {
+  const int b0 = blockIdx.z * g.T * g.G + blockIdx.x * g.per;
+  const long long row0 = static_cast<long long>(blockIdx.z) * g.S;
+  for (int k = 0; k < g.per; ++k) {
+    const int t = fast_div(blockIdx.x * g.per + k, g.m[2], g.s[2]);
+    const int32_t* tk = tasks + static_cast<size_t>(b0 + k) * gs;
+    for (int r = threadIdx.x; r < gs; r += kThreads)
+      rows[k * gs + r] = static_cast<uint16_t>(__ldg(sid + row0 + __ldg(tk + r) * g.T + t));
+  }
 }
 
 // Bit 0 of byte q of act[0] where site i0 + q of the group is balanced
@@ -897,7 +917,7 @@ __device__ __forceinline__ void balanced_words(const int8_t* __restrict__ spins,
 // written a site).  ov_bonds' walk (blockIdx.z the realization, x its set
 // of `per` consecutive tasks of G groups, y the groups' block, strided):
 // the CTA stages each task's g member slots in dynamic shared memory once
-// (per g entries, t = w / G by multiply-shift), and a thread takes the
+// (stage_members: per g entries), and a thread takes the
 // group of four sites 4 grp .. 4 grp + 3 of each task: balanced_words over
 // the members' 4-byte words and division-free neighbour words, bond d =
 // act & act_f[d], the state bytes one 4-byte store; no parent (fk_link
@@ -914,15 +934,10 @@ houdn_bonds_kernel(const int8_t* __restrict__ spins, const int32_t* __restrict__
                    uint8_t* __restrict__ state, int32_t* __restrict__ seeds, const OvWalk g,
                    int gs, int wolff) {
   extern __shared__ uint16_t houdn_rows[];
+  stage_members(houdn_rows, sid, tasks, gs, g);
+  __syncthreads();
   const int b0 = blockIdx.z * g.T * g.G + blockIdx.x * g.per;
   const long long row0 = static_cast<long long>(blockIdx.z) * g.S;
-  for (int k = 0; k < g.per; ++k) {
-    const int t = fast_div(blockIdx.x * g.per + k, g.m[2], g.s[2]);
-    const int32_t* tk = tasks + static_cast<size_t>(b0 + k) * gs;
-    for (int r = threadIdx.x; r < gs; r += kThreads)
-      houdn_rows[k * gs + r] = static_cast<uint16_t>(__ldg(sid + row0 + __ldg(tk + r) * g.T + t));
-  }
-  __syncthreads();
   if (blockIdx.y == 0) {
     if (wolff) {
       if (threadIdx.x < 32) {
@@ -969,41 +984,99 @@ houdn_bonds_kernel(const int8_t* __restrict__ spins, const int32_t* __restrict__
   }
 }
 
+// Houdayer(N)'s flips (the first design: a thread a site of one task,
+// runtime divisions for the task's realization and temperature and for
+// the backward neighbours of the singleton test, find_root on parents
+// fk_link has already flattened, for Wolff also on the seed in every
+// thread, a tasks -> sid -> spins chain a member and a site with byte
+// loads and stores, and a copy of the roots into the labels).  ov_finish's
+// walk with houdn_bonds' staged rows: the CTA stages each task's g member
+// slots (stage_members) and, from its last threads, its SW salts s0, s1
+// or its Wolff seed's root (one load of parent[b n + seed] a task, -1
+// where the seed is n: no flip); a thread takes the group of four sites
+// 4 grp .. 4 grp + 3 of each of its tasks.  state / parent are
+// houdn_bonds' bonds and fk_link's flat parents of them (the caller's
+// labels where it asks for them): each group's roots one int4 load;
+// Wolff flips the seed's component, SW each non-singleton
+// (nonsingleton_words) whose coin falls below 1/2.  Each member's word is one 4-byte load and one store, xor f
+// 0xFE, none where no site of the group flips; up to kFlipBatch members'
+// loads are issued before their stores (distinct systems), so the g
+// members cost about one load's latency, not g.  Each system belongs to
+// one task of a move, so no two threads write one word.  Where !kVec the
+// per-site path gathers bytes, as ov_finish's.
+constexpr int kFlipBatch = 8;  // the members' words houdn_finish loads at once
+
+template <int ND, bool kWolff, bool kVec>
 __global__ void __launch_bounds__(kThreads)
-houdn_finish_kernel(int8_t* spins, const int32_t* __restrict__ sid,
+houdn_finish_kernel(int8_t* __restrict__ spins, const int32_t* __restrict__ sid,
                     const int32_t* __restrict__ tasks, const int32_t* __restrict__ scal,
-                    const uint8_t* __restrict__ state, int32_t* parent,
-                    const int32_t* __restrict__ seeds, int32_t* __restrict__ labels,
-                    int L0, int L1, int L2, int n_temps, int n_groups, int n_slots,
-                    int g_size, int wolff, int observe) {
-  const Dims g = make_dims(L0, L1, L2);
-  const int n = L0 * L1 * L2;
-  const int b = blockIdx.y;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int d = b / (n_temps * n_groups);
-  const int t = (b / n_groups) % n_temps;
-  const size_t row = static_cast<size_t>(d) * n_slots;
-  const size_t base = static_cast<size_t>(b) * n;
-  int32_t* P = parent + base;
-  const int root = find_root(P, i);
-  if (observe) {
-    labels[base + i] = root;
-    return;
+                    const uint8_t* __restrict__ state, const int32_t* __restrict__ parent,
+                    const int32_t* __restrict__ seeds, const OvWalk g, int gs) {
+  extern __shared__ uint16_t houdn_rows[];
+  __shared__ OvTasks sh;
+  stage_members(houdn_rows, sid, tasks, gs, g);
+  const int b0 = blockIdx.z * g.T * g.G + blockIdx.x * g.per;
+  // the task entries from the CTA's last threads, beside the first ones'
+  // tasks -> sid chains
+  const int e = kThreads - 1 - threadIdx.x;
+  if (e < g.per) {
+    const int b = b0 + e;
+    if (kWolff) {
+      const int seed = seeds[b];
+      sh.root[e] = seed < g.n ? __ldg(parent + static_cast<size_t>(b) * g.n + seed) : -1;
+    } else {
+      sh.s0[e] = static_cast<uint32_t>(scal[6 * b]);
+      sh.s1[e] = static_cast<uint32_t>(scal[6 * b + 1]);
+    }
   }
-  const int seed = seeds[b];
-  const bool flip =
-      wolff ? seed < n && root == find_root(P, seed)
-            : salted_uniform(static_cast<uint32_t>(root),
-                             static_cast<uint32_t>(scal[6 * b]),
-                             static_cast<uint32_t>(scal[6 * b + 1])) < 0.5f &&
-                  nonsingleton(state + base, i, g);
-  if (labels != nullptr) labels[base + i] = root;
-  if (!flip) return;
-  const int32_t* tk = tasks + static_cast<size_t>(b) * g_size;
-  for (int r = 0; r < g_size; ++r) {
-    int8_t* s = member(spins, sid + row, tk, r, t, n, n_temps, row);
-    s[i] = static_cast<int8_t>(-s[i]);
+  __syncthreads();
+  const long long row0 = static_cast<long long>(blockIdx.z) * g.S;
+  const int n_grp = (g.n + 3) >> 2;
+  for (int grp = blockIdx.y * kThreads + threadIdx.x; grp < n_grp;
+       grp += gridDim.y * kThreads) {
+    const Group<ND, kVec> x = group_at<ND, kVec>(g, grp);
+    for (int k = 0; k < g.per; ++k) {
+      const size_t base = static_cast<size_t>(b0 + k) * g.n;
+      int lab[4];
+      const uint32_t st = load_roots<ND, kVec>(state + base, parent + base, x, lab);
+      uint32_t f;  // bit 0 of byte q: site q flips in every member
+      if (kWolff) {
+        f = same_root(lab, sh.root[k]);
+      } else {
+        const uint32_t coin = half_coins(lab, x.cnt, sh.s0[k], sh.s1[k]);
+        f = coin & nonsingleton_words<ND, kVec>(state + base, st, lab, coin, x, g);
+      }
+      if (!f) continue;
+      const uint16_t* rows = houdn_rows + k * gs;
+      if (kVec) {
+        // up to kFlipBatch members' words loaded before any is stored:
+        // the members are distinct systems
+        for (int r0 = 0; r0 < gs; r0 += kFlipBatch) {
+          uint32_t* w[kFlipBatch];
+          uint32_t v[kFlipBatch];
+#pragma unroll
+          for (int j = 0; j < kFlipBatch; ++j) {
+            if (r0 + j >= gs) break;
+            w[j] = reinterpret_cast<uint32_t*>(spins + (row0 + rows[r0 + j]) * g.n) + grp;
+            v[j] = *w[j];
+          }
+#pragma unroll
+          for (int j = 0; j < kFlipBatch; ++j) {
+            if (r0 + j >= gs) break;
+            *w[j] = v[j] ^ f * 0xFEu;
+          }
+        }
+      } else {
+        for (int r = 0; r < gs; ++r) {
+          int8_t* s = spins + (row0 + rows[r]) * g.n;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            if (q >= x.cnt) break;
+            s[x.i0 + q] ^= static_cast<int8_t>(((f >> (8 * q)) & 1u) * 0xFEu);
+          }
+        }
+      }
+    }
   }
 }
 
@@ -1207,10 +1280,8 @@ energy_partials_kernel(const int8_t* __restrict__ spins, const float* __restrict
   }
 }
 
-// houdn_finish's launch: a thread a site, y the task.
-inline dim3 site_grid(int n, int rows) { return dim3((n + kThreads - 1) / kThreads, rows); }
-
-// The overlap moves' launch (ov_bonds, ov_mid, ov_finish, houdn_bonds):
+// The overlap moves' launch (ov_bonds, ov_mid, ov_finish, houdn_bonds,
+// houdn_finish):
 // x the realization's task sets, y the groups' blocks (at most 65535, a
 // thread striding over the rest), z the realization.
 inline dim3 ov_grid(const OvWalk& g) {
@@ -1366,21 +1437,40 @@ int peapods_houdn_bonds(const void* spins, const void* sid, const void* tasks,
   return static_cast<int>(cudaGetLastError());
 }
 
-// labels: int32 [n_tasks, n] or null; observe: write the labels (required
-// then) and no spin.
-int peapods_houdn_finish(void* spins, const void* sid, const void* tasks,
-                         const void* scal, const void* state, void* parent,
-                         const void* seeds, void* labels, int n_tasks, int L0, int L1,
-                         int L2, int n_temps, int n_groups, int n_slots, int g_size,
-                         int wolff, int observe, void* stream) {
-  if (observe && labels == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  houdn_finish_kernel<<<site_grid(L0 * L1 * L2, n_tasks), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
+// The flips of a Houdayer(N) move: seeds int32 [n_tasks] (houdn_bonds');
+// state / parent: houdn_bonds' state bytes and fk_link's flat parents of
+// their graph (the caller's labels where it asks for them); words and the
+// staged member slots as houdn_bonds' (with the CTA's task entries in
+// static shared memory beside them).
+int peapods_houdn_finish(void* spins, const void* sid, const void* tasks, const void* scal,
+                         const void* state, const void* parent, const void* seeds,
+                         const int* words, int g_size, int wolff, void* stream) {
+  const OvWalk g = make_ov_walk(words);
+  const size_t smem = static_cast<size_t>(g.per) * g_size * sizeof(uint16_t);
+  if (!ov_walk_ok(g) || g_size < 2 || g_size % 2 || g.S > 65536 ||
+      smem + sizeof(OvTasks) > 232448)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = g.lf % 4 == 0 && aligned(spins, 4) && aligned(parent, 16) &&
+                   aligned(state, 4);
+  using Kernel = void (*)(int8_t*, const int32_t*, const int32_t*, const int32_t*,
+                          const uint8_t*, const int32_t*, const int32_t*, const OvWalk, int);
+  // [nd == 3][wolff][vec]
+  static const Kernel kernels[2][2][2] = {
+      {{houdn_finish_kernel<2, false, false>, houdn_finish_kernel<2, false, true>},
+       {houdn_finish_kernel<2, true, false>, houdn_finish_kernel<2, true, true>}},
+      {{houdn_finish_kernel<3, false, false>, houdn_finish_kernel<3, false, true>},
+       {houdn_finish_kernel<3, true, false>, houdn_finish_kernel<3, true, true>}}};
+  const Kernel kernel = kernels[g.nd == 3][wolff != 0][vec];
+  if (smem + sizeof(OvTasks) > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  kernel<<<ov_grid(g), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int8_t*>(spins), static_cast<const int32_t*>(sid),
       static_cast<const int32_t*>(tasks), static_cast<const int32_t*>(scal),
-      static_cast<const uint8_t*>(state), static_cast<int32_t*>(parent),
-      static_cast<const int32_t*>(seeds), static_cast<int32_t*>(labels), L0, L1, L2,
-      n_temps, n_groups, n_slots, g_size, wolff, observe);
+      static_cast<const uint8_t*>(state), static_cast<const int32_t*>(parent),
+      static_cast<const int32_t*>(seeds), g, g_size);
   return static_cast<int>(cudaGetLastError());
 }
 

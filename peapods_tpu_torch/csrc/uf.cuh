@@ -1,10 +1,9 @@
 // Device helpers shared by the cluster kernels (fk.cu, overlap.cu, cc.cu,
-// cc_band.cu): the periodic neighbours of a 2D or 3D lattice (and of the
-// triangular lattice's third bond direction), the salted per-cluster coin,
-// the union-find in global memory whose roots are each component's minimum
-// site index (find_root, unite: between tile or box roots, fk.cu's and
-// cc.cu's borders), and the union-find of a tile in shared memory
-// (tile_root, tile_unite).
+// cc_band.cu, winding.cu): the salted per-cluster coin, the union-find in
+// global memory whose roots are each component's minimum site index
+// (find_root, unite: between tile or box roots, fk.cu's and cc.cu's
+// borders), and the union-find of a tile in shared memory (tile_root,
+// tile_unite).
 #pragma once
 
 #include <cstddef>
@@ -14,51 +13,6 @@
 #include "nb.cuh"
 
 namespace peapods {
-
-// Extents and strides of a row-major periodic lattice: 2D is [L0, L1]
-// (pass L2 = 1), 3D is [L0, L1, L2].  Bond direction d < nd is +1 along
-// axis d; the triangular lattice (tri, 2D) adds direction 2, offset
-// [1, -1], each axis wrapped on its own (pallas_cc_batch.dir_shifts).
-struct Dims {
-  int nd;    // axes
-  int ndir;  // bond directions: nd, or 3 on the triangular lattice
-  bool tri;
-  int n[3];
-  int stride[3];
-};
-
-__host__ __device__ inline Dims make_dims(int L0, int L1, int L2, bool tri = false) {
-  Dims g;
-  g.nd = L2 > 1 ? 3 : 2;
-  g.tri = tri;
-  g.ndir = tri ? 3 : g.nd;
-  g.n[0] = L0;
-  g.n[1] = L1;
-  g.n[2] = L2;
-  g.stride[0] = L1 * L2;
-  g.stride[1] = L2;
-  g.stride[2] = 1;
-  return g;
-}
-
-// One step forward / backward along axis a, periodic (houdn_finish's
-// nonsingleton, through bwd_site).
-__device__ __forceinline__ int step_fwd(int i, const Dims& g, int a) {
-  const int s = g.stride[a];
-  const int L = g.n[a];
-  return (i / s) % L == L - 1 ? i - (L - 1) * s : i + s;
-}
-
-__device__ __forceinline__ int step_bwd(int i, const Dims& g, int a) {
-  const int s = g.stride[a];
-  const int L = g.n[a];
-  return (i / s) % L == 0 ? i + (L - 1) * s : i - s;
-}
-
-__device__ __forceinline__ int bwd_site(int i, const Dims& g, int dir) {
-  if (g.tri && dir == 2) return step_fwd(step_bwd(i, g, 0), g, 1);  // (i-1, j+1)
-  return step_bwd(i, g, dir);
-}
 
 // murmur-style hash of (label, salt) to a 24-bit uniform (ops/cluster.py)
 __device__ __forceinline__ float salted_uniform(uint32_t x, uint32_t s0,
@@ -143,16 +97,6 @@ __device__ __forceinline__ void tile_unite(int* P, int x, int y) {
     if (old == x) return;
     x = old;
   }
-}
-
-// Whether site i has a bond (bits 0 .. ndir-1 of the state bytes): its own
-// forward bonds or its backward neighbours' forward bonds towards it.
-__device__ __forceinline__ bool nonsingleton(const uint8_t* state, int i,
-                                             const Dims& g) {
-  if (state[i] & ((1u << g.ndir) - 1u)) return true;
-  for (int dir = 0; dir < g.ndir; ++dir)
-    if ((state[bwd_site(i, g, dir)] >> dir) & 1u) return true;
-  return false;
 }
 
 }  // namespace peapods

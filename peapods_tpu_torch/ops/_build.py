@@ -66,7 +66,7 @@ _SIGNATURES = {
     "peapods_ov_mid": [_P] * 11 + [_I] + [_P],
     "peapods_ov_finish": [_P] * 8 + [_I] * 2 + [_P],
     "peapods_houdn_bonds": [_P] * 7 + [_I] * 2 + [_P],
-    "peapods_houdn_finish": [_P] * 8 + [_I] * 10 + [_P],
+    "peapods_houdn_finish": [_P] * 8 + [_I] * 2 + [_P],
     "peapods_energy_partials": [_P] * 6,
     "peapods_nb_blocks": [_I],
     "peapods_sweep_nb": [_P] * 6 + [_I] * 5 + [_P],

@@ -433,12 +433,12 @@ class Scratch:
 
 
 # the overlap moves' kernels (csrc/overlap.cu ov_bonds, ov_mid, ov_finish,
-# houdn_bonds): a thread takes a group of four sites of `per` consecutive
+# houdn_bonds, houdn_finish): a thread takes a group of four sites of `per` consecutive
 # tasks of one realization, reading the group's couplings once and taking
 # J / T once a temperature for them
 OV_MAX_PER = 8
-# houdn_bonds stages a CTA's per g member slots (2 bytes each) in shared
-# memory: the rule keeps them within the 48 KB a launch takes without
+# houdn_bonds and houdn_finish stage a CTA's per g member slots (2 bytes
+# each) in shared memory: the rule keeps them within the 48 KB a launch takes without
 # opting in (one task of g > HOUDN_ROWS members opts in to more)
 HOUDN_ROWS = 24576
 
@@ -448,7 +448,7 @@ def ov_per(n_sites: int, n_disorder: int, n_temps: int, n_pairs: int, threads: i
            most: int = OV_MAX_PER) -> int:
     """The tasks a thread of the overlap moves' kernels takes in turn: the
     largest divisor of a realization's ``n_temps * n_pairs`` tasks up to
-    ``most`` (:data:`OV_MAX_PER`; ``houdn_bonds``: ``HOUDN_ROWS // g``) that
+    ``most`` (:data:`OV_MAX_PER`; ``houdn_*``: ``HOUDN_ROWS // g``) that
     is a multiple or a divisor of ``n_pairs`` (so a thread's tasks of one
     temperature sit side by side) and whose launch still has ``threads``
     threads (its callers: a quarter of the card's resident threads,
@@ -486,18 +486,18 @@ def launch_event(lib, stream, dims, p_spins, p_sid, p_tasks, p_coup, p_temps,
                  p_labels=None, p_blue=None, observe=False, per=0):
     """Launch one move's kernels on raw pointers: ``dims`` is ``(n_tasks,
     L0, L1, L2, T, G, S)``; ``scratch`` the :meth:`Scratch.ptrs`; ``group``
-    the replicas of a task; ``per`` the tasks a thread of ``houdn_bonds``
-    and the ``ov_*`` kernels takes (default :func:`ov_per`'s).  Houdayer,
-    on groups of any even size, takes ``houdn_bonds``, ``fk_link`` and
-    ``houdn_finish`` (which copies the labels into ``p_labels``); Joerg
-    ``ov_bonds``, ``fk_link``, ``ov_finish``; CMR ``ov_bonds``, ``fk_link``
-    (blue), ``ov_mid``, ``fk_link`` (grey), ``ov_finish``.  The Joerg and
-    CMR labellings write straight into the caller's buffers, which the
-    next kernel reads as its flat parents: Joerg's graph and CMR's grey one
-    into ``p_labels``, CMR's blue one into ``p_blue`` (the scratch parents
-    where a buffer is ``None``).  The observe form launches no finish (and
-    no ``ov_mid``): ``fk_link`` labels the stats graph into ``p_labels``
-    (CMR: ``p_blue``, required then) and no spin is written."""
+    the replicas of a task; ``per`` the tasks a thread of the ``houdn_*``
+    and ``ov_*`` kernels takes (default :func:`ov_per`'s).  Houdayer, on
+    groups of any even size, takes ``houdn_bonds``, ``fk_link`` and
+    ``houdn_finish``; Joerg ``ov_bonds``, ``fk_link``, ``ov_finish``; CMR
+    ``ov_bonds``, ``fk_link`` (blue), ``ov_mid``, ``fk_link`` (grey),
+    ``ov_finish``.  The labellings write straight into the caller's
+    buffers, which the next kernel reads as its flat parents: Houdayer's
+    and Joerg's graphs and CMR's grey one into ``p_labels``, CMR's blue one
+    into ``p_blue`` (the scratch parents where a buffer is ``None``).  The
+    observe form launches no finish (and no ``ov_mid``): ``fk_link`` labels
+    the stats graph into ``p_labels`` (CMR: ``p_blue``, required then) and
+    no spin is written."""
     n_tasks, l0, l1, l2, n_temps, n_groups, n_slots = dims
     st, par, seeds, st2, par2 = scratch
     stats = p_blue if kind == "cmr" else p_labels
@@ -526,15 +526,15 @@ def launch_event(lib, stream, dims, p_spins, p_sid, p_tasks, p_coup, p_temps,
             st, seeds, words.ctypes.data, k, int(wolff), stream), "ov_bonds")
         LAUNCHES["ov_bonds"] += 1
     # the first graph's flat parents: the stats graph's labels where the
-    # caller asks for them (Houdayer's update form copies them instead)
-    first = stats if stats is not None and (observe or not houd) else par
+    # caller asks for them
+    first = par if stats is None else stats
     fk.launch_link(lib, stream, st, first, n_tasks, l0, l1, l2)
     if observe:
         return
     if houd:
         _build.check(lib.peapods_houdn_finish(
-            p_spins, p_sid, p_tasks, p_scal, st, par, seeds, p_labels, *dims, group,
-            int(wolff), 0, stream), "houdn_finish")
+            p_spins, p_sid, p_tasks, p_scal, st, first, seeds, words.ctypes.data, group,
+            int(wolff), stream), "houdn_finish")
         LAUNCHES["houdn_finish"] += 1
         return
     last_st, last = st, first

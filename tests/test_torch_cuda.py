@@ -2078,21 +2078,54 @@ def test_houdn_bonds_large_groups_match_plain(cuda, g, d, wolff):
     assert int(fk.state_masks(st, 3).sum()) > 0 and (not wolff or int((sd < n).sum()) == d)
 
 
+@pytest.mark.parametrize("wolff", [True, False], ids=["wolff", "sw"])
+@pytest.mark.parametrize("g,d", [(256, 2), (24578, 1)], ids=["g256", "rows-past-48k"])
+def test_houdn_move_large_groups_match_plain(cuda, g, d, wolff):
+    """houdn_bonds -> fk_link -> houdn_finish on one group of g replicas at
+    one temperature (4^3), as ``test_houdn_bonds_large_groups_match_plain``
+    builds it: g = 256 and g past HOUDN_ROWS, where both kernels stage more
+    than 48 KB of member slots (their launches opt in to more shared
+    memory).  Every member's spins and the labels bitwise the plain move."""
+    from peapods_tpu_torch.ops import overlap
+
+    shape = (4, 4, 4)
+    n = 64
+    assert g > 254 and (g == 256 or g > overlap.HOUDN_ROWS)
+    x = _pair_inputs(cuda, 53, shape, d, g, 1)
+    mask = torch.from_numpy(np.random.default_rng(7).random(n) < 0.5).to(cuda)
+    half = x["spins"][:, g // 2:]
+    half[:, :, mask] = -x["spins"][:, :g // 2][:, :, mask]
+    tab = _event_inputs(x, d, g, 1, n, "houdayer", wolff, 23, g=g)
+    a, b = x["spins"].clone(), x["spins"].clone()
+    for k in overlap.LAUNCHES:
+        overlap.LAUNCHES[k] = 0
+    kw = dict(kind="houdayer", wolff=wolff, shape=shape, with_labels=True)
+    lk = overlap.overlap_event(a, x["sid"], tab[0], x["coup"], x["temps"], *tab[1:], **kw)
+    lp = overlap.overlap_event_plain(b, x["sid"], tab[0], x["coup"], x["temps"], *tab[1:],
+                                     **kw)
+    torch.cuda.synchronize()
+    assert overlap.LAUNCHES["houdn_bonds"] == overlap.LAUNCHES["houdn_finish"] == 1
+    assert torch.equal(a, b)
+    assert torch.equal(lk.labels, lp.labels)
+    assert not torch.equal(a, x["spins"])
+
+
 @pytest.mark.parametrize("per", ["rule", "one", "most"])
-@pytest.mark.parametrize("kind", ["houdayer", "jorg", "cmr"])
+@pytest.mark.parametrize("kind,g", [("houdayer", 2), ("houdayer", 4), ("houdayer", 6),
+                                    ("jorg", 2), ("cmr", 2)],
+                         ids=["houdayer-g2", "houdayer", "houdayer-g6", "jorg", "cmr"])
 @pytest.mark.parametrize("wolff", [True, False], ids=["wolff", "sw"])
 @pytest.mark.parametrize("shape,d,n_rep,n_temps,offset", ALONE_SHAPES, ids=ALONE_IDS)
 def test_finish_alone_matches_finish_plain(cuda, shape, d, n_rep, n_temps, offset, wolff,
-                                           kind, per):
-    """ov_finish (Joerg, CMR) and houdn_finish (Houdayer, g = 4) launched
-    alone on the plain version's state bytes, flat parents and seeds (CMR:
-    state2 and the grey parents): every spin bitwise ``finish_plain``;
-    houdn_finish's labels the parents; a Joerg task with no active probe
-    (seed n) flips nothing."""
+                                           kind, g, per):
+    """ov_finish (Joerg, CMR) and houdn_finish (Houdayer, g = 2, 4, 6)
+    launched alone on the plain version's state bytes, flat parents and
+    seeds (CMR: state2 and the grey parents), every plan of tasks a thread:
+    every spin bitwise ``finish_plain``, the parents left as they were; a
+    Joerg task with no active probe (seed n) flips nothing."""
     from peapods_tpu_torch.ops import overlap
     from peapods_tpu_torch.ops.cluster import connected_components
 
-    g = 4 if kind == "houdayer" else 2
     x = _pair_inputs(cuda, 43, shape, d, n_rep, n_temps, "gauss")
     n = int(np.prod(shape))
     tab = _event_inputs(x, d, n_rep, n_temps, n, kind, wolff, 17, g=g)
@@ -2114,17 +2147,18 @@ def test_finish_alone_matches_finish_plain(cuda, shape, d, n_rep, n_temps, offse
                          shape=shape)
     stream = torch.cuda.current_stream(cuda).cuda_stream
     lib = _build.library()
-    if kind == "houdayer":
-        dims, _ = overlap.check_event(a, *args, shape, kind)
-        labels = torch.full_like(par, -1)
+    houd = kind == "houdayer"
+    per = _move_per(per, n_temps, n_rep // g, g) or overlap.ov_per(
+        n, d, n_temps, n_rep // g, fk.resident_threads(cuda.index) // 4,
+        max(1, overlap.HOUDN_ROWS // g) if houd else overlap.OV_MAX_PER)
+    words = overlap.ov_words(shape, d, n_temps, n_rep // g, n_rep * n_temps, per)
+    kept = par.clone()
+    if houd:
         _build.check(lib.peapods_houdn_finish(
             a.data_ptr(), x["sid"].data_ptr(), tab[0].data_ptr(), tab[1].data_ptr(),
-            st.data_ptr(), par.clone().data_ptr(), sd.data_ptr(), labels.data_ptr(), *dims,
-            g, int(wolff), 0, stream), "houdn_finish")
+            st.data_ptr(), par.data_ptr(), sd.data_ptr(), words.ctypes.data, g, int(wolff),
+            stream), "houdn_finish")
     else:
-        per = _move_per(per, n_temps, n_rep // 2, 2) or overlap.ov_per(
-            n, d, n_temps, n_rep // 2, fk.resident_threads(cuda.index) // 4)
-        words = overlap.ov_words(shape, d, n_temps, n_rep // 2, n_rep * n_temps, per)
         _build.check(lib.peapods_ov_finish(
             a.data_ptr(), x["sid"].data_ptr(), tab[0].data_ptr(), tab[1].data_ptr(),
             sd.data_ptr(), st.data_ptr(), par.data_ptr(), words.ctypes.data,
@@ -2132,8 +2166,7 @@ def test_finish_alone_matches_finish_plain(cuda, shape, d, n_rep, n_temps, offse
     torch.cuda.synchronize()
     assert torch.equal(a, b)
     assert not torch.equal(a, spins)
-    if kind == "houdayer":
-        assert torch.equal(labels, par)
+    assert torch.equal(par, kept)
     if kind == "jorg" and wolff:
         assert int(sd[0]) == n
         assert torch.equal(a[0, sys[0, 0, 0]], spins[0, sys[0, 0, 0]])

@@ -1,9 +1,11 @@
-"""A numpy model of ``houdn_bonds``' and ``ov_finish``'s launches
-(``csrc/overlap.cu``), held to the plain versions and the JAX package.
+"""A numpy model of ``houdn_bonds``', ``ov_finish``'s and
+``houdn_finish``'s launches (``csrc/overlap.cu``), held to the plain
+versions and the JAX package.
 
-Both kernels take ``ov_bonds``' walk (``ops/overlap.py`` ``ov_words``,
+The kernels take ``ov_bonds``' walk (``ops/overlap.py`` ``ov_words``,
 ``ov_per``): a group of four sites of ``per`` consecutive tasks of one
-realization a thread, every (task, group) once.
+realization a thread, every (task, group) once; ``houdn_*`` with ``per``
+from the ``HOUDN_ROWS // g`` rule.
 
 * ``houdn_bonds``: a CTA stages each task's ``g`` member slots once (the
   model's table against ``gather_tasks``); a thread counts each byte's
@@ -18,6 +20,11 @@ realization a thread, every (task, group) once.
   the word-wide nonsingleton test (the backward words only where a coin
   falls on a root with no forward bond), and each system's word flipped by
   ``xor f 0xFE``: bitwise ``finish_plain`` and ``overlap_event_plain``.
+* ``houdn_finish``: the same flips in every one of the ``g`` members,
+  read from the CTA's staged member slots (as ``houdn_bonds``' are),
+  bitwise ``finish_plain`` and ``overlap_event_plain`` at g = 2, 4, 6;
+  ``launch_event`` hands it ``fk_link``'s flat parents, the caller's
+  labels where it asks for them, and no labels argument.
 * The model's whole move (bonds, the labelling, the flips) against the JAX
   package's fused events (``houdn_event_batch``, ``overlap_event_batch``,
   interpret mode) fed the same uniforms: spins and the stats graph's
@@ -30,7 +37,7 @@ import pytest
 import torch
 
 from peapods_tpu_torch.engine import seeds
-from peapods_tpu_torch.ops import overlap
+from peapods_tpu_torch.ops import _build, fk, overlap
 from peapods_tpu_torch.ops import rng as trng
 from peapods_tpu_torch.ops.cluster import connected_components, salted_uniform
 from peapods_tpu_torch.ops.fk import state_masks
@@ -161,22 +168,36 @@ def model_houdn(spins, sid, tasks, probes, shape, wolff, per=0, wide=False):
     return state, torch.tensor(sd, dtype=torch.int32), balanced
 
 
+def houdn_per(n, d, T, G, gs, threads=1):
+    """``launch_event``'s tasks a thread of the ``houdn_*`` kernels:
+    :func:`~overlap.ov_per` up to ``HOUDN_ROWS // g`` (at least 1), against
+    ``threads`` (1: the most the rule allows)."""
+    return overlap.ov_per(n, d, T, G, threads, max(1, overlap.HOUDN_ROWS // gs))
+
+
 def model_finish(spins, sid, tasks, scal, seeds_, state, parent, shape, kind, wolff, per=0):
     """The model's flips, in place: each (task, group) of ``ov_finish``'s
-    walk (or ``houdn_finish``'s, over every member) from the group's roots
+    walk (or ``houdn_finish``'s, over every member: the CTA's staged
+    member slots, ``per`` from :func:`houdn_per`) from the group's roots
     (one word of flat parents), its state word, the coins and the
     word-wide nonsingleton test, each system's word xor ``f 0xFE``.
     Returns how many (task, group)s loaded their backward words."""
     d, S, n = spins.shape
     nd = len(shape)
     T, G, gs = tasks.shape[1:]
-    per = per or overlap.ov_per(n, d, T, G, 1 << 30)
+    houd = kind == "houdayer"
+    per = per or (houdn_per(n, d, T, G, gs) if houd else overlap.ov_per(n, d, T, G, 1 << 30))
     g = _walk(overlap.ov_words(tuple(shape), d, T, G, S, per))
     B = d * T * G
     b_of, grp_of, _ = launch_map(g)
     assert _covers_once(b_of, grp_of, None, B, -(-n // 4))
     sys, *_ = overlap.gather_tasks(spins, sid, tasks, T)
     sys = sys.reshape(B, gs)
+    if houd:  # the members of each task as the CTA stages them
+        assert per * gs <= max(overlap.HOUDN_ROWS, gs)
+        rows = torch.from_numpy(cta_rows(g, sid, tasks, gs).reshape(B, gs))
+        assert torch.equal(rows, sys)
+        sys = rows
     pad = (-n) % 4
     ng = (n + pad) // 4
     lab = torch.nn.functional.pad(parent.to(torch.int64), (0, pad), value=-1).reshape(B, ng, 4)
@@ -347,6 +368,105 @@ def test_finish_model_is_bitwise_the_plain_move(shape, kind, wolff, per):
     assert torch.equal(lab.to(torch.int64), graphs.labels.to(torch.int64))
 
 
+@pytest.mark.parametrize("wolff", [True, False], ids=["wolff", "sw"])
+@pytest.mark.parametrize("g", [2, 4, 6])
+@pytest.mark.parametrize("shape", SHAPES, ids=IDS)
+def test_houdn_finish_model_is_bitwise_the_plain_move(shape, g, wolff):
+    """``houdn_finish``'s walk (``per`` from the ``HOUDN_ROWS // g`` rule,
+    every (task, group) once, the CTA's staged member slots against
+    ``gather_tasks``) flips every member's words from the flat parents:
+    bitwise ``finish_plain`` on the kernel's own inputs and
+    ``overlap_event_plain``'s whole move, whose labels are the parents."""
+    n_groups = 2 if g == 2 else 1
+    d, T = 2, 4
+    args = _inputs(shape, d, g, n_groups, T, 7 + g + wolff, "houdayer", wolff)
+    st, par, sd = _last_graph(args, shape, "houdayer", wolff)
+    spins, sid, tasks, coup, temps, scal, probes, words = args
+    n = int(np.prod(shape))
+    per = houdn_per(n, d, T, n_groups, g)
+    assert per == T * n_groups  # the rule's most: a realization's tasks in one CTA
+    want = spins.clone()
+    graphs = overlap.overlap_event_plain(want, sid, tasks, coup, temps, scal, probes, words,
+                                         kind="houdayer", wolff=wolff, shape=shape,
+                                         with_labels=True)
+    plain = spins.clone()
+    lab = overlap.finish_plain(plain, sid, tasks, scal, sd, st, par, kind="houdayer",
+                               wolff=wolff, shape=shape)
+    for p in (per, 1):
+        model = spins.clone()
+        model_finish(model, sid, tasks, scal, sd, st, par, shape, "houdayer", wolff, p)
+        assert torch.equal(model, want)
+    assert torch.equal(plain, want)
+    assert not torch.equal(want, spins)
+    assert torch.equal(lab.to(torch.int64), graphs.labels.to(torch.int64))
+
+
+@pytest.mark.parametrize("g", [2, 4, 6, 3072, 3074, 6144, 24576, 24578])
+def test_houdn_rule_keeps_the_staged_rows_within_48k(g):
+    """The ``houdn_*`` kernels' tasks a thread: the largest divisor of a
+    realization's tasks up to ``HOUDN_ROWS // g`` (2-byte member slots, so
+    a CTA's rows stay within the 48 KB a launch takes without opting in),
+    one task where a group alone is past it."""
+    per = houdn_per(4 ** 3, 1, 8, 1, g)
+    assert 1 <= per <= overlap.OV_MAX_PER and 8 % per == 0
+    assert per * g * 2 <= 48 * 1024 or per == 1
+    assert per == max(p for p in (1, 2, 4, 8) if p <= max(1, overlap.HOUDN_ROWS // g))
+
+
+class _Recorder:
+    """Stands in for the kernels' library: each entry point records its
+    arguments and reports success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+
+@pytest.mark.parametrize("wolff", [True, False], ids=["wolff", "sw"])
+@pytest.mark.parametrize("observe,labels", [(False, True), (False, False), (True, True)],
+                         ids=["update-labels", "update", "observe"])
+def test_houdn_launches_hand_fk_link_the_callers_labels(monkeypatch, observe, labels, wolff):
+    """``launch_event``'s Houdayer forms on a recording library: ``fk_link``
+    labels ``houdn_bonds``' state bytes into the caller's labels (the
+    scratch parents where it passes none), and ``houdn_finish`` reads those
+    flat parents with the same walk words as ``houdn_bonds``, with no
+    labels argument (its entry's signature); the observe form launches no
+    finish."""
+    monkeypatch.setattr(fk, "resident_threads", lambda index: 132 * 2048)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(fk, "LAUNCHES", dict.fromkeys(fk.LAUNCHES, 0))
+    monkeypatch.setattr(overlap, "LAUNCHES", dict.fromkeys(overlap.LAUNCHES, 0))
+    gs = 2 if observe else 4  # Houdayer(N > 2) has no observe form
+    shape, d, T, G = (8, 8, 8), 8, 24, 4 // gs
+    dims = (d * T * G, 8, 8, 8, T, G, gs * G * T)
+    p_in = tuple(range(1, 9))  # spins, sid, tasks, coup, temps, scal, probes, keys
+    st, par, seeds_ = 101, 102, 103
+    p_labels = 55 if labels else None
+    lib = _Recorder()
+    overlap.launch_event(lib, 7, dims, *p_in, (st, par, seeds_, None, None), kind="houdayer",
+                         wolff=wolff, group=gs, p_labels=p_labels, observe=observe)
+    names = [name for name, _ in lib.calls]
+    assert names == ["peapods_houdn_bonds", "peapods_fk_link"] + (
+        [] if observe else ["peapods_houdn_finish"])
+    per = overlap.ov_per(512, d, T, G, 132 * 2048 // 4, overlap.HOUDN_ROWS // gs)
+    words = overlap.ov_words(shape, d, T, G, gs * G * T, per).ctypes.data
+    bonds = lib.calls[0][1]
+    assert bonds == (1, 2, 3, 7, st, seeds_, words, gs, int(wolff), 7)
+    link = lib.calls[1][1]
+    assert link[:2] == (st, p_labels or par)
+    assert overlap.LAUNCHES["houdn_finish"] == (not observe)
+    if observe:
+        return
+    fin = lib.calls[2][1]
+    assert len(fin) == len(_build._SIGNATURES["peapods_houdn_finish"])
+    assert fin == (1, 2, 3, 6, st, p_labels or par, seeds_, words, gs, int(wolff), 7)
+
+
 def test_finish_reads_backward_words_only_where_a_coin_needs_them():
     """SW: the backward words are read only for the (task, group)s where a
     coin flips a root with no forward bond, not for all, and the flips
@@ -447,12 +567,15 @@ def test_model_move_matches_the_jax_events(kind, wolff):
     if kind == "houdayer":
         st, sd, _ = model_houdn(spins, sid, tasks, probes, shape, wolff, 1)
         last = st
+        assert houdn_per(n, 1, n_tasks, 1, gs) == n_tasks  # one CTA: the whole batch
     else:
         st, st2, sd, _ = model_states(spins, sid, tasks, cp, tp, scal, probes, words, shape,
                                       kind, wolff)
         last = st if kind == "jorg" else st2
     stats = connected_components(state_masks(st, nd), shape)
     par = connected_components(state_masks(last, nd), shape).to(torch.int32)
-    model_finish(spins, sid, tasks, scal, sd, last, par, shape, kind, wolff, 1)
+    # houdn_finish: the rule's tasks a thread; ov_finish: one
+    model_finish(spins, sid, tasks, scal, sd, last, par, shape, kind, wolff,
+                 0 if kind == "houdayer" else 1)
     np.testing.assert_array_equal(spins.reshape(n_tasks, gs, n).numpy(), ref)
     np.testing.assert_array_equal(stats.numpy(), rlab)

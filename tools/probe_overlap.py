@@ -2,8 +2,8 @@
 ``ov_bonds``, Joerg's bonds or CMR's blue ones and the Wolff seed;
 ``ov_mid``, CMR's blue flip and grey bonds; ``houdn_bonds``, Houdayer(N)'s
 state bytes and seed; ``ov_finish``, the Joerg / CMR flips from the
-labelling's flat parents) of two source trees side by side on one NVIDIA
-GPU, with variants that cure one defect of a first design or take one part
+labelling's flat parents; ``houdn_finish``, Houdayer(N)'s flips) of two
+source trees side by side on one NVIDIA GPU, with variants that cure one defect of a first design or take one part
 of a redesign away, and count each kernel's SASS integer-division
 sequences.
 
@@ -18,11 +18,17 @@ runtime divisions, byte loads, the couplings, J / T and exp again for
 every task and bond, a serial Wolff seed, a parent written a site;
 ``ov_mid`` deciding each blue flip 1 + nd times a site by ``find_root``,
 ``nonsingleton``'s divisions and the coin, a parent2 written a site.  The
-other two's first design (before ``houdn_rows``): ``houdn_bonds`` a thread
+next two's first design (before ``houdn_rows``): ``houdn_bonds`` a thread
 four sites of one task, (1 + nd) g chains of tasks -> sid -> spin loads a
 site, ``fwd_site``'s divisions, a parent written a site; ``ov_finish`` a
 thread a site, ``task_of``'s divisions, ``find_root`` on flat parents,
-``nonsingleton``'s divisions, byte spins.  Give the parent commit's
+``nonsingleton``'s divisions, byte spins.  ``houdn_finish``'s first
+design (before its ``OvWalk`` form): a thread a site of one task, the
+task's realization and temperature by division, ``find_root`` on flat
+parents (Wolff: on the seed in every thread), ``nonsingleton``'s
+divisions, a tasks -> sid -> spins chain a member and a site with byte
+loads and stores, and a copy of the roots into the labels where asked
+for (the update form with labels: ``cmr+houd4``).  Give the parent commit's
 sources (``git archive`` of it unpacked under a directory ``.gitignore``
 lists) and this checkout's.  The script builds ``overlap.cu`` of every
 source as it is and patched into each variant that applies to it, all with
@@ -42,9 +48,9 @@ Variants of the bond kernels' first design, one defect cured each:
 Variants of the redesigns, one part taken away each (a variant applies to
 a source where every kernel it changes is redesigned):
 
-* ``n-div`` (all four): the sites' coordinates and the tasks' temperature
+* ``n-div`` (all five): the sites' coordinates and the tasks' temperature
   by runtime divisions again;
-* ``n-per1`` (all four): one task a thread;
+* ``n-per1`` (all five): one task a thread;
 * ``n-lazy`` (``ov_bonds``, ``ov_mid``): each bond's probability (its exp)
   drawn only where the bond can be active, in a branch, for every task,
   and compared as a float (groups of unit couplings keep their
@@ -57,12 +63,16 @@ a source where every kernel it changes is redesigned):
 * ``n-nodraw`` (``ov_bonds``, ``ov_mid``): no Philox rounds, the counter
   words taken as the uniforms (wrong values): the draws' share of the
   time;
-* ``n-findroot`` (``ov_finish``): each site's root by ``find_root`` (a
-  second dependent load for every site that is not a root) in place of
-  the one load of its flat parent;
+* ``n-findroot`` (``ov_finish``, ``houdn_finish``): each site's root by
+  ``find_root`` (a second dependent load for every site that is not a
+  root) in place of the one load of its flat parent;
 * ``n-bytes`` (``houdn_bonds``, ``ov_finish``): the per-site path (byte
   loads and stores, each site's neighbours from its coordinates);
-* ``n-parent`` (``houdn_bonds``): a parent written a site again.
+* ``n-parent`` (``houdn_bonds``): a parent written a site again;
+* ``n-serial`` (``houdn_finish``): each member's word loaded and stored
+  before the next member's load;
+* ``n-entries`` (``houdn_finish``): the salts or the seed's root loaded by
+  the CTA's first threads, after their tasks -> sid chains.
 
 The states are random +-1 spins at the replica path's shapes: config 5
 (16^3 gaussian, 8 realizations, R = 4, 24 temperatures: 384 pair tasks),
@@ -71,13 +81,17 @@ realizations, R = 2, 8 temperatures).  ``ov_bonds`` is timed on each for
 Joerg and CMR, Wolff and SW (the observe form launches the SW one),
 ``ov_mid`` Wolff, SW, and SW writing the blue labels (sources whose
 ``ov_mid`` reads the blue labels as its parents, as the labelling writes
-them, skip that form); ``houdn_bonds`` and ``ov_finish`` in the forms
-that the main paths launch (``FINISH_FORMS``).  Every build and every
+them, skip that form); ``houdn_bonds``, ``ov_finish`` and
+``houdn_finish`` in the forms that the main paths launch
+(``FINISH_FORMS``; ``houdn_finish`` also at config 5's 16^3 ladder: g =
+4 SW and Wolff and the pair, g = 2; its first design copies the labels
+in the SW g = 4 form, as ``cmr+houd4`` asks).  Every build and every
 variant that keeps the function is held bitwise to the plain version
 (``overlap.bond_states_plain``: the state bytes, state2 bytes and seeds;
 the blue labels against the plain labelling;
 ``overlap.houdn_states_plain``: the state bytes and seeds;
-``overlap.finish_plain``: every spin, on the plain version's last graph).
+``overlap.finish_plain``: every spin, on the plain version's last graph,
+and the first ``houdn_finish``'s labels the parents).
 The bounds are ``chip_smoke.py``'s, on each state (``ov_finish``'s
 counting the spins that the plain move flips).  Times are device times of
 one launch (CUDA events over warm launches queued behind a sleep kernel),
@@ -112,11 +126,11 @@ from peapods_tpu_torch.ops.cluster import connected_components  # noqa: E402
 from probe_pt_link import events_ms  # noqa: E402
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-KERNELS = ("ov_bonds", "ov_mid", "houdn_bonds", "ov_finish")
-BONDS, FINISH = ("ov_bonds", "ov_mid"), ("houdn_bonds", "ov_finish")
+KERNELS = ("ov_bonds", "ov_mid", "houdn_bonds", "ov_finish", "houdn_finish")
+BONDS = ("ov_bonds", "ov_mid")
 # a kernel's design: redesigned where its source holds the marker
 MARKER = {"ov_bonds": "OvWalk", "ov_mid": "OvWalk", "houdn_bonds": "houdn_rows",
-          "ov_finish": "houdn_rows"}
+          "ov_finish": "houdn_rows", "houdn_finish": "houdn_finish_kernel<2"}
 
 O_NODIV = [
     ("      const int f = fwd_site(i, g, dir);\n      const int af = k.a[f];",
@@ -197,7 +211,11 @@ N_FINDROOT = [(
     "      const uint32_t st = load_roots<ND, kVec>(S, parent + base, x, lab);\n",
     "      const uint32_t st = load_roots<ND, kVec>(S, parent + base, x, lab);\n"
     "#pragma unroll\n      for (int q = 0; q < 4; ++q)\n"
-    "        if (q < x.cnt) lab[q] = find_root(const_cast<int32_t*>(parent + base), x.i0 + q);\n")]
+    "        if (q < x.cnt) lab[q] = find_root(const_cast<int32_t*>(parent + base), x.i0 + q);\n"),
+    ("      const uint32_t st = load_roots<ND, kVec>(state + base, parent + base, x, lab);\n",
+     "      const uint32_t st = load_roots<ND, kVec>(state + base, parent + base, x, lab);\n"
+     "#pragma unroll\n      for (int q = 0; q < 4; ++q)\n"
+     "        if (q < x.cnt) lab[q] = find_root(const_cast<int32_t*>(parent + base), x.i0 + q);\n")]
 N_BYTES = [("  const bool vec = g.lf % 4 == 0 && aligned(spins, 4) && aligned(state, 4) &&\n"
             "                   aligned(parent, 16);",
             "  const bool vec = false;"),
@@ -228,6 +246,8 @@ N_PARENT = [
     ("      static_cast<uint8_t*>(state), static_cast<int32_t*>(seeds), g, g_size, wolff);",
      "      static_cast<uint8_t*>(state), static_cast<int32_t*>(seeds), g, g_size, wolff,\n"
      "      static_cast<int32_t*>(parent));")]
+N_SERIAL = [("constexpr int kFlipBatch = 8;", "constexpr int kFlipBatch = 1;")]
+N_ENTRIES = [("  const int e = kThreads - 1 - threadIdx.x;", "  const int e = threadIdx.x;")]
 
 # name: (design, source edits, tasks a thread or None, keeps the function,
 # the kernels it changes)
@@ -241,9 +261,11 @@ VARIANTS = {
     "n-pertask": ("redesign", N_PERTASK, None, True, BONDS),
     "n-reflip": ("redesign", N_REFLIP, None, True, ("ov_mid",)),
     "n-nodraw": ("redesign", N_NODRAW, None, False, BONDS),
-    "n-findroot": ("redesign", N_FINDROOT, None, True, ("ov_finish",)),
-    "n-bytes": ("redesign", N_BYTES, None, True, FINISH),
+    "n-findroot": ("redesign", N_FINDROOT, None, True, ("ov_finish", "houdn_finish")),
+    "n-bytes": ("redesign", N_BYTES, None, True, ("houdn_bonds", "ov_finish")),
     "n-parent": ("redesign", N_PARENT, None, True, ("houdn_bonds",)),
+    "n-serial": ("redesign", N_SERIAL, None, True, ("houdn_finish",)),
+    "n-entries": ("redesign", N_ENTRIES, None, True, ("houdn_finish",)),
 }
 
 # (name, shape, realizations, replicas, temperatures, their range, couplings)
@@ -255,23 +277,32 @@ BOND_FORMS = (("ov_bonds", "jorg", True, False), ("ov_bonds", "jorg", False, Fal
               ("ov_bonds", "cmr", True, False), ("ov_bonds", "cmr", False, False),
               ("ov_mid", "cmr", True, False), ("ov_mid", "cmr", False, False),
               ("ov_mid", "cmr", False, True))
-# (state, kernel, kind, wolff, group size): the other two's forms, each on
-# the state of a main path that launches it
-FINISH_FORMS = (("config5", "ov_finish", "jorg", True, 2),
-                ("config5", "ov_finish", "jorg", False, 2),
-                ("config5", "ov_finish", "cmr", True, 2),
-                ("config5", "ov_finish", "cmr", False, 2),
-                ("config4", "houdn_bonds", "houdayer", True, 2),
-                ("config4", "houdn_bonds", "houdayer", True, 4),
-                ("config4", "houdn_bonds", "houdayer", False, 4),
-                ("config4", "ov_finish", "cmr", False, 2),
-                ("glass64", "houdn_bonds", "houdayer", False, 2))
+# (state, kernel, kind, wolff, group size, labels): the other three's
+# forms, each on the state of a main path that launches it (houdn_finish
+# also on config 5's: the 16^3 ladder); labels: the first houdn_finish
+# copies the labels (cmr+houd4's form)
+FINISH_FORMS = (("config5", "ov_finish", "jorg", True, 2, False),
+                ("config5", "ov_finish", "jorg", False, 2, False),
+                ("config5", "ov_finish", "cmr", True, 2, False),
+                ("config5", "ov_finish", "cmr", False, 2, False),
+                ("config5", "houdn_finish", "houdayer", True, 2, False),
+                ("config5", "houdn_finish", "houdayer", True, 4, False),
+                ("config5", "houdn_finish", "houdayer", False, 4, True),
+                ("config4", "houdn_bonds", "houdayer", True, 2, False),
+                ("config4", "houdn_bonds", "houdayer", True, 4, False),
+                ("config4", "houdn_bonds", "houdayer", False, 4, False),
+                ("config4", "houdn_finish", "houdayer", True, 2, False),
+                ("config4", "houdn_finish", "houdayer", True, 4, False),
+                ("config4", "houdn_finish", "houdayer", False, 4, True),
+                ("config4", "ov_finish", "cmr", False, 2, False),
+                ("glass64", "houdn_bonds", "houdayer", False, 2, False))
 
 
 def forms(state):
-    """``(kernel, kind, wolff, group size, blue labels)`` timed on a state."""
+    """``(kernel, kind, wolff, group size, labels)`` timed on a state
+    (labels: ov_mid's blue labels, the first houdn_finish's labels)."""
     return ([(k, kind, wolff, 2, labels) for k, kind, wolff, labels in BOND_FORMS]
-            + [(k, kind, wolff, g, False) for name, k, kind, wolff, g in FINISH_FORMS
+            + [(k, kind, wolff, g, labels) for name, k, kind, wolff, g, labels in FINISH_FORMS
                if name == state])
 
 
@@ -410,13 +441,21 @@ def tables(x, kind, wolff, g, rng, dev):
 def want(x, tab, kernel, kind, wolff):
     """The plain version: the bond kernels' ``(state, state2, seeds, blue
     labels)`` (the blue labels: each site's root of the blue graph, as
-    fk_link leaves them); ``houdn_bonds``' ``(state, seeds)``;
-    ``ov_finish``'s inputs ``(state, parent, seeds)`` (the move's last
-    graph) and its spins."""
+    fk_link leaves them); ``houdn_bonds``' ``(state, seeds)``; the
+    finishes' inputs ``(state, parent, seeds)`` (the move's last graph)
+    and their spins."""
     shape = x["shape"]
     if kernel == "houdn_bonds":
         return overlap.houdn_states_plain(x["spins"], x["sid"], tab[0], tab[2], wolff=wolff,
                                           shape=shape)
+    if kernel == "houdn_finish":
+        st, sd = overlap.houdn_states_plain(x["spins"], x["sid"], tab[0], tab[2], wolff=wolff,
+                                            shape=shape)
+        par = connected_components(fk.state_masks(st, len(shape)), shape).to(torch.int32)
+        sp = x["spins"].clone()
+        overlap.finish_plain(sp, x["sid"], tab[0], tab[1], sd, st, par, kind=kind,
+                             wolff=wolff, shape=shape)
+        return st, par, sd, sp
     args = (x["sid"], tab[0], x["coup"], x["temps"], *tab[1:])
     st, st2, sd = overlap.bond_states_plain(x["spins"].clone(), *args, kind=kind, wolff=wolff,
                                             shape=shape)
@@ -491,10 +530,12 @@ def bond_launcher(lib, first, x, tab, kind, wolff, labels, kernel, plain, per, l
     return (lambda: _build.check(fn(*args), "ov_mid")), (state2, blue)
 
 
-def finish_launcher(lib, first, variant, x, tab, kernel, kind, wolff, g, plain, per):
-    """``(fn, check)``: one launch of a build's ``houdn_bonds`` or
-    ``ov_finish``, and a function that runs it once on fresh outputs and
-    says whether they are the plain version's."""
+def finish_launcher(lib, first, variant, x, tab, kernel, kind, wolff, g, plain, per,
+                    labels=False):
+    """``(fn, check)``: one launch of a build's ``houdn_bonds``,
+    ``ov_finish`` or ``houdn_finish`` (``labels``: the first design copies
+    the labels), and a function that runs it once on fresh outputs and says
+    whether they are the plain version's."""
     dev = x["spins"].device
     d, n, shape = x["d"], x["n"], x["shape"]
     b = tab[0].numel() // g
@@ -535,6 +576,31 @@ def finish_launcher(lib, first, variant, x, tab, kernel, kind, wolff, g, plain, 
         return run, check
     st, par, sd, sp = plain
     spins = x["spins"].clone()
+    if kernel == "houdn_finish":
+        fn = lib.peapods_houdn_finish
+        fn.restype = _I
+        head = [t.data_ptr() for t in (spins, x["sid"], tab[0], tab[1])]
+        lab = torch.full_like(par, -1) if first and labels else None
+        if first:
+            fn.argtypes = [_P] * 8 + [_I] * 10 + [_P]
+            pp = par.clone()  # find_root may halve paths: flat parents are left as they are
+            args = (*head, st.data_ptr(), pp.data_ptr(), sd.data_ptr(),
+                    None if lab is None else lab.data_ptr(), *dims, g, int(wolff), 0, stream)
+        else:
+            fn.argtypes = [_P] * 8 + [_I] * 2 + [_P]
+            args = (*head, st.data_ptr(), par.data_ptr(), sd.data_ptr(), words.ctypes.data, g,
+                    int(wolff), stream)
+
+        def run():
+            return _build.check(fn(*args), "houdn_finish")
+
+        def check():
+            spins.copy_(x["spins"])
+            run()
+            torch.cuda.synchronize()
+            return bool(torch.equal(spins, sp) and (lab is None or torch.equal(lab, par)))
+
+        return run, check
     k = overlap.KINDS.index(kind)
     fn = lib.peapods_ov_finish
     fn.restype = _I
@@ -566,9 +632,9 @@ def bound_of(x, kernel, kind, wolff, g, labels, plain):
     ``ov_bonds`` reads both spins and the couplings once and writes the
     state bytes; ``ov_mid`` also reads the state bytes and the flat parents
     and writes the state2 bytes (and the blue labels, in sources that write
-    them); ``houdn_bonds`` and ``ov_finish`` as ``houdn_bounds`` and
-    ``ov_finish_bound`` count them (the latter the spins that the plain
-    move flips)."""
+    them); ``houdn_bonds``, ``houdn_finish`` and ``ov_finish`` as
+    ``houdn_bounds`` and ``ov_finish_bound`` count them (the finishes the
+    spins that the plain move flips)."""
     d, n = x["d"], x["n"]
     b = d * x["n_temps"] * (x["n_rep"] // g)
     nd = len(x["shape"])
@@ -578,9 +644,13 @@ def bound_of(x, kernel, kind, wolff, g, labels, plain):
     if kernel == "ov_mid":
         return bound(8 * b * n + 4 * b * n * labels + cb, 12 * nd * b * n)
     if kernel == "houdn_bonds":
-        return houdn_bounds(b, n, g, d, x["n_rep"] * x["n_temps"], wolff=wolff, labels=False,
+        return houdn_bounds(b, n, g, d, x["n_rep"] * x["n_temps"], wolff=wolff,
                             flipped=0)["houdn_bonds"]
-    return ov_finish_bound(b, n, kind, wolff, int((plain[3] != x["spins"]).sum()))
+    flipped = int((plain[3] != x["spins"]).sum())
+    if kernel == "houdn_finish":
+        return houdn_bounds(b, n, g, d, x["n_rep"] * x["n_temps"], wolff=wolff,
+                            flipped=flipped)["houdn_finish"]
+    return ov_finish_bound(b, n, kind, wolff, flipped)
 
 
 def probe(libs, todo, states, card, rounds, results, rng, kernels):
@@ -592,8 +662,8 @@ def probe(libs, todo, states, card, rounds, results, rng, kernels):
                 continue
             G = x["n_rep"] // g
             per0 = overlap.ov_per(x["n"], x["d"], x["n_temps"], G, threads,
-                                  max(1, overlap.HOUDN_ROWS // g) if kernel == "houdn_bonds"
-                                  else overlap.OV_MAX_PER)
+                                  max(1, overlap.HOUDN_ROWS // g)
+                                  if kernel.startswith("houdn_") else overlap.OV_MAX_PER)
             tab = tables(x, kind, wolff, g, rng, dev)
             plain = want(x, tab, kernel, kind, wolff)
             bnd = bound_of(x, kernel, kind, wolff, g, labels, plain)
@@ -607,7 +677,7 @@ def probe(libs, todo, states, card, rounds, results, rng, kernels):
                     spec = VARIANTS.get(variant, (None, [], None, True, KERNELS))
                     if kernel not in spec[4]:
                         continue
-                    if labels and not todo[key][2]:
+                    if kernel == "ov_mid" and labels and not todo[key][2]:
                         continue  # this build's ov_mid writes no blue labels
                     lib = libs[key if todo[key][0] is not None else (label, "base")][0]
                     per = spec[2] or per0
@@ -627,7 +697,7 @@ def probe(libs, todo, states, card, rounds, results, rng, kernels):
                                         and (outs[1] is None or torch.equal(outs[1], plain[3])))
                     else:
                         fn, check = finish_launcher(lib, first, variant, x, tab, kernel, kind,
-                                                    wolff, g, plain, per)
+                                                    wolff, g, plain, per, labels)
                     ok = None
                     if spec[3]:
                         ok = check()
@@ -658,7 +728,7 @@ def main():
                     help="comma-separated variants (default: all that apply to each source)")
     ap.add_argument("--shapes", default="", help="comma-separated state names (default: all)")
     ap.add_argument("--kernels", default=",".join(KERNELS),
-                    help="comma-separated kernels to time (default: all four)")
+                    help="comma-separated kernels to time (default: all five)")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_overlap: torch sees no CUDA device", file=sys.stderr)
