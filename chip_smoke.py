@@ -98,7 +98,17 @@ through the user's entry points:
   the halo copies' and the busy share over main-path windows, and their
   ptxas registers and spills; the unsharded 4096^2 run's labelling,
   ``fk_finish``, ``fk_bonds`` and ``sweep_2d`` (their times and bounds,
-  each bitwise its plain version on the run's state).
+  each bitwise its plain version on the run's state);
+* the per-sweep replica path: ``tests/binder_crossings.py``'s largest case
+  on each lattice at full width (32^2 square and triangular x 32
+  temperatures, 10^3 cubic, BCC and FCC x 24; R = 2, SW and PT every
+  sweep; 256 sweeps) and config 4 with ``cmr+houd4`` SW every 10 sweeps,
+  cluster statistics and ``snapshot_interval=10``, each through
+  ``Ising.sample`` twice from one seed (launch counts, two equal
+  checksums, sanity, the snapshots' entries), each run's device time a
+  sweep and busy share over a profiled window, and ``pair_overlap`` over
+  each lattice's offsets on the run's state against its plain version,
+  its time a launch beside its bound.
 
 Each path's launch counts are zeroed just before its main run and read just
 after.  Every phase prints lines; any failure raises and the script exits
@@ -3934,6 +3944,252 @@ def add_houdn_records(kernels, pk, main, wolff, obs, houdn, us, card):
         f"{v['bound_by']}, plain {v['plain_ms']:.4f} ms) on {card}")
 
 
+# ------------------------------------------------ the per-sweep replica path
+
+
+# tests/binder_crossings.py's largest cases at full width (:78-120): a
+# ferromagnet with R = 2, SW and PT every sweep, on each lattice's ladder
+# around its T_c (utils.py:14-18), cut in depth to 256 sweeps
+BINDER_SWEEPS = 256
+BINDER_RUNS = {
+    "square32": dict(shape=(32, 32), geometry=None, tc=T_C, half=0.3, n_temps=32),
+    "tri32": dict(shape=(32, 32), geometry="triangular", tc=4.0 / np.log(3.0), half=0.4,
+                  n_temps=32),
+    "cubic10": dict(shape=(10, 10, 10), geometry=None, tc=4.511, half=0.4, n_temps=24),
+    "bcc10": dict(shape=(10, 10, 10), geometry="bcc", tc=6.235, half=0.5, n_temps=24),
+    "fcc10": dict(shape=(10, 10, 10), geometry="fcc", tc=9.792, half=0.6, n_temps=24),
+}
+BINDER_KW = dict(cluster_update_interval=1, cluster_mode="sw", pt_interval=1)
+BINDER_SEED = 42
+# config 4 at full width with cmr+houd4 SW every 10 sweeps, the moves'
+# statistics and a snapshot at every move past warmup: the per-sweep
+# replica path (snapshots turn the pairs megakernel off in the reference)
+SNAP_KW = dict(HOUDN_KW, snapshot_interval=10)
+
+
+def binder_model(c, dev):
+    from peapods_tpu_torch import Ising
+
+    temps = np.linspace(c["tc"] - c["half"], c["tc"] + c["half"],
+                        c["n_temps"]).astype(np.float32)
+    geo = {} if c["geometry"] is None else dict(geometry=c["geometry"])
+    return Ising(c["shape"], temperatures=temps, n_replicas=2, seed=BINDER_SEED,
+                 device=dev, **geo)
+
+
+def reset_replica_sweep_counts():
+    reset_cluster_counts()
+    reset_pair_counts()
+
+
+def replica_sweep_counts():
+    """The per-sweep replica path's launches since the last reset, the
+    kernels that ran."""
+    from peapods_tpu_torch.ops import megapair, overlap
+
+    return {**cluster_counts(), **{k: v for k, v in {**megapair.LAUNCHES,
+                                                     **overlap.LAUNCHES}.items() if v}}
+
+
+def replica_sweep_want(model, kw, n, warmup):
+    """Launches of ``n`` sweeps from sweep 0 on the per-sweep replica path:
+    the sweeps, FK phase and measurement of :func:`nb_want` (``sweep_2d``
+    twice a sweep on the square lattice, whose SW update measures); a
+    ``pair_overlap`` and a ``pt_step`` a sweep; per overlap move the
+    kernels of :func:`move_counts` and a second ``pt_step``."""
+    lat = model._sim.rt.lattice
+    if lat.square:
+        n_fk = len(range(0, n, kw["cluster_update_interval"]))
+        want = {"sweep_2d": 2 * n, "fk_bonds": n_fk, "fk_finish": n_fk, "pt_step": n,
+                **link_want(lat.shape, model._sim.rt.n_disorder * model._sim.rt.n_systems,
+                            n_fk)}
+    else:
+        want = nb_want(model, kw, n)
+    want["pair_overlap"] = n
+    if "overlap_cluster_update_interval" in kw:
+        moves = move_counts(kw, n, warmup)
+        moves.pop("colour_pass")
+        moves.pop("pair_overlap")
+        want["pt_step"] = moves.pop("pt_step")
+        for k, v in moves.items():
+            want[k] = want.get(k, 0) + v
+    return {k: v for k, v in want.items() if v}
+
+
+def replica_sweep_checksum(sim, result) -> str:
+    """:func:`stats_checksum`, the FK histograms and every snapshot."""
+    h = hashlib.sha256(stats_checksum(sim, result).encode())
+    for x in result.get("fk_csd", []):
+        h.update(np.ascontiguousarray(x).tobytes())
+    for snap in result.get("cluster_snapshots", []):
+        for key in sorted(snap):
+            h.update(np.ascontiguousarray(np.asarray(snap[key])).tobytes())
+    return h.hexdigest()[:16]
+
+
+def replica_sweep_run(name, make, kw, n, dev, card, phase):
+    """A per-sweep replica run through Ising.sample twice from one seed: the
+    launch counts of the first (zeroed just before, read just after)
+    against the rule, two equal checksums, the rate of a warm call."""
+    warmup = int(np.floor(n * 0.25 + 0.5))
+    models, results, checks = [], [], []
+    for run in range(2):
+        model = make()
+        torch.cuda.synchronize()
+        reset_replica_sweep_counts()
+        result = model.sample(n, "metropolis", **kw)
+        torch.cuda.synchronize()
+        if run == 0:
+            launches = replica_sweep_counts()
+        models.append(model)
+        results.append(result)
+        checks.append(replica_sweep_checksum(model._sim, result))
+    want = replica_sweep_want(models[0], kw, n, warmup)
+    if launches != want:
+        raise AssertionError(f"{name} launch counts {launches}, expected {want}")
+    if checks[0] != checks[1]:
+        raise AssertionError(f"{name} checksums differ: {checks}")
+    r = results[0]
+    rt = models[0]._sim.rt
+    e, q2, ql = r["energies"], r["overlap2"], r["link_overlap"]
+    sane = {
+        "finite": bool(np.isfinite(e).all() and np.isfinite(q2).all()
+                       and np.isfinite(ql).all()),
+        "<e> falls with T": bool(e[0] > e[-1]),
+        "<q^2> falls with T": bool(q2[0] > q2[-1]),
+        "q^2 in [0, 1]": bool(((q2 >= 0) & (q2 <= 1)).all()),
+        "|q_l| <= 1": bool((np.abs(ql) <= 1).all()),
+        "histogram counts": int(np.asarray(r["overlap_histogram"]).sum())
+        == (n - warmup) * rt.n_disorder * rt.n_pairs * rt.n_temps,
+    }
+    if not all(sane.values()):
+        raise AssertionError(f"{name} sanity: {sane}")
+    sweeps_s, rates = warm_rate(models[1], n, kw, calls=3)
+    log(phase, f"{name}: {'x'.join(map(str, rt.lattice.shape))}, "
+        f"{rt.lattice.n_neighbors} offsets, {rt.n_temps} temps x {rt.n_replicas} "
+        f"replicas x {rt.n_disorder} realizations, {n} sweeps on {dev}: launches "
+        f"{launches}; checksum {checks[0]} == {checks[1]}; sanity ok: {', '.join(sane)}; "
+        f"<e>[0,-1] {e[0]:.5f}, {e[-1]:.5f}; <q^2>[0,-1] {q2[0]:.5f}, {q2[-1]:.5f}; "
+        f"<q_l>[0,-1] {ql[0]:.5f}, {ql[-1]:.5f}; {sweeps_s:.1f} sweeps/s (median of "
+        f"{', '.join(f'{x:.1f}' for x in rates)}) on {card}")
+    return dict(model=models[1], result=r, launches=launches, sweeps_s=sweeps_s,
+                checksum=checks[0], kw=kw, n=n)
+
+
+def check_pair_overlap_on(run, dev, name, card, phase="33 kernel-vs-plain"):
+    """pair_overlap on the run's final state against its plain version (qs,
+    ql bitwise), its plain version's time and its bound: the paired systems'
+    spins read once, two ints a column written."""
+    from peapods_tpu_torch.ops import megapair
+
+    sim = run["model"]._sim
+    rt, lat = sim.rt, sim.rt.lattice
+    d, s, n = rt.n_disorder, rt.n_systems, rt.n_spins
+    spins = sim.state["spins"].view(d, s, n)
+    sid = sim.state["system_ids"].view(d, s)
+    offsets = lat.offsets
+    cols = rt.n_pairs * rt.n_temps
+    qs = torch.empty((d, cols), dtype=torch.int32, device=dev)
+    ql = torch.empty_like(qs)
+    megapair.pair_overlap(spins, sid, qs, ql, shape=lat.shape, n_replicas=rt.n_replicas,
+                          offsets=offsets)
+    ps, pl = megapair.pair_overlap_plain(spins, sid, lat.shape, rt.n_replicas, offsets)
+    torch.cuda.synchronize()
+    if not (torch.equal(qs, ps) and torch.equal(ql, pl)):
+        raise AssertionError(f"{name} pair_overlap differs from its plain version")
+    plain_ms = wall_ms(lambda: megapair.pair_overlap_plain(spins, sid, lat.shape,
+                                                           rt.n_replicas, offsets), 5)
+    b_ms, b_by = bound(2 * d * cols * n + 8 * d * cols,
+                       (2 + 2 * lat.n_neighbors) * d * cols * n)
+    log(phase, f"{name} pair_overlap ok: {d * cols} (pair, T) columns over "
+        f"{lat.n_neighbors} offsets bitwise pair_overlap_plain on the run's state "
+        f"(plain {plain_ms:.4f} ms, bound {b_ms:.6f} ms by {b_by}) on {card}")
+    return dict(max_abs_err=0.0, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                launches=run["launches"]["pair_overlap"], replaces=PAIR_REPLACES)
+
+
+PAIR_REPLACES = "peapods_tpu/ops/pallas_megapair.py:325"
+
+
+def replica_sweeps(dev, card):
+    """Phases 31-33: binder_crossings.py's largest case on each lattice
+    (R = 2, SW and PT every sweep) and config 4 with cmr+houd4, statistics
+    and snapshots, each through Ising.sample twice from one seed; then each
+    run's device time a sweep and busy share over a profiled main-path
+    window, and pair_overlap on each run's state against its plain version,
+    its time a launch beside its bound."""
+    from peapods_tpu_torch import Ising
+
+    t0 = time.perf_counter()
+    runs = {}
+    for name, c in BINDER_RUNS.items():
+        runs[name] = replica_sweep_run(
+            name, lambda c=c: binder_model(c, dev), BINDER_KW, BINDER_SWEEPS, dev, card,
+            "31 binder")
+        r, m = runs[name]["result"], runs[name]["model"]
+        temps = np.asarray(m.temperatures, np.float64)
+        at_tc = float(np.interp(c["tc"], temps, m.binder_cumulant))
+        if not -0.1 < at_tc < 2.0 / 3.0 + 0.05:
+            raise AssertionError(f"{name} Binder cumulant at T_c {at_tc}")
+        log("31 binder", f"{name}: Binder cumulant at T_c = {c['tc']:.4f} {at_tc:.4f} "
+            f"({BINDER_SWEEPS} sweeps of one size: no crossing is judged here)")
+    c4 = SG_CONFIGS["config4"]
+
+    def config4():
+        return Ising(c4["shape"], couplings=c4["couplings"],
+                     temperatures=np.geomspace(*c4["t"], SG_T), n_replicas=SG_R,
+                     n_disorder=SG_D, seed=c4["seed"], device=dev)
+
+    n4 = c4["sweeps"]
+    runs["config4_snapshots"] = snap = replica_sweep_run(
+        "config4_snapshots", config4, SNAP_KW, n4, dev, card, "32 snapshots")
+    r = snap["result"]
+    warmup = int(np.floor(n4 * 0.25 + 0.5))
+    snaps = r["cluster_snapshots"]
+    want = list(range(-(-warmup // 10) * 10, n4, 10))
+    if [x["sweep_id"] for x in snaps] != want:
+        raise AssertionError(f"snapshot sweeps {[x['sweep_id'] for x in snaps][:5]}...")
+    n = 512
+    for x in snaps:
+        cmr = x["mode_idx"] == 0
+        ok = (x["cluster_ids"].shape == (SG_T, n) and x["spins"].shape == (SG_T, 2, n)
+              and x["system_ids"].shape == (SG_T, 2) and ("blue_ids" in x) == cmr
+              and x["cluster_ids"].dtype == np.uint32
+              and x["system_ids"].dtype == np.uint64
+              and (x["cluster_ids"] <= np.arange(n)).all())
+        if not ok:
+            raise AssertionError(f"snapshot at sweep {x['sweep_id']}: bad entry")
+    check_mode_stats(r, snap["model"]._sim,
+                     mode_graphs(snap["model"]._sim, SNAP_KW, n4, warmup))
+    log("32 snapshots", f"config4 cmr+houd4 SW + stats + snapshot_interval=10: "
+        f"{len(snaps)} snapshots (sweeps {want[0]}..{want[-1]}), each realization 0's "
+        "first group at every temperature: labels (each its component's least "
+        "site), CMR's blue labels, the pre-move spins and system ids; "
+        "overlap_csd against the stats graphs ok")
+    for name, run in runs.items():
+        us, line = profile_window(run["model"], run["kw"], run["sweeps_s"],
+                                  64 if name != "config4_snapshots" else 100,
+                                  names=tuple(run["launches"]))
+        run["us"] = us
+        run["pair"] = check_pair_overlap_on(run, dev, name, card)
+        run["pair"]["ms"] = us["pair_overlap"] / 1e3
+        log("33 times", f"{name} {line} (on {card})")
+        p = run["pair"]
+        log("33 times", f"{name} pair_overlap {p['ms']:.5f} ms a launch (bound "
+            f"{p['bound_ms']:.6f} ms by {p['bound_by']}, plain {p['plain_ms']:.4f} ms) "
+            f"on {card}")
+    log("33 times", f"phases 31-33 took {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+def add_replica_sweep_records(kernels, runs):
+    """pair_overlap's numbers on each per-sweep replica run beside its
+    main-path record."""
+    kr = next(k for k in kernels if k["name"] == "pair_overlap")
+    for name, run in runs.items():
+        kr[f"at_{name}"] = run["pair"]
+
+
 # ------------------------------------------------ the space-sharded path
 
 
@@ -4860,6 +5116,9 @@ def main():
     # the space-sharded path: row bands on the one card
     space = space_paths(dev, card, sweeps_s)
 
+    # the per-sweep replica path: binder_crossings.py's lattices, snapshots
+    rsweeps = replica_sweeps(dev, card)
+
     mega_src = "peapods_tpu_torch/csrc/mega.cu"
     mega_replaces = "peapods_tpu/ops/pallas_mega.py:96"
     fk_src = "peapods_tpu_torch/csrc/fk.cu"
@@ -4909,6 +5168,7 @@ def main():
     add_observe_records(kernels, obs, hobs, staged, ob_times, ob_us, card)
     add_houdn_records(kernels, pk, hmain, hwolff, hobs_ov, houdn, h_us, card)
     add_space_records(kernels, space)
+    add_replica_sweep_records(kernels, rsweeps)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     record = {"kernels": [{**{k: kr[k] for k in keys},

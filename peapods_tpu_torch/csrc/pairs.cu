@@ -4,30 +4,47 @@
 // Replaces the pair measurement of the TPU pairs megakernel
 // peapods_tpu/ops/pallas_megapair.py:_mp_kernel (:599-619; the reference's
 // OverlapAccum.collect, statistics/overlap.rs:251-333), which sums products
-// of resident partner regions of its slot tiles.  Here spins stay by system:
-// column (p T + t) of realization d reads the systems at slots (2p) T + t
-// and (2p + 1) T + t through sid, and sums over the lattice
-//   qs = sum_i a_i b_i,   ql = sum_i q_i (q_{i+x} + q_{i+y} [+ q_{i+z}])
-// with q_i = a_i b_i, into the sweep's rows qs_out / ql_out [d, n_pairs T]
-// (row stride out_stride).  It runs after the measuring colour pass and
-// before pt_step, so it reads the sweep's final spins through the sid that
-// the sweep ran with; it cannot ride in the odd pass itself, since a
-// partner system is being updated by other blocks.
+// of resident partner regions of its slot tiles, and the per-sweep path's
+// overlap_dots (peapods_tpu/ops/measure.py:36-53) on every lattice.  Here
+// spins stay by system: column (p T + t) of realization d reads the systems
+// at slots (2p) T + t and (2p + 1) T + t through sid, and sums over the
+// lattice
+//   qs = sum_i a_i b_i,   ql = sum_i q_i sum_o q_{i+o}
+// with q_i = a_i b_i and o over the lattice's forward offsets (the axes on
+// the square and cubic lattices; the triangular, BCC, FCC or any offset
+// table), into the sweep's rows qs_out / ql_out [d, n_pairs T] (row stride
+// out_stride).  It runs after the sweep's measurement and before pt_step,
+// so it reads the sweep's final spins through the sid that the sweep ran
+// with; it cannot ride in the odd pass itself, since a partner system is
+// being updated by other blocks.
 //
 // The sums as disagreement bits: with spins in {-1, +1} and delta_i =
 // [a_i != b_i], q_i = 1 - 2 delta_i and q_i q_j = 1 - 2 (delta_i XOR
 // delta_j), so
 //   qs = n - 2 sum_i delta_i,
-//   ql = nd n - 2 sum over forward bonds (i, j) of (delta_i XOR delta_j),
+//   ql = n_nb n - 2 sum over forward bonds (i, j) of (delta_i XOR delta_j),
 // integer counts, exact in any order: bitwise ops/measure.py overlap_dots.
 // A thread takes W-byte words of the two systems along the fast axis
 // (W = 8 or 4 where the fast extent holds whole words; W = 1, a site at a
 // time, where it does not): the sign bits of a ^ b are the word's delta
-// bits (every spin byte is 0x01 or 0xff), __popc counts them, the fast-axis
-// neighbours' bits are the word funnel-shifted by one byte with the row's
-// next word (the row's first where it wraps), and the slower axes'
-// neighbours' bits are the same word of the next row or plane, found with a
-// multiply-shift division and one compare an axis (pair_link_bits).
+// bits (every spin byte is 0x01 or 0xff) and __popc counts them.  An
+// offset's neighbour bits (pair_link_bits) are the word of the line that
+// its slower components reach, shifted by its fast component's bytes: with
+// the fast component f taken mod the fast extent as (q words, b bytes), the
+// neighbours of word pos are bytes b.. of word pos + q and bytes ..b of
+// word pos + q + 1 of that line, funnel-shifted together (b = 0: one
+// word; the line's own word at q = 0 is the word itself).  A negative
+// component wraps, as the triangular lattice's [1, -1] does: -1 is
+// (wpl - 1 words, W - 1 bytes).  The line and the words step with one
+// compare an axis from residues that the host reduced (ops/megapair.py
+// pair_words), the line's coordinates come from multiply-shift divisions:
+// no runtime division.  A table's offsets are a template parameter, so
+// every offset's words are loaded before any is used.  Where the steps are
+// the axes' (the square and cubic lattices), a form of their own takes
+// them: the fast axis' (0 words, 1 byte) shifts the word itself with the
+// line's next word, each slower axis reads the same word of the next line
+// or plane, as before the tables, in fewer instructions than the general
+// steps.
 //
 // The launch: a column's threads (tpc, a power of two from 32 to 1024, the
 // fewest that take one word each: 64 at 8^3, 128 at 32^2, 512 at 16^3;
@@ -44,10 +61,10 @@
 // six steps a site in 3D, byte loads, each q recomputed nd + 1 times, a
 // shared-memory tree of nine barriers) took 0.0147 ms at 16^3, 0.0043 at
 // 8^3 and 0.0040 at config 1's 32^2, its divisions half of it at 16^3;
-// this one takes 0.0036, 0.0026 and 0.0024 (tools/probe_pairs.py, NVIDIA
-// H100 80GB HBM3, 700 W), the launch and one chain of dependent loads (sid,
-// then the words).  Bytes a word count: 1-byte words doubled it at 16^3,
-// and so did one warp a column there.
+// the word design takes 0.0036, 0.0026 and 0.0024 (tools/probe_pairs.py,
+// NVIDIA H100 80GB HBM3, 700 W), the launch and one chain of dependent
+// loads (sid, then the words).  Bytes a word count: 1-byte words doubled it
+// at 16^3, and so did one warp a column there.
 
 #include <cuda_runtime.h>
 
@@ -61,13 +78,25 @@ using namespace peapods;
 namespace {
 
 constexpr int kPairMaxThreads = 1024;
+constexpr int kPairMaxOffsets = 6;
+
+// An offset's steps (ops/megapair.py pair_words): its outer slow component
+// mod La (3D; 0 in 2D), its inner slow component mod Lb, and its fast
+// component mod the fast extent as q words and b bytes.
+struct PairOffset {
+  int ra;
+  int rb;
+  int q;
+  int b;
+};
 
 // The launch's geometry and plan (ops/megapair.py pair_words): a lattice of
 // n sites in lines of wpl words along the fast axis; the lines run over an
 // inner slow axis of extent Lb (2D: L0; 3D: L1) and, in 3D, an outer one of
 // extent La (L0; 0 in 2D).  n / W words a system, tpc threads a column
-// (2^lt), CTAs of `block` threads; line = k / wpl, the outer coordinate =
-// line / Lb and p = column / T as umulhi(q, m) >> s (fast_div).
+// (2^lt), CTAs of `block` threads, n_nb forward offsets (axes: they step
+// as the lattice's axes do); line = k / wpl, the outer coordinate = line /
+// Lb and p = column / T as umulhi(q, m) >> s (fast_div).
 struct PairWalk {
   int W;
   int n;
@@ -82,8 +111,11 @@ struct PairWalk {
   int tpc;
   int lt;
   int block;
+  int n_nb;
+  int axes;
   uint32_t m[3];
   int s[3];
+  PairOffset off[kPairMaxOffsets];
 };
 
 inline PairWalk make_pair_walk(const int* w) {
@@ -101,9 +133,17 @@ inline PairWalk make_pair_walk(const int* w) {
   g.tpc = w[10];
   g.lt = w[11];
   g.block = w[12];
+  g.n_nb = w[13];
+  g.axes = w[14];
   for (int k = 0; k < 3; ++k) {
-    g.m[k] = static_cast<uint32_t>(w[13 + 2 * k]);
-    g.s[k] = w[14 + 2 * k];
+    g.m[k] = static_cast<uint32_t>(w[15 + 2 * k]);
+    g.s[k] = w[16 + 2 * k];
+  }
+  for (int d = 0; d < kPairMaxOffsets; ++d) {
+    g.off[d].ra = w[21 + 4 * d];
+    g.off[d].rb = w[22 + 4 * d];
+    g.off[d].q = w[23 + 4 * d];
+    g.off[d].b = w[24 + 4 * d];
   }
   return g;
 }
@@ -134,27 +174,65 @@ __device__ __forceinline__ unsigned long long delta_bits(const int8_t* a, const 
 }
 
 // sum over the forward bonds of word k's sites of (delta_i XOR delta_j),
-// with m0 the word's delta bits: the fast axis (the word shifted by a byte,
-// the line's next word shifted in) and each slower axis (the same word of
-// the next line along it).  The lattice's neighbour step, in one place.
-template <int W>
+// with m0 the word's delta bits: for each of the NB offsets, the word of
+// the line its slower components reach, shifted by its fast component's
+// bytes.  AXES: the offsets step as the lattice's axes (NB = nd), the fast
+// axis the word shifted by a byte with the line's next word shifted in,
+// each slower axis the same word of the next line or plane, one compare
+// each.  Run on the axes, the table's general steps made the launch 4-22%
+// slower at configs 1, 4 and 5 with every load issued first, 11-26% one
+// offset after another (tools/probe_pairs.py, NVIDIA H100 80GB HBM3,
+// 700 W): their instructions, not the loads' latency, cost it.  The
+// lattice's neighbour step, in one place.
+template <int W, int NB, bool AXES>
 __device__ __forceinline__ int pair_link_bits(const int8_t* a, const int8_t* b, int k,
                                               unsigned long long m0, const PairWalk& g) {
   const int line = fast_div(k, g.m[0], g.s[0]);
   const int pos = k - line * g.wpl;
-  const unsigned long long mf = delta_bits<W>(a, b, pos + 1 < g.wpl ? k + 1 : k + 1 - g.wpl);
   const unsigned long long full = 0xffffffffffffffffull >> (64 - 8 * W);
-  int x = __popcll(m0 ^ (((m0 >> 8) | (mf << (8 * (W - 1)))) & full));
   int cb = line;
   int ca = 0;
   if (g.La) {
     ca = fast_div(line, g.m[1], g.s[1]);
     cb = line - ca * g.Lb;
   }
-  x += __popcll(m0 ^ delta_bits<W>(a, b, cb + 1 < g.Lb ? k + g.wpl : k + g.wpl - g.Lb * g.wpl));
-  if (g.La) {
-    const int plane = g.Lb * g.wpl;
-    x += __popcll(m0 ^ delta_bits<W>(a, b, ca + 1 < g.La ? k + plane : k + plane - g.nw));
+  if constexpr (AXES) {
+    const unsigned long long mf =
+        delta_bits<W>(a, b, pos + 1 < g.wpl ? k + 1 : k + 1 - g.wpl);
+    int x = __popcll(m0 ^ (((m0 >> 8) | (mf << (8 * (W - 1)))) & full));
+    x += __popcll(m0 ^ delta_bits<W>(a, b, cb + 1 < g.Lb ? k + g.wpl
+                                                            : k + g.wpl - g.Lb * g.wpl));
+    if (NB == 3) {
+      const int plane = g.Lb * g.wpl;
+      x += __popcll(m0 ^ delta_bits<W>(a, b, ca + 1 < g.La ? k + plane : k + plane - g.nw));
+    }
+    return x;
+  }
+  unsigned long long w1[NB];
+  unsigned long long w2[NB];
+#pragma unroll
+  for (int d = 0; d < NB; ++d) {
+    const PairOffset o = g.off[d];
+    int nb = cb + o.rb;
+    if (nb >= g.Lb) nb -= g.Lb;
+    if (g.La) {
+      int na = ca + o.ra;
+      if (na >= g.La) na -= g.La;
+      nb += na * g.Lb;
+    }
+    const int row = nb * g.wpl;
+    int p1 = pos + o.q;
+    if (p1 >= g.wpl) p1 -= g.wpl;
+    w1[d] = (o.ra | o.rb | o.q) == 0 ? m0 : delta_bits<W>(a, b, row + p1);
+    w2[d] = W > 1 && o.b ? delta_bits<W>(a, b, row + (p1 + 1 < g.wpl ? p1 + 1 : 0)) : 0;
+  }
+  int x = 0;
+#pragma unroll
+  for (int d = 0; d < NB; ++d) {
+    const int sh = g.off[d].b;
+    const unsigned long long nbits =
+        W > 1 && sh ? ((w1[d] >> (8 * sh)) | (w2[d] << (8 * (W - sh)))) & full : w1[d];
+    x += __popcll(m0 ^ nbits);
   }
   return x;
 }
@@ -162,7 +240,7 @@ __device__ __forceinline__ int pair_link_bits(const int8_t* a, const int8_t* b, 
 // Column blockIdx.x * (block / tpc) + threadIdx.x / tpc of realization
 // blockIdx.y: its threads' words, each warp's counts added by
 // __reduce_add_sync, a column's warps' sums by its first warp.
-template <int W>
+template <int W, int NB, bool AXES>
 __global__ void __launch_bounds__(kPairMaxThreads)
 pair_overlap_kernel(const int8_t* __restrict__ spins, const int32_t* __restrict__ sid,
                     int32_t* __restrict__ qs_out, int32_t* __restrict__ ql_out,
@@ -182,7 +260,7 @@ pair_overlap_kernel(const int8_t* __restrict__ spins, const int32_t* __restrict_
     for (int k = x; k < g.nw; k += g.tpc) {
       const unsigned long long m0 = delta_bits<W>(a, b, k);
       nq += __popcll(m0);
-      nx += pair_link_bits<W>(a, b, k, m0, g);
+      nx += pair_link_bits<W, NB, AXES>(a, b, k, m0, g);
     }
   }
   nq = __reduce_add_sync(0xffffffffu, nq);
@@ -203,7 +281,27 @@ pair_overlap_kernel(const int8_t* __restrict__ spins, const int32_t* __restrict_
   }
   if (x == 0 && col < g.cols) {
     qs_out[static_cast<size_t>(d) * out_stride + col] = g.n - 2 * nq;
-    ql_out[static_cast<size_t>(d) * out_stride + col] = g.nd * g.n - 2 * nx;
+    ql_out[static_cast<size_t>(d) * out_stride + col] = NB * g.n - 2 * nx;
+  }
+}
+
+typedef void (*PairKernel)(const int8_t*, const int32_t*, int32_t*, int32_t*, int,
+                           const PairWalk);
+
+// The instance of W-byte words for the walk's offsets: the axes' form, or
+// the table's for n_nb offsets (1 to kPairMaxOffsets).
+template <int W>
+PairKernel pair_kernel(const PairWalk& g) {
+  if (g.axes) {
+    return g.nd == 3 ? pair_overlap_kernel<W, 3, true> : pair_overlap_kernel<W, 2, true>;
+  }
+  switch (g.n_nb) {
+    case 1: return pair_overlap_kernel<W, 1, false>;
+    case 2: return pair_overlap_kernel<W, 2, false>;
+    case 3: return pair_overlap_kernel<W, 3, false>;
+    case 4: return pair_overlap_kernel<W, 4, false>;
+    case 5: return pair_overlap_kernel<W, 5, false>;
+    default: return pair_overlap_kernel<W, 6, false>;
   }
 }
 
@@ -213,23 +311,29 @@ extern "C" {
 
 // spins int8 [d, n_slots, n] by system, sid int32 [d, n_slots] (slot r T +
 // t); writes qs / ql of pair p at temperature t to [d, p T + t] of rows
-// with stride out_stride.  words: ops/megapair.py pair_words (host
-// memory); spins aligned to W bytes.
+// with stride out_stride, ql over the words' forward offsets.  words:
+// ops/megapair.py pair_words (host memory); spins aligned to W bytes.
 int peapods_pair_overlap(const void* spins, const void* sid, void* qs_out, void* ql_out,
                          int out_stride, int n_disorder, const int* words, void* stream) {
   const PairWalk g = make_pair_walk(words);
   const int cpc = g.tpc > 0 ? g.block / g.tpc : 0;  // columns a CTA
   if ((g.W != 1 && g.W != 4 && g.W != 8) || g.n < 1 || g.nw * g.W != g.n || g.wpl < 1 ||
       g.Lb < 1 || g.La < 0 || g.wpl * g.Lb * (g.La ? g.La : 1) != g.nw ||
-      g.nd != (g.La ? 3 : 2) ||
+      g.nd != (g.La ? 3 : 2) || g.n_nb < 1 || g.n_nb > kPairMaxOffsets ||
+      (g.axes != 0 && (g.axes != 1 || g.n_nb != g.nd)) ||
       g.tpc < 32 || g.tpc > kPairMaxThreads || (1 << g.lt) != g.tpc ||
       g.block != (g.tpc > 128 ? g.tpc : 128) || cpc < 1 || g.cols < 1 || n_disorder < 1 ||
       n_disorder > 65535 || out_stride < g.cols ||
       reinterpret_cast<uintptr_t>(spins) % g.W != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  for (int d = 0; d < g.n_nb; ++d) {
+    const PairOffset& o = g.off[d];
+    if (o.ra < 0 || o.ra >= (g.La ? g.La : 1) || o.rb < 0 || o.rb >= g.Lb || o.q < 0 ||
+        o.q >= g.wpl || o.b < 0 || o.b >= g.W)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   const dim3 grid((g.cols + cpc - 1) / cpc, n_disorder);
-  const auto kernel = g.W == 8 ? pair_overlap_kernel<8>
-                               : g.W == 4 ? pair_overlap_kernel<4> : pair_overlap_kernel<1>;
+  const auto kernel = g.W == 8 ? pair_kernel<8>(g) : g.W == 4 ? pair_kernel<4>(g) : pair_kernel<1>(g);
   kernel<<<grid, g.block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(spins), static_cast<const int32_t*>(sid),
       static_cast<int32_t*>(qs_out), static_cast<int32_t*>(ql_out), out_stride, g);

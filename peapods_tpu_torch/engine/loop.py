@@ -10,10 +10,12 @@ draws) with the numpy threefry (:mod:`~peapods_tpu_torch.engine.seeds`)
 and uploads them in one copy; the kernels then run sweep after sweep with
 no host synchronisation, and the per-sweep rows are folded into the record
 sums on the device.  :func:`run_chunk` takes the replica path when there
-are two replicas or more, the mega path for one replica on a square
-lattice without a cluster phase, and the per-sweep path otherwise (a
-cluster phase, or any other lattice: triangular, BCC, FCC, 3D cubic, an
-offset table).  On a ``space`` mesh, :func:`run_chunk_space` runs the
+are two replicas or more on a square or cubic lattice without an FK phase
+or snapshots, the mega path for one replica on a square lattice without a
+cluster phase, and the per-sweep path otherwise (a cluster phase,
+snapshots, or any other lattice: triangular, BCC, FCC, 3D cubic with one
+replica, an offset table), with the pair measurement and the overlap moves
+when there are replicas.  On a ``space`` mesh, :func:`run_chunk_space` runs the
 per-sweep path over the lattice's row bands.
 
 The reference's sentinel padding of short chunks and its ``n_inner <= 256``
@@ -28,13 +30,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..ops import cc_band, fk, halo, mega, megapair, rng, winding
+from ..ops import cc_band, fk, halo, mega, megapair, overlap, rng, winding
 from ..ops.cluster import (component_counts, csd_histogram, graph_observation,
                             top4_sizes)
 from ..ops.energy import measure_nb
 from ..ops.lattice import BandGeometry, Lattice, neighbour_values
 from ..ops.measure import per_slot_values, slot_temps_for_systems
-from ..ops.overlap import KINDS
+from ..ops.overlap import KINDS, gather_tasks
 from ..ops.sweep import pack_coupling_grids, sweep_2d, sweep_nb
 from ..ops.tempering import hot_cold_slots, pt_draws_pairs
 from . import seeds
@@ -283,13 +285,16 @@ def run_chunk(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
               s_begin: int, n: int) -> None:
     """Run sweeps ``s_begin .. s_begin + n - 1`` of a sample() call,
     updating ``state`` and ``acc`` in place: the row bands' path on a space
-    mesh, the replica path with two replicas or more, the mega path for one
-    replica on a square lattice without a cluster phase, else the per-sweep
-    path."""
+    mesh; the replica path with two replicas or more on a square or cubic
+    lattice, unless the run has an FK phase or snapshots; the mega path for
+    one replica on a square lattice without a cluster phase; else the
+    per-sweep path (with replicas: the reference's ``_make_step_body``,
+    which its engine runs wherever the pairs megakernel is off,
+    peapods_tpu/engine/loop.py:666-682)."""
     if rt.space is not None:
         run_chunk_space(rt, cfg, state, acc, s_begin, n)
         return
-    if megapair.supports_megapair(rt.lattice, rt.n_replicas):
+    if megapair.supports_megapair(rt.lattice, rt.n_replicas) and not _sweeps_with_pairs(cfg):
         run_chunk_pairs(rt, cfg, state, acc, s_begin, n)
         return
     if cfg.cluster_update is not None or not mega.supports_mega(rt.lattice,
@@ -333,6 +338,25 @@ def run_chunk(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
     _fold_records(rt, state, acc, e, m, s_begin, n)
 
 
+def _sweeps_with_pairs(cfg: SimConfig) -> bool:
+    """Whether a replica run takes the per-sweep path on a square or cubic
+    lattice: it has an FK phase or takes snapshots."""
+    h = cfg.overlap_cluster
+    return cfg.cluster_update is not None or (h is not None
+                                              and h.snapshot_interval is not None)
+
+
+def _snapshot(rt: Runtime, spins, sid, tasks, mode: int, s: int):
+    """The snapshot of an overlap move at sweep ``s`` before its flips
+    (``_overlap_branch(with_snapshot=True)``, peapods_tpu/engine/
+    loop.py:2579-2592): realization 0, the first group at each
+    temperature, its first two replicas' systems and spins (copied now);
+    the move's labels are added when it has run."""
+    sys, a, b = gather_tasks(spins[:1], sid[:1], tasks[:1, :, :1, :2], rt.n_temps)
+    return {"sweep_id": s, "mode_idx": mode, "spins": torch.stack([a, b], 1),
+            "system_ids": sys[0, :, 0]}
+
+
 def _by_temp(rt: Runtime, values, sid):
     """Per-system values ``[d * n_systems, ...]`` summed into their
     temperatures' rows ``[d, n_temps, ...]`` (over the replicas), in int64."""
@@ -370,8 +394,8 @@ def _fold_fk_graphs(rt: Runtime, acc: dict, labels, masks, sid) -> None:
 def run_chunk_sweeps(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
                      s_begin: int, n: int) -> None:
     """The per-sweep path (the reference's ``_make_step_body``,
-    peapods_tpu/engine/loop.py:2723-2952), with or without an FK cluster
-    phase.  Per sweep:
+    peapods_tpu/engine/loop.py:2708-2952), with or without an FK cluster
+    phase, with one replica or more.  Per sweep:
 
     1. the sweep of every system at its temperature: the checkerboard
        :func:`~peapods_tpu_torch.ops.sweep.sweep_2d` on a square lattice,
@@ -391,15 +415,26 @@ def run_chunk_sweeps(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
        colour pass (the counterpart of ``pallas_sweep.sweep_2d_fused``,
        every sweep of an observe run) or
        :func:`~peapods_tpu_torch.ops.energy.measure_nb` after the FK phase;
-       ``pt_step`` reduces it into the sweep's (e, m) rows and, on PT
-       sweeps, runs the PT event with the reference's jnp-form draws, so an
-       observe run's PT reads the sweep's (e, m), as a run without the
-       observer does;
-    4. the records of the sweeps past warmup, the cluster-size histograms
-       and the graph observations of their FK phases are folded into the
-       sums.
+       with replica pairs, :func:`~peapods_tpu_torch.ops.megapair.
+       pair_overlap` of every pair over the lattice's offsets (the
+       reference's ``_measure_phase``, :2623-2666); ``pt_step`` reduces the
+       measurement into the sweep's (e, m) rows;
+    4. on sweeps ``s`` with ``s % interval == 0``, the overlap move
+       (:func:`~peapods_tpu_torch.ops.overlap.overlap_event`, square and
+       cubic lattices), its statistics or observations folded, and on the
+       snapshot sweeps its snapshot taken (the spins before it, its labels);
+    5. on PT sweeps, ``pt_step``'s PT event on each replica's ladder with
+       the reference's jnp-form draws (:func:`~.seeds.pt_draws_jnp`): on
+       the sweep's (e, m), or after an overlap update on energies re-derived
+       from the moved spins (:func:`~peapods_tpu_torch.ops.overlap.
+       energy_partials`, :2888-2900); an observe run's PT reads the
+       sweep's (e, m), as a run without the observer does;
+    6. the records of the sweeps past warmup, the pair records, the
+       cluster-size histograms and the graph observations of their FK
+       phases are folded into the sums.
     """
     c = cfg.cluster_update
+    h = cfg.overlap_cluster
     wolff = c is not None and c.mode == "wolff"
     observe = c is not None and c.action == "observe"
     pt_on = cfg.pt_interval is not None and rt.n_temps >= 2
@@ -407,6 +442,7 @@ def run_chunk_sweeps(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
     lat = rt.lattice
     staged = not fk.fused_lattice(lat)
     d, n_sys, n_sp = rt.n_disorder, rt.n_systems, rt.n_spins
+    R, T = rt.n_replicas, rt.n_temps
     n_dirs = lat.n_neighbors
     dev = rt.device
     counter = int(state["counter"])
@@ -427,9 +463,15 @@ def run_chunk_sweeps(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
             scal = _upload(seeds.fk_scalars(kf, n_sp, wolff=wolff), dev)
     draws = None
     if pt_on:
-        dr = seeds.pt_draws_jnp(base, counter, n, n_sys - 1, pt_full=pt_full)
+        dr = seeds.pt_draws_jnp(base, counter, n, T - 1, pt_full=pt_full, n_replicas=R)
         draws = (_upload(dr, dev) if pt_full
                  else tuple(_upload(x, dev) for x in dr))
+    fold = None
+    if "overlap_csd" in acc:
+        fold = lambda mode, graphs: _fold_overlap_graphs(rt, cfg, acc, mode, graphs)  # noqa: E731
+    events = _event_tables(rt, cfg, base, counter, s_begin, n, fold)
+    ev_at = {} if events is None else {t: k for k, t in enumerate(events.at)}
+    si = None if h is None else h.snapshot_interval
 
     sweep_u = bond_u = None
     if dev.type == "cpu":
@@ -451,16 +493,23 @@ def run_chunk_sweeps(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
     spins = state["spins"].view(d, n_sys, *lat.shape)
     graphs = state["spins"].view(d * n_sys, *lat.shape)
     sid = state["system_ids"].view(d, n_sys)
-    sys_temps = slot_temps_for_systems(sid, rt.temps)
+    sys_temps = slot_temps_for_systems(sid, rt.slot_temps)
     graph_temps = sys_temps.view(-1)
     pt_state = [state[k] for k in ("pt_edge_attempts", "pt_edge_acceptances",
                                    "pt_round_trips", "pt_trip_state")]
     e = torch.empty((d, n, n_sys), dtype=torch.float32, device=dev)
     m = torch.empty((d, n, n_sys), dtype=torch.int32, device=dev)
+    pair_rows = None
+    if rt.n_pairs:
+        pair_rows = [torch.empty((d, n, rt.n_pairs * T), dtype=torch.int32, device=dev)
+                     for _ in range(2)]
     parity = int(state["pt_parity"])
     gibbs = cfg.sweep_mode == "gibbs"
     collect = "fk_csd" in acc
+    pt_kw = dict(pt_full=pt_full, hot_slot=rt.hot_slot, cold_slot=rt.cold_slot,
+                 n_spins=n_sp, n_replicas=R)
     for t in range(n):
+        s = s_begin + t
         k = fk_at.get(t)
         # the FK kernels' update measures the spins it leaves
         fk_measures = k is not None and not (observe or staged)
@@ -487,20 +536,52 @@ def run_chunk_sweeps(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
                     graphs, rt.coup, graph_temps, scal[k], kb_w[k],
                     wolff=wolff, with_measure=True, with_labels=collect, uniforms=bu)
                 parts = (e_part.view(d, n_sys, -1), m_part.view(d, n_sys, -1))
-            if collect and s_begin + t >= warmup:
+            if collect and s >= warmup:
                 _fold_fk_graphs(rt, acc, labels, masks, sid)
         if parts is None:
             parts = measure_nb(flat, rt.coup, lat)
-        do_pt = pt_on and (s_begin + t) % cfg.pt_interval == 0
-        parity = mega.pt_step(
-            *parts, e[:, t], m[:, t], sid, *pt_state, rt.temps,
-            None if not do_pt else (
-                draws[t] if pt_full else (draws[0][t], draws[1][t])),
-            sys_temps, do_pt=do_pt, pt_full=pt_full, parity=parity,
-            hot_slot=rt.hot_slot, cold_slot=rt.cold_slot, n_spins=n_sp)
+        if pair_rows is not None:
+            megapair.pair_overlap(flat, sid, pair_rows[0][:, t], pair_rows[1][:, t],
+                                  shape=lat.shape, n_replicas=R, offsets=lat.offsets)
+        do_pt = pt_on and s % cfg.pt_interval == 0
+        draw = None if not do_pt else (draws[t] if pt_full
+                                       else (draws[0][t], draws[1][t]))
+        ev = ev_at.get(t)
+        if ev is None:
+            parity = mega.pt_step(*parts, e[:, t], m[:, t], sid, *pt_state,
+                                  rt.slot_temps, draw, sys_temps, do_pt=do_pt,
+                                  parity=parity, **pt_kw)
+            continue
+        mega.pt_step(*parts, e[:, t], m[:, t], sid, *pt_state, rt.slot_temps, None,
+                     sys_temps, do_pt=False, parity=parity, **pt_kw)
+        tasks, scal_ev, probes, words = events.table(ev)
+        mode = ((s // h.interval) % len(h.modes))
+        snap = (_snapshot(rt, flat, sid, tasks, mode, s)
+                if si is not None and s % si == 0 and s >= warmup else None)
+        want = events.wants(ev)
+        moved = overlap.overlap_event(
+            flat, sid, tasks, rt.coup, rt.temps, scal_ev, probes, words,
+            kind=events.kinds[ev], wolff=h.cluster_mode == "wolff", shape=lat.shape,
+            with_labels=want or snap is not None,
+            with_masks=want and events.observe, observe=events.observe)
+        if want:
+            events.fold(ev, moved)
+        if snap is not None:
+            lab = lambda x: x.view(d, T, -1, n_sp)[0, :, 0]  # noqa: E731
+            snap["cluster_ids"] = lab(moved.labels)
+            if moved.blue is not None:
+                snap["blue_ids"] = lab(moved.blue)
+            acc.setdefault("snapshots", []).append(snap)
+        if do_pt:
+            e2 = parts if events.observe else overlap.energy_partials(flat, rt.coup,
+                                                                     lat.shape)
+            parity = mega.pt_step(*e2, None, None, sid, *pt_state, rt.slot_temps, draw,
+                                  sys_temps, do_pt=True, parity=parity, **pt_kw)
     state["counter"] = np.int32(counter + n)
     state["pt_parity"] = np.int32(parity)
     _fold_records(rt, state, acc, e, m, s_begin, n)
+    if pair_rows is not None:
+        _fold_pairs(rt, state, acc, *pair_rows, s_begin, n)
 
 
 def run_chunk_space(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,

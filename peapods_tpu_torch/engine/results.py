@@ -9,8 +9,9 @@ with the P(q) histograms and ``ql_at_q`` sums when there are replica pairs
 ``per_disorder.cluster_observations`` (``fk`` on FK observe runs;
 ``houdayer``, ``jorg`` and ``cmr_blue`` on overlap observe runs), the FK
 cluster-size histograms ``fk_csd`` when cluster statistics are collected,
-and the overlap moves' ``overlap_csd`` and ``top_cluster_sizes``, with the
-reference's keys, dtypes and presence rules.
+the overlap moves' ``overlap_csd`` and ``top_cluster_sizes``, and their
+``cluster_snapshots``, with the reference's keys, dtypes and presence
+rules.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ __all__ = ["finalize"]
 def finalize(rec_sums: np.ndarray, n_recorded: int, n_replicas: int,
              pt_state: dict | None, fk_csd: np.ndarray | None = None,
              pairs: dict | None = None, fk_obs: dict | None = None,
-             overlap: dict | None = None) -> dict:
+             overlap: dict | None = None, snapshots: list | None = None) -> dict:
     """Build the results dict.
 
     Args:
@@ -49,6 +50,8 @@ def finalize(rec_sums: np.ndarray, n_recorded: int, n_replicas: int,
             ``kinds`` (each mode's move kind), ``n_pairs``, and for observe
             runs ``obs`` (per kind used, the integer ``[d, T, N_FK_OBS]``
             sums) with ``n_spins``, ``n_neighbors`` and ``with_winding``.
+        snapshots: the overlap moves' snapshots in the reference's form
+            (``cluster_snapshots``), when any was taken.
     """
     d, _, t = rec_sums.shape
     result = {}
@@ -161,4 +164,7 @@ def finalize(rec_sums: np.ndarray, n_recorded: int, n_replicas: int,
                 denom = np.maximum(counts * overlap["n_pairs"], 1.0)[:, None, None]
                 tops.append((overlap["top4_sum"][:, m] / denom).mean(0))
             result["top_cluster_sizes"] = tops
+    if snapshots:
+        # peapods_tpu/engine/results.py:382-383
+        result["cluster_snapshots"] = snapshots
     return result

@@ -239,24 +239,29 @@ def fk_scalars(kf, n_spins: int, *, wolff: bool) -> np.ndarray:
 
 
 def pt_draws_jnp(base_keys, counter: int, n: int, n_edges: int, *,
-                 pt_full: bool):
+                 pt_full: bool, n_replicas: int = 1):
     """The jnp-form PT draws of ``n`` sweeps from ``counter`` on
-    (peapods_tpu/ops/tempering.py:81-149), one replica per ladder.
+    (peapods_tpu/ops/tempering.py:81-155), for the ``R = n_replicas``
+    ladders of each realization.
 
     With ``k = fold_in(fold_in(key, ctr), PH_PT)``: single edge
-    ``k_edge, k_u = split(k)``, ``edge = randint(k_edge, (1,), 0,
-    n_edges)``, ``u = uniform(k_u, (1,))`` -> ``(edge int32 [n, d], u f32
-    [n, d])``; full ladder ``u[i] = uniform(fold_in(k, i), (1, n_edges))``
-    for the two parity passes ``i`` -> f32 ``[n, d, 2, n_edges]``.
+    ``k_edge, k_u = split(k)``, ``edges = randint(k_edge, (R,), 0,
+    n_edges)``, ``u = uniform(k_u, (R,))`` -> ``(edge int32 [n, d, R], u
+    f32 [n, d, R])``; full ladder ``u[i] = uniform(fold_in(k, i), (R,
+    n_edges))`` for the two parity passes ``i`` -> f32 ``[n, d, R, 2,
+    n_edges]``.  With one replica the ``R`` axis is dropped (``[n, d]`` and
+    ``[n, d, 2, n_edges]``): the draws of shape ``(1,)`` are those of shape
+    ``()``.
     """
     k = _counter_keys(base_keys, counter, n, PH_PT)  # [n, d, 2]
+    r = (n_replicas,) if n_replicas > 1 else ()
     if pt_full:
         return np.stack(
-            [uniform(fold_in(k, i), (n_edges,)) for i in (0, 1)], axis=-2
+            [uniform(fold_in(k, i), r + (n_edges,)) for i in (0, 1)], axis=-2
         )
     kk = split(k)
-    return (randint(kk[..., 0, :], (), 0, n_edges),
-            uniform(kk[..., 1, :], ()))
+    return (randint(kk[..., 0, :], r, 0, n_edges),
+            uniform(kk[..., 1, :], r))
 
 
 def permutation(key, n: int) -> np.ndarray:

@@ -20,6 +20,11 @@ extents, on four paths:
   robin), with or without their cluster statistics, or observed (SW:
   the graph observations of each move kind, winding on the canonical 2D
   square; the spins untouched);
+* two replicas or more with an FK phase, with ``snapshot_interval``, or on
+  any other lattice: the per-sweep path with the pair overlaps over the
+  lattice's offsets, PT on each replica's ladder, and on square and cubic
+  lattices the overlap moves with their statistics, observations and
+  snapshots (``cluster_snapshots``);
 * one replica on a ``space`` mesh (:func:`~peapods_tpu_torch.parallel.mesh.
   make_mesh` with the axis ``("space",)``; the mesh may name one card for
   every band): the per-sweep path over the lattice's row bands, on every
@@ -113,6 +118,24 @@ def _defer_sigint():
         raise KeyboardInterrupt
 
 
+def _snapshot_entry(snap: dict) -> dict:
+    """A snapshot in the reference's form (``HostAccum.add_snapshot``,
+    peapods_tpu/engine/results.py:228-240): realization 0's first group at
+    each temperature, ``cluster_ids`` uint32 ``[T, n]`` (CMR's grey
+    labels), ``spins`` int8 ``[T, 2, n]`` before the move, ``system_ids``
+    uint64 ``[T, 2]``, and CMR's ``blue_ids`` uint32 ``[T, n]``."""
+    entry = {
+        "sweep_id": int(snap["sweep_id"]),
+        "mode_idx": int(snap["mode_idx"]),
+        "cluster_ids": snap["cluster_ids"].cpu().numpy().astype(np.uint32),
+        "spins": snap["spins"].cpu().numpy().astype(np.int8),
+        "system_ids": snap["system_ids"].cpu().numpy().astype(np.uint64),
+    }
+    if "blue_ids" in snap:
+        entry["blue_ids"] = snap["blue_ids"].cpu().numpy().astype(np.uint32)
+    return entry
+
+
 class IsingSimulation:
     """Holds the lattice constants and the batched realization state."""
 
@@ -139,8 +162,6 @@ class IsingSimulation:
         lattice = Lattice(lattice_shape, neighbor_offsets)
         if n_replicas < 1:
             raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
-        if n_replicas > 1 and not lattice.hypercubic:
-            not_ported("replicas on a lattice other than square or cubic", "7a")
         self.lattice = lattice
         self.device = resolve_device(device)
         self.mesh = mesh
@@ -311,10 +332,8 @@ class IsingSimulation:
                 "overlap cluster requires n_replicas >= max group_size "
                 f"({self.n_replicas} < {h.max_group_size()})"
             )
-        if cluster_update is not None and self.n_replicas > 1:
-            not_ported("replicas with an FK cluster phase", "7a")
-        if h is not None and h.snapshot_interval is not None:
-            not_ported("snapshot_interval", "7a")
+        if h is not None and not self.lattice.hypercubic:
+            not_ported("overlap moves on a lattice other than square or cubic", "7d")
         if self.rt.space is not None:
             if snapshot_interval is not None:
                 not_ported("snapshot_interval on a space mesh", "9")
@@ -364,5 +383,7 @@ class IsingSimulation:
         if "q_hist" in acc:
             pairs = {k: acc[k].cpu().numpy() for k in ("q_hist", "ql_at_q", "ql2_at_q")}
             pairs.update(n_pairs=self.rt.n_pairs, n_bonds=link_bonds(self.lattice))
+        snapshots = [_snapshot_entry(x) for x in acc.get("snapshots", [])]
         return finalize(acc["rec_sums"].cpu().numpy(), acc["n_recorded"],
-                        self.rt.n_replicas, pt_state, fk_csd, pairs, fk_obs, overlap)
+                        self.rt.n_replicas, pt_state, fk_csd, pairs, fk_obs, overlap,
+                        snapshots)

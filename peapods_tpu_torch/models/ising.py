@@ -40,6 +40,7 @@ _PASSTHROUGH_ATTRS = (
     "per_sample_ql_at_q_sum",
     "per_sample_ql2_at_q_sum",
     "top_cluster_sizes",
+    "cluster_snapshots",
 )
 _SAMPLE_GATES = (
     ("cluster_mode", "cluster_update_interval"),

@@ -29,16 +29,18 @@ def per_slot_values(values_by_system, system_ids):
         idx.shape[:2] + values_by_system.shape[2:]))
 
 
-def overlap_dots(spins, system_ids, shape, n_replicas: int):
+def overlap_dots(spins, system_ids, shape, n_replicas: int, offsets=None):
     """Spin and link overlap dot products of every replica pair ``(2p,
     2p+1)`` at every temperature (overlap.rs:251-333): ``q_i = a_i b_i``,
-    ``qs = sum_i q_i`` and ``ql = sum_i q_i sum_d q_{i + e_d}`` over the
-    forward neighbours.
+    ``qs = sum_i q_i`` and ``ql = sum_i q_i sum_o q_{i + o}`` over the
+    forward neighbours (the reference's ``geom.neighbor_sum_fwd``).
 
     Args:
         spins: int8 ``[d, n_systems, n_spins]`` by system.
         system_ids: int32 ``[d, n_slots]`` (``n_slots = R T``).
         shape: the lattice extents (2D or 3D).
+        offsets: the forward offsets ``[n_nb, n_dims]`` (the axes when
+            ``None``).
 
     Returns:
         ``(qs, ql)``, each int32 ``[d, n_pairs, T]``.
@@ -52,7 +54,9 @@ def overlap_dots(spins, system_ids, shape, n_replicas: int):
     a = spins[di, sid[:, 0:2 * n_pairs:2]].to(torch.int32)
     b = spins[di, sid[:, 1:2 * n_pairs:2]].to(torch.int32)
     q = (a * b).reshape(*a.shape[:-1], *shape)
-    nbr = sum(torch.roll(q, -1, k - nd) for k in range(nd))
     spatial = tuple(range(-nd, 0))
+    if offsets is None:
+        offsets = torch.eye(nd, dtype=torch.int64)
+    nbr = sum(torch.roll(q, tuple(-int(o) for o in off), spatial) for off in offsets)
     return (q.sum(spatial, dtype=torch.int32),
             (q * nbr).sum(spatial, dtype=torch.int32))

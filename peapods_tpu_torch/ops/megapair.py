@@ -108,10 +108,11 @@ class Events:
 # ------------------------------------------------------------ pair_overlap
 
 
-def pair_overlap_plain(spins, sid, shape, n_replicas):
+def pair_overlap_plain(spins, sid, shape, n_replicas, offsets=None):
     """``(qs, ql)`` int32 ``[d, P T]`` (pair-major) of spins ``[d, R T,
-    n_spins]`` by system (see :func:`~.measure.overlap_dots`)."""
-    qs, ql = overlap_dots(spins, sid, shape, n_replicas)
+    n_spins]`` by system, ``ql`` over the forward ``offsets`` (the axes
+    when ``None``; see :func:`~.measure.overlap_dots`)."""
+    qs, ql = overlap_dots(spins, sid, shape, n_replicas, offsets)
     return qs.flatten(1), ql.flatten(1)
 
 
@@ -124,6 +125,8 @@ def pair_overlap_plain(spins, sid, shape, n_replicas):
 PAIR_WORDS_A_THREAD = 1
 PAIR_BLOCK = 128
 PAIR_MAX_THREADS = 1024
+# the forward offsets a PairWalk holds (csrc/pairs.cu kPairMaxOffsets)
+PAIR_MAX_OFFSETS = 6
 
 
 def pair_word_bytes(fast: int, align: int) -> int:
@@ -136,17 +139,44 @@ def pair_word_bytes(fast: int, align: int) -> int:
     return 1
 
 
-@functools.lru_cache(maxsize=None)
-def pair_words(shape, n_replicas: int, n_slots: int, align: int = 0):
+def _offset_table(shape, offsets):
+    """The forward offsets as a tuple of tuples (the axes when ``None``)."""
+    if offsets is None:
+        offsets = np.eye(len(shape), dtype=np.int64)
+    return tuple(tuple(int(x) for x in off) for off in np.asarray(offsets))
+
+
+def pair_words(shape, n_replicas: int, n_slots: int, align: int = 0, offsets=None):
     """int32 host words of ``pair_overlap`` (``csrc/pairs.cu`` ``PairWalk``):
-    ``W, n, n / W, wpl, Lb, La, nd, T, P T, n_slots, tpc, log2 tpc, block``,
-    then :func:`~.lattice.fast_divisor` ``(m, s)`` of ``wpl``, ``Lb`` and
-    ``T``.  A system is ``n / W`` words of ``W`` bytes (:func:`pair_word_bytes`
-    of the fast extent and ``align``, the spins' address modulo 8), in lines
-    of ``wpl`` words along the fast axis; the lines run over an inner slow
-    axis of extent ``Lb`` (2D: ``L0``; 3D: ``L1``) and in 3D an outer one of
-    extent ``La = L0`` (0 in 2D)."""
-    shape = tuple(int(x) for x in shape)
+    ``W, n, n / W, wpl, Lb, La, nd, T, P T, n_slots, tpc, log2 tpc, block,
+    n_nb, axes``, then :func:`~.lattice.fast_divisor` ``(m, s)`` of
+    ``wpl``, ``Lb`` and ``T``, then per forward offset (six, zero-padded)
+    its steps ``ra, rb, q, b``.  A system is ``n / W`` words of ``W`` bytes
+    (:func:`pair_word_bytes` of the fast extent and ``align``, the spins'
+    address modulo 8), in lines of ``wpl`` words along the fast axis; the
+    lines run over an inner slow axis of extent ``Lb`` (2D: ``L0``; 3D:
+    ``L1``) and in 3D an outer one of extent ``La = L0`` (0 in 2D).  An
+    offset ``o`` (``offsets``: the axes when ``None``) steps the line by
+    ``ra = o[0] mod La`` (3D; 0 in 2D) and ``rb`` (its inner slow component
+    mod ``Lb``), and its fast component mod the fast extent is ``q W + b``:
+    ``q`` words and ``b`` bytes.  ``axes`` is 1 where the steps are those
+    of the lattice's axes (the kernel's form of its own for them)."""
+    return _pair_words(tuple(int(x) for x in shape), n_replicas, n_slots, align,
+                       _offset_table(shape, offsets))
+
+
+def _pair_steps(shape, w, offsets):
+    """int64 ``[len(offsets), 4]``: each offset's ``(ra, rb, q, b)``."""
+    lb, la = (shape[0], 0) if len(shape) == 2 else (shape[1], shape[0])
+    steps = np.zeros((len(offsets), 4), np.int64)
+    for k, off in enumerate(offsets):
+        fast = off[-1] % shape[-1]
+        steps[k] = (off[0] % la if la else 0, off[-2] % lb, fast // w, fast % w)
+    return steps
+
+
+@functools.lru_cache(maxsize=None)
+def _pair_words(shape, n_replicas, n_slots, align, offsets):
     nd = len(shape)
     n = int(np.prod(shape))
     w = pair_word_bytes(shape[-1], align)
@@ -158,10 +188,17 @@ def pair_words(shape, n_replicas: int, n_slots: int, align: int = 0):
     tpc = 32
     while tpc * PAIR_WORDS_A_THREAD < nw and tpc < PAIR_MAX_THREADS:
         tpc *= 2
+    if not 1 <= len(offsets) <= PAIR_MAX_OFFSETS:
+        raise ValueError(f"pair_overlap takes 1 to {PAIR_MAX_OFFSETS} offsets")
+    steps = _pair_steps(shape, w, offsets)
+    axes = int(np.array_equal(steps, _pair_steps(shape, w, np.eye(nd, dtype=np.int64))))
     head = [w, n, nw, wpl, lb, la, nd, n_temps, cols, n_slots, tpc,
-            tpc.bit_length() - 1, max(PAIR_BLOCK, tpc)]
+            tpc.bit_length() - 1, max(PAIR_BLOCK, tpc), len(offsets), axes]
     div = [fast_divisor(x) for x in (wpl, lb, n_temps)]
-    words = np.asarray(head + [v for md in div for v in md], np.int64)
+    table = np.zeros((PAIR_MAX_OFFSETS, 4), np.int64)
+    table[:len(offsets)] = steps
+    words = np.concatenate([np.asarray(head + [v for md in div for v in md], np.int64),
+                            table.reshape(-1)])
     return words.astype(np.uint32).view(np.int32)
 
 
@@ -172,13 +209,14 @@ def _launch_pair(lib, stream, p_spins, p_sid, p_qs, p_ql, out_stride, d, words):
     LAUNCHES["pair_overlap"] += 1
 
 
-def pair_overlap(spins, sid, qs_row, ql_row, *, shape, n_replicas):
+def pair_overlap(spins, sid, qs_row, ql_row, *, shape, n_replicas, offsets=None):
     """Write every pair's ``(qs, ql)`` into the rows ``qs_row`` / ``ql_row``
-    (int32 ``[d, P T]`` views with unit stride along the columns): the plain
+    (int32 ``[d, P T]`` views with unit stride along the columns), ``ql``
+    over the forward ``offsets`` (the axes when ``None``): the plain
     version for CPU tensors, the ``pair_overlap`` kernel for CUDA
     tensors."""
     if _build.device_kind(spins) == "cpu":
-        qs, ql = pair_overlap_plain(spins, sid, shape, n_replicas)
+        qs, ql = pair_overlap_plain(spins, sid, shape, n_replicas, offsets)
         qs_row.copy_(qs)
         ql_row.copy_(ql)
         return
@@ -195,7 +233,8 @@ def pair_overlap(spins, sid, qs_row, ql_row, *, shape, n_replicas):
     _launch_pair(_build.library(), torch.cuda.current_stream(dev).cuda_stream,
                  spins.data_ptr(), sid.data_ptr(), qs_row.data_ptr(),
                  ql_row.data_ptr(), qs_row.stride(0), d,
-                 pair_words(tuple(shape), n_replicas, n_slots, spins.data_ptr() % 8))
+                 pair_words(tuple(shape), n_replicas, n_slots, spins.data_ptr() % 8,
+                            offsets))
 
 
 # ------------------------------------------------------------ the chunk

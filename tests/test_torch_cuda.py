@@ -4,8 +4,10 @@ Every test here needs an NVIDIA GPU and skips without one.  They cover the
 mega path's kernels (colour_pass, pt_step), the per-sweep path's
 (sweep_2d and the three FK kernels; fk_bonds and fk_bonds_band alone,
 their state bytes) and the replica path's (colour_pass in
-3D, pt_step on R ladders, pair_overlap, the ov_* overlap-move kernels and
-energy_partials), the coloured lattices' (sweep_nb, measure_nb and the
+3D, pt_step on R ladders, pair_overlap, also over the offset tables of the
+triangular, BCC, FCC and NNN lattices, the ov_* overlap-move kernels and
+energy_partials; the per-sweep replica path's runs on the card against the
+CPU), the coloured lattices' (sweep_nb, measure_nb and the
 FK kernels with three bond directions; fk_finish alone with its partials
 per block), FK observe's and the staged path's (cc_link, whole and tiled, the
 winding kernels in both forms, one launch at a time and at 2048^2,
@@ -823,6 +825,119 @@ def test_pair_overlap_kernel_matches_plain(cuda, shape, d, n_rep, n_temps, shift
     assert torch.equal(ql[:, 1], pl)
     # the rows beside the one written are untouched
     assert bool((qs[:, 0::2] == -7).all()) and bool((ql[:, 0::2] == -7).all())
+
+
+_TRI = [[1, 0], [0, 1], [1, -1]]
+_NNN = [[1, 0], [0, 1], [1, 1], [1, -1]]
+# pair_overlap over offset tables: the square and cubic lattices as their
+# axes' tables, the triangular, BCC, FCC and NNN lattices at the smoke's
+# shapes (binder_crossings.py's 32^2 and 10^3: 10 sites a line take the
+# per-site path) and at widths of 8- and 4-byte words, tables with negative
+# and long components and a self-bond, spins off the 8-byte boundary
+PAIR_OFFSETS = [
+    ("square-32", (32, 32), None, 0), ("cubic-10", (10, 10, 10), None, 0),
+    ("tri-32", (32, 32), "triangular", 0), ("tri-8x12", (8, 12), "triangular", 0),
+    ("tri-16-shift4", (16, 16), "triangular", 4), ("bcc-10", (10, 10, 10), "bcc", 0),
+    ("bcc-8", (8, 8, 8), "bcc", 0), ("fcc-10", (10, 10, 10), "fcc", 0),
+    ("fcc-4x4x16", (4, 4, 16), "fcc", 0), ("fcc-6x4x12-shift2", (6, 4, 12), "fcc", 2),
+    ("nnn-16", (16, 16), _NNN, 0), ("nnn-6x10", (6, 10), _NNN, 0),
+    ("table-8x8", (8, 8), [[-1, 2], [0, -3], [2, 1]], 0),
+    ("table-4x6x8", (4, 6, 8), [[0, 0, -1], [2, 0, 3]], 0),
+    ("self-bond-4x8", (4, 8), [[0, 8], [1, 0]], 0), ("fast5-8x4", (8, 4), [[1, 0], [0, 5]], 0),
+]
+
+
+@pytest.mark.parametrize("n_rep", [2, 4])
+@pytest.mark.parametrize("name,shape,geometry,shift", PAIR_OFFSETS,
+                         ids=[x[0] for x in PAIR_OFFSETS])
+def test_pair_overlap_offsets_kernel_matches_plain(cuda, name, shape, geometry, shift,
+                                                   n_rep):
+    """qs, ql over the lattice's forward offsets bitwise the plain version,
+    one launch into a strided row view: an offset's neighbour word is the
+    word of the line its slower components reach, shifted by its fast
+    component's bytes (a negative component wraps)."""
+    from peapods_tpu_torch.ops import megapair
+    from peapods_tpu_torch.ops.lattice import GEOMETRY_OFFSETS
+
+    offsets = GEOMETRY_OFFSETS[geometry] if isinstance(geometry, str) else geometry
+    d, n_temps = 2, 3
+    x = _pair_inputs(cuda, 11, shape, d, n_rep, n_temps)
+    spins = x["spins"]
+    if shift:
+        buf = torch.empty(spins.numel() + 8, dtype=torch.int8, device=cuda)
+        spins = buf[shift:shift + spins.numel()].view(spins.shape)
+        spins.copy_(x["spins"])
+    cols = (n_rep // 2) * n_temps
+    qs = torch.full((d, 3, cols), -7, dtype=torch.int32, device=cuda)
+    ql = torch.full_like(qs, -7)
+    megapair.LAUNCHES["pair_overlap"] = 0
+    megapair.pair_overlap(spins, x["sid"], qs[:, 1], ql[:, 1], shape=shape,
+                          n_replicas=n_rep, offsets=offsets)
+    torch.cuda.synchronize()
+    assert megapair.LAUNCHES["pair_overlap"] == 1
+    ps, pl = megapair.pair_overlap_plain(x["spins"], x["sid"], shape, n_rep, offsets)
+    assert torch.equal(qs[:, 1], ps)
+    assert torch.equal(ql[:, 1], pl)
+    assert bool((qs[:, 0::2] == -7).all()) and bool((ql[:, 0::2] == -7).all())
+
+
+@pytest.mark.parametrize("shape,geometry,n_rep,kw", [
+    ((16, 16), "triangular", 2, dict(cluster_update_interval=1, cluster_mode="sw",
+                                     collect_cluster_stats=True)),
+    ((8, 8, 8), "bcc", 2, dict(cluster_update_interval=1, cluster_mode="sw",
+                               pt_schedule="full_ladder")),
+    ((10, 10, 10), "fcc", 2, dict(cluster_update_interval=2, cluster_mode="wolff")),
+    ((8, 8, 8), None, 4, dict(cluster_update_interval=1, cluster_mode="sw",
+                              overlap_cluster_update_interval=2,
+                              overlap_cluster_build_mode="cmr+houd4",
+                              overlap_cluster_mode="sw", collect_cluster_stats=True,
+                              snapshot_interval=2)),
+    ((16, 16), None, 2, dict(overlap_cluster_update_interval=3,
+                             overlap_cluster_build_mode="jorg+houdayer",
+                             overlap_cluster_mode="wolff", snapshot_interval=6)),
+], ids=["tri-sw-stats", "bcc-sw-full", "fcc-wolff", "cubic-sw-cmr+houd4-snapshots",
+        "square-snapshots"])
+def test_replica_sweeps_sample_on_card_matches_the_cpu(cuda, shape, geometry, n_rep, kw):
+    """The per-sweep replica path (an FK phase, a lattice other than square
+    or cubic, or snapshots): the kernels on the card and the plain path on
+    the CPU follow one trajectory (+-1 couplings: every energy sum is an
+    exact integer), with the same pair records, FK and overlap statistics
+    and snapshots; one pair_overlap launch a sweep."""
+    from peapods_tpu_torch.ops import megapair
+
+    geo = {} if geometry is None else dict(geometry=geometry)
+    temps = np.geomspace(1.0, 4.0, 4).astype(np.float32)
+
+    def model(dev):
+        return Ising(shape, couplings="bimodal", temperatures=temps, n_replicas=n_rep,
+                     n_disorder=2, seed=8, device=dev, **geo)
+
+    a, c = model("cuda"), model("cpu")
+    kw = dict(kw, pt_interval=1)
+    megapair.LAUNCHES["pair_overlap"] = 0
+    ra = a.sample(24, **kw)
+    assert megapair.LAUNCHES["pair_overlap"] == 24
+    rc = c.sample(24, **kw)
+    for key in ("spins", "system_ids", "pt_edge_acceptances", "pt_round_trips",
+                "pt_trip_state"):
+        assert torch.equal(a._sim.state[key].cpu(), c._sim.state[key]), key
+    for key in ("mags", "mags2", "energies", "energies2", "overlap", "overlap2",
+                "link_overlap", "link_overlap2", "ql_at_q_sum"):
+        np.testing.assert_allclose(ra[key], rc[key], rtol=1e-12, err_msg=key)
+    np.testing.assert_array_equal(np.asarray(ra["overlap_histogram"]),
+                                  np.asarray(rc["overlap_histogram"]))
+    for key in ("fk_csd", "overlap_csd", "top_cluster_sizes"):
+        assert (key in ra) == (key in rc), key
+        if key in rc:
+            np.testing.assert_array_equal(np.asarray(ra[key]), np.asarray(rc[key]),
+                                          err_msg=key)
+    sa, sc = ra.get("cluster_snapshots", []), rc.get("cluster_snapshots", [])
+    assert len(sa) == len(sc) == (0 if "snapshot_interval" not in kw else
+                                  len(range(6, 24, kw["snapshot_interval"])))
+    for x, y in zip(sa, sc):
+        assert sorted(x) == sorted(y)
+        for key in y:
+            np.testing.assert_array_equal(x[key], y[key], err_msg=key)
 
 
 @pytest.mark.parametrize("n_rep,pt_full", [(4, False), (4, True), (1, True)],

@@ -445,14 +445,30 @@ def test_geometry_api_matches_reference():
 
 
 @pytest.mark.parametrize("kwargs,sample,item", [
-    (dict(lattice_shape=(4, 4), geometry="tri", n_replicas=2), None, "7a"),
-    # SW on BCC runs (the staged path); with replicas it is item 7a
+    (dict(lattice_shape=(4, 4), geometry="tri", n_replicas=2), None, None),
+    # SW on BCC runs (the staged path), with replicas too
     (dict(lattice_shape=(4, 4, 4), geometry="bcc", n_replicas=2),
-     dict(cluster_update_interval=1, cluster_mode="sw"), "7a"),
+     dict(cluster_update_interval=1, cluster_mode="sw"), None),
     (dict(lattice_shape=(4, 5), geometry="tri"), None, "4a"),
-], ids=["replicas-tri", "sw-bcc", "odd-extents"])
+    (dict(lattice_shape=(4, 4), geometry="tri", n_replicas=2),
+     dict(overlap_cluster_update_interval=1), "7d"),
+], ids=["replicas-tri", "sw-bcc", "odd-extents", "overlap-tri"])
 def test_out_of_slice_geometry_options_raise(kwargs, sample, item):
-    match = f"ROADMAP.md, queue 1, item {item}"
-    with pytest.raises(NotImplementedError, match=match):
-        m = Ising(temperatures=[2.0, 3.0], seed=1, device="cpu", **kwargs)
-        m.sample(4, **(sample or {}))
+    """Options outside the slice raise, naming the ROADMAP item; replicas on
+    the triangular and BCC lattices run (item 7a): the pair records over
+    the lattice's offsets, q_l a mean over n_spins * n_neighbors bonds."""
+    if item is not None:
+        match = f"ROADMAP.md, queue 1, item {item}"
+        with pytest.raises(NotImplementedError, match=match):
+            m = Ising(temperatures=[2.0, 3.0], seed=1, device="cpu", **kwargs)
+            m.sample(4, **(sample or {}))
+        return
+    m = Ising(temperatures=[2.0, 3.0], couplings="ferro", seed=1, device="cpu", **kwargs)
+    r = m.sample(4, warmup_ratio=0, pt_interval=1, **(sample or {}))
+    assert np.asarray(r["overlap_histogram"]).sum() == 4 * 2  # sweeps x T
+    for key in ("overlap2", "link_overlap", "link_overlap2", "energies"):
+        assert np.isfinite(r[key]).all(), key
+    # |q_l| <= 1: the link sums are divided by n_spins * n_neighbors bonds
+    assert (np.abs(r["link_overlap"]) <= 1).all()
+    assert ("fk_csd" in r) is False
+    assert np.isfinite(m.sg_binder).all()

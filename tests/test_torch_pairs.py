@@ -400,18 +400,20 @@ def test_results_schema_matches_reference(n_disorder):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    (dict(cluster_update_interval=1), "7a"),
+    (dict(cluster_update_interval=1), None),
     (dict(overlap_cluster_update_interval=1, overlap_cluster_mode="sw",
           overlap_cluster_action="observe"), None),
     (dict(overlap_cluster_update_interval=1, collect_cluster_stats=True), None),
-    (dict(overlap_cluster_update_interval=2, snapshot_interval=2), "7a"),
+    (dict(overlap_cluster_update_interval=2, snapshot_interval=2), None),
     (dict(overlap_cluster_update_interval=1, overlap_cluster_build_mode="houd4"),
      None),
 ], ids=["fk-phase", "observe", "collect-stats", "snapshots", "houd4"])
 def test_out_of_slice_replica_options_raise(kwargs, item):
     """Options outside the slice raise, naming the ROADMAP item that brings
-    them; the ones that items 7b and 7c brought in (overlap observe, the
-    overlap moves' cluster statistics, Houdayer(N)) run."""
+    them; the ones that items 7a, 7b and 7c brought in (an FK phase and
+    snapshots with replicas, overlap observe, the overlap moves' cluster
+    statistics, Houdayer(N)) run: an FK phase takes the per-sweep path with
+    its pair records, snapshots come at every second sweep past warmup."""
     m = Ising((4, 4, 4), temperatures=[1.0, 2.0], n_replicas=4, seed=1, device="cpu")
     if item is not None:
         with pytest.raises(NotImplementedError,
@@ -423,13 +425,24 @@ def test_out_of_slice_replica_options_raise(kwargs, item):
     observe = kwargs.get("overlap_cluster_action") == "observe"
     assert ("overlap_csd" in r) == (observe or "collect_cluster_stats" in kwargs)
     assert ("cluster_observations" in r.get("per_disorder", {})) == observe
+    assert np.asarray(r["overlap_histogram"]).sum() == 4 * 2 * 2  # sweeps, pairs, T
+    assert np.isfinite(r["link_overlap"]).all()
+    snaps = r.get("cluster_snapshots", [])
+    assert [x["sweep_id"] for x in snaps] == ([0, 2] if "snapshot_interval" in kwargs
+                                              else [])
+    if snaps:  # the model's attribute, as the reference passes it through
+        assert m.cluster_snapshots is r["cluster_snapshots"]
+    for x in snaps:
+        assert x["spins"].shape == (2, 2, 64) and x["system_ids"].dtype == np.uint64
 
 
 def test_overlap_needs_enough_replicas():
     m = Ising((4, 4), temperatures=[2.0], seed=1, device="cpu")
     with pytest.raises(ValueError, match="n_replicas >= max group_size"):
         m.sample(4, overlap_cluster_update_interval=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        # replicas on a lattice other than square or cubic
-        Ising((4, 4, 4), geometry="fcc", temperatures=[2.0], n_replicas=2, seed=1,
+    # replicas run on every lattice; their overlap moves on the square and
+    # cubic ones only
+    m = Ising((4, 4, 4), geometry="fcc", temperatures=[2.0], n_replicas=2, seed=1,
               device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 7d"):
+        m.sample(4, overlap_cluster_update_interval=1)

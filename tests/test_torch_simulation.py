@@ -173,34 +173,57 @@ def test_state_converts_both_ways():
 
 
 @pytest.mark.parametrize(
-    "kwargs",
+    "kwargs,item",
     [
-        dict(cluster_update_interval=1, cluster_action="observe"),
-        dict(overlap_cluster_update_interval=1, snapshot_interval=1),
-        dict(autocorrelation_max_lag=4),
-        dict(equilibration_diagnostic=True),
+        (dict(cluster_update_interval=1, cluster_action="observe"), None),
+        (dict(overlap_cluster_update_interval=1, snapshot_interval=1), None),
+        (dict(autocorrelation_max_lag=4), "4b"),
+        (dict(equilibration_diagnostic=True), "4b"),
     ],
     ids=["cluster", "overlap", "autocorrelation", "equilibration"],
 )
-def test_out_of_slice_sample_options_raise(kwargs):
+def test_out_of_slice_sample_options_raise(kwargs, item):
+    """Options outside the slice raise, naming the ROADMAP item; FK observe
+    and snapshots with replicas run since item 7a (the per-sweep replica
+    path): the FK observations, and a snapshot at every sweep past
+    warmup."""
     m = Ising((4, 4), temperatures=[2.0], n_replicas=2, seed=1, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        m.sample(4, **kwargs)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, queue 1, item {item}"):
+            m.sample(4, **kwargs)
+        return
+    r = m.sample(4, warmup_ratio=0.25, **kwargs)
+    assert np.asarray(r["overlap_histogram"]).sum() == 3  # recorded sweeps, 1 pair
+    observe = kwargs.get("cluster_action") == "observe"
+    assert ("fk" in r.get("per_disorder", {}).get("cluster_observations", {})) == observe
+    snaps = r.get("cluster_snapshots", [])
+    assert [x["sweep_id"] for x in snaps] == ([] if observe else [1, 2, 3])
+    for x in snaps:
+        assert x["cluster_ids"].shape == (1, 16) and x["spins"].shape == (1, 2, 16)
 
 
 @pytest.mark.parametrize(
-    "kwargs",
+    "kwargs,item",
     [
-        dict(lattice_shape=(4, 4, 4), geometry="bcc", n_replicas=2),
-        dict(lattice_shape=(5, 4)),
-        dict(lattice_shape=(4, 4, 5), n_replicas=2),
-        dict(lattice_shape=(4, 4), geometry="tri", n_replicas=2),
+        (dict(lattice_shape=(4, 4, 4), geometry="bcc", n_replicas=2), None),
+        (dict(lattice_shape=(5, 4)), "4a"),
+        (dict(lattice_shape=(4, 4, 5), n_replicas=2), "4a"),
+        (dict(lattice_shape=(4, 4), geometry="tri", n_replicas=2), None),
     ],
     ids=["3d", "odd", "replicas", "geometry"],
 )
-def test_out_of_slice_models_raise(kwargs):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Ising(temperatures=[2.0], seed=1, device="cpu", **kwargs)
+def test_out_of_slice_models_raise(kwargs, item):
+    """Models outside the slice raise, naming the ROADMAP item; replicas on
+    the BCC and triangular lattices run since item 7a, with the pair
+    records over the lattice's offsets."""
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, queue 1, item {item}"):
+            Ising(temperatures=[2.0], seed=1, device="cpu", **kwargs)
+        return
+    m = Ising(temperatures=[2.0], seed=1, device="cpu", **kwargs)
+    r = m.sample(4, warmup_ratio=0)
+    assert np.asarray(r["overlap_histogram"]).sum() == 4
+    assert np.isfinite(r["link_overlap"]).all() and (np.abs(r["link_overlap"]) <= 1).all()
 
 
 def test_out_of_slice_engine_options_raise(tmp_path):

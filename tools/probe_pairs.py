@@ -42,7 +42,9 @@ replica configs' shapes: config 4 (8^3, R = 4, 24 temperatures, 8
 realizations), config 5 (16^3, the same) and config 1 (32^2, R = 2, 16
 temperatures, one realization; ``benchmarks/driver_configs.py:39-47``).
 Every build and every variant that keeps the function is held bitwise to
-``megapair.pair_overlap_plain``.  Times are device times of one launch
+``megapair.pair_overlap_plain``.  A redesign's source from before the
+offset tables (no ``PairOffset``) gets the words of the axes alone, so the
+parent's and this tree's builds run on the same states.  Times are device times of one launch
 (CUDA events over warm launches queued behind a sleep kernel),
 ``--rounds`` times with the builds in order and then reversed.  Prints one
 line per measurement with the card, writes all of them as JSON to
@@ -138,6 +140,13 @@ SHAPES = (("config4", (8, 8, 8), 8, 4, 24), ("config5", (16, 16, 16), 8, 4, 24),
 
 def design(csrc: Path) -> str:
     return "redesign" if "pair_link_bits" in (csrc / "pairs.cu").read_text() else "first"
+
+
+def axes_words(pairs_cu: Path) -> bool:
+    """Whether a redesign's source reads the words of the axes alone (before
+    the offset tables: the 13 head words and the three divisors, 19 in
+    all)."""
+    return "PairOffset" not in pairs_cu.read_text()
 
 
 def builds(sources, out, variants):
@@ -254,9 +263,10 @@ def inputs(shape, d, n_rep, n_temps, dev, rng):
                 shape=tuple(shape), d=d, n_rep=n_rep, n_temps=n_temps, n=n, s=s)
 
 
-def launcher(lib, first, x, words_edit):
+def launcher(lib, first, x, words_edit, axes=False):
     """``(fn, qs, ql)``: one launch of a build's pair_overlap into the rows
-    ``qs`` / ``ql`` (int32 ``[d, P T]``)."""
+    ``qs`` / ``ql`` (int32 ``[d, P T]``); ``axes``: the build reads the
+    words of the axes alone (:func:`axes_words`)."""
     dev = x["spins"].device
     d, P, T = x["d"], x["n_rep"] // 2, x["n_temps"]
     qs = torch.empty((d, P * T), dtype=torch.int32, device=dev)
@@ -274,6 +284,8 @@ def launcher(lib, first, x, words_edit):
                                     1 if words_edit == "bytes" else 0)
         if callable(words_edit):
             words = words_edit(words)
+        if axes:
+            words = np.concatenate([words[:13], words[15:21]])
         qs.words = words  # held with the rows
         args = (*head, d, words.ctypes.data, stream)
     return (lambda: _build.check(fn(*args), "pair_overlap")), qs, ql
@@ -297,7 +309,9 @@ def probe(libs, todo, states, card, rounds, results):
                 first = todo[key][1] == "first"
                 spec = VARIANTS.get(variant, (None, [], None, True))
                 lib = libs[key if todo[key][0] is not None else (label, "base")][0]
-                fn, qs, ql = launcher(lib, first, x, spec[2])
+                src = todo[key][0] or todo[(label, "base")][0]
+                fn, qs, ql = launcher(lib, first, x, spec[2],
+                                      axes=not first and axes_words(src))
                 fn()
                 torch.cuda.synchronize()
                 ok = bool(torch.equal(qs, ps) and torch.equal(ql, pl)) if spec[3] else None
