@@ -124,6 +124,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import re
 import subprocess
 import sys
@@ -4190,6 +4191,332 @@ def add_replica_sweep_records(kernels, runs):
         kr[f"at_{name}"] = run["pair"]
 
 
+# ------------------------------------------------ the overlap moves off the axes
+
+
+# Phase 34: the overlap moves on the triangular, BCC, FCC and NNN lattices
+# at full width, each run named by the configuration it carries over:
+# config 4's settings (SG_CONFIGS: +-J, R = 4, d = 8, 24 temperatures, PT
+# every sweep) on a 64^2 triangular lattice (z = 6, as on the cubic one)
+# with spin_glass_crossings.py's cmr+houd4 SW every 10 sweeps and its
+# statistics; config 5's (16^3 gaussian, R = 4, d = 8, full-ladder PT,
+# jorg+cmr every 10 sweeps) on BCC and FCC, its ladder
+# scaled by sqrt(z / 6); and the 64^2 NNN table with overlap observe every
+# sweep (as phase 26's 64^2 square, cut in depth to 256 sweeps)
+NNN_TABLE = [[1, 0], [0, 1], [1, 1], [1, -1]]
+OV_LATTICE_RUNS = {
+    "tri64": dict(shape=(64, 64), geometry="triangular", couplings="bimodal",
+                  t=(0.9, 2.2), n_temps=SG_T, n_replicas=SG_R, n_disorder=SG_D, seed=4,
+                  sweeps=512, kw=HOUDN_KW),
+    "bcc16": dict(shape=(16, 16, 16), geometry="bcc", couplings="gaussian",
+                  t=tuple(x * math.sqrt(8 / 6) for x in (0.8, 2.0)), n_temps=SG_T,
+                  n_replicas=SG_R, n_disorder=SG_D, seed=5, sweeps=512,
+                  kw=SG_CONFIGS["config5"]["kw"]),
+    "fcc16": dict(shape=(16, 16, 16), geometry="fcc", couplings="gaussian",
+                  t=tuple(x * math.sqrt(12 / 6) for x in (0.8, 2.0)), n_temps=SG_T,
+                  n_replicas=SG_R, n_disorder=SG_D, seed=5, sweeps=512,
+                  kw=SG_CONFIGS["config5"]["kw"]),
+    "nnn64": dict(shape=(64, 64), geometry=NNN_TABLE, couplings="bimodal", t=(0.8, 2.0),
+                  n_temps=8, n_replicas=2, n_disorder=4, seed=6, sweeps=256,
+                  kw=dict(OV_OBSERVE_KW, overlap_cluster_update_interval=1)),
+}
+# the short run held bitwise to the CPU's plain path: one realization, 12
+# sweeps (two moves)
+OV_LATTICE_CPU_SWEEPS = 12
+
+
+def ov_lattice_model(c, dev, n_disorder=None):
+    from peapods_tpu_torch import Ising
+
+    geo = c["geometry"]
+    kw = dict(geometry=geo) if isinstance(geo, str) else dict(neighbor_offsets=geo)
+    return Ising(c["shape"], couplings=c["couplings"],
+                 temperatures=np.geomspace(*c["t"], c["n_temps"]),
+                 n_replicas=c["n_replicas"], n_disorder=n_disorder or c["n_disorder"],
+                 seed=c["seed"], device=dev, **kw)
+
+
+def ov_lattice_alone(x, rt, tab, kind, wolff, g, dev):
+    """Each widened kernel of a move on its own inputs on a run's state:
+    the first kernel's state bytes and seeds (and ov_mid's state2 bytes),
+    left in the scratch by the move, bitwise houdn_states_plain /
+    bond_states_plain; ov_finish or houdn_finish launched alone on the
+    plain version's last graph, every spin bitwise finish_plain; returns
+    the mismatches."""
+    from peapods_tpu_torch.ops import _build, fk, overlap
+    from peapods_tpu_torch.ops.cluster import connected_components
+
+    lat = rt.lattice
+    spins, sid = x["spins"].view(x["sid"].shape + (-1,)), x["sid"]
+    d, s, n = spins.shape
+    args = (sid, tab[0], rt.coup, rt.temps, *tab[1:])
+    houd = kind == "houdayer"
+    if houd:
+        st, sd = overlap.houdn_states_plain(spins, sid, tab[0], tab[2], wolff=wolff,
+                                            shape=lat)
+        last, st2 = st, None
+    else:
+        st, st2, sd = overlap.bond_states_plain(spins.clone(), *args, kind=kind,
+                                                wolff=wolff, shape=lat)
+        last = st if kind == "jorg" else st2
+    dims, _ = overlap.check_event(spins, *args, lat, kind)
+    scratch = overlap.Scratch(dims[0], n, dev, kind == "cmr")
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    overlap.launch_event(lib, stream, dims, spins.clone().data_ptr(),
+                         *(t.data_ptr() for t in args), scratch.ptrs(), kind=kind,
+                         wolff=wolff, group=g, lattice=lat)
+    torch.cuda.synchronize()
+    first = "houdn_bonds" if houd else "ov_bonds"
+    bad = {f"{first} state": int((scratch.state != st).sum()),
+           f"{first} seeds": int((scratch.seeds != sd).sum())}
+    if kind == "cmr":
+        bad["ov_mid state2"] = int((scratch.state2 != st2).sum())
+    par = connected_components(fk.state_masks(last, lat.n_neighbors), lat.shape,
+                               lat.offsets).to(torch.int32)
+    a, b = spins.clone(), spins.clone()
+    overlap.finish_plain(b, sid, tab[0], tab[1], sd, last, par, kind=kind, wolff=wolff,
+                         shape=lat)
+    per = overlap.ov_per(n, d, rt.n_temps, rt.n_replicas // g,
+                         fk.resident_threads(dev.index) // 4,
+                         max(1, overlap.HOUDN_ROWS // g) if houd else overlap.OV_MAX_PER)
+    words = overlap.ov_words(lat.shape, d, rt.n_temps, rt.n_replicas // g, s, per,
+                             tuple(map(tuple, lat.offsets.tolist())))
+    if houd:
+        _build.check(lib.peapods_houdn_finish(
+            a.data_ptr(), sid.data_ptr(), tab[0].data_ptr(), tab[1].data_ptr(),
+            last.data_ptr(), par.data_ptr(), sd.data_ptr(), words.ctypes.data, g,
+            int(wolff), stream), "houdn_finish")
+    else:
+        _build.check(lib.peapods_ov_finish(
+            a.data_ptr(), sid.data_ptr(), tab[0].data_ptr(), tab[1].data_ptr(),
+            sd.data_ptr(), last.data_ptr(), par.data_ptr(), words.ctypes.data,
+            overlap.KINDS.index(kind), int(wolff), stream), "ov_finish")
+    torch.cuda.synchronize()
+    bad["houdn_finish spins" if houd else "ov_finish spins"] = int((a != b).sum())
+    return bad, int((b != spins).sum())
+
+
+def ov_lattice_bounds(rt, kind, wolff, g, flipped):
+    """Each widened kernel's bound on a run's shapes: ``ov_bonds`` reads
+    both replicas' spins and the couplings over the lattice's offsets and
+    writes a state byte a site; ``ov_mid`` also reads the state bytes and
+    the flat parents; the finishes and Houdayer's kernels as on the axes
+    (:func:`ov_finish_bound`, :func:`houdn_bounds`, with the spins this
+    run's move flips); the labelling 5 bytes a site (:func:`cc_bound`)."""
+    d, n, nb = rt.n_disorder, rt.n_spins, rt.lattice.n_neighbors
+    b = d * rt.n_temps * (rt.n_replicas // g)
+    cb = 4 * nb * d * n
+    if kind == "houdayer":
+        out = houdn_bounds(b, n, g, d, rt.n_systems, wolff=wolff, flipped=flipped)
+    else:
+        out = {"ov_bonds": bound(3 * b * n + cb, 12 * nb * b * n),
+               "ov_finish": ov_finish_bound(b, n, kind, wolff, flipped)}
+        if kind == "cmr":
+            out["ov_mid"] = bound(8 * b * n + cb, 12 * nb * b * n)
+    out["fk_link" if rt.lattice.triangular else "cc_link"] = cc_bound(b, n)
+    return out
+
+
+def ov_lattice_checks(name, run, dev, rng, card):
+    """On a run's final state, each move its build mode holds (houd4 as g =
+    4, the pair moves on pairs; the run's Wolff or SW form; observe forms
+    for an observe run): the whole move through the kernels bitwise its
+    plain version (spins, labels, CMR's blue labels, the stats graph's
+    masks), each widened kernel alone (:func:`ov_lattice_alone`), the
+    plain move's time and the kernels' bounds."""
+    from peapods_tpu_torch.ops import overlap
+
+    x = pair_inputs(run, dev)
+    rt = x["rt"]
+    lat = rt.lattice
+    d, s = x["sid"].shape
+    spins = x["spins"].view(d, s, -1)
+    kw_run = run["kw"]
+    wolff = kw_run.get("overlap_cluster_mode", "wolff") == "wolff"
+    observe = kw_run.get("overlap_cluster_action") == "observe"
+    out = {}
+    for mode in kw_run["overlap_cluster_build_mode"].split("+"):
+        kind, g = ("houdayer", int(mode[4:])) if mode.startswith("houd") and mode != "houdayer" \
+            else (mode, 2)
+        tab = move_tables(rng, d, rt.n_replicas, rt.n_temps, rt.n_spins, kind, wolff, g,
+                          dev)
+        args = (x["sid"], tab[0], rt.coup, rt.temps, *tab[1:])
+        kw = dict(kind=kind, wolff=wolff, shape=lat, with_labels=True,
+                  with_masks=g == 2, observe=observe and g == 2)
+        a, b = spins.clone(), spins.clone()
+        gk = overlap.overlap_event(a, *args, **kw)
+        gp = overlap.overlap_event_plain(b, *args, **kw)
+        torch.cuda.synchronize()
+        bad = graph_mismatches(a, b, gk, gp)
+        flipped = int((b != spins).sum())
+        if observe:
+            bad["spins written"] = flipped
+        alone, flipped_alone = ov_lattice_alone(x, rt, tab, kind, wolff, g, dev)
+        bad.update(alone)
+        if any(bad.values()) or not flipped_alone:
+            raise AssertionError(f"{name} {mode}: mismatches {bad}, {flipped_alone} "
+                                 "spins flipped")
+        plain_ms = wall_ms(lambda: overlap.overlap_event_plain(spins.clone(), *args, **kw), 2)
+        bounds = ov_lattice_bounds(rt, kind, wolff, g, flipped_alone)
+        for k, (b_ms, b_by) in bounds.items():
+            out.setdefault(k, dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
+                                   plain_ms=plain_ms, plain_is=f"the whole {mode} move"))
+        log("34 kernel-vs-plain", f"{name} {mode} ({'wolff' if wolff else 'sw'}"
+            f"{', observe' if kw['observe'] else ''}) on the run's state "
+            f"({d * rt.n_temps * (rt.n_replicas // g)} tasks of {g} on "
+            f"{'x'.join(map(str, lat.shape))}, {lat.n_neighbors} offsets): the move's "
+            f"spins, labels{' (grey and blue)' if kind == 'cmr' else ''}"
+            f"{', masks' if kw['with_masks'] else ''} and each widened kernel alone "
+            f"bitwise the plain version: mismatches {bad}; {flipped_alone} spins flipped "
+            f"by the update form; plain move {plain_ms:.3f} ms on {card} ok")
+    return out
+
+
+def ov_lattice_want(model, kw, n, warmup):
+    """:func:`replica_sweep_want` off the axes: the labelling is fk_link on
+    the triangular lattice and cc_link (:func:`~peapods_tpu_torch.ops.cc.
+    link_launches`) on the others, and measure_nb re-derives the energies
+    after each update move (energy_partials on the axes)."""
+    from peapods_tpu_torch.ops import cc
+
+    lat = model._sim.rt.lattice
+    observe = kw.get("overlap_cluster_action") == "observe"
+    want = replica_sweep_want(model, {k: v for k, v in kw.items()
+                                      if not k.startswith("overlap_")}, n, warmup)
+    moves = move_counts(kw, n, warmup, observe=observe)
+    for k in ("colour_pass", "pair_overlap"):
+        moves.pop(k)
+    want["pt_step"] = moves.pop("pt_step")
+    want["measure_nb"] = want.get("measure_nb", 0) + moves.pop("energy_partials", 0)
+    links = moves.pop("fk_link")
+    b = model._sim.rt.n_disorder * model._sim.rt.n_temps * model._sim.rt.n_pairs
+    if lat.triangular:
+        want["fk_link"] = want.get("fk_link", 0) + links
+    else:
+        for k, v in cc.link_launches(lat.shape, b).items():
+            want[k] = want.get(k, 0) + links * v
+    for k, v in moves.items():
+        want[k] = want.get(k, 0) + v
+    return {k: v for k, v in want.items() if v}
+
+
+def ov_lattice_cpu(name, c, dev):
+    """One realization of the run's configuration, OV_LATTICE_CPU_SWEEPS
+    sweeps, on the card and on the CPU's plain path: spins, sid, PT state
+    and the statistics bitwise, the records to rtol 1e-12.  Gaussian couplings are drawn +-J here: the
+    card's expf and the CPU's exp may round a gaussian bond's probability
+    apart, and a f32 energy sum of gaussian terms in another order; +-J
+    keeps every sum an exact integer and a bond's probability one of a few
+    values a temperature."""
+    runs = []
+    for device in (dev, "cpu"):
+        m = ov_lattice_model(dict(c, couplings="bimodal"), device, n_disorder=1)
+        runs.append((m, m.sample(OV_LATTICE_CPU_SWEEPS, "metropolis", **c["kw"])))
+    (mk, rk), (mp, rp) = runs
+    for key in ("spins", "system_ids", "pt_edge_acceptances", "pt_round_trips"):
+        if not torch.equal(mk._sim.state[key].cpu(), mp._sim.state[key]):
+            raise AssertionError(f"{name}: {key} differs from the CPU's")
+    # the records' f64 folds add in another order on the card (atomics)
+    for key in ("energies", "overlap2", "link_overlap"):
+        np.testing.assert_allclose(rk[key], rp[key], rtol=1e-12, err_msg=f"{name} {key}")
+    for key in ("overlap_csd", "top_cluster_sizes"):
+        for u, v in zip(rk.get(key, []), rp.get(key, [])):
+            if not np.array_equal(np.asarray(u), np.asarray(v)):
+                raise AssertionError(f"{name}: {key} differs from the CPU's")
+    return (f"{OV_LATTICE_CPU_SWEEPS} sweeps of one +-J realization on the card bitwise "
+            "the CPU's plain path (spins, sid, PT counts, statistics; records to rtol "
+            "1e-12)")
+
+
+def ov_lattice_run(name, c, dev, card):
+    """A run twice from one seed through Ising.sample (launch counts of the
+    first against :func:`ov_lattice_want`, two equal checksums, sanity),
+    the rate of warm calls."""
+    n = c["sweeps"]
+    kw = c["kw"]
+    warmup = int(np.floor(n * 0.25 + 0.5))
+    models, results, checks = [], [], []
+    for run in range(2):
+        model = ov_lattice_model(c, dev)
+        torch.cuda.synchronize()
+        reset_replica_sweep_counts()
+        result = model.sample(n, "metropolis", **kw)
+        torch.cuda.synchronize()
+        if run == 0:
+            launches = replica_sweep_counts()
+        models.append(model)
+        results.append(result)
+        checks.append(replica_sweep_checksum(model._sim, result))
+    want = ov_lattice_want(models[0], kw, n, warmup)
+    if launches != want:
+        raise AssertionError(f"{name} launch counts {launches}, expected {want}")
+    if checks[0] != checks[1]:
+        raise AssertionError(f"{name} checksums differ: {checks}")
+    r = results[0]
+    rt = models[0]._sim.rt
+    e, q2 = r["energies"], r["overlap2"]
+    sane = {"finite": bool(np.isfinite(e).all() and np.isfinite(q2).all()),
+            "<e> falls with T": bool(e[0] > e[-1]),
+            "q^2 in [0, 1]": bool(((q2 >= 0) & (q2 <= 1)).all()),
+            "statistics as asked": ("overlap_csd" in r) == bool(
+                kw.get("collect_cluster_stats") or kw.get("overlap_cluster_action"))}
+    if not all(sane.values()):
+        raise AssertionError(f"{name} sanity: {sane}")
+    sweeps_s, rates = warm_rate(models[1], n, kw, calls=3)
+    log("34 lattices", f"{name}: {'x'.join(map(str, rt.lattice.shape))}, "
+        f"{rt.lattice.n_neighbors} offsets, {rt.n_temps} temps x {rt.n_replicas} replicas "
+        f"x {rt.n_disorder} realizations, {kw['overlap_cluster_build_mode']} "
+        f"{kw.get('overlap_cluster_mode', 'wolff')}"
+        f"{' observe' if kw.get('overlap_cluster_action') == 'observe' else ''} every "
+        f"{kw['overlap_cluster_update_interval']} sweeps, {n} sweeps on {dev}: launches "
+        f"{launches}; checksum {checks[0]} == {checks[1]}; sanity ok: {', '.join(sane)}; "
+        f"<e>[0,-1] {e[0]:.5f}, {e[-1]:.5f}; <q^2>[0,-1] {q2[0]:.5f}, {q2[-1]:.5f}; "
+        f"{sweeps_s:.1f} sweeps/s (median of {', '.join(f'{x:.1f}' for x in rates)}) on "
+        f"{card}")
+    return dict(model=models[1], result=r, launches=launches, sweeps_s=sweeps_s,
+                checksum=checks[0], kw=kw, n=n)
+
+
+def ov_lattices(dev, card):
+    """Phase 34: each run of OV_LATTICE_RUNS twice from one seed, a short
+    run of one realization against the CPU, each move's kernels on the
+    run's state against their plain versions, and a profiled main-path
+    window: device us a sweep against wall us, each launch's time beside
+    its bound."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(2034)
+    runs = {}
+    for name, c in OV_LATTICE_RUNS.items():
+        run = runs[name] = ov_lattice_run(name, c, dev, card)
+        log("34 lattices", f"{name}: " + ov_lattice_cpu(name, c, dev) + " ok")
+        run["checks"] = ov_lattice_checks(name, run, dev, rng, card)
+        us, line = profile_window(run["model"], run["kw"], run["sweeps_s"],
+                                  64 if name == "nnn64" else 100,
+                                  names=tuple(run["launches"]))
+        run["us"] = us
+        log("34 times", f"{name} {line} (on {card})")
+        for k, rec in run["checks"].items():
+            if k in us:
+                rec.update(ms=us[k] / 1e3, launches=run["launches"][k])
+        log("34 times", f"{name} per launch: " + "; ".join(
+            f"{k} {rec['ms']:.5f} ms (bound {rec['bound_ms']:.6f} ms by "
+            f"{rec['bound_by']}, plain move {rec['plain_ms']:.3f} ms)"
+            for k, rec in run["checks"].items() if "ms" in rec) + f" on {card}")
+    log("34 times", f"phase 34 took {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+def add_ov_lattice_records(kernels, runs):
+    """Phase 34's numbers beside the move kernels' records (``at_<run>``)."""
+    by_name = {kr["name"]: kr for kr in kernels}
+    for name, run in runs.items():
+        for k, rec in run["checks"].items():
+            if k in by_name and "ms" in rec:
+                by_name[k][f"at_{name}"] = dict(rec, replaces=HOUDN_REPLACES
+                                                if k.startswith("houdn") else EV_REPLACES)
+
+
 # ------------------------------------------------ the space-sharded path
 
 
@@ -5119,6 +5446,9 @@ def main():
     # the per-sweep replica path: binder_crossings.py's lattices, snapshots
     rsweeps = replica_sweeps(dev, card)
 
+    # the overlap moves on the triangular, BCC, FCC and NNN lattices
+    ovl = ov_lattices(dev, card)
+
     mega_src = "peapods_tpu_torch/csrc/mega.cu"
     mega_replaces = "peapods_tpu/ops/pallas_mega.py:96"
     fk_src = "peapods_tpu_torch/csrc/fk.cu"
@@ -5169,6 +5499,7 @@ def main():
     add_houdn_records(kernels, pk, hmain, hwolff, hobs_ov, houdn, h_us, card)
     add_space_records(kernels, space)
     add_replica_sweep_records(kernels, rsweeps)
+    add_ov_lattice_records(kernels, ovl)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     record = {"kernels": [{**{k: kr[k] for k in keys},

@@ -9,8 +9,12 @@
 // realization d (g = 2 for Joerg and CMR); its systems are found through
 // sid (slot r T + t), so the spins stay by system ([d, n_slots, n] int8)
 // and are flipped in place.  n is a 2D [L0, L1] (L2 = 1) or 3D [L0, L1, L2]
-// lattice; J/T is computed per bond as J / T in f32, as the reference's
-// pack_event_jt does.  The launches of one move, on the caller's stream:
+// lattice whose bonds are one a forward offset: the axes (the square and
+// cubic lattices, in the axes' own form) or a table of up to six offsets
+// (the triangular lattice, the reference's tri=True, BCC, FCC and any
+// offset table; the table's form, template instance kTable); J/T is
+// computed per bond as J / T in f32, as the reference's pack_event_jt
+// does.  The launches of one move, on the caller's stream:
 //
 // Houdayer(N) on groups of any even g, the pair move (g = 2) included:
 //
@@ -24,7 +28,9 @@
 //   fk_link       (csrc/fk.cu, shared with the FK update) the labelling:
 //                 every parent left at its component's minimum site index
 //                 (flat), in the caller's labels buffer where labels are
-//                 asked for.
+//                 asked for; on the lattices other than the square, cubic
+//                 and triangular ones the staged FK path's cc_link
+//                 (csrc/cc.cu), which leaves the same labels.
 //   houdn_finish  the flips of the seed's component (Wolff) or of each
 //                 non-singleton component with salted_uniform(root, s0, s1)
 //                 < 1/2 (SW) in all g systems, from fk_link's flat parents.
@@ -49,8 +55,10 @@
 //              component; SW: salted_uniform(root, s0, s1) < 1/2 on
 //              non-singletons), from the flat parents fk_link leaves, and
 //              the grey bonds on the flipped spins, blue || (sat_a != sat_b
-//              && u < 1 - r) with u from counter (n_dims + dir, site / 4, 0,
-//              0), into a second state byte (bit 7: the blue flip); a
+//              && u < 1 - r) with u from counter (n_dirs + dir, site / 4, 0,
+//              0), n_dirs the lattice's forward offsets (on the triangular
+//              lattice 3, not its 2 axes: the red draws never reuse a blue
+//              one), into a second state byte (bit 7: the blue flip); a
 //              second fk_link labels the grey graph into parent2.  The
 //              flipped spins are never written here: the blue flip flips a
 //              and b together, so sat_a != sat_b is the same before and
@@ -67,8 +75,18 @@
 //              launches no ov_mid and no ov_finish: fk_link labels the
 //              stats graph (CMR: the blue one) into the caller's buffer.
 //
-// In every observe form the bond masks are bits 0 .. nd-1 of the first
-// kernel's state bytes.
+// In every observe form the bond masks are bits 0 .. n_dirs-1 of the first
+// kernel's state bytes (six offsets at most: bit 7 stays the blue flip's).
+//
+// The table's form steps each offset by its residues (OvOffset, found by
+// the host: ops/overlap.py ov_words), as pair_overlap does (csrc/pairs.cu):
+// a neighbour word is the word of the line that the offset's slower
+// components reach, q words on, funnel-shifted by b bytes with the next
+// one; a backward one the same q words back; a negative component a
+// forward wrap; lines that hold no whole 4-byte word, or unaligned
+// pointers, take the per-site path.  No runtime division: multiply-shift
+// and one compare a component.  Its couplings are read one float at a
+// time (nb a site), its arrays sized for six offsets.
 //
 //   energy_partials  per (realization, system) block partials of the
 //              forward-bond energy sum_d s s_fwd J and of m, which pt_step
@@ -154,13 +172,45 @@ constexpr int kJorg = 1;
 constexpr int kCmr = 2;
 constexpr int kProbes = 64;
 
+// The kernels' forms, their template parameter ND: 2 and 3 take the bonds
+// of the square and cubic lattices, one a forward step along each axis, in
+// the axes' own form; kTable takes any table of up to kMaxDirs forward
+// offsets (the triangular, BCC and FCC lattices, offset tables), each
+// stepped by its residues (OvOffset).  pair_overlap's first general form
+// (csrc/pairs.cu), run on the axes, made that launch 24-25% slower at
+// configs 4 and 5: so the axes keep their form, and the table's is a
+// template instance of its own.
+constexpr int kTable = 0;
+constexpr int kMaxDirs = 6;
+
+// The bond directions a form's arrays hold: the axes', or kMaxDirs, of
+// which the walk's nb are the table's.
+template <int ND>
+struct Form {
+  static constexpr int kDirs = ND == kTable ? kMaxDirs : ND;
+};
+
+// An offset's steps (ops/overlap.py ov_words): its outer slow component
+// mod la (0 in 2D), its inner slow component mod lb, its fast component
+// mod lf (rf), and rf as q 4-byte words and b bytes.  A negative component
+// is a forward wrap: the triangular lattice's [1, -1] steps rb = 1, rf =
+// lf - 1.
+struct OvOffset {
+  int ra;
+  int rb;
+  int rf;
+  int q;
+  int b;
+};
+
 // The overlap moves' launch (ops/overlap.py ov_words): a periodic
 // lattice of n sites, 2D [L0, L1] or 3D [L0, L1, L2], its fast axis (the
 // last, extent lf) in lines over an inner slow axis of extent lb (2D: L0;
 // 3D: L1) and, in 3D, an outer one of extent la (L0; 1 in 2D); tasks b =
 // (d T + t) G + j of T temperatures and G groups (pairs but for
 // Houdayer(N)), S slots a realization, `per` tasks a thread;
-// multiply-shift divisions (m, s) of lf, lb and G.
+// multiply-shift divisions (m, s) of lf, lb and G; nb bond directions,
+// whether they are the axes (axes: nb = nd), and each one's steps.
 struct OvWalk {
   int n;
   int nd;
@@ -174,6 +224,9 @@ struct OvWalk {
   int d;
   uint32_t m[3];
   int s[3];
+  int nb;
+  int axes;
+  OvOffset off[kMaxDirs];
 };
 
 inline OvWalk make_ov_walk(const int* w) {
@@ -192,7 +245,20 @@ inline OvWalk make_ov_walk(const int* w) {
     g.m[k] = static_cast<uint32_t>(w[10 + 2 * k]);
     g.s[k] = w[11 + 2 * k];
   }
+  g.nb = w[16];
+  g.axes = w[17];
+  for (int d = 0; d < kMaxDirs; ++d) {
+    const int* o = w + 18 + 5 * d;
+    g.off[d] = OvOffset{o[0], o[1], o[2], o[3], o[4]};
+  }
   return g;
+}
+
+// The walk's bond directions: the axes' (known at compile time) or the
+// table's nb.
+template <int ND>
+__device__ __forceinline__ int dirs(const OvWalk& g) {
+  return ND == kTable ? g.nb : ND;
 }
 
 constexpr int kMaxPer = 8;                // the most tasks a thread takes
@@ -285,16 +351,36 @@ __device__ __forceinline__ SiteAt site_at(const OvWalk& g, int i) {
   c.i = i;
   const int line = fast_div(i, g.m[0], g.s[0]);
   c.pos = i - line * g.lf;
-  c.ca = ND == 3 ? fast_div(line, g.m[1], g.s[1]) : 0;
+  c.ca = ND != 2 ? fast_div(line, g.m[1], g.s[1]) : 0;  // 2D tables: la = 1
   c.cb = line - c.ca * g.lb;
   return c;
 }
 
 // The forward (back = false) or backward neighbour of a site along bond
 // direction dir (ND - 1 the fast axis, ND - 2 the inner slow one, 0 in 3D
-// the outer one): one compare an axis.
+// the outer one; kTable: offset dir's residues): one compare an axis.
 template <int ND>
 __device__ __forceinline__ int site_step(const OvWalk& g, const SiteAt& c, int dir, bool back) {
+  if constexpr (ND == kTable) {
+    const OvOffset& o = g.off[dir];
+    int pos, cb, ca;
+    if (back) {
+      pos = c.pos - o.rf;
+      cb = c.cb - o.rb;
+      ca = c.ca - o.ra;
+      if (pos < 0) pos += g.lf;
+      if (cb < 0) cb += g.lb;
+      if (ca < 0) ca += g.la;
+    } else {
+      pos = c.pos + o.rf;
+      cb = c.cb + o.rb;
+      ca = c.ca + o.ra;
+      if (pos >= g.lf) pos -= g.lf;
+      if (cb >= g.lb) cb -= g.lb;
+      if (ca >= g.la) ca -= g.la;
+    }
+    return (ca * g.lb + cb) * g.lf + pos;
+  }
   if (dir == ND - 1) {
     if (back) return c.pos > 0 ? c.i - 1 : c.i - 1 + g.lf;
     return c.pos + 1 < g.lf ? c.i + 1 : c.i + 1 - g.lf;
@@ -310,7 +396,11 @@ __device__ __forceinline__ int site_step(const OvWalk& g, const SiteAt& c, int d
 // `kVec`, its words (4-byte word k = i0 / 4 of a row) and each direction's
 // forward and backward neighbour words, found once: the fast axis' next
 // (previous) word, wrapping at the line's end (start), the same word of
-// the next (previous) line and plane; else each site's neighbours.
+// the next (previous) line and plane; in the table's form each offset's
+// forward words, the word of the line its slower components reach q words
+// on (w1) and the one after it (w2), wrapping in the line, whose bytes b..
+// and ..b are the neighbours (the backward words are found where they are
+// read: nonsingleton_words); else each site's neighbours.
 template <int ND, bool kVec>
 struct Group {
   int i0;
@@ -322,6 +412,8 @@ struct Group {
   int pf;    // the same backwards
   int pb;
   int pa;
+  int w1[ND == kTable ? kMaxDirs : 1];
+  int w2[ND == kTable ? kMaxDirs : 1];
   SiteAt c[kVec ? 1 : 4];
 };
 
@@ -330,7 +422,27 @@ __device__ __forceinline__ Group<ND, kVec> group_at(const OvWalk& g, int grp) {
   Group<ND, kVec> x;
   x.i0 = 4 * grp;
   x.cnt = min(4, g.n - x.i0);
-  if (kVec) {
+  if constexpr (kVec && ND == kTable) {
+    const SiteAt c = site_at<ND>(g, x.i0);
+    const int wpl = g.lf >> 2;
+    const int pw = c.pos >> 2;
+    x.k = grp;
+#pragma unroll
+    for (int d = 0; d < kMaxDirs; ++d) {
+      if (d >= g.nb) break;
+      const OvOffset& o = g.off[d];
+      int cb = c.cb + o.rb;
+      int ca = c.ca + o.ra;
+      int p1 = pw + o.q;
+      if (cb >= g.lb) cb -= g.lb;
+      if (ca >= g.la) ca -= g.la;
+      if (p1 >= wpl) p1 -= wpl;
+      const int row = (ca * g.lb + cb) * wpl;
+      x.w1[d] = row + p1;
+      x.w2[d] = row + (p1 + 1 < wpl ? p1 + 1 : 0);
+    }
+    x.c[0] = c;
+  } else if constexpr (kVec) {
     const SiteAt c = site_at<ND>(g, x.i0);
     const int wpl = g.lf >> 2;
     const int plane = g.lb * wpl;
@@ -351,18 +463,30 @@ __device__ __forceinline__ Group<ND, kVec> group_at(const OvWalk& g, int grp) {
 }
 
 // A system's words at the group: byte q of w is site i0 + q, byte q of
-// f[dir] its forward neighbour along dir (bytes past n: 0).
+// f[dir] its forward neighbour along dir (bytes past n: 0; a table's
+// directions past nb: unset).
 template <int ND>
 struct Words {
   uint32_t w;
-  uint32_t f[ND];
+  uint32_t f[Form<ND>::kDirs];
 };
 
 template <int ND, bool kVec>
 __device__ __forceinline__ Words<ND> load_words(const int8_t* __restrict__ s,
                                                 const Group<ND, kVec>& x, const OvWalk& g) {
+  constexpr int D = Form<ND>::kDirs;
   Words<ND> o;
-  if (kVec) {
+  if constexpr (kVec && ND == kTable) {
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(s);
+    o.w = __ldg(p + x.k);
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      if (d >= g.nb) break;
+      const uint32_t lo = __ldg(p + x.w1[d]);
+      const int b = g.off[d].b;
+      o.f[d] = b ? __funnelshift_r(lo, __ldg(p + x.w2[d]), 8 * b) : lo;
+    }
+  } else if constexpr (kVec) {
     const uint32_t* p = reinterpret_cast<const uint32_t*>(s);
     o.w = __ldg(p + x.k);
     o.f[ND - 1] = __funnelshift_r(o.w, __ldg(p + x.kf), 8);
@@ -371,15 +495,17 @@ __device__ __forceinline__ Words<ND> load_words(const int8_t* __restrict__ s,
   } else {
     o.w = 0;
 #pragma unroll
-    for (int d = 0; d < ND; ++d) o.f[d] = 0;
+    for (int d = 0; d < D; ++d) o.f[d] = 0;
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       if (q >= x.cnt) break;
       o.w |= static_cast<uint32_t>(static_cast<uint8_t>(__ldg(s + x.c[q].i))) << (8 * q);
 #pragma unroll
-      for (int d = 0; d < ND; ++d)
+      for (int d = 0; d < D; ++d) {
+        if (ND == kTable && d >= g.nb) break;
         o.f[d] |= static_cast<uint32_t>(static_cast<uint8_t>(
                       __ldg(s + site_step<ND>(g, x.c[q], d, false)))) << (8 * q);
+      }
     }
   }
   return o;
@@ -393,11 +519,19 @@ __device__ __forceinline__ uint32_t differ(uint32_t u, uint32_t v) {
 
 // The group's couplings (4 nd floats, contiguous in [d, n, nd]), read once
 // for the thread's tasks: nd float4 loads where kVec; which are of unit
-// magnitude (bit q nd + dir).
+// magnitude (bit q nd + dir).  The table's form reads its 4 nb floats one
+// at a time into jc[q kMaxDirs + dir] (0 past nb), its index known at
+// compile time.
 template <int ND, bool kVec>
 __device__ __forceinline__ uint32_t load_couplings(const float* __restrict__ J, int i0, int cnt,
-                                                   float (&jc)[4 * ND]) {
-  if (kVec) {
+                                                   int nb, float (&jc)[4 * Form<ND>::kDirs]) {
+  constexpr int D = Form<ND>::kDirs;
+  if constexpr (ND == kTable) {
+#pragma unroll
+    for (int v = 0; v < 4 * D; ++v)
+      jc[v] = v % D < nb && v / D < cnt ? __ldg(J + static_cast<size_t>(i0 + v / D) * nb + v % D)
+                                        : 0.0f;
+  } else if constexpr (kVec) {
     const float4* p = reinterpret_cast<const float4*>(J + static_cast<size_t>(i0) * ND);
 #pragma unroll
     for (int u = 0; u < ND; ++u) {
@@ -414,9 +548,20 @@ __device__ __forceinline__ uint32_t load_couplings(const float* __restrict__ J, 
   }
   uint32_t unit = 0;
 #pragma unroll
-  for (int v = 0; v < 4 * ND; ++v)
+  for (int v = 0; v < 4 * D; ++v)
     if (fabsf(jc[v]) == 1.0f) unit |= 1u << v;
   return unit;
+}
+
+// The bits of load_couplings' unit word that hold a bond: all 4 nd, or the
+// table's first nb of each site's kMaxDirs.
+template <int ND>
+__device__ __forceinline__ uint32_t bond_bits(int nb) {
+  if constexpr (ND == kTable) {
+    const uint32_t m = (1u << nb) - 1u;
+    return m | m << kMaxDirs | m << (2 * kMaxDirs) | m << (3 * kMaxDirs);
+  }
+  return (1u << (4 * ND)) - 1u;
 }
 
 // J/T of a (realization, temperature), taken once for the thread's tasks
@@ -430,32 +575,37 @@ __device__ __forceinline__ uint32_t load_couplings(const float* __restrict__ J, 
 // they skip on gaussian couplings (tools/probe_overlap.py n-lazy).
 template <int ND>
 struct JT {
-  float jt[4 * ND];
-  uint32_t thr[4 * ND];
-  uint32_t pos[ND];
-  uint32_t neg[ND];
+  float jt[4 * Form<ND>::kDirs];
+  uint32_t thr[4 * Form<ND>::kDirs];
+  uint32_t pos[Form<ND>::kDirs];
+  uint32_t neg[Form<ND>::kDirs];
 };
 
+// (bits: bond_bits, the table's entries with a bond; no exp for the rest)
 template <int ND>
-__device__ __forceinline__ void take_jt(JT<ND>& x, const float (&jc)[4 * ND], float T,
-                                        uint32_t unit, int which, uint32_t thr_unit) {
+__device__ __forceinline__ void take_jt(JT<ND>& x, const float (&jc)[4 * Form<ND>::kDirs],
+                                        float T, uint32_t unit, uint32_t bits, int which,
+                                        uint32_t thr_unit) {
+  constexpr int D = Form<ND>::kDirs;
 #pragma unroll
-  for (int d = 0; d < ND; ++d) {
+  for (int d = 0; d < D; ++d) {
     x.pos[d] = 0;
     x.neg[d] = 0;
   }
 #pragma unroll
-  for (int v = 0; v < 4 * ND; ++v) {
+  for (int v = 0; v < 4 * D; ++v) {
     x.jt[v] = jc[v] / T;
-    if (x.jt[v] > 0.0f) x.pos[v % ND] |= 1u << (8 * (v / ND));
-    if (x.jt[v] < 0.0f) x.neg[v % ND] |= 1u << (8 * (v / ND));
+    if (x.jt[v] > 0.0f) x.pos[v % D] |= 1u << (8 * (v / D));
+    if (x.jt[v] < 0.0f) x.neg[v % D] |= 1u << (8 * (v / D));
   }
-  if (unit == (1u << (4 * ND)) - 1u) {
+  if (unit == bits) {
 #pragma unroll
-    for (int v = 0; v < 4 * ND; ++v) x.thr[v] = thr_unit;
+    for (int v = 0; v < 4 * D; ++v) x.thr[v] = thr_unit;
   } else {
 #pragma unroll
-    for (int v = 0; v < 4 * ND; ++v) x.thr[v] = threshold24(bond_prob(which, x.jt[v]));
+    for (int v = 0; v < 4 * D; ++v)
+      x.thr[v] = ND == kTable && !((bits >> v) & 1u) ? 0u
+                                                      : threshold24(bond_prob(which, x.jt[v]));
   }
 }
 
@@ -480,7 +630,7 @@ __device__ __forceinline__ uint32_t draw(const JT<ND>& x, uint32_t cand, int dir
   uint32_t on = 0;
 #pragma unroll
   for (int q = 0; q < 4; ++q)
-    if ((uw[q] >> 8) < x.thr[q * ND + dir]) on |= 1u << (8 * q);
+    if ((uw[q] >> 8) < x.thr[q * Form<ND>::kDirs + dir]) on |= 1u << (8 * q);
   return on & cand;
 }
 
@@ -536,28 +686,32 @@ ov_bonds_kernel(const int8_t* __restrict__ spins, const int32_t* __restrict__ si
       seeds[b] = kKind == kCmr ? scal[6 * b + 4] : g.n;
     }
   }
+  constexpr int D = Form<ND>::kDirs;
+  const int nb = dirs<ND>(g);
+  const uint32_t bits = bond_bits<ND>(nb);
   const int n_grp = (g.n + 3) >> 2;
-  const float* J = coup + static_cast<size_t>(blockIdx.z) * g.n * ND;
+  const float* J = coup + static_cast<size_t>(blockIdx.z) * g.n * nb;
   for (int grp = blockIdx.y * kThreads + threadIdx.x; grp < n_grp;
        grp += gridDim.y * kThreads) {
     const Group<ND, kVec> x = group_at<ND, kVec>(g, grp);
-    float jc[4 * ND];
-    const uint32_t unit = load_couplings<ND, kVec>(J, x.i0, x.cnt, jc);
+    float jc[4 * D];
+    const uint32_t unit = load_couplings<ND, kVec>(J, x.i0, x.cnt, nb, jc);
     JT<ND> jt;
     int tp = -1;
     for (int k = 0; k < g.per; ++k) {
       const int t = sh.t[k];
       if (t != tp) {
         tp = t;
-        take_jt<ND>(jt, jc, __ldg(temps + t), unit, kKind == kJorg ? kProbJorg : kProbBlue,
-                    sh.thr[k]);
+        take_jt<ND>(jt, jc, __ldg(temps + t), unit, bits,
+                    kKind == kJorg ? kProbJorg : kProbBlue, sh.thr[k]);
       }
       const Words<ND> a = load_words<ND, kVec>(spins + sh.ra[k], x, g);
       const Words<ND> b = load_words<ND, kVec>(spins + sh.rb[k], x, g);
       const uint32_t act = differ(a.w, b.w);  // Joerg: a != b
       uint32_t st = 0;
 #pragma unroll
-      for (int d = 0; d < ND; ++d) {
+      for (int d = 0; d < D; ++d) {
+        if (ND == kTable && d >= nb) break;
         uint32_t cand = satisfied<ND>(jt, d, differ(a.w, a.f[d]));
         if (kKind == kJorg)
           cand &= act & differ(a.f[d], b.f[d]);
@@ -641,19 +795,47 @@ __device__ __forceinline__ uint32_t nonsingleton_words(const uint8_t* __restrict
     if (q >= x.cnt) break;
     if (lab[q] == x.i0 + q) root |= 1u << (8 * q);
   }
+  constexpr int D = Form<ND>::kDirs;
   uint32_t any = ~root & kLow;
 #pragma unroll
-  for (int d = 0; d < ND; ++d) any |= (st >> d) & kLow;
+  for (int d = 0; d < D; ++d) {
+    if (ND == kTable && d >= g.nb) break;
+    any |= (st >> d) & kLow;
+  }
   if (need & ~any) {
-    uint32_t bw[ND];
-    if (kVec) {
+    uint32_t bw[D];
+    if constexpr (kVec && ND == kTable) {
+      // offset d's backward neighbours: the line its slower components
+      // reach backwards, q words back (P), bytes ..b of word P - 1 and b..
+      // of word P, wrapping in the line
+      const uint32_t* sw = reinterpret_cast<const uint32_t*>(S);
+      const SiteAt& c = x.c[0];
+      const int wpl = g.lf >> 2;
+      const int pw = c.pos >> 2;
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        if (d >= g.nb) break;
+        const OvOffset& o = g.off[d];
+        int cb = c.cb - o.rb;
+        int ca = c.ca - o.ra;
+        int p = pw - o.q;
+        if (cb < 0) cb += g.lb;
+        if (ca < 0) ca += g.la;
+        if (p < 0) p += wpl;
+        const int row = (ca * g.lb + cb) * wpl;
+        const uint32_t hi = __ldg(sw + row + p);
+        bw[d] = o.b ? __funnelshift_l(__ldg(sw + row + (p > 0 ? p - 1 : wpl - 1)), hi, 8 * o.b)
+                    : hi;
+      }
+    } else if constexpr (kVec) {
       const uint32_t* sw = reinterpret_cast<const uint32_t*>(S);
       bw[ND - 1] = __funnelshift_l(__ldg(sw + x.pf), st, 8);
       bw[ND - 2] = __ldg(sw + x.pb);
       if (ND == 3) bw[0] = __ldg(sw + x.pa);
     } else {
 #pragma unroll
-      for (int d = 0; d < ND; ++d) {
+      for (int d = 0; d < D; ++d) {
+        if (ND == kTable && d >= g.nb) break;
         bw[d] = 0;
 #pragma unroll
         for (int q = 0; q < 4; ++q)
@@ -663,7 +845,10 @@ __device__ __forceinline__ uint32_t nonsingleton_words(const uint8_t* __restrict
       }
     }
 #pragma unroll
-    for (int d = 0; d < ND; ++d) any |= (bw[d] >> d) & kLow;
+    for (int d = 0; d < D; ++d) {
+      if (ND == kTable && d >= g.nb) break;
+      any |= (bw[d] >> d) & kLow;
+    }
   }
   return any;
 }
@@ -685,7 +870,7 @@ __device__ __forceinline__ uint32_t nonsingleton_words(const uint8_t* __restrict
 // 1/2 on a root with no forward bond: nonsingleton_words).  The parents
 // are the blue labels themselves where the caller asks for them (fk_link
 // labels into its buffer).  The mapping, the couplings, J / T, the words and the
-// draws are ov_bonds' (counter n_dims + dir), a grey bond the blue one or
+// draws are ov_bonds' (counter n_dirs + dir), a grey bond the blue one or
 // (sat_a != sat_b and u < 1 - r); one 4-byte store of the state2 bytes.
 template <int ND, bool kWolff, bool kVec>
 __global__ void __launch_bounds__(kThreads)
@@ -705,21 +890,24 @@ ov_mid_kernel(const int8_t* __restrict__ spins, const int32_t* __restrict__ sid,
       sh.root[threadIdx.x] = __ldg(parent + static_cast<size_t>(b) * g.n + scal[6 * b + 4]);
   }
   __syncthreads();
+  constexpr int D = Form<ND>::kDirs;
+  const int nb = dirs<ND>(g);
+  const uint32_t bits = bond_bits<ND>(nb);
   const int b0 = blockIdx.z * g.T * g.G + blockIdx.x * g.per;
   const int n_grp = (g.n + 3) >> 2;
-  const float* J = coup + static_cast<size_t>(blockIdx.z) * g.n * ND;
+  const float* J = coup + static_cast<size_t>(blockIdx.z) * g.n * nb;
   for (int grp = blockIdx.y * kThreads + threadIdx.x; grp < n_grp;
        grp += gridDim.y * kThreads) {
     const Group<ND, kVec> x = group_at<ND, kVec>(g, grp);
-    float jc[4 * ND];
-    const uint32_t unit = load_couplings<ND, kVec>(J, x.i0, x.cnt, jc);
+    float jc[4 * D];
+    const uint32_t unit = load_couplings<ND, kVec>(J, x.i0, x.cnt, nb, jc);
     JT<ND> jt;
     int tp = -1;
     for (int k = 0; k < g.per; ++k) {
       const int t = sh.t[k];
       if (t != tp) {
         tp = t;
-        take_jt<ND>(jt, jc, __ldg(temps + t), unit, kProbGrey, sh.thr[k]);
+        take_jt<ND>(jt, jc, __ldg(temps + t), unit, bits, kProbGrey, sh.thr[k]);
       }
       const size_t base = static_cast<size_t>(b0 + k) * g.n;
       const uint8_t* S = state + base;
@@ -738,11 +926,12 @@ ov_mid_kernel(const int8_t* __restrict__ spins, const int32_t* __restrict__ sid,
       const Words<ND> b = load_words<ND, kVec>(spins + sh.rb[k], x, g);
       uint32_t out = fl << 7;
 #pragma unroll
-      for (int d = 0; d < ND; ++d) {
+      for (int d = 0; d < D; ++d) {
+        if (ND == kTable && d >= nb) break;
         const uint32_t blue = (st >> d) & kLow;
         const uint32_t cand = differ(a.w ^ a.f[d], b.w ^ b.f[d]) & (jt.pos[d] | jt.neg[d]) &
                               ~blue;
-        out |= (blue | draw<ND>(jt, cand, d, sh.k0[k], sh.k1[k], ND, grp)) << d;
+        out |= (blue | draw<ND>(jt, cand, d, sh.k0[k], sh.k1[k], nb, grp)) << d;
       }
       uint8_t* o = state2 + base;
       if (kVec) {
@@ -879,34 +1068,40 @@ template <int ND, bool kVec>
 __device__ __forceinline__ void balanced_words(const int8_t* __restrict__ spins, long long row0,
                                                const uint16_t* rows, int gs,
                                                const Group<ND, kVec>& x, const OvWalk& g,
-                                               uint32_t (&act)[ND + 1]) {
+                                               uint32_t (&act)[Form<ND>::kDirs + 1]) {
+  constexpr int D = Form<ND>::kDirs;
+  const int nb = dirs<ND>(g);
   if (gs <= 254) {
-    uint32_t c[ND + 1] = {};
+    uint32_t c[D + 1] = {};
     for (int r = 0; r < gs; ++r) {
       const Words<ND> m = load_words<ND, kVec>(spins + (row0 + rows[r]) * g.n, x, g);
       c[0] += (m.w >> 7) & kLow;
 #pragma unroll
-      for (int d = 0; d < ND; ++d) c[1 + d] += (m.f[d] >> 7) & kLow;
+      for (int d = 0; d < D; ++d) {
+        if (ND == kTable && d >= nb) break;
+        c[1 + d] += (m.f[d] >> 7) & kLow;
+      }
     }
     const uint32_t h = static_cast<uint32_t>(gs >> 1) * kLow;
 #pragma unroll
-    for (int j = 0; j <= ND; ++j) act[j] = __vcmpeq4(c[j], h) & kLow;
+    for (int j = 0; j <= D; ++j) act[j] = __vcmpeq4(c[j], h) & kLow;
   } else {
     constexpr uint32_t kLow2 = 0x00010001u;
-    uint32_t lo[ND + 1] = {}, hi[ND + 1] = {};
+    uint32_t lo[D + 1] = {}, hi[D + 1] = {};
     for (int r = 0; r < gs; ++r) {
       const Words<ND> m = load_words<ND, kVec>(spins + (row0 + rows[r]) * g.n, x, g);
       lo[0] += (m.w >> 7) & kLow2;
       hi[0] += (m.w >> 15) & kLow2;
 #pragma unroll
-      for (int d = 0; d < ND; ++d) {
+      for (int d = 0; d < D; ++d) {
+        if (ND == kTable && d >= nb) break;
         lo[1 + d] += (m.f[d] >> 7) & kLow2;
         hi[1 + d] += (m.f[d] >> 15) & kLow2;
       }
     }
     const uint32_t h = static_cast<uint32_t>(gs >> 1) * kLow2;
 #pragma unroll
-    for (int j = 0; j <= ND; ++j)
+    for (int j = 0; j <= D; ++j)
       act[j] = (__vcmpeq2(lo[j], h) & kLow2) | ((__vcmpeq2(hi[j], h) & kLow2) << 8);
   }
 }
@@ -967,11 +1162,14 @@ houdn_bonds_kernel(const int8_t* __restrict__ spins, const int32_t* __restrict__
        grp += gridDim.y * kThreads) {
     const Group<ND, kVec> x = group_at<ND, kVec>(g, grp);
     for (int k = 0; k < g.per; ++k) {
-      uint32_t act[ND + 1];
+      uint32_t act[Form<ND>::kDirs + 1];
       balanced_words<ND, kVec>(spins, row0, houdn_rows + k * gs, gs, x, g, act);
       uint32_t st = 0;
 #pragma unroll
-      for (int d = 0; d < ND; ++d) st |= (act[0] & act[1 + d]) << d;
+      for (int d = 0; d < Form<ND>::kDirs; ++d) {
+        if (ND == kTable && d >= g.nb) break;
+        st |= (act[0] & act[1 + d]) << d;
+      }
       uint8_t* out = state + static_cast<size_t>(b0 + k) * g.n;
       if (kVec) {
         reinterpret_cast<uint32_t*>(out)[grp] = st;
@@ -1290,12 +1488,25 @@ inline dim3 ov_grid(const OvWalk& g) {
 }
 
 inline bool ov_walk_ok(const OvWalk& g) {
-  return g.n >= 1 && (g.nd == 2 || g.nd == 3) && g.lf >= 1 && g.lb >= 1 && g.la >= 1 &&
-         (g.nd == 3 || g.la == 1) &&
-         static_cast<long long>(g.lf) * g.lb * g.la == g.n && g.n <= (1 << 30) &&
-         g.T >= 1 && g.G >= 1 && g.S >= 1 && g.d >= 1 && g.per >= 1 && g.per <= kMaxPer &&
-         (g.T * g.G) % g.per == 0 && static_cast<long long>(g.d) * g.T * g.G <= 65535;
+  if (!(g.n >= 1 && (g.nd == 2 || g.nd == 3) && g.lf >= 1 && g.lb >= 1 && g.la >= 1 &&
+        (g.nd == 3 || g.la == 1) &&
+        static_cast<long long>(g.lf) * g.lb * g.la == g.n && g.n <= (1 << 30) &&
+        g.T >= 1 && g.G >= 1 && g.S >= 1 && g.d >= 1 && g.per >= 1 && g.per <= kMaxPer &&
+        (g.T * g.G) % g.per == 0 && static_cast<long long>(g.d) * g.T * g.G <= 65535 &&
+        g.nb >= 1 && g.nb <= kMaxDirs && (g.axes == 0 || g.axes == 1) &&
+        (!g.axes || g.nb == g.nd)))
+    return false;
+  for (int d = 0; d < g.nb; ++d) {
+    const OvOffset& o = g.off[d];
+    if (o.ra < 0 || o.ra >= g.la || o.rb < 0 || o.rb >= g.lb || o.rf < 0 || o.rf >= g.lf ||
+        o.q != o.rf >> 2 || o.b != (o.rf & 3))
+      return false;
+  }
+  return true;
 }
+
+// The kernels' form of a walk: 0 the 2D axes, 1 the 3D axes, 2 a table.
+inline int ov_form(const OvWalk& g) { return g.axes ? g.nd - 2 : 2; }
 
 inline bool aligned(const void* p, unsigned a) {
   return reinterpret_cast<uintptr_t>(p) % a == 0;
@@ -1328,13 +1539,15 @@ int peapods_ov_bonds(const void* spins, const void* sid, const void* tasks,
   using Kernel = void (*)(const int8_t*, const int32_t*, const int32_t*, const float*,
                           const float*, const int32_t*, const int32_t*, const int32_t*,
                           uint8_t*, int32_t*, const OvWalk, int);
-  Kernel kernel;
-  if (g.nd == 3)
-    kernel = kind == kJorg ? (vec ? ov_bonds_kernel<3, kJorg, true> : ov_bonds_kernel<3, kJorg, false>)
-                           : (vec ? ov_bonds_kernel<3, kCmr, true> : ov_bonds_kernel<3, kCmr, false>);
-  else
-    kernel = kind == kJorg ? (vec ? ov_bonds_kernel<2, kJorg, true> : ov_bonds_kernel<2, kJorg, false>)
-                           : (vec ? ov_bonds_kernel<2, kCmr, true> : ov_bonds_kernel<2, kCmr, false>);
+  // [form][kind == CMR][vec]
+  static const Kernel kernels[3][2][2] = {
+      {{ov_bonds_kernel<2, kJorg, false>, ov_bonds_kernel<2, kJorg, true>},
+       {ov_bonds_kernel<2, kCmr, false>, ov_bonds_kernel<2, kCmr, true>}},
+      {{ov_bonds_kernel<3, kJorg, false>, ov_bonds_kernel<3, kJorg, true>},
+       {ov_bonds_kernel<3, kCmr, false>, ov_bonds_kernel<3, kCmr, true>}},
+      {{ov_bonds_kernel<kTable, kJorg, false>, ov_bonds_kernel<kTable, kJorg, true>},
+       {ov_bonds_kernel<kTable, kCmr, false>, ov_bonds_kernel<kTable, kCmr, true>}}};
+  const Kernel kernel = kernels[ov_form(g)][kind == kCmr][vec];
   kernel<<<ov_grid(g), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(spins), static_cast<const int32_t*>(sid),
       static_cast<const int32_t*>(tasks), static_cast<const float*>(coup),
@@ -1358,13 +1571,15 @@ int peapods_ov_mid(const void* spins, const void* sid, const void* tasks, const 
   using Kernel = void (*)(const int8_t*, const int32_t*, const int32_t*, const float*,
                           const float*, const int32_t*, const int32_t*, const uint8_t*,
                           const int32_t*, uint8_t*, const OvWalk);
-  Kernel kernel;
-  if (g.nd == 3)
-    kernel = wolff ? (vec ? ov_mid_kernel<3, true, true> : ov_mid_kernel<3, true, false>)
-                   : (vec ? ov_mid_kernel<3, false, true> : ov_mid_kernel<3, false, false>);
-  else
-    kernel = wolff ? (vec ? ov_mid_kernel<2, true, true> : ov_mid_kernel<2, true, false>)
-                   : (vec ? ov_mid_kernel<2, false, true> : ov_mid_kernel<2, false, false>);
+  // [form][wolff][vec]
+  static const Kernel kernels[3][2][2] = {
+      {{ov_mid_kernel<2, false, false>, ov_mid_kernel<2, false, true>},
+       {ov_mid_kernel<2, true, false>, ov_mid_kernel<2, true, true>}},
+      {{ov_mid_kernel<3, false, false>, ov_mid_kernel<3, false, true>},
+       {ov_mid_kernel<3, true, false>, ov_mid_kernel<3, true, true>}},
+      {{ov_mid_kernel<kTable, false, false>, ov_mid_kernel<kTable, false, true>},
+       {ov_mid_kernel<kTable, true, false>, ov_mid_kernel<kTable, true, true>}}};
+  const Kernel kernel = kernels[ov_form(g)][wolff != 0][vec];
   kernel<<<ov_grid(g), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(spins), static_cast<const int32_t*>(sid),
       static_cast<const int32_t*>(tasks), static_cast<const float*>(coup),
@@ -1388,8 +1603,8 @@ int peapods_ov_finish(void* spins, const void* sid, const void* tasks, const voi
                    aligned(parent, 16);
   using Kernel = void (*)(int8_t*, const int32_t*, const int32_t*, const int32_t*,
                           const int32_t*, const uint8_t*, const int32_t*, const OvWalk);
-  // [nd == 3][kind == CMR][wolff][vec]
-  static const Kernel kernels[2][2][2][2] = {
+  // [form][kind == CMR][wolff][vec]
+  static const Kernel kernels[3][2][2][2] = {
       {{{ov_finish_kernel<2, kJorg, false, false>, ov_finish_kernel<2, kJorg, false, true>},
         {ov_finish_kernel<2, kJorg, true, false>, ov_finish_kernel<2, kJorg, true, true>}},
        {{ov_finish_kernel<2, kCmr, false, false>, ov_finish_kernel<2, kCmr, false, true>},
@@ -1397,8 +1612,12 @@ int peapods_ov_finish(void* spins, const void* sid, const void* tasks, const voi
       {{{ov_finish_kernel<3, kJorg, false, false>, ov_finish_kernel<3, kJorg, false, true>},
         {ov_finish_kernel<3, kJorg, true, false>, ov_finish_kernel<3, kJorg, true, true>}},
        {{ov_finish_kernel<3, kCmr, false, false>, ov_finish_kernel<3, kCmr, false, true>},
-        {ov_finish_kernel<3, kCmr, true, false>, ov_finish_kernel<3, kCmr, true, true>}}}};
-  const Kernel kernel = kernels[g.nd == 3][kind == kCmr][wolff != 0][vec];
+        {ov_finish_kernel<3, kCmr, true, false>, ov_finish_kernel<3, kCmr, true, true>}}},
+      {{{ov_finish_kernel<kTable, kJorg, false, false>, ov_finish_kernel<kTable, kJorg, false, true>},
+        {ov_finish_kernel<kTable, kJorg, true, false>, ov_finish_kernel<kTable, kJorg, true, true>}},
+       {{ov_finish_kernel<kTable, kCmr, false, false>, ov_finish_kernel<kTable, kCmr, false, true>},
+        {ov_finish_kernel<kTable, kCmr, true, false>, ov_finish_kernel<kTable, kCmr, true, true>}}}};
+  const Kernel kernel = kernels[ov_form(g)][kind == kCmr][wolff != 0][vec];
   kernel<<<ov_grid(g), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int8_t*>(spins), static_cast<const int32_t*>(sid),
       static_cast<const int32_t*>(tasks), static_cast<const int32_t*>(scal),
@@ -1423,8 +1642,12 @@ int peapods_houdn_bonds(const void* spins, const void* sid, const void* tasks,
   const bool vec = g.lf % 4 == 0 && aligned(spins, 4) && aligned(state, 4);
   using Kernel = void (*)(const int8_t*, const int32_t*, const int32_t*, const int32_t*,
                           uint8_t*, int32_t*, const OvWalk, int, int);
-  const Kernel kernel = g.nd == 3 ? (vec ? houdn_bonds_kernel<3, true> : houdn_bonds_kernel<3, false>)
-                                  : (vec ? houdn_bonds_kernel<2, true> : houdn_bonds_kernel<2, false>);
+  // [form][vec]
+  static const Kernel kernels[3][2] = {
+      {houdn_bonds_kernel<2, false>, houdn_bonds_kernel<2, true>},
+      {houdn_bonds_kernel<3, false>, houdn_bonds_kernel<3, true>},
+      {houdn_bonds_kernel<kTable, false>, houdn_bonds_kernel<kTable, true>}};
+  const Kernel kernel = kernels[ov_form(g)][vec];
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -1454,13 +1677,15 @@ int peapods_houdn_finish(void* spins, const void* sid, const void* tasks, const 
                    aligned(state, 4);
   using Kernel = void (*)(int8_t*, const int32_t*, const int32_t*, const int32_t*,
                           const uint8_t*, const int32_t*, const int32_t*, const OvWalk, int);
-  // [nd == 3][wolff][vec]
-  static const Kernel kernels[2][2][2] = {
+  // [form][wolff][vec]
+  static const Kernel kernels[3][2][2] = {
       {{houdn_finish_kernel<2, false, false>, houdn_finish_kernel<2, false, true>},
        {houdn_finish_kernel<2, true, false>, houdn_finish_kernel<2, true, true>}},
       {{houdn_finish_kernel<3, false, false>, houdn_finish_kernel<3, false, true>},
-       {houdn_finish_kernel<3, true, false>, houdn_finish_kernel<3, true, true>}}};
-  const Kernel kernel = kernels[g.nd == 3][wolff != 0][vec];
+       {houdn_finish_kernel<3, true, false>, houdn_finish_kernel<3, true, true>}},
+      {{houdn_finish_kernel<kTable, false, false>, houdn_finish_kernel<kTable, false, true>},
+       {houdn_finish_kernel<kTable, true, false>, houdn_finish_kernel<kTable, true, true>}}};
+  const Kernel kernel = kernels[ov_form(g)][wolff != 0][vec];
   if (smem + sizeof(OvTasks) > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));

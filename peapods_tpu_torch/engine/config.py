@@ -42,8 +42,6 @@ _ROADMAP_ITEMS = {
     "4a": "item 4a, the per-sweep path for other lattices",
     "4b": "item 4b, autocorrelation and the equilibration diagnostic",
     "4c": "item 4c, checkpoints",
-    "7d": "item 7d, the overlap moves on the triangular, BCC, FCC and "
-          "offset-table lattices",
     "9": "item 9, multi-GPU",
 }
 

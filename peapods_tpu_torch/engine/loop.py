@@ -420,15 +420,18 @@ def run_chunk_sweeps(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
        reference's ``_measure_phase``, :2623-2666); ``pt_step`` reduces the
        measurement into the sweep's (e, m) rows;
     4. on sweeps ``s`` with ``s % interval == 0``, the overlap move
-       (:func:`~peapods_tpu_torch.ops.overlap.overlap_event`, square and
-       cubic lattices), its statistics or observations folded, and on the
-       snapshot sweeps its snapshot taken (the spins before it, its labels);
+       (:func:`~peapods_tpu_torch.ops.overlap.overlap_event` over the
+       lattice's offsets, every lattice), its statistics or observations
+       folded, and on the snapshot sweeps its snapshot taken (the spins
+       before it, its labels);
     5. on PT sweeps, ``pt_step``'s PT event on each replica's ladder with
        the reference's jnp-form draws (:func:`~.seeds.pt_draws_jnp`): on
        the sweep's (e, m), or after an overlap update on energies re-derived
-       from the moved spins (:func:`~peapods_tpu_torch.ops.overlap.
-       energy_partials`, :2888-2900); an observe run's PT reads the
-       sweep's (e, m), as a run without the observer does;
+       from the moved spins (:2888-2900: :func:`~peapods_tpu_torch.ops.
+       overlap.energy_partials` on the square and cubic lattices,
+       :func:`~peapods_tpu_torch.ops.energy.measure_nb` on the others); an
+       observe run's PT reads the sweep's (e, m), as a run without the
+       observer does;
     6. the records of the sweeps past warmup, the pair records, the
        cluster-size histograms and the graph observations of their FK
        phases are folded into the sums.
@@ -561,7 +564,7 @@ def run_chunk_sweeps(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
         want = events.wants(ev)
         moved = overlap.overlap_event(
             flat, sid, tasks, rt.coup, rt.temps, scal_ev, probes, words,
-            kind=events.kinds[ev], wolff=h.cluster_mode == "wolff", shape=lat.shape,
+            kind=events.kinds[ev], wolff=h.cluster_mode == "wolff", shape=lat,
             with_labels=want or snap is not None,
             with_masks=want and events.observe, observe=events.observe)
         if want:
@@ -573,8 +576,9 @@ def run_chunk_sweeps(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
                 snap["blue_ids"] = lab(moved.blue)
             acc.setdefault("snapshots", []).append(snap)
         if do_pt:
-            e2 = parts if events.observe else overlap.energy_partials(flat, rt.coup,
-                                                                     lat.shape)
+            e2 = (parts if events.observe
+                  else overlap.energy_partials(flat, rt.coup, lat.shape) if lat.hypercubic
+                  else measure_nb(flat, rt.coup, lat))
             parity = mega.pt_step(*e2, None, None, sid, *pt_state, rt.slot_temps, draw,
                                   sys_temps, do_pt=True, parity=parity, **pt_kw)
     state["counter"] = np.int32(counter + n)

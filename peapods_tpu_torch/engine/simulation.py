@@ -332,8 +332,6 @@ class IsingSimulation:
                 "overlap cluster requires n_replicas >= max group_size "
                 f"({self.n_replicas} < {h.max_group_size()})"
             )
-        if h is not None and not self.lattice.hypercubic:
-            not_ported("overlap moves on a lattice other than square or cubic", "7d")
         if self.rt.space is not None:
             if snapshot_interval is not None:
                 not_ported("snapshot_interval on a space mesh", "9")

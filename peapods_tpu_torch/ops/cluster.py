@@ -161,12 +161,16 @@ def find_seed(probes, eligible):
     return torch.where(hits.any(-1), seed, eligible.shape[-1])
 
 
-def nonsingleton_mask(active_fwd, shape):
+def nonsingleton_mask(active_fwd, shape, offsets=None):
     """bool ``[..., n_spins]``: sites with any bond (own forward bonds or a
-    backward neighbour's forward bond), i.e. in a cluster of size > 1."""
+    backward neighbour's forward bond, the neighbour at ``-offset`` of each
+    of ``offsets``, one per axis when ``None``), i.e. in a cluster of size
+    > 1."""
     inc = active_fwd.any(-1)
     for d in range(active_fwd.shape[-1]):
-        inc = inc | _bwd(active_fwd[..., d], shape, d)
+        bwd = (_bwd(active_fwd[..., d], shape, d) if offsets is None
+               else neighbour_values(active_fwd[..., d], shape, -offsets[d]))
+        inc = inc | bwd
     return inc
 
 

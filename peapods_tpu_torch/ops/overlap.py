@@ -12,11 +12,17 @@ of realization ``d`` (:func:`~peapods_tpu_torch.engine.seeds.overlap_tasks`;
 are flipped in place.  Per task come six scalars and 64 Wolff probes
 (:func:`~peapods_tpu_torch.engine.seeds.event_scalars`) and two key words
 for the bond uniforms (Philox, counter ``(dir, site // 4, 0, 0)``; CMR's red
-bonds ``(n_dims + dir, ...)``: :func:`~peapods_tpu_torch.ops.rng.bond_uniforms`).
+bonds ``(n_dirs + dir, ...)``, ``n_dirs`` the lattice's forward offsets:
+:func:`~peapods_tpu_torch.ops.rng.bond_uniforms`).  A move runs on any
+lattice of the port (:func:`geometry`): its bonds are one a forward offset,
+the axes of the square and cubic lattices or the offsets of the triangular,
+BCC, FCC lattices and offset tables.
 
 :func:`overlap_event` launches the kernels of ``csrc/overlap.cu`` on CUDA
-tensors (counted in :data:`LAUNCHES`), with the FK update's ``fk_link``
-labelling the bond graphs (counted in ``fk.LAUNCHES``), and runs
+tensors (counted in :data:`LAUNCHES`), with the FK phase's labelling of
+each lattice labelling the bond graphs (``fk_link`` on the square, cubic
+and triangular lattices, counted in ``fk.LAUNCHES``; ``cc_link`` on the
+others, counted in ``cc.LAUNCHES``), and runs
 :func:`overlap_event_plain` on CPU tensors; :func:`energy_partials` re-derives the systems' energies
 (by system, as block partials) for the PT step that follows a move.  The
 move's rules, in the reference kernel's operation order (J/T = J / T in
@@ -55,11 +61,11 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from . import _build, fk, rng
-from .cluster import _fwd, connected_components, find_seed, nonsingleton_mask
+from . import _build, cc, fk, rng
+from .cluster import connected_components, find_seed, nonsingleton_mask
 from .cluster import salted_uniform
 from .energy import bond_sums, site_energies
-from .lattice import fast_divisor
+from .lattice import MAX_OFFSETS, Lattice, fast_divisor, neighbour_values
 from .sweep import systems_per
 
 __all__ = [
@@ -93,7 +99,7 @@ class MoveGraphs(NamedTuple):
     the move's labels (CMR's grey ones; ``None`` for CMR's observe form,
     which builds no grey graph); ``blue``, CMR's blue labels (else
     ``None``); ``masks``, the stats graph's bond masks bool ``[B, n,
-    n_dims]``."""
+    n_dirs]``."""
 
     labels: torch.Tensor | None
     blue: torch.Tensor | None
@@ -126,7 +132,37 @@ def _flip(x, mask):
     return torch.where(mask, -x, x)
 
 
-def _cluster_flip(labels, bonds, scal, probes, active, shape, *, wolff):
+def geometry(lattice):
+    """``(shape, offsets)`` of a move's lattice: its extents and its int64
+    forward offsets ``[n_dirs, n_dims]``.  Every function of this module
+    takes the lattice as a :class:`~.lattice.Lattice` (any offsets: the
+    triangular, BCC, FCC lattices, offset tables) or as its extents (one
+    forward bond per axis)."""
+    if isinstance(lattice, Lattice):
+        return lattice.shape, lattice.offsets
+    shape = tuple(int(x) for x in lattice)
+    return shape, np.eye(len(shape), dtype=np.int64)
+
+
+def _fwd(x, lat, d):
+    """``x [..., n]`` at every site's neighbour at forward offset ``d``."""
+    shape, offsets = geometry(lat)
+    return neighbour_values(x, shape, offsets[d])
+
+
+def _n_dirs(lat):
+    return len(geometry(lat)[1])
+
+
+def _components(bonds, lat):
+    return connected_components(bonds, *geometry(lat))
+
+
+def _nonsingleton(bonds, lat):
+    return nonsingleton_mask(bonds, *geometry(lat))
+
+
+def _cluster_flip(labels, bonds, scal, probes, active, lat, *, wolff):
     """Which sites a Houdayer or Joerg move flips: the first active probe's
     component (Wolff) or the non-singletons whose coin falls below 1/2
     (SW)."""
@@ -136,29 +172,29 @@ def _cluster_flip(labels, bonds, scal, probes, active, shape, *, wolff):
         root = labels.gather(-1, seed.clamp(max=n - 1)[:, None])
         return (labels == root) & (seed < n)[:, None]
     return (salted_uniform(labels, scal[:, 0:1], scal[:, 1:2]) < 0.5) \
-        & nonsingleton_mask(bonds, shape)
+        & _nonsingleton(bonds, lat)
 
 
-def _houdn_bonds(x, shape):
+def _houdn_bonds(x, lat):
     """``(active, bonds)`` of Houdayer(N) tasks ``x`` int8 ``[B, g, n]``:
     the sites whose ``g`` spins sum to 0 and the bonds between two active
-    neighbours, bool ``[B, n]`` and ``[B, n, n_dims]``."""
+    neighbours, bool ``[B, n]`` and ``[B, n, n_dirs]``."""
     active = x.to(torch.int32).sum(1) == 0
-    return active, torch.stack([active & _fwd(active, shape, d)
-                                for d in range(len(shape))], dim=-1)
+    return active, torch.stack([active & _fwd(active, lat, d)
+                                for d in range(_n_dirs(lat))], dim=-1)
 
 
-def _houdn(x, scal, probes, shape, *, wolff):
-    active, bonds = _houdn_bonds(x, shape)
-    labels = connected_components(bonds, shape)
-    flip = _cluster_flip(labels, bonds, scal, probes, active, shape, wolff=wolff)
+def _houdn(x, scal, probes, lat, *, wolff):
+    active, bonds = _houdn_bonds(x, lat)
+    labels = _components(bonds, lat)
+    flip = _cluster_flip(labels, bonds, scal, probes, active, lat, wolff=wolff)
     return _flip(x, flip[:, None]), labels, bonds
 
 
 def houdn_plain(x, scal, probes, shape, *, wolff):
-    """Houdayer(N) on tasks of ``g`` replicas ``x`` int8 ``[B, g, n]``:
-    returns ``(x, labels)``, every member flipped on the chosen
-    clusters."""
+    """Houdayer(N) on tasks of ``g`` replicas ``x`` int8 ``[B, g, n]`` on
+    the lattice ``shape`` (:func:`geometry`): returns ``(x, labels)``,
+    every member flipped on the chosen clusters."""
     x, labels, _ = _houdn(x, scal, probes, shape, wolff=wolff)
     return x, labels
 
@@ -170,61 +206,62 @@ def houdayer_plain(a, b, scal, probes, shape, *, wolff):
     return x[:, 0], x[:, 1], labels
 
 
-def _jorg(a, b, jt, scal, probes, shape, *, wolff, u):
+def _jorg(a, b, jt, scal, probes, lat, *, wolff, u):
     active = a.to(torch.int32) * b.to(torch.int32) < 0
     af = a.to(torch.float32)
     bonds = []
-    for d in range(len(shape)):
-        inter = af * _fwd(af, shape, d) * jt[..., d]
+    for d in range(_n_dirs(lat)):
+        inter = af * _fwd(af, lat, d) * jt[..., d]
         p = 1.0 - torch.exp(-4.0 * inter)
         bonds.append((inter > 0.0) & (u[..., d] < p) & active
-                     & _fwd(active, shape, d))
+                     & _fwd(active, lat, d))
     bonds = torch.stack(bonds, dim=-1)
-    labels = connected_components(bonds, shape)
-    flip = _cluster_flip(labels, bonds, scal, probes, active, shape, wolff=wolff)
+    labels = _components(bonds, lat)
+    flip = _cluster_flip(labels, bonds, scal, probes, active, lat, wolff=wolff)
     return _flip(a, flip), _flip(b, flip), labels, bonds
 
 
 def jorg_plain(a, b, jt, scal, probes, shape, *, wolff, u):
-    """Joerg on tasks ``a``, ``b`` int8 ``[B, n]`` with ``jt`` = J/T f32
-    ``[B, n, n_dims]`` and bond uniforms ``u`` ``[B, n, n_dims]``."""
+    """Joerg on tasks ``a``, ``b`` int8 ``[B, n]`` on the lattice ``shape``
+    (:func:`geometry`) with ``jt`` = J/T f32 ``[B, n, n_dirs]`` and bond
+    uniforms ``u`` ``[B, n, n_dirs]``."""
     return _jorg(a, b, jt, scal, probes, shape, wolff=wolff, u=u)[:3]
 
 
-def _sats(af, bf, jt, shape, d):
-    return (af * _fwd(af, shape, d) * jt[..., d] > 0.0,
-            bf * _fwd(bf, shape, d) * jt[..., d] > 0.0)
+def _sats(af, bf, jt, lat, d):
+    return (af * _fwd(af, lat, d) * jt[..., d] > 0.0,
+            bf * _fwd(bf, lat, d) * jt[..., d] > 0.0)
 
 
-def _cmr(a, b, jt, scal, shape, *, wolff, u_blue, u_red):
-    nd = len(shape)
+def _cmr(a, b, jt, scal, lat, *, wolff, u_blue, u_red):
+    n_dirs = _n_dirs(lat)
     af = a.to(torch.float32)
     bf = b.to(torch.float32)
     r = torch.exp(-2.0 * jt.abs())
     blue = []
-    for d in range(nd):
-        sa, sb = _sats(af, bf, jt, shape, d)
+    for d in range(n_dirs):
+        sa, sb = _sats(af, bf, jt, lat, d)
         blue.append(sa & sb & (u_blue[..., d] < 1.0 - r[..., d] * r[..., d]))
     blue = torch.stack(blue, dim=-1)
-    blue_labels = connected_components(blue, shape)
+    blue_labels = _components(blue, lat)
     seed = scal[:, 4:5].to(torch.int64)
     if wolff:
         blue_flip = blue_labels == blue_labels.gather(-1, seed)
     else:
         blue_flip = (salted_uniform(blue_labels, scal[:, 0:1], scal[:, 1:2]) < 0.5) \
-            & nonsingleton_mask(blue, shape)
+            & _nonsingleton(blue, lat)
     af, bf = _flip(af, blue_flip), _flip(bf, blue_flip)
     grey = []
-    for d in range(nd):
-        sa, sb = _sats(af, bf, jt, shape, d)
+    for d in range(n_dirs):
+        sa, sb = _sats(af, bf, jt, lat, d)
         grey.append(blue[..., d] | ((sa != sb) & (u_red[..., d] < 1.0 - r[..., d])))
     grey = torch.stack(grey, dim=-1)
-    labels = connected_components(grey, shape)
+    labels = _components(grey, lat)
     if wolff:
         inside = labels == labels.gather(-1, seed)
         k = scal[:, 5:6]
     else:
-        inside = nonsingleton_mask(grey, shape)
+        inside = _nonsingleton(grey, lat)
         k = (salted_uniform(labels, scal[:, 2:3], scal[:, 3:4]) * 4.0).to(torch.int32)
     a_new = _flip(af, inside & ((k & 1) != 0)).to(torch.int8)
     b_new = _flip(bf, inside & ((k & 2) != 0)).to(torch.int8)
@@ -232,15 +269,16 @@ def _cmr(a, b, jt, scal, shape, *, wolff, u_blue, u_red):
 
 
 def cmr_plain(a, b, jt, scal, shape, *, wolff, u_blue, u_red):
-    """CMR on tasks ``a``, ``b`` int8 ``[B, n]``: returns ``(a, b, grey
-    labels, blue labels)``.  ``u_blue`` / ``u_red``: f32 ``[B, n,
-    n_dims]``."""
-    return _cmr(a, b, jt, scal, shape, wolff=wolff, u_blue=u_blue, u_red=u_red)[:4]
+    """CMR on tasks ``a``, ``b`` int8 ``[B, n]`` on the lattice ``shape``
+    (:func:`geometry`): returns ``(a, b, grey labels, blue labels)``.
+    ``u_blue`` / ``u_red``: f32 ``[B, n, n_dirs]``."""
+    return _cmr(a, b, jt, scal, shape, wolff=wolff, u_blue=u_blue,
+                u_red=u_red)[:4]
 
 
 def _state_bytes(bonds):
     """uint8 ``[B, n]``: bit ``d`` where bond ``d`` of bool ``[B, n,
-    n_dims]`` is active."""
+    n_dirs]`` is active."""
     w = torch.tensor([1 << d for d in range(bonds.shape[-1])], dtype=torch.int32,
                      device=bonds.device)
     return (bonds.to(torch.int32) * w).sum(-1).to(torch.uint8)
@@ -255,11 +293,11 @@ def bond_states_plain(spins, sid, tasks, coup, temps, scal, probes, words, *, ki
     the seeds int32 ``[B]`` (Joerg Wolff: the first active probe, ``n`` when
     none is, and for SW; CMR: the drawn seed)."""
     n_temps, n_groups = tasks.shape[1:3]
-    nd = len(shape)
+    n_dirs = _n_dirs(shape)
     n = spins.shape[-1]
     _, a, b = gather_tasks(spins, sid, tasks, n_temps)
     jt = task_jt(coup, temps, n_groups)
-    u = rng.bond_uniforms(words, n, nd)
+    u = rng.bond_uniforms(words, n, n_dirs)
     if kind == "jorg":
         bonds = _jorg(a, b, jt, scal, probes, shape, wolff=wolff, u=u)[3]
         active = a.to(torch.int32) * b.to(torch.int32) < 0
@@ -269,7 +307,7 @@ def bond_states_plain(spins, sid, tasks, coup, temps, scal, probes, words, *, ki
     if kind != "cmr":
         raise ValueError(f"{kind!r} moves have no ov_bonds")
     *_, blue, grey, flip = _cmr(a, b, jt, scal, shape, wolff=wolff, u_blue=u,
-                                u_red=rng.bond_uniforms(words, n, nd, nd))
+                                u_red=rng.bond_uniforms(words, n, n_dirs, n_dirs))
     state2 = _state_bytes(grey) | (flip.to(torch.uint8) << 7)
     return _state_bytes(blue), state2, scal[:, 4].to(torch.int32).contiguous()
 
@@ -307,7 +345,7 @@ def finish_plain(spins, sid, tasks, scal, seeds, state, parent, *, kind, wolff, 
         sd = seeds.to(torch.int64)
         inside = (lab == lab.gather(-1, sd.clamp(max=n - 1)[:, None])) & (sd < n)[:, None]
     else:
-        inside = nonsingleton_mask(fk.state_masks(state, len(shape)), shape)
+        inside = _nonsingleton(fk.state_masks(state, _n_dirs(shape)), shape)
     if kind == "cmr":
         k = (scal[:, 5:6] if wolff
              else (salted_uniform(lab, scal[:, 2:3], scal[:, 3:4]) * 4.0).to(torch.int32))
@@ -324,7 +362,7 @@ def finish_plain(spins, sid, tasks, scal, seeds, state, parent, *, kind, wolff, 
 
 
 def task_jt(coup, temps, n_groups: int):
-    """f32 ``[d T G, n, n_dims]``: J / T of every task's bonds."""
+    """f32 ``[d T G, n, n_dirs]``: J / T of every task's bonds."""
     d, n, nd = coup.shape
     jt = coup[:, None] / temps[None, :, None, None]  # [d, T, n, nd]
     t = temps.shape[0]
@@ -353,7 +391,7 @@ def overlap_event_plain(spins, sid, tasks, coup, temps, scal, probes, words,
         sid: int32 ``[d, n_slots]``.
         tasks: int32 ``[d, T, G, g]`` replica groups (``g = 2`` but for
             Houdayer(N)).
-        coup: f32 ``[d, n, n_dims]`` forward couplings.
+        coup: f32 ``[d, n, n_dirs]`` forward couplings.
         temps: f32 ``[T]``.
         scal, probes, words: int32 ``[d T G, 6]``, ``[d T G, 64]``,
             ``[d T G, 2]``.
@@ -366,7 +404,7 @@ def overlap_event_plain(spins, sid, tasks, coup, temps, scal, probes, words,
     """
     n_temps, n_groups = tasks.shape[1:3]
     g = task_group_size(kind, tasks)
-    nd = len(shape)
+    n_dirs = _n_dirs(shape)
     n = spins.shape[-1]
     sys, *slots = gather_tasks(spins, sid, tasks, n_temps)
     blue = None
@@ -376,14 +414,14 @@ def overlap_event_plain(spins, sid, tasks, coup, temps, scal, probes, words,
         slots = x.unbind(1)
     else:
         jt = task_jt(coup, temps, n_groups)
-        u = rng.bond_uniforms(words, n, nd)
+        u = rng.bond_uniforms(words, n, n_dirs)
         if kind == "jorg":
             *slots, labels, bonds = _jorg(*slots, jt, scal, probes, shape,
                                           wolff=wolff, u=u)
         else:
             *slots, labels, blue, bonds, _, _ = _cmr(
                 *slots, jt, scal, shape, wolff=wolff, u_blue=u,
-                u_red=rng.bond_uniforms(words, n, nd, nd))
+                u_red=rng.bond_uniforms(words, n, n_dirs, n_dirs))
             if observe:
                 labels = None  # the observe form labels the blue graph only
     if not observe:
@@ -464,40 +502,72 @@ def ov_per(n_sites: int, n_disorder: int, n_temps: int, n_pairs: int, threads: i
 
 
 @functools.lru_cache(maxsize=None)
-def ov_words(shape, n_disorder: int, n_temps: int, n_pairs: int, n_slots: int, per: int):
+def ov_words(shape, n_disorder: int, n_temps: int, n_pairs: int, n_slots: int, per: int,
+             offsets=None):
     """int32 host words of the overlap moves' kernels (``csrc/overlap.cu``
     ``OvWalk``): ``n, nd, lf, lb, la, T, G, S, per, d``, then
-    :func:`~.lattice.fast_divisor` ``(m, s)`` of ``lf``, ``lb`` and ``G``.
-    The fast axis (the last, extent ``lf``) runs in lines over an inner slow
-    axis of extent ``lb`` (2D: ``L0``; 3D: ``L1``) and in 3D an outer one of
-    extent ``la = L0`` (1 in 2D); ``G`` groups (pairs but for Houdayer(N))
-    and ``T`` temperatures a realization, ``S`` slots, ``per`` tasks a
-    thread (:func:`ov_per`)."""
+    :func:`~.lattice.fast_divisor` ``(m, s)`` of ``lf``, ``lb`` and ``G``,
+    then the bond directions ``nb``, whether they are the axes (the
+    kernels' own form for them), and :data:`~.lattice.MAX_OFFSETS` zero-
+    padded steps ``ra, rb, rf, q, b`` of the forward ``offsets`` (a tuple
+    of tuples; one per axis when ``None``).  The fast axis (the last,
+    extent ``lf``) runs in lines over an inner slow axis of extent ``lb``
+    (2D: ``L0``; 3D: ``L1``) and in 3D an outer one of extent ``la = L0`` (1
+    in 2D): an offset's steps are its components along them, each taken
+    into ``[0, extent)`` (``ra = 0`` in 2D), and ``rf`` as ``q`` 4-byte
+    words and ``b`` bytes.  ``G`` groups (pairs but for Houdayer(N)) and
+    ``T`` temperatures a realization, ``S`` slots, ``per`` tasks a thread
+    (:func:`ov_per`)."""
     shape = tuple(int(x) for x in shape)
     nd = len(shape)
     lf, lb, la = shape[-1], shape[-2], shape[0] if nd == 3 else 1
     head = [math.prod(shape), nd, lf, lb, la, n_temps, n_pairs, n_slots, per, n_disorder]
     div = [v for x in (lf, lb, n_pairs) for v in fast_divisor(x)]
-    return np.asarray(head + div, np.int64).astype(np.uint32).view(np.int32)
+    eye = np.eye(nd, dtype=np.int64)
+    off = eye if offsets is None else np.asarray(offsets, np.int64).reshape(-1, nd)
+    axes = off.shape == eye.shape and bool((off == eye).all())
+    steps = np.zeros((MAX_OFFSETS, 5), np.int64)
+    for d, o in enumerate(off):
+        ra = int(o[0]) % la if nd == 3 else 0
+        rb, rf = int(o[-2]) % lb, int(o[-1]) % lf
+        steps[d] = ra, rb, rf, rf // 4, rf % 4
+    tail = [len(off), int(axes)] + steps.reshape(-1).tolist()
+    return np.asarray(head + div + tail, np.int64).astype(np.uint32).view(np.int32)
+
+
+def link_graphs(lib, stream, p_state, p_labels, n_graphs, shape, lattice=None):
+    """Label ``n_graphs`` bond graphs of a move (state bytes in, every
+    label its component's minimum site index out) with the FK phase's
+    labelling of the lattice: ``fk_link`` (``fk.launch_link``) on the
+    square, cubic (``lattice`` ``None``: the axes of ``shape``) and
+    triangular lattices, ``cc_link`` (``cc.launch``) on the others."""
+    if lattice is None or lattice.hypercubic or lattice.triangular:
+        fk.launch_link(lib, stream, p_state, p_labels, n_graphs, *_build.dims3(shape),
+                       tri=lattice is not None and lattice.triangular)
+    else:
+        cc.launch(lib, stream, p_state, p_labels, lattice, n_graphs)
 
 
 def launch_event(lib, stream, dims, p_spins, p_sid, p_tasks, p_coup, p_temps,
                  p_scal, p_probes, p_words, scratch, *, kind, wolff, group=2,
-                 p_labels=None, p_blue=None, observe=False, per=0):
+                 p_labels=None, p_blue=None, observe=False, per=0, lattice=None):
     """Launch one move's kernels on raw pointers: ``dims`` is ``(n_tasks,
     L0, L1, L2, T, G, S)``; ``scratch`` the :meth:`Scratch.ptrs`; ``group``
     the replicas of a task; ``per`` the tasks a thread of the ``houdn_*``
-    and ``ov_*`` kernels takes (default :func:`ov_per`'s).  Houdayer, on
-    groups of any even size, takes ``houdn_bonds``, ``fk_link`` and
-    ``houdn_finish``; Joerg ``ov_bonds``, ``fk_link``, ``ov_finish``; CMR
-    ``ov_bonds``, ``fk_link`` (blue), ``ov_mid``, ``fk_link`` (grey),
+    and ``ov_*`` kernels takes (default :func:`ov_per`'s); ``lattice`` the
+    :class:`~.lattice.Lattice` whose offsets are the bonds (``None``: the
+    axes of ``dims``).  Houdayer, on groups of any even size, takes
+    ``houdn_bonds``, the labelling (:func:`link_graphs`: ``fk_link``, or
+    ``cc_link`` off the square, cubic and triangular lattices) and
+    ``houdn_finish``; Joerg ``ov_bonds``, the labelling, ``ov_finish``; CMR
+    ``ov_bonds``, the labelling (blue), ``ov_mid``, the labelling (grey),
     ``ov_finish``.  The labellings write straight into the caller's
     buffers, which the next kernel reads as its flat parents: Houdayer's
     and Joerg's graphs and CMR's grey one into ``p_labels``, CMR's blue one
     into ``p_blue`` (the scratch parents where a buffer is ``None``).  The
-    observe form launches no finish (and no ``ov_mid``): ``fk_link`` labels
-    the stats graph into ``p_labels`` (CMR: ``p_blue``, required then) and
-    no spin is written."""
+    observe form launches no finish (and no ``ov_mid``): the labelling
+    labels the stats graph into ``p_labels`` (CMR: ``p_blue``, required
+    then) and no spin is written."""
     n_tasks, l0, l1, l2, n_temps, n_groups, n_slots = dims
     st, par, seeds, st2, par2 = scratch
     stats = p_blue if kind == "cmr" else p_labels
@@ -513,7 +583,9 @@ def launch_event(lib, stream, dims, p_spins, p_sid, p_tasks, p_coup, p_temps,
         raise ValueError("Houdayer(N > 2) moves have no observe form")
     per = per or ov_per(n, d, n_temps, n_groups, threads,
                         max(1, HOUDN_ROWS // group) if houd else OV_MAX_PER)
-    words = ov_words(shape, d, n_temps, n_groups, n_slots, per)
+    table = () if lattice is None or lattice.hypercubic else (
+        tuple(map(tuple, lattice.offsets.tolist())),)
+    words = ov_words(shape, d, n_temps, n_groups, n_slots, per, *table)
     k = KINDS.index(kind)
     if houd:
         _build.check(lib.peapods_houdn_bonds(
@@ -528,7 +600,7 @@ def launch_event(lib, stream, dims, p_spins, p_sid, p_tasks, p_coup, p_temps,
     # the first graph's flat parents: the stats graph's labels where the
     # caller asks for them
     first = par if stats is None else stats
-    fk.launch_link(lib, stream, st, first, n_tasks, l0, l1, l2)
+    link_graphs(lib, stream, st, first, n_tasks, shape, lattice)
     if observe:
         return
     if houd:
@@ -544,7 +616,7 @@ def launch_event(lib, stream, dims, p_spins, p_sid, p_tasks, p_coup, p_temps,
             st2, words.ctypes.data, int(wolff), stream), "ov_mid")
         LAUNCHES["ov_mid"] += 1
         last_st, last = st2, par2 if p_labels is None else p_labels
-        fk.launch_link(lib, stream, st2, last, n_tasks, l0, l1, l2)
+        link_graphs(lib, stream, st2, last, n_tasks, shape, lattice)
     _build.check(lib.peapods_ov_finish(
         p_spins, p_sid, p_tasks, p_scal, seeds, last_st, last, words.ctypes.data, k,
         int(wolff), stream), "ov_finish")
@@ -599,19 +671,21 @@ def launch_energy(lib, stream, words, p_spins, p_coup, p_e, p_m):
 
 
 def check_event(spins, sid, tasks, coup, temps, scal, probes, words, shape, kind):
-    """Validate a move's tensors (the kernels' layout); returns the kernel
-    dims ``(n_tasks, L0, L1, L2, T, G, S)`` and the group size."""
+    """Validate a move's tensors (the kernels' layout) on the lattice
+    ``shape`` (:func:`geometry`); returns the kernel dims ``(n_tasks, L0,
+    L1, L2, T, G, S)`` and the group size."""
     dev = spins.device
     d, n_sys, n = spins.shape
     n_temps, n_groups = tasks.shape[1:3]
     g = task_group_size(kind, tasks)
     b = d * n_temps * n_groups
+    shape, offsets = geometry(shape)
     nd = len(shape)
     ex = _build.expect
     ex(spins, "spins", torch.int8, (d, n_sys, n), dev)
     ex(sid, "sid", torch.int32, (d, n_sys), dev)
     ex(tasks, "tasks", torch.int32, (d, n_temps, n_groups, g), dev)
-    ex(coup, "coup", torch.float32, (d, n, nd), dev)
+    ex(coup, "coup", torch.float32, (d, n, len(offsets)), dev)
     ex(temps, "temps", torch.float32, (n_temps,), dev)
     ex(scal, "scal", torch.int32, (b, 6), dev)
     ex(probes, "probes", torch.int32, (b, 64), dev)
@@ -625,10 +699,11 @@ def check_event(spins, sid, tasks, coup, temps, scal, probes, words, shape, kind
 
 def overlap_event(spins, sid, tasks, coup, temps, scal, probes, words, *, kind,
                   wolff, shape, with_labels=False, with_masks=False, observe=False):
-    """One overlap move of every task (see :func:`overlap_event_plain`):
-    the plain version for CPU tensors, the ``houdn_*`` kernels (Houdayer)
-    or the ``ov_*`` ones (Joerg, CMR) for CUDA tensors.  The masks are bits
-    ``0 .. n_dims - 1`` of the first kernel's state bytes."""
+    """One overlap move of every task (see :func:`overlap_event_plain`) on
+    the lattice ``shape`` (:func:`geometry`): the plain version for CPU
+    tensors, the ``houdn_*`` kernels (Houdayer) or the ``ov_*`` ones
+    (Joerg, CMR) for CUDA tensors.  The masks are bits ``0 .. n_dirs - 1``
+    of the first kernel's state bytes."""
     kw = dict(kind=kind, wolff=wolff, shape=shape, with_labels=with_labels,
               with_masks=with_masks, observe=observe)
     args = (spins, sid, tasks, coup, temps, scal, probes, words)
@@ -645,15 +720,17 @@ def overlap_event(spins, sid, tasks, coup, temps, scal, probes, words, *, kind,
         if cmr:
             blue = torch.empty((dims[0], n), dtype=torch.int32, device=dev)
     scratch = Scratch(dims[0], n, dev, cmr and not observe)
+    lattice = shape if isinstance(shape, Lattice) else None
     launch_event(_build.library(), torch.cuda.current_stream(dev).cuda_stream,
                  dims, *(t.data_ptr() for t in args), scratch.ptrs(), kind=kind,
                  wolff=wolff, group=g,
                  p_labels=None if labels is None else labels.data_ptr(),
-                 p_blue=None if blue is None else blue.data_ptr(), observe=observe)
+                 p_blue=None if blue is None else blue.data_ptr(), observe=observe,
+                 lattice=lattice)
     if not (with_labels or with_masks):
         return None
     return MoveGraphs(labels if with_labels else None, blue if with_labels else None,
-                      fk.state_masks(scratch.state, len(shape)) if with_masks else None)
+                      fk.state_masks(scratch.state, coup.shape[-1]) if with_masks else None)
 
 
 def energy_partials(spins, coup, shape, per=0):

@@ -3011,3 +3011,261 @@ def test_sweep_nb_every_lattice_and_per_is_bitwise_plain(cuda, name, shape, geom
         torch.cuda.synchronize()
         assert torch.equal(a, b), per
     assert not torch.equal(b, x["spins"])
+
+
+# ------------------------------------------ the overlap moves on offset tables
+
+
+# (name, shape, offsets, couplings, spins' offset past an 8-byte boundary):
+# the triangular lattice (a fast extent of whole words, and 6: the per-site
+# path), BCC, FCC, the NNN table and random 3-offset tables in 2D and 3D
+# (negative, long and off-word components); the per-site path also on
+# spins 2 bytes off
+OV_LATTICES = [
+    ("tri", (16, 16), "triangular", "pm", 0), ("tri-8x6", (8, 6), "triangular", "gauss", 0),
+    ("bcc", (8, 8, 8), "bcc", "gauss", 0), ("fcc", (8, 8, 8), "fcc", "pm", 4),
+    ("nnn", (16, 16), [[1, 0], [0, 1], [1, 1], [1, -1]], "gauss", 0),
+    ("rand3", (8, 12), [[1, -3], [2, 5], [0, 7]], "gauss", 0),
+    ("rand3-3d", (4, 6, 8), [[1, 0, -1], [0, 2, 3], [-1, 1, 5]], "pm", 2),
+]
+OV_LATTICE_IDS = [x[0] for x in OV_LATTICES]
+OV_KINDS = [("houdayer", 2), ("houdayer", 4), ("jorg", 2), ("cmr", 2)]
+OV_KIND_IDS = ["houdayer", "houd4", "jorg", "cmr"]
+
+
+def _ov_lattice(shape, offsets):
+    from peapods_tpu_torch.ops.lattice import GEOMETRY_OFFSETS, Lattice
+
+    return Lattice(shape, GEOMETRY_OFFSETS[offsets] if isinstance(offsets, str) else offsets)
+
+
+def _ov_inputs(dev, seed, lat, couplings, offset, d=2, n_rep=4, n_temps=3):
+    """Spins by system (``offset`` bytes past an 8-byte boundary), forward
+    couplings over the lattice's offsets, temperatures and sid."""
+    rng = np.random.default_rng(seed)
+    n, nb, s = lat.n_spins, lat.n_neighbors, n_rep * n_temps
+    coup = (rng.choice([-1.0, 1.0], size=(d, n, nb)) if couplings == "pm"
+            else rng.standard_normal((d, n, nb))).astype(np.float32)
+    sid = np.stack([rng.permutation(n_temps)[None] + n_temps * rng.permutation(
+        n_rep)[:, None] for _ in range(d)]).reshape(d, s).astype(np.int32)
+    spins = torch.from_numpy(rng.choice([-1, 1], size=(d, s, n)).astype(np.int8)).to(dev)
+    return dict(spins=_offset_copy(spins, offset), coup=torch.from_numpy(coup).to(dev),
+                temps=torch.from_numpy(np.geomspace(0.9, 2.2, n_temps).astype(
+                    np.float32)).to(dev),
+                sid=torch.from_numpy(sid).to(dev), d=d, n_rep=n_rep, n_temps=n_temps)
+
+
+def _link_counts(lat, moves):
+    """The labelling's launches of ``moves`` labellings on ``lat``: fk_link
+    on the triangular lattice, cc_link on the others."""
+    if lat.triangular:
+        return {"fk_link": moves}, {}
+    return {}, {"cc_link": moves}
+
+
+def _reset_move_counts():
+    from peapods_tpu_torch.ops import cc, overlap
+
+    for counts in (overlap.LAUNCHES, fk.LAUNCHES, cc.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+@pytest.mark.parametrize("kind,g", OV_KINDS, ids=OV_KIND_IDS)
+@pytest.mark.parametrize("wolff", [True, False], ids=["wolff", "sw"])
+@pytest.mark.parametrize("name,shape,offsets,couplings,offset", OV_LATTICES,
+                         ids=OV_LATTICE_IDS)
+def test_overlap_moves_on_lattices_match_plain(cuda, name, shape, offsets, couplings,
+                                               offset, wolff, kind, g):
+    """One move of every task on a lattice given by its offsets, through the
+    widened kernels and the lattice's labelling: every member's spins and
+    the labels (CMR: grey and blue) bitwise the plain version's."""
+    from peapods_tpu_torch.ops import cc, overlap
+
+    lat = _ov_lattice(shape, offsets)
+    x = _ov_inputs(cuda, 51, lat, couplings, offset)
+    tab = _event_inputs(x, x["d"], x["n_rep"], x["n_temps"], lat.n_spins, kind, wolff,
+                        19, g=g)
+    a, b = x["spins"].clone(), x["spins"].clone()
+    _reset_move_counts()
+    kw = dict(kind=kind, wolff=wolff, shape=lat, with_labels=True)
+    args = (x["sid"], tab[0], x["coup"], x["temps"], *tab[1:])
+    lk = overlap.overlap_event(a, *args, **kw)
+    lp = overlap.overlap_event_plain(b, *args, **kw)
+    torch.cuda.synchronize()
+    links = 2 if kind == "cmr" else 1
+    want_fk, want_cc = _link_counts(lat, links)
+    assert {k: v for k, v in fk.LAUNCHES.items() if v} == want_fk
+    assert {k: v for k, v in cc.LAUNCHES.items() if v} == want_cc
+    assert overlap.LAUNCHES["houdn_finish" if kind == "houdayer" else "ov_finish"] == 1
+    assert torch.equal(a, b)
+    assert torch.equal(lk.labels, lp.labels)
+    if kind == "cmr":
+        assert torch.equal(lk.blue, lp.blue)
+    assert not torch.equal(a, x["spins"])
+
+
+@pytest.mark.parametrize("kind", ["houdayer", "jorg", "cmr"])
+@pytest.mark.parametrize("name,shape,offsets,couplings,offset", OV_LATTICES,
+                         ids=OV_LATTICE_IDS)
+def test_overlap_observe_on_lattices_matches_plain(cuda, name, shape, offsets, couplings,
+                                                   offset, kind):
+    """SW: the labels (CMR: grey and blue) and the stats graph's masks
+    ``[B, n, n_neighbors]`` bitwise the plain version; the observe form
+    (the first kernel and the labelling) writes no spin and returns the
+    same stats graph."""
+    from peapods_tpu_torch.ops import overlap
+
+    lat = _ov_lattice(shape, offsets)
+    x = _ov_inputs(cuda, 53, lat, couplings, offset)
+    tab = _event_inputs(x, x["d"], x["n_rep"], x["n_temps"], lat.n_spins, kind, False, 23)
+    args = (x["sid"], tab[0], x["coup"], x["temps"], *tab[1:])
+    kw = dict(kind=kind, wolff=False, shape=lat, with_labels=True, with_masks=True)
+    out = {}
+    for observe in (False, True):
+        a, b = x["spins"].clone(), x["spins"].clone()
+        _reset_move_counts()
+        gk = overlap.overlap_event(a, *args, observe=observe, **kw)
+        gp = overlap.overlap_event_plain(b, *args, observe=observe, **kw)
+        torch.cuda.synchronize()
+        finish = overlap.LAUNCHES["houdn_finish"] + overlap.LAUNCHES["ov_finish"]
+        assert finish == (0 if observe else 1)
+        assert overlap.LAUNCHES["ov_mid"] == (kind == "cmr" and not observe)
+        assert torch.equal(a, b)
+        assert torch.equal(a, x["spins"]) == observe
+        for field in ("labels", "blue", "masks"):
+            k, p = getattr(gk, field), getattr(gp, field)
+            assert (k is None) == (p is None), field
+            if k is not None:
+                assert torch.equal(k, p), field
+        out[observe] = gk
+    assert torch.equal(out[True].stats, out[False].stats)
+    assert torch.equal(out[True].masks, out[False].masks)
+    b_tasks = x["d"] * x["n_temps"] * (x["n_rep"] // 2)
+    assert out[True].masks.shape == (b_tasks, lat.n_spins, lat.n_neighbors)
+
+
+@pytest.mark.parametrize("kind,g", OV_KINDS, ids=OV_KIND_IDS)
+@pytest.mark.parametrize("wolff", [True, False], ids=["wolff", "sw"])
+@pytest.mark.parametrize("name,shape,offsets,couplings,offset", OV_LATTICES,
+                         ids=OV_LATTICE_IDS)
+def test_widened_move_kernels_alone_match_plain(cuda, name, shape, offsets, couplings,
+                                                offset, wolff, kind, g):
+    """Each widened kernel on its own inputs: houdn_bonds' or ov_bonds' state
+    bytes and seeds and ov_mid's state2 bytes (left in the scratch by a
+    move) bitwise houdn_states_plain / bond_states_plain, and ov_finish or
+    houdn_finish launched alone on the plain version's last graph, every
+    spin bitwise finish_plain."""
+    from peapods_tpu_torch.ops import overlap
+    from peapods_tpu_torch.ops.cluster import connected_components
+
+    lat = _ov_lattice(shape, offsets)
+    x = _ov_inputs(cuda, 57, lat, couplings, offset)
+    d, n_rep, n_temps, n = x["d"], x["n_rep"], x["n_temps"], lat.n_spins
+    tab = _event_inputs(x, d, n_rep, n_temps, n, kind, wolff, 29, g=g)
+    spins = x["spins"]
+    args = (x["sid"], tab[0], x["coup"], x["temps"], *tab[1:])
+    houd = kind == "houdayer"
+    if houd:
+        st, sd = overlap.houdn_states_plain(spins, x["sid"], tab[0], tab[2], wolff=wolff,
+                                            shape=lat)
+        last = st
+    else:
+        st, st2, sd = overlap.bond_states_plain(spins.clone(), *args, kind=kind,
+                                                wolff=wolff, shape=lat)
+        last = st if kind == "jorg" else st2
+    dims, _ = overlap.check_event(spins, *args, lat, kind)
+    scratch = overlap.Scratch(dims[0], n, cuda, kind == "cmr")
+    overlap.launch_event(_build.library(), torch.cuda.current_stream(cuda).cuda_stream,
+                         dims, spins.clone().data_ptr(), *(t.data_ptr() for t in args),
+                         scratch.ptrs(), kind=kind, wolff=wolff, group=g, lattice=lat)
+    torch.cuda.synchronize()
+    assert torch.equal(scratch.state, st)
+    assert torch.equal(scratch.seeds, sd)
+    if kind == "cmr":
+        assert torch.equal(scratch.state2, st2)
+    masks = fk.state_masks(last, lat.n_neighbors)
+    par = connected_components(masks, lat.shape, lat.offsets).to(torch.int32)
+    a, b = _offset_copy(spins, offset), spins.clone()
+    overlap.finish_plain(b, x["sid"], tab[0], tab[1], sd, last, par, kind=kind,
+                         wolff=wolff, shape=lat)
+    per = overlap.ov_per(n, d, n_temps, n_rep // g, fk.resident_threads(cuda.index) // 4,
+                         max(1, overlap.HOUDN_ROWS // g) if houd else overlap.OV_MAX_PER)
+    words = overlap.ov_words(lat.shape, d, n_temps, n_rep // g, n_rep * n_temps, per,
+                             tuple(map(tuple, lat.offsets.tolist())))
+    lib = _build.library()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    if houd:
+        _build.check(lib.peapods_houdn_finish(
+            a.data_ptr(), x["sid"].data_ptr(), tab[0].data_ptr(), tab[1].data_ptr(),
+            last.data_ptr(), par.data_ptr(), sd.data_ptr(), words.ctypes.data, g,
+            int(wolff), stream), "houdn_finish")
+    else:
+        _build.check(lib.peapods_ov_finish(
+            a.data_ptr(), x["sid"].data_ptr(), tab[0].data_ptr(), tab[1].data_ptr(),
+            sd.data_ptr(), last.data_ptr(), par.data_ptr(), words.ctypes.data,
+            overlap.KINDS.index(kind), int(wolff), stream), "ov_finish")
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert not torch.equal(a, spins)
+
+
+@pytest.mark.parametrize("shape,geometry,n_rep,kw", [
+    ((16, 16), "triangular", 4, dict(overlap_cluster_build_mode="cmr+houd4",
+                                     overlap_cluster_mode="sw", collect_cluster_stats=True,
+                                     snapshot_interval=4)),
+    ((8, 8, 8), "bcc", 2, dict(overlap_cluster_build_mode="jorg+cmr",
+                               overlap_cluster_mode="wolff", pt_schedule="full_ladder")),
+    ((8, 8, 8), "fcc", 2, dict(overlap_cluster_build_mode="houdayer+jorg+cmr",
+                               overlap_cluster_mode="sw", overlap_cluster_action="observe")),
+    ((16, 16), [[1, 0], [0, 1], [1, 1], [1, -1]], 2, dict(
+        cluster_update_interval=1, cluster_mode="sw", overlap_cluster_build_mode="jorg+cmr",
+        overlap_cluster_mode="sw", collect_cluster_stats=True)),
+], ids=["tri-cmr+houd4-stats-snapshots", "bcc-jorg+cmr-wolff", "fcc-observe",
+        "nnn-fk-jorg+cmr-stats"])
+def test_overlap_moves_on_lattices_sample_on_card_match_the_cpu(cuda, shape, geometry,
+                                                                n_rep, kw):
+    """The per-sweep replica path with overlap moves off the square and
+    cubic lattices: the kernels on the card and the plain path on the CPU
+    follow one trajectory (+-1 couplings: every energy sum, measure_nb's
+    after each update move too, is an exact integer), with the same
+    records, statistics, observations and snapshots."""
+    from peapods_tpu_torch.ops import overlap
+
+    geo = (dict(geometry=geometry) if isinstance(geometry, str)
+           else dict(neighbor_offsets=geometry))
+    temps = np.geomspace(1.0, 4.0, 4).astype(np.float32)
+    kw = dict(kw, pt_interval=1, overlap_cluster_update_interval=2)
+
+    def model(dev):
+        return Ising(shape, couplings="bimodal", temperatures=temps, n_replicas=n_rep,
+                     n_disorder=2, seed=9, device=dev, **geo)
+
+    a, c = model("cuda"), model("cpu")
+    _reset_move_counts()
+    ra = a.sample(24, **kw)
+    assert overlap.LAUNCHES["ov_bonds"] > 0
+    rc = c.sample(24, **kw)
+    for key in ("spins", "system_ids", "pt_edge_acceptances", "pt_round_trips",
+                "pt_trip_state"):
+        assert torch.equal(a._sim.state[key].cpu(), c._sim.state[key]), key
+    for key in ("energies", "energies2", "mags2", "overlap2", "link_overlap"):
+        np.testing.assert_allclose(ra[key], rc[key], rtol=1e-12, err_msg=key)
+    np.testing.assert_array_equal(np.asarray(ra["overlap_histogram"]),
+                                  np.asarray(rc["overlap_histogram"]))
+    for key in ("overlap_csd", "top_cluster_sizes", "fk_csd"):
+        assert (key in ra) == (key in rc), key
+        for u, v in zip(ra.get(key, []), rc.get(key, [])):
+            np.testing.assert_array_equal(np.asarray(u), np.asarray(v), err_msg=key)
+    oa = ra.get("per_disorder", {}).get("cluster_observations", {})
+    oc = rc.get("per_disorder", {}).get("cluster_observations", {})
+    assert list(oa) == list(oc)
+    for name in oc:
+        for key in oc[name]:
+            np.testing.assert_array_equal(oa[name][key], oc[name][key],
+                                          err_msg=f"{name} {key}")
+    sa, sc = ra.get("cluster_snapshots", []), rc.get("cluster_snapshots", [])
+    assert len(sa) == len(sc)
+    for u, v in zip(sa, sc):
+        for key in v:
+            np.testing.assert_array_equal(u[key], v[key], err_msg=key)

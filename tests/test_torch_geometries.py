@@ -450,13 +450,15 @@ def test_geometry_api_matches_reference():
     (dict(lattice_shape=(4, 4, 4), geometry="bcc", n_replicas=2),
      dict(cluster_update_interval=1, cluster_mode="sw"), None),
     (dict(lattice_shape=(4, 5), geometry="tri"), None, "4a"),
+    # the overlap moves run on the triangular lattice (item 7d)
     (dict(lattice_shape=(4, 4), geometry="tri", n_replicas=2),
-     dict(overlap_cluster_update_interval=1), "7d"),
+     dict(overlap_cluster_update_interval=1), None),
 ], ids=["replicas-tri", "sw-bcc", "odd-extents", "overlap-tri"])
 def test_out_of_slice_geometry_options_raise(kwargs, sample, item):
     """Options outside the slice raise, naming the ROADMAP item; replicas on
-    the triangular and BCC lattices run (item 7a): the pair records over
-    the lattice's offsets, q_l a mean over n_spins * n_neighbors bonds."""
+    the triangular and BCC lattices run (item 7a), with overlap moves too
+    (item 7d): the pair records over the lattice's offsets, finite, q_l a
+    mean over n_spins * n_neighbors bonds."""
     if item is not None:
         match = f"ROADMAP.md, queue 1, item {item}"
         with pytest.raises(NotImplementedError, match=match):

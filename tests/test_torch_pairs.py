@@ -440,9 +440,10 @@ def test_overlap_needs_enough_replicas():
     m = Ising((4, 4), temperatures=[2.0], seed=1, device="cpu")
     with pytest.raises(ValueError, match="n_replicas >= max group_size"):
         m.sample(4, overlap_cluster_update_interval=1)
-    # replicas run on every lattice; their overlap moves on the square and
-    # cubic ones only
+    # replicas and their overlap moves run on every lattice
     m = Ising((4, 4, 4), geometry="fcc", temperatures=[2.0], n_replicas=2, seed=1,
               device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 7d"):
-        m.sample(4, overlap_cluster_update_interval=1)
+    r = m.sample(4, overlap_cluster_update_interval=1)
+    assert np.asarray(r["overlap_histogram"]).sum() == 3  # recorded sweeps x pairs x T
+    for key in ("energies", "overlap2", "link_overlap"):
+        assert np.isfinite(r[key]).all(), key
