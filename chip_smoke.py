@@ -108,7 +108,20 @@ through the user's entry points:
   checksums, sanity, the snapshots' entries), each run's device time a
   sweep and busy share over a profiled window, and ``pair_overlap`` over
   each lattice's offsets on the run's state against its plain version,
-  its time a launch beside its bound.
+  its time a launch beside its bound;
+* autocorrelation, the equilibration diagnostic, checkpoints and the
+  physics scripts (phase 35): the flagship with
+  ``autocorrelation_max_lag=1000`` and ``equilibration_diagnostic=True``
+  (its launches and checksum unchanged, the taus and ``equil_*`` of the
+  reference's shapes, the rate with the options on and off, the fold's
+  device time a chunk), the ring and fft backends at config 5 and config
+  3 (taus within 1e-10, each checksum that of the run without the
+  options), a 64^2 run on the card bitwise the CPU's (taus and ``equil_*``
+  within 1e-12, or the sweep where they part held to ulp ties), the
+  flagship saved after 2048 sweeps and resumed bitwise the uninterrupted
+  run (the file loading on the CPU too), and
+  ``tests/autocorrelation_scaling.py`` and ``tests/overlap_histogram.py``
+  through ``tools/physics_torch.py``, each passing its own assertions.
 
 Each path's launch counts are zeroed just before its main run and read just
 after.  Every phase prints lines; any failure raises and the script exits
@@ -642,13 +655,14 @@ def kernel_share(sim, sweeps_s, n=512):
         f"sweep: the device is busy {busy:.3f} of it")
 
 
-def warm_rates(sim, calls=3):
-    """Sweeps/s of ``calls`` further flagship sample() calls (host clock)."""
+def warm_rates(sim, calls=3, **kw):
+    """Sweeps/s of ``calls`` further flagship sample() calls (host clock),
+    with the sample() options ``kw``."""
     rates = []
     for _ in range(calls):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sim.sample(FLAGSHIP_SWEEPS, "metropolis", pt_interval=1, warmup_ratio=0.0)
+        sim.sample(FLAGSHIP_SWEEPS, "metropolis", pt_interval=1, warmup_ratio=0.0, **kw)
         torch.cuda.synchronize()
         rates.append(FLAGSHIP_SWEEPS / (time.perf_counter() - t0))
     return rates
@@ -5266,6 +5280,380 @@ def add_space_records(kernels, sp):
             run=name))
 
 
+# ------------------------------- 4b / 4c: autocorrelation, checkpoints, physics
+
+AC_KW = dict(autocorrelation_max_lag=1000, equilibration_diagnostic=True)
+AC_TOL = 1e-10  # ring against fft
+TWIN = dict(shape=(64, 64), n_temps=8, sweeps=512)  # the card against the CPU
+TWIN_TOL = 1e-12
+AC_CONFIG3_SWEEPS = 1024
+PHYSICS_SCRIPTS = ("autocorrelation_scaling", "overlap_histogram")
+
+
+def full_state(sim) -> dict:
+    """The state in the reference's numpy form (spins gathered)."""
+    from peapods_tpu_torch.engine import convert
+
+    return convert.to_reference({**sim.state, "spins": sim.all_spins()})
+
+
+def same_state(a: dict, b: dict) -> list:
+    """The keys where two states in numpy form differ."""
+    return [k for k in a if not np.array_equal(a[k], b[k])]
+
+
+def series_gap(a, b) -> float:
+    """The largest difference of two results' taus and equil_* values,
+    relative to each value's size (at least 1)."""
+    gap = 0.0
+    for k in ("mags2_tau", "overlap2_tau", "equil_sweeps", "equil_energy_avg",
+              "equil_link_overlap_avg"):
+        if k not in a:
+            continue
+        x, y = np.asarray(a[k], np.float64), np.asarray(b[k], np.float64)
+        gap = max(gap, float((np.abs(x - y) / np.maximum(np.abs(y), 1.0)).max()))
+    return gap
+
+
+def fold_chunk_ms(sim, reps=20):
+    """Device ms of one ``_fold_series`` of a 256-sweep flagship chunk (the
+    ring with lag 1000 and the equilibration sums), without and with an
+    equilibration checkpoint in the chunk (CUDA events)."""
+    from peapods_tpu_torch.engine import loop
+    from peapods_tpu_torch.engine.config import SimConfig
+
+    rt, n = sim.rt, sim.default_chunk
+    cfg = SimConfig(n_sweeps=FLAGSHIP_SWEEPS, **AC_KW)
+    acc = loop.init_accumulators(rt, cfg)
+    g = torch.Generator(device=rt.device).manual_seed(1)
+    e = torch.rand((1, n, N_TEMPS), device=rt.device, generator=g) * 2
+    m = torch.randint(-L * L, L * L, (1, n, N_TEMPS), device=rt.device,
+                      generator=g, dtype=torch.int32)
+    out = {}
+    for label, s in (("no checkpoint", 1280), ("a checkpoint", 1920)):
+        out[label] = gpu_ms(lambda: loop._fold_series(rt, {"warmup": 0}, acc, e, m, None,
+                                                      s, n), reps)
+    return out
+
+
+def fold_host_ms(sim):
+    """Host ms of the fold a chunk and of building the results (the taus)
+    a call, over one flagship call with both options (host clock around
+    ``loop._fold_series`` and ``simulation.finalize``)."""
+    from peapods_tpu_torch.engine import loop, simulation
+
+    spent = {"fold": [], "results": []}
+
+    def timed(fn, key):
+        def run(*args, **kw):
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            spent[key].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    saved = loop._fold_series, simulation.finalize
+    loop._fold_series = timed(saved[0], "fold")
+    simulation.finalize = timed(saved[1], "results")
+    try:
+        sim.sample(FLAGSHIP_SWEEPS, "metropolis", pt_interval=1, warmup_ratio=0.0, **AC_KW)
+    finally:
+        loop._fold_series, simulation.finalize = saved
+    return {k: 1e3 * float(np.mean(v)) for k, v in spent.items()}
+
+
+def ac_flagship(dev, card):
+    """Phase 35a: the flagship at full width with both 4b options on (one
+    ``mega_resident`` launch a chunk, the flagship's checksum), the taus and
+    ``equil_*`` of the reference's shapes, the rate with the options on and
+    off in this run, and the fold's device time a chunk."""
+    from peapods_tpu_torch import IsingSimulation
+    from peapods_tpu_torch.ops import mega
+
+    temps = np.geomspace(1.8, 3.2, N_TEMPS).astype(np.float32)
+    coup = np.ones((L, L, 2), np.float32)
+    sim = IsingSimulation([L, L], coup, temps, 1, None, SEED, device=dev)
+    mega.reset_launches()
+    result = sim.sample(FLAGSHIP_SWEEPS, "metropolis", pt_interval=1, warmup_ratio=0.0,
+                        **AC_KW)
+    launches = dict(mega.LAUNCHES)
+    want = {"colour_pass": 0, "pt_step": 0,
+            "mega_resident": -(-FLAGSHIP_SWEEPS // sim.default_chunk)}
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} with the 4b options, expected {want}")
+    check = state_checksum(sim, result)
+    if check != FLAGSHIP_CHECKSUM:
+        raise AssertionError(f"flagship checksum {check} with the 4b options, expected "
+                             f"{FLAGSHIP_CHECKSUM}")
+    cks = [128 << k for k in range(32) if 128 << k < FLAGSHIP_SWEEPS] + [FLAGSHIP_SWEEPS]
+    shapes = {"mags2_tau": (N_TEMPS,), "equil_sweeps": (len(cks),),
+              "equil_energy_avg": (len(cks), N_TEMPS),
+              "equil_link_overlap_avg": (len(cks), N_TEMPS)}
+    for k, shape in shapes.items():
+        x = result[k]
+        if x.shape != shape or not np.isfinite(x).all():
+            raise AssertionError(f"{k}: shape {x.shape} (want {shape}), finite "
+                                 f"{np.isfinite(x).all()}")
+    if "overlap2_tau" in result or result["equil_sweeps"].tolist() != cks:
+        raise AssertionError(f"keys {sorted(result)}, checkpoints {result['equil_sweeps']}")
+    if result["equil_sweeps"].dtype != np.uint64 or result["mags2_tau"].dtype != np.float64:
+        raise AssertionError("the 4b keys' dtypes differ from the reference's")
+    if (result["equil_link_overlap_avg"] != 0).any():
+        raise AssertionError("q_l of a run without replica pairs is not 0")
+    on, off = warm_rates(sim, **AC_KW), warm_rates(sim)
+    on += warm_rates(sim, **AC_KW)
+    off += warm_rates(sim)
+    fold = fold_chunk_ms(sim)
+    host = fold_host_ms(sim)
+    tau = result["mags2_tau"]
+    rate_on, rate_off = float(np.median(on)), float(np.median(off))
+    log("35 4b flagship", f"{FLAGSHIP_SWEEPS} sweeps with autocorrelation_max_lag=1000 "
+        f"(lag {min(1000, FLAGSHIP_SWEEPS // 4)}) and equilibration_diagnostic: launches "
+        f"{launches}, checksum {check} == FLAGSHIP_CHECKSUM; mags2_tau[0, -1] = "
+        f"{tau[0]:.4f}, {tau[-1]:.4f}; equil_sweeps {cks}; equil_energy_avg[-1, 0] = "
+        f"{result['equil_energy_avg'][-1, 0]:.6f} (energies[0] {result['energies'][0]:.6f})")
+    log("35 4b flagship", f"sweeps/s with the options {rate_on:.1f} (calls "
+        f"{', '.join(f'{r:.1f}' for r in on)}), without {rate_off:.1f} (calls "
+        f"{', '.join(f'{r:.1f}' for r in off)}): {rate_on / rate_off:.4f}; the fold's "
+        f"device ms a 256-sweep chunk: {fold['no checkpoint']:.5f} (with an equilibration "
+        f"checkpoint {fold['a checkpoint']:.5f}); host ms: the fold {host['fold']:.4f} a "
+        f"chunk, the results (the taus of lag 1000) {host['results']:.4f} a call, on {card}")
+    return dict(rate_on=rate_on, rate_off=rate_off, rates_on=on, rates_off=off,
+                fold_ms=fold, host_ms=host, launches=launches, mags2_tau=tau.tolist())
+
+
+def ac_backends(dev, card):
+    """Phase 35b: ring against fft on one seed at config 5's shape (the
+    replica path: ``overlap2_tau`` too) and on config 3 (the per-sweep SW
+    path); each run's checksum equals the run without the options."""
+    from peapods_tpu_torch import Ising
+
+    out = {}
+    c5 = SG_CONFIGS["config5"]
+    cases = {
+        "config5": (lambda: sg_model("config5", dev), dict(c5["kw"]), c5["sweeps"],
+                    pair_checksum),
+        "config3": (lambda: Ising((L, L), temperatures=np.array([T_C], np.float32), seed=3,
+                                  device=dev),
+                    dict(cluster_update_interval=1, cluster_mode="sw", warmup_ratio=0.25),
+                    AC_CONFIG3_SWEEPS, state_checksum),
+    }
+    for name, (make, kw, n, checksum) in cases.items():
+        runs, checks = {}, {}
+        for backend in ("ring", "fft", None):
+            model = make()
+            opts = {} if backend is None else dict(AC_KW, autocorrelation_backend=backend)
+            runs[backend] = model.sample(n, "metropolis", **kw, **opts)
+            checks[backend] = checksum(model._sim, runs[backend])
+        if len(set(checks.values())) != 1:
+            raise AssertionError(f"{name}: checksums {checks} (ring, fft, off)")
+        ring, fft = runs["ring"], runs["fft"]
+        taus = [k for k in ("mags2_tau", "overlap2_tau") if k in ring]
+        if taus != (["mags2_tau", "overlap2_tau"] if name == "config5" else ["mags2_tau"]):
+            raise AssertionError(f"{name}: taus {taus}")
+        gap = max(float(np.abs(ring[k] - fft[k]).max()) for k in taus)
+        eq_same = all(np.array_equal(ring[k], fft[k]) for k in ring if k.startswith("equil"))
+        if not gap <= AC_TOL or not eq_same:
+            raise AssertionError(f"{name}: ring against fft {gap} (tol {AC_TOL}), equil "
+                                 f"equal {eq_same}")
+        out[name] = dict(gap=gap, checksum=checks[None],
+                         **{k: ring[k].tolist() for k in taus})
+        log("35 4b backends", f"{name} ({n} sweeps): ring and fft taus within {gap:.3e} "
+            f"(tol {AC_TOL}), equil_* equal; checksum {checks[None]} with either backend "
+            f"and without the options; " + ", ".join(
+                f"{k}[0, -1] = {ring[k][0]:.4f}, {ring[k][-1]:.4f}" for k in taus))
+    return out
+
+
+def twin_tie(dev, make):
+    """After the card's run parted from the CPU's: step fresh simulations on
+    both one sweep at a time to the first sweep where they part, and hold
+    its colour passes (the CPU's plain passes) to ulp ties.  Raises if a
+    spin differs away from a tie; returns ``(sweep, ties)``."""
+    from peapods_tpu_torch.engine import convert, loop, seeds
+    from peapods_tpu_torch.engine.config import SimConfig
+    from peapods_tpu_torch.ops import mega
+
+    cpu = torch.device("cpu")
+    on_card, on_cpu = make(dev), make(cpu)
+    cfg = SimConfig(n_sweeps=TWIN["sweeps"], pt_interval=1)
+    for t in range(TWIN["sweeps"]):
+        before = full_state(on_cpu)
+        for sim in (on_card, on_cpu):
+            loop.run_chunk(sim.rt, cfg, sim.state, loop.init_accumulators(sim.rt, cfg),
+                           t, 1)
+        a, b = full_state(on_card), full_state(on_cpu)
+        if not same_state(a, b):
+            continue
+        rt = on_cpu.rt
+        st = convert.from_reference(before, cpu)
+        d = rt.n_disorder
+        sid = st["system_ids"].view(d, -1)
+        words = torch.from_numpy(seeds.sweep_words(before["base_keys"], t, 1,
+                                                   seeds.PH_SWEEP))[0]
+        x = dict(rt=rt, sid=sid, grid=st["spins"].view(d, -1, *rt.lattice.shape).clone())
+        tie = None
+        for colour in (0, 1):
+            here = colour_ties(x, words, colour)
+            tie = here if tie is None else tie | here
+            mega.colour_pass_plain(x["grid"], rt.jgrids, sid, rt.slot_temps, words,
+                                   colour, gibbs=False)
+        di = torch.arange(d)[:, None]
+        card = torch.from_numpy(a["spins"]).view_as(x["grid"])[di, sid.long()]
+        diff = card != x["grid"][di, sid.long()]
+        if (diff & ~tie).any():
+            raise AssertionError(f"the card parts from the CPU at sweep {t}: "
+                                 f"{int((diff & ~tie).sum())} spins away from ulp ties")
+        ties = int(diff.sum())
+        if ties == 0:
+            raise AssertionError(f"the card parts from the CPU at sweep {t} in "
+                                 f"{same_state(a, b)} without an ulp tie")
+        return t, ties
+    raise AssertionError("the card's run parts from the CPU's, but no single sweep does")
+
+
+def ac_twin(dev, card):
+    """Phase 35c: a short run with both options on the card and on the CPU
+    (the plain torch path), bitwise, its taus and equil_* then within
+    TWIN_TOL; when the runs part, the sweep where they part is held to ulp
+    ties (not compared past it)."""
+    from peapods_tpu_torch import IsingSimulation
+
+    temps = np.geomspace(1.8, 3.2, TWIN["n_temps"]).astype(np.float32)
+    coup = np.random.default_rng(35).choice([-1.0, 1.0], (*TWIN["shape"], 2)).astype(
+        np.float32)
+
+    def make(x):
+        return IsingSimulation(list(TWIN["shape"]), coup, temps, 1, None, SEED, device=x)
+
+    kw = dict(pt_interval=1, warmup_ratio=0.25, **AC_KW)
+    res, states, secs = {}, {}, {}
+    for where, x in (("card", dev), ("cpu", torch.device("cpu"))):
+        sim = make(x)
+        t0 = time.perf_counter()
+        res[where] = sim.sample(TWIN["sweeps"], "metropolis", **kw)
+        secs[where] = time.perf_counter() - t0
+        states[where] = full_state(sim)
+    bad = same_state(states["card"], states["cpu"])
+    if bad:
+        t, ties = twin_tie(dev, make)
+        log("35 4b twin", f"the card's run parts from the CPU's at sweep {t} on {ties} ulp "
+            f"ties (in {bad}); taus not compared past it")
+        return dict(bitwise=False, tie_sweep=t, ties=ties)
+    gap = series_gap(res["card"], res["cpu"])
+    if not gap <= TWIN_TOL:
+        raise AssertionError(f"card against CPU: the taus and equil_* differ by {gap}")
+    log("35 4b twin", f"{TWIN['shape'][0]}^2 x {TWIN['n_temps']} temperatures, "
+        f"{TWIN['sweeps']} sweeps, both options: the card's state bitwise the CPU's (0 ulp "
+        f"ties), its taus and equil_* within {gap:.3e} (tol {TWIN_TOL}); {secs['card']:.2f} "
+        f"s on the card, {secs['cpu']:.2f} s on the CPU ({card})")
+    return dict(bitwise=True, gap=gap, ties=0)
+
+
+def ac_checkpoints(dev, card, tmp):
+    """Phase 35d: the flagship saved after 2048 sweeps, loaded into a fresh
+    simulation and run 2048 more, bitwise the uninterrupted 4096-sweep run;
+    the card's file loads on the CPU."""
+    from peapods_tpu_torch import IsingSimulation
+
+    temps = np.geomspace(1.8, 3.2, N_TEMPS).astype(np.float32)
+    coup = np.ones((L, L, 2), np.float32)
+    kw = dict(pt_interval=1, warmup_ratio=0.0)
+
+    def make(x=dev):
+        return IsingSimulation([L, L], coup, temps, 1, None, SEED, device=x)
+
+    whole = make()
+    r = whole.sample(FLAGSHIP_SWEEPS, "metropolis", **kw)
+    if state_checksum(whole, r) != FLAGSHIP_CHECKSUM:
+        raise AssertionError("the uninterrupted flagship run's checksum")
+    half = make()
+    half.sample(FLAGSHIP_SWEEPS // 2, "metropolis", **kw)
+    path = f"{tmp}/flagship.npz"
+    t0 = time.perf_counter()
+    half.save_checkpoint(path)
+    save_s = time.perf_counter() - t0
+    on_cpu = make(torch.device("cpu"))
+    on_cpu.load_checkpoint(path)
+    bad = same_state(full_state(on_cpu), full_state(half))
+    if bad:
+        raise AssertionError(f"the card's checkpoint loads on the CPU with {bad} changed")
+    resumed = make()
+    t0 = time.perf_counter()
+    resumed.load_checkpoint(path)
+    load_s = time.perf_counter() - t0
+    resumed.sample(FLAGSHIP_SWEEPS // 2, "metropolis", **kw)
+    bad = same_state(full_state(resumed), full_state(whole))
+    if bad:
+        raise AssertionError(f"the resumed flagship differs from the uninterrupted run in "
+                             f"{bad}")
+    import os
+
+    size = os.path.getsize(path)
+    log("35 4c checkpoints", f"the flagship saved after {FLAGSHIP_SWEEPS // 2} sweeps "
+        f"({size} B, {1e3 * save_s:.1f} ms), loaded into a fresh simulation "
+        f"({1e3 * load_s:.1f} ms) and run {FLAGSHIP_SWEEPS // 2} more: bitwise the "
+        f"uninterrupted {FLAGSHIP_SWEEPS}-sweep run; the file loads on the CPU bitwise "
+        f"({card})")
+    return dict(bytes=size, save_ms=1e3 * save_s, load_ms=1e3 * load_s)
+
+
+def ac_physics(dev, card):
+    """Phase 35e: ``tests/autocorrelation_scaling.py`` and
+    ``tests/overlap_histogram.py`` with ``quick=True`` through
+    ``tools/physics_torch.py`` on the card, each passing its own
+    assertions; the tau ratio, the final Delta and the seconds."""
+    import contextlib
+    import importlib.util
+    import io
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parent
+    spec = importlib.util.spec_from_file_location("physics_torch",
+                                                  root / "tools" / "physics_torch.py")
+    runner = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(runner)
+    saved = {k: sys.modules.get(k) for k in ("peapods_tpu", "peapods_tpu.sweep")}
+    runner.install(dev.type)
+    out = {}
+    try:
+        for name in PHYSICS_SCRIPTS:
+            buf = io.StringIO()
+            try:
+                with contextlib.redirect_stdout(buf):
+                    secs = runner.run_one(name)
+            finally:
+                text = buf.getvalue()
+                for line in text.splitlines():
+                    if line.strip() and not line.startswith("==="):
+                        log("35 physics", f"{name}: {line.strip()}")
+            found = re.search(r"ratio: ([0-9.]+)" if name == "autocorrelation_scaling"
+                              else r"final Delta = (-?[0-9.]+)", text)
+            out[name] = dict(seconds=secs, value=float(found.group(1)) if found else None)
+            log("35 physics", f"{name} passed its own assertions in {secs:.1f} s: "
+                + ("tau(64) / tau(32) = " if name == "autocorrelation_scaling"
+                   else "final Delta = ") + f"{out[name]['value']} on {card}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                sys.modules.pop(k, None)
+            else:
+                sys.modules[k] = v
+    return out
+
+
+def ac_phase(dev, card):
+    """Phase 35: 4b, 4c and the physics scripts on the card."""
+    import tempfile
+
+    out = {"flagship": ac_flagship(dev, card), "backends": ac_backends(dev, card),
+           "twin": ac_twin(dev, card)}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["checkpoints"] = ac_checkpoints(dev, card, tmp)
+    out["physics"] = ac_physics(dev, card)
+    return out
+
+
 def ptxas_entries(text):
     """``(library, None, 0, 0, 0)`` for each library the ``ptxas -v`` log
     of the build names, then ``(None, kernel, registers, shared bytes,
@@ -5448,6 +5836,10 @@ def main():
 
     # the overlap moves on the triangular, BCC, FCC and NNN lattices
     ovl = ov_lattices(dev, card)
+
+    # autocorrelation, the equilibration diagnostic, checkpoints and the
+    # physics scripts
+    ac = ac_phase(dev, card)
 
     mega_src = "peapods_tpu_torch/csrc/mega.cu"
     mega_replaces = "peapods_tpu/ops/pallas_mega.py:96"

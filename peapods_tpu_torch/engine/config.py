@@ -40,8 +40,6 @@ AC_BACKENDS = ("ring", "fft")
 # ROADMAP.md, queue 1 ("Modules to port"): the item that brings each option
 _ROADMAP_ITEMS = {
     "4a": "item 4a, the per-sweep path for other lattices",
-    "4b": "item 4b, autocorrelation and the equilibration diagnostic",
-    "4c": "item 4c, checkpoints",
     "9": "item 9, multi-GPU",
 }
 
@@ -173,9 +171,9 @@ class SimConfig:
     pt_interval: int | None = None
     pt_schedule: str = "single_random_edge"
     overlap_cluster: OverlapClusterConfig | None = None
-    # the port runs no autocorrelation yet (any max lag raises item 4b), so
-    # "fft" always lacks its max lag
+    autocorrelation_max_lag: int | None = None
     autocorrelation_backend: str = "ring"
+    equilibration_diagnostic: bool = False
 
     def validate(self) -> None:
         """Cross-field validation, mirroring config.rs:180-247."""
@@ -191,7 +189,10 @@ class SimConfig:
                 raise ValueError("cluster_action='observe' requires cluster_mode='sw'")
         if self.pt_interval is not None and self.pt_interval == 0:
             raise ValueError("pt_interval must be >= 1")
-        if self.autocorrelation_backend == "fft":
+        if (
+            self.autocorrelation_backend == "fft"
+            and self.autocorrelation_max_lag is None
+        ):
             raise ValueError(
                 "autocorrelation_backend='fft' requires autocorrelation_max_lag"
             )

@@ -5,6 +5,12 @@ threefry keys; in numpy form (``np.asarray`` of every entry, and
 ``jax.random.key_data(base_keys)`` under ``base_keys``) it maps one to one
 onto the port's state, whose spins and PT tensors live on a torch device.
 With these two functions the tests put the same state into both engines.
+
+:func:`write_checkpoint` and :func:`read_checkpoint` write and read the
+checkpoint file of both engines (peapods_tpu/engine/simulation.py:
+213-252): an ``.npz`` of the state's arrays in this layout but
+``base_keys``, with ``__constructor_seed`` and the key data as
+``__key_data``.
 """
 
 from __future__ import annotations
@@ -12,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["from_reference", "to_reference"]
+__all__ = ["from_reference", "to_reference", "write_checkpoint", "read_checkpoint"]
 
 _DEVICE_KEYS = ("spins", "system_ids", "pt_edge_attempts",
                 "pt_edge_acceptances", "pt_round_trips", "pt_trip_state")
@@ -30,8 +36,27 @@ def from_reference(ref: dict, device) -> dict:
 
 def to_reference(state: dict) -> dict:
     """The port's state as numpy, in the reference's layout (``base_keys``
-    as key data)."""
-    out = {k: state[k].cpu().numpy() for k in _DEVICE_KEYS}
+    as key data): copies, which the run does not change."""
+    out = {k: state[k].cpu().numpy().copy() for k in _DEVICE_KEYS}
     out.update({k: np.int32(state[k]) for k in _HOST_KEYS})
     out["base_keys"] = np.asarray(state["base_keys"], np.uint32).copy()
     return out
+
+
+def write_checkpoint(path, ref: dict, constructor_seed: int) -> None:
+    """Write the state ``ref`` (the reference's numpy form) to ``path``."""
+    flat = {k: np.asarray(v) for k, v in ref.items() if k != "base_keys"}
+    flat["__constructor_seed"] = np.int64(constructor_seed)
+    flat["__key_data"] = np.asarray(ref["base_keys"], np.uint32)
+    np.savez(path, **flat)
+
+
+def read_checkpoint(path) -> tuple[dict, int]:
+    """The state in the reference's numpy form (0-d entries as numpy
+    scalars, ``base_keys`` as key data) and the constructor seed of the
+    file at ``path``."""
+    with np.load(path) as data:
+        ref = {k: (data[k] if data[k].ndim else data[k][()]) for k in data.files
+               if not k.startswith("__")}
+        ref["base_keys"] = np.asarray(data["__key_data"], np.uint32).copy()
+        return ref, int(data["__constructor_seed"])

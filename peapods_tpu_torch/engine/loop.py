@@ -40,8 +40,9 @@ from ..ops.overlap import KINDS, gather_tasks
 from ..ops.sweep import pack_coupling_grids, sweep_2d, sweep_nb
 from ..ops.tempering import hot_cold_slots, pt_draws_pairs
 from . import seeds
+from ..utils.autocorr import AutocorrStream, clamp_max_lag
 from .config import SimConfig
-from .records import N_FK_OBS, N_REC, REC, link_bonds
+from .records import N_EQ_SLOTS, N_FK_OBS, N_REC, REC, SERIES, link_bonds
 
 __all__ = ["Runtime", "SpaceRuntime", "init_accumulators", "run_chunk",
            "run_chunk_sweeps", "run_chunk_space", "run_chunk_pairs"]
@@ -179,6 +180,20 @@ def init_accumulators(rt: Runtime, cfg: SimConfig) -> dict:
     add per kind used ``ov_obs_<kind>`` (as ``fk_obs``) and
     ``winding_errors``.
 
+    With ``autocorrelation_max_lag`` (clamped to a quarter of the recorded
+    sweeps, ``lag``) the series m2_ac (and q2_ac with replica pairs: ``c``
+    series) of the recorded sweeps feed, on the ``ring`` backend, the
+    lagged-product sums ``ac_sum_prod`` f64 ``[lag + 1, c d T]`` (rows by
+    lag, features ``[c, d, T]``), ``ac_sum`` / ``ac_sum2`` f64 ``[c d T]``,
+    the last ``lag`` values ``ac_hist`` f64 ``[lag, c d T]`` (zeros before
+    the first) and their count ``ac_count``; on the ``fft`` backend the
+    host streams ``ac_stream`` (m2_ac) and ``ac_stream_q`` (q2_ac), each an
+    :class:`~peapods_tpu_torch.utils.autocorr.AutocorrStream` over ``d T``
+    features.  The equilibration diagnostic keeps the sums of diag_e and
+    diag_ql over every sweep ``eq_sum`` f64 ``[d, 2, T]`` and their means
+    at the sweep counts 128 * 2**k ``eq_ckpt`` f64 ``[N_EQ_SLOTS, d, 2,
+    T]`` (the reference's shapes, loop.py:1099-1115).
+
     They accumulate on the device in float64 / int64, where the reference
     keeps Kahan-compensated f32 pairs (peapods_tpu/engine/loop.py:99-104)
     and int32 only because the TPU has no 64-bit types; the ql sums stay
@@ -216,6 +231,23 @@ def init_accumulators(rt: Runtime, cfg: SimConfig) -> dict:
                 acc[f"ov_obs_{kind}"] = torch.zeros((d, T, N_FK_OBS),
                                                     dtype=torch.int64, **z)
             acc["winding_errors"] = torch.zeros(1, dtype=torch.int32, **z)
+    if cfg.autocorrelation_max_lag is not None:
+        lag = clamp_max_lag(cfg.autocorrelation_max_lag,
+                            cfg.n_sweeps - cfg.warmup_sweeps)
+        f = (2 if rt.n_pairs else 1) * d * rt.n_temps
+        if cfg.autocorrelation_backend == "fft":
+            acc["ac_stream"] = AutocorrStream(lag, d * rt.n_temps, "fft")
+            if rt.n_pairs:
+                acc["ac_stream_q"] = AutocorrStream(lag, d * rt.n_temps, "fft")
+        else:
+            z = dict(dtype=torch.float64, device=rt.device)
+            acc.update(ac_sum_prod=torch.zeros((lag + 1, f), **z),
+                       ac_sum=torch.zeros(f, **z), ac_sum2=torch.zeros(f, **z),
+                       ac_hist=torch.zeros((lag, f), **z), ac_count=0)
+    if cfg.equilibration_diagnostic:
+        z = dict(dtype=torch.float64, device=rt.device)
+        acc["eq_sum"] = torch.zeros((d, 2, rt.n_temps), **z)
+        acc["eq_ckpt"] = torch.zeros((N_EQ_SLOTS, d, 2, rt.n_temps), **z)
     return acc
 
 
@@ -281,6 +313,89 @@ def _fold_pairs(rt: Runtime, state: dict, acc: dict, qs, ql, s_begin: int,
     acc["ql2_at_q"].view(-1).index_add_(0, idx, (ql_i * ql_i).reshape(-1))
 
 
+# the largest temporary of the ring's fold (the lag range is split to keep
+# each window product under it)
+FOLD_BYTES = 256 << 20
+
+
+def _series(rt: Runtime, e, m, pair_rows, n: int) -> torch.Tensor:
+    """The chunk's series (``records.SERIES``) per sweep and temperature,
+    f64 ``[N_SERIES, d, n, T]`` holding f32 values (the reference's series
+    are f32, utils/autocorr.py:48): the replica means of (m / N)^2 and e,
+    and with replica pairs the pair means of q^2 and q_l (else 0)
+    (peapods_tpu/engine/loop.py:2645-2662, :3070-3110, :3345-3407)."""
+    d, R, T = rt.n_disorder, rt.n_replicas, rt.n_temps
+    f64 = torch.float64
+    m_rt = m.reshape(d, n, R, T).to(f64) / rt.n_spins
+    rows = [(m_rt * m_rt).sum(2) / R, None,
+            e.reshape(d, n, R, T).to(f64).sum(2) / R, None]
+    if pair_rows is None:
+        rows[1] = rows[3] = torch.zeros_like(rows[0])
+    else:
+        P = rt.n_pairs
+        q = pair_rows[0].reshape(d, n, P, T).to(f64) / rt.n_spins
+        rows[1] = (q * q).sum(2) / P
+        rows[3] = (pair_rows[1].reshape(d, n, P, T).to(f64)
+                   / link_bonds(rt.lattice)).sum(2) / P
+    return torch.stack(rows).to(torch.float32).to(f64)
+
+
+def _fold_ring(acc: dict, o) -> None:
+    """Add a block of recorded values ``o`` f64 ``[k, F]`` to the ring's
+    sums (``AutocorrStream.push_block``'s ring, in one product a piece of
+    the lag range): value j of the block times the value ``delta`` before
+    it, which is 0 where fewer than ``delta`` values were recorded before
+    (the history's leading zeros)."""
+    k, f = o.shape
+    lag = acc["ac_hist"].shape[0]
+    acc["ac_sum"] += o.sum(0)
+    acc["ac_sum2"] += (o * o).sum(0)
+    ext = torch.cat([acc["ac_hist"], o])  # [lag + k, F]
+    # reversed: window delta of ext's reverse, against o's reverse, pairs
+    # o[j] with ext[lag + j - delta]
+    win = ext.flip(0).unfold(0, k, 1)  # [lag + 1, F, k]
+    o_rev = o.flip(0).t()  # [F, k]
+    step = max(1, FOLD_BYTES // (8 * f * k))
+    for a in range(0, lag + 1, step):
+        acc["ac_sum_prod"][a:a + step] += (win[a:a + step] * o_rev).sum(-1)
+    acc["ac_hist"] = ext[k:].clone()
+    acc["ac_count"] += k
+
+
+def _fold_series(rt: Runtime, state: dict, acc: dict, e, m, pair_rows,
+                 s_begin: int, n: int) -> None:
+    """Fold the series of sweeps ``s_begin .. s_begin + n - 1`` (the
+    reference's ``ac_equil_block``, peapods_tpu/engine/loop.py:1153-1231):
+    the recorded sweeps' m2_ac (and q2_ac) into the ring's sums or, on the
+    fft backend, into the host streams (one copy a chunk); every sweep's
+    diag_e and diag_ql, warmup included (mod.rs:511,531), into the
+    equilibration sums, whose means are kept at the sweep counts 128 * 2**k.
+    Products and sums in f64 on the device; no state is read but the
+    warmup, none written."""
+    if not ("eq_sum" in acc or "ac_sum" in acc or "ac_stream" in acc):
+        return
+    vals = _series(rt, e, m, pair_rows, n)
+    c = 2 if rt.n_pairs else 1
+    lo = max(0, int(state["warmup"]) - s_begin)
+    if lo < n and "ac_sum" in acc:
+        _fold_ring(acc, vals[:c, :, lo:].permute(2, 0, 1, 3).reshape(n - lo, -1))
+    if lo < n and "ac_stream" in acc:
+        block = vals[:c, :, lo:].to(torch.float32).cpu().numpy()  # [c, d, k, T]
+        for i, key in enumerate(("ac_stream", "ac_stream_q")[:c]):
+            acc[key].push_block(block[i].transpose(1, 0, 2).reshape(n - lo, -1))
+    if "eq_sum" in acc:
+        dv = vals[SERIES["diag_e"]:].permute(2, 1, 0, 3)  # [n, d, 2, T]
+        # the sweep counts 128 * 2**k that end in the chunk (indexed by host
+        # integers: an index tensor's upload would wait for the device)
+        ends = [j for j in range(N_EQ_SLOTS) if s_begin < 128 << j <= s_begin + n]
+        if ends:
+            run = torch.cumsum(dv, 0)
+            for j in ends:
+                count = 128 << j
+                acc["eq_ckpt"][j] = (acc["eq_sum"] + run[count - s_begin - 1]) / count
+        acc["eq_sum"] += dv.sum(0)
+
+
 def run_chunk(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
               s_begin: int, n: int) -> None:
     """Run sweeps ``s_begin .. s_begin + n - 1`` of a sample() call,
@@ -336,6 +451,7 @@ def run_chunk(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
     state["counter"] = np.int32(counter + n)
     state["pt_parity"] = np.int32(parity)
     _fold_records(rt, state, acc, e, m, s_begin, n)
+    _fold_series(rt, state, acc, e, m, None, s_begin, n)
 
 
 def _sweeps_with_pairs(cfg: SimConfig) -> bool:
@@ -584,6 +700,7 @@ def run_chunk_sweeps(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
     state["counter"] = np.int32(counter + n)
     state["pt_parity"] = np.int32(parity)
     _fold_records(rt, state, acc, e, m, s_begin, n)
+    _fold_series(rt, state, acc, e, m, pair_rows, s_begin, n)
     if pair_rows is not None:
         _fold_pairs(rt, state, acc, *pair_rows, s_begin, n)
 
@@ -724,6 +841,7 @@ def run_chunk_space(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
     state["counter"] = np.int32(counter + n)
     state["pt_parity"] = np.int32(parity)
     _fold_records(rt, state, acc, e, m, s_begin, n)
+    _fold_series(rt, state, acc, e, m, None, s_begin, n)
 
 
 def _event_tables(rt: Runtime, cfg: SimConfig, base, counter: int,
@@ -851,5 +969,7 @@ def run_chunk_pairs(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
     state["counter"] = np.int32(counter + n)
     state["pt_parity"] = np.int32(parity)
     _fold_records(rt, state, acc, e, m, s_begin, n)
+    _fold_series(rt, state, acc, e, m, (qs, ql) if rt.n_pairs else None,
+                 s_begin, n)
     if rt.n_pairs:
         _fold_pairs(rt, state, acc, qs, ql, s_begin, n)

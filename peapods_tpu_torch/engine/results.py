@@ -9,24 +9,74 @@ with the P(q) histograms and ``ql_at_q`` sums when there are replica pairs
 ``per_disorder.cluster_observations`` (``fk`` on FK observe runs;
 ``houdayer``, ``jorg`` and ``cmr_blue`` on overlap observe runs), the FK
 cluster-size histograms ``fk_csd`` when cluster statistics are collected,
-the overlap moves' ``overlap_csd`` and ``top_cluster_sizes``, and their
-``cluster_snapshots``, with the reference's keys, dtypes and presence
-rules.
+the overlap moves' ``overlap_csd`` and ``top_cluster_sizes``, their
+``cluster_snapshots``, the integrated autocorrelation times ``mags2_tau``
+/ ``overlap2_tau`` and the equilibration curves ``equil_*``, with the
+reference's keys, dtypes and presence rules.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ..utils.autocorr import AutocorrStream
 from .records import FK_OBS, REC
 
-__all__ = ["finalize"]
+__all__ = ["finalize", "autocorr_streams", "equil_snaps"]
+
+
+def autocorr_streams(acc: dict, d: int, t: int) -> list:
+    """The run's m2_ac (and, with replica pairs, q2_ac) autocorrelation
+    streams over ``d * t`` features: the fft backend's host streams, or
+    ring streams holding the device ring's sums (the reference's
+    ``drain_device_acc``, peapods_tpu/engine/results.py:166-191); ``[]``
+    without autocorrelation."""
+    if "ac_stream" in acc:
+        return [acc[k] for k in ("ac_stream", "ac_stream_q") if k in acc]
+    if "ac_sum" not in acc:
+        return []
+    sp, so, so2 = (acc[k].cpu().numpy() for k in ("ac_sum_prod", "ac_sum", "ac_sum2"))
+    f = d * t
+    streams = []
+    for ci in range(sp.shape[1] // f):
+        cols = slice(ci * f, (ci + 1) * f)
+        stream = AutocorrStream(sp.shape[0] - 1, f, "ring")
+        stream._sum_prod = np.ascontiguousarray(sp[:, cols])
+        stream.sum_o = np.ascontiguousarray(so[cols])
+        stream.sum_o2 = np.ascontiguousarray(so2[cols])
+        stream.n_recorded = int(acc["ac_count"])
+        streams.append(stream)
+    return streams
+
+
+def equil_snaps(acc: dict, n_sweeps: int) -> list:
+    """The equilibration checkpoints ``(count, e_avg [d, T], ql_avg [d,
+    T])`` at the sweep counts 128 * 2**k below ``n_sweeps`` and at
+    ``n_sweeps`` (peapods_tpu/engine/results.py:60-73, :184-197); ``[]``
+    without the diagnostic."""
+    if "eq_sum" not in acc:
+        return []
+    ck = acc["eq_ckpt"].cpu().numpy()
+    sums = acc["eq_sum"].cpu().numpy()
+    counts = []
+    p = 128
+    while p < n_sweeps:
+        counts.append(p)
+        p *= 2
+    counts.append(n_sweeps)
+    snaps = []
+    for c in counts:
+        # c == 128 * 2**j below n_sweeps; the full run from the sums
+        avg = sums / n_sweeps if c == n_sweeps else ck[c.bit_length() - 8]
+        snaps.append((c, avg[:, 0], avg[:, 1]))
+    return snaps
 
 
 def finalize(rec_sums: np.ndarray, n_recorded: int, n_replicas: int,
              pt_state: dict | None, fk_csd: np.ndarray | None = None,
              pairs: dict | None = None, fk_obs: dict | None = None,
-             overlap: dict | None = None, snapshots: list | None = None) -> dict:
+             overlap: dict | None = None, snapshots: list | None = None,
+             streams: list | None = None, equil: list | None = None) -> dict:
     """Build the results dict.
 
     Args:
@@ -52,6 +102,9 @@ def finalize(rec_sums: np.ndarray, n_recorded: int, n_replicas: int,
             sums) with ``n_spins``, ``n_neighbors`` and ``with_winding``.
         snapshots: the overlap moves' snapshots in the reference's form
             (``cluster_snapshots``), when any was taken.
+        streams: :func:`autocorr_streams`: each realization's Sokal tau of
+            m2_ac (and q2_ac), averaged over the realizations.
+        equil: :func:`equil_snaps`.
     """
     d, _, t = rec_sums.shape
     result = {}
@@ -164,6 +217,13 @@ def finalize(rec_sums: np.ndarray, n_recorded: int, n_replicas: int,
                 denom = np.maximum(counts * overlap["n_pairs"], 1.0)[:, None, None]
                 tops.append((overlap["top4_sum"][:, m] / denom).mean(0))
             result["top_cluster_sizes"] = tops
+    # peapods_tpu/engine/results.py:367-380
+    for key, stream in zip(("mags2_tau", "overlap2_tau"), streams or ()):
+        result[key] = stream.taus().reshape(d, t).mean(0)
+    if equil:
+        result["equil_sweeps"] = np.array([x[0] for x in equil], np.uint64)
+        result["equil_energy_avg"] = np.stack([x[1].mean(0) for x in equil])
+        result["equil_link_overlap_avg"] = np.stack([x[2].mean(0) for x in equil])
     if snapshots:
         # peapods_tpu/engine/results.py:382-383
         result["cluster_snapshots"] = snapshots

@@ -41,6 +41,12 @@ instead: each band's window ``[d, n_systems, n_window]`` on its device),
 ``system_ids`` int32 ``[d, R, T]``, the PT counters, and on the host
 ``base_keys`` (uint32 ``[d, 2]`` threefry key data), ``counter``,
 ``warmup`` and ``pt_parity``.
+
+Every path folds the autocorrelation series and the equilibration
+diagnostic when ``sample`` asks for them (``engine/loop.py``
+``_fold_series``), and the state round-trips through the reference's
+checkpoint file (``save_checkpoint`` / ``load_checkpoint``, through
+:mod:`~peapods_tpu_torch.engine.convert`).
 """
 
 from __future__ import annotations
@@ -56,6 +62,7 @@ from ..ops.halo import gather_band_spins
 from ..ops.lattice import Lattice
 from ..ops.tempering import init_trip_state
 from ..parallel.mesh import Mesh, auto_mesh
+from . import convert
 from . import seeds as seedlib
 from .config import (
     ClusterUpdate,
@@ -71,7 +78,7 @@ from .config import (
 )
 from .loop import Runtime, SpaceRuntime, init_accumulators, run_chunk
 from .records import link_bonds
-from .results import finalize
+from .results import autocorr_streams, equil_snaps, finalize
 
 __all__ = ["IsingSimulation", "resolve_device"]
 
@@ -237,10 +244,41 @@ class IsingSimulation:
         }
 
     def save_checkpoint(self, path) -> None:
-        not_ported("save_checkpoint", "4c")
+        """Write the dynamics state to an ``.npz`` file in the reference's
+        form (peapods_tpu/engine/simulation.py:213-227): its state keys,
+        ``__constructor_seed`` and ``__key_data``; on a space mesh the
+        spins gathered from the bands.  Either engine loads it."""
+        state = dict(self.state)
+        if self.rt.space is not None:
+            del state["bands"]
+            state["spins"] = self.all_spins()
+        convert.write_checkpoint(path, convert.to_reference(state),
+                                 self.constructor_seed)
 
     def load_checkpoint(self, path) -> None:
-        not_ported("load_checkpoint", "4c")
+        """Restore a state written by :meth:`save_checkpoint` (or by the
+        reference engine) for this constructor seed (peapods_tpu/engine/
+        simulation.py:229-250); on a space mesh the spins are split into
+        the bands again."""
+        ref, seed = convert.read_checkpoint(path)
+        if seed != self.constructor_seed:
+            raise ValueError(
+                f"checkpoint was written for constructor seed {seed}, "
+                f"this simulation uses {self.constructor_seed}"
+            )
+        rt = self.rt
+        want = {k: tuple(v.shape) for k, v in self.state.items() if torch.is_tensor(v)}
+        want.update(spins=(rt.n_disorder, rt.n_systems, rt.n_spins),
+                    base_keys=(rt.n_disorder, 2))
+        for k, shape in want.items():
+            if np.shape(ref[k]) != shape:
+                raise ValueError(f"checkpoint entry {k} has shape "
+                                 f"{list(np.shape(ref[k]))}, this simulation's "
+                                 f"{list(shape)}")
+        state = convert.from_reference(ref, self.device)
+        if self.rt.space is not None:
+            state["bands"] = self.rt.space.windows(state.pop("spins"))
+        self.state = state
 
     def all_spins(self):
         """int8 ``[d, n_systems, n_spins]`` spins by system on the device (on
@@ -288,10 +326,6 @@ class IsingSimulation:
         outside the slice raise ``NotImplementedError``.
         """
         ac_backend = parse_ac_backend(autocorrelation_backend or "ring")
-        if autocorrelation_max_lag is not None:
-            not_ported("autocorrelation_max_lag", "4b")
-        if equilibration_diagnostic:
-            not_ported("equilibration_diagnostic", "4b")
         n_sweeps = int(n_sweeps)
         warmup = warmup_ratio if warmup_ratio is not None else 0.25
         warmup_sweeps = int(np.floor(n_sweeps * float(warmup) + 0.5))
@@ -323,7 +357,10 @@ class IsingSimulation:
             pt_interval=int(pt_interval) if pt_interval is not None else None,
             pt_schedule=parse_pt_schedule(pt_schedule or "single_random_edge"),
             overlap_cluster=overlap_cluster,
+            autocorrelation_max_lag=(int(autocorrelation_max_lag)
+                                     if autocorrelation_max_lag is not None else None),
             autocorrelation_backend=ac_backend,
+            equilibration_diagnostic=bool(equilibration_diagnostic),
         )
         cfg.validate()
         h = overlap_cluster
@@ -384,4 +421,6 @@ class IsingSimulation:
         snapshots = [_snapshot_entry(x) for x in acc.get("snapshots", [])]
         return finalize(acc["rec_sums"].cpu().numpy(), acc["n_recorded"],
                         self.rt.n_replicas, pt_state, fk_csd, pairs, fk_obs, overlap,
-                        snapshots)
+                        snapshots, autocorr_streams(acc, self.rt.n_disorder,
+                                                    self.rt.n_temps),
+                        equil_snaps(acc, n_sweeps))

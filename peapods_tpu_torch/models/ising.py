@@ -31,17 +31,23 @@ _SAMPLE_REQUIRES = (
     ("cluster_action", "observe", "cluster_update_interval"),
     ("overlap_cluster_action", "observe", "overlap_cluster_update_interval"),
 )
-# result keys copied to attributes as they are (spin_models.py:281-283)
-_PASSTHROUGH_ATTRS = (
-    "overlap_histogram",
-    "ql_at_q_sum",
-    "ql2_at_q_sum",
-    "per_sample_overlap_histogram",
-    "per_sample_ql_at_q_sum",
-    "per_sample_ql2_at_q_sum",
-    "top_cluster_sizes",
-    "cluster_snapshots",
-)
+# result keys copied to attributes as they are (spin_models.py:281-283), by
+# attribute name
+_PASSTHROUGH_ATTRS = {
+    "overlap_histogram": "overlap_histogram",
+    "ql_at_q_sum": "ql_at_q_sum",
+    "ql2_at_q_sum": "ql2_at_q_sum",
+    "per_sample_overlap_histogram": "per_sample_overlap_histogram",
+    "per_sample_ql_at_q_sum": "per_sample_ql_at_q_sum",
+    "per_sample_ql2_at_q_sum": "per_sample_ql2_at_q_sum",
+    "top_cluster_sizes": "top_cluster_sizes",
+    "mags2_tau": "mags2_tau",
+    "overlap2_tau": "overlap2_tau",
+    "equil_sweeps": "_equil_sweeps",
+    "equil_energy_avg": "_equil_energy_avg",
+    "equil_link_overlap_avg": "_equil_link_overlap_avg",
+    "cluster_snapshots": "cluster_snapshots",
+}
 _SAMPLE_GATES = (
     ("cluster_mode", "cluster_update_interval"),
     ("cluster_action", "cluster_update_interval"),
@@ -243,9 +249,9 @@ class Ising:
                 self.link_overlap_binder = 1 - self.link_overlap4 / (
                     3 * self.link_overlap2**2
                 )
-        for key in _PASSTHROUGH_ATTRS:
+        for key, attr in _PASSTHROUGH_ATTRS.items():
             if key in result:
-                setattr(self, key, result[key])
+                setattr(self, attr, result[key])
         if "fk_csd" in result:
             self.fk_csd = result["fk_csd"]
             self.mean_cluster_size = np.array(
@@ -261,10 +267,31 @@ class Ising:
         n_sites = site_weights.sum()
         return (sizes * site_weights).sum() / n_sites if n_sites > 0 else 0.0
 
+    def equilibration_delta(self, j_squared=1.0):
+        """Zhu et al. thermalization diagnostic Delta(t) (peapods_tpu/models/
+        ising.py:297-312), from a sample() run with
+        ``equilibration_diagnostic=True``.
+
+        ``Delta = e(t) - J^2 beta z (1 - q_l(t))`` approaches zero as the
+        system equilibrates (``e`` the positive bond sum per spin).
+
+        Returns ``(sweeps [n_checkpoints], delta [n_checkpoints, n_temps])``.
+        """
+        beta = 1.0 / self.temperatures
+        delta = self._equil_energy_avg - j_squared * beta * self.n_neighbors * (
+            1 - self._equil_link_overlap_avg
+        )
+        return self._equil_sweeps, delta
+
     def save_checkpoint(self, path):
+        """Write the dynamics state to ``path`` (couplings are derived from
+        the constructor seed and are not stored); the JAX engine reads it
+        too."""
         self._sim.save_checkpoint(path)
 
     def load_checkpoint(self, path):
+        """Resume from a checkpoint written by :meth:`save_checkpoint` (of
+        either engine)."""
         self._sim.load_checkpoint(path)
 
     def get_energies(self):

@@ -51,16 +51,34 @@ def _schema(x):
     return (np.asarray(x).shape, np.asarray(x).dtype)
 
 
+@pytest.mark.parametrize("options", [{}, dict(autocorrelation_max_lag=8,
+                                               equilibration_diagnostic=True)],
+                         ids=["plain", "4b"])
 @pytest.mark.parametrize("pt_schedule", ["single_random_edge", "full_ladder"])
-def test_results_schema_matches_reference(pt_schedule):
-    kw = dict(pt_interval=1, pt_schedule=pt_schedule)
+def test_results_schema_matches_reference(pt_schedule, options):
+    """The keys, shapes and dtypes of the reference's results dict; with
+    both 4b options on, the taus and ``equil_*`` too (and ``overlap2_tau``
+    with replicas, on the fft backend)."""
+    kw = dict(pt_interval=1, pt_schedule=pt_schedule, **options)
     ref = RefIsing((8, 8), temperatures=TEMPS8, seed=4)
     port = Ising((8, 8), temperatures=TEMPS8, seed=4, device="cpu")
-    r_ref = ref.sample(16, **kw)
-    r_port = port.sample(16, **kw)
+    n = 130 if options else 16  # past the first equilibration checkpoint
+    r_ref = ref.sample(n, **kw)
+    r_port = port.sample(n, **kw)
     assert _schema(r_port) == _schema(r_ref)
-    for attr in ("binder_cumulant", "heat_capacity", "energies_avg", "mags2"):
+    for attr in ("binder_cumulant", "heat_capacity", "energies_avg", "mags2",
+                 *(("mags2_tau", "_equil_sweeps", "_equil_energy_avg") if options else ())):
         assert np.shape(getattr(port, attr)) == np.shape(getattr(ref, attr))
+    if options:
+        assert [np.shape(x) for x in port.equilibration_delta()] == [
+            np.shape(x) for x in ref.equilibration_delta()]
+        if pt_schedule == "full_ladder":
+            return
+        kw.update(autocorrelation_backend="fft", warmup_ratio=0.5)
+        ref = RefIsing((4, 4), temperatures=TEMPS8, n_replicas=2, seed=4)
+        port = Ising((4, 4), temperatures=TEMPS8, n_replicas=2, seed=4, device="cpu")
+        assert _schema(port.sample(n, **kw)) == _schema(ref.sample(n, **kw))
+        return
     # no PT: no per_disorder entry, as in the reference
     assert _schema(port.sample(8)) == _schema(ref.sample(8))
 
@@ -173,33 +191,43 @@ def test_state_converts_both_ways():
 
 
 @pytest.mark.parametrize(
-    "kwargs,item",
+    "kwargs",
     [
-        (dict(cluster_update_interval=1, cluster_action="observe"), None),
-        (dict(overlap_cluster_update_interval=1, snapshot_interval=1), None),
-        (dict(autocorrelation_max_lag=4), "4b"),
-        (dict(equilibration_diagnostic=True), "4b"),
+        dict(cluster_update_interval=1, cluster_action="observe"),
+        dict(overlap_cluster_update_interval=1, snapshot_interval=1),
+        dict(autocorrelation_max_lag=4),
+        dict(equilibration_diagnostic=True),
     ],
     ids=["cluster", "overlap", "autocorrelation", "equilibration"],
 )
-def test_out_of_slice_sample_options_raise(kwargs, item):
-    """Options outside the slice raise, naming the ROADMAP item; FK observe
-    and snapshots with replicas run since item 7a (the per-sweep replica
-    path): the FK observations, and a snapshot at every sweep past
-    warmup."""
+def test_out_of_slice_sample_options_raise(kwargs):
+    """Options that once lay outside the slice run: FK observe and
+    snapshots with replicas since item 7a (the per-sweep replica path): the
+    FK observations, and a snapshot at every sweep past warmup; the
+    autocorrelation times and the equilibration diagnostic since item 4b:
+    ``mags2_tau`` and ``overlap2_tau``, or the ``equil_*`` curves."""
     m = Ising((4, 4), temperatures=[2.0], n_replicas=2, seed=1, device="cpu")
-    if item is not None:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.md, queue 1, item {item}"):
-            m.sample(4, **kwargs)
-        return
     r = m.sample(4, warmup_ratio=0.25, **kwargs)
     assert np.asarray(r["overlap_histogram"]).sum() == 3  # recorded sweeps, 1 pair
     observe = kwargs.get("cluster_action") == "observe"
     assert ("fk" in r.get("per_disorder", {}).get("cluster_observations", {})) == observe
     snaps = r.get("cluster_snapshots", [])
-    assert [x["sweep_id"] for x in snaps] == ([] if observe else [1, 2, 3])
+    want = [1, 2, 3] if "snapshot_interval" in kwargs else []
+    assert [x["sweep_id"] for x in snaps] == want
     for x in snaps:
         assert x["cluster_ids"].shape == (1, 16) and x["spins"].shape == (1, 2, 16)
+    tau = "autocorrelation_max_lag" in kwargs
+    assert ("mags2_tau" in r, "overlap2_tau" in r) == (tau, tau)
+    for k in ("mags2_tau", "overlap2_tau") if tau else ():
+        assert r[k].shape == (1,) and r[k].dtype == np.float64 and np.isfinite(r[k]).all()
+    equil = bool(kwargs.get("equilibration_diagnostic"))
+    assert ("equil_sweeps" in r) == equil
+    if equil:
+        # one checkpoint, the full run: the means over every sweep
+        assert r["equil_sweeps"].tolist() == [4] and r["equil_sweeps"].dtype == np.uint64
+        sweeps, delta = m.equilibration_delta()
+        assert sweeps.tolist() == [4] and delta.shape == (1, 1)
+        assert np.isfinite(delta).all() and (np.abs(r["equil_link_overlap_avg"]) <= 1).all()
 
 
 @pytest.mark.parametrize(
@@ -227,12 +255,19 @@ def test_out_of_slice_models_raise(kwargs, item):
 
 
 def test_out_of_slice_engine_options_raise(tmp_path):
+    """A mesh of another type raises, naming the ROADMAP; checkpoints run
+    since item 4c: a saved state reloads bitwise."""
     coup = np.ones((4, 4, 2), np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         IsingSimulation([4, 4], coup, [2.0], mesh=object(), device="cpu")
-    sim = IsingSimulation([4, 4], coup, [2.0], device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sim.save_checkpoint(tmp_path / "ck.npz")
+    sim = IsingSimulation([4, 4], coup, [2.0, 3.0], device="cpu")
+    sim.sample(5, "metropolis", pt_interval=1)
+    sim.save_checkpoint(tmp_path / "ck.npz")
+    other = IsingSimulation([4, 4], coup, [2.0, 3.0], device="cpu")
+    other.load_checkpoint(tmp_path / "ck.npz")
+    a, b = convert.to_reference(sim.state), convert.to_reference(other.state)
+    for k in a:
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
 
 
 def test_cuda_device_without_gpu_raises():
