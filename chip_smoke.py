@@ -3095,26 +3095,29 @@ def staged_paths(dev, card):
     return out
 
 
-def kernel_ms(fn, reps, names):
+def kernel_ms(fn, reps, names, tries=3):
     """Device ms a launch of each kernel ``names`` over ``reps`` calls of
-    ``fn``, from the profiler's kernel records."""
+    ``fn``, from the profiler's kernel records; a window that lacks one of
+    them (a window has been seen to record none while the wrappers counted
+    every launch) is profiled again, up to ``tries`` windows."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    acc = {}
-    for ev in prof.key_averages():
-        hit = [k for k in names if f"{k}_kernel" in ev.key]
-        if hit and ev.self_device_time_total > 0:
-            add_kernel_time(acc, hit[0], ev)
-    out = {k: t / c / 1e3 for k, (t, c) in acc.items()}
-    if set(out) != set(names):
-        raise AssertionError(f"the profiler saw {sorted(out)}, expected {names}")
-    return out
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        acc = {}
+        for ev in prof.key_averages():
+            hit = [k for k in names if f"{k}_kernel" in ev.key]
+            if hit and ev.self_device_time_total > 0:
+                add_kernel_time(acc, hit[0], ev)
+        out = {k: t / c / 1e3 for k, (t, c) in acc.items()}
+        if set(out) == set(names):
+            return out
+    raise AssertionError(f"the profiler saw {sorted(out)}, expected {names}")
 
 
 def staged_bounds(b, n, n_nb, d, n_comp):
@@ -4332,7 +4335,7 @@ def ov_lattice_bounds(rt, kind, wolff, g, flipped):
     return out
 
 
-def ov_lattice_checks(name, run, dev, rng, card):
+def ov_lattice_checks(name, run, dev, rng, card, phase="34 kernel-vs-plain"):
     """On a run's final state, each move its build mode holds (houd4 as g =
     4, the pair moves on pairs; the run's Wolff or SW form; observe forms
     for an observe run): the whole move through the kernels bitwise its
@@ -4376,7 +4379,7 @@ def ov_lattice_checks(name, run, dev, rng, card):
         for k, (b_ms, b_by) in bounds.items():
             out.setdefault(k, dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
                                    plain_ms=plain_ms, plain_is=f"the whole {mode} move"))
-        log("34 kernel-vs-plain", f"{name} {mode} ({'wolff' if wolff else 'sw'}"
+        log(phase, f"{name} {mode} ({'wolff' if wolff else 'sw'}"
             f"{', observe' if kw['observe'] else ''}) on the run's state "
             f"({d * rt.n_temps * (rt.n_replicas // g)} tasks of {g} on "
             f"{'x'.join(map(str, lat.shape))}, {lat.n_neighbors} offsets): the move's "
@@ -4443,7 +4446,7 @@ def ov_lattice_cpu(name, c, dev):
             "1e-12)")
 
 
-def ov_lattice_run(name, c, dev, card):
+def ov_lattice_run(name, c, dev, card, phase="34 lattices"):
     """A run twice from one seed through Ising.sample (launch counts of the
     first against :func:`ov_lattice_want`, two equal checksums, sanity),
     the rate of warm calls."""
@@ -4478,7 +4481,7 @@ def ov_lattice_run(name, c, dev, card):
     if not all(sane.values()):
         raise AssertionError(f"{name} sanity: {sane}")
     sweeps_s, rates = warm_rate(models[1], n, kw, calls=3)
-    log("34 lattices", f"{name}: {'x'.join(map(str, rt.lattice.shape))}, "
+    log(phase, f"{name}: {'x'.join(map(str, rt.lattice.shape))}, "
         f"{rt.lattice.n_neighbors} offsets, {rt.n_temps} temps x {rt.n_replicas} replicas "
         f"x {rt.n_disorder} realizations, {kw['overlap_cluster_build_mode']} "
         f"{kw.get('overlap_cluster_mode', 'wolff')}"
@@ -5654,6 +5657,389 @@ def ac_phase(dev, card):
     return out
 
 
+# ------------------------------------------------ any lattice (item 4a)
+
+
+# Phase 36: the lattices that the walk words do not hold or that earlier
+# slices refused, at the sizes their users run, each through Ising.sample
+# twice from one seed: a 255^2 ferromagnet (an odd linear size of a
+# finite-size scaling series) at the flagship's ladder with SW and PT every
+# sweep and cluster statistics, and its observe form for the winding flags
+# of an odd canonical square; configs 4 and 5 (SG_CONFIGS) at the odd sizes
+# 9^3 and 15^3, which leave the replica megakernel for the per-sweep
+# replica path; the (4096,) chain with Wolff, whose <e> is the infinite
+# chain's tanh(1/T) a bond; the 4D magnet (its upper critical dimension) at
+# 16^4 around T_c ~ 6.68 with SW and PT; and 16^3 with the 13 offsets of
+# the cubic lattice's first three shells (26 neighbours) with SW and PT.
+# Cut in depth only.
+SHELLS3 = ([[1, 0, 0], [0, 1, 0], [0, 0, 1]]
+           + [[1, s, 0] for s in (1, -1)] + [[1, 0, s] for s in (1, -1)]
+           + [[0, 1, s] for s in (1, -1)]
+           + [[1, a, b] for a in (1, -1) for b in (1, -1)])
+ANY_SW = dict(pt_interval=1, cluster_update_interval=1, cluster_mode="sw")
+ANY_RUNS = {
+    "sq255": dict(shape=(255, 255), geometry=None, couplings="ferro", t=(1.8, 3.2),
+                  n_temps=N_TEMPS, n_replicas=1, n_disorder=1, seed=36, sweeps=256,
+                  kw=dict(ANY_SW, collect_cluster_stats=True)),
+    "sq255obs": dict(shape=(255, 255), geometry=None, couplings="ferro", t=(1.8, 3.2),
+                     n_temps=8, n_replicas=1, n_disorder=1, seed=36, sweeps=64,
+                     kw=dict(ANY_SW, cluster_action="observe")),
+    "chain4096": dict(shape=(4096,), geometry=None, couplings="ferro", t=(0.5, 4.0),
+                      n_temps=8, n_replicas=1, n_disorder=1, seed=37, sweeps=512,
+                      kw=dict(pt_interval=1, cluster_update_interval=1,
+                              cluster_mode="wolff")),
+    "4d16": dict(shape=(16, 16, 16, 16), geometry=None, couplings="ferro", t=(6.0, 7.4),
+                 n_temps=16, n_replicas=1, n_disorder=1, seed=38, sweeps=128, kw=ANY_SW),
+    "shells16": dict(shape=(16, 16, 16), geometry=SHELLS3, couplings="ferro",
+                     t=(18.0, 26.0), n_temps=8, n_replicas=1, n_disorder=1, seed=39,
+                     sweeps=128, kw=ANY_SW),
+}
+ANY_REPLICA_RUNS = {
+    "config4-9": dict(SG_CONFIGS["config4"], shape=(9, 9, 9), geometry=None,
+                      n_temps=SG_T, n_replicas=SG_R, n_disorder=SG_D, sweeps=512),
+    "config5-15": dict(SG_CONFIGS["config5"], shape=(15, 15, 15), geometry=None,
+                       n_temps=SG_T, n_replicas=SG_R, n_disorder=SG_D, sweeps=256),
+}
+# the chain's <e> against tanh(1/T): batches of this many sweeps
+CHAIN_BATCHES, CHAIN_BATCH_SWEEPS = 8, 256
+CHAIN_SE = 5.0
+TABLE_KERNELS = ("sweep_nb_table", "measure_nb_table", "fk_bonds_table", "cc_table_init",
+                 "cc_table_link")
+TABLE_REPLACES = {
+    "sweep_nb_table": "peapods_tpu/ops/pallas_sweep_diag.py:540",  # sweep_gen
+    "measure_nb_table": "peapods_tpu/ops/pallas_sweep_diag.py:562",  # sweep_gen_fused
+    "fk_bonds_table": "peapods_tpu/ops/pallas_event.py:621",  # _fk_kernel (row 18)
+    "cc_table_init": CC_REPLACES, "cc_table_link": CC_REPLACES}
+TABLE_SRC = {"sweep_nb_table": NB_SRC, "measure_nb_table": NB_SRC,
+             "fk_bonds_table": "peapods_tpu_torch/csrc/fk.cu", "cc_table_init": CC_SRC,
+             "cc_table_link": CC_SRC}
+
+
+def any_model(c, dev, **over):
+    from peapods_tpu_torch import Ising
+
+    c = dict(c, **over)
+    geo = c["geometry"]
+    kw = (dict(geometry=geo) if isinstance(geo, str)
+          else dict(neighbor_offsets=geo) if geo is not None else {})
+    return Ising(c["shape"], couplings=c["couplings"],
+                 temperatures=np.geomspace(*c["t"], c["n_temps"]),
+                 n_replicas=c["n_replicas"], n_disorder=c["n_disorder"], seed=c["seed"],
+                 device=dev, **kw)
+
+
+def any_want(model, kw, n, warmup):
+    """Launches of ``n`` sweeps from sweep 0 of a one-replica run: a sweep
+    launch per colour (the table form's past three dimensions or six
+    offsets); on FK sweeps the staged path: the bonds, the labelling (the
+    table form's three launches, or ``cc.link_launches`` of the kernel
+    shape) and, to update, ``fk_finish``; observe runs skip the sweeps that
+    record nothing; a measurement and a ``pt_step`` a sweep."""
+    from peapods_tpu_torch.ops import cc
+
+    rt = model._sim.rt
+    lat = rt.lattice
+    tab = lat.table
+    fk_t = [s for s in range(0, n, kw["cluster_update_interval"])
+            if not (kw.get("cluster_action") == "observe" and s < warmup)]
+    want = {"sweep_nb_table" if tab else "sweep_nb": lat.n_colors * n,
+            "measure_nb_table" if tab else "measure_nb": n, "pt_step": n,
+            "fk_bonds_table" if tab else "fk_bonds_staged": len(fk_t)}
+    if kw.get("cluster_action", "update") == "update":
+        want["fk_finish"] = len(fk_t)
+    links = ({"cc_table_init": 1, "cc_table_link": 1, "fk_link_flatten": 1} if tab
+             else cc.link_launches(lat.kernel_shape, rt.n_disorder * rt.n_systems))
+    for k, v in links.items():
+        want[k] = want.get(k, 0) + v * len(fk_t)
+    if kw.get("cluster_action") == "observe" and lat.canonical_square:
+        from peapods_tpu_torch.ops import winding
+
+        for k, v in winding.winding_launches(lat.shape, rt.n_disorder * rt.n_systems).items():
+            want[k] = want.get(k, 0) + v * len(fk_t)
+    return {k: v for k, v in want.items() if v}
+
+
+def any_checksum(sim, result) -> str:
+    """:func:`state_checksum`, the FK histograms and observations."""
+    h = hashlib.sha256(state_checksum(sim, result).encode())
+    for x in result.get("fk_csd", []):
+        h.update(np.ascontiguousarray(np.asarray(x)).tobytes())
+    obs = result.get("per_disorder", {}).get("cluster_observations", {})
+    for name in sorted(obs):
+        for key in sorted(obs[name]):
+            h.update(np.ascontiguousarray(obs[name][key]).tobytes())
+    return h.hexdigest()[:16]
+
+
+def any_cpu(name, c, dev, replicas=False):
+    """A small run of the configuration (one realization, the ladder's two
+    ends, 8 sweeps, +-J couplings where the run's are gaussian) on the card
+    and on the CPU's plain path: states bitwise, records to rtol 1e-12,
+    statistics and observations equal."""
+    runs = []
+    over = dict(n_disorder=1, n_temps=2,
+                couplings="bimodal" if c["couplings"] == "gaussian" else c["couplings"])
+    for device in (dev, "cpu"):
+        m = any_model(c, device, **over)
+        runs.append((m, m.sample(8, "metropolis", **c["kw"])))
+    (mk, rk), (mp, rp) = runs
+    for key in ("spins", "system_ids", "pt_edge_acceptances", "pt_round_trips"):
+        if not torch.equal(mk._sim.state[key].cpu(), mp._sim.state[key]):
+            raise AssertionError(f"{name}: {key} differs from the CPU's")
+    keys = ["energies", "energies2", "mags", "mags2"] + (
+        ["overlap2", "link_overlap"] if replicas else [])
+    for key in keys:
+        np.testing.assert_allclose(rk[key], rp[key], rtol=1e-12, err_msg=f"{name} {key}")
+    for key in ("fk_csd", "overlap_csd", "top_cluster_sizes"):
+        for u, v in zip(rk.get(key, []), rp.get(key, [])):
+            if not np.array_equal(np.asarray(u), np.asarray(v)):
+                raise AssertionError(f"{name}: {key} differs from the CPU's")
+    ok = {}
+    obs_k = rk.get("per_disorder", {}).get("cluster_observations", {})
+    obs_p = rp.get("per_disorder", {}).get("cluster_observations", {})
+    for kind in obs_p:
+        for key in obs_p[kind]:
+            ok[key] = np.array_equal(obs_k[kind][key], obs_p[kind][key])
+    if not all(ok.values()):
+        raise AssertionError(f"{name}: observations differ from the CPU's: {ok}")
+    return ("8 sweeps of one realization at the ladder's ends on the card bitwise the "
+            "CPU's plain path (spins, sid, PT counts, statistics, observations; records "
+            "to rtol 1e-12)")
+
+
+def any_sanity(name, c, model, r):
+    """Finite records, <e> falling with T; the chain's <e> within CHAIN_SE
+    standard errors of tanh(1/T) (batch means of further calls); the
+    observe run's observations (:func:`check_observations`) with the
+    winding flags spanning at the coldest and not at the hottest T."""
+    e = r["energies"]
+    sane = {"finite": bool(np.isfinite(e).all() and np.isfinite(r["mags2"]).all()),
+            "<e> falls with T": bool(e[0] > e[-1])}
+    extra = ""
+    if name == "chain4096":
+        t = np.geomspace(*c["t"], c["n_temps"])
+        mean, se = batch_means(model, c["kw"], CHAIN_BATCHES, CHAIN_BATCH_SWEEPS)
+        z = (mean - np.tanh(1.0 / t)) / se
+        sane[f"<e> within {CHAIN_SE} s.e. of tanh(1/T)"] = bool((np.abs(z) < CHAIN_SE).all())
+        extra = ("; <e> - tanh(1/T) in standard errors " + ", ".join(f"{x:.2f}" for x in z)
+                 + f" (<e> {', '.join(f'{x:.5f}' for x in mean)})")
+    if c["kw"].get("cluster_action") == "observe":
+        warmup = int(np.floor(c["sweeps"] * 0.25 + 0.5))
+        fk = check_observations(r, model._sim, c["sweeps"] - warmup, True)
+        wx = fk["winding_either"].mean(0)
+        sane["winding at the coldest T, none at the hottest"] = bool(
+            wx[0] > 0.9 and wx[-1] < 0.1)
+        extra += "; winding_either by T " + ", ".join(f"{x:.3f}" for x in wx)
+    if not all(sane.values()):
+        raise AssertionError(f"{name} sanity: {sane}{extra}")
+    return sane, extra
+
+
+def any_run(name, c, dev, card):
+    """A one-replica run twice from one seed through Ising.sample: launch
+    counts of the first against :func:`any_want`, two equal checksums,
+    :func:`any_sanity`, the rate of warm calls."""
+    n, kw = c["sweeps"], c["kw"]
+    warmup = int(np.floor(n * 0.25 + 0.5))
+    models, results, checks = [], [], []
+    for run in range(2):
+        model = any_model(c, dev)
+        torch.cuda.synchronize()
+        reset_cluster_counts()
+        result = model.sample(n, "metropolis", **kw)
+        torch.cuda.synchronize()
+        if run == 0:
+            launches = cluster_counts()
+        models.append(model)
+        results.append(result)
+        checks.append(any_checksum(model._sim, result))
+    want = any_want(models[0], kw, n, warmup)
+    if launches != want:
+        raise AssertionError(f"{name} launch counts {launches}, expected {want}")
+    if checks[0] != checks[1]:
+        raise AssertionError(f"{name} checksums differ: {checks}")
+    sane, extra = any_sanity(name, c, models[0], results[0])
+    lat = models[0]._sim.rt.lattice
+    sweeps_s, rates = warm_rate(models[1], n, kw, calls=3)
+    log("36 lattices", f"{name}: {'x'.join(map(str, lat.shape))}, {lat.n_neighbors} "
+        f"offsets, {lat.n_colors} colours, {'table' if lat.table else 'walk'} form, "
+        f"{c['n_temps']} temps, {kw}, {n} sweeps on {dev}: launches {launches}; checksum "
+        f"{checks[0]} == {checks[1]}; sanity ok: {', '.join(sane)}{extra}; <e>[0,-1] "
+        f"{results[0]['energies'][0]:.5f}, {results[0]['energies'][-1]:.5f}; "
+        f"{sweeps_s:.1f} sweeps/s (median of {', '.join(f'{x:.1f}' for x in rates)}) "
+        f"on {card}")
+    return dict(model=models[1], result=results[0], launches=launches, sweeps_s=sweeps_s,
+                checksum=checks[0], kw=kw, n=n)
+
+
+def any_bounds(rt, n_fk_graphs):
+    """Each form's bound on a run's shapes (bytes: each input read once,
+    each output written once; operations: f32 adds and multiplies of the
+    field or the energy, the bonds' Philox rounds left out): a colour
+    pass reads every spin, its colour's sites' forward and backward
+    couplings (and in the table form their rows of the two int32 tables)
+    and the colour table, and writes its colour's spins (phase 17's
+    yardstick for ``sweep_nb``); the measurement reads every spin, the
+    couplings (and the forward table) and writes the partials; the bonds
+    read every spin, the couplings (and the table) and write a state word a
+    site; the table labelling's init writes a label a site, its link reads
+    the state words and the table and writes the labels."""
+    d, s = rt.n_disorder, rt.n_systems
+    lat = rt.lattice
+    n, nb = lat.n_spins, lat.n_neighbors
+    nc = lat.n_colors
+    tab = 8 * n * nb if lat.table else 0
+    b = n_fk_graphs
+    blocks = -(-n // 1024)
+    out = {
+        "sweep": bound(d * s * n + 8 * d * nb * n // nc + tab // nc + n + d * s * n // nc,
+                       4 * nb * d * s * n // nc),
+        "measure": bound(d * s * n + 4 * d * n * nb + tab // 2 + 8 * d * s * blocks,
+                         2 * nb * d * s * n),
+        "bonds": bound(b * n + 4 * d * n * nb + tab // 2 + (4 if lat.table else 1) * b * n,
+                       3 * nb * b * n),
+    }
+    if lat.table:
+        out["cc_table_init"] = bound(4 * b * n, 0)
+        out["cc_table_link"] = bound(8 * b * n + tab // 2, 0)
+    else:
+        out["cc_link"] = cc_bound(b, n)
+    return out
+
+
+def any_checks(name, run, dev, rng, card):
+    """On a run's final state: a sweep (every colour) and the measurement
+    through the lattice's form bitwise the plain versions (spins, every
+    partial), the staged FK bonds' state bitwise ``fk_bonds_plain``'s bits
+    and the labelling bitwise ``connected_components``' labels; each plain
+    version's time and each form's bound."""
+    from peapods_tpu_torch.ops import _build, cc, energy, fk, sweep
+    from peapods_tpu_torch.ops.cluster import connected_components
+
+    sim = run["model"]._sim
+    rt = sim.rt
+    lat = rt.lattice
+    spins = sim.state["spins"]
+    d, s, n = spins.shape
+    words = torch.from_numpy(rng.integers(-2**31, 2**31, (d, 2)).astype(np.int32)).to(dev)
+    from peapods_tpu_torch.ops.measure import slot_temps_for_systems
+
+    temps = slot_temps_for_systems(sim.state["system_ids"].view(d, s), rt.slot_temps)
+    gibbs = False
+    args = (rt.coup, rt.coup_bwd, rt.colours, temps, words, lat)
+    a, b = spins.clone(), spins.clone()
+    sweep.sweep_nb(a, *args, gibbs=gibbs, tables=rt.tables)
+    sweep.sweep_nb_plain(b, *args, gibbs=gibbs)
+    ek, mk = energy.measure_nb(a, rt.coup, lat, tables=rt.tables)
+    ep, mp = energy.measure_nb_plain(b, rt.coup, lat, blocks=True)
+    torch.cuda.synchronize()
+    bad = {"sweep spins": int((a != b).sum()),
+           "measure partials": int((ek.view(torch.int32) != ep.view(torch.int32)).sum()
+                                   + (mk != mp).sum())}
+    flipped = int((a != spins).sum())
+    plain = {"sweep": wall_ms(lambda: sweep.sweep_nb_plain(spins.clone(), *args,
+                                                           gibbs=gibbs), 2),
+             "measure": wall_ms(lambda: energy.measure_nb_plain(spins, rt.coup, lat,
+                                                                blocks=True), 2)}
+    g = d * s
+    graphs = spins.view(g, *lat.shape)
+    kb = torch.from_numpy(rng.integers(-2**31, 2**31, (g, 2)).astype(np.int32)).to(dev)
+    gt = temps.reshape(-1).contiguous()
+    lib, stream = _build.library(), torch.cuda.current_stream(dev).cuda_stream
+    state = torch.empty((g, n), dtype=torch.int32 if lat.table else torch.uint8,
+                        device=dev)
+    fk.launch_staged_bonds(lib, stream, graphs, rt.coup, gt, kb, state, lat, rt.tables)
+    labels = torch.empty((g, n), dtype=torch.int32, device=dev)
+    cc.launch(lib, stream, state.data_ptr(), labels.data_ptr(), lat, g, rt.tables)
+    bonds = fk.fk_bonds_plain(graphs, rt.coup, gt, kb, offsets=lat.offsets)
+    want_lab = connected_components(bonds, lat.shape, lat.offsets)
+    torch.cuda.synchronize()
+    bad["bonds state"] = int((state.to(torch.int64) != cc.pack_masks(
+        bonds, state.dtype).to(torch.int64)).sum())
+    bad["labels"] = int((labels != want_lab).sum())
+    if any(bad.values()) or not flipped or not bonds.any():
+        raise AssertionError(f"{name}: mismatches {bad}, {flipped} spins flipped")
+    plain["bonds"] = wall_ms(lambda: fk.fk_bonds_plain(graphs, rt.coup, gt, kb,
+                                                       offsets=lat.offsets), 2)
+    plain["labelling"] = wall_ms(lambda: connected_components(bonds, lat.shape,
+                                                              lat.offsets), 2)
+    log("36 kernel-vs-plain", f"{name} on the run's state ({g} systems of "
+        f"{'x'.join(map(str, lat.shape))}, {lat.n_neighbors} offsets, "
+        f"{'table' if lat.table else 'walk'} form): a sweep ({flipped} spins flipped), "
+        f"the measurement's partials, the staged bonds' state and the labelling bitwise "
+        f"the plain versions: mismatches {bad}; plain sweep {plain['sweep']:.3f}, "
+        f"measurement {plain['measure']:.3f}, bonds {plain['bonds']:.3f}, labelling "
+        f"{plain['labelling']:.3f} ms on {card} ok")
+    bounds = any_bounds(rt, g)
+    names = (("sweep_nb_table", "sweep"), ("measure_nb_table", "measure"),
+             ("fk_bonds_table", "bonds"), ("cc_table_init", "cc_table_init"),
+             ("cc_table_link", "cc_table_link")) if lat.table else (
+             ("sweep_nb", "sweep"), ("measure_nb", "measure"), ("fk_bonds_staged", "bonds"),
+             ("cc_link", "cc_link"))
+    out = {}
+    for k, part in names:
+        b_ms, b_by = bounds[part]
+        pk = {"sweep": "sweep", "measure": "measure", "bonds": "bonds"}.get(part,
+                                                                           "labelling")
+        out[k] = dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by, plain_ms=plain[pk],
+                      plain_is=f"the plain {pk} on the run's state")
+    return out
+
+
+def any_phase(dev, card):
+    """Phase 36: each run of ANY_RUNS twice from one seed (launches,
+    checksums, sanity), a small run on the card against the CPU, each form's
+    kernels on the run's state against their plain versions, and a profiled
+    main-path window (device us a sweep by kernel, busy share, each new
+    form's time beside its bound); the replica runs through phase 34's
+    functions (the moves' kernels on the run's state too)."""
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(2036)
+    runs = {}
+    for name, c in ANY_RUNS.items():
+        run = runs[name] = any_run(name, c, dev, card)
+        log("36 lattices", f"{name}: " + any_cpu(name, c, dev) + " ok")
+        run["checks"] = any_checks(name, run, dev, rng, card)
+    for name, c in ANY_REPLICA_RUNS.items():
+        run = runs[name] = ov_lattice_run(name, c, dev, card, phase="36 lattices")
+        log("36 lattices", f"{name}: " + any_cpu(name, c, dev, replicas=True) + " ok")
+        run["checks"] = ov_lattice_checks(name, run, dev, rng, card,
+                                          phase="36 kernel-vs-plain")
+        for k, rec in any_checks(name, run, dev, rng, card).items():
+            run["checks"].setdefault(k, rec)
+    for name, run in runs.items():
+        us, line = profile_window(run["model"], run["kw"], run["sweeps_s"],
+                                  min(run["n"], 64), names=tuple(run["launches"]))
+        run["us"] = us
+        log("36 times", f"{name} {line} (on {card})")
+        for k, rec in run["checks"].items():
+            if k in us:
+                rec.update(ms=us[k] / 1e3, launches=run["launches"].get(k, 0))
+        log("36 times", f"{name} per launch: " + "; ".join(
+            f"{k} {rec['ms']:.5f} ms (bound {rec['bound_ms']:.6f} ms by "
+            f"{rec['bound_by']}, plain {rec['plain_ms']:.3f} ms)"
+            for k, rec in run["checks"].items() if "ms" in rec) + f" on {card}")
+    log("36 times", f"phase 36 took {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+def add_any_records(kernels, runs):
+    """Phase 36's numbers: the table forms' records (the 4D run's main
+    path, the 13-offset run's beside it), and the walk forms' numbers on
+    the other runs beside their records (``at_<run>``)."""
+    by_name = {kr["name"]: kr for kr in kernels}
+    main = runs["4d16"]
+    for k in TABLE_KERNELS:
+        kr = dict(main["checks"][k], name=k, route="cuda", source=TABLE_SRC[k],
+                  replaces=TABLE_REPLACES[k], launches=main["launches"].get(k, 0),
+                  library_ms=None, at_shells16=runs["shells16"]["checks"][k])
+        kernels.append(kr)
+    for name, run in runs.items():
+        for k, rec in run["checks"].items():
+            if k in by_name and "ms" in rec and k not in TABLE_KERNELS:
+                by_name[k][f"at_{name}"] = rec
+
+
 def ptxas_entries(text):
     """``(library, None, 0, 0, 0)`` for each library the ``ptxas -v`` log
     of the build names, then ``(None, kernel, registers, shared bytes,
@@ -5841,6 +6227,9 @@ def main():
     # physics scripts
     ac = ac_phase(dev, card)
 
+    # odd extents, extent 1, 1D, 4D and up, more than six offsets
+    anyl = any_phase(dev, card)
+
     mega_src = "peapods_tpu_torch/csrc/mega.cu"
     mega_replaces = "peapods_tpu/ops/pallas_mega.py:96"
     fk_src = "peapods_tpu_torch/csrc/fk.cu"
@@ -5892,6 +6281,7 @@ def main():
     add_space_records(kernels, space)
     add_replica_sweep_records(kernels, rsweeps)
     add_ov_lattice_records(kernels, ovl)
+    add_any_records(kernels, anyl)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     record = {"kernels": [{**{k: kr[k] for k in keys},

@@ -532,6 +532,34 @@ BorderKernel border_kernel(int nb) {
   }
 }
 
+// The table form (4D and up, or 7 to 32 offsets; ops/lattice.Lattice.
+// table): a union-find in global memory over the table's bonds.
+// cc_table_init points every parent at its own site; cc_table_link unites
+// each site with its neighbour fwd[i, d] along every active bond d of its
+// 32-bit state word (uf.cuh unite: the larger root hung under the smaller,
+// so each component's root is its minimum site index, whatever the order of
+// the unions; a self-bond unites a site with itself, nothing); then fk.cu's
+// fk_link_flatten points every parent at its root: the labels, bitwise the
+// min-label fixed point.  A first design, a thread a site.
+__global__ void __launch_bounds__(kThreads)
+cc_table_init_kernel(int32_t* __restrict__ parent, int n) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i < n) parent[static_cast<size_t>(blockIdx.y) * n + i] = i;
+}
+
+__global__ void __launch_bounds__(kThreads)
+cc_table_link_kernel(const uint32_t* __restrict__ state, int32_t* parent,
+                     const int32_t* __restrict__ fwd, int n, int nb) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const size_t base = static_cast<size_t>(blockIdx.y) * n;
+  int32_t* P = parent + base;
+  for (uint32_t st = state[base + i]; st; st &= st - 1u) {
+    const int d = __ffs(st) - 1;
+    unite(P, i, __ldg(fwd + static_cast<size_t>(i) * nb + d));
+  }
+}
+
 bool walk_ok(const CcWalk& g, int n_graphs) {
   if (n_graphs < 1 || n_graphs > 65535 || g.n_nb < 1 || g.n_nb > kMaxOffsets ||
       g.fast_d >= g.n_nb || g.C < 1 || g.C > kCcMaxCluster || g.bs < 1)
@@ -608,6 +636,28 @@ int peapods_cc_link_border(const void* state, void* parent, const int* words, in
                                          : border_kernel<false>(g.n_nb);
   kernel<<<dim3(box_count(g), n_graphs), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(state), static_cast<int32_t*>(parent), g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The table form's two launches (fk.cu's fk_link_flatten completes them):
+// state int32 [n_graphs, n], bit d the bond along offset d (nb <= 32);
+// parent int32 [n_graphs, n]; fwd int32 [n, nb] (device memory).
+int peapods_cc_table_init(void* parent, int n, int n_graphs, void* stream) {
+  if (n_graphs < 1 || n_graphs > 65535 || n < 1 || n > (1 << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cc_table_init_kernel<<<dim3((n + kThreads - 1) / kThreads, n_graphs), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(static_cast<int32_t*>(parent), n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int peapods_cc_table_link(const void* state, void* parent, const void* fwd, int n, int nb,
+                          int n_graphs, void* stream) {
+  if (n_graphs < 1 || n_graphs > 65535 || nb < 1 || nb > 32 || n < 1 || n > (1 << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cc_table_link_kernel<<<dim3((n + kThreads - 1) / kThreads, n_graphs), kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(state), static_cast<int32_t*>(parent),
+      static_cast<const int32_t*>(fwd), n, nb);
   return static_cast<int>(cudaGetLastError());
 }
 

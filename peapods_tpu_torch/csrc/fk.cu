@@ -450,6 +450,52 @@ fk_bonds_staged_kernel(const int8_t* __restrict__ spins, const float* __restrict
                                          vec);
 }
 
+// The table form of fk_bonds_staged (4D and up, or 7 to 32 offsets;
+// ops/lattice.Lattice.table): the bonds of sites 4g .. 4g+3 (thread g) of
+// graph blockIdx.y as one 32-bit word a site, bit d the bond to fwd[i, d]
+// (the int32 table [n, n_nb] in device memory).  The draws are the walk
+// form's, counter for counter: word (site & 3) of Philox keyed by the
+// graph's kb words, counter (d, site / 4, 0, 0); a self-bond is drawn as
+// any other (it joins nothing).  A first design: a group of one graph a
+// thread, a runtime loop over the offsets.
+__global__ void __launch_bounds__(kThreads)
+fk_bonds_table_kernel(const int8_t* __restrict__ spins, const float* __restrict__ j_fwd,
+                      const float* __restrict__ temps, const int32_t* __restrict__ kb,
+                      uint32_t* __restrict__ state, const int32_t* __restrict__ fwd, int n,
+                      int nb, int n_systems) {
+  const int g = blockIdx.x * kThreads + threadIdx.x;
+  const int w0 = 4 * g;
+  if (w0 >= n) return;
+  const int b = blockIdx.y;
+  const int8_t* s = spins + static_cast<size_t>(b) * n;
+  const float* J = j_fwd + static_cast<size_t>(b / n_systems) * n * nb;
+  const float T = temps[b];
+  const uint32_t thr1 = unit_threshold(T);
+  const uint32_t k0 = static_cast<uint32_t>(kb[2 * b]);
+  const uint32_t k1 = static_cast<uint32_t>(kb[2 * b + 1]);
+  const int cnt = min(4, n - w0);
+  float si[4];
+  uint32_t st[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) si[q] = q < cnt ? static_cast<float>(s[w0 + q]) : 0.0f;
+  for (int d = 0; d < nb; ++d) {
+    const uint4 u = philox4x32_10(k0, k1, static_cast<uint32_t>(d), static_cast<uint32_t>(g),
+                                  0u, 0u);
+    const uint32_t uw[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      if (q >= cnt) break;
+      const size_t e = static_cast<size_t>(w0 + q) * nb + d;
+      const float sf = static_cast<float>(s[__ldg(fwd + e)]);
+      if (bond_active(si[q] * sf * __ldg(J + e), uw[q], T, thr1)) st[q] |= 1u << d;
+    }
+  }
+  uint32_t* out = state + static_cast<size_t>(b) * n;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (q < cnt) out[w0 + q] = st[q];
+}
+
 template <int kNb, int kBlocks>
 __global__ void __launch_bounds__(kThreads, kBlocks)
 fk_bonds_band_kernel(const int8_t* __restrict__ spins, const float* __restrict__ j_win,
@@ -1135,6 +1181,23 @@ int peapods_fk_bonds_staged(const void* spins, const void* j_fwd, const void* te
                             int n_systems, int per, void* stream) {
   return launch_bonds<kStagedForm>(spins, j_fwd, temps, kb, state, words, n_graphs, n_systems,
                                    per, stream);
+}
+
+// The table form of peapods_fk_bonds_staged: spins int8 [n_graphs, n];
+// j_fwd f32 [n_graphs / n_systems, n, nb]; state int32 [n_graphs, n], bit d
+// the bond along offset d (nb <= 32); fwd int32 [n, nb] (device memory).
+int peapods_fk_bonds_table(const void* spins, const void* j_fwd, const void* temps,
+                           const void* kb, void* state, const void* fwd, int n, int nb,
+                           int n_graphs, int n_systems, void* stream) {
+  if (n_graphs < 1 || n_graphs > 65535 || n_systems < 1 || n_graphs % n_systems || nb < 1 ||
+      nb > 32 || n < 1 || n > (1 << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  fk_bonds_table_kernel<<<site_grid(n, 4, n_graphs), kThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(spins), static_cast<const float*>(j_fwd),
+      static_cast<const float*>(temps), static_cast<const int32_t*>(kb),
+      static_cast<uint32_t*>(state), static_cast<const int32_t*>(fwd), n, nb, n_systems);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // state: uint8 [n_graphs, n] whose bits 0 .. ndir-1 are the forward bonds;

@@ -1375,7 +1375,9 @@ __device__ __forceinline__ float bond_term(unsigned long long x, int b, float J)
 // design's (ops/overlap.py energy_partials_plain(blocks=True)); m, an
 // integer, is W - 2 popc of each word's sign bits, added over the warp.
 // Sites past n (a padded last block) hold 0, as the first design's idle
-// threads did.
+// threads did.  n is a multiple of 4: the engine measures here only on the
+// square and cubic checkerboards (even extents); a lattice with an odd
+// extent measures with sweep_nb.cu's measure_nb.
 template <int W, bool k3>
 __global__ void __launch_bounds__(kThreads)
 energy_partials_kernel(const int8_t* __restrict__ spins, const float* __restrict__ coup,

@@ -1,6 +1,10 @@
 // Hopper kernels of the per-sweep path on coloured lattices: the triangular,
-// BCC, FCC and 3D cubic lattices and any offset table (up to six forward
-// offsets), by their neighbour offsets and the lattice's greedy colouring.
+// BCC, FCC and cubic lattices, odd extents, 1D chains and any offset table,
+// by their neighbour offsets and the lattice's greedy colouring.  Two forms:
+// the walk form (up to six forward offsets in 1D, 2D or 3D; a 1D chain as
+// [1, L]) finds neighbours from residues, the table form (4D and up, or 7
+// to 32 offsets: sweep_nb_table, measure_nb_table) reads them from the
+// lattice's int32 fwd / bwd tables [n, n_nb] in device memory.
 //
 // Replaces the TPU's
 //   peapods_tpu/ops/pallas_sweep_tri.py:203/238/338 sweep_tri[_fused|_packed]
@@ -30,22 +34,33 @@
 //               53-71) does; the rules are the reference's: Metropolis u <
 //               (15/16) exp(min(-s h / (T/2), 0)), Gibbs -s h >= (T/2) ln(u
 //               / (1 - u)).  A colour is an independent set, so no active
-//               site reads a site that the pass writes (a self-bond reads
-//               the site's own value before the write).
+//               site reads a site that the pass writes.  A self offset (0
+//               modulo every extent, as along an axis of extent 1) adds
+//               nothing: a flip cannot change a self-bond's energy, which
+//               the reference's field counts (ROADMAP.md section 3).  The
+//               walk form knows one from its words (the reduced axis-0
+//               component and both residues 0), the table form from a bit
+//               mask of the host's; neither compares site indices.
 //   measure_nb  per-block partials [d, n_systems, blocks] of e = sum_{i,d}
 //               (s_i s(i + off_d)) J[i, d] and m = sum_i s_i, in a fixed
 //               order with no float atomics; pt_step adds them in order.
 //               It runs on sweeps that measure without an FK update: with
 //               four colours or more a bond joins colours of several kinds,
 //               so the energy cannot ride in the last pass as it does on the
-//               checkerboard.
+//               checkerboard.  Self-bonds count here, as in the reference's
+//               energy.  A lattice of n % 4 != 0 sites ends in a group of
+//               fewer sites, whose absent sites add 0 (the plain version's
+//               padding).
 //
-// Both kernels are templated on the number of offsets and the dimension,
-// and find their neighbours with no runtime division (the H100 has no
-// integer divide instruction: a `/` or `%` by a runtime value is a sequence
-// of about twenty): one multiply-shift division for a group's first site, a
-// step for the next, and each axis of a neighbour wrapped by a residue and
-// one compare (band.cuh, the whole lattice as a window without halo).
+// Both kernels are templated on the number of offsets and the dimension
+// (sweep_nb also on whether the lattice has a self offset, measure_nb on
+// whether n % 4 != 0, so the lattices without either run code with no
+// such test), and find their neighbours with no runtime division (the
+// H100 has no integer divide instruction: a `/` or `%` by a runtime value
+// is a sequence of about twenty): one multiply-shift division for a
+// group's first site, a step for the next, and each axis of a neighbour
+// wrapped by a residue and one compare (band.cuh, the whole lattice as a
+// window without halo).
 // Built with -fmad=false and no fast math, so the field, the acceptance and
 // the (+-1) energies round exactly as the plain torch versions
 // (ops/sweep.py, ops/energy.py).
@@ -90,6 +105,7 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include "band.cuh"
 #include "mega.cuh"
@@ -99,6 +115,14 @@ using namespace peapods;
 namespace {
 
 constexpr int kMaxPer = 8;  // systems a thread of measure_nb: its shared rows
+constexpr int kMaxTableOffsets = 32;  // the table form's offsets: a bit each
+
+// Whether forward offset d joins each site to itself: 0 modulo every extent
+// (the host reduced its axis-0 component into [0, L0); both residues 0).
+// In a kernel d must be known at compile time.
+__host__ __device__ __forceinline__ bool self_offset(const BandWalk& g, int d) {
+  return g.w.off[d][0] == 0 && g.res[d][0] == 0 && g.res[d][1] == 0;
+}
 
 // The neighbour of the site at (r, c1, c2) at +off_d (back = false) or
 // -off_d on the whole periodic lattice, with no division: the host reduces
@@ -129,8 +153,10 @@ __device__ __forceinline__ int nb_site(const BandWalk& g, int r, int c1, int c2,
 // then for each active site every neighbour spin and coupling load (the
 // backward coupling J[i - off_d, d] read from the forward couplings at the
 // neighbour) before the field's adds, and the flips stored after the
-// group's four decisions, so that no load waits for a store.
-template <int NB, bool k3>
+// group's four decisions, so that no load waits for a store.  kSelf: the
+// lattice has a self offset (the host finds it in the words), whose loads
+// and adds each site skips; without one the kernel holds no such test.
+template <int NB, bool k3, bool kSelf>
 __global__ void __launch_bounds__(kThreads)
 sweep_nb_kernel(int8_t* __restrict__ spins, const float* __restrict__ coup,
                 const uint8_t* __restrict__ colours, const float* __restrict__ sys_temps,
@@ -189,6 +215,7 @@ sweep_nb_kernel(int8_t* __restrict__ spins, const float* __restrict__ coup,
       float jn[2 * NB];
 #pragma unroll
       for (int d = 0; d < NB; ++d) {
+        if (kSelf && self_offset(geo, d)) continue;  // uniform: no load, no add
         const int f = nb_site<k3>(geo, r, c1, c2, d, false);
         const int b = nb_site<k3>(geo, r, c1, c2, d, true);
         sn[2 * d] = s[f];
@@ -199,7 +226,9 @@ sweep_nb_kernel(int8_t* __restrict__ spins, const float* __restrict__ coup,
       sv[k] = static_cast<float>(s[i]);
       float field = 0.0f;
 #pragma unroll
-      for (int e = 0; e < 2 * NB; ++e) field = field + static_cast<float>(sn[e]) * jn[e];
+      for (int e = 0; e < 2 * NB; ++e)
+        if (!kSelf || !self_offset(geo, e >> 1))
+          field = field + static_cast<float>(sn[e]) * jn[e];
       const float eng = -sv[k] * field;
       const float u = uniform24(w4[k]);
       bool flip;
@@ -237,8 +266,12 @@ __device__ __forceinline__ float bond_term(int8_t si, int8_t sj, float J) {
 // each system's 256 group sums are staged in shared memory and paired by
 // one warp (warp_tree, the first design's block_partials order), so the
 // partials are bitwise the first design's (ops/energy.py
-// measure_nb_plain(blocks=True)).
-template <int NB, bool k3>
+// measure_nb_plain(blocks=True)).  kTail: n % 4 != 0, so the last group
+// holds fewer sites (the absent ones add 0, the plain version's padding)
+// and a realization's couplings past the first lose their 16-byte
+// alignment (such groups read them one at a time); without a tail the
+// kernel holds no such test.
+template <int NB, bool k3, bool kTail>
 __global__ void __launch_bounds__(kThreads)
 measure_nb_kernel(const int8_t* __restrict__ spins, const float* __restrict__ coup,
                   const BandWalk geo, float* __restrict__ e_part,
@@ -247,23 +280,32 @@ measure_nb_kernel(const int8_t* __restrict__ spins, const float* __restrict__ co
   __shared__ int sm[kMaxPer][kThreads];
   const int n = geo.w.L[0] * geo.block;
   const int i0 = kSitesPerThread * (blockIdx.x * kThreads + threadIdx.x);
-  const bool has = i0 < n;  // n % 4 == 0: a group is whole or absent
+  const bool has = i0 < n;
+  // the group's sites: 4, or fewer in the last group of a tail
+  const int cnt = !has ? 0 : kTail ? min(kSitesPerThread, n - i0) : kSitesPerThread;
   const int dz = blockIdx.z;
   const int sys0 = blockIdx.y * per;
   float jc[kSitesPerThread * NB];
   int nbr[kSitesPerThread][NB];
   if (has) {
-    // the group's 4 NB couplings: 16-byte aligned (the couplings are, and
-    // i0 is a multiple of 4)
-    const float4* cp =
-        reinterpret_cast<const float4*>(coup + (static_cast<size_t>(dz) * n + i0) * NB);
+    const float* cg = coup + (static_cast<size_t>(dz) * n + i0) * NB;
+    if (!kTail || (cnt == kSitesPerThread && reinterpret_cast<uintptr_t>(cg) % 16 == 0)) {
+      // a whole group's 4 NB couplings, 16-byte aligned: every group
+      // without a tail and, with one, every whole group of realization 0
+      // (the couplings are aligned and i0 is a multiple of 4)
+      const float4* cp = reinterpret_cast<const float4*>(cg);
 #pragma unroll
-    for (int u = 0; u < NB; ++u) {
-      const float4 x = __ldg(cp + u);
-      jc[4 * u] = x.x;
-      jc[4 * u + 1] = x.y;
-      jc[4 * u + 2] = x.z;
-      jc[4 * u + 3] = x.w;
+      for (int u = 0; u < NB; ++u) {
+        const float4 x = __ldg(cp + u);
+        jc[4 * u] = x.x;
+        jc[4 * u + 1] = x.y;
+        jc[4 * u + 2] = x.z;
+        jc[4 * u + 3] = x.w;
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < kSitesPerThread * NB; ++u)
+        jc[u] = u < cnt * NB ? __ldg(cg + u) : 0.0f;
     }
     int c1, c2;
     int r = band_coords(geo, i0, c1, c2);
@@ -279,7 +321,8 @@ measure_nb_kernel(const int8_t* __restrict__ spins, const float* __restrict__ co
         }
       }
 #pragma unroll
-      for (int d = 0; d < NB; ++d) nbr[k][d] = nb_site<k3>(geo, r, c1, c2, d, false);
+      for (int d = 0; d < NB; ++d)
+        nbr[k][d] = !kTail || k < cnt ? nb_site<k3>(geo, r, c1, c2, d, false) : i0;
     }
   }
   for (int q = 0; q < per; ++q) {
@@ -291,12 +334,13 @@ measure_nb_kernel(const int8_t* __restrict__ spins, const float* __restrict__ co
       int8_t sn[kSitesPerThread][NB];
 #pragma unroll
       for (int k = 0; k < kSitesPerThread; ++k) {
-        sv[k] = __ldg(s + i0 + k);
+        sv[k] = !kTail || k < cnt ? __ldg(s + i0 + k) : int8_t{0};
 #pragma unroll
         for (int d = 0; d < NB; ++d) sn[k][d] = __ldg(s + nbr[k][d]);
       }
 #pragma unroll
       for (int k = 0; k < kSitesPerThread; ++k) {
+        if (kTail && k >= cnt) break;  // an absent site adds 0
         float e = 0.0f;
 #pragma unroll
         for (int d = 0; d < NB; ++d) e = e + bond_term(sv[k], sn[k][d], jc[k * NB + d]);
@@ -316,6 +360,123 @@ measure_nb_kernel(const int8_t* __restrict__ spins, const float* __restrict__ co
     if (lane == 0) {
       const size_t o =
           (static_cast<size_t>(dz) * n_systems + sys0 + q) * gridDim.x + blockIdx.x;
+      e_part[o] = et;
+      m_part[o] = mt;
+    }
+  }
+}
+
+// The table form of sweep_nb (4D and up, or 7 to 32 offsets): one colour
+// pass of sites 4g .. 4g+3 (thread g) of system blockIdx.y of realization
+// blockIdx.z, with the walk form's Philox block (counter (system, colour,
+// g, 0), site i word i % 4) and rules, so a lattice that both forms take
+// gives the same spins.  The neighbours come from the int32 tables fwd /
+// bwd [n, n_nb] (ops/lattice.Lattice.device_tables); the field adds, for
+// each offset d in order, s[fwd[i, d]] J[i, d] and then s[bwd[i, d]]
+// J[bwd[i, d], d], from 0, the offsets of self_mask left out.  A first
+// design: a runtime loop over the offsets, each load in turn.
+__global__ void __launch_bounds__(kThreads)
+sweep_nb_table_kernel(int8_t* __restrict__ spins, const float* __restrict__ coup,
+                      const uint8_t* __restrict__ colours, const float* __restrict__ sys_temps,
+                      const int32_t* __restrict__ words, const int32_t* __restrict__ fwd,
+                      const int32_t* __restrict__ bwd, int n, int nb, uint32_t self_mask,
+                      int n_systems, int colour, int gibbs) {
+  const int g = blockIdx.x * kThreads + threadIdx.x;
+  const int i0 = kSitesPerThread * g;
+  if (i0 >= n) return;
+  unsigned act = 0;
+#pragma unroll
+  for (int k = 0; k < kSitesPerThread; ++k)
+    act |= static_cast<unsigned>(i0 + k < n && __ldg(colours + i0 + k) == colour) << k;
+  if (!act) return;
+  const int dz = blockIdx.z;
+  const int sys = blockIdx.y;
+  const size_t row = static_cast<size_t>(dz) * n_systems + sys;
+  int8_t* s = spins + row * n;
+  const float* J = coup + static_cast<size_t>(dz) * n * nb;
+  const float T = sys_temps[row];
+  const float half_t = T * 0.5f;
+  const float inv_half_t = 1.0f / (T * 0.5f);
+  const uint4 r4 =
+      philox4x32_10(static_cast<uint32_t>(words[2 * dz]), static_cast<uint32_t>(words[2 * dz + 1]),
+                    static_cast<uint32_t>(sys), static_cast<uint32_t>(colour),
+                    static_cast<uint32_t>(g), 0u);
+  const uint32_t w4[4] = {r4.x, r4.y, r4.z, r4.w};
+  unsigned flips = 0;
+  float sv[kSitesPerThread];
+#pragma unroll
+  for (int k = 0; k < kSitesPerThread; ++k) {
+    sv[k] = 0.0f;
+    if (!((act >> k) & 1u)) continue;
+    const int i = i0 + k;
+    const int32_t* fi = fwd + static_cast<size_t>(i) * nb;
+    const int32_t* bi = bwd + static_cast<size_t>(i) * nb;
+    float field = 0.0f;
+    for (int d = 0; d < nb; ++d) {
+      if ((self_mask >> d) & 1u) continue;
+      const int f = __ldg(fi + d);
+      const int b = __ldg(bi + d);
+      field = field + static_cast<float>(s[f]) * __ldg(J + static_cast<size_t>(i) * nb + d);
+      field = field + static_cast<float>(s[b]) * __ldg(J + static_cast<size_t>(b) * nb + d);
+    }
+    sv[k] = static_cast<float>(s[i]);
+    const float eng = -sv[k] * field;
+    const float u = uniform24(w4[k]);
+    bool flip;
+    if (gibbs) {
+      flip = eng >= half_t * logf(u / (1.0f - u));
+    } else {
+      flip = u < kKeep * expf(fminf(eng * inv_half_t, 0.0f));
+    }
+    flips |= static_cast<unsigned>(flip) << k;
+  }
+#pragma unroll
+  for (int k = 0; k < kSitesPerThread; ++k)
+    if ((flips >> k) & 1u) s[i0 + k] = static_cast<int8_t>(-sv[k]);
+}
+
+// The table form of measure_nb: the (e, m) partials of block blockIdx.x
+// (groups of four sites 4 (256 blockIdx.x + t), thread t) of system
+// blockIdx.y of realization blockIdx.z, in the walk form's order: a site's
+// e is 0 + (s s[fwd[i, d]]) J[i, d] over the offsets in order (self-bonds
+// included, as the reference's energy), the group's values added from 0,
+// the 256 group sums paired by one warp (warp_tree).  A first design: a
+// system a thread, a runtime loop over the offsets.
+__global__ void __launch_bounds__(kThreads)
+measure_nb_table_kernel(const int8_t* __restrict__ spins, const float* __restrict__ coup,
+                        const int32_t* __restrict__ fwd, int n, int nb,
+                        float* __restrict__ e_part, int32_t* __restrict__ m_part,
+                        int n_systems) {
+  __shared__ float se[kThreads];
+  __shared__ int sm[kThreads];
+  const int i0 = kSitesPerThread * (blockIdx.x * kThreads + threadIdx.x);
+  const int dz = blockIdx.z;
+  const size_t row = static_cast<size_t>(dz) * n_systems + blockIdx.y;
+  const int8_t* s = spins + row * n;
+  const float* J = coup + static_cast<size_t>(dz) * n * nb;
+  float acc = 0.0f;
+  int m = 0;
+#pragma unroll
+  for (int k = 0; k < kSitesPerThread; ++k) {
+    const int i = i0 + k;
+    if (i >= n) break;  // an absent site adds 0
+    const int8_t si = __ldg(s + i);
+    const int32_t* fi = fwd + static_cast<size_t>(i) * nb;
+    float e = 0.0f;
+    for (int d = 0; d < nb; ++d)
+      e = e + bond_term(si, __ldg(s + __ldg(fi + d)), __ldg(J + static_cast<size_t>(i) * nb + d));
+    acc += e;
+    m += si;
+  }
+  se[threadIdx.x] = acc;
+  sm[threadIdx.x] = m;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    const float et = warp_tree(se, lane);
+    const int mt = warp_tree(sm, lane);
+    if (lane == 0) {
+      const size_t o = row * gridDim.x + blockIdx.x;
       e_part[o] = et;
       m_part[o] = mt;
     }
@@ -349,52 +510,111 @@ int peapods_sweep_nb(void* spins, const void* coup, const void* colours, const v
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(peapods_nb_blocks(static_cast<int>(n)), n_systems / per, n_disorder);
   const bool k3 = g.w.L[2] > 1;
+  bool self = false;
+  for (int d = 0; d < nb; ++d) self = self || self_offset(g, d);
   auto go = [&](auto kernel) {
     kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<int8_t*>(spins), static_cast<const float*>(coup),
         static_cast<const uint8_t*>(colours), static_cast<const float*>(sys_temps),
         static_cast<const int32_t*>(words), g, n_systems, per, colour, gibbs);
   };
+  auto pick = [&](auto nb_c) {
+    constexpr int NB = decltype(nb_c)::value;
+    if (k3) {
+      self ? go(sweep_nb_kernel<NB, true, true>) : go(sweep_nb_kernel<NB, true, false>);
+    } else {
+      self ? go(sweep_nb_kernel<NB, false, true>) : go(sweep_nb_kernel<NB, false, false>);
+    }
+  };
   switch (nb) {
-    case 1: k3 ? go(sweep_nb_kernel<1, true>) : go(sweep_nb_kernel<1, false>); break;
-    case 2: k3 ? go(sweep_nb_kernel<2, true>) : go(sweep_nb_kernel<2, false>); break;
-    case 3: k3 ? go(sweep_nb_kernel<3, true>) : go(sweep_nb_kernel<3, false>); break;
-    case 4: k3 ? go(sweep_nb_kernel<4, true>) : go(sweep_nb_kernel<4, false>); break;
-    case 5: k3 ? go(sweep_nb_kernel<5, true>) : go(sweep_nb_kernel<5, false>); break;
-    default: k3 ? go(sweep_nb_kernel<6, true>) : go(sweep_nb_kernel<6, false>); break;
+    case 1: pick(std::integral_constant<int, 1>{}); break;
+    case 2: pick(std::integral_constant<int, 2>{}); break;
+    case 3: pick(std::integral_constant<int, 3>{}); break;
+    case 4: pick(std::integral_constant<int, 4>{}); break;
+    case 5: pick(std::integral_constant<int, 5>{}); break;
+    default: pick(std::integral_constant<int, 6>{}); break;
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 // e_part f32 / m_part int32 [d, n_systems, peapods_nb_blocks(n)].  spins
-// int8 [d, n_systems, n]; coup f32 [d, n, n_nb] (forward couplings, 16-byte
-// aligned); walk: as peapods_sweep_nb's; per the systems a thread (a
-// divisor of n_systems, at most kMaxPer; ops/energy.py measure_per).
+// int8 [d, n_systems, n] (any n >= 1); coup f32 [d, n, n_nb] (forward
+// couplings, 16-byte aligned); walk: as peapods_sweep_nb's; per the
+// systems a thread (a divisor of n_systems, at most kMaxPer; ops/energy.py
+// measure_per).
 int peapods_measure_nb(const void* spins, const void* coup, const int* walk, void* e_part,
                        void* m_part, int n_disorder, int n_systems, int per, void* stream) {
   const BandWalk g = make_band_walk(walk);
   const long long n = static_cast<long long>(g.w.L[0]) * g.block;
   const int nb = g.w.n_nb;
   if (n_disorder < 1 || n_disorder > 65535 || n_systems < 1 || per < 1 || per > kMaxPer ||
-      n_systems % per || n_systems / per > 65535 || nb < 1 || nb > kMaxOffsets || n < 4 ||
-      n % 4 || n > (1LL << 31) - 4 || g.hl != g.w.L[0] || g.halo != 0 ||
+      n_systems % per || n_systems / per > 65535 || nb < 1 || nb > kMaxOffsets || n < 1 ||
+      n > (1LL << 31) - 4 || g.hl != g.w.L[0] || g.halo != 0 ||
       reinterpret_cast<uintptr_t>(coup) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const dim3 grid(peapods_nb_blocks(static_cast<int>(n)), n_systems / per, n_disorder);
   const bool k3 = g.w.L[2] > 1;
+  const bool tail = n % 4 != 0;
   auto go = [&](auto kernel) {
     kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int8_t*>(spins), static_cast<const float*>(coup), g,
         static_cast<float*>(e_part), static_cast<int32_t*>(m_part), n_systems, per);
   };
+  auto pick = [&](auto nb_c) {
+    constexpr int NB = decltype(nb_c)::value;
+    if (k3) {
+      tail ? go(measure_nb_kernel<NB, true, true>) : go(measure_nb_kernel<NB, true, false>);
+    } else {
+      tail ? go(measure_nb_kernel<NB, false, true>) : go(measure_nb_kernel<NB, false, false>);
+    }
+  };
   switch (nb) {
-    case 1: k3 ? go(measure_nb_kernel<1, true>) : go(measure_nb_kernel<1, false>); break;
-    case 2: k3 ? go(measure_nb_kernel<2, true>) : go(measure_nb_kernel<2, false>); break;
-    case 3: k3 ? go(measure_nb_kernel<3, true>) : go(measure_nb_kernel<3, false>); break;
-    case 4: k3 ? go(measure_nb_kernel<4, true>) : go(measure_nb_kernel<4, false>); break;
-    case 5: k3 ? go(measure_nb_kernel<5, true>) : go(measure_nb_kernel<5, false>); break;
-    default: k3 ? go(measure_nb_kernel<6, true>) : go(measure_nb_kernel<6, false>); break;
+    case 1: pick(std::integral_constant<int, 1>{}); break;
+    case 2: pick(std::integral_constant<int, 2>{}); break;
+    case 3: pick(std::integral_constant<int, 3>{}); break;
+    case 4: pick(std::integral_constant<int, 4>{}); break;
+    case 5: pick(std::integral_constant<int, 5>{}); break;
+    default: pick(std::integral_constant<int, 6>{}); break;
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The table form (ops/lattice.Lattice.table).  One colour pass of every
+// (realization, system): spins int8 [d, n_systems, n]; coup f32 [d, n,
+// n_nb]; colours uint8 [n]; sys_temps f32 [d, n_systems]; words int32 [d,
+// 2]; fwd, bwd int32 [n, n_nb] (device memory); self_mask: bit d for a self
+// offset d.
+int peapods_sweep_nb_table(void* spins, const void* coup, const void* colours,
+                           const void* sys_temps, const void* words, const void* fwd,
+                           const void* bwd, int n, int nb, int self_mask, int n_disorder,
+                           int n_systems, int colour, int gibbs, void* stream) {
+  if (n_disorder < 1 || n_disorder > 65535 || n_systems < 1 || n_systems > 65535 || nb < 1 ||
+      nb > kMaxTableOffsets || n < 1 || n > (1 << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(peapods_nb_blocks(n), n_systems, n_disorder);
+  sweep_nb_table_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int8_t*>(spins), static_cast<const float*>(coup),
+      static_cast<const uint8_t*>(colours), static_cast<const float*>(sys_temps),
+      static_cast<const int32_t*>(words), static_cast<const int32_t*>(fwd),
+      static_cast<const int32_t*>(bwd), n, nb, static_cast<uint32_t>(self_mask), n_systems,
+      colour, gibbs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// e_part f32 / m_part int32 [d, n_systems, peapods_nb_blocks(n)] of spins
+// int8 [d, n_systems, n] with couplings f32 [d, n, n_nb] on the table fwd
+// int32 [n, n_nb] (device memory).
+int peapods_measure_nb_table(const void* spins, const void* coup, const void* fwd,
+                             void* e_part, void* m_part, int n, int nb, int n_disorder,
+                             int n_systems, void* stream) {
+  if (n_disorder < 1 || n_disorder > 65535 || n_systems < 1 || n_systems > 65535 || nb < 1 ||
+      nb > kMaxTableOffsets || n < 1 || n > (1 << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(peapods_nb_blocks(n), n_systems, n_disorder);
+  measure_nb_table_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(spins), static_cast<const float*>(coup),
+      static_cast<const int32_t*>(fwd), n, nb, static_cast<float*>(e_part),
+      static_cast<int32_t*>(m_part), n_systems);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,13 +10,14 @@ draws) with the numpy threefry (:mod:`~peapods_tpu_torch.engine.seeds`)
 and uploads them in one copy; the kernels then run sweep after sweep with
 no host synchronisation, and the per-sweep rows are folded into the record
 sums on the device.  :func:`run_chunk` takes the replica path when there
-are two replicas or more on a square or cubic lattice without an FK phase
-or snapshots, the mega path for one replica on a square lattice without a
-cluster phase, and the per-sweep path otherwise (a cluster phase,
-snapshots, or any other lattice: triangular, BCC, FCC, 3D cubic with one
-replica, an offset table), with the pair measurement and the overlap moves
-when there are replicas.  On a ``space`` mesh, :func:`run_chunk_space` runs the
-per-sweep path over the lattice's row bands.
+are two replicas or more on a square or cubic lattice with even extents
+without an FK phase or snapshots, the mega path for one replica on such a
+square lattice without a cluster phase, and the per-sweep path otherwise (a
+cluster phase, snapshots, or any other lattice: triangular, BCC, FCC, 3D
+cubic with one replica, odd extents, 1D, 4D and up, an offset table), with
+the pair measurement and the overlap moves when there are replicas.  On a
+``space`` mesh, :func:`run_chunk_space` runs the per-sweep path over the
+lattice's row bands.
 
 The reference's sentinel padding of short chunks and its ``n_inner <= 256``
 SMEM cap exist only to keep one compiled TPU program per chunk length; a
@@ -60,11 +61,15 @@ class Runtime:
     temps_np: np.ndarray  # f32 [n_temps]
     temps: torch.Tensor  # f32 [n_temps]
     slot_temps: torch.Tensor  # f32 [n_replicas * n_temps]: temps by slot
-    # f32 [n_disorder, 2 n_dims, *shape] on hypercubic lattices, else None
+    # f32 [n_disorder, 2 n_dims, *shape] on the square and cubic
+    # checkerboards (Lattice.axes_form), else None
     jgrids: torch.Tensor | None
     coup: torch.Tensor  # f32 [n_disorder, n_spins, n_neighbors] forward couplings
     coup_bwd: torch.Tensor  # f32 [n_disorder, n_spins, n_neighbors]: J[i - off_d, d]
     colours: torch.Tensor  # uint8 [n_spins] the lattice's colouring
+    # int32 (fwd, bwd) [n_spins, n_neighbors] on a table lattice
+    # (Lattice.table: the table form's neighbours), else None
+    tables: tuple | None = None
     # the row bands on a space mesh (the couplings then live in the bands
     # only: jgrids, coup and coup_bwd are None)
     space: SpaceRuntime | None = None
@@ -97,10 +102,11 @@ class Runtime:
             temps=t,
             slot_temps=t.repeat(int(n_replicas)).contiguous(),
             jgrids=(pack_coupling_grids(coup, lattice.shape).contiguous()
-                    if lattice.hypercubic else None),
+                    if lattice.axes_form else None),
             coup=coup.contiguous(),
             coup_bwd=coup_bwd.contiguous(),
             colours=colours,
+            tables=lattice.device_tables(device) if lattice.table else None,
         )
 
     @property
@@ -401,11 +407,11 @@ def run_chunk(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
     """Run sweeps ``s_begin .. s_begin + n - 1`` of a sample() call,
     updating ``state`` and ``acc`` in place: the row bands' path on a space
     mesh; the replica path with two replicas or more on a square or cubic
-    lattice, unless the run has an FK phase or snapshots; the mega path for
-    one replica on a square lattice without a cluster phase; else the
-    per-sweep path (with replicas: the reference's ``_make_step_body``,
-    which its engine runs wherever the pairs megakernel is off,
-    peapods_tpu/engine/loop.py:666-682)."""
+    lattice with even extents, unless the run has an FK phase or snapshots;
+    the mega path for one replica on such a square lattice without a
+    cluster phase; else the per-sweep path (with replicas: the reference's
+    ``_make_step_body``, which its engine runs wherever the pairs
+    megakernel is off, peapods_tpu/engine/loop.py:666-682)."""
     if rt.space is not None:
         run_chunk_space(rt, cfg, state, acc, s_begin, n)
         return
@@ -639,14 +645,15 @@ def run_chunk_sweeps(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
                              measure=not fk_measures, uniforms=u)
         else:
             sweep_nb(flat, rt.coup, rt.coup_bwd, rt.colours, sys_temps, sweep_w[t],
-                     lat, gibbs=gibbs, uniforms=u)
+                     lat, gibbs=gibbs, uniforms=u, tables=rt.tables)
         if k is not None:
             bu = None if bond_u is None else bond_u(k)
             masks = None
             if staged:
                 labels, masks = fk.fk_staged(
                     graphs, rt.coup, graph_temps, None if scal is None else scal[k],
-                    kb_w[k], lat, wolff=wolff, with_masks=observe, uniforms=bu)
+                    kb_w[k], lat, wolff=wolff, with_masks=observe, uniforms=bu,
+                    tables=rt.tables)
             elif observe:
                 labels, masks = fk.fk_observe(graphs, rt.coup, graph_temps, kb_w[k],
                                               uniforms=bu)
@@ -658,10 +665,11 @@ def run_chunk_sweeps(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
             if collect and s >= warmup:
                 _fold_fk_graphs(rt, acc, labels, masks, sid)
         if parts is None:
-            parts = measure_nb(flat, rt.coup, lat)
+            parts = measure_nb(flat, rt.coup, lat, tables=rt.tables)
         if pair_rows is not None:
             megapair.pair_overlap(flat, sid, pair_rows[0][:, t], pair_rows[1][:, t],
-                                  shape=lat.shape, n_replicas=R, offsets=lat.offsets)
+                                  shape=lat.kernel_shape, n_replicas=R,
+                                  offsets=lat.kernel_offsets)
         do_pt = pt_on and s % cfg.pt_interval == 0
         draw = None if not do_pt else (draws[t] if pt_full
                                        else (draws[0][t], draws[1][t]))
@@ -693,8 +701,8 @@ def run_chunk_sweeps(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
             acc.setdefault("snapshots", []).append(snap)
         if do_pt:
             e2 = (parts if events.observe
-                  else overlap.energy_partials(flat, rt.coup, lat.shape) if lat.hypercubic
-                  else measure_nb(flat, rt.coup, lat))
+                  else overlap.energy_partials(flat, rt.coup, lat.shape) if lat.axes_form
+                  else measure_nb(flat, rt.coup, lat, tables=rt.tables))
             parity = mega.pt_step(*e2, None, None, sid, *pt_state, rt.slot_temps, draw,
                                   sys_temps, do_pt=True, parity=parity, **pt_kw)
     state["counter"] = np.int32(counter + n)
@@ -796,7 +804,7 @@ def run_chunk_space(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
         parts = None
         for colour in range(lat.n_colors):
             refresh()
-            measure = (colour == lat.n_colors - 1 and lat.hypercubic
+            measure = (colour == lat.n_colors - 1 and lat.checkerboard
                        and not fk_measures)
             out = [halo.sweep_halo(windows[j], sp.coup_fwd[j], sp.coup_bwd[j],
                                    sp.colours[j], temps_b[j], words_b[j], band, colour,

@@ -2,34 +2,37 @@
 
 Counterpart of ``peapods_tpu/engine/simulation.py`` (:75-436) for the slice
 the port runs today, Metropolis or Gibbs sweeps with optional parallel
-tempering (both schedules), every sweep measured, on lattices with even
-extents, on four paths:
+tempering (both schedules), every sweep measured, on lattices of any
+dimension and extents >= 1 with up to 32 forward offsets, on four paths:
 
-* one replica on a 2D square lattice: the mega path, or the per-sweep path
-  with an FK cluster phase: SW or Wolff updates (with or without cluster
-  statistics), or SW observe (``cluster_action="observe"``: the graph
-  observations, with the winding flags when the lattice was built without
-  explicit offsets);
-* one replica on any other lattice (triangular, BCC, FCC, 3D cubic, an
-  offset table of up to six ``neighbor_offsets``): the per-sweep path, with
-  the same FK phases (on BCC, FCC and offset tables through the staged
-  path: bonds, the connected-components kernels, flips);
-* two replicas or more on a 2D square or 3D cubic lattice: the replica
-  path, with the pair overlaps q and q_l, PT on each replica's ladder and
+* one replica on a 2D square lattice with even extents: the mega path, or
+  the per-sweep path with an FK cluster phase: SW or Wolff updates (with
+  or without cluster statistics), or SW observe
+  (``cluster_action="observe"``: the graph observations, with the winding
+  flags when the lattice was built without explicit offsets);
+* one replica on any other lattice (triangular, BCC, FCC, 3D cubic, odd
+  extents, a 1D chain, 4D and up, an offset table of up to 32
+  ``neighbor_offsets``): the per-sweep path, with the same FK phases (off
+  the square, cubic and triangular lattices with even extents through the
+  staged path: bonds, the connected-components kernels, flips; past three
+  dimensions or six offsets in the kernels' table form);
+* two replicas or more on a 2D square or 3D cubic lattice with even
+  extents: the replica path, with the pair overlaps q and q_l, PT on each
+  replica's ladder and
   the overlap moves (Houdayer(N), Joerg, CMR; Wolff or SW; in round
   robin), with or without their cluster statistics, or observed (SW:
   the graph observations of each move kind, winding on the canonical 2D
   square; the spins untouched);
 * two replicas or more with an FK phase, with ``snapshot_interval``, or on
-  any other lattice: the per-sweep path with the pair overlaps over the
-  lattice's offsets, PT on each replica's ladder, and on square and cubic
-  lattices the overlap moves with their statistics, observations and
-  snapshots (``cluster_snapshots``);
+  any other lattice of up to three dimensions and six offsets: the
+  per-sweep path with the pair overlaps over the lattice's offsets, PT on
+  each replica's ladder, and the overlap moves with their statistics,
+  observations and snapshots (``cluster_snapshots``);
 * one replica on a ``space`` mesh (:func:`~peapods_tpu_torch.parallel.mesh.
   make_mesh` with the axis ``("space",)``; the mesh may name one card for
   every band): the per-sweep path over the lattice's row bands, on every
-  lattice, with the same sweeps, PT and FK updates, bitwise the unsharded
-  per-sweep path.
+  2D or 3D lattice with even extents and up to six offsets, with the same
+  sweeps, PT and FK updates, bitwise the unsharded per-sweep path.
 
 The device is explicit (``device="cuda"`` by default); a CUDA device runs
 the hand-written kernels, ``device="cpu"`` their plain torch versions, and
@@ -181,6 +184,13 @@ class IsingSimulation:
             self.device = band_devices[0]
             if n_replicas > 1:
                 not_ported("replicas on a space mesh", "9")
+            if (lattice.table or lattice.n_dims == 1
+                    or any(x % 2 for x in lattice.shape)):
+                not_ported(f"the lattice {list(lattice.shape)} of {lattice.n_neighbors} "
+                           "offsets on a space mesh", "9")
+        if n_replicas > 1 and lattice.table:
+            not_ported(f"replicas on a {lattice.n_dims}D lattice of "
+                       f"{lattice.n_neighbors} offsets", "4a")
 
         couplings = np.asarray(couplings, dtype=np.float32)
         expected_single = tuple(lattice.shape) + (lattice.n_neighbors,)

@@ -101,8 +101,8 @@ class Ising:
         """Create an Ising model.
 
         Args:
-            lattice_shape: periodic lattice extents, all even: ``(H, W)``
-                or ``(L0, L1, L2)``.
+            lattice_shape: periodic lattice extents (any dimension, each
+                extent >= 1): ``(L,)``, ``(H, W)``, ``(L0, L1, L2)``, ...
             couplings: ``"ferro"`` (all +1), ``"bimodal"`` (random +-1),
                 ``"gaussian"`` (standard normal), or an explicit array of
                 shape ``lattice_shape + (n_neighbors,)`` (optionally with a
@@ -113,10 +113,11 @@ class Ising:
                 overlap moves.
             n_disorder: number of coupling realizations.
             neighbor_offsets: integer offset vectors defining the forward
-                bonds (at most six; mutually exclusive with ``geometry``).
+                bonds (at most 32; mutually exclusive with ``geometry``).
             geometry: named lattice (``"triangular"`` / ``"tri"``,
                 ``"fcc"``, ``"bcc"``); hypercubic when neither is given.
-                Replicas run on square and cubic lattices only.
+                Replicas run on lattices of up to three dimensions and six
+                offsets.
             seed: non-negative integer controlling both coupling synthesis
                 and the dynamics; ``None`` draws fresh entropy.
             device: ``"cuda"`` (the CUDA kernels) or ``"cpu"`` (their plain

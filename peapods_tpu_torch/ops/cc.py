@@ -32,14 +32,14 @@ import torch
 
 from . import _build
 from .cluster import connected_components
-from .lattice import MAX_OFFSETS, fast_divisor
+from .lattice import MAX_OFFSETS, check_tables, fast_divisor
 
 __all__ = ["LAUNCHES", "LinkPlan", "cc_labels", "cc_labels_plain", "launch",
            "link_launches", "link_plan", "link_words", "pack_masks"]
 
 # kernel launches since the last reset, by kernel name (the tiled form's
 # flatten is fk.cu's fk_link_flatten, counted in fk.LAUNCHES)
-LAUNCHES = {"cc_link": 0, "cc_link_border": 0}
+LAUNCHES = {"cc_link": 0, "cc_link_border": 0, "cc_table_init": 0, "cc_table_link": 0}
 
 # csrc/cc.cu kCcSites, kCcThreads, kCcMaxCluster: a box of at most
 # LINK_TILE_SITES sites in a CTA's shared memory, a CTA of at most
@@ -97,8 +97,8 @@ def link_plan(dims, n_graphs: int) -> LinkPlan:
 
 
 def link_launches(shape, n_graphs: int) -> dict:
-    """The launches of one labelling of ``n_graphs`` graphs of ``shape``, by
-    kernel name."""
+    """The launches of one labelling of ``n_graphs`` graphs of ``shape`` (a
+    walk-form lattice's kernel shape), by kernel name."""
     plan = link_plan(_build.dims3(shape), n_graphs)
     names = ("cc_link", "cc_link_border", "fk_link_flatten") if plan.tiled else ("cc_link",)
     return dict.fromkeys(names, 1)
@@ -140,7 +140,7 @@ def link_words(lattice, tile, cluster: int = 1) -> np.ndarray:
     nt2``, ``nt2`` and the slab ``bs``, then the whole-graph form's
     ``cluster`` of CTAs a graph and ``bs = ceil(n / cluster)``, the sites of
     a CTA's slab."""
-    return _words(tuple(int(x) for x in lattice.kernel_geometry), lattice.n_dims,
+    return _words(tuple(int(x) for x in lattice.kernel_geometry), len(lattice.kernel_shape),
                   tuple(int(x) for x in tile), int(cluster))
 
 
@@ -150,22 +150,38 @@ def cc_labels_plain(masks, lattice):
     return connected_components(masks.to(torch.bool), lattice.shape, lattice.offsets)
 
 
-def pack_masks(masks):
-    """uint8 ``[..., n]`` state bytes of bool masks ``[..., n, n_nb]``: bit
-    ``d`` is bond ``d``."""
-    bits = torch.arange(masks.shape[-1], device=masks.device, dtype=torch.uint8)
-    return (masks.to(torch.uint8) << bits).sum(-1, dtype=torch.uint8)
+def pack_masks(masks, dtype=torch.uint8):
+    """``[..., n]`` state words of bool masks ``[..., n, n_nb]``: bit ``d``
+    is bond ``d``; uint8 bytes, or int32 words for the table form."""
+    bits = torch.arange(masks.shape[-1], device=masks.device, dtype=dtype)
+    return (masks.to(dtype) << bits).sum(-1, dtype=dtype)
 
 
-def launch(lib, stream, p_state, p_labels, lattice, n_graphs):
+def launch(lib, stream, p_state, p_labels, lattice, n_graphs, tables=None):
     """Label ``n_graphs`` graphs of ``lattice`` on raw pointers: their state
     bytes (bit ``d``: bond ``d``) in, every label written to ``p_labels``
     (int32 ``[n_graphs, n]``).  ``cc_link``, and where :func:`link_plan`
     cuts a graph into boxes ``cc_link_border`` and ``fk_link_flatten`` on
-    the labels as parents."""
+    the labels as parents.  On a table lattice (:attr:`~.lattice.Lattice.
+    table`) the state is an int32 word a site, and the table form labels it:
+    ``cc_table_init``, ``cc_table_link`` (a union-find in global memory over
+    the table's bonds) and ``fk_link_flatten``, reading the forward table
+    of the checked device ``tables``."""
     from . import fk
 
-    dims = _build.dims3(lattice.shape)
+    if lattice.table:
+        n = lattice.n_spins
+        fwd, _ = tables
+        _build.check(lib.peapods_cc_table_init(p_labels, n, n_graphs, stream),
+                     "cc_table_init")
+        LAUNCHES["cc_table_init"] += 1
+        _build.check(lib.peapods_cc_table_link(p_state, p_labels, fwd.data_ptr(), n,
+                                               lattice.n_neighbors, n_graphs, stream),
+                     "cc_table_link")
+        LAUNCHES["cc_table_link"] += 1
+        fk.launch_flatten(lib, stream, p_labels, n_graphs, n)
+        return
+    dims = _build.dims3(lattice.kernel_shape)
     plan = link_plan(dims, n_graphs)
     words = link_words(lattice, plan.tile, plan.cluster).ctypes.data
     _build.check(lib.peapods_cc_link(p_state, p_labels, words, n_graphs, plan.threads,
@@ -179,22 +195,23 @@ def launch(lib, stream, p_state, p_labels, lattice, n_graphs):
     fk.launch_flatten(lib, stream, p_labels, n_graphs, lattice.n_spins)
 
 
-def cc_labels(masks, lattice):
+def cc_labels(masks, lattice, tables=None):
     """int32 ``[B, n]`` component labels of bool masks ``[B, n, n_nb]`` on
-    ``lattice`` (any offsets, up to six): the plain version for CPU tensors,
-    the kernels for CUDA tensors."""
+    ``lattice`` (any lattice: the table form's past six offsets or three
+    dimensions, on the device ``tables``, :func:`~.lattice.check_tables`):
+    the plain version for CPU tensors, the kernels for CUDA tensors."""
     if _build.device_kind(masks) == "cpu":
         return cc_labels_plain(masks, lattice)
     dev = masks.device
     b = masks.shape[0]
     n, n_nb = lattice.n_spins, lattice.n_neighbors
     _build.expect(masks, "masks", torch.bool, (b, n, n_nb), dev)
-    if n_nb > MAX_OFFSETS:
-        raise ValueError(f"at most {MAX_OFFSETS} offsets")
     if not 1 <= b <= 65535:
         raise ValueError("1 to 65535 graphs per call")
-    state = pack_masks(masks)
+    if lattice.table:
+        check_tables(tables, lattice, dev)
+    state = pack_masks(masks, torch.int32 if lattice.table else torch.uint8)
     labels = torch.empty((b, n), dtype=torch.int32, device=dev)
     launch(_build.library(), torch.cuda.current_stream(dev).cuda_stream,
-           state.data_ptr(), labels.data_ptr(), lattice, b)
+           state.data_ptr(), labels.data_ptr(), lattice, b, tables)
     return labels

@@ -16,12 +16,13 @@ import numpy as np
 import torch
 
 from . import _build
+from .lattice import check_tables
 
 __all__ = ["LAUNCHES", "bond_sums", "energies_and_mags", "per_spin", "site_energies",
            "measure_nb", "measure_nb_plain", "measure_per"]
 
 # kernel launches since the last reset, by kernel name
-LAUNCHES = {"measure_nb": 0}
+LAUNCHES = {"measure_nb": 0, "measure_nb_table": 0}
 
 
 def per_spin(total, n_spins: int):
@@ -112,13 +113,15 @@ def measure_per(n_spins: int, n_disorder: int, n_systems: int, threads: int) -> 
     return systems_per(-(-n_spins // 4), n_disorder, n_systems, threads)
 
 
-def measure_nb(spins, coup_fwd, lattice, per=None):
+def measure_nb(spins, coup_fwd, lattice, per=None, tables=None):
     """The (e, m) partials of every (realization, system) on a coloured
     lattice (see :func:`measure_nb_plain`): the plain version for CPU
     tensors, the ``measure_nb`` kernel for CUDA tensors, whose partials have
     one entry per block of 1024 sites, bitwise ``measure_nb_plain(...,
     blocks=True)``.  ``per``: the systems a thread, in place of
-    :func:`measure_per`'s."""
+    :func:`measure_per`'s.  A table lattice (:attr:`~.lattice.Lattice.table`)
+    takes the table form, ``measure_nb_table``, a system a thread, on its
+    device ``tables`` (:func:`~.lattice.check_tables`)."""
     if _build.device_kind(spins) == "cpu":
         return measure_nb_plain(spins, coup_fwd, lattice)
     from .fk import resident_threads
@@ -132,14 +135,22 @@ def measure_nb(spins, coup_fwd, lattice, per=None):
         raise ValueError("at most 65535 realizations and systems")
     if coup_fwd.data_ptr() % 16:
         raise ValueError("coup_fwd must be 16-byte aligned")
-    per = per or measure_per(n, d, n_sys, resident_threads(dev.index) // 8)
     lib = _build.library()
     nb = lib.peapods_nb_blocks(n)
     e_part = torch.empty((d, n_sys, nb), dtype=torch.float32, device=dev)
     m_part = torch.empty((d, n_sys, nb), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if lattice.table:
+        fwd, _ = check_tables(tables, lattice, dev)
+        _build.check(lib.peapods_measure_nb_table(
+            spins.data_ptr(), coup_fwd.data_ptr(), fwd.data_ptr(), e_part.data_ptr(),
+            m_part.data_ptr(), n, lattice.n_neighbors, d, n_sys, stream),
+            "measure_nb_table")
+        LAUNCHES["measure_nb_table"] += 1
+        return e_part, m_part
+    per = per or measure_per(n, d, n_sys, resident_threads(dev.index) // 8)
     _build.check(lib.peapods_measure_nb(
         spins.data_ptr(), coup_fwd.data_ptr(), lattice.sweep_words.ctypes.data,
-        e_part.data_ptr(), m_part.data_ptr(), d, n_sys, per,
-        torch.cuda.current_stream(dev).cuda_stream), "measure_nb")
+        e_part.data_ptr(), m_part.data_ptr(), d, n_sys, per, stream), "measure_nb")
     LAUNCHES["measure_nb"] += 1
     return e_part, m_part

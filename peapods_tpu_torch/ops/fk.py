@@ -64,7 +64,7 @@ from .cluster import (
     wolff_flip_mask,
 )
 from .energy import per_spin
-from .lattice import MAX_OFFSETS, fast_divisor, neighbour_values, walk_tail
+from .lattice import MAX_OFFSETS, check_tables, fast_divisor, neighbour_values, walk_tail
 
 __all__ = [
     "LAUNCHES",
@@ -108,8 +108,8 @@ __all__ = [
 ]
 
 # kernel launches since the last reset, by kernel name
-LAUNCHES = {"fk_bonds": 0, "fk_bonds_staged": 0, "fk_link": 0, "fk_link_border": 0,
-            "fk_link_flatten": 0, "fk_finish": 0, "fk_bonds_band": 0,
+LAUNCHES = {"fk_bonds": 0, "fk_bonds_staged": 0, "fk_bonds_table": 0, "fk_link": 0,
+            "fk_link_border": 0, "fk_link_flatten": 0, "fk_finish": 0, "fk_bonds_band": 0,
             "fk_finish_band": 0}
 
 # fk_link (csrc/fk.cu kLinkSites, kLinkThreads): a CTA holds a tile of at
@@ -130,9 +130,10 @@ def _ptr(t):
 
 def fused_lattice(lattice) -> bool:
     """Whether the FK kernels (``fk_bonds`` / ``fk_link`` / ``fk_finish``)
-    take the lattice's graphs: square, triangular or 3D cubic.  The others
-    (BCC, FCC, offset tables) take the staged path, :func:`fk_staged`."""
-    return lattice.hypercubic or lattice.triangular
+    take the lattice's graphs: square, triangular or 3D cubic, with even
+    extents.  The others (odd extents, 1D chains, BCC, FCC, offset tables,
+    4D and up) take the staged path, :func:`fk_staged`."""
+    return lattice.axes_form or lattice.triangular
 
 
 def fk_energy_mag(e_part, m_part, n_spins: int):
@@ -227,13 +228,24 @@ def launch_bonds(lib, stream, spins, j_fwd, temps, kb_words, state):
         "fk_bonds")
 
 
-def launch_staged_bonds(lib, stream, spins, j_fwd, temps, kb_words, state, lattice):
+def launch_staged_bonds(lib, stream, spins, j_fwd, temps, kb_words, state, lattice,
+                        tables=None):
     """One ``fk_bonds_staged`` launch on checked CUDA tensors (not counted):
     the bonds of every graph of ``lattice`` (an offset table's, 1 to 6
     offsets; its words :attr:`~.lattice.Lattice.sweep_words`) into ``state``
-    uint8 ``[B, n]``, bit ``k`` the bond along offset ``k``."""
+    uint8 ``[B, n]``, bit ``k`` the bond along offset ``k``; on a table
+    lattice (:attr:`~.lattice.Lattice.table`, up to 32 offsets) the table
+    form ``fk_bonds_table``, into int32 ``[B, n]``, on its checked device
+    ``tables``."""
     b, n = spins.shape[0], lattice.n_spins
     d = j_fwd.shape[0]
+    if lattice.table:
+        fwd, _ = tables
+        _build.check(lib.peapods_fk_bonds_table(
+            spins.data_ptr(), j_fwd.data_ptr(), temps.data_ptr(), kb_words.data_ptr(),
+            state.data_ptr(), fwd.data_ptr(), n, lattice.n_neighbors, b, b // d, stream),
+            "fk_bonds_table")
+        return
     _build.check(lib.peapods_fk_bonds_staged(
         spins.data_ptr(), j_fwd.data_ptr(), temps.data_ptr(), kb_words.data_ptr(),
         state.data_ptr(), lattice.sweep_words.ctypes.data, b, b // d,
@@ -299,8 +311,9 @@ def fk_link_flatten_plain(parent):
 
 def state_masks(state, n_dirs: int):
     """bool ``[B, n, n_dirs]`` bond masks from the kernels' state bytes
-    ``[B, n]``: bits ``0 .. n_dirs - 1``."""
-    bits = torch.arange(n_dirs, device=state.device, dtype=torch.uint8)
+    ``[B, n]`` (or the table form's int32 words): bits ``0 .. n_dirs -
+    1``."""
+    bits = torch.arange(n_dirs, device=state.device, dtype=state.dtype)
     return ((state[..., None] >> bits) & 1).to(torch.bool)
 
 
@@ -682,15 +695,21 @@ def fk_staged_plain(spins, j_fwd, temps, scalars, kb_words, lattice, *, wolff,
 
 
 def fk_staged(spins, j_fwd, temps, scalars, kb_words, lattice, *, wolff,
-              with_masks=False, uniforms=None):
+              with_masks=False, uniforms=None, tables=None):
     """The staged FK path (see :func:`fk_staged_plain`): the plain version
     for CPU tensors; for CUDA tensors ``fk_bonds_staged`` (the state bytes:
     the bonds alone, bits ``0 .. n_nb - 1``), the labelling of
     :func:`.cc.launch` (``cc_link``; where its boxes split a graph,
     ``cc_link_border`` and ``fk_link_flatten``) and, to update,
-    ``fk_finish`` reading the roots from those labels.  Nothing is measured:
-    the caller measures the spins after (``energy.measure_nb``).  The masks
-    are returned when ``with_masks`` (else ``None``)."""
+    ``fk_finish`` reading the roots from those labels.  A table lattice
+    (:attr:`~.lattice.Lattice.table`) takes the table forms: the bonds in an
+    int32 word a site (``fk_bonds_table``), the labelling ``cc_table_init``,
+    ``cc_table_link``, ``fk_link_flatten``, and ``fk_finish`` on the graphs
+    seen as ``[B, 1, n]`` (its words hold three extents; it measures
+    nothing here), reading the neighbours from the device ``tables``
+    (:func:`~.lattice.check_tables`).  Nothing is measured: the caller
+    measures the spins after (``energy.measure_nb``).  The masks are
+    returned when ``with_masks`` (else ``None``)."""
     if _build.device_kind(spins) == "cpu":
         labels, bonds = fk_staged_plain(spins, j_fwd, temps, scalars, kb_words,
                                         lattice, wolff=wolff, uniforms=uniforms)
@@ -704,15 +723,19 @@ def fk_staged(spins, j_fwd, temps, scalars, kb_words, lattice, *, wolff,
     if j_fwd.shape[-1] != lattice.n_neighbors:
         raise ValueError("the couplings do not match the lattice's offsets")
     dev = spins.device
+    if lattice.table:
+        check_tables(tables, lattice, dev)
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    state = torch.empty((b, n), dtype=torch.uint8, device=dev)
+    state = torch.empty((b, n), dtype=torch.int32 if lattice.table else torch.uint8,
+                        device=dev)
     labels = torch.empty((b, n), dtype=torch.int32, device=dev)
-    launch_staged_bonds(lib, stream, spins, j_fwd, temps, kb_words, state, lattice)
-    LAUNCHES["fk_bonds_staged"] += 1
-    cc.launch(lib, stream, state.data_ptr(), labels.data_ptr(), lattice, b)
+    launch_staged_bonds(lib, stream, spins, j_fwd, temps, kb_words, state, lattice, tables)
+    LAUNCHES["fk_bonds_table" if lattice.table else "fk_bonds_staged"] += 1
+    cc.launch(lib, stream, state.data_ptr(), labels.data_ptr(), lattice, b, tables)
     if scalars is not None:
-        fk_finish(spins, None, labels, j_fwd, scalars, wolff=wolff, with_measure=False)
+        flat = spins.view(b, 1, n) if lattice.table else spins
+        fk_finish(flat, None, labels, j_fwd, scalars, wolff=wolff, with_measure=False)
     return labels, state_masks(state, lattice.n_neighbors) if with_masks else None
 
 

@@ -2,19 +2,37 @@
 site colouring.
 
 Counterpart of ``Lattice`` in ``peapods_tpu/ops/lattice.py`` (:26-175) for
-the lattices the port runs: 2D and 3D, with even extents, and at most six
-forward offsets (the named geometries ``GEOMETRY_OFFSETS`` or any offset
-table; one forward bond per axis when none is given).  Sites are in
-row-major order, couplings are stored as ``[n_spins, n_neighbors]`` forward
-bonds (reference layout), and ``fwd`` / ``bwd`` are the int32 tables of the
-neighbour at ``+offset`` / ``-offset`` with each axis wrapped on its own
-(``rem_euclid``).
+every lattice the reference runs: any dimension, any extents >= 1, and up
+to :data:`MAX_TABLE_OFFSETS` forward offsets (the named geometries
+``GEOMETRY_OFFSETS`` or any offset table; one forward bond per axis when
+none is given).  Sites are in row-major order, couplings are stored as
+``[n_spins, n_neighbors]`` forward bonds (reference layout), and ``fwd`` /
+``bwd`` are the int32 tables of the neighbour at ``+offset`` / ``-offset``
+with each axis wrapped on its own (``rem_euclid``).
 
 The colouring is the reference's, site for site, because the per-sweep
 path's site schedule is the colouring: the checkerboard ``sum(coords) & 1``
-on hypercubic lattices (all extents are even), otherwise the greedy pass in
-site order, each site taking the smallest colour unused by its forward and
-backward neighbours of smaller index, self-bonds ignored.
+on hypercubic lattices whose extents are all even, otherwise the greedy
+pass in site order, each site taking the smallest colour unused by its
+forward and backward neighbours of smaller index, self-bonds ignored.
+
+The kernels take a lattice in one of two forms.  The walk form
+(:attr:`Lattice.kernel_geometry`, ``csrc/nb.cuh`` and ``csrc/band.cuh``)
+holds three extents and :data:`MAX_OFFSETS` offsets, and finds neighbours
+from residues; a 1D lattice ``(L,)`` is presented to it as the 2D lattice
+``[1, L]`` with offsets ``[0, o]`` (:attr:`Lattice.kernel_shape`,
+:attr:`Lattice.kernel_offsets`: the same site order, and no axis-0
+component).  The table form (:attr:`Lattice.table`: four dimensions or
+more, or more than six offsets) reads the int32 ``fwd`` / ``bwd`` tables
+from device memory: :meth:`Lattice.device_tables` builds them on a device,
+once a run (``engine.loop.Runtime.tables``), and the table form's wrappers
+take them as ``tables``.
+
+An offset that is 0 modulo every extent joins each site to itself (an axis
+of extent 1 makes one): :attr:`Lattice.self_bonds`.  Its bond counts in the
+energy, as the reference's does, but never in the local field, where the
+reference's ``_roll`` adds ``2 J s_i`` that a flip cannot change (a
+departure by design, ROADMAP.md section 3).
 
 :class:`BandGeometry` splits a lattice into contiguous row bands along its
 leading axis (the ``space`` mesh axis): each band holds its rows plus ``m =
@@ -32,8 +50,10 @@ import torch
 
 from ..engine.config import not_ported
 
-__all__ = ["GEOMETRY_OFFSETS", "MAX_OFFSETS", "Lattice", "Band", "BandGeometry",
-           "hypercubic_offsets", "neighbour_values", "fast_divisor", "walk_tail"]
+__all__ = ["GEOMETRY_OFFSETS", "MAX_OFFSETS", "MAX_TABLE_OFFSETS", "Lattice", "Band",
+           "BandGeometry",
+           "check_tables", "hypercubic_offsets", "neighbour_values", "fast_divisor",
+           "walk_tail"]
 
 # named geometries (peapods_tpu/ops/lattice.py:26-31)
 GEOMETRY_OFFSETS = {
@@ -43,10 +63,27 @@ GEOMETRY_OFFSETS = {
     "bcc": [[1, 1, 1], [1, 1, -1], [1, -1, 1], [1, -1, -1]],
 }
 
-# forward offsets the sweep kernel takes (csrc/sweep_nb.cu kMaxOffsets)
+# forward offsets of the kernels' walk form (csrc/nb.cuh kMaxOffsets)
 MAX_OFFSETS = 6
+# forward offsets of the table form (csrc/sweep_nb.cu kMaxTableOffsets: a
+# 32-bit word of bonds a site, ops/fk.py fk_staged)
+MAX_TABLE_OFFSETS = 32
 
 _TRI = [[1, 0], [0, 1], [1, -1]]
+
+
+def check_tables(tables, lattice, device):
+    """``tables``, the table form's int32 ``(fwd, bwd)`` ``[n_spins,
+    n_neighbors]`` on ``device`` (:meth:`Lattice.device_tables`), checked:
+    a table lattice's wrappers read their neighbours from them."""
+    from . import _build
+
+    if tables is None:
+        raise ValueError(f"a {lattice.n_dims}D lattice of {lattice.n_neighbors} offsets "
+                         "takes the table form: pass tables=lattice.device_tables(device)")
+    for t, name in zip(tables, ("fwd", "bwd")):
+        _build.expect(t, name, torch.int32, (lattice.n_spins, lattice.n_neighbors), device)
+    return tables
 
 
 def hypercubic_offsets(n_dims: int) -> list[list[int]]:
@@ -109,16 +146,14 @@ def _greedy_colours(fwd, bwd):
 
 
 class Lattice:
-    """2D or 3D periodic lattice with even extents: neighbour tables and the
-    site colouring of the per-sweep path."""
+    """Periodic lattice of any dimension and extents >= 1: neighbour tables,
+    the site colouring of the per-sweep path and the kernels' words."""
 
     def __init__(self, shape, offsets=None):
         shape = tuple(int(s) for s in shape)
         n_dims = len(shape)
-        if n_dims not in (2, 3):
-            not_ported(f"a {n_dims}D lattice", "4a")
-        if any(s < 2 or s % 2 for s in shape):
-            not_ported(f"lattice extents {list(shape)} (odd or < 2)", "4a")
+        if n_dims < 1 or any(s < 1 for s in shape):
+            raise ValueError(f"lattice extents {list(shape)} must be >= 1")
         # built without explicit offsets: the reference's canonical lattice,
         # whose 2D form reports winding (peapods_tpu/ops/lattice.py:57-92)
         self.canonical = offsets is None
@@ -129,29 +164,62 @@ class Lattice:
             if len(off) != n_dims:
                 raise ValueError(
                     f"offset {idx} has length {len(off)}, expected {n_dims}")
-        if not 1 <= len(offsets) <= MAX_OFFSETS:
-            not_ported(f"{len(offsets)} neighbour offsets (1 to {MAX_OFFSETS} run)",
+        if not 1 <= len(offsets) <= MAX_TABLE_OFFSETS:
+            not_ported(f"{len(offsets)} neighbour offsets (1 to {MAX_TABLE_OFFSETS} run)",
                        "4a")
         self.shape = shape
         self.n_dims = n_dims
         self.n_neighbors = len(offsets)
         self.n_spins = int(np.prod(shape))
         self.offsets = np.asarray(offsets, dtype=np.int64)
+        even = all(s % 2 == 0 for s in shape)
+        # the offsets are the axes (the reference's _is_hypercubic)
         self.hypercubic = offsets == hypercubic_offsets(n_dims)
-        # 2D with the triangular offsets: the FK kernels' third direction
-        self.triangular = offsets == _TRI
-        if self.hypercubic:
+        # the two-colour checkerboard: hypercubic with every extent even
+        # (peapods_tpu/ops/lattice.py:130-133)
+        self.checkerboard = self.hypercubic and even
+        # 2D with the triangular offsets and even extents: the FK kernels'
+        # third direction
+        self.triangular = offsets == _TRI and even
+        # offsets that join each site to itself (0 modulo every extent)
+        self.self_bonds = (self.offsets % np.asarray(shape) == 0).all(1)
+        # the kernels' table form: more than the walk words hold
+        self.table = n_dims > 3 or self.n_neighbors > MAX_OFFSETS
+        if self.checkerboard:
             self.colors = (np.indices(shape).sum(0) % 2).reshape(-1).astype(np.int32)
         else:
             self.colors = _greedy_colours(self.fwd, self.bwd)
         self.n_colors = int(self.colors.max()) + 1
-        # csrc/sweep_nb.cu's geometry words: L0, L1, L2 (L2 = 1 in 2D), the
-        # number of offsets, six zero-padded offsets of three components
-        off = np.zeros((MAX_OFFSETS, 3), np.int32)
-        off[:self.n_neighbors, :n_dims] = self.offsets
-        self.kernel_geometry = np.concatenate(
-            [shape + (1,) * (3 - n_dims), [self.n_neighbors], off.reshape(-1)]
-        ).astype(np.int32)
+        self.kernel_geometry = None
+        if not self.table:
+            # csrc/nb.cuh's geometry words of kernel_shape: L0, L1, L2 (L2 =
+            # 1 in 2D), the number of offsets, six zero-padded offsets of
+            # three components
+            kshape = self.kernel_shape
+            off = np.zeros((MAX_OFFSETS, 3), np.int32)
+            off[:self.n_neighbors, :len(kshape)] = self.kernel_offsets
+            self.kernel_geometry = np.concatenate(
+                [kshape + (1,) * (3 - len(kshape)), [self.n_neighbors], off.reshape(-1)]
+            ).astype(np.int32)
+
+    @property
+    def kernel_shape(self) -> tuple:
+        """The extents the walk-form kernels take: a 1D lattice ``(L,)`` as
+        ``(1, L)``, any other as it is."""
+        return (1,) + self.shape if self.n_dims == 1 else self.shape
+
+    @property
+    def kernel_offsets(self) -> np.ndarray:
+        """int64 ``[n_neighbors, len(kernel_shape)]``: a 1D lattice's offsets
+        ``[o]`` as ``[0, o]``, any other's as they are."""
+        if self.n_dims == 1:
+            return np.concatenate([np.zeros_like(self.offsets), self.offsets], 1)
+        return self.offsets
+
+    @property
+    def self_mask(self) -> int:
+        """:attr:`self_bonds` as bits: bit ``d`` for a self offset ``d``."""
+        return int(sum(1 << d for d, x in enumerate(self.self_bonds) if x))
 
     @cached_property
     def sweep_words(self) -> np.ndarray:
@@ -159,12 +227,23 @@ class Lattice:
         ``csrc/band.cuh`` ``BandWalk``): the whole periodic lattice as a
         window of all its rows with no halo, each offset's axis-0 component
         reduced into ``[0, L0)`` (the kernel wraps axis 0 with one compare),
-        then :func:`walk_tail`'s residues and divisors."""
+        then :func:`walk_tail`'s residues and divisors.  A self offset is
+        the one whose reduced axis-0 component and residues are all 0."""
+        if self.table:
+            raise ValueError(f"a {self.n_dims}D lattice of {self.n_neighbors} offsets "
+                             "takes the table form")
         geometry = self.kernel_geometry.astype(np.int64)
         L0 = int(geometry[0])
         geometry[4::3] %= L0
         words = np.concatenate([geometry, [L0, 0, 0, L0], walk_tail(geometry)])
         return words.astype(np.uint32).view(np.int32)
+
+    def device_tables(self, device):
+        """int32 ``(fwd, bwd)`` ``[n_spins, n_neighbors]`` copied to
+        ``device``: the table form's neighbours, which its wrappers take as
+        ``tables`` (:func:`check_tables`)."""
+        return tuple(torch.from_numpy(np.ascontiguousarray(t)).to(device)
+                     for t in (self.fwd, self.bwd))
 
     def _table(self, sign):
         shape = self.shape
@@ -187,9 +266,17 @@ class Lattice:
 
     @property
     def square(self) -> bool:
-        """2D with one forward bond per axis: the mega path's and
-        ``sweep_2d``'s lattice."""
-        return self.hypercubic and self.n_dims == 2
+        """The 2D checkerboard (one forward bond per axis, even extents): the
+        mega path's and ``sweep_2d``'s lattice."""
+        return self.checkerboard and self.n_dims == 2
+
+    @property
+    def axes_form(self) -> bool:
+        """The square or cubic checkerboard: the lattices of the kernels'
+        axes forms (the coupling grids, the replica megakernel, the FK
+        kernels' two and three directions, ``energy_partials``, the overlap
+        moves' own form, ``fk_link``'s labelling)."""
+        return self.checkerboard and self.n_dims in (2, 3)
 
     @property
     def canonical_square(self) -> bool:

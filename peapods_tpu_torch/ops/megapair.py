@@ -70,7 +70,7 @@ LAUNCHES = {"pair_overlap": 0}
 def supports_megapair(lattice, n_replicas) -> bool:
     """2D square or 3D cubic lattice with even extents and two replicas or
     more (the TPU's lane and row packing rules do not apply here)."""
-    return isinstance(lattice, Lattice) and lattice.hypercubic and n_replicas >= 2
+    return isinstance(lattice, Lattice) and lattice.axes_form and n_replicas >= 2
 
 
 @dataclass

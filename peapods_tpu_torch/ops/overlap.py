@@ -136,10 +136,11 @@ def geometry(lattice):
     """``(shape, offsets)`` of a move's lattice: its extents and its int64
     forward offsets ``[n_dirs, n_dims]``.  Every function of this module
     takes the lattice as a :class:`~.lattice.Lattice` (any offsets: the
-    triangular, BCC, FCC lattices, offset tables) or as its extents (one
-    forward bond per axis)."""
+    triangular, BCC, FCC lattices, offset tables, odd extents; a 1D chain
+    as its kernel shape ``[1, L]``, :attr:`~.lattice.Lattice.kernel_shape`)
+    or as its extents (one forward bond per axis)."""
     if isinstance(lattice, Lattice):
-        return lattice.shape, lattice.offsets
+        return lattice.kernel_shape, lattice.kernel_offsets
     shape = tuple(int(x) for x in lattice)
     return shape, np.eye(len(shape), dtype=np.int64)
 
@@ -540,8 +541,9 @@ def link_graphs(lib, stream, p_state, p_labels, n_graphs, shape, lattice=None):
     label its component's minimum site index out) with the FK phase's
     labelling of the lattice: ``fk_link`` (``fk.launch_link``) on the
     square, cubic (``lattice`` ``None``: the axes of ``shape``) and
-    triangular lattices, ``cc_link`` (``cc.launch``) on the others."""
-    if lattice is None or lattice.hypercubic or lattice.triangular:
+    triangular lattices with even extents, ``cc_link`` (``cc.launch``) on
+    the others."""
+    if lattice is None or lattice.axes_form or lattice.triangular:
         fk.launch_link(lib, stream, p_state, p_labels, n_graphs, *_build.dims3(shape),
                        tri=lattice is not None and lattice.triangular)
     else:
@@ -583,8 +585,8 @@ def launch_event(lib, stream, dims, p_spins, p_sid, p_tasks, p_coup, p_temps,
         raise ValueError("Houdayer(N > 2) moves have no observe form")
     per = per or ov_per(n, d, n_temps, n_groups, threads,
                         max(1, HOUDN_ROWS // group) if houd else OV_MAX_PER)
-    table = () if lattice is None or lattice.hypercubic else (
-        tuple(map(tuple, lattice.offsets.tolist())),)
+    table = () if lattice is None or lattice.axes_form else (
+        tuple(map(tuple, lattice.kernel_offsets.tolist())),)
     words = ov_words(shape, d, n_temps, n_groups, n_slots, per, *table)
     k = KINDS.index(kind)
     if houd:

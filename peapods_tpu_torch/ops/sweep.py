@@ -50,7 +50,7 @@ import torch
 from . import _build, rng
 from .energy import per_spin
 from .fk import block_partials_plain, resident_threads
-from .lattice import fast_divisor, neighbour_values
+from .lattice import check_tables, fast_divisor, neighbour_values
 
 __all__ = [
     "METROPOLIS_LAZINESS",
@@ -72,7 +72,7 @@ __all__ = [
 ]
 
 # kernel launches since the last reset, by kernel name
-LAUNCHES = {"sweep_2d": 0, "sweep_nb": 0}
+LAUNCHES = {"sweep_2d": 0, "sweep_nb": 0, "sweep_nb_table": 0}
 
 # Acceptance-probability scale 1-eps of the lazy synchronous Metropolis
 # kernel (peapods_tpu/ops/sweep.py:50).
@@ -323,9 +323,12 @@ def nb_local_fields(s, coup_fwd, coup_bwd, lattice):
     peapods_tpu/ops/sweep.py:53-71): ``s`` f32 ``[..., n_spins]``, forward
     and backward couplings ``[..., n_spins, n_neighbors]`` (broadcast);
     ``h += s_fwd * J_fwd[d]``, then ``h += s_bwd * J_bwd[d]``, for each
-    offset ``d`` in order."""
+    offset ``d`` in order, the lattice's self offsets left out (a flip
+    cannot change a self-bond's energy; the reference adds it)."""
     h = torch.zeros_like(s)
     for d, off in enumerate(lattice.offsets):
+        if lattice.self_bonds[d]:
+            continue
         h = h + neighbour_values(s, lattice.shape, off) * coup_fwd[..., d]
         h = h + neighbour_values(s, lattice.shape, -off) * coup_bwd[..., d]
     return h
@@ -376,10 +379,20 @@ def sweep_nb_plain(spins, coup_fwd, coup_bwd, colours, sys_temps, words, lattice
 
 
 def launch_sweep_nb(lib, stream, spins, coup_fwd, colours, sys_temps, words, lattice,
-                    colour, gibbs, per=None):
+                    colour, gibbs, per=None, tables=None):
     """One ``sweep_nb`` launch (one colour) on checked CUDA tensors (not
-    counted); ``per``: the systems a thread (default :func:`systems_per`'s)."""
+    counted); ``per``: the systems a thread (default :func:`systems_per`'s).
+    A table lattice (:attr:`~.lattice.Lattice.table`) takes the table form,
+    ``sweep_nb_table``, a system a thread, on its checked device
+    ``tables``."""
     d, n_sys, n = spins.shape
+    if lattice.table:
+        fwd, bwd = tables
+        _build.check(lib.peapods_sweep_nb_table(
+            spins.data_ptr(), coup_fwd.data_ptr(), colours.data_ptr(), sys_temps.data_ptr(),
+            words.data_ptr(), fwd.data_ptr(), bwd.data_ptr(), n, lattice.n_neighbors,
+            lattice.self_mask, d, n_sys, colour, int(gibbs), stream), "sweep_nb_table")
+        return
     per = per or _per(spins, -(-n // 4), d, n_sys)
     _build.check(lib.peapods_sweep_nb(
         spins.data_ptr(), coup_fwd.data_ptr(), colours.data_ptr(), sys_temps.data_ptr(),
@@ -388,13 +401,15 @@ def launch_sweep_nb(lib, stream, spins, coup_fwd, colours, sys_temps, words, lat
 
 
 def sweep_nb(spins, coup_fwd, coup_bwd, colours, sys_temps, words, lattice, *,
-             gibbs, uniforms=None):
+             gibbs, uniforms=None, tables=None):
     """One sweep of every (realization, system) on a coloured lattice (see
     :func:`sweep_nb_plain`): the plain version for CPU tensors, one launch
-    of the ``sweep_nb`` kernel per colour for CUDA tensors, which reads the
-    backward couplings from ``coup_fwd`` at the neighbour (``coup_bwd`` is
-    the plain version's).  ``uniforms`` (CPU only) are the sweep's Philox
-    uniforms drawn ahead by the caller."""
+    of the ``sweep_nb`` kernel per colour for CUDA tensors (``sweep_nb_table``
+    on a table lattice, reading the neighbours from its device ``tables``,
+    :func:`~.lattice.check_tables`), which reads the backward couplings
+    from ``coup_fwd`` at the neighbour (``coup_bwd`` is the plain
+    version's).  ``uniforms`` (CPU only) are the sweep's Philox uniforms
+    drawn ahead by the caller."""
     if _build.device_kind(spins) == "cpu":
         sweep_nb_plain(spins, coup_fwd, coup_bwd, colours, sys_temps, words,
                        lattice, gibbs=gibbs, uniforms=uniforms)
@@ -411,9 +426,12 @@ def sweep_nb(spins, coup_fwd, coup_bwd, colours, sys_temps, words, lattice, *,
     _build.expect(words, "words", torch.int32, (d, 2), dev)
     if d > 65535 or n_sys > 65535:
         raise ValueError("at most 65535 realizations and systems")
+    if lattice.table:
+        check_tables(tables, lattice, dev)
     lib = _build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    name = "sweep_nb_table" if lattice.table else "sweep_nb"
     for colour in range(lattice.n_colors):
         launch_sweep_nb(lib, stream, spins, coup_fwd, colours, sys_temps, words, lattice,
-                        colour, gibbs)
-        LAUNCHES["sweep_nb"] += 1
+                        colour, gibbs, tables=tables)
+        LAUNCHES[name] += 1

@@ -1972,7 +1972,8 @@ def test_fk_staged_kernels_match_plain(cuda, name, shape, geometry, d, n_sys, te
     torch.cuda.synchronize()
     assert {k: v for k, v in fk.LAUNCHES.items() if v} == {"fk_bonds_staged": 1,
                                                           "fk_finish": 1}
-    assert cc.LAUNCHES == {"cc_link": 1, "cc_link_border": 0}
+    assert cc.LAUNCHES == {"cc_link": 1, "cc_link_border": 0, "cc_table_init": 0,
+                           "cc_table_link": 0}
     assert torch.equal(mk, mp)
     assert torch.equal(lk, lp)
     assert torch.equal(a, p)
@@ -3257,6 +3258,233 @@ def test_overlap_moves_on_lattices_sample_on_card_match_the_cpu(cuda, shape, geo
         assert (key in ra) == (key in rc), key
         for u, v in zip(ra.get(key, []), rc.get(key, [])):
             np.testing.assert_array_equal(np.asarray(u), np.asarray(v), err_msg=key)
+    oa = ra.get("per_disorder", {}).get("cluster_observations", {})
+    oc = rc.get("per_disorder", {}).get("cluster_observations", {})
+    assert list(oa) == list(oc)
+    for name in oc:
+        for key in oc[name]:
+            np.testing.assert_array_equal(oa[name][key], oc[name][key],
+                                          err_msg=f"{name} {key}")
+    sa, sc = ra.get("cluster_snapshots", []), rc.get("cluster_snapshots", [])
+    assert len(sa) == len(sc)
+    for u, v in zip(sa, sc):
+        for key in v:
+            np.testing.assert_array_equal(u[key], v[key], err_msg=key)
+
+
+# ------------------------------------- any lattice (odd extents, 1D, 4D, many offsets)
+
+# the cubic lattice's first three shells: 13 forward offsets
+SHELLS3 = ([[1, 0, 0], [0, 1, 0], [0, 0, 1]]
+           + [[1, s, 0] for s in (1, -1)] + [[1, 0, s] for s in (1, -1)]
+           + [[0, 1, s] for s in (1, -1)]
+           + [[1, a, b] for a in (1, -1) for b in (1, -1)])
+TEN = [[1, 0], [0, 1], [1, 1], [1, -1], [2, 0], [0, 2], [2, 1], [2, -1], [1, 2], [1, -2]]
+# odd extents and the tails of n % 4 != 0 (n = 7, 25, 27), extent 1 (a
+# self-bond), 1D chains as [1, L], and the table form (4D, 13 and 10 offsets)
+SHAPES_4A = [
+    ("chain7", (7,), None, 2, 3),
+    ("5x5", (5, 5), None, 2, 3),
+    ("cubic3", (3, 3, 3), None, 1, 4),
+    ("3x5", (3, 5), None, 1, 2),
+    ("1x6-self", (1, 6), None, 2, 2),
+    ("chain4096", (4096,), None, 1, 8),
+    ("cubic9", (9, 9, 9), None, 2, 4),
+    ("255sq", (255, 255), None, 1, 2),
+    ("tri-5x7", (5, 7), "tri", 1, 3),
+    ("4d4", (4, 4, 4, 4), None, 2, 3),
+    ("4d-2x3x4x5", (2, 3, 4, 5), None, 1, 2),
+    ("shells-16", (16, 16, 16), SHELLS3, 1, 2),
+    ("ten-4x4", (4, 4), TEN, 2, 3),
+    ("4d16", (16, 16, 16, 16), None, 1, 2),
+]
+
+
+@pytest.mark.parametrize("gibbs", [False, True], ids=["metropolis", "gibbs"])
+@pytest.mark.parametrize("name,shape,geometry,d,n_sys", SHAPES_4A,
+                         ids=[s[0] for s in SHAPES_4A])
+def test_any_lattice_sweep_and_measure_match_plain(cuda, name, shape, geometry, d, n_sys,
+                                                   gibbs):
+    """sweep_nb and measure_nb (walk or table form) on the new lattices:
+    four sweeps, spins bitwise the plain sweep (self-bonds out of the
+    field), every partial bitwise ``measure_nb_plain(blocks=True)`` (+-1
+    couplings), the launches of the lattice's form."""
+    from peapods_tpu_torch.ops import energy
+
+    lat, x = _nb_inputs(cuda, 41 + d + n_sys, shape, geometry, d, n_sys)
+    tables = lat.device_tables(cuda) if lat.table else None
+    a, b = x["spins"].clone(), x["spins"].clone()
+    args = (x["coup"], x["coup_bwd"], x["colours"], x["sys_temps"])
+    sn, mn = ("sweep_nb_table", "measure_nb_table") if lat.table else ("sweep_nb",
+                                                                      "measure_nb")
+    sweep.LAUNCHES[sn] = energy.LAUNCHES[mn] = 0
+    for step in range(4):
+        sweep.sweep_nb(a, *args, x["words"], lat, gibbs=gibbs, tables=tables)
+        sweep.sweep_nb_plain(b, *args, x["words"], lat, gibbs=gibbs)
+        ek, mk = energy.measure_nb(a, x["coup"], lat, tables=tables)
+        bp = energy.measure_nb_plain(b, x["coup"], lat, blocks=True)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), step
+        assert torch.equal(ek, bp[0]) and torch.equal(mk, bp[1]), step
+        x["words"] = x["words"] * 3 + 1
+    assert sweep.LAUNCHES[sn] == 4 * lat.n_colors
+    assert energy.LAUNCHES[mn] == 4
+    assert not torch.equal(a, x["spins"])
+
+
+@pytest.mark.parametrize("n", [7, 25, 27, 1, 5])
+def test_measure_nb_tail_gauss_bitwise_block_plain(cuda, n):
+    """measure_nb's last group of n % 4 sites, gaussian couplings, the
+    rule's and every systems-a-thread count: bitwise the plain partials."""
+    from peapods_tpu_torch.ops import energy
+
+    shape = {7: (7,), 25: (5, 5), 27: (3, 3, 3), 1: (1,), 5: (1, 5)}[n]
+    lat, x = _nb_inputs(cuda, 13 + n, shape, None, 3, 4, couplings="gauss")
+    want = energy.measure_nb_plain(x["spins"], x["coup"], lat, blocks=True)
+    for per in (None, 1, 2, 4):
+        ek, mk = energy.measure_nb(x["spins"], x["coup"], lat, per=per)
+        torch.cuda.synchronize()
+        assert torch.equal(ek.view(torch.int32), want[0].view(torch.int32)), per
+        assert torch.equal(mk, want[1]), per
+
+
+@pytest.mark.parametrize("wolff", [False, True], ids=["sw", "wolff"])
+@pytest.mark.parametrize("name,shape,geometry,d,n_sys", SHAPES_4A,
+                         ids=[s[0] for s in SHAPES_4A])
+def test_any_lattice_staged_fk_matches_plain(cuda, name, shape, geometry, d, n_sys, wolff):
+    """The staged FK path on the new lattices (walk form: fk_bonds_staged and
+    cc_link; table form: fk_bonds_table, cc_table_init, cc_table_link,
+    fk_link_flatten), then fk_finish from the labels: masks, labels and
+    spins bitwise the plain staged path."""
+    from peapods_tpu_torch.engine import seeds
+    from peapods_tpu_torch.ops import cc
+
+    geo = "triangular" if geometry == "tri" else geometry
+    lat, x = _staged_inputs(cuda, 17 + wolff, shape, geo, d, n_sys, 3.0)
+    scal = torch.from_numpy(seeds.fk_scalars(x["kf"], lat.n_spins, wolff=wolff)).to(cuda)
+    a, p = x["spins"].clone(), x["spins"].clone()
+    for table in (fk.LAUNCHES, cc.LAUNCHES):
+        for k in table:
+            table[k] = 0
+    args = (x["coup"], x["temps"], scal, x["kb"], lat)
+    tables = lat.device_tables(cuda) if lat.table else None
+    lk, mk = fk.fk_staged(a, *args, wolff=wolff, with_masks=True, tables=tables)
+    lp, mp = fk.fk_staged_plain(p, *args, wolff=wolff)
+    torch.cuda.synchronize()
+    if lat.table:
+        assert {k: v for k, v in fk.LAUNCHES.items() if v} == {
+            "fk_bonds_table": 1, "fk_link_flatten": 1, "fk_finish": 1}
+        assert {k: v for k, v in cc.LAUNCHES.items() if v} == {"cc_table_init": 1,
+                                                              "cc_table_link": 1}
+    else:
+        assert fk.LAUNCHES["fk_bonds_staged"] == 1 and fk.LAUNCHES["fk_finish"] == 1
+        assert cc.LAUNCHES["cc_link"] == 1
+    assert torch.equal(mk, mp)
+    assert torch.equal(lk, lp)
+    assert torch.equal(a, p)
+    assert not torch.equal(a, x["spins"])
+
+
+def test_table_forms_agree_with_walk_forms_at_8cube(cuda):
+    """On 8^3 cubic, which both forms take: sweep_nb and sweep_nb_table give
+    the same spins (the same Philox words and counters), measure_nb_table
+    the same partials, fk_bonds_table the same bonds as fk_bonds_staged,
+    and the table labelling the same labels as cc_link; the table form
+    refuses to run without its device tables."""
+    import copy
+
+    from peapods_tpu_torch.ops import cc, energy
+
+    lat, x = _nb_inputs(cuda, 77, (8, 8, 8), None, 2, 4, couplings="gauss")
+    tab = copy.copy(lat)
+    tab.table = True
+    tables = tab.device_tables(cuda)
+    a, b = x["spins"].clone(), x["spins"].clone()
+    args = (x["coup"], x["coup_bwd"], x["colours"], x["sys_temps"])
+    with pytest.raises(ValueError, match="table form"):
+        sweep.sweep_nb(b, *args, x["words"], tab, gibbs=False)
+    for gibbs in (False, True, False):
+        sweep.sweep_nb(a, *args, x["words"], lat, gibbs=gibbs)
+        sweep.sweep_nb(b, *args, x["words"], tab, gibbs=gibbs, tables=tables)
+        x["words"] = x["words"] * 5 + 3
+    ew, mw = energy.measure_nb(a, x["coup"], lat)
+    et, mt = energy.measure_nb(b, x["coup"], tab, tables=tables)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b) and not torch.equal(a, x["spins"])
+    assert torch.equal(ew.view(torch.int32), et.view(torch.int32)) and torch.equal(mw, mt)
+    _, y = _staged_inputs(cuda, 78, (8, 8, 8), None, 2, 4, 4.5)
+    g = y["spins"].shape[0]
+    lib, stream = _build.library(), torch.cuda.current_stream(cuda).cuda_stream
+    sw = torch.empty((g, 512), dtype=torch.uint8, device=cuda)
+    st = torch.empty((g, 512), dtype=torch.int32, device=cuda)
+    fk.launch_staged_bonds(lib, stream, y["spins"], y["coup"], y["temps"], y["kb"], sw, lat)
+    fk.launch_staged_bonds(lib, stream, y["spins"], y["coup"], y["temps"], y["kb"], st, tab,
+                           tables)
+    lw = torch.empty((g, 512), dtype=torch.int32, device=cuda)
+    lt = torch.empty_like(lw)
+    cc.launch(lib, stream, sw.data_ptr(), lw.data_ptr(), lat, g)
+    cc.launch(lib, stream, st.data_ptr(), lt.data_ptr(), tab, g, tables)
+    torch.cuda.synchronize()
+    assert torch.equal(sw.to(torch.int32), st)
+    assert torch.equal(lw, lt)
+    assert (lw != torch.arange(512, device=cuda)).any()
+
+
+@pytest.mark.parametrize("shape,geometry,n_rep,kw", [
+    ((5, 5), None, 1, dict(pt_interval=1, cluster_update_interval=1,
+                           collect_cluster_stats=True)),
+    ((5, 7), None, 1, dict(pt_interval=1, cluster_update_interval=1,
+                           cluster_action="observe")),
+    ((8,), None, 1, dict(pt_interval=1, cluster_update_interval=1, cluster_mode="wolff")),
+    ((4, 4, 4, 4), None, 1, dict(pt_interval=1, cluster_update_interval=1,
+                                 collect_cluster_stats=True)),
+    ((4, 4), TEN, 1, dict(pt_interval=1, cluster_update_interval=2,
+                          cluster_action="observe")),
+    ((3, 3, 3), None, 4, dict(pt_interval=1, overlap_cluster_update_interval=1,
+                              overlap_cluster_build_mode="cmr+houd4",
+                              collect_cluster_stats=True)),
+    ((1, 6), None, 2, dict(pt_interval=1, overlap_cluster_update_interval=1,
+                           overlap_cluster_build_mode="jorg+houdayer",
+                           overlap_cluster_mode="sw")),
+    ((7,), None, 2, dict(pt_interval=1, cluster_update_interval=2,
+                         overlap_cluster_update_interval=2, snapshot_interval=4,
+                         overlap_cluster_build_mode="houdayer")),
+    ((5, 5), None, 2, dict(pt_interval=1, overlap_cluster_update_interval=1,
+                           overlap_cluster_build_mode="houdayer+jorg+cmr",
+                           overlap_cluster_mode="sw", overlap_cluster_action="observe")),
+], ids=["5x5-sw-stats", "5x7-observe-winding", "chain8-wolff", "4d4-sw-stats",
+        "ten-observe", "cubic3-cmr-houd4", "1x6-jorg-houdayer", "chain7-fk-snapshots",
+        "5x5-overlap-observe"])
+def test_any_lattice_sample_on_card_matches_the_cpu(cuda, shape, geometry, n_rep, kw):
+    """The port through ``Ising.sample`` on the card and on the CPU, one
+    trajectory: states, records, statistics, observations and snapshots
+    equal (+-1 couplings: every sum an exact integer)."""
+    geo = {} if geometry is None else dict(neighbor_offsets=geometry)
+    temps = np.geomspace(1.5, 6.0, 3).astype(np.float32)
+
+    def model(dev):
+        return Ising(shape, couplings="bimodal", temperatures=temps, n_replicas=n_rep,
+                     seed=6, n_disorder=2, device=dev, **geo)
+
+    a, c = model("cuda"), model("cpu")
+    ra, rc = a.sample(24, **kw), c.sample(24, **kw)
+    for key in ("spins", "system_ids", "pt_edge_acceptances", "pt_round_trips"):
+        assert torch.equal(a._sim.state[key].cpu(), c._sim.state[key]), key
+    keys = ["energies", "energies2", "mags", "mags2"]
+    if n_rep > 1:
+        keys += ["overlap2", "link_overlap"]
+    for key in keys:
+        np.testing.assert_allclose(ra[key], rc[key], rtol=1e-12, err_msg=key)
+    for key in ("fk_csd", "overlap_csd"):
+        assert (key in ra) == (key in rc), key
+        if key in rc:
+            np.testing.assert_array_equal(np.asarray(ra[key]), np.asarray(rc[key]),
+                                          err_msg=key)
+    # the top-4 fractions: f64 sums of exact fractions, added in another order
+    assert ("top_cluster_sizes" in ra) == ("top_cluster_sizes" in rc)
+    if "top_cluster_sizes" in rc:
+        np.testing.assert_allclose(np.asarray(ra["top_cluster_sizes"]),
+                                   np.asarray(rc["top_cluster_sizes"]), rtol=1e-12)
     oa = ra.get("per_disorder", {}).get("cluster_observations", {})
     oc = rc.get("per_disorder", {}).get("cluster_observations", {})
     assert list(oa) == list(oc)

@@ -449,16 +449,24 @@ def test_geometry_api_matches_reference():
     # SW on BCC runs (the staged path), with replicas too
     (dict(lattice_shape=(4, 4, 4), geometry="bcc", n_replicas=2),
      dict(cluster_update_interval=1, cluster_mode="sw"), None),
-    (dict(lattice_shape=(4, 5), geometry="tri"), None, "4a"),
+    # odd extents run (item 4a), with replicas and the moves' table form
+    (dict(lattice_shape=(4, 5), geometry="tri", n_replicas=2),
+     dict(overlap_cluster_update_interval=1), None),
     # the overlap moves run on the triangular lattice (item 7d)
     (dict(lattice_shape=(4, 4), geometry="tri", n_replicas=2),
      dict(overlap_cluster_update_interval=1), None),
-], ids=["replicas-tri", "sw-bcc", "odd-extents", "overlap-tri"])
+    # replicas past three dimensions or six offsets, and more than 32
+    # offsets, still raise
+    (dict(lattice_shape=(2, 2, 2, 2), n_replicas=2), None, "4a"),
+    (dict(lattice_shape=(4, 4), neighbor_offsets=[[1, 0]] * 33), None, "4a"),
+], ids=["replicas-tri", "sw-bcc", "odd-extents", "overlap-tri", "replicas-4d",
+        "offsets-33"])
 def test_out_of_slice_geometry_options_raise(kwargs, sample, item):
     """Options outside the slice raise, naming the ROADMAP item; replicas on
     the triangular and BCC lattices run (item 7a), with overlap moves too
-    (item 7d): the pair records over the lattice's offsets, finite, q_l a
-    mean over n_spins * n_neighbors bonds."""
+    (item 7d), on odd extents too (item 4a): the pair records over the
+    lattice's offsets, finite, q_l a mean over n_spins * n_neighbors
+    bonds."""
     if item is not None:
         match = f"ROADMAP.md, queue 1, item {item}"
         with pytest.raises(NotImplementedError, match=match):

@@ -71,11 +71,17 @@ def test_named_geometries_are_the_reference_ones():
 
 
 def test_lattice_outside_the_slice_raises():
-    for bad in ((5, 4), (4, 4, 5), (4,), (2, 2, 2, 2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            Lattice(bad)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        Lattice((4, 4), [[1, 0]] * 7)  # more offsets than the kernel takes
+    """Every dimension, extent >= 1 and up to 32 offsets builds (item 4a),
+    past three dimensions or six offsets in the kernels' table form; 33
+    offsets raise, naming the ROADMAP item; extents < 1 and an offset of
+    the wrong length raise ValueError."""
+    for shape in ((5, 4), (4, 4, 5), (4,), (2, 2, 2, 2)):
+        assert Lattice(shape).table == (len(shape) > 3)
+    assert Lattice((4, 4), [[1, 0]] * 7).table  # more offsets than the walk words
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1, item 4a"):
+        Lattice((4, 4), [[1, 0]] * 33)
+    with pytest.raises(ValueError, match="must be >= 1"):
+        Lattice((4, 0))
     with pytest.raises(ValueError, match="offset 1 has length 3"):
         Lattice((4, 4), [[1, 0], [0, 1, 0]])
 

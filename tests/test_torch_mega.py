@@ -120,9 +120,9 @@ def test_dispatch_and_gate():
     assert mega.supports_mega(Lattice((4, 6)), 1)
     assert not mega.supports_mega(Lattice((4, 6)), 2)
     assert not mega.supports_mega(Lattice((4, 4, 4)), 1)  # 3D: replica path only
-    for bad in ((5, 4), (4, 4, 5), (4,)):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            Lattice(bad)
+    # odd extents and 1D chains build (item 4a) and take the per-sweep path
+    for bad in ((5, 4), (4, 4, 5), (4,), (1, 4)):
+        assert not mega.supports_mega(Lattice(bad), 1)
     # CPU tensors take the plain version and count no kernel launch
     mega.reset_launches()
     spins = torch.ones((1, 2, 4, 4), dtype=torch.int8)
