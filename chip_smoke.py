@@ -121,7 +121,22 @@ through the user's entry points:
   flagship saved after 2048 sweeps and resumed bitwise the uninterrupted
   run (the file loading on the CPU too), and
   ``tests/autocorrelation_scaling.py`` and ``tests/overlap_histogram.py``
-  through ``tools/physics_torch.py``, each passing its own assertions.
+  through ``tools/physics_torch.py``, each passing its own assertions;
+* any lattice (phase 36): odd extents, extent 1, 1D, 4D and up and more
+  than six offsets at full width, each twice from one seed;
+* the Python layer (phase 37): ``peapods-torch simulate`` on the flagship
+  configuration through ``cli.main`` in this process (16 ``mega_resident``
+  launches, 24 rows, the ``.npz`` bitwise ``Ising(...).sample(...)``),
+  ``bench`` beside phase 4's rate, ``sweep --config`` on
+  ``examples/sweep_config.toml`` at its own widths cut to 2000 sweeps
+  (both labels' files with ``_model_npz_entries``' keys, finite, the FK
+  histograms summing to n_spins x graphs, the 8^3 runs again bitwise),
+  ``utils/profiling.py`` ``trace()`` around flagship and config-3 sweeps
+  (the ``peapods/sweep`` and ``peapods/measure`` scopes and the kernels'
+  names in the Chrome trace, launches and checksums as outside it), a
+  flagship run interrupted from ``progress`` and resumed bitwise, and a
+  checkpoint whose dynamics seed is 2^63 or more loaded on the card and
+  on the CPU.
 
 Each path's launch counts are zeroed just before its main run and read just
 after.  Every phase prints lines; any failure raises and the script exits
@@ -6040,6 +6055,363 @@ def add_any_records(kernels, runs):
                 by_name[k][f"at_{name}"] = rec
 
 
+# ------------------------------------------------ the Python layer (item 6)
+
+
+# Phase 37: the user's entry points at full width.  37a and 37b run the CLI
+# in this process on the flagship configuration (cli.py's argv; Ising's
+# dynamics seed derives from --seed, so its checksum is not
+# FLAGSHIP_CHECKSUM); 37c runs `peapods-torch sweep` on
+# examples/sweep_config.toml at its own widths (8^3 and 10^3 +-J, 12
+# temperatures, R = 2, 16 realizations, full-ladder PT, Houdayer and CMR SW
+# every sweep, SW every 2 sweeps with statistics, fft autocorrelation to
+# lag 1000, the equilibration diagnostic), cut in depth only: --n-sweeps
+# PY_SWEEP_SWEEPS instead of 10000.
+PY_SWEEP_SWEEPS = 2000
+PY_TRACE_SWEEPS = {"flagship": 512, "config3": 64}
+PY_TRACE_KERNELS = {"flagship": ("mega_resident",),
+                    "config3": ("sweep_2d", "fk_bonds", "fk_link", "fk_finish", "pt_step")}
+PY_INTERRUPT_SWEEPS = 512
+# the kernels a run of the sweep study launches (3D cubic, R = 2: the
+# per-sweep replica path with the fused FK kernels, Houdayer's and CMR's
+# moves, energies re-derived for PT after a move)
+PY_SWEEP_KERNELS = ("sweep_nb", "measure_nb", "fk_bonds", "fk_link", "fk_finish",
+                    "pair_overlap", "pt_step", "houdn_bonds", "houdn_finish", "ov_bonds",
+                    "ov_mid", "ov_finish", "energy_partials")
+
+
+def reset_all_counts():
+    reset_space_counts()
+    reset_pair_counts()
+
+
+def all_counts():
+    """Every kernel's launches since the last reset, those that ran."""
+    from peapods_tpu_torch.ops import mega, megapair, overlap
+
+    counts = {**space_counts(), **mega.LAUNCHES, **megapair.LAUNCHES, **overlap.LAUNCHES}
+    return {k: v for k, v in counts.items() if v}
+
+
+def py_flagship():
+    """The flagship's arguments on the command line."""
+    return ["--shape", str(L), str(L), "--temp-min", "1.8", "--temp-max", "3.2",
+            "--n-temps", str(N_TEMPS), "--pt-interval", "1", "--n-sweeps",
+            str(FLAGSHIP_SWEEPS), "--seed", str(SEED)]
+
+
+def cli_run(argv):
+    """``peapods_tpu_torch.cli.main(argv)`` in this process: its printed
+    text and seconds."""
+    import contextlib
+    import io
+
+    from peapods_tpu_torch import cli
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(argv)
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def py_simulate(dev, card, tmp):
+    """Phase 37a: ``simulate`` on the flagship configuration with ``-o``:
+    16 ``mega_resident`` launches, a table of 24 rows, and every array of
+    the file bitwise ``Ising(...).sample(...)`` with the same arguments
+    (exported by the CLI's own ``_export_payload``)."""
+    from peapods_tpu_torch import Ising, cli
+
+    path = f"{tmp}/simulate.npz"
+    reset_all_counts()
+    argv = py_flagship()
+    text, secs = cli_run(["simulate", *argv, "-o", path])
+    launches = all_counts()
+    want = {"mega_resident": -(-FLAGSHIP_SWEEPS // 256)}
+    if launches != want:
+        raise AssertionError(f"simulate's launch counts {launches}, expected {want}")
+    lines = text.splitlines()
+    dash = next(i for i, ln in enumerate(lines) if ln.startswith("---"))
+    rows = [ln for ln in lines[dash + 1:] if ln.strip() and not ln.startswith("Results")]
+    if len(rows) != N_TEMPS or lines[-1] != f"Results saved to {path}":
+        raise AssertionError(f"simulate printed {len(rows)} rows: {text[-400:]}")
+    model = Ising((L, L), temperatures=cli._temperature_grid(1.8, 3.2, N_TEMPS, "log"),
+                  seed=SEED, device=dev)
+    result = model.sample(FLAGSHIP_SWEEPS, pt_interval=1)
+    want = cli._export_payload(model, result)
+    with np.load(path) as data:
+        got = {k: data[k] for k in data.files}
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"simulate's keys {sorted(got)}, Ising's {sorted(want)}")
+    bad = [k for k in want if got[k].dtype != np.asarray(want[k]).dtype
+           or got[k].tobytes() != np.asarray(want[k]).tobytes()]
+    if bad:
+        raise AssertionError(f"simulate's arrays {bad} differ from Ising.sample's")
+    if not all(np.isfinite(v).all() for v in got.values() if v.dtype.kind == "f"):
+        raise AssertionError("simulate wrote a value that is not finite")
+    log("37a simulate", f"peapods-torch simulate {' '.join(argv)} -o FILE in "
+        f"{secs:.2f} s: launches {launches}; {len(rows)} rows under `{lines[dash - 1].strip()}`; "
+        f"{len(got)} arrays ({', '.join(sorted(got))}) bitwise Ising.sample's with the "
+        f"same arguments ({card})")
+    return dict(seconds=secs, launches=launches, rows=len(rows), arrays=len(got))
+
+
+def py_bench(card, sweeps_s):
+    """Phase 37b: ``bench`` on the flagship configuration: its line beside
+    phase 4's rate (both host clocks in this process)."""
+    reset_all_counts()
+    text, _ = cli_run(["bench", *py_flagship()])
+    launches = all_counts()
+    if launches != {"mega_resident": -(-FLAGSHIP_SWEEPS // 256)}:
+        raise AssertionError(f"bench's launch counts {launches}")
+    found = re.search(r"Total: ([0-9.]+) s  \|  ([0-9.]+) ms/sweep", text)
+    if found is None:
+        raise AssertionError(f"bench printed no ms/sweep: {text}")
+    secs, ms = float(found.group(1)), float(found.group(2))
+    for line in text.strip().splitlines():
+        log("37b bench", line)
+    log("37b bench", f"the CLI's {secs:.3f} s for {FLAGSHIP_SWEEPS} sweeps ({ms:.3f} ms/sweep "
+        f"as printed; one cold sample() call of a new model) beside phase 4's "
+        f"{1e3 / sweeps_s:.4f} ms/sweep ({sweeps_s:.1f} sweeps/s, median of warm calls); "
+        f"host clocks in one process, on {card}")
+    return dict(seconds=secs, ms_per_sweep=ms, phase4_sweeps_s=sweeps_s)
+
+
+def sweep_config_copy(tmp, out, save_plots):
+    """examples/sweep_config.toml copied into ``tmp`` with its ``[output]
+    dir`` set to ``out`` and ``save_plots`` to ``save_plots``."""
+    from pathlib import Path
+
+    text = (Path(__file__).resolve().parent / "examples" / "sweep_config.toml").read_text()
+    for key, value in (("dir", f'"{out}"'), ("save_plots", str(save_plots).lower())):
+        text, n = re.subn(rf"(?m)^{key} = .*$", f"{key} = {value}", text)
+        if n != 1:
+            raise AssertionError(f"sweep_config.toml has {n} lines for {key}")
+    path = Path(tmp) / "sweep_config.toml"
+    path.write_text(text)
+    return path
+
+
+def py_sweep(dev, card, tmp):
+    """Phase 37c: ``peapods-torch sweep --config`` on the example study at
+    its own widths, cut in depth: both labels' files with the keys of
+    ``_model_npz_entries``, every value finite, each FK histogram summing to
+    n_spins x its graphs, and the 8^3 runs again from the same seed bitwise
+    equal."""
+    import importlib.util
+
+    from peapods_tpu_torch import cli, sweep
+
+    plots = importlib.util.find_spec("matplotlib") is not None
+    cfg = cli._load_sweep_config(sweep_config_copy(tmp, f"{tmp}/sweep", plots))
+    runs = {}
+    saved = cli.run_sweep
+
+    def keep(*args, **kw):
+        runs[kw["output_dir"]] = saved(*args, **kw)
+        return runs[kw["output_dir"]]
+
+    cli.run_sweep = keep
+    try:
+        reset_all_counts()
+        text, secs = cli_run(["sweep", "--config", f"{tmp}/sweep_config.toml",
+                              "--n-sweeps", str(PY_SWEEP_SWEEPS)])
+        launches = all_counts()
+        again, secs_again = cli_run(["sweep", "--config", f"{tmp}/sweep_config.toml",
+                                     "--n-sweeps", str(PY_SWEEP_SWEEPS), "--sizes", "8,8,8",
+                                     "--output-dir", f"{tmp}/again"])
+    finally:
+        cli.run_sweep = saved
+    missing = [k for k in PY_SWEEP_KERNELS if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"the sweep launched none of {missing}: {launches}")
+    results = runs[f"{tmp}/sweep"]
+    labels = sorted(results)
+    if labels != ["bimodal_cmr_sw", "bimodal_sw"]:
+        raise AssertionError(f"the sweep's labels {labels}")
+    n, warmup = PY_SWEEP_SWEEPS, int(np.floor(PY_SWEEP_SWEEPS * cfg["warmup_ratio"] + 0.5))
+    fk_phases = len([s for s in range(warmup, n) if s % cfg["cluster_interval"] == 0])
+    checks = []
+    for label in labels:
+        with np.load(f"{tmp}/sweep/sweep_{label}.npz") as data:
+            got = {k: data[k] for k in data.files}
+        with np.load(f"{tmp}/again/sweep_{label}.npz") as data:
+            twice = {k: data[k] for k in data.files}
+        want = {"temperatures"}
+        for size, model in results[label].items():
+            want |= set(sweep._model_npz_entries(size, model))
+            graphs = fk_phases * cfg["n_replicas"] * cfg["n_disorder"]
+            csd = np.stack(model.fk_csd)  # a uint64 histogram a temperature
+            sums = (csd * np.arange(csd.shape[-1], dtype=np.uint64)).sum(-1)
+            if csd.shape != (cfg["n_temps"], model.n_spins + 1) or (
+                    sums != model.n_spins * graphs).any():
+                raise AssertionError(f"{label} {size}: fk_csd {csd.shape}, sums "
+                                     f"{sums.tolist()} (want {model.n_spins * graphs})")
+        if set(got) != want:
+            raise AssertionError(f"{label}: keys {sorted(got)}, _model_npz_entries "
+                                 f"{sorted(want)}")
+        bad = [k for k, v in got.items() if v.dtype.kind == "f" and not np.isfinite(v).all()]
+        if bad:
+            raise AssertionError(f"{label}: not finite in {bad}")
+        same = sorted(twice) == sorted(k for k in got if not k.startswith("10x10x10_"))
+        differ = [k for k in twice if got[k].tobytes() != twice[k].tobytes()
+                  or got[k].dtype != twice[k].dtype]
+        if not same or differ:
+            raise AssertionError(f"{label}: the 8^3 run again differs in {differ} (keys "
+                                 f"equal {same})")
+        checks.append(f"{label}: {len(got)} keys, finite, 8^3 twice bitwise ({len(twice)} "
+                      "arrays)")
+    runs_s = [float(x) for x in re.findall(r"^  ([0-9.]+)s$", text, re.M)]
+    for line in text.strip().splitlines():
+        if line.strip():
+            log("37c sweep", line)
+    log("37c sweep", f"examples/sweep_config.toml at its widths, --n-sweeps {n} (the file "
+        f"says 10000), save_plots {plots}: {secs:.1f} s, runs {runs_s} s; launches "
+        f"{launches}; " + "; ".join(checks) + f"; sum_s s fk_csd[T, s] = n_spins x "
+        f"{fk_phases} FK phases x R x d at every T; the 8^3 runs again in "
+        f"{secs_again:.1f} s ({card})")
+    return dict(seconds=secs, runs_s=runs_s, launches=launches, plots=plots,
+                sweeps=n, again_s=secs_again)
+
+
+def trace_names(log_dir):
+    """The event names of the Chrome trace that ``trace`` wrote."""
+    from pathlib import Path
+
+    files = list(Path(log_dir).glob("*.pt.trace.json"))
+    if len(files) != 1:
+        raise AssertionError(f"trace wrote {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    return {e.get("name", "") for e in events}, files[0].stat().st_size
+
+
+def py_trace(dev, card, tmp):
+    """Phase 37d: ``trace()`` around flagship and config-3 sweeps: the
+    Chrome trace holds ``peapods/sweep``, ``peapods/measure`` and the
+    kernels' names; each run's launches and checksum are those of the same
+    run outside ``trace()``."""
+    import contextlib
+
+    from peapods_tpu_torch import Ising, IsingSimulation
+    from peapods_tpu_torch.utils.profiling import trace
+
+    temps = np.geomspace(1.8, 3.2, N_TEMPS).astype(np.float32)
+    coup = np.ones((L, L, 2), np.float32)
+    paths = {
+        "flagship": (lambda: IsingSimulation([L, L], coup, temps, 1, None, SEED, device=dev),
+                     dict(pt_interval=1, warmup_ratio=0.0)),
+        "config3": (lambda: Ising((L, L), temperatures=np.array([T_C], np.float32), seed=3,
+                                  device=dev)._sim,
+                    dict(cluster_update_interval=1, cluster_mode="sw", warmup_ratio=0.25)),
+    }
+    out = {}
+    for name, (make, kw) in paths.items():
+        n, kernels = PY_TRACE_SWEEPS[name], PY_TRACE_KERNELS[name]
+        seen = {}
+        for where in ("outside", "inside"):
+            sim = make()
+            reset_all_counts()
+            log_dir = f"{tmp}/trace_{name}"
+            with trace(log_dir) if where == "inside" else contextlib.nullcontext():
+                result = sim.sample(n, "metropolis", **kw)
+                torch.cuda.synchronize()
+            seen[where] = (all_counts(), state_checksum(sim, result))
+        if seen["inside"] != seen["outside"]:
+            raise AssertionError(f"{name}: inside trace() {seen['inside']}, outside "
+                                 f"{seen['outside']}")
+        names, size = trace_names(log_dir)
+        scopes = sorted(x for x in names if x.startswith("peapods/"))
+        hits = {k: [x for x in names if f"{k}_kernel" in x][:1] for k in kernels}
+        if scopes != ["peapods/measure", "peapods/sweep"] or not all(hits.values()):
+            raise AssertionError(f"{name}: scopes {scopes}, kernels {hits}")
+        out[name] = dict(sweeps=n, launches=seen["inside"][0], checksum=seen["inside"][1],
+                         trace_bytes=size)
+        log("37d trace", f"{name}, {n} sweeps inside trace(): the Chrome trace ({size} B) "
+            f"holds {scopes} and {', '.join(k for k in kernels)}; launches "
+            f"{seen['inside'][0]} and checksum {seen['inside'][1]} as outside trace() "
+            f"({card})")
+    return out
+
+
+def py_interrupt(dev, card, tmp):
+    """Phase 37e: Ctrl-C and the checkpoint seed on the card.  A flagship
+    ``sample(512)`` whose ``progress`` raises ``KeyboardInterrupt`` after
+    the first chunk, then ``sample(256)``: spins and system IDs bitwise
+    ``sample(256)`` + ``sample(256)``.  ``Ising(seed=s).save_checkpoint``
+    for an ``s`` whose dynamics seed is >= 2^63 (written as uint64),
+    loaded on the card and on the CPU to the same state."""
+    from peapods_tpu_torch import Ising, IsingSimulation
+    from peapods_tpu_torch.engine.seeds import dynamics_seed
+
+    temps = np.geomspace(1.8, 3.2, N_TEMPS).astype(np.float32)
+    coup = np.ones((L, L, 2), np.float32)
+    kw = dict(pt_interval=1, warmup_ratio=0.0)
+    chunk = PY_INTERRUPT_SWEEPS // 2
+    sim = IsingSimulation([L, L], coup, temps, 1, None, SEED, default_chunk=chunk,
+                          device=dev)
+    calls = []
+
+    def boom(done, total):
+        calls.append(done)
+        raise KeyboardInterrupt
+
+    try:
+        sim.sample(PY_INTERRUPT_SWEEPS, "metropolis", progress=boom, **kw)
+        raise AssertionError("the interrupt did not reach the caller")
+    except KeyboardInterrupt:
+        pass
+    if calls != [chunk] or int(sim.state["counter"]) != chunk:
+        raise AssertionError(f"interrupted after {calls}, counter {int(sim.state['counter'])}")
+    sim.sample(chunk, "metropolis", **kw)
+    whole = IsingSimulation([L, L], coup, temps, 1, None, SEED, default_chunk=chunk,
+                            device=dev)
+    whole.sample(chunk, "metropolis", **kw)
+    whole.sample(chunk, "metropolis", **kw)
+    bad = [k for k in ("spins", "system_ids") if not torch.equal(sim.state[k], whole.state[k])]
+    if bad or int(sim.state["counter"]) != int(whole.state["counter"]):
+        raise AssertionError(f"the resumed run differs in {bad}")
+
+    seed = next(s for s in range(64) if dynamics_seed(s) >= 1 << 63)
+    model = Ising((L, L), temperatures=temps, seed=seed, device=dev)
+    model.sample(chunk, pt_interval=1)
+    path = f"{tmp}/large_seed.npz"
+    model.save_checkpoint(path)
+    with np.load(path) as data:
+        dtype = data["__constructor_seed"].dtype
+        stored = int(data["__constructor_seed"])
+    if dtype != np.uint64 or stored != model._sim.constructor_seed:
+        raise AssertionError(f"the seed was written as {dtype} {stored}")
+    states = {}
+    for where, x in (("card", dev), ("cpu", torch.device("cpu"))):
+        back = Ising((L, L), temperatures=temps, seed=seed, device=x)
+        back.load_checkpoint(path)
+        states[where] = full_state(back._sim)
+    bad = same_state(states["card"], full_state(model._sim)) + same_state(
+        states["cpu"], states["card"])
+    if bad:
+        raise AssertionError(f"the large seed's file loads with {bad} changed")
+    log("37e interrupt", f"flagship sample({PY_INTERRUPT_SWEEPS}) interrupted from "
+        f"progress after {calls[0]} sweeps, then sample({chunk}): spins and system_ids "
+        f"bitwise sample({chunk}) + sample({chunk}); Ising(seed={seed}) (dynamics seed "
+        f"{model._sim.constructor_seed} >= 2^63) saved as {dtype}, loaded on the card and "
+        f"on the CPU to the same state ({card})")
+    return dict(interrupted_at=calls[0], seed=seed, dynamics_seed=model._sim.constructor_seed)
+
+
+def py_phase(dev, card, sweeps_s):
+    """Phase 37: the Python layer's entry points on the card."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = {"simulate": py_simulate(dev, card, tmp), "bench": py_bench(card, sweeps_s),
+               "sweep": py_sweep(dev, card, tmp), "trace": py_trace(dev, card, tmp),
+               "interrupt": py_interrupt(dev, card, tmp)}
+    out["seconds"] = time.perf_counter() - t0
+    log("37 python layer", f"phase 37 in {out['seconds']:.1f} s ({card})")
+    return out
+
+
 def ptxas_entries(text):
     """``(library, None, 0, 0, 0)`` for each library the ``ptxas -v`` log
     of the build names, then ``(None, kernel, registers, shared bytes,
@@ -6229,6 +6601,9 @@ def main():
 
     # odd extents, extent 1, 1D, 4D and up, more than six offsets
     anyl = any_phase(dev, card)
+
+    # the Python layer: the CLI, run_sweep, trace(), Ctrl-C
+    py_phase(dev, card, sweeps_s)
 
     mega_src = "peapods_tpu_torch/csrc/mega.cu"
     mega_replaces = "peapods_tpu/ops/pallas_mega.py:96"

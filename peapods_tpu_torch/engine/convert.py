@@ -10,7 +10,9 @@ With these two functions the tests put the same state into both engines.
 checkpoint file of both engines (peapods_tpu/engine/simulation.py:
 213-252): an ``.npz`` of the state's arrays in this layout but
 ``base_keys``, with ``__constructor_seed`` and the key data as
-``__key_data``.
+``__key_data``.  The 64-bit dynamics seed is written as ``int64`` where it
+fits (the JAX package's form) and as ``uint64`` where it does not; either
+reader takes ``int(...)`` of it.
 """
 
 from __future__ import annotations
@@ -46,7 +48,9 @@ def to_reference(state: dict) -> dict:
 def write_checkpoint(path, ref: dict, constructor_seed: int) -> None:
     """Write the state ``ref`` (the reference's numpy form) to ``path``."""
     flat = {k: np.asarray(v) for k, v in ref.items() if k != "base_keys"}
-    flat["__constructor_seed"] = np.int64(constructor_seed)
+    seed = int(constructor_seed)
+    flat["__constructor_seed"] = (np.int64(seed) if seed < 1 << 63
+                                  else np.uint64(seed))
     flat["__key_data"] = np.asarray(ref["base_keys"], np.uint32)
     np.savez(path, **flat)
 

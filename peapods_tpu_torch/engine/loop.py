@@ -19,6 +19,11 @@ the pair measurement and the overlap moves when there are replicas.  On a
 ``space`` mesh, :func:`run_chunk_space` runs the per-sweep path over the
 lattice's row bands.
 
+Each runner marks its phases with the reference's two profiling scopes
+(``utils/profiling.py`` ``phase_scope``, peapods_tpu/engine/loop.py:2736,
+:2794): ``"sweep"`` around the sweep launches and ``"measure"`` around the
+measurement and the fold of the records.
+
 The reference's sentinel padding of short chunks and its ``n_inner <= 256``
 SMEM cap exist only to keep one compiled TPU program per chunk length; a
 chunk here is as long as it needs to be.
@@ -42,6 +47,7 @@ from ..ops.sweep import pack_coupling_grids, sweep_2d, sweep_nb
 from ..ops.tempering import hot_cold_slots, pt_draws_pairs
 from . import seeds
 from ..utils.autocorr import AutocorrStream, clamp_max_lag
+from ..utils.profiling import phase_scope
 from .config import SimConfig
 from .records import N_EQ_SLOTS, N_FK_OBS, N_REC, REC, SERIES, link_bonds
 
@@ -435,29 +441,32 @@ def run_chunk(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
         if pt_on else torch.zeros((n, d, 2), dtype=torch.int32, device=rt.device)
     )
     h, w = rt.lattice.shape
-    e, m, parity = mega.mega_chunk(
-        state["spins"].view(d, n_slots, h, w),
-        rt.jgrids,
-        rt.temps,
-        state["system_ids"].view(d, n_slots),
-        state["pt_edge_attempts"],
-        state["pt_edge_acceptances"],
-        state["pt_round_trips"],
-        state["pt_trip_state"],
-        sweep_w,
-        pt_w,
-        sweep_base=s_begin,
-        parity=int(state["pt_parity"]),
-        gibbs=cfg.sweep_mode == "gibbs",
-        pt_interval=cfg.pt_interval if pt_on else None,
-        pt_full=cfg.pt_schedule == "full_ladder",
-        hot_slot=rt.hot_slot,
-        cold_slot=rt.cold_slot,
-    )
+    # one launch sweeps and measures the chunk: a single "sweep" scope
+    with phase_scope("sweep"):
+        e, m, parity = mega.mega_chunk(
+            state["spins"].view(d, n_slots, h, w),
+            rt.jgrids,
+            rt.temps,
+            state["system_ids"].view(d, n_slots),
+            state["pt_edge_attempts"],
+            state["pt_edge_acceptances"],
+            state["pt_round_trips"],
+            state["pt_trip_state"],
+            sweep_w,
+            pt_w,
+            sweep_base=s_begin,
+            parity=int(state["pt_parity"]),
+            gibbs=cfg.sweep_mode == "gibbs",
+            pt_interval=cfg.pt_interval if pt_on else None,
+            pt_full=cfg.pt_schedule == "full_ladder",
+            hot_slot=rt.hot_slot,
+            cold_slot=rt.cold_slot,
+        )
     state["counter"] = np.int32(counter + n)
     state["pt_parity"] = np.int32(parity)
-    _fold_records(rt, state, acc, e, m, s_begin, n)
-    _fold_series(rt, state, acc, e, m, None, s_begin, n)
+    with phase_scope("measure"):
+        _fold_records(rt, state, acc, e, m, s_begin, n)
+        _fold_series(rt, state, acc, e, m, None, s_begin, n)
 
 
 def _sweeps_with_pairs(cfg: SimConfig) -> bool:
@@ -640,12 +649,13 @@ def run_chunk_sweeps(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
         fk_measures = k is not None and not (observe or staged)
         u = None if sweep_u is None else sweep_u(t)
         parts = None
-        if lat.square:
-            parts = sweep_2d(spins, rt.coup, sys_temps, sweep_w[t], gibbs=gibbs,
-                             measure=not fk_measures, uniforms=u)
-        else:
-            sweep_nb(flat, rt.coup, rt.coup_bwd, rt.colours, sys_temps, sweep_w[t],
-                     lat, gibbs=gibbs, uniforms=u, tables=rt.tables)
+        with phase_scope("sweep"):
+            if lat.square:
+                parts = sweep_2d(spins, rt.coup, sys_temps, sweep_w[t], gibbs=gibbs,
+                                 measure=not fk_measures, uniforms=u)
+            else:
+                sweep_nb(flat, rt.coup, rt.coup_bwd, rt.colours, sys_temps,
+                         sweep_w[t], lat, gibbs=gibbs, uniforms=u, tables=rt.tables)
         if k is not None:
             bu = None if bond_u is None else bond_u(k)
             masks = None
@@ -664,23 +674,29 @@ def run_chunk_sweeps(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
                 parts = (e_part.view(d, n_sys, -1), m_part.view(d, n_sys, -1))
             if collect and s >= warmup:
                 _fold_fk_graphs(rt, acc, labels, masks, sid)
-        if parts is None:
-            parts = measure_nb(flat, rt.coup, lat, tables=rt.tables)
-        if pair_rows is not None:
-            megapair.pair_overlap(flat, sid, pair_rows[0][:, t], pair_rows[1][:, t],
-                                  shape=lat.kernel_shape, n_replicas=R,
-                                  offsets=lat.kernel_offsets)
         do_pt = pt_on and s % cfg.pt_interval == 0
         draw = None if not do_pt else (draws[t] if pt_full
                                        else (draws[0][t], draws[1][t]))
         ev = ev_at.get(t)
+        # pt_step reduces the partials into the sweep's rows (and, without a
+        # move this sweep, takes the PT step in the same launch)
+        with phase_scope("measure"):
+            if parts is None:
+                parts = measure_nb(flat, rt.coup, lat, tables=rt.tables)
+            if pair_rows is not None:
+                megapair.pair_overlap(flat, sid, pair_rows[0][:, t],
+                                      pair_rows[1][:, t], shape=lat.kernel_shape,
+                                      n_replicas=R, offsets=lat.kernel_offsets)
+            if ev is None:
+                parity = mega.pt_step(*parts, e[:, t], m[:, t], sid, *pt_state,
+                                      rt.slot_temps, draw, sys_temps, do_pt=do_pt,
+                                      parity=parity, **pt_kw)
+            else:
+                mega.pt_step(*parts, e[:, t], m[:, t], sid, *pt_state,
+                             rt.slot_temps, None, sys_temps, do_pt=False,
+                             parity=parity, **pt_kw)
         if ev is None:
-            parity = mega.pt_step(*parts, e[:, t], m[:, t], sid, *pt_state,
-                                  rt.slot_temps, draw, sys_temps, do_pt=do_pt,
-                                  parity=parity, **pt_kw)
             continue
-        mega.pt_step(*parts, e[:, t], m[:, t], sid, *pt_state, rt.slot_temps, None,
-                     sys_temps, do_pt=False, parity=parity, **pt_kw)
         tasks, scal_ev, probes, words = events.table(ev)
         mode = ((s // h.interval) % len(h.modes))
         snap = (_snapshot(rt, flat, sid, tasks, mode, s)
@@ -707,10 +723,11 @@ def run_chunk_sweeps(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
                                   sys_temps, do_pt=True, parity=parity, **pt_kw)
     state["counter"] = np.int32(counter + n)
     state["pt_parity"] = np.int32(parity)
-    _fold_records(rt, state, acc, e, m, s_begin, n)
-    _fold_series(rt, state, acc, e, m, pair_rows, s_begin, n)
-    if pair_rows is not None:
-        _fold_pairs(rt, state, acc, *pair_rows, s_begin, n)
+    with phase_scope("measure"):
+        _fold_records(rt, state, acc, e, m, s_begin, n)
+        _fold_series(rt, state, acc, e, m, pair_rows, s_begin, n)
+        if pair_rows is not None:
+            _fold_pairs(rt, state, acc, *pair_rows, s_begin, n)
 
 
 def run_chunk_space(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
@@ -802,17 +819,18 @@ def run_chunk_space(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
         temps_b = [on(sys_temps, j) for j in range(len(bands))]
         words_b = [on(sweep_w[t], j) for j in range(len(bands))]
         parts = None
-        for colour in range(lat.n_colors):
-            refresh()
-            measure = (colour == lat.n_colors - 1 and lat.checkerboard
-                       and not fk_measures)
-            out = [halo.sweep_halo(windows[j], sp.coup_fwd[j], sp.coup_bwd[j],
-                                   sp.colours[j], temps_b[j], words_b[j], band, colour,
-                                   gibbs=gibbs, measure=measure)
-                   for j, band in enumerate(bands)]
-            fresh = False
-            if measure:
-                parts = out
+        with phase_scope("sweep"):
+            for colour in range(lat.n_colors):
+                refresh()
+                measure = (colour == lat.n_colors - 1 and lat.checkerboard
+                           and not fk_measures)
+                out = [halo.sweep_halo(windows[j], sp.coup_fwd[j], sp.coup_bwd[j],
+                                       sp.colours[j], temps_b[j], words_b[j], band,
+                                       colour, gibbs=gibbs, measure=measure)
+                       for j, band in enumerate(bands)]
+                fresh = False
+                if measure:
+                    parts = out
         if k is not None:
             refresh()
             for j, band in enumerate(bands):
@@ -833,23 +851,25 @@ def run_chunk_space(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
                 labels = torch.cat([cb.labels[:, b.interior].to(dev)
                                     for cb, b in zip(ccs, bands)], -1)
                 _fold_fk_graphs(rt, acc, labels, None, sid)
-        if parts is None:
-            refresh()
-            parts = [halo.measure_halo(windows[j], sp.coup_fwd[j], band)
-                     for j, band in enumerate(bands)]
-        e_part = torch.cat([p[0].to(dev) for p in parts], -1)
-        m_part = torch.cat([p[1].to(dev) for p in parts], -1)
         do_pt = pt_on and (s_begin + t) % cfg.pt_interval == 0
-        parity = mega.pt_step(
-            e_part, m_part, e[:, t], m[:, t], sid, *pt_state, rt.temps,
-            None if not do_pt else (
-                draws[t] if pt_full else (draws[0][t], draws[1][t])),
-            sys_temps, do_pt=do_pt, pt_full=pt_full, parity=parity,
-            hot_slot=rt.hot_slot, cold_slot=rt.cold_slot, n_spins=n_sp)
+        with phase_scope("measure"):
+            if parts is None:
+                refresh()
+                parts = [halo.measure_halo(windows[j], sp.coup_fwd[j], band)
+                         for j, band in enumerate(bands)]
+            e_part = torch.cat([p[0].to(dev) for p in parts], -1)
+            m_part = torch.cat([p[1].to(dev) for p in parts], -1)
+            parity = mega.pt_step(
+                e_part, m_part, e[:, t], m[:, t], sid, *pt_state, rt.temps,
+                None if not do_pt else (
+                    draws[t] if pt_full else (draws[0][t], draws[1][t])),
+                sys_temps, do_pt=do_pt, pt_full=pt_full, parity=parity,
+                hot_slot=rt.hot_slot, cold_slot=rt.cold_slot, n_spins=n_sp)
     state["counter"] = np.int32(counter + n)
     state["pt_parity"] = np.int32(parity)
-    _fold_records(rt, state, acc, e, m, s_begin, n)
-    _fold_series(rt, state, acc, e, m, None, s_begin, n)
+    with phase_scope("measure"):
+        _fold_records(rt, state, acc, e, m, s_begin, n)
+        _fold_series(rt, state, acc, e, m, None, s_begin, n)
 
 
 def _event_tables(rt: Runtime, cfg: SimConfig, base, counter: int,
@@ -963,21 +983,25 @@ def run_chunk_pairs(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
     events = _event_tables(rt, cfg, base, counter, s_begin, n, fold)
     d = rt.n_disorder
     h = cfg.overlap_cluster
-    e, m, qs, ql, parity = megapair.pairs_chunk(
-        state["spins"], rt.jgrids, rt.coup, rt.temps, rt.slot_temps,
-        state["system_ids"].view(d, -1), state["pt_edge_attempts"],
-        state["pt_edge_acceptances"], state["pt_round_trips"],
-        state["pt_trip_state"], sweep_w, draws, events,
-        shape=rt.lattice.shape, n_replicas=R, sweep_base=s_begin,
-        parity=int(state["pt_parity"]), gibbs=cfg.sweep_mode == "gibbs",
-        pt_interval=cfg.pt_interval if pt_on else None, pt_full=pt_full,
-        hot_slot=rt.hot_slot, cold_slot=rt.cold_slot,
-        wolff=h is not None and h.cluster_mode == "wolff",
-    )
+    # the chunk's launches (sweeps, pair measurements, moves, PT) in one
+    # "sweep" scope, as on the mega path
+    with phase_scope("sweep"):
+        e, m, qs, ql, parity = megapair.pairs_chunk(
+            state["spins"], rt.jgrids, rt.coup, rt.temps, rt.slot_temps,
+            state["system_ids"].view(d, -1), state["pt_edge_attempts"],
+            state["pt_edge_acceptances"], state["pt_round_trips"],
+            state["pt_trip_state"], sweep_w, draws, events,
+            shape=rt.lattice.shape, n_replicas=R, sweep_base=s_begin,
+            parity=int(state["pt_parity"]), gibbs=cfg.sweep_mode == "gibbs",
+            pt_interval=cfg.pt_interval if pt_on else None, pt_full=pt_full,
+            hot_slot=rt.hot_slot, cold_slot=rt.cold_slot,
+            wolff=h is not None and h.cluster_mode == "wolff",
+        )
     state["counter"] = np.int32(counter + n)
     state["pt_parity"] = np.int32(parity)
-    _fold_records(rt, state, acc, e, m, s_begin, n)
-    _fold_series(rt, state, acc, e, m, (qs, ql) if rt.n_pairs else None,
-                 s_begin, n)
-    if rt.n_pairs:
-        _fold_pairs(rt, state, acc, qs, ql, s_begin, n)
+    with phase_scope("measure"):
+        _fold_records(rt, state, acc, e, m, s_begin, n)
+        _fold_series(rt, state, acc, e, m, (qs, ql) if rt.n_pairs else None,
+                     s_begin, n)
+        if rt.n_pairs:
+            _fold_pairs(rt, state, acc, qs, ql, s_begin, n)

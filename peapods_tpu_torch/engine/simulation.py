@@ -56,6 +56,7 @@ from __future__ import annotations
 
 import contextlib
 import signal
+import sys
 import threading
 
 import numpy as np
@@ -65,6 +66,7 @@ from ..ops.halo import gather_band_spins
 from ..ops.lattice import Lattice
 from ..ops.tempering import init_trip_state
 from ..parallel.mesh import Mesh, auto_mesh
+from ..utils.progress import ProgressPrinter
 from . import convert
 from . import seeds as seedlib
 from .config import (
@@ -333,7 +335,11 @@ class IsingSimulation:
         """Run the Monte Carlo loop; returns the raw results dict.
 
         Kwarg semantics and defaults mirror src/lib.rs:176-284; options
-        outside the slice raise ``NotImplementedError``.
+        outside the slice raise ``NotImplementedError``.  ``progress(done,
+        total)`` is called after every chunk; left ``None``, a
+        :class:`~peapods_tpu_torch.utils.progress.ProgressPrinter` reports
+        when stderr is a terminal.  Ctrl-C is held until the chunk in flight
+        is done, so an interrupt leaves the state at the last whole chunk.
         """
         ac_backend = parse_ac_backend(autocorrelation_backend or "ring")
         n_sweeps = int(n_sweeps)
@@ -392,6 +398,8 @@ class IsingSimulation:
         state = self.state
         state["warmup"] = np.int32(warmup_sweeps)
         acc = init_accumulators(self.rt, cfg)
+        if progress is None and sys.stderr.isatty():
+            progress = ProgressPrinter()
         s = 0
         while s < n_sweeps:
             n = min(self.default_chunk, n_sweeps - s)

@@ -10,6 +10,9 @@ the CPU.
   port's state.
 * A space-mesh simulation's file (the spins gathered from the bands) loads
   into an unsharded one, which continues bitwise, and back.
+* A dynamics seed of 2^63 or more (about half of them) is written as
+  ``uint64``, a smaller one as the JAX package's ``int64``; the port and
+  the JAX engine both load the large one's file.
 * ``tools/physics_torch.py --device cpu`` resolves ``from peapods_tpu
   import Ising`` to the port's class without importing jax.
 """
@@ -105,6 +108,42 @@ def test_files_cross_between_engines(tmp_path):
     back.load_checkpoint(tmp_path / "port.npz")
     _same(_ref_state(back), convert.to_reference(port._sim.state))
     assert int(back._sim.state["counter"]) == 12
+
+
+def _large_seed():
+    """The first seed whose 64-bit dynamics seed is 2^63 or more."""
+    from peapods_tpu_torch.engine.seeds import dynamics_seed
+
+    return next(s for s in range(64) if dynamics_seed(s) >= 1 << 63)
+
+
+def test_checkpoint_seed_past_int64(tmp_path):
+    """Through ``Ising``: a dynamics seed >= 2^63 saves as uint64, and both
+    engines load the file to the state the port saved; a small seed's file
+    still holds an int64."""
+    seed = _large_seed()
+    kw = dict(KW, seed=seed)
+    a = Ising(**kw, device="cpu")
+    assert a._sim.constructor_seed >= 1 << 63
+    a.sample(5, pt_interval=1, warmup_ratio=0)
+    path = tmp_path / "large.npz"
+    a.save_checkpoint(path)
+    with np.load(path) as data:
+        assert data["__constructor_seed"].dtype == np.uint64
+        assert int(data["__constructor_seed"]) == a._sim.constructor_seed
+    want = convert.to_reference(a._sim.state)
+    b = Ising(**kw, device="cpu")
+    b.load_checkpoint(path)
+    _same(convert.to_reference(b._sim.state), want)
+    ref = RefIsing(**kw)
+    ref.load_checkpoint(path)
+    _same(_ref_state(ref), want)
+
+    small = Ising(**KW, device="cpu")
+    assert small._sim.constructor_seed < 1 << 63
+    small.save_checkpoint(tmp_path / "small.npz")
+    with np.load(tmp_path / "small.npz") as data:
+        assert data["__constructor_seed"].dtype == np.int64
 
 
 @contextlib.contextmanager
