@@ -136,7 +136,24 @@ through the user's entry points:
   names in the Chrome trace, launches and checksums as outside it), a
   flagship run interrupted from ``progress`` and resumed bitwise, and a
   checkpoint whose dynamics seed is 2^63 or more loaded on the card and
-  on the CPU.
+  on the CPU;
+* replicas on the table lattices (phase 38): the 4D +-J Edwards-Anderson
+  glass at full width (10^4 sites x 12 temperatures x 2 replicas x 16
+  realizations, houdayer+cmr SW moves every sweep, SW every 2 sweeps with
+  statistics, full-ladder PT), Joerg and Houdayer(4) at that shape and a
+  16^3 glass with 9 offsets, each twice from one seed (launch counts: the
+  table forms of ``pair_overlap`` and the five move kernels, no walk-form
+  move or mega-path kernel; the histograms' sums; P(q) at the hottest
+  temperature), each table form against its plain version on those runs'
+  states and on 5D, odd-extent and 9-offset states (Wolff and SW, update
+  and observe), a 4^4 glass on the card bitwise the CPU's, and each
+  form's time a launch beside its bound.
+
+Every profiled window reads the device through one helper,
+``device_time``, which counts each kernel once by name and leaves out the
+CPU events and the ``peapods/`` profiling scopes; its busy share is the
+window's device time over the unprofiled wall time a sweep, printed beside
+``busy_window``, the same time over the profiled window's own wall time.
 
 Each path's launch counts are zeroed just before its main run and read just
 after.  Every phase prints lines; any failure raises and the script exits
@@ -202,25 +219,74 @@ def add_kernel_time(acc, name, ev):
     t[1] += ev.count
 
 
-def kernel_times(prof, names, n, ran):
-    """Split a profiled window of ``n`` sweeps: each kernel of ``names``'s
-    device time a launch, its launches and device time a sweep, the launches
-    the profiler missed, and the other device records.  Launches a sweep
-    come from the wrappers' counts over the window (``ran``): the profiler
-    can miss the first sweep's launches of a long window (the unsharded
-    4096^2 run's sweep_2d, fk_bonds and labelling: 3 sweeps of 4), so a
-    sweep's device time is each launch's time times the launches made."""
+# the profiling scopes of utils/profiling.py phase_scope ("peapods/sweep",
+# "peapods/measure"): their device-side annotations span the kernels inside
+# them, so a window that counted them would count those kernels twice
+SCOPE_PREFIX = "peapods/"
+
+
+def device_time(events, names=()):
+    """Device time by name of a profiled window's events
+    (``prof.key_averages()``): ``(named, others)``, ``named[k] = [device
+    us, launches]`` of each kernel of ``names`` (its ``<k>_kernel``
+    instantiations added together), ``others[key]`` the device us of every
+    other kernel or copy.  Every CPU event (a torch op's record, whose
+    device time is its kernels') and every ``peapods/`` profiling scope is
+    left out: what remains is each device activity once.  Every profiled
+    window of this script reads the device through this function."""
     from torch.autograd import DeviceType
 
-    acc, rest = {}, []
-    for ev in prof.key_averages():
-        if ev.self_device_time_total <= 0:
+    named, others = {}, {}
+    for ev in events:
+        if (ev.self_device_time_total <= 0 or ev.device_type == DeviceType.CPU
+                or ev.key.startswith(SCOPE_PREFIX)):
             continue
         hit = [k for k in names if f"{k}_kernel" in ev.key]
         if hit:
-            add_kernel_time(acc, hit[0], ev)
-        elif ev.device_type != DeviceType.CPU:  # a torch op's kernels, not the op
-            rest.append(ev)
+            add_kernel_time(named, hit[0], ev)
+        else:
+            others[ev.key] = others.get(ev.key, 0.0) + ev.self_device_time_total
+    return named, others
+
+
+def profiled(fn):
+    """Run ``fn()`` under ``torch.profiler`` (CPU and CUDA activities),
+    ending in a synchronize: ``(prof, wall seconds of the window)``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return prof, wall
+
+
+def busy_words(per_sweep, window_us, sweeps_s):
+    """A window's busy share: its device us a sweep over the unprofiled
+    wall us a sweep (``1 / sweeps_s``, the phase's rate), whose complement
+    is the run's idle share; beside it ``busy_window``, over the
+    profiled window's own wall us a sweep, which the profiler stretches
+    where the host holds the rate.  Returns ``(busy, words)``."""
+    busy = per_sweep * sweeps_s / 1e6
+    return busy, (f"sum {per_sweep:.3f} against {1e6 / sweeps_s:.3f} us of unprofiled wall "
+                  f"time per sweep: the device is busy {busy:.3f} of it (busy_window "
+                  f"{per_sweep / window_us:.3f} of the profiled window's {window_us:.3f} us "
+                  f"a sweep)")
+
+
+def kernel_times(prof, names, n, ran):
+    """Split a profiled window of ``n`` sweeps: each kernel of ``names``'s
+    device time a launch, its launches and device time a sweep, the launches
+    the profiler missed, and the other device work, us a sweep by key.
+    Launches a sweep come from the wrappers' counts over the window
+    (``ran``): the profiler can miss the first sweep's launches of a long
+    window (the unsharded 4096^2 run's sweep_2d, fk_bonds and labelling: 3
+    sweeps of 4), so a sweep's device time is each launch's time times the
+    launches made."""
+    acc, others = device_time(prof.key_averages(), names)
+    rest = {k: v / n for k, v in others.items()}
     per_launch = {k: t / c for k, (t, c) in acc.items()}
     counts = {k: (ran.get(k) or c) / n for k, (t, c) in acc.items()}
     per_sweep = {k: per_launch[k] * counts[k] for k in acc}
@@ -645,29 +711,18 @@ def kernel_share(sim, sweeps_s, n=512):
     """Device time per sweep of each mega-path kernel (and of any other
     device work) over a profiled window of ``n`` flagship sweeps, and the
     share of the unprofiled wall time per sweep (``1 / sweeps_s``) that the
-    device is busy.  Returns ``(us by kernel, busy share, line)``."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        sim.sample(n, "metropolis", pt_interval=1, warmup_ratio=0.0)
-        torch.cuda.synchronize()
-    us = {}
-    for ev in prof.key_averages():
-        if ev.self_device_time_total <= 0 or ev.device_type == DeviceType.CPU:
-            continue
-        hit = [k for k in MEGA_KERNELS if f"{k}_kernel" in ev.key]
-        key = hit[0] if hit else "other device work"
-        us[key] = us.get(key, 0.0) + ev.self_device_time_total / n
+    device is busy (:func:`busy_words`).  Returns ``(us by kernel, busy share, line)``."""
+    prof, wall = profiled(lambda: sim.sample(n, "metropolis", pt_interval=1,
+                                             warmup_ratio=0.0))
+    named, others = device_time(prof.key_averages(), MEGA_KERNELS)
+    us = {k: t / n for k, (t, _) in named.items()}
+    if others:
+        us["other device work"] = sum(others.values()) / n
     if not any(k in us for k in MEGA_KERNELS):
         raise AssertionError("the profiler saw no mega-path kernel")
-    per_sweep = sum(us.values())
-    busy = per_sweep * sweeps_s / 1e6
-    return us, busy, (
-        "device us per sweep: " + ", ".join(f"{k} {v:.3f}" for k, v in us.items())
-        + f", sum {per_sweep:.3f} against {1e6 / sweeps_s:.3f} us of wall time per "
-        f"sweep: the device is busy {busy:.3f} of it")
+    busy, words = busy_words(sum(us.values()), wall * 1e6 / n, sweeps_s)
+    return us, busy, ("device us per sweep: " + ", ".join(f"{k} {v:.3f}" for k, v in us.items())
+                      + f", {words}")
 
 
 def warm_rates(sim, calls=3, **kw):
@@ -1482,32 +1537,23 @@ def profile_window(model, kw, sweeps_s, n, names):
     """Device time of each kernel of the per-sweep path (``names``: those
     the run launches) over ``n`` sweeps of a model's main-path run, from the
     profiler's kernel records: per launch and per sweep, and the share of
-    the unprofiled wall time per sweep that the device is busy."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
+    the unprofiled wall time per sweep that the device is busy
+    (:func:`busy_words`)."""
     before = space_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model.sample(n, "metropolis", **dict(kw, warmup_ratio=0.0))
-        torch.cuda.synchronize()
+    prof, wall = profiled(lambda: model.sample(n, "metropolis", **dict(kw, warmup_ratio=0.0)))
     ran = {k: v - before.get(k, 0) for k, v in space_counts().items()}
-    per_launch, _, per_sweep, missed, rest = kernel_times(prof, names, n, ran)
-    others = {}
-    for ev in rest:
-        others[ev.key] = others.get(ev.key, 0.0) + ev.self_device_time_total / n
+    per_launch, _, per_sweep, missed, others = kernel_times(prof, names, n, ran)
     missing = [k for k in names if k not in per_launch]
     if missing:
         raise AssertionError(f"the profiler saw no device time for {missing}")
     other = sum(others.values())
-    busy = sum(per_sweep.values()) + other
+    _, words = busy_words(sum(per_sweep.values()) + other, wall * 1e6 / n, sweeps_s)
     top = sorted(others.items(), key=lambda kv: -kv[1])[:3]
     line = ("device us per sweep: " + ", ".join(
         f"{k} {v:.3f}" for k, v in per_sweep.items())
         + f", other device work {other:.3f} (most: " + "; ".join(
             f"{k[:60]} {v:.3f}" for k, v in top)
-        + f"), sum {busy:.3f} against "
-        f"{1e6 / sweeps_s:.3f} us of wall time per sweep: the device is busy "
-        f"{busy * sweeps_s / 1e6:.3f} of it; the profiler saw "
+        + f"), {words}; the profiler saw "
         + (f"{missed} launches" if missed else "every launch"))
     return per_launch, line
 
@@ -2254,34 +2300,21 @@ def pair_times(runs, checks, dev):
 def pair_profile(run, n, card, name, phase="14 times"):
     """Device time per launch and per sweep of each replica-path kernel over
     a profiled window of ``n`` sweeps of the main path, and the busy share
-    of the unprofiled wall time per sweep."""
-    from torch.profiler import ProfilerActivity, profile
-
+    of the unprofiled wall time per sweep (:func:`busy_words`)."""
     model = run["model"]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        model.sample(n, "metropolis", **dict(run["kw"], warmup_ratio=0.0))
-        torch.cuda.synchronize()
-    acc, other = {}, 0.0
-    for ev in prof.key_averages():
-        if ev.self_device_time_total <= 0:
-            continue
-        hit = [k for k in PAIR_KERNELS if f"{k}_kernel" in ev.key]
-        if hit:
-            add_kernel_time(acc, hit[0], ev)
-        else:
-            other += ev.self_device_time_total / n
+    prof, wall = profiled(lambda: model.sample(n, "metropolis",
+                                               **dict(run["kw"], warmup_ratio=0.0)))
+    acc, others = device_time(prof.key_averages(), PAIR_KERNELS)
+    other = sum(others.values()) / n
     per_launch = {k: t / c for k, (t, c) in acc.items()}
     per_sweep = {k: t / n for k, (t, c) in acc.items()}
     missing = [k for k in run["launches"] if k not in per_launch]
     if missing:
         raise AssertionError(f"the profiler saw no device time for {missing}")
-    busy = sum(per_sweep.values()) + other
+    _, words = busy_words(sum(per_sweep.values()) + other, wall * 1e6 / n, run["sweeps_s"])
     log(phase, f"{name} device us per sweep: " + ", ".join(
         f"{k} {v:.3f}" for k, v in per_sweep.items())
-        + f", other device work {other:.3f}, sum {busy:.3f} against "
-        f"{1e6 / run['sweeps_s']:.3f} us of wall time per sweep: the device is busy "
-        f"{busy * run['sweeps_s'] / 1e6:.3f} of it (on {card})")
+        + f", other device work {other:.3f}, {words} (on {card})")
     return per_launch
 
 
@@ -3124,11 +3157,7 @@ def kernel_ms(fn, reps, names, tries=3):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        acc = {}
-        for ev in prof.key_averages():
-            hit = [k for k in names if f"{k}_kernel" in ev.key]
-            if hit and ev.self_device_time_total > 0:
-                add_kernel_time(acc, hit[0], ev)
+        acc, _ = device_time(prof.key_averages(), names)
         out = {k: t / c / 1e3 for k, (t, c) in acc.items()}
         if set(out) == set(names):
             return out
@@ -4835,30 +4864,24 @@ def space_profile(sim, kw, sweeps_s, n, names=None):
     """Per-launch device time and launches per sweep of each band kernel
     (or of ``names``) over ``n`` sweeps of a space run, the halo copies'
     device time per sweep, and the busy share of the unprofiled wall time
-    per sweep."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
+    per sweep (:func:`busy_words`)."""
     before = space_counts()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        sim.sample(n, "metropolis", **dict(kw, warmup_ratio=0.0))
-        torch.cuda.synchronize()
+    prof, wall = profiled(lambda: sim.sample(n, "metropolis", **dict(kw, warmup_ratio=0.0)))
     ran = {k: v - before.get(k, 0) for k, v in space_counts().items()}
     per_launch, counts, per_sweep, missed, rest = kernel_times(
         prof, names or SPACE_KERNELS, n, ran)
     copies = other = 0.0
-    for ev in rest:
-        if "copy" in ev.key.lower() or "memcpy" in ev.key.lower():
-            copies += ev.self_device_time_total / n
+    for key, us in rest.items():
+        if "copy" in key.lower() or "memcpy" in key.lower():
+            copies += us
         else:
-            other += ev.self_device_time_total / n
+            other += us
     busy = sum(per_sweep.values()) + copies + other
     cc_us = sum(per_sweep.get(k, 0.0) for k in CC_BAND_KERNELS)
+    _, words = busy_words(busy, wall * 1e6 / n, sweeps_s)
     line = ("device us per sweep: " + ", ".join(f"{k} {v:.3f}" for k, v in per_sweep.items())
-            + f", halo and gather copies {copies:.3f}, other device work {other:.3f}, sum "
-            f"{busy:.3f} against {1e6 / sweeps_s:.3f} us of wall time per sweep: the "
-            f"device is busy {busy * sweeps_s / 1e6:.3f} of it; the profiler saw "
-            + (f"{missed} launches" if missed else "every launch"))
+            + f", halo and gather copies {copies:.3f}, other device work {other:.3f}, "
+            f"{words}; the profiler saw " + (f"{missed} launches" if missed else "every launch"))
     return dict(per_launch=per_launch, per_sweep=counts, copies_us=copies, busy=busy,
                 cc_us=cc_us, line=line)
 
@@ -6055,6 +6078,507 @@ def add_any_records(kernels, runs):
                 by_name[k][f"at_{name}"] = rec
 
 
+# ------------------------------------------------ replicas on the table lattices
+
+
+# Phase 38: replicas, pair overlaps and the overlap moves on the lattices of
+# the kernels' table form (four dimensions or more, or 7 to 32 offsets).
+# 38a, the 4D +-J Edwards-Anderson glass at full width: the study of
+# examples/sweep_config.toml (+-J, full-ladder PT, houdayer+cmr SW moves
+# every sweep, SW every 2 sweeps with cluster statistics) carried to four
+# dimensions, 10^4 sites x 12 temperatures across T_c ~ 2.0 x 2 replicas x
+# 16 realizations (3.84 M spins), cut in depth only.  38b: Joerg and
+# Houdayer(4) (R = 4, Wolff) at that shape, and a 3D +-J glass with nearest
+# and next-nearest neighbours (16^3, the 9 forward offsets of the axes and
+# the face diagonals, R = 2, CMR SW with statistics, its ladder scaled by
+# sqrt(z / 6) from config 4's), cut in depth.  Each twice from one seed.
+EA_KW = dict(pt_interval=1, pt_schedule="full_ladder", overlap_cluster_update_interval=1,
+                overlap_cluster_build_mode="houdayer+cmr", overlap_cluster_mode="sw",
+                cluster_update_interval=2, cluster_mode="sw", collect_cluster_stats=True)
+EA_WOLFF_KW = dict(pt_interval=1, pt_schedule="full_ladder",
+                   overlap_cluster_update_interval=1, overlap_cluster_mode="wolff",
+                   collect_cluster_stats=True)
+NINE_OFFSETS = [[1, 0, 0], [0, 1, 0], [0, 0, 1], [1, 1, 0], [1, -1, 0], [1, 0, 1],
+                [1, 0, -1], [0, 1, 1], [0, 1, -1]]
+EA_RUNS = {
+    "glass4d": dict(shape=(10, 10, 10, 10), offsets=None,
+                    temps=np.linspace(1.6, 2.4, 12), n_replicas=2, n_disorder=16, seed=38,
+                    sweeps=1024, kw=EA_KW),
+    "glass4d-jorg": dict(shape=(10, 10, 10, 10), offsets=None,
+                         temps=np.linspace(1.6, 2.4, 12), n_replicas=2, n_disorder=16,
+                         seed=39, sweeps=128,
+                         kw=dict(EA_WOLFF_KW, overlap_cluster_build_mode="jorg")),
+    "glass4d-houd4": dict(shape=(10, 10, 10, 10), offsets=None,
+                          temps=np.linspace(1.6, 2.4, 12), n_replicas=4, n_disorder=16,
+                          seed=40, sweeps=128,
+                          kw=dict(EA_WOLFF_KW, overlap_cluster_build_mode="houd4")),
+    "nine16": dict(shape=(16, 16, 16), offsets=NINE_OFFSETS,
+                   temps=np.geomspace(0.9 * math.sqrt(3), 2.2 * math.sqrt(3), 12),
+                   n_replicas=2, n_disorder=8, seed=41, sweeps=128,
+                   kw=dict(pt_interval=1, pt_schedule="full_ladder",
+                           overlap_cluster_update_interval=1,
+                           overlap_cluster_build_mode="cmr", overlap_cluster_mode="sw",
+                           collect_cluster_stats=True)),
+}
+# 38c's further states: 5D and an odd extent (random spins, R = 4, 3
+# temperatures, 2 realizations), and the 4^4 glass on the card against the CPU
+EA_STATES = {"5d6": (6, 6, 6, 6, 6), "odd9": (9, 9, 9, 9)}
+EA_TWIN = dict(shape=(4, 4, 4, 4), n_replicas=2, n_disorder=2, sweeps=64)
+# the sweeps of a warm call of the rate and of the profiled window: one
+# length, since sample() copies its result histograms to the host once a
+# call (46 MB at the 4D glass), which a shorter window would charge to
+# fewer sweeps than the rate does
+EA_RATE_SWEEPS = 128
+# P(q > 0) - P(q < 0) at the hottest temperature, in standard errors over
+# the realizations
+PQ_SYM_SE = 4.0
+EA_KERNELS = ("pair_overlap_table", "ov_bonds_table", "ov_mid_table", "ov_finish_table",
+                 "houdn_bonds_table", "houdn_finish_table")
+WALK_MOVE_KERNELS = ("ov_bonds", "ov_mid", "ov_finish", "houdn_bonds", "houdn_finish",
+                     "pair_overlap", "energy_partials", "colour_pass", "mega_resident")
+EA_SRC = {k: "peapods_tpu_torch/csrc/overlap.cu" for k in EA_KERNELS}
+EA_SRC["pair_overlap_table"] = "peapods_tpu_torch/csrc/pairs.cu"
+
+
+def ea_replaces(k):
+    return (PAIR_REPLACES if k.startswith("pair") else HOUDN_REPLACES if k.startswith("houdn")
+            else EV_REPLACES)
+
+
+def ea_model(c, dev, **over):
+    from peapods_tpu_torch import Ising
+
+    c = dict(c, **over)
+    geo = {} if c["offsets"] is None else dict(neighbor_offsets=c["offsets"])
+    return Ising(c["shape"], couplings="bimodal", temperatures=c["temps"],
+                 n_replicas=c["n_replicas"], n_disorder=c["n_disorder"], seed=c["seed"],
+                 device=dev, **geo)
+
+
+def ea_counts():
+    """Every launch count since the last reset, by kernel (the mega path's
+    too), the kernels that ran."""
+    from peapods_tpu_torch.ops import mega, megapair, overlap
+
+    return {**cluster_counts(), **{k: v for k, v in {**mega.LAUNCHES, **megapair.LAUNCHES,
+                                                     **overlap.LAUNCHES}.items() if v}}
+
+
+def ea_moves(kw, n):
+    """The move kind and group size of each sweep of ``n`` from sweep 0."""
+    modes = kw["overlap_cluster_build_mode"].split("+")
+    out = []
+    for s in range(0, n, kw["overlap_cluster_update_interval"]):
+        m = modes[(s // kw["overlap_cluster_update_interval"]) % len(modes)]
+        out.append(("houdayer", int(m[4:])) if m.startswith("houd") and m != "houdayer"
+                   else (m, 2))
+    return out
+
+
+def ea_want(model, kw, n):
+    """Launches of ``n`` sweeps from sweep 0 of a replica run on a table
+    lattice: a ``sweep_nb_table`` a colour, ``measure_nb_table``,
+    ``pair_overlap_table`` and ``pt_step`` a sweep; on FK sweeps the staged
+    table path (``fk_bonds_table``, the table labelling, ``fk_finish``); per
+    update move its table forms (Houdayer ``houdn_bonds_table``, a
+    labelling, ``houdn_finish_table``; Joerg ``ov_bonds_table``, a
+    labelling, ``ov_finish_table``; CMR ``ov_bonds_table``, two labellings,
+    ``ov_mid_table``, ``ov_finish_table``), ``measure_nb_table`` again for
+    the energies of PT and a second ``pt_step``; a labelling is
+    ``cc_table_init``, ``cc_table_link``, ``fk_link_flatten``."""
+    lat = model._sim.rt.lattice
+    want = {"sweep_nb_table": lat.n_colors * n, "measure_nb_table": n,
+            "pair_overlap_table": n, "pt_step": n}
+    links = 0
+    if "cluster_update_interval" in kw:
+        n_fk = len(range(0, n, kw["cluster_update_interval"]))
+        want.update(fk_bonds_table=n_fk, fk_finish=n_fk)
+        links += n_fk
+    for kind, _ in ea_moves(kw, n):
+        first, last = (("houdn_bonds_table", "houdn_finish_table") if kind == "houdayer"
+                       else ("ov_bonds_table", "ov_finish_table"))
+        for k in (first, last, "measure_nb_table", "pt_step"):
+            want[k] = want.get(k, 0) + 1
+        links += 2 if kind == "cmr" else 1
+        if kind == "cmr":
+            want["ov_mid_table"] = want.get("ov_mid_table", 0) + 1
+    for k in ("cc_table_init", "cc_table_link", "fk_link_flatten"):
+        want[k] = links
+    return want
+
+
+def ea_sanity(name, c, model, r, n):
+    """Finite records, <e> falling with T, q^2 in [0, 1]; every cluster-size
+    histogram sums (size x count) to n_spins x its graphs; on 38a the
+    hottest temperature's P(q) symmetric within PQ_SYM_SE standard errors
+    over the realizations."""
+    rt = model._sim.rt
+    e, q2 = r["energies"], r["overlap2"]
+    sane = {"finite": bool(np.isfinite(e).all() and np.isfinite(q2).all()),
+            "<e> falls with T": bool(e[0] > e[-1]),
+            "q^2 in [0, 1]": bool(((q2 >= 0) & (q2 <= 1)).all())}
+    warmup = int(np.floor(n * 0.25 + 0.5))
+    kw = c["kw"]
+    modes = kw["overlap_cluster_build_mode"].split("+")
+    graphs = {m: 0 for m in range(len(modes))}
+    for s, (_, g) in enumerate(ea_moves(kw, n)):
+        if s >= warmup:
+            graphs[s % len(modes)] += rt.n_disorder * (rt.n_replicas // g)
+    sums = []
+    for m, per_t in enumerate(r["overlap_csd"]):
+        for h in per_t:
+            h = np.asarray(h, np.float64)
+            sums.append(float((np.arange(len(h)) * h).sum()) == rt.n_spins * graphs[m])
+    sane["sum s csd[s] = n_spins x graphs (each move kind)"] = all(sums) and bool(sums)
+    if "fk_csd" in r:
+        n_fk = len([s for s in range(warmup, n) if s % kw["cluster_update_interval"] == 0])
+        sane["sum s fk_csd[s] = n_spins x graphs"] = all(
+            float((np.arange(len(h)) * np.asarray(h, np.float64)).sum())
+            == rt.n_spins * n_fk * rt.n_disorder * rt.n_replicas for h in r["fk_csd"])
+    extra = ""
+    if name == "glass4d":
+        hist = np.asarray(r["per_sample_overlap_histogram"], np.float64)[:, -1]
+        mid = (hist.shape[-1] - 1) // 2
+        asym = (hist[:, mid + 1:].sum(-1) - hist[:, :mid].sum(-1)) / hist.sum(-1)
+        se = asym.std(ddof=1) / np.sqrt(len(asym))
+        z = asym.mean() / se
+        sane[f"P(q) symmetric at the hottest T within {PQ_SYM_SE} s.e."] = bool(
+            abs(z) < PQ_SYM_SE)
+        extra = (f"; at T = {c['temps'][-1]:.3f} P(q > 0) - P(q < 0) = {asym.mean():.5f} "
+                 f"+- {se:.5f} over {len(asym)} realizations ({z:.2f} s.e.)")
+    if not all(sane.values()):
+        raise AssertionError(f"{name} sanity: {sane}{extra}")
+    return sane, extra
+
+
+def ea_run(name, c, dev, card):
+    """A run twice from one seed through Ising.sample: launch counts of the
+    first against :func:`ea_want` (every table form of its moves and
+    ``pair_overlap_table`` launched, no walk-form move or pair kernel and
+    no mega-path kernel), two equal checksums (spins, sid, records, pair
+    records, the histograms, ``fk_csd``), :func:`ea_sanity`, the rate of
+    warm calls."""
+    from peapods_tpu_torch.ops import mega, megapair, overlap
+
+    n, kw = c["sweeps"], c["kw"]
+    models, results, checks = [], [], []
+    for run in range(2):
+        model = ea_model(c, dev)
+        torch.cuda.synchronize()
+        for table in (mega.LAUNCHES, megapair.LAUNCHES, overlap.LAUNCHES):
+            for k in table:
+                table[k] = 0
+        reset_cluster_counts()
+        t0 = time.perf_counter()
+        result = model.sample(n, "metropolis", **kw)
+        torch.cuda.synchronize()
+        if run == 0:
+            launches = ea_counts()
+            first_s = time.perf_counter() - t0
+        models.append(model)
+        results.append(result)
+        checks.append(replica_sweep_checksum(model._sim, result))
+    want = ea_want(models[0], kw, n)
+    if launches != want:
+        raise AssertionError(f"{name} launch counts {launches}, expected {want}")
+    walk = {k: launches[k] for k in WALK_MOVE_KERNELS if k in launches}
+    if walk:
+        raise AssertionError(f"{name} launched walk-form or mega-path kernels: {walk}")
+    if checks[0] != checks[1]:
+        raise AssertionError(f"{name} checksums differ: {checks}")
+    sane, extra = ea_sanity(name, c, models[0], results[0], n)
+    rt = models[0]._sim.rt
+    sweeps_s, rates = warm_rate(models[1], EA_RATE_SWEEPS, kw, calls=3)
+    r = results[0]
+    log("38 table replicas", f"{name}: {'x'.join(map(str, rt.lattice.shape))}, "
+        f"{rt.lattice.n_neighbors} offsets, {rt.n_temps} temps x {rt.n_replicas} replicas x "
+        f"{rt.n_disorder} realizations ({rt.n_disorder * rt.n_systems * rt.n_spins} spins), "
+        f"{kw}, {n} sweeps on {dev} ({first_s:.1f} s): launches {launches}; checksum "
+        f"{checks[0]} == {checks[1]}; sanity ok: {', '.join(sane)}{extra}; <e>[0,-1] "
+        f"{r['energies'][0]:.5f}, {r['energies'][-1]:.5f}; <q^2>[0,-1] "
+        f"{r['overlap2'][0]:.5f}, {r['overlap2'][-1]:.5f}; {sweeps_s:.1f} sweeps/s "
+        f"(median of {', '.join(f'{x:.1f}' for x in rates)}) on {card}")
+    return dict(model=models[1], result=r, launches=launches, sweeps_s=sweeps_s,
+                checksum=checks[0], kw=kw, n=n)
+
+
+def ea_bounds(lat, d, n_temps, g, n_groups, flipped, kind, wolff):
+    """The bound of each table form of one move (bytes: each input the form
+    needs read once, each output written once; operations: a few f32
+    operations a bond of each task), on ``d`` realizations of ``n_temps``
+    temperatures, tasks of ``g`` replicas in ``n_groups`` groups, and the
+    spins the finish flips (``flipped``).  A bond graph is ``nb`` bits a
+    site, ceil(nb / 8) bytes.  The bonds forms read the task's systems (the
+    pair, or Houdayer's g members), the forward table (and the couplings
+    but for Houdayer) and write the graph and the seeds; ``ov_mid_table``
+    also reads the blue graph and the parents and writes the grey graph
+    and a flip byte (the backward table left out: it is read only where an
+    SW coin falls on a root with no forward bond).  A finish reads the
+    parents and the spins it flips and writes those spins; SW also reads
+    the graph (the non-singleton test), Wolff the seeds, CMR its flip
+    bytes."""
+    n, nb = lat.n_spins, lat.n_neighbors
+    b = d * n_temps * n_groups
+    w = -(-nb // 8)
+    tab = 4 * n * nb
+    cp = 4 * d * n * nb
+    finish = (4 * b * n + 2 * flipped + (4 * b if wolff else w * b * n)
+              + (b * n if kind == "cmr" else 0))
+    if kind == "houdayer":
+        return {"houdn_bonds_table": bound(g * b * n + tab + w * b * n + 4 * b, g * nb * b * n),
+                "houdn_finish_table": bound(finish, 0)}
+    out = {"ov_bonds_table": bound(2 * b * n + cp + tab + w * b * n + 4 * b, 3 * nb * b * n),
+           "ov_finish_table": bound(finish, 0)}
+    if kind == "cmr":
+        out["ov_mid_table"] = bound(2 * b * n + cp + tab + (w + 4) * b * n + (w + 1) * b * n,
+                                    3 * nb * b * n)
+    return out
+
+
+def ea_pair_bound(lat, d, cols):
+    """``pair_overlap_table``'s bound: the two systems of every column and
+    the forward table read once, two ints a column written; two f32
+    operations a bond of a column."""
+    n, nb = lat.n_spins, lat.n_neighbors
+    return bound(2 * cols * d * n + 4 * n * nb + 8 * cols * d, 2 * nb * cols * d * n)
+
+
+def ea_alone(lat, tables, x, tab, kind, wolff, g, dev):
+    """Each table form of a move on its own inputs: the first graph's words
+    and the seeds (and ov_mid_table's grey words and flip bytes), left in a
+    table Scratch by the move's launches, bitwise table_states_plain;
+    ov_finish_table or houdn_finish_table launched alone on the plain
+    version's last graph and its labels, every spin bitwise finish_plain.
+    Returns the mismatches and the spins the finish flipped."""
+    from peapods_tpu_torch.ops import _build, fk, overlap
+    from peapods_tpu_torch.ops.cluster import connected_components
+
+    spins, sid, coup, temps = x["spins"], x["sid"], x["coup"], x["temps"]
+    d, s, n = spins.shape
+    args = (sid, tab[0], coup, temps, *tab[1:])
+    st, st2, fl, sd = overlap.table_states_plain(spins.clone(), *args, kind=kind,
+                                                 wolff=wolff, lattice=lat)
+    last = st if st2 is None else st2
+    dims, _ = overlap.check_event(spins, *args, lat, kind)
+    scratch = overlap.Scratch(dims[0], n, dev, kind == "cmr", table=True)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    overlap.launch_event(lib, stream, dims, spins.clone().data_ptr(),
+                         *(t.data_ptr() for t in args), scratch.ptrs(), kind=kind,
+                         wolff=wolff, group=g, lattice=lat, tables=tables)
+    torch.cuda.synchronize()
+    houd = kind == "houdayer"
+    first = "houdn_bonds_table" if houd else "ov_bonds_table"
+    bad = {f"{first} words": int((scratch.state != st).sum()),
+           f"{first} seeds": int((scratch.seeds != sd).sum())}
+    if kind == "cmr":
+        bad["ov_mid_table grey words"] = int((scratch.state2 != st2).sum())
+        bad["ov_mid_table flips"] = int((scratch.flip != fl).sum())
+    par = connected_components(fk.state_masks(last, lat.n_neighbors), lat.shape,
+                               lat.offsets).to(torch.int32)
+    a, b = spins.clone(), spins.clone()
+    overlap.finish_plain(b, sid, tab[0], tab[1], sd, last, par, kind=kind, wolff=wolff,
+                         shape=lat, flip=fl)
+    words = overlap.ov_table_words(n, lat.n_neighbors, d, x["n_temps"],
+                                   x["n_replicas"] // g, s)
+    bwd = tables[1].data_ptr()
+    if houd:
+        _build.check(lib.peapods_houdn_finish_table(
+            a.data_ptr(), sid.data_ptr(), tab[0].data_ptr(), tab[1].data_ptr(),
+            last.data_ptr(), par.data_ptr(), sd.data_ptr(), bwd, words.ctypes.data, g,
+            int(wolff), stream), "houdn_finish_table")
+    else:
+        _build.check(lib.peapods_ov_finish_table(
+            a.data_ptr(), sid.data_ptr(), tab[0].data_ptr(), tab[1].data_ptr(),
+            sd.data_ptr(), last.data_ptr(), par.data_ptr(),
+            None if fl is None else fl.data_ptr(), bwd, words.ctypes.data,
+            overlap.KINDS.index(kind), int(wolff), stream), "ov_finish_table")
+    torch.cuda.synchronize()
+    bad["houdn_finish_table spins" if houd else "ov_finish_table spins"] = int((a != b).sum())
+    return bad, int((b != spins).sum())
+
+
+def ea_moves_check(name, lat, tables, x, moves, dev, rng, card, observe=False):
+    """On a state ``x`` (spins ``[d, S, n]`` by system, sid, couplings,
+    temperatures): each move of ``moves`` (kind, g, wolff) through the table
+    forms bitwise its plain version (spins, labels, CMR's blue labels, the
+    stats graph's masks; with ``observe`` the SW pair moves' observe form
+    too), each table form alone (:func:`ea_alone`), and
+    ``pair_overlap_table`` bitwise its plain version; the plain versions'
+    times and the kernels' bounds."""
+    from peapods_tpu_torch.ops import megapair, overlap
+
+    spins, sid = x["spins"], x["sid"]
+    d, s, n = spins.shape
+    out = {}
+    for kind, g, wolff in moves:
+        tab = move_tables(rng, d, x["n_replicas"], x["n_temps"], n, kind, wolff, g, dev)
+        args = (sid, tab[0], x["coup"], x["temps"], *tab[1:])
+        forms = [False] + ([True] if observe and g == 2 and not wolff else [])
+        for obs in forms:
+            kw = dict(kind=kind, wolff=wolff, shape=lat, with_labels=True,
+                      with_masks=g == 2, observe=obs)
+            a, b = spins.clone(), spins.clone()
+            gk = overlap.overlap_event(a, *args, tables=tables, **kw)
+            gp = overlap.overlap_event_plain(b, *args, **kw)
+            torch.cuda.synchronize()
+            bad = graph_mismatches(a, b, gk, gp)
+            if obs:
+                bad["spins written"] = int((a != spins).sum())
+            elif not (a != spins).any():
+                bad["no spin flipped"] = 1
+            if any(bad.values()):
+                raise AssertionError(f"{name} {kind} (g {g}, {'wolff' if wolff else 'sw'}"
+                                     f"{', observe' if obs else ''}): mismatches {bad}")
+        alone, flipped = ea_alone(lat, tables, x, tab, kind, wolff, g, dev)
+        if any(alone.values()) or not flipped:
+            raise AssertionError(f"{name} {kind} alone: mismatches {alone}, {flipped} "
+                                 "spins flipped")
+        kw = dict(kind=kind, wolff=wolff, shape=lat)
+        plain_ms = wall_ms(lambda: overlap.overlap_event_plain(spins.clone(), *args, **kw), 2)
+        bounds = ea_bounds(lat, d, x["n_temps"], g, x["n_replicas"] // g, flipped, kind,
+                           wolff)
+        names = (("houdn_bonds_table", "houdn_finish_table") if kind == "houdayer" else
+                 ("ov_bonds_table", "ov_mid_table", "ov_finish_table") if kind == "cmr"
+                 else ("ov_bonds_table", "ov_finish_table"))
+        for k in names:
+            b_ms, b_by = bounds[k]
+            out.setdefault(k, dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
+                                   plain_ms=plain_ms, plain_is=f"the whole {kind} move"))
+        log("38 kernel-vs-plain", f"{name} {kind} (g {g}, {'wolff' if wolff else 'sw'}"
+            f"{', and its observe form' if len(forms) > 1 else ''}; {d * x['n_temps'] * (x['n_replicas'] // g)} "
+            f"tasks on {'x'.join(map(str, lat.shape))}, {lat.n_neighbors} offsets): the "
+            f"move's spins, labels and masks and each table form alone bitwise the plain "
+            f"version: mismatches {alone}; {flipped} spins flipped; plain move "
+            f"{plain_ms:.3f} ms on {card} ok")
+    cols = (x["n_replicas"] // 2) * x["n_temps"]
+    rows = torch.empty((2, d, cols), dtype=torch.int32, device=dev)
+    megapair.pair_overlap_table(spins, sid, rows[0], rows[1], lattice=lat,
+                                n_replicas=x["n_replicas"], tables=tables)
+    qs, ql = megapair.pair_overlap_table_plain(spins, sid, tables[0], x["n_replicas"])
+    torch.cuda.synchronize()
+    bad = int((rows[0] != qs).sum() + (rows[1] != ql).sum())
+    if bad:
+        raise AssertionError(f"{name} pair_overlap_table: {bad} mismatches")
+    plain_ms = wall_ms(lambda: megapair.pair_overlap_table_plain(spins, sid, tables[0],
+                                                                 x["n_replicas"]), 3)
+    b_ms, b_by = ea_pair_bound(lat, d, cols)
+    out["pair_overlap_table"] = dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
+                                     plain_ms=plain_ms, plain_is="pair_overlap_table_plain")
+    log("38 kernel-vs-plain", f"{name} pair_overlap_table ({d} x {cols} columns, "
+        f"{lat.n_neighbors} offsets, {megapair.pair_table_per(cols)} columns a CTA): qs and ql "
+        f"bitwise the plain version; plain {plain_ms:.3f} ms on {card} ok")
+    return out
+
+
+def ea_state(run):
+    """A run's final state as :func:`ea_moves_check` takes it."""
+    sim = run["model"]._sim
+    rt = sim.rt
+    d, s = rt.n_disorder, rt.n_systems
+    return dict(spins=sim.state["spins"].view(d, s, -1), sid=sim.state["system_ids"].view(d, s),
+                coup=rt.coup, temps=rt.temps, n_temps=rt.n_temps, n_replicas=rt.n_replicas)
+
+
+def ea_random_state(lat, dev, rng, d=2, n_replicas=4, n_temps=3):
+    """Random spins on ``lat`` (R = 4, 3 temperatures, 2 realizations, +-J
+    couplings, a random sid)."""
+    n, nb, s = lat.n_spins, lat.n_neighbors, n_replicas * n_temps
+    sid = np.stack([rng.permutation(n_temps)[None] + n_temps * rng.permutation(
+        n_replicas)[:, None] for _ in range(d)]).reshape(d, s).astype(np.int32)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return dict(spins=up(rng.choice([-1, 1], size=(d, s, n)).astype(np.int8)),
+                sid=up(sid),
+                coup=up(rng.choice([-1.0, 1.0], size=(d, n, nb)).astype(np.float32)),
+                temps=up(np.geomspace(0.9, 2.2, n_temps).astype(np.float32)),
+                n_temps=n_temps, n_replicas=n_replicas)
+
+
+def ea_twin(dev, card):
+    """38c: a 4^4 +-J glass (R = 2, 2 realizations, 64 sweeps, 38a's moves
+    and FK phase) on the card bitwise the same run on the CPU's plain
+    path: spins, sid, PT counts, the histograms; records to rtol 1e-12."""
+    c = dict(EA_RUNS["glass4d"], **EA_TWIN)
+    runs = []
+    for device in (dev, "cpu"):
+        m = ea_model(c, device)
+        runs.append((m, m.sample(c["sweeps"], "metropolis", **c["kw"])))
+    (mk, rk), (mp, rp) = runs
+    for key in ("spins", "system_ids", "pt_edge_acceptances", "pt_round_trips",
+                "pt_trip_state"):
+        if not torch.equal(mk._sim.state[key].cpu(), mp._sim.state[key]):
+            raise AssertionError(f"glass 4^4: {key} differs from the CPU's")
+    for key in ("energies", "energies2", "mags2", "overlap2", "link_overlap"):
+        np.testing.assert_allclose(rk[key], rp[key], rtol=1e-12, err_msg=f"glass 4^4 {key}")
+    for key in ("overlap_histogram", "overlap_csd", "fk_csd"):
+        if not np.array_equal(np.asarray(rk[key]), np.asarray(rp[key])):
+            raise AssertionError(f"glass 4^4: {key} differs from the CPU's")
+    log("38 kernel-vs-plain", f"4^4 +-J glass, R = 2, 2 realizations, {c['sweeps']} sweeps "
+        f"of {c['kw']['overlap_cluster_build_mode']} SW moves and SW every 2 sweeps: the "
+        f"card bitwise the CPU's plain path (spins, sid, PT counts, histograms; records to "
+        f"rtol 1e-12) on {card} ok")
+
+
+def ea_phase(dev, card):
+    """Phase 38: 38a and 38b (:func:`ea_run`), 38c each table form on the
+    runs' states and on 5D and odd-extent states against its plain version,
+    Wolff and SW, update and observe (:func:`ea_moves_check`), and the
+    4^4 twin (:func:`ea_twin`); 38d a profiled main-path window of each
+    run (device us a sweep against wall us, each form's time a launch
+    beside its bound and its plain version's time)."""
+    from peapods_tpu_torch.ops.lattice import Lattice
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(2038)
+    runs = {name: ea_run(name, c, dev, card) for name, c in EA_RUNS.items()}
+    for name, run in runs.items():
+        rt = run["model"]._sim.rt
+        wolff = run["kw"]["overlap_cluster_mode"] == "wolff"
+        moves = sorted(set((k, g, wolff) for k, g in ea_moves(run["kw"], 2)))
+        run["checks"] = ea_moves_check(name, rt.lattice, rt.tables, ea_state(run),
+                                          moves, dev, rng, card)
+    every = [(k, g, w) for k, g in (("houdayer", 2), ("houdayer", 4), ("jorg", 2),
+                                    ("cmr", 2)) for w in (False, True)]
+    for name, shape in EA_STATES.items():
+        lat = Lattice(shape)
+        ea_moves_check(name, lat, lat.device_tables(dev), ea_random_state(lat, dev, rng),
+                          every, dev, rng, card, observe=True)
+    nine = Lattice((8, 8, 8), NINE_OFFSETS)
+    ea_moves_check("nine8", nine, nine.device_tables(dev),
+                      ea_random_state(nine, dev, rng), every, dev, rng, card, observe=True)
+    ea_twin(dev, card)
+    for name, run in runs.items():
+        us, line = profile_window(run["model"], run["kw"], run["sweeps_s"], EA_RATE_SWEEPS,
+                                  names=tuple(run["launches"]))
+        run["us"] = us
+        log("38 times", f"{name} {line} (on {card})")
+        for k, rec in run["checks"].items():
+            if k in us:
+                rec.update(ms=us[k] / 1e3, launches=run["launches"].get(k, 0),
+                           launches_a_sweep=run["launches"].get(k, 0) / run["n"])
+        log("38 times", f"{name} per launch: " + "; ".join(
+            f"{k} {rec['ms']:.5f} ms, {rec['launches_a_sweep']:.2f} a sweep (bound "
+            f"{rec['bound_ms']:.6f} ms by {rec['bound_by']}, plain {rec['plain_ms']:.3f} ms)"
+            for k, rec in run["checks"].items() if "ms" in rec) + f" on {card}")
+    log("38 times", f"phase 38 took {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
+def add_ea_records(kernels, runs):
+    """Phase 38's records: each table form at 38a's main path (Houdayer(4)'s
+    at 38b's run, which alone launches it with g = 4: the pair move's
+    numbers there), the other runs' numbers beside them (``at_<run>``)."""
+    main = runs["glass4d"]
+    for k in EA_KERNELS:
+        rec = main["checks"][k]
+        kr = dict(rec, name=k, route="cuda", source=EA_SRC[k], replaces=ea_replaces(k),
+                  launches=main["launches"].get(k, 0), library_ms=None)
+        for name, run in runs.items():
+            if name != "glass4d" and k in run["checks"] and "ms" in run["checks"][k]:
+                kr[f"at_{name}"] = run["checks"][k]
+        kernels.append(kr)
+
+
 # ------------------------------------------------ the Python layer (item 6)
 
 
@@ -6605,6 +7129,9 @@ def main():
     # the Python layer: the CLI, run_sweep, trace(), Ctrl-C
     py_phase(dev, card, sweeps_s)
 
+    # replicas on the table lattices: the 4D glass
+    ea = ea_phase(dev, card)
+
     mega_src = "peapods_tpu_torch/csrc/mega.cu"
     mega_replaces = "peapods_tpu/ops/pallas_mega.py:96"
     fk_src = "peapods_tpu_torch/csrc/fk.cu"
@@ -6657,6 +7184,7 @@ def main():
     add_replica_sweep_records(kernels, rsweeps)
     add_ov_lattice_records(kernels, ovl)
     add_any_records(kernels, anyl)
+    add_ea_records(kernels, ea)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     record = {"kernels": [{**{k: kr[k] for k in keys},

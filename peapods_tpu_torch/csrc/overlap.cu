@@ -14,7 +14,10 @@
 // (the triangular lattice, the reference's tri=True, BCC, FCC and any
 // offset table; the table's form, template instance kTable); J/T is
 // computed per bond as J / T in f32, as the reference's pack_event_jt
-// does.  The launches of one move, on the caller's stream:
+// does.  Four dimensions or more, or 7 to 32 offsets, take the kernels'
+// neighbour-table form (*_table_kernel, "the table form" below), whose
+// neighbours are the lattice's int32 tables.  The launches of one move, on
+// the caller's stream:
 //
 // Houdayer(N) on groups of any even g, the pair move (g = 2) included:
 //
@@ -1278,6 +1281,443 @@ houdn_finish_kernel(int8_t* __restrict__ spins, const int32_t* __restrict__ sid,
   }
 }
 
+// ------------------------------------------------------------ the table form
+//
+// The five move kernels on the lattices that OvWalk's words do not hold:
+// four dimensions or more, or 7 to 32 forward offsets (ops/lattice.py
+// Lattice.table; the 4D +-J glass).  The reference runs its jnp moves there
+// (peapods_tpu/ops/overlap.py houdayer_task, jorg_bonds, cmr_blue_bonds,
+// cmr_mid and the finishes on GridOps), since its Pallas events hold three
+// extents (pallas_event.py:491-496): these kernels are the counterparts of
+// pallas_event.py:463 overlap_event_batch and :989 houdn_event_batch on those
+// lattices, and compute what the jnp moves compute.  Each site's neighbours
+// are read from the lattice's int32 tables fwd / bwd [n, nb] (device memory,
+// ops/lattice.py Lattice.device_tables).  A bond graph is a uint32 word a
+// site, bit d the bond to fwd[i, d]: the form that cc.cu's cc_table_init /
+// cc_table_link and fk.cu's fk_link_flatten label (ops/overlap.py
+// launch_event_table).  CMR's blue flip, which finds no free bit in a word
+// of 32 offsets, is a byte a site of its own (flip).  The rules, the draws
+// and their counters are the walk form's: Philox keyed by the task's two
+// words, counter (first + d, site / 4, 0, 0) with CMR's red bonds from
+// first = nb, each draw the integer compare with threshold24 of the bond's
+// probability, drawn only where a bond can be active.  A self offset (fwd[i,
+// d] = i, an extent of 1) is a bond like any other, as the reference's roll
+// over an extent of 1 makes it.
+//
+// The launch (table_grid, modelled in tests/test_torch_overlap_tables.py): a
+// thread takes the group of four sites 4 grp .. 4 grp + 3 (blockIdx.x the
+// blocks of kThreads groups) of one task (blockIdx.y), the offsets in a
+// loop at run time: the walk form's kTable instance, six offsets unrolled,
+// reached 251 registers.  A first
+// design: every thread finds its task's systems through tasks and sid,
+// reads its sites' table rows, each neighbour's spin bytes one at a time
+// and its couplings one float at a time, and takes J / T and the bond's
+// probability again for every task.
+//
+// What bounds it on the H100: bytes.  ov_bonds_table reads its task's two
+// systems (2 n bytes), the couplings and the forward table (8 n nb bytes a
+// realization) and writes a word a site (4 n bytes a task); ov_mid_table
+// adds the blue words, parents and the backward table; the finishes read
+// the last graph's words and parents and the spins they flip
+// (chip_smoke.py phase 38 computes each launch's bound from its shapes).
+
+// The table form's launch words (ops/overlap.py ov_table_words): n sites,
+// nb forward offsets, tasks b = (z T + t) G + j of T temperatures and G
+// groups (pairs but for Houdayer(N)), S slots a realization, d
+// realizations.
+struct OvTable {
+  int n;
+  int nb;
+  int T;
+  int G;
+  int S;
+  int d;
+};
+
+inline OvTable make_ov_table(const int* w) {
+  return OvTable{w[0], w[1], w[2], w[3], w[4], w[5]};
+}
+
+inline bool ov_table_ok(const OvTable& g) {
+  return g.n >= 1 && g.nb >= 1 && g.nb <= 32 &&
+         static_cast<long long>(g.n) * g.nb < (1LL << 31) && g.T >= 1 && g.G >= 1 &&
+         g.S >= 1 && g.d >= 1 && static_cast<long long>(g.d) * g.T * g.G <= 65535;
+}
+
+// x the blocks of kThreads groups of four sites, y the tasks.
+inline dim3 table_grid(const OvTable& g) {
+  const int groups = (g.n + 3) / 4;
+  return dim3((groups + kThreads - 1) / kThreads, g.d * g.T * g.G);
+}
+
+// Task blockIdx.y: its index b, realization z and temperature t.
+struct TableTask {
+  int b;
+  int z;
+  int t;
+};
+
+__device__ __forceinline__ TableTask table_task(const OvTable& g) {
+  TableTask k;
+  k.b = blockIdx.y;
+  const int tg = g.T * g.G;
+  k.z = k.b / tg;
+  k.t = (k.b - k.z * tg) / g.G;
+  return k;
+}
+
+// The row offset (z S + system) n of member r of task k (of gs members).
+__device__ __forceinline__ long long table_row(const OvTable& g, const TableTask& k,
+                                               const int32_t* __restrict__ sid,
+                                               const int32_t* __restrict__ tasks, int gs,
+                                               int r) {
+  const long long s0 = static_cast<long long>(k.z) * g.S;
+  const int rep = __ldg(tasks + static_cast<size_t>(k.b) * gs + r);
+  return (s0 + __ldg(sid + s0 + rep * g.T + k.t)) * g.n;
+}
+
+// Whether site i (flat parent lab) lies in a cluster of two sites or more,
+// as ops/cluster.py nonsingleton_mask decides: its own bonds (st), a root
+// other than itself, or else a backward neighbour's bond d towards it (bit
+// d of S[bwd[i, d]]).
+__device__ __forceinline__ bool table_nonsingleton(const uint32_t* __restrict__ S,
+                                                   const int32_t* __restrict__ bwd, int i,
+                                                   int lab, uint32_t st, int nb) {
+  if (st || lab != i) return true;
+  const int32_t* row = bwd + static_cast<size_t>(i) * nb;
+  for (int d = 0; d < nb; ++d)
+    if ((__ldg(S + __ldg(row + d)) >> d) & 1u) return true;
+  return false;
+}
+
+// Joerg's and CMR's blue bonds (ov_bonds' rules) and the seeds: Joerg
+// Wolff's first probe with a != b (the first warp of the task's first
+// block, two ballots), CMR's drawn one, n for Joerg SW.
+template <int kKind>
+__global__ void __launch_bounds__(kThreads)
+ov_bonds_table_kernel(const int8_t* __restrict__ spins, const int32_t* __restrict__ sid,
+                      const int32_t* __restrict__ tasks, const float* __restrict__ coup,
+                      const float* __restrict__ temps, const int32_t* __restrict__ scal,
+                      const int32_t* __restrict__ probes, const int32_t* __restrict__ keys,
+                      const int32_t* __restrict__ fwd, uint32_t* __restrict__ state,
+                      int32_t* __restrict__ seeds, const OvTable g, int wolff) {
+  const TableTask k = table_task(g);
+  const int8_t* A = spins + table_row(g, k, sid, tasks, 2, 0);
+  const int8_t* B = spins + table_row(g, k, sid, tasks, 2, 1);
+  if (blockIdx.x == 0) {
+    if (kKind == kJorg && wolff) {
+      if (threadIdx.x < 32) {
+        const int l = threadIdx.x;
+        const int32_t* pr = probes + kProbes * k.b;
+        const int p0 = __ldg(pr + l);
+        const int p1 = __ldg(pr + 32 + l);
+        const unsigned lo = __ballot_sync(0xffffffffu, __ldg(A + p0) != __ldg(B + p0));
+        const unsigned hi = __ballot_sync(0xffffffffu, __ldg(A + p1) != __ldg(B + p1));
+        if (l == 0) seeds[k.b] = lo ? pr[__ffs(lo) - 1] : hi ? pr[32 + __ffs(hi) - 1] : g.n;
+      }
+    } else if (threadIdx.x == 0) {
+      seeds[k.b] = kKind == kCmr ? scal[6 * k.b + 4] : g.n;
+    }
+  }
+  const int grp = blockIdx.x * kThreads + threadIdx.x;
+  const int i0 = 4 * grp;
+  if (i0 >= g.n) return;
+  const int cnt = min(4, g.n - i0);
+  const float T = __ldg(temps + k.t);
+  const uint32_t k0 = static_cast<uint32_t>(__ldg(keys + 2 * k.b));
+  const uint32_t k1 = static_cast<uint32_t>(__ldg(keys + 2 * k.b + 1));
+  const float* J = coup + static_cast<size_t>(k.z) * g.n * g.nb;
+  const int which = kKind == kJorg ? kProbJorg : kProbBlue;
+  int a[4], b[4];
+  uint32_t st[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    a[q] = q < cnt ? __ldg(A + i0 + q) : 0;
+    b[q] = q < cnt ? __ldg(B + i0 + q) : 0;
+  }
+  for (int d = 0; d < g.nb; ++d) {
+    bool cand[4];
+    float jt[4];
+    bool any = false;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      cand[q] = false;
+      jt[q] = 0.0f;
+      if (q >= cnt) continue;
+      const size_t e = static_cast<size_t>(i0 + q) * g.nb + d;
+      const int f = __ldg(fwd + e);
+      const int af = __ldg(A + f);
+      const int bf = __ldg(B + f);
+      jt[q] = __ldg(J + e) / T;
+      const bool sa = static_cast<float>(a[q] * af) * jt[q] > 0.0f;
+      cand[q] = kKind == kJorg ? sa && a[q] != b[q] && af != bf
+                               : sa && static_cast<float>(b[q] * bf) * jt[q] > 0.0f;
+      any = any || cand[q];
+    }
+    if (!any) continue;
+    const uint4 r = philox4x32_10(k0, k1, static_cast<uint32_t>(d), static_cast<uint32_t>(grp),
+                                  0u, 0u);
+    const uint32_t uw[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (cand[q] && (uw[q] >> 8) < threshold24(bond_prob(which, jt[q]))) st[q] |= 1u << d;
+  }
+  uint32_t* out = state + static_cast<size_t>(k.b) * g.n;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (q < cnt) out[i0 + q] = st[q];
+}
+
+// CMR's blue flip and grey bonds (ov_mid's rules): the blue flip of each
+// site (Wolff: its flat parent against the drawn seed's; SW: the coin on
+// its root and table_nonsingleton) into its flip byte, and the grey word,
+// the blue bonds or (sat_a != sat_b && u < 1 - r) from counter nb + d.  The
+// flipped spins are never read: the blue flip flips a and b together, so
+// sat_a != sat_b is the same before and after it (for J / T neither 0 nor
+// NaN; both false else).
+template <bool kWolff>
+__global__ void __launch_bounds__(kThreads)
+ov_mid_table_kernel(const int8_t* __restrict__ spins, const int32_t* __restrict__ sid,
+                    const int32_t* __restrict__ tasks, const float* __restrict__ coup,
+                    const float* __restrict__ temps, const int32_t* __restrict__ scal,
+                    const int32_t* __restrict__ keys, const int32_t* __restrict__ fwd,
+                    const int32_t* __restrict__ bwd, const uint32_t* __restrict__ state,
+                    const int32_t* __restrict__ parent, uint32_t* __restrict__ state2,
+                    uint8_t* __restrict__ flip, const OvTable g) {
+  const TableTask k = table_task(g);
+  const int grp = blockIdx.x * kThreads + threadIdx.x;
+  const int i0 = 4 * grp;
+  if (i0 >= g.n) return;
+  const int cnt = min(4, g.n - i0);
+  const int8_t* A = spins + table_row(g, k, sid, tasks, 2, 0);
+  const int8_t* B = spins + table_row(g, k, sid, tasks, 2, 1);
+  const size_t base = static_cast<size_t>(k.b) * g.n;
+  const uint32_t* S = state + base;
+  const int32_t* P = parent + base;
+  const int32_t* sc = scal + 6 * k.b;
+  const uint32_t s0 = static_cast<uint32_t>(__ldg(sc));
+  const uint32_t s1 = static_cast<uint32_t>(__ldg(sc + 1));
+  const int root = kWolff ? __ldg(P + __ldg(sc + 4)) : -1;
+  const float T = __ldg(temps + k.t);
+  const uint32_t k0 = static_cast<uint32_t>(__ldg(keys + 2 * k.b));
+  const uint32_t k1 = static_cast<uint32_t>(__ldg(keys + 2 * k.b + 1));
+  const float* J = coup + static_cast<size_t>(k.z) * g.n * g.nb;
+  int a[4], b[4];
+  uint32_t grey[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (q >= cnt) break;
+    const int i = i0 + q;
+    a[q] = __ldg(A + i);
+    b[q] = __ldg(B + i);
+    grey[q] = __ldg(S + i);
+    const int lab = __ldg(P + i);
+    const bool fl = kWolff ? lab == root
+                           : salted_uniform(static_cast<uint32_t>(lab), s0, s1) < 0.5f &&
+                                 table_nonsingleton(S, bwd, i, lab, grey[q], g.nb);
+    flip[base + i] = fl ? 1 : 0;
+  }
+  for (int d = 0; d < g.nb; ++d) {
+    bool cand[4];
+    float jt[4];
+    bool any = false;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      cand[q] = false;
+      jt[q] = 0.0f;
+      if (q >= cnt || ((grey[q] >> d) & 1u)) continue;
+      const size_t e = static_cast<size_t>(i0 + q) * g.nb + d;
+      const int f = __ldg(fwd + e);
+      jt[q] = __ldg(J + e) / T;
+      const bool sa = static_cast<float>(a[q] * __ldg(A + f)) * jt[q] > 0.0f;
+      const bool sb = static_cast<float>(b[q] * __ldg(B + f)) * jt[q] > 0.0f;
+      cand[q] = sa != sb;
+      any = any || cand[q];
+    }
+    if (!any) continue;
+    const uint4 r = philox4x32_10(k0, k1, static_cast<uint32_t>(g.nb + d),
+                                  static_cast<uint32_t>(grp), 0u, 0u);
+    const uint32_t uw[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (cand[q] && (uw[q] >> 8) < threshold24(bond_prob(kProbGrey, jt[q])))
+        grey[q] |= 1u << d;
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (q < cnt) state2[base + i0 + q] = grey[q];
+}
+
+// The flips of a Joerg or CMR move (ov_finish's rules) from the flat parents
+// of its last graph (Joerg's bonds; CMR's grey words, the blue flip in
+// flip): Wolff the seed's component (none where Joerg's seed is n), SW each
+// non-singleton whose coin falls below 1/2 (Joerg) or whose k =
+// floor(4 salted_uniform(root, s2, s3)) is not 0 (CMR: a where k & 1, b where
+// k & 2, after the blue flip; Wolff: the task's k).  A thread flips only its
+// own sites, and reads no spin of another: no two threads write one byte.
+template <int kKind, bool kWolff>
+__global__ void __launch_bounds__(kThreads)
+ov_finish_table_kernel(int8_t* __restrict__ spins, const int32_t* __restrict__ sid,
+                       const int32_t* __restrict__ tasks, const int32_t* __restrict__ scal,
+                       const int32_t* __restrict__ seeds, const uint32_t* __restrict__ state,
+                       const int32_t* __restrict__ parent, const uint8_t* __restrict__ flip,
+                       const int32_t* __restrict__ bwd, const OvTable g) {
+  const TableTask k = table_task(g);
+  const int grp = blockIdx.x * kThreads + threadIdx.x;
+  const int i0 = 4 * grp;
+  if (i0 >= g.n) return;
+  const int cnt = min(4, g.n - i0);
+  int8_t* A = spins + table_row(g, k, sid, tasks, 2, 0);
+  int8_t* B = spins + table_row(g, k, sid, tasks, 2, 1);
+  const size_t base = static_cast<size_t>(k.b) * g.n;
+  const uint32_t* S = state + base;
+  const int32_t* P = parent + base;
+  const int32_t* sc = scal + 6 * k.b;
+  const uint32_t s0 = static_cast<uint32_t>(__ldg(sc + (kKind == kJorg ? 0 : 2)));
+  const uint32_t s1 = static_cast<uint32_t>(__ldg(sc + (kKind == kJorg ? 1 : 3)));
+  const int kk = __ldg(sc + 5);
+  int root = -1;
+  if (kWolff) {
+    const int seed = __ldg(seeds + k.b);
+    root = seed < g.n ? __ldg(P + seed) : -1;
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (q >= cnt) break;
+    const int i = i0 + q;
+    const int lab = __ldg(P + i);
+    bool fa, fb;
+    if (kWolff) {
+      const bool in = lab == root;
+      fa = in && (kKind == kJorg || (kk & 1));
+      fb = in && (kKind == kJorg || (kk & 2));
+    } else {
+      const float u = salted_uniform(static_cast<uint32_t>(lab), s0, s1);
+      const int kq = kKind == kJorg ? (u < 0.5f ? 3 : 0) : static_cast<int>(u * 4.0f);
+      const bool in = kq != 0 && table_nonsingleton(S, bwd, i, lab, __ldg(S + i), g.nb);
+      fa = in && (kq & 1);
+      fb = in && (kq & 2);
+    }
+    if (kKind == kCmr && __ldg(flip + base + i)) {
+      fa = !fa;
+      fb = !fb;
+    }
+    if (fa) A[i] = static_cast<int8_t>(-A[i]);
+    if (fb) B[i] = static_cast<int8_t>(-B[i]);
+  }
+}
+
+// Whether site i is balanced: the g members' spins (row offsets rows) sum
+// to 0.
+__device__ __forceinline__ bool table_balanced(const int8_t* __restrict__ spins,
+                                               const long long* rows, int gs, int i) {
+  int s = 0;
+  for (int r = 0; r < gs; ++r) s += __ldg(spins + rows[r] + i);
+  return s == 0;
+}
+
+// Houdayer(N)'s bonds (houdn_bonds' rules): bond d joins two balanced sites
+// i and fwd[i, d].  The CTA stages its task's g member rows in dynamic
+// shared memory; the Wolff seed, the first balanced probe (n when none is,
+// and for SW), from the first warp of the task's first block.
+__global__ void __launch_bounds__(kThreads)
+houdn_bonds_table_kernel(const int8_t* __restrict__ spins, const int32_t* __restrict__ sid,
+                         const int32_t* __restrict__ tasks, const int32_t* __restrict__ probes,
+                         const int32_t* __restrict__ fwd, uint32_t* __restrict__ state,
+                         int32_t* __restrict__ seeds, const OvTable g, int gs, int wolff) {
+  extern __shared__ long long table_rows[];
+  const TableTask k = table_task(g);
+  for (int r = threadIdx.x; r < gs; r += kThreads)
+    table_rows[r] = table_row(g, k, sid, tasks, gs, r);
+  __syncthreads();
+  if (blockIdx.x == 0) {
+    if (wolff) {
+      if (threadIdx.x < 32) {
+        const int l = threadIdx.x;
+        const int32_t* pr = probes + kProbes * k.b;
+        const int p0 = __ldg(pr + l);
+        const int p1 = __ldg(pr + 32 + l);
+        const unsigned lo = __ballot_sync(0xffffffffu, table_balanced(spins, table_rows, gs, p0));
+        const unsigned hi = __ballot_sync(0xffffffffu, table_balanced(spins, table_rows, gs, p1));
+        if (l == 0) seeds[k.b] = lo ? pr[__ffs(lo) - 1] : hi ? pr[32 + __ffs(hi) - 1] : g.n;
+      }
+    } else if (threadIdx.x == 0) {
+      seeds[k.b] = g.n;
+    }
+  }
+  const int grp = blockIdx.x * kThreads + threadIdx.x;
+  const int i0 = 4 * grp;
+  if (i0 >= g.n) return;
+  const int cnt = min(4, g.n - i0);
+  uint32_t* out = state + static_cast<size_t>(k.b) * g.n;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (q >= cnt) break;
+    const int i = i0 + q;
+    uint32_t st = 0;
+    if (table_balanced(spins, table_rows, gs, i)) {
+      const int32_t* row = fwd + static_cast<size_t>(i) * g.nb;
+      for (int d = 0; d < g.nb; ++d)
+        if (table_balanced(spins, table_rows, gs, __ldg(row + d))) st |= 1u << d;
+    }
+    out[i] = st;
+  }
+}
+
+// Houdayer(N)'s flips (houdn_finish's rules) in all g members: Wolff the
+// seed's component (none where the seed is n), SW each non-singleton whose
+// coin falls below 1/2.  A thread flips only its own sites.
+template <bool kWolff>
+__global__ void __launch_bounds__(kThreads)
+houdn_finish_table_kernel(int8_t* __restrict__ spins, const int32_t* __restrict__ sid,
+                          const int32_t* __restrict__ tasks, const int32_t* __restrict__ scal,
+                          const uint32_t* __restrict__ state, const int32_t* __restrict__ parent,
+                          const int32_t* __restrict__ seeds, const int32_t* __restrict__ bwd,
+                          const OvTable g, int gs) {
+  extern __shared__ long long table_rows[];
+  const TableTask k = table_task(g);
+  for (int r = threadIdx.x; r < gs; r += kThreads)
+    table_rows[r] = table_row(g, k, sid, tasks, gs, r);
+  __syncthreads();
+  const int grp = blockIdx.x * kThreads + threadIdx.x;
+  const int i0 = 4 * grp;
+  if (i0 >= g.n) return;
+  const int cnt = min(4, g.n - i0);
+  const size_t base = static_cast<size_t>(k.b) * g.n;
+  const uint32_t* S = state + base;
+  const int32_t* P = parent + base;
+  const uint32_t s0 = static_cast<uint32_t>(__ldg(scal + 6 * k.b));
+  const uint32_t s1 = static_cast<uint32_t>(__ldg(scal + 6 * k.b + 1));
+  int root = -1;
+  if (kWolff) {
+    const int seed = __ldg(seeds + k.b);
+    root = seed < g.n ? __ldg(P + seed) : -1;
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (q >= cnt) break;
+    const int i = i0 + q;
+    const int lab = __ldg(P + i);
+    const bool f = kWolff ? lab == root
+                          : salted_uniform(static_cast<uint32_t>(lab), s0, s1) < 0.5f &&
+                                table_nonsingleton(S, bwd, i, lab, __ldg(S + i), g.nb);
+    if (!f) continue;
+    for (int r = 0; r < gs; ++r) {
+      int8_t* s = spins + table_rows[r] + i;
+      *s = static_cast<int8_t>(-*s);
+    }
+  }
+}
+
+// The dynamic shared memory of the Houdayer(N) table kernels (gs member
+// rows), opted in past the 48 KB a launch takes without.
+template <typename Kernel>
+inline cudaError_t table_rows_smem(Kernel kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
+}
+
 // energy_partials' launch (ops/overlap.py energy_words): a system is n / W
 // words of W bytes (8 or 4 where the fast extent holds whole words and the
 // spins are aligned to them, else 1: the per-site path), in lines of wpl
@@ -1698,6 +2138,109 @@ int peapods_houdn_finish(void* spins, const void* sid, const void* tasks, const 
       static_cast<const int32_t*>(tasks), static_cast<const int32_t*>(scal),
       static_cast<const uint8_t*>(state), static_cast<const int32_t*>(parent),
       static_cast<const int32_t*>(seeds), g, g_size);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The table form (ops/overlap.py launch_event_table): the same arguments as
+// the walk form's entry points, with fwd / bwd the lattice's int32 tables
+// [n, nb] (device memory), state / state2 uint32 [n_tasks, n] (bit d: the
+// bond to fwd[i, d]), flip uint8 [n_tasks, n] (CMR's blue flip), words
+// ops/overlap.py ov_table_words (host memory).
+int peapods_ov_bonds_table(const void* spins, const void* sid, const void* tasks,
+                           const void* coup, const void* temps, const void* scal,
+                           const void* probes, const void* keys, const void* fwd, void* state,
+                           void* seeds, const int* words, int kind, int wolff, void* stream) {
+  const OvTable g = make_ov_table(words);
+  if ((kind != kJorg && kind != kCmr) || !ov_table_ok(g))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = kind == kJorg ? ov_bonds_table_kernel<kJorg> : ov_bonds_table_kernel<kCmr>;
+  kernel<<<table_grid(g), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(spins), static_cast<const int32_t*>(sid),
+      static_cast<const int32_t*>(tasks), static_cast<const float*>(coup),
+      static_cast<const float*>(temps), static_cast<const int32_t*>(scal),
+      static_cast<const int32_t*>(probes), static_cast<const int32_t*>(keys),
+      static_cast<const int32_t*>(fwd), static_cast<uint32_t*>(state),
+      static_cast<int32_t*>(seeds), g, wolff);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int peapods_ov_mid_table(const void* spins, const void* sid, const void* tasks, const void* coup,
+                         const void* temps, const void* scal, const void* keys, const void* fwd,
+                         const void* bwd, const void* state, const void* parent, void* state2,
+                         void* flip, const int* words, int wolff, void* stream) {
+  const OvTable g = make_ov_table(words);
+  if (!ov_table_ok(g)) return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = wolff ? ov_mid_table_kernel<true> : ov_mid_table_kernel<false>;
+  kernel<<<table_grid(g), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(spins), static_cast<const int32_t*>(sid),
+      static_cast<const int32_t*>(tasks), static_cast<const float*>(coup),
+      static_cast<const float*>(temps), static_cast<const int32_t*>(scal),
+      static_cast<const int32_t*>(keys), static_cast<const int32_t*>(fwd),
+      static_cast<const int32_t*>(bwd), static_cast<const uint32_t*>(state),
+      static_cast<const int32_t*>(parent), static_cast<uint32_t*>(state2),
+      static_cast<uint8_t*>(flip), g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// flip: ov_mid_table's (CMR), NULL for Joerg.
+int peapods_ov_finish_table(void* spins, const void* sid, const void* tasks, const void* scal,
+                            const void* seeds, const void* state, const void* parent,
+                            const void* flip, const void* bwd, const int* words, int kind,
+                            int wolff, void* stream) {
+  const OvTable g = make_ov_table(words);
+  if ((kind != kJorg && kind != kCmr) || !ov_table_ok(g) || (kind == kCmr && !flip))
+    return static_cast<int>(cudaErrorInvalidValue);
+  using Kernel = void (*)(int8_t*, const int32_t*, const int32_t*, const int32_t*,
+                          const int32_t*, const uint32_t*, const int32_t*, const uint8_t*,
+                          const int32_t*, const OvTable);
+  // [kind == CMR][wolff]
+  static const Kernel kernels[2][2] = {
+      {ov_finish_table_kernel<kJorg, false>, ov_finish_table_kernel<kJorg, true>},
+      {ov_finish_table_kernel<kCmr, false>, ov_finish_table_kernel<kCmr, true>}};
+  const Kernel kernel = kernels[kind == kCmr][wolff != 0];
+  kernel<<<table_grid(g), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int8_t*>(spins), static_cast<const int32_t*>(sid),
+      static_cast<const int32_t*>(tasks), static_cast<const int32_t*>(scal),
+      static_cast<const int32_t*>(seeds), static_cast<const uint32_t*>(state),
+      static_cast<const int32_t*>(parent), static_cast<const uint8_t*>(flip),
+      static_cast<const int32_t*>(bwd), g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Houdayer(N), g_size even: the task's member rows staged as 8-byte entries.
+int peapods_houdn_bonds_table(const void* spins, const void* sid, const void* tasks,
+                              const void* probes, const void* fwd, void* state, void* seeds,
+                              const int* words, int g_size, int wolff, void* stream) {
+  const OvTable g = make_ov_table(words);
+  const size_t smem = static_cast<size_t>(g_size) * sizeof(long long);
+  if (!ov_table_ok(g) || g_size < 2 || g_size % 2 || smem > 232448)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t e = table_rows_smem(houdn_bonds_table_kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  houdn_bonds_table_kernel<<<table_grid(g), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(spins), static_cast<const int32_t*>(sid),
+      static_cast<const int32_t*>(tasks), static_cast<const int32_t*>(probes),
+      static_cast<const int32_t*>(fwd), static_cast<uint32_t*>(state),
+      static_cast<int32_t*>(seeds), g, g_size, wolff);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int peapods_houdn_finish_table(void* spins, const void* sid, const void* tasks, const void* scal,
+                               const void* state, const void* parent, const void* seeds,
+                               const void* bwd, const int* words, int g_size, int wolff,
+                               void* stream) {
+  const OvTable g = make_ov_table(words);
+  const size_t smem = static_cast<size_t>(g_size) * sizeof(long long);
+  if (!ov_table_ok(g) || g_size < 2 || g_size % 2 || smem > 232448)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto kernel = wolff ? houdn_finish_table_kernel<true> : houdn_finish_table_kernel<false>;
+  const cudaError_t e = table_rows_smem(kernel, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  kernel<<<table_grid(g), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int8_t*>(spins), static_cast<const int32_t*>(sid),
+      static_cast<const int32_t*>(tasks), static_cast<const int32_t*>(scal),
+      static_cast<const uint32_t*>(state), static_cast<const int32_t*>(parent),
+      static_cast<const int32_t*>(seeds), static_cast<const int32_t*>(bwd), g, g_size);
   return static_cast<int>(cudaGetLastError());
 }
 

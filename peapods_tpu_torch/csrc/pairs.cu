@@ -16,7 +16,9 @@
 // out_stride).  It runs after the sweep's measurement and before pt_step,
 // so it reads the sweep's final spins through the sid that the sweep ran
 // with; it cannot ride in the odd pass itself, since a partner system is
-// being updated by other blocks.
+// being updated by other blocks.  Four dimensions or more, or 7 to 32
+// offsets, take pair_overlap_table (below), which reads the neighbours
+// from the lattice's int32 table.
 //
 // The sums as disagreement bits: with spins in {-1, +1} and delta_i =
 // [a_i != b_i], q_i = 1 - 2 delta_i and q_i q_j = 1 - 2 (delta_i XOR
@@ -305,6 +307,98 @@ PairKernel pair_kernel(const PairWalk& g) {
   }
 }
 
+// pair_overlap's table form (ops/megapair.py pair_overlap_table): the
+// lattices that PairWalk's words do not hold, four dimensions or more, or
+// 7 to 32 forward offsets (ops/lattice.py Lattice.table), where the
+// reference measures its pairs with overlap_dots' jnp form
+// (peapods_tpu/ops/measure.py:36 on GridOps) in place of _mp_kernel's
+// partner regions.  Each site's forward neighbours are read from the
+// lattice's int32 table fwd [n, nb] (device memory), and the sums are the
+// walk form's disagreement counts: qs = n - 2 sum_i delta_i and ql = nb n -
+// 2 sum over bonds (i, fwd[i, d]) of (delta_i XOR delta_f), integers, so
+// bitwise overlap_dots in any order (a self offset's bond, fwd[i, d] = i,
+// counts q_i q_i = 1, as the reference's roll over an extent of 1 does).  A
+// CTA of kPairTableThreads threads takes `per` columns of one realization
+// (blockIdx.x the column set, blockIdx.y the realization), their rows
+// staged once in shared memory; a thread takes a site at a time, strided,
+// its table row read once for the CTA's columns, whose counts it keeps in
+// registers; each warp adds its counts (__reduce_add_sync), one warp adds
+// the warps' and writes qs and ql of each column, converted once.  A first
+// design: each neighbour's spins are byte loads, and the table is read
+// again by every column set.
+//
+// What bounds it on the H100: bytes, the two systems of every column (2 n
+// bytes) and the table (4 n nb bytes, read once a column set); at the 4D
+// glass (10^4 sites, 4 forward offsets, 12 columns, 16 realizations) about
+// 4.0 MB with the table counted once (chip_smoke.py phase 38).
+constexpr int kPairTableThreads = 512;
+constexpr int kPairTableMaxPer = 4;
+
+__global__ void __launch_bounds__(kPairTableThreads)
+pair_overlap_table_kernel(const int8_t* __restrict__ spins, const int32_t* __restrict__ sid,
+                          const int32_t* __restrict__ fwd, int32_t* __restrict__ qs_out,
+                          int32_t* __restrict__ ql_out, int out_stride, int n, int nb, int T,
+                          int S, int per) {
+  constexpr int kWarps = kPairTableThreads / 32;
+  __shared__ long long ra[kPairTableMaxPer];
+  __shared__ long long rb[kPairTableMaxPer];
+  __shared__ int red[kWarps][2 * kPairTableMaxPer];
+  const int z = blockIdx.y;
+  const int c0 = blockIdx.x * per;
+  if (threadIdx.x < per) {
+    const int c = c0 + threadIdx.x;
+    const int p = c / T;
+    const int t = c - p * T;
+    const long long s0 = static_cast<long long>(z) * S;
+    ra[threadIdx.x] = (s0 + __ldg(sid + s0 + 2 * p * T + t)) * n;
+    rb[threadIdx.x] = (s0 + __ldg(sid + s0 + (2 * p + 1) * T + t)) * n;
+  }
+  __syncthreads();
+  int dq[kPairTableMaxPer] = {};
+  int dl[kPairTableMaxPer] = {};
+  for (int i = threadIdx.x; i < n; i += kPairTableThreads) {
+    int di[kPairTableMaxPer];
+#pragma unroll
+    for (int k = 0; k < kPairTableMaxPer; ++k) {
+      if (k >= per) break;
+      di[k] = __ldg(spins + ra[k] + i) != __ldg(spins + rb[k] + i);
+      dq[k] += di[k];
+    }
+    const int32_t* row = fwd + static_cast<size_t>(i) * nb;
+    for (int d = 0; d < nb; ++d) {
+      const int f = __ldg(row + d);
+#pragma unroll
+      for (int k = 0; k < kPairTableMaxPer; ++k) {
+        if (k >= per) break;
+        dl[k] += di[k] ^ (__ldg(spins + ra[k] + f) != __ldg(spins + rb[k] + f));
+      }
+    }
+  }
+  const int lane = threadIdx.x & 31;
+  const int wid = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < kPairTableMaxPer; ++k) {
+    if (k >= per) break;
+    const int q = __reduce_add_sync(0xffffffffu, dq[k]);
+    const int l = __reduce_add_sync(0xffffffffu, dl[k]);
+    if (lane == 0) {
+      red[wid][2 * k] = q;
+      red[wid][2 * k + 1] = l;
+    }
+  }
+  __syncthreads();
+  if (wid != 0) return;
+  for (int k = 0; k < per; ++k) {
+    const int q = __reduce_add_sync(0xffffffffu, lane < kWarps ? red[lane][2 * k] : 0);
+    const int l = __reduce_add_sync(0xffffffffu, lane < kWarps ? red[lane][2 * k + 1] : 0);
+    if (lane == 0) {
+      const size_t o = static_cast<size_t>(z) * out_stride + c0 + k;
+      qs_out[o] = n - 2 * q;
+      ql_out[o] = nb * n - 2 * l;
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -337,6 +431,24 @@ int peapods_pair_overlap(const void* spins, const void* sid, void* qs_out, void*
   kernel<<<grid, g.block, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(spins), static_cast<const int32_t*>(sid),
       static_cast<int32_t*>(qs_out), static_cast<int32_t*>(ql_out), out_stride, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The table form: fwd int32 [n, nb] (device memory); cols = n_pairs T
+// columns a realization, `per` of them a CTA (ops/megapair.py
+// pair_table_per); out rows as peapods_pair_overlap's.
+int peapods_pair_overlap_table(const void* spins, const void* sid, const void* fwd, void* qs_out,
+                               void* ql_out, int out_stride, int n, int nb, int d, int T,
+                               int cols, int S, int per, void* stream) {
+  if (n < 1 || nb < 1 || nb > 32 || static_cast<long long>(n) * nb >= (1LL << 31) || d < 1 ||
+      d > 65535 || T < 1 || cols < 1 || cols % T || 2 * (cols / T) * T > S || per < 1 ||
+      per > kPairTableMaxPer || cols % per || out_stride < cols)
+    return static_cast<int>(cudaErrorInvalidValue);
+  pair_overlap_table_kernel<<<dim3(cols / per, d), kPairTableThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(spins), static_cast<const int32_t*>(sid),
+      static_cast<const int32_t*>(fwd), static_cast<int32_t*>(qs_out),
+      static_cast<int32_t*>(ql_out), out_stride, n, nb, T, S, per);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -39,7 +39,7 @@ AC_BACKENDS = ("ring", "fft")
 
 # ROADMAP.md, queue 1 ("Modules to port"): the item that brings each option
 _ROADMAP_ITEMS = {
-    "4a": "item 4a, the per-sweep path for other lattices",
+    "4a": "item 4a, more than 32 neighbour offsets",
     "9": "item 9, multi-GPU",
 }
 

@@ -548,11 +548,14 @@ def run_chunk_sweeps(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
        :func:`~peapods_tpu_torch.ops.energy.measure_nb` after the FK phase;
        with replica pairs, :func:`~peapods_tpu_torch.ops.megapair.
        pair_overlap` of every pair over the lattice's offsets (the
-       reference's ``_measure_phase``, :2623-2666); ``pt_step`` reduces the
-       measurement into the sweep's (e, m) rows;
+       reference's ``_measure_phase``, :2623-2666; on a table lattice
+       :func:`~peapods_tpu_torch.ops.megapair.pair_overlap_table` over
+       ``rt.tables``); ``pt_step`` reduces the measurement into the sweep's
+       (e, m) rows;
     4. on sweeps ``s`` with ``s % interval == 0``, the overlap move
        (:func:`~peapods_tpu_torch.ops.overlap.overlap_event` over the
-       lattice's offsets, every lattice), its statistics or observations
+       lattice's offsets, every lattice; its table form on a table
+       lattice, over ``rt.tables``), its statistics or observations
        folded, and on the snapshot sweeps its snapshot taken (the spins
        before it, its labels);
     5. on PT sweeps, ``pt_step``'s PT event on each replica's ladder with
@@ -685,8 +688,8 @@ def run_chunk_sweeps(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
                 parts = measure_nb(flat, rt.coup, lat, tables=rt.tables)
             if pair_rows is not None:
                 megapair.pair_overlap(flat, sid, pair_rows[0][:, t],
-                                      pair_rows[1][:, t], shape=lat.kernel_shape,
-                                      n_replicas=R, offsets=lat.kernel_offsets)
+                                      pair_rows[1][:, t], n_replicas=R, lattice=lat,
+                                      tables=rt.tables)
             if ev is None:
                 parity = mega.pt_step(*parts, e[:, t], m[:, t], sid, *pt_state,
                                       rt.slot_temps, draw, sys_temps, do_pt=do_pt,
@@ -706,7 +709,8 @@ def run_chunk_sweeps(rt: Runtime, cfg: SimConfig, state: dict, acc: dict,
             flat, sid, tasks, rt.coup, rt.temps, scal_ev, probes, words,
             kind=events.kinds[ev], wolff=h.cluster_mode == "wolff", shape=lat,
             with_labels=want or snap is not None,
-            with_masks=want and events.observe, observe=events.observe)
+            with_masks=want and events.observe, observe=events.observe,
+            tables=rt.tables)
         if want:
             events.fold(ev, moved)
         if snap is not None:

@@ -24,10 +24,11 @@ dimension and extents >= 1 with up to 32 forward offsets, on four paths:
   the graph observations of each move kind, winding on the canonical 2D
   square; the spins untouched);
 * two replicas or more with an FK phase, with ``snapshot_interval``, or on
-  any other lattice of up to three dimensions and six offsets: the
-  per-sweep path with the pair overlaps over the lattice's offsets, PT on
-  each replica's ladder, and the overlap moves with their statistics,
-  observations and snapshots (``cluster_snapshots``);
+  any other lattice of up to 32 offsets: the per-sweep path with the pair
+  overlaps over the lattice's offsets, PT on each replica's ladder, and
+  the overlap moves with their statistics, observations and snapshots
+  (``cluster_snapshots``); past three dimensions or six offsets (the 4D
+  +-J glass) the pair overlaps and the moves in the kernels' table form;
 * one replica on a ``space`` mesh (:func:`~peapods_tpu_torch.parallel.mesh.
   make_mesh` with the axis ``("space",)``; the mesh may name one card for
   every band): the per-sweep path over the lattice's row bands, on every
@@ -190,9 +191,6 @@ class IsingSimulation:
                     or any(x % 2 for x in lattice.shape)):
                 not_ported(f"the lattice {list(lattice.shape)} of {lattice.n_neighbors} "
                            "offsets on a space mesh", "9")
-        if n_replicas > 1 and lattice.table:
-            not_ported(f"replicas on a {lattice.n_dims}D lattice of "
-                       f"{lattice.n_neighbors} offsets", "4a")
 
         couplings = np.asarray(couplings, dtype=np.float32)
         expected_single = tuple(lattice.shape) + (lattice.n_neighbors,)

@@ -61,12 +61,18 @@ _SIGNATURES = {
     "peapods_winding_wrap": [_P] * 4 + [_I] * 3 + [_P],
     "peapods_winding_check": [_P] * 5 + [_I] * 3 + [_P],
     "peapods_pair_overlap": [_P] * 4 + [_I] * 2 + [_P] * 2,
+    "peapods_pair_overlap_table": [_P] * 5 + [_I] * 8 + [_P],
     "peapods_site_blocks": [_I],
     "peapods_ov_bonds": [_P] * 11 + [_I] * 2 + [_P],
     "peapods_ov_mid": [_P] * 11 + [_I] + [_P],
     "peapods_ov_finish": [_P] * 8 + [_I] * 2 + [_P],
     "peapods_houdn_bonds": [_P] * 7 + [_I] * 2 + [_P],
     "peapods_houdn_finish": [_P] * 8 + [_I] * 2 + [_P],
+    "peapods_ov_bonds_table": [_P] * 12 + [_I] * 2 + [_P],
+    "peapods_ov_mid_table": [_P] * 14 + [_I] + [_P],
+    "peapods_ov_finish_table": [_P] * 10 + [_I] * 2 + [_P],
+    "peapods_houdn_bonds_table": [_P] * 8 + [_I] * 2 + [_P],
+    "peapods_houdn_finish_table": [_P] * 9 + [_I] * 2 + [_P],
     "peapods_energy_partials": [_P] * 6,
     "peapods_nb_blocks": [_I],
     "peapods_sweep_nb": [_P] * 6 + [_I] * 5 + [_P],

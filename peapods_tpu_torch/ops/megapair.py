@@ -48,7 +48,7 @@ import torch
 
 from . import _build, fk, mega, overlap, rng
 from ._build import expect as _expect
-from .lattice import Lattice, fast_divisor
+from .lattice import Lattice, check_tables, fast_divisor
 from .measure import overlap_dots
 
 __all__ = [
@@ -57,6 +57,9 @@ __all__ = [
     "supports_megapair",
     "pair_overlap",
     "pair_overlap_plain",
+    "pair_overlap_table",
+    "pair_overlap_table_plain",
+    "pair_table_per",
     "pair_words",
     "pair_word_bytes",
     "pairs_chunk",
@@ -64,7 +67,7 @@ __all__ = [
 ]
 
 # kernel launches since the last reset, by kernel name
-LAUNCHES = {"pair_overlap": 0}
+LAUNCHES = {"pair_overlap": 0, "pair_overlap_table": 0}
 
 
 def supports_megapair(lattice, n_replicas) -> bool:
@@ -209,12 +212,22 @@ def _launch_pair(lib, stream, p_spins, p_sid, p_qs, p_ql, out_stride, d, words):
     LAUNCHES["pair_overlap"] += 1
 
 
-def pair_overlap(spins, sid, qs_row, ql_row, *, shape, n_replicas, offsets=None):
+def pair_overlap(spins, sid, qs_row, ql_row, *, n_replicas, shape=None, offsets=None,
+                 lattice=None, tables=None):
     """Write every pair's ``(qs, ql)`` into the rows ``qs_row`` / ``ql_row``
     (int32 ``[d, P T]`` views with unit stride along the columns), ``ql``
     over the forward ``offsets`` (the axes when ``None``): the plain
     version for CPU tensors, the ``pair_overlap`` kernel for CUDA
-    tensors."""
+    tensors.  Given a :class:`~.lattice.Lattice` as ``lattice``, its walk
+    view (``kernel_shape``, ``kernel_offsets``) stands for ``shape`` and
+    ``offsets``, and a table lattice takes :func:`pair_overlap_table` over
+    ``tables``."""
+    if lattice is not None:
+        if lattice.table:
+            pair_overlap_table(spins, sid, qs_row, ql_row, lattice=lattice,
+                               n_replicas=n_replicas, tables=tables)
+            return
+        shape, offsets = lattice.kernel_shape, lattice.kernel_offsets
     if _build.device_kind(spins) == "cpu":
         qs, ql = pair_overlap_plain(spins, sid, shape, n_replicas, offsets)
         qs_row.copy_(qs)
@@ -235,6 +248,81 @@ def pair_overlap(spins, sid, qs_row, ql_row, *, shape, n_replicas, offsets=None)
                  ql_row.data_ptr(), qs_row.stride(0), d,
                  pair_words(tuple(shape), n_replicas, n_slots, spins.data_ptr() % 8,
                             offsets))
+
+
+# ------------------------------------------------------ pair_overlap, tables
+
+
+def pair_overlap_table_plain(spins, sid, fwd, n_replicas):
+    """Plain version of ``pair_overlap_table``: ``(qs, ql)`` int32 ``[d, P
+    T]`` (pair-major) of spins ``[d, R T, n_spins]`` by system, each site's
+    forward neighbours read from the table ``fwd`` (int ``[n_spins,
+    n_neighbors]``, :meth:`~.lattice.Lattice.device_tables`).  A self
+    offset's neighbour is the site itself (``q_i q_i = 1``), as the
+    reference's ``_roll`` on an extent of 1 gives; bitwise
+    :func:`~.measure.overlap_dots`."""
+    d, n_slots, _ = spins.shape
+    n_pairs = n_replicas // 2
+    sys = sid.to(torch.int64).reshape(d, n_replicas, n_slots // n_replicas)
+    di = torch.arange(d, device=spins.device)[:, None, None]
+    a = spins[di, sys[:, 0:2 * n_pairs:2]].to(torch.int32)
+    b = spins[di, sys[:, 1:2 * n_pairs:2]].to(torch.int32)
+    q = a * b  # [d, P, T, n]
+    fwd = fwd.to(device=spins.device, dtype=torch.int64)
+    nbr = sum(q[..., fwd[:, k]] for k in range(fwd.shape[1]))
+    return (q.sum(-1, dtype=torch.int32).flatten(1),
+            (q * nbr).sum(-1, dtype=torch.int32).flatten(1))
+
+
+# pair_overlap_table (csrc/pairs.cu kPairTableMaxPer): a CTA takes
+# pair_table_per columns of one realization, a thread a site at a time with
+# its table row loaded once for them all
+PAIR_TABLE_MAX_PER = 4
+
+
+def pair_table_per(cols: int) -> int:
+    """The columns (pair, temperature) a CTA of ``pair_overlap_table``
+    takes: the largest divisor of a realization's ``cols`` up to
+    :data:`PAIR_TABLE_MAX_PER`."""
+    return max(k for k in range(1, PAIR_TABLE_MAX_PER + 1) if cols % k == 0)
+
+
+def pair_overlap_table(spins, sid, qs_row, ql_row, *, lattice, n_replicas, tables):
+    """:func:`pair_overlap` on a table lattice (:attr:`~.lattice.Lattice.
+    table`: four dimensions or more, or more than six offsets): every
+    pair's ``(qs, ql)`` into the rows ``qs_row`` / ``ql_row``, ``ql`` over
+    the lattice's forward offsets read from ``tables`` (its ``(fwd, bwd)``
+    on the spins' device, :func:`~.lattice.check_tables`).  The plain
+    version for CPU tensors, the ``pair_overlap_table`` kernel for CUDA
+    tensors."""
+    if _build.device_kind(spins) == "cpu":
+        fwd = torch.from_numpy(lattice.fwd) if tables is None else tables[0]
+        qs, ql = pair_overlap_table_plain(spins, sid, fwd, n_replicas)
+        qs_row.copy_(qs)
+        ql_row.copy_(ql)
+        return
+    dev = spins.device
+    d, n_slots, n = spins.shape
+    nb = lattice.n_neighbors
+    n_temps = n_slots // n_replicas
+    cols = (n_replicas // 2) * n_temps
+    _expect(spins, "spins", torch.int8, (d, n_slots, lattice.n_spins), dev)
+    _expect(sid, "sid", torch.int32, (d, n_slots), dev)
+    fwd, _ = check_tables(tables, lattice, dev)
+    for name, t in (("qs_row", qs_row), ("ql_row", ql_row)):
+        if (t.device != dev or t.dtype != torch.int32 or tuple(t.shape) != (d, cols)
+                or t.stride(1) != 1 or t.stride(0) != qs_row.stride(0)):
+            raise ValueError(f"{name} must be an int32 [d, n_pairs T] row view")
+    if not 1 <= d <= 65535:
+        raise ValueError(f"pair_overlap_table takes 1 to 65535 realizations, got {d}")
+    if n * nb >= 2 ** 31:
+        raise ValueError(f"a table of {n} x {nb} entries is larger than int32 indexes")
+    per = pair_table_per(cols)
+    _build.check(_build.library().peapods_pair_overlap_table(
+        spins.data_ptr(), sid.data_ptr(), fwd.data_ptr(), qs_row.data_ptr(),
+        ql_row.data_ptr(), qs_row.stride(0), n, nb, d, n_temps, cols, n_slots, per,
+        torch.cuda.current_stream(dev).cuda_stream), "pair_overlap_table")
+    LAUNCHES["pair_overlap_table"] += 1
 
 
 # ------------------------------------------------------------ the chunk

@@ -65,7 +65,7 @@ from . import _build, cc, fk, rng
 from .cluster import connected_components, find_seed, nonsingleton_mask
 from .cluster import salted_uniform
 from .energy import bond_sums, site_energies
-from .lattice import MAX_OFFSETS, Lattice, fast_divisor, neighbour_values
+from .lattice import MAX_OFFSETS, Lattice, check_tables, fast_divisor, neighbour_values
 from .sweep import systems_per
 
 __all__ = [
@@ -79,6 +79,7 @@ __all__ = [
     "houdayer_plain",
     "houdn_plain",
     "houdn_states_plain",
+    "table_states_plain",
     "finish_plain",
     "jorg_plain",
     "cmr_plain",
@@ -91,7 +92,9 @@ KINDS = ("houdayer", "jorg", "cmr")
 
 # kernel launches since the last reset, by kernel name
 LAUNCHES = {"ov_bonds": 0, "ov_mid": 0, "ov_finish": 0, "houdn_bonds": 0,
-            "houdn_finish": 0, "energy_partials": 0}
+            "houdn_finish": 0, "energy_partials": 0, "ov_bonds_table": 0,
+            "ov_mid_table": 0, "ov_finish_table": 0, "houdn_bonds_table": 0,
+            "houdn_finish_table": 0}
 
 
 class MoveGraphs(NamedTuple):
@@ -277,22 +280,25 @@ def cmr_plain(a, b, jt, scal, shape, *, wolff, u_blue, u_red):
                 u_red=u_red)[:4]
 
 
-def _state_bytes(bonds):
-    """uint8 ``[B, n]``: bit ``d`` where bond ``d`` of bool ``[B, n,
-    n_dirs]`` is active."""
-    w = torch.tensor([1 << d for d in range(bonds.shape[-1])], dtype=torch.int32,
+def _state_bytes(bonds, dtype=torch.uint8):
+    """``[B, n]`` of ``dtype``, uint8 bytes or the table form's int32 words
+    (bit 31 the sign): bit ``d`` where bond ``d`` of bool ``[B, n, n_dirs]``
+    is active."""
+    w = torch.tensor([1 << d for d in range(bonds.shape[-1])], dtype=torch.int64,
                      device=bonds.device)
-    return (bonds.to(torch.int32) * w).sum(-1).to(torch.uint8)
+    words = (bonds.to(torch.int64) * w).sum(-1)
+    if dtype == torch.uint8:
+        return words.to(torch.uint8)
+    return ((words + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
 
 
-def bond_states_plain(spins, sid, tasks, coup, temps, scal, probes, words, *, kind,
-                      wolff, shape):
-    """Plain version of ``ov_bonds`` and ``ov_mid`` (Joerg and CMR): ``(state,
-    state2, seeds)``, the first kernel's state bytes uint8 ``[B, n]`` (bit
-    ``d``: bond ``d``; CMR's blue bonds), CMR's second uint8 ``[B, n]`` (bit
-    ``d``: grey bond ``d``; bit 7: the blue flip; ``None`` for Joerg) and
-    the seeds int32 ``[B]`` (Joerg Wolff: the first active probe, ``n`` when
-    none is, and for SW; CMR: the drawn seed)."""
+def _pair_graphs(spins, sid, tasks, coup, temps, scal, probes, words, *, kind, wolff,
+                 shape):
+    """Joerg's or CMR's first graphs: ``(bonds, grey, flip, seeds)``, the
+    first graph's bool ``[B, n, n_dirs]`` bonds (CMR: blue), CMR's grey bonds
+    and blue flips bool ``[B, n]`` (``None`` for Joerg) and the seeds int32
+    ``[B]`` (Joerg Wolff: the first active probe, ``n`` when none is, and
+    for SW; CMR: the drawn seed)."""
     n_temps, n_groups = tasks.shape[1:3]
     n_dirs = _n_dirs(shape)
     n = spins.shape[-1]
@@ -304,29 +310,66 @@ def bond_states_plain(spins, sid, tasks, coup, temps, scal, probes, words, *, ki
         active = a.to(torch.int32) * b.to(torch.int32) < 0
         seeds = (find_seed(probes, active) if wolff
                  else torch.full((a.shape[0],), n, device=a.device)).to(torch.int32)
-        return _state_bytes(bonds), None, seeds
+        return bonds, None, None, seeds
     if kind != "cmr":
         raise ValueError(f"{kind!r} moves have no ov_bonds")
     *_, blue, grey, flip = _cmr(a, b, jt, scal, shape, wolff=wolff, u_blue=u,
                                 u_red=rng.bond_uniforms(words, n, n_dirs, n_dirs))
+    return blue, grey, flip, scal[:, 4].to(torch.int32).contiguous()
+
+
+def bond_states_plain(spins, sid, tasks, coup, temps, scal, probes, words, *, kind,
+                      wolff, shape):
+    """Plain version of ``ov_bonds`` and ``ov_mid`` (Joerg and CMR): ``(state,
+    state2, seeds)``, the first kernel's state bytes uint8 ``[B, n]`` (bit
+    ``d``: bond ``d``; CMR's blue bonds), CMR's second uint8 ``[B, n]`` (bit
+    ``d``: grey bond ``d``; bit 7: the blue flip; ``None`` for Joerg) and
+    the seeds int32 ``[B]`` (Joerg Wolff: the first active probe, ``n`` when
+    none is, and for SW; CMR: the drawn seed)."""
+    bonds, grey, flip, seeds = _pair_graphs(spins, sid, tasks, coup, temps, scal, probes,
+                                            words, kind=kind, wolff=wolff, shape=shape)
+    if grey is None:
+        return _state_bytes(bonds), None, seeds
     state2 = _state_bytes(grey) | (flip.to(torch.uint8) << 7)
-    return _state_bytes(blue), state2, scal[:, 4].to(torch.int32).contiguous()
+    return _state_bytes(bonds), state2, seeds
 
 
 def houdn_states_plain(spins, sid, tasks, probes, *, wolff, shape):
     """Plain version of ``houdn_bonds``: ``(state, seeds)``, the state bytes
     uint8 ``[B, n]`` (bit ``d``: bond ``d`` between two balanced sites,
-    whose group's ``g`` spins sum to 0) and the seeds int32 ``[B]`` (Wolff:
-    the first balanced probe, ``n`` when none is, and for SW)."""
+    whose group's ``g`` spins sum to 0; the table form's int32 words on a
+    table lattice) and the seeds int32 ``[B]`` (Wolff: the first balanced
+    probe, ``n`` when none is, and for SW)."""
     _, *slots = gather_tasks(spins, sid, tasks, tasks.shape[1])
     active, bonds = _houdn_bonds(torch.stack(slots, 1), shape)
     n = spins.shape[-1]
     seeds = (find_seed(probes, active) if wolff
              else torch.full((active.shape[0],), n, device=spins.device))
-    return _state_bytes(bonds), seeds.to(torch.int32)
+    table = isinstance(shape, Lattice) and shape.table
+    return _state_bytes(bonds, torch.int32 if table else torch.uint8), seeds.to(torch.int32)
 
 
-def finish_plain(spins, sid, tasks, scal, seeds, state, parent, *, kind, wolff, shape):
+def table_states_plain(spins, sid, tasks, coup, temps, scal, probes, words, *, kind,
+                       wolff, lattice):
+    """Plain version of the table form's first kernels (``houdn_bonds_table``,
+    ``ov_bonds_table``, ``ov_mid_table``) on a table lattice: ``(state,
+    state2, flip, seeds)``, the first graph's int32 words ``[B, n]`` (bit
+    ``d``: the bond to ``fwd[i, d]``; CMR's blue bonds), CMR's grey words
+    and blue flips uint8 ``[B, n]`` (``None`` but for CMR) and the seeds
+    int32 ``[B]``."""
+    if kind == "houdayer":
+        state, seeds = houdn_states_plain(spins, sid, tasks, probes, wolff=wolff,
+                                          shape=lattice)
+        return state, None, None, seeds
+    bonds, grey, flip, seeds = _pair_graphs(spins, sid, tasks, coup, temps, scal, probes,
+                                            words, kind=kind, wolff=wolff, shape=lattice)
+    grey = None if grey is None else _state_bytes(grey, torch.int32)
+    return (_state_bytes(bonds, torch.int32), grey,
+            None if flip is None else flip.to(torch.uint8), seeds)
+
+
+def finish_plain(spins, sid, tasks, scal, seeds, state, parent, *, kind, wolff, shape,
+                 flip=None):
     """Plain version of ``ov_finish`` and ``houdn_finish``: every task's
     flips, in place in ``spins``, from the kernels' own inputs.  ``state``
     uint8 ``[B, n]`` and ``parent`` int32 ``[B, n]`` (flat: each site's root)
@@ -337,7 +380,9 @@ def finish_plain(spins, sid, tasks, scal, seeds, state, parent, *, kind, wolff, 
     < 1/2`` (Houdayer, Joerg: in every member) or whose ``k =
     floor(4 salted_uniform(root, s2, s3))`` is not 0 (CMR, after the blue
     flip: ``a`` where ``k & 1``, ``b`` where ``k & 2``; Wolff: the task's
-    ``k``).  Returns the labels (the parents)."""
+    ``k``).  The table form's CMR keeps the blue flip apart, in ``flip``
+    (uint8 ``[B, n]``; ``state`` then its int32 grey words).  Returns the
+    labels (the parents)."""
     n_temps = tasks.shape[1]
     n = spins.shape[-1]
     sys, *slots = gather_tasks(spins, sid, tasks, n_temps)
@@ -350,7 +395,7 @@ def finish_plain(spins, sid, tasks, scal, seeds, state, parent, *, kind, wolff, 
     if kind == "cmr":
         k = (scal[:, 5:6] if wolff
              else (salted_uniform(lab, scal[:, 2:3], scal[:, 3:4]) * 4.0).to(torch.int32))
-        blue = (state >> 7).to(torch.bool)
+        blue = ((state >> 7) if flip is None else flip).to(torch.bool)
         flips = [blue ^ (inside & ((k & 1) != 0)), blue ^ (inside & ((k & 2) != 0))]
     else:
         if not wolff:
@@ -455,20 +500,27 @@ def energy_partials_plain(spins, coup, shape, blocks=False):
 
 class Scratch:
     """Device buffers of a move's kernels for ``n_tasks`` tasks of ``n``
-    sites (allocated once per chunk)."""
+    sites (allocated once per chunk).  The table form (``table``) keeps
+    its bonds as an int32 word a site and CMR's blue flip as a byte a site
+    of its own (``flip``), the sixth of its :meth:`ptrs`."""
 
-    def __init__(self, n_tasks, n, device, cmr):
+    def __init__(self, n_tasks, n, device, cmr, table=False):
         u8 = dict(dtype=torch.uint8, device=device)
         i32 = dict(dtype=torch.int32, device=device)
-        self.state = torch.empty((n_tasks, n), **u8)
+        st = i32 if table else u8
+        self.table = table
+        self.state = torch.empty((n_tasks, n), **st)
         self.parent = torch.empty((n_tasks, n), **i32)
         self.seeds = torch.empty((n_tasks,), **i32)
-        self.state2 = torch.empty((n_tasks, n), **u8) if cmr else None
+        self.state2 = torch.empty((n_tasks, n), **st) if cmr else None
         self.parent2 = torch.empty((n_tasks, n), **i32) if cmr else None
+        self.flip = torch.empty((n_tasks, n), **u8) if cmr and table else None
 
     def ptrs(self):
-        return [None if t is None else t.data_ptr() for t in
-                (self.state, self.parent, self.seeds, self.state2, self.parent2)]
+        bufs = (self.state, self.parent, self.seeds, self.state2, self.parent2)
+        if self.table:
+            bufs += (self.flip,)
+        return [None if t is None else t.data_ptr() for t in bufs]
 
 
 # the overlap moves' kernels (csrc/overlap.cu ov_bonds, ov_mid, ov_finish,
@@ -536,14 +588,19 @@ def ov_words(shape, n_disorder: int, n_temps: int, n_pairs: int, n_slots: int, p
     return np.asarray(head + div + tail, np.int64).astype(np.uint32).view(np.int32)
 
 
-def link_graphs(lib, stream, p_state, p_labels, n_graphs, shape, lattice=None):
+def link_graphs(lib, stream, p_state, p_labels, n_graphs, shape, lattice=None,
+                tables=None):
     """Label ``n_graphs`` bond graphs of a move (state bytes in, every
     label its component's minimum site index out) with the FK phase's
     labelling of the lattice: ``fk_link`` (``fk.launch_link``) on the
     square, cubic (``lattice`` ``None``: the axes of ``shape``) and
     triangular lattices with even extents, ``cc_link`` (``cc.launch``) on
-    the others."""
-    if lattice is None or lattice.axes_form or lattice.triangular:
+    the others; on a table lattice (int32 state words) the staged FK
+    path's ``cc_table_init``, ``cc_table_link`` and ``fk_link_flatten``
+    on the device ``tables``."""
+    if lattice is not None and lattice.table:
+        cc.launch(lib, stream, p_state, p_labels, lattice, n_graphs, tables)
+    elif lattice is None or lattice.axes_form or lattice.triangular:
         fk.launch_link(lib, stream, p_state, p_labels, n_graphs, *_build.dims3(shape),
                        tri=lattice is not None and lattice.triangular)
     else:
@@ -552,7 +609,8 @@ def link_graphs(lib, stream, p_state, p_labels, n_graphs, shape, lattice=None):
 
 def launch_event(lib, stream, dims, p_spins, p_sid, p_tasks, p_coup, p_temps,
                  p_scal, p_probes, p_words, scratch, *, kind, wolff, group=2,
-                 p_labels=None, p_blue=None, observe=False, per=0, lattice=None):
+                 p_labels=None, p_blue=None, observe=False, per=0, lattice=None,
+                 tables=None):
     """Launch one move's kernels on raw pointers: ``dims`` is ``(n_tasks,
     L0, L1, L2, T, G, S)``; ``scratch`` the :meth:`Scratch.ptrs`; ``group``
     the replicas of a task; ``per`` the tasks a thread of the ``houdn_*``
@@ -569,20 +627,24 @@ def launch_event(lib, stream, dims, p_spins, p_sid, p_tasks, p_coup, p_temps,
     into ``p_blue`` (the scratch parents where a buffer is ``None``).  The
     observe form launches no finish (and no ``ov_mid``): the labelling
     labels the stats graph into ``p_labels`` (CMR: ``p_blue``, required
-    then) and no spin is written."""
+    then) and no spin is written.  On a table lattice (``tables``: its
+    device ``(fwd, bwd)``; ``scratch`` a table :class:`Scratch`'s six
+    pointers) :func:`launch_event_table` takes the move."""
+    if tables is not None:
+        launch_event_table(lib, stream, dims, p_spins, p_sid, p_tasks, p_coup, p_temps,
+                           p_scal, p_probes, p_words, scratch, kind=kind, wolff=wolff,
+                           group=group, p_labels=p_labels, p_blue=p_blue,
+                           observe=observe, lattice=lattice, tables=tables)
+        return
     n_tasks, l0, l1, l2, n_temps, n_groups, n_slots = dims
     st, par, seeds, st2, par2 = scratch
-    stats = p_blue if kind == "cmr" else p_labels
-    if observe and stats is None:
-        raise ValueError(f"the observe form of a {kind} move needs "
-                         f"{'p_blue' if kind == 'cmr' else 'p_labels'}")
+    stats = _stats_buffer(kind, observe, p_labels, p_blue)
     shape = (l0, l1) if l2 == 1 else (l0, l1, l2)
     n = l0 * l1 * l2
     d = n_tasks // (n_temps * n_groups)
     threads = fk.resident_threads(torch.cuda.current_device()) // 4
     houd = kind == "houdayer"
-    if houd and observe and group > 2:
-        raise ValueError("Houdayer(N > 2) moves have no observe form")
+    _check_observe(kind, observe, group)
     per = per or ov_per(n, d, n_temps, n_groups, threads,
                         max(1, HOUDN_ROWS // group) if houd else OV_MAX_PER)
     table = () if lattice is None or lattice.axes_form else (
@@ -623,6 +685,86 @@ def launch_event(lib, stream, dims, p_spins, p_sid, p_tasks, p_coup, p_temps,
         p_spins, p_sid, p_tasks, p_scal, seeds, last_st, last, words.ctypes.data, k,
         int(wolff), stream), "ov_finish")
     LAUNCHES["ov_finish"] += 1
+
+
+def _stats_buffer(kind, observe, p_labels, p_blue):
+    """The buffer that a move's stats graph is labelled into (CMR's blue
+    labels, else the labels), required by the observe form."""
+    stats = p_blue if kind == "cmr" else p_labels
+    if observe and stats is None:
+        raise ValueError(f"the observe form of a {kind} move needs "
+                         f"{'p_blue' if kind == 'cmr' else 'p_labels'}")
+    return stats
+
+
+def _check_observe(kind, observe, group):
+    if kind == "houdayer" and observe and group > 2:
+        raise ValueError("Houdayer(N > 2) moves have no observe form")
+
+
+def ov_table_words(n: int, n_neighbors: int, n_disorder: int, n_temps: int,
+                   n_groups: int, n_slots: int):
+    """int32 host words of the table form's launches (``csrc/overlap.cu``
+    ``OvTable``): ``n, nb, T, G, S, d``.  Its neighbours are the table's
+    rows, so it takes no residue steps; a thread takes a group of four
+    sites of one task (the grid's y)."""
+    return np.asarray([n, n_neighbors, n_temps, n_groups, n_slots, n_disorder], np.int32)
+
+
+def launch_event_table(lib, stream, dims, p_spins, p_sid, p_tasks, p_coup, p_temps,
+                       p_scal, p_probes, p_words, scratch, *, kind, wolff, group=2,
+                       p_labels=None, p_blue=None, observe=False, lattice=None,
+                       tables=None):
+    """:func:`launch_event` on a table lattice (``lattice``, :attr:`~.lattice.
+    Lattice.table`), its neighbours read from ``tables`` (its device
+    ``(fwd, bwd)``): the same launches in their table form, ``*_table``,
+    each bond graph an int32 word a site labelled by :func:`link_graphs`
+    (``cc_table_init``, ``cc_table_link``, ``fk_link_flatten``), CMR's blue
+    flip a byte a site in the scratch's ``flip``.  ``dims`` is ``(n_tasks,
+    n, 1, 1, T, G, S)`` (:func:`check_event`)."""
+    n_tasks, _, _, _, n_temps, n_groups, n_slots = dims
+    st, par, seeds, st2, par2, flip = scratch
+    stats = _stats_buffer(kind, observe, p_labels, p_blue)
+    _check_observe(kind, observe, group)
+    n, nb = lattice.n_spins, lattice.n_neighbors
+    d = n_tasks // (n_temps * n_groups)
+    fwd, bwd = (t.data_ptr() for t in tables)
+    words = ov_table_words(n, nb, d, n_temps, n_groups, n_slots)
+    w = words.ctypes.data
+    k = KINDS.index(kind)
+    houd = kind == "houdayer"
+    if houd:
+        _build.check(lib.peapods_houdn_bonds_table(
+            p_spins, p_sid, p_tasks, p_probes, fwd, st, seeds, w, group, int(wolff),
+            stream), "houdn_bonds_table")
+        LAUNCHES["houdn_bonds_table"] += 1
+    else:
+        _build.check(lib.peapods_ov_bonds_table(
+            p_spins, p_sid, p_tasks, p_coup, p_temps, p_scal, p_probes, p_words, fwd,
+            st, seeds, w, k, int(wolff), stream), "ov_bonds_table")
+        LAUNCHES["ov_bonds_table"] += 1
+    first = par if stats is None else stats
+    link_graphs(lib, stream, st, first, n_tasks, None, lattice, tables)
+    if observe:
+        return
+    if houd:
+        _build.check(lib.peapods_houdn_finish_table(
+            p_spins, p_sid, p_tasks, p_scal, st, first, seeds, bwd, w, group, int(wolff),
+            stream), "houdn_finish_table")
+        LAUNCHES["houdn_finish_table"] += 1
+        return
+    last_st, last = st, first
+    if kind == "cmr":
+        _build.check(lib.peapods_ov_mid_table(
+            p_spins, p_sid, p_tasks, p_coup, p_temps, p_scal, p_words, fwd, bwd, st,
+            first, st2, flip, w, int(wolff), stream), "ov_mid_table")
+        LAUNCHES["ov_mid_table"] += 1
+        last_st, last = st2, par2 if p_labels is None else p_labels
+        link_graphs(lib, stream, st2, last, n_tasks, None, lattice, tables)
+    _build.check(lib.peapods_ov_finish_table(
+        p_spins, p_sid, p_tasks, p_scal, seeds, last_st, last, flip, bwd, w, k,
+        int(wolff), stream), "ov_finish_table")
+    LAUNCHES["ov_finish_table"] += 1
 
 
 # energy_partials (csrc/overlap.cu): a warp takes a block of 256 sites of
@@ -675,12 +817,14 @@ def launch_energy(lib, stream, words, p_spins, p_coup, p_e, p_m):
 def check_event(spins, sid, tasks, coup, temps, scal, probes, words, shape, kind):
     """Validate a move's tensors (the kernels' layout) on the lattice
     ``shape`` (:func:`geometry`); returns the kernel dims ``(n_tasks, L0,
-    L1, L2, T, G, S)`` and the group size."""
+    L1, L2, T, G, S)`` (a table lattice's ``(n_tasks, n, 1, 1, T, G, S)``)
+    and the group size."""
     dev = spins.device
     d, n_sys, n = spins.shape
     n_temps, n_groups = tasks.shape[1:3]
     g = task_group_size(kind, tasks)
     b = d * n_temps * n_groups
+    table = isinstance(shape, Lattice) and shape.table
     shape, offsets = geometry(shape)
     nd = len(shape)
     ex = _build.expect
@@ -692,20 +836,29 @@ def check_event(spins, sid, tasks, coup, temps, scal, probes, words, shape, kind
     ex(scal, "scal", torch.int32, (b, 6), dev)
     ex(probes, "probes", torch.int32, (b, 64), dev)
     ex(words, "words", torch.int32, (b, 2), dev)
-    if nd not in (2, 3) or n != math.prod(shape):
+    if not (table or nd in (2, 3)) or n != math.prod(shape):
         raise ValueError(f"spins do not hold lattices of shape {shape}")
     if b > 65535 or n_sys > 65535 or d > 65535:
         raise ValueError("at most 65535 tasks, systems and realizations")
+    if table:
+        if n * len(offsets) >= 2 ** 31:
+            raise ValueError(f"a table of {n} x {len(offsets)} entries is larger "
+                             "than int32 indexes")
+        return (b, n, 1, 1, n_temps, n_groups, n_sys), g
     return (b, *_build.dims3(shape), n_temps, n_groups, n_sys), g
 
 
 def overlap_event(spins, sid, tasks, coup, temps, scal, probes, words, *, kind,
-                  wolff, shape, with_labels=False, with_masks=False, observe=False):
+                  wolff, shape, with_labels=False, with_masks=False, observe=False,
+                  tables=None):
     """One overlap move of every task (see :func:`overlap_event_plain`) on
     the lattice ``shape`` (:func:`geometry`): the plain version for CPU
     tensors, the ``houdn_*`` kernels (Houdayer) or the ``ov_*`` ones
-    (Joerg, CMR) for CUDA tensors.  The masks are bits ``0 .. n_dirs - 1``
-    of the first kernel's state bytes."""
+    (Joerg, CMR) for CUDA tensors, their table forms ``*_table`` on a
+    table lattice, which reads its neighbours from ``tables`` (its device
+    ``(fwd, bwd)``, :func:`~.lattice.check_tables`; required there).  The
+    masks are bits ``0 .. n_dirs - 1`` of the first kernel's state
+    words."""
     kw = dict(kind=kind, wolff=wolff, shape=shape, with_labels=with_labels,
               with_masks=with_masks, observe=observe)
     args = (spins, sid, tasks, coup, temps, scal, probes, words)
@@ -715,20 +868,23 @@ def overlap_event(spins, sid, tasks, coup, temps, scal, probes, words, *, kind,
     dev = spins.device
     n = spins.shape[-1]
     cmr = kind == "cmr"
+    table = isinstance(shape, Lattice) and shape.table
+    if table:
+        check_tables(tables, shape, dev)
     labels = blue = None
     if with_labels or observe:
         if not (observe and cmr):
             labels = torch.empty((dims[0], n), dtype=torch.int32, device=dev)
         if cmr:
             blue = torch.empty((dims[0], n), dtype=torch.int32, device=dev)
-    scratch = Scratch(dims[0], n, dev, cmr and not observe)
+    scratch = Scratch(dims[0], n, dev, cmr and not observe, table)
     lattice = shape if isinstance(shape, Lattice) else None
     launch_event(_build.library(), torch.cuda.current_stream(dev).cuda_stream,
                  dims, *(t.data_ptr() for t in args), scratch.ptrs(), kind=kind,
                  wolff=wolff, group=g,
                  p_labels=None if labels is None else labels.data_ptr(),
                  p_blue=None if blue is None else blue.data_ptr(), observe=observe,
-                 lattice=lattice)
+                 lattice=lattice, tables=tables if table else None)
     if not (with_labels or with_masks):
         return None
     return MoveGraphs(labels if with_labels else None, blue if with_labels else None,

@@ -14,7 +14,11 @@ winding kernels in both forms, one launch at a time and at 2048^2,
 fk_bonds_staged and fk_finish reading labels) and Houdayer(N)'s (houdn_bonds,
 houdn_finish) with the overlap moves' labels, masks and observe form;
 houdn_bonds and the finishes (ov_finish, houdn_finish) each alone against
-houdn_states_plain / finish_plain.  On a machine
+houdn_states_plain / finish_plain; on the table lattices (4D, 5D, odd
+extents, self-bonds, 9 and 32 offsets) the moves' table forms
+(ov_bonds_table, ov_mid_table, ov_finish_table, houdn_bonds_table,
+houdn_finish_table) and pair_overlap_table, whole, alone and in the engine
+against the CPU.  On a machine
 with a GPU (jax is not needed; ``--noconftest`` skips the JAX package's
 test configuration):
 
@@ -3497,3 +3501,290 @@ def test_any_lattice_sample_on_card_matches_the_cpu(cuda, shape, geometry, n_rep
     for u, v in zip(sa, sc):
         for key in v:
             np.testing.assert_array_equal(u[key], v[key], err_msg=key)
+
+
+# ----------------------- replicas on the table lattices (4D and up, 7-32 offsets)
+
+# the cubic lattice's axes and face diagonals: 9 forward offsets
+NINE = [[1, 0, 0], [0, 1, 0], [0, 0, 1], [1, 1, 0], [1, -1, 0], [1, 0, 1], [1, 0, -1],
+        [0, 1, 1], [0, 1, -1]]
+# 32 distinct forward offsets of an 8 x 8 square (every bit of a bond word)
+THIRTY_TWO = [[a, b] for a in range(5) for b in range(-3, 5) if (a, b) > (0, 0)][:32]
+# (name, shape, offsets, couplings, spins' offset past an 8-byte boundary):
+# 4D with even and odd extents, an extent of 1 (self-bonds), 5D, 9 offsets
+# and 32 offsets
+TABLE_LATTICES = [
+    ("4d4", (4, 4, 4, 4), None, "pm", 0), ("4d3-odd", (3, 3, 3, 3), None, "gauss", 3),
+    ("4d-self", (1, 3, 3, 3), None, "pm", 0), ("5d3", (3, 3, 3, 3, 3), None, "gauss", 0),
+    ("nine", (6, 6, 6), NINE, "pm", 0), ("off32", (8, 8), THIRTY_TWO, "gauss", 2),
+]
+TABLE_IDS = [x[0] for x in TABLE_LATTICES]
+TABLE_MOVES = ("ov_bonds_table", "ov_mid_table", "ov_finish_table", "houdn_bonds_table",
+               "houdn_finish_table")
+WALK_MOVES = ("ov_bonds", "ov_mid", "ov_finish", "houdn_bonds", "houdn_finish")
+
+
+def _table_lattice(shape, offsets):
+    from peapods_tpu_torch.ops.lattice import Lattice
+
+    lat = Lattice(shape, offsets)
+    assert lat.table
+    return lat
+
+
+@pytest.mark.parametrize("kind,g", OV_KINDS, ids=OV_KIND_IDS)
+@pytest.mark.parametrize("wolff", [True, False], ids=["wolff", "sw"])
+@pytest.mark.parametrize("name,shape,offsets,couplings,offset", TABLE_LATTICES,
+                         ids=TABLE_IDS)
+def test_table_moves_match_plain(cuda, name, shape, offsets, couplings, offset, wolff, kind,
+                                 g):
+    """One move of every task on a table lattice through the table forms and
+    the table labelling (cc_table_init, cc_table_link, fk_link_flatten):
+    every member's spins and the labels (CMR: grey and blue) bitwise the
+    plain version's; no walk-form move kernel launched."""
+    from peapods_tpu_torch.ops import cc, overlap
+
+    lat = _table_lattice(shape, offsets)
+    x = _ov_inputs(cuda, 61, lat, couplings, offset)
+    tab = _event_inputs(x, x["d"], x["n_rep"], x["n_temps"], lat.n_spins, kind, wolff,
+                        31, g=g)
+    a, b = x["spins"].clone(), x["spins"].clone()
+    _reset_move_counts()
+    kw = dict(kind=kind, wolff=wolff, shape=lat, with_labels=True)
+    args = (x["sid"], tab[0], x["coup"], x["temps"], *tab[1:])
+    lk = overlap.overlap_event(a, *args, tables=lat.device_tables(cuda), **kw)
+    lp = overlap.overlap_event_plain(b, *args, **kw)
+    torch.cuda.synchronize()
+    links = 2 if kind == "cmr" else 1
+    assert {k: v for k, v in cc.LAUNCHES.items() if v} == {
+        "cc_table_init": links, "cc_table_link": links}
+    assert fk.LAUNCHES["fk_link_flatten"] == links
+    assert all(overlap.LAUNCHES[k] == 0 for k in WALK_MOVES)
+    houd = kind == "houdayer"
+    assert overlap.LAUNCHES["houdn_finish_table" if houd else "ov_finish_table"] == 1
+    assert overlap.LAUNCHES["ov_mid_table"] == (kind == "cmr")
+    assert torch.equal(a, b)
+    assert torch.equal(lk.labels, lp.labels)
+    if kind == "cmr":
+        assert torch.equal(lk.blue, lp.blue)
+    assert not torch.equal(a, x["spins"])
+
+
+@pytest.mark.parametrize("kind", ["houdayer", "jorg", "cmr"])
+@pytest.mark.parametrize("name,shape,offsets,couplings,offset", TABLE_LATTICES,
+                         ids=TABLE_IDS)
+def test_table_observe_matches_plain(cuda, name, shape, offsets, couplings, offset, kind):
+    """SW on a table lattice: the labels and the stats graph's masks ``[B, n,
+    n_neighbors]`` bitwise the plain version; the observe form writes no
+    spin, launches no finish and returns the same stats graph."""
+    from peapods_tpu_torch.ops import overlap
+
+    lat = _table_lattice(shape, offsets)
+    tables = lat.device_tables(cuda)
+    x = _ov_inputs(cuda, 63, lat, couplings, offset)
+    tab = _event_inputs(x, x["d"], x["n_rep"], x["n_temps"], lat.n_spins, kind, False, 37)
+    args = (x["sid"], tab[0], x["coup"], x["temps"], *tab[1:])
+    kw = dict(kind=kind, wolff=False, shape=lat, with_labels=True, with_masks=True)
+    out = {}
+    for observe in (False, True):
+        a, b = x["spins"].clone(), x["spins"].clone()
+        _reset_move_counts()
+        gk = overlap.overlap_event(a, *args, observe=observe, tables=tables, **kw)
+        gp = overlap.overlap_event_plain(b, *args, observe=observe, **kw)
+        torch.cuda.synchronize()
+        finish = overlap.LAUNCHES["houdn_finish_table"] + overlap.LAUNCHES["ov_finish_table"]
+        assert finish == (0 if observe else 1)
+        assert overlap.LAUNCHES["ov_mid_table"] == (kind == "cmr" and not observe)
+        assert torch.equal(a, b)
+        assert torch.equal(a, x["spins"]) == observe
+        for field in ("labels", "blue", "masks"):
+            k, p = getattr(gk, field), getattr(gp, field)
+            assert (k is None) == (p is None), field
+            if k is not None:
+                assert torch.equal(k, p), field
+        out[observe] = gk
+    assert torch.equal(out[True].stats, out[False].stats)
+    assert torch.equal(out[True].masks, out[False].masks)
+
+
+@pytest.mark.parametrize("kind,g", OV_KINDS, ids=OV_KIND_IDS)
+@pytest.mark.parametrize("wolff", [True, False], ids=["wolff", "sw"])
+@pytest.mark.parametrize("name,shape,offsets,couplings,offset", TABLE_LATTICES,
+                         ids=TABLE_IDS)
+def test_table_move_kernels_alone_match_plain(cuda, name, shape, offsets, couplings, offset,
+                                              wolff, kind, g):
+    """Each table-form kernel on its own inputs: the first graph's words and
+    the seeds (and ov_mid_table's grey words and blue flips) left in a table
+    Scratch bitwise table_states_plain, and ov_finish_table or
+    houdn_finish_table launched alone on the plain version's last graph and
+    its labels, every spin bitwise finish_plain."""
+    from peapods_tpu_torch.ops import overlap
+    from peapods_tpu_torch.ops.cluster import connected_components
+
+    lat = _table_lattice(shape, offsets)
+    fwd, bwd = tables = lat.device_tables(cuda)
+    x = _ov_inputs(cuda, 67, lat, couplings, offset)
+    d, n_rep, n_temps, n = x["d"], x["n_rep"], x["n_temps"], lat.n_spins
+    tab = _event_inputs(x, d, n_rep, n_temps, n, kind, wolff, 41, g=g)
+    spins = x["spins"]
+    args = (x["sid"], tab[0], x["coup"], x["temps"], *tab[1:])
+    st, st2, fl, sd = overlap.table_states_plain(spins.clone(), *args, kind=kind, wolff=wolff,
+                                                 lattice=lat)
+    last = st if st2 is None else st2
+    dims, _ = overlap.check_event(spins, *args, lat, kind)
+    scratch = overlap.Scratch(dims[0], n, cuda, kind == "cmr", table=True)
+    overlap.launch_event(_build.library(), torch.cuda.current_stream(cuda).cuda_stream,
+                         dims, spins.clone().data_ptr(), *(t.data_ptr() for t in args),
+                         scratch.ptrs(), kind=kind, wolff=wolff, group=g, lattice=lat,
+                         tables=tables)
+    torch.cuda.synchronize()
+    assert torch.equal(scratch.state, st)
+    assert torch.equal(scratch.seeds, sd)
+    if kind == "cmr":
+        assert torch.equal(scratch.state2, st2)
+        assert torch.equal(scratch.flip, fl)
+    masks = fk.state_masks(last, lat.n_neighbors)
+    par = connected_components(masks, lat.shape, lat.offsets).to(torch.int32)
+    a, b = _offset_copy(spins, offset), spins.clone()
+    overlap.finish_plain(b, x["sid"], tab[0], tab[1], sd, last, par, kind=kind,
+                         wolff=wolff, shape=lat, flip=fl)
+    words = overlap.ov_table_words(n, lat.n_neighbors, d, n_temps, n_rep // g,
+                                   n_rep * n_temps)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    if kind == "houdayer":
+        _build.check(lib.peapods_houdn_finish_table(
+            a.data_ptr(), x["sid"].data_ptr(), tab[0].data_ptr(), tab[1].data_ptr(),
+            last.data_ptr(), par.data_ptr(), sd.data_ptr(), bwd.data_ptr(),
+            words.ctypes.data, g, int(wolff), stream), "houdn_finish_table")
+    else:
+        _build.check(lib.peapods_ov_finish_table(
+            a.data_ptr(), x["sid"].data_ptr(), tab[0].data_ptr(), tab[1].data_ptr(),
+            sd.data_ptr(), last.data_ptr(), par.data_ptr(),
+            None if fl is None else fl.data_ptr(), bwd.data_ptr(), words.ctypes.data,
+            overlap.KINDS.index(kind), int(wolff), stream), "ov_finish_table")
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert not torch.equal(a, spins)
+
+
+@pytest.mark.parametrize("n_rep,n_temps", [(2, 3), (4, 5), (6, 4)], ids=["r2", "r4", "r6"])
+@pytest.mark.parametrize("name,shape,offsets,couplings,offset", TABLE_LATTICES,
+                         ids=TABLE_IDS)
+def test_pair_overlap_table_matches_plain(cuda, name, shape, offsets, couplings, offset,
+                                          n_rep, n_temps):
+    """pair_overlap_table into row views of a chunk's outputs (1 to 4 columns
+    a CTA): qs and ql bitwise pair_overlap_table_plain and the lattice's
+    overlap_dots; one launch."""
+    from peapods_tpu_torch.ops import megapair
+    from peapods_tpu_torch.ops.measure import overlap_dots
+
+    lat = _table_lattice(shape, offsets)
+    tables = lat.device_tables(cuda)
+    x = _ov_inputs(cuda, 71, lat, couplings, offset, d=3, n_rep=n_rep, n_temps=n_temps)
+    cols = (n_rep // 2) * n_temps
+    rows = torch.full((2, 3, 5, cols), -7, dtype=torch.int32, device=cuda)
+    megapair.LAUNCHES["pair_overlap_table"] = 0
+    megapair.pair_overlap_table(x["spins"], x["sid"], rows[0][:, 2], rows[1][:, 2],
+                                lattice=lat, n_replicas=n_rep, tables=tables)
+    torch.cuda.synchronize()
+    assert megapair.LAUNCHES["pair_overlap_table"] == 1
+    qs, ql = megapair.pair_overlap_table_plain(x["spins"], x["sid"], tables[0], n_rep)
+    assert torch.equal(rows[0][:, 2], qs)
+    assert torch.equal(rows[1][:, 2], ql)
+    rq, rl = overlap_dots(x["spins"], x["sid"], lat.shape, n_rep, lat.offsets)
+    assert torch.equal(qs, rq.flatten(1))
+    assert torch.equal(ql, rl.flatten(1))
+    assert (rows[:, :, [0, 1, 3, 4]] == -7).all()
+
+
+@pytest.mark.parametrize("shape,offsets,n_rep,kw", [
+    ((4, 4, 4, 4), None, 2, dict(overlap_cluster_build_mode="houdayer+cmr",
+                                 overlap_cluster_mode="sw", cluster_update_interval=2,
+                                 cluster_mode="sw", collect_cluster_stats=True,
+                                 pt_schedule="full_ladder")),
+    ((4, 4, 4, 4), None, 4, dict(overlap_cluster_build_mode="jorg+houd4",
+                                 overlap_cluster_mode="wolff", snapshot_interval=4)),
+    ((3, 3, 3, 3, 3), None, 2, dict(overlap_cluster_build_mode="houdayer+jorg+cmr",
+                                    overlap_cluster_mode="sw",
+                                    overlap_cluster_action="observe")),
+    ((6, 6, 6), NINE, 2, dict(overlap_cluster_build_mode="cmr", overlap_cluster_mode="sw",
+                              collect_cluster_stats=True)),
+], ids=["4d4-houdayer+cmr-fk-stats", "4d4-jorg+houd4-wolff-snapshots", "5d3-observe",
+        "nine-cmr-stats"])
+def test_table_replicas_sample_on_card_match_the_cpu(cuda, shape, offsets, n_rep, kw):
+    """The per-sweep replica path on table lattices: the table forms on the
+    card and the plain path on the CPU follow one trajectory (+-1
+    couplings), with the same records, statistics, observations and
+    snapshots; the card launched the table forms and no walk-form move or
+    pair kernel."""
+    from peapods_tpu_torch.ops import megapair, overlap
+
+    geo = {} if offsets is None else dict(neighbor_offsets=offsets)
+    temps = np.geomspace(1.0, 4.0, 4).astype(np.float32)
+    kw = dict(kw, pt_interval=1, overlap_cluster_update_interval=2)
+
+    def model(dev):
+        return Ising(shape, couplings="bimodal", temperatures=temps, n_replicas=n_rep,
+                     n_disorder=2, seed=9, device=dev, **geo)
+
+    a, c = model("cuda"), model("cpu")
+    _reset_move_counts()
+    megapair.LAUNCHES["pair_overlap"] = megapair.LAUNCHES["pair_overlap_table"] = 0
+    ra = a.sample(24, **kw)
+    assert megapair.LAUNCHES["pair_overlap_table"] == 24
+    assert megapair.LAUNCHES["pair_overlap"] == 0
+    assert all(overlap.LAUNCHES[k] == 0 for k in WALK_MOVES)
+    assert sum(overlap.LAUNCHES[k] for k in TABLE_MOVES) > 0
+    rc = c.sample(24, **kw)
+    for key in ("spins", "system_ids", "pt_edge_acceptances", "pt_round_trips",
+                "pt_trip_state"):
+        assert torch.equal(a._sim.state[key].cpu(), c._sim.state[key]), key
+    for key in ("energies", "energies2", "mags2", "overlap2", "link_overlap"):
+        np.testing.assert_allclose(ra[key], rc[key], rtol=1e-12, err_msg=key)
+    np.testing.assert_array_equal(np.asarray(ra["overlap_histogram"]),
+                                  np.asarray(rc["overlap_histogram"]))
+    for key in ("overlap_csd", "fk_csd"):
+        assert (key in ra) == (key in rc), key
+        if key in rc:
+            np.testing.assert_array_equal(np.asarray(ra[key]), np.asarray(rc[key]),
+                                          err_msg=key)
+    assert ("top_cluster_sizes" in ra) == ("top_cluster_sizes" in rc)
+    if "top_cluster_sizes" in rc:
+        np.testing.assert_allclose(np.asarray(ra["top_cluster_sizes"]),
+                                   np.asarray(rc["top_cluster_sizes"]), rtol=1e-12)
+    oa = ra.get("per_disorder", {}).get("cluster_observations", {})
+    oc = rc.get("per_disorder", {}).get("cluster_observations", {})
+    assert list(oa) == list(oc)
+    for name in oc:
+        for key in oc[name]:
+            np.testing.assert_array_equal(oa[name][key], oc[name][key],
+                                          err_msg=f"{name} {key}")
+    sa, sc = ra.get("cluster_snapshots", []), rc.get("cluster_snapshots", [])
+    assert len(sa) == len(sc)
+    for u, v in zip(sa, sc):
+        for key in v:
+            np.testing.assert_array_equal(u[key], v[key], err_msg=key)
+
+
+def test_table_forms_refuse_without_tables(cuda):
+    """On the card a table lattice's move and pair measurement need the
+    device tables: without them they raise ValueError, and nothing runs the
+    plain version in their place."""
+    from peapods_tpu_torch.ops import megapair, overlap
+
+    lat = _table_lattice((3, 3, 3, 3), None)
+    x = _ov_inputs(cuda, 73, lat, "pm", 0)
+    tab = _event_inputs(x, x["d"], x["n_rep"], x["n_temps"], lat.n_spins, "jorg", False, 43)
+    a = x["spins"].clone()
+    _reset_move_counts()
+    with pytest.raises(ValueError, match="table form"):
+        overlap.overlap_event(a, x["sid"], tab[0], x["coup"], x["temps"], *tab[1:],
+                              kind="jorg", wolff=False, shape=lat)
+    cols = (x["n_rep"] // 2) * x["n_temps"]
+    rows = torch.empty((2, x["d"], cols), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="table form"):
+        megapair.pair_overlap_table(a, x["sid"], rows[0], rows[1], lattice=lat,
+                                    n_replicas=x["n_rep"], tables=None)
+    assert torch.equal(a, x["spins"])
+    assert not any(overlap.LAUNCHES.values())

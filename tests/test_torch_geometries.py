@@ -455,18 +455,30 @@ def test_geometry_api_matches_reference():
     # the overlap moves run on the triangular lattice (item 7d)
     (dict(lattice_shape=(4, 4), geometry="tri", n_replicas=2),
      dict(overlap_cluster_update_interval=1), None),
-    # replicas past three dimensions or six offsets, and more than 32
-    # offsets, still raise
-    (dict(lattice_shape=(2, 2, 2, 2), n_replicas=2), None, "4a"),
+    # replicas past three dimensions or six offsets run, with the overlap
+    # moves too, in the kernels' table form (item 4a); more than 32 offsets
+    # still raise
+    (dict(lattice_shape=(2, 2, 2, 2), n_replicas=2), None, None),
+    (dict(lattice_shape=(3, 3, 3, 3), n_replicas=2),
+     dict(overlap_cluster_update_interval=1, overlap_cluster_build_mode="houdayer+cmr",
+          overlap_cluster_mode="sw", collect_cluster_stats=True), None),
+    (dict(lattice_shape=(2, 2, 2, 2, 2), n_replicas=2),
+     dict(overlap_cluster_update_interval=1, overlap_cluster_build_mode="jorg"), None),
+    (dict(lattice_shape=(4, 4, 4), neighbor_offsets=[[1, 0, 0], [0, 1, 0], [0, 0, 1],
+                                                     [1, 1, 0], [1, -1, 0], [1, 0, 1],
+                                                     [1, 0, -1], [0, 1, 1], [0, 1, -1]],
+          n_replicas=2),
+     dict(overlap_cluster_update_interval=1, overlap_cluster_build_mode="cmr"), None),
     (dict(lattice_shape=(4, 4), neighbor_offsets=[[1, 0]] * 33), None, "4a"),
 ], ids=["replicas-tri", "sw-bcc", "odd-extents", "overlap-tri", "replicas-4d",
-        "offsets-33"])
+        "overlap-4d", "overlap-5d", "overlap-9offsets", "offsets-33"])
 def test_out_of_slice_geometry_options_raise(kwargs, sample, item):
     """Options outside the slice raise, naming the ROADMAP item; replicas on
     the triangular and BCC lattices run (item 7a), with overlap moves too
-    (item 7d), on odd extents too (item 4a): the pair records over the
-    lattice's offsets, finite, q_l a mean over n_spins * n_neighbors
-    bonds."""
+    (item 7d), on odd extents, past three dimensions and past six offsets
+    too (item 4a): the pair records over the lattice's offsets, finite,
+    q_l a mean over n_spins * n_neighbors bonds; the moves' statistics
+    where asked for."""
     if item is not None:
         match = f"ROADMAP.md, queue 1, item {item}"
         with pytest.raises(NotImplementedError, match=match):
@@ -481,4 +493,5 @@ def test_out_of_slice_geometry_options_raise(kwargs, sample, item):
     # |q_l| <= 1: the link sums are divided by n_spins * n_neighbors bonds
     assert (np.abs(r["link_overlap"]) <= 1).all()
     assert ("fk_csd" in r) is False
+    assert ("overlap_csd" in r) == bool((sample or {}).get("collect_cluster_stats"))
     assert np.isfinite(m.sg_binder).all()

@@ -407,14 +407,19 @@ def test_results_schema_matches_reference(n_disorder):
     (dict(overlap_cluster_update_interval=2, snapshot_interval=2), None),
     (dict(overlap_cluster_update_interval=1, overlap_cluster_build_mode="houd4"),
      None),
-], ids=["fk-phase", "observe", "collect-stats", "snapshots", "houd4"])
+    (dict(overlap_cluster_update_interval=1, overlap_cluster_build_mode="houd4",
+          lattice_shape=(3, 3, 3, 3)), None),
+], ids=["fk-phase", "observe", "collect-stats", "snapshots", "houd4", "houd4-4d"])
 def test_out_of_slice_replica_options_raise(kwargs, item):
     """Options outside the slice raise, naming the ROADMAP item that brings
-    them; the ones that items 7a, 7b and 7c brought in (an FK phase and
+    them; the ones that items 7a, 7b, 7c and 4a brought in (an FK phase and
     snapshots with replicas, overlap observe, the overlap moves' cluster
-    statistics, Houdayer(N)) run: an FK phase takes the per-sweep path with
-    its pair records, snapshots come at every second sweep past warmup."""
-    m = Ising((4, 4, 4), temperatures=[1.0, 2.0], n_replicas=4, seed=1, device="cpu")
+    statistics, Houdayer(N), replicas on a 4D lattice) run: an FK phase
+    takes the per-sweep path with its pair records, snapshots come at every
+    second sweep past warmup."""
+    kwargs = dict(kwargs)
+    shape = kwargs.pop("lattice_shape", (4, 4, 4))
+    m = Ising(shape, temperatures=[1.0, 2.0], n_replicas=4, seed=1, device="cpu")
     if item is not None:
         with pytest.raises(NotImplementedError,
                            match=f"ROADMAP.md, queue 1, item {item}"):

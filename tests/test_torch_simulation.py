@@ -237,13 +237,15 @@ def test_out_of_slice_sample_options_raise(kwargs):
         (dict(lattice_shape=(5, 4), n_replicas=2), None),
         (dict(lattice_shape=(4, 4, 5), n_replicas=2), None),
         (dict(lattice_shape=(4, 4), geometry="tri", n_replicas=2), None),
+        (dict(lattice_shape=(2, 2, 2, 2), n_replicas=2), None),
     ],
-    ids=["3d", "odd", "replicas", "geometry"],
+    ids=["3d", "odd", "replicas", "geometry", "replicas-4d"],
 )
 def test_out_of_slice_models_raise(kwargs, item):
     """Models outside the slice raise, naming the ROADMAP item; replicas on
     the BCC and triangular lattices run since item 7a, and on odd extents
-    since item 4a, with the pair records over the lattice's offsets."""
+    and past three dimensions since item 4a, with the pair records over the
+    lattice's offsets."""
     if item is not None:
         with pytest.raises(NotImplementedError, match=f"ROADMAP.md, queue 1, item {item}"):
             Ising(temperatures=[2.0], seed=1, device="cpu", **kwargs)
