@@ -5741,16 +5741,18 @@ ANY_REPLICA_RUNS = {
 # the chain's <e> against tanh(1/T): batches of this many sweeps
 CHAIN_BATCHES, CHAIN_BATCH_SWEEPS = 8, 256
 CHAIN_SE = 5.0
-TABLE_KERNELS = ("sweep_nb_table", "measure_nb_table", "fk_bonds_table", "cc_table_init",
-                 "cc_table_link")
+TABLE_KERNELS = ("sweep_nb_table", "measure_nb_table", "fk_bonds_table", "cc_table_link")
 TABLE_REPLACES = {
     "sweep_nb_table": "peapods_tpu/ops/pallas_sweep_diag.py:540",  # sweep_gen
     "measure_nb_table": "peapods_tpu/ops/pallas_sweep_diag.py:562",  # sweep_gen_fused
     "fk_bonds_table": "peapods_tpu/ops/pallas_event.py:621",  # _fk_kernel (row 18)
-    "cc_table_init": CC_REPLACES, "cc_table_link": CC_REPLACES}
+    "cc_table_link": CC_REPLACES, "cc_table_border": CC_REPLACES}
 TABLE_SRC = {"sweep_nb_table": NB_SRC, "measure_nb_table": NB_SRC,
-             "fk_bonds_table": "peapods_tpu_torch/csrc/fk.cu", "cc_table_init": CC_SRC,
-             "cc_table_link": CC_SRC}
+             "fk_bonds_table": "peapods_tpu_torch/csrc/fk.cu", "cc_table_link": CC_SRC,
+             "cc_table_border": CC_SRC}
+# the table labelling's slab route: graphs past one cluster's shared memory
+# (32^4 sites, 4 offsets), few of them, random bonds above percolation
+SLAB_ROUTE = dict(shape=(32, 32, 32, 32), graphs=2, p=0.3)
 
 
 def any_model(c, dev, **over):
@@ -5769,10 +5771,11 @@ def any_model(c, dev, **over):
 def any_want(model, kw, n, warmup):
     """Launches of ``n`` sweeps from sweep 0 of a one-replica run: a sweep
     launch per colour (the table form's past three dimensions or six
-    offsets); on FK sweeps the staged path: the bonds, the labelling (the
-    table form's three launches, or ``cc.link_launches`` of the kernel
-    shape) and, to update, ``fk_finish``; observe runs skip the sweeps that
-    record nothing; a measurement and a ``pt_step`` a sweep."""
+    offsets); on FK sweeps the staged path: the bonds, the labelling
+    (``cc.link_launches`` of the kernel shape, ``cc.table_link_launches``
+    of the table form's) and, to update,
+    ``fk_finish``; observe runs skip the sweeps that record nothing; a
+    measurement and a ``pt_step`` a sweep."""
     from peapods_tpu_torch.ops import cc
 
     rt = model._sim.rt
@@ -5785,8 +5788,9 @@ def any_want(model, kw, n, warmup):
             "fk_bonds_table" if tab else "fk_bonds_staged": len(fk_t)}
     if kw.get("cluster_action", "update") == "update":
         want["fk_finish"] = len(fk_t)
-    links = ({"cc_table_init": 1, "cc_table_link": 1, "fk_link_flatten": 1} if tab
-             else cc.link_launches(lat.kernel_shape, rt.n_disorder * rt.n_systems))
+    graphs = rt.n_disorder * rt.n_systems
+    links = (cc.table_link_launches(lat.n_spins, lat.n_neighbors, graphs) if tab
+             else cc.link_launches(lat.kernel_shape, graphs))
     for k, v in links.items():
         want[k] = want.get(k, 0) + v * len(fk_t)
     if kw.get("cluster_action") == "observe" and lat.canonical_square:
@@ -5920,8 +5924,8 @@ def any_bounds(rt, n_fk_graphs):
     yardstick for ``sweep_nb``); the measurement reads every spin, the
     couplings (and the forward table) and writes the partials; the bonds
     read every spin, the couplings (and the table) and write a state word a
-    site; the table labelling's init writes a label a site, its link reads
-    the state words and the table and writes the labels."""
+    site; the table labelling reads the state words and the table and
+    writes the labels."""
     d, s = rt.n_disorder, rt.n_systems
     lat = rt.lattice
     n, nb = lat.n_spins, lat.n_neighbors
@@ -5938,14 +5942,13 @@ def any_bounds(rt, n_fk_graphs):
                        3 * nb * b * n),
     }
     if lat.table:
-        out["cc_table_init"] = bound(4 * b * n, 0)
         out["cc_table_link"] = bound(8 * b * n + tab // 2, 0)
     else:
         out["cc_link"] = cc_bound(b, n)
     return out
 
 
-def any_checks(name, run, dev, rng, card):
+def any_checks(name, run, dev, rng, card, phase="36 kernel-vs-plain"):
     """On a run's final state: a sweep (every colour) and the measurement
     through the lattice's form bitwise the plain versions (spins, every
     partial), the staged FK bonds' state bitwise ``fk_bonds_plain``'s bits
@@ -6001,7 +6004,7 @@ def any_checks(name, run, dev, rng, card):
                                                        offsets=lat.offsets), 2)
     plain["labelling"] = wall_ms(lambda: connected_components(bonds, lat.shape,
                                                               lat.offsets), 2)
-    log("36 kernel-vs-plain", f"{name} on the run's state ({g} systems of "
+    log(phase, f"{name} on the run's state ({g} systems of "
         f"{'x'.join(map(str, lat.shape))}, {lat.n_neighbors} offsets, "
         f"{'table' if lat.table else 'walk'} form): a sweep ({flipped} spins flipped), "
         f"the measurement's partials, the staged bonds' state and the labelling bitwise "
@@ -6010,8 +6013,8 @@ def any_checks(name, run, dev, rng, card):
         f"{plain['labelling']:.3f} ms on {card} ok")
     bounds = any_bounds(rt, g)
     names = (("sweep_nb_table", "sweep"), ("measure_nb_table", "measure"),
-             ("fk_bonds_table", "bonds"), ("cc_table_init", "cc_table_init"),
-             ("cc_table_link", "cc_table_link")) if lat.table else (
+             ("fk_bonds_table", "bonds"), ("cc_table_link", "cc_table_link")
+             ) if lat.table else (
              ("sweep_nb", "sweep"), ("measure_nb", "measure"), ("fk_bonds_staged", "bonds"),
              ("cc_link", "cc_link"))
     out = {}
@@ -6024,13 +6027,66 @@ def any_checks(name, run, dev, rng, card):
     return out
 
 
+def any_slab_route(dev, card):
+    """The table labelling past one cluster's shared memory (SLAB_ROUTE):
+    one labelling's launches counted from 0 (``cc_table_link``,
+    ``cc_table_border``, ``fk_link_flatten``), the labels bitwise
+    ``connected_components``', each launch's device time (profiler) beside
+    its bound (bytes: the state words, the forward table once, the labels
+    or parents; the border also reads the parents, the flatten reads and
+    writes them) and the plain labelling's time."""
+    from peapods_tpu_torch.ops import cc, fk
+    from peapods_tpu_torch.ops.cluster import connected_components
+    from peapods_tpu_torch.ops.lattice import Lattice
+
+    c = SLAB_ROUTE
+    lat = Lattice(c["shape"])
+    b, n, nb = c["graphs"], lat.n_spins, lat.n_neighbors
+    plan = cc.table_link_plan(n, nb, b)
+    gen = torch.Generator(device=dev).manual_seed(2036)
+    masks = torch.rand((b, n, nb), device=dev, generator=gen) < c["p"]
+    tables = lat.device_tables(dev)
+    for table in (cc.LAUNCHES, fk.LAUNCHES):
+        for k in table:
+            table[k] = 0
+    labels = cc.cc_labels(masks, lat, tables=tables)
+    torch.cuda.synchronize()
+    launches = {k: v for table in (cc.LAUNCHES, fk.LAUNCHES) for k, v in table.items() if v}
+    want = cc.table_link_launches(n, nb, b)
+    if launches != want or not plan.slabs:
+        raise AssertionError(f"slab route: launches {launches}, expected {want}")
+    plain = connected_components(masks, lat.shape, lat.offsets)
+    bad = int((labels != plain).sum())
+    n_comp = int((plain == torch.arange(n, device=dev)).sum())
+    if bad:
+        raise AssertionError(f"slab route: {bad} labels differ from connected_components'")
+    ms = kernel_ms(lambda: cc.cc_labels(masks, lat, tables=tables), 5, tuple(want))
+    plain_ms = wall_ms(lambda: connected_components(masks, lat.shape, lat.offsets), 1)
+    tab = 4 * n * nb
+    bounds = {"cc_table_link": bound(8 * b * n + tab, 0),
+              "cc_table_border": bound(8 * b * n + tab, 0),
+              "fk_link_flatten": bound(8 * b * n, 0)}
+    recs = {k: dict(launches=v, ms=ms[k], max_abs_err=0.0, plain_ms=plain_ms,
+                    plain_is="connected_components of the graphs", **dict(zip(
+                        ("bound_ms", "bound_by"), bounds[k])))
+            for k, v in launches.items()}
+    log("36 slab route", f"{b} graphs of {'x'.join(map(str, c['shape']))} ({n} sites, {nb} "
+        f"offsets, bond density {c['p']}, {n_comp} clusters): slabs of {plan.slab} sites, "
+        f"{plan.threads} threads; launches {launches}; labels bitwise connected_components'"
+        f"; " + "; ".join(f"{k} {r['ms']:.5f} ms (bound {r['bound_ms']:.6f} ms)"
+                          for k, r in recs.items())
+        + f"; plain {plain_ms:.3f} ms on {card} ok")
+    return recs
+
+
 def any_phase(dev, card):
     """Phase 36: each run of ANY_RUNS twice from one seed (launches,
     checksums, sanity), a small run on the card against the CPU, each form's
     kernels on the run's state against their plain versions, and a profiled
     main-path window (device us a sweep by kernel, busy share, each new
     form's time beside its bound); the replica runs through phase 34's
-    functions (the moves' kernels on the run's state too)."""
+    functions (the moves' kernels on the run's state too); the table
+    labelling's slab route (:func:`any_slab_route`)."""
     t0 = time.perf_counter()
     rng = np.random.default_rng(2036)
     runs = {}
@@ -6057,6 +6113,7 @@ def any_phase(dev, card):
             f"{k} {rec['ms']:.5f} ms (bound {rec['bound_ms']:.6f} ms by "
             f"{rec['bound_by']}, plain {rec['plain_ms']:.3f} ms)"
             for k, rec in run["checks"].items() if "ms" in rec) + f" on {card}")
+    runs["slab_route"] = any_slab_route(dev, card)
     log("36 times", f"phase 36 took {time.perf_counter() - t0:.1f} s")
     return runs
 
@@ -6064,14 +6121,22 @@ def any_phase(dev, card):
 def add_any_records(kernels, runs):
     """Phase 36's numbers: the table forms' records (the 4D run's main
     path, the 13-offset run's beside it), and the walk forms' numbers on
-    the other runs beside their records (``at_<run>``)."""
-    by_name = {kr["name"]: kr for kr in kernels}
+    the other runs beside their records (``at_<run>``); the slab route's
+    ``cc_table_border`` a record of its own (its route's launches), its
+    ``cc_table_link`` and ``fk_link_flatten`` beside theirs."""
+    slab = runs.pop("slab_route")
     main = runs["4d16"]
     for k in TABLE_KERNELS:
         kr = dict(main["checks"][k], name=k, route="cuda", source=TABLE_SRC[k],
                   replaces=TABLE_REPLACES[k], launches=main["launches"].get(k, 0),
                   library_ms=None, at_shells16=runs["shells16"]["checks"][k])
         kernels.append(kr)
+    by_name = {kr["name"]: kr for kr in kernels}
+    kernels.append(dict(slab.pop("cc_table_border"), name="cc_table_border", route="cuda",
+                        source=CC_SRC, replaces=TABLE_REPLACES["cc_table_border"],
+                        library_ms=None, route_of=f"the slab route, {SLAB_ROUTE}"))
+    for k, rec in slab.items():
+        by_name[k]["at_slab_route"] = rec
     for name, run in runs.items():
         for k, rec in run["checks"].items():
             if k in by_name and "ms" in rec and k not in TABLE_KERNELS:
@@ -6185,7 +6250,9 @@ def ea_want(model, kw, n):
     labelling, ``ov_finish_table``; CMR ``ov_bonds_table``, two labellings,
     ``ov_mid_table``, ``ov_finish_table``), ``measure_nb_table`` again for
     the energies of PT and a second ``pt_step``; a labelling is
-    ``cc_table_init``, ``cc_table_link``, ``fk_link_flatten``."""
+    ``cc.table_link_launches``' (one ``cc_table_link`` at these shapes)."""
+    from peapods_tpu_torch.ops import cc
+
     lat = model._sim.rt.lattice
     want = {"sweep_nb_table": lat.n_colors * n, "measure_nb_table": n,
             "pair_overlap_table": n, "pt_step": n}
@@ -6202,8 +6269,9 @@ def ea_want(model, kw, n):
         links += 2 if kind == "cmr" else 1
         if kind == "cmr":
             want["ov_mid_table"] = want.get("ov_mid_table", 0) + 1
-    for k in ("cc_table_init", "cc_table_link", "fk_link_flatten"):
-        want[k] = links
+    for k, v in cc.table_link_launches(lat.n_spins, lat.n_neighbors, 1).items():
+        if links:
+            want[k] = v * links
     return want
 
 
@@ -6537,6 +6605,10 @@ def ea_phase(dev, card):
         moves = sorted(set((k, g, wolff) for k, g in ea_moves(run["kw"], 2)))
         run["checks"] = ea_moves_check(name, rt.lattice, rt.tables, ea_state(run),
                                           moves, dev, rng, card)
+        for k, rec in any_checks(name, run, dev, rng, card, "38 kernel-vs-plain").items():
+            run["checks"].setdefault(k, rec)
+        run["checks"]["cc_table_link"].update(zip(("bound_ms", "bound_by"),
+                                                  ea_link_bound(run)))
     every = [(k, g, w) for k, g in (("houdayer", 2), ("houdayer", 4), ("jorg", 2),
                                     ("cmr", 2)) for w in (False, True)]
     for name, shape in EA_STATES.items():
@@ -6564,11 +6636,36 @@ def ea_phase(dev, card):
     return runs
 
 
+def ea_link_bound(run):
+    """``cc_table_link``'s bound a launch over a run's labellings, each
+    reading its graphs' state words and the forward table once and writing
+    their labels: the FK phase's (a graph a system) and each move's (a graph
+    a task of g replicas; CMR labels twice), in the run's proportions."""
+    rt, kw, n = run["model"]._sim.rt, run["kw"], run["n"]
+    sites = rt.lattice.n_spins
+    tab = 4 * sites * rt.lattice.n_neighbors
+    graphs = []
+    if "cluster_update_interval" in kw:
+        n_fk = len(range(0, n, kw["cluster_update_interval"]))
+        graphs += [rt.n_disorder * rt.n_systems] * n_fk
+    for kind, g in ea_moves(kw, n):
+        tasks = rt.n_disorder * rt.n_temps * (rt.n_replicas // g)
+        graphs += [tasks] * (2 if kind == "cmr" else 1)
+    return bound(sum(8 * b * sites + tab for b in graphs) / len(graphs), 0)
+
+
 def add_ea_records(kernels, runs):
     """Phase 38's records: each table form at 38a's main path (Houdayer(4)'s
     at 38b's run, which alone launches it with g = 4: the pair move's
-    numbers there), the other runs' numbers beside them (``at_<run>``)."""
+    numbers there), the other runs' numbers beside them (``at_<run>``); the
+    sweep, measurement, bonds and labelling of the table form at 38a beside
+    phase 36's records (``at_glass4d``)."""
     main = runs["glass4d"]
+    by_name = {kr["name"]: kr for kr in kernels}
+    for k in TABLE_KERNELS:
+        if k in by_name and "ms" in main["checks"].get(k, {}):
+            by_name[k]["at_glass4d"] = dict(main["checks"][k],
+                                            launches=main["launches"].get(k, 0))
     for k in EA_KERNELS:
         rec = main["checks"][k]
         kr = dict(rec, name=k, route="cuda", source=EA_SRC[k], replaces=ea_replaces(k),

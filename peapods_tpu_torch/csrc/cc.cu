@@ -1,7 +1,8 @@
 // Hopper kernels of the connected components of a batch of bond graphs on
-// any lattice given by its forward offsets (up to six, 2D or 3D): every
-// site gets the minimum site index of its component, on the caller's
-// stream.
+// any lattice given by its forward offsets (up to six, 2D or 3D, the walk
+// form; or, the table form, 4D and up or 7 to 32 offsets, by the lattice's
+// int32 forward table): every site gets the minimum site index of its
+// component, on the caller's stream.
 //
 // Replaces the TPU's
 //   peapods_tpu/ops/pallas_cc_batch.py:428 connected_components_batch
@@ -73,6 +74,25 @@
 // pair leader took 0.038 to 0.033, and slowed one CTA a graph (2048 graphs
 // of 64^2: 0.525 to 0.644), which unites without it.  PERF.md holds the
 // times.
+//
+// The table form (cc_table_link; past one cluster's shared memory also
+// cc_table_border and fk_link_flatten) replaces the same TPU kernel
+// through cc_gen_offsets :332.  What bounds it on the H100: it reads a
+// 4-byte state word a site and the forward table once (4 nb bytes a site,
+// shared by every graph) and writes a label a site: at the 4D +-J glass
+// (384 graphs of 10^4 sites, 4 offsets) 30.9 MB, 0.0092 ms at 3.35 TB/s.
+// The first design (cc_table_init setting parent[i] = i, cc_table_link a
+// thread a site uniting in global memory with atomicCAS, every find a
+// chain of dependent L2 loads, then fk_link_flatten: three launches and
+// three passes over 4 B a site) took 0.79 ms a labelling on average there,
+// 0.0729 ms (its link alone) at 16^4 x 16 graphs and 0.0349 ms at 16^3
+// with 13 offsets x 8 (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py phases
+// 36 and 38).  This one carries cc_link's design over: a graph's
+// union-find in shared memory (one CTA a graph at 10^4 sites; a cluster of
+// up to 8 CTAs while the launch holds few CTAs, or where the graph needs
+// it), one launch, every label written once; as in cc_link, what remains
+// is the chains of dependent finds in shared memory and, over a cluster,
+// the unions in distributed shared memory.  PERF.md holds the times.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -256,23 +276,29 @@ __device__ __forceinline__ bool lead_pair(bool want, int ra, int rb, int lane) {
 }
 
 // The whole-graph form's union-find across a cluster: a parent is a site
-// index of the graph, held by the CTA whose slab holds that site (slab q:
-// sites q bs .. q bs + bs - 1), in its shared memory or, for another CTA's
-// slab, in distributed shared memory.
+// index of the graph, held by the CTA whose slab holds that site (slab q =
+// slab_of(g, v): sites q bs .. q bs + bs - 1), in its shared memory or, for
+// another CTA's slab, in distributed shared memory.  G: the walk's words
+// (CcWalk) or the table form's (CcTable).
 struct Slabs {
   cg::cluster_group cluster;
   int* P;  // this CTA's parents, indexed by site - lo
   int me;
 };
 
-__device__ __forceinline__ volatile int* slab_slot(Slabs& sl, const CcWalk& g, int v) {
-  const int q = cc_div(g, 4, v);
+__device__ __forceinline__ int slab_of(const CcWalk& g, int v) { return cc_div(g, 4, v); }
+
+template <typename G>
+__device__ __forceinline__ volatile int* slab_slot(Slabs& sl, const G& g, int v) {
+  const int q = slab_of(g, v);
   int* base = q == sl.me ? sl.P : sl.cluster.map_shared_rank(sl.P, q);
   return base + (v - q * g.bs);
 }
 
-// Root of v, halving the path on the way (only non-roots are written).
-__device__ __forceinline__ int slab_root(Slabs& sl, const CcWalk& g, int v) {
+// Root of v, halving the path on the way (only non-roots are written, so a
+// root's atomicMin, local or remote, never races a halving).
+template <typename G>
+__device__ __forceinline__ int slab_root(Slabs& sl, const G& g, int v) {
   while (true) {
     volatile int* pv = slab_slot(sl, g, v);
     const int p = *pv;
@@ -287,7 +313,8 @@ __device__ __forceinline__ int slab_root(Slabs& sl, const CcWalk& g, int v) {
 // tile_unite over the cluster: the larger root takes the smaller as its
 // parent (atomicMin on its slot, local or remote); where it was hung
 // elsewhere meanwhile, its old parent is joined next.
-__device__ __forceinline__ void slab_unite(Slabs& sl, const CcWalk& g, int a, int b) {
+template <typename G>
+__device__ __forceinline__ void slab_unite(Slabs& sl, const G& g, int a, int b) {
   while (true) {
     a = slab_root(sl, g, a);
     b = slab_root(sl, g, b);
@@ -533,31 +560,211 @@ BorderKernel border_kernel(int nb) {
 }
 
 // The table form (4D and up, or 7 to 32 offsets; ops/lattice.Lattice.
-// table): a union-find in global memory over the table's bonds.
-// cc_table_init points every parent at its own site; cc_table_link unites
-// each site with its neighbour fwd[i, d] along every active bond d of its
-// 32-bit state word (uf.cuh unite: the larger root hung under the smaller,
-// so each component's root is its minimum site index, whatever the order of
-// the unions; a self-bond unites a site with itself, nothing); then fk.cu's
-// fk_link_flatten points every parent at its root: the labels, bitwise the
-// min-label fixed point.  A first design, a thread a site.
-__global__ void __launch_bounds__(kThreads)
-cc_table_init_kernel(int32_t* __restrict__ parent, int n) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i < n) parent[static_cast<size_t>(blockIdx.y) * n + i] = i;
+// table): cc_link's whole-graph design over the bonds of the int32 forward
+// table fwd [n, nb] (shared by every graph, so it stays in L2).  A CTA
+// takes a slab of bs consecutive sites; its parents and its state words
+// (a byte a site up to 8 offsets, two up to 16, else four: the bits of the
+// graph's int32 words, read once) live in dynamic shared memory.  (1) The
+// state staged, every parent its own site; (2) the slab's bonds united
+// with uf.cuh's tile_unite (the smaller root wins), a round of blockDim.x
+// sites at a time, each round's sites then pointed at their roots.  (No
+// ballot hangs runs along the fast axis, as cc_link's does: on the table
+// it cost 2-4%, tools/probe_colour_cc.py.)  Then by form (ops/cc.py
+// table_link_plan):
+//   kOne      the slab is the graph: every label written once, its root;
+//   kCluster  the graph over a thread-block cluster of C <= 8 CTAs: every
+//             parent made its slab root's site index (written as ~root, so
+//             that no walk meets a half-made tree, then decoded), the
+//             cluster waits, each bond that leaves its slab is united in
+//             distributed shared memory (slab_unite, a warp's pairs
+//             of roots each once: lead_pair), the cluster waits, and every
+//             label is written once, its root;
+//   kSlab     a graph past one cluster's shared memory, in slabs of one
+//             CTA each: every site's parent written as its slab root's
+//             site index; cc_table_border then unites the bonds that leave
+//             a slab in global memory (uf.cuh unite), and fk.cu's
+//             fk_link_flatten points every parent at its root.
+// Self-bonds unite a site with itself (nothing).  Each label is its
+// component's minimum site index, bitwise the min-label fixed point.
+enum TableForm { kOne = 0, kCluster = 1, kSlab = 2 };
+
+constexpr int kTableThreads = 1024;  // the most threads a table CTA takes
+constexpr int kTableSmem = 232448;   // the most dynamic shared memory a CTA takes (227 KB)
+
+// ops/cc.py table_link_words: the sites, the offsets, the CTAs a graph's
+// cluster (1 on the slab form), a slab's sites, fast_divisor (m, s) of
+// bs, whether the slabs split the graph (kSlab) and a CTA's threads.
+struct CcTable {
+  int n;
+  int nb;
+  int C;
+  int bs;
+  uint32_t div_m;
+  int div_s;
+  int slabs;
+  int threads;
+};
+
+inline CcTable make_cc_table(const int* w) {
+  return CcTable{w[0], w[1], w[2], w[3], static_cast<uint32_t>(w[4]), w[5], w[6], w[7]};
 }
 
-__global__ void __launch_bounds__(kThreads)
-cc_table_link_kernel(const uint32_t* __restrict__ state, int32_t* parent,
-                     const int32_t* __restrict__ fwd, int n, int nb) {
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i >= n) return;
+// Bytes a slab site takes in shared memory: its parent and its state bits.
+inline int table_state_bytes(int nb) { return nb <= 8 ? 1 : nb <= 16 ? 2 : 4; }
+inline long long table_smem(const CcTable& g) {
+  return static_cast<long long>(g.bs) * (4 + table_state_bytes(g.nb));
+}
+
+// The slab of site v: v / bs by multiply-shift (Slabs' slab_of).
+__device__ __forceinline__ int slab_of(const CcTable& g, int v) {
+  return g.div_m ? static_cast<int>(__umulhi(static_cast<uint32_t>(v), g.div_m) >> g.div_s) : v;
+}
+
+// One slab of graph blockIdx.y (slab blockIdx.x: sites lo .. lo + sites -
+// 1), S the shared state type, kForm the form (above).  No array is
+// indexed at run time.
+template <typename S, int kForm>
+__global__ void __launch_bounds__(kTableThreads)
+cc_table_link_kernel(const uint32_t* __restrict__ state, int32_t* __restrict__ out,
+                     const int32_t* __restrict__ fwd, const CcTable g, int rounds) {
+  extern __shared__ int smem[];
+  int* P = smem;
+  S* St = reinterpret_cast<S*>(smem + g.bs);
+  const int n = g.n;
+  const int nb = g.nb;
   const size_t base = static_cast<size_t>(blockIdx.y) * n;
-  int32_t* P = parent + base;
-  for (uint32_t st = state[base + i]; st; st &= st - 1u) {
-    const int d = __ffs(st) - 1;
-    unite(P, i, __ldg(fwd + static_cast<size_t>(i) * nb + d));
+  const uint32_t* st = state + base;
+  int32_t* o = out + base;
+  const int lo = static_cast<int>(blockIdx.x) * g.bs;
+  const int sites = max(0, min(g.bs, n - lo));
+  const int T = blockDim.x;
+  const int lane = threadIdx.x & 31;
+  const uint32_t mask = nb == 32 ? 0xffffffffu : (1u << nb) - 1u;
+  for (int it = 0; it < rounds; ++it) {  // (1)
+    const int l = it * T + threadIdx.x;
+    if (l >= sites) break;
+    St[l] = static_cast<S>(__ldg(st + lo + l) & mask);
+    P[l] = l;
   }
+  __syncthreads();
+  for (int it = 0; it < rounds; ++it) {  // (2) a round of unions, then its sites' finds
+    const int l = it * T + threadIdx.x;
+    if (l < sites) {
+      const int32_t* fi = fwd + static_cast<size_t>(lo + l) * nb;
+      for (uint32_t s = St[l]; s; s &= s - 1u) {
+        const unsigned r = static_cast<unsigned>(__ldg(fi + __ffs(s) - 1) - lo);
+        if (r < static_cast<unsigned>(sites)) tile_unite(P, l, static_cast<int>(r));
+      }
+    }
+    __syncthreads();
+    if (l < sites) P[l] = tile_root(P, l);  // the round's finds
+    __syncthreads();
+  }
+  if (kForm != kCluster) {  // the graph's labels, or (kSlab) its slab roots as parents
+    for (int it = 0; it < rounds; ++it) {
+      const int l = it * T + threadIdx.x;
+      if (l >= sites) break;
+      int v = l;  // its root, read only
+      for (int p; (p = P[v]) != v;) v = p;
+      o[lo + l] = lo + v;
+    }
+    return;
+  }
+  // kCluster: every parent its slab root's site index, as ~root while the
+  // walks run (a walk that meets one has its root), then decoded
+  volatile int* V = P;
+  for (int it = 0; it < rounds; ++it) {
+    const int l = it * T + threadIdx.x;
+    if (l >= sites) break;
+    int v = l, root;
+    while (true) {
+      const int p = V[v];
+      if (p < 0) {
+        root = ~p;
+        break;
+      }
+      if (p == v) {
+        root = lo + v;
+        break;
+      }
+      v = p;
+    }
+    V[l] = ~root;
+  }
+  __syncthreads();
+  for (int it = 0; it < rounds; ++it) {
+    const int l = it * T + threadIdx.x;
+    if (l < sites) P[l] = ~P[l];
+  }
+  Slabs sl{cg::this_cluster(), P, static_cast<int>(blockIdx.x)};
+  sl.cluster.sync();  // every slab's parents are site indices
+  for (int it = 0; it < rounds; ++it) {  // (2b) the bonds between slabs; uniform
+    const int l = it * T + threadIdx.x;
+    const uint32_t s = l < sites ? static_cast<uint32_t>(St[l]) : 0u;
+    const int i = lo + l;
+    for (unsigned any = __reduce_or_sync(0xffffffffu, s); any; any &= any - 1u) {
+      const int d = __ffs(any) - 1;
+      bool cross = false;
+      int ri = 0, rj = 0;
+      if ((s >> d) & 1u) {
+        const int j = __ldg(fwd + static_cast<size_t>(i) * nb + d);
+        if (static_cast<unsigned>(j - lo) >= static_cast<unsigned>(sites)) {
+          ri = slab_root(sl, g, i);
+          rj = slab_root(sl, g, j);
+          cross = ri != rj;
+        }
+      }
+      if (lead_pair(cross, ri, rj, lane)) slab_unite(sl, g, ri, rj);
+    }
+  }
+  sl.cluster.sync();  // every union done
+  for (int it = 0; it < rounds; ++it) {
+    const int l = it * T + threadIdx.x;
+    if (l >= sites) break;
+    int v = lo + l;  // its root, read only
+    for (int p; (p = *slab_slot(sl, g, v)) != v;) v = p;
+    o[lo + l] = v;
+  }
+  sl.cluster.sync();  // no CTA leaves while another reads its shared memory
+}
+
+// The slab form's bonds that leave their slab, united in global memory
+// (uf.cuh unite) as pairs of the two ends' slab roots, which
+// cc_table_link wrote: a thread a site.
+__global__ void __launch_bounds__(kThreads)
+cc_table_border_kernel(const uint32_t* __restrict__ state, int32_t* parent,
+                       const int32_t* __restrict__ fwd, const CcTable g) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= g.n) return;
+  const size_t base = static_cast<size_t>(blockIdx.y) * g.n;
+  int32_t* P = parent + base;
+  uint32_t s = state[base + i] & (g.nb == 32 ? 0xffffffffu : (1u << g.nb) - 1u);
+  if (!s) return;
+  const int q = slab_of(g, i);
+  const int32_t* fi = fwd + static_cast<size_t>(i) * g.nb;
+  for (; s; s &= s - 1u) {
+    const int j = __ldg(fi + __ffs(s) - 1);
+    if (slab_of(g, j) != q) unite(P, __ldcg(P + i), __ldcg(P + j));
+  }
+}
+
+using TableKernel = void (*)(const uint32_t*, int32_t*, const int32_t*, const CcTable, int);
+
+template <typename S>
+TableKernel table_kernel(int form) {
+  return form == kOne ? cc_table_link_kernel<S, kOne>
+                      : form == kCluster ? cc_table_link_kernel<S, kCluster>
+                                         : cc_table_link_kernel<S, kSlab>;
+}
+
+bool table_ok(const CcTable& g, int n_graphs) {
+  if (n_graphs < 1 || n_graphs > 65535 || g.n < 1 || g.n > (1 << 30) || g.nb < 1 ||
+      g.nb > 32 || g.C < 1 || g.C > kCcMaxCluster || g.bs < 1 || g.threads < 32 ||
+      g.threads > kTableThreads || g.threads % 32 || table_smem(g) > kTableSmem)
+    return false;
+  const long long cover = static_cast<long long>(g.C) * g.bs;
+  // the whole-graph forms: C slabs cover the graph; the slab form: no cluster
+  return g.slabs ? g.C == 1 && g.bs < g.n : cover >= g.n && cover - g.bs < g.n;
 }
 
 bool walk_ok(const CcWalk& g, int n_graphs) {
@@ -639,25 +846,66 @@ int peapods_cc_link_border(const void* state, void* parent, const int* words, in
   return static_cast<int>(cudaGetLastError());
 }
 
-// The table form's two launches (fk.cu's fk_link_flatten completes them):
-// state int32 [n_graphs, n], bit d the bond along offset d (nb <= 32);
-// parent int32 [n_graphs, n]; fwd int32 [n, nb] (device memory).
-int peapods_cc_table_init(void* parent, int n, int n_graphs, void* stream) {
-  if (n_graphs < 1 || n_graphs > 65535 || n < 1 || n > (1 << 30))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cc_table_init_kernel<<<dim3((n + kThreads - 1) / kThreads, n_graphs), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(static_cast<int32_t*>(parent), n);
-  return static_cast<int>(cudaGetLastError());
+// The table form: state int32 [n_graphs, n], bit d the bond along offset d
+// (nb <= 32); out int32 [n_graphs, n], every entry written: the labels,
+// or on the slab form (words[6]) each site's slab root, which
+// peapods_cc_table_border and fk.cu's fk_link_flatten complete; fwd int32
+// [n, nb] (device memory); words: ops/cc.py table_link_words (host memory).
+int peapods_cc_table_link(const void* state, void* out, const void* fwd, const int* words,
+                          int n_graphs, void* stream) {
+  const CcTable g = make_cc_table(words);
+  if (!table_ok(g, n_graphs)) return static_cast<int>(cudaErrorInvalidValue);
+  const int form = g.slabs ? kSlab : g.C > 1 ? kCluster : kOne;
+  const int sb = table_state_bytes(g.nb);
+  const TableKernel kernel = sb == 1   ? table_kernel<uint8_t>(form)
+                             : sb == 2 ? table_kernel<uint16_t>(form)
+                                       : table_kernel<uint32_t>(form);
+  // above 48 KB of dynamic shared memory a kernel must opt in, once
+  static bool allowed[3][3] = {};
+  bool& ok = allowed[sb >> 1][form];
+  if (!ok) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kTableSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ok = true;
+  }
+  const int smem = static_cast<int>(table_smem(g));
+  const int rounds = (g.bs + g.threads - 1) / g.threads;
+  const auto st = static_cast<const uint32_t*>(state);
+  const auto o = static_cast<int32_t*>(out);
+  const auto f = static_cast<const int32_t*>(fwd);
+  const int blocks = g.slabs ? (g.n + g.bs - 1) / g.bs : g.C;
+  if (form != kCluster) {
+    kernel<<<dim3(blocks, n_graphs), g.threads, smem, static_cast<cudaStream_t>(stream)>>>(
+        st, o, f, g, rounds);
+    return static_cast<int>(cudaGetLastError());
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(g.C, n_graphs, 1);
+  cfg.blockDim = dim3(g.threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = g.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, st, o, f, g, rounds);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
-int peapods_cc_table_link(const void* state, void* parent, const void* fwd, int n, int nb,
-                          int n_graphs, void* stream) {
-  if (n_graphs < 1 || n_graphs > 65535 || nb < 1 || nb > 32 || n < 1 || n > (1 << 30))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cc_table_link_kernel<<<dim3((n + kThreads - 1) / kThreads, n_graphs), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+// The slab form's bonds between slabs, on the parents peapods_cc_table_link
+// wrote (same words).
+int peapods_cc_table_border(const void* state, void* parent, const void* fwd, const int* words,
+                            int n_graphs, void* stream) {
+  const CcTable g = make_cc_table(words);
+  if (!table_ok(g, n_graphs) || !g.slabs) return static_cast<int>(cudaErrorInvalidValue);
+  cc_table_border_kernel<<<dim3((g.n + kThreads - 1) / kThreads, n_graphs), kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(state), static_cast<int32_t*>(parent),
-      static_cast<const int32_t*>(fwd), n, nb);
+      static_cast<const int32_t*>(fwd), g);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -100,6 +100,28 @@
 // group's own spins as one 4-byte load, and float products in place of the
 // sign flips were each within 5% (the launch's chain, not its thread count
 // or its instructions, is the time).
+//
+// The table form of sweep_nb (sweep_nb_table) replaces the same TPU kernels
+// on the lattices past three dimensions or six offsets, sweep_gen above all
+// (pallas_sweep_diag.py:540).  What bounds it: a pass reads every spin, its
+// colour's sites' rows of the two int32 tables and both couplings, and
+// writes its colour's spins: at the 4D +-J glass (16 realizations x 24
+// systems of 10^4 sites, 4 offsets, 2 colours) about 8.5 MB, 0.0025 ms.
+// The first design (a thread a group of four sites of one system, so every
+// system read the tables and couplings again, 24 systems sharing each
+// realization's couplings and all 384 the tables; a runtime loop over the
+// offsets, each index load waiting for the last spin load; the group's
+// sites of other colours idle) took about 0.090 ms a pass there, 0.0233 ms
+// at 16^4 x 16 and 0.0092 ms at 16^3 with 13 offsets x 8 (NVIDIA H100 80GB
+// HBM3, 700 W; chip_smoke.py phases 36 and 38).  This one takes a site of
+// the pass's colour from the lattice's per-colour list (no idle thread; a
+// Philox block a site and system, where the first design's group shared
+// one between its sites of the colour) for up to eight systems of one
+// realization, reads the site's table rows and couplings once for them,
+// issues every load of a step of offsets before the adds (all of them at
+// the unrolled counts 4, 5, 6, 9, 13), and shrinks its CTAs while a launch
+// would hold fewer CTAs than the card has SMs (ops/sweep.py
+// table_sweep_plan).
 
 #include <cuda_runtime.h>
 
@@ -367,72 +389,115 @@ measure_nb_kernel(const int8_t* __restrict__ spins, const float* __restrict__ co
 }
 
 // The table form of sweep_nb (4D and up, or 7 to 32 offsets): one colour
-// pass of sites 4g .. 4g+3 (thread g) of system blockIdx.y of realization
-// blockIdx.z, with the walk form's Philox block (counter (system, colour,
-// g, 0), site i word i % 4) and rules, so a lattice that both forms take
-// gives the same spins.  The neighbours come from the int32 tables fwd /
-// bwd [n, n_nb] (ops/lattice.Lattice.device_tables); the field adds, for
-// each offset d in order, s[fwd[i, d]] J[i, d] and then s[bwd[i, d]]
-// J[bwd[i, d], d], from 0, the offsets of self_mask left out.  A first
-// design: a runtime loop over the offsets, each load in turn.
+// pass.  Thread t takes site i = sites[t], the t-th site of the pass's
+// colour (ops/lattice.Lattice.colour_sites: the sites sorted by colour,
+// made once a lattice and kept on the device, so that no thread holds no
+// site of the colour), of systems blockIdx.y per .. + per - 1 of
+// realization blockIdx.z (ops/sweep.py table_sweep_plan).  It reads site
+// i's rows of the int32 tables fwd / bwd [n, n_nb] and both couplings of
+// each offset (J[i, d] and J[bwd[i, d], d]) once for its systems, every
+// index and coupling load of a step of offsets issued before the spin
+// loads that need them, and accumulates each system's field in a register,
+// offsets outermost so that each field adds, for each offset d in order,
+// s[fwd[i, d]] J[i, d] and then s[bwd[i, d]] J[bwd[i, d], d], from 0, the
+// offsets of self_mask left out.  Per system the walk form's Philox block
+// (counter (system, colour, i / 4, 0), word i % 4) and rules, so a lattice
+// that both forms take gives the same spins.  NB: the offsets, unrolled
+// (the common counts), or 0: a runtime count in steps of four.
+constexpr int kTablePer = 8;  // systems a thread of sweep_nb_table at most
+
+// The field terms of offsets d0 .. d0 + K - 1 below nb and outside
+// self_mask, for systems 0 .. per - 1 of s0 (n sites apart).
+template <int K>
+__device__ __forceinline__ void table_terms(float (&h)[kTablePer], const int8_t* s0, size_t n,
+                                            int per, const int32_t* __restrict__ fi,
+                                            const int32_t* __restrict__ bi,
+                                            const float* __restrict__ J, int i, int nb, int d0,
+                                            uint32_t self_mask) {
+  int f[K], b[K];
+  float jf[K], jb[K];
+  bool on[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int d = d0 + k;
+    on[k] = d < nb && !((self_mask >> d) & 1u);
+    f[k] = on[k] ? __ldg(fi + d) : 0;
+    b[k] = on[k] ? __ldg(bi + d) : 0;
+    jf[k] = on[k] ? __ldg(J + static_cast<size_t>(i) * nb + d) : 0.0f;
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+    jb[k] = on[k] ? __ldg(J + static_cast<size_t>(b[k]) * nb + d0 + k) : 0.0f;
+#pragma unroll
+  for (int q = 0; q < kTablePer; ++q) {
+    if (q >= per) break;
+    const int8_t* s = s0 + q * n;
+    int8_t sf[K], sb[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      sf[k] = on[k] ? s[f[k]] : int8_t{0};
+      sb[k] = on[k] ? s[b[k]] : int8_t{0};
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (!on[k]) continue;
+      h[q] = h[q] + static_cast<float>(sf[k]) * jf[k];
+      h[q] = h[q] + static_cast<float>(sb[k]) * jb[k];
+    }
+  }
+}
+
+template <int NB>
 __global__ void __launch_bounds__(kThreads)
 sweep_nb_table_kernel(int8_t* __restrict__ spins, const float* __restrict__ coup,
-                      const uint8_t* __restrict__ colours, const float* __restrict__ sys_temps,
-                      const int32_t* __restrict__ words, const int32_t* __restrict__ fwd,
-                      const int32_t* __restrict__ bwd, int n, int nb, uint32_t self_mask,
-                      int n_systems, int colour, int gibbs) {
-  const int g = blockIdx.x * kThreads + threadIdx.x;
-  const int i0 = kSitesPerThread * g;
-  if (i0 >= n) return;
-  unsigned act = 0;
-#pragma unroll
-  for (int k = 0; k < kSitesPerThread; ++k)
-    act |= static_cast<unsigned>(i0 + k < n && __ldg(colours + i0 + k) == colour) << k;
-  if (!act) return;
+                      const int32_t* __restrict__ sites, int count,
+                      const float* __restrict__ sys_temps, const int32_t* __restrict__ words,
+                      const int32_t* __restrict__ fwd, const int32_t* __restrict__ bwd, int n,
+                      int nb, uint32_t self_mask, int n_systems, int per, int colour, int gibbs) {
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  if (t >= count) return;
+  const int i = __ldg(sites + t);
   const int dz = blockIdx.z;
-  const int sys = blockIdx.y;
-  const size_t row = static_cast<size_t>(dz) * n_systems + sys;
-  int8_t* s = spins + row * n;
+  const int sys0 = blockIdx.y * per;
+  int8_t* s0 = spins + (static_cast<size_t>(dz) * n_systems + sys0) * n;
   const float* J = coup + static_cast<size_t>(dz) * n * nb;
-  const float T = sys_temps[row];
-  const float half_t = T * 0.5f;
-  const float inv_half_t = 1.0f / (T * 0.5f);
-  const uint4 r4 =
-      philox4x32_10(static_cast<uint32_t>(words[2 * dz]), static_cast<uint32_t>(words[2 * dz + 1]),
-                    static_cast<uint32_t>(sys), static_cast<uint32_t>(colour),
-                    static_cast<uint32_t>(g), 0u);
-  const uint32_t w4[4] = {r4.x, r4.y, r4.z, r4.w};
-  unsigned flips = 0;
-  float sv[kSitesPerThread];
+  const int32_t* fi = fwd + static_cast<size_t>(i) * nb;
+  const int32_t* bi = bwd + static_cast<size_t>(i) * nb;
+  float h[kTablePer];
 #pragma unroll
-  for (int k = 0; k < kSitesPerThread; ++k) {
-    sv[k] = 0.0f;
-    if (!((act >> k) & 1u)) continue;
-    const int i = i0 + k;
-    const int32_t* fi = fwd + static_cast<size_t>(i) * nb;
-    const int32_t* bi = bwd + static_cast<size_t>(i) * nb;
-    float field = 0.0f;
-    for (int d = 0; d < nb; ++d) {
-      if ((self_mask >> d) & 1u) continue;
-      const int f = __ldg(fi + d);
-      const int b = __ldg(bi + d);
-      field = field + static_cast<float>(s[f]) * __ldg(J + static_cast<size_t>(i) * nb + d);
-      field = field + static_cast<float>(s[b]) * __ldg(J + static_cast<size_t>(b) * nb + d);
-    }
-    sv[k] = static_cast<float>(s[i]);
-    const float eng = -sv[k] * field;
-    const float u = uniform24(w4[k]);
+  for (int q = 0; q < kTablePer; ++q) h[q] = 0.0f;
+  if constexpr (NB > 0) {
+    table_terms<NB>(h, s0, n, per, fi, bi, J, i, NB, 0, self_mask);
+  } else {
+    for (int d0 = 0; d0 < nb; d0 += 4)
+      table_terms<4>(h, s0, n, per, fi, bi, J, i, nb, d0, self_mask);
+  }
+  const uint32_t k0 = static_cast<uint32_t>(words[2 * dz]);
+  const uint32_t k1 = static_cast<uint32_t>(words[2 * dz + 1]);
+  const int w = i & 3;
+#pragma unroll
+  for (int q = 0; q < kTablePer; ++q) {
+    if (q >= per) break;
+    const int sys = sys0 + q;
+    const float T = sys_temps[static_cast<size_t>(dz) * n_systems + sys];
+    const float half_t = T * 0.5f;
+    const float inv_half_t = 1.0f / (T * 0.5f);
+    const uint4 r4 =
+        philox4x32_10(k0, k1, static_cast<uint32_t>(sys), static_cast<uint32_t>(colour),
+                      static_cast<uint32_t>(i >> 2), 0u);
+    const uint32_t word = w == 0 ? r4.x : w == 1 ? r4.y : w == 2 ? r4.z : r4.w;
+    int8_t* s = s0 + static_cast<size_t>(q) * n;
+    const float sv = static_cast<float>(s[i]);
+    const float eng = -sv * h[q];
+    const float u = uniform24(word);
     bool flip;
     if (gibbs) {
       flip = eng >= half_t * logf(u / (1.0f - u));
     } else {
       flip = u < kKeep * expf(fminf(eng * inv_half_t, 0.0f));
     }
-    flips |= static_cast<unsigned>(flip) << k;
+    if (flip) s[i] = static_cast<int8_t>(-sv);
   }
-#pragma unroll
-  for (int k = 0; k < kSitesPerThread; ++k)
-    if ((flips >> k) & 1u) s[i0 + k] = static_cast<int8_t>(-sv[k]);
 }
 
 // The table form of measure_nb: the (e, m) partials of block blockIdx.x
@@ -581,23 +646,38 @@ int peapods_measure_nb(const void* spins, const void* coup, const int* walk, voi
 
 // The table form (ops/lattice.Lattice.table).  One colour pass of every
 // (realization, system): spins int8 [d, n_systems, n]; coup f32 [d, n,
-// n_nb]; colours uint8 [n]; sys_temps f32 [d, n_systems]; words int32 [d,
+// n_nb]; sites int32 [n], the sites sorted by colour, the pass's colour's
+// count of them from start; sys_temps f32 [d, n_systems]; words int32 [d,
 // 2]; fwd, bwd int32 [n, n_nb] (device memory); self_mask: bit d for a self
-// offset d.
-int peapods_sweep_nb_table(void* spins, const void* coup, const void* colours,
+// offset d; per: the systems a thread (a divisor of n_systems, at most
+// kTablePer); threads: a CTA's (32 to kThreads, a multiple of 32).
+int peapods_sweep_nb_table(void* spins, const void* coup, const void* sites,
                            const void* sys_temps, const void* words, const void* fwd,
                            const void* bwd, int n, int nb, int self_mask, int n_disorder,
-                           int n_systems, int colour, int gibbs, void* stream) {
-  if (n_disorder < 1 || n_disorder > 65535 || n_systems < 1 || n_systems > 65535 || nb < 1 ||
-      nb > kMaxTableOffsets || n < 1 || n > (1 << 30))
+                           int n_systems, int colour, int start, int count, int gibbs, int per,
+                           int threads, void* stream) {
+  if (n_disorder < 1 || n_disorder > 65535 || n_systems < 1 || per < 1 || per > kTablePer ||
+      n_systems % per || n_systems / per > 65535 || nb < 1 || nb > kMaxTableOffsets || n < 1 ||
+      n > (1 << 30) || start < 0 || count < 1 || start + count > n || threads < 32 ||
+      threads > kThreads || threads % 32)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(peapods_nb_blocks(n), n_systems, n_disorder);
-  sweep_nb_table_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int8_t*>(spins), static_cast<const float*>(coup),
-      static_cast<const uint8_t*>(colours), static_cast<const float*>(sys_temps),
-      static_cast<const int32_t*>(words), static_cast<const int32_t*>(fwd),
-      static_cast<const int32_t*>(bwd), n, nb, static_cast<uint32_t>(self_mask), n_systems,
-      colour, gibbs);
+  const dim3 grid((count + threads - 1) / threads, n_systems / per, n_disorder);
+  auto go = [&](auto kernel) {
+    kernel<<<grid, threads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<int8_t*>(spins), static_cast<const float*>(coup),
+        static_cast<const int32_t*>(sites) + start, count, static_cast<const float*>(sys_temps),
+        static_cast<const int32_t*>(words), static_cast<const int32_t*>(fwd),
+        static_cast<const int32_t*>(bwd), n, nb, static_cast<uint32_t>(self_mask), n_systems,
+        per, colour, gibbs);
+  };
+  switch (nb) {
+    case 4: go(sweep_nb_table_kernel<4>); break;
+    case 5: go(sweep_nb_table_kernel<5>); break;
+    case 6: go(sweep_nb_table_kernel<6>); break;
+    case 9: go(sweep_nb_table_kernel<9>); break;
+    case 13: go(sweep_nb_table_kernel<13>); break;
+    default: go(sweep_nb_table_kernel<0>); break;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

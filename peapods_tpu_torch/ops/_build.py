@@ -77,11 +77,11 @@ _SIGNATURES = {
     "peapods_nb_blocks": [_I],
     "peapods_sweep_nb": [_P] * 6 + [_I] * 5 + [_P],
     "peapods_measure_nb": [_P] * 5 + [_I] * 3 + [_P],
-    "peapods_sweep_nb_table": [_P] * 7 + [_I] * 7 + [_P],
+    "peapods_sweep_nb_table": [_P] * 7 + [_I] * 11 + [_P],
     "peapods_measure_nb_table": [_P] * 5 + [_I] * 4 + [_P],
     "peapods_fk_bonds_table": [_P] * 6 + [_I] * 4 + [_P],
-    "peapods_cc_table_init": [_P] + [_I] * 2 + [_P],
-    "peapods_cc_table_link": [_P] * 3 + [_I] * 3 + [_P],
+    "peapods_cc_table_link": [_P] * 4 + [_I] + [_P],
+    "peapods_cc_table_border": [_P] * 4 + [_I] + [_P],
     "peapods_halo_blocks": [_P, _I],
     "peapods_sweep_halo": [_P] * 9 + [_I] * 5 + [_P],
     "peapods_measure_halo": [_P] * 5 + [_I] * 2 + [_P],

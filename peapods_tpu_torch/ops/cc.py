@@ -18,7 +18,12 @@ form from the shape alone: a graph of at most :data:`LINK_TILE_SITES`
 sites is one box, labelled by one ``cc_link`` launch (a cluster of CTAs a
 graph where the batch is small); a larger one is cut into
 ``fk.link_plan``'s tiles, and ``cc_link_border`` and
-``fk.launch_flatten`` complete it.
+``fk.launch_flatten`` complete it.  On a table lattice (4D and up, or 7
+to 32 offsets) :func:`table_link_plan` picks the table form's: a graph's
+union-find in one CTA's shared memory, or over a cluster of up to
+:data:`LINK_MAX_CLUSTER` CTAs, in one ``cc_table_link`` launch; past one
+cluster's shared memory, slabs of one CTA each, completed by
+``cc_table_border`` and ``fk.launch_flatten`` (:func:`table_link_launches`).
 """
 
 from __future__ import annotations
@@ -34,12 +39,13 @@ from . import _build
 from .cluster import connected_components
 from .lattice import MAX_OFFSETS, check_tables, fast_divisor
 
-__all__ = ["LAUNCHES", "LinkPlan", "cc_labels", "cc_labels_plain", "launch",
-           "link_launches", "link_plan", "link_words", "pack_masks"]
+__all__ = ["LAUNCHES", "LinkPlan", "TableLinkPlan", "cc_labels", "cc_labels_plain", "launch",
+           "link_launches", "link_plan", "link_words", "pack_masks", "table_link_launches",
+           "table_link_plan", "table_link_words"]
 
-# kernel launches since the last reset, by kernel name (the tiled form's
+# kernel launches since the last reset, by kernel name (the tiled forms'
 # flatten is fk.cu's fk_link_flatten, counted in fk.LAUNCHES)
-LAUNCHES = {"cc_link": 0, "cc_link_border": 0, "cc_table_init": 0, "cc_table_link": 0}
+LAUNCHES = {"cc_link": 0, "cc_link_border": 0, "cc_table_link": 0, "cc_table_border": 0}
 
 # csrc/cc.cu kCcSites, kCcThreads, kCcMaxCluster: a box of at most
 # LINK_TILE_SITES sites in a CTA's shared memory, a CTA of at most
@@ -104,6 +110,83 @@ def link_launches(shape, n_graphs: int) -> dict:
     return dict.fromkeys(names, 1)
 
 
+# csrc/cc.cu kTableSmem: the dynamic shared memory a table-form CTA takes at
+# most (the H100's 227 KB a block); a graph spreads over more CTAs than its
+# shared memory needs only while their slabs keep TABLE_MIN_SLAB sites
+# (tools/probe_colour_cc.py, NVIDIA H100 80GB HBM3: 16^3 with 13 offsets x
+# 8 graphs 0.0327 ms a labelling in one CTA a graph, 0.0475 over 2, 0.0358
+# over 4; 16^4 x 16 over 8 CTAs 0.125, over 4 0.160)
+TABLE_SMEM = 232448
+TABLE_MIN_SLAB = 4096
+
+
+class TableLinkPlan(NamedTuple):
+    """How the table form cuts a graph of ``n`` sites: slabs of ``slab``
+    consecutive sites, a CTA each, of ``threads`` threads; ``cluster``
+    CTAs a graph (a thread-block cluster when more than 1), or, where
+    ``slabs``, as many one-CTA slabs as the graph needs, completed by
+    ``cc_table_border`` and ``fk_link_flatten``; ``smem`` the bytes of
+    shared memory a CTA takes."""
+
+    cluster: int
+    slab: int
+    threads: int
+    slabs: bool
+    smem: int
+
+
+def table_state_bytes(n_neighbors: int) -> int:
+    """Bytes of a site's state bits in a table-form CTA's shared memory."""
+    return 1 if n_neighbors <= 8 else 2 if n_neighbors <= 16 else 4
+
+
+@functools.lru_cache(maxsize=None)
+def table_link_plan(n: int, n_neighbors: int, n_graphs: int) -> TableLinkPlan:
+    """The table form's plan for ``n_graphs`` graphs of ``n`` sites and
+    ``n_neighbors`` offsets, from the shape alone: the whole graph over the
+    fewest CTAs (a power of two up to :data:`LINK_MAX_CLUSTER`) whose
+    slabs fit one CTA's shared memory (:data:`TABLE_SMEM`, 4 bytes of
+    parent and :func:`table_state_bytes` a site), doubled while slabs keep
+    :data:`TABLE_MIN_SLAB` sites and the launch holds at most
+    :data:`LINK_CLUSTER_CTAS` CTAs; past eight such slabs, as many
+    balanced slabs as fit.  A CTA takes a thread a site up to
+    :data:`LINK_THREADS` (fewer threads, more rounds, were slower at every
+    shape the probe timed)."""
+    n, nb, b = int(n), int(n_neighbors), int(n_graphs)
+    per_site = 4 + table_state_bytes(nb)
+    cap = TABLE_SMEM // per_site
+    if n <= LINK_MAX_CLUSTER * cap:
+        c = 1
+        while -(-n // c) > cap:
+            c *= 2
+        while (c < LINK_MAX_CLUSTER and n // (2 * c) >= TABLE_MIN_SLAB
+               and b * 2 * c <= LINK_CLUSTER_CTAS):
+            c *= 2
+        slab, slabs = -(-n // c), False
+    else:
+        slab, slabs, c = -(-n // -(-n // cap)), True, 1
+    return TableLinkPlan(c, slab, _threads(slab), slabs, slab * per_site)
+
+
+def table_link_launches(n: int, n_neighbors: int, n_graphs: int) -> dict:
+    """The launches of one table-form labelling, by kernel name."""
+    names = (("cc_table_link", "cc_table_border", "fk_link_flatten")
+             if table_link_plan(n, n_neighbors, n_graphs).slabs else ("cc_table_link",))
+    return dict.fromkeys(names, 1)
+
+
+def table_link_words(lattice, n_graphs: int) -> np.ndarray:
+    """int32 host words of ``csrc/cc.cu``'s table form (``make_cc_table``):
+    the sites, the offsets, the plan's CTAs a graph, a slab's sites,
+    :func:`~.lattice.fast_divisor` ``(m, s)`` of the slab, whether the
+    slabs split the graph, and a CTA's threads."""
+    n, nb = lattice.n_spins, lattice.n_neighbors
+    plan = table_link_plan(n, nb, n_graphs)
+    m, s = fast_divisor(plan.slab)
+    return np.asarray([n, nb, plan.cluster, plan.slab, m, s, int(plan.slabs), plan.threads],
+                      np.int64).astype(np.uint32).view(np.int32)
+
+
 def fast_offset(offsets, n_dims: int) -> int:
     """The index of the offset that is the fast axis' unit step (``[0, 1]``
     in 2D, ``[0, 0, 1]`` in 3D), whose runs ``cc_link`` hangs with a ballot,
@@ -163,22 +246,25 @@ def launch(lib, stream, p_state, p_labels, lattice, n_graphs, tables=None):
     (int32 ``[n_graphs, n]``).  ``cc_link``, and where :func:`link_plan`
     cuts a graph into boxes ``cc_link_border`` and ``fk_link_flatten`` on
     the labels as parents.  On a table lattice (:attr:`~.lattice.Lattice.
-    table`) the state is an int32 word a site, and the table form labels it:
-    ``cc_table_init``, ``cc_table_link`` (a union-find in global memory over
-    the table's bonds) and ``fk_link_flatten``, reading the forward table
-    of the checked device ``tables``."""
+    table`) the state is an int32 word a site, and the table form labels it
+    (:func:`table_link_plan`): ``cc_table_link`` (a graph's union-find in
+    shared memory, over a cluster of CTAs where the plan says so) and,
+    where slabs split a graph, ``cc_table_border`` and ``fk_link_flatten``,
+    reading the forward table of the checked device ``tables``."""
     from . import fk
 
     if lattice.table:
         n = lattice.n_spins
-        fwd, _ = tables
-        _build.check(lib.peapods_cc_table_init(p_labels, n, n_graphs, stream),
-                     "cc_table_init")
-        LAUNCHES["cc_table_init"] += 1
-        _build.check(lib.peapods_cc_table_link(p_state, p_labels, fwd.data_ptr(), n,
-                                               lattice.n_neighbors, n_graphs, stream),
-                     "cc_table_link")
+        fwd = tables[0].data_ptr()
+        words = table_link_words(lattice, n_graphs)
+        _build.check(lib.peapods_cc_table_link(p_state, p_labels, fwd, words.ctypes.data,
+                                               n_graphs, stream), "cc_table_link")
         LAUNCHES["cc_table_link"] += 1
+        if not words[6]:
+            return
+        _build.check(lib.peapods_cc_table_border(p_state, p_labels, fwd, words.ctypes.data,
+                                                 n_graphs, stream), "cc_table_border")
+        LAUNCHES["cc_table_border"] += 1
         fk.launch_flatten(lib, stream, p_labels, n_graphs, n)
         return
     dims = _build.dims3(lattice.kernel_shape)

@@ -703,8 +703,10 @@ def fk_staged(spins, j_fwd, temps, scalars, kb_words, lattice, *, wolff,
     ``cc_link_border`` and ``fk_link_flatten``) and, to update,
     ``fk_finish`` reading the roots from those labels.  A table lattice
     (:attr:`~.lattice.Lattice.table`) takes the table forms: the bonds in an
-    int32 word a site (``fk_bonds_table``), the labelling ``cc_table_init``,
-    ``cc_table_link``, ``fk_link_flatten``, and ``fk_finish`` on the graphs
+    int32 word a site (``fk_bonds_table``), the table labelling
+    (``cc.table_link_launches``: ``cc_table_link``, and past one cluster's
+    shared memory ``cc_table_border`` and ``fk_link_flatten``), and
+    ``fk_finish`` on the graphs
     seen as ``[B, 1, n]`` (its words hold three extents; it measures
     nothing here), reading the neighbours from the device ``tables``
     (:func:`~.lattice.check_tables`).  Nothing is measured: the caller

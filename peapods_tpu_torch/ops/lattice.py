@@ -238,6 +238,25 @@ class Lattice:
         words = np.concatenate([geometry, [L0, 0, 0, L0], walk_tail(geometry)])
         return words.astype(np.uint32).view(np.int32)
 
+    @cached_property
+    def colour_sites(self) -> tuple:
+        """``(sites, starts)``: int32 ``[n_spins]``, every site sorted by
+        colour (index order within a colour), and ``[n_colors + 1]`` the
+        first entry of each colour's run: ``sweep_nb_table``'s per-colour
+        lists (a thread a site of the pass's colour)."""
+        sites = np.argsort(self.colors, kind="stable").astype(np.int32)
+        starts = np.searchsorted(self.colors[sites], np.arange(self.n_colors + 1))
+        return sites, starts.astype(np.int64)
+
+    def device_colour_sites(self, device):
+        """:attr:`colour_sites`' sites on ``device``, copied there once and
+        kept with the lattice."""
+        cache = self.__dict__.setdefault("_device_colour_sites", {})
+        key = str(torch.device(device))
+        if key not in cache:
+            cache[key] = torch.from_numpy(self.colour_sites[0]).to(device)
+        return cache[key]
+
     def device_tables(self, device):
         """int32 ``(fwd, bwd)`` ``[n_spins, n_neighbors]`` copied to
         ``device``: the table form's neighbours, which its wrappers take as

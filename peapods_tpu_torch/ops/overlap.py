@@ -596,7 +596,7 @@ def link_graphs(lib, stream, p_state, p_labels, n_graphs, shape, lattice=None,
     square, cubic (``lattice`` ``None``: the axes of ``shape``) and
     triangular lattices with even extents, ``cc_link`` (``cc.launch``) on
     the others; on a table lattice (int32 state words) the staged FK
-    path's ``cc_table_init``, ``cc_table_link`` and ``fk_link_flatten``
+    path's table labelling (``cc_table_link``, ``cc.table_link_launches``)
     on the device ``tables``."""
     if lattice is not None and lattice.table:
         cc.launch(lib, stream, p_state, p_labels, lattice, n_graphs, tables)
@@ -719,7 +719,7 @@ def launch_event_table(lib, stream, dims, p_spins, p_sid, p_tasks, p_coup, p_tem
     Lattice.table`), its neighbours read from ``tables`` (its device
     ``(fwd, bwd)``): the same launches in their table form, ``*_table``,
     each bond graph an int32 word a site labelled by :func:`link_graphs`
-    (``cc_table_init``, ``cc_table_link``, ``fk_link_flatten``), CMR's blue
+    (``cc_table_link``, ``cc.table_link_launches``), CMR's blue
     flip a byte a site in the scratch's ``flip``.  ``dims`` is ``(n_tasks,
     n, 1, 1, T, G, S)`` (:func:`check_event`)."""
     n_tasks, _, _, _, n_temps, n_groups, n_slots = dims

@@ -45,6 +45,9 @@ On CUDA tensors it launches ``csrc/sweep_nb.cu`` once per colour.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from . import _build, rng
@@ -65,6 +68,7 @@ __all__ = [
     "sweep_2d_plain",
     "sweep_2d_partials",
     "systems_per",
+    "table_sweep_plan",
     "nb_local_fields",
     "mc_sweep",
     "sweep_nb",
@@ -266,6 +270,44 @@ def _per(spins, n_groups, d, n_sys):
     return systems_per(n_groups, d, n_sys, resident_threads(spins.device.index) // 2)
 
 
+class TablePlan(NamedTuple):
+    """``sweep_nb_table``'s launch of one colour: the systems a thread
+    (``per``) and a CTA's threads."""
+
+    per: int
+    threads: int
+
+
+# csrc/mega.cuh kThreads: the most threads a sweep_nb_table CTA takes
+TABLE_THREADS = 256
+
+
+@functools.lru_cache(maxsize=None)
+def table_sweep_plan(count: int, n_disorder: int, n_systems: int, threads: int,
+                     sms: int) -> TablePlan:
+    """The table form's colour pass over ``count`` sites of the colour of
+    ``n_disorder`` x ``n_systems`` systems, from the shape alone: a thread a
+    site of :func:`systems_per` systems of one realization (``threads``: a
+    quarter of the card's resident threads), CTAs of :data:`TABLE_THREADS`
+    threads, halved down to a warp while the launch would hold fewer CTAs
+    than the card's ``sms``.  (tools/probe_sweep.py, NVIDIA H100 80GB HBM3:
+    16^4 x 16 0.0139, 0.0100, 0.0087, 0.0089 ms a pass at 1, 2, 4, 8
+    systems a thread; 16^3 with 9 offsets x 384 0.0257, 0.0174, 0.0136,
+    0.0129 at 1, 2, 4, 8; where a launch cannot fill the card, one.)"""
+    per = systems_per(count, n_disorder, n_systems, threads)
+    rows = int(n_disorder) * (int(n_systems) // per)
+    block = TABLE_THREADS
+    while block > 32 and -(-int(count) // block) * rows < sms:
+        block //= 2
+    return TablePlan(per, block)
+
+
+def _table_plan(spins, count, d, n_sys):
+    props = torch.cuda.get_device_properties(spins.device.index)
+    return table_sweep_plan(count, d, n_sys, resident_threads(spins.device.index) // 4,
+                            props.multi_processor_count)
+
+
 def launch_sweep_2d(lib, stream, spins, coup, sys_temps, words, colour, gibbs, parts=None,
                     per=None):
     """One ``sweep_2d`` launch (one colour) on checked CUDA tensors (not
@@ -383,15 +425,21 @@ def launch_sweep_nb(lib, stream, spins, coup_fwd, colours, sys_temps, words, lat
     """One ``sweep_nb`` launch (one colour) on checked CUDA tensors (not
     counted); ``per``: the systems a thread (default :func:`systems_per`'s).
     A table lattice (:attr:`~.lattice.Lattice.table`) takes the table form,
-    ``sweep_nb_table``, a system a thread, on its checked device
-    ``tables``."""
+    ``sweep_nb_table``, a thread a site of the colour's list
+    (:meth:`~.lattice.Lattice.device_colour_sites`), as
+    :func:`table_sweep_plan` says, on its checked device ``tables``."""
     d, n_sys, n = spins.shape
     if lattice.table:
         fwd, bwd = tables
+        starts = lattice.colour_sites[1]
+        start, count = int(starts[colour]), int(starts[colour + 1] - starts[colour])
+        plan = _table_plan(spins, count, d, n_sys)
         _build.check(lib.peapods_sweep_nb_table(
-            spins.data_ptr(), coup_fwd.data_ptr(), colours.data_ptr(), sys_temps.data_ptr(),
+            spins.data_ptr(), coup_fwd.data_ptr(),
+            lattice.device_colour_sites(spins.device).data_ptr(), sys_temps.data_ptr(),
             words.data_ptr(), fwd.data_ptr(), bwd.data_ptr(), n, lattice.n_neighbors,
-            lattice.self_mask, d, n_sys, colour, int(gibbs), stream), "sweep_nb_table")
+            lattice.self_mask, d, n_sys, colour, start, count, int(gibbs), per or plan.per,
+            plan.threads, stream), "sweep_nb_table")
         return
     per = per or _per(spins, -(-n // 4), d, n_sys)
     _build.check(lib.peapods_sweep_nb(

@@ -1976,8 +1976,8 @@ def test_fk_staged_kernels_match_plain(cuda, name, shape, geometry, d, n_sys, te
     torch.cuda.synchronize()
     assert {k: v for k, v in fk.LAUNCHES.items() if v} == {"fk_bonds_staged": 1,
                                                           "fk_finish": 1}
-    assert cc.LAUNCHES == {"cc_link": 1, "cc_link_border": 0, "cc_table_init": 0,
-                           "cc_table_link": 0}
+    assert cc.LAUNCHES == {"cc_link": 1, "cc_link_border": 0, "cc_table_link": 0,
+                           "cc_table_border": 0}
     assert torch.equal(mk, mp)
     assert torch.equal(lk, lp)
     assert torch.equal(a, p)
@@ -3357,9 +3357,9 @@ def test_measure_nb_tail_gauss_bitwise_block_plain(cuda, n):
                          ids=[s[0] for s in SHAPES_4A])
 def test_any_lattice_staged_fk_matches_plain(cuda, name, shape, geometry, d, n_sys, wolff):
     """The staged FK path on the new lattices (walk form: fk_bonds_staged and
-    cc_link; table form: fk_bonds_table, cc_table_init, cc_table_link,
-    fk_link_flatten), then fk_finish from the labels: masks, labels and
-    spins bitwise the plain staged path."""
+    cc_link; table form: fk_bonds_table and the table labelling,
+    ``cc.table_link_launches``), then fk_finish from the labels: masks,
+    labels and spins bitwise the plain staged path."""
     from peapods_tpu_torch.engine import seeds
     from peapods_tpu_torch.ops import cc
 
@@ -3376,10 +3376,12 @@ def test_any_lattice_staged_fk_matches_plain(cuda, name, shape, geometry, d, n_s
     lp, mp = fk.fk_staged_plain(p, *args, wolff=wolff)
     torch.cuda.synchronize()
     if lat.table:
+        links = cc.table_link_launches(lat.n_spins, lat.n_neighbors, d * n_sys)
         assert {k: v for k, v in fk.LAUNCHES.items() if v} == {
-            "fk_bonds_table": 1, "fk_link_flatten": 1, "fk_finish": 1}
-        assert {k: v for k, v in cc.LAUNCHES.items() if v} == {"cc_table_init": 1,
-                                                              "cc_table_link": 1}
+            "fk_bonds_table": 1, "fk_finish": 1,
+            **{k: v for k, v in links.items() if k.startswith("fk_")}}
+        assert {k: v for k, v in cc.LAUNCHES.items() if v} == {
+            k: v for k, v in links.items() if k.startswith("cc_")}
     else:
         assert fk.LAUNCHES["fk_bonds_staged"] == 1 and fk.LAUNCHES["fk_finish"] == 1
         assert cc.LAUNCHES["cc_link"] == 1
@@ -3539,9 +3541,9 @@ def _table_lattice(shape, offsets):
 def test_table_moves_match_plain(cuda, name, shape, offsets, couplings, offset, wolff, kind,
                                  g):
     """One move of every task on a table lattice through the table forms and
-    the table labelling (cc_table_init, cc_table_link, fk_link_flatten):
-    every member's spins and the labels (CMR: grey and blue) bitwise the
-    plain version's; no walk-form move kernel launched."""
+    the table labelling (``cc.table_link_launches``: one cc_table_link at
+    these shapes): every member's spins and the labels (CMR: grey and blue)
+    bitwise the plain version's; no walk-form move kernel launched."""
     from peapods_tpu_torch.ops import cc, overlap
 
     lat = _table_lattice(shape, offsets)
@@ -3556,9 +3558,8 @@ def test_table_moves_match_plain(cuda, name, shape, offsets, couplings, offset, 
     lp = overlap.overlap_event_plain(b, *args, **kw)
     torch.cuda.synchronize()
     links = 2 if kind == "cmr" else 1
-    assert {k: v for k, v in cc.LAUNCHES.items() if v} == {
-        "cc_table_init": links, "cc_table_link": links}
-    assert fk.LAUNCHES["fk_link_flatten"] == links
+    assert {k: v for k, v in cc.LAUNCHES.items() if v} == {"cc_table_link": links}
+    assert fk.LAUNCHES["fk_link_flatten"] == 0
     assert all(overlap.LAUNCHES[k] == 0 for k in WALK_MOVES)
     houd = kind == "houdayer"
     assert overlap.LAUNCHES["houdn_finish_table" if houd else "ov_finish_table"] == 1
@@ -3788,3 +3789,132 @@ def test_table_forms_refuse_without_tables(cuda):
                                     n_replicas=x["n_rep"], tables=None)
     assert torch.equal(a, x["spins"])
     assert not any(overlap.LAUNCHES.values())
+
+
+# The table form's labelling and colour pass (csrc/cc.cu cc_table_link /
+# cc_table_border, csrc/sweep_nb.cu sweep_nb_table) at the shapes of the
+# runs: (name, shape, offsets, graphs or (realizations, systems), bond
+# densities below and above percolation)
+TABLE_LINK = [
+    ("4d10x384", (10, 10, 10, 10), None, 384, (0.10, 0.30)),
+    ("4d10x8", (10, 10, 10, 10), None, 8, (0.10, 0.30)),
+    ("4d16x16", (16, 16, 16, 16), None, 16, (0.10, 0.30)),
+    ("5d6x8", (6, 6, 6, 6, 6), None, 8, (0.08, 0.25)),
+    ("4d9x4", (9, 9, 9, 9), None, 4, (0.10, 0.30)),
+    ("4d-self", (1, 3, 3, 3), None, 2, (0.2, 0.6)),
+    ("nine16x8", (16, 16, 16), NINE, 8, (0.05, 0.15)),
+    ("shells16x8", (16, 16, 16), SHELLS3, 8, (0.03, 0.12)),
+    ("off32x8", (8, 8), THIRTY_TWO, 8, (0.01, 0.06)),
+]
+
+
+def _table_link_run(cuda, lat, graphs, p, seed):
+    """Random bonds at density ``p`` through ``cc.cc_labels`` (the table
+    form) and the plain labels, with the launches counted."""
+    from peapods_tpu_torch.ops import cc
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    masks = torch.rand((graphs, lat.n_spins, lat.n_neighbors), device=cuda, generator=g) < p
+    for table in (fk.LAUNCHES, cc.LAUNCHES):
+        for k in table:
+            table[k] = 0
+    got = cc.cc_labels(masks, lat, tables=lat.device_tables(cuda))
+    want = cc.cc_labels_plain(masks, lat)
+    torch.cuda.synchronize()
+    counts = {k: v for t in (fk.LAUNCHES, cc.LAUNCHES) for k, v in t.items() if v}
+    return got, want, counts
+
+
+@pytest.mark.parametrize("dense", [False, True], ids=["below", "above"])
+@pytest.mark.parametrize("name,shape,offsets,graphs,ps", TABLE_LINK,
+                         ids=[x[0] for x in TABLE_LINK])
+def test_table_link_matches_plain(cuda, name, shape, offsets, graphs, ps, dense):
+    """The table labelling on its plan's form (one CTA a graph, or a cluster
+    of CTAs): labels bitwise ``cc_labels_plain``, one launch."""
+    from peapods_tpu_torch.ops import cc
+    from peapods_tpu_torch.ops.lattice import Lattice
+
+    lat = Lattice(shape, offsets)
+    got, want, counts = _table_link_run(cuda, lat, graphs, ps[dense], 91 + dense)
+    assert torch.equal(got, want)
+    assert counts == cc.table_link_launches(lat.n_spins, lat.n_neighbors, graphs)
+    assert counts == {"cc_table_link": 1}
+    assert (want != torch.arange(lat.n_spins, device=cuda)).any()
+
+
+@pytest.mark.parametrize("form", ["one", "c2", "c4", "c8", "slab3", "slab37"])
+@pytest.mark.parametrize("shape,offsets", [((6, 6, 6, 6), None), ((16, 16, 16), SHELLS3),
+                                           ((8, 8), THIRTY_TWO)],
+                         ids=["4d6", "shells16", "off32"])
+def test_table_link_forced_forms(cuda, monkeypatch, shape, offsets, form):
+    """Every form of the table labelling on one shape, the plan forced:
+    one CTA, clusters of 2, 4 and 8 CTAs, small slabs with the border and
+    the flatten; labels bitwise the plain version above percolation."""
+    from peapods_tpu_torch.ops import cc
+    from peapods_tpu_torch.ops.lattice import Lattice
+
+    lat = Lattice(shape, offsets)
+    n, nb = lat.n_spins, lat.n_neighbors
+    per = 4 + cc.table_state_bytes(nb)
+    if form.startswith("slab"):  # a third of the graph, or 37 sites
+        slab = -(-n // 3) if form == "slab3" else 37
+        plan = cc.TableLinkPlan(1, slab, 64, True, slab * per)
+    else:
+        c = 1 if form == "one" else int(form[1:])
+        slab = -(-n // c)
+        plan = cc.TableLinkPlan(c, slab, min(1024, -(-slab // 32) * 32), False, slab * per)
+    monkeypatch.setattr(cc, "table_link_plan", lambda *a: plan)
+    p = {4: 0.3, 13: 0.12, 32: 0.06}[nb]
+    got, want, counts = _table_link_run(cuda, lat, 3, p, 5)
+    assert torch.equal(got, want)
+    assert counts == ({"cc_table_link": 1, "cc_table_border": 1, "fk_link_flatten": 1}
+                      if plan.slabs else {"cc_table_link": 1})
+
+
+@pytest.mark.parametrize("shape,graphs", [((26, 26, 26, 22), 1), ((32, 32, 32, 32), 2)],
+                         ids=["past-cluster", "4d32x2"])
+def test_table_link_slabs_past_cluster(cuda, shape, graphs):
+    """A graph past one cluster's shared memory (8 CTAs of 46,489 sites at
+    4 offsets) takes the slab form: cc_table_link, cc_table_border,
+    fk_link_flatten; labels bitwise the plain version above percolation."""
+    from peapods_tpu_torch.ops import cc
+    from peapods_tpu_torch.ops.lattice import Lattice
+
+    lat = Lattice(shape)
+    assert cc.table_link_plan(lat.n_spins, 4, graphs).slabs
+    got, want, counts = _table_link_run(cuda, lat, graphs, 0.3, 17)
+    assert torch.equal(got, want)
+    assert counts == {"cc_table_link": 1, "cc_table_border": 1, "fk_link_flatten": 1}
+
+
+TABLE_SWEEP = [
+    ("4d10", (10, 10, 10, 10), None, 2, 24), ("4d16", (16, 16, 16, 16), None, 1, 16),
+    ("5d6", (6, 6, 6, 6, 6), None, 2, 4), ("4d9", (9, 9, 9, 9), None, 1, 8),
+    ("4d-self", (1, 3, 3, 3), None, 2, 3), ("nine16", (16, 16, 16), NINE, 1, 8),
+    ("shells16", (16, 16, 16), SHELLS3, 1, 8), ("off32", (8, 8), THIRTY_TWO, 2, 6),
+]
+
+
+@pytest.mark.parametrize("gibbs", [False, True], ids=["metropolis", "gibbs"])
+@pytest.mark.parametrize("name,shape,offsets,d,n_sys", TABLE_SWEEP,
+                         ids=[x[0] for x in TABLE_SWEEP])
+def test_table_sweep_matches_plain(cuda, name, shape, offsets, d, n_sys, gibbs):
+    """sweep_nb_table at the plan's systems a thread and at 1 and every
+    other divisor up to 8: two sweeps' spins bitwise ``sweep_nb_plain``."""
+    lat, x = _nb_inputs(cuda, 53, shape, offsets, d, n_sys)
+    assert lat.table
+    tables = lat.device_tables(cuda)
+    lib, stream = _build.library(), torch.cuda.current_stream(cuda).cuda_stream
+    args = (x["coup"], x["coup_bwd"], x["colours"], x["sys_temps"])
+    for per in [None] + [p for p in range(1, 9) if n_sys % p == 0]:
+        a, b = x["spins"].clone(), x["spins"].clone()
+        words = x["words"]
+        for _ in range(2):
+            for colour in range(lat.n_colors):
+                sweep.launch_sweep_nb(lib, stream, a, x["coup"], x["colours"], x["sys_temps"],
+                                      words, lat, colour, gibbs, per=per, tables=tables)
+            sweep.sweep_nb_plain(b, *args, words, lat, gibbs=gibbs)
+            words = words * 3 + 1
+        torch.cuda.synchronize()
+        assert torch.equal(a, b), per
+        assert not torch.equal(a, x["spins"]), per

@@ -19,7 +19,12 @@ redesigns (a group of four sites of several slots of one realization a
 thread, the forward couplings staged once, no division, 8-byte spin words,
 slots side by side at small lattices; a CTA a box of the graph in shared
 memory, one launch up to 8192 sites over a cluster of CTAs a graph, else
-``cc_link_border`` and ``fk_link_flatten``) by their sources.  Give the parent commit's sources
+``cc_link_border`` and ``fk_link_flatten``) by their sources; so is the
+table form's labelling (4D and up, 7 to 32 offsets: the first design
+``cc_table_init``, ``cc_table_link`` a thread a site uniting in global
+memory, ``fk_link_flatten``; the redesign a graph's union-find in shared
+memory over a cluster of CTAs, one launch, slabs with ``cc_table_border``
+and the flatten past one cluster).  Give the parent commit's sources
 (``git archive`` of it unpacked under a directory ``.gitignore`` lists) and
 this checkout's.  The script builds ``mega.cu``, ``cc.cu`` and ``fk.cu``
 of every source as they are and patched into each variant of their
@@ -60,7 +65,11 @@ flagship shape (256^2, 24 slots; the mega path's three launches), random
 spins at shuffled slots; the labelling on BCC and FCC 16^3 x 8, NNN 64^2 x
 8 and 2048 x 64^2, one 256^2 square graph (row 15) and FCC 32^3 x 8, random
 bonds at densities above each lattice's bond-percolation threshold (the
-clusters that bound a union-find).  Every build and variant that keeps the
+clusters that bound a union-find); the table labelling at the 4D +-J
+glass's shapes (10^4 x 384 graphs, the FK phase's, and x 192, the moves'),
+16^4 x 16, 16^3 with 13 offsets x 8, 16^3 with 9 offsets x 192 and 32^4 x
+2 (the slab route), the redesign, with ``--plans``, also in its other
+plans (clusters of 1 to 8 CTAs at 256 to 1024 threads).  Every build and variant that keeps the
 function is held bitwise to ``colour_pass_plain`` (spins; its partials to
 ``mega.colour_pass_partials``) or ``cc_labels_plain``.  ``--per`` also
 times the redesigned colour pass with each count of slots a CTA,
@@ -97,7 +106,7 @@ sys.path.insert(0, str(ROOT / "tools"))
 
 from chip_smoke import card_line  # noqa: E402
 from peapods_tpu_torch.ops import _build, cc, fk, mega, sweep  # noqa: E402
-from peapods_tpu_torch.ops.lattice import GEOMETRY_OFFSETS, Lattice  # noqa: E402
+from peapods_tpu_torch.ops.lattice import GEOMETRY_OFFSETS, Lattice, fast_divisor  # noqa: E402
 from probe_bonds import widths  # noqa: E402
 from probe_pt_link import events_ms  # noqa: E402
 
@@ -181,8 +190,35 @@ LABELLING = (
 )
 
 
+# the table form's labelling (4D and up, 7 to 32 offsets): (name, shape,
+# offsets, graphs, bond density above the lattice's bond-percolation
+# threshold: 4D hypercubic 0.160, 16^3 with 9 / 13 offsets about 0.06 /
+# 0.04; the 4D glass's FK graphs also at 0.5, about their density: a
+# satisfied bond, 0.7-0.8 of them, active with 1 - exp(-2 / T), 0.57-0.71)
+SHELLS3 = ([[1, 0, 0], [0, 1, 0], [0, 0, 1]]
+           + [[1, s, 0] for s in (1, -1)] + [[1, 0, s] for s in (1, -1)]
+           + [[0, 1, s] for s in (1, -1)]
+           + [[1, a, b] for a in (1, -1) for b in (1, -1)])
+TABLE_LABELLING = (
+    ("glass4d", (10, 10, 10, 10), None, 384, 0.25),
+    ("glass4d-dense", (10, 10, 10, 10), None, 384, 0.5),
+    ("glass4d-moves", (10, 10, 10, 10), None, 192, 0.25),
+    ("4d16", (16, 16, 16, 16), None, 16, 0.25),
+    ("shells16", (16, 16, 16), SHELLS3, 8, 0.08),
+    ("nine16", (16, 16, 16), SHELLS3[:9], 192, 0.10),
+    ("4d32x2", (32, 32, 32, 32), None, 2, 0.25),
+)
+
+
 def design(csrc: Path) -> str:
     return "first" if "cc_label_kernel" in (csrc / "cc.cu").read_text() else "redesign"
+
+
+def table_design(csrc: Path) -> str:
+    """The table labelling's design of a source: the first (cc_table_init,
+    a thread a site uniting in global memory, fk_link_flatten) or the
+    redesign (a graph's union-find in shared memory)."""
+    return "first" if "cc_table_init_kernel" in (csrc / "cc.cu").read_text() else "redesign"
 
 
 def builds(sources, out, variants):
@@ -240,7 +276,8 @@ def compile_all(todo):
     return out
 
 
-KERNELS = ("colour_pass_kernel", "cc_link_kernel", "cc_label_kernel", "cc_link_border_kernel")
+KERNELS = ("colour_pass_kernel", "cc_link_kernel", "cc_label_kernel", "cc_link_border_kernel",
+           "cc_table_link_kernel", "cc_table_border_kernel")
 
 
 def short(mangled: str) -> str:
@@ -551,6 +588,116 @@ def probe_labelling(libs, todo, dev, card, rounds, only, rng, results, record, v
 
 
 
+def table_label_fn(libs, key, first, lat, state, out, fwd, plan=None):
+    """One table labelling call of a build: the first design's
+    cc_table_init, cc_table_link and fk_link_flatten, or the redesign's
+    launches (``cc.table_link_plan``'s, or ``plan``)."""
+    base = (key[0], "base")
+    stream = torch.cuda.current_stream().cuda_stream
+    b, n = state.shape
+    nb = lat.n_neighbors
+    lib = libs[(base, "cc.cu")][0]
+    flat = libs[(base, "fk.cu")][0].peapods_fk_link_flatten
+    flat.argtypes, flat.restype = [_P] + [_I] * 2 + [_P], _I
+    if first:
+        init, link = lib.peapods_cc_table_init, lib.peapods_cc_table_link
+        init.argtypes, init.restype = [_P] + [_I] * 2 + [_P], _I
+        link.argtypes, link.restype = [_P] * 3 + [_I] * 3 + [_P], _I
+
+        def run():
+            _build.check(init(out.data_ptr(), n, b, stream), "cc_table_init")
+            _build.check(link(state.data_ptr(), out.data_ptr(), fwd.data_ptr(), n, nb, b,
+                              stream), "cc_table_link")
+            _build.check(flat(out.data_ptr(), b, n, stream), "fk_link_flatten")
+        return run, ("cc_table_init", "cc_table_link", "fk_link_flatten")
+    link, border = lib.peapods_cc_table_link, lib.peapods_cc_table_border
+    for fn in (link, border):
+        fn.argtypes, fn.restype = [_P] * 4 + [_I] + [_P], _I
+    plan = plan or cc.table_link_plan(n, nb, b)
+    m, s = fast_divisor(plan.slab)
+    words = np.asarray([n, nb, plan.cluster, plan.slab, m, s, int(plan.slabs), plan.threads],
+                       np.int64).astype(np.uint32).view(np.int32)
+
+    def run():
+        _build.check(link(state.data_ptr(), out.data_ptr(), fwd.data_ptr(), words.ctypes.data,
+                          b, stream), "cc_table_link")
+        if plan.slabs:
+            _build.check(border(state.data_ptr(), out.data_ptr(), fwd.data_ptr(),
+                                words.ctypes.data, b, stream), "cc_table_border")
+            _build.check(flat(out.data_ptr(), b, n, stream), "fk_link_flatten")
+    return run, (("cc_table_link", "cc_table_border", "fk_link_flatten") if plan.slabs
+                 else ("cc_table_link",))
+
+
+def table_plans(n, nb, b):
+    """The redesign's other whole-graph plans for ``--plans``: clusters of 1
+    to 8 CTAs that fit, at 256, 512 and 1024 threads."""
+    rule = cc.table_link_plan(n, nb, b)
+    if rule.slabs:
+        return []
+    per = 4 + cc.table_state_bytes(nb)
+    out = []
+    for c in (1, 2, 4, 8):
+        slab = -(-n // c)
+        if slab * per > cc.TABLE_SMEM:
+            continue
+        for threads in (256, 512, 1024):
+            threads = min(threads, -(-slab // 32) * 32)
+            out.append(cc.TableLinkPlan(c, slab, threads, False, slab * per))
+    return [q for q in dict.fromkeys(out) if q != rule]
+
+
+def probe_table_labelling(libs, todo, dev, card, rounds, only, rng, results, record,
+                          plans=False):
+    """The table labelling of every source at TABLE_LABELLING's shapes: labels
+    bitwise ``cc_labels_plain``; the redesign, with ``plans``, also in its
+    other plans."""
+    keys = [k for k in todo if k[1] == "base"]
+    for name, shape, offsets, b, p in TABLE_LABELLING:
+        if only and name not in only:
+            continue
+        lat = Lattice(shape, offsets)
+        n, nb = lat.n_spins, lat.n_neighbors
+        g = torch.Generator(device=dev).manual_seed(int(rng.integers(2**31)))
+        masks = torch.rand((b, n, nb), device=dev, generator=g) < p
+        state = cc.pack_masks(masks, torch.int32)
+        want = cc.cc_labels_plain(masks, lat)
+        fwd = torch.from_numpy(lat.fwd).to(dev)
+        n_comp = int((want == torch.arange(n, device=dev)).sum())
+        bound = (8 * b * n + 4 * n * nb) / 3.35e12 * 1e3
+        reps = 20 if b * n < 2**22 else 5
+        for rnd in range(rounds):
+            for key in (keys if rnd % 2 == 0 else keys[::-1]):
+                first = table_design(todo[key][0]) == "first"
+                forms = [("base", None)]
+                if not first and plans:
+                    forms += [("plan", q) for q in table_plans(n, nb, b)]
+                for v, plan in forms:
+                    out = torch.empty((b, n), dtype=torch.int32, device=dev)
+                    run, launches = table_label_fn(libs, key, first, lat, state, out, fwd, plan)
+                    run()
+                    torch.cuda.synchronize()
+                    if not torch.equal(out, want):
+                        raise AssertionError(f"{key[0]} {v} table labelling at {name} differs "
+                                             f"from its plain version: "
+                                             f"{int((out != want).sum())} labels")
+                    ms = events_ms(run, reps)
+                    q = None if first else (plan or cc.table_link_plan(n, nb, b))
+                    rec = dict(kind="table_labelling", source=key[0], variant=v, state=name,
+                               round=rnd, ms=ms, launches=launches, bound_ms=bound, graphs=b,
+                               sites=n, offsets=nb, clusters=n_comp, density=p,
+                               plan=None if q is None else q._asdict(), bitwise_plain=True)
+                    record(rec, f"[table labelling] {key[0]} {v} {name} ({b} x "
+                           f"{'x'.join(map(str, shape))}, {nb} offsets, p {p}, {n_comp} "
+                           f"clusters; {' + '.join(launches)}"
+                           + ("" if q is None else f", clusters of {q.cluster}, slabs of "
+                              f"{q.slab}, {q.threads} threads")
+                           + f"): {ms:.5f} ms a call (bound {bound:.6f} ms), labels bitwise "
+                           "plain")
+        del masks, state, want, fwd
+        torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", action="append", default=[])
@@ -602,6 +749,8 @@ def main():
     probe_colour(libs, todo, dev, card, a.rounds, a.per, only, rng, results, record)
     probe_labelling(libs, todo, dev, card, a.rounds, only, rng, results, record, variants,
                     a.plans)
+    probe_table_labelling(libs, todo, dev, card, a.rounds, only, rng, results, record,
+                          a.plans)
     dest = Path(a.json) if a.json else out / "probe.json"
     dest.parent.mkdir(parents=True, exist_ok=True)
     dest.write_text(json.dumps(dict(card=card, results=results)))

@@ -3,7 +3,7 @@ NVIDIA GPU: the walk form's offset-table instance (``csrc/overlap.cu``
 ``kTable``: up to six offsets of three extents, labelled by ``cc_link``, or
 ``fk_link`` on the triangular lattice) and the neighbour-table form
 (``ov_bonds_table`` ... ``houdn_finish_table``, labelled by
-``cc_table_init``, ``cc_table_link`` and ``fk_link_flatten``).
+``cc_table_link``: a graph's union-find in shared memory, one launch).
 
     python3 tools/probe_overlap_forms.py [--rounds N] [--json PATH]
 

@@ -51,7 +51,12 @@ States: random +-1 spins with unit couplings at the smoke's temperatures:
 realization; also gaussian), row 4 (32^2 x 16) and the unsharded 4096^2 x 4;
 ``sweep_nb`` at config 2 (32^2 triangular x 8), 32^3 x 16, BCC and FCC
 16^3 x 8, the NNN table at 64^2 x 8 and 128^3 x 8 (the space path's
-unsharded run, where the rule takes 8 systems a thread).  Every base build and every
+unsharded run, where the rule takes 8 systems a thread); the table form
+``sweep_nb_table`` (the first design told by its source: a thread a group
+of four sites of one system, a runtime loop over the offsets; the redesign
+a thread a site of the colour's list of several systems) at the 4D +-J
+glass (10^4, 16 x 24 systems), 16^4 x 16, 16^3 with 13 offsets x 8 and 16^3
+with 9 offsets x 8 x 48, +-1 couplings.  Every base build and every
 variant that keeps the function is held bitwise to ``sweep_2d_plain`` (and
 its partials to ``sweep_2d_partials``) or ``sweep_nb_plain``.  ``--per``
 also times the redesign with each count of systems a thread (the rule's,
@@ -205,8 +210,29 @@ COLOURED = (
 )
 
 
+# the table form (4D and up, 7 to 32 offsets): (name, shape, offsets,
+# realizations, systems each, temperature range), the smoke's runs
+SHELLS3 = ([[1, 0, 0], [0, 1, 0], [0, 0, 1]]
+           + [[1, s, 0] for s in (1, -1)] + [[1, 0, s] for s in (1, -1)]
+           + [[0, 1, s] for s in (1, -1)]
+           + [[1, a, b] for a in (1, -1) for b in (1, -1)])
+TABLE = (
+    ("glass4d", (10, 10, 10, 10), None, 16, 24, (1.6, 2.4)),
+    ("4d16", (16, 16, 16, 16), None, 1, 16, (6.0, 7.4)),
+    ("shells16", (16, 16, 16), SHELLS3, 1, 8, (9.0, 12.0)),
+    ("nine16", (16, 16, 16), SHELLS3[:9], 8, 48, (1.5, 3.8)),
+)
+
+
 def design(csrc: Path) -> str:
     return "first" if "update_sites(" in (csrc / "sweep.cu").read_text() else "redesign"
+
+
+def table_design(csrc: Path) -> str:
+    """sweep_nb_table's design of a source: the first (a thread a group of
+    one system, a runtime loop over the offsets) or the redesign (a thread a
+    site of the colour's list of up to eight systems)."""
+    return "redesign" if "table_terms" in (csrc / "sweep_nb.cu").read_text() else "first"
 
 
 def builds(sources, out, variants):
@@ -263,7 +289,8 @@ def compile_all(todo):
 
 def short(mangled: str) -> str:
     """``sweep_2d_kernel<true>``-like names of the mangled sweep kernels."""
-    base = re.search(r"(sweep_2d_kernel|sweep_nb_kernel|measure_nb_kernel)", mangled)
+    base = re.search(r"(sweep_2d_kernel|sweep_nb_table_kernel|sweep_nb_kernel|measure_nb_kernel)",
+                     mangled)
     if not base:
         return ""
     tail = mangled.split(base.group(1), 1)[1]
@@ -490,6 +517,98 @@ def probe(libs, todo, dev, card, rounds, pers, only, rng, results):
         torch.cuda.empty_cache()
 
 
+def table_inputs(shape, offsets, d, s, t, dev, rng):
+    lat = Lattice(shape, offsets)
+    n, nb = lat.n_spins, lat.n_neighbors
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    coup = rng.choice([-1.0, 1.0], (d, n, nb)).astype(np.float32)
+    return dict(lat=lat, spins=up(rng.choice([-1, 1], (d, s, n)).astype(np.int8)),
+                coup=up(coup), coup_bwd=up(coup[:, lat.bwd, np.arange(nb)[None]]),
+                colours=up(lat.colors.astype(np.uint8)),
+                temps=up(rng.uniform(*t, (d, s)).astype(np.float32)),
+                words=up(rng.integers(-2**31, 2**31, (d, 2)).astype(np.int32)),
+                fwd=up(lat.fwd), bwd=up(lat.bwd), sites=up(lat.colour_sites[0]), d=d, s=s)
+
+
+def sweep_table_fn(lib, first, x, spins, per):
+    """One sweep (each colour) of a build's sweep_nb_table: the first
+    design's grid of groups of one system, or the redesign's lists at
+    ``per`` systems a thread (``ops/sweep.py`` ``table_sweep_plan``'s
+    threads)."""
+    fn = lib.peapods_sweep_nb_table
+    lat = x["lat"]
+    n, nb = lat.n_spins, lat.n_neighbors
+    stream = torch.cuda.current_stream().cuda_stream
+    fn.restype = _I
+    fn.argtypes = [_P] * 7 + [_I] * (7 if first else 11) + [_P]
+    starts = lat.colour_sites[1]
+    dev = spins.device
+    props = torch.cuda.get_device_properties(dev)
+    threads = fk.resident_threads(dev.index) // 4  # the wrappers' rule (ops/sweep.py)
+
+    def run():
+        for c in range(lat.n_colors):
+            if first:
+                _build.check(fn(spins.data_ptr(), x["coup"].data_ptr(), x["colours"].data_ptr(),
+                                x["temps"].data_ptr(), x["words"].data_ptr(),
+                                x["fwd"].data_ptr(), x["bwd"].data_ptr(), n, nb, lat.self_mask,
+                                x["d"], x["s"], c, 0, stream), "sweep_nb_table")
+                continue
+            count = int(starts[c + 1] - starts[c])
+            plan = sweep.table_sweep_plan(count, x["d"], x["s"], threads,
+                                          props.multi_processor_count)
+            _build.check(fn(spins.data_ptr(), x["coup"].data_ptr(), x["sites"].data_ptr(),
+                            x["temps"].data_ptr(), x["words"].data_ptr(), x["fwd"].data_ptr(),
+                            x["bwd"].data_ptr(), n, nb, lat.self_mask, x["d"], x["s"], c,
+                            int(starts[c]), count, 0, per or plan.per, plan.threads, stream),
+                         "sweep_nb_table")
+    return run
+
+
+def probe_table(libs, todo, dev, card, rounds, pers, only, rng, results):
+    """sweep_nb_table of every source at TABLE's shapes: spins bitwise
+    ``sweep_nb_plain``; the redesign at each count of systems a thread with
+    ``pers``."""
+    keys = [k for k in todo if k[1] == "base"]
+    for name, shape, offsets, d, s, t in TABLE:
+        if only and name not in only:
+            continue
+        x = table_inputs(shape, offsets, d, s, t, dev, rng)
+        lat = x["lat"]
+        want = x["spins"].clone()
+        sweep.sweep_nb_plain(want, x["coup"], x["coup_bwd"], x["colours"], x["temps"],
+                             x["words"], lat, gibbs=False)
+        n, nb, nc = lat.n_spins, lat.n_neighbors, lat.n_colors
+        bound = (d * s * n + 8 * d * nb * n // nc + 8 * n * nb // nc + n
+                 + d * s * n // nc) / 3.35e12 * 1e3
+        for rnd in range(rounds):
+            for key in (keys if rnd % 2 == 0 else keys[::-1]):
+                first = table_design(todo[key][0]) == "first"
+                lib = libs[(key, "sweep_nb.cu")][0]
+                for per in ([None] if first or not pers
+                            else [None] + [p for p in range(1, 9) if s % p == 0]):
+                    a = x["spins"].clone()
+                    sweep_table_fn(lib, first, x, a, per)()
+                    torch.cuda.synchronize()
+                    if not torch.equal(a, want):
+                        raise AssertionError(f"{key[0]} sweep_nb_table at {name} (per {per}) "
+                                             f"differs from its plain version: "
+                                             f"{int((a != want).sum())} spins")
+                    ms = events_ms(sweep_table_fn(lib, first, x, a, per), 20) / nc
+                    rec = dict(kind="sweep_nb_table", source=key[0], variant="base",
+                               state=name, round=rnd, per=per, ms=ms, bound_ms=bound,
+                               systems=d * s, sites=n, colours=nc, bitwise_plain=True,
+                               design="first" if first else "redesign")
+                    results.append(rec)
+                    print(f"[sweep_nb_table] {key[0]} {name} ({d} x {s} x {n}, {nb} offsets, "
+                          f"{nc} colours, " + ("the first design" if first else
+                                               f"{per or 'the rule'}'s systems a thread")
+                          + f"): {ms:.5f} ms a pass (bound {bound:.7f} ms, bytes), spins "
+                          f"bitwise plain round {rnd} on {card}", flush=True)
+        del x, want
+        torch.cuda.empty_cache()
+
+
 def sweep_bound_2d(x):
     """A pass's bytes over 3.35 TB/s: every spin, the realizations'
     couplings once, the active spins written (chip_smoke.py sweep_2d_bound)."""
@@ -545,7 +664,9 @@ def main():
                   f"MUFU.EX2 {c['ex2']}, calls {c['calls']}; loads {c['ldg']}, stores "
                   f"{c['stg']}", flush=True)
     only = {s for s in a.shapes.split(",") if s}
-    probe(libs, todo, dev, card, a.rounds, a.per, only, np.random.default_rng(14), results)
+    rng = np.random.default_rng(14)
+    probe(libs, todo, dev, card, a.rounds, a.per, only, rng, results)
+    probe_table(libs, todo, dev, card, a.rounds, a.per, only, rng, results)
     (out / "probe.json").write_text(json.dumps(dict(card=card, results=results)))
     print(f"wrote {out / 'probe.json'}")
     return 0
