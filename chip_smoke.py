@@ -6533,8 +6533,11 @@ def ea_moves_check(name, lat, tables, x, moves, dev, rng, card, observe=False):
     b_ms, b_by = ea_pair_bound(lat, d, cols)
     out["pair_overlap_table"] = dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
                                      plain_ms=plain_ms, plain_is="pair_overlap_table_plain")
+    plan = megapair.pair_table_plan(n, cols, d, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
     log("38 kernel-vs-plain", f"{name} pair_overlap_table ({d} x {cols} columns, "
-        f"{lat.n_neighbors} offsets, {megapair.pair_table_per(cols)} columns a CTA): qs and ql "
+        f"{lat.n_neighbors} offsets; {plan.cluster} CTAs a cluster x {plan.copies} copies x "
+        f"{d * plan.groups} = {plan.cluster * plan.copies * d * plan.groups} CTAs): qs and ql "
         f"bitwise the plain version; plain {plain_ms:.3f} ms on {card} ok")
     return out
 

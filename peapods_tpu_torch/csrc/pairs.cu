@@ -68,6 +68,7 @@
 // loads (sid, then the words).  Bytes a word count: 1-byte words doubled it
 // at 16^3, and so did one warp a column there.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -76,6 +77,7 @@
 #include "mega.cuh"
 
 using namespace peapods;
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -317,86 +319,437 @@ PairKernel pair_kernel(const PairWalk& g) {
 // walk form's disagreement counts: qs = n - 2 sum_i delta_i and ql = nb n -
 // 2 sum over bonds (i, fwd[i, d]) of (delta_i XOR delta_f), integers, so
 // bitwise overlap_dots in any order (a self offset's bond, fwd[i, d] = i,
-// counts q_i q_i = 1, as the reference's roll over an extent of 1 does).  A
-// CTA of kPairTableThreads threads takes `per` columns of one realization
-// (blockIdx.x the column set, blockIdx.y the realization), their rows
-// staged once in shared memory; a thread takes a site at a time, strided,
-// its table row read once for the CTA's columns, whose counts it keeps in
-// registers; each warp adds its counts (__reduce_add_sync), one warp adds
-// the warps' and writes qs and ql of each column, converted once.  A first
-// design: each neighbour's spins are byte loads, and the table is read
-// again by every column set.
+// counts q_i q_i = 1, as the reference's roll over an extent of 1 does).
+//
+// The launch (ops/megapair.py pair_table_plan): grid (C copies, d, groups)
+// in thread-block clusters of C CTAs along x, one copy where staged.  A
+// column group holds up to 32 kW columns, and a site's disagreement bits
+// of the group are kW 32-bit words, bit c of word u the column 32 u + c.
+// (1) CTA rank r of a cluster stages the words of its slice of the
+// realization's sites, [r slice, (r + 1) slice), in its shared memory,
+// made from the own spins of the group's systems, four sites a 4-byte load
+// where n % 4 == 0.  (2) The cluster waits; the CTA counts the sites of
+// its slice, four sites a thread at once: a site's
+// table row is read once for every column of the group, and each bond's
+// word is one load from the shared memory of the neighbour's slice owner
+// (distributed shared memory, the owner by a multiply-shift division) and
+// one xor.  The columns' counts are bytes of 8 kW counter words (byte b of
+// word m of word u: the column 32 u + 8 b + m, x >> m & 0x01010101 added
+// for every bond), flushed before a byte can overflow into each warp's
+// per-column sums (two 16-bit lanes a word, __reduce_add_sync), which the
+// CTA adds.  (3) The cluster's leader adds its CTAs' sums through
+// distributed shared memory and writes qs and ql.  Past a cluster's shared
+// memory (unstaged: no slices) each word is made from the spins where it
+// is needed, and copy j of one-CTA clusters counts the lattice's share
+// [j share, (j + 1) share); every CTA stores its sums in the scratch
+// `part`, and the last CTA to finish (a counter a realization and group,
+// 0 at the launch) adds them and writes.
 //
 // What bounds it on the H100: bytes, the two systems of every column (2 n
-// bytes) and the table (4 n nb bytes, read once a column set); at the 4D
-// glass (10^4 sites, 4 forward offsets, 12 columns, 16 realizations) about
-// 4.0 MB with the table counted once (chip_smoke.py phase 38).
-constexpr int kPairTableThreads = 512;
-constexpr int kPairTableMaxPer = 4;
+// bytes) and the table (4 n nb bytes) read once; at the 4D glass (10^4
+// sites, 4 forward offsets, 12 columns, 16 realizations) 4.0 MB, 0.0012
+// ms.  The first design (a CTA of 512 threads `per` <= 4 columns of one
+// realization, 48 CTAs on the 132 SMs at the glass, each site's table row
+// read again by every column set, every neighbour 2 per byte gathers from
+// device memory) took 0.0366 ms at the glass, 0.0367 at Wolff houd4 (24
+// columns) and 0.0266 at 16^3 with 9 offsets x 24 columns x 8; this one
+// 0.0113, 0.0134 and 0.0095 (tools/probe_pairs.py, NVIDIA H100 80GB HBM3,
+// 700 W), one cluster of 8 CTAs a realization (128 CTAs at the glass).
+// Its own phases (%globaltimer stamps, the probe's t-clock) were at the
+// glass about 0.6 us of set-up, 2.7 of staging (most of it the spin
+// loads), 2.4 of counting and 1.4 of cluster waits, beside about 3 us of
+// the launch itself.  Copies of the cluster that gave the launch a CTA an
+// SM ran 5-18% slower: each stages every word again, and the copies hand
+// their sums over through device memory; so a staged launch takes one.
+constexpr int kPairTableSmem = 232448;  // the H100's most shared memory a CTA
+constexpr int kPairTableThreads = 256;  // a CTA's threads at most
+constexpr int kPairTableWarps = kPairTableThreads / 32;
+constexpr int kStageBatch = 16;  // columns whose spin loads a thread issues together
+constexpr int kSitesAhead = 4;   // sites a thread counts together (staged)
 
+// The launch's words (ops/megapair.py pair_table_words, host memory): the
+// lattice, the ladders and the plan.
+struct PairTable {
+  int n;        // sites
+  int nb;       // forward offsets
+  int T;        // temperatures
+  int cols;     // columns of a realization, n_pairs T
+  int S;        // slots of a realization
+  int words;    // kW
+  int groups;   // column groups of 32 kW
+  int C;        // CTAs a cluster
+  int copies;   // clusters a realization and group
+  int slice;    // sites a CTA stages (0: unstaged)
+  int share;    // sites a CTA counts of its slice (unstaged: of the lattice)
+  int threads;  // a CTA's
+  uint32_t m;   // fast_divisor of slice
+  int s;
+  int smem;     // dynamic shared memory a CTA
+};
+
+inline PairTable make_pair_table(const int* w) {
+  PairTable g;
+  g.n = w[0];
+  g.nb = w[1];
+  g.T = w[2];
+  g.cols = w[3];
+  g.S = w[4];
+  g.words = w[5];
+  g.groups = w[6];
+  g.C = w[7];
+  g.copies = w[8];
+  g.slice = w[9];
+  g.share = w[10];
+  g.threads = w[11];
+  g.m = static_cast<uint32_t>(w[12]);
+  g.s = w[13];
+  g.smem = w[14];
+  return g;
+}
+
+// Dynamic shared memory: the slice's words [slice][kW], then the group's
+// systems' row offsets, each warp's per-column sums of delta (qs) and of
+// the bonds' xors (ql), the CTA's, and the last-copy flag
+// (ops/megapair.py pair_table_smem).
+template <int kW>
+struct PairSmem {
+  uint32_t* words;
+  long long* ra;
+  long long* rb;
+  int* wsum;  // [kPairTableWarps][2][32 kW]
+  int* tot;   // [2][32 kW]: qs counts, then ql counts
+  int* flag;
+  __device__ PairSmem(unsigned char* base, int slice) {
+    words = reinterpret_cast<uint32_t*>(base);
+    ra = reinterpret_cast<long long*>(base + static_cast<size_t>(slice) * 4 * kW);
+    rb = ra + 32 * kW;
+    wsum = reinterpret_cast<int*>(rb + 32 * kW);
+    tot = wsum + kPairTableWarps * 64 * kW;
+    flag = tot + 64 * kW;
+  }
+};
+
+// The disagreement words of site j made from the spins: bit c of word u
+// set where column 32 u + c's two systems (rows ra, rb) differ there (the
+// unstaged form).
+template <int kW>
+__device__ __forceinline__ void site_words(uint32_t (&w)[kW], const int8_t* __restrict__ spins,
+                                           const long long* ra, const long long* rb, int ncols,
+                                           size_t j) {
+#pragma unroll
+  for (int u = 0; u < kW; ++u) {
+    w[u] = 0;
+    const int cn = min(32, ncols - 32 * u);
+    for (int c = 0; c < cn; ++c)
+      w[u] |= static_cast<uint32_t>(__ldg(spins + ra[32 * u + c] + j) !=
+                                    __ldg(spins + rb[32 * u + c] + j)) << c;
+  }
+}
+
+// The xor of two systems' spins at sites i0 .. i0 + 3 (one byte a site,
+// each a sign bit where they differ): two 4-byte loads (kVec), or cnt
+// byte pairs.
+template <bool kVec>
+__device__ __forceinline__ uint32_t spin_xor(const int8_t* __restrict__ a,
+                                             const int8_t* __restrict__ b, int cnt) {
+  if (kVec)
+    return __ldg(reinterpret_cast<const uint32_t*>(a)) ^
+           __ldg(reinterpret_cast<const uint32_t*>(b));
+  uint32_t x = 0;
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (k < cnt)
+      x |= static_cast<uint32_t>(static_cast<uint8_t>(__ldg(a + k) ^ __ldg(b + k))) << (8 * k);
+  return x;
+}
+
+// The disagreement words of the group's sites i0 .. i0 + cnt - 1 into out
+// ([site][kW]), from the ncols columns' rows ra / rb.  For each batch of
+// 16 columns every spin load is issued before the first is used; the
+// xors' sign bits of 8 columns are gathered into one word by a shift each
+// (byte s: site s's bits of the 8 columns, column c0 + o at bit o), whose
+// bytes are merged into the sites' words.
+template <int kW, bool kVec>
+__device__ __forceinline__ void stage_group(uint32_t* out, const int8_t* __restrict__ spins,
+                                            const long long* ra, const long long* rb,
+                                            int ncols, int i0, int cnt) {
+#pragma unroll
+  for (int u = 0; u < kW; ++u) {
+    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    const int cn = min(32, ncols - 32 * u);
+    for (int c0 = 0; c0 < cn; c0 += kStageBatch) {
+      uint32_t x[kStageBatch];
+#pragma unroll
+      for (int k = 0; k < kStageBatch; ++k) {
+        const int c = 32 * u + c0 + k;
+        x[k] = c0 + k < cn ? spin_xor<kVec>(spins + ra[c] + i0, spins + rb[c] + i0, cnt) &
+                                 0x80808080u
+                           : 0u;
+      }
+      uint32_t za = 0, zb = 0;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        za |= x[k] >> (7 - k);
+        zb |= x[8 + k] >> (7 - k);
+      }
+#pragma unroll
+      for (int s = 0; s < 4; ++s)
+        w[s] |= (((za >> (8 * s)) & 0xFFu) | (((zb >> (8 * s)) & 0xFFu) << 8)) << c0;
+    }
+#pragma unroll
+    for (int s = 0; s < 4; ++s)
+      if (s < cnt) out[s * kW + u] = w[s];
+  }
+}
+
+// Adds a warp's column counters (8 kW words, byte b of word m of word u
+// the column 32 u + 8 b + m) into the warp's sums ws [32 kW] and clears
+// them: each word's bytes as two pairs of 16-bit lanes (a warp's 32 x 255
+// fits one), every word's warp sum (__reduce_add_sync) issued before the
+// first is used, then lane l adds column 32 u + l; no shared atomics.
+template <int kW>
+__device__ __forceinline__ void flush_counts(uint32_t (&cnt)[kW][8], int* ws) {
+  const int lane = threadIdx.x & 31;
+  const int lm = lane & 7;
+  const int lb = lane >> 3;
+#pragma unroll
+  for (int u = 0; u < kW; ++u) {
+    uint32_t lo[8], hi[8];
+#pragma unroll
+    for (int m = 0; m < 8; ++m) {
+      lo[m] = __reduce_add_sync(0xffffffffu, cnt[u][m] & 0x00FF00FFu);
+      hi[m] = __reduce_add_sync(0xffffffffu, (cnt[u][m] >> 8) & 0x00FF00FFu);
+      cnt[u][m] = 0;
+    }
+    uint32_t v = 0;
+#pragma unroll
+    for (int m = 0; m < 8; ++m)
+      if (m == lm) v = (lb & 1) ? hi[m] : lo[m];
+    ws[32 * u + lane] += static_cast<int>((lb & 2) ? v >> 16 : v & 0xFFFFu);
+  }
+}
+
+// The table entries of offsets d0 .. d0 + 3 of site i (i past nb): one
+// 16-byte load where nb % 4 == 0.
+__device__ __forceinline__ void row_step(int (&f)[4], const int32_t* __restrict__ fwd, int i,
+                                         int nb, int d0, bool rows4) {
+  const int32_t* row = fwd + static_cast<size_t>(i) * nb + d0;
+  if (rows4) {
+    const int4 v = __ldg(reinterpret_cast<const int4*>(row));
+    f[0] = v.x;
+    f[1] = v.y;
+    f[2] = v.z;
+    f[3] = v.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) f[j] = d0 + j < nb ? __ldg(row + j) : i;
+  }
+}
+
+// The bonds' xors of offsets d0 .. d0 + 3 below nb added to the column
+// counters: byte b of word m of word u counts the column 32 u + 8 b + m.
+template <int kW>
+__device__ __forceinline__ void add_bonds(uint32_t (&cl)[kW][8], const uint32_t (&own)[kW],
+                                          const uint32_t (&nw)[4][kW], int nb, int d0) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (d0 + j >= nb) break;
+#pragma unroll
+    for (int u = 0; u < kW; ++u) {
+      const uint32_t x = own[u] ^ nw[j][u];
+#pragma unroll
+      for (int m = 0; m < 8; ++m) cl[u][m] += (x >> m) & 0x01010101u;
+    }
+  }
+}
+
+// The disagreement words of the four sites f: each one load from the
+// shared memory of the site's slice owner in the cluster (the owner by the
+// slice's multiply-shift division), or (unstaged) made from the spins.
+template <int kW, bool kStaged>
+__device__ __forceinline__ void neighbour_words(uint32_t (&nw)[4][kW], const int (&f)[4],
+                                                const cg::cluster_group& cluster,
+                                                const PairSmem<kW>& sh, const PairTable& g,
+                                                const int8_t* __restrict__ spins, int ncols) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if constexpr (kStaged) {
+      const int owner = fast_div(f[j], g.m, g.s);
+      const uint32_t* p = cluster.map_shared_rank(sh.words, owner) + (f[j] - owner * g.slice) * kW;
+#pragma unroll
+      for (int u = 0; u < kW; ++u) nw[j][u] = p[u];
+    } else {
+      site_words<kW>(nw[j], spins, sh.ra, sh.rb, ncols, f[j]);
+    }
+  }
+}
+
+template <int kW, bool kStaged>
 __global__ void __launch_bounds__(kPairTableThreads)
 pair_overlap_table_kernel(const int8_t* __restrict__ spins, const int32_t* __restrict__ sid,
                           const int32_t* __restrict__ fwd, int32_t* __restrict__ qs_out,
-                          int32_t* __restrict__ ql_out, int out_stride, int n, int nb, int T,
-                          int S, int per) {
-  constexpr int kWarps = kPairTableThreads / 32;
-  __shared__ long long ra[kPairTableMaxPer];
-  __shared__ long long rb[kPairTableMaxPer];
-  __shared__ int red[kWarps][2 * kPairTableMaxPer];
+                          int32_t* __restrict__ ql_out, int* __restrict__ part,
+                          int* __restrict__ counter, int out_stride, const PairTable g) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const PairSmem<kW> sh(smem_raw, kStaged ? g.slice : 0);
   const int z = blockIdx.y;
-  const int c0 = blockIdx.x * per;
-  if (threadIdx.x < per) {
-    const int c = c0 + threadIdx.x;
-    const int p = c / T;
-    const int t = c - p * T;
-    const long long s0 = static_cast<long long>(z) * S;
-    ra[threadIdx.x] = (s0 + __ldg(sid + s0 + 2 * p * T + t)) * n;
-    rb[threadIdx.x] = (s0 + __ldg(sid + s0 + (2 * p + 1) * T + t)) * n;
+  const int grp = blockIdx.z;
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int copy = blockIdx.x;  // unstaged: clusters of one CTA
+  const int col0 = grp * 32 * kW;
+  const int ncols = min(32 * kW, g.cols - col0);
+  const int tid = threadIdx.x;
+  const int nthr = blockDim.x;
+  if (tid < ncols) {  // the column's two systems, pair-major: p T + t
+    const int c = col0 + tid;
+    const int p = c / g.T;
+    const int t = c - p * g.T;
+    const long long s0 = static_cast<long long>(z) * g.S;
+    sh.ra[tid] = (s0 + __ldg(sid + s0 + 2 * p * g.T + t)) * g.n;
+    sh.rb[tid] = (s0 + __ldg(sid + s0 + (2 * p + 1) * g.T + t)) * g.n;
   }
+  for (int c = tid; c < kPairTableWarps * 64 * kW; c += nthr) sh.wsum[c] = 0;
   __syncthreads();
-  int dq[kPairTableMaxPer] = {};
-  int dl[kPairTableMaxPer] = {};
-  for (int i = threadIdx.x; i < n; i += kPairTableThreads) {
-    int di[kPairTableMaxPer];
-#pragma unroll
-    for (int k = 0; k < kPairTableMaxPer; ++k) {
-      if (k >= per) break;
-      di[k] = __ldg(spins + ra[k] + i) != __ldg(spins + rb[k] + i);
-      dq[k] += di[k];
-    }
-    const int32_t* row = fwd + static_cast<size_t>(i) * nb;
-    for (int d = 0; d < nb; ++d) {
-      const int f = __ldg(row + d);
-#pragma unroll
-      for (int k = 0; k < kPairTableMaxPer; ++k) {
-        if (k >= per) break;
-        dl[k] += di[k] ^ (__ldg(spins + ra[k] + f) != __ldg(spins + rb[k] + f));
+  // (1) the slice's words
+  int lo = 0, hi = g.n;
+  if constexpr (kStaged) {
+    lo = min(g.n, rank * g.slice);
+    hi = min(g.n, lo + g.slice);
+    // 4-byte spin loads (lo is a multiple of 4)
+    const bool vec = (g.n & 3) == 0 && (reinterpret_cast<uintptr_t>(spins) & 3) == 0;
+    for (int i0 = lo + 4 * tid; i0 < hi; i0 += 4 * nthr) {
+      uint32_t* out = sh.words + static_cast<size_t>(i0 - lo) * kW;
+      if (vec) {
+        stage_group<kW, true>(out, spins, sh.ra, sh.rb, ncols, i0, 4);
+      } else {
+        stage_group<kW, false>(out, spins, sh.ra, sh.rb, ncols, i0, min(4, hi - i0));
       }
     }
   }
-  const int lane = threadIdx.x & 31;
-  const int wid = threadIdx.x >> 5;
+  cluster.sync();  // every slice's words written
+  // (2) the counts of the slice (unstaged: of the copy's share)
+  const int c_lo = kStaged ? lo : min(g.n, copy * g.share);
+  const int c_hi = kStaged ? hi : min(g.n, c_lo + g.share);
+  const int per_round = max(1, 255 / g.nb);  // sites a thread before a byte could overflow
+  uint32_t cq[kW][8], cl[kW][8];
 #pragma unroll
-  for (int k = 0; k < kPairTableMaxPer; ++k) {
-    if (k >= per) break;
-    const int q = __reduce_add_sync(0xffffffffu, dq[k]);
-    const int l = __reduce_add_sync(0xffffffffu, dl[k]);
-    if (lane == 0) {
-      red[wid][2 * k] = q;
-      red[wid][2 * k + 1] = l;
+  for (int u = 0; u < kW; ++u)
+#pragma unroll
+    for (int m = 0; m < 8; ++m) cq[u][m] = cl[u][m] = 0;
+  const bool rows4 = (g.nb & 3) == 0;
+  // sites a thread counts together (one unstaged: its words are gathers)
+  constexpr int kAhead = kStaged ? kSitesAhead : 1;
+  for (int base = c_lo; base < c_hi; base += nthr * per_round) {  // uniform
+    for (int k0 = 0; k0 < per_round; k0 += kAhead) {
+      const int first = base + k0 * nthr + tid;
+      if (first >= c_hi) break;
+      // kAhead sites' own words, first table entries and neighbour
+      // words, every load issued before the first count
+      bool on[kAhead];
+      uint32_t own[kAhead][kW];
+      int f[kAhead][4];
+      uint32_t nw[kAhead][4][kW];
+#pragma unroll
+      for (int q = 0; q < kAhead; ++q) {
+        const int i = base + (k0 + q) * nthr + tid;
+        on[q] = k0 + q < per_round && i < c_hi;
+        const int s = on[q] ? i : first;
+        if constexpr (kStaged) {
+#pragma unroll
+          for (int u = 0; u < kW; ++u) own[q][u] = sh.words[(s - lo) * kW + u];
+        } else {
+          site_words<kW>(own[q], spins, sh.ra, sh.rb, ncols, s);
+        }
+        row_step(f[q], fwd, s, g.nb, 0, rows4);
+      }
+#pragma unroll
+      for (int q = 0; q < kAhead; ++q)
+        neighbour_words<kW, kStaged>(nw[q], f[q], cluster, sh, g, spins, ncols);
+#pragma unroll
+      for (int q = 0; q < kAhead; ++q) {
+        if (!on[q]) continue;
+#pragma unroll
+        for (int u = 0; u < kW; ++u)
+#pragma unroll
+          for (int m = 0; m < 8; ++m) cq[u][m] += (own[q][u] >> m) & 0x01010101u;
+        add_bonds<kW>(cl, own[q], nw[q], g.nb, 0);
+        const int i = base + (k0 + q) * nthr + tid;
+        for (int d0 = 4; d0 < g.nb; d0 += 4) {  // the offsets past the first four
+          int fr[4];
+          row_step(fr, fwd, i, g.nb, d0, rows4);
+          uint32_t nr[4][kW];
+          neighbour_words<kW, kStaged>(nr, fr, cluster, sh, g, spins, ncols);
+          add_bonds<kW>(cl, own[q], nr, g.nb, d0);
+        }
+      }
     }
+    int* ws = sh.wsum + (tid >> 5) * 64 * kW;
+    flush_counts<kW>(cq, ws);
+    flush_counts<kW>(cl, ws + 32 * kW);
   }
   __syncthreads();
-  if (wid != 0) return;
-  for (int k = 0; k < per; ++k) {
-    const int q = __reduce_add_sync(0xffffffffu, lane < kWarps ? red[lane][2 * k] : 0);
-    const int l = __reduce_add_sync(0xffffffffu, lane < kWarps ? red[lane][2 * k + 1] : 0);
-    if (lane == 0) {
-      const size_t o = static_cast<size_t>(z) * out_stride + c0 + k;
-      qs_out[o] = n - 2 * q;
-      ql_out[o] = nb * n - 2 * l;
+  for (int c = tid; c < 64 * kW; c += nthr) {  // the CTA's sums, warp after warp
+    int v = 0;
+    for (int w = 0; w < (nthr >> 5); ++w) v += sh.wsum[w * 64 * kW + c];
+    sh.tot[c] = v;
+  }
+  cluster.sync();  // every CTA's sums in its shared memory, no word read any more
+  // (3) the realization's sums: t < ncols the qs count of column t, 32 kW
+  // <= t < 32 kW + ncols the ql count
+  const int t = tid;
+  const bool mine = t < 64 * kW && (t & (32 * kW - 1)) < ncols;
+  int v = 0;
+  bool write = false;
+  if (g.copies == 1) {  // the leader adds its cluster's sums
+    if (rank == 0 && mine) {
+      int part_r[8];  // every rank's load issued before the adds
+#pragma unroll
+      for (int r = 0; r < 8; ++r) part_r[r] = r < g.C ? cluster.map_shared_rank(sh.tot, r)[t] : 0;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) v += part_r[r];
+      write = true;
+    }
+  } else {  // unstaged: every CTA's sums to the scratch; the last CTA adds them
+    const int ctas = g.copies;
+    const size_t row = static_cast<size_t>(z) * g.groups + grp;
+    int* slot = part + row * ctas * 64 * kW;
+    if (mine) slot[blockIdx.x * 64 * kW + t] = sh.tot[t];
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) *sh.flag = atomicAdd(counter + row, 1) == ctas - 1;
+    __syncthreads();
+    if (*sh.flag) {
+      __threadfence();
+      if (mine)
+        for (int j = 0; j < ctas; ++j) v += __ldcg(slot + j * 64 * kW + t);
+      write = mine;
     }
   }
+  if (write) {
+    const int c = t & (32 * kW - 1);
+    const size_t o = static_cast<size_t>(z) * out_stride + col0 + c;
+    if (t < 32 * kW) {
+      qs_out[o] = g.n - 2 * v;
+    } else {
+      ql_out[o] = g.nb * g.n - 2 * v;
+    }
+  }
+  if (g.copies == 1) cluster.sync();  // no CTA leaves while its leader reads its sums
+}
+
+typedef void (*PairTableKernel)(const int8_t*, const int32_t*, const int32_t*, int32_t*,
+                                int32_t*, int*, int*, int, const PairTable);
+
+PairTableKernel pair_table_kernel(int words, bool staged) {
+  if (staged) {
+    return words == 1   ? pair_overlap_table_kernel<1, true>
+           : words == 2 ? pair_overlap_table_kernel<2, true>
+                        : pair_overlap_table_kernel<4, true>;
+  }
+  return words == 1   ? pair_overlap_table_kernel<1, false>
+         : words == 2 ? pair_overlap_table_kernel<2, false>
+                      : pair_overlap_table_kernel<4, false>;
 }
 
 }  // namespace
@@ -434,22 +787,59 @@ int peapods_pair_overlap(const void* spins, const void* sid, void* qs_out, void*
   return static_cast<int>(cudaGetLastError());
 }
 
-// The table form: fwd int32 [n, nb] (device memory); cols = n_pairs T
-// columns a realization, `per` of them a CTA (ops/megapair.py
-// pair_table_per); out rows as peapods_pair_overlap's.
-int peapods_pair_overlap_table(const void* spins, const void* sid, const void* fwd, void* qs_out,
-                               void* ql_out, int out_stride, int n, int nb, int d, int T,
-                               int cols, int S, int per, void* stream) {
-  if (n < 1 || nb < 1 || nb > 32 || static_cast<long long>(n) * nb >= (1LL << 31) || d < 1 ||
-      d > 65535 || T < 1 || cols < 1 || cols % T || 2 * (cols / T) * T > S || per < 1 ||
-      per > kPairTableMaxPer || cols % per || out_stride < cols)
+// The table form: fwd int32 [n, nb] (device memory, 16-byte aligned);
+// words: ops/megapair.py pair_table_words (host memory); part int32 [d,
+// groups, copies, 64 kW] scratch and counter int32 [d groups] of zeros,
+// where the plan has several copies (unstaged only); out rows as
+// peapods_pair_overlap's.
+int peapods_pair_overlap_table(const void* spins, const void* sid, const void* fwd,
+                               void* qs_out, void* ql_out, void* part, void* counter,
+                               int out_stride, int d, const int* words, void* stream) {
+  const PairTable g = make_pair_table(words);
+  const bool staged = g.slice > 0;
+  const int span = staged ? g.slice : g.n;
+  if (g.n < 1 || g.nb < 1 || g.nb > 32 || static_cast<long long>(g.n) * g.nb >= (1LL << 31) ||
+      d < 1 || d > 65535 || g.T < 1 || g.cols < 1 || g.cols % g.T ||
+      2 * (g.cols / g.T) * g.T > g.S || out_stride < g.cols ||
+      (g.words != 1 && g.words != 2 && g.words != 4) ||
+      g.groups != (g.cols + 32 * g.words - 1) / (32 * g.words) || g.groups > 65535 ||
+      (g.C != 1 && g.C != 2 && g.C != 4 && g.C != 8) || (!staged && g.C != 1) ||
+      (staged && (g.slice % 4 || static_cast<long long>(g.slice) * g.C < g.n ||
+                  g.copies != 1)) ||
+      g.copies < 1 || g.share < 1 || static_cast<long long>(g.share) * g.copies < span ||
+      static_cast<long long>(g.C) * g.copies > (1LL << 31) - 1 || g.threads < 64 ||
+      g.threads > kPairTableThreads || g.threads % 32 || g.threads < 2 * 32 * g.words ||
+      g.smem > kPairTableSmem || reinterpret_cast<uintptr_t>(fwd) % 16 ||
+      (g.copies > 1 && (part == nullptr || counter == nullptr)))
     return static_cast<int>(cudaErrorInvalidValue);
-  pair_overlap_table_kernel<<<dim3(cols / per, d), kPairTableThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(spins), static_cast<const int32_t*>(sid),
+  const PairTableKernel kernel = pair_table_kernel(g.words, staged);
+  // above 48 KB of dynamic shared memory a kernel must opt in, once
+  static bool allowed[2][3] = {};
+  bool& ok = allowed[staged][g.words >> 1];
+  if (!ok) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kPairTableSmem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ok = true;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(g.C * g.copies, d, g.groups);
+  cfg.blockDim = dim3(g.threads, 1, 1);
+  cfg.dynamicSmemBytes = g.smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = g.C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, kernel, static_cast<const int8_t*>(spins), static_cast<const int32_t*>(sid),
       static_cast<const int32_t*>(fwd), static_cast<int32_t*>(qs_out),
-      static_cast<int32_t*>(ql_out), out_stride, n, nb, T, S, per);
-  return static_cast<int>(cudaGetLastError());
+      static_cast<int32_t*>(ql_out), static_cast<int*>(part), static_cast<int*>(counter),
+      out_stride, g);
+  return static_cast<int>(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 }  // extern "C"

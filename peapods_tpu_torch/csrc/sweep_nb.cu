@@ -122,6 +122,32 @@
 // the unrolled counts 4, 5, 6, 9, 13), and shrinks its CTAs while a launch
 // would hold fewer CTAs than the card has SMs (ops/sweep.py
 // table_sweep_plan).
+//
+// The table form of measure_nb (measure_nb_table) replaces
+// pallas_sweep_diag.py:562 sweep_gen_fused's measurement (and :306/:393's
+// on the lattices past three dimensions or six offsets).  What bounds it:
+// bytes, every spin, the realizations' couplings and the forward table
+// read once and the partials written: 6.6 MB, 0.0020 ms at the 4D glass.
+// The first design (a thread a group of four sites of one system, so each
+// of a realization's 24 systems read its couplings and table rows again; a
+// runtime loop over the offsets, each term two dependent loads) took
+// 0.0716 ms a launch there, 0.0233 at 16^4 x 16, 0.0776 at 16^3 with 9
+// offsets x 8 x 48 and 0.0091 at 16^3 with 13 offsets x 8 (NVIDIA H100
+// 80GB HBM3, 700 W; tools/probe_measure.py).  This one carries
+// measure_nb's design over: a thread takes a group of four sites for
+// `per` systems of one realization (ops/energy.py table_measure_plan),
+// reads the group's 16 nb contiguous bytes of table rows and of couplings
+// once by 16-byte loads, issues every spin gather of a system before its
+// first add (the unrolled counts 4, 5, 8, 9, 13; other counts in steps of
+// four offsets, each system's four site sums in registers), and at four
+// offsets asks ptxas for four CTAs an SM, so the glass's 480 CTAs run in
+// one wave: 0.0131 ms at the glass (6.7x its bound), 0.0062 at 16^4, 0.0132
+// at 16^3 with 9 offsets and 0.0050 with 13 (the probe, same card; a
+// thread's chain of a system's gathers after its table rows is the time).
+// The sign-bit form (one sign word a site of every system, staged by a
+// cluster) was bitwise too but slower at every shape, 0.0257 ms at the
+// glass.
+// The order of adds is the first design's: bitwise.
 
 #include <cuda_runtime.h>
 
@@ -501,47 +527,193 @@ sweep_nb_table_kernel(int8_t* __restrict__ spins, const float* __restrict__ coup
 }
 
 // The table form of measure_nb: the (e, m) partials of block blockIdx.x
-// (groups of four sites 4 (256 blockIdx.x + t), thread t) of system
-// blockIdx.y of realization blockIdx.z, in the walk form's order: a site's
-// e is 0 + (s s[fwd[i, d]]) J[i, d] over the offsets in order (self-bonds
-// included, as the reference's energy), the group's values added from 0,
-// the 256 group sums paired by one warp (warp_tree).  A first design: a
-// system a thread, a runtime loop over the offsets.
-__global__ void __launch_bounds__(kThreads)
+// (groups of four sites 4 (256 blockIdx.x + t), thread t) of systems
+// blockIdx.y per .. + per - 1 of realization blockIdx.z (ops/energy.py
+// table_measure_plan), in the walk form's order: a site's e is 0 + (s
+// s[fwd[i, d]]) J[i, d] over the offsets in order (self-bonds included, as
+// the reference's energy), the group's values added from 0, each system's
+// 256 group sums paired by one warp (warp_tree).  The group's rows of the
+// int32 table and its couplings (16 nb contiguous bytes each) are read
+// once for its systems, by 16-byte loads where the group is whole and
+// aligned; every spin gather of a system (or, at the counts not unrolled,
+// of a step of four offsets) is issued before the first add.  NB: the
+// offsets, unrolled (the common counts), or 0: a runtime count in steps of
+// four, each system's four site sums kept in registers across the steps.
+// kTail: n % 4 != 0, as measure_nb_kernel's.
+
+// A group's own spins in one system: one 4-byte load, or (kTail) its
+// first cnt bytes, the absent ones 0.
+template <bool kTail>
+__device__ __forceinline__ uint32_t group_spins(const int8_t* __restrict__ s, int i0, int cnt) {
+  if (!kTail) return __ldg(reinterpret_cast<const uint32_t*>(s + i0));
+  uint32_t w = 0;
+#pragma unroll
+  for (int k = 0; k < kSitesPerThread; ++k)
+    if (k < cnt) w |= static_cast<uint32_t>(static_cast<uint8_t>(__ldg(s + i0 + k))) << (8 * k);
+  return w;
+}
+
+// The terms of offsets d0 .. d0 + K - 1 (those below nb) of the group's
+// first cnt sites in one system s, whose own spins are the bytes of own:
+// every neighbour's spin gathered first, then each site's e[k] adds its
+// terms in offset order.
+template <int K>
+__device__ __forceinline__ void group_terms(float (&e)[kSitesPerThread], uint32_t own,
+                                            const int8_t* __restrict__ s,
+                                            const int (&f)[kSitesPerThread][K],
+                                            const float (&jc)[kSitesPerThread][K], int nb,
+                                            int d0, int cnt) {
+  int8_t sn[kSitesPerThread][K];
+#pragma unroll
+  for (int k = 0; k < kSitesPerThread; ++k)
+#pragma unroll
+    for (int j = 0; j < K; ++j) sn[k][j] = __ldg(s + f[k][j]);
+#pragma unroll
+  for (int k = 0; k < kSitesPerThread; ++k) {
+    if (k >= cnt) break;  // an absent site adds 0
+    const int8_t si = static_cast<int8_t>(own >> (8 * k));
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+      if (d0 + j < nb) e[k] = e[k] + bond_term(si, sn[k][j], jc[k][j]);
+  }
+}
+
+// The sum of the group's own spins (the absent ones are 0).
+__device__ __forceinline__ int group_mag(uint32_t own) {
+  return static_cast<int8_t>(own) + static_cast<int8_t>(own >> 8) +
+         static_cast<int8_t>(own >> 16) + static_cast<int8_t>(own >> 24);
+}
+
+// At 4 offsets and no tail four CTAs an SM (64 registers, no spill: the
+// glass's 480 CTAs in one wave); elsewhere one, which ptxas schedules
+// with more loads in flight than with no minimum.
+template <int NB, bool kTail>
+__global__ void __launch_bounds__(kThreads, NB == 4 && !kTail ? 4 : 1)
 measure_nb_table_kernel(const int8_t* __restrict__ spins, const float* __restrict__ coup,
                         const int32_t* __restrict__ fwd, int n, int nb,
                         float* __restrict__ e_part, int32_t* __restrict__ m_part,
-                        int n_systems) {
-  __shared__ float se[kThreads];
-  __shared__ int sm[kThreads];
+                        int n_systems, int per) {
+  __shared__ float se[kMaxPer][kThreads];
+  __shared__ int sm[kMaxPer][kThreads];
   const int i0 = kSitesPerThread * (blockIdx.x * kThreads + threadIdx.x);
+  const bool has = i0 < n;
+  // the group's sites: 4, or fewer in the last group of a tail
+  const int cnt = !has ? 0 : kTail ? min(kSitesPerThread, n - i0) : kSitesPerThread;
   const int dz = blockIdx.z;
-  const size_t row = static_cast<size_t>(dz) * n_systems + blockIdx.y;
-  const int8_t* s = spins + row * n;
-  const float* J = coup + static_cast<size_t>(dz) * n * nb;
-  float acc = 0.0f;
-  int m = 0;
+  const int sys0 = blockIdx.y * per;
+  const int8_t* s0 = spins + (static_cast<size_t>(dz) * n_systems + sys0) * n;
+  const float* cg = coup + (static_cast<size_t>(dz) * n + (has ? i0 : 0)) * nb;
+  const int32_t* rg = fwd + static_cast<size_t>(has ? i0 : 0) * nb;
+  if constexpr (NB > 0) {
+    int f[kSitesPerThread][NB];
+    float jc[kSitesPerThread][NB];
+    if (has) {
+      if (!kTail || cnt == kSitesPerThread) {
+        // the group's 4 NB table entries: i0 NB is a multiple of 4, so
+        // 16-byte aligned
+        const int4* rp = reinterpret_cast<const int4*>(rg);
 #pragma unroll
-  for (int k = 0; k < kSitesPerThread; ++k) {
-    const int i = i0 + k;
-    if (i >= n) break;  // an absent site adds 0
-    const int8_t si = __ldg(s + i);
-    const int32_t* fi = fwd + static_cast<size_t>(i) * nb;
-    float e = 0.0f;
-    for (int d = 0; d < nb; ++d)
-      e = e + bond_term(si, __ldg(s + __ldg(fi + d)), __ldg(J + static_cast<size_t>(i) * nb + d));
-    acc += e;
-    m += si;
+        for (int u = 0; u < NB; ++u) {
+          const int4 x = __ldg(rp + u);
+          f[(4 * u) / NB][(4 * u) % NB] = x.x;
+          f[(4 * u + 1) / NB][(4 * u + 1) % NB] = x.y;
+          f[(4 * u + 2) / NB][(4 * u + 2) % NB] = x.z;
+          f[(4 * u + 3) / NB][(4 * u + 3) % NB] = x.w;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kSitesPerThread; ++k)
+#pragma unroll
+          for (int j = 0; j < NB; ++j) f[k][j] = k < cnt ? __ldg(rg + k * NB + j) : i0;
+      }
+      if (!kTail || (cnt == kSitesPerThread && reinterpret_cast<uintptr_t>(cg) % 16 == 0)) {
+        // a whole group's couplings, 16-byte aligned: every group without a
+        // tail and, with one, the whole groups of aligned realizations
+        const float4* cp = reinterpret_cast<const float4*>(cg);
+#pragma unroll
+        for (int u = 0; u < NB; ++u) {
+          const float4 x = __ldg(cp + u);
+          jc[(4 * u) / NB][(4 * u) % NB] = x.x;
+          jc[(4 * u + 1) / NB][(4 * u + 1) % NB] = x.y;
+          jc[(4 * u + 2) / NB][(4 * u + 2) % NB] = x.z;
+          jc[(4 * u + 3) / NB][(4 * u + 3) % NB] = x.w;
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kSitesPerThread; ++k)
+#pragma unroll
+          for (int j = 0; j < NB; ++j) jc[k][j] = k < cnt ? __ldg(cg + k * NB + j) : 0.0f;
+      }
+    }
+    for (int q = 0; q < per; ++q) {
+      float acc = 0.0f;
+      int m = 0;
+      if (has) {
+        const int8_t* s = s0 + static_cast<size_t>(q) * n;
+        const uint32_t own = group_spins<kTail>(s, i0, cnt);
+        float e[kSitesPerThread] = {0.0f, 0.0f, 0.0f, 0.0f};
+        group_terms<NB>(e, own, s, f, jc, NB, 0, cnt);
+#pragma unroll
+        for (int k = 0; k < kSitesPerThread; ++k)
+          if (k < cnt) acc += e[k];
+        m = group_mag(own);
+      }
+      se[q][threadIdx.x] = acc;
+      sm[q][threadIdx.x] = m;
+    }
+  } else {
+    float e[kMaxPer][kSitesPerThread];
+    uint32_t own[kMaxPer];
+#pragma unroll
+    for (int q = 0; q < kMaxPer; ++q) {
+#pragma unroll
+      for (int k = 0; k < kSitesPerThread; ++k) e[q][k] = 0.0f;
+      own[q] = 0;
+    }
+    if (has) {
+#pragma unroll
+      for (int q = 0; q < kMaxPer; ++q) {
+        if (q >= per) break;
+        own[q] = group_spins<kTail>(s0 + static_cast<size_t>(q) * n, i0, cnt);
+      }
+      for (int d0 = 0; d0 < nb; d0 += 4) {
+        int f[kSitesPerThread][4];
+        float jc[kSitesPerThread][4];
+#pragma unroll
+        for (int k = 0; k < kSitesPerThread; ++k)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const bool on = k < cnt && d0 + j < nb;
+            f[k][j] = on ? __ldg(rg + k * nb + d0 + j) : i0;
+            jc[k][j] = on ? __ldg(cg + k * nb + d0 + j) : 0.0f;
+          }
+#pragma unroll
+        for (int q = 0; q < kMaxPer; ++q) {
+          if (q >= per) break;
+          group_terms<4>(e[q], own[q], s0 + static_cast<size_t>(q) * n, f, jc, nb, d0, cnt);
+        }
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kMaxPer; ++q) {
+      if (q >= per) break;
+      float acc = 0.0f;
+#pragma unroll
+      for (int k = 0; k < kSitesPerThread; ++k)
+        if (k < cnt) acc += e[q][k];
+      se[q][threadIdx.x] = acc;
+      sm[q][threadIdx.x] = group_mag(own[q]);
+    }
   }
-  se[threadIdx.x] = acc;
-  sm[threadIdx.x] = m;
   __syncthreads();
-  if (threadIdx.x < 32) {
-    const int lane = threadIdx.x;
-    const float et = warp_tree(se, lane);
-    const int mt = warp_tree(sm, lane);
+  // warp v pairs systems v, v + 8, ... of the CTA
+  const int lane = threadIdx.x & 31;
+  for (int q = threadIdx.x >> 5; q < per; q += kThreads >> 5) {
+    const float et = warp_tree(se[q], lane);
+    const int mt = warp_tree(sm[q], lane);
     if (lane == 0) {
-      const size_t o = row * gridDim.x + blockIdx.x;
+      const size_t o =
+          (static_cast<size_t>(dz) * n_systems + sys0 + q) * gridDim.x + blockIdx.x;
       e_part[o] = et;
       m_part[o] = mt;
     }
@@ -682,19 +854,41 @@ int peapods_sweep_nb_table(void* spins, const void* coup, const void* sites,
 }
 
 // e_part f32 / m_part int32 [d, n_systems, peapods_nb_blocks(n)] of spins
-// int8 [d, n_systems, n] with couplings f32 [d, n, n_nb] on the table fwd
-// int32 [n, n_nb] (device memory).
+// int8 [d, n_systems, n] with couplings f32 [d, n, n_nb] (16-byte aligned)
+// on the table fwd int32 [n, n_nb] (device memory, 16-byte aligned); per
+// the systems a thread (a divisor of n_systems, at most kMaxPer;
+// ops/energy.py table_measure_plan).
 int peapods_measure_nb_table(const void* spins, const void* coup, const void* fwd,
                              void* e_part, void* m_part, int n, int nb, int n_disorder,
-                             int n_systems, void* stream) {
-  if (n_disorder < 1 || n_disorder > 65535 || n_systems < 1 || n_systems > 65535 || nb < 1 ||
-      nb > kMaxTableOffsets || n < 1 || n > (1 << 30))
+                             int n_systems, int per, void* stream) {
+  if (n_disorder < 1 || n_disorder > 65535 || n_systems < 1 || per < 1 || per > kMaxPer ||
+      n_systems % per || n_systems / per > 65535 || nb < 1 || nb > kMaxTableOffsets ||
+      n < 1 || n > (1 << 30) || reinterpret_cast<uintptr_t>(coup) % 16 ||
+      reinterpret_cast<uintptr_t>(fwd) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(peapods_nb_blocks(n), n_systems, n_disorder);
-  measure_nb_table_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(spins), static_cast<const float*>(coup),
-      static_cast<const int32_t*>(fwd), n, nb, static_cast<float*>(e_part),
-      static_cast<int32_t*>(m_part), n_systems);
+  const dim3 grid(peapods_nb_blocks(n), n_systems / per, n_disorder);
+  // the byte path where a system's row is not 4-byte aligned
+  const bool tail = n % 4 != 0 || reinterpret_cast<uintptr_t>(spins) % 4 != 0;
+  auto go = [&](auto kernel) {
+    kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int8_t*>(spins), static_cast<const float*>(coup),
+        static_cast<const int32_t*>(fwd), n, nb, static_cast<float*>(e_part),
+        static_cast<int32_t*>(m_part), n_systems, per);
+  };
+  auto pick = [&](auto nb_c) {
+    constexpr int NB = decltype(nb_c)::value;
+    tail ? go(measure_nb_table_kernel<NB, true>) : go(measure_nb_table_kernel<NB, false>);
+  };
+  switch (nb) {
+    case 4: pick(std::integral_constant<int, 4>{}); break;
+    case 5: pick(std::integral_constant<int, 5>{}); break;
+    case 8: pick(std::integral_constant<int, 8>{}); break;
+    case 9: pick(std::integral_constant<int, 9>{}); break;
+    // 13 offsets with a tail spilled 120 B unrolled: steps of four there
+    case 13: tail ? pick(std::integral_constant<int, 0>{})
+                  : go(measure_nb_table_kernel<13, false>); break;
+    default: pick(std::integral_constant<int, 0>{}); break;
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

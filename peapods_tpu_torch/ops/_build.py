@@ -61,7 +61,7 @@ _SIGNATURES = {
     "peapods_winding_wrap": [_P] * 4 + [_I] * 3 + [_P],
     "peapods_winding_check": [_P] * 5 + [_I] * 3 + [_P],
     "peapods_pair_overlap": [_P] * 4 + [_I] * 2 + [_P] * 2,
-    "peapods_pair_overlap_table": [_P] * 5 + [_I] * 8 + [_P],
+    "peapods_pair_overlap_table": [_P] * 7 + [_I] * 2 + [_P] * 2,
     "peapods_site_blocks": [_I],
     "peapods_ov_bonds": [_P] * 11 + [_I] * 2 + [_P],
     "peapods_ov_mid": [_P] * 11 + [_I] + [_P],
@@ -78,7 +78,7 @@ _SIGNATURES = {
     "peapods_sweep_nb": [_P] * 6 + [_I] * 5 + [_P],
     "peapods_measure_nb": [_P] * 5 + [_I] * 3 + [_P],
     "peapods_sweep_nb_table": [_P] * 7 + [_I] * 11 + [_P],
-    "peapods_measure_nb_table": [_P] * 5 + [_I] * 4 + [_P],
+    "peapods_measure_nb_table": [_P] * 5 + [_I] * 5 + [_P],
     "peapods_fk_bonds_table": [_P] * 6 + [_I] * 4 + [_P],
     "peapods_cc_table_link": [_P] * 4 + [_I] + [_P],
     "peapods_cc_table_border": [_P] * 4 + [_I] + [_P],

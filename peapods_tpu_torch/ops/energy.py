@@ -12,6 +12,9 @@ positive forward-bond sum per spin, ``e = +sum_{i,d} J[i,d] s_i s_fwd / N``.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -19,7 +22,8 @@ from . import _build
 from .lattice import check_tables
 
 __all__ = ["LAUNCHES", "bond_sums", "energies_and_mags", "per_spin", "site_energies",
-           "measure_nb", "measure_nb_plain", "measure_per"]
+           "measure_nb", "measure_nb_plain", "measure_per", "TableMeasurePlan",
+           "table_measure_plan"]
 
 # kernel launches since the last reset, by kernel name
 LAUNCHES = {"measure_nb": 0, "measure_nb_table": 0}
@@ -113,6 +117,44 @@ def measure_per(n_spins: int, n_disorder: int, n_systems: int, threads: int) -> 
     return systems_per(-(-n_spins // 4), n_disorder, n_systems, threads)
 
 
+# csrc/sweep_nb.cu kMaxPer, kThreads: the most systems a thread of
+# measure_nb_table takes (its CTA's shared rows), and a CTA's threads, a
+# block of 256 groups of four sites
+TABLE_MEASURE_MAX_PER = 8
+TABLE_MEASURE_THREADS = 256
+
+
+class TableMeasurePlan(NamedTuple):
+    """``measure_nb_table``'s launch: the systems a thread (``per``), the
+    grid ``(blocks, n_systems / per, n_disorder)`` and a CTA's static shared
+    memory in bytes (``per`` rows of 256 partial sums of e and m)."""
+
+    per: int
+    grid: tuple
+    smem: int
+
+
+@functools.lru_cache(maxsize=None)
+def table_measure_plan(n_spins: int, n_disorder: int, n_systems: int, threads: int,
+                       sms: int) -> TableMeasurePlan:
+    """The table form's measurement of ``n_disorder`` x ``n_systems``
+    systems of ``n_spins`` sites, from the shape alone: a thread a group of
+    four sites of ``per`` systems of one realization, reading the group's
+    table rows and couplings once for them: the largest divisor of
+    ``n_systems`` up to :data:`TABLE_MEASURE_MAX_PER` whose launch still
+    has ``threads`` threads (an eighth of the card's resident threads, as
+    :func:`measure_per`) and at least ``sms`` CTAs (one a streaming
+    multiprocessor); 1 where none has."""
+    groups = -(-int(n_spins) // 4)
+    blocks = -(-groups // TABLE_MEASURE_THREADS)
+    d, s = int(n_disorder), int(n_systems)
+    fits = [p for p in range(1, min(s, TABLE_MEASURE_MAX_PER) + 1)
+            if s % p == 0 and groups * d * (s // p) >= threads and blocks * d * (s // p) >= sms]
+    per = max(fits, default=1)
+    return TableMeasurePlan(per, (blocks, s // per, d),
+                            8 * TABLE_MEASURE_MAX_PER * TABLE_MEASURE_THREADS)
+
+
 def measure_nb(spins, coup_fwd, lattice, per=None, tables=None):
     """The (e, m) partials of every (realization, system) on a coloured
     lattice (see :func:`measure_nb_plain`): the plain version for CPU
@@ -120,8 +162,9 @@ def measure_nb(spins, coup_fwd, lattice, per=None, tables=None):
     one entry per block of 1024 sites, bitwise ``measure_nb_plain(...,
     blocks=True)``.  ``per``: the systems a thread, in place of
     :func:`measure_per`'s.  A table lattice (:attr:`~.lattice.Lattice.table`)
-    takes the table form, ``measure_nb_table``, a system a thread, on its
-    device ``tables`` (:func:`~.lattice.check_tables`)."""
+    takes the table form, ``measure_nb_table``, on its device ``tables``
+    (:func:`~.lattice.check_tables`), ``per`` in place of
+    :func:`table_measure_plan`'s."""
     if _build.device_kind(spins) == "cpu":
         return measure_nb_plain(spins, coup_fwd, lattice)
     from .fk import resident_threads
@@ -142,9 +185,14 @@ def measure_nb(spins, coup_fwd, lattice, per=None, tables=None):
     stream = torch.cuda.current_stream(dev).cuda_stream
     if lattice.table:
         fwd, _ = check_tables(tables, lattice, dev)
+        if fwd.data_ptr() % 16:
+            raise ValueError("the forward table must be 16-byte aligned")
+        if not per:
+            sms = torch.cuda.get_device_properties(dev.index).multi_processor_count
+            per = table_measure_plan(n, d, n_sys, resident_threads(dev.index) // 8, sms).per
         _build.check(lib.peapods_measure_nb_table(
             spins.data_ptr(), coup_fwd.data_ptr(), fwd.data_ptr(), e_part.data_ptr(),
-            m_part.data_ptr(), n, lattice.n_neighbors, d, n_sys, stream),
+            m_part.data_ptr(), n, lattice.n_neighbors, d, n_sys, per, stream),
             "measure_nb_table")
         LAUNCHES["measure_nb_table"] += 1
         return e_part, m_part

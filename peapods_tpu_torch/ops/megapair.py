@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -59,7 +60,10 @@ __all__ = [
     "pair_overlap_plain",
     "pair_overlap_table",
     "pair_overlap_table_plain",
-    "pair_table_per",
+    "PairTablePlan",
+    "pair_table_plan",
+    "pair_table_smem",
+    "pair_table_words",
     "pair_words",
     "pair_word_bytes",
     "pairs_chunk",
@@ -274,27 +278,96 @@ def pair_overlap_table_plain(spins, sid, fwd, n_replicas):
             (q * nbr).sum(-1, dtype=torch.int32).flatten(1))
 
 
-# pair_overlap_table (csrc/pairs.cu kPairTableMaxPer): a CTA takes
-# pair_table_per columns of one realization, a thread a site at a time with
-# its table row loaded once for them all
-PAIR_TABLE_MAX_PER = 4
+# csrc/pairs.cu: a CTA's threads (kPairTableThreads), the shared memory a
+# CTA can have (kPairTableSmem), the most 32-bit words of columns a site
+# (its kernels' instances: 1, 2 or 4)
+PAIR_TABLE_THREADS = 256
+PAIR_TABLE_SMEM = 232448
+PAIR_TABLE_MAX_WORDS = 4
 
 
-def pair_table_per(cols: int) -> int:
-    """The columns (pair, temperature) a CTA of ``pair_overlap_table``
-    takes: the largest divisor of a realization's ``cols`` up to
-    :data:`PAIR_TABLE_MAX_PER`."""
-    return max(k for k in range(1, PAIR_TABLE_MAX_PER + 1) if cols % k == 0)
+class PairTablePlan(NamedTuple):
+    """``pair_overlap_table``'s launch (``csrc/pairs.cu``): a site's
+    disagreement bits of a column group are ``words`` 32-bit words, the
+    columns in ``groups`` groups of ``32 words``; a realization's group
+    takes a thread-block cluster of ``cluster`` CTAs of ``threads``
+    threads, CTA ``r`` staging and counting the words of sites ``[r slice,
+    (r + 1) slice)``, or (``slice`` 0: none staged, each word made where it
+    is needed) ``copies`` CTAs, copy ``j`` counting the lattice's ``share``
+    from ``j share``; ``smem`` the dynamic shared memory a CTA."""
+
+    words: int
+    groups: int
+    cluster: int
+    copies: int
+    slice: int
+    share: int
+    threads: int
+    smem: int
 
 
-def pair_overlap_table(spins, sid, qs_row, ql_row, *, lattice, n_replicas, tables):
+def pair_table_smem(slice_: int, words: int) -> int:
+    """``csrc/pairs.cu`` ``PairSmem``'s bytes: the slice's words, two 8-byte
+    row offsets a column, eight warps' and the CTA's two int sums a column,
+    the last-copy flag."""
+    return slice_ * 4 * words + (16 * 32 + 8 * 64 * 4 + 64 * 4) * words + 16
+
+
+@functools.lru_cache(maxsize=None)
+def pair_table_plan(n_spins: int, cols: int, n_disorder: int, sms: int) -> PairTablePlan:
+    """The table form's pair measurement of ``cols`` columns (pair,
+    temperature) of ``n_disorder`` realizations of ``n_spins`` sites, from
+    the shape alone: columns in 32-bit words (1, 2 or 4 a site: up to 128
+    columns a group); the fewest CTAs a cluster (1 to 8) whose slices' words
+    fit a CTA's shared memory and whose launch holds ``sms`` CTAs, else 8,
+    one cluster a realization and group (``chip_smoke.py`` phase 38: the 4D
+    glass, 16 realizations, 8 CTAs a cluster, 128 CTAs; copies of the
+    cluster that filled the card ran slower, each staging every word
+    again); past 8 CTAs' shared memory no staging, and copies of one CTA,
+    each counting its share of the lattice, until the launch holds ``sms``
+    CTAs and a CTA counts at most 64 sites a thread."""
+    n, cols, d = int(n_spins), int(cols), int(n_disorder)
+    words = next(w for w in (1, 2, PAIR_TABLE_MAX_WORDS) if cols <= 32 * w
+                 or w == PAIR_TABLE_MAX_WORDS)
+    groups = -(-cols // (32 * words))
+    rows = d * groups
+    def slice_of(c):  # a CTA's sites of C slices, a multiple of 4
+        return (-(-n // c) + 3) // 4 * 4
+
+    fit = [c for c in (1, 2, 4, 8) if pair_table_smem(slice_of(c), words) <= PAIR_TABLE_SMEM]
+    if fit:
+        cluster = next((c for c in fit if c * rows >= sms), fit[-1])
+        slice_ = share = slice_of(cluster)
+        copies = 1
+    else:  # past a cluster's shared memory
+        cluster, slice_ = 1, 0
+        copies = max(1, min(-(-sms // rows), n))
+        copies = max(copies, min(-(-n // (PAIR_TABLE_THREADS * 64)), n))
+        share = -(-n // copies)
+    return PairTablePlan(words, groups, cluster, copies, slice_, share, PAIR_TABLE_THREADS,
+                         pair_table_smem(slice_, words))
+
+
+def pair_table_words(n_spins, n_neighbors, n_temps, cols, n_slots, plan):
+    """int32 words of ``peapods_pair_overlap_table`` (host memory;
+    ``csrc/pairs.cu`` ``make_pair_table``): the lattice, the ladders, the
+    plan, and :func:`~.lattice.fast_divisor` of the slice."""
+    m, s = fast_divisor(max(plan.slice, 1))
+    return np.array([n_spins, n_neighbors, n_temps, cols, n_slots, plan.words, plan.groups,
+                     plan.cluster, plan.copies, plan.slice, plan.share, plan.threads,
+                     m, s, plan.smem],
+                    dtype=np.int64).astype(np.uint32).view(np.int32)
+
+
+def pair_overlap_table(spins, sid, qs_row, ql_row, *, lattice, n_replicas, tables,
+                       plan=None):
     """:func:`pair_overlap` on a table lattice (:attr:`~.lattice.Lattice.
     table`: four dimensions or more, or more than six offsets): every
     pair's ``(qs, ql)`` into the rows ``qs_row`` / ``ql_row``, ``ql`` over
     the lattice's forward offsets read from ``tables`` (its ``(fwd, bwd)``
     on the spins' device, :func:`~.lattice.check_tables`).  The plain
     version for CPU tensors, the ``pair_overlap_table`` kernel for CUDA
-    tensors."""
+    tensors, one launch on :func:`pair_table_plan`'s plan (or ``plan``)."""
     if _build.device_kind(spins) == "cpu":
         fwd = torch.from_numpy(lattice.fwd) if tables is None else tables[0]
         qs, ql = pair_overlap_table_plain(spins, sid, fwd, n_replicas)
@@ -317,11 +390,28 @@ def pair_overlap_table(spins, sid, qs_row, ql_row, *, lattice, n_replicas, table
         raise ValueError(f"pair_overlap_table takes 1 to 65535 realizations, got {d}")
     if n * nb >= 2 ** 31:
         raise ValueError(f"a table of {n} x {nb} entries is larger than int32 indexes")
-    per = pair_table_per(cols)
+    if fwd.data_ptr() % 16:
+        raise ValueError("the forward table must be 16-byte aligned")
+    if plan is None:
+        sms = torch.cuda.get_device_properties(dev.index).multi_processor_count
+        plan = pair_table_plan(n, cols, d, sms)
+    elif (plan.smem > PAIR_TABLE_SMEM or (plan.slice and plan.cluster * plan.slice < n)
+          or (plan.slice and plan.copies != 1)):
+        raise ValueError(f"pair_overlap_table: the plan {plan} does not fit a CTA or the "
+                         "lattice, or stages copies")
+    words = pair_table_words(n, nb, n_temps, cols, n_slots, plan)
+    part = counter = None
+    if plan.copies > 1:  # unstaged: the last CTA's counters, then the CTAs' sums
+        rows = d * plan.groups
+        scratch = torch.zeros(rows * (1 + plan.copies * 64 * plan.words), dtype=torch.int32,
+                              device=dev)
+        counter, part = scratch[:rows], scratch[rows:]
     _build.check(_build.library().peapods_pair_overlap_table(
         spins.data_ptr(), sid.data_ptr(), fwd.data_ptr(), qs_row.data_ptr(),
-        ql_row.data_ptr(), qs_row.stride(0), n, nb, d, n_temps, cols, n_slots, per,
-        torch.cuda.current_stream(dev).cuda_stream), "pair_overlap_table")
+        ql_row.data_ptr(), None if part is None else part.data_ptr(),
+        None if counter is None else counter.data_ptr(), qs_row.stride(0), d,
+        words.ctypes.data, torch.cuda.current_stream(dev).cuda_stream),
+        "pair_overlap_table")
     LAUNCHES["pair_overlap_table"] += 1
 
 

@@ -18,7 +18,8 @@ houdn_states_plain / finish_plain; on the table lattices (4D, 5D, odd
 extents, self-bonds, 9 and 32 offsets) the moves' table forms
 (ov_bonds_table, ov_mid_table, ov_finish_table, houdn_bonds_table,
 houdn_finish_table) and pair_overlap_table, whole, alone and in the engine
-against the CPU.  On a machine
+against the CPU, and the redesigned measure_nb_table and pair_overlap_table
+at each systems-a-thread count and each cluster and copy form.  On a machine
 with a GPU (jax is not needed; ``--noconftest`` skips the JAX package's
 test configuration):
 
@@ -3918,3 +3919,118 @@ def test_table_sweep_matches_plain(cuda, name, shape, offsets, d, n_sys, gibbs):
         torch.cuda.synchronize()
         assert torch.equal(a, b), per
         assert not torch.equal(a, x["spins"]), per
+
+
+# The redesigned table measurement and pair overlaps (csrc/sweep_nb.cu
+# measure_nb_table, csrc/pairs.cu pair_overlap_table) at the runs' shapes:
+# (name, shape, offsets, realizations, systems)
+TABLE_MEASURE = [
+    ("glass4d", (10, 10, 10, 10), None, 16, 24), ("4d16", (16, 16, 16, 16), None, 1, 16),
+    ("5d6", (6, 6, 6, 6, 6), None, 2, 4), ("4d9-tail", (9, 9, 9, 9), None, 1, 8),
+    ("4d-self", (1, 3, 3, 3), None, 2, 3), ("nine16", (16, 16, 16), NINE, 8, 48),
+    ("shells16", (16, 16, 16), SHELLS3, 1, 8), ("off32", (8, 8), THIRTY_TWO, 2, 6),
+    ("ten7x9-tail", (7, 9), TEN[:7], 1, 5),
+]
+
+
+@pytest.mark.parametrize("name,shape,offsets,d,n_sys", TABLE_MEASURE,
+                         ids=[x[0] for x in TABLE_MEASURE])
+def test_table_measure_matches_plain(cuda, name, shape, offsets, d, n_sys):
+    """measure_nb_table at the plan's systems a thread and at every other
+    divisor up to 8, gaussian couplings: every partial bitwise
+    ``measure_nb_plain(blocks=True)`` (e as int32 bits), one launch a call;
+    also on spins that start off a 4-byte boundary."""
+    from peapods_tpu_torch.ops import energy
+
+    lat, x = _nb_inputs(cuda, 59, shape, offsets, d, n_sys, couplings="gauss")
+    assert lat.table
+    tables = lat.device_tables(cuda)
+    want = energy.measure_nb_plain(x["spins"], x["coup"], lat, blocks=True)
+    for per in [None] + [p for p in range(1, 9) if n_sys % p == 0]:
+        energy.LAUNCHES["measure_nb_table"] = 0
+        ek, mk = energy.measure_nb(x["spins"], x["coup"], lat, per=per, tables=tables)
+        torch.cuda.synchronize()
+        assert energy.LAUNCHES["measure_nb_table"] == 1
+        assert torch.equal(ek.view(torch.int32), want[0].view(torch.int32)), per
+        assert torch.equal(mk, want[1]), per
+    off = _offset_copy(x["spins"], 1)
+    ek, mk = energy.measure_nb(off, x["coup"], lat, tables=tables)
+    torch.cuda.synchronize()
+    assert torch.equal(ek.view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(mk, want[1])
+
+
+# (name, shape, offsets, realizations, replicas, temperatures)
+PAIR_TABLE = [
+    ("glass4d", (10, 10, 10, 10), None, 16, 2, 12), ("houd4", (10, 10, 10, 10), None, 16, 4, 12),
+    ("nine16", (16, 16, 16), NINE, 8, 2, 24), ("4d16", (16, 16, 16, 16), None, 1, 2, 6),
+    ("4d9-tail", (9, 9, 9, 9), None, 2, 2, 5), ("4d-self", (1, 3, 3, 3), None, 2, 2, 5),
+    ("off32-cols20", (8, 8), THIRTY_TWO, 2, 2, 20), ("4d4-cols40", (4, 4, 4, 4), None, 2, 2, 40),
+    ("4d4-cols80", (4, 4, 4, 4), None, 2, 4, 40), ("3^4-cols130", (3, 3, 3, 3), None, 2, 2, 130),
+]
+PAIR_TABLE_FORMS = [None, (1, 1), (2, 1), (4, 1), (8, 1), (1, 1, 64), "unstaged", (4, 2)]
+
+
+def _pair_table_plan(n, cols, form):
+    """A consistent pair_overlap_table plan: ``form`` (cluster, copies[,
+    threads]; staged) or unstaged copies."""
+    from peapods_tpu_torch.ops import megapair
+
+    words = 1 if cols <= 32 else 2 if cols <= 64 else 4
+    groups = -(-cols // (32 * words))
+    threads = max(form[2] if form != "unstaged" and len(form) > 2 else 256, 64 * words)
+    if form == "unstaged":
+        cluster, copies, slice_, share = 1, 3, 0, -(-n // 3)
+    else:
+        cluster, copies = form[:2]
+        slice_ = (-(-n // cluster) + 3) // 4 * 4
+        share = -(-slice_ // copies)
+    return megapair.PairTablePlan(words, groups, cluster, copies, slice_, share, threads,
+                                  megapair.pair_table_smem(slice_, words))
+
+
+@pytest.mark.parametrize("form", PAIR_TABLE_FORMS,
+                         ids=["plan", "c1", "c2", "c4", "c8", "c1-t64", "unstaged",
+                              "c4x2-refused"])
+@pytest.mark.parametrize("name,shape,offsets,d,n_rep,n_temps", PAIR_TABLE,
+                         ids=[x[0] for x in PAIR_TABLE])
+def test_pair_table_forms_match_plain(cuda, name, shape, offsets, d, n_rep, n_temps, form):
+    """pair_overlap_table on its plan and on forced forms (1 to 8 CTAs a
+    cluster, 64 threads, no staging on three copies) into row views of a
+    chunk's outputs: qs and ql bitwise pair_overlap_table_plain, one launch
+    a call, twice in a row (the unstaged form's counters zeroed each call),
+    also on spins that start off a 4-byte boundary; the glass's plan one
+    cluster of 8 CTAs a realization; a staged form with copies, or one
+    whose slices do not fit a CTA, refused."""
+    from peapods_tpu_torch.ops import megapair
+
+    lat = _table_lattice(shape, offsets)
+    tables = lat.device_tables(cuda)
+    cols = (n_rep // 2) * n_temps
+    plan = None if form is None else _pair_table_plan(lat.n_spins, cols, form)
+    if plan is not None and (plan.smem > 232448 or (plan.slice and plan.copies > 1)):
+        x = _ov_inputs(cuda, 83, lat, "pm", 0, d=d, n_rep=n_rep, n_temps=n_temps)
+        rows = torch.empty((2, d, cols), dtype=torch.int32, device=cuda)
+        with pytest.raises(ValueError, match="does not fit"):
+            megapair.pair_overlap_table(x["spins"], x["sid"], rows[0], rows[1], lattice=lat,
+                                        n_replicas=n_rep, tables=tables, plan=plan)
+        return
+    if form is None and name == "glass4d":
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        p = megapair.pair_table_plan(lat.n_spins, cols, d, sms)
+        assert (p.cluster, p.copies, p.groups) == (8, 1, 1)
+    for offset in (0, 1):
+        x = _ov_inputs(cuda, 83 + offset, lat, "pm", offset, d=d, n_rep=n_rep,
+                       n_temps=n_temps)
+        want = megapair.pair_overlap_table_plain(x["spins"], x["sid"], tables[0], n_rep)
+        for _ in range(2):
+            rows = torch.full((2, d, 3, cols), -7, dtype=torch.int32, device=cuda)
+            megapair.LAUNCHES["pair_overlap_table"] = 0
+            megapair.pair_overlap_table(x["spins"], x["sid"], rows[0][:, 1], rows[1][:, 1],
+                                        lattice=lat, n_replicas=n_rep, tables=tables,
+                                        plan=plan)
+            torch.cuda.synchronize()
+            assert megapair.LAUNCHES["pair_overlap_table"] == 1
+            assert torch.equal(rows[0][:, 1], want[0]), offset
+            assert torch.equal(rows[1][:, 1], want[1]), offset
+            assert (rows[:, :, [0, 2]] == -7).all()

@@ -40,6 +40,7 @@ from peapods_tpu_torch.ops import fk, megapair, overlap
 from peapods_tpu_torch.ops.cluster import connected_components
 from peapods_tpu_torch.ops.lattice import Lattice
 from test_torch_overlap_lattices import _batch, _port, _staged
+from test_torch_table_plans import model_pair_table
 
 torch.set_num_threads(1)
 
@@ -179,9 +180,8 @@ def test_pair_overlap_table_plain_matches_overlap_dots(shape, offsets, n_rep, n_
 
 # ------------------------------------------------ the launches, modelled
 
-# csrc/overlap.cu kThreads, csrc/pairs.cu kPairTableThreads
+# csrc/overlap.cu kThreads
 THREADS = 256
-PAIR_THREADS = 512
 
 
 def table_grid(n, n_tasks):
@@ -232,36 +232,17 @@ def test_table_launch_takes_every_task_site_once(shape, offsets, n_tasks):
 
 
 def _model_pair_table(spins, sid, fwd, n_rep):
-    """The pair_overlap_table launch in numpy: CTA (x, z) takes columns x
-    per .. x per + per - 1 of realization z, thread t the sites t, t + 512,
-    ...; each column's counts, delta_i and delta_i XOR delta_f, summed by
-    thread, then over the CTA, and qs = n - 2 sum delta, ql = nb n - 2 sum
-    xor.  Returns (qs, ql) and the (z, column, site) keys taken."""
+    """The pair_overlap_table launch in numpy on the plan of 132 SMs
+    (``megapair.pair_table_plan``; ``test_torch_table_plans.py``
+    ``model_pair_table``: a cluster staging the realization's
+    disagreement words).  Returns (qs, ql) and the (z, column, site) keys
+    taken."""
     d, s, n = spins.shape
-    nb = fwd.shape[1]
-    n_temps = s // n_rep
-    cols = (n_rep // 2) * n_temps
-    per = megapair.pair_table_per(cols)
-    assert cols % per == 0 and 1 <= per <= megapair.PAIR_TABLE_MAX_PER
-    qs = np.zeros((d, cols), np.int64)
-    ql = np.zeros((d, cols), np.int64)
-    taken = []
-    tid = np.arange(n) % PAIR_THREADS  # the thread that takes each site
-    for z in range(d):
-        for x in range(cols // per):
-            for k in range(per):
-                c = x * per + k
-                p, t = divmod(c, n_temps)
-                a = spins[z, sid[z, 2 * p * n_temps + t]]
-                b = spins[z, sid[z, (2 * p + 1) * n_temps + t]]
-                delta = (a != b).astype(np.int64)
-                link = (delta[:, None] ^ delta[fwd]).sum(1)
-                by_thread = [np.bincount(tid, w, PAIR_THREADS) for w in (delta, link)]
-                qs[z, c] = n - 2 * int(by_thread[0].sum())
-                ql[z, c] = nb * n - 2 * int(by_thread[1].sum())
-                taken.append((z * cols + c) * n + tid + PAIR_THREADS * (
-                    np.arange(n) // PAIR_THREADS))
-    return qs, ql, np.concatenate(taken)
+    cols = (n_rep // 2) * (s // n_rep)
+    plan = megapair.pair_table_plan(n, cols, d, 132)
+    qs, ql, counts = model_pair_table(spins, sid, fwd, n_rep, plan)
+    taken = np.repeat(np.arange(d * cols * n), counts.reshape(-1))
+    return qs, ql, taken
 
 
 @pytest.mark.parametrize("shape,offsets,n_rep,n_temps",

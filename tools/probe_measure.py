@@ -44,13 +44,26 @@ Variants of the redesigns, one part taken away each:
 * ``e-n-per1``, ``e-n-per2``, ``e-n-per4``, ``e-n-per8``: systems a warp
   other than the rule's;
 * ``e-n-lb4``: the kernel built for four CTAs an SM (at most 64
-  registers).
+  registers);
+* ``t-lb0``: ``measure_nb_table`` with no minimum of CTAs an SM (the
+  redesign asks four at 4 offsets, one elsewhere); ``t-unroll2``: its loop
+  over the systems unrolled twice.
 
 The states are random +-1 spins and gaussian couplings at the main paths'
 shapes: ``measure_nb`` at BCC and FCC 16^3 x 8 and NNN 64^2 x 8 (the staged
 paths), config 2 (32^2 triangular x 8) and 32^3 x 16; ``energy_partials``
 at configs 5 and 4 (16^3 and 8^3, 96 systems, 8 realizations) and the 64^2
-glass of overlap observe (16 systems, 4 realizations).  Every build and
+glass of overlap observe (16 systems, 4 realizations); the table form
+``measure_nb_table`` (the first design, a thread a group of one system
+and a runtime loop over the offsets, told from the redesign, a group of
+``per`` systems a thread with the group's table rows and couplings read
+once, by its source) at the table runs' shapes: the 4D glass (10^4, 16
+realizations x 24 systems), 16^4 x 16, nine16 (16^3 with 9 offsets, 8 x
+48; nine16x24 8 x 24) and 16^3 with 13 offsets x 8 (``--per``: the
+redesign also at every other count of systems a thread; ``--bits``:
+``tools/measure_bits.cu``, the sign-bit form, a cluster of CTAs a
+realization staging one sign word a site, at the shapes of at most 32
+systems a realization).  Every build and
 every variant that keeps the function is held bitwise to the block plain
 version (``measure_nb_plain`` / ``energy_partials_plain(blocks=True)``).
 Times are device times of one launch (CUDA events over warm launches
@@ -126,6 +139,15 @@ E_N_DIV = [("  const int rest = fast_div(gw, g.m[2], g.s[2]);", "  const int res
            ("    const int line = fast_div(k, g.m[0], g.s[0]);", "    const int line = k / g.wpl;"),
            ("      ca = fast_div(line, g.m[1], g.s[1]);", "      ca = line / g.Lb;")]
 
+# ... and of the table redesign (measure_nb_table, "t-" variants: built only
+# for a source whose table form is the redesign)
+T_LB0 = [("__launch_bounds__(kThreads, NB == 4 && !kTail ? 4 : 1)\nmeasure_nb_table_kernel(",
+          "__launch_bounds__(kThreads)\nmeasure_nb_table_kernel(")]
+T_UNROLL2 = [("    for (int q = 0; q < per; ++q) {\n      float acc = 0.0f;\n      int m = 0;\n"
+              "      if (has) {\n        const int8_t* s = s0",
+              "#pragma unroll 2\n    for (int q = 0; q < per; ++q) {\n      float acc = 0.0f;\n"
+              "      int m = 0;\n      if (has) {\n        const int8_t* s = s0")]
+
 # name: (kernel, design, source edits, host plan or None, keeps the function);
 # a host plan is measure_nb's per or energy_partials' (align, per)
 VARIANTS = {
@@ -146,6 +168,8 @@ VARIANTS = {
     "e-n-per4": ("energy_partials", "redesign", [], (0, 4), True),
     "e-n-per8": ("energy_partials", "redesign", [], (0, 8), True),
     "e-n-lb4": ("energy_partials", "redesign", E_N_LB4, None, True),
+    "t-lb0": ("measure_nb", "redesign", T_LB0, None, True),
+    "t-unroll2": ("measure_nb", "redesign", T_UNROLL2, None, True),
 }
 
 NNN = [[1, 0], [0, 1], [1, 1], [1, -1]]
@@ -182,6 +206,8 @@ def builds(sources, out, variants):
                     kern, aim, edits, _, _ = VARIANTS[variant]
                     if kern != kernel or aim != own:
                         continue
+                    if variant.startswith("t-") and table_design(csrc) != "redesign":
+                        continue
                     gone = [old.splitlines()[0] for old, _ in edits if text.count(old) != 1]
                     if gone:
                         raise SystemExit(f"probe_measure: {variant} does not apply to "
@@ -202,7 +228,7 @@ def builds(sources, out, variants):
 
 
 def _kernel_name(fn):
-    for k in FILES:
+    for k in ("measure_nb_table", *FILES):
         if f"{k}_kernel" in fn:
             args = re.findall(r"Li(\d+)E|Lb([01])E", fn.split("_kernel", 1)[1])
             args = [a or b for a, b in args]
@@ -335,6 +361,152 @@ def plain_blocks(x):
     return overlap.energy_partials_plain(x["spins"], x["coup"], x["shape"], blocks=True)
 
 
+SHELLS3 = ([[1, 0, 0], [0, 1, 0], [0, 0, 1]]
+           + [[1, s, 0] for s in (1, -1)] + [[1, 0, s] for s in (1, -1)]
+           + [[0, 1, s] for s in (1, -1)]
+           + [[1, a, b] for a in (1, -1) for b in (1, -1)])
+# the table form's states: (name, shape, offsets, realizations, systems)
+TABLE_SHAPES = (("glass4d", (10, 10, 10, 10), None, 16, 24),
+                ("4d16", (16, 16, 16, 16), None, 1, 16),
+                ("nine16", (16, 16, 16), SHELLS3[:9], 8, 48),
+                ("nine16x24", (16, 16, 16), SHELLS3[:9], 8, 24),
+                ("shells16", (16, 16, 16), SHELLS3, 1, 8))
+BITS_SRC = ROOT / "tools" / "measure_bits.cu"  # the sign-bit form (--bits)
+
+
+def table_design(csrc: Path) -> str:
+    """measure_nb_table's design of a source: the first (a system a
+    thread) or the redesign (``per`` systems a thread)."""
+    return "redesign" if "group_terms" in (csrc / "sweep_nb.cu").read_text() else "first"
+
+
+def table_launcher(lib, first, x, per=None):
+    """``(fn, e_part, m_part, per)``: one launch of a build's
+    measure_nb_table, the redesign at ``per`` systems a thread (default
+    ``energy.table_measure_plan``'s)."""
+    dev = x["spins"].device
+    d, s, n, nb = x["d"], x["s"], x["n"], x["nb"]
+    blocks = -(-(-(-n // 4)) // 256)
+    e = torch.empty((d, s, blocks), dtype=torch.float32, device=dev)
+    m = torch.empty((d, s, blocks), dtype=torch.int32, device=dev)
+    fn = lib.peapods_measure_nb_table
+    fn.restype = _I
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    head = (x["spins"].data_ptr(), x["coup"].data_ptr(), x["fwd"].data_ptr(), e.data_ptr(),
+            m.data_ptr(), n, nb, d, s)
+    if first:
+        fn.argtypes = [_P] * 5 + [_I] * 4 + [_P]
+        args = (*head, stream)
+    else:
+        fn.argtypes = [_P] * 5 + [_I] * 5 + [_P]
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        per = per or energy.table_measure_plan(n, d, s, resident_threads(dev.index) // 8,
+                                               sms).per
+        args = (*head, per, stream)
+    return (lambda: _build.check(fn(*args), "measure_nb_table")), e, m, per
+
+
+def table_bound_ms(x):
+    """``chip_smoke.py`` ``any_bounds``' measurement: every spin, the
+    couplings and the forward table once, the partials written."""
+    d, s, n, nb = x["d"], x["s"], x["n"], x["nb"]
+    blocks = -(-n // 1024)
+    return (d * s * n + 4 * d * n * nb + 4 * n * nb + 8 * d * s * blocks) / HBM_BYTES_S * 1e3
+
+
+def build_bits(csrc: Path, out: Path):
+    """``tools/measure_bits.cu`` built against the sources ``csrc``: ``(lib,
+    ptxas log)``."""
+    out.mkdir(parents=True, exist_ok=True)
+    so = out / "measure_bits.so"
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(so),
+                           str(BITS_SRC)], capture_output=True, text=True)
+    if proc.returncode:
+        raise RuntimeError(f"nvcc failed for {BITS_SRC}:\n{proc.stdout}{proc.stderr}")
+    return ctypes.CDLL(str(so)), proc.stdout + proc.stderr
+
+
+def bits_launcher(lib, x):
+    """``(fn, e_part, m_part, (C, slice))``: one launch of the sign-bit form,
+    a cluster of up to 8 CTAs a realization."""
+    from peapods_tpu_torch.ops.lattice import fast_divisor
+
+    dev = x["spins"].device
+    d, s, n, nb = x["d"], x["s"], x["n"], x["nb"]
+    blocks = -(-(-(-n // 4)) // 256)
+    c = min(8, blocks)
+    slice_ = (-(-n // c) + 3) // 4 * 4
+    m, sh = fast_divisor(slice_)
+    e = torch.empty((d, s, blocks), dtype=torch.float32, device=dev)
+    mp = torch.empty((d, s, blocks), dtype=torch.int32, device=dev)
+    fn = lib.peapods_measure_bits
+    fn.restype = _I
+    fn.argtypes = [_P] * 5 + [_I] * 8 + [_P]
+    args = (x["spins"].data_ptr(), x["coup"].data_ptr(), x["fwd"].data_ptr(), e.data_ptr(),
+            mp.data_ptr(), n, nb, d, s, c, slice_, m, sh,
+            torch.cuda.current_stream(dev).cuda_stream)
+    return (lambda: _build.check(fn(*args), "measure_bits")), e, mp, (c, slice_)
+
+
+def probe_table(libs, todo, dev, card, rounds, pers, only, rng, results, bits=None):
+    """measure_nb_table of every source's base build at TABLE_SHAPES:
+    partials bitwise ``measure_nb_plain(blocks=True)`` (gaussian
+    couplings); with ``pers`` the redesign at every count of systems a
+    thread."""
+    keys = [k for k in todo if k[1] == "measure_nb" and (k[2] == "base"
+                                                        or k[2].startswith("t-"))]
+    for name, shape, offsets, d, s in TABLE_SHAPES:
+        if only and name not in only:
+            continue
+        x = inputs("measure_nb", shape, offsets, d, s, dev, rng)
+        x["fwd"] = x["lat"].device_tables(dev)[0]
+        want = energy.measure_nb_plain(x["spins"], x["coup"], x["lat"], blocks=True)
+        for rnd in range(rounds):
+            for key in (keys if rnd % 2 == 0 else keys[::-1]):
+                first = table_design(todo[key][0].parent) == "first"
+                lib = libs[key][0]
+                for per in ([None] if first or not pers or key[2] != "base"
+                            else [None] + [p for p in range(1, 9) if s % p == 0]):
+                    fn, e, m, used = table_launcher(lib, first, x, per)
+                    fn()
+                    torch.cuda.synchronize()
+                    if not (torch.equal(e.view(torch.int32), want[0].view(torch.int32))
+                            and torch.equal(m, want[1])):
+                        raise AssertionError(f"{key[0]} measure_nb_table at {name} (per "
+                                             f"{used}) differs from its block plain version")
+                    ms = events_ms(fn, 200)
+                    results.append(dict(kind="measure_nb_table", source=key[0], variant=key[2],
+                                        state=name, round=rnd, per=used, forced=per is not None,
+                                        ms=ms, bound_ms=table_bound_ms(x), bitwise_plain=True,
+                                        design="first" if first else "redesign"))
+                    print(f"[measure_nb_table] {key[0]} {key[2]} {name} ({d} x {s} x {x['n']}, "
+                          f"{x['nb']} offsets, " + ("the first design" if first else
+                                                    f"{used} systems a thread")
+                          + f"): {ms:.5f} ms a launch (bound {table_bound_ms(x):.7f} ms, "
+                          f"bytes), partials bitwise block plain round {rnd} on {card}",
+                          flush=True)
+            if bits is not None and s <= 32 and x["nb"] in (4, 9, 13):
+                fn, e, m, form = bits_launcher(bits, x)
+                fn()
+                torch.cuda.synchronize()
+                ok = bool(torch.equal(e.view(torch.int32), want[0].view(torch.int32))
+                          and torch.equal(m, want[1]))
+                if not ok:
+                    raise AssertionError(f"the sign-bit form at {name} differs from the block "
+                                         "plain version")
+                ms = events_ms(fn, 200)
+                results.append(dict(kind="measure_nb_table", source="bits", variant="bits",
+                                    state=name, round=rnd, cluster=form[0], slice=form[1],
+                                    ms=ms, bound_ms=table_bound_ms(x), bitwise_plain=True,
+                                    design="sign bits"))
+                print(f"[measure_nb_table] bits {name} ({d} x {s} x {x['n']}, {x['nb']} offsets, "
+                      f"the sign-bit form, {form[0]} CTAs a cluster): {ms:.5f} ms a launch "
+                      f"(bound {table_bound_ms(x):.7f} ms, bytes), partials bitwise block plain "
+                      f"round {rnd} on {card}", flush=True)
+        del x, want
+        torch.cuda.empty_cache()
+
+
 def bound_ms(x):
     """``chip_smoke.py``'s bound: every spin and the realization's couplings
     read once, the partials written, over the card's memory rate."""
@@ -384,6 +556,11 @@ def main():
     ap.add_argument("--variants", default=",".join(VARIANTS),
                     help="comma-separated variants (default: all of each source's designs)")
     ap.add_argument("--shapes", default="", help="comma-separated state names (default: all)")
+    ap.add_argument("--per", action="store_true",
+                    help="also time the table redesign at every count of systems a thread")
+    ap.add_argument("--bits", action="store_true",
+                    help="also build and time tools/measure_bits.cu, the sign-bit form, "
+                    "against the last --src's headers")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_measure: torch sees no CUDA device", file=sys.stderr)
@@ -417,6 +594,14 @@ def main():
                 yield name, inputs(kernel, shape, geometry, d, n_sys, dev, rng)
 
     probe(libs, todo, states, card, a.rounds, results)
+    bits = None
+    if a.bits:
+        bits, log = build_bits(sources[-1][1], out / "bits")
+        regs = registers(log.replace("measure_bits_kernel", "measure_nb_table_kernel"))
+        results.append(dict(kind="build", source="bits", file=BITS_SRC.name, variant="bits",
+                            registers=regs))
+        print("[ptxas] bits: " + "; ".join(f"{k} {v}" for k, v in regs.items()), flush=True)
+    probe_table(libs, todo, dev, card, a.rounds, a.per, only, rng, results, bits)
     path = Path(a.json) if a.json else out / "probe.json"
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(dict(card=card, results=results)))
