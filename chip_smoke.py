@@ -6004,9 +6004,16 @@ def any_checks(name, run, dev, rng, card, phase="36 kernel-vs-plain"):
                                                        offsets=lat.offsets), 2)
     plain["labelling"] = wall_ms(lambda: connected_components(bonds, lat.shape,
                                                               lat.offsets), 2)
+    form = "walk form"
+    if lat.table:
+        plan = fk.table_bonds_plan(n, lat.n_neighbors, d, s, fk.resident_threads(dev.index) // 8,
+                                   torch.cuda.get_device_properties(dev).multi_processor_count)
+        form = (f"table form; fk_bonds_table {plan.per} graphs a thread"
+                + (f", {plan.split} warps a group" if plan.split > 1 else "")
+                + f", {plan.grid[0] * plan.grid[1] * plan.grid[2]} CTAs")
     log(phase, f"{name} on the run's state ({g} systems of "
         f"{'x'.join(map(str, lat.shape))}, {lat.n_neighbors} offsets, "
-        f"{'table' if lat.table else 'walk'} form): a sweep ({flipped} spins flipped), "
+        f"{form}): a sweep ({flipped} spins flipped), "
         f"the measurement's partials, the staged bonds' state and the labelling bitwise "
         f"the plain versions: mismatches {bad}; plain sweep {plain['sweep']:.3f}, "
         f"measurement {plain['measure']:.3f}, bonds {plain['bonds']:.3f}, labelling "
@@ -6474,7 +6481,7 @@ def ea_moves_check(name, lat, tables, x, moves, dev, rng, card, observe=False):
     too), each table form alone (:func:`ea_alone`), and
     ``pair_overlap_table`` bitwise its plain version; the plain versions'
     times and the kernels' bounds."""
-    from peapods_tpu_torch.ops import megapair, overlap
+    from peapods_tpu_torch.ops import fk, megapair, overlap
 
     spins, sid = x["spins"], x["sid"]
     d, s, n = spins.shape
@@ -6513,9 +6520,13 @@ def ea_moves_check(name, lat, tables, x, moves, dev, rng, card, observe=False):
             b_ms, b_by = bounds[k]
             out.setdefault(k, dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
                                    plain_ms=plain_ms, plain_is=f"the whole {kind} move"))
+        per = "" if kind == "houdayer" else "; ov_bonds_table {} tasks a thread".format(
+            overlap.ov_table_plan(n, d, x["n_temps"], x["n_replicas"] // g,
+                                  torch.cuda.get_device_properties(dev).multi_processor_count,
+                                  overlap.table_ctas(dev.index, lat.n_neighbors, kind)).per)
         log("38 kernel-vs-plain", f"{name} {kind} (g {g}, {'wolff' if wolff else 'sw'}"
             f"{', and its observe form' if len(forms) > 1 else ''}; {d * x['n_temps'] * (x['n_replicas'] // g)} "
-            f"tasks on {'x'.join(map(str, lat.shape))}, {lat.n_neighbors} offsets): the "
+            f"tasks on {'x'.join(map(str, lat.shape))}, {lat.n_neighbors} offsets{per}): the "
             f"move's spins, labels and masks and each table form alone bitwise the plain "
             f"version: mismatches {alone}; {flipped} spins flipped; plain move "
             f"{plain_ms:.3f} ms on {card} ok")

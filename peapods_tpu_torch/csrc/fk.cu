@@ -174,6 +174,7 @@
 #include "band.cuh"
 #include "mega.cuh"
 #include "nb.cuh"
+#include "table.cuh"
 #include "uf.cuh"
 
 using namespace peapods;
@@ -451,49 +452,201 @@ fk_bonds_staged_kernel(const int8_t* __restrict__ spins, const float* __restrict
 }
 
 // The table form of fk_bonds_staged (4D and up, or 7 to 32 offsets;
-// ops/lattice.Lattice.table): the bonds of sites 4g .. 4g+3 (thread g) of
-// graph blockIdx.y as one 32-bit word a site, bit d the bond to fwd[i, d]
-// (the int32 table [n, n_nb] in device memory).  The draws are the walk
-// form's, counter for counter: word (site & 3) of Philox keyed by the
-// graph's kb words, counter (d, site / 4, 0, 0); a self-bond is drawn as
-// any other (it joins nothing).  A first design: a group of one graph a
-// thread, a runtime loop over the offsets.
-__global__ void __launch_bounds__(kThreads)
-fk_bonds_table_kernel(const int8_t* __restrict__ spins, const float* __restrict__ j_fwd,
-                      const float* __restrict__ temps, const int32_t* __restrict__ kb,
-                      uint32_t* __restrict__ state, const int32_t* __restrict__ fwd, int n,
-                      int nb, int n_systems) {
-  const int g = blockIdx.x * kThreads + threadIdx.x;
-  const int w0 = 4 * g;
-  if (w0 >= n) return;
-  const int b = blockIdx.y;
-  const int8_t* s = spins + static_cast<size_t>(b) * n;
-  const float* J = j_fwd + static_cast<size_t>(b / n_systems) * n * nb;
-  const float T = temps[b];
-  const uint32_t thr1 = unit_threshold(T);
-  const uint32_t k0 = static_cast<uint32_t>(kb[2 * b]);
-  const uint32_t k1 = static_cast<uint32_t>(kb[2 * b + 1]);
-  const int cnt = min(4, n - w0);
-  float si[4];
-  uint32_t st[4] = {0u, 0u, 0u, 0u};
+// ops/lattice.Lattice.table): the bonds of each site as one 32-bit word,
+// bit d the bond to fwd[i, d] (the int32 table [n, n_nb] in device memory).
+// The draws are the walk form's, counter for counter: word (site & 3) of
+// Philox keyed by the graph's kb words, counter (d, site / 4, 0, 0); a
+// self-bond is drawn as any other (it joins nothing).
+//
+// A thread takes the group of sites 4g .. 4g+3 for `per` graphs of one
+// realization (blockIdx.z; graphs z S + blockIdx.y per .., ops/fk.py
+// table_bonds_plan), whose temperatures, unit thresholds and key words the
+// CTA stages in shared memory once.  It reads the group's 4 nb table
+// entries and couplings once for its graphs (table.cuh: 16-byte loads where
+// the group is whole; each offset's couplings kept as one word of sign and
+// unit bits, a coupling other than +-1 read again where its bond can be
+// active), and for each graph its own spins (one 32-bit load where vec &
+// 1) and every neighbour's spin of a step before the step's first draw,
+// decides the four sites of an offset at once, and stores the group's four
+// words with one 16-byte store (vec & 2).  NB: the offsets unrolled (4, 5, 8, 9, 13: one step), or 0, a
+// runtime count in steps of four offsets with each graph's words kept in
+// registers across the steps.  kSplit (a launch of one graph a thread too
+// small to fill the card: 16^3 with 13 offsets x 8 graphs is 32 CTAs of
+// 256): a CTA is `split` warps over the same 32 groups of one graph, warp w
+// drawing its share of the offsets (the steps of [w c, w c + c), c =
+// ceil(nb / split)); their bits meet in shared memory and warp 0 stores.
+//
+// The first design (a group of four sites of one graph a thread: each of a
+// realization's graphs read its couplings and table rows again, 4-byte
+// words at a time, each term a table load and then a spin load, a runtime
+// loop over the offsets) took 0.0720 ms a launch at the 4D +-J glass (384
+// graphs of 10^4 sites, 4 offsets; 11x its bound), 0.0275 at 16^4 x 16 and
+// 0.0136 at 16^3 with 13 offsets x 8; this one 0.0306 (8 graphs a
+// thread), 0.0109 (4) and 0.0058 (5 warps a group) (tools/probe_bonds.py
+// --table, CUDA events, NVIDIA H100 80GB HBM3, 700 W).  The draws are
+// what is left: 0.0136 ms of the glass's 0.0306 (Philox replaced by a few
+// integer operations, t-nophilox), at 4 offsets with four CTAs an SM.
+// Skipping a group's Philox block where none of its four bonds can be
+// active gained nothing (a warp skips only where all 32 groups do), and
+// deciding the couplings other than +-1 inline cost 2-3% at 4 offsets.
+constexpr int kTableMaxPer = 8;    // graphs a thread of fk_bonds_table at most
+constexpr int kTableMaxSplit = 8;  // warps that share a group's offsets at most
+
+// The CTA's graphs: each one's temperature, unit threshold and key words.
+struct TableGraphs {
+  float T[kTableMaxPer];
+  uint32_t thr[kTableMaxPer];
+  uint32_t k0[kTableMaxPer];
+  uint32_t k1[kTableMaxPer];
+};
+
+// The bonds of the group's sites `sat` along offset d whose couplings are
+// not +-1 (s s_f J > 0 already): bond_active's draw at inter = |J| (cg the
+// group's couplings, rows of nb; uw the offset's Philox words).  Bit 0 of
+// byte q: site q's bond.  Out of line: inlined, its exp took registers
+// from every site's path.
+__device__ __noinline__ uint32_t other_bonds(uint32_t sat, uint32_t u0, uint32_t u1,
+                                             uint32_t u2, uint32_t u3,
+                                             const float* __restrict__ cg, int nb, int d,
+                                             float T) {
+  const uint32_t uw[4] = {u0, u1, u2, u3};
+  uint32_t on = 0;
 #pragma unroll
-  for (int q = 0; q < 4; ++q) si[q] = q < cnt ? static_cast<float>(s[w0 + q]) : 0.0f;
-  for (int d = 0; d < nb; ++d) {
+  for (int q = 0; q < 4; ++q)
+    if ((sat >> (8 * q)) & 1u &&
+        uniform24(uw[q]) < 1.0f - expf(-2.0f * fabsf(__ldg(cg + q * nb + d)) / T))
+      on |= 1u << (8 * q);
+  return on;
+}
+
+// The bonds of offsets d0 .. d0+K-1 below hi of the group's sites `live`
+// in one graph s (own spins sw; the step's entries f and coupling words
+// m, the couplings cg), or'ed into st: every neighbour's spin gathered
+// first, then each offset's Philox block and its four decisions.  A bond
+// can be active where s s_f J > 0 (sat: J's sign flipped where the spins
+// differ); at |J| == 1 that product is 1 and the draw the integer compare
+// with thr1, bond_active's; other couplings take other_bonds.
+template <int K>
+__device__ __forceinline__ void group_bonds(uint32_t (&st)[4], uint32_t sw,
+                                            const int8_t* __restrict__ s, const int (&f)[4][K],
+                                            const uint32_t (&m)[K], const float* __restrict__ cg,
+                                            int nb, int d0, int hi, uint32_t live, int g, float T,
+                                            uint32_t thr1, uint32_t k0, uint32_t k1) {
+  uint32_t nw[K];
+  gather_words<K>(nw, s, f);
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int d = d0 + j;
+    if (d >= hi) break;
+    const uint32_t dd = byte_differ(sw, nw[j]);
+    const uint32_t sat = ((dd & (m[j] >> 1)) | (~dd & m[j])) & live;
+    const uint32_t uni = (m[j] >> 2) & kByteBits;
     const uint4 u = philox4x32_10(k0, k1, static_cast<uint32_t>(d), static_cast<uint32_t>(g),
                                   0u, 0u);
     const uint32_t uw[4] = {u.x, u.y, u.z, u.w};
+    uint32_t on = 0;
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      if (q >= cnt) break;
-      const size_t e = static_cast<size_t>(w0 + q) * nb + d;
-      const float sf = static_cast<float>(s[__ldg(fwd + e)]);
-      if (bond_active(si[q] * sf * __ldg(J + e), uw[q], T, thr1)) st[q] |= 1u << d;
+    for (int q = 0; q < 4; ++q)
+      if ((uw[q] >> 8) < thr1) on |= 1u << (8 * q);
+    on &= sat & uni;
+    if (sat & ~uni) on |= other_bonds(sat & ~uni, u.x, u.y, u.z, u.w, cg, nb, d, T);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) st[q] |= ((on >> (8 * q)) & 1u) << d;
+  }
+}
+
+// At 4 offsets four CTAs an SM (the 4D glass's 480 CTAs in one wave);
+// elsewhere one, ptxas free to keep a step's gathers in flight.
+template <int NB, bool kSplit>
+__global__ void __launch_bounds__(kThreads, NB == 4 ? 4 : 1)
+fk_bonds_table_kernel(const int8_t* __restrict__ spins, const float* __restrict__ j_fwd,
+                      const float* __restrict__ temps, const int32_t* __restrict__ kb,
+                      uint32_t* __restrict__ state, const int32_t* __restrict__ fwd, int n,
+                      int nb, int n_systems, int per, int split, int vec) {
+  __shared__ TableGraphs sh;
+  __shared__ uint32_t sbits[kSplit ? 32 : 1][4];
+  const int z = blockIdx.z;
+  const int b0 = z * n_systems + blockIdx.y * per;
+  if (threadIdx.x < per) {
+    const int k = threadIdx.x;
+    const float T = temps[b0 + k];
+    sh.T[k] = T;
+    sh.thr[k] = unit_threshold(T);
+    sh.k0[k] = static_cast<uint32_t>(kb[2 * (b0 + k)]);
+    sh.k1[k] = static_cast<uint32_t>(kb[2 * (b0 + k) + 1]);
+  }
+  if (kSplit)
+    for (int i = threadIdx.x; i < 128; i += blockDim.x) sbits[i >> 2][i & 3] = 0u;
+  __syncthreads();
+  const int lane = kSplit ? static_cast<int>(threadIdx.x & 31) : static_cast<int>(threadIdx.x);
+  const int g = blockIdx.x * (kSplit ? 32 : kThreads) + lane;
+  const int i0 = 4 * g;
+  const int cnt = i0 < n ? min(4, n - i0) : 0;
+  const float* cg = j_fwd + (static_cast<size_t>(z) * n + (cnt ? i0 : 0)) * nb;
+  const int32_t* rg = fwd + static_cast<size_t>(cnt ? i0 : 0) * nb;
+  const bool c16 = reinterpret_cast<uintptr_t>(cg) % 16 == 0;
+  const uint32_t live = live_bytes(cnt);
+  const int8_t* s0 = spins + static_cast<size_t>(b0) * n;
+  uint32_t* out0 = state + static_cast<size_t>(b0) * n;
+  if constexpr (NB > 0 && !kSplit) {
+    if (!cnt) return;
+    int f[4][NB];
+    uint32_t m[NB];
+    whole_rows<NB>(f, m, rg, cg, i0, cnt, c16);
+    for (int k = 0; k < per; ++k) {
+      const int8_t* s = s0 + static_cast<size_t>(k) * n;
+      uint32_t st[4] = {0u, 0u, 0u, 0u};
+      group_bonds<NB>(st, own_spins(s, i0, cnt, vec & 1), s, f, m, cg, nb, 0, NB, live, g,
+                      sh.T[k], sh.thr[k], sh.k0[k], sh.k1[k]);
+      store_words(out0 + static_cast<size_t>(k) * n, i0, cnt, st, vec & 2);
+    }
+  } else {
+    constexpr int P = kSplit ? 1 : kTableMaxPer;
+    int lo = 0, hi = nb;
+    if (kSplit) {
+      const int c = (nb + split - 1) / split;
+      lo = min(nb, static_cast<int>(threadIdx.x >> 5) * c);
+      hi = min(nb, lo + c);
+    }
+    uint32_t st[P][4];
+    uint32_t sw[P];
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      st[k][0] = st[k][1] = st[k][2] = st[k][3] = 0u;
+      sw[k] = 0u;
+      if (k < per && cnt) sw[k] = own_spins(s0 + static_cast<size_t>(k) * n, i0, cnt, vec & 1);
+    }
+    if (cnt) {
+      for (int d0 = lo; d0 < hi; d0 += 4) {
+        int f[4][4];
+        uint32_t m[4];
+        step_rows(f, m, rg, cg, nb, d0, hi, i0, cnt,
+                  nb % 4 == 0 && d0 % 4 == 0 && d0 + 4 <= hi && cnt == 4 && c16);
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          if (k >= per) break;
+          group_bonds<4>(st[k], sw[k], s0 + static_cast<size_t>(k) * n, f, m, cg, nb, d0, hi,
+                         live, g, sh.T[k], sh.thr[k], sh.k0[k], sh.k1[k]);
+        }
+      }
+    }
+    if (kSplit) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (st[0][q]) atomicOr(&sbits[lane][q], st[0][q]);
+      __syncthreads();
+      if (threadIdx.x < 32 && cnt) {
+        const uint32_t w[4] = {sbits[lane][0], sbits[lane][1], sbits[lane][2], sbits[lane][3]};
+        store_words(out0, i0, cnt, w, vec & 2);
+      }
+    } else if (cnt) {
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        if (k >= per) break;
+        store_words(out0 + static_cast<size_t>(k) * n, i0, cnt, st[k], vec & 2);
+      }
     }
   }
-  uint32_t* out = state + static_cast<size_t>(b) * n;
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-    if (q < cnt) out[w0 + q] = st[q];
 }
 
 template <int kNb, int kBlocks>
@@ -1185,18 +1338,42 @@ int peapods_fk_bonds_staged(const void* spins, const void* j_fwd, const void* te
 
 // The table form of peapods_fk_bonds_staged: spins int8 [n_graphs, n];
 // j_fwd f32 [n_graphs / n_systems, n, nb]; state int32 [n_graphs, n], bit d
-// the bond along offset d (nb <= 32); fwd int32 [n, nb] (device memory).
+// the bond along offset d (nb <= 32); fwd int32 [n, nb] (device memory,
+// 16-byte aligned).  per: the graphs of a realization a thread takes (a
+// divisor of n_systems, at most kTableMaxPer); split: the warps that share
+// a group's offsets (1: none; else per must be 1); ops/fk.py
+// table_bonds_plan.
 int peapods_fk_bonds_table(const void* spins, const void* j_fwd, const void* temps,
                            const void* kb, void* state, const void* fwd, int n, int nb,
-                           int n_graphs, int n_systems, void* stream) {
+                           int n_graphs, int n_systems, int per, int split, void* stream) {
   if (n_graphs < 1 || n_graphs > 65535 || n_systems < 1 || n_graphs % n_systems || nb < 1 ||
-      nb > 32 || n < 1 || n > (1 << 30))
+      nb > 32 || n < 1 || n > (1 << 30) || per < 1 || per > kTableMaxPer || n_systems % per ||
+      split < 1 || split > kTableMaxSplit || (split > 1 && per != 1) ||
+      reinterpret_cast<uintptr_t>(fwd) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  fk_bonds_table_kernel<<<site_grid(n, 4, n_graphs), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(spins), static_cast<const float*>(j_fwd),
-      static_cast<const float*>(temps), static_cast<const int32_t*>(kb),
-      static_cast<uint32_t*>(state), static_cast<const int32_t*>(fwd), n, nb, n_systems);
+  const int span = split > 1 ? 32 : kThreads;  // the groups a CTA takes
+  const dim3 grid(((n + 3) / 4 + span - 1) / span, n_systems / per, n_graphs / n_systems);
+  const int vec = (n % 4 == 0 && reinterpret_cast<uintptr_t>(spins) % 4 == 0) |
+                  (n % 4 == 0 && reinterpret_cast<uintptr_t>(state) % 16 == 0) << 1;
+  auto go = [&](auto kernel) {
+    kernel<<<grid, split > 1 ? 32 * split : kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int8_t*>(spins), static_cast<const float*>(j_fwd),
+        static_cast<const float*>(temps), static_cast<const int32_t*>(kb),
+        static_cast<uint32_t*>(state), static_cast<const int32_t*>(fwd), n, nb, n_systems, per,
+        split, vec);
+  };
+  if (split > 1) {
+    go(fk_bonds_table_kernel<0, true>);
+  } else {
+    switch (nb) {
+      case 4: go(fk_bonds_table_kernel<4, false>); break;
+      case 5: go(fk_bonds_table_kernel<5, false>); break;
+      case 8: go(fk_bonds_table_kernel<8, false>); break;
+      case 9: go(fk_bonds_table_kernel<9, false>); break;
+      case 13: go(fk_bonds_table_kernel<13, false>); break;
+      default: go(fk_bonds_table_kernel<0, false>); break;
+    }
+  }
   return static_cast<int>(cudaGetLastError());
 }
 

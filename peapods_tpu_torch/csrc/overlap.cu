@@ -161,8 +161,10 @@
 
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include "mega.cuh"
+#include "table.cuh"
 #include "uf.cuh"
 
 using namespace peapods;
@@ -1304,15 +1306,23 @@ houdn_finish_kernel(int8_t* __restrict__ spins, const int32_t* __restrict__ sid,
 // d] = i, an extent of 1) is a bond like any other, as the reference's roll
 // over an extent of 1 makes it.
 //
-// The launch (table_grid, modelled in tests/test_torch_overlap_tables.py): a
-// thread takes the group of four sites 4 grp .. 4 grp + 3 (blockIdx.x the
-// blocks of kThreads groups) of one task (blockIdx.y), the offsets in a
-// loop at run time: the walk form's kTable instance, six offsets unrolled,
-// reached 251 registers.  A first
-// design: every thread finds its task's systems through tasks and sid,
-// reads its sites' table rows, each neighbour's spin bytes one at a time
-// and its couplings one float at a time, and takes J / T and the bond's
-// probability again for every task.
+// The launch of ov_mid_table, ov_finish_table and the Houdayer forms
+// (table_grid, modelled in tests/test_torch_overlap_tables.py): a thread
+// takes the group of four sites 4 grp .. 4 grp + 3 (blockIdx.x the blocks
+// of kThreads groups) of one task (blockIdx.y), the offsets in a loop at
+// run time: the walk form's kTable instance, six offsets unrolled, reached
+// 251 registers.  A first design: every thread finds its task's systems
+// through tasks and sid, reads its sites' table rows, each neighbour's
+// spin bytes one at a time and its couplings one float at a time, and
+// takes J / T and the bond's probability again for every task.
+// ov_bonds_table had that design too and now takes ov_bonds' walk on the
+// tables (ov_table_plan; below): at the 4D +-J glass (192 tasks of 10^4
+// sites) CMR SW 0.0446 -> 0.0230 ms a launch, Joerg Wolff 0.0465 ->
+// 0.0235, at 16^3 with 9 offsets (96 tasks) CMR SW 0.0243 -> 0.0141
+// (tools/probe_overlap.py --table, CUDA events, NVIDIA H100 80GB HBM3, 700
+// W).  Of the glass's 0.0230 the draws take 0.0058 (t-n-nophilox); its
+// 100 registers hold two CTAs an SM, so the plan weighs waves; the float
+// tests of the first design, decided site by site, kept it at 0.0408.
 //
 // What bounds it on the H100: bytes.  ov_bonds_table reads its task's two
 // systems (2 n bytes), the couplings and the forward table (8 n nb bytes a
@@ -1392,80 +1402,252 @@ __device__ __forceinline__ bool table_nonsingleton(const uint32_t* __restrict__ 
 
 // Joerg's and CMR's blue bonds (ov_bonds' rules) and the seeds: Joerg
 // Wolff's first probe with a != b (the first warp of the task's first
-// block, two ballots), CMR's drawn one, n for Joerg SW.
+// block, two ballots), CMR's drawn one, n for Joerg SW.  A thread takes the
+// group of four sites 4 grp .. 4 grp + 3 (blockIdx.y the groups' block of
+// kThreads, strided) for `per` consecutive tasks of one realization
+// (blockIdx.z; blockIdx.x the set; ops/overlap.py ov_table_plan, ov_per's
+// rule), whose two systems' rows, key words, temperature, 1 / T (a unit
+// coupling's |J / T|) and unit threshold the CTA stages in shared memory
+// once.  It reads the group's 4 nb table entries and couplings once for its
+// tasks (table.cuh), and for each task its systems' own spins (32-bit
+// loads where vec & 1) and every neighbour's spin of a step in both systems
+// before the step's first decision.  A unit coupling's J / T is +-1 / T
+// and its draw the integer compare with the staged threshold; only other
+// couplings divide and draw the exp.  Philox is drawn only where a bond of
+// the group can be active; the four words are one 16-byte store (vec & 2).
+// NB: the offsets unrolled (4, 5, 8, 9, 13), or 0: steps of four offsets,
+// each task's own words and bond words kept in registers across the steps.
+struct TableTasks {
+  long long ra[kMaxPer];
+  long long rb[kMaxPer];
+  uint32_t k0[kMaxPer];
+  uint32_t k1[kMaxPer];
+  float T[kMaxPer];
+  float inv[kMaxPer];
+  uint32_t thr[kMaxPer];
+};
+
+// The bonds along offset d of the group's sites `other`, whose couplings are
+// not +-1 (cg the group's couplings, rows of nb): J / T divided and the
+// first design's float tests, its Philox block (the unit sites' own, drawn
+// again) only where one of them is a candidate, and threshold24 of each
+// candidate's probability.  Bit 0 of byte q: site q's bond.  Out of line:
+// inlined, its division and exp took registers from every site's path.
 template <int kKind>
+__device__ __noinline__ uint32_t other_pair_bonds(uint32_t other, uint32_t aw, uint32_t bw,
+                                                  uint32_t an, uint32_t bn,
+                                                  const float* __restrict__ cg, int nb, int d,
+                                                  float T, uint32_t k0, uint32_t k1, int grp) {
+  constexpr int which = kKind == kJorg ? kProbJorg : kProbBlue;
+  float jt[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  uint32_t cand = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if (!((other >> (8 * q)) & 1u)) continue;
+    jt[q] = __ldg(cg + q * nb + d) / T;
+    const int a = byte_of(aw, q), b = byte_of(bw, q);
+    const int af = byte_of(an, q), bf = byte_of(bn, q);
+    const bool sa = static_cast<float>(a * af) * jt[q] > 0.0f;
+    if (kKind == kJorg ? sa && a != b && af != bf
+                       : sa && static_cast<float>(b * bf) * jt[q] > 0.0f)
+      cand |= 1u << (8 * q);
+  }
+  if (!cand) return 0u;
+  const uint4 r = philox4x32_10(k0, k1, static_cast<uint32_t>(d), static_cast<uint32_t>(grp),
+                                0u, 0u);
+  const uint32_t uw[4] = {r.x, r.y, r.z, r.w};
+  uint32_t on = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if ((cand >> (8 * q)) & 1u && (uw[q] >> 8) < threshold24(bond_prob(which, jt[q])))
+      on |= 1u << (8 * q);
+  return on;
+}
+
+// The blue (CMR) or Joerg bonds of offsets d0 .. d0+K-1 below hi of the
+// group's sites `live` in one task k (systems A and B, own words aw and
+// bw; the step's entries f and coupling words m, the couplings cg), or'ed
+// into st: both systems' neighbour spins gathered first, then each
+// offset's candidates four sites at once, and a Philox block where one
+// is.  A unit coupling's J / T is +-1 / T: its a a_f J / T > 0 is its sign
+// (J's and 1 / T's, both staged) flipped where the spins differ, and its
+// draw the integer compare with the staged threshold; another coupling
+// takes other_pair_bonds.
+template <int kKind, int K>
+__device__ __forceinline__ void pair_bonds(uint32_t (&st)[4], const int8_t* __restrict__ A,
+                                           const int8_t* __restrict__ B, uint32_t aw,
+                                           uint32_t bw, const int (&f)[4][K],
+                                           const uint32_t (&m)[K], const float* __restrict__ cg,
+                                           int nb, int d0, int hi, uint32_t live, int grp,
+                                           const TableTasks& sh, int k) {
+  uint32_t an[K], bn[K];
+  gather_words<K>(an, A, f);
+  gather_words<K>(bn, B, f);
+  const float inv = sh.inv[k];
+  const uint32_t up = inv > 0.0f ? ~0u : 0u;  // 1 / T > 0: J / T has J's sign
+  const uint32_t down = inv < 0.0f ? ~0u : 0u;
+  const uint32_t act = byte_differ(aw, bw);  // Joerg: a != b
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int d = d0 + j;
+    if (d >= hi) break;
+    const uint32_t pos = m[j] & kByteBits;
+    const uint32_t neg = (m[j] >> 1) & kByteBits;
+    const uint32_t uni = (m[j] >> 2) & kByteBits;
+    const uint32_t jp = ((pos & up) | (neg & down)) & uni;  // J / T > 0
+    const uint32_t jn = ((neg & up) | (pos & down)) & uni;  // J / T < 0
+    const uint32_t da = byte_differ(aw, an[j]);
+    uint32_t cand = (da & jn) | (~da & jp);
+    if (kKind == kJorg) {
+      cand &= act & byte_differ(an[j], bn[j]);
+    } else {
+      const uint32_t db = byte_differ(bw, bn[j]);
+      cand &= (db & jn) | (~db & jp);
+    }
+    cand &= live;
+    uint32_t on = 0;
+    if (cand) {
+      const uint4 r = philox4x32_10(sh.k0[k], sh.k1[k], static_cast<uint32_t>(d),
+                                    static_cast<uint32_t>(grp), 0u, 0u);
+      const uint32_t uw[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if ((uw[q] >> 8) < sh.thr[k]) on |= 1u << (8 * q);
+      on &= cand;
+    }
+    const uint32_t other = ~uni & live;
+    if (other)
+      on |= other_pair_bonds<kKind>(other, aw, bw, an[j], bn[j], cg, nb, d, sh.T[k], sh.k0[k],
+                                    sh.k1[k], grp);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) st[q] |= ((on >> (8 * q)) & 1u) << d;
+  }
+}
+
+template <int kKind, int NB>
 __global__ void __launch_bounds__(kThreads)
 ov_bonds_table_kernel(const int8_t* __restrict__ spins, const int32_t* __restrict__ sid,
                       const int32_t* __restrict__ tasks, const float* __restrict__ coup,
                       const float* __restrict__ temps, const int32_t* __restrict__ scal,
                       const int32_t* __restrict__ probes, const int32_t* __restrict__ keys,
                       const int32_t* __restrict__ fwd, uint32_t* __restrict__ state,
-                      int32_t* __restrict__ seeds, const OvTable g, int wolff) {
-  const TableTask k = table_task(g);
-  const int8_t* A = spins + table_row(g, k, sid, tasks, 2, 0);
-  const int8_t* B = spins + table_row(g, k, sid, tasks, 2, 1);
-  if (blockIdx.x == 0) {
+                      int32_t* __restrict__ seeds, const OvTable g, int per, int wolff,
+                      int vec) {
+  __shared__ TableTasks sh;
+  const int z = blockIdx.z;
+  const int b0 = z * g.T * g.G + blockIdx.x * per;
+  if (threadIdx.x < per) {
+    const int k = threadIdx.x;
+    const int b = b0 + k;
+    const int t = (blockIdx.x * per + k) / g.G;
+    const long long row = static_cast<long long>(z) * g.S;
+    sh.ra[k] = (row + __ldg(sid + row + __ldg(tasks + 2 * b) * g.T + t)) * g.n;
+    sh.rb[k] = (row + __ldg(sid + row + __ldg(tasks + 2 * b + 1) * g.T + t)) * g.n;
+    sh.k0[k] = static_cast<uint32_t>(__ldg(keys + 2 * b));
+    sh.k1[k] = static_cast<uint32_t>(__ldg(keys + 2 * b + 1));
+    const float T = __ldg(temps + t);
+    sh.T[k] = T;
+    sh.inv[k] = 1.0f / T;
+    sh.thr[k] = threshold24(bond_prob(kKind == kJorg ? kProbJorg : kProbBlue, 1.0f / T));
+  }
+  __syncthreads();
+  if (blockIdx.y == 0) {
     if (kKind == kJorg && wolff) {
       if (threadIdx.x < 32) {
+        // the first warp tests a task's 64 probes at once, lane l probes l
+        // and 32 + l; the seed is the first active one in probe order
         const int l = threadIdx.x;
-        const int32_t* pr = probes + kProbes * k.b;
-        const int p0 = __ldg(pr + l);
-        const int p1 = __ldg(pr + 32 + l);
-        const unsigned lo = __ballot_sync(0xffffffffu, __ldg(A + p0) != __ldg(B + p0));
-        const unsigned hi = __ballot_sync(0xffffffffu, __ldg(A + p1) != __ldg(B + p1));
-        if (l == 0) seeds[k.b] = lo ? pr[__ffs(lo) - 1] : hi ? pr[32 + __ffs(hi) - 1] : g.n;
+        for (int k = 0; k < per; ++k) {
+          const int32_t* pr = probes + kProbes * (b0 + k);
+          const int8_t* A = spins + sh.ra[k];
+          const int8_t* B = spins + sh.rb[k];
+          const int p0 = __ldg(pr + l);
+          const int p1 = __ldg(pr + 32 + l);
+          const unsigned lo = __ballot_sync(0xffffffffu, __ldg(A + p0) != __ldg(B + p0));
+          const unsigned hi = __ballot_sync(0xffffffffu, __ldg(A + p1) != __ldg(B + p1));
+          if (l == 0)
+            seeds[b0 + k] = lo ? pr[__ffs(lo) - 1] : hi ? pr[32 + __ffs(hi) - 1] : g.n;
+        }
       }
-    } else if (threadIdx.x == 0) {
-      seeds[k.b] = kKind == kCmr ? scal[6 * k.b + 4] : g.n;
+    } else if (threadIdx.x < per) {
+      const int b = b0 + threadIdx.x;
+      seeds[b] = kKind == kCmr ? scal[6 * b + 4] : g.n;
     }
   }
-  const int grp = blockIdx.x * kThreads + threadIdx.x;
-  const int i0 = 4 * grp;
-  if (i0 >= g.n) return;
-  const int cnt = min(4, g.n - i0);
-  const float T = __ldg(temps + k.t);
-  const uint32_t k0 = static_cast<uint32_t>(__ldg(keys + 2 * k.b));
-  const uint32_t k1 = static_cast<uint32_t>(__ldg(keys + 2 * k.b + 1));
-  const float* J = coup + static_cast<size_t>(k.z) * g.n * g.nb;
-  const int which = kKind == kJorg ? kProbJorg : kProbBlue;
-  int a[4], b[4];
-  uint32_t st[4] = {0u, 0u, 0u, 0u};
+  const int n_grp = (g.n + 3) >> 2;
+  for (int grp = blockIdx.y * kThreads + threadIdx.x; grp < n_grp;
+       grp += gridDim.y * kThreads) {
+    const int i0 = 4 * grp;
+    const int cnt = min(4, g.n - i0);
+    const float* cg = coup + (static_cast<size_t>(z) * g.n + i0) * g.nb;
+    const int32_t* rg = fwd + static_cast<size_t>(i0) * g.nb;
+    const bool c16 = reinterpret_cast<uintptr_t>(cg) % 16 == 0;
+    const uint32_t live = live_bytes(cnt);
+    if constexpr (NB > 0) {
+      int f[4][NB];
+      uint32_t m[NB];
+      whole_rows<NB>(f, m, rg, cg, i0, cnt, c16);
+      for (int k = 0; k < per; ++k) {
+        const int8_t* A = spins + sh.ra[k];
+        const int8_t* B = spins + sh.rb[k];
+        uint32_t st[4] = {0u, 0u, 0u, 0u};
+        pair_bonds<kKind, NB>(st, A, B, own_spins(A, i0, cnt, vec & 1),
+                              own_spins(B, i0, cnt, vec & 1), f, m, cg, g.nb, 0, NB, live, grp,
+                              sh, k);
+        store_words(state + static_cast<size_t>(b0 + k) * g.n, i0, cnt, st, vec & 2);
+      }
+    } else {
+      uint32_t st[kMaxPer][4];
+      uint32_t aw[kMaxPer], bw[kMaxPer];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    a[q] = q < cnt ? __ldg(A + i0 + q) : 0;
-    b[q] = q < cnt ? __ldg(B + i0 + q) : 0;
-  }
-  for (int d = 0; d < g.nb; ++d) {
-    bool cand[4];
-    float jt[4];
-    bool any = false;
+      for (int k = 0; k < kMaxPer; ++k) {
+        st[k][0] = st[k][1] = st[k][2] = st[k][3] = 0u;
+        aw[k] = bw[k] = 0u;
+        if (k < per) {
+          aw[k] = own_spins(spins + sh.ra[k], i0, cnt, vec & 1);
+          bw[k] = own_spins(spins + sh.rb[k], i0, cnt, vec & 1);
+        }
+      }
+      for (int d0 = 0; d0 < g.nb; d0 += 4) {
+        int f[4][4];
+        uint32_t m[4];
+        step_rows(f, m, rg, cg, g.nb, d0, g.nb, i0, cnt,
+                  g.nb % 4 == 0 && d0 + 4 <= g.nb && cnt == 4 && c16);
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      cand[q] = false;
-      jt[q] = 0.0f;
-      if (q >= cnt) continue;
-      const size_t e = static_cast<size_t>(i0 + q) * g.nb + d;
-      const int f = __ldg(fwd + e);
-      const int af = __ldg(A + f);
-      const int bf = __ldg(B + f);
-      jt[q] = __ldg(J + e) / T;
-      const bool sa = static_cast<float>(a[q] * af) * jt[q] > 0.0f;
-      cand[q] = kKind == kJorg ? sa && a[q] != b[q] && af != bf
-                               : sa && static_cast<float>(b[q] * bf) * jt[q] > 0.0f;
-      any = any || cand[q];
+        for (int k = 0; k < kMaxPer; ++k) {
+          if (k >= per) break;
+          pair_bonds<kKind, 4>(st[k], spins + sh.ra[k], spins + sh.rb[k], aw[k], bw[k], f, m,
+                               cg, g.nb, d0, g.nb, live, grp, sh, k);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kMaxPer; ++k) {
+        if (k >= per) break;
+        store_words(state + static_cast<size_t>(b0 + k) * g.n, i0, cnt, st[k], vec & 2);
+      }
     }
-    if (!any) continue;
-    const uint4 r = philox4x32_10(k0, k1, static_cast<uint32_t>(d), static_cast<uint32_t>(grp),
-                                  0u, 0u);
-    const uint32_t uw[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      if (cand[q] && (uw[q] >> 8) < threshold24(bond_prob(which, jt[q]))) st[q] |= 1u << d;
   }
-  uint32_t* out = state + static_cast<size_t>(k.b) * g.n;
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-    if (q < cnt) out[i0 + q] = st[q];
+}
+
+// Call f with the ov_bonds_table instance of the move kind and nb offsets
+// (unrolled: 4, 5, 8, 9, 13; else the runtime count).
+template <typename F>
+void ov_bonds_table_instance(int nb, int kind, F&& f) {
+  auto pick = [&](auto nb_c) {
+    constexpr int NB = decltype(nb_c)::value;
+    if (kind == kJorg)
+      f(ov_bonds_table_kernel<kJorg, NB>);
+    else
+      f(ov_bonds_table_kernel<kCmr, NB>);
+  };
+  switch (nb) {
+    case 4: pick(std::integral_constant<int, 4>{}); break;
+    case 5: pick(std::integral_constant<int, 5>{}); break;
+    case 8: pick(std::integral_constant<int, 8>{}); break;
+    case 9: pick(std::integral_constant<int, 9>{}); break;
+    case 13: pick(std::integral_constant<int, 13>{}); break;
+    default: pick(std::integral_constant<int, 0>{}); break;
+  }
 }
 
 // CMR's blue flip and grey bonds (ov_mid's rules): the blue flip of each
@@ -2149,19 +2331,38 @@ int peapods_houdn_finish(void* spins, const void* sid, const void* tasks, const 
 int peapods_ov_bonds_table(const void* spins, const void* sid, const void* tasks,
                            const void* coup, const void* temps, const void* scal,
                            const void* probes, const void* keys, const void* fwd, void* state,
-                           void* seeds, const int* words, int kind, int wolff, void* stream) {
+                           void* seeds, const int* words, int kind, int wolff, int per,
+                           void* stream) {
   const OvTable g = make_ov_table(words);
-  if ((kind != kJorg && kind != kCmr) || !ov_table_ok(g))
+  const int tg = g.T * g.G;
+  if ((kind != kJorg && kind != kCmr) || !ov_table_ok(g) || per < 1 || per > kMaxPer ||
+      tg % per || reinterpret_cast<uintptr_t>(fwd) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = kind == kJorg ? ov_bonds_table_kernel<kJorg> : ov_bonds_table_kernel<kCmr>;
-  kernel<<<table_grid(g), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(spins), static_cast<const int32_t*>(sid),
-      static_cast<const int32_t*>(tasks), static_cast<const float*>(coup),
-      static_cast<const float*>(temps), static_cast<const int32_t*>(scal),
-      static_cast<const int32_t*>(probes), static_cast<const int32_t*>(keys),
-      static_cast<const int32_t*>(fwd), static_cast<uint32_t*>(state),
-      static_cast<int32_t*>(seeds), g, wolff);
+  const int blocks = ((g.n + 3) / 4 + kThreads - 1) / kThreads;
+  const dim3 grid(tg / per, blocks < 65535 ? blocks : 65535, g.d);
+  const int vec = (g.n % 4 == 0 && reinterpret_cast<uintptr_t>(spins) % 4 == 0) |
+                  (g.n % 4 == 0 && reinterpret_cast<uintptr_t>(state) % 16 == 0) << 1;
+  ov_bonds_table_instance(g.nb, kind, [&](auto kernel) {
+    kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int8_t*>(spins), static_cast<const int32_t*>(sid),
+        static_cast<const int32_t*>(tasks), static_cast<const float*>(coup),
+        static_cast<const float*>(temps), static_cast<const int32_t*>(scal),
+        static_cast<const int32_t*>(probes), static_cast<const int32_t*>(keys),
+        static_cast<const int32_t*>(fwd), static_cast<uint32_t*>(state),
+        static_cast<int32_t*>(seeds), g, per, wolff, vec);
+  });
   return static_cast<int>(cudaGetLastError());
+}
+
+// The CTAs an SM hold at once of the ov_bonds_table instance of nb offsets
+// and the move kind (ops/overlap.py ov_table_plan: its waves).
+int peapods_ov_bonds_table_ctas(int nb, int kind) {
+  int ctas = 0;
+  if (kind != kJorg && kind != kCmr) return 0;
+  ov_bonds_table_instance(nb, kind, [&](auto kernel) {
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, kThreads, 0);
+  });
+  return ctas;
 }
 
 int peapods_ov_mid_table(const void* spins, const void* sid, const void* tasks, const void* coup,

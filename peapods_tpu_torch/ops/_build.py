@@ -68,7 +68,8 @@ _SIGNATURES = {
     "peapods_ov_finish": [_P] * 8 + [_I] * 2 + [_P],
     "peapods_houdn_bonds": [_P] * 7 + [_I] * 2 + [_P],
     "peapods_houdn_finish": [_P] * 8 + [_I] * 2 + [_P],
-    "peapods_ov_bonds_table": [_P] * 12 + [_I] * 2 + [_P],
+    "peapods_ov_bonds_table": [_P] * 12 + [_I] * 3 + [_P],
+    "peapods_ov_bonds_table_ctas": [_I, _I],
     "peapods_ov_mid_table": [_P] * 14 + [_I] + [_P],
     "peapods_ov_finish_table": [_P] * 10 + [_I] * 2 + [_P],
     "peapods_houdn_bonds_table": [_P] * 8 + [_I] * 2 + [_P],
@@ -79,7 +80,7 @@ _SIGNATURES = {
     "peapods_measure_nb": [_P] * 5 + [_I] * 3 + [_P],
     "peapods_sweep_nb_table": [_P] * 7 + [_I] * 11 + [_P],
     "peapods_measure_nb_table": [_P] * 5 + [_I] * 5 + [_P],
-    "peapods_fk_bonds_table": [_P] * 6 + [_I] * 4 + [_P],
+    "peapods_fk_bonds_table": [_P] * 6 + [_I] * 6 + [_P],
     "peapods_cc_table_link": [_P] * 4 + [_I] + [_P],
     "peapods_cc_table_border": [_P] * 4 + [_I] + [_P],
     "peapods_halo_blocks": [_P, _I],

@@ -82,6 +82,8 @@ __all__ = [
     "bonds_words",
     "resident_threads",
     "bonds_per",
+    "TableBondsPlan",
+    "table_bonds_plan",
     "launch_bonds",
     "launch_staged_bonds",
     "fk_link_plain",
@@ -228,22 +230,79 @@ def launch_bonds(lib, stream, spins, j_fwd, temps, kb_words, state):
         "fk_bonds")
 
 
+# fk_bonds_table (csrc/fk.cu kTableMaxPer, kTableMaxSplit, kThreads): a
+# thread takes a group of four sites of `per` graphs of one realization; a
+# CTA 256 threads, or in the split form `split` warps over 32 groups of one
+# graph, each warp a share of the offsets
+TABLE_BONDS_MAX_PER = 8
+TABLE_BONDS_MAX_SPLIT = 8
+TABLE_BONDS_THREADS = 256
+
+
+class TableBondsPlan(NamedTuple):
+    """``fk_bonds_table``'s launch: the graphs a thread (``per``), the warps
+    that share a group's offsets (``split``, 1: none), a CTA's threads and
+    the grid ``(group blocks, n_systems / per, n_disorder)``."""
+
+    per: int
+    split: int
+    threads: int
+    grid: tuple
+
+
+@functools.lru_cache(maxsize=None)
+def table_bonds_plan(n_spins: int, n_neighbors: int, n_disorder: int, n_systems: int,
+                     threads: int, sms: int) -> TableBondsPlan:
+    """The table form's bonds of ``n_disorder`` x ``n_systems`` graphs of
+    ``n_spins`` sites and ``n_neighbors`` offsets, from the shape alone: a
+    thread a group of four sites of ``per`` graphs of one realization,
+    reading the group's table rows and couplings once for them: the largest
+    divisor of ``n_systems`` up to :data:`TABLE_BONDS_MAX_PER` whose launch
+    still has ``threads`` threads (an eighth of the card's resident threads,
+    as ``energy.table_measure_plan``) and at least ``sms`` CTAs; 1 where
+    none has.  Where one graph a thread is still fewer than ``sms`` CTAs of
+    256 threads, the split form: a CTA of ``split`` warps over 32 groups,
+    each warp ``ceil(n_neighbors / split)`` of the offsets, ``split`` the
+    least that gives the launch ``threads`` threads (at most
+    :data:`TABLE_BONDS_MAX_SPLIT` and the offsets), taken down to the
+    warps that hold offsets."""
+    groups = -(-int(n_spins) // 4)
+    blocks = -(-groups // TABLE_BONDS_THREADS)
+    d, s, nb = int(n_disorder), int(n_systems), int(n_neighbors)
+    fits = [p for p in range(1, min(s, TABLE_BONDS_MAX_PER) + 1)
+            if s % p == 0 and groups * d * (s // p) >= threads and blocks * d * (s // p) >= sms]
+    per = max(fits, default=1)
+    if blocks * d * s >= sms or nb == 1:
+        return TableBondsPlan(per, 1, TABLE_BONDS_THREADS, (blocks, s // per, d))
+    split = min(nb, TABLE_BONDS_MAX_SPLIT, max(2, -(-threads // (groups * d * s))))
+    split = -(-nb // -(-nb // split))  # the warps that hold offsets
+    return TableBondsPlan(1, split, 32 * split, (-(-groups // 32), s, d))
+
+
 def launch_staged_bonds(lib, stream, spins, j_fwd, temps, kb_words, state, lattice,
-                        tables=None):
+                        tables=None, plan=None):
     """One ``fk_bonds_staged`` launch on checked CUDA tensors (not counted):
     the bonds of every graph of ``lattice`` (an offset table's, 1 to 6
     offsets; its words :attr:`~.lattice.Lattice.sweep_words`) into ``state``
     uint8 ``[B, n]``, bit ``k`` the bond along offset ``k``; on a table
     lattice (:attr:`~.lattice.Lattice.table`, up to 32 offsets) the table
     form ``fk_bonds_table``, into int32 ``[B, n]``, on its checked device
-    ``tables``."""
+    ``tables`` (the forward table 16-byte aligned) and ``plan`` (default
+    :func:`table_bonds_plan`'s)."""
     b, n = spins.shape[0], lattice.n_spins
     d = j_fwd.shape[0]
     if lattice.table:
         fwd, _ = tables
+        if fwd.data_ptr() % 16:
+            raise ValueError("the forward table must be 16-byte aligned")
+        dev = spins.device
+        plan = plan or table_bonds_plan(
+            n, lattice.n_neighbors, d, b // d, resident_threads(dev.index) // 8,
+            torch.cuda.get_device_properties(dev.index).multi_processor_count)
         _build.check(lib.peapods_fk_bonds_table(
             spins.data_ptr(), j_fwd.data_ptr(), temps.data_ptr(), kb_words.data_ptr(),
-            state.data_ptr(), fwd.data_ptr(), n, lattice.n_neighbors, b, b // d, stream),
+            state.data_ptr(), fwd.data_ptr(), n, lattice.n_neighbors, b, b // d, plan.per,
+            plan.split, stream),
             "fk_bonds_table")
         return
     _build.check(lib.peapods_fk_bonds_staged(

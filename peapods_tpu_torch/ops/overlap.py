@@ -86,6 +86,10 @@ __all__ = [
     "energy_partials",
     "energy_partials_plain",
     "energy_words",
+    "OvTablePlan",
+    "ov_table_plan",
+    "table_ctas",
+    "table_waves",
 ]
 
 KINDS = ("houdayer", "jorg", "cmr")
@@ -634,7 +638,7 @@ def launch_event(lib, stream, dims, p_spins, p_sid, p_tasks, p_coup, p_temps,
         launch_event_table(lib, stream, dims, p_spins, p_sid, p_tasks, p_coup, p_temps,
                            p_scal, p_probes, p_words, scratch, kind=kind, wolff=wolff,
                            group=group, p_labels=p_labels, p_blue=p_blue,
-                           observe=observe, lattice=lattice, tables=tables)
+                           observe=observe, lattice=lattice, tables=tables, per=per)
         return
     n_tasks, l0, l1, l2, n_temps, n_groups, n_slots = dims
     st, par, seeds, st2, par2 = scratch
@@ -707,27 +711,76 @@ def ov_table_words(n: int, n_neighbors: int, n_disorder: int, n_temps: int,
     """int32 host words of the table form's launches (``csrc/overlap.cu``
     ``OvTable``): ``n, nb, T, G, S, d``.  Its neighbours are the table's
     rows, so it takes no residue steps; a thread takes a group of four
-    sites of one task (the grid's y)."""
+    sites of one task (the grid's y), but for ``ov_bonds_table``
+    (:func:`ov_table_plan`)."""
     return np.asarray([n, n_neighbors, n_temps, n_groups, n_slots, n_disorder], np.int32)
+
+
+class OvTablePlan(NamedTuple):
+    """``ov_bonds_table``'s launch: the tasks a thread (``per``) and the
+    grid ``(tasks / per, group blocks, n_disorder)``, its blocks of 256
+    groups of four sites striding past 65535."""
+
+    per: int
+    grid: tuple
+
+
+def table_waves(ctas: int, slots: int, per: int) -> int:
+    """The cost :func:`ov_table_plan` weighs: a launch's waves (``ctas`` over
+    the card's ``slots``, its SMs times the CTAs an SM holds) times a
+    thread's work, its ``per`` tasks and one more for the rows and
+    couplings it reads once."""
+    return -(-int(ctas) // max(1, int(slots))) * (int(per) + 1)
+
+
+@functools.lru_cache(maxsize=None)
+def ov_table_plan(n: int, n_disorder: int, n_temps: int, n_groups: int, sms: int,
+                  ctas: int) -> OvTablePlan:
+    """``ov_bonds_table``'s launch from the shape and the card: a thread a
+    group of four sites of ``per`` consecutive tasks of one realization,
+    reading the group's table rows and couplings once for them: a divisor
+    of a realization's tasks up to :data:`OV_MAX_PER`, a multiple or a
+    divisor of its groups (a thread's tasks of one temperature side by side,
+    as :func:`ov_per`'s), of the least :func:`table_waves` (``sms`` times
+    ``ctas``, the CTAs an SM holds of the kernel,
+    ``peapods_ov_bonds_table_ctas``), the largest of a tie."""
+    tg = int(n_temps) * int(n_groups)
+    blocks = min(-(-(-(-int(n) // 4)) // 256), 65535)
+    fits = [p for p in range(1, min(tg, OV_MAX_PER) + 1)
+            if tg % p == 0 and (p % n_groups == 0 or n_groups % p == 0)]
+    per = min(fits, key=lambda p: (table_waves(blocks * n_disorder * (tg // p), sms * ctas, p),
+                                   -p))
+    return OvTablePlan(per, (tg // per, blocks, int(n_disorder)))
+
+
+@functools.lru_cache(maxsize=None)
+def table_ctas(index: int, n_neighbors: int, kind: str) -> int:
+    """The CTAs an SM of card ``index`` holds at once of ``ov_bonds_table``'s
+    instance of ``n_neighbors`` offsets and the move ``kind``."""
+    with torch.cuda.device(index):
+        return _build.library().peapods_ov_bonds_table_ctas(n_neighbors, KINDS.index(kind))
 
 
 def launch_event_table(lib, stream, dims, p_spins, p_sid, p_tasks, p_coup, p_temps,
                        p_scal, p_probes, p_words, scratch, *, kind, wolff, group=2,
                        p_labels=None, p_blue=None, observe=False, lattice=None,
-                       tables=None):
+                       tables=None, per=0):
     """:func:`launch_event` on a table lattice (``lattice``, :attr:`~.lattice.
     Lattice.table`), its neighbours read from ``tables`` (its device
     ``(fwd, bwd)``): the same launches in their table form, ``*_table``,
     each bond graph an int32 word a site labelled by :func:`link_graphs`
     (``cc_table_link``, ``cc.table_link_launches``), CMR's blue
     flip a byte a site in the scratch's ``flip``.  ``dims`` is ``(n_tasks,
-    n, 1, 1, T, G, S)`` (:func:`check_event`)."""
+    n, 1, 1, T, G, S)`` (:func:`check_event`); ``per`` the tasks a thread
+    of ``ov_bonds_table`` (default :func:`ov_table_plan`'s)."""
     n_tasks, _, _, _, n_temps, n_groups, n_slots = dims
     st, par, seeds, st2, par2, flip = scratch
     stats = _stats_buffer(kind, observe, p_labels, p_blue)
     _check_observe(kind, observe, group)
     n, nb = lattice.n_spins, lattice.n_neighbors
     d = n_tasks // (n_temps * n_groups)
+    if tables[0].data_ptr() % 16:
+        raise ValueError("the forward table must be 16-byte aligned")
     fwd, bwd = (t.data_ptr() for t in tables)
     words = ov_table_words(n, nb, d, n_temps, n_groups, n_slots)
     w = words.ctypes.data
@@ -739,9 +792,14 @@ def launch_event_table(lib, stream, dims, p_spins, p_sid, p_tasks, p_coup, p_tem
             stream), "houdn_bonds_table")
         LAUNCHES["houdn_bonds_table"] += 1
     else:
+        dev = torch.cuda.current_device()
+        per = per or ov_table_plan(
+            n, d, n_temps, n_groups,
+            torch.cuda.get_device_properties(dev).multi_processor_count,
+            table_ctas(dev, nb, kind)).per
         _build.check(lib.peapods_ov_bonds_table(
             p_spins, p_sid, p_tasks, p_coup, p_temps, p_scal, p_probes, p_words, fwd,
-            st, seeds, w, k, int(wolff), stream), "ov_bonds_table")
+            st, seeds, w, k, int(wolff), per, stream), "ov_bonds_table")
         LAUNCHES["ov_bonds_table"] += 1
     first = par if stats is None else stats
     link_graphs(lib, stream, st, first, n_tasks, None, lattice, tables)

@@ -4034,3 +4034,127 @@ def test_pair_table_forms_match_plain(cuda, name, shape, offsets, d, n_rep, n_te
             assert torch.equal(rows[0][:, 1], want[0]), offset
             assert torch.equal(rows[1][:, 1], want[1]), offset
             assert (rows[:, :, [0, 2]] == -7).all()
+
+
+# The redesigned table bonds (csrc/fk.cu fk_bonds_table, csrc/overlap.cu
+# ov_bonds_table) at the runs' shapes: (name, shape, offsets, realizations,
+# graphs a realization, couplings)
+TABLE_BONDS = [
+    ("glass4d", (10, 10, 10, 10), None, 16, 24, "pm"),
+    ("4d16", (16, 16, 16, 16), None, 1, 16, "pm"),
+    ("shells16", (16, 16, 16), SHELLS3, 1, 8, "pm"),
+    ("nine16", (16, 16, 16), NINE, 8, 48, "gauss"),
+    ("4d9-tail", (9, 9, 9, 9), None, 1, 8, "gauss"),
+    ("off32", (8, 8), THIRTY_TWO, 2, 6, "gauss"),
+    ("4d-self", (1, 3, 3, 3), None, 2, 3, "pm"),
+    ("ten7x9-tail", (7, 9), TEN[:7], 1, 5, "gauss"),
+]
+
+
+def _table_bonds_inputs(dev, seed, lat, d, s, couplings, offset):
+    """Graphs' spins ``offset`` bytes past an 8-byte boundary, couplings,
+    temperatures and key words."""
+    rng = np.random.default_rng(seed)
+    b, n, nb = d * s, lat.n_spins, lat.n_neighbors
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    coup = (rng.choice([-1.0, 1.0], size=(d, n, nb)) if couplings == "pm"
+            else rng.standard_normal((d, n, nb))).astype(np.float32)
+    spins = up(rng.choice([-1, 1], size=(b, *lat.shape)).astype(np.int8))
+    return dict(spins=_offset_copy(spins, offset), coup=up(coup),
+                temps=up(rng.uniform(0.8, 4.0, b).astype(np.float32)),
+                kb=up(rng.integers(-2**31, 2**31, (b, 2)).astype(np.int32)))
+
+
+@pytest.mark.parametrize("name,shape,offsets,d,n_sys,couplings", TABLE_BONDS,
+                         ids=[x[0] for x in TABLE_BONDS])
+def test_table_bonds_forms_match_plain(cuda, name, shape, offsets, d, n_sys, couplings):
+    """fk_bonds_table on its plan, at every other count of graphs a thread up
+    to 8 and in forced split forms (2, 3 and 8 warps sharing a group's
+    offsets, one graph a thread), on spins aligned and 1 byte off: every
+    bond word bitwise ``fk_bonds_plain``'s bits, the words around the
+    graphs untouched; the plan at the smoke's shapes: the glass 8 graphs a
+    thread, 16^4 x 16 4, 16^3 with 13 offsets x 8 split over 5 warps."""
+    from peapods_tpu_torch.ops import cc
+
+    lat = _table_lattice(shape, offsets)
+    tables = lat.device_tables(cuda)
+    n, nb, b = lat.n_spins, lat.n_neighbors, d * n_sys
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = fk.table_bonds_plan(n, nb, d, n_sys, fk.resident_threads(cuda.index) // 8, sms)
+    want_plan = {"glass4d": (8, 1), "4d16": (4, 1), "shells16": (1, 5)}.get(name)
+    assert want_plan is None or (plan.per, plan.split) == want_plan
+    forms = [None] + [fk.TableBondsPlan(p, 1, 256, None) for p in range(1, 9)
+                      if n_sys % p == 0] + [
+        fk.TableBondsPlan(1, k, 32 * k, None) for k in (2, 3, 8) if k <= nb]
+    lib, stream = _build.library(), torch.cuda.current_stream(cuda).cuda_stream
+    for offset in (0, 1):
+        x = _table_bonds_inputs(cuda, 91 + offset, lat, d, n_sys, couplings, offset)
+        want = cc.pack_masks(fk.fk_bonds_plain(x["spins"], x["coup"], x["temps"], x["kb"],
+                                               offsets=lat.offsets), torch.int32)
+        assert want.any()
+        for form in forms:
+            rows = torch.full((b + 2, n), -7, dtype=torch.int32, device=cuda)
+            fk.launch_staged_bonds(lib, stream, x["spins"], x["coup"], x["temps"], x["kb"],
+                                   rows[1:-1], lat, tables, plan=form)
+            torch.cuda.synchronize()
+            assert torch.equal(rows[1:-1], want), (offset, form)
+            assert (rows[[0, -1]] == -7).all(), (offset, form)
+
+
+# (name, shape, offsets, realizations, replicas, temperatures, couplings)
+OV_TABLE_BONDS = [
+    ("glass4d", (10, 10, 10, 10), None, 16, 2, 12, "pm"),
+    ("nine16", (16, 16, 16), NINE, 8, 2, 24, "pm"),
+    ("4d16", (16, 16, 16, 16), None, 1, 2, 6, "gauss"),
+    ("shells16", (16, 16, 16), SHELLS3, 1, 4, 4, "pm"),
+    ("4d9-tail", (9, 9, 9, 9), None, 2, 2, 5, "gauss"),
+    ("off32", (8, 8), THIRTY_TWO, 2, 4, 3, "gauss"),
+    ("4d-self", (1, 3, 3, 3), None, 2, 4, 3, "pm"),
+    ("ten7x9-tail", (7, 9), TEN[:7], 1, 2, 5, "gauss"),
+]
+
+
+@pytest.mark.parametrize("kind", ["jorg", "cmr"])
+@pytest.mark.parametrize("wolff", [True, False], ids=["wolff", "sw"])
+@pytest.mark.parametrize("name,shape,offsets,d,n_rep,n_temps,couplings", OV_TABLE_BONDS,
+                         ids=[x[0] for x in OV_TABLE_BONDS])
+def test_ov_bonds_table_forms_match_plain(cuda, name, shape, offsets, d, n_rep, n_temps,
+                                          couplings, wolff, kind):
+    """ov_bonds_table at the plan's tasks a thread and at every other count up
+    to 8 that splits a realization's tasks with a thread's tasks of one
+    temperature side by side (``overlap.ov_per``'s), on spins aligned and 1
+    byte off: the first graph's words and the seeds bitwise
+    ``table_states_plain``, one launch a move; the kernel's CTAs an SM
+    queried."""
+    from peapods_tpu_torch.ops import overlap
+
+    lat = _table_lattice(shape, offsets)
+    tables = lat.device_tables(cuda)
+    n, g_pairs = lat.n_spins, n_rep // 2
+    tg = n_temps * g_pairs
+    ctas = overlap.table_ctas(cuda.index, lat.n_neighbors, kind)
+    assert ctas >= 1
+    pers = [0] + [p for p in range(1, 9)
+                  if tg % p == 0 and (p % g_pairs == 0 or g_pairs % p == 0)]
+    lib, stream = _build.library(), torch.cuda.current_stream(cuda).cuda_stream
+    for offset in (0, 1):
+        x = _ov_inputs(cuda, 97 + offset, lat, couplings, offset, d=d, n_rep=n_rep,
+                       n_temps=n_temps)
+        tab = _event_inputs(x, d, n_rep, n_temps, n, kind, wolff, 43 + offset)
+        args = (x["sid"], tab[0], x["coup"], x["temps"], *tab[1:])
+        st, _, _, sd = overlap.table_states_plain(x["spins"].clone(), *args, kind=kind,
+                                                  wolff=wolff, lattice=lat)
+        assert st.any()
+        dims, _ = overlap.check_event(x["spins"], *args, lat, kind)
+        for per in pers:
+            scratch = overlap.Scratch(dims[0], n, cuda, kind == "cmr", table=True)
+            scratch.state.fill_(-7)
+            scratch.seeds.fill_(-7)
+            _reset_move_counts()
+            overlap.launch_event(lib, stream, dims, x["spins"].clone().data_ptr(),
+                                 *(t.data_ptr() for t in args), scratch.ptrs(), kind=kind,
+                                 wolff=wolff, lattice=lat, tables=tables, per=per)
+            torch.cuda.synchronize()
+            assert overlap.LAUNCHES["ov_bonds_table"] == 1
+            assert torch.equal(scratch.state, st), (offset, per)
+            assert torch.equal(scratch.seeds, sd), (offset, per)

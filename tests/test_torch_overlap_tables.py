@@ -204,10 +204,13 @@ def _modulo_fwd(shape, offsets, sign=1):
                          ids=TABLE_IDS + ["6^4", "5^5"])
 def test_table_launch_takes_every_task_site_once(shape, offsets, n_tasks):
     """``table_grid``'s CTAs (x the blocks of 256 groups of four sites, y the
-    tasks): each thread's group ``4 grp .. 4 grp + 3`` below n, every
-    (task, site) once; each neighbour the kernels read, ``fwd[i nb + d]`` /
-    ``bwd[i nb + d]`` of the device tables, the reference's table and the
-    modulo walk's."""
+    tasks; ov_mid_table, ov_finish_table and the Houdayer forms): each
+    thread's group ``4 grp .. 4 grp + 3`` below n, every (task, site) once;
+    ``ov_bonds_table``'s plan (``overlap.ov_table_plan``: x a realization's
+    sets of ``per`` tasks, y the group blocks, z the realizations) every
+    (task, site) once too; each neighbour the kernels read, ``fwd[i nb +
+    d]`` / ``bwd[i nb + d]`` of the device tables, the reference's table and
+    the modulo walk's."""
     lat = Lattice(shape, offsets)
     n, nb = lat.n_spins, lat.n_neighbors
     gx, gy = table_grid(n, n_tasks)
@@ -229,6 +232,14 @@ def test_table_launch_takes_every_task_site_once(shape, offsets, n_tasks):
                                   _modulo_fwd(shape, offsets, -1)[sites])
     words = overlap.ov_table_words(n, nb, 2, 3, 4, 24)
     assert words.dtype == np.int32 and words.tolist() == [n, nb, 3, 4, 24, 2]
+    d, n_temps, n_groups = {1: (1, 1, 1), 7: (1, 7, 1), 384: (16, 12, 2)}[n_tasks]
+    plan = overlap.ov_table_plan(n, d, n_temps, n_groups, 132, 2)
+    px, py, pz = plan.grid
+    assert px * plan.per * pz == n_tasks and py == gx and pz == d
+    task = (np.arange(pz)[:, None, None] * n_temps * n_groups
+            + np.arange(px)[None, :, None] * plan.per + np.arange(plan.per)[None, None])
+    taken = np.sort(np.add.outer(task.reshape(-1) * n, sites).reshape(-1))
+    np.testing.assert_array_equal(taken, np.arange(n_tasks * n))
 
 
 def _model_pair_table(spins, sid, fwd, n_rep):

@@ -79,6 +79,28 @@ launch (CUDA events over warm launches queued behind a sleep kernel),
 line per measurement with the card, writes all of them as JSON to
 ``--out/probe.json``.  Needs a CUDA device, nvcc and cuobjdump; imports
 nothing of JAX.
+
+``--table`` times the table form ``fk_bonds_table`` (the lattices past
+three dimensions or six offsets; the first design, a group of four sites of
+one graph a thread with a runtime loop over the offsets, told from the
+redesign, a group of ``per`` graphs of one realization a thread or the split
+form's warps sharing a group's offsets, by its source) at the table runs'
+shapes: the 4D +-J glass (10^4, 16 realizations x 24 graphs), 16^4 x 16
+and 16^3 with 13 offsets x 8 (unit couplings), each build's bond words
+bitwise ``fk_bonds_plain``'s bits, with its variants:
+
+* ``t-nophilox`` (both designs): Philox replaced by a cheap mix of its
+  counter and keys (wrong bonds): the share of the time the draws take;
+* ``t-skip`` (the redesign): no Philox block where none of the group's
+  four bonds along an offset has s s_f J > 0 (the function kept);
+* ``t-lb1`` (the redesign): the 4-offset kernel without its four CTAs an
+  SM (no 64-register bound);
+* ``t-inline`` (the redesign): the couplings other than +-1 decided
+  inline, not in the out-of-line ``other_bonds``;
+
+with ``--per`` the redesign also at every count of graphs a thread and in
+the split form of 2, 4, 5 and 8 warps at one graph a thread.  It prints the
+table kernels' ptxas registers and spill bytes.
 """
 
 from __future__ import annotations
@@ -100,8 +122,8 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
 
-from chip_smoke import card_line  # noqa: E402
-from peapods_tpu_torch.ops import _build, fk  # noqa: E402
+from chip_smoke import bound, card_line  # noqa: E402
+from peapods_tpu_torch.ops import _build, cc, fk  # noqa: E402
 from peapods_tpu_torch.ops.lattice import GEOMETRY_OFFSETS, BandGeometry, Lattice  # noqa: E402
 from probe_pt_link import events_ms, registers  # noqa: E402
 
@@ -211,8 +233,23 @@ S_O_UNIT = [
 # ... and the redesign's staged form without its spread: one graph a thread
 # draws every direction of its group, 256 threads a CTA
 N_NOSPREAD = [("  const bool spread = kStaged && per == 1;", "  const bool spread = false;")]
+# ... and of the table form (fk_bonds_table): its draws replaced (both
+# designs; the anchor is the same line in each), the draws skipped where no
+# bond of the group can be active, the 4-offset kernel without its minimum
+# of CTAs an SM (the redesign's)
+_T_DRAW = ("    const uint4 u = philox4x32_10(k0, k1, static_cast<uint32_t>(d), "
+           "static_cast<uint32_t>(g),\n                                  0u, 0u);")
+T_NOPHILOX = [(_T_DRAW, "    const uint4 u = make_uint4(k0 ^ static_cast<uint32_t>(g), k1 + "
+               "static_cast<uint32_t>(g),\n        static_cast<uint32_t>(g) * 0x9E3779B9u ^ "
+               "static_cast<uint32_t>(d), k0 + k1 + static_cast<uint32_t>(d));")]
+T_SKIP = [(_T_DRAW, "    if (!sat) continue;\n" + _T_DRAW)]
+T_LB1 = [("__launch_bounds__(kThreads, NB == 4 ? 4 : 1)\nfk_bonds_table_kernel(",
+          "__launch_bounds__(kThreads)\nfk_bonds_table_kernel(")]
+T_INLINE = [("__device__ __noinline__ uint32_t other_bonds(",
+             "__device__ __forceinline__ uint32_t other_bonds(")]
 # name: (design, edits, whether the variant keeps the function, the bonds
-# it is timed on: "all" but the staged ones', "staged" only, or "any")
+# it is timed on: "all" but the staged and table ones', "staged" only,
+# "table" only, or "any" but the table's)
 VARIANTS = {
     "o-noparent": ("first", O_NOPARENT, True, "all"),
     "o-once": ("first", O_ONCE, True, "all"),
@@ -226,6 +263,10 @@ VARIANTS = {
     "n-nophilox": ("redesign", N_NOPHILOX, False, "any"),
     "n-lb1": ("redesign", N_LB1, True, "any"),
     "n-nospread": ("redesign", N_NOSPREAD, True, "staged"),
+    "t-nophilox": ("table-any", T_NOPHILOX, False, "table"),
+    "t-skip": ("table-redesign", T_SKIP, True, "table"),
+    "t-lb1": ("table-redesign", T_LB1, True, "table"),
+    "t-inline": ("table-redesign", T_INLINE, True, "table"),
 }
 
 T_SQ = 2.0 / np.log(1.0 + np.sqrt(2.0))
@@ -244,6 +285,17 @@ STAGED = (
     ("bcc16", (16, 16, 16), GEOMETRY_OFFSETS["bcc"], 8, 6.3),
     ("fcc16", (16, 16, 16), GEOMETRY_OFFSETS["fcc"], 8, 9.8),
     ("nnn64", (64, 64), NNN, 8, 5.3),
+)
+SHELLS3 = ([[1, 0, 0], [0, 1, 0], [0, 0, 1]]
+           + [[1, s, 0] for s in (1, -1)] + [[1, 0, s] for s in (1, -1)]
+           + [[0, 1, s] for s in (1, -1)]
+           + [[1, a, b] for a in (1, -1) for b in (1, -1)])
+# the table runs' graphs (fk_bonds_table): (name, shape, offsets,
+# realizations, graphs each, temperature, couplings)
+TABLE = (
+    ("glass4d", (10, 10, 10, 10), None, 16, 24, 2.0, "pm"),
+    ("4d16", (16, 16, 16, 16), None, 1, 16, 6.68, "unit"),
+    ("shells16", (16, 16, 16), SHELLS3, 1, 8, 18.0, "unit"),
 )
 # band 0 of each in 4 bands: (name, shape, geometry, systems, temperature)
 BANDS = (
@@ -264,10 +316,18 @@ def staged_design(csrc: Path) -> str:
             else "redesign")
 
 
+def table_design(csrc: Path) -> str:
+    """The design of the table form's bonds: the first (a graph a thread) or
+    the redesign (``per`` graphs a thread, the CTA's staged graphs)."""
+    return ("table-redesign" if "TableGraphs" in (csrc / "fk.cu").read_text()
+            else "table-first")
+
+
 def builds(sources, out, variants):
-    """``{(label, variant): (fk.cu path, design)}``: each source's base and
-    the variants of its design; a variant of its own design whose anchors
-    are not found stops the probe."""
+    """``{(label, variant): (fk.cu path, design, staged design, table
+    design)}``: each source's base and the variants of its designs; a
+    variant of its own design whose anchors are not found stops the
+    probe."""
     todo = {}
     for label, csrc in sources:
         own = design(csrc)
@@ -275,7 +335,7 @@ def builds(sources, out, variants):
         for variant in ("base", *variants):
             if variant != "base":
                 aim, edits, _, timed = VARIANTS[variant]
-                if aim not in (own, staged_design(csrc)) or (
+                if aim not in (own, staged_design(csrc), table_design(csrc), "table-any") or (
                         timed == "staged" and aim != staged_design(csrc)):
                     continue
                 gone = [old.splitlines()[0] for old, _ in edits if text.count(old) != 1]
@@ -289,7 +349,7 @@ def builds(sources, out, variants):
             for old, new in ([] if variant == "base" else VARIANTS[variant][1]):
                 src = src.replace(old, new)
             (d / "fk.cu").write_text(src)
-            todo[(label, variant)] = (d / "fk.cu", own, staged_design(csrc))
+            todo[(label, variant)] = (d / "fk.cu", own, staged_design(csrc), table_design(csrc))
     return todo
 
 
@@ -351,8 +411,8 @@ def sass_counts(sass: str) -> dict:
             close()
             fn = m.group(1)
             name = None
-            kind = next((k for k in ("fk_bonds_band", "fk_bonds_staged", "fk_bonds_nb",
-                                     "fk_bonds") if f"{k}_kernel" in fn), None)
+            kind = next((k for k in ("fk_bonds_band", "fk_bonds_staged", "fk_bonds_table",
+                                     "fk_bonds_nb", "fk_bonds") if f"{k}_kernel" in fn), None)
             if kind:
                 args = [f"{'true' if v == '1' else 'false'}" if t == "b" else v
                         for t, v in re.findall(r"L([ib])(\d+)E", fn.split("_kernel", 1)[1])]
@@ -472,7 +532,7 @@ def probe(libs, todo, states, dev, card, rounds, pers, results):
                 staged = form == "staged"
                 first = todo[key][2 if staged else 1] != "redesign"
                 spec = VARIANTS.get(variant)
-                if spec and (spec[3] == ("all" if staged else "staged")
+                if spec and (spec[3] in ("table", "all" if staged else "staged")
                              or (staged and spec[0] == "redesign" and first)):
                     continue  # not this form's variant, or not of its design here
                 keeps = variant == "base" or spec[2]
@@ -503,6 +563,126 @@ def probe(libs, todo, states, dev, card, rounds, pers, results):
         torch.cuda.empty_cache()
 
 
+def table_inputs(shape, offsets, d, s, temp, coup, dev, rng):
+    lat = Lattice(shape, offsets)
+    assert lat.table
+    b, n, nb = d * s, lat.n_spins, lat.n_neighbors
+    up = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+    j = (np.ones((d, n, nb), np.float32) if coup == "unit"
+         else rng.choice([-1.0, 1.0], size=(d, n, nb)).astype(np.float32))
+    return dict(spins=up(rng.choice([-1, 1], size=(b, *shape)).astype(np.int8)), j=up(j),
+                temps=torch.full((b,), temp, dtype=torch.float32, device=dev),
+                kb=up(rng.integers(-2**31, 2**31, (b, 2)).astype(np.int32)),
+                fwd=lat.device_tables(dev)[0], lat=lat, b=b, n=n, nb=nb, s=s, d=d)
+
+
+def table_launcher(lib, first, x, plan):
+    """``(fn, state)``: one launch of a build's fk_bonds_table (the
+    redesign on ``plan``'s graphs a thread and split)."""
+    dev = x["spins"].device
+    state = torch.zeros((x["b"], x["n"]), dtype=torch.int32, device=dev)
+    fn = lib.peapods_fk_bonds_table
+    fn.restype = _I
+    head = (x["spins"].data_ptr(), x["j"].data_ptr(), x["temps"].data_ptr(),
+            x["kb"].data_ptr(), state.data_ptr(), x["fwd"].data_ptr(), x["n"], x["nb"],
+            x["b"], x["s"])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if first:
+        fn.argtypes = [_P] * 6 + [_I] * 4 + [_P]
+        args = (*head, stream)
+    else:
+        fn.argtypes = [_P] * 6 + [_I] * 6 + [_P]
+        args = (*head, plan.per, plan.split, stream)
+    return (lambda: _build.check(fn(*args), "fk_bonds_table")), state
+
+
+def table_registers(log: str, kernel: str = "fk_bonds_table") -> dict:
+    """``{kernel<args>: "R registers, S B spilled"}`` of a kernel's template
+    instances in a ``ptxas -v`` log (spill stores and loads added)."""
+    out, name, spill = {}, None, 0
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            fn = m.group(1)
+            name = None
+            if f"{kernel}_kernel" in fn:
+                args = re.findall(r"Li(\d+)E|Lb([01])E", fn.split("_kernel", 1)[1])
+                name = kernel + f"<{', '.join(a or b for a, b in args)}>"
+            spill = 0
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name] = f"{m.group(1)} registers, {spill} B spilled"
+            name = None
+    return out
+
+
+def table_bound(x):
+    """``chip_smoke.py`` ``any_bounds``' bonds on a table lattice: every
+    spin, the couplings and the forward table read once, a word a site
+    written; three f32 operations a bond (the Philox rounds left out)."""
+    b, n, nb, d = x["b"], x["n"], x["nb"], x["d"]
+    return bound(b * n + 4 * d * n * nb + 4 * n * nb + 4 * b * n, 3 * nb * b * n)
+
+
+def probe_table(libs, todo, dev, card, rounds, pers, only, rng, results):
+    """fk_bonds_table of every source's base build and its table variants at
+    TABLE: bond words bitwise ``fk_bonds_plain``'s bits; with ``pers`` the
+    redesign at every count of graphs a thread and split form."""
+    keys = [k for k in todo if k[1] == "base" or VARIANTS[k[1]][3] == "table"]
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, shape, offsets, d, s, temp, coup in TABLE:
+        if only and name not in only:
+            continue
+        x = table_inputs(shape, offsets, d, s, temp, coup, dev, rng)
+        n, nb = x["n"], x["nb"]
+        want = cc.pack_masks(fk.fk_bonds_plain(x["spins"], x["j"], x["temps"], x["kb"],
+                                               offsets=x["lat"].offsets), torch.int32)
+        b_ms, b_by = table_bound(x)
+        for rnd in range(rounds):
+            for key in (keys if rnd % 2 == 0 else keys[::-1]):
+                label, variant = key
+                first = todo[key][3] == "table-first"
+                keeps = variant == "base" or VARIANTS[variant][2]
+                rule = None if first else fk.table_bonds_plan(
+                    n, nb, d, s, fk.resident_threads(dev.index) // 8, sms)
+                forms = [rule]
+                if pers and not first:
+                    forms += [fk.TableBondsPlan(p, 1, 256, None) for p in range(1, 9)
+                              if s % p == 0 and (p, 1) != rule[:2]]
+                    forms += [fk.TableBondsPlan(1, k, 32 * k, None) for k in (2, 4, 5, 8)
+                              if k <= nb and (1, k) != rule[:2]]
+                for plan in ([None] if first else forms if variant == "base" else [rule]):
+                    fn, state = table_launcher(libs[key][0], first, x, plan)
+                    fn()
+                    torch.cuda.synchronize()
+                    ok = bool(torch.equal(state, want)) if keeps else None
+                    if keeps and not ok:
+                        raise AssertionError(f"{label} {variant} fk_bonds_table at {name} "
+                                             f"({plan}) differs from its plain version: "
+                                             f"{int((state != want).sum())} words")
+                    ms = events_ms(fn, 50)
+                    form = ("the first design" if first else
+                            f"{plan.per} graphs a thread" + (f", {plan.split} warps a group"
+                                                             if plan.split > 1 else ""))
+                    results.append(dict(kind="fk_bonds_table", source=label, variant=variant,
+                                        state=name, round=rnd, per=None if first else plan.per,
+                                        split=None if first else plan.split,
+                                        rule=not first and plan == rule, ms=ms, bound_ms=b_ms,
+                                        bound_by=b_by, graphs=x["b"], sites=n, offsets=nb,
+                                        bitwise_plain=ok,
+                                        design="first" if first else "redesign"))
+                    print(f"[fk_bonds_table] {label} {variant} {name} ({x['b']} x {n} sites, "
+                          f"{nb} offsets, {form}): {ms:.5f} ms a launch (bound {b_ms:.6f} ms, "
+                          f"{b_by})" + (", words bitwise plain" if ok else "")
+                          + f" round {rnd} on {card}", flush=True)
+                    del state
+        del x, want
+        torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", action="append", default=[])
@@ -513,6 +693,8 @@ def main():
     ap.add_argument("--shapes", default="", help="comma-separated state names (default: all)")
     ap.add_argument("--per", action="store_true", help="also time the redesign with each "
                     "count of graphs a thread")
+    ap.add_argument("--table", action="store_true",
+                    help="also time the table form fk_bonds_table at the table runs' shapes")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_bonds: torch sees no CUDA device", file=sys.stderr)
@@ -533,9 +715,13 @@ def main():
                             sass=counts))
         print(f"[ptxas] {key[0]} {key[1]}: " + "; ".join(f"{k} {v}" for k, v in regs.items()),
               flush=True)
+        tregs = table_registers(libs[key][1])
+        results[-1]["table_registers"] = tregs
+        print(f"[ptxas] {key[0]} {key[1]} table: "
+              + "; ".join(f"{k} {v}" for k, v in tregs.items()), flush=True)
         for k, c in counts.items():
             nb = int(k.split("<")[1].split(",")[0].rstrip(">")) if k.endswith(">") else None
-            per_bond = "" if nb is None else f", {c['instructions'] / (4 * nb):.1f} a bond"
+            per_bond = "" if not nb else f", {c['instructions'] / (4 * nb):.1f} a bond"
             print(f"[sass] {key[0]} {key[1]} {k}: {c['instructions']} instructions{per_bond}; "
                   f"integer divisions {c['int_div']}, MUFU.EX2 {c['ex2']}, IMAD.WIDE.U32 "
                   f"{c['imad_wide']}, calls {c['calls']}; loads {c['ldg']}, stores {c['stg']}",
@@ -556,6 +742,8 @@ def main():
                 yield name, staged_inputs(shape, offsets, s, temp, dev, rng), "staged"
 
     probe(libs, todo, states, dev, card, a.rounds, a.per, results)
+    if a.table:
+        probe_table(libs, todo, dev, card, a.rounds, a.per, only, rng, results)
     (out / "probe.json").write_text(json.dumps(dict(card=card, results=results)))
     print(f"wrote {out / 'probe.json'}")
     return 0

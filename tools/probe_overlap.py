@@ -99,6 +99,25 @@ one launch (CUDA events over warm launches queued behind a sleep kernel),
 line per measurement with the card, writes all of them as JSON to
 ``--json`` (default ``--out/probe.json``).  Needs a CUDA device, nvcc and
 cuobjdump; imports nothing of JAX.
+
+``--table`` times the table form ``ov_bonds_table`` (4D and up, or 7 to 32
+offsets; the first design, a group of four sites of one task a thread,
+the task's systems found again by every thread, byte gathers and J / T and
+the bond's exp again for every task and bond, told from the redesign, a
+group of ``per`` tasks a thread with the CTA's tasks staged, by its source)
+at the 4D +-J glass (10^4, 16 realizations x 12 temperatures x 2 replicas:
+CMR SW and Joerg Wolff) and nine16 (16^3 with 9 offsets, 8 x 12 x 2, CMR
+SW), on random states, the words and seeds bitwise
+``overlap.table_states_plain``, with its variants ``t-o-nophilox`` /
+``t-n-nophilox`` (Philox replaced by a cheap mix of its counter and keys
+in the first design / the redesign; wrong bonds: the share of the time the
+draws take), ``t-n-exp`` (the redesign taking every coupling as one other than
++-1: J / T divided and the exp drawn for every candidate, no staged unit
+threshold), ``t-n-lb3`` (the 4-offset kernels asked for three CTAs an
+SM) and ``t-n-inline`` (the couplings other than +-1 decided inline),
+each variant on the plan of its own CTAs an SM; with ``--per`` the
+redesign at every count of tasks a thread.  It prints ``ov_bonds_table``'s
+ptxas registers and spill bytes.
 """
 
 from __future__ import annotations
@@ -119,10 +138,11 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "tools"))
 
-from chip_smoke import bound, card_line, houdn_bounds, ov_finish_bound  # noqa: E402
+from chip_smoke import bound, card_line, ea_bounds, houdn_bounds, ov_finish_bound  # noqa: E402,E501
 from peapods_tpu_torch.engine import seeds  # noqa: E402
 from peapods_tpu_torch.ops import _build, fk, overlap  # noqa: E402
 from peapods_tpu_torch.ops.cluster import connected_components  # noqa: E402
+from peapods_tpu_torch.ops.lattice import Lattice  # noqa: E402
 from probe_pt_link import events_ms  # noqa: E402
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -130,7 +150,9 @@ KERNELS = ("ov_bonds", "ov_mid", "houdn_bonds", "ov_finish", "houdn_finish")
 BONDS = ("ov_bonds", "ov_mid")
 # a kernel's design: redesigned where its source holds the marker
 MARKER = {"ov_bonds": "OvWalk", "ov_mid": "OvWalk", "houdn_bonds": "houdn_rows",
-          "ov_finish": "houdn_rows", "houdn_finish": "houdn_finish_kernel<2"}
+          "ov_finish": "houdn_rows", "houdn_finish": "houdn_finish_kernel<2",
+          "ov_bonds_table": "TableTasks"}
+TABLE = "ov_bonds_table"
 
 O_NODIV = [
     ("      const int f = fwd_site(i, g, dir);\n      const int af = k.a[f];",
@@ -249,6 +271,24 @@ N_PARENT = [
 N_SERIAL = [("constexpr int kFlipBatch = 8;", "constexpr int kFlipBatch = 1;")]
 N_ENTRIES = [("  const int e = kThreads - 1 - threadIdx.x;", "  const int e = threadIdx.x;")]
 
+# ... and of ov_bonds_table's two designs: Philox replaced (wrong bonds), and
+# the redesign's J / T and exp for every candidate
+T_O_NOPHILOX = [("    const uint4 r = philox4x32_10(k0, k1, static_cast<uint32_t>(d), "
+                 "static_cast<uint32_t>(grp),\n                                  0u, 0u);",
+                 "    const uint4 r = make_uint4(k0 ^ static_cast<uint32_t>(grp), k1 + "
+                 "static_cast<uint32_t>(grp), static_cast<uint32_t>(grp) * 0x9E3779B9u ^ "
+                 "static_cast<uint32_t>(d), k0 + k1 + static_cast<uint32_t>(d));")]
+T_N_NOPHILOX = [("      const uint4 r = philox4x32_10(sh.k0[k], sh.k1[k], static_cast<uint32_t>(d),\n"
+                 "                                    static_cast<uint32_t>(grp), 0u, 0u);",
+                 "      const uint32_t gw = static_cast<uint32_t>(grp);\n"
+                 "      const uint4 r = make_uint4(sh.k0[k] ^ gw, sh.k1[k] + gw, gw * 0x9E3779B9u ^ "
+                 "static_cast<uint32_t>(d), sh.k0[k] + sh.k1[k] + static_cast<uint32_t>(d));")]
+T_N_INLINE = [("__device__ __noinline__ uint32_t other_pair_bonds(",
+               "__device__ __forceinline__ uint32_t other_pair_bonds(")]
+T_N_EXP = [("    const uint32_t uni = (m[j] >> 2) & kByteBits;", "    const uint32_t uni = 0u * m[j];")]
+T_N_LB3 = [("template <int kKind, int NB>\n__global__ void __launch_bounds__(kThreads)\n"
+            "ov_bonds_table_kernel(", "template <int kKind, int NB>\n__global__ void "
+            "__launch_bounds__(kThreads, NB == 4 ? 3 : 1)\nov_bonds_table_kernel(")]
 # name: (design, source edits, tasks a thread or None, keeps the function,
 # the kernels it changes)
 VARIANTS = {
@@ -266,6 +306,11 @@ VARIANTS = {
     "n-parent": ("redesign", N_PARENT, None, True, ("houdn_bonds",)),
     "n-serial": ("redesign", N_SERIAL, None, True, ("houdn_finish",)),
     "n-entries": ("redesign", N_ENTRIES, None, True, ("houdn_finish",)),
+    "t-o-nophilox": ("first", T_O_NOPHILOX, None, False, (TABLE,)),
+    "t-n-nophilox": ("redesign", T_N_NOPHILOX, None, False, (TABLE,)),
+    "t-n-exp": ("redesign", T_N_EXP, None, True, (TABLE,)),
+    "t-n-lb3": ("redesign", T_N_LB3, None, True, (TABLE,)),
+    "t-n-inline": ("redesign", T_N_INLINE, None, True, (TABLE,)),
 }
 
 # (name, shape, realizations, replicas, temperatures, their range, couplings)
@@ -307,7 +352,7 @@ def forms(state):
 
 
 def designs(text: str) -> dict:
-    return {k: "redesign" if MARKER[k] in text else "first" for k in KERNELS}
+    return {k: "redesign" if MARKER[k] in text else "first" for k in (*KERNELS, TABLE)}
 
 
 def builds(sources, out, variants):
@@ -718,6 +763,121 @@ def probe(libs, todo, states, card, rounds, results, rng, kernels):
                           flush=True)
 
 
+# the table form's states (ov_bonds_table): (name, shape, offsets,
+# realizations, replicas, temperatures, their range, couplings) and the
+# moves timed on each (kind, wolff)
+NINE = [[1, 0, 0], [0, 1, 0], [0, 0, 1], [1, 1, 0], [1, -1, 0], [1, 0, 1], [1, 0, -1],
+        [0, 1, 1], [0, 1, -1]]
+TABLE_STATES = (("glass4d", (10, 10, 10, 10), None, 16, 2, 12, (1.6, 2.4), "pm",
+                 (("cmr", False), ("jorg", True))),
+                ("nine16", (16, 16, 16), NINE, 8, 2, 12, (2.5, 4.5), "pm", (("cmr", False),)))
+
+
+def table_inputs(shape, offsets, d, n_rep, n_temps, t_range, couplings, dev, rng):
+    lat = Lattice(shape, offsets)
+    assert lat.table
+    n, nb, s = lat.n_spins, lat.n_neighbors, n_rep * n_temps
+    coup = (rng.choice([-1.0, 1.0], size=(d, n, nb)) if couplings == "pm"
+            else rng.standard_normal((d, n, nb))).astype(np.float32)
+    sid = np.stack([rng.permutation(n_temps)[None] + n_temps * rng.permutation(n_rep)[:, None]
+                    for _ in range(d)]).reshape(d, s).astype(np.int32)
+    up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    return dict(lat=lat, shape=tuple(shape), d=d, n=n, nb=nb, n_rep=n_rep, n_temps=n_temps,
+                spins=up(rng.choice(np.array([-1, 1], np.int8), size=(d, s, n))),
+                coup=up(coup), temps=up(np.geomspace(*t_range, n_temps).astype(np.float32)),
+                sid=up(sid), fwd=lat.device_tables(dev)[0])
+
+
+def table_launcher(lib, first, x, tab, kind, wolff, per):
+    """``(fn, state, seeds)``: one launch of a build's ov_bonds_table (the
+    redesign at ``per`` tasks a thread)."""
+    dev = x["spins"].device
+    b = tab[0].numel() // 2
+    n = x["n"]
+    state = torch.zeros((b, n), dtype=torch.int32, device=dev)
+    sd = torch.full((b,), -1, dtype=torch.int32, device=dev)
+    words = overlap.ov_table_words(n, x["nb"], x["d"], x["n_temps"], x["n_rep"] // 2,
+                                   x["n_rep"] * x["n_temps"])
+    fn = lib.peapods_ov_bonds_table
+    fn.restype = _I
+    head = [t.data_ptr() for t in (x["spins"], x["sid"], tab[0], x["coup"], x["temps"], tab[1],
+                                   tab[2], tab[3], x["fwd"], state, sd)]
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    k = overlap.KINDS.index(kind)
+    if first:
+        fn.argtypes = [_P] * 12 + [_I] * 2 + [_P]
+        args = (*head, words.ctypes.data, k, int(wolff), stream)
+    else:
+        fn.argtypes = [_P] * 12 + [_I] * 3 + [_P]
+        args = (*head, words.ctypes.data, k, int(wolff), per, stream)
+    state.words = words  # held with the state
+    return (lambda: _build.check(fn(*args), "ov_bonds_table")), state, sd
+
+
+def probe_table(libs, todo, card, rounds, pers, only, rng, results):
+    """ov_bonds_table of every source's base build and its table variants at
+    TABLE_STATES: words and seeds bitwise ``table_states_plain``; with
+    ``pers`` the redesign at every count of tasks a thread."""
+    keys = [k for k in todo if k[1] == "base" or TABLE in VARIANTS[k[1]][4]]
+    for name, shape, offsets, d, n_rep, n_temps, t_range, couplings, moves in TABLE_STATES:
+        if only and name not in only:
+            continue
+        dev = torch.device("cuda", 0)
+        x = table_inputs(shape, offsets, d, n_rep, n_temps, t_range, couplings, dev, rng)
+        n, g_pairs = x["n"], n_rep // 2
+        tg = n_temps * g_pairs
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        fits = [p for p in range(1, 9) if tg % p == 0 and (p % g_pairs == 0 or g_pairs % p == 0)]
+        for kind, wolff in moves:
+            tab = tables(x, kind, wolff, 2, rng, dev)
+            st, _, _, sd = overlap.table_states_plain(
+                x["spins"].clone(), x["sid"], tab[0], x["coup"], x["temps"], *tab[1:],
+                kind=kind, wolff=wolff, lattice=x["lat"])
+            b_ms, b_by = ea_bounds(x["lat"], d, n_temps, 2, g_pairs, 0, kind, wolff)[TABLE]
+            form = f"{kind} {'wolff' if wolff else 'sw'}"
+            for rnd in range(rounds):
+                for key in (keys if rnd % 2 == 0 else keys[::-1]):
+                    label, variant = key
+                    first = todo[key][1][TABLE] == "first"
+                    spec = VARIANTS.get(variant, (None, [], None, True, ()))
+                    lib = libs[key if todo[key][0] is not None else (label, "base")][0]
+                    rule = 0
+                    if not first:  # the plan on this build's CTAs an SM
+                        query = lib.peapods_ov_bonds_table_ctas
+                        query.restype, query.argtypes = _I, [_I, _I]
+                        rule = overlap.ov_table_plan(n, d, n_temps, g_pairs, sms, query(
+                            x["nb"], overlap.KINDS.index(kind))).per
+                    every = [rule] + ([p for p in fits if p != rule]
+                                      if pers and variant == "base" else [])
+                    for per in ([0] if first else every):
+                        fn, state, seeds_out = table_launcher(lib, first, x, tab, kind, wolff,
+                                                              per)
+                        fn()
+                        torch.cuda.synchronize()
+                        ok = None
+                        if spec[3]:
+                            ok = bool(torch.equal(state, st) and torch.equal(seeds_out, sd))
+                            if not ok:
+                                raise AssertionError(f"{label} {variant} ov_bonds_table {form} "
+                                                     f"at {name} (per {per}) differs from its "
+                                                     "plain version")
+                        ms = events_ms(fn, 100)
+                        results.append(dict(kind=TABLE, form=form, source=label,
+                                            variant=variant, state=name, round=rnd, ms=ms,
+                                            bound_ms=b_ms, bound_by=b_by, bitwise_plain=ok,
+                                            per=None if first else per,
+                                            rule=not first and per == rule,
+                                            design="first" if first else "redesign"))
+                        print(f"[{TABLE}] {label} {variant} {name} {form} ({d * tg} tasks x {n} "
+                              f"sites, {x['nb']} offsets, "
+                              + ("the first design" if first else f"{per} tasks a thread")
+                              + f"): {ms:.5f} ms a launch (bound {b_ms:.6f} ms, {b_by})"
+                              + (", bitwise plain" if ok else "") + f" round {rnd} on {card}",
+                              flush=True)
+        del x
+        torch.cuda.empty_cache()
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", action="append", default=[])
@@ -729,6 +889,10 @@ def main():
     ap.add_argument("--shapes", default="", help="comma-separated state names (default: all)")
     ap.add_argument("--kernels", default=",".join(KERNELS),
                     help="comma-separated kernels to time (default: all five)")
+    ap.add_argument("--table", action="store_true",
+                    help="also time the table form ov_bonds_table at the table runs' shapes")
+    ap.add_argument("--per", action="store_true",
+                    help="with --table: the redesign at every count of tasks a thread")
     a = ap.parse_args()
     if not torch.cuda.is_available():
         print("probe_overlap: torch sees no CUDA device", file=sys.stderr)
@@ -742,7 +906,7 @@ def main():
     libs = compile_all(todo)
     results = []
     for key, (_, log, sass) in libs.items():
-        regs, counts = kernel_counts(log, sass)
+        regs, counts = kernel_counts(log, sass, (*KERNELS, TABLE))
         results.append(dict(kind="build", source=key[0], variant=key[1], registers=regs,
                             sass=counts))
         tag = f"{key[0]} {key[1]}"
@@ -762,6 +926,8 @@ def main():
 
     probe(libs, todo, states, card, a.rounds, results, rng,
           {k for k in a.kernels.split(",") if k})
+    if a.table:
+        probe_table(libs, todo, card, a.rounds, a.per, only, rng, results)
     path = Path(a.json) if a.json else out / "probe.json"
     path.parent.mkdir(parents=True, exist_ok=True)
     path.write_text(json.dumps(dict(card=card, results=results)))
