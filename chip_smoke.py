@@ -6520,10 +6520,9 @@ def ea_moves_check(name, lat, tables, x, moves, dev, rng, card, observe=False):
             b_ms, b_by = bounds[k]
             out.setdefault(k, dict(max_abs_err=0.0, bound_ms=b_ms, bound_by=b_by,
                                    plain_ms=plain_ms, plain_is=f"the whole {kind} move"))
-        per = "" if kind == "houdayer" else "; ov_bonds_table {} tasks a thread".format(
-            overlap.ov_table_plan(n, d, x["n_temps"], x["n_replicas"] // g,
-                                  torch.cuda.get_device_properties(dev).multi_processor_count,
-                                  overlap.table_ctas(dev.index, lat.n_neighbors, kind)).per)
+        per = "".join(f"; {k} {p} tasks a thread" for k, p in overlap.table_pers(
+            n, lat.n_neighbors, d, x["n_temps"], x["n_replicas"] // g, kind, wolff, g,
+            dev.index).items())
         log("38 kernel-vs-plain", f"{name} {kind} (g {g}, {'wolff' if wolff else 'sw'}"
             f"{', and its observe form' if len(forms) > 1 else ''}; {d * x['n_temps'] * (x['n_replicas'] // g)} "
             f"tasks on {'x'.join(map(str, lat.shape))}, {lat.n_neighbors} offsets{per}): the "

@@ -1306,23 +1306,33 @@ houdn_finish_kernel(int8_t* __restrict__ spins, const int32_t* __restrict__ sid,
 // d] = i, an extent of 1) is a bond like any other, as the reference's roll
 // over an extent of 1 makes it.
 //
-// The launch of ov_mid_table, ov_finish_table and the Houdayer forms
-// (table_grid, modelled in tests/test_torch_overlap_tables.py): a thread
-// takes the group of four sites 4 grp .. 4 grp + 3 (blockIdx.x the blocks
-// of kThreads groups) of one task (blockIdx.y), the offsets in a loop at
-// run time: the walk form's kTable instance, six offsets unrolled, reached
-// 251 registers.  A first design: every thread finds its task's systems
-// through tasks and sid, reads its sites' table rows, each neighbour's
-// spin bytes one at a time and its couplings one float at a time, and
-// takes J / T and the bond's probability again for every task.
-// ov_bonds_table had that design too and now takes ov_bonds' walk on the
-// tables (ov_table_plan; below): at the 4D +-J glass (192 tasks of 10^4
-// sites) CMR SW 0.0446 -> 0.0230 ms a launch, Joerg Wolff 0.0465 ->
-// 0.0235, at 16^3 with 9 offsets (96 tasks) CMR SW 0.0243 -> 0.0141
-// (tools/probe_overlap.py --table, CUDA events, NVIDIA H100 80GB HBM3, 700
-// W).  Of the glass's 0.0230 the draws take 0.0058 (t-n-nophilox); its
-// 100 registers hold two CTAs an SM, so the plan weighs waves; the float
-// tests of the first design, decided site by site, kept it at 0.0408.
+// The launches.  ov_bonds_table, ov_mid_table and houdn_bonds_table take
+// ov_bonds' walk on the tables (ops/overlap.py ov_table_plan and
+// table_pers, modelled in tests/test_torch_bond_plans.py; below): a thread
+// takes the group of four sites 4 grp .. 4 grp + 3 for `per` tasks of one
+// realization whose entries the CTA stages once, and reads the group's
+// table rows (and couplings) once for them; each plan weighs waves on its
+// kernel's own CTAs an SM.  ov_finish_table and houdn_finish_table are
+// first designs (table_grid, modelled in tests/test_torch_overlap_tables.py):
+// a thread takes the group of one task (blockIdx.x the blocks of kThreads
+// groups, blockIdx.y the task), finds its task's systems through tasks and
+// sid, and reads its sites' words, parents and spins a site at a time.  The
+// three redesigns had that first design too, with each neighbour's spin
+// bytes, table entries and couplings read one at a time, and J / T and the
+// bond's probability taken again for every task.  At the 4D +-J glass (192
+// tasks of 10^4 sites; tools/probe_overlap.py --table, CUDA events, NVIDIA
+// H100 80GB HBM3, 700 W), first design -> redesign, ms a launch:
+// ov_bonds_table CMR SW 0.0446 -> 0.0230, Joerg Wolff 0.0465 -> 0.0235;
+// ov_mid_table CMR SW 0.0574 -> 0.0336, at 16^3 with 9 offsets (96 tasks)
+// 0.0270 -> 0.0180; houdn_bonds_table the pair SW 0.0246 -> 0.0121, Wolff
+// Houdayer(4) (R = 4) 0.0303 -> 0.0179.  Of ov_bonds_table's 0.0230 the
+// draws take 0.0058 (t-n-nophilox); of ov_mid_table's 0.0336 the grey
+// draws 0.0048 (t-n-mid-nophilox) and the SW backward words 0.0048
+// (t-n-mid-nowalk), with 128 registers at 4 offsets against 104 without
+// them.  Reading runs of four consecutive neighbours as aligned words
+// (t-n-runs) made both 30-50% slower.  The walk form's kTable instance, six
+// offsets unrolled, reached 251 registers: the tables have instances of
+// their own.
 //
 // What bounds it on the H100: bytes.  ov_bonds_table reads its task's two
 // systems (2 n bytes), the couplings and the forward table (8 n nb bytes a
@@ -1358,6 +1368,20 @@ inline bool ov_table_ok(const OvTable& g) {
 inline dim3 table_grid(const OvTable& g) {
   const int groups = (g.n + 3) / 4;
   return dim3((groups + kThreads - 1) / kThreads, g.d * g.T * g.G);
+}
+
+// The planned table kernels (ov_bonds_table, ov_mid_table,
+// houdn_bonds_table; ops/overlap.py ov_table_plan): `per` tasks a thread, a
+// divisor of a realization's T G up to kMaxPer; x a realization's sets of
+// per tasks, y the blocks of kThreads groups (up to 65535, striding over
+// the rest), z the realizations.
+inline bool table_plan_ok(const OvTable& g, int per) {
+  return ov_table_ok(g) && per >= 1 && per <= kMaxPer && (g.T * g.G) % per == 0;
+}
+
+inline dim3 table_plan_grid(const OvTable& g, int per) {
+  const int blocks = ((g.n + 3) / 4 + kThreads - 1) / kThreads;
+  return dim3(g.T * g.G / per, blocks < 65535 ? blocks : 65535, g.d);
 }
 
 // Task blockIdx.y: its index b, realization z and temperature t.
@@ -1425,20 +1449,50 @@ struct TableTasks {
   float T[kMaxPer];
   float inv[kMaxPer];
   uint32_t thr[kMaxPer];
+  uint32_t s0[kMaxPer];  // ov_mid_table: the SW salts and the Wolff seed's root
+  uint32_t s1[kMaxPer];
+  int root[kMaxPer];
 };
 
+// Thread k < per stages task b0 + k (temperature (x per + k) / G of
+// realization z = blockIdx.z): its two systems' row offsets, key words,
+// T, 1 / T and the unit coupling's threshold of bond probability `which`.
+__device__ __forceinline__ void stage_pair_tasks(TableTasks& sh, const int32_t* __restrict__ sid,
+                                                 const int32_t* __restrict__ tasks,
+                                                 const float* __restrict__ temps,
+                                                 const int32_t* __restrict__ keys,
+                                                 const OvTable& g, int per, int which) {
+  if (threadIdx.x >= per) return;
+  const int k = threadIdx.x;
+  const int z = blockIdx.z;
+  const int b = z * g.T * g.G + blockIdx.x * per + k;
+  const int t = (blockIdx.x * per + k) / g.G;
+  const long long row = static_cast<long long>(z) * g.S;
+  sh.ra[k] = (row + __ldg(sid + row + __ldg(tasks + 2 * b) * g.T + t)) * g.n;
+  sh.rb[k] = (row + __ldg(sid + row + __ldg(tasks + 2 * b + 1) * g.T + t)) * g.n;
+  sh.k0[k] = static_cast<uint32_t>(__ldg(keys + 2 * b));
+  sh.k1[k] = static_cast<uint32_t>(__ldg(keys + 2 * b + 1));
+  const float T = __ldg(temps + t);
+  sh.T[k] = T;
+  sh.inv[k] = 1.0f / T;
+  sh.thr[k] = threshold24(bond_prob(which, 1.0f / T));
+}
+
 // The bonds along offset d of the group's sites `other`, whose couplings are
-// not +-1 (cg the group's couplings, rows of nb): J / T divided and the
-// first design's float tests, its Philox block (the unit sites' own, drawn
-// again) only where one of them is a candidate, and threshold24 of each
-// candidate's probability.  Bit 0 of byte q: site q's bond.  Out of line:
-// inlined, its division and exp took registers from every site's path.
-template <int kKind>
+// not +-1 (cg the group's couplings, rows of nb), of bond probability
+// `which` (Joerg: a a_f jt > 0, a != b and a_f != b_f; CMR blue: a a_f jt
+// > 0 and b b_f jt > 0; grey: the two tests differ): J / T divided and the
+// first design's float tests, its Philox block at counter (first + d, grp)
+// (the unit sites' own, drawn again) only where one of them is a
+// candidate, and threshold24 of each candidate's probability.  Bit 0 of
+// byte q: site q's bond.  Out of line: inlined, its division and exp took
+// registers from every site's path.
+template <int which>
 __device__ __noinline__ uint32_t other_pair_bonds(uint32_t other, uint32_t aw, uint32_t bw,
                                                   uint32_t an, uint32_t bn,
                                                   const float* __restrict__ cg, int nb, int d,
-                                                  float T, uint32_t k0, uint32_t k1, int grp) {
-  constexpr int which = kKind == kJorg ? kProbJorg : kProbBlue;
+                                                  int first, float T, uint32_t k0, uint32_t k1,
+                                                  int grp) {
   float jt[4] = {0.0f, 0.0f, 0.0f, 0.0f};
   uint32_t cand = 0;
 #pragma unroll
@@ -1448,13 +1502,14 @@ __device__ __noinline__ uint32_t other_pair_bonds(uint32_t other, uint32_t aw, u
     const int a = byte_of(aw, q), b = byte_of(bw, q);
     const int af = byte_of(an, q), bf = byte_of(bn, q);
     const bool sa = static_cast<float>(a * af) * jt[q] > 0.0f;
-    if (kKind == kJorg ? sa && a != b && af != bf
-                       : sa && static_cast<float>(b * bf) * jt[q] > 0.0f)
+    const bool sb = static_cast<float>(b * bf) * jt[q] > 0.0f;
+    if (which == kProbJorg ? sa && a != b && af != bf
+                           : which == kProbBlue ? sa && sb : sa != sb)
       cand |= 1u << (8 * q);
   }
   if (!cand) return 0u;
-  const uint4 r = philox4x32_10(k0, k1, static_cast<uint32_t>(d), static_cast<uint32_t>(grp),
-                                0u, 0u);
+  const uint4 r = philox4x32_10(k0, k1, static_cast<uint32_t>(first + d),
+                                static_cast<uint32_t>(grp), 0u, 0u);
   const uint32_t uw[4] = {r.x, r.y, r.z, r.w};
   uint32_t on = 0;
 #pragma unroll
@@ -1517,8 +1572,8 @@ __device__ __forceinline__ void pair_bonds(uint32_t (&st)[4], const int8_t* __re
     }
     const uint32_t other = ~uni & live;
     if (other)
-      on |= other_pair_bonds<kKind>(other, aw, bw, an[j], bn[j], cg, nb, d, sh.T[k], sh.k0[k],
-                                    sh.k1[k], grp);
+      on |= other_pair_bonds<kKind == kJorg ? kProbJorg : kProbBlue>(
+          other, aw, bw, an[j], bn[j], cg, nb, d, 0, sh.T[k], sh.k0[k], sh.k1[k], grp);
 #pragma unroll
     for (int q = 0; q < 4; ++q) st[q] |= ((on >> (8 * q)) & 1u) << d;
   }
@@ -1536,20 +1591,7 @@ ov_bonds_table_kernel(const int8_t* __restrict__ spins, const int32_t* __restric
   __shared__ TableTasks sh;
   const int z = blockIdx.z;
   const int b0 = z * g.T * g.G + blockIdx.x * per;
-  if (threadIdx.x < per) {
-    const int k = threadIdx.x;
-    const int b = b0 + k;
-    const int t = (blockIdx.x * per + k) / g.G;
-    const long long row = static_cast<long long>(z) * g.S;
-    sh.ra[k] = (row + __ldg(sid + row + __ldg(tasks + 2 * b) * g.T + t)) * g.n;
-    sh.rb[k] = (row + __ldg(sid + row + __ldg(tasks + 2 * b + 1) * g.T + t)) * g.n;
-    sh.k0[k] = static_cast<uint32_t>(__ldg(keys + 2 * b));
-    sh.k1[k] = static_cast<uint32_t>(__ldg(keys + 2 * b + 1));
-    const float T = __ldg(temps + t);
-    sh.T[k] = T;
-    sh.inv[k] = 1.0f / T;
-    sh.thr[k] = threshold24(bond_prob(kKind == kJorg ? kProbJorg : kProbBlue, 1.0f / T));
-  }
+  stage_pair_tasks(sh, sid, tasks, temps, keys, g, per, kKind == kJorg ? kProbJorg : kProbBlue);
   __syncthreads();
   if (blockIdx.y == 0) {
     if (kKind == kJorg && wolff) {
@@ -1629,35 +1671,216 @@ ov_bonds_table_kernel(const int8_t* __restrict__ spins, const int32_t* __restric
   }
 }
 
-// Call f with the ov_bonds_table instance of the move kind and nb offsets
-// (unrolled: 4, 5, 8, 9, 13; else the runtime count).
-template <typename F>
-void ov_bonds_table_instance(int nb, int kind, F&& f) {
-  auto pick = [&](auto nb_c) {
-    constexpr int NB = decltype(nb_c)::value;
-    if (kind == kJorg)
-      f(ov_bonds_table_kernel<kJorg, NB>);
-    else
-      f(ov_bonds_table_kernel<kCmr, NB>);
-  };
-  switch (nb) {
-    case 4: pick(std::integral_constant<int, 4>{}); break;
-    case 5: pick(std::integral_constant<int, 5>{}); break;
-    case 8: pick(std::integral_constant<int, 8>{}); break;
-    case 9: pick(std::integral_constant<int, 9>{}); break;
-    case 13: pick(std::integral_constant<int, 13>{}); break;
-    default: pick(std::integral_constant<int, 0>{}); break;
+// The group's blue words st[q] (bit d: the blue bond to fwd[i0 + q, d]) and
+// flat parents lab[q] of one task: one 16-byte load each where vec (n % 4
+// == 0, the rows 16-byte aligned); a site past n holds no bond and parent
+// -1.
+__device__ __forceinline__ void table_roots(uint32_t (&st)[4], int (&lab)[4],
+                                            const uint32_t* __restrict__ S,
+                                            const int32_t* __restrict__ P, int i0, int cnt,
+                                            int vec) {
+  if (vec) {
+    const uint4 w = __ldg(reinterpret_cast<const uint4*>(S + i0));
+    const int4 p = __ldg(reinterpret_cast<const int4*>(P + i0));
+    st[0] = w.x;
+    st[1] = w.y;
+    st[2] = w.z;
+    st[3] = w.w;
+    lab[0] = p.x;
+    lab[1] = p.y;
+    lab[2] = p.z;
+    lab[3] = p.w;
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      st[q] = q < cnt ? __ldg(S + i0 + q) : 0u;
+      lab[q] = q < cnt ? __ldg(P + i0 + q) : -1;
+    }
   }
 }
 
-// CMR's blue flip and grey bonds (ov_mid's rules): the blue flip of each
-// site (Wolff: its flat parent against the drawn seed's; SW: the coin on
-// its root and table_nonsingleton) into its flip byte, and the grey word,
-// the blue bonds or (sat_a != sat_b && u < 1 - r) from counter nb + d.  The
+// Bit 0 of byte q where a backward neighbour past site i0 + q of the sites
+// `look` has its bond towards it (bk: the group's backward rows in the
+// thread's slice of shared memory, entry (q K + j) kThreads), every word
+// loaded before the first test.  Out of line: rarely called, its loads
+// keep no registers from the grey words' path.
+template <int K>
+__device__ __noinline__ uint32_t back_words(uint32_t look, const uint32_t* __restrict__ S,
+                                            const int* bk, int i0) {
+  uint32_t w[4][K];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      const int b = (look >> (8 * q)) & 1u ? bk[(q * K + j) * kThreads] : 0;
+      w[q][j] = b > i0 + q ? __ldg(S + b) : 0u;
+    }
+  uint32_t back = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int j = 0; j < K; ++j) back |= ((w[q][j] >> j) & 1u) << (8 * q);
+  return back;
+}
+
+// Bit 0 of byte q where site i0 + q of one task flips with its blue cluster
+// (ov_mid's rule): Wolff, its flat parent is the seed's root; SW, the coin
+// on its root falls below 1/2 and it lies in a cluster of two sites or more
+// (table_nonsingleton): `own` (its own bonds or a root other than itself),
+// or else a backward neighbour's bond towards it, read only for a root with
+// no bond of its own whose coin fell, and only from a backward neighbour
+// past it (the parents are the labellings': each site's root is its
+// component's least site, so a root's bonded neighbours all lie past it).
+// Where K > 0 only the sites of `past` (stage_back's) read their backward
+// words (back_words); else the backward table is walked site by site.
+template <bool kWolff, int K>
+__device__ __forceinline__ uint32_t blue_flips(uint32_t own, const int (&lab)[4],
+                                               const uint32_t* __restrict__ S,
+                                               const int32_t* __restrict__ bwd, const int* bk,
+                                               uint32_t past, int i0, int cnt, int nb,
+                                               const TableTasks& sh, int k) {
+  if (kWolff) return same_root(lab, sh.root[k]);
+  const uint32_t coin = half_coins(lab, cnt, sh.s0[k], sh.s1[k]);
+  const uint32_t need = coin & ~own;
+  uint32_t back = 0;
+  if constexpr (K > 0) {
+    const uint32_t look = need & past;
+    if (look) back = back_words<K>(look, S, bk, i0);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (((need >> (8 * q)) & 1u) && table_nonsingleton(S, bwd, i0 + q, i0 + q, 0u, nb))
+        back |= 1u << (8 * q);
+  }
+  return coin & (own | back);
+}
+
+// The group's K backward rows into the thread's slice of shared memory
+// (entry q K + j at (q K + j) kThreads past bk: no two threads of a warp on
+// one bank), read once for its tasks' SW blue flips; returns bit 0 of byte q
+// where site i0 + q has a backward neighbour past it.
+template <int K>
+__device__ __forceinline__ uint32_t stage_back(int* bk, const int32_t* __restrict__ bwd, int i0,
+                                               int cnt) {
+  int b[4][K];
+  uint32_t none[K];  // no couplings: unread
+  whole_rows<K, false>(b, none, bwd + static_cast<size_t>(i0) * K, nullptr, i0, cnt, false);
+  uint32_t past = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      bk[(q * K + j) * kThreads] = b[q][j];
+      if (b[q][j] > i0 + q) past |= 1u << (8 * q);
+    }
+  return past;
+}
+
+// The dynamic shared memory of ov_mid_table's instance of nb offsets: SW's
+// backward rows of every thread's group where the offsets are unrolled.
+inline size_t mid_smem(int nb, int wolff) {
+  const bool unrolled = nb == 4 || nb == 5 || nb == 8 || nb == 9 || nb == 13;
+  return !wolff && unrolled ? static_cast<size_t>(kThreads) * 4 * nb * sizeof(int) : 0;
+}
+
+// Bit 0 of byte q where site i0 + q has a blue bond of its own or a root
+// other than itself (the group's blue words st and parents lab).
+__device__ __forceinline__ uint32_t own_bonds(const uint32_t (&st)[4], const int (&lab)[4],
+                                              int i0) {
+  uint32_t own = 0;
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    if (st[q] || lab[q] != i0 + q) own |= 1u << (8 * q);
+  return own;
+}
+
+// The group's four flip bytes into a task's row: one 4-byte store where vec.
+__device__ __forceinline__ void store_flips(uint8_t* __restrict__ out, int i0, int cnt,
+                                            uint32_t fl, int vec) {
+  if (vec) {
+    *reinterpret_cast<uint32_t*>(out + i0) = fl;
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (q < cnt) out[i0 + q] = static_cast<uint8_t>(fl >> (8 * q));
+  }
+}
+
+// CMR's grey bonds of offsets d0 .. d0+K-1 below hi of the group's sites
+// `live` in one task k, or'ed into st (the blue words: a blue bond is a grey
+// one and draws nothing): both systems' neighbour spins gathered first,
+// then each offset's four sites at once.  sat_a != sat_b is a a_f != b b_f
+// (the two spin bytes' differences differ) where J / T is neither 0 nor
+// NaN: a unit coupling's J / T is +-1 / T, nonzero where 1 / T is; its
+// draw, counter (nb + d, grp), the integer compare with the staged grey
+// threshold; another coupling takes other_pair_bonds.
+template <int K>
+__device__ __forceinline__ void grey_bonds(uint32_t (&st)[4], const int8_t* __restrict__ A,
+                                           const int8_t* __restrict__ B, uint32_t aw,
+                                           uint32_t bw, const int (&f)[4][K],
+                                           const uint32_t (&m)[K], const float* __restrict__ cg,
+                                           int nb, int d0, int hi, uint32_t live, int grp,
+                                           const TableTasks& sh, int k) {
+  uint32_t an[K], bn[K];
+  gather_words<K>(an, A, f);
+  gather_words<K>(bn, B, f);
+  const float inv = sh.inv[k];
+  const uint32_t nz = inv > 0.0f || inv < 0.0f ? kByteBits : 0u;  // 1 / T neither 0 nor NaN
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int d = d0 + j;
+    if (d >= hi) break;
+    uint32_t blue = 0;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) blue |= ((st[q] >> d) & 1u) << (8 * q);
+    const uint32_t uni = (m[j] >> 2) & kByteBits;
+    const uint32_t open = live & ~blue;
+    const uint32_t cand = byte_differ(aw ^ an[j], bw ^ bn[j]) & uni & nz & open;
+    uint32_t on = 0;
+    if (cand) {
+      const uint4 r = philox4x32_10(sh.k0[k], sh.k1[k], static_cast<uint32_t>(nb + d),
+                                    static_cast<uint32_t>(grp), 0u, 0u);
+      const uint32_t uw[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if ((uw[q] >> 8) < sh.thr[k]) on |= 1u << (8 * q);
+      on &= cand;
+    }
+    const uint32_t other = ~uni & open;
+    if (other)
+      on |= other_pair_bonds<kProbGrey>(other, aw, bw, an[j], bn[j], cg, nb, d, nb, sh.T[k],
+                                        sh.k0[k], sh.k1[k], grp);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) st[q] |= ((on >> (8 * q)) & 1u) << d;
+  }
+}
+
+// CMR's blue flip and grey bonds (ov_mid's rules; the first design took four
+// sites of one task a thread, found its task's systems, salts, keys and T
+// again in every thread, read its rows and couplings one entry and its
+// neighbours' spins one byte at a time, walked the backward table before
+// the coin, divided J / T and drew the exp for every bond and task, and
+// stored a site at a time).  ov_bonds_table's walk: a thread takes the
+// group of four sites 4 grp .. 4 grp + 3 (blockIdx.y the groups' block,
+// strided) for `per` consecutive tasks of one realization (blockIdx.z;
+// blockIdx.x the set; ops/overlap.py ov_table_plan), whose two rows, key
+// words, T, 1 / T, unit grey threshold, SW salts and Wolff seed's root (one
+// load of parent[b n + seed] a task) the CTA stages once.  It reads the
+// group's table rows and couplings once for its tasks (table.cuh), and for
+// each task its blue words and flat parents (16-byte loads where vec & 2),
+// decides the grey words (grey_bonds) into one 16-byte store, then the four
+// blue flips (blue_flips) into one 4-byte store of the flip bytes: every
+// load of the grey words issued before a store or the backward rows.  SW
+// stages the group's backward rows once in dynamic shared memory
+// (stage_back, mid_smem), and reads a backward neighbour's word only past a
+// root whose coin fell: `parent` must hold least-site roots, as the
+// labellings write them.  The
 // flipped spins are never read: the blue flip flips a and b together, so
 // sat_a != sat_b is the same before and after it (for J / T neither 0 nor
-// NaN; both false else).
-template <bool kWolff>
+// NaN; both false else).  NB: the offsets unrolled (4, 5, 8, 9, 13), or 0:
+// steps of four offsets, each task's own words and grey words kept in
+// registers across the steps.
+template <bool kWolff, int NB>
 __global__ void __launch_bounds__(kThreads)
 ov_mid_table_kernel(const int8_t* __restrict__ spins, const int32_t* __restrict__ sid,
                     const int32_t* __restrict__ tasks, const float* __restrict__ coup,
@@ -1665,69 +1888,89 @@ ov_mid_table_kernel(const int8_t* __restrict__ spins, const int32_t* __restrict_
                     const int32_t* __restrict__ keys, const int32_t* __restrict__ fwd,
                     const int32_t* __restrict__ bwd, const uint32_t* __restrict__ state,
                     const int32_t* __restrict__ parent, uint32_t* __restrict__ state2,
-                    uint8_t* __restrict__ flip, const OvTable g) {
-  const TableTask k = table_task(g);
-  const int grp = blockIdx.x * kThreads + threadIdx.x;
-  const int i0 = 4 * grp;
-  if (i0 >= g.n) return;
-  const int cnt = min(4, g.n - i0);
-  const int8_t* A = spins + table_row(g, k, sid, tasks, 2, 0);
-  const int8_t* B = spins + table_row(g, k, sid, tasks, 2, 1);
-  const size_t base = static_cast<size_t>(k.b) * g.n;
-  const uint32_t* S = state + base;
-  const int32_t* P = parent + base;
-  const int32_t* sc = scal + 6 * k.b;
-  const uint32_t s0 = static_cast<uint32_t>(__ldg(sc));
-  const uint32_t s1 = static_cast<uint32_t>(__ldg(sc + 1));
-  const int root = kWolff ? __ldg(P + __ldg(sc + 4)) : -1;
-  const float T = __ldg(temps + k.t);
-  const uint32_t k0 = static_cast<uint32_t>(__ldg(keys + 2 * k.b));
-  const uint32_t k1 = static_cast<uint32_t>(__ldg(keys + 2 * k.b + 1));
-  const float* J = coup + static_cast<size_t>(k.z) * g.n * g.nb;
-  int a[4], b[4];
-  uint32_t grey[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    if (q >= cnt) break;
-    const int i = i0 + q;
-    a[q] = __ldg(A + i);
-    b[q] = __ldg(B + i);
-    grey[q] = __ldg(S + i);
-    const int lab = __ldg(P + i);
-    const bool fl = kWolff ? lab == root
-                           : salted_uniform(static_cast<uint32_t>(lab), s0, s1) < 0.5f &&
-                                 table_nonsingleton(S, bwd, i, lab, grey[q], g.nb);
-    flip[base + i] = fl ? 1 : 0;
+                    uint8_t* __restrict__ flip, const OvTable g, int per, int vec) {
+  __shared__ TableTasks sh;
+  extern __shared__ int mid_back[];  // SW, NB > 0: each thread's group's backward rows
+  const int z = blockIdx.z;
+  const int b0 = z * g.T * g.G + blockIdx.x * per;
+  stage_pair_tasks(sh, sid, tasks, temps, keys, g, per, kProbGrey);
+  if (threadIdx.x < per) {
+    const int k = threadIdx.x;
+    const int32_t* sc = scal + 6 * (b0 + k);
+    sh.s0[k] = static_cast<uint32_t>(__ldg(sc));
+    sh.s1[k] = static_cast<uint32_t>(__ldg(sc + 1));
+    if (kWolff) sh.root[k] = __ldg(parent + static_cast<size_t>(b0 + k) * g.n + __ldg(sc + 4));
   }
-  for (int d = 0; d < g.nb; ++d) {
-    bool cand[4];
-    float jt[4];
-    bool any = false;
+  __syncthreads();
+  const int n_grp = (g.n + 3) >> 2;
+  for (int grp = blockIdx.y * kThreads + threadIdx.x; grp < n_grp;
+       grp += gridDim.y * kThreads) {
+    const int i0 = 4 * grp;
+    const int cnt = min(4, g.n - i0);
+    const float* cg = coup + (static_cast<size_t>(z) * g.n + i0) * g.nb;
+    const int32_t* rg = fwd + static_cast<size_t>(i0) * g.nb;
+    const bool c16 = reinterpret_cast<uintptr_t>(cg) % 16 == 0;
+    const uint32_t live = live_bytes(cnt);
+    if constexpr (NB > 0) {
+      int f[4][NB];
+      uint32_t m[NB];
+      whole_rows<NB>(f, m, rg, cg, i0, cnt, c16);
+      int* bk = mid_back + threadIdx.x;
+      const uint32_t past = kWolff ? 0u : stage_back<NB>(bk, bwd, i0, cnt);
+      for (int k = 0; k < per; ++k) {
+        const size_t base = static_cast<size_t>(b0 + k) * g.n;
+        uint32_t st[4];
+        int lab[4];
+        table_roots(st, lab, state + base, parent + base, i0, cnt, vec & 2);
+        const uint32_t own = own_bonds(st, lab, i0);
+        const int8_t* A = spins + sh.ra[k];
+        const int8_t* B = spins + sh.rb[k];
+        grey_bonds<NB>(st, A, B, own_spins(A, i0, cnt, vec & 1), own_spins(B, i0, cnt, vec & 1),
+                       f, m, cg, g.nb, 0, NB, live, grp, sh, k);
+        store_words(state2 + base, i0, cnt, st, vec & 2);
+        store_flips(flip + base, i0, cnt,
+                    blue_flips<kWolff, NB>(own, lab, state + base, bwd, bk, past, i0, cnt, g.nb,
+                                           sh, k),
+                    vec & 2);
+      }
+    } else {
+      uint32_t st[kMaxPer][4];
+      uint32_t aw[kMaxPer], bw[kMaxPer];
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      cand[q] = false;
-      jt[q] = 0.0f;
-      if (q >= cnt || ((grey[q] >> d) & 1u)) continue;
-      const size_t e = static_cast<size_t>(i0 + q) * g.nb + d;
-      const int f = __ldg(fwd + e);
-      jt[q] = __ldg(J + e) / T;
-      const bool sa = static_cast<float>(a[q] * __ldg(A + f)) * jt[q] > 0.0f;
-      const bool sb = static_cast<float>(b[q] * __ldg(B + f)) * jt[q] > 0.0f;
-      cand[q] = sa != sb;
-      any = any || cand[q];
+      for (int k = 0; k < kMaxPer; ++k) {
+        st[k][0] = st[k][1] = st[k][2] = st[k][3] = 0u;
+        aw[k] = bw[k] = 0u;
+        if (k < per) {
+          const size_t base = static_cast<size_t>(b0 + k) * g.n;
+          int lab[4];
+          table_roots(st[k], lab, state + base, parent + base, i0, cnt, vec & 2);
+          store_flips(flip + base, i0, cnt,
+                      blue_flips<kWolff, 0>(own_bonds(st[k], lab, i0), lab, state + base, bwd,
+                                            nullptr, 0u, i0, cnt, g.nb, sh, k),
+                      vec & 2);
+          aw[k] = own_spins(spins + sh.ra[k], i0, cnt, vec & 1);
+          bw[k] = own_spins(spins + sh.rb[k], i0, cnt, vec & 1);
+        }
+      }
+      for (int d0 = 0; d0 < g.nb; d0 += 4) {
+        int f[4][4];
+        uint32_t m[4];
+        step_rows(f, m, rg, cg, g.nb, d0, g.nb, i0, cnt,
+                  g.nb % 4 == 0 && d0 + 4 <= g.nb && cnt == 4 && c16);
+#pragma unroll
+        for (int k = 0; k < kMaxPer; ++k) {
+          if (k >= per) break;
+          grey_bonds<4>(st[k], spins + sh.ra[k], spins + sh.rb[k], aw[k], bw[k], f, m, cg, g.nb,
+                        d0, g.nb, live, grp, sh, k);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kMaxPer; ++k) {
+        if (k >= per) break;
+        store_words(state2 + static_cast<size_t>(b0 + k) * g.n, i0, cnt, st[k], vec & 2);
+      }
     }
-    if (!any) continue;
-    const uint4 r = philox4x32_10(k0, k1, static_cast<uint32_t>(g.nb + d),
-                                  static_cast<uint32_t>(grp), 0u, 0u);
-    const uint32_t uw[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-    for (int q = 0; q < 4; ++q)
-      if (cand[q] && (uw[q] >> 8) < threshold24(bond_prob(kProbGrey, jt[q])))
-        grey[q] |= 1u << d;
   }
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-    if (q < cnt) state2[base + i0 + q] = grey[q];
 }
 
 // The flips of a Joerg or CMR move (ov_finish's rules) from the flat parents
@@ -1789,60 +2032,235 @@ ov_finish_table_kernel(int8_t* __restrict__ spins, const int32_t* __restrict__ s
   }
 }
 
-// Whether site i is balanced: the g members' spins (row offsets rows) sum
-// to 0.
-__device__ __forceinline__ bool table_balanced(const int8_t* __restrict__ spins,
-                                               const long long* rows, int gs, int i) {
-  int s = 0;
-  for (int r = 0; r < gs; ++r) s += __ldg(spins + rows[r] + i);
-  return s == 0;
+// Per-byte counts of -1 spins (bit 7 of a spin byte) over a task's members:
+// bytes q of lo where g <= 254 (no byte overflows); past it 16-bit lanes,
+// bytes 0 and 2 in lo, 1 and 3 in hi (houdn_bonds' balanced_words).
+template <bool kWide>
+__device__ __forceinline__ void add_signs(uint32_t& lo, uint32_t& hi, uint32_t w) {
+  if (kWide) {
+    lo += (w >> 7) & 0x00010001u;
+    hi += (w >> 15) & 0x00010001u;
+  } else {
+    lo += (w >> 7) & kByteBits;
+  }
 }
 
-// Houdayer(N)'s bonds (houdn_bonds' rules): bond d joins two balanced sites
-// i and fwd[i, d].  The CTA stages its task's g member rows in dynamic
-// shared memory; the Wolff seed, the first balanced probe (n when none is,
-// and for SW), from the first warp of the task's first block.
+// Bit 0 of byte q where the counts hold g / 2 (h): __vcmpeq4, or the 16-bit
+// lanes' __vcmpeq2.
+template <bool kWide>
+__device__ __forceinline__ uint32_t half_signs(uint32_t lo, uint32_t hi, uint32_t h) {
+  if (kWide)
+    return (__vcmpeq2(lo, h * 0x00010001u) & 0x00010001u) |
+           ((__vcmpeq2(hi, h * 0x00010001u) & 0x00010001u) << 8);
+  return __vcmpeq4(lo, h * kByteBits) & kByteBits;
+}
+
+// Per-byte sign counts (add_signs) over a task's g members of the group's
+// neighbour words along K offsets (lo[j], hi[j]: table.cuh gather_words
+// through the rows f) and, where kOwn, of its own words (lo[K], hi[K]:
+// own_spins), two members at a time (g is even) so that their loads are
+// in flight together.
+template <int K, bool kOwn, bool kWide>
+__device__ __forceinline__ void sign_counts(uint32_t (&lo)[K + 1], uint32_t (&hi)[K + 1],
+                                            const int8_t* __restrict__ spins,
+                                            const long long* rows, int gs, const int (&f)[4][K],
+                                            int i0, int cnt, int vec) {
+#pragma unroll
+  for (int j = 0; j <= K; ++j) lo[j] = hi[j] = 0u;
+  for (int r = 0; r < gs; r += 2) {
+    const int8_t* s0 = spins + rows[r];
+    const int8_t* s1 = spins + rows[r + 1];
+    uint32_t w0[K], w1[K];
+    gather_words<K>(w0, s0, f);
+    gather_words<K>(w1, s1, f);
+    if (kOwn) {
+      const uint32_t o0 = own_spins(s0, i0, cnt, vec);
+      const uint32_t o1 = own_spins(s1, i0, cnt, vec);
+      add_signs<kWide>(lo[K], hi[K], o0);
+      add_signs<kWide>(lo[K], hi[K], o1);
+    }
+#pragma unroll
+    for (int j = 0; j < K; ++j) {
+      add_signs<kWide>(lo[j], hi[j], w0[j]);
+      add_signs<kWide>(lo[j], hi[j], w1[j]);
+    }
+  }
+}
+
+// Bond d of offsets d0 .. d0+K-1 below top, or'ed into st: act0 (the
+// group's balanced sites, bit 0 of byte q) and the neighbour along d
+// balanced.
+template <int K, bool kWide>
+__device__ __forceinline__ void houdn_words(uint32_t (&st)[4], uint32_t act0,
+                                            const uint32_t (&lo)[K + 1],
+                                            const uint32_t (&hi)[K + 1], int gs, int d0,
+                                            int top) {
+  const uint32_t h = static_cast<uint32_t>(gs >> 1);
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    const int d = d0 + j;
+    if (d >= top) break;
+    const uint32_t on = act0 & half_signs<kWide>(lo[j], hi[j], h);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) st[q] |= ((on >> (8 * q)) & 1u) << d;
+  }
+}
+
+// Houdayer(N)'s bonds (houdn_bonds' rules: bond d joins two balanced sites
+// i and fwd[i, d], whose g members' spins sum to 0; the first design took
+// four sites of one task a thread, summed a site's g member bytes for
+// itself and again for each of its nb neighbours, loaded a table entry
+// before each neighbour's bytes and stored a word a site).  ov_bonds_table's
+// walk: a thread takes the group of four sites 4 grp .. 4 grp + 3
+// (blockIdx.y the groups' block, strided) for `per` consecutive tasks of one
+// realization (blockIdx.z; blockIdx.x the set; ops/overlap.py
+// ov_table_plan), whose per g member rows the CTA stages in dynamic shared
+// memory once.  It reads the group's table rows once for its tasks
+// (table.cuh, rows alone), and for each task counts its members' sign bits
+// a word at a time, two members' loads together: own words one 32-bit load
+// where vec & 1, each offset's neighbour words gathered (sign_counts); the
+// four words one 16-byte store (vec & 2).  The Wolff seeds: warp k of the
+// groups' first block takes task k (per <= the CTA's 8 warps), lane l
+// testing probes l and 32 + l, two ballots choosing the first balanced
+// probe in probe order (n when none is, and for SW).  NB: the offsets
+// unrolled, or 0: steps of four offsets, each task's balanced sites and
+// words kept in registers across the steps; kWide: g > 254, the counts'
+// 16-bit lanes.
+static_assert(kMaxPer <= kThreads / 32, "houdn_bonds_table: a warp a task's Wolff seed");
+
+template <int NB, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 houdn_bonds_table_kernel(const int8_t* __restrict__ spins, const int32_t* __restrict__ sid,
                          const int32_t* __restrict__ tasks, const int32_t* __restrict__ probes,
                          const int32_t* __restrict__ fwd, uint32_t* __restrict__ state,
-                         int32_t* __restrict__ seeds, const OvTable g, int gs, int wolff) {
-  extern __shared__ long long table_rows[];
-  const TableTask k = table_task(g);
-  for (int r = threadIdx.x; r < gs; r += kThreads)
-    table_rows[r] = table_row(g, k, sid, tasks, gs, r);
+                         int32_t* __restrict__ seeds, const OvTable g, int gs, int wolff,
+                         int per, int vec) {
+  extern __shared__ long long table_rows[];  // [per gs]: member r of task k at k gs + r
+  const int z = blockIdx.z;
+  const int b0 = z * g.T * g.G + blockIdx.x * per;
+  const long long row0 = static_cast<long long>(z) * g.S;
+  for (int e = threadIdx.x; e < per * gs; e += kThreads) {
+    const int k = e / gs;
+    const int t = (blockIdx.x * per + k) / g.G;
+    const int rep = __ldg(tasks + static_cast<size_t>(b0) * gs + e);
+    table_rows[e] = (row0 + __ldg(sid + row0 + rep * g.T + t)) * g.n;
+  }
   __syncthreads();
-  if (blockIdx.x == 0) {
+  if (blockIdx.y == 0) {
+    const int w = threadIdx.x >> 5;
     if (wolff) {
-      if (threadIdx.x < 32) {
-        const int l = threadIdx.x;
-        const int32_t* pr = probes + kProbes * k.b;
+      if (w < per) {  // warp w: task w's probes, lane l probes l and 32 + l
+        const int l = threadIdx.x & 31;
+        const long long* rows = table_rows + w * gs;
+        const int32_t* pr = probes + kProbes * (b0 + w);
         const int p0 = __ldg(pr + l);
         const int p1 = __ldg(pr + 32 + l);
-        const unsigned lo = __ballot_sync(0xffffffffu, table_balanced(spins, table_rows, gs, p0));
-        const unsigned hi = __ballot_sync(0xffffffffu, table_balanced(spins, table_rows, gs, p1));
-        if (l == 0) seeds[k.b] = lo ? pr[__ffs(lo) - 1] : hi ? pr[32 + __ffs(hi) - 1] : g.n;
+        int s0 = 0, s1 = 0;
+#pragma unroll 4
+        for (int r = 0; r < gs; ++r) {
+          const int8_t* m = spins + rows[r];
+          s0 += __ldg(m + p0);
+          s1 += __ldg(m + p1);
+        }
+        const unsigned lo = __ballot_sync(0xffffffffu, s0 == 0);
+        const unsigned hi = __ballot_sync(0xffffffffu, s1 == 0);
+        if (l == 0) seeds[b0 + w] = lo ? pr[__ffs(lo) - 1] : hi ? pr[32 + __ffs(hi) - 1] : g.n;
       }
-    } else if (threadIdx.x == 0) {
-      seeds[k.b] = g.n;
+    } else if (threadIdx.x < per) {
+      seeds[b0 + threadIdx.x] = g.n;
     }
   }
-  const int grp = blockIdx.x * kThreads + threadIdx.x;
-  const int i0 = 4 * grp;
-  if (i0 >= g.n) return;
-  const int cnt = min(4, g.n - i0);
-  uint32_t* out = state + static_cast<size_t>(k.b) * g.n;
+  const int n_grp = (g.n + 3) >> 2;
+  for (int grp = blockIdx.y * kThreads + threadIdx.x; grp < n_grp;
+       grp += gridDim.y * kThreads) {
+    const int i0 = 4 * grp;
+    const int cnt = min(4, g.n - i0);
+    const int32_t* rg = fwd + static_cast<size_t>(i0) * g.nb;
+    const uint32_t live = live_bytes(cnt);
+    if constexpr (NB > 0) {
+      int f[4][NB];
+      uint32_t m[NB];  // no couplings: unread
+      whole_rows<NB, false>(f, m, rg, nullptr, i0, cnt, false);
+      for (int k = 0; k < per; ++k) {
+        uint32_t lo[NB + 1], hi[NB + 1];
+        sign_counts<NB, true, kWide>(lo, hi, spins, table_rows + k * gs, gs, f, i0, cnt,
+                                     vec & 1);
+        const uint32_t act0 = half_signs<kWide>(lo[NB], hi[NB], static_cast<uint32_t>(gs >> 1)) &
+                              live;
+        uint32_t st[4] = {0u, 0u, 0u, 0u};
+        houdn_words<NB, kWide>(st, act0, lo, hi, gs, 0, NB);
+        store_words(state + static_cast<size_t>(b0 + k) * g.n, i0, cnt, st, vec & 2);
+      }
+    } else {
+      uint32_t st[kMaxPer][4];
+      uint32_t act0[kMaxPer];
 #pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    if (q >= cnt) break;
-    const int i = i0 + q;
-    uint32_t st = 0;
-    if (table_balanced(spins, table_rows, gs, i)) {
-      const int32_t* row = fwd + static_cast<size_t>(i) * g.nb;
-      for (int d = 0; d < g.nb; ++d)
-        if (table_balanced(spins, table_rows, gs, __ldg(row + d))) st |= 1u << d;
+      for (int k = 0; k < kMaxPer; ++k) {
+        st[k][0] = st[k][1] = st[k][2] = st[k][3] = 0u;
+        act0[k] = 0u;
+      }
+      for (int d0 = 0; d0 < g.nb; d0 += 4) {
+        int f[4][4];
+        uint32_t m[4];
+        step_rows<false>(f, m, rg, nullptr, g.nb, d0, g.nb, i0, cnt,
+                         g.nb % 4 == 0 && d0 + 4 <= g.nb && cnt == 4);
+#pragma unroll
+        for (int k = 0; k < kMaxPer; ++k) {
+          if (k >= per) break;
+          uint32_t lo[5], hi[5];
+          if (d0 == 0) {  // the first step also counts the group's own words
+            sign_counts<4, true, kWide>(lo, hi, spins, table_rows + k * gs, gs, f, i0, cnt,
+                                        vec & 1);
+            act0[k] = half_signs<kWide>(lo[4], hi[4], static_cast<uint32_t>(gs >> 1)) & live;
+          } else if (act0[k]) {
+            sign_counts<4, false, kWide>(lo, hi, spins, table_rows + k * gs, gs, f, i0, cnt,
+                                         vec & 1);
+          }
+          if (act0[k]) houdn_words<4, kWide>(st[k], act0[k], lo, hi, gs, d0, g.nb);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < kMaxPer; ++k) {
+        if (k >= per) break;
+        store_words(state + static_cast<size_t>(b0 + k) * g.n, i0, cnt, st[k], vec & 2);
+      }
     }
-    out[i] = st;
+  }
+}
+
+// Call f with the instance of kKernel (0 ov_bonds_table, 1 ov_mid_table, 2
+// houdn_bonds_table) of nb offsets (unrolled: 4, 5, 8, 9, 13; else the
+// runtime count) and `variant` (ov_bonds_table: the move kind;
+// ov_mid_table: Wolff where nonzero; houdn_bonds_table: g > 254, the
+// counts' 16-bit lanes).
+template <int kKernel, typename F>
+void ov_table_instance(int nb, int variant, F&& f) {
+  auto pick = [&](auto nb_c) {
+    constexpr int NB = decltype(nb_c)::value;
+    if constexpr (kKernel == 0) {
+      if (variant == kJorg)
+        f(ov_bonds_table_kernel<kJorg, NB>);
+      else
+        f(ov_bonds_table_kernel<kCmr, NB>);
+    } else if constexpr (kKernel == 1) {
+      if (variant)
+        f(ov_mid_table_kernel<true, NB>);
+      else
+        f(ov_mid_table_kernel<false, NB>);
+    } else {
+      if (variant)
+        f(houdn_bonds_table_kernel<NB, true>);
+      else
+        f(houdn_bonds_table_kernel<NB, false>);
+    }
+  };
+  switch (nb) {
+    case 4: pick(std::integral_constant<int, 4>{}); break;
+    case 5: pick(std::integral_constant<int, 5>{}); break;
+    case 8: pick(std::integral_constant<int, 8>{}); break;
+    case 9: pick(std::integral_constant<int, 9>{}); break;
+    case 13: pick(std::integral_constant<int, 13>{}); break;
+    default: pick(std::integral_constant<int, 0>{}); break;
   }
 }
 
@@ -2327,23 +2745,20 @@ int peapods_houdn_finish(void* spins, const void* sid, const void* tasks, const 
 // the walk form's entry points, with fwd / bwd the lattice's int32 tables
 // [n, nb] (device memory), state / state2 uint32 [n_tasks, n] (bit d: the
 // bond to fwd[i, d]), flip uint8 [n_tasks, n] (CMR's blue flip), words
-// ops/overlap.py ov_table_words (host memory).
+// ops/overlap.py ov_table_words (host memory); per the tasks a thread of
+// the planned kernels (ops/overlap.py table_pers); ov_mid_table's parent
+// the blue graph's least-site roots.
 int peapods_ov_bonds_table(const void* spins, const void* sid, const void* tasks,
                            const void* coup, const void* temps, const void* scal,
                            const void* probes, const void* keys, const void* fwd, void* state,
                            void* seeds, const int* words, int kind, int wolff, int per,
                            void* stream) {
   const OvTable g = make_ov_table(words);
-  const int tg = g.T * g.G;
-  if ((kind != kJorg && kind != kCmr) || !ov_table_ok(g) || per < 1 || per > kMaxPer ||
-      tg % per || reinterpret_cast<uintptr_t>(fwd) % 16)
+  if ((kind != kJorg && kind != kCmr) || !table_plan_ok(g, per) || !aligned(fwd, 16))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int blocks = ((g.n + 3) / 4 + kThreads - 1) / kThreads;
-  const dim3 grid(tg / per, blocks < 65535 ? blocks : 65535, g.d);
-  const int vec = (g.n % 4 == 0 && reinterpret_cast<uintptr_t>(spins) % 4 == 0) |
-                  (g.n % 4 == 0 && reinterpret_cast<uintptr_t>(state) % 16 == 0) << 1;
-  ov_bonds_table_instance(g.nb, kind, [&](auto kernel) {
-    kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const int vec = (g.n % 4 == 0 && aligned(spins, 4)) | (g.n % 4 == 0 && aligned(state, 16)) << 1;
+  ov_table_instance<0>(g.nb, kind, [&](auto kernel) {
+    kernel<<<table_plan_grid(g, per), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int8_t*>(spins), static_cast<const int32_t*>(sid),
         static_cast<const int32_t*>(tasks), static_cast<const float*>(coup),
         static_cast<const float*>(temps), static_cast<const int32_t*>(scal),
@@ -2354,32 +2769,57 @@ int peapods_ov_bonds_table(const void* spins, const void* sid, const void* tasks
   return static_cast<int>(cudaGetLastError());
 }
 
-// The CTAs an SM hold at once of the ov_bonds_table instance of nb offsets
-// and the move kind (ops/overlap.py ov_table_plan: its waves).
-int peapods_ov_bonds_table_ctas(int nb, int kind) {
+// The CTAs an SM hold at once of a planned table kernel's instance (kernel
+// 0 ov_bonds_table of move kind `variant`, 1 ov_mid_table Wolff where
+// `variant`, 2 houdn_bonds_table with g > 254 where `variant`; nb offsets;
+// smem bytes of dynamic shared memory, houdn_bonds_table's member rows) for
+// ops/overlap.py
+// ov_table_plan's waves; 0 for a kernel or kind it does not know.
+int peapods_ov_table_ctas(int kernel, int nb, int variant, int smem) {
+  if (kernel < 0 || kernel > 2 || (kernel == 0 && variant != kJorg && variant != kCmr) ||
+      smem < 0 || smem > 232448)
+    return 0;
   int ctas = 0;
-  if (kind != kJorg && kind != kCmr) return 0;
-  ov_bonds_table_instance(nb, kind, [&](auto kernel) {
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, kThreads, 0);
-  });
+  const size_t bytes = kernel == 1 ? mid_smem(nb, variant) : static_cast<size_t>(smem);
+  const auto query = [&](auto k) {
+    if (table_rows_smem(k, bytes) == cudaSuccess)
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, k, kThreads, bytes);
+  };
+  if (kernel == 0)
+    ov_table_instance<0>(nb, variant, query);
+  else if (kernel == 1)
+    ov_table_instance<1>(nb, variant, query);
+  else
+    ov_table_instance<2>(nb, variant, query);
   return ctas;
 }
 
 int peapods_ov_mid_table(const void* spins, const void* sid, const void* tasks, const void* coup,
                          const void* temps, const void* scal, const void* keys, const void* fwd,
                          const void* bwd, const void* state, const void* parent, void* state2,
-                         void* flip, const int* words, int wolff, void* stream) {
+                         void* flip, const int* words, int wolff, int per, void* stream) {
   const OvTable g = make_ov_table(words);
-  if (!ov_table_ok(g)) return static_cast<int>(cudaErrorInvalidValue);
-  const auto kernel = wolff ? ov_mid_table_kernel<true> : ov_mid_table_kernel<false>;
-  kernel<<<table_grid(g), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(spins), static_cast<const int32_t*>(sid),
-      static_cast<const int32_t*>(tasks), static_cast<const float*>(coup),
-      static_cast<const float*>(temps), static_cast<const int32_t*>(scal),
-      static_cast<const int32_t*>(keys), static_cast<const int32_t*>(fwd),
-      static_cast<const int32_t*>(bwd), static_cast<const uint32_t*>(state),
-      static_cast<const int32_t*>(parent), static_cast<uint32_t*>(state2),
-      static_cast<uint8_t*>(flip), g);
+  if (!table_plan_ok(g, per) || !aligned(fwd, 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int vec = (g.n % 4 == 0 && aligned(spins, 4)) |
+                  (g.n % 4 == 0 && aligned(state, 16) && aligned(state2, 16) &&
+                   aligned(parent, 16) && aligned(flip, 4))
+                      << 1;
+  const size_t smem = mid_smem(g.nb, wolff);
+  cudaError_t e = cudaSuccess;
+  ov_table_instance<1>(g.nb, wolff, [&](auto kernel) {
+    e = table_rows_smem(kernel, smem);
+    if (e == cudaSuccess)
+      kernel<<<table_plan_grid(g, per), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int8_t*>(spins), static_cast<const int32_t*>(sid),
+          static_cast<const int32_t*>(tasks), static_cast<const float*>(coup),
+          static_cast<const float*>(temps), static_cast<const int32_t*>(scal),
+          static_cast<const int32_t*>(keys), static_cast<const int32_t*>(fwd),
+          static_cast<const int32_t*>(bwd), static_cast<const uint32_t*>(state),
+          static_cast<const int32_t*>(parent), static_cast<uint32_t*>(state2),
+          static_cast<uint8_t*>(flip), g, per, vec);
+  });
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -2408,21 +2848,27 @@ int peapods_ov_finish_table(void* spins, const void* sid, const void* tasks, con
   return static_cast<int>(cudaGetLastError());
 }
 
-// Houdayer(N), g_size even: the task's member rows staged as 8-byte entries.
+// Houdayer(N), g_size even: the CTA's per tasks' member rows staged as
+// 8-byte entries.
 int peapods_houdn_bonds_table(const void* spins, const void* sid, const void* tasks,
                               const void* probes, const void* fwd, void* state, void* seeds,
-                              const int* words, int g_size, int wolff, void* stream) {
+                              const int* words, int g_size, int wolff, int per, void* stream) {
   const OvTable g = make_ov_table(words);
-  const size_t smem = static_cast<size_t>(g_size) * sizeof(long long);
-  if (!ov_table_ok(g) || g_size < 2 || g_size % 2 || smem > 232448)
+  const size_t smem = static_cast<size_t>(per) * g_size * sizeof(long long);
+  if (!table_plan_ok(g, per) || g_size < 2 || g_size % 2 || smem > 232448 || !aligned(fwd, 16))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t e = table_rows_smem(houdn_bonds_table_kernel, smem);
+  const int vec = (g.n % 4 == 0 && aligned(spins, 4)) | (g.n % 4 == 0 && aligned(state, 16)) << 1;
+  cudaError_t e = cudaSuccess;
+  ov_table_instance<2>(g.nb, g_size > 254, [&](auto kernel) {
+    e = table_rows_smem(kernel, smem);
+    if (e == cudaSuccess)
+      kernel<<<table_plan_grid(g, per), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int8_t*>(spins), static_cast<const int32_t*>(sid),
+          static_cast<const int32_t*>(tasks), static_cast<const int32_t*>(probes),
+          static_cast<const int32_t*>(fwd), static_cast<uint32_t*>(state),
+          static_cast<int32_t*>(seeds), g, g_size, wolff, per, vec);
+  });
   if (e != cudaSuccess) return static_cast<int>(e);
-  houdn_bonds_table_kernel<<<table_grid(g), kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(spins), static_cast<const int32_t*>(sid),
-      static_cast<const int32_t*>(tasks), static_cast<const int32_t*>(probes),
-      static_cast<const int32_t*>(fwd), static_cast<uint32_t*>(state),
-      static_cast<int32_t*>(seeds), g, g_size, wolff);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,9 +1,10 @@
 // The table form's group reads, shared by the bond kernels of fk.cu
-// (fk_bonds_table) and overlap.cu (ov_bonds_table): a thread takes the
-// group of four sites i0 .. i0+3 (the Philox counter's site / 4) for
-// several graphs or tasks of one realization, and reads the group's rows
-// of the int32 forward table fwd [n, nb] and of the realization's couplings
-// [n, nb] once for all of them.  A whole group's rows are 16 nb contiguous
+// (fk_bonds_table) and overlap.cu (ov_bonds_table, ov_mid_table,
+// houdn_bonds_table): a thread takes the group of four sites i0 .. i0+3
+// (the Philox counter's site / 4) for several graphs or tasks of one
+// realization, and reads the group's rows of the int32 forward table fwd
+// [n, nb] and of the realization's couplings [n, nb] once for all of them
+// (kCoup; Houdayer's bonds read the rows alone).  A whole group's rows are 16 nb contiguous
 // bytes: 16-byte loads where the table (and the couplings) are 16-byte
 // aligned, which the hosts check for the table.  A site past n (the last
 // group of n % 4 != 0 sites) reads its own index and a coupling of 0, so
@@ -41,11 +42,11 @@ __device__ __forceinline__ uint32_t live_bytes(int cnt) {
   return cnt >= 4 ? kByteBits : kByteBits & ((1u << (8 * cnt)) - 1u);
 }
 
-// The group's 4 NB table entries f[k][d] (site i0 + k, offset d) and each
-// offset's coupling word m[d]: NB 16-byte loads each where the group is
-// whole (the couplings also where c16, their address 16-byte aligned),
-// else one word at a time.
-template <int NB>
+// The group's 4 NB table entries f[k][d] (site i0 + k, offset d) and, where
+// kCoup, each offset's coupling word m[d] (else m is left alone and cg not
+// read): NB 16-byte loads each where the group is whole (the couplings
+// also where c16, their address 16-byte aligned), else one word at a time.
+template <int NB, bool kCoup = true>
 __device__ __forceinline__ void whole_rows(int (&f)[4][NB], uint32_t (&m)[NB],
                                            const int32_t* __restrict__ rg,
                                            const float* __restrict__ cg, int i0, int cnt,
@@ -66,6 +67,7 @@ __device__ __forceinline__ void whole_rows(int (&f)[4][NB], uint32_t (&m)[NB],
 #pragma unroll
       for (int j = 0; j < NB; ++j) f[k][j] = k < cnt ? __ldg(rg + k * NB + j) : i0;
   }
+  if (!kCoup) return;
 #pragma unroll
   for (int j = 0; j < NB; ++j) m[j] = 0u;
   if (cnt == 4 && c16) {
@@ -87,11 +89,12 @@ __device__ __forceinline__ void whole_rows(int (&f)[4][NB], uint32_t (&m)[NB],
   }
 }
 
-// A step of the runtime offset count: the entries and coupling words of
-// offsets d0 .. d0+3 below hi, rows of nb entries, one 16-byte load a site
-// and array where v16 (nb and d0 multiples of 4, four offsets below hi, a
-// whole group, the couplings aligned); an offset past hi reads the site's
-// own index and holds no coupling.
+// A step of the runtime offset count: the entries and (kCoup) coupling
+// words of offsets d0 .. d0+3 below hi, rows of nb entries, one 16-byte load
+// a site and array where v16 (nb and d0 multiples of 4, four offsets below
+// hi, a whole group, the couplings aligned); an offset past hi reads the
+// site's own index and holds no coupling.
+template <bool kCoup = true>
 __device__ __forceinline__ void step_rows(int (&f)[4][4], uint32_t (&m)[4],
                                           const int32_t* __restrict__ rg,
                                           const float* __restrict__ cg, int nb, int d0, int hi,
@@ -102,21 +105,23 @@ __device__ __forceinline__ void step_rows(int (&f)[4][4], uint32_t (&m)[4],
   for (int k = 0; k < 4; ++k) {
     if (v16) {
       const int4 x = __ldg(reinterpret_cast<const int4*>(rg + k * nb + d0));
-      const float4 y = __ldg(reinterpret_cast<const float4*>(cg + k * nb + d0));
       f[k][0] = x.x;
       f[k][1] = x.y;
       f[k][2] = x.z;
       f[k][3] = x.w;
-      m[0] |= coupling_bits(y.x) << (8 * k);
-      m[1] |= coupling_bits(y.y) << (8 * k);
-      m[2] |= coupling_bits(y.z) << (8 * k);
-      m[3] |= coupling_bits(y.w) << (8 * k);
+      if (kCoup) {
+        const float4 y = __ldg(reinterpret_cast<const float4*>(cg + k * nb + d0));
+        m[0] |= coupling_bits(y.x) << (8 * k);
+        m[1] |= coupling_bits(y.y) << (8 * k);
+        m[2] |= coupling_bits(y.z) << (8 * k);
+        m[3] |= coupling_bits(y.w) << (8 * k);
+      }
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const bool on = k < cnt && d0 + j < hi;
         f[k][j] = on ? __ldg(rg + k * nb + d0 + j) : i0;
-        if (on) m[j] |= coupling_bits(__ldg(cg + k * nb + d0 + j)) << (8 * k);
+        if (kCoup && on) m[j] |= coupling_bits(__ldg(cg + k * nb + d0 + j)) << (8 * k);
       }
     }
   }

@@ -69,10 +69,10 @@ _SIGNATURES = {
     "peapods_houdn_bonds": [_P] * 7 + [_I] * 2 + [_P],
     "peapods_houdn_finish": [_P] * 8 + [_I] * 2 + [_P],
     "peapods_ov_bonds_table": [_P] * 12 + [_I] * 3 + [_P],
-    "peapods_ov_bonds_table_ctas": [_I, _I],
-    "peapods_ov_mid_table": [_P] * 14 + [_I] + [_P],
+    "peapods_ov_table_ctas": [_I] * 4,
+    "peapods_ov_mid_table": [_P] * 14 + [_I] * 2 + [_P],
     "peapods_ov_finish_table": [_P] * 10 + [_I] * 2 + [_P],
-    "peapods_houdn_bonds_table": [_P] * 8 + [_I] * 2 + [_P],
+    "peapods_houdn_bonds_table": [_P] * 8 + [_I] * 3 + [_P],
     "peapods_houdn_finish_table": [_P] * 9 + [_I] * 2 + [_P],
     "peapods_energy_partials": [_P] * 6,
     "peapods_nb_blocks": [_I],

@@ -88,7 +88,10 @@ __all__ = [
     "energy_words",
     "OvTablePlan",
     "ov_table_plan",
+    "TABLE_PLANNED",
     "table_ctas",
+    "table_most",
+    "table_pers",
     "table_waves",
 ]
 
@@ -710,16 +713,26 @@ def ov_table_words(n: int, n_neighbors: int, n_disorder: int, n_temps: int,
                    n_groups: int, n_slots: int):
     """int32 host words of the table form's launches (``csrc/overlap.cu``
     ``OvTable``): ``n, nb, T, G, S, d``.  Its neighbours are the table's
-    rows, so it takes no residue steps; a thread takes a group of four
-    sites of one task (the grid's y), but for ``ov_bonds_table``
-    (:func:`ov_table_plan`)."""
+    rows, so it takes no residue steps; a thread of the finishes takes a
+    group of four sites of one task (the grid's y), of :data:`TABLE_PLANNED`
+    a group of four sites of :func:`ov_table_plan`'s ``per`` tasks."""
     return np.asarray([n, n_neighbors, n_temps, n_groups, n_slots, n_disorder], np.int32)
 
 
+# the table kernels that take ov_table_plan's launch, by their index in
+# csrc/overlap.cu ov_table_instance
+TABLE_PLANNED = ("ov_bonds_table", "ov_mid_table", "houdn_bonds_table")
+# houdn_bonds_table stages a CTA's per g member rows (8 bytes each) in shared
+# memory: its plan keeps them within the 48 KB a launch takes without
+# opting in (one task of g > TABLE_ROWS members opts in to more)
+TABLE_ROWS = 6144
+
+
 class OvTablePlan(NamedTuple):
-    """``ov_bonds_table``'s launch: the tasks a thread (``per``) and the
-    grid ``(tasks / per, group blocks, n_disorder)``, its blocks of 256
-    groups of four sites striding past 65535."""
+    """A planned table kernel's launch (:data:`TABLE_PLANNED`): the tasks a
+    thread (``per``) and the grid ``(tasks / per, group blocks,
+    n_disorder)``, its blocks of 256 groups of four sites striding past
+    65535."""
 
     per: int
     grid: tuple
@@ -733,20 +746,29 @@ def table_waves(ctas: int, slots: int, per: int) -> int:
     return -(-int(ctas) // max(1, int(slots))) * (int(per) + 1)
 
 
+def table_most(kernel: str, group: int = 2) -> int:
+    """The most tasks a thread of ``kernel`` takes: :data:`OV_MAX_PER`, and
+    for ``houdn_bonds_table`` as many as keep its staged member rows within
+    :data:`TABLE_ROWS` (at least 1)."""
+    if kernel == "houdn_bonds_table":
+        return max(1, min(OV_MAX_PER, TABLE_ROWS // int(group)))
+    return OV_MAX_PER
+
+
 @functools.lru_cache(maxsize=None)
 def ov_table_plan(n: int, n_disorder: int, n_temps: int, n_groups: int, sms: int,
-                  ctas: int) -> OvTablePlan:
-    """``ov_bonds_table``'s launch from the shape and the card: a thread a
-    group of four sites of ``per`` consecutive tasks of one realization,
-    reading the group's table rows and couplings once for them: a divisor
-    of a realization's tasks up to :data:`OV_MAX_PER`, a multiple or a
-    divisor of its groups (a thread's tasks of one temperature side by side,
-    as :func:`ov_per`'s), of the least :func:`table_waves` (``sms`` times
-    ``ctas``, the CTAs an SM holds of the kernel,
-    ``peapods_ov_bonds_table_ctas``), the largest of a tie."""
+                  ctas: int, most: int = OV_MAX_PER) -> OvTablePlan:
+    """A planned table kernel's launch (:data:`TABLE_PLANNED`) from the shape
+    and the card: a thread a group of four sites of ``per`` consecutive
+    tasks of one realization, reading the group's table rows (and
+    couplings) once for them: a divisor of a realization's tasks up to
+    ``most`` (:func:`table_most`), a multiple or a divisor of its groups (a
+    thread's tasks of one temperature side by side, as :func:`ov_per`'s),
+    of the least :func:`table_waves` (``sms`` times ``ctas``, the CTAs an
+    SM holds of the kernel, :func:`table_ctas`), the largest of a tie."""
     tg = int(n_temps) * int(n_groups)
     blocks = min(-(-(-(-int(n) // 4)) // 256), 65535)
-    fits = [p for p in range(1, min(tg, OV_MAX_PER) + 1)
+    fits = [p for p in range(1, min(tg, OV_MAX_PER, int(most)) + 1)
             if tg % p == 0 and (p % n_groups == 0 or n_groups % p == 0)]
     per = min(fits, key=lambda p: (table_waves(blocks * n_disorder * (tg // p), sms * ctas, p),
                                    -p))
@@ -754,11 +776,41 @@ def ov_table_plan(n: int, n_disorder: int, n_temps: int, n_groups: int, sms: int
 
 
 @functools.lru_cache(maxsize=None)
-def table_ctas(index: int, n_neighbors: int, kind: str) -> int:
-    """The CTAs an SM of card ``index`` holds at once of ``ov_bonds_table``'s
-    instance of ``n_neighbors`` offsets and the move ``kind``."""
+def table_ctas(index: int, kernel: str, n_neighbors: int, variant: int = 0,
+               smem: int = 0) -> int:
+    """The CTAs an SM of card ``index`` holds at once of ``kernel``'s
+    (:data:`TABLE_PLANNED`) instance of ``n_neighbors`` offsets and
+    ``variant`` (``ov_bonds_table``: the move kind's index in
+    :data:`KINDS`; ``ov_mid_table``: 1 for Wolff; ``houdn_bonds_table``: 1
+    past g = 254 members), with ``smem`` bytes of dynamic shared memory
+    (``houdn_bonds_table``'s member rows)."""
     with torch.cuda.device(index):
-        return _build.library().peapods_ov_bonds_table_ctas(n_neighbors, KINDS.index(kind))
+        return _build.library().peapods_ov_table_ctas(TABLE_PLANNED.index(kernel),
+                                                      n_neighbors, variant, smem)
+
+
+def table_pers(n: int, n_neighbors: int, n_disorder: int, n_temps: int, n_groups: int,
+               kind: str, wolff: bool, group: int = 2, index: int = None) -> dict:
+    """Each planned kernel of a move's table form (``ov_bonds_table`` and,
+    for CMR, ``ov_mid_table``; Houdayer ``houdn_bonds_table``) with its
+    :func:`ov_table_plan` ``per`` on card ``index`` (the current one by
+    default), the waves weighed on the kernel's own CTAs an SM."""
+    index = torch.cuda.current_device() if index is None else index
+    sms = torch.cuda.get_device_properties(index).multi_processor_count
+    if kind == "houdayer":  # past g = 254 the counts' 16-bit lanes
+        todo = [("houdn_bonds_table", int(int(group) > 254))]
+    else:
+        todo = [("ov_bonds_table", KINDS.index(kind))]
+        if kind == "cmr":
+            todo.append(("ov_mid_table", int(wolff)))
+    out = {}
+    for kernel, variant in todo:
+        most = table_most(kernel, group)
+        smem = most * int(group) * 8 if kernel == "houdn_bonds_table" else 0
+        out[kernel] = ov_table_plan(n, n_disorder, n_temps, n_groups, sms,
+                                    table_ctas(index, kernel, n_neighbors, variant, smem),
+                                    most).per
+    return out
 
 
 def launch_event_table(lib, stream, dims, p_spins, p_sid, p_tasks, p_coup, p_temps,
@@ -772,7 +824,7 @@ def launch_event_table(lib, stream, dims, p_spins, p_sid, p_tasks, p_coup, p_tem
     (``cc_table_link``, ``cc.table_link_launches``), CMR's blue
     flip a byte a site in the scratch's ``flip``.  ``dims`` is ``(n_tasks,
     n, 1, 1, T, G, S)`` (:func:`check_event`); ``per`` the tasks a thread
-    of ``ov_bonds_table`` (default :func:`ov_table_plan`'s)."""
+    of the move's planned kernels (default each one's :func:`table_pers`)."""
     n_tasks, _, _, _, n_temps, n_groups, n_slots = dims
     st, par, seeds, st2, par2, flip = scratch
     stats = _stats_buffer(kind, observe, p_labels, p_blue)
@@ -786,20 +838,17 @@ def launch_event_table(lib, stream, dims, p_spins, p_sid, p_tasks, p_coup, p_tem
     w = words.ctypes.data
     k = KINDS.index(kind)
     houd = kind == "houdayer"
+    pers = {key: per for key in TABLE_PLANNED} if per else table_pers(
+        n, nb, d, n_temps, n_groups, kind, wolff, group)
     if houd:
         _build.check(lib.peapods_houdn_bonds_table(
             p_spins, p_sid, p_tasks, p_probes, fwd, st, seeds, w, group, int(wolff),
-            stream), "houdn_bonds_table")
+            pers["houdn_bonds_table"], stream), "houdn_bonds_table")
         LAUNCHES["houdn_bonds_table"] += 1
     else:
-        dev = torch.cuda.current_device()
-        per = per or ov_table_plan(
-            n, d, n_temps, n_groups,
-            torch.cuda.get_device_properties(dev).multi_processor_count,
-            table_ctas(dev, nb, kind)).per
         _build.check(lib.peapods_ov_bonds_table(
             p_spins, p_sid, p_tasks, p_coup, p_temps, p_scal, p_probes, p_words, fwd,
-            st, seeds, w, k, int(wolff), per, stream), "ov_bonds_table")
+            st, seeds, w, k, int(wolff), pers["ov_bonds_table"], stream), "ov_bonds_table")
         LAUNCHES["ov_bonds_table"] += 1
     first = par if stats is None else stats
     link_graphs(lib, stream, st, first, n_tasks, None, lattice, tables)
@@ -815,7 +864,7 @@ def launch_event_table(lib, stream, dims, p_spins, p_sid, p_tasks, p_coup, p_tem
     if kind == "cmr":
         _build.check(lib.peapods_ov_mid_table(
             p_spins, p_sid, p_tasks, p_coup, p_temps, p_scal, p_words, fwd, bwd, st,
-            first, st2, flip, w, int(wolff), stream), "ov_mid_table")
+            first, st2, flip, w, int(wolff), pers["ov_mid_table"], stream), "ov_mid_table")
         LAUNCHES["ov_mid_table"] += 1
         last_st, last = st2, par2 if p_labels is None else p_labels
         link_graphs(lib, stream, st2, last, n_tasks, None, lattice, tables)

@@ -18,8 +18,10 @@ houdn_states_plain / finish_plain; on the table lattices (4D, 5D, odd
 extents, self-bonds, 9 and 32 offsets) the moves' table forms
 (ov_bonds_table, ov_mid_table, ov_finish_table, houdn_bonds_table,
 houdn_finish_table) and pair_overlap_table, whole, alone and in the engine
-against the CPU, and the redesigned measure_nb_table and pair_overlap_table
-at each systems-a-thread count and each cluster and copy form.  On a machine
+against the CPU, the redesigned measure_nb_table and pair_overlap_table
+at each systems-a-thread count and each cluster and copy form, and the
+redesigned ov_bonds_table, ov_mid_table and houdn_bonds_table at each
+tasks-a-thread count, whole and off their word alignment.  On a machine
 with a GPU (jax is not needed; ``--noconftest`` skips the JAX package's
 test configuration):
 
@@ -4132,7 +4134,8 @@ def test_ov_bonds_table_forms_match_plain(cuda, name, shape, offsets, d, n_rep, 
     tables = lat.device_tables(cuda)
     n, g_pairs = lat.n_spins, n_rep // 2
     tg = n_temps * g_pairs
-    ctas = overlap.table_ctas(cuda.index, lat.n_neighbors, kind)
+    ctas = overlap.table_ctas(cuda.index, "ov_bonds_table", lat.n_neighbors,
+                              overlap.KINDS.index(kind))
     assert ctas >= 1
     pers = [0] + [p for p in range(1, 9)
                   if tg % p == 0 and (p % g_pairs == 0 or g_pairs % p == 0)]
@@ -4158,3 +4161,148 @@ def test_ov_bonds_table_forms_match_plain(cuda, name, shape, offsets, d, n_rep, 
             assert overlap.LAUNCHES["ov_bonds_table"] == 1
             assert torch.equal(scratch.state, st), (offset, per)
             assert torch.equal(scratch.seeds, sd), (offset, per)
+
+
+def _table_pers(n, g, tg, plan):
+    """The plan's tasks a thread (0) and every other count up to ``most``
+    that splits ``tg`` tasks with a thread's tasks of one temperature side
+    by side; the plan's own count checked to be one of them."""
+    pers = [p for p in range(1, 9) if tg % p == 0 and (p % g == 0 or g % p == 0)]
+    assert plan in pers
+    return [0] + pers
+
+
+def _shifted(t, shift):
+    """``t`` itself, or (shift) a copy starting one element past its own
+    alignment: the kernels' word loads and stores off."""
+    if not shift:
+        return t
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("wolff", [True, False], ids=["wolff", "sw"])
+@pytest.mark.parametrize("name,shape,offsets,d,n_rep,n_temps,couplings", OV_TABLE_BONDS,
+                         ids=[x[0] for x in OV_TABLE_BONDS])
+def test_ov_mid_table_forms_match_plain(cuda, name, shape, offsets, d, n_rep, n_temps,
+                                        couplings, wolff):
+    """ov_mid_table at the plan's tasks a thread and at every other count up
+    to 8, whole (spins and buffers aligned) and on spins 1 byte off with the
+    blue words, parents, grey words and flips one element off their
+    alignment (the byte and word path; the tails at 9^4 and 7 x 9 too): the
+    grey words and flip bytes bitwise ``table_states_plain``'s on its blue
+    words and their labels, one launch; the plan on the kernel's queried
+    CTAs an SM."""
+    from peapods_tpu_torch.ops import overlap
+    from peapods_tpu_torch.ops.cluster import connected_components
+
+    lat = _table_lattice(shape, offsets)
+    fwd, bwd = lat.device_tables(cuda)
+    n, nb, g_pairs = lat.n_spins, lat.n_neighbors, n_rep // 2
+    tg = n_temps * g_pairs
+    plan = overlap.table_pers(n, nb, d, n_temps, g_pairs, "cmr", wolff, 2, cuda.index)
+    assert overlap.table_ctas(cuda.index, "ov_mid_table", nb, int(wolff)) >= 1
+    lib, stream = _build.library(), torch.cuda.current_stream(cuda).cuda_stream
+    words = overlap.ov_table_words(n, nb, d, n_temps, g_pairs, n_rep * n_temps)
+    for offset in (0, 1):
+        x = _ov_inputs(cuda, 131 + offset, lat, couplings, offset, d=d, n_rep=n_rep,
+                       n_temps=n_temps)
+        tab = _event_inputs(x, d, n_rep, n_temps, n, "cmr", wolff, 53 + offset)
+        st, st2, fl, _ = overlap.table_states_plain(
+            x["spins"].clone(), x["sid"], tab[0], x["coup"], x["temps"], *tab[1:],
+            kind="cmr", wolff=wolff, lattice=lat)
+        assert st2.any() and fl.any()
+        par = connected_components(fk.state_masks(st, nb), lat.shape,
+                                   lat.offsets).to(torch.int32)
+        blue, parent = _shifted(st, offset), _shifted(par, offset)
+        for per in _table_pers(n, g_pairs, tg, plan["ov_mid_table"]):
+            grey = _shifted(torch.full_like(st2, -7), offset)
+            flip = _shifted(torch.full_like(fl, 7), offset)
+            _reset_move_counts()
+            _build.check(lib.peapods_ov_mid_table(
+                x["spins"].data_ptr(), x["sid"].data_ptr(), tab[0].data_ptr(),
+                x["coup"].data_ptr(), x["temps"].data_ptr(), tab[1].data_ptr(),
+                tab[3].data_ptr(), fwd.data_ptr(), bwd.data_ptr(), blue.data_ptr(),
+                parent.data_ptr(), grey.data_ptr(), flip.data_ptr(), words.ctypes.data,
+                int(wolff), per or plan["ov_mid_table"], stream), "ov_mid_table")
+            torch.cuda.synchronize()
+            assert torch.equal(grey, st2), (offset, per)
+            assert torch.equal(flip, fl), (offset, per)
+
+
+# (name, shape, offsets, realizations, replicas, temperatures, group size):
+# the glass's pair move and Wolff houd4, nine16, a tail, a self offset, 32
+# offsets (the runtime count), 7 x 9 with 7 offsets, and g = 256 (16-bit
+# lanes)
+HOUDN_TABLE_BONDS = [
+    ("glass4d", (10, 10, 10, 10), None, 16, 2, 12, 2),
+    ("houd4", (10, 10, 10, 10), None, 16, 4, 12, 4),
+    ("nine16", (16, 16, 16), NINE, 8, 2, 24, 2),
+    ("4d9-tail", (9, 9, 9, 9), None, 2, 4, 5, 4),
+    ("4d-self", (1, 3, 3, 3), None, 2, 4, 3, 2),
+    ("off32", (8, 8), THIRTY_TWO, 2, 8, 3, 4),
+    ("ten7x9-tail", (7, 9), TEN[:7], 1, 2, 5, 2),
+    ("3^4-g256", (3, 3, 3, 3), None, 1, 256, 1, 256),
+]
+
+
+@pytest.mark.parametrize("wolff", [True, False], ids=["wolff", "sw"])
+@pytest.mark.parametrize("name,shape,offsets,d,n_rep,n_temps,g", HOUDN_TABLE_BONDS,
+                         ids=[x[0] for x in HOUDN_TABLE_BONDS])
+def test_houdn_bonds_table_forms_match_plain(cuda, name, shape, offsets, d, n_rep, n_temps,
+                                             g, wolff):
+    """houdn_bonds_table at the plan's tasks a thread and at every other count
+    up to its cap, whole and on spins 1 byte off with the words one element
+    off their alignment: the words and seeds bitwise ``table_states_plain``'s,
+    one launch a move through ``launch_event``; the plan on the kernel's
+    queried CTAs an SM."""
+    from peapods_tpu_torch.ops import overlap
+
+    lat = _table_lattice(shape, offsets)
+    tables = lat.device_tables(cuda)
+    fwd = tables[0]
+    n, nb, groups = lat.n_spins, lat.n_neighbors, n_rep // g
+    tg = n_temps * groups
+    plan = overlap.table_pers(n, nb, d, n_temps, groups, "houdayer", wolff, g, cuda.index)
+    lib, stream = _build.library(), torch.cuda.current_stream(cuda).cuda_stream
+    words = overlap.ov_table_words(n, nb, d, n_temps, groups, n_rep * n_temps)
+    pers = [p for p in _table_pers(n, groups, tg, plan["houdn_bonds_table"])
+            if p <= overlap.table_most("houdn_bonds_table", g)]
+    for offset in (0, 1):
+        x = _ov_inputs(cuda, 151 + offset, lat, "pm", offset, d=d, n_rep=n_rep,
+                       n_temps=n_temps)
+        if g > 2:  # half the members of a site down where a coin falls: balanced sites
+            half = torch.rand((d, 1, n), device=cuda) < 0.5
+            parity = torch.where(torch.arange(n_rep * n_temps, device=cuda) % 2 == 0, 1, -1)
+            x["spins"].copy_(torch.where(half, parity[None, :, None].to(torch.int8),
+                                         x["spins"]))
+        tab = _event_inputs(x, d, n_rep, n_temps, n, "houdayer", wolff, 61 + offset, g=g)
+        args = (x["sid"], tab[0], x["coup"], x["temps"], *tab[1:])
+        st, _, _, sd = overlap.table_states_plain(x["spins"].clone(), *args, kind="houdayer",
+                                                  wolff=wolff, lattice=lat)
+        assert st.any()
+        for per in pers:
+            out = _shifted(torch.full_like(st, -7), offset)
+            seeds = torch.full_like(sd, -7)
+            _reset_move_counts()
+            if offset == 0:  # the move's own launch
+                dims, _ = overlap.check_event(x["spins"], *args, lat, "houdayer")
+                scratch = overlap.Scratch(dims[0], n, cuda, False, table=True)
+                moved = x["spins"].clone()  # the move's finish flips it
+                overlap.launch_event(lib, stream, dims, moved.data_ptr(),
+                                     *(t.data_ptr() for t in args), scratch.ptrs(),
+                                     kind="houdayer", wolff=wolff, group=g, lattice=lat,
+                                     tables=tables, per=per)
+                out, seeds = scratch.state, scratch.seeds
+            else:
+                _build.check(lib.peapods_houdn_bonds_table(
+                    x["spins"].data_ptr(), x["sid"].data_ptr(), tab[0].data_ptr(),
+                    tab[2].data_ptr(), fwd.data_ptr(), out.data_ptr(), seeds.data_ptr(),
+                    words.ctypes.data, g, int(wolff), per or plan["houdn_bonds_table"],
+                    stream), "houdn_bonds_table")
+            torch.cuda.synchronize()
+            assert overlap.LAUNCHES["houdn_bonds_table"] == (offset == 0)
+            assert torch.equal(out, st), (offset, per)
+            assert torch.equal(seeds, sd), (offset, per)

@@ -204,9 +204,9 @@ def _modulo_fwd(shape, offsets, sign=1):
                          ids=TABLE_IDS + ["6^4", "5^5"])
 def test_table_launch_takes_every_task_site_once(shape, offsets, n_tasks):
     """``table_grid``'s CTAs (x the blocks of 256 groups of four sites, y the
-    tasks; ov_mid_table, ov_finish_table and the Houdayer forms): each
-    thread's group ``4 grp .. 4 grp + 3`` below n, every (task, site) once;
-    ``ov_bonds_table``'s plan (``overlap.ov_table_plan``: x a realization's
+    tasks; ov_finish_table and houdn_finish_table): each thread's group
+    ``4 grp .. 4 grp + 3`` below n, every (task, site) once; the planned
+    kernels' plan (``overlap.ov_table_plan``: x a realization's
     sets of ``per`` tasks, y the group blocks, z the realizations) every
     (task, site) once too; each neighbour the kernels read, ``fwd[i nb +
     d]`` / ``bwd[i nb + d]`` of the device tables, the reference's table and

@@ -100,23 +100,30 @@ line per measurement with the card, writes all of them as JSON to
 ``--json`` (default ``--out/probe.json``).  Needs a CUDA device, nvcc and
 cuobjdump; imports nothing of JAX.
 
-``--table`` times the table form ``ov_bonds_table`` (4D and up, or 7 to 32
-offsets; the first design, a group of four sites of one task a thread,
-the task's systems found again by every thread, byte gathers and J / T and
-the bond's exp again for every task and bond, told from the redesign, a
-group of ``per`` tasks a thread with the CTA's tasks staged, by its source)
-at the 4D +-J glass (10^4, 16 realizations x 12 temperatures x 2 replicas:
-CMR SW and Joerg Wolff) and nine16 (16^3 with 9 offsets, 8 x 12 x 2, CMR
-SW), on random states, the words and seeds bitwise
-``overlap.table_states_plain``, with its variants ``t-o-nophilox`` /
-``t-n-nophilox`` (Philox replaced by a cheap mix of its counter and keys
-in the first design / the redesign; wrong bonds: the share of the time the
-draws take), ``t-n-exp`` (the redesign taking every coupling as one other than
-+-1: J / T divided and the exp drawn for every candidate, no staged unit
-threshold), ``t-n-lb3`` (the 4-offset kernels asked for three CTAs an
-SM) and ``t-n-inline`` (the couplings other than +-1 decided inline),
-each variant on the plan of its own CTAs an SM; with ``--per`` the
-redesign at every count of tasks a thread.  It prints ``ov_bonds_table``'s
+``--table`` times the table forms ``ov_bonds_table``, ``ov_mid_table``
+and ``houdn_bonds_table`` (4D and up, or 7 to 32 offsets; a first design,
+a group of four sites of one task a thread, the task's systems found again
+by every thread, byte gathers, J / T and the bond's exp again for every
+task and bond, told from a redesign, a group of ``per`` tasks a thread with
+the CTA's tasks staged, by its source) at the 4D +-J glass (10^4, 16
+realizations x 12 temperatures x 2 replicas: ``ov_bonds_table`` CMR SW and
+Joerg Wolff, ``ov_mid_table`` CMR SW on the plain blue words and their
+labels, ``houdn_bonds_table`` the pair SW), Wolff Houdayer(4) at that shape
+(R = 4) and nine16 (16^3 with 9 offsets, 8 x 12 x 2, CMR SW), on random
+states, every output bitwise ``overlap.table_states_plain``'s, with the
+variants ``t-o-nophilox`` / ``t-n-nophilox`` (``ov_bonds_table``'s Philox
+replaced by a cheap mix of its counter and keys in the first design / the
+redesign; wrong bonds: the share of the time the draws take), ``t-n-exp``
+(the redesign taking every coupling as one other than +-1: J / T divided
+and the exp drawn for every candidate, no staged unit threshold),
+``t-n-lb3`` (the 4-offset kernels asked for three CTAs an SM),
+``t-n-inline`` (the couplings other than +-1 decided inline),
+``t-n-mid-nophilox`` (``ov_mid_table``'s grey draws so replaced),
+``t-n-mid-nowalk`` (its SW backward words skipped; wrong flips),
+``t-n-mid-inline`` (its backward words read inline) and ``t-n-runs`` (both
+other redesigns reading a run of four consecutive neighbours as aligned
+words), each variant on the plan of its own CTAs an SM; with ``--per`` each
+redesign at every count of tasks a thread.  It prints the table kernels'
 ptxas registers and spill bytes.
 """
 
@@ -151,8 +158,10 @@ BONDS = ("ov_bonds", "ov_mid")
 # a kernel's design: redesigned where its source holds the marker
 MARKER = {"ov_bonds": "OvWalk", "ov_mid": "OvWalk", "houdn_bonds": "houdn_rows",
           "ov_finish": "houdn_rows", "houdn_finish": "houdn_finish_kernel<2",
-          "ov_bonds_table": "TableTasks"}
+          "ov_bonds_table": "TableTasks", "ov_mid_table": "grey_bonds",
+          "houdn_bonds_table": "sign_counts"}
 TABLE = "ov_bonds_table"
+TABLES = ("ov_bonds_table", "ov_mid_table", "houdn_bonds_table")
 
 O_NODIV = [
     ("      const int f = fwd_site(i, g, dir);\n      const int af = k.a[f];",
@@ -285,10 +294,63 @@ T_N_NOPHILOX = [("      const uint4 r = philox4x32_10(sh.k0[k], sh.k1[k], static
                  "static_cast<uint32_t>(d), sh.k0[k] + sh.k1[k] + static_cast<uint32_t>(d));")]
 T_N_INLINE = [("__device__ __noinline__ uint32_t other_pair_bonds(",
                "__device__ __forceinline__ uint32_t other_pair_bonds(")]
-T_N_EXP = [("    const uint32_t uni = (m[j] >> 2) & kByteBits;", "    const uint32_t uni = 0u * m[j];")]
+T_N_EXP = [("    const uint32_t uni = (m[j] >> 2) & kByteBits;\n    const uint32_t jp",
+            "    const uint32_t uni = 0u * m[j];\n    const uint32_t jp")]
+# ... and of ov_mid_table's redesign: the grey draws' Philox replaced (wrong
+# bonds): the share of the time the draws take
+T_N_MID_NOPHILOX = [("      const uint4 r = philox4x32_10(sh.k0[k], sh.k1[k], "
+                     "static_cast<uint32_t>(nb + d),\n"
+                     "                                    static_cast<uint32_t>(grp), 0u, 0u);",
+                     "      const uint32_t gw = static_cast<uint32_t>(grp);\n"
+                     "      const uint4 r = make_uint4(sh.k0[k] ^ gw, sh.k1[k] + gw, gw * "
+                     "0x9E3779B9u ^ static_cast<uint32_t>(d), sh.k0[k] + sh.k1[k] + "
+                     "static_cast<uint32_t>(d));")]
 T_N_LB3 = [("template <int kKind, int NB>\n__global__ void __launch_bounds__(kThreads)\n"
             "ov_bonds_table_kernel(", "template <int kKind, int NB>\n__global__ void "
             "__launch_bounds__(kThreads, NB == 4 ? 3 : 1)\nov_bonds_table_kernel(")]
+# ... and the SW blue flips' backward neighbours skipped (wrong flips): their share
+T_N_MID_NOWALK = [("    const uint32_t look = need & past;", "    const uint32_t look = 0u;")]
+# ... both redesigns reading a run of four consecutive neighbours (every
+# axis offset but where a group meets the wrap) as the one or two aligned
+# words that hold it, funnel-shifted, the other neighbours a byte at a time
+GATHER_RUNS = """// The neighbour words as gather_words reads them, but a run of four
+// consecutive neighbours from its aligned words.
+template <int K>
+__device__ __forceinline__ void gather_runs(uint32_t (&w)[K], const int8_t* __restrict__ s,
+                                            const int (&f)[4][K]) {
+  uint8_t b[4][K];
+  bool run[K];
+  uint32_t lo[K], hi[K];
+#pragma unroll
+  for (int j = 0; j < K; ++j) {
+    run[j] = f[1][j] == f[0][j] + 1 && f[2][j] == f[0][j] + 2 && f[3][j] == f[0][j] + 3;
+    const uintptr_t a = reinterpret_cast<uintptr_t>(s + f[0][j]);
+    const uint32_t* p = reinterpret_cast<const uint32_t*>(a & ~static_cast<uintptr_t>(3));
+    lo[j] = run[j] ? __ldg(p) : 0u;
+    hi[j] = run[j] && (a & 3) ? __ldg(p + 1) : 0u;
+#pragma unroll
+    for (int q = 0; q < 4; ++q) b[q][j] = run[j] ? 0 : static_cast<uint8_t>(__ldg(s + f[q][j]));
+  }
+#pragma unroll
+  for (int j = 0; j < K; ++j)
+    w[j] = run[j] ? __funnelshift_r(lo[j], hi[j], 8 * static_cast<uint32_t>(
+                                                      reinterpret_cast<uintptr_t>(s + f[0][j]) & 3))
+                  : b[0][j] | static_cast<uint32_t>(b[1][j]) << 8 |
+                        static_cast<uint32_t>(b[2][j]) << 16 | static_cast<uint32_t>(b[3][j]) << 24;
+}
+
+"""
+T_N_RUNS = [("// The group's blue words st[q] (bit d: the blue bond to fwd[i0 + q, d]) and",
+             GATHER_RUNS + "// The group's blue words st[q] (bit d: the blue bond to fwd[i0 + q, d]) and"),
+            ("  gather_words<K>(an, A, f);\n  gather_words<K>(bn, B, f);\n"
+             "  const float inv = sh.inv[k];\n  const uint32_t nz",
+             "  gather_runs<K>(an, A, f);\n  gather_runs<K>(bn, B, f);\n"
+             "  const float inv = sh.inv[k];\n  const uint32_t nz"),
+            ("    gather_words<K>(w0, s0, f);\n    gather_words<K>(w1, s1, f);",
+             "    gather_runs<K>(w0, s0, f);\n    gather_runs<K>(w1, s1, f);")]
+# ... and ov_mid_table's backward words read inline
+T_N_MID_INLINE = [("__device__ __noinline__ uint32_t back_words(",
+                   "__device__ __forceinline__ uint32_t back_words(")]
 # name: (design, source edits, tasks a thread or None, keeps the function,
 # the kernels it changes)
 VARIANTS = {
@@ -311,6 +373,10 @@ VARIANTS = {
     "t-n-exp": ("redesign", T_N_EXP, None, True, (TABLE,)),
     "t-n-lb3": ("redesign", T_N_LB3, None, True, (TABLE,)),
     "t-n-inline": ("redesign", T_N_INLINE, None, True, (TABLE,)),
+    "t-n-mid-nophilox": ("redesign", T_N_MID_NOPHILOX, None, False, ("ov_mid_table",)),
+    "t-n-mid-nowalk": ("redesign", T_N_MID_NOWALK, None, False, ("ov_mid_table",)),
+    "t-n-runs": ("redesign", T_N_RUNS, None, True, ("ov_mid_table", "houdn_bonds_table")),
+    "t-n-mid-inline": ("redesign", T_N_MID_INLINE, None, True, ("ov_mid_table",)),
 }
 
 # (name, shape, realizations, replicas, temperatures, their range, couplings)
@@ -352,7 +418,7 @@ def forms(state):
 
 
 def designs(text: str) -> dict:
-    return {k: "redesign" if MARKER[k] in text else "first" for k in (*KERNELS, TABLE)}
+    return {k: "redesign" if MARKER[k] in text else "first" for k in (*KERNELS, *TABLES)}
 
 
 def builds(sources, out, variants):
@@ -763,14 +829,19 @@ def probe(libs, todo, states, card, rounds, results, rng, kernels):
                           flush=True)
 
 
-# the table form's states (ov_bonds_table): (name, shape, offsets,
-# realizations, replicas, temperatures, their range, couplings) and the
-# moves timed on each (kind, wolff)
+# the table form's states: (name, shape, offsets, realizations, replicas,
+# temperatures, their range, couplings) and the forms timed on each
+# (kernel, kind, wolff, group size): the smoke's glass (CMR SW and Joerg
+# Wolff, the pair Houdayer SW), Wolff houd4 at its shape (R = 4) and nine16
 NINE = [[1, 0, 0], [0, 1, 0], [0, 0, 1], [1, 1, 0], [1, -1, 0], [1, 0, 1], [1, 0, -1],
         [0, 1, 1], [0, 1, -1]]
 TABLE_STATES = (("glass4d", (10, 10, 10, 10), None, 16, 2, 12, (1.6, 2.4), "pm",
-                 (("cmr", False), ("jorg", True))),
-                ("nine16", (16, 16, 16), NINE, 8, 2, 12, (2.5, 4.5), "pm", (("cmr", False),)))
+                 (("ov_bonds_table", "cmr", False, 2), ("ov_bonds_table", "jorg", True, 2),
+                  ("ov_mid_table", "cmr", False, 2), ("houdn_bonds_table", "houdayer", False, 2))),
+                ("houd4", (10, 10, 10, 10), None, 16, 4, 12, (1.6, 2.4), "pm",
+                 (("houdn_bonds_table", "houdayer", True, 4),)),
+                ("nine16", (16, 16, 16), NINE, 8, 2, 12, (2.5, 4.5), "pm",
+                 (("ov_bonds_table", "cmr", False, 2), ("ov_mid_table", "cmr", False, 2))))
 
 
 def table_inputs(shape, offsets, d, n_rep, n_temps, t_range, couplings, dev, rng):
@@ -782,94 +853,140 @@ def table_inputs(shape, offsets, d, n_rep, n_temps, t_range, couplings, dev, rng
     sid = np.stack([rng.permutation(n_temps)[None] + n_temps * rng.permutation(n_rep)[:, None]
                     for _ in range(d)]).reshape(d, s).astype(np.int32)
     up = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    fwd, bwd = lat.device_tables(dev)
     return dict(lat=lat, shape=tuple(shape), d=d, n=n, nb=nb, n_rep=n_rep, n_temps=n_temps,
                 spins=up(rng.choice(np.array([-1, 1], np.int8), size=(d, s, n))),
                 coup=up(coup), temps=up(np.geomspace(*t_range, n_temps).astype(np.float32)),
-                sid=up(sid), fwd=lat.device_tables(dev)[0])
+                sid=up(sid), fwd=fwd, bwd=bwd)
 
 
-def table_launcher(lib, first, x, tab, kind, wolff, per):
-    """``(fn, state, seeds)``: one launch of a build's ov_bonds_table (the
-    redesign at ``per`` tasks a thread)."""
-    dev = x["spins"].device
-    b = tab[0].numel() // 2
-    n = x["n"]
-    state = torch.zeros((b, n), dtype=torch.int32, device=dev)
-    sd = torch.full((b,), -1, dtype=torch.int32, device=dev)
-    words = overlap.ov_table_words(n, x["nb"], x["d"], x["n_temps"], x["n_rep"] // 2,
-                                   x["n_rep"] * x["n_temps"])
-    fn = lib.peapods_ov_bonds_table
-    fn.restype = _I
-    head = [t.data_ptr() for t in (x["spins"], x["sid"], tab[0], x["coup"], x["temps"], tab[1],
-                                   tab[2], tab[3], x["fwd"], state, sd)]
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    k = overlap.KINDS.index(kind)
+def table_plain(x, tab, kernel, kind, wolff, g):
+    """The plain version's outputs of a table kernel: ``(outputs, inputs)``,
+    ov_bonds_table's words and seeds, ov_mid_table's grey words and flips
+    on the plain blue words and their labels, houdn_bonds_table's words and
+    seeds."""
+    args = (x["sid"], tab[0], x["coup"], x["temps"], *tab[1:])
+    st, st2, fl, sd = overlap.table_states_plain(x["spins"].clone(), *args, kind=kind,
+                                                 wolff=wolff, lattice=x["lat"])
+    if kernel != "ov_mid_table":
+        return (st, sd), ()
+    par = connected_components(fk.state_masks(st, x["nb"]), x["lat"].shape,
+                               x["lat"].offsets).to(torch.int32)
+    return (st2, fl), (st, par)
+
+
+def table_plan_per(lib, first, x, kernel, kind, wolff, g):
+    """The plan's tasks a thread of a build's redesigned kernel, on its own
+    CTAs an SM (0 for a first design); a build before the query took the
+    kernel asks ``peapods_ov_bonds_table_ctas``."""
     if first:
-        fn.argtypes = [_P] * 12 + [_I] * 2 + [_P]
-        args = (*head, words.ctypes.data, k, int(wolff), stream)
+        return 0
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    most = overlap.table_most(kernel, g)
+    smem = most * g * 8 if kernel == "houdn_bonds_table" else 0
+    variant = (overlap.KINDS.index(kind) if kernel == "ov_bonds_table" else int(wolff)
+               if kernel == "ov_mid_table" else int(g > 254))
+    try:
+        query = lib.peapods_ov_table_ctas
+        query.restype, query.argtypes = _I, [_I] * 4
+        ctas = query(overlap.TABLE_PLANNED.index(kernel), x["nb"], variant, smem)
+    except AttributeError:
+        query = lib.peapods_ov_bonds_table_ctas
+        query.restype, query.argtypes = _I, [_I, _I]
+        ctas = query(x["nb"], variant)
+    return overlap.ov_table_plan(x["n"], x["d"], x["n_temps"], x["n_rep"] // g, sms, ctas,
+                                 most).per
+
+
+def table_launcher(lib, first, x, tab, kernel, kind, wolff, g, per, inputs):
+    """``(fn, outputs)``: one launch of a build's table kernel (a redesign at
+    ``per`` tasks a thread) on fresh outputs."""
+    dev = x["spins"].device
+    b = tab[0].numel() // g
+    n = x["n"]
+    words = overlap.ov_table_words(n, x["nb"], x["d"], x["n_temps"], x["n_rep"] // g,
+                                   x["n_rep"] * x["n_temps"])
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    state = torch.zeros((b, n), dtype=torch.int32, device=dev)
+    fn = getattr(lib, f"peapods_{kernel}")
+    fn.restype = _I
+    tail = [] if first else [per]
+    if kernel == "ov_bonds_table":
+        sd = torch.full((b,), -1, dtype=torch.int32, device=dev)
+        head = [t.data_ptr() for t in (x["spins"], x["sid"], tab[0], x["coup"], x["temps"],
+                                       tab[1], tab[2], tab[3], x["fwd"], state, sd)]
+        fn.argtypes = [_P] * 12 + [_I] * (2 + len(tail)) + [_P]
+        args = (*head, words.ctypes.data, overlap.KINDS.index(kind), int(wolff), *tail, stream)
+        outs = (state, sd)
+    elif kernel == "ov_mid_table":
+        flip = torch.zeros((b, n), dtype=torch.uint8, device=dev)
+        head = [t.data_ptr() for t in (x["spins"], x["sid"], tab[0], x["coup"], x["temps"],
+                                       tab[1], tab[3], x["fwd"], x["bwd"], *inputs, state, flip)]
+        fn.argtypes = [_P] * 14 + [_I] * (1 + len(tail)) + [_P]
+        args = (*head, words.ctypes.data, int(wolff), *tail, stream)
+        outs = (state, flip)
     else:
-        fn.argtypes = [_P] * 12 + [_I] * 3 + [_P]
-        args = (*head, words.ctypes.data, k, int(wolff), per, stream)
-    state.words = words  # held with the state
-    return (lambda: _build.check(fn(*args), "ov_bonds_table")), state, sd
+        sd = torch.full((b,), -1, dtype=torch.int32, device=dev)
+        head = [t.data_ptr() for t in (x["spins"], x["sid"], tab[0], tab[2], x["fwd"], state,
+                                       sd)]
+        fn.argtypes = [_P] * 8 + [_I] * (2 + len(tail)) + [_P]
+        args = (*head, words.ctypes.data, g, int(wolff), *tail, stream)
+        outs = (state, sd)
+    state.words = words  # held with the outputs
+    return (lambda: _build.check(fn(*args), kernel)), outs
 
 
 def probe_table(libs, todo, card, rounds, pers, only, rng, results):
-    """ov_bonds_table of every source's base build and its table variants at
-    TABLE_STATES: words and seeds bitwise ``table_states_plain``; with
-    ``pers`` the redesign at every count of tasks a thread."""
-    keys = [k for k in todo if k[1] == "base" or TABLE in VARIANTS[k[1]][4]]
-    for name, shape, offsets, d, n_rep, n_temps, t_range, couplings, moves in TABLE_STATES:
+    """The table kernels (TABLES) of every source's base build and their
+    table variants at TABLE_STATES, each launch's outputs bitwise the plain
+    version's (``table_plain``); with ``pers`` each redesign at every count
+    of tasks a thread."""
+    for name, shape, offsets, d, n_rep, n_temps, t_range, couplings, forms in TABLE_STATES:
         if only and name not in only:
             continue
         dev = torch.device("cuda", 0)
         x = table_inputs(shape, offsets, d, n_rep, n_temps, t_range, couplings, dev, rng)
-        n, g_pairs = x["n"], n_rep // 2
-        tg = n_temps * g_pairs
-        sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        fits = [p for p in range(1, 9) if tg % p == 0 and (p % g_pairs == 0 or g_pairs % p == 0)]
-        for kind, wolff in moves:
-            tab = tables(x, kind, wolff, 2, rng, dev)
-            st, _, _, sd = overlap.table_states_plain(
-                x["spins"].clone(), x["sid"], tab[0], x["coup"], x["temps"], *tab[1:],
-                kind=kind, wolff=wolff, lattice=x["lat"])
-            b_ms, b_by = ea_bounds(x["lat"], d, n_temps, 2, g_pairs, 0, kind, wolff)[TABLE]
-            form = f"{kind} {'wolff' if wolff else 'sw'}"
+        n = x["n"]
+        for kernel, kind, wolff, g in forms:
+            keys = [k for k in todo if k[1] == "base" or kernel in VARIANTS[k[1]][4]]
+            groups = n_rep // g
+            tg = n_temps * groups
+            fits = [p for p in range(1, overlap.table_most(kernel, g) + 1)
+                    if tg % p == 0 and (p % groups == 0 or groups % p == 0)]
+            tab = tables(x, kind, wolff, g, rng, dev)
+            want_out, inputs = table_plain(x, tab, kernel, kind, wolff, g)
+            b_ms, b_by = ea_bounds(x["lat"], d, n_temps, g, groups, 0, kind, wolff)[kernel]
+            form = f"{kind}{g if kind == 'houdayer' else ''} {'wolff' if wolff else 'sw'}"
             for rnd in range(rounds):
                 for key in (keys if rnd % 2 == 0 else keys[::-1]):
                     label, variant = key
-                    first = todo[key][1][TABLE] == "first"
+                    first = todo[key][1][kernel] == "first"
                     spec = VARIANTS.get(variant, (None, [], None, True, ()))
                     lib = libs[key if todo[key][0] is not None else (label, "base")][0]
-                    rule = 0
-                    if not first:  # the plan on this build's CTAs an SM
-                        query = lib.peapods_ov_bonds_table_ctas
-                        query.restype, query.argtypes = _I, [_I, _I]
-                        rule = overlap.ov_table_plan(n, d, n_temps, g_pairs, sms, query(
-                            x["nb"], overlap.KINDS.index(kind))).per
+                    rule = table_plan_per(lib, first, x, kernel, kind, wolff, g)
                     every = [rule] + ([p for p in fits if p != rule]
                                       if pers and variant == "base" else [])
                     for per in ([0] if first else every):
-                        fn, state, seeds_out = table_launcher(lib, first, x, tab, kind, wolff,
-                                                              per)
+                        fn, outs = table_launcher(lib, first, x, tab, kernel, kind, wolff, g,
+                                                  per, inputs)
                         fn()
                         torch.cuda.synchronize()
                         ok = None
                         if spec[3]:
-                            ok = bool(torch.equal(state, st) and torch.equal(seeds_out, sd))
+                            ok = all(bool(torch.equal(o, w)) for o, w in zip(outs, want_out))
                             if not ok:
-                                raise AssertionError(f"{label} {variant} ov_bonds_table {form} "
-                                                     f"at {name} (per {per}) differs from its "
+                                raise AssertionError(f"{label} {variant} {kernel} {form} at "
+                                                     f"{name} (per {per}) differs from its "
                                                      "plain version")
                         ms = events_ms(fn, 100)
-                        results.append(dict(kind=TABLE, form=form, source=label,
+                        results.append(dict(kind=kernel, form=form, source=label,
                                             variant=variant, state=name, round=rnd, ms=ms,
                                             bound_ms=b_ms, bound_by=b_by, bitwise_plain=ok,
                                             per=None if first else per,
                                             rule=not first and per == rule,
                                             design="first" if first else "redesign"))
-                        print(f"[{TABLE}] {label} {variant} {name} {form} ({d * tg} tasks x {n} "
-                              f"sites, {x['nb']} offsets, "
+                        print(f"[{kernel}] {label} {variant} {name} {form} ({d * tg} tasks x "
+                              f"{n} sites, {x['nb']} offsets, "
                               + ("the first design" if first else f"{per} tasks a thread")
                               + f"): {ms:.5f} ms a launch (bound {b_ms:.6f} ms, {b_by})"
                               + (", bitwise plain" if ok else "") + f" round {rnd} on {card}",
@@ -890,7 +1007,8 @@ def main():
     ap.add_argument("--kernels", default=",".join(KERNELS),
                     help="comma-separated kernels to time (default: all five)")
     ap.add_argument("--table", action="store_true",
-                    help="also time the table form ov_bonds_table at the table runs' shapes")
+                    help="also time the table forms ov_bonds_table, ov_mid_table and "
+                         "houdn_bonds_table at the table runs' shapes")
     ap.add_argument("--per", action="store_true",
                     help="with --table: the redesign at every count of tasks a thread")
     a = ap.parse_args()
@@ -906,7 +1024,7 @@ def main():
     libs = compile_all(todo)
     results = []
     for key, (_, log, sass) in libs.items():
-        regs, counts = kernel_counts(log, sass, (*KERNELS, TABLE))
+        regs, counts = kernel_counts(log, sass, (*KERNELS, *TABLES))
         results.append(dict(kind="build", source=key[0], variant=key[1], registers=regs,
                             sass=counts))
         tag = f"{key[0]} {key[1]}"
